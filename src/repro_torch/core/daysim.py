@@ -1,0 +1,1245 @@
+"""Day-in-the-life energy simulator on torch tensors.
+
+A `DaySchedule` composes scenario rows into a timed day (each segment
+binds knob overrides, a capture duty and an ambient temperature), and
+the day scan integrates a nonlinear battery state-of-charge model (a
+Li-ion voltage curve with a low-SoC knee, I^2R internal loss) and a
+2-node thermal RC model for every (platform, design, schedule, policy)
+combo.  `ThrottlePolicy` closes the loop from state back into power:
+when skin temperature or SoC crosses a trip threshold (with hysteresis)
+the policy downshifts fps / brightness / upload duty / capture duty and
+can force full offload.
+
+The serving path is the fused pipeline of `day_grid`:
+
+  1. one row stage per platform (`scenarios.batched_fn` +
+     `offload.pods_streams_device`) turns the combos' (level, segment)
+     knob rows into glasses mW, puck mW and backend pods;
+  2. an index gather builds the (T, L, N) per-step level tables;
+  3. `kernels.day_scan.day_scan` integrates the day (the CUDA kernel on
+     the card, its plain torch version on the CPU);
+  4. `_summarize_torch` reduces the (N, T) traces to objectives;
+  5. `dse.non_dominated_torch` marks the Pareto front.
+
+Everything between the host assembly and the (N,)-sized summary stays
+on the device.  Two host caches back repeated queries: `_ASSEMBLIES`
+(value-keyed, bounded FIFO) holds the host half of a query — combos,
+padded scenario rows, constants, gather indices — and `_PIPELINES`
+(bounded FIFO, value + device keyed) holds that assembly's tensors
+resident on the device.  PyTorch runs eagerly, so there is no compiled
+executable to cache: `EXEC_STATS["traces"]` is kept for callers of the
+reference's counters and always reads 0.
+
+`reference_integrate` is the reference package's pure-numpy per-step
+oracle, copied as-is.
+"""
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from .. import device as _device
+from . import offload, scenarios
+from .platform import PlatformSpec
+from .scenarios import DEFAULT_MCS, ScenarioSet
+
+DEFAULT_DT_S = 10.0             # integrator step (s)
+DEFAULT_STANDBY_MW = 45.0       # deep-idle draw between capture bursts
+DEFAULT_SHUTDOWN_C = 46.0       # skin temp that hard-bricks the device
+STE_BETA_C = 2.0                # thermal trip surrogate sharpness (1/K)
+STE_BETA_SOC = 60.0             # SoC trip surrogate sharpness (1/SoC)
+
+
+# ---------------------------------------------------------------------------
+# battery: capacity + voltage curve + internal-resistance loss
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class BatterySpec:
+    """Nonlinear cell model.
+
+    V(soc) = v_full - sag * (1 - soc) - knee_v * exp(-knee_sharpness*soc)
+    — a flat Li-ion plateau with a steep knee near empty.  Discharge
+    current is I = P / V(soc), so the I^2 R internal loss grows as the
+    cell sags: the same mW load drains *more* SoC per second late in the
+    day, which is exactly what a steady-state power number cannot see.
+
+    `fade` is the battery-age capacity fade fraction: an aged cell holds
+    `capacity_mwh * (1 - fade)`.  It is optional and JSON back-compat
+    (an absent key means no fade), so committed golden files and old
+    registry dumps keep loading unchanged.
+    """
+    name: str
+    capacity_mwh: float
+    r_internal_ohm: float = 0.25
+    v_full: float = 4.35
+    sag_v: float = 0.75
+    knee_v: float = 0.30
+    knee_sharpness: float = 12.0
+    fade: float = 0.0
+
+    def __post_init__(self):
+        if self.capacity_mwh <= 0:
+            raise ValueError("capacity_mwh must be positive")
+        if self.v_full - self.sag_v - self.knee_v <= 0:
+            raise ValueError("voltage curve dips below zero at soc=0")
+        if not 0.0 <= self.fade < 1.0:
+            raise ValueError(f"fade={self.fade} outside [0, 1)")
+
+    @property
+    def effective_capacity_mwh(self) -> float:
+        """Age-derated capacity actually available to the integrator."""
+        return self.capacity_mwh * (1.0 - self.fade)
+
+    def aged(self, fade: float) -> "BatterySpec":
+        """The same cell at a given capacity-fade fraction."""
+        from dataclasses import replace
+        return replace(self, fade=float(fade))
+
+    def voltage(self, soc):
+        """Open-circuit-ish terminal voltage at state of charge `soc`."""
+        return (self.v_full - self.sag_v * (1.0 - soc)
+                - self.knee_v * np.exp(-self.knee_sharpness * soc))
+
+    def to_dict(self) -> dict:
+        out = {"name": self.name, "capacity_mwh": self.capacity_mwh,
+               "r_internal_ohm": self.r_internal_ohm,
+               "v_full": self.v_full, "sag_v": self.sag_v,
+               "knee_v": self.knee_v,
+               "knee_sharpness": self.knee_sharpness}
+        if self.fade:
+            out["fade"] = self.fade
+        return out
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "BatterySpec":
+        return cls(d["name"], float(d["capacity_mwh"]),
+                   float(d["r_internal_ohm"]), float(d["v_full"]),
+                   float(d["sag_v"]), float(d["knee_v"]),
+                   float(d["knee_sharpness"]),
+                   float(d.get("fade", 0.0)))
+
+
+@dataclass(frozen=True)
+class ThermalSpec:
+    """2-node RC: device (SoC) node -> skin node -> ambient.
+
+    Steady state for P watts: T_soc = amb + P*(r_soc_skin + r_skin_amb),
+    T_skin = amb + P*r_skin_amb; time constants of minutes (SoC node) and
+    ~quarter hour (skin), so hour-long segments reach equilibrium and
+    short bursts do not."""
+    name: str
+    c_soc_j_per_k: float = 18.0
+    c_skin_j_per_k: float = 80.0
+    r_soc_skin_k_per_w: float = 7.0
+    r_skin_amb_k_per_w: float = 11.0
+
+    def to_dict(self) -> dict:
+        return {"name": self.name, "c_soc_j_per_k": self.c_soc_j_per_k,
+                "c_skin_j_per_k": self.c_skin_j_per_k,
+                "r_soc_skin_k_per_w": self.r_soc_skin_k_per_w,
+                "r_skin_amb_k_per_w": self.r_skin_amb_k_per_w}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "ThermalSpec":
+        return cls(d["name"], float(d["c_soc_j_per_k"]),
+                   float(d["c_skin_j_per_k"]),
+                   float(d["r_soc_skin_k_per_w"]),
+                   float(d["r_skin_amb_k_per_w"]))
+
+
+# default packs per platform SKU (platform-name keyed, data not code):
+# frame cell + temple pack class capacities
+BATTERIES = {
+    "default": BatterySpec("temple_pack_2p2wh", 2200.0),
+    "aria2_display": BatterySpec("temple_pack_2p6wh", 2600.0),
+    "rayban_cam": BatterySpec("rayban_1p25wh", 1250.0,
+                              r_internal_ohm=0.38),
+    "aria2_puck_split": BatterySpec("glasses_1p4wh", 1400.0,
+                                    r_internal_ohm=0.30),
+}
+
+DEFAULT_THERMAL = ThermalSpec("glasses_2node")
+
+
+def battery_for(platform_name: str) -> BatterySpec:
+    return BATTERIES.get(platform_name, BATTERIES["default"])
+
+
+@dataclass(frozen=True)
+class PuckSpec:
+    """Pocket-host node of a split SKU: its own battery and thermal RC,
+    coupled to the glasses by the short-range link.
+
+    The puck's load is `base_mw + wan_link_mw + wan_mw_per_mbps x
+    (glasses offloaded Mbps)` while capturing — it relays everything
+    the glasses stream over its own WAN radio — and `standby_mw`
+    otherwise.  Built from `PlatformSpec.companion` registry data
+    (`puck_for`), so split SKUs stay declarative."""
+    name: str
+    base_mw: float
+    wan_link_mw: float
+    wan_mw_per_mbps: float
+    standby_mw: float
+    battery: BatterySpec
+    thermal: ThermalSpec
+
+    def level_mw(self, mbps):
+        """Active puck power for a (level, segment) uplink-rate table."""
+        return self.base_mw + self.wan_link_mw + self.wan_mw_per_mbps * mbps
+
+
+def puck_for(plat: PlatformSpec) -> PuckSpec | None:
+    """PuckSpec from the platform's companion data (None = single-node)."""
+    c = plat.companion_dict()
+    if not c:
+        return None
+    name = f"{plat.name}_puck"
+    return PuckSpec(
+        name=name,
+        base_mw=float(c["base_mw"]),
+        wan_link_mw=float(c.get("wan_link_mw", 0.0)),
+        wan_mw_per_mbps=float(c.get("wan_mw_per_mbps", 0.0)),
+        standby_mw=float(c.get("standby_mw", 0.0)),
+        battery=BatterySpec(
+            f"{name}_cell", float(c["battery_mwh"]),
+            r_internal_ohm=float(c.get("r_internal_ohm", 0.15))),
+        thermal=ThermalSpec(
+            f"{name}_thermal",
+            c_soc_j_per_k=float(c.get("c_soc_j_per_k", 40.0)),
+            c_skin_j_per_k=float(c.get("c_skin_j_per_k", 200.0)),
+            r_soc_skin_k_per_w=float(c.get("r_soc_skin_k_per_w", 4.5)),
+            r_skin_amb_k_per_w=float(c.get("r_skin_amb_k_per_w", 8.0))))
+
+
+# ---------------------------------------------------------------------------
+# schedules: timed segments binding scenario knob overrides
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class DaySegment:
+    """One contiguous slice of the day.
+
+    `active` is the capture duty inside the segment (fraction of time the
+    sensing pipeline runs vs deep standby); `upload_duty` is the
+    VAD/saliency uplink gating *while* capturing; `brightness` drives
+    display SKUs (inert elsewhere); `charge_mw` is dock/pocket top-up
+    power flowing INTO the cell during the segment (a desk dock, a
+    pocket battery case) — SoC can rise, capped at 1.  Charge flows
+    regardless of load state, so any nonzero charge revives a dead
+    device the next step (a trickle below the standby draw yields the
+    real-world boot-loop: alternating dead/alive steps)."""
+    name: str
+    hours: float
+    ambient_c: float = 24.0
+    active: float = 1.0
+    upload_duty: float = 1.0
+    brightness: float = 0.0
+    charge_mw: float = 0.0
+
+    def __post_init__(self):
+        if self.hours <= 0:
+            raise ValueError(f"segment {self.name!r}: hours must be > 0")
+        if self.charge_mw < 0:
+            raise ValueError(f"segment {self.name!r}: charge_mw must "
+                             f"be >= 0")
+        for k in ("active", "upload_duty", "brightness"):
+            v = getattr(self, k)
+            if not 0.0 <= v <= 1.0:
+                raise ValueError(f"segment {self.name!r}: {k}={v} "
+                                 f"outside [0, 1]")
+
+    def to_dict(self) -> dict:
+        return {"name": self.name, "hours": self.hours,
+                "ambient_c": self.ambient_c, "active": self.active,
+                "upload_duty": self.upload_duty,
+                "brightness": self.brightness,
+                "charge_mw": self.charge_mw}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "DaySegment":
+        return cls(d["name"], float(d["hours"]), float(d["ambient_c"]),
+                   float(d["active"]), float(d["upload_duty"]),
+                   float(d["brightness"]),
+                   float(d.get("charge_mw", 0.0)))
+
+
+@dataclass(frozen=True)
+class DaySchedule:
+    name: str
+    segments: tuple
+
+    def __post_init__(self):
+        if not self.segments:
+            raise ValueError("schedule needs at least one segment")
+
+    @property
+    def hours(self) -> float:
+        return sum(s.hours for s in self.segments)
+
+    def n_steps(self, dt_s: float) -> int:
+        return sum(max(1, round(s.hours * 3600.0 / dt_s))
+                   for s in self.segments)
+
+    def with_ambient_offset(self, offset_c: float) -> "DaySchedule":
+        """The same day shifted by a climate offset (every segment's
+        ambient moved by `offset_c` — hot-climate or wintertime users)."""
+        from dataclasses import replace
+        return DaySchedule(
+            f"{self.name}{offset_c:+.1f}C",
+            tuple(replace(s, ambient_c=s.ambient_c + offset_c)
+                  for s in self.segments))
+
+    def to_dict(self) -> dict:
+        return {"name": self.name,
+                "segments": [s.to_dict() for s in self.segments]}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "DaySchedule":
+        return cls(d["name"], tuple(DaySegment.from_dict(s)
+                                    for s in d["segments"]))
+
+
+# ---------------------------------------------------------------------------
+# throttle policies: state -> knob downshift, with hysteresis
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ThrottleAction:
+    """Knob downshift applied at one throttle level.
+
+    fps_mult >= 1 multiplies the design's fps_scale (fewer frames);
+    *_mult in [0, 1] scale the segment's duty/brightness/capture knobs;
+    offload=True forces placement to full offload (move the heat to the
+    datacenter)."""
+    fps_mult: float = 1.0
+    duty_mult: float = 1.0
+    brightness_mult: float = 1.0
+    active_mult: float = 1.0
+    offload: bool = False
+
+    def __post_init__(self):
+        if self.fps_mult < 1.0:
+            raise ValueError("fps_mult must be >= 1 (a downshift)")
+        for k in ("duty_mult", "brightness_mult", "active_mult"):
+            v = getattr(self, k)
+            if not 0.0 <= v <= 1.0:
+                raise ValueError(f"{k}={v} outside [0, 1]")
+
+    def to_dict(self) -> dict:
+        return {"fps_mult": self.fps_mult, "duty_mult": self.duty_mult,
+                "brightness_mult": self.brightness_mult,
+                "active_mult": self.active_mult, "offload": self.offload}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "ThrottleAction":
+        return cls(float(d["fps_mult"]), float(d["duty_mult"]),
+                   float(d["brightness_mult"]), float(d["active_mult"]),
+                   bool(d["offload"]))
+
+
+@dataclass(frozen=True)
+class ThrottlePolicy:
+    """Two-trigger throttle governor with hysteresis bands.
+
+    The thermal trigger trips when skin temperature exceeds
+    `temp_trip_c` and clears only below `temp_clear_c`; the SoC trigger
+    trips below `soc_trip` and clears above `soc_clear`.  The throttle
+    level is the number of tripped triggers, clamped to the available
+    `actions` (level 0 = no action).  The strict hysteresis bands are
+    what keeps the closed loop from oscillating when the state sits
+    exactly at a threshold (property-tested on the reference package).
+    """
+    name: str
+    temp_trip_c: float = 40.0
+    temp_clear_c: float = 37.5
+    soc_trip: float = 0.15
+    soc_clear: float = 0.25
+    actions: tuple = ()          # level 1..len(actions)
+
+    def __post_init__(self):
+        if self.actions:
+            if not self.temp_clear_c < self.temp_trip_c:
+                raise ValueError("need temp_clear_c < temp_trip_c "
+                                 "(hysteresis band)")
+            if not self.soc_trip < self.soc_clear:
+                raise ValueError("need soc_trip < soc_clear "
+                                 "(hysteresis band)")
+
+    @property
+    def n_levels(self) -> int:
+        return len(self.actions) + 1
+
+    def action(self, level: int) -> ThrottleAction:
+        if level <= 0:
+            return ThrottleAction()
+        return self.actions[min(level, len(self.actions)) - 1]
+
+    def to_dict(self) -> dict:
+        return {"name": self.name, "temp_trip_c": self.temp_trip_c,
+                "temp_clear_c": self.temp_clear_c,
+                "soc_trip": self.soc_trip, "soc_clear": self.soc_clear,
+                "actions": [a.to_dict() for a in self.actions]}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "ThrottlePolicy":
+        return cls(d["name"], float(d["temp_trip_c"]),
+                   float(d["temp_clear_c"]), float(d["soc_trip"]),
+                   float(d["soc_clear"]),
+                   tuple(ThrottleAction.from_dict(a)
+                         for a in d["actions"]))
+
+
+# ---------------------------------------------------------------------------
+# registries (declarative, next to the platform one)
+# ---------------------------------------------------------------------------
+
+_SCHEDULES: dict[str, DaySchedule] = {}
+_POLICIES: dict[str, ThrottlePolicy] = {}
+
+
+def register_schedule(s: DaySchedule) -> DaySchedule:
+    _SCHEDULES[s.name] = s
+    return s
+
+
+def get_schedule(name: str) -> DaySchedule:
+    if name not in _SCHEDULES:
+        raise KeyError(f"unknown schedule {name!r}; "
+                       f"registered: {sorted(_SCHEDULES)}")
+    return _SCHEDULES[name]
+
+
+def schedule_names() -> list[str]:
+    return sorted(_SCHEDULES)
+
+
+def register_policy(p: ThrottlePolicy) -> ThrottlePolicy:
+    _POLICIES[p.name] = p
+    return p
+
+
+def get_policy(name: str) -> ThrottlePolicy:
+    if name not in _POLICIES:
+        raise KeyError(f"unknown policy {name!r}; "
+                       f"registered: {sorted(_POLICIES)}")
+    return _POLICIES[name]
+
+
+def policy_names() -> list[str]:
+    return sorted(_POLICIES)
+
+
+# -- built-in days (representative traces, §II "all-day" framing) -----------
+
+register_schedule(DaySchedule("commuter", (
+    DaySegment("commute_am", 1.0, ambient_c=28.0, active=0.9,
+               upload_duty=0.5, brightness=0.30),
+    DaySegment("office_am", 3.5, ambient_c=24.0, active=0.55,
+               upload_duty=0.30, brightness=0.15),
+    DaySegment("lunch_conversation", 1.0, ambient_c=26.0, active=1.0,
+               upload_duty=0.85, brightness=0.20),
+    DaySegment("office_pm", 3.0, ambient_c=24.0, active=0.55,
+               upload_duty=0.30, brightness=0.15),
+    DaySegment("commute_pm", 1.0, ambient_c=30.0, active=0.9,
+               upload_duty=0.5, brightness=0.30),
+    DaySegment("evening", 2.5, ambient_c=23.0, active=0.4,
+               upload_duty=0.30, brightness=0.40),
+)))
+
+register_schedule(DaySchedule("field_day", (
+    DaySegment("morning_site", 3.0, ambient_c=33.0, active=1.0,
+               upload_duty=0.8, brightness=0.55),
+    DaySegment("midday_sun", 2.0, ambient_c=36.5, active=1.0,
+               upload_duty=0.9, brightness=0.65),
+    DaySegment("afternoon_site", 3.0, ambient_c=34.0, active=0.9,
+               upload_duty=0.7, brightness=0.55),
+    DaySegment("debrief", 1.0, ambient_c=26.0, active=0.7,
+               upload_duty=0.5, brightness=0.25),
+)))
+
+register_schedule(DaySchedule("desk_day", (
+    DaySegment("focus_am", 4.0, ambient_c=23.0, active=0.35,
+               upload_duty=0.25, brightness=0.10),
+    DaySegment("meetings", 2.0, ambient_c=24.5, active=0.8,
+               upload_duty=0.6, brightness=0.20),
+    DaySegment("focus_pm", 2.0, ambient_c=23.0, active=0.35,
+               upload_duty=0.25, brightness=0.10),
+)))
+
+# commuter day with dock top-ups: the glasses sit on a desk dock during
+# office blocks (charge_mw flows INTO the cell while still capturing)
+register_schedule(DaySchedule("commuter_dock", (
+    DaySegment("commute_am", 1.0, ambient_c=28.0, active=0.9,
+               upload_duty=0.5, brightness=0.30),
+    DaySegment("office_am_dock", 3.5, ambient_c=24.0, active=0.55,
+               upload_duty=0.30, brightness=0.15, charge_mw=1600.0),
+    DaySegment("lunch_conversation", 1.0, ambient_c=26.0, active=1.0,
+               upload_duty=0.85, brightness=0.20),
+    DaySegment("office_pm_dock", 3.0, ambient_c=24.0, active=0.55,
+               upload_duty=0.30, brightness=0.15, charge_mw=1600.0),
+    DaySegment("commute_pm", 1.0, ambient_c=30.0, active=0.9,
+               upload_duty=0.5, brightness=0.30),
+    DaySegment("evening", 2.5, ambient_c=23.0, active=0.4,
+               upload_duty=0.30, brightness=0.40),
+)))
+
+# -- built-in policies -------------------------------------------------------
+
+register_policy(ThrottlePolicy("none", actions=()))
+
+register_policy(ThrottlePolicy(
+    "thermal_governor", temp_trip_c=39.5, temp_clear_c=37.0,
+    soc_trip=0.12, soc_clear=0.20,
+    actions=(ThrottleAction(fps_mult=2.0, duty_mult=0.7,
+                            brightness_mult=0.5),
+             ThrottleAction(fps_mult=4.0, duty_mult=0.4,
+                            brightness_mult=0.15, active_mult=0.6,
+                            offload=True))))
+
+register_policy(ThrottlePolicy(
+    "battery_saver", temp_trip_c=41.0, temp_clear_c=38.5,
+    soc_trip=0.35, soc_clear=0.45,
+    actions=(ThrottleAction(fps_mult=2.0, duty_mult=0.5,
+                            brightness_mult=0.4),
+             ThrottleAction(fps_mult=8.0, duty_mult=0.25,
+                            brightness_mult=0.1, active_mult=0.5,
+                            offload=True))))
+
+
+# ---------------------------------------------------------------------------
+# designs: the per-day knob choices a SKU ships with
+# ---------------------------------------------------------------------------
+
+DEFAULT_DESIGNS = (
+    {"name": "offload_lean", "on_device": (), "compression": 32.0,
+     "fps_scale": 2.0, "mcs_tier": DEFAULT_MCS},
+    {"name": "balanced_asr", "on_device": ("asr",), "compression": 16.0,
+     "fps_scale": 1.0, "mcs_tier": DEFAULT_MCS},
+    {"name": "edge_heavy",
+     "on_device": ("vio", "eye_tracking", "asr", "hand_tracking"),
+     "compression": 8.0, "fps_scale": 1.0, "mcs_tier": 0},
+)
+
+
+def _design_row(design: dict, seg: DaySegment,
+                act: ThrottleAction) -> dict:
+    """Effective ScenarioSet row for (design, segment, throttle level)."""
+    return {
+        "on_device": () if act.offload else tuple(design["on_device"]),
+        "compression": float(design.get("compression", 10.0)),
+        "fps_scale": float(design.get("fps_scale", 1.0)) * act.fps_mult,
+        "mcs_tier": int(design.get("mcs_tier", DEFAULT_MCS)),
+        "upload_duty": min(1.0, seg.upload_duty * act.duty_mult),
+        "brightness": min(1.0, seg.brightness * act.brightness_mult),
+    }
+
+
+# ---------------------------------------------------------------------------
+# the numpy per-step oracle (the reference package's, as-is)
+# ---------------------------------------------------------------------------
+
+def _ref_node_step(soc, t_soc, t_skin, p_mw, charge_mw, amb, pre, c):
+    """float32 scalar mirror of `_node_step` (same op order)."""
+    f = np.float32
+    v = (c[pre + "v_full"] - c[pre + "sag_v"] * (f(1.0) - soc)
+         - c[pre + "knee_v"] * np.exp(-c[pre + "knee_sharp"] * soc))
+    i_a = p_mw * f(1e-3) / v
+    loss_mw = i_a * i_a * c[pre + "r_ohm"] * f(1e3)
+    drain_mw = p_mw + loss_mw
+    soc_n = min(max(soc - drain_mw * c[pre + "dsoc_coeff"]
+                    + charge_mw * c[pre + "dsoc_coeff"], f(0.0)), f(1.0))
+    heat_w = drain_mw * f(1e-3)
+    flow = (t_soc - t_skin) * c[pre + "g_soc_skin"]
+    t_soc_n = t_soc + (heat_w - flow) * c[pre + "dt_c_soc"]
+    t_skin_n = t_skin + (flow - (t_skin - amb)
+                         * c[pre + "g_skin_amb"]) * c[pre + "dt_c_skin"]
+    return soc_n, t_soc_n, t_skin_n, drain_mw
+
+
+def reference_integrate(tb: dict) -> dict:
+    """Pure-Python per-step oracle: identical math to the scan, float32
+    scalar ops in the same order (hard comparisons — the scan's STE
+    forwards are exactly these).  O(steps) Python — the daysim bench
+    baseline and the parity test's reference."""
+    f = np.float32
+    c = {k: f(v) for k, v in tb["const"].items()}
+    mw, pods_t = np.asarray(tb["step_mw"]), np.asarray(tb["step_pods"])
+    mw_p = np.asarray(tb["step_mw_p"])
+    amult = np.asarray(tb["act_mult"])
+    amb_t = np.asarray(tb["ambient"])
+    active_t, valid_t = np.asarray(tb["active"]), np.asarray(tb["valid"])
+    charge_t = np.asarray(tb["charge"])
+    charge_p_t = np.asarray(tb["charge_p"])
+    soc = soc_p = f(1.0)
+    th_state, soc_state, shut = f(0.0), f(0.0), f(0.0)
+    t_soc = t_skin = t_soc_p = t_skin_p = f(amb_t[0])
+    out = {k: [] for k in ("soc", "soc_p", "t_soc", "t_skin", "t_soc_p",
+                           "t_skin_p", "level", "th_state", "soc_state",
+                           "shut", "p_mw", "p_p_mw", "drain_mw",
+                           "drain_p_mw", "pods", "act", "alive")}
+    for t in range(mw.shape[0]):
+        if t_skin > c["temp_trip"]:
+            th_state = f(1.0)
+        elif t_skin < c["temp_clear"]:
+            th_state = f(0.0)
+        soc_eff = min(soc, soc_p)
+        if soc_eff < c["soc_trip"]:
+            soc_state = f(1.0)
+        elif soc_eff > c["soc_clear"]:
+            soc_state = f(0.0)
+        level = int(min(th_state + soc_state, c["max_level"]))
+        if t_skin > c["shutdown_c"]:
+            shut = f(1.0)
+        if t_skin_p > c["shutdown_c"] and c["has_puck"] > 0.0:
+            shut = f(1.0)
+        alive = ((f(1.0) if soc > 0.0 else f(0.0))
+                 * (f(1.0) if soc_p > 0.0 else f(0.0))
+                 * (f(1.0) - shut) * f(valid_t[t]))
+        act = f(active_t[t]) * f(amult[level])
+        p_mw = (act * f(mw[t, level])
+                + (f(1.0) - act) * c["standby_mw"]) * alive
+        p_p_mw = (act * f(mw_p[t, level])
+                  + (f(1.0) - act) * c["p_standby_mw"]) * alive \
+            * c["has_puck"]
+        soc, t_soc, t_skin, drain_mw = _ref_node_step(
+            soc, t_soc, t_skin, p_mw, f(charge_t[t]), f(amb_t[t]), "", c)
+        soc_p, t_soc_p, t_skin_p, drain_p_mw = _ref_node_step(
+            soc_p, t_soc_p, t_skin_p, p_p_mw, f(charge_p_t[t]),
+            f(amb_t[t]), "p_", c)
+        row = {"soc": soc, "soc_p": soc_p, "t_soc": t_soc,
+               "t_skin": t_skin, "t_soc_p": t_soc_p,
+               "t_skin_p": t_skin_p, "level": level,
+               "th_state": th_state, "soc_state": soc_state,
+               "shut": shut, "p_mw": p_mw, "p_p_mw": p_p_mw,
+               "drain_mw": drain_mw, "drain_p_mw": drain_p_mw,
+               "pods": act * f(pods_t[t, level]) * alive,
+               "act": act, "alive": alive}
+        for k, vv in row.items():
+            out[k].append(vv)
+    return {k: np.asarray(v, np.int32 if k == "level" else np.float32)
+            for k, v in out.items()}
+
+
+# ---------------------------------------------------------------------------
+# combos
+# ---------------------------------------------------------------------------
+
+def _resolve(thing, registry_get, cls):
+    if isinstance(thing, str):
+        return registry_get(thing)
+    if not isinstance(thing, cls):
+        raise TypeError(f"expected {cls.__name__} or name, "
+                        f"got {type(thing).__name__}")
+    return thing
+
+
+def _plat(p):
+    if isinstance(p, PlatformSpec):
+        return p
+    from . import aria2
+    from . import platform as registry
+    aria2.platforms()
+    return registry.get(p)
+
+
+@dataclass
+class _Combo:
+    platform: PlatformSpec
+    design: dict
+    schedule: DaySchedule
+    policy: ThrottlePolicy
+    battery: BatterySpec
+    thermal: ThermalSpec
+    puck: PuckSpec | None = None
+
+    def label(self) -> dict:
+        out = {"platform": self.platform.name,
+               "design": self.design.get("name", ""),
+               "on_device": "+".join(self.design["on_device"]) or "(none)",
+               "schedule": self.schedule.name,
+               "policy": self.policy.name,
+               "battery": self.battery.name}
+        if self.puck is not None:
+            out["puck"] = self.puck.name
+        return out
+
+
+def _theta_key(theta) -> tuple | None:
+    if not theta:
+        return None
+    return tuple(sorted((k, float(v)) for k, v in theta.items()))
+
+
+# host caches of the fused pipeline (see the module docstring)
+_PIPELINES: dict = {}
+_PIPELINES_MAX = 32
+_ASSEMBLIES: dict = {}
+_ASSEMBLIES_MAX = 64
+EXEC_STATS = {"traces": 0}      # eager PyTorch never traces: stays 0
+PIPELINE_STATS = {"hits": 0, "misses": 0, "evictions": 0}
+ASSEMBLY_STATS = {"hits": 0, "misses": 0, "evictions": 0}
+
+
+def bucket_size(n: int) -> int:
+    """Canonical shape bucket for a grid axis: the smallest power of
+    two >= n (1, 2, 4, 8, ...).  Combo and scenario-row axes are padded
+    to buckets with clones of entry 0; padded combos are forced to
+    worst-case objectives before the front is taken and sliced off
+    before the DayReport is built, so padding never shows."""
+    if n <= 0:
+        raise ValueError(f"bucket_size needs n > 0, got {n}")
+    return 1 << (n - 1).bit_length()
+
+
+@functools.lru_cache(maxsize=32)
+def _row_stage(plat: PlatformSpec):
+    """Table stage for one platform: a batch of knob rows -> glasses
+    total mW, puck active mW and backend pods, float32 on the rows'
+    device."""
+    eng = scenarios.batched_fn(plat)
+    asr_j = plat.primitives.index("asr")
+
+    def stage(vec, th, rates, gate_scale, p_base, p_wan):
+        out = eng(vec, th)
+        pods, _ = offload.pods_streams_device(
+            vec["placement"][:, asr_j], vec["fps_scale"],
+            vec["upload_duty"], rates, gate_scale)
+        mw_p = p_base + p_wan * out["mbps"]
+        return out["total"], mw_p, pods
+
+    return stage
+
+
+def _puck_coeffs(plat: PlatformSpec) -> tuple:
+    """(base+link mW, mW/Mbps) of the platform's puck (0, 0 if none)."""
+    puck = puck_for(plat)
+    if puck is None:
+        return 0.0, 0.0
+    return puck.base_mw + puck.wan_link_mw, puck.wan_mw_per_mbps
+
+
+def _combo_rows(cb: _Combo, rows: list) -> tuple:
+    """Append one combo's scenario rows (levels x segments + the steady
+    reference row) to `rows`; returns its (start, steady) offsets."""
+    start = len(rows)
+    for level in range(cb.policy.n_levels):
+        act = cb.policy.action(level)
+        rows.extend(_design_row(cb.design, seg, act)
+                    for seg in cb.schedule.segments)
+    # steady-state reference row: the design at nominal always-on
+    # knobs (duty 1, display off)
+    rows.append(_design_row(cb.design, DaySegment("steady", 1.0),
+                            ThrottleAction()))
+    return start, len(rows) - 1
+
+
+def _battery_const(bat: BatterySpec, th: ThermalSpec, dt_s: float,
+                   pre: str = "") -> dict:
+    return {
+        pre + "v_full": bat.v_full, pre + "sag_v": bat.sag_v,
+        pre + "knee_v": bat.knee_v,
+        pre + "knee_sharp": bat.knee_sharpness,
+        pre + "r_ohm": bat.r_internal_ohm,
+        pre + "dsoc_coeff": dt_s / (3600.0 * bat.effective_capacity_mwh),
+        pre + "g_soc_skin": 1.0 / th.r_soc_skin_k_per_w,
+        pre + "g_skin_amb": 1.0 / th.r_skin_amb_k_per_w,
+        pre + "dt_c_soc": dt_s / th.c_soc_j_per_k,
+        pre + "dt_c_skin": dt_s / th.c_skin_j_per_k,
+    }
+
+
+def _combo_const(cb: _Combo, dt_s: float, standby_mw: float,
+                 shutdown_c: float) -> dict:
+    """Scan-constant scalars for one combo (policy thresholds + battery/
+    thermal coefficients), as Python floats cast to float32 later."""
+    return {
+        "temp_trip": cb.policy.temp_trip_c,
+        "temp_clear": cb.policy.temp_clear_c,
+        "soc_trip": cb.policy.soc_trip, "soc_clear": cb.policy.soc_clear,
+        "max_level": float(cb.policy.n_levels - 1),
+        "standby_mw": standby_mw,
+        "shutdown_c": shutdown_c,
+        "ste_beta_c": STE_BETA_C, "ste_beta_soc": STE_BETA_SOC,
+        "has_puck": 1.0 if cb.puck is not None else 0.0,
+        "p_standby_mw": cb.puck.standby_mw if cb.puck is not None else 0.0,
+        **_battery_const(cb.battery, cb.thermal, dt_s),
+        **_battery_const(
+            cb.puck.battery if cb.puck is not None else cb.battery,
+            cb.puck.thermal if cb.puck is not None else cb.thermal,
+            dt_s, "p_"),
+    }
+
+
+# ---------------------------------------------------------------------------
+# reports
+# ---------------------------------------------------------------------------
+
+@dataclass
+class DayReport:
+    """Batched day-in-the-life results; all arrays share leading dim N.
+
+    Objectives per combo: time_to_empty_h (maximize), peak_skin_c
+    (minimize), pod_hours (minimize), throttled_h (capture-hours
+    degraded by the policy).  `front_mask` is filled by
+    `dse.day_pareto`."""
+    combos: list                    # N combo label dicts
+    day_hours: np.ndarray           # (N,)
+    steady_mw: np.ndarray           # (N,) nominal steady-state total
+    time_to_empty_h: np.ndarray     # (N,)
+    end_soc: np.ndarray             # (N,)
+    end_soc_puck: np.ndarray        # (N,) 1.0 for single-node SKUs
+    peak_skin_c: np.ndarray         # (N,) glasses node
+    peak_skin_puck_c: np.ndarray    # (N,) pocket host
+    pod_hours: np.ndarray           # (N,)
+    throttled_h: np.ndarray         # (N,)
+    energy_mwh: np.ndarray          # (N,) total drained from the cell(s)
+    shutdown: np.ndarray            # (N,) bool: thermal hard-kill latched
+    n_users: float
+    dt_s: float
+    front_mask: np.ndarray | None = None
+    skipped: list = field(default_factory=list)
+    battery_fade: np.ndarray | None = None  # (N,) capacity-fade fraction
+
+    def __len__(self) -> int:
+        return len(self.combos)
+
+    def survives(self, skin_limit_c: float = 43.0) -> np.ndarray:
+        """(N,) bool: made it through the whole day without emptying a
+        cell, thermally shutting down, or breaching the skin-contact
+        comfort limit."""
+        return ((self.time_to_empty_h >= self.day_hours - 1e-9)
+                & (self.peak_skin_c <= skin_limit_c)
+                & ~self.shutdown)
+
+    def row(self, i: int, _survives=None) -> dict:
+        surv = self.survives() if _survives is None else _survives
+        cost = offload.pod_cost(float(self.pod_hours[i]))
+        return {
+            "index": int(i), **self.combos[i],
+            "steady_mw": round(float(self.steady_mw[i]), 1),
+            "time_to_empty_h": round(float(self.time_to_empty_h[i]), 2),
+            "day_hours": round(float(self.day_hours[i]), 2),
+            "survives": bool(surv[i]),
+            "shutdown": bool(self.shutdown[i]),
+            "end_soc": round(float(self.end_soc[i]), 3),
+            "end_soc_puck": round(float(self.end_soc_puck[i]), 3),
+            "peak_skin_c": round(float(self.peak_skin_c[i]), 2),
+            "peak_skin_puck_c": round(float(self.peak_skin_puck_c[i]), 2),
+            "pod_hours": round(float(self.pod_hours[i]), 1),
+            "usd": round(cost["usd"], 2),
+            "kgco2": round(cost["kgco2"], 1),
+            "throttled_h": round(float(self.throttled_h[i]), 2),
+        }
+
+    def front_indices(self) -> np.ndarray:
+        if self.front_mask is None:
+            raise ValueError(
+                "DayReport.front_mask is not set — build the report with "
+                "dse.day_pareto(...) (or daysim.day_grid(..., "
+                "with_front=True)) to fill the non-dominated front.")
+        return np.flatnonzero(self.front_mask)
+
+    def front_rows(self) -> list:
+        surv = self.survives()
+        rows = [self.row(i, surv) for i in self.front_indices()]
+        return sorted(rows, key=lambda r: -r["time_to_empty_h"])
+
+
+def _batteries_arg(battery, plat_name: str) -> BatterySpec:
+    if battery is None:
+        return battery_for(plat_name)
+    if isinstance(battery, dict):
+        return battery.get(plat_name, battery_for(plat_name))
+    return battery
+
+
+DEFAULT_PLATFORMS = ("aria2_display", "rayban_cam", "aria2_puck_split")
+DEFAULT_SCHEDULES = ("commuter", "field_day", "desk_day")
+DEFAULT_POLICIES = ("none", "thermal_governor", "battery_saver")
+
+
+def _enumerate_combos(platforms, designs, schedules, policies,
+                      battery=None, thermal=None) -> tuple:
+    """Resolve grid axes into per-platform combo groups.
+
+    Returns ([(plat, [combo, ...]), ...], skipped).  Designs whose
+    placement a platform cannot run on-device are skipped, mirroring
+    the engine's placement check."""
+    schedules = [_resolve(s, get_schedule, DaySchedule)
+                 for s in schedules]
+    policies = [_resolve(p, get_policy, ThrottlePolicy) for p in policies]
+    therm = thermal or DEFAULT_THERMAL
+    groups, skipped = [], []
+    for p in platforms:
+        plat = _plat(p)
+        supported = set(plat.supported_primitives())
+        bat = _batteries_arg(battery, plat.name)
+        puck = puck_for(plat)
+        plat_combos = []
+        for d in designs:
+            if not set(d["on_device"]) <= supported:
+                skipped.append({"platform": plat.name,
+                                "design": d.get("name", ""),
+                                "reason": "unsupported placement"})
+                continue
+            plat_combos.extend(
+                _Combo(plat, d, sched, pol, bat, therm, puck)
+                for sched in schedules for pol in policies)
+        groups.append((plat, plat_combos))
+    return groups, skipped
+
+
+# ---------------------------------------------------------------------------
+# the fused day pipeline: rows -> tables -> day scan -> objectives -> front
+# ---------------------------------------------------------------------------
+
+# x * dt_s / 3600.0 as the reference's compiled program evaluates it: a
+# division by a constant becomes a product with its float32 reciprocal
+_INV_3600 = float(np.float32(1.0) / np.float32(3600.0))
+
+
+def _hours(steps_sum, dt_s):
+    return steps_sum * dt_s * _INV_3600
+
+
+def _summarize_torch(ys: dict, valid, active, dt_s) -> dict:
+    """(N, T) traces -> (N,) objectives, float32 on the traces' device
+    (the reference's `_summarize_jax`, same expressions in the same
+    order).  Integer-step quantities and trace maxima are exact."""
+    soc, soc_p, shut = ys["soc"], ys["soc_p"], ys["shut"]
+    vb = valid > 0.0
+    day_steps = torch.sum(valid, dim=1)
+    # either node emptying — or the thermal hard-kill — ends the day
+    dead = (torch.minimum(soc, soc_p) <= 0.0) | (shut > 0.5)
+    hit = torch.any(dead, dim=1)
+    first = torch.argmax(dead.to(torch.int32), dim=1).to(soc.dtype) + 1.0
+    tte = _hours(torch.where(hit, first, day_steps), dt_s)
+    neg_inf = torch.full_like(ys["t_skin"], -float("inf"))
+    peak = torch.amax(torch.where(vb, ys["t_skin"], neg_inf), dim=1)
+    peak_p = torch.amax(torch.where(vb, ys["t_skin_p"], neg_inf), dim=1)
+    # capture-hours degraded by the policy while the device was still
+    # alive (time after the cell empties is lost outright, not throttled)
+    alive = ~torch.cat([torch.zeros_like(dead[:, :1]), dead[:, :-1]],
+                       dim=1)
+    throttled = ((ys["level"] > 0) & vb & alive) * active
+    drain = ys["drain_mw"] + ys["drain_p_mw"]
+    return {
+        "day_hours": _hours(day_steps, dt_s),
+        "time_to_empty_h": tte,
+        "end_soc": soc[:, -1],
+        "end_soc_puck": soc_p[:, -1],
+        "peak_skin_c": peak,
+        "peak_skin_puck_c": peak_p,
+        "pod_hours": _hours(torch.sum(ys["pods"], dim=1), dt_s),
+        "throttled_h": _hours(torch.sum(throttled, dim=1), dt_s),
+        "energy_mwh": _hours(torch.sum(drain, dim=1), dt_s),
+        "shutdown": shut[:, -1] > 0.5,
+    }
+
+
+def _design_key(d: dict) -> tuple:
+    """Hashable identity of a design dict (value-level, order-free)."""
+    return tuple(sorted((k, tuple(v) if isinstance(v, (list, tuple))
+                         else v) for k, v in d.items()))
+
+
+@dataclass
+class _Assembly:
+    """Host half of one fully-valued query, padded to bucket shapes:
+    numpy masters for the value-level inputs (`dyn`) and the gather
+    indices / step rows (`ix`)."""
+    combos: list
+    skipped: list
+    dyn: dict               # numpy masters (incl. combo_w), bucketed
+    ix: dict                # numpy gather indices / step data, bucketed
+    plats: tuple            # platform specs, row-stage order
+    key: tuple              # value-level identity
+    n_real: int             # combos before bucket padding
+
+
+@dataclass
+class _Pipeline:
+    """One assembled query with all of its tensors on one device."""
+    asm: _Assembly
+    dyn: dict               # value-level tensors
+    ix: dict                # (T, L, N) gather rows, (T, N) step rows
+
+
+def _assemble_query(platforms=DEFAULT_PLATFORMS, designs=DEFAULT_DESIGNS,
+                    schedules=DEFAULT_SCHEDULES, policies=DEFAULT_POLICIES,
+                    dt_s=DEFAULT_DT_S, n_users=1e6,
+                    standby_mw=DEFAULT_STANDBY_MW, battery=None,
+                    thermal=None, theta=None, results_dir=None,
+                    shutdown_c=DEFAULT_SHUTDOWN_C) -> _Assembly:
+    """Assemble (or fetch from `_ASSEMBLIES`) the bucket-padded host half
+    of one query (`day_grid`'s grid arguments and defaults)."""
+    groups, skipped = _enumerate_combos(platforms, designs, schedules,
+                                        policies, battery, thermal)
+    combos = [cb for _, grp in groups for cb in grp]
+    if not combos:
+        raise ValueError("no runnable (platform, design) combos")
+    key = (tuple((plat, tuple((_design_key(cb.design), cb.schedule,
+                               cb.policy, cb.battery, cb.thermal)
+                              for cb in grp))
+                 for plat, grp in groups),
+           float(dt_s), float(n_users), float(standby_mw),
+           _theta_key(theta), str(results_dir), float(shutdown_c))
+    asm = _ASSEMBLIES.get(key)
+    if asm is not None:
+        ASSEMBLY_STATS["hits"] += 1
+        return asm
+    ASSEMBLY_STATS["misses"] += 1
+
+    T = max(cb.schedule.n_steps(dt_s) for cb in combos)
+    L = max(cb.policy.n_levels for cb in combos)
+    rr = offload.stream_rates(results_dir)
+    grp_dyn = []
+    lvl_row, seg_of, steady_of = [], [], []
+    ambs, acts, vals, chgs, chgs_p, amults, consts = \
+        [], [], [], [], [], [], []
+    base = 0
+    for plat, grp in groups:
+        rows, slices = [], []
+        for cb in grp:
+            slices.append(_combo_rows(cb, rows))
+        sset = ScenarioSet.build(rows, primitives=plat.primitives)
+        scenarios._validate(plat, sset)
+        r_b = bucket_size(len(rows)) if rows else 0
+        sset = sset.pad(r_b)
+        th = plat.theta_dict()
+        if theta:
+            th.update(theta)
+        p_base, p_wan = _puck_coeffs(plat)
+        grp_dyn.append({
+            "vec": {"placement": sset.placement,
+                    "compression": sset.compression,
+                    "fps_scale": sset.fps_scale,
+                    "mcs_tier": sset.mcs_tier,
+                    "upload_duty": sset.upload_duty,
+                    "brightness": sset.brightness},
+            "theta": {k: np.float32(v) for k, v in th.items()},
+            "p_base": np.float32(p_base), "p_wan": np.float32(p_wan)})
+        for cb, (start, steady_i) in zip(grp, slices):
+            segs = cb.schedule.segments
+            n_seg, n_lvl = len(segs), cb.policy.n_levels
+            seg_steps = [max(1, round(s.hours * 3600.0 / dt_s))
+                         for s in segs]
+            seg_idx = np.repeat(np.arange(n_seg), seg_steps)
+            t = len(seg_idx)
+            so = np.full(T, n_seg - 1, np.int64)   # pad: last segment
+            so[:t] = seg_idx
+            seg_of.append(so)
+            lv = np.minimum(np.arange(L), n_lvl - 1)  # pad: last level
+            lvl_row.append(base + start + lv * n_seg)
+            steady_of.append(base + steady_i)
+            amb = np.full(T, segs[-1].ambient_c, np.float32)
+            amb[:t] = np.asarray([s.ambient_c for s in segs],
+                                 np.float32)[seg_idx]
+            ambs.append(amb)
+            act = np.zeros(T, np.float32)
+            act[:t] = np.asarray([s.active for s in segs],
+                                 np.float32)[seg_idx]
+            acts.append(act)
+            val = np.zeros(T, np.float32)
+            val[:t] = 1.0
+            vals.append(val)
+            cap_g = cb.battery.capacity_mwh
+            cap_p = (cb.puck.battery.capacity_mwh
+                     if cb.puck is not None else 0.0)
+            share_g = cap_g / (cap_g + cap_p) if cap_p else 1.0
+            seg_charge = np.asarray([s.charge_mw for s in segs],
+                                    np.float32)[seg_idx]
+            chg = np.zeros(T, np.float32)
+            chg_p = np.zeros(T, np.float32)
+            chg[:t] = seg_charge * np.float32(share_g)
+            chg_p[:t] = seg_charge * np.float32(1.0 - share_g)
+            chgs.append(chg)
+            chgs_p.append(chg_p)
+            amult = np.ones(L, np.float32)
+            for l in range(1, n_lvl):
+                amult[l:] = cb.policy.action(l).active_mult
+            amults.append(amult)
+            consts.append(_combo_const(cb, dt_s, standby_mw, shutdown_c))
+        base += r_b
+
+    n_real = len(combos)
+    n_b = bucket_size(n_real)
+
+    def _pad_n(a):
+        a = np.asarray(a)
+        if n_b == n_real:
+            return a
+        return np.concatenate([a, np.repeat(a[:1], n_b - n_real, 0)])
+
+    combo_w = np.zeros(n_b, np.float32)
+    combo_w[:n_real] = 1.0
+    dyn = {"groups": tuple(grp_dyn),
+           "rates": np.asarray(rr["tok_per_cap"], np.float32),
+           "gate": np.float32(n_users),
+           "act_mult": _pad_n(np.stack(amults)),
+           "const": {k: _pad_n(np.asarray([c[k] for c in consts],
+                                          np.float32))
+                     for k in consts[0]},
+           "combo_w": combo_w,
+           "dt_s": np.float32(dt_s)}
+    ix = {"lvl_row": _pad_n(np.stack(lvl_row)),
+          "seg_of": _pad_n(np.stack(seg_of)),
+          "steady_of": _pad_n(np.asarray(steady_of, np.int64)),
+          "ambient": _pad_n(np.stack(ambs)),
+          "active": _pad_n(np.stack(acts)),
+          "valid": _pad_n(np.stack(vals)),
+          "charge": _pad_n(np.stack(chgs)),
+          "charge_p": _pad_n(np.stack(chgs_p))}
+
+    plats = tuple(plat for plat, _ in groups)
+    asm = _Assembly(combos, skipped, dyn, ix, plats, key, n_real)
+    _ASSEMBLIES[key] = asm
+    while len(_ASSEMBLIES) > _ASSEMBLIES_MAX:
+        del _ASSEMBLIES[next(iter(_ASSEMBLIES))]
+        ASSEMBLY_STATS["evictions"] += 1
+    return asm
+
+
+def _to_device(asm: _Assembly, dev: torch.device) -> _Pipeline:
+    """Push one assembly's tensors to `dev`, in the kernel's time-major
+    layout: (T, L, N) gather rows and (T, N) step rows."""
+
+    def put(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev)
+
+    ix = asm.ix
+    rows_tln = ix["lvl_row"].T[None, :, :] + ix["seg_of"].T[:, None, :]
+    dix = {"rows_tln": put(rows_tln), "steady_of": put(ix["steady_of"])}
+    for k in ("ambient", "active", "valid", "charge", "charge_p"):
+        dix[k] = put(ix[k].T)
+    d = asm.dyn
+    dyn = {"groups": tuple(
+               {"vec": {k: put(v) for k, v in g["vec"].items()},
+                "theta": {k: put(v) for k, v in g["theta"].items()},
+                "p_base": put(g["p_base"]), "p_wan": put(g["p_wan"])}
+               for g in d["groups"]),
+           "rates": put(d["rates"]), "gate": put(d["gate"]),
+           "act_mult": put(d["act_mult"].T),
+           "const": {k: put(v) for k, v in d["const"].items()},
+           "combo_w": put(d["combo_w"]), "dt_s": put(d["dt_s"])}
+    return _Pipeline(asm, dyn, dix)
+
+
+def _fused_pipeline(dev: torch.device, **query) -> _Pipeline:
+    """Assemble (or fetch) the device-resident pipeline of one query;
+    `query` takes `day_grid`'s grid arguments."""
+    asm = _assemble_query(**query)
+    key = asm.key + (str(dev),)
+    pipe = _PIPELINES.get(key)
+    if pipe is not None:
+        PIPELINE_STATS["hits"] += 1
+        return pipe
+    PIPELINE_STATS["misses"] += 1
+    pipe = _PIPELINES[key] = _to_device(asm, dev)
+    while len(_PIPELINES) > _PIPELINES_MAX:
+        del _PIPELINES[next(iter(_PIPELINES))]
+        PIPELINE_STATS["evictions"] += 1
+    return pipe
+
+
+def day_tables(pipe: _Pipeline) -> tuple:
+    """Row stages + the (T, L, N) gather of one pipeline: returns (the
+    day-scan tables, the (R,) glasses totals of all scenario rows)."""
+    dyn, ix = pipe.dyn, pipe.ix
+    outs = []
+    for plat, g in zip(pipe.asm.plats, dyn["groups"]):
+        total, mw_p, pods = _row_stage(plat)(
+            g["vec"], g["theta"], dyn["rates"], dyn["gate"],
+            g["p_base"], g["p_wan"])
+        outs.append((total, mw_p, pods))
+    total = torch.cat([o[0] for o in outs])
+    mw_p = torch.cat([o[1] for o in outs])
+    pods = torch.cat([o[2] for o in outs])
+    rows = ix["rows_tln"]
+    tables = {"step_mw": total[rows], "step_mw_p": mw_p[rows],
+              "step_pods": pods[rows], "act_mult": dyn["act_mult"],
+              "ambient": ix["ambient"], "active": ix["active"],
+              "valid": ix["valid"], "charge": ix["charge"],
+              "charge_p": ix["charge_p"], "const": dyn["const"]}
+    return tables, total
+
+
+def _run_fused(pipe: _Pipeline) -> dict:
+    """The device half of a query: row stages, (T, L, N) gather, day
+    scan, summary and front, all on the pipeline's device."""
+    from ..kernels.day_scan import day_scan
+    from . import dse
+    dyn, ix = pipe.dyn, pipe.ix
+    tables, total = day_tables(pipe)
+    ys = day_scan(tables)
+    summ = _summarize_torch(ys, ix["valid"].t(), ix["active"].t(),
+                            dyn["dt_s"])
+    summ["steady_mw"] = total[ix["steady_of"]]
+    obj = torch.stack([summ["time_to_empty_h"], summ["peak_skin_c"],
+                       summ["pod_hours"]], dim=1)
+    # bucket padding: zero-weight clone lanes are forced to the worst
+    # corner (tte -inf maximized; peak/pods +inf minimized), so every
+    # real row strictly dominates them
+    w = dyn["combo_w"] > 0.0
+    worst = torch.tensor([-float("inf"), float("inf"), float("inf")],
+                         dtype=obj.dtype).to(obj.device)
+    obj = torch.where(w[:, None], obj, worst)
+    summ["front_mask"] = dse.non_dominated_torch(obj, maximize=(0,)) & w
+    return summ
+
+
+def _host_summary(summ: dict, n_real: int) -> tuple:
+    """Device summary dict -> (front, steady, host fields) as numpy, with
+    the bucket-padding lanes sliced off (one copy to the host)."""
+    keys = sorted(summ)
+    bools = [k for k in keys if summ[k].dtype == torch.bool]
+    floats = [k for k in keys if k not in bools]
+    f = torch.stack([summ[k] for k in floats]).cpu().numpy()
+    b = torch.stack([summ[k] for k in bools]).cpu().numpy()
+    host = {k: np.asarray(f[i], np.float64)[:n_real]
+            for i, k in enumerate(floats)}
+    host.update({k: b[i][:n_real] for i, k in enumerate(bools)})
+    return host.pop("front_mask"), host.pop("steady_mw"), host
+
+
+def day_grid(platforms=DEFAULT_PLATFORMS, designs=DEFAULT_DESIGNS,
+             schedules=DEFAULT_SCHEDULES, policies=DEFAULT_POLICIES,
+             dt_s: float = DEFAULT_DT_S, n_users: float = 1e6,
+             standby_mw: float = DEFAULT_STANDBY_MW, battery=None,
+             thermal: ThermalSpec | None = None, theta=None,
+             results_dir=None,
+             shutdown_c: float = DEFAULT_SHUTDOWN_C,
+             engine: str = "fused", with_front: bool = False,
+             device="cuda") -> DayReport:
+    """Simulate every (platform x design x schedule x policy) combo
+    through the fused pipeline on `device`.
+
+    Designs whose placement a platform cannot run on-device are skipped
+    (recorded in `report.skipped`).  `battery` may be a single
+    BatterySpec or a {platform_name: BatterySpec} map; defaults come
+    from `BATTERIES`.  `with_front=True` fills `front_mask`.  Only the
+    reference's "fused" engine is ported."""
+    if engine != "fused":
+        raise ValueError(f"unknown engine {engine!r}; the port runs "
+                         f"engine='fused' only")
+    dev = _device.resolve(device)
+    pipe = _fused_pipeline(
+        dev, platforms=platforms, designs=designs, schedules=schedules,
+        policies=policies, dt_s=dt_s, n_users=n_users,
+        standby_mw=standby_mw, battery=battery, thermal=thermal,
+        theta=theta, results_dir=results_dir, shutdown_c=shutdown_c)
+    asm = pipe.asm
+    front, steady, host = _host_summary(_run_fused(pipe), asm.n_real)
+    rep = DayReport(
+        combos=[cb.label() for cb in asm.combos],
+        steady_mw=steady, n_users=n_users, dt_s=dt_s,
+        skipped=asm.skipped,
+        battery_fade=np.asarray([cb.battery.fade for cb in asm.combos]),
+        **host)
+    if with_front:
+        rep.front_mask = front
+    return rep

@@ -1,0 +1,188 @@
+"""Wearable -> backend offload bridge (§II-A: signals are "offloaded and
+processed by a backend datacenter").
+
+Maps a device scenario's offloaded streams to backend pod fleets: which
+assigned architecture serves each egocentric stream, at what request
+rate, sized from the committed dry-run roofline artifacts under
+`results/dryrun/` (read unchanged, shared with the reference package).
+When no artifact exists for a cell, sizing falls back to a
+deterministic nominal capacity (`FALLBACK_BOUND_S`), so pods are always
+finite.
+
+`stream_rates` resolves each stream's serving cell once per artifact
+directory (the only part that touches the filesystem);
+`pods_streams_device` is the batched tensor math the day pipeline runs
+on the device; `pod_cost` prices pod-hours.
+"""
+from __future__ import annotations
+
+import json
+from pathlib import Path
+
+import numpy as np
+import torch
+
+RESULTS = Path(__file__).resolve().parents[3] / "results"
+
+# backend service per offloaded stream: (arch, shape cell, tokens-or-frames
+# produced per user-second of stream); the arch here is the PRIMARY
+# candidate — STREAM_CANDIDATES below may swap in a cheaper serving arch
+STREAM_SERVICE = {
+    # ASR: 1 s audio ~= 50 acoustic frames -> whisper decoder tokens
+    "audio": ("whisper-medium", "prefill_32k", 50.0),
+    # RGB POV frames -> VLM scene/object understanding (576 tokens/frame@5fps)
+    "rgb": ("phi-3-vision-4.2b", "prefill_32k", 576.0 * 5),
+    # egocentric signal narration -> personal-context LM ingest
+    "signals": ("granite-3-2b", "prefill_32k", 30.0),
+    # long-horizon personal-context aggregation (months of signals)
+    "context": ("mamba2-2.7b", "train_4k", 30.0),
+}
+
+# candidate (arch, shape cell) serving options per stream; fleet sizing
+# picks the min-pods candidate (artifact-backed capacities preferred)
+STREAM_CANDIDATES = {
+    "audio": (("whisper-medium", "prefill_32k"),),
+    "rgb": (("phi-3-vision-4.2b", "prefill_32k"),),
+    "signals": (("granite-3-2b", "prefill_32k"),
+                ("zamba2-1.2b", "prefill_32k")),
+    "context": (("mamba2-2.7b", "train_4k"),
+                ("zamba2-1.2b", "train_4k")),
+}
+
+# deterministic nominal step-time bounds (s) per shape class, used when no
+# dry-run artifact exists
+FALLBACK_BOUND_S = {"prefill": 2.0, "train": 6.0, "decode": 0.05}
+
+
+# -- backend cost model (pods -> pod-hours -> $ and kgCO2) ------------------
+POD_POWER_KW = 140.0            # 256 accelerators + interconnect/cooling
+USD_PER_KWH = 0.085
+KGCO2_PER_KWH = 0.30            # grid-average carbon intensity
+POD_CAPEX_USD_PER_HOUR = 260.0  # pod price amortized over service life
+
+
+def pod_cost(pod_hours) -> dict:
+    """pod-hours -> {pod_hours, energy_kwh, usd, kgco2}.
+
+    Broadcasts over any array shape; scalars return plain floats.
+    Negative pod-hours are a caller bug and raise."""
+    ph = np.asarray(pod_hours, np.float64)
+    if ph.size and float(np.min(ph)) < 0.0:
+        raise ValueError(f"pod_hours must be >= 0, got min {np.min(ph)}")
+    kwh = ph * POD_POWER_KW
+    out = {"pod_hours": ph, "energy_kwh": kwh,
+           "usd": ph * POD_CAPEX_USD_PER_HOUR + kwh * USD_PER_KWH,
+           "kgco2": kwh * KGCO2_PER_KWH}
+    if np.ndim(pod_hours) == 0:
+        return {k: float(v) for k, v in out.items()}
+    return out
+
+
+def _shape_tokens(shape: str) -> float:
+    if shape.startswith("train"):
+        return 256 * 4096
+    if shape.startswith("prefill"):
+        return 32 * 32768
+    return 128
+
+
+class CapacityTable:
+    """Backend cell capacities, loaded ONCE per artifact directory from
+    the ``<arch>__<shape>__<mesh>.json`` dry-run artifacts (the modeled
+    step-time bound of each cell)."""
+
+    def __init__(self, results_dir=None):
+        self.dir = Path(results_dir) if results_dir else RESULTS / "dryrun"
+        self._bound_s: dict[tuple, float] = {}
+        if self.dir.is_dir():
+            for f in sorted(self.dir.glob("*.json")):
+                parts = tuple(f.stem.split("__"))
+                if len(parts) != 3:
+                    continue
+                try:
+                    r = json.loads(f.read_text())
+                except (json.JSONDecodeError, OSError):
+                    continue
+                if r.get("ok") and r.get("terms"):
+                    self._bound_s[parts] = max(r["terms"].values())
+
+    def bound_s(self, arch: str, shape: str,
+                mesh: str = "single") -> float | None:
+        """Modeled step-time bound (s) from the artifact, if present."""
+        return self._bound_s.get((arch, shape, mesh))
+
+    def tokens_per_s(self, arch: str, shape: str,
+                     mesh: str = "single") -> tuple[float, str]:
+        """(tokens/s/pod, source): "dryrun" when the roofline artifact
+        exists, else the deterministic "fallback" path."""
+        bound = self.bound_s(arch, shape, mesh)
+        if bound:
+            return _shape_tokens(shape) / bound, "dryrun"
+        cls = shape.split("_")[0]
+        fb = FALLBACK_BOUND_S.get(cls, FALLBACK_BOUND_S["prefill"])
+        return _shape_tokens(shape) / fb, "fallback"
+
+    def resolve(self, candidates) -> tuple[str, str, float, str]:
+        """Min-pods (arch, cell, tokens/s, source) among candidate cells:
+        artifact-backed capacities beat fallback bounds, then the largest
+        capacity wins."""
+        best = None
+        for arch, cell in candidates:
+            cap, source = self.tokens_per_s(arch, cell)
+            key = (source == "dryrun", cap)
+            if best is None or key > best[0]:
+                best = (key, (arch, cell, cap, source))
+        return best[1]
+
+
+_TABLES: dict[Path, CapacityTable] = {}
+
+
+def capacity_table(results_dir=None) -> CapacityTable:
+    """Shared per-directory CapacityTable (loaded once, cached)."""
+    key = (Path(results_dir) if results_dir else RESULTS / "dryrun").resolve()
+    if key not in _TABLES:
+        _TABLES[key] = CapacityTable(key)
+    return _TABLES[key]
+
+
+def stream_rates(results_dir=None) -> dict:
+    """Host-resolved per-stream serving rates for the device pods path.
+
+    Returns {"streams": tuple, "tok_per_cap": (S,) float64,
+    "archs"/"cells"/"sources": dicts}, in `STREAM_SERVICE` order."""
+    table = capacity_table(results_dir)
+    streams, rates, archs, cells, sources = [], [], {}, {}, {}
+    for s, (arch0, cell0, tok) in STREAM_SERVICE.items():
+        arch, cell, cap, source = table.resolve(
+            STREAM_CANDIDATES.get(s, ((arch0, cell0),)))
+        streams.append(s)
+        rates.append(tok / cap)
+        archs[s], cells[s], sources[s] = arch, cell, source
+    return {"streams": tuple(streams),
+            "tok_per_cap": np.asarray(rates, np.float64),
+            "archs": archs, "cells": cells, "sources": sources}
+
+
+def pods_streams_device(asr_on, fps_scale, upload_duty, tok_per_cap,
+                        gate_scale):
+    """Batched per-stream backend pods on tensors.
+
+    `gate_scale` is the `n_users * duty` prefactor (0-dim tensor),
+    `tok_per_cap` the (S,) rates from `stream_rates`, `asr_on` /
+    `fps_scale` / `upload_duty` per-row (R,) knob columns.  Returns
+    ((R,) total pods, (R, S) per-stream pods).  The audio stream is
+    masked where ASR runs on-device and RGB->VLM ingest scales down with
+    the frame-rate knob."""
+    gate = gate_scale * upload_duty
+    fps = torch.clamp_min(fps_scale, 1.0)
+    cols = []
+    for si, s in enumerate(STREAM_SERVICE):
+        x = gate * tok_per_cap[si]
+        if s == "rgb":
+            x = x / fps
+        elif s == "audio":
+            x = x * (1.0 - asr_on)
+        cols.append(x)
+    pods_stream = torch.stack(cols, dim=-1)
+    return torch.sum(pods_stream, dim=-1), pods_stream

@@ -1,0 +1,416 @@
+"""`ScenarioSet` batch API + the batched torch evaluation engine.
+
+Scenarios are encoded struct-of-arrays: a placement mask over the
+platform's egocentric primitives plus per-scenario knobs (compression,
+fps_scale, WiFi MCS tier, upload duty / VAD gating, display brightness).
+`batched_fn(platform)` maps a whole batch of knob rows (a leading row
+axis on every tensor) to per-component loads, delivered totals (incl.
+power-delivery losses) and uplink rates in float32, one tensor op per
+load-rule term: the row axis is written out where the reference package
+maps a single-row function over the batch.
+
+    platform = aria2.aria2_platform()
+    sset = ScenarioSet.grid()                    # 768 design points
+    rep = evaluate(platform, sset, device="cuda")
+    rep.total_mw                                 # (768,) tensor
+
+Every expression keeps the reference engine's operation order.  Where
+a Python number is the dividend it is lifted to a tensor first
+(`_rdiv`): `number / tensor` in PyTorch is a reciprocal times a product,
+which rounds differently from the division the reference performs.
+"""
+from __future__ import annotations
+
+import functools
+import itertools
+from dataclasses import dataclass, replace as _dc_replace
+
+import numpy as np
+import torch
+
+from .. import device as _device
+from .platform import PRIMITIVES, PlatformSpec
+
+# WiFi MCS tiers: (name, energy-per-bit scale, link-maintenance scale)
+# relative to the MCS8 calibration point. Lower-order modulations spend
+# less energy per bit and idle cheaper; 256-QAM buys peak rate at a
+# link-power premium.
+MCS_TIERS = (
+    ("mcs2_qpsk", 0.62, 0.82),
+    ("mcs8_baseline", 1.00, 1.00),
+    ("mcs11_256qam", 1.38, 1.17),
+)
+DEFAULT_MCS = 1                         # mcs8: the paper's operating point
+
+_MCS_EBIT = np.array([t[1] for t in MCS_TIERS], np.float32)
+_MCS_LINK = np.array([t[2] for t in MCS_TIERS], np.float32)
+
+# default DSE grid axes (paper Fig 4 x Fig 6)
+GRID_COMPRESSIONS = (1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0)
+GRID_FPS_SCALES = (1.0, 2.0, 4.0, 8.0, 16.0, 32.0)
+
+
+def _unit_knob(name: str, value):
+    """Validate a [0, 1] fraction knob (scalar or array)."""
+    arr = np.asarray(value, np.float64)
+    if arr.size and (np.any(arr < 0.0) or np.any(arr > 1.0)):
+        raise ValueError(f"{name} must be within [0, 1], got "
+                         f"{float(arr.min())}..{float(arr.max())}")
+    return value
+
+
+def all_placements(primitives=PRIMITIVES) -> tuple:
+    """All 2^n on-device subsets, in the paper's sweep order (by size)."""
+    out = []
+    for r in range(len(primitives) + 1):
+        out.extend(itertools.combinations(primitives, r))
+    return tuple(out)
+
+
+@dataclass(frozen=True)
+class ScenarioSet:
+    """Struct-of-arrays scenario batch (all arrays share leading dim N)."""
+    placement: np.ndarray           # (N, n_primitives) 0/1 mask
+    compression: np.ndarray         # (N,)
+    fps_scale: np.ndarray           # (N,)
+    mcs_tier: np.ndarray            # (N,) int index into MCS_TIERS
+    upload_duty: np.ndarray         # (N,) fraction of time uplink streams
+    brightness: np.ndarray          # (N,) display brightness 0..1
+    names: tuple = ()
+    primitives: tuple = PRIMITIVES
+
+    def __len__(self) -> int:
+        return int(self.placement.shape[0])
+
+    def vec(self, device="cuda") -> dict:
+        """The engine's batched knob vector (dict of tensors)."""
+        dev = _device.resolve(device)
+
+        def f32(a):
+            return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+        return {
+            "placement": f32(self.placement),
+            "compression": f32(self.compression),
+            "fps_scale": f32(self.fps_scale),
+            "mcs_tier": torch.as_tensor(np.asarray(self.mcs_tier, np.int64),
+                                        device=dev),
+            "upload_duty": f32(self.upload_duty),
+            "brightness": f32(self.brightness),
+        }
+
+    # -- constructors -------------------------------------------------------
+    @classmethod
+    def build(cls, rows: list, primitives=PRIMITIVES) -> "ScenarioSet":
+        """rows: dicts with on_device/compression/fps_scale/... knobs."""
+        n = len(rows)
+        pl = np.zeros((n, len(primitives)), np.float32)
+        comp = np.ones(n, np.float32)
+        fps = np.ones(n, np.float32)
+        mcs = np.full(n, DEFAULT_MCS, np.int32)
+        duty = np.ones(n, np.float32)
+        bright = np.zeros(n, np.float32)
+        names = []
+        for i, r in enumerate(rows):
+            for p in r.get("on_device", ()):
+                if p not in primitives:
+                    raise ValueError(f"unknown primitive {p!r}; "
+                                     f"one of {primitives}")
+                pl[i, primitives.index(p)] = 1.0
+            comp[i] = r.get("compression", 10.0)
+            fps[i] = r.get("fps_scale", 1.0)
+            tier = int(r.get("mcs_tier", DEFAULT_MCS))
+            if not 0 <= tier < len(MCS_TIERS):
+                raise ValueError(f"mcs_tier {tier} out of range "
+                                 f"[0, {len(MCS_TIERS)})")
+            mcs[i] = tier
+            duty[i] = _unit_knob("upload_duty", r.get("upload_duty", 1.0))
+            bright[i] = _unit_knob("brightness", r.get("brightness", 0.0))
+            names.append(r.get("name", ""))
+        return cls(pl, comp, fps, mcs, duty, bright, tuple(names),
+                   primitives)
+
+    @classmethod
+    def grid(cls, placements=None, compressions=GRID_COMPRESSIONS,
+             fps_scales=GRID_FPS_SCALES, mcs_tiers=(DEFAULT_MCS,),
+             upload_duties=(1.0,), brightnesses=(0.0,),
+             primitives=PRIMITIVES) -> "ScenarioSet":
+        """Cartesian product over knob axes (placement outermost)."""
+        placements = (all_placements(primitives) if placements is None
+                      else tuple(placements))
+        rows = [{"on_device": p, "compression": float(c),
+                 "fps_scale": float(f), "mcs_tier": int(m),
+                 "upload_duty": float(u), "brightness": float(b)}
+                for p in placements for c in compressions
+                for f in fps_scales for m in mcs_tiers
+                for u in upload_duties for b in brightnesses]
+        return cls.build(rows, primitives)
+
+    def take(self, idx) -> "ScenarioSet":
+        """Row subset (or reorder) by integer indices or a boolean mask
+        (e.g. a Pareto front_mask), names included."""
+        idx = np.asarray(idx)
+        idx = (np.flatnonzero(idx) if idx.dtype == bool
+               else idx.astype(np.int64))
+        if idx.size and (idx.min() < -len(self) or idx.max() >= len(self)):
+            raise IndexError(f"take indices out of range for "
+                             f"{len(self)}-row ScenarioSet")
+        names = tuple(self.names[i] for i in idx) if self.names else ()
+        return _dc_replace(
+            self, placement=self.placement[idx],
+            compression=self.compression[idx],
+            fps_scale=self.fps_scale[idx], mcs_tier=self.mcs_tier[idx],
+            upload_duty=self.upload_duty[idx],
+            brightness=self.brightness[idx], names=names)
+
+    def pad(self, n_rows: int) -> "ScenarioSet":
+        """Pad up to ``n_rows`` by repeating row 0 (canonical shape
+        bucketing: the clone rows are valid scenarios, and callers never
+        index past the real rows).  No-op when already ``n_rows`` long."""
+        n = len(self)
+        if n_rows < n:
+            raise ValueError(f"pad target {n_rows} < {n} real rows")
+        if n_rows == n or n == 0:
+            return self
+        idx = np.concatenate([np.arange(n),
+                              np.zeros(n_rows - n, np.int64)])
+        padded = self.take(idx)
+        if self.names:
+            return _dc_replace(padded, names=tuple(self.names)
+                               + ("",) * (n_rows - n))
+        return padded
+
+
+# ---------------------------------------------------------------------------
+# derived per-scenario features feeding the load rules
+# ---------------------------------------------------------------------------
+
+@dataclass
+class Features:
+    """(R,) float32 tensors derived from a batch of knob rows."""
+    vio: torch.Tensor
+    et: torch.Tensor
+    asr: torch.Tensor
+    ht: torch.Tensor
+    n_on: torch.Tensor
+    compression: torch.Tensor
+    fps_scale: torch.Tensor
+    fps_f: torch.Tensor             # sensor static-power factor
+    mbps: torch.Tensor              # instantaneous uplink rate
+    mbps_eff: torch.Tensor          # duty-gated average uplink rate
+    codec_raw: torch.Tensor         # raw pixel rate entering the codec
+    raw_visual: torch.Tensor        # raw visual traffic (DRAM)
+    isp_duty: torch.Tensor
+    duty_npu: torch.Tensor          # placement-indexed sim duties feeding
+    duty_dsp: torch.Tensor          # the queue_mw_per_duty contention
+    duty_dram: torch.Tensor         # terms (queueing effects)
+    upload_duty: torch.Tensor
+    brightness: torch.Tensor
+    mcs_ebit_scale: torch.Tensor
+    mcs_link_scale: torch.Tensor
+    r_npu_ht: float                 # platform GFLOP/s x primitive constants
+    r_npu_et: float
+    r_hwa_vio: float
+    r_dsp_asr: float
+
+
+def _rdiv(num: float, den: torch.Tensor) -> torch.Tensor:
+    """float32 `num / den` for a Python-number dividend, as a true
+    division (see the module note)."""
+    return torch.full_like(den, num) / den
+
+
+def _features_core(platform: PlatformSpec, on, c, fs, duty, brightness,
+                   duty_of, mcs_ebit, mcs_link) -> Features:
+    """Knob->feature math over a row batch (`on` is (R, n_prim) 0/1)."""
+    R = dict(platform.raw_mbps)
+    rates = dict(platform.ip_rates)
+    prim = platform.primitives
+    vio = on[:, prim.index("vio")]
+    et = on[:, prim.index("eye_tracking")]
+    asr = on[:, prim.index("asr")]
+    ht = on[:, prim.index("hand_tracking")]
+    n_on = torch.sum(on, dim=-1)
+    fps_f = 0.35 + _rdiv(0.65, fs)
+
+    # outward GS cameras: consumed on-device by HT(+VIO), else offloaded
+    gs_off = (1.0 - ht) * R["gs"] + ht * (1.0 - vio) * R["gs_vio_share"]
+    visual_off = R["rgb"] + gs_off + (1.0 - et) * R["et"]
+    mbps = (visual_off / (c * fs) + (1.0 - asr) * R["audio_opus"]
+            + R["imu"] + R["aux"] + R["signals"] * n_on)
+    codec_raw = visual_off / fs
+    raw_visual = _rdiv(R["rgb"] + R["gs"] + R["et"], fs)
+
+    return Features(
+        vio=vio, et=et, asr=asr, ht=ht, n_on=n_on, compression=c,
+        fps_scale=fs, fps_f=fps_f, mbps=mbps, mbps_eff=mbps * duty,
+        codec_raw=codec_raw, raw_visual=raw_visual,
+        isp_duty=duty_of("isp", 1.0),
+        duty_npu=duty_of("npu", 0.0), duty_dsp=duty_of("dsp", 0.0),
+        duty_dram=duty_of("dram_bus", 0.0),
+        upload_duty=duty, brightness=brightness,
+        mcs_ebit_scale=mcs_ebit, mcs_link_scale=mcs_link,
+        r_npu_ht=rates.get("npu_ht", 0.0), r_npu_et=rates.get("npu_et", 0.0),
+        r_hwa_vio=rates.get("hwa_vio", 0.0),
+        r_dsp_asr=rates.get("dsp_asr", 0.0))
+
+
+def _features(platform: PlatformSpec, vec: dict, tabs: dict) -> Features:
+    """Int-indexed feature path; `tabs` holds the platform's duty and
+    MCS tables on the batch's device (see `_tables`)."""
+    on = vec["placement"]
+    # placement-mask index -> per-resource duty from the event-driven
+    # taskgraph sim (ISP duty rule + NPU/DSP/DRAM contention terms)
+    idx = torch.round(torch.sum(on * tabs["bits"], dim=-1)).long()
+
+    def duty_of(resource, default):
+        return tabs["duty"][resource][idx]
+
+    mcs = vec["mcs_tier"]
+    return _features_core(
+        platform, on, vec["compression"], vec["fps_scale"],
+        vec["upload_duty"], vec["brightness"], duty_of,
+        tabs["mcs_ebit"][mcs], tabs["mcs_link"][mcs])
+
+
+# ---------------------------------------------------------------------------
+# load-rule implementations (platform.LOAD_KIND_NAMES)
+# ---------------------------------------------------------------------------
+
+def _npu(p, f, th):
+    any_on = torch.maximum(f.ht, f.et)
+    active = (th["ip_idle_mw"] + f.ht * f.r_npu_ht * th["pj_ht"]
+              + f.et * f.r_npu_et * th["pj_et"])
+    # queueing overhead: frame-driven NPU duty from the taskgraph sim
+    # (shared by HT + ET nets), scaled down with the frame rate
+    queue = th["queue_mw_per_duty"] * f.duty_npu \
+        / torch.clamp_min(f.fps_scale, 1.0)
+    return any_on * active + (1.0 - any_on) * p["off_mw"] + queue
+
+
+# kind -> fn(params, features, theta) -> (R,) mW; "const" is filled from
+# the platform's constant row in `batched_fn` instead (no per-row math)
+LOAD_KINDS = {
+    "sensor_fps": lambda p, f, th: p["mw"] * f.fps_f,
+    "isp": lambda p, f, th: (p["active_mw"] * f.isp_duty
+                             / torch.clamp_min(f.fps_scale, 1.0)
+                             + p["floor_mw"]),
+    "codec": lambda p, f, th: (th["codec_mw_per_rawmbps"] * f.codec_raw
+                               + p["floor_mw"]),
+    "dsp_audio": lambda p, f, th: (p["base_mw"]
+                                   + f.asr * f.r_dsp_asr * th["pj_asr"]
+                                   + (1.0 - f.asr) * p["idle_mw"]
+                                   + th["queue_mw_per_duty"] * f.duty_dsp),
+    "npu": _npu,
+    "hwa_vio": lambda p, f, th: (f.vio * (th["ip_idle_mw"]
+                                          + f.r_hwa_vio * th["pj_vio"])
+                                 + (1.0 - f.vio) * p["off_mw"]),
+    "dram": lambda p, f, th: (p["base_mw"]
+                              + th["dram_mw_per_mbps"] * f.raw_visual / 8.0
+                              + th["queue_mw_per_duty"] * f.duty_dram
+                              / torch.clamp_min(f.fps_scale, 1.0)),
+    "wifi": lambda p, f, th: (th["wifi_link_mw"] * f.mcs_link_scale
+                              + th["wifi_mw_per_mbps"] * f.mcs_ebit_scale
+                              * f.mbps_eff),
+    "display": lambda p, f, th: p["base_mw"] + p["max_mw"] * f.brightness,
+}
+
+
+# ---------------------------------------------------------------------------
+# batched engine (one per platform, cached)
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=64)
+def _tables(platform: PlatformSpec, device: torch.device) -> dict:
+    """Per-(platform, device) constant tensors of the engine."""
+    comps = platform.components
+    rails = platform.rail_dict()
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+    const = [c.load.p()["mw"] if c.load.kind == "const" else 0.0
+             for c in comps]
+    return {
+        "bits": f32([1 << i for i in range(len(platform.primitives))]),
+        "duty": {r: f32(platform.duty_table(r, d)) for r, d in
+                 (("isp", 1.0), ("npu", 0.0), ("dsp", 0.0),
+                  ("dram_bus", 0.0))},
+        "mcs_ebit": f32(_MCS_EBIT), "mcs_link": f32(_MCS_LINK),
+        "rail_eff": f32([rails[c.rail] for c in comps]),
+        "const_row": f32(const),
+    }
+
+
+@functools.lru_cache(maxsize=32)
+def batched_fn(platform: PlatformSpec):
+    """Batched engine core for one platform.
+
+    The returned `fn(vec, th) -> {"loads", "pd_loss", "total", "mbps"}`
+    takes a knob-vector dict of (R, ...) tensors (`ScenarioSet.vec`) and
+    a theta dict of 0-dim float32 tensors (`_theta`) on one device, and
+    returns (R, C) loads and (R,) totals / PD losses / gated uplink."""
+    comps = platform.components
+    rules = [(j, LOAD_KINDS[c.load.kind], c.load.p())
+             for j, c in enumerate(comps) if c.load.kind != "const"]
+
+    def fn(vec, th):
+        tabs = _tables(platform, vec["compression"].device)
+        f = _features(platform, vec, tabs)
+        n = vec["compression"].shape[0]
+        cols = list(tabs["const_row"].expand(n, len(comps)).unbind(1))
+        for j, rule, p in rules:
+            cols[j] = rule(p, f, th)
+        loads = torch.stack(cols, dim=1)
+        eff = torch.clamp_max(tabs["rail_eff"] * th["eff_scale"], 0.97)
+        delivered = loads / eff
+        return {"loads": loads,
+                "pd_loss": torch.sum(delivered - loads, dim=1),
+                "total": torch.sum(delivered, dim=1), "mbps": f.mbps_eff}
+
+    return fn
+
+
+def _theta(platform: PlatformSpec, theta=None, device="cuda") -> dict:
+    """Platform theta merged with overrides, as 0-dim float32 tensors."""
+    dev = _device.resolve(device)
+    th = platform.theta_dict()
+    if theta:
+        th.update(theta)
+    return {k: torch.tensor(float(np.float32(v)), dtype=torch.float32,
+                            device=dev) for k, v in th.items()}
+
+
+@dataclass
+class BatchReport:
+    """Batched evaluation result; all tensors have leading dim N."""
+    platform: PlatformSpec
+    sset: ScenarioSet
+    loads_mw: torch.Tensor          # (N, n_components)
+    total_mw: torch.Tensor          # (N,)
+    pd_loss_mw: torch.Tensor        # (N,)
+    offloaded_mbps: torch.Tensor    # (N,)
+
+
+def _validate(platform: PlatformSpec, sset: ScenarioSet) -> None:
+    if sset.primitives != platform.primitives:
+        raise ValueError(
+            f"ScenarioSet primitives {sset.primitives} do not match "
+            f"platform {platform.name!r} primitives {platform.primitives}")
+    supported = set(platform.supported_primitives())
+    for j, p in enumerate(platform.primitives):
+        if p not in supported and np.any(np.asarray(sset.placement)[:, j]):
+            raise ValueError(
+                f"platform {platform.name!r} cannot run {p!r} on-device "
+                f"(its accelerator was dropped from the component table); "
+                f"supported: {sorted(supported)}")
+
+
+def evaluate(platform: PlatformSpec, sset: ScenarioSet, theta=None,
+             device="cuda") -> BatchReport:
+    """Evaluate the whole scenario batch in one batched pass."""
+    _validate(platform, sset)
+    out = batched_fn(platform)(sset.vec(device),
+                               _theta(platform, theta, device))
+    return BatchReport(platform, sset, out["loads"], out["total"],
+                       out["pd_loss"], out["mbps"])
