@@ -5,7 +5,8 @@
 Run from the root of a checkout.  Phases (any failure exits non-zero):
 
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: csrc/day_scan.cu with nvcc (sm_90a) from the checkout;
+  2. build: csrc/day_scan.cu, csrc/flash_attention.cu and csrc/ssd_scan.cu
+     with nvcc (sm_90a) from the checkout, one nvcc each, all at once;
   3. kernel vs its plain PyTorch version on the card, on the serving
      grid's day tables (N = 64 combos, T = 4320 steps, L = 3 levels) and
      on ragged N = 63 and N = 200: discrete outputs (level, shut) exactly
@@ -17,7 +18,41 @@ Run from the root of a checkout.  Phases (any failure exits non-zero):
      (front_mask / survives() / shutdown exactly, objectives rtol
      1e-5); the day-scan kernel must launch exactly once per query;
   5. timing: day-scan kernel ms (CUDA events over many launches), the
-     plain version's ms, the bound, warm query and what-if ms.
+     plain version's ms, the bound, warm query and what-if ms;
+  6. flash-attention and SSD-scan kernels vs their plain versions on the
+     card: at the zamba2-1.2b prefill shapes in bf16 and float32, flash
+     at a GQA 4:1 + window 96 + ragged-S case at Dh = 128, SSD at a
+     ragged s and at g = 2 (n = 128).  Flash: atol = rtol = 2e-5 in
+     float32 (tests/test_kernels.py), atol 8e-3 / rtol 2^-7 (one bf16
+     spacing) in bf16; and in bf16 at the prefill shape, against the plain
+     version on the kernel's own 64 x 64 tiles, a relative RMS error
+     under FLASH_ROUNDING_LIMIT, which the same plain version with p left
+     unrounded (v in float32) must exceed.  SSD: tests/test_kernels.py's
+     atol max(tol, 1e-4), rtol 5 tol (tol 2e-5 float32, 2e-2 bf16);
+  7. main path: the zamba2-1.2b prefill step (`make_prefill_step`) at
+     full width and depth (38 layers, bf16 weights and compute, seeded
+     numpy weights) on B = 2 prompts of S = 4096 tokens; one call must
+     launch flash exactly 6 times and SSD exactly 38 times, with finite
+     last hidden and logits;
+  8. golden: the port's float32 prefill at full width, 8 layers, against
+     src/repro_torch/data/golden_zamba2.json (written from the JAX
+     reference): weight checksum equal, logits at the sampled and top-8
+     ids within 5e-5 x the spread of the non-top-1 logits, the top-8
+     ranks equal up to ties; the same run in bf16 must miss that
+     tolerance (the top-1 is the row's own token under the tied
+     embedding, so it checks nothing);
+  9. the Server at full width and depth in float32: 3 requests of 32-64
+     token prompts, 16 new tokens each, 2 slots; every request gets its
+     tokens, its first token is the argmax of the float32 prefill step's
+     logits on its left-padded prompt and every later one the argmax of
+     the float32 forward over the prompt and the tokens before it; the
+     same tokens teacher-forced through `decode_step` give the forward's
+     logits at every position within DEC_ATOL_REL x their spread, which
+     the bf16 forward must miss;
+ 10. timing: flash and SSD kernel ms (CUDA events), plain ms, bounds,
+     `scaled_dot_product_attention` ms at the flash shape (a yardstick
+     only: the port never calls it), prefill ms and tokens/s, Server
+     decode ms per token, peak device memory, a profile of one prefill.
 
 The second-to-last lines are the `kernels` JSON object and the
 nvidia-smi line; the last line is the result object.
@@ -40,11 +75,36 @@ PEAK_F32_OPS_S = 67e12          # H100 SXM float32, outside tensor cores
 OPS_PER_STEP = 104
 RTOL, ATOL = 1e-6, 1e-4         # continuous day traces, as the reference
 OBJ_RTOL = 1e-5                 # objectives vs the golden (sums of traces)
+PEAK_BF16_OPS_S = 989e12        # H100 SXM bf16 tensor cores, dense
+PEAK_OPS_S = {"bfloat16": PEAK_BF16_OPS_S, "float32": PEAK_F32_OPS_S}
+LM_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py
+# bf16 flash vs plain: twice the reading at the prefill shape (0.0039),
+# plus one bf16 spacing of the value
+FLASH_BF16_ATOL, FLASH_BF16_RTOL = 8e-3, 2.0 ** -7
+# relative RMS error of the bf16 flash kernel against the plain version on
+# its own tiles (float32 sum order only; 2.4e-5 on an H100) vs the
+# p-unrounded control (2.1e-3)
+FLASH_ROUNDING_LIMIT = 5e-4
+# decode_step vs the float32 forward's logits, relative to their spread
+# (~40): 2.5e-5 read on an H100, 2.2e-1 for the bf16 forward
+DEC_ATOL_REL = 1e-4
+LM_SEED = 0                     # seeded numpy weights of the prefill/Server
+B_PREFILL, S_PREFILL = 2, 4096  # S = Zamba2-1.2B's max_position_embeddings
 
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
     sys.exit(1)
+
+
+MISSES: list = []   # tolerance checks missed; the run fails at its end
+
+
+def miss(msg: str) -> None:
+    """A result outside its tolerance: reported now, and the run goes on
+    to read the other checks before it fails."""
+    print(f"chip_smoke: MISSED: {msg}", file=sys.stderr)
+    MISSES.append(msg)
 
 
 def nvidia_smi() -> str:
@@ -173,6 +233,503 @@ def golden_overrides(spec: dict, daysim) -> dict:
     return out
 
 
+def _bound(n_bytes: float, n_ops: float, dtype: str) -> tuple:
+    """(bound ms, "bytes" | "operations"): the larger of the bytes over
+    HBM bandwidth and the operations over the peak for `dtype`."""
+    by_bytes = n_bytes / PEAK_BYTES_S * 1e3
+    by_ops = n_ops / PEAK_OPS_S[dtype] * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                          "operations")
+
+
+def flash_bound(q, k, causal: bool, window) -> tuple:
+    """Bound of one attention call: q, k, v read once and o written once;
+    the q.k and p.v products (2 flops a multiply-add) over the key
+    positions these masks leave."""
+    import numpy as np
+    B, Sq, H, Dh = q.shape
+    Sk, KvH = k.shape[1], k.shape[2]
+    n_bytes = (2 * B * Sq * H + 2 * B * Sk * KvH) * Dh * q.element_size()
+    qi = np.arange(Sq)
+    hi = np.minimum(qi, Sk - 1) if causal else np.full(Sq, Sk - 1)
+    lo = np.maximum(0, qi - window + 1) if window is not None else 0 * qi
+    pairs = float(np.clip(hi - lo + 1, 0, None).sum())
+    return _bound(n_bytes, 4.0 * B * H * Dh * pairs, str(q.dtype)[6:])
+
+
+def ssd_bound(x, Bm, chunk: int) -> tuple:
+    """Bound of one SSD scan: x, B, C, dt, A read once and y written
+    once; per chunk of L rows the products C.B and W.(x dt) over the
+    L(L+1)/2 pairs i >= j, C.state and the state update (2 flops a
+    multiply-add)."""
+    b, s, h, p = x.shape
+    g, n = Bm.shape[2], Bm.shape[3]
+    n_bytes = (2 * b * s * h * p + 2 * b * s * g * n) * x.element_size() \
+        + 4 * (b * s * h + h)
+    lens = [min(chunk, s - c) for c in range(0, s, chunk)]
+    per_bh = sum(L * (L + 1) / 2 * 2 * (n + p) + 4 * L * p * n for L in lens)
+    return _bound(n_bytes, b * h * per_bh, str(x.dtype)[6:])
+
+
+def hold(name: str, got, want, atol: float, rtol: float) -> float:
+    """Kernel output vs the plain version's: finite and allclose; returns
+    the largest absolute error."""
+    import torch
+    torch.cuda.synchronize()
+    a, w = got.float(), want.float()
+    if a.shape != w.shape or not bool(torch.isfinite(a).all()):
+        fail(f"{name}: kernel output not finite or of shape {a.shape}")
+    err = float((a - w).abs().max())
+    if not torch.allclose(a, w, atol=atol, rtol=rtol):
+        miss(f"{name}: kernel off the plain version by {err} (atol {atol}, "
+             f"rtol {rtol})")
+    print(f"{name}: kernel vs plain, max abs err {err:.3g} (max |plain| "
+          f"{float(w.abs().max()):.3g}, atol {atol:g}, rtol {rtol:g})")
+    return err
+
+
+def rel_rms(a, b) -> float:
+    """RMS of a - b over the RMS of b, in float64."""
+    a, b = a.double(), b.double()
+    return float((a - b).square().mean().sqrt() / b.square().mean().sqrt())
+
+
+def check_flash_rounding(got, q, k, v) -> None:
+    """The bf16 kernel rounds p to v's dtype before the PV product and sums
+    l from the unrounded p (the reference's flash_attention.py:72).  The
+    plain version on the kernel's own 64 x 64 tiles has the same running
+    max, so the same p, and differs from the kernel only by float32 sum
+    order; that plain version with p left unrounded (v in float32) must
+    differ by more than FLASH_ROUNDING_LIMIT."""
+    from repro_torch.nn import attention as attn
+    tiles = {"causal": True, "chunk_q": 64, "chunk_k": 64}
+    want = attn.chunked_attention(q, k, v, **tiles)
+    kernel = rel_rms(got, want)
+    control = rel_rms(attn.chunked_attention(q, k, v.float(), **tiles),
+                      want)
+    if not kernel <= FLASH_ROUNDING_LIMIT < control:
+        miss(f"flash bf16 rounding: kernel rel RMS {kernel:.3g}, unrounded-p "
+             f"control {control:.3g}, limit {FLASH_ROUNDING_LIMIT:g} must lie "
+             f"between them")
+    print(f"flash bf16 rounding (plain on the kernel's 64 x 64 tiles): kernel "
+          f"rel RMS err {kernel:.3g}, limit {FLASH_ROUNDING_LIMIT:g}, "
+          f"unrounded-p control {control:.3g}")
+
+
+def check_lm_kernels(dev) -> dict:
+    """Phase 6: flash and SSD kernels vs their plain versions."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa, ssd_scan as ss
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def rn(shape, dtype, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device=dev)) \
+            .to(dtype)
+
+    worst = {"flash_attention": 0.0, "ssd_scan": 0.0}
+    for dtype in (torch.bfloat16, torch.float32):
+        tol = LM_TOL[str(dtype)[6:]]
+        for B, S, H, KvH, Dh, window in ((B_PREFILL, S_PREFILL, 32, 32, 64,
+                                          None),
+                                         (1, 1000, 16, 4, 128, 96)):
+            q = rn((B, S, H, Dh), dtype)
+            k, v = rn((B, S, KvH, Dh), dtype), rn((B, S, KvH, Dh), dtype)
+            bf16 = dtype == torch.bfloat16
+            got = fa.flash_attention(q, k, v, causal=True, window=window)
+            err = hold(f"flash B={B} S={S} H={H} KvH={KvH} Dh={Dh} "
+                       f"window={window} {str(dtype)[6:]}", got,
+                       fa.flash_attention_plain(q, k, v, causal=True,
+                                                window=window),
+                       FLASH_BF16_ATOL if bf16 else tol,
+                       FLASH_BF16_RTOL if bf16 else tol)
+            worst["flash_attention"] = max(worst["flash_attention"], err)
+            if bf16 and S == S_PREFILL:
+                check_flash_rounding(got, q, k, v)
+        for b, s, h, g, n in ((B_PREFILL, S_PREFILL, 64, 1, 64),
+                              (B_PREFILL, 1000, 64, 1, 64),
+                              (1, 1024, 8, 2, 128)):
+            x = rn((b, s, h, 64), dtype, 0.5)
+            dt = torch.nn.functional.softplus(rn((b, s, h), torch.float32))
+            A = -torch.exp(rn((h,), torch.float32, 0.3))
+            Bm, Cm = rn((b, s, g, n), dtype, 0.3), rn((b, s, g, n), dtype,
+                                                       0.3)
+            err = hold(f"ssd b={b} s={s} h={h} g={g} n={n} "
+                       f"{str(dtype)[6:]}",
+                       ss.ssd_scan(x, dt, A, Bm, Cm, chunk=64),
+                       ss.ssd_scan_plain(x, dt, A, Bm, Cm, chunk=64),
+                       max(tol, 1e-4), 5 * tol)
+            worst["ssd_scan"] = max(worst["ssd_scan"], err)
+    return worst
+
+
+def spread(logits) -> float:
+    """The smallest over rows of the std of a row's logits (..., V) with
+    its top-1 left out: the scale of what the layers decide, which the
+    top-1 (the row's own token, under the tied embedding) is not."""
+    import torch
+    rows = logits.reshape(-1, logits.shape[-1]).double()
+    keep = torch.ones_like(rows, dtype=torch.bool)
+    keep[torch.arange(len(rows)), rows.argmax(-1)] = False
+    return float(rows[keep].reshape(len(rows), -1).std(-1).min())
+
+
+def golden_miss(logits, golden: dict, tol: float) -> tuple:
+    """(max abs error at the golden's sampled and top-8 ids, the first
+    top-8 rank whose id is neither the golden's nor tied with it within
+    2 tol, or None)."""
+    import numpy as np
+    top_ids = np.asarray(golden["top8_ids"])
+    top_vals = np.asarray(golden["top8_logits"])
+    ids = np.asarray(golden["sample_ids"])
+    err = max(float(np.abs(logits[:, ids]
+                           - np.asarray(golden["logits_at_sample"])).max()),
+              float(np.abs(np.take_along_axis(logits, top_ids, -1)
+                           - top_vals).max()))
+    for r, row in enumerate(logits):
+        top = np.argsort(-row, kind="stable")[:top_ids.shape[1]]
+        for k, i in enumerate(top):
+            if i != top_ids[r, k] and abs(row[i] - top_vals[r, k]) > 2 * tol:
+                return err, (r, k)
+    return err, None
+
+
+def check_golden_lm(dev) -> None:
+    """Phase 8: the float32 prefill, full width, 8 layers, against the
+    JAX reference's golden logits; the same in bf16 must miss them."""
+    import dataclasses
+    import torch
+    from repro_torch import convert
+    from repro_torch.configs import zamba2_1p2b
+    from repro_torch.launch import steps
+    from repro_torch.models import mamba_lm
+    from repro_torch.nn import core
+    golden = json.loads((ROOT / "src" / "repro_torch" / "data"
+                         / "golden_zamba2.json").read_text())
+    cfg = dataclasses.replace(zamba2_1p2b.config(),
+                              n_layers=golden["n_layers"],
+                              compute_dtype=torch.float32)
+    tree = convert.lm_params_numpy(cfg, golden["seed"])
+    if convert.params_checksum(tree) != golden["params_sha256"]:
+        fail("golden: the seeded numpy weights differ from the golden's "
+             "(numpy's stream changed), not a parity failure")
+    tol = golden["atol_rel_to_spread"] * golden["spread"]
+    tokens = torch.as_tensor(golden["tokens"], device=dev)
+    misses = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        c = dataclasses.replace(cfg, param_dtype=dtype, compute_dtype=dtype)
+        params = convert.lm_params_from_numpy(tree, c, dev)
+        h = steps.make_prefill_step(c, mamba_lm)(params, {"tokens": tokens})
+        logits = core.unembed_logits(params["embed"]["table"], h).float()
+        if not bool(torch.isfinite(logits).all()):
+            fail(f"golden: {dtype} logits not finite")
+        misses[dtype] = golden_miss(logits.cpu().numpy(), golden, tol)
+        del params
+    err, rank = misses[torch.float32]
+    if err > tol or rank is not None:
+        miss(f"golden: float32 logits off the reference by {err} (tol "
+             f"{tol}), top-8 rank miss at (row, rank) {rank}")
+    err16, rank16 = misses[torch.bfloat16]
+    if err16 <= tol:
+        miss(f"golden: the bf16 control is within the tolerance ({err16} <= "
+             f"{tol}): the tolerance does not tell the precisions apart")
+    print(f"golden (zamba2-1.2b full width, {golden['n_layers']} layers, "
+          f"B={len(golden['tokens'])} S={len(golden['tokens'][0])}): weights "
+          f"checksum equal; float32 logits max abs err {err:.4g}, top-8 "
+          f"rank miss at {rank}; tol {tol:.4g} "
+          f"({golden['atol_rel_to_spread']:g} x spread "
+          f"{golden['spread']:.4g}); bf16 control err {err16:.4g}, top-8 "
+          f"rank miss at (row, rank) {rank16}")
+
+
+def profile_device(fn, label: str, reps: int = 1) -> str:
+    """Device time per call of `fn` by kernel, from torch.profiler: the
+    device-busy ms beside the host-clock wall ms, the flash and SSD
+    kernels' ms and the top kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / reps
+    rows = []
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+        if dev_us > 0 and str(e.device_type).endswith("CUDA"):
+            rows.append((dev_us / reps, e.count / reps, e.key))
+    if not rows:
+        return f"profile ({label}): the profiler saw no device time " \
+            "(not measured)"
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows) / 1e3
+
+    def share(tag):
+        return sum(r[0] for r in rows if tag in r[2]) / 1e3
+
+    top = "; ".join(f"{k[:40]} {us / 1e3:.3f} ms x{c:g}"
+                    for us, c, k in rows[:6])
+    return (f"profile ({label}, per call): wall {wall:.2f} ms, device busy "
+            f"{busy:.2f} ms ({100 * (1 - busy / wall):.1f} % idle) in "
+            f"{sum(r[1] for r in rows):g} kernels; flash_kernel "
+            f"{share('flash_kernel'):.2f} ms, ssd_kernel "
+            f"{share('ssd_kernel'):.2f} ms; top: {top}")
+
+
+def check_served(batch, params32, params16, cfg32, cfg16, prefill32, dec,
+                 dev) -> None:
+    """Phase 9 for one batch of served requests: the tokens the Server fed
+    (left-padded prompts, then all but the last new token) through the
+    float32 forward give, at each position, the token the Server chose
+    next (the first one through the prefill step); teacher-forced through
+    `decode_step` they give the forward's logits within DEC_ATOL_REL x
+    their spread, and the bf16 forward misses that tolerance."""
+    import numpy as np
+    import torch
+    from repro_torch.models import mamba_lm
+    from repro_torch.nn import core
+    S = max(len(r.prompt) for r in batch)
+    n_new = len(batch[0].out_tokens)
+    seq = np.zeros((len(batch), S + n_new - 1), np.int64)
+    for i, r in enumerate(batch):
+        seq[i, S - len(r.prompt):S] = r.prompt
+        seq[i, S:] = r.out_tokens[:-1]
+    seq = torch.as_tensor(seq, device=dev)
+    table = params32["embed"]["table"]
+    first = torch.argmax(core.unembed_logits(table, prefill32(
+        params32, {"tokens": seq[:, :S]})), dim=-1).tolist()
+    ref = core.unembed_logits(table, mamba_lm.forward(params32, cfg32,
+                                                      seq)[0])
+    tol = DEC_ATOL_REL * spread(ref)
+    top2 = torch.topk(ref[:, S - 1:], 2, dim=-1)
+    gap = (top2.values[..., 0] - top2.values[..., 1]).cpu().numpy()
+    chose = top2.indices[..., 0].cpu().numpy()
+    for i, r in enumerate(batch):
+        if r.out_tokens[0] != first[i]:
+            miss(f"Server request {r.rid}: first token {r.out_tokens[0]} "
+                 f"!= prefill argmax {first[i]}")
+        for t, tok in enumerate(r.out_tokens):
+            if tok != chose[i, t] and gap[i, t] > 2 * tol:
+                miss(f"Server request {r.rid}: token {t} is {tok}, the "
+                     f"float32 forward's argmax is {chose[i, t]}")
+    cache = mamba_lm.init_cache(cfg32, len(batch), seq.shape[1],
+                                torch.float32, dev)
+    err = 0.0
+    for t in range(seq.shape[1]):
+        lg, cache = dec(params32, seq[:, t], cache, t)
+        err = max(err, float((lg - ref[:, t]).abs().max()))
+    h16, _ = mamba_lm.forward(params16, cfg16, seq)
+    err16 = float((core.unembed_logits(params16["embed"]["table"], h16)
+                   .float() - ref).abs().max())
+    if not err <= tol < err16:
+        miss(f"Server requests {[r.rid for r in batch]}: decode_step logits "
+             f"off the float32 forward by {err}, bf16 forward by {err16}; "
+             f"tol {tol} must lie between them")
+    print(f"Server requests {[r.rid for r in batch]} (prompts "
+          f"{[len(r.prompt) for r in batch]}, padded to {S}): {n_new} tokens "
+          f"each, first vs prefill argmax {first}, all vs float32 forward "
+          f"argmax (smallest top-2 gap {gap.min():.3g}); decode_step logits "
+          f"over {seq.shape[1]} positions max abs err {err:.4g}, tol "
+          f"{tol:.4g} ({DEC_ATOL_REL:g} x spread {tol / DEC_ATOL_REL:.4g}), "
+          f"bf16 forward err {err16:.4g}")
+
+
+def lm_phases(dev) -> list:
+    """Phases 6-10 (the zamba2-1.2b serving slice); returns the flash and
+    SSD rows of the `kernels` line."""
+    import dataclasses
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import convert
+    from repro_torch.configs import zamba2_1p2b
+    from repro_torch.kernels import flash_attention as fa, ssd_scan as ss
+    from repro_torch.launch import steps
+    from repro_torch.models import mamba_lm
+    from repro_torch.nn import core
+    from repro_torch.serving.engine import Request, Server
+
+    # float32 checks hold the kernels and the golden in full float32: no
+    # TF32 in matrix products (the default; the port has no convolution)
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    # 6. kernels vs plain
+    worst = check_lm_kernels(dev)
+
+    # 7. main path: the bf16 prefill step at full width and depth
+    base = zamba2_1p2b.config()
+    cfg16 = dataclasses.replace(base, param_dtype=torch.bfloat16,
+                                compute_dtype=torch.bfloat16)
+    cfg32 = dataclasses.replace(base, param_dtype=torch.float32,
+                                compute_dtype=torch.float32)
+    t0 = time.perf_counter()
+    tree = convert.lm_params_numpy(cfg32, LM_SEED)
+    gen_s = time.perf_counter() - t0
+    params16 = convert.lm_params_from_numpy(tree, cfg16, dev)
+    params32 = convert.lm_params_from_numpy(tree, cfg32, dev)
+    del tree
+    n_par = sum(t.numel() for t in _leaves(params16))
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params16))
+    print(f"zamba2-1.2b: {base.n_layers} layers, {n_par / 1e9:.3f} B "
+          f"parameters ({cfg16.n_params / 1e9:.3f} B analytic), bf16 "
+          f"{n_bytes / 1e9:.2f} GB; seeded numpy weights in {gen_s:.1f} s")
+    tokens = torch.as_tensor(np.random.default_rng(LM_SEED + 1).integers(
+        0, base.vocab, (B_PREFILL, S_PREFILL)), device=dev)
+    prefill16 = steps.make_prefill_step(cfg16, mamba_lm)
+    want_flash = base.n_layers // base.attn_every
+    want_ssd = base.n_layers
+    fa.LAUNCHES = 0
+    ss.LAUNCHES = 0
+    h = prefill16(params16, {"tokens": tokens})
+    torch.cuda.synchronize()
+    n_flash, n_ssd = fa.LAUNCHES, ss.LAUNCHES
+    if (n_flash, n_ssd) != (want_flash, want_ssd):
+        fail(f"prefill launched flash {n_flash} / SSD {n_ssd} times, want "
+             f"{want_flash} / {want_ssd}")
+    logits = core.unembed_logits(params16["embed"]["table"], h)
+    if h.shape != (B_PREFILL, base.d_model) or not bool(
+            torch.isfinite(h).all()) or not bool(
+            torch.isfinite(logits).all()):
+        fail(f"prefill: last hidden {tuple(h.shape)} or logits not finite")
+    print(f"main path: zamba2-1.2b bf16 prefill B={B_PREFILL} "
+          f"S={S_PREFILL}: flash launched {n_flash} times, SSD {n_ssd} "
+          f"times; last hidden and logits {tuple(logits.shape)} finite")
+
+    # 8. golden
+    check_golden_lm(dev)
+
+    # 9. the Server, float32, full width and depth
+    rng = np.random.default_rng(LM_SEED + 2)
+    prompts = [rng.integers(2, base.vocab, n).astype(np.int32)
+               for n in (48, 32, 64)]
+    srv = Server(cfg32, mamba_lm, params32, batch_slots=2, max_len=128,
+                 eos=-1)
+    for i, pr in enumerate(prompts):
+        srv.submit(Request(i, pr, max_new_tokens=16))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = srv.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    if len(done) != 3 or any(len(r.out_tokens) != 16 for r in done):
+        fail(f"Server: {[len(r.out_tokens) for r in done]} tokens, want "
+             f"16 for each of 3 requests")
+    prefill32 = steps.make_prefill_step(cfg32, mamba_lm)
+    dec = steps.make_decode_step(cfg32, mamba_lm)
+    for batch in (done[:2], done[2:]):
+        check_served(batch, params32, params16, cfg32, cfg16, prefill32,
+                     dec, dev)
+    n_calls = srv.stats.decode_steps + sum(
+        max(len(r.prompt) for r in b) for b in (done[:2], done[2:]))
+    cache = mamba_lm.init_cache(cfg32, 2, 128, torch.float32, dev)
+    tok = torch.as_tensor([5, 7], device=dev)
+    for t in range(3):
+        _, cache = dec(params32, tok, cache, t)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(3, 23):
+        lg, cache = dec(params32, tok, cache, t)
+    torch.cuda.synchronize()
+    dec_ms = (time.perf_counter() - t0) * 1e3 / 20
+    state = {"cache": cache, "t": 23}
+
+    def one_step():
+        _, state["cache"] = dec(params32, tok, state["cache"], state["t"])
+        state["t"] += 1
+
+    dec_profile = profile_device(one_step, "float32 decode step, B=2", 5)
+    print(f"Server (float32, {base.n_layers} layers): 3 requests, {srv.stats.tokens_out}"
+          f" tokens in {run_s:.2f} s over {n_calls} decode_step calls "
+          f"({run_s * 1e3 / n_calls:.1f} ms each); decode ms per token at "
+          f"B=2: {dec_ms:.2f} ms")
+    print(dec_profile)
+    del params32, cache, state, srv
+
+    # 10. timing (launches from here on are not the main path's)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    q, k, v = (torch.randn((B_PREFILL, S_PREFILL, 32, 64), generator=gen,
+                           device=dev).to(torch.bfloat16) for _ in range(3))
+    flash = lambda: fa.flash_attention(q, k, v, causal=True)  # noqa: E731
+    flash()
+    flash_ms = cuda_ms(flash, 20)
+    fa.flash_attention_plain(q, k, v, causal=True)
+    flash_plain_ms = cuda_ms(lambda: fa.flash_attention_plain(
+        q, k, v, causal=True), 3)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=True)
+    lib_diff = float((sdpa().transpose(1, 2).float() - flash().float())
+                     .abs().max())
+    sdpa_ms = cuda_ms(sdpa, 20)
+    f_bound, f_by = flash_bound(q, k, True, None)
+    x = (0.5 * torch.randn((B_PREFILL, S_PREFILL, 64, 64), generator=gen,
+                           device=dev)).to(torch.bfloat16)
+    dt = F.softplus(torch.randn((B_PREFILL, S_PREFILL, 64), generator=gen,
+                                device=dev))
+    A = -torch.exp(0.3 * torch.randn(64, generator=gen, device=dev))
+    Bm, Cm = ((0.3 * torch.randn((B_PREFILL, S_PREFILL, 1, 64),
+                                 generator=gen, device=dev))
+              .to(torch.bfloat16) for _ in range(2))
+    scan = lambda: ss.ssd_scan(x, dt, A, Bm, Cm, chunk=64)  # noqa: E731
+    scan()
+    ssd_ms = cuda_ms(scan, 20)
+    ss.ssd_scan_plain(x, dt, A, Bm, Cm, chunk=64)
+    ssd_plain_ms = cuda_ms(lambda: ss.ssd_scan_plain(x, dt, A, Bm, Cm,
+                                                     chunk=64), 3)
+    s_bound, s_by = ssd_bound(x, Bm, 64)
+    del q, k, v, qt, kt, vt, x, dt, Bm, Cm
+    torch.cuda.reset_peak_memory_stats()
+    pf = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill16(params16, {"tokens": tokens})
+        torch.cuda.synchronize()
+        pf.append((time.perf_counter() - t0) * 1e3)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    pf_ms = float(np.mean(pf[1:]))
+    print(f"flash kernel (B={B_PREFILL} S={S_PREFILL} H=32 Dh=64 causal "
+          f"bf16): {flash_ms:.4f} ms; plain {flash_plain_ms:.3f} ms; "
+          f"scaled_dot_product_attention {sdpa_ms:.4f} ms (max diff to the "
+          f"kernel {lib_diff:.3g}); bound {f_bound:.5f} ms by {f_by}; "
+          f"{n_flash} launches per prefill")
+    print(f"ssd kernel (b={B_PREFILL} s={S_PREFILL} h=64 p=64 g=1 n=64 "
+          f"bf16): {ssd_ms:.4f} ms; plain {ssd_plain_ms:.3f} ms; bound "
+          f"{s_bound:.5f} ms by {s_by}; library call: none; {n_ssd} "
+          f"launches per prefill")
+    print(f"prefill (bf16, B={B_PREFILL} S={S_PREFILL}, {base.n_layers} "
+          f"layers): "
+          f"{pf_ms:.2f} ms mean of 3 after a warm call ("
+          + ", ".join(f"{t:.2f}" for t in pf) + f" ms), "
+          f"{B_PREFILL * S_PREFILL / pf_ms * 1e3:.0f} tokens/s; peak device "
+          f"memory {peak_gb:.2f} GB")
+    print(profile_device(lambda: prefill16(params16, {"tokens": tokens}),
+                         f"bf16 prefill, B={B_PREFILL} S={S_PREFILL}"))
+    return [{"name": "flash_attention", "route": "cuda",
+             "source": "src/repro_torch/csrc/flash_attention.cu",
+             "replaces": "src/repro/kernels/flash_attention.py:36",
+             "launches": n_flash, "max_abs_err": worst["flash_attention"],
+             "ms": flash_ms, "plain_ms": flash_plain_ms, "bound_ms": f_bound,
+             "bound_by": f_by, "library_ms": sdpa_ms},
+            {"name": "ssd_scan", "route": "cuda",
+             "source": "src/repro_torch/csrc/ssd_scan.cu",
+             "replaces": "src/repro/kernels/ssd_scan.py:28",
+             "launches": n_ssd, "max_abs_err": worst["ssd_scan"],
+             "ms": ssd_ms, "plain_ms": ssd_plain_ms, "bound_ms": s_bound,
+             "bound_by": s_by, "library_ms": None}]
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -186,14 +743,16 @@ def main() -> None:
     smi = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
     dev = torch.device("cuda", 0)
-    print(f"device: {kind} x{torch.cuda.device_count()}; torch "
+    print(f"device: {kind} x{torch.cuda.device_count()} ({smi}); torch "
           f"{torch.__version__} cuda {torch.version.cuda}")
 
-    # 2. build
+    # 2. build, one nvcc per source, all started together
     t0 = time.perf_counter()
+    build.build_all(("day_scan", "flash_attention", "ssd_scan"))
     build.load("day_scan")
-    print(f"kernel build: day_scan {time.perf_counter() - t0:.2f} s "
-          f"(nvcc {build.BUILD_SECONDS.get('day_scan', 0.0):.2f} s)")
+    print(f"kernel build: {time.perf_counter() - t0:.2f} s wall; nvcc "
+          + ", ".join(f"{k} {v:.2f} s"
+                      for k, v in sorted(build.BUILD_SECONDS.items())))
 
     # 3. kernel vs plain on the serving grid's tables
     golden = json.loads((ROOT / "src" / "repro_torch" / "data"
@@ -267,13 +826,17 @@ def main() -> None:
           f"ms); what-if (new values: assembly + push + query): "
           + ", ".join(f"{k} {v:.2f} ms" for k, v in what_if_ms.items()))
     print(profile_queries(twin, 5))
+    del twin
+    lm_rows = lm_phases(dev)
+    if MISSES:
+        fail(f"{len(MISSES)} check(s) outside tolerance: " + "; ".join(MISSES))
     print(json.dumps({"kernels": [{
         "name": "day_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/day_scan.cu",
         "replaces": "src/repro/kernels/day_scan.py:47",
         "launches": launches, "max_abs_err": worst, "ms": kernel_ms,
         "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": None}]}))
+        "library_ms": None}] + lm_rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

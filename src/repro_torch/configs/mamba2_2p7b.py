@@ -1,0 +1,24 @@
+"""mamba2-2.7b [arXiv:2405.21060; unverified] — pure SSD, attention-free."""
+import torch
+
+from ..nn.ssd import SSDConfig
+from .base import ModelConfig
+
+
+def config() -> ModelConfig:
+    return ModelConfig(
+        name="mamba2-2.7b", family="ssm",
+        n_layers=64, d_model=2560, n_heads=1, n_kv_heads=1, head_dim=1,
+        d_ff=0, vocab=50280,
+        ssm=SSDConfig(d_model=2560, d_state=128, head_dim=64, expand=2,
+                      n_groups=1, chunk=64))
+
+
+def smoke() -> ModelConfig:
+    return ModelConfig(
+        name="mamba2-2.7b-smoke", family="ssm",
+        n_layers=2, d_model=64, n_heads=1, n_kv_heads=1, head_dim=1,
+        d_ff=0, vocab=256,
+        ssm=SSDConfig(d_model=64, d_state=16, head_dim=16, expand=2,
+                      n_groups=1, chunk=8),
+        compute_dtype=torch.float32)

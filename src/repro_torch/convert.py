@@ -3,6 +3,9 @@ into the port's objects and tensors (so both packages can be fed the
 same inputs)."""
 from __future__ import annotations
 
+import hashlib
+import math
+
 import numpy as np
 import torch
 
@@ -43,3 +46,120 @@ def tables_from_numpy(tables: dict, device="cuda") -> dict:
     out["act_mult"] = put(tables["act_mult"], (1, 0))
     out["const"] = {k: put(v) for k, v in tables["const"].items()}
     return out
+
+
+# ---------------------------------------------------------------------------
+# language-model parameters
+# ---------------------------------------------------------------------------
+
+F32_LEAVES = ("A_log", "D", "dt_bias")   # float32 whatever the param dtype
+
+
+def _trunc_normal(rng, out: np.ndarray, std: float) -> np.ndarray:
+    """Fill `out` (float32) with Normal(0, std) truncated at 2 std, one
+    leading-axis slice at a time (bounded temporaries at full width)."""
+    for part in (out if out.ndim > 2 else [out]):
+        x = rng.standard_normal(part.shape, dtype=np.float32)
+        bad = np.abs(x) > 2.0
+        while bad.any():
+            x[bad] = rng.standard_normal(int(bad.sum()), dtype=np.float32)
+            bad = np.abs(x) > 2.0
+        np.multiply(x, np.float32(std), out=part)
+    return out
+
+
+def lm_params_numpy(cfg, seed: int) -> dict:
+    """Seeded numpy parameters of `models.mamba_lm` with the shapes and
+    scales of the reference's `mamba_lm.init` / `ssd.mamba2_init`: dense
+    layers Normal(0, 1/sqrt(fan_in)) and the embedding Normal(0, 1), both
+    truncated at 2 std; conv_w over sqrt(d_conv); A_log = log(1 + 15 U);
+    dt_bias the inverse softplus of a log-uniform dt in [dt_min, dt_max];
+    D, norm scales ones; conv_b zeros.  All float32, layer leaves stacked
+    on a leading axis.  Each leaf has its own stream (seed, leaf number),
+    so the tree does not depend on the order leaves are read in."""
+    s, n_l, d = cfg.ssm, cfg.n_layers, cfg.d_model
+    di, h = s.d_inner, s.n_heads
+    proj_out = 2 * di + 2 * s.n_groups * s.d_state + h
+    counter = iter(range(1 << 30))
+
+    def rng():
+        return np.random.default_rng([seed, next(counter)])
+
+    def dense(shape, fan_in):
+        return _trunc_normal(rng(), np.empty(shape, np.float32),
+                             1.0 / math.sqrt(max(fan_in, 1)))
+
+    def ones(*shape):
+        return np.ones(shape, np.float32)
+
+    dt = np.exp(rng().uniform(size=(n_l, h))
+                * (math.log(s.dt_max) - math.log(s.dt_min))
+                + math.log(s.dt_min))
+    params = {
+        "embed": {"table": dense((cfg.vocab, d), 1)},
+        "layers": {
+            "norm": {"scale": ones(n_l, d)},
+            "mamba": {
+                "in_proj": dense((n_l, d, proj_out), d),
+                "conv_w": _trunc_normal(
+                    rng(), np.empty((n_l, s.d_conv, 1, s.conv_dim),
+                                    np.float32), 1.0 / math.sqrt(s.d_conv)),
+                "conv_b": np.zeros((n_l, s.conv_dim), np.float32),
+                "A_log": np.log(1.0 + rng().uniform(size=(n_l, h)) * 15.0)
+                .astype(np.float32),
+                "D": ones(n_l, h),
+                "dt_bias": (dt + np.log(-np.expm1(-dt))).astype(np.float32),
+                "norm": {"scale": ones(n_l, di)},
+                "out_proj": dense((n_l, di, d), di),
+            },
+        },
+        "final_norm": {"scale": ones(d)},
+    }
+    if cfg.attn_every:
+        H, K, Dh, F = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
+        params["shared"] = {
+            "norm1": {"scale": ones(d)},
+            "attn": {"wq": dense((d, H, Dh), d), "wk": dense((d, K, Dh), d),
+                     "wv": dense((d, K, Dh), d),
+                     "wo": dense((H, Dh, d), H * Dh)},
+            "norm2": {"scale": ones(d)},
+            "mlp": {"wi": dense((d, F), d), "wo": dense((F, d), F),
+                    "wg": dense((d, F), d)},
+        }
+    return params
+
+
+def params_checksum(tree: dict) -> str:
+    """sha256 over a numpy parameter tree: each leaf's path, shape and
+    float32 bytes, in sorted path order."""
+    digest = hashlib.sha256()
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], f"{path}/{k}")
+            return
+        a = np.ascontiguousarray(node, dtype="<f4")
+        digest.update(f"{path}:{a.shape}".encode())
+        digest.update(memoryview(a).cast("B"))
+
+    walk(tree, "")
+    return digest.hexdigest()
+
+
+def lm_params_from_numpy(tree: dict, cfg, device="cuda") -> dict:
+    """The reference's `mamba_lm.init` parameter tree, as numpy arrays,
+    as the port's parameter tree on `device`: leaves in `cfg.param_dtype`
+    except A_log, D and dt_bias, which stay float32 as in the reference."""
+    dev = _device.resolve(device)
+
+    def put(node, name):
+        if isinstance(node, dict):
+            return {k: put(v, k) for k, v in node.items()}
+        a = np.asarray(node, np.float32)
+        if not a.flags.writeable or not a.flags.c_contiguous:
+            a = np.array(a, np.float32)
+        dtype = torch.float32 if name in F32_LEAVES else cfg.param_dtype
+        return torch.from_numpy(a).to(device=dev, dtype=dtype)
+
+    return put(tree, "")

@@ -154,6 +154,10 @@ def test_port_imports_neither_jax_nor_reference():
         "repro_torch." + ".".join(p.relative_to(src).with_suffix("").parts)
         for p in src.rglob("*.py"))
     mods = [m.removesuffix(".__init__") for m in mods]
+    for m in ("models.mamba_lm", "models.registry", "serving.engine",
+              "launch.steps", "kernels.flash_attention", "kernels.ssd_scan",
+              "nn.attention", "nn.ssd", "configs.zamba2_1p2b"):
+        assert "repro_torch." + m in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -166,7 +170,7 @@ def test_port_imports_neither_jax_nor_reference():
                          text=True, env={"PYTHONPATH": str(REPO / "src")},
                          timeout=300)
     assert out.returncode == 0, out.stderr
-    assert len(mods) >= 15
+    assert len(mods) >= 30
 
 
 def test_default_device_needs_a_card():
@@ -180,3 +184,60 @@ def test_default_device_needs_a_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         t_scen.evaluate(_plats(t_aria2)["aria2"],
                         t_scen.ScenarioSet.grid())
+    from repro_torch.models import registry
+    cfg, model = registry.get("zamba2-1.2b", smoke=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.init(torch.Generator().manual_seed(0), cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.init_cache(cfg, 1, 8, torch.float32)
+
+
+def _lm_inits():
+    """Every parameter or cache initializer of the LM slice, as a call
+    that forwards `device` when it is given and otherwise leaves the
+    default."""
+    from repro_torch.configs import zamba2_1p2b
+    from repro_torch.models import mamba_lm
+    from repro_torch.nn import attention, core, ssd
+    cfg = zamba2_1p2b.smoke()
+    f32 = torch.float32
+    return {
+        "mamba_lm.init": lambda g, **d: mamba_lm.init(g, cfg, **d),
+        "mamba_lm.init_cache": lambda g, **d: mamba_lm.init_cache(
+            cfg, 1, 8, f32, **d),
+        "ssd.mamba2_init": lambda g, **d: ssd.mamba2_init(g, cfg.ssm, f32,
+                                                          **d),
+        "ssd.mamba2_init_cache": lambda g, **d: ssd.mamba2_init_cache(
+            cfg.ssm, 1, f32, **d),
+        "attention.attn_init": lambda g, **d: attention.attn_init(
+            g, 8, 2, 2, 4, f32, **d),
+        "core.trunc_normal": lambda g, **d: core.trunc_normal(
+            g, (4,), f32, 1.0, **d),
+        "core.dense_init": lambda g, **d: core.dense_init(g, (4, 4), f32,
+                                                          **d),
+        "core.rmsnorm_init": lambda g, **d: core.rmsnorm_init(4, f32, **d),
+        "core.mlp_init": lambda g, **d: core.mlp_init(g, 4, 8, f32, **d),
+        "core.embed_init_params": lambda g, **d: core.embed_init_params(
+            g, 16, 4, f32, **d),
+    }
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+@pytest.mark.parametrize("name", sorted(_lm_inits()))
+def test_lm_init_defaults_to_the_card(name):
+    """The LM slice's initializers default to CUDA too: without a card the
+    default raises, and device="cpu" builds every tensor on the CPU."""
+    fn = _lm_inits()[name]
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn(torch.Generator().manual_seed(0))
+    out = fn(torch.Generator().manual_seed(0), device="cpu")
+    leaves = list(_leaves(out))
+    assert leaves and all(t.device.type == "cpu" for t in leaves)

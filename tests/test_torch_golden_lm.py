@@ -1,0 +1,41 @@
+"""The port's plain path on the CPU against the golden zamba2-1.2b logits
+the card is held to (`src/repro_torch/data/golden_zamba2.json`, written
+from the JAX reference by `tests/torch_golden_lm.py`): full width, 8
+layers, float32, seeded weights.  Passing also proves the file is
+current and the numpy weight stream unchanged."""
+import json
+
+import numpy as np
+import torch
+
+import torch_golden_lm
+from repro_torch import convert
+from repro_torch.launch import steps
+from repro_torch.models import mamba_lm
+from repro_torch.nn import core
+
+GOLDEN = json.loads(torch_golden_lm.GOLDEN.read_text())
+
+
+def test_golden_records_its_settings():
+    assert GOLDEN["arch"] == torch_golden_lm.ARCH
+    assert GOLDEN["n_layers"] == torch_golden_lm.N_LAYERS
+    assert GOLDEN["cut"] == torch_golden_lm.CUT
+    assert np.asarray(GOLDEN["tokens"]).shape == (torch_golden_lm.BATCH,
+                                                  torch_golden_lm.SEQ)
+    assert GOLDEN["atol_rel_to_spread"] == torch_golden_lm.ATOL_REL
+
+
+def test_port_matches_zamba2_golden():
+    cfg = torch_golden_lm.port_config()
+    tree = convert.lm_params_numpy(cfg, GOLDEN["seed"])
+    assert convert.params_checksum(tree) == GOLDEN["params_sha256"]
+    params = convert.lm_params_from_numpy(tree, cfg, device="cpu")
+    del tree
+    h = steps.make_prefill_step(cfg, mamba_lm)(
+        params, {"tokens": torch.as_tensor(GOLDEN["tokens"])})
+    logits = core.unembed_logits(params["embed"]["table"], h)
+    assert torch.isfinite(logits).all()
+    assert abs(torch_golden_lm.spread(logits.numpy()) / GOLDEN["spread"]
+               - 1) < 1e-5
+    torch_golden_lm.check(logits.numpy(), GOLDEN)

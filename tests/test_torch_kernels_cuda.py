@@ -1,6 +1,7 @@
-"""The day-scan CUDA kernel against its plain PyTorch version on the card.
+"""The CUDA kernels (day scan, flash attention, SSD scan) against their
+plain PyTorch versions on the card.
 
-Needs an NVIDIA card with nvcc (the kernel has no CPU mode) and skips
+Needs an NVIDIA card with nvcc (the kernels have no CPU mode) and skips
 without one; it imports neither JAX nor the reference package, so it
 runs on a machine that has only PyTorch:
 
@@ -11,12 +12,14 @@ import pytest
 import torch
 
 from repro_torch.kernels import day_scan as ds
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ssd_scan as ss
 
 
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the day-scan kernel has no CPU mode")
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
     return torch.device("cuda")
 
 
@@ -87,3 +90,96 @@ def test_kernel_rejects_too_many_levels(cuda):
     tables = _tables(4, 10, ds.MAX_LEVELS + 1, seed=0, device=cuda)
     with pytest.raises(ValueError, match="throttle levels"):
         ds.day_scan(tables)
+
+
+# tolerances of tests/test_kernels.py; bf16 flash is held tighter: one
+# bf16 spacing of the value (rtol 2^-7) over an atol of 8e-3, twice the
+# error read on an H100 at the zamba2-1.2b prefill shape
+TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+FLASH_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (8e-3, 2.0 ** -7)}
+# relative RMS error of the bf16 kernel against the plain version on its
+# own 64 x 64 tiles; the plain version with p left unrounded exceeds it
+FLASH_ROUNDING_LIMIT = 5e-4
+
+
+def _randn(seed, shape, dtype, device, scale=1.0):
+    g = np.random.default_rng(seed)
+    a = (scale * g.standard_normal(shape)).astype(np.float32)
+    return torch.as_tensor(a, device=device).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,KvH,Dh,causal,window", [
+    (2, 512, 4, 4, 64, True, None),
+    (1, 300, 8, 2, 128, True, 96),      # GQA 4:1 + window, ragged S
+    (2, 200, 4, 1, 64, False, None),    # bidirectional, ragged S
+])
+def test_flash_kernel_matches_plain(cuda, dtype, B, S, H, KvH, Dh, causal,
+                                    window):
+    q = _randn(0, (B, S, H, Dh), dtype, cuda)
+    k = _randn(1, (B, S, KvH, Dh), dtype, cuda)
+    v = _randn(2, (B, S, KvH, Dh), dtype, cuda)
+    before = fa.LAUNCHES
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    assert fa.LAUNCHES == before + 1
+    want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    atol, rtol = FLASH_TOL[dtype]
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(),
+                               atol=atol, rtol=rtol)
+
+
+def _rel_rms(a, b) -> float:
+    a, b = a.double(), b.double()
+    return float((a - b).square().mean().sqrt() / b.square().mean().sqrt())
+
+
+def test_flash_bf16_rounds_p_like_the_reference(cuda):
+    """The bf16 kernel rounds p to v's dtype before the PV product: on the
+    kernel's own tiles (same running max, same p) it is closer to the
+    plain version than that version with p left unrounded is."""
+    from repro_torch.nn import attention as attn
+    q, k, v = (_randn(i, (2, 1024, 4, 64), torch.bfloat16, cuda)
+               for i in range(3))
+    got = fa.flash_attention(q, k, v, causal=True)
+    tiles = {"causal": True, "chunk_q": 64, "chunk_k": 64}
+    want = attn.chunked_attention(q, k, v, **tiles)
+    control = attn.chunked_attention(q, k, v.float(), **tiles)
+    assert _rel_rms(got, want) <= FLASH_ROUNDING_LIMIT < \
+        _rel_rms(control, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,g,n", [(2, 256, 4, 1, 64),
+                                       (1, 200, 4, 2, 128),   # ragged s
+                                       (1, 64, 2, 1, 64)])
+def test_ssd_kernel_matches_plain(cuda, dtype, b, s, h, g, n):
+    x = _randn(0, (b, s, h, 64), dtype, cuda, 0.5)
+    dt = torch.nn.functional.softplus(_randn(1, (b, s, h), torch.float32,
+                                             cuda))
+    A = -torch.exp(_randn(2, (h,), torch.float32, cuda, 0.3))
+    B = _randn(3, (b, s, g, n), dtype, cuda, 0.3)
+    C = _randn(4, (b, s, g, n), dtype, cuda, 0.3)
+    before = ss.LAUNCHES
+    got = ss.ssd_scan(x, dt, A, B, C, chunk=64)
+    assert ss.LAUNCHES == before + 1
+    want = ss.ssd_scan_plain(x, dt, A, B, C, chunk=64)
+    torch.cuda.synchronize()
+    tol = TOL[dtype]
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(),
+                               atol=max(tol, 1e-4), rtol=5 * tol)
+
+
+def test_kernels_reject_unsupported_shapes(cuda):
+    q = torch.zeros(1, 8, 2, 32, device=cuda)
+    with pytest.raises(ValueError, match="Dh in"):
+        fa.flash_attention(q, q, q)
+    x = torch.zeros(1, 8, 2, 32, device=cuda)
+    dt = torch.zeros(1, 8, 2, device=cuda)
+    A = torch.zeros(2, device=cuda)
+    B = torch.zeros(1, 8, 1, 64, device=cuda)
+    with pytest.raises(ValueError, match="p in"):
+        ss.ssd_scan(x, dt, A, B, B)

@@ -1,0 +1,101 @@
+"""Port parity of the SSD scan: the port's `ssd_scan` on CPU tensors (its
+plain version) against the reference Pallas kernel in interpret mode
+(`repro.kernels.ops.ssd_scan`), the sequential oracle `ssd_reference`
+and `ssd_chunked`; a ragged sequence length against `ssd_chunked`; and
+the port's `ssd_reference` / `ssd_step` against the reference's.  Inputs
+come from numpy and cross as arrays.
+
+Tolerances are the reference's own (`tests/test_kernels.py`): atol
+max(tol, 1e-4) and rtol 5 tol, tol = 2e-5 (float32) or 2e-2 (bfloat16)."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops, ref
+from repro.nn import ssd as j_ssd
+from repro_torch.kernels import ssd_scan as ss
+from repro_torch.nn import ssd as t_ssd
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+J_DT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+T_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _inputs(seed, dtype, b, s, h, p, g, n):
+    """x, dt (softplus of a normal), A (-exp of 0.3 normal), B, C."""
+    rng = np.random.default_rng(seed)
+    x = 0.5 * rng.standard_normal((b, s, h, p))
+    dt = np.log1p(np.exp(rng.standard_normal((b, s, h))))
+    A = -np.exp(0.3 * rng.standard_normal(h))
+    B = 0.3 * rng.standard_normal((b, s, g, n))
+    C = 0.3 * rng.standard_normal((b, s, g, n))
+    arrs = [a.astype(np.float32) for a in (x, dt, A, B, C)]
+    low = (True, False, False, True, True)       # x, B, C in the dtype
+    j = [jnp.asarray(a).astype(J_DT[dtype]) if lo else jnp.asarray(a)
+         for a, lo in zip(arrs, low)]
+    t = [torch.from_numpy(a).to(T_DT[dtype]) if lo else torch.from_numpy(a)
+         for a, lo in zip(arrs, low)]
+    return j, t
+
+
+def _close(got, want, dtype):
+    tol = TOL[dtype]
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               atol=max(tol, 1e-4), rtol=5 * tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", [
+    (1, 128, 2, 8, 1, 16, 64),
+    (2, 256, 4, 16, 2, 32, 64),
+    (2, 128, 4, 8, 4, 16, 32),      # groups == heads
+])
+def test_ssd_matches_pallas_and_oracles(dtype, b, s, h, p, g, n, chunk):
+    j, t = _inputs(s + h + g, dtype, b, s, h, p, g, n)
+    before = ss.LAUNCHES
+    got = ss.ssd_scan(*t, chunk=chunk)
+    assert ss.LAUNCHES == before            # CPU tensors: the plain version
+    assert got.dtype == T_DT[dtype] and got.shape == (b, s, h, p)
+    _close(got, ops.ssd_scan(*j, chunk=chunk), dtype)
+    _close(got, ref.ssd_scan_ref(*j), dtype)
+    _close(got, j_ssd.ssd_chunked(*j, chunk=chunk)[0], dtype)
+
+
+@pytest.mark.parametrize("s", [100, 37])
+def test_ragged_length_matches_ssd_chunked(s):
+    """s not a multiple of the chunk: the dt = 0 tail pad, y and state."""
+    j, t = _inputs(s, "float32", 2, s, 4, 8, 2, 16)
+    y = ss.ssd_scan(*t, chunk=32)
+    want_y, want_state = j_ssd.ssd_chunked(*j, chunk=32)
+    assert y.shape == (2, s, 4, 8)
+    _close(y, want_y, "float32")
+    _, state = t_ssd.ssd_chunked(*t, chunk=32)
+    _close(state, want_state, "float32")
+
+
+def test_ssd_reference_and_step_match_reference():
+    j, t = _inputs(5, "float32", 2, 12, 4, 8, 2, 16)
+    y, state = t_ssd.ssd_reference(*t)
+    want_y, want_state = j_ssd.ssd_reference(*j)
+    _close(y, want_y, "float32")
+    _close(state, want_state, "float32")
+    tx, tdt, tA, tB, tC = t
+    jx, jdt, jA, jB, jC = j
+    got_y, got_s = t_ssd.ssd_step(state, tx[:, 0], tdt[:, 0], tA, tB[:, 0],
+                                  tC[:, 0])
+    w_y, w_s = j_ssd.ssd_step(want_state, jx[:, 0], jdt[:, 0], jA, jB[:, 0],
+                              jC[:, 0])
+    _close(got_y, w_y, "float32")
+    _close(got_s, w_s, "float32")
+
+
+def test_dispatch_rejects_bad_inputs():
+    _, (x, dt, A, B, C) = _inputs(0, "float32", 1, 8, 2, 4, 1, 4)
+    with pytest.raises(ValueError, match="dt and A must be float32"):
+        ss.ssd_scan(x, dt.double(), A, B, C)
+    with pytest.raises(ValueError, match="one dtype"):
+        ss.ssd_scan(x, dt, A, B.to(torch.bfloat16), C)
+    with pytest.raises(ValueError, match="do not fit"):
+        ss.ssd_scan(x, dt[:, :4], A, B, C)
