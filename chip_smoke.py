@@ -21,19 +21,28 @@ Run from the root of a checkout.  Phases (any failure exits non-zero):
      plain version's ms, the bound, warm query and what-if ms;
   6. flash-attention and SSD-scan kernels vs their plain versions on the
      card: at the zamba2-1.2b prefill shapes in bf16 and float32, flash
-     at a GQA 4:1 + window 96 + ragged-S case at Dh = 128, SSD at a
-     ragged s and at g = 2 (n = 128).  Flash: atol = rtol = 2e-5 in
-     float32 (tests/test_kernels.py), atol 8e-3 / rtol 2^-7 (one bf16
-     spacing) in bf16; and in bf16 at the prefill shape, against the plain
-     version on the kernel's own 64 x 64 tiles, a relative RMS error
-     under FLASH_ROUNDING_LIMIT, which the same plain version with p left
+     at a GQA 4:1 + window 96 + ragged-S case at Dh = 128; SSD at the
+     prefill shape with dt as the reference tests draw it and with dt x
+     0.05 (slow decay, so the state carried between the kernel's groups
+     counts in y), at a ragged s and at g = 2 (n = 128).  Flash: atol =
+     rtol = 2e-5 in float32 (tests/test_kernels.py), atol 8e-3 / rtol
+     2^-7 (one bf16 spacing) in bf16; and in bf16 at the prefill shape,
+     against the plain version on the kernel's own tiles
+     (`flash_attention.TILES`), a relative RMS error under
+     FLASH_ROUNDING_LIMIT, which the same plain version with p left
      unrounded (v in float32) must exceed.  SSD: tests/test_kernels.py's
-     atol max(tol, 1e-4), rtol 5 tol (tol 2e-5 float32, 2e-2 bf16);
+     atol max(tol, 1e-4), rtol 5 tol (tol 2e-5 float32, 2e-2 bf16); in
+     bf16 also a relative RMS error under SSD_BF16_LIMIT, which the plain
+     version with x dt and W rounded to bf16 must exceed; and the split's
+     float32 group states (`ssd_group_states_cuda`, the bf16 path's
+     split-bf16 tensor-core products) against `ssd_split_states_plain` at
+     the float32 tolerance;
   7. main path: the zamba2-1.2b prefill step (`make_prefill_step`) at
      full width and depth (38 layers, bf16 weights and compute, seeded
      numpy weights) on B = 2 prompts of S = 4096 tokens; one call must
-     launch flash exactly 6 times and SSD exactly 38 times, with finite
-     last hidden and logits;
+     launch flash exactly 6 times and the SSD kernels exactly 3 x 38
+     times (`ssd_scan.kernel_launches`: state, pass and scan launches a
+     call), with finite last hidden and logits;
   8. golden: the port's float32 prefill at full width, 8 layers, against
      src/repro_torch/data/golden_zamba2.json (written from the JAX
      reference): weight checksum equal, logits at the sampled and top-8
@@ -51,8 +60,9 @@ Run from the root of a checkout.  Phases (any failure exits non-zero):
      the bf16 forward must miss;
  10. timing: flash and SSD kernel ms (CUDA events), plain ms, bounds,
      `scaled_dot_product_attention` ms at the flash shape (a yardstick
-     only: the port never calls it), prefill ms and tokens/s, Server
-     decode ms per token, peak device memory, a profile of one prefill.
+     only: the port never calls it), the SSD split's scratch traffic,
+     prefill ms and tokens/s, Server decode ms per token, peak device
+     memory, a profile of one prefill.
 
 The second-to-last lines are the `kernels` JSON object and the
 nvidia-smi line; the last line is the result object.
@@ -85,6 +95,11 @@ FLASH_BF16_ATOL, FLASH_BF16_RTOL = 8e-3, 2.0 ** -7
 # its own tiles (float32 sum order only; 2.4e-5 on an H100) vs the
 # p-unrounded control (2.1e-3)
 FLASH_ROUNDING_LIMIT = 5e-4
+# relative RMS error of the bf16 SSD kernel against the plain version:
+# 2.0e-5 to 6.6e-5 read on an H100 (sum order and the bf16 rounding of y
+# it flips), against 2.9e-3 to 3.4e-3 for the plain version with x dt and
+# W rounded to bf16 before their product (a tensor-core shortcut)
+SSD_BF16_LIMIT = 5e-4
 # decode_step vs the float32 forward's logits, relative to their spread
 # (~40): 2.5e-5 read on an H100, 2.2e-1 for the bf16 forward
 DEC_ATOL_REL = 1e-4
@@ -271,6 +286,24 @@ def ssd_bound(x, Bm, chunk: int) -> tuple:
     return _bound(n_bytes, b * h * per_bh, str(x.dtype)[6:])
 
 
+def ssd_scratch_bytes(x, Bm, chunk: int) -> tuple:
+    """(group-state bytes, re-read input bytes) the kernel's split moves
+    beyond the function's own traffic (not part of its bound): launch 1
+    writes G - 1 f32 states, launch 2 reads them and writes G, launch 3
+    reads G; launch 1 reads x, B and dt of the first G - 1 groups again."""
+    from repro_torch.kernels import ssd_scan as ss
+    b, s, h, p = x.shape
+    g, n = Bm.shape[2], Bm.shape[3]
+    G = ss.n_groups(s, chunk)
+    if G == 1:
+        return 0.0, 0.0
+    states = (4 * G - 2) * b * h * n * p * 4.0
+    part = (G - 1) / G
+    reread = part * ((b * s * h * p + b * s * g * n) * x.element_size()
+                     + 4 * b * s * h)
+    return states, reread
+
+
 def hold(name: str, got, want, atol: float, rtol: float) -> float:
     """Kernel output vs the plain version's: finite and allclose; returns
     the largest absolute error."""
@@ -297,12 +330,14 @@ def rel_rms(a, b) -> float:
 def check_flash_rounding(got, q, k, v) -> None:
     """The bf16 kernel rounds p to v's dtype before the PV product and sums
     l from the unrounded p (the reference's flash_attention.py:72).  The
-    plain version on the kernel's own 64 x 64 tiles has the same running
-    max, so the same p, and differs from the kernel only by float32 sum
-    order; that plain version with p left unrounded (v in float32) must
-    differ by more than FLASH_ROUNDING_LIMIT."""
+    plain version on the kernel's own tiles (`flash_attention.TILES`) has
+    the same running max, so the same p, and differs from the kernel only
+    by float32 sum order; that plain version with p left unrounded (v in
+    float32) must differ by more than FLASH_ROUNDING_LIMIT."""
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.nn import attention as attn
-    tiles = {"causal": True, "chunk_q": 64, "chunk_k": 64}
+    bq, bk = fa.TILES[q.dtype]
+    tiles = {"causal": True, "chunk_q": bq, "chunk_k": bk}
     want = attn.chunked_attention(q, k, v, **tiles)
     kernel = rel_rms(got, want)
     control = rel_rms(attn.chunked_attention(q, k, v.float(), **tiles),
@@ -311,9 +346,24 @@ def check_flash_rounding(got, q, k, v) -> None:
         miss(f"flash bf16 rounding: kernel rel RMS {kernel:.3g}, unrounded-p "
              f"control {control:.3g}, limit {FLASH_ROUNDING_LIMIT:g} must lie "
              f"between them")
-    print(f"flash bf16 rounding (plain on the kernel's 64 x 64 tiles): kernel "
-          f"rel RMS err {kernel:.3g}, limit {FLASH_ROUNDING_LIMIT:g}, "
+    print(f"flash bf16 rounding (plain on the kernel's {bq} x {bk} tiles): "
+          f"kernel rel RMS err {kernel:.3g}, limit {FLASH_ROUNDING_LIMIT:g}, "
           f"unrounded-p control {control:.3g}")
+
+
+def check_ssd_bf16(got, want, x, dt, A, Bm, Cm, label: str) -> None:
+    """The bf16 SSD kernel against the plain version: relative RMS error
+    under SSD_BF16_LIMIT, which the plain version with x dt and W rounded
+    to bf16 before their product (a tensor-core shortcut) must exceed."""
+    from repro_torch.kernels import ssd_scan as ss
+    kernel = rel_rms(got, want)
+    control = rel_rms(ss.ssd_scan_rounded_plain(x, dt, A, Bm, Cm, chunk=64),
+                      want)
+    if not kernel <= SSD_BF16_LIMIT < control:
+        miss(f"{label}: kernel rel RMS {kernel:.3g}, bf16-product control "
+             f"{control:.3g}, limit {SSD_BF16_LIMIT:g} must lie between them")
+    print(f"{label}: kernel rel RMS err {kernel:.3g}, limit "
+          f"{SSD_BF16_LIMIT:g}, bf16-product control {control:.3g}")
 
 
 def check_lm_kernels(dev) -> dict:
@@ -345,20 +395,33 @@ def check_lm_kernels(dev) -> dict:
             worst["flash_attention"] = max(worst["flash_attention"], err)
             if bf16 and S == S_PREFILL:
                 check_flash_rounding(got, q, k, v)
-        for b, s, h, g, n in ((B_PREFILL, S_PREFILL, 64, 1, 64),
-                              (B_PREFILL, 1000, 64, 1, 64),
-                              (1, 1024, 8, 2, 128)):
+        # dt x 0.05 (slow decay) makes the state carried between the
+        # split's groups count in y; dt x 1 is the reference tests' range
+        for b, s, h, g, n, dt_scale in ((B_PREFILL, S_PREFILL, 64, 1, 64, 1),
+                                        (B_PREFILL, S_PREFILL, 64, 1, 64,
+                                         0.05),
+                                        (B_PREFILL, 1000, 64, 1, 64, 0.05),
+                                        (1, 1024, 8, 2, 128, 0.05)):
             x = rn((b, s, h, 64), dtype, 0.5)
-            dt = torch.nn.functional.softplus(rn((b, s, h), torch.float32))
+            dt = dt_scale * torch.nn.functional.softplus(
+                rn((b, s, h), torch.float32))
             A = -torch.exp(rn((h,), torch.float32, 0.3))
             Bm, Cm = rn((b, s, g, n), dtype, 0.3), rn((b, s, g, n), dtype,
                                                        0.3)
-            err = hold(f"ssd b={b} s={s} h={h} g={g} n={n} "
-                       f"{str(dtype)[6:]}",
-                       ss.ssd_scan(x, dt, A, Bm, Cm, chunk=64),
-                       ss.ssd_scan_plain(x, dt, A, Bm, Cm, chunk=64),
-                       max(tol, 1e-4), 5 * tol)
+            label = f"ssd b={b} s={s} h={h} g={g} n={n} dt x{dt_scale:g} " \
+                f"{str(dtype)[6:]}"
+            got = ss.ssd_scan(x, dt, A, Bm, Cm, chunk=64)
+            want = ss.ssd_scan_plain(x, dt, A, Bm, Cm, chunk=64)
+            err = hold(label, got, want, max(tol, 1e-4), 5 * tol)
             worst["ssd_scan"] = max(worst["ssd_scan"], err)
+            if dtype == torch.bfloat16:
+                check_ssd_bf16(got, want, x, dt, A, Bm, Cm, label)
+            # the f32 group states of the split (the bf16 path's split
+            # products) at the float32 tolerance
+            hold(f"{label} group states",
+                       ss.ssd_group_states_cuda(x, dt, A, Bm, Cm),
+                       ss.ssd_split_states_plain(x, dt, A, Bm, Cm, chunk=64),
+                       max(LM_TOL["float32"], 1e-4), 5 * LM_TOL["float32"])
     return worst
 
 
@@ -580,7 +643,7 @@ def lm_phases(dev) -> list:
         0, base.vocab, (B_PREFILL, S_PREFILL)), device=dev)
     prefill16 = steps.make_prefill_step(cfg16, mamba_lm)
     want_flash = base.n_layers // base.attn_every
-    want_ssd = base.n_layers
+    want_ssd = base.n_layers * ss.kernel_launches(S_PREFILL)
     fa.LAUNCHES = 0
     ss.LAUNCHES = 0
     h = prefill16(params16, {"tokens": tokens})
@@ -680,6 +743,7 @@ def lm_phases(dev) -> list:
     ssd_plain_ms = cuda_ms(lambda: ss.ssd_scan_plain(x, dt, A, Bm, Cm,
                                                      chunk=64), 3)
     s_bound, s_by = ssd_bound(x, Bm, 64)
+    s_states, s_reread = ssd_scratch_bytes(x, Bm, 64)
     del q, k, v, qt, kt, vt, x, dt, Bm, Cm
     torch.cuda.reset_peak_memory_stats()
     pf = []
@@ -699,7 +763,11 @@ def lm_phases(dev) -> list:
     print(f"ssd kernel (b={B_PREFILL} s={S_PREFILL} h=64 p=64 g=1 n=64 "
           f"bf16): {ssd_ms:.4f} ms; plain {ssd_plain_ms:.3f} ms; bound "
           f"{s_bound:.5f} ms by {s_by}; library call: none; {n_ssd} "
-          f"launches per prefill")
+          f"launches per prefill ({ss.kernel_launches(S_PREFILL)} a call)")
+    print(f"ssd split scratch traffic (a cost of the design, not in the "
+          f"bound): {s_states / 1e6:.1f} MB of f32 group states, "
+          f"{s_reread / 1e6:.1f} MB of x/B/dt re-read by launch 1; the "
+          f"function's own traffic {s_bound * PEAK_BYTES_S / 1e9:.1f} MB")
     print(f"prefill (bf16, B={B_PREFILL} S={S_PREFILL}, {base.n_layers} "
           f"layers): "
           f"{pf_ms:.2f} ms mean of 3 after a warm call ("

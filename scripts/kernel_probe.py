@@ -1,0 +1,245 @@
+"""Kernel-only probes of the port's flash-attention and SSD-scan kernels on
+one NVIDIA card: correctness at edge shapes and times at the zamba2-1.2b
+prefill shape, without the model.  `chip_smoke.py` is the end-to-end run;
+this is the quick loop for working on one kernel.
+
+    python3 scripts/kernel_probe.py flash            # edges + time vs SDPA
+    python3 scripts/kernel_probe.py ssd              # edges, group states,
+                                                     # time per launch
+    python3 scripts/kernel_probe.py flash-variants   # exp2 fold / 4 warps
+
+Run from the root of a checkout.  Every line it prints is a reading of
+the card named on its first line.  `flash-variants` builds four variants
+of csrc/flash_attention.cu (8 or 4 warps a block; `expf` or scale·log2e
+folded into `exp2f`) into build/probe/ and times them in turns.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+
+import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
+
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import ssd_scan as ss  # noqa: E402
+from repro_torch.nn import attention as attn  # noqa: E402
+
+DEV = torch.device("cuda")
+SSD_KERNEL = re.compile(r"ssd_kernel_\w+<\d+>")   # launch names in a profile
+
+
+def rn(gen, shape, dtype, scale=1.0):
+    return (scale * torch.randn(shape, generator=gen, device=DEV)).to(dtype)
+
+
+def rel_rms(a, b) -> float:
+    a, b = a.double(), b.double()
+    return float((a - b).square().mean().sqrt() / b.square().mean().sqrt())
+
+
+def cuda_ms(fn, reps: int = 20) -> float:
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def probe_flash() -> None:
+    """Kernel vs plain (max abs) and vs plain on the kernel's tiles
+    (relative RMS) over edge shapes, then the prefill-shape time beside
+    scaled_dot_product_attention's."""
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    for B, Sq, Sk, H, KvH, Dh, causal, window in (
+            (2, 4096, 4096, 32, 32, 64, True, None),
+            (1, 300, 300, 8, 2, 128, True, 96),
+            (2, 200, 200, 4, 1, 64, False, None),
+            (1, 37, 37, 4, 4, 64, True, None),
+            (1, 1000, 1000, 16, 4, 128, True, 96),
+            (1, 130, 70, 2, 2, 64, False, None),
+            (1, 257, 257, 2, 1, 128, True, 5),
+            (1, 70, 130, 2, 2, 64, True, None)):
+        for dtype in (torch.bfloat16, torch.float32):
+            q = rn(gen, (B, Sq, H, Dh), dtype)
+            k, v = (rn(gen, (B, Sk, KvH, Dh), dtype) for _ in range(2))
+            got = fa.flash_attention(q, k, v, causal=causal, window=window)
+            bq, bk = fa.TILES[dtype]
+            tiled = attn.chunked_attention(
+                q, k, v, causal=causal, window=window, chunk_q=bq,
+                chunk_k=bk, bidirectional=not causal and window is None)
+            want = fa.flash_attention_plain(q, k, v, causal=causal,
+                                            window=window)
+            torch.cuda.synchronize()
+            print(f"flash B={B} Sq={Sq} Sk={Sk} H={H} KvH={KvH} Dh={Dh} "
+                  f"causal={causal} window={window} {str(dtype)[6:]}: max "
+                  f"abs err {float((got.float() - want.float()).abs().max()):.3g}"
+                  f", rel RMS vs tiled {rel_rms(got, tiled):.3g}, finite "
+                  f"{bool(torch.isfinite(got).all())}")
+    q, k, v = (rn(gen, (2, 4096, 32, 64), torch.bfloat16) for _ in range(3))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    print(f"flash bf16 B=2 S=4096 H=32 Dh=64 causal: "
+          f"{cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True)):.4f}"
+          f" ms; scaled_dot_product_attention "
+          f"{cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)):.4f} ms")  # noqa: E501
+
+
+def ssd_inputs(gen, b, s, h, g, n, dtype, dt_scale):
+    x = rn(gen, (b, s, h, 64), dtype, 0.5)
+    dt = dt_scale * F.softplus(rn(gen, (b, s, h), torch.float32))
+    A = -torch.exp(rn(gen, (h,), torch.float32, 0.3))
+    return x, dt, A, rn(gen, (b, s, g, n), dtype, 0.3), \
+        rn(gen, (b, s, g, n), dtype, 0.3)
+
+
+def probe_ssd() -> None:
+    """Kernel vs plain over edge shapes (launches, max abs, relative RMS,
+    and in bf16 the bf16-product control), group states vs
+    `ssd_split_states_plain`, then the prefill-shape time and each
+    launch's device time from the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    for b, s, h, g, n in ((2, 4096, 64, 1, 64), (2, 1000, 64, 1, 64),
+                          (1, 40, 1, 1, 64), (1, 512, 1, 1, 64),
+                          (1, 600, 4, 2, 128), (1, 1024, 8, 2, 128),
+                          (1, 1, 2, 1, 64), (3, 700, 6, 3, 64)):
+        for dtype in (torch.bfloat16, torch.float32):
+            for dt_scale in (1.0, 0.05):
+                ins = ssd_inputs(gen, b, s, h, g, n, dtype, dt_scale)
+                before = ss.LAUNCHES
+                got = ss.ssd_scan(*ins, chunk=64)
+                launches = ss.LAUNCHES - before
+                want = ss.ssd_scan_plain(*ins, chunk=64)
+                line = (f"ssd b={b} s={s} h={h} g={g} n={n} "
+                        f"{str(dtype)[6:]} dt x{dt_scale:g}: {launches} "
+                        f"launches, max abs err "
+                        f"{float((got.float() - want.float()).abs().max()):.3g}"
+                        f" at max |y| {float(want.float().abs().max()):.3g},"
+                        f" rel RMS {rel_rms(got, want):.3g}")
+                if dtype == torch.bfloat16:
+                    line += (", bf16-product control " + format(rel_rms(
+                        ss.ssd_scan_rounded_plain(*ins, chunk=64), want),
+                        ".3g"))
+                if ss.n_groups(s) > 1:
+                    st = ss.ssd_group_states_cuda(*ins)
+                    want_st = ss.ssd_split_states_plain(*ins, chunk=64)
+                    line += (", group states max abs err "
+                             f"{float((st - want_st).abs().max()):.3g}")
+                print(line, flush=True)
+    for dtype in (torch.bfloat16, torch.float32):
+        ins = ssd_inputs(gen, 2, 4096, 64, 1, 64, dtype, 1.0)
+        ms = cuda_ms(lambda: ss.ssd_scan(*ins, chunk=64))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                ss.ssd_scan(*ins, chunk=64)
+            torch.cuda.synchronize()
+        per = "; ".join(
+            f"{SSD_KERNEL.search(e.key).group(0)} "
+            f"{e.self_device_time_total / e.count:.1f} us"
+            for e in prof.key_averages() if "ssd_kernel" in e.key)
+        print(f"ssd {str(dtype)[6:]} b=2 s=4096 h=64 n=64: {ms:.4f} ms; "
+              f"per launch: {per}")
+
+
+def variant_source() -> Path:
+    """csrc/flash_attention.cu with two knobs: FA_WARPS (warps a block)
+    and FA_EXP2 (scale·log2e folded into exp2f)."""
+    s = (build.CSRC / "flash_attention.cu").read_text()
+    s = s.replace("constexpr int BF_WARPS = 8;",
+                  "#ifndef FA_WARPS\n#define FA_WARPS 8\n#endif\n"
+                  "constexpr int BF_WARPS = FA_WARPS;")
+    s = s.replace("  const int r_first = q0 + 16 * warp;",
+                  "  const float sl2 = a.scale * 1.4426950408889634f;\n"
+                  "  const int r_first = q0 + 16 * warp;")
+    s = s.replace("          float x = s[j][e] * a.scale;",
+                  "#ifdef FA_EXP2\n          float x = s[j][e] * sl2;\n"
+                  "#else\n          float x = s[j][e] * a.scale;\n#endif")
+    for old in ("alpha[r] = expf(m[r] - m_new);",
+                "s[j][2 * r] = expf(s[j][2 * r] - m_new);",
+                "s[j][2 * r + 1] = expf(s[j][2 * r + 1] - m_new);"):
+        if old not in s:
+            raise RuntimeError(f"flash source changed: {old!r} not found")
+        s = s.replace(old, "\n#ifdef FA_EXP2\n" + old.replace("expf", "exp2f")
+                      + "\n#else\n" + old + "\n#endif\n")
+    out = build.BUILD_DIR.parent / "probe" / "flash_variant.cu"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(s)
+    return out
+
+
+def probe_flash_variants() -> None:
+    """Four builds of the bf16 flash kernel, timed in turns at the prefill
+    shape, each with its relative RMS against the plain version on its
+    own tiles."""
+    src = variant_source()
+    variants = {"8 warps, expf": [], "8 warps, exp2f": ["-DFA_EXP2"],
+                "4 warps, expf": ["-DFA_WARPS=4"],
+                "4 warps, exp2f": ["-DFA_WARPS=4", "-DFA_EXP2"]}
+    procs = {}
+    for i, (name, flags) in enumerate(variants.items()):
+        lib = src.parent / f"flash_variant{i}.so"
+        procs[name] = (lib, subprocess.Popen(
+            [build.nvcc(), *build.NVCC_FLAGS, *flags, "-o", str(lib),
+             str(src)], stderr=subprocess.PIPE, text=True))
+    fns = {}
+    for name, (lib, proc) in procs.items():
+        err = proc.communicate()[1]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {name}:\n{err}")
+        fn = ctypes.CDLL(str(lib)).flash_attention_launch
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 \
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    gen = torch.Generator(device=DEV).manual_seed(2)
+    q, k, v = (rn(gen, (2, 4096, 32, 64), torch.bfloat16) for _ in range(3))
+
+    def run(fn):
+        o = torch.empty_like(q)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), 2,
+                 4096, 4096, 32, 32, 64, 1, -1, 1 / math.sqrt(64), 1,
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"launch failed: CUDA error {err}")
+        return o
+
+    for turn in range(2):
+        for name, fn in fns.items():
+            line = f"flash variant {name}: {cuda_ms(lambda: run(fn)):.4f} ms"
+            if turn == 0:
+                bq = 64 if name.startswith("4") else 128
+                tiled = attn.chunked_attention(q, k, v, causal=True,
+                                               chunk_q=bq, chunk_k=64)
+                line += f", rel RMS vs tiled {rel_rms(run(fn), tiled):.3g}"
+            print(line, flush=True)
+
+
+def main() -> None:
+    probes = {"flash": probe_flash, "ssd": probe_ssd,
+              "flash-variants": probe_flash_variants}
+    if len(sys.argv) != 2 or sys.argv[1] not in probes:
+        sys.exit(f"usage: kernel_probe.py {{{'|'.join(probes)}}}")
+    if not torch.cuda.is_available():
+        sys.exit("kernel_probe.py: no CUDA card")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip())
+    probes[sys.argv[1]]()
+
+
+if __name__ == "__main__":
+    main()

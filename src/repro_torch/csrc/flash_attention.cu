@@ -5,34 +5,50 @@
 // _flash_kernel (launcher `flash_attention`, its pallas_call).  That kernel
 // walks (batch, head, q block, kv block) with the kv axis sequential and
 // keeps the running max m, sum l and accumulator acc in VMEM scratch.  Here
-// one thread block owns one (batch, head, 64-row query tile) and loops over
-// the kv tiles itself; m, l and acc live in registers, so nothing carries
-// between blocks.
-//
-// Layout: q (B, Sq, H, Dh), k/v (B, Sk, KvH, Dh), o like q, all contiguous;
-// query head h reads kv head h / (H / KvH).  Each kv tile (64 keys) is
-// staged in shared memory as float32; the query tile stays there for the
-// whole loop.  256 threads: thread (ti, tj) = (tid / 16, tid % 16) owns
-// query rows ti + 16 r (r < 4), score columns tj + 16 c (c < 4) and output
-// columns 64 g + 4 tj .. + 3.  The 16 threads of a row group sit in one
-// half-warp, so row max and row sum are shuffles.  Smem row strides are
-// padded (Dh + 4, 64 + 16) so the float4 reads are free of bank conflicts.
+// one thread block owns one (batch, head, query tile) and loops over the kv
+// tiles itself; m, l and acc live in registers, so nothing carries between
+// blocks.  Layout: q (B, Sq, H, Dh), k/v (B, Sk, KvH, Dh), o like q, all
+// contiguous; query head h reads kv head h / (H / KvH).
 //
 // Semantics follow _flash_kernel line for line: s = (q . k) * scale in
 // float32; keys >= Sk, above the diagonal (causal) or at or before
 // q - window (window) are set to -1e30; m_new = max(m, rowmax s),
 // alpha = exp(m - m_new), p = exp(s - m_new), l = l * alpha + rowsum p
 // (p unrounded), acc = acc * alpha + round_to_v_dtype(p) @ v;
-// o = acc / max(l, 1e-30) in q's dtype.  kv tiles wholly above the
-// causal diagonal are skipped, as the Pallas kernel's `pl.when` does.
+// o = acc / max(l, 1e-30) in q's dtype.  exp is expf (no exp2 folding, no
+// fast math), so p equals the plain version's for the same s and m.
 //
 // What bounds it: at the slice's shape (B = 2, S = 4096, H = 32, Dh = 64,
 // causal, bf16) the work is ~137 GFLOP of products against ~134 MB of
 // traffic, so it is bound by operations: ~0.14 ms at the bf16 tensor-core
-// peak.  This first version does the products on the CUDA cores in
-// float32 (fmaf over float4 reads of shared memory, 4 x 4 register tiles),
-// so its ceiling is the float32 rate, ~15x lower; tensor cores (mma.sync /
-// wgmma) and TMA-fed tiles are the next step.
+// peak.
+//
+// bfloat16 (flash_kernel_bf16): FlashAttention-2's layout on the tensor
+// cores.  A block of 8 warps owns 128 query rows (16 per warp) and walks
+// 64-key tiles; both products are mma.sync m16n8k16 bf16 x bf16 -> f32
+// (exact products, f32 sums: only the order of the f32 sums differs from
+// the reference).  The Q fragments are loaded once (ldmatrix) and stay in
+// registers; K/V tiles are staged in shared memory as bf16 by cp.async,
+// double-buffered so tile t + 1 loads while tile t computes; rows are
+// padded by 16 bytes so ldmatrix is free of bank conflicts.  The scores
+// stay in the accumulator registers: row max and row sum are quad
+// shuffles, and the S accumulator becomes the A fragment of P.V by
+// packing p to bf16 in registers (no shared-memory round trip).  Masks
+// run only on tiles that cross the diagonal, the window's edge or Sk; a
+// warp skips a tile wholly masked for its 16 rows (such a tile leaves m,
+// l and acc unchanged once a row has seen a key, and rows only see keys
+// from the first tile they visit on).  Blocks start with the heaviest
+// causal query tiles.  What holds it back now: mma.sync reaches a part of
+// the wgmma rate, a warp reads its K/V fragments from shared memory for
+// 16 rows only, and the accurate expf costs ~10 instructions per score.
+//
+// float32 (flash_kernel_f32): the CUDA cores, with 64 x 64 tiles staged in
+// shared memory as float32 and 4 x 4 register tiles (TF32 tensor cores
+// would leave ~1e-3 relative error against the float32 tolerance of
+// 2e-5).  256 threads: thread (ti, tj) = (tid / 16, tid % 16) owns query
+// rows ti + 16 r (r < 4), score columns tj + 16 c (c < 4) and output
+// columns 64 g + 4 tj .. + 3; smem row strides are padded (Dh + 4,
+// 64 + 16) so the float4 reads are free of bank conflicts.
 
 #include <cstdint>
 
@@ -42,25 +58,7 @@
 
 namespace {
 
-constexpr int BQ = 64;             // query rows per block
-constexpr int BK = 64;             // keys per kv tile
-constexpr int THREADS = 256;
-constexpr int PS = BK + 16;        // smem row stride of the P tile
 constexpr float NEG_INF = -1e30f;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 struct FlashArgs {
   const void* q;
@@ -72,13 +70,23 @@ struct FlashArgs {
   float scale;
 };
 
+// ---------------------------------------------------------------------------
+// float32: CUDA cores
+// ---------------------------------------------------------------------------
+
+constexpr int F32_BQ = 64;         // query rows per block
+constexpr int F32_BK = 64;         // keys per kv tile
+constexpr int F32_THREADS = 256;
+constexpr int PS = F32_BK + 16;    // smem row stride of the P tile
+
 template <int DH>
-constexpr int smem_floats() {
-  return BQ * (DH + 4) + 2 * BK * (DH + 4) + BQ * PS;
+constexpr int f32_smem_floats() {
+  return F32_BQ * (DH + 4) + 2 * F32_BK * (DH + 4) + F32_BQ * PS;
 }
 
-template <typename T, int DH>
-__global__ void __launch_bounds__(THREADS) flash_kernel(FlashArgs a) {
+template <int DH>
+__global__ void __launch_bounds__(F32_THREADS) flash_kernel_f32(FlashArgs a) {
+  constexpr int BQ = F32_BQ, BK = F32_BK, THREADS = F32_THREADS;
   constexpr int DS = DH + 4;       // smem row stride of the Q/K/V tiles
   constexpr int NG = DH / 64;      // groups of 64 output columns
   extern __shared__ float4 smem4[];
@@ -90,15 +98,15 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(FlashArgs a) {
   const int tid = threadIdx.x, ti = tid / 16, tj = tid % 16;
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (a.H / a.KvH);
-  const T* q = static_cast<const T*>(a.q);
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
-  T* o = static_cast<T*>(a.o);
+  const float* q = static_cast<const float*>(a.q);
+  const float* k = static_cast<const float*>(a.k);
+  const float* v = static_cast<const float*>(a.v);
+  float* o = static_cast<float*>(a.o);
 
   for (int idx = tid; idx < BQ * DH; idx += THREADS) {
     const int r = idx / DH, d = idx % DH, qi = q0 + r;
     qs[r * DS + d] = qi < a.Sq
-        ? to_f(q[((size_t(b) * a.Sq + qi) * a.H + h) * DH + d]) : 0.f;
+        ? q[((size_t(b) * a.Sq + qi) * a.H + h) * DH + d] : 0.f;
   }
 
   float m[4], l[4], acc[4][4 * NG];
@@ -118,8 +126,8 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(FlashArgs a) {
     for (int idx = tid; idx < BK * DH; idx += THREADS) {
       const int r = idx / DH, d = idx % DH, kj = k0 + r;
       const size_t off = ((size_t(b) * a.Sk + kj) * a.KvH + kvh) * DH + d;
-      ks[r * DS + d] = kj < a.Sk ? to_f(k[off]) : 0.f;
-      vs[r * DS + d] = kj < a.Sk ? to_f(v[off]) : 0.f;
+      ks[r * DS + d] = kj < a.Sk ? k[off] : 0.f;
+      vs[r * DS + d] = kj < a.Sk ? v[off] : 0.f;
     }
     __syncthreads();
 
@@ -175,7 +183,7 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(FlashArgs a) {
       for (int c = 0; c < 4; ++c) {
         const float p = expf(s[r][c] - m_new);
         sum += p;
-        ps[(ti + 16 * r) * PS + tj + 16 * c] = to_f(from_f<T>(p));
+        ps[(ti + 16 * r) * PS + tj + 16 * c] = p;
       }
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1)
@@ -219,23 +227,299 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(FlashArgs a) {
     const int qi = q0 + ti + 16 * r;
     if (qi >= a.Sq) continue;
     const float den = fmaxf(l[r], 1e-30f);
-    T* row = o + (size_t(b) * a.Sq + qi) * a.H * DH + size_t(h) * DH;
+    float* row = o + (size_t(b) * a.Sq + qi) * a.H * DH + size_t(h) * DH;
 #pragma unroll
     for (int g = 0; g < NG; ++g)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        row[64 * g + 4 * tj + e] = from_f<T>(acc[r][4 * g + e] / den);
+        row[64 * g + 4 * tj + e] = acc[r][4 * g + e] / den;
   }
 }
 
-template <typename T, int DH>
-int launch(const FlashArgs& a, cudaStream_t s) {
-  const int bytes = smem_floats<DH>() * int(sizeof(float));
+// ---------------------------------------------------------------------------
+// bfloat16: tensor cores (mma.sync m16n8k16)
+// ---------------------------------------------------------------------------
+
+constexpr int BF_WARPS = 8;
+constexpr int BF_BQ = 16 * BF_WARPS;   // 128 query rows per block
+constexpr int BF_BK = 64;              // keys per kv tile
+constexpr int BF_THREADS = 32 * BF_WARPS;
+
+template <int DH>
+constexpr int bf_smem_bytes() {
+  // Q tile, then two stages of (K tile, V tile); rows padded by 16 bytes
+  return (BF_BQ + 4 * BF_BK) * (DH + 8) * 2;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte global -> shared copy; src_bytes 0 fills the 16 bytes with zeros
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// c (16 x 8 f32) += a (16 x 16 bf16, row) . b (16 x 8 bf16, col)
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Stage rows [r0, r0 + rows) of a (B, S, heads, DH) bf16 tensor's head
+// `hd` into smem rows of stride DH + 8; rows >= S are zero-filled.
+template <int DH, int ROWS>
+__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst,
+                                           const __nv_bfloat16* src, int b,
+                                           int S, int heads, int hd, int r0) {
+  constexpr int CH = DH / 8;       // 16-byte chunks per row
+  for (int idx = threadIdx.x; idx < ROWS * CH; idx += BF_THREADS) {
+    const int r = idx / CH, c = idx % CH, t = r0 + r;
+    const bool in = t < S;
+    const __nv_bfloat16* g =
+        src + ((size_t(b) * S + (in ? t : 0)) * heads + hd) * DH + 8 * c;
+    cp_async16(dst + r * (DH + 8) + 8 * c, g, in ? 16 : 0);
+  }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(BF_THREADS) flash_kernel_bf16(FlashArgs a) {
+  constexpr int DS = DH + 8;       // smem row stride, bf16 elements
+  constexpr int KQ = DH / 16;      // k-steps of q.k
+  constexpr int NS = BF_BK / 8;    // score n-tiles (8 keys each)
+  constexpr int NO = DH / 8;       // output n-tiles (8 columns each)
+  extern __shared__ float4 smem4[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem4);
+  __nv_bfloat16* kvs = qs + BF_BQ * DS;     // stage st: K at 2 st, V at 2 st + 1
+
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
+  const int nq = gridDim.y;
+  const int q0 = (nq - 1 - blockIdx.y) * BF_BQ;   // heaviest tiles first
+  const int kvh = h / (a.H / a.KvH);
+  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q);
+  const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(a.k);
+  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(a.v);
+  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(a.o);
+
+  // kv tiles this block visits: above the diagonal and before the window
+  // of its first row are wholly masked for every row
+  int kt_end = (a.Sk + BF_BK - 1) / BF_BK;
+  if (a.causal) kt_end = min(kt_end, (q0 + BF_BQ - 1) / BF_BK + 1);
+  int kt_begin = 0;
+  if (a.window >= 0) kt_begin = max(0, (q0 - a.window + 1) / BF_BK);
+  kt_begin = min(kt_begin, kt_end);
+
+  stage_rows<DH, BF_BQ>(qs, q, b, a.Sq, a.H, h, q0);
+  if (kt_begin < kt_end) {
+    stage_rows<DH, BF_BK>(kvs, k, b, a.Sk, a.KvH, kvh, kt_begin * BF_BK);
+    stage_rows<DH, BF_BK>(kvs + BF_BK * DS, v, b, a.Sk, a.KvH, kvh,
+                          kt_begin * BF_BK);
+  }
+  cp_async_commit();
+
+  const int r_first = q0 + 16 * warp;       // this warp's query rows
+  const int r_last = r_first + 15;
+  const int row0 = r_first + g, row1 = row0 + 8;   // this thread's two rows
+
+  uint32_t qf[KQ][4];
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float acc[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int st = (kt - kt_begin) & 1;
+    if (kt + 1 < kt_end) {         // prefetch the next tile into the other stage
+      __nv_bfloat16* nx = kvs + 2 * (st ^ 1) * BF_BK * DS;
+      stage_rows<DH, BF_BK>(nx, k, b, a.Sk, a.KvH, kvh, (kt + 1) * BF_BK);
+      stage_rows<DH, BF_BK>(nx + BF_BK * DS, v, b, a.Sk, a.KvH, kvh,
+                            (kt + 1) * BF_BK);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (kt == kt_begin) {          // Q fragments, once
+#pragma unroll
+      for (int kk = 0; kk < KQ; ++kk)
+        ldmatrix_x4(qf[kk], qs + (16 * warp + (lane & 15)) * DS + 16 * kk
+                                + 8 * (lane >> 4));
+    }
+    const __nv_bfloat16* ks = kvs + 2 * st * BF_BK * DS;
+    const __nv_bfloat16* vs = ks + BF_BK * DS;
+    const int k0 = kt * BF_BK;
+
+    // a tile wholly masked for this warp's 16 rows changes nothing
+    bool live = k0 < a.Sk;
+    if (a.causal) live = live && k0 <= r_last;
+    if (a.window >= 0) live = live && k0 + BF_BK - 1 > r_first - a.window;
+    if (live) {
+      // S = Q K^T (16 x 64 per warp), f32 accumulators
+      float s[NS][4];
+#pragma unroll
+      for (int j = 0; j < NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KQ; ++kk) {
+#pragma unroll
+        for (int j = 0; j < NS; j += 2) {
+          uint32_t kb[4];
+          ldmatrix_x4(kb, ks + (8 * j + (lane & 7) + ((lane >> 4) << 3)) * DS
+                              + 16 * kk + 8 * ((lane >> 3) & 1));
+          mma_bf16(s[j], qf[kk], kb[0], kb[1]);
+          mma_bf16(s[j + 1], qf[kk], kb[2], kb[3]);
+        }
+      }
+
+      // scale, and mask only where this tile crosses an edge
+      bool edge = k0 + BF_BK > a.Sk;
+      if (a.causal) edge = edge || k0 + BF_BK - 1 > r_first;
+      if (a.window >= 0) edge = edge || k0 <= r_last - a.window;
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s[j][e] * a.scale;
+          if (edge) {
+            const int kj = k0 + 8 * j + 2 * t4 + (e & 1);
+            const int qi = e < 2 ? row0 : row1;
+            bool ok = kj < a.Sk;
+            if (a.causal) ok = ok && kj <= qi;
+            if (a.window >= 0) ok = ok && kj > qi - a.window;
+            if (!ok) x = NEG_INF;
+          }
+          s[j][e] = x;
+        }
+
+      // online softmax on the two rows, quad shuffles
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = NEG_INF;
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+          mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[r], mx);
+        alpha[r] = expf(m[r] - m_new);
+        m[r] = m_new;
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < NS; ++j) {
+          s[j][2 * r] = expf(s[j][2 * r] - m_new);
+          s[j][2 * r + 1] = expf(s[j][2 * r + 1] - m_new);
+          sum += s[j][2 * r] + s[j][2 * r + 1];
+        }
+        l[r] = l[r] * alpha[r] + sum;       // per-thread part of the row sum
+      }
+#pragma unroll
+      for (int j = 0; j < NO; ++j) {
+        acc[j][0] *= alpha[0];
+        acc[j][1] *= alpha[0];
+        acc[j][2] *= alpha[1];
+        acc[j][3] *= alpha[1];
+      }
+
+      // acc += bf16(P) V: the S accumulators are the A fragments of P
+#pragma unroll
+      for (int kk = 0; kk < BF_BK / 16; ++kk) {
+        uint32_t pa[4];
+        pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+        pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+        pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+        pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+        for (int j = 0; j < NO; j += 2) {
+          uint32_t vb[4];
+          ldmatrix_x4_trans(vb, vs + (16 * kk + (lane & 7)
+                                      + 8 * ((lane >> 3) & 1)) * DS
+                                    + 8 * j + 8 * (lane >> 4));
+          mma_bf16(acc[j], pa, vb[0], vb[1]);
+          mma_bf16(acc[j + 1], pa, vb[2], vb[3]);
+        }
+      }
+    }
+    __syncthreads();               // this stage is refilled two tiles on
+  }
+  cp_async_wait<0>();              // nothing in flight at exit
+
+  // the row sums: quad shuffles of the per-thread parts
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  const float den0 = fmaxf(l[0], 1e-30f), den1 = fmaxf(l[1], 1e-30f);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = r ? row1 : row0;
+    if (qi >= a.Sq) continue;
+    const float den = r ? den1 : den0;
+    __nv_bfloat16* row = o + ((size_t(b) * a.Sq + qi) * a.H + h) * DH;
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+      const uint32_t w = pack_bf16(acc[j][2 * r] / den, acc[j][2 * r + 1] / den);
+      *reinterpret_cast<uint32_t*>(row + 8 * j + 2 * t4) = w;
+    }
+  }
+}
+
+template <int DH>
+int launch_f32(const FlashArgs& a, cudaStream_t s) {
+  const int bytes = f32_smem_floats<DH>() * int(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      flash_kernel_f32<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
   if (err != cudaSuccess) return int(err);
-  const dim3 grid((a.Sq + BQ - 1) / BQ, a.H, a.B);
-  flash_kernel<T, DH><<<grid, THREADS, bytes, s>>>(a);
+  const dim3 grid((a.Sq + F32_BQ - 1) / F32_BQ, a.H, a.B);
+  flash_kernel_f32<DH><<<grid, F32_THREADS, bytes, s>>>(a);
+  return int(cudaGetLastError());
+}
+
+template <int DH>
+int launch_bf16(const FlashArgs& a, cudaStream_t s) {
+  const int bytes = bf_smem_bytes<DH>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_kernel_bf16<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (err != cudaSuccess) return int(err);
+  const dim3 grid(a.B * a.H, (a.Sq + BF_BQ - 1) / BF_BQ);
+  flash_kernel_bf16<DH><<<grid, BF_THREADS, bytes, s>>>(a);
   return int(cudaGetLastError());
 }
 
@@ -249,15 +533,16 @@ extern "C" int flash_attention_launch(
     int Sk, int H, int KvH, int Dh, int causal, int window, float scale,
     int dtype, void* stream) {
   if (B < 0 || Sq < 0 || Sk < 1 || H < 1 || KvH < 1 || H % KvH != 0 ||
-      B > 65535 || H > 65535)
+      B > 65535 || H > 65535 || (dtype == 1 && Sq > 65535 * BF_BQ))
     return int(cudaErrorInvalidValue);
   if (B == 0 || Sq == 0) return 0;
   const FlashArgs a{q, k, v, o, B, Sq, Sk, H, KvH, causal, window, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && Dh == 64) return launch<float, 64>(a, s);
-  if (dtype == 0 && Dh == 128) return launch<float, 128>(a, s);
-  if (dtype == 1 && Dh == 64) return launch<__nv_bfloat16, 64>(a, s);
-  if (dtype == 1 && Dh == 128) return launch<__nv_bfloat16, 128>(a, s);
+  if (dtype == 0 && Dh == 64) return launch_f32<64>(a, s);
+  if (dtype == 0 && Dh == 128) return launch_f32<128>(a, s);
+  if (dtype == 1 && Dh == 64) return launch_bf16<64>(a, s);
+  if (dtype == 1 && Dh == 128) return launch_bf16<128>(a, s);
   return int(cudaErrorInvalidValue);
 }
+
 #endif

@@ -11,9 +11,13 @@ there is no fallback from the card to the plain version.
 The kernel replaces `src/repro/kernels/flash_attention.py:_flash_kernel`.
 At the zamba2-1.2b prefill shape (B = 2, S = 4096, H = 32, Dh = 64,
 causal, bf16) it is bound by operations (~137 GFLOP of products against
-~134 MB of traffic); this first version does them on the CUDA cores in
-float32, with 64 x 64 tiles staged in shared memory, and skips tiles above
-the causal diagonal.  See the source's header note.
+~134 MB of traffic).  In bf16 both products run on the tensor cores
+(mma.sync m16n8k16, FlashAttention-2's register layout: 128 query rows a
+block, 64-key tiles double-buffered by cp.async, P kept in registers);
+in float32 they run on the CUDA cores (64 x 64 tiles), since TF32 would
+miss the float32 tolerance.  `TILES` gives each path's (query rows, keys)
+per tile, the tiling on which the plain version keeps the kernel's
+running max.  See the source's header note.
 
 Inputs: float32 or bfloat16, all three alike, contiguous; Dh 64 or 128 on
 the card.  The output has q's dtype.  `LAUNCHES` counts kernel launches
@@ -31,6 +35,9 @@ from ..nn import attention as _attn
 
 HEAD_DIMS = (64, 128)       # head widths the kernel takes
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# (query rows, keys) of the kernel's tiles, by dtype: F32_BQ / F32_BK and
+# BF_BQ / BF_BK in csrc/flash_attention.cu
+TILES = {torch.float32: (64, 64), torch.bfloat16: (128, 64)}
 
 LAUNCHES = 0                # kernel launches in this process
 
@@ -100,6 +107,10 @@ def _flash_cuda(q, k, v, *, causal=True, window=None, scale=None):
     if window is not None and window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
     scale = scale if scale is not None else 1.0 / math.sqrt(Dh)
+    # the bf16 kernel copies 16-byte rows with cp.async: a view that starts
+    # off that alignment is copied first
+    q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone()
+               for t in (q, k, v))
     out = torch.empty_like(q)
     fn = _lib()
     with torch.cuda.device(q.device):

@@ -98,8 +98,13 @@ def test_kernel_rejects_too_many_levels(cuda):
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 FLASH_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (8e-3, 2.0 ** -7)}
 # relative RMS error of the bf16 kernel against the plain version on its
-# own 64 x 64 tiles; the plain version with p left unrounded exceeds it
+# own tiles (flash_attention.TILES); the plain version with p left
+# unrounded exceeds it
 FLASH_ROUNDING_LIMIT = 5e-4
+# relative RMS error of the bf16 SSD kernel against the plain version
+# (2e-5 to 7e-5 on an H100); the plain version with x dt and W rounded to
+# bf16 before their product (~3e-3) exceeds it
+SSD_BF16_LIMIT = 5e-4
 
 
 def _randn(seed, shape, dtype, device, scale=1.0):
@@ -113,6 +118,10 @@ def _randn(seed, shape, dtype, device, scale=1.0):
     (2, 512, 4, 4, 64, True, None),
     (1, 300, 8, 2, 128, True, 96),      # GQA 4:1 + window, ragged S
     (2, 200, 4, 1, 64, False, None),    # bidirectional, ragged S
+    (1, 37, 2, 2, 64, True, None),      # S below one tile
+    (1, 300, 4, 4, 64, True, 5),        # window smaller than a tile
+    (1, 130, 4, 2, 128, False, None),   # bidirectional, Dh 128
+    (2, 257, 8, 8, 128, True, None),    # Dh 128, ragged S
 ])
 def test_flash_kernel_matches_plain(cuda, dtype, B, S, H, KvH, Dh, causal,
                                     window):
@@ -144,11 +153,32 @@ def test_flash_bf16_rounds_p_like_the_reference(cuda):
     q, k, v = (_randn(i, (2, 1024, 4, 64), torch.bfloat16, cuda)
                for i in range(3))
     got = fa.flash_attention(q, k, v, causal=True)
-    tiles = {"causal": True, "chunk_q": 64, "chunk_k": 64}
+    bq, bk = fa.TILES[torch.bfloat16]
+    tiles = {"causal": True, "chunk_q": bq, "chunk_k": bk}
     want = attn.chunked_attention(q, k, v, **tiles)
     control = attn.chunked_attention(q, k, v.float(), **tiles)
     assert _rel_rms(got, want) <= FLASH_ROUNDING_LIMIT < \
         _rel_rms(control, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk,causal,window", [
+    (1, 130, 70, False, None),          # Sq, Sk off both tiles, Sq > Sk
+    (1, 70, 130, True, None),           # causal, Sq < Sk
+    (2, 200, 333, True, 40),            # window, Sq < Sk
+])
+def test_flash_kernel_ragged_sq_sk(cuda, dtype, B, Sq, Sk, causal, window):
+    """Query and key lengths that differ, neither a multiple of a tile."""
+    q = _randn(0, (B, Sq, 4, 64), dtype, cuda)
+    k = _randn(1, (B, Sk, 2, 64), dtype, cuda)
+    v = _randn(2, (B, Sk, 2, 64), dtype, cuda)
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    atol, rtol = FLASH_TOL[dtype]
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(),
+                               atol=atol, rtol=rtol)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -164,13 +194,55 @@ def test_ssd_kernel_matches_plain(cuda, dtype, b, s, h, g, n):
     C = _randn(4, (b, s, g, n), dtype, cuda, 0.3)
     before = ss.LAUNCHES
     got = ss.ssd_scan(x, dt, A, B, C, chunk=64)
-    assert ss.LAUNCHES == before + 1
+    assert ss.LAUNCHES == before + ss.kernel_launches(s)
     want = ss.ssd_scan_plain(x, dt, A, B, C, chunk=64)
     torch.cuda.synchronize()
     tol = TOL[dtype]
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(),
                                atol=max(tol, 1e-4), rtol=5 * tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,g,n", [
+    (1, 40, 1, 1, 64),      # s < one chunk, b = h = 1
+    (1, 512, 2, 1, 64),     # s = one group: the scan launch alone
+    (2, 600, 4, 1, 64),     # s not a multiple of the group (or the chunk)
+    (1, 1000, 4, 2, 128),   # g = 2 with n = 128, two groups
+    (1, 2048, 2, 1, 64),    # four whole groups
+])
+def test_ssd_kernel_split_edges(cuda, dtype, b, s, h, g, n):
+    """The edges of the split: dt x 0.05 (slow decay), so the state carried
+    between groups moves y.  y within tests/test_kernels.py's tolerance;
+    in bf16 also a relative RMS error under SSD_BF16_LIMIT, which the
+    bf16-product shortcut exceeds; the float32 group states within the
+    float32 tolerance."""
+    x = _randn(0, (b, s, h, 64), dtype, cuda, 0.5)
+    dt = 0.05 * torch.nn.functional.softplus(
+        _randn(1, (b, s, h), torch.float32, cuda))
+    A = -torch.exp(_randn(2, (h,), torch.float32, cuda, 0.3))
+    B = _randn(3, (b, s, g, n), dtype, cuda, 0.3)
+    C = _randn(4, (b, s, g, n), dtype, cuda, 0.3)
+    before = ss.LAUNCHES
+    got = ss.ssd_scan(x, dt, A, B, C, chunk=64)
+    assert ss.LAUNCHES == before + ss.kernel_launches(s)
+    want = ss.ssd_scan_plain(x, dt, A, B, C, chunk=64)
+    torch.cuda.synchronize()
+    tol = TOL[dtype]
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(),
+                               atol=max(tol, 1e-4), rtol=5 * tol)
+    if dtype == torch.bfloat16:
+        control = ss.ssd_scan_rounded_plain(x, dt, A, B, C, chunk=64)
+        assert _rel_rms(got, want) <= SSD_BF16_LIMIT < _rel_rms(control,
+                                                                want)
+    if ss.n_groups(s) > 1:
+        states = ss.ssd_group_states_cuda(x, dt, A, B, C)
+        want_states = ss.ssd_split_states_plain(x, dt, A, B, C, chunk=64)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(states.cpu().numpy(),
+                                   want_states.cpu().numpy(),
+                                   atol=1e-4, rtol=1e-4)
 
 
 def test_kernels_reject_unsupported_shapes(cuda):

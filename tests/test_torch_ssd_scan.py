@@ -22,11 +22,12 @@ J_DT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 T_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def _inputs(seed, dtype, b, s, h, p, g, n):
-    """x, dt (softplus of a normal), A (-exp of 0.3 normal), B, C."""
+def _inputs(seed, dtype, b, s, h, p, g, n, dt_scale=1.0):
+    """x, dt (dt_scale x softplus of a normal), A (-exp of 0.3 normal),
+    B, C."""
     rng = np.random.default_rng(seed)
     x = 0.5 * rng.standard_normal((b, s, h, p))
-    dt = np.log1p(np.exp(rng.standard_normal((b, s, h))))
+    dt = dt_scale * np.log1p(np.exp(rng.standard_normal((b, s, h))))
     A = -np.exp(0.3 * rng.standard_normal(h))
     B = 0.3 * rng.standard_normal((b, s, g, n))
     C = 0.3 * rng.standard_normal((b, s, g, n))
@@ -73,6 +74,37 @@ def test_ragged_length_matches_ssd_chunked(s):
     _close(y, want_y, "float32")
     _, state = t_ssd.ssd_chunked(*t, chunk=32)
     _close(state, want_state, "float32")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk,group", [
+    (2, 100, 4, 8, 2, 16, 32, 2),   # ragged s, g = 2
+    (1, 256, 2, 8, 1, 16, 32, 3),   # 3 groups do not divide 8 chunks
+    (1, 128, 4, 8, 2, 16, 32, 1),   # one chunk per group
+    (1, 128, 2, 8, 1, 16, 32, 8),   # one group holds every chunk
+])
+def test_split_scan_matches_pallas_and_ssd_chunked(dtype, b, s, h, p, g, n,
+                                                   chunk, group):
+    """The CUDA kernel's three-pass split (group states, state passing,
+    per-group scan), mirrored in plain PyTorch.  dt is small (x 0.05), so
+    the state carried between groups moves y by ~0.1 against |y| ~0.2:
+    a group started from zero would miss the tolerance."""
+    j, t = _inputs(s + group, dtype, b, s, h, p, g, n, dt_scale=0.05)
+    got = ss.ssd_scan_split_plain(*t, chunk=chunk, group=group)
+    assert got.dtype == T_DT[dtype] and got.shape == (b, s, h, p)
+    assert ss.n_groups(s, chunk, group) == -(-(-(-s // chunk)) // group)
+    _close(got, j_ssd.ssd_chunked(*j, chunk=chunk)[0], dtype)
+    if s % chunk == 0:
+        _close(got, ops.ssd_scan(*j, chunk=chunk), dtype)
+    if ss.n_groups(s, chunk, group) > 1:     # the carry is visible
+        span = group * chunk
+        no_carry = torch.cat([ss.ssd_scan_plain(
+            *(a[:, i:i + span] if a.dim() > 1 else a for a in t),
+            chunk=chunk) for i in range(0, s, span)], 1)
+        tol = TOL[dtype]
+        assert not np.allclose(no_carry.float().numpy(),
+                               got.float().numpy(), atol=max(tol, 1e-4),
+                               rtol=5 * tol)
 
 
 def test_ssd_reference_and_step_match_reference():
