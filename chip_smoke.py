@@ -6,19 +6,23 @@ Run from the root of a checkout.  Phases (any failure exits non-zero):
 
   1. device: the card's name and power limit (nvidia-smi);
   2. build: csrc/day_scan.cu, csrc/flash_attention.cu and csrc/ssd_scan.cu
-     with nvcc (sm_90a) from the checkout, one nvcc each, all at once;
+     with nvcc (sm_90a) from the checkout, and csrc/day_scan.cu once more
+     with its probe modes (-DDAY_SCAN_PROBE), one nvcc each, all at once;
+     the day scan's ptxas lines (registers, spills);
   3. kernel vs its plain PyTorch version on the card, on the serving
      grid's day tables (N = 64 combos, T = 4320 steps, L = 3 levels) and
-     on ragged N = 63 and N = 200: discrete outputs (level, shut) exactly
-     equal, continuous ones within rtol 1e-6 / atol 1e-4;
+     on ragged N = 63 and N = 200: all nine outputs bit for bit equal;
   4. main path: `DesignTwin()` on the default grid at dt_s = 10 s (warm
      query, a repeat, then three what-ifs: another policy's thresholds,
      another battery, a single platform), each checked against the
      reference's golden answers in src/repro_torch/data/
      (front_mask / survives() / shutdown exactly, objectives rtol
      1e-5); the day-scan kernel must launch exactly once per query;
-  5. timing: day-scan kernel ms (CUDA events over many launches), the
-     plain version's ms, the bound, warm query and what-if ms;
+  5. timing: day-scan kernel ms (CUDA events over many launches) at
+     N = 64, 1 and 1024 (16 grids folded into N), its chain floor (probe
+     mode "no loads or stores") beside the bound, the SM clock under the
+     kernel, the plain version's ms, warm query and what-if ms, and a
+     profile of warm queries;
   6. flash-attention and SSD-scan kernels vs their plain versions on the
      card: at the zamba2-1.2b prefill shapes in bf16 and float32, flash
      at a GQA 4:1 + window 96 + ragged-S case at Dh = 128; SSD at the
@@ -80,10 +84,9 @@ sys.path.insert(0, str(ROOT / "src"))
 
 PEAK_BYTES_S = 3.35e12          # H100 SXM HBM3
 PEAK_F32_OPS_S = 67e12          # H100 SXM float32, outside tensor cores
-# float ops of one combo-step of csrc/day_scan.cu:day_thread (an exp or a
-# division counted as one op)
+# float ops of one combo-step of the day scan (daysim._step_math; an exp
+# or a division counted as one op)
 OPS_PER_STEP = 104
-RTOL, ATOL = 1e-6, 1e-4         # continuous day traces, as the reference
 OBJ_RTOL = 1e-5                 # objectives vs the golden (sums of traces)
 PEAK_BF16_OPS_S = 989e12        # H100 SXM bf16 tensor cores, dense
 PEAK_OPS_S = {"bfloat16": PEAK_BF16_OPS_S, "float32": PEAK_F32_OPS_S}
@@ -146,22 +149,41 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def compare(kernel: dict, plain: dict) -> float:
-    """Kernel vs plain outputs: discrete exact, continuous to tolerance;
-    returns the largest absolute error of the continuous outputs."""
-    import numpy as np
-    worst = 0.0
-    for k in ("level", "shut"):
-        if not np.array_equal(kernel[k].cpu().numpy(),
-                              plain[k].cpu().numpy()):
-            fail(f"day_scan kernel {k} differs from the plain version")
-    for k in ("soc", "soc_p", "t_skin", "t_skin_p", "pods", "drain_mw",
-              "drain_p_mw"):
-        a = kernel[k].cpu().numpy().astype(np.float64)
-        b = plain[k].cpu().numpy().astype(np.float64)
-        if not np.allclose(a, b, rtol=RTOL, atol=ATOL):
-            fail(f"day_scan kernel {k} off by {np.abs(a - b).max()}")
-        worst = max(worst, float(np.abs(a - b).max()))
-    return worst
+    """Kernel vs plain outputs: all nine bit for bit equal (the kernel
+    keeps every operation of the plain version and its order); returns
+    the largest absolute difference, 0."""
+    import torch
+    from repro_torch.kernels import day_scan as ds
+    for k in ds.OUTS:
+        if kernel[k].dtype != plain[k].dtype or not torch.equal(kernel[k],
+                                                                plain[k]):
+            err = float((kernel[k].double() - plain[k].double()).abs().max())
+            fail(f"day_scan kernel {k} differs from the plain version (max "
+                 f"abs diff {err})")
+    return max(float((kernel[k].double() - plain[k].double()).abs().max())
+               for k in ds.OUTS)
+
+
+def sm_clocks(fn, seconds: float) -> tuple:
+    """(clocks.sm, clocks.max.sm) in MHz as nvidia-smi reads them while
+    the card runs `fn` back to back for about `seconds`."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    one = max(time.perf_counter() - t0, 1e-5)
+    for _ in range(max(1, int(seconds / one))):
+        fn()                        # queued; nvidia-smi reads meanwhile
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60)
+    torch.cuda.synchronize()
+    if out.returncode != 0:
+        fail(f"nvidia-smi clocks: {out.stderr.strip()}")
+    sm, top = out.stdout.strip().splitlines()[0].split(",")
+    return sm.strip(), top.strip()
 
 
 def resize(tables: dict, n: int) -> dict:
@@ -193,10 +215,11 @@ def bound_ms(n: int, t: int, n_lvl: int) -> tuple:
                                                           "operations")
 
 
-def profile_queries(twin, reps: int) -> str:
+def profile_queries(twin, reps: int) -> tuple:
     """Device time of warm queries by kernel, from torch.profiler: the
     device-busy ms per query, the day-scan kernel's share and the
-    number of kernels launched per query."""
+    number of kernels launched per query; returns (report, day-scan ms
+    per query or None)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -209,7 +232,8 @@ def profile_queries(twin, reps: int) -> str:
         if dev_us > 0 and str(e.device_type).endswith("CUDA"):
             rows.append((dev_us / reps, e.count / reps, e.key))
     if not rows:
-        return "profile: the profiler saw no device time (not measured)"
+        return ("profile: the profiler saw no device time (not measured)",
+                None)
     rows.sort(reverse=True)
     busy_us = sum(r[0] for r in rows)
     scan_us = sum(r[0] for r in rows if "day_scan" in r[2])
@@ -217,7 +241,8 @@ def profile_queries(twin, reps: int) -> str:
                     for us, c, k in rows[:5])
     return (f"profile (per warm query, {reps} queries): device busy "
             f"{busy_us / 1e3:.3f} ms in {sum(r[1] for r in rows):g} "
-            f"kernels, day_scan {scan_us / 1e3:.3f} ms; top: {top}")
+            f"kernels, day_scan {scan_us / 1e3:.3f} ms; top: {top}",
+            scan_us / 1e3)
 
 
 def check_golden(name: str, rep, want: dict) -> None:
@@ -816,11 +841,15 @@ def main() -> None:
 
     # 2. build, one nvcc per source, all started together
     t0 = time.perf_counter()
-    build.build_all(("day_scan", "flash_attention", "ssd_scan"))
+    build.build_all(("day_scan", "flash_attention", "ssd_scan",
+                     ("day_scan", ("DAY_SCAN_PROBE",))))
     build.load("day_scan")
     print(f"kernel build: {time.perf_counter() - t0:.2f} s wall; nvcc "
           + ", ".join(f"{k} {v:.2f} s"
                       for k, v in sorted(build.BUILD_SECONDS.items())))
+    for line in build.BUILD_LOG.get("day_scan", "").splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"ptxas day_scan: {line.strip()}")
 
     # 3. kernel vs plain on the serving grid's tables
     golden = json.loads((ROOT / "src" / "repro_torch" / "data"
@@ -837,8 +866,8 @@ def main() -> None:
         got = ds.day_scan(tb)
         torch.cuda.synchronize()
         worst = max(worst, compare(got, ds.day_scan_plain(tb)))
-        print(f"day_scan kernel == plain at N={size}: level/shut exact, "
-              f"max abs err {worst:.3g}")
+        print(f"day_scan kernel == plain at N={size}: all nine outputs "
+              f"bit for bit, max abs err {worst:.3g}")
 
     # 4. the main path through the user's entry point
     ds.LAUNCHES = 0
@@ -875,6 +904,13 @@ def main() -> None:
     one = resize(full, 1)
     lib_fn(one)
     one_ms = cuda_ms(lambda: lib_fn(one), 20)
+    wide = resize(full, 1024)
+    lib_fn(wide)
+    wide_ms = cuda_ms(lambda: lib_fn(wide), 20)
+    floor = lambda: ds.probe_launch(full, "no loads or stores")  # noqa: E731
+    floor()
+    floor_ms = cuda_ms(floor, 50)
+    mhz, max_mhz = sm_clocks(lambda: lib_fn(full), 1.0)
     ds.day_scan_plain(full)
     plain_ms = cuda_ms(lambda: ds.day_scan_plain(full), 2)
     b_ms, b_by = bound_ms(n, t, n_lvl)
@@ -885,15 +921,25 @@ def main() -> None:
         twin.query()
         q_ms.append(twin.stats.last_ms)
     print(f"day_scan kernel: {kernel_ms:.4f} ms at N={n} T={t} L={n_lvl}; "
-          f"one combo (N=1, the bare serial chain of {t} steps): "
-          f"{one_ms:.4f} ms")
+          f"one combo (N=1): {one_ms:.4f} ms; N=1024 (16 grids): "
+          f"{wide_ms:.4f} ms")
+    print(f"day_scan chain floor (probe mode no loads or stores, N={n}): "
+          f"{floor_ms:.4f} ms = {floor_ms * 1e6 / t:.1f} ns, "
+          f"{floor_ms * 1e3 * float(mhz) / t:.0f} SM cycles a step; "
+          f"kernel {kernel_ms * 1e3 * float(mhz) / t:.0f} SM cycles a step; "
+          f"SM clock under the kernel {mhz} MHz (max {max_mhz} MHz)")
     print(f"day_scan plain version: {plain_ms:.1f} ms; bound "
           f"{b_ms:.5f} ms by {b_by}; library call: none")
     print(f"twin warm query: mean {np.mean(q_ms):.2f} ms, min "
           f"{np.min(q_ms):.2f} ms over 10 (first warm {warm_first_ms:.2f} "
           f"ms); what-if (new values: assembly + push + query): "
           + ", ".join(f"{k} {v:.2f} ms" for k, v in what_if_ms.items()))
-    print(profile_queries(twin, 5))
+    report, in_query_ms = profile_queries(twin, 5)
+    print(report)
+    if in_query_ms is not None:
+        print(f"day_scan inside a warm query (profiler): {in_query_ms:.4f} "
+              f"ms; back to back (CUDA events): {kernel_ms:.4f} ms; ratio "
+              f"{in_query_ms / kernel_ms:.3f}")
     del twin
     lm_rows = lm_phases(dev)
     if MISSES:

@@ -1,17 +1,24 @@
-"""Kernel-only probes of the port's flash-attention and SSD-scan kernels on
-one NVIDIA card: correctness at edge shapes and times at the zamba2-1.2b
-prefill shape, without the model.  `chip_smoke.py` is the end-to-end run;
-this is the quick loop for working on one kernel.
+"""Kernel-only probes of the port's kernels on one NVIDIA card:
+correctness at edge shapes and times at the main path's shapes, without
+the model.  `chip_smoke.py` is the end-to-end run; this is the quick loop
+for working on one kernel.
 
+    python3 scripts/kernel_probe.py day              # day scan: designs x
+                                                     # probe modes x N
     python3 scripts/kernel_probe.py flash            # edges + time vs SDPA
     python3 scripts/kernel_probe.py ssd              # edges, group states,
                                                      # time per launch
     python3 scripts/kernel_probe.py flash-variants   # exp2 fold / 4 warps
 
 Run from the root of a checkout.  Every line it prints is a reading of
-the card named on its first line.  `flash-variants` builds four variants
-of csrc/flash_attention.cu (8 or 4 warps a block; `expf` or scale·log2e
-folded into `exp2f`) into build/probe/ and times them in turns.
+the card named on its first line.  `day` builds csrc/day_scan.cu and the
+one-thread-per-combo baseline csrc/day_scan_thread.cu with their probe
+modes (as is; inputs held in registers; no loads or stores, the chain's
+floor) and times each on the serving grid's tables at N = 1, 64 and 1024
+combos, in ns and SM cycles per step.  `flash-variants` builds four
+variants of csrc/flash_attention.cu (8 or 4 warps a block; `expf` or
+scale·log2e folded into `exp2f`) into build/probe/ and times them in
+turns.
 """
 from __future__ import annotations
 
@@ -24,11 +31,14 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT))
 
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+import chip_smoke  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import day_scan as ds  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ssd_scan as ss  # noqa: E402
 from repro_torch.nn import attention as attn  # noqa: E402
@@ -58,6 +68,93 @@ def cuda_ms(fn, reps: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+DAY_SOURCES = ("day_scan_thread", "day_scan")   # baseline, current
+
+
+def day_fdiv_source() -> Path:
+    """csrc/day_scan.cu with both divisions as `__fdividef` (approximate:
+    not bit-equal), to show what the exact division costs the chain."""
+    s = (build.CSRC / "day_scan.cu").read_text()
+    for node in ("g", "p"):
+        old = f"float i_{node} = div_common(a_{node}, v_{node}, slow_{node});"
+        if old not in s:
+            raise RuntimeError(f"day_scan source changed: {old!r} not found")
+        s = s.replace(old, f"float i_{node} = __fdividef(a_{node}, "
+                      f"v_{node}); slow_{node} = false;")
+    out = build.BUILD_DIR.parent / "probe" / "day_scan_fdiv.cu"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(s)
+    return out
+
+
+def probe_day() -> None:
+    """Both day-scan designs in each probe mode on the serving grid's
+    tables (N = 64, T = 4320, L = 3 at dt_s = 10 s), cut to one combo and
+    tiled to 1024 (16 grids, as the batched twin path would fold them):
+    ms, ns and SM cycles per step, in turns (baseline, current, current,
+    baseline).  "as is" must equal the production kernel's outputs."""
+    from repro_torch.core import daysim
+    src = day_fdiv_source()
+    lib = src.with_suffix(".so")
+    nvcc = subprocess.Popen([build.nvcc(), *build.NVCC_FLAGS,
+                             "-DDAY_SCAN_PROBE", "-o", str(lib), str(src)],
+                            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                            text=True)
+    build.build_all([(s, ("DAY_SCAN_PROBE",)) for s in DAY_SOURCES]
+                    + ["day_scan"])
+    if nvcc.wait():
+        raise RuntimeError(f"nvcc failed for {src.name}:\n{nvcc.stderr.read()}")
+    fdiv = ctypes.CDLL(str(lib)).day_scan_probe_launch
+    fdiv.argtypes = ds._ARGTYPES + [ctypes.c_int]
+    fdiv.restype = ctypes.c_int
+    for label, log in sorted(build.BUILD_LOG.items()):
+        if label.startswith("day_scan"):
+            for line in log.splitlines():
+                if "registers" in line or "spill" in line:
+                    print(f"ptxas {label}: {line.strip()}")
+    full, _ = daysim.day_tables(daysim._fused_pipeline(DEV, dt_s=10.0))
+    n0, t, n_lvl = ds._shape(full)
+    print(f"day tables: N={n0} T={t} L={n_lvl}; chunk_steps({n_lvl}) = "
+          f"{ds.chunk_steps(n_lvl)}")
+    busy = lambda: ds.probe_launch(full, "as is")  # noqa: E731
+    mhz, max_mhz = chip_smoke.sm_clocks(busy, 1.5)
+    print(f"SM clock under the day scan: {mhz} MHz (max {max_mhz} MHz)")
+    for n in (1, 64, 1024):
+        tb = full if n == n0 else chip_smoke.resize(full, n)
+        want = ds._day_scan_cuda(tb)
+        if n == n0:
+            print(f"zero-power combo-steps (drain 0, a zero dividend) at "
+                  f"N={n}: glasses "
+                  f"{float((want['drain_mw'] == 0).float().mean()):.3f}, "
+                  f"puck {float((want['drain_p_mw'] == 0).float().mean()):.3f}")
+        for src in DAY_SOURCES:
+            got = ds.probe_launch(tb, "as is", src)
+            same = all(torch.equal(got[k].t(), want[k]) for k in ds.OUTS)
+            print(f"day {src} N={n}: as is == csrc/day_scan.cu: {same}")
+        times = {}
+        for src in DAY_SOURCES + DAY_SOURCES[::-1]:
+            for mode in ds.PROBE_MODES:
+                ms = cuda_ms(lambda: ds.probe_launch(tb, mode, src))
+                times.setdefault((src, mode), []).append(ms)
+        for (src, mode), ms in times.items():
+            per = min(ms) * 1e-3 / t
+            print(f"day N={n} T={t} L={n_lvl} {src} {mode}: "
+                  + " / ".join(f"{m:.4f}" for m in ms) + f" ms; "
+                  f"{per * 1e9:.1f} ns/step, "
+                  f"{per * float(mhz) * 1e6:.0f} SM cycles/step")
+        floor = min(times[("day_scan", "no loads or stores")])
+        b_ms, b_by = chip_smoke.bound_ms(n, t, n_lvl)
+        print(f"day chain floor N={n} (csrc/day_scan.cu, no loads or "
+              f"stores): {floor:.4f} ms; bound {b_ms:.5f} ms by {b_by}")
+        approx = cuda_ms(lambda: ds._launch(
+            fdiv, tb, ds.PROBE_MODES["no loads or stores"]))
+        print(f"day chain floor N={n} with __fdividef for both divisions "
+              f"(approximate, not bit-equal): {approx:.4f} ms; "
+              f"{approx * 1e-3 / t * float(mhz) * 1e6:.0f} SM cycles/step")
+    print(f"SM clock: {' / '.join(chip_smoke.sm_clocks(busy, 1.0))} MHz "
+          f"(clocks.sm / clocks.max.sm)")
 
 
 def probe_flash() -> None:
@@ -229,7 +326,7 @@ def probe_flash_variants() -> None:
 
 
 def main() -> None:
-    probes = {"flash": probe_flash, "ssd": probe_ssd,
+    probes = {"day": probe_day, "flash": probe_flash, "ssd": probe_ssd,
               "flash-variants": probe_flash_variants}
     if len(sys.argv) != 2 or sys.argv[1] not in probes:
         sys.exit(f"usage: kernel_probe.py {{{'|'.join(probes)}}}")

@@ -13,6 +13,9 @@ change near a trip threshold flips a throttle level).  The flash and SSD
 kernels are held to tolerances and spell out their multiply-adds
 (``fmaf``, ``mma.sync``), so the flag only keeps their scalar steps
 (scale, decay, the bf16 split's remainders) rounded as written.
+``-Xptxas -v`` leaves each kernel's registers, stack and spills in
+`BUILD_LOG`; ``-D`` macros (`defines`) build a source's variants, such
+as the day scan's probe modes.
 """
 from __future__ import annotations
 
@@ -29,10 +32,12 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 _LOADED: dict[str, ctypes.CDLL] = {}
-BUILD_SECONDS: dict[str, float] = {}     # name -> nvcc wall seconds
+BUILD_SECONDS: dict[str, float] = {}     # label -> nvcc wall seconds
+BUILD_LOG: dict[str, str] = {}           # label -> nvcc's stderr (ptxas -v)
 
 
 def nvcc() -> str:
@@ -45,27 +50,39 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def library_path(name: str) -> Path:
-    """Where `csrc/<name>.cu` builds to, keyed by source + flags."""
+def _flags(defines) -> tuple:
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def _label(name: str, defines=()) -> str:
+    return "+".join((name, *defines))
+
+
+def library_path(name: str, defines=()) -> Path:
+    """Where `csrc/<name>.cu` builds to with the macros `defines`, keyed
+    by source + flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    digest = hashlib.sha256(src + " ".join(_flags(defines)).encode()) \
+        .hexdigest()
+    return BUILD_DIR / f"{_label(name, defines)}-{digest[:16]}.so"
 
 
-def build(name: str) -> Path:
-    """Compile `csrc/<name>.cu` unless its hashed library exists; returns
-    the library path and records the nvcc time in `BUILD_SECONDS`."""
-    out = library_path(name)
+def build(name: str, defines=()) -> Path:
+    """Compile `csrc/<name>.cu` (with ``-D`` for each of `defines`) unless
+    its hashed library exists; returns the library path and records the
+    nvcc time in `BUILD_SECONDS`."""
+    defines = tuple(defines)
+    out = library_path(name, defines)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp,
-           str(CSRC / f"{name}.cu")]
+    cmd = [nvcc(), *_flags(defines), "-o", tmp, str(CSRC / f"{name}.cu")]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
-    BUILD_SECONDS[name] = time.perf_counter() - t0
+    BUILD_SECONDS[_label(name, defines)] = time.perf_counter() - t0
+    BUILD_LOG[_label(name, defines)] = proc.stderr
     if proc.returncode != 0:
         os.unlink(tmp)
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
@@ -73,17 +90,22 @@ def build(name: str) -> Path:
     return out
 
 
-def build_all(names) -> dict:
+def build_all(jobs) -> dict:
     """Compile several sources at once, one nvcc for each, all started
-    together; returns {name: library path}."""
-    names = list(names)
-    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
-        return dict(zip(names, pool.map(build, names)))
+    together.  A job is a source name or a (name, defines) pair; returns
+    {job: library path}."""
+    jobs = [(j, ()) if isinstance(j, str) else (j[0], tuple(j[1]))
+            for j in jobs]
+    with ThreadPoolExecutor(max_workers=max(1, len(jobs))) as pool:
+        paths = pool.map(lambda j: build(*j), jobs)
+        return {_label(*j): p for j, p in zip(jobs, paths)}
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of `csrc/<name>.cu`, built on first use."""
-    lib = _LOADED.get(name)
+def load(name: str, defines=()) -> ctypes.CDLL:
+    """The loaded library of `csrc/<name>.cu` with the macros `defines`,
+    built on first use."""
+    key = _label(name, tuple(defines))
+    lib = _LOADED.get(key)
     if lib is None:
-        lib = _LOADED[name] = ctypes.CDLL(str(build(name)))
+        lib = _LOADED[key] = ctypes.CDLL(str(build(name, defines)))
     return lib

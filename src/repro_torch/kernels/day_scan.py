@@ -5,8 +5,13 @@ hysteresis for a batch of design combos, one whole day per call.
 `day_scan_plain`, the torch mirror of the reference's
 `daysim._integrate_one` over a combo batch (a Python loop over T).
 Tables on a CUDA device go to the hand-written kernel
-`csrc/day_scan.cu` (one thread per combo, state in registers) or raise:
-there is no fallback from the card to the plain version.
+`csrc/day_scan.cu` or raise: there is no fallback from the card to the
+plain version.  The kernel is warp-specialised: per block of 32 combos a
+compute warp runs the chain with the state in registers, while a load, a
+prep and a store warp stage chunks of `chunk_steps(L)` steps through
+shared memory and form each step's state-independent products for every
+level ahead of it.  `day_scan_staged_plain` mirrors that split on the CPU
+(tests only) and is bit-equal to `day_scan_plain`.
 
 Tables use the port's time-major layout, so the kernel's warps read
 neighbouring addresses at every step:
@@ -21,7 +26,8 @@ Both return {name: (N, T)} for `OUTS` (transposed views of the (T, N)
 buffers; `level` int32).  The level tables are taken at the integer
 throttle level, where the reference's `take_linear` / hat-weight gather
 is exact.  `LAUNCHES` counts kernel launches (the plain version never
-bumps it).
+bumps it).  `probe_launch` runs the kernel's probe modes (built with
+``-DDAY_SCAN_PROBE``) for `scripts/kernel_probe.py` and does not count.
 """
 from __future__ import annotations
 
@@ -162,20 +168,115 @@ def day_scan_plain(tables: dict) -> dict:
     return {k: torch.stack(v).t() for k, v in out.items()}
 
 
-@functools.lru_cache(maxsize=1)
+def _node_step_staged(soc, t_soc, t_skin, p_mw, charge_dsoc, amb, pre, c):
+    """`_node_step` with charge_mw * dsoc_coeff formed ahead (the kernel's
+    prep); the same operations in the same order otherwise."""
+    v = (c[pre + "v_full"] - c[pre + "sag_v"] * (1.0 - soc)
+         - c[pre + "knee_v"] * torch.exp(-c[pre + "knee_sharp"] * soc))
+    i_a = p_mw * 1e-3 / v
+    loss_mw = i_a * i_a * c[pre + "r_ohm"] * 1e3
+    drain_mw = p_mw + loss_mw
+    soc_n = torch.clamp(soc - drain_mw * c[pre + "dsoc_coeff"]
+                        + charge_dsoc, 0.0, 1.0)
+    heat_w = drain_mw * 1e-3
+    flow = (t_soc - t_skin) * c[pre + "g_soc_skin"]
+    t_soc_n = t_soc + (heat_w - flow) * c[pre + "dt_c_soc"]
+    t_skin_n = t_skin + (flow - (t_skin - amb) * c[pre + "g_skin_amb"]) \
+        * c[pre + "dt_c_skin"]
+    return soc_n, t_soc_n, t_skin_n, drain_mw
+
+
+def day_scan_staged_plain(tables: dict, chunk: int) -> dict:
+    """The kernel's split in plain PyTorch (tests only).  Per chunk of
+    `chunk` steps the state-independent products are formed first for
+    every level (the prep warp's work): act = active * act_mult,
+    act * mw + (1 - act) * standby_mw and its puck twin, act * pods and
+    charge * dsoc_coeff for both nodes.  Then the chain runs on them with
+    boolean latches, an integer level and a gather at it.  Every operation
+    and operand order is `day_scan_plain`'s, so every output is bit-equal
+    to it."""
+    _check(tables)
+    n, t_steps, _ = _shape(tables)
+    c = tables["const"]
+    cols = torch.arange(n, device=tables["step_mw"].device)
+    amb0 = tables["ambient"][0]
+    one = torch.ones_like(amb0)
+    zero = torch.zeros_like(amb0)
+    soc, soc_p = one, one
+    t_soc, t_skin, t_soc_p, t_skin_p = amb0, amb0, amb0, amb0
+    th_state = soc_state = torch.zeros_like(amb0, dtype=torch.bool)
+    shut = zero
+    max_lv = c["max_level"].long()
+    out = {k: [] for k in OUTS}
+    for t0 in range(0, t_steps, chunk):
+        rows = slice(t0, t0 + chunk)
+        act = tables["active"][rows, None, :] * tables["act_mult"]
+        rest = 1.0 - act
+        pre_mw = act * tables["step_mw"][rows] + rest * c["standby_mw"]
+        pre_mw_p = act * tables["step_mw_p"][rows] \
+            + rest * c["p_standby_mw"]
+        pre_pods = act * tables["step_pods"][rows]
+        cd = tables["charge"][rows] * c["dsoc_coeff"]
+        cd_p = tables["charge_p"][rows] * c["p_dsoc_coeff"]
+        for j in range(pre_mw.shape[0]):
+            t = t0 + j
+            th_state = (t_skin > c["temp_trip"]) \
+                | (~(t_skin < c["temp_clear"]) & th_state)
+            soc_eff = torch.minimum(soc, soc_p)
+            soc_state = (soc_eff < c["soc_trip"]) \
+                | (~(soc_eff > c["soc_clear"]) & soc_state)
+            lv = torch.minimum(th_state.long() + soc_state.long(), max_lv)
+
+            shut = torch.maximum(shut, (t_skin > c["shutdown_c"]).float())
+            shut = torch.maximum(shut, (t_skin_p > c["shutdown_c"]).float()
+                                 * c["has_puck"])
+            alive = ((soc > 0.0).float() * (soc_p > 0.0).float()
+                     * (1.0 - shut) * tables["valid"][t])
+            p_mw = pre_mw[j][lv, cols] * alive
+            p_p_mw = pre_mw_p[j][lv, cols] * alive * c["has_puck"]
+
+            amb = tables["ambient"][t]
+            soc, t_soc, t_skin, drain_mw = _node_step_staged(
+                soc, t_soc, t_skin, p_mw, cd[j], amb, "", c)
+            soc_p, t_soc_p, t_skin_p, drain_p_mw = _node_step_staged(
+                soc_p, t_soc_p, t_skin_p, p_p_mw, cd_p[j], amb, "p_", c)
+            pods = pre_pods[j][lv, cols] * alive
+            for k, v in (("soc", soc), ("soc_p", soc_p), ("t_skin", t_skin),
+                         ("t_skin_p", t_skin_p), ("shut", shut),
+                         ("level", lv.to(torch.int32)), ("pods", pods),
+                         ("drain_mw", drain_mw),
+                         ("drain_p_mw", drain_p_mw)):
+                out[k].append(v)
+    return {k: torch.stack(v).t() for k, v in out.items()}
+
+
+_ARGTYPES = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+
 def _lib():
     from . import build
-    lib = build.load("day_scan")
-    fn = lib.day_scan_launch
-    fn.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 4 \
-        + [ctypes.c_void_p]
+    return build.load("day_scan")
+
+
+@functools.lru_cache(maxsize=1)
+def _entry():
+    fn = _lib().day_scan_launch
+    fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     return fn
 
 
-def _day_scan_cuda(tables: dict) -> dict:
-    """Launch csrc/day_scan.cu on the current stream (no sync)."""
-    global LAUNCHES
+def chunk_steps(n_lvl: int) -> int:
+    """Steps of one chunk of the kernel's shared-memory rings at L levels
+    (builds the kernel on first use)."""
+    fn = _lib().day_scan_chunk_steps
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn(n_lvl)
+
+
+def _launch(fn, tables: dict, *extra) -> dict:
+    """Call the C entry `fn` on the tables; returns the (T, N) outputs."""
     n, t_steps, n_lvl = _shape(tables)
     if n_lvl > MAX_LEVELS:
         raise ValueError(f"day_scan kernel takes at most {MAX_LEVELS} "
@@ -188,7 +289,6 @@ def _day_scan_cuda(tables: dict) -> dict:
     outs = {k: torch.empty((t_steps, n), device=dev,
                            dtype=torch.int32 if k == "level"
                            else torch.float32) for k in OUTS}
-    fn = _lib()
     # `ins` may hold fresh copies that are freed when this returns, while
     # the kernel still runs: the caching allocator only hands their
     # memory to later work on the same stream, which runs after it
@@ -196,9 +296,33 @@ def _day_scan_cuda(tables: dict) -> dict:
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(*[x.data_ptr() for x in ins],
                  *[outs[k].data_ptr() for k in OUTS],
-                 n, t_steps, n_lvl, len(CONST_KEYS), stream)
+                 n, t_steps, n_lvl, len(CONST_KEYS), stream, *extra)
     if err != 0:
         raise RuntimeError(f"day_scan kernel launch failed: CUDA error "
                            f"{err}")
+    return outs
+
+
+def _day_scan_cuda(tables: dict) -> dict:
+    """Launch csrc/day_scan.cu on the current stream (no sync)."""
+    global LAUNCHES
+    outs = _launch(_entry(), tables)
     LAUNCHES += 1
     return {k: v.t() for k, v in outs.items()}
+
+
+# the probe modes of `day_scan_probe_launch` (csrc/day_scan.cu's header)
+PROBE_MODES = {"as is": 0, "inputs in registers": 1,
+               "no loads or stores": 2}
+
+
+def probe_launch(tables: dict, mode: str, source: str = "day_scan") -> dict:
+    """Run `csrc/<source>.cu`'s probe entry, built with -DDAY_SCAN_PROBE,
+    in `mode` (a key of PROBE_MODES); returns the (T, N) output buffers
+    (in "no loads or stores" only soc's first row holds a checksum).
+    Measurement only: `LAUNCHES` does not count it."""
+    from . import build
+    fn = build.load(source, ("DAY_SCAN_PROBE",)).day_scan_probe_launch
+    fn.argtypes = _ARGTYPES + [ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return _launch(fn, tables, PROBE_MODES[mode])

@@ -14,6 +14,7 @@ import torch
 from repro_torch.kernels import day_scan as ds
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ssd_scan as ss
+from torch_day_tables import random_tables
 
 
 @pytest.fixture
@@ -23,52 +24,10 @@ def cuda():
     return torch.device("cuda")
 
 
-def _tables(n: int, t: int, n_lvl: int, seed: int, device) -> dict:
-    """Random day tables that drive the throttle, thermal and SoC paths."""
-    rng = np.random.default_rng(seed)
-
-    def f32(a):
-        return torch.as_tensor(np.asarray(a, np.float32), device=device)
-
-    mw = rng.uniform(300.0, 2500.0, (t, 1, n)) \
-        * np.linspace(1.0, 0.4, n_lvl)[None, :, None]
-    const = {k: np.full(n, v) for k, v in {
-        "temp_trip": 39.5, "temp_clear": 37.0, "soc_trip": 0.3,
-        "soc_clear": 0.4, "max_level": float(n_lvl - 1),
-        "standby_mw": 45.0, "ste_beta_c": 2.0,
-        "ste_beta_soc": 60.0, "p_standby_mw": 18.0}.items()}
-    const["has_puck"] = rng.integers(0, 2, n).astype(float)
-    const["shutdown_c"] = rng.choice([40.0, 46.0], n)
-    for pre, cap in (("", 900.0), ("p_", 4000.0)):
-        const.update({pre + "v_full": np.full(n, 4.35),
-                      pre + "sag_v": np.full(n, 0.75),
-                      pre + "knee_v": np.full(n, 0.3),
-                      pre + "knee_sharp": np.full(n, 12.0),
-                      pre + "r_ohm": np.full(n, 0.25),
-                      pre + "dsoc_coeff": np.full(n, 60.0 / (3600 * cap)),
-                      pre + "g_soc_skin": np.full(n, 1 / 7.0),
-                      pre + "g_skin_amb": np.full(n, 1 / 11.0),
-                      pre + "dt_c_soc": rng.uniform(2.0, 4.0, n),
-                      pre + "dt_c_skin": np.full(n, 60.0 / 80.0)})
-    valid = np.ones((t, n))
-    valid[t - t // 5:, ::3] = 0.0
-    return {"step_mw": f32(mw), "step_mw_p": f32(mw * 0.6),
-            "step_pods": f32(rng.uniform(0, 5e3, (t, n_lvl, n))),
-            "act_mult": f32(np.linspace(1.0, 0.5, n_lvl)[:, None]
-                            * np.ones((1, n))),
-            "ambient": f32(rng.uniform(22.0, 36.0, (t, n))),
-            "active": f32(rng.uniform(0.3, 1.0, (t, n))),
-            "valid": f32(valid),
-            "charge": f32(np.where(rng.uniform(size=(t, n)) < 0.1, 800.0,
-                                   0.0)),
-            "charge_p": f32(np.zeros((t, n))),
-            "const": {k: f32(v) for k, v in const.items()}}
-
-
 @pytest.mark.parametrize("n,t,n_lvl", [(1, 50, 1), (37, 300, 3),
                                        (70, 200, 6), (33, 120, 12)])
 def test_kernel_matches_plain(cuda, n, t, n_lvl):
-    tables = _tables(n, t, n_lvl, seed=n, device=cuda)
+    tables = random_tables(n, t, n_lvl, seed=n, device=cuda)
     before = ds.LAUNCHES
     got = ds.day_scan(tables)
     assert ds.LAUNCHES == before + 1
@@ -84,10 +43,51 @@ def test_kernel_matches_plain(cuda, n, t, n_lvl):
     assert int(want["level"].max()) >= min(1, n_lvl - 1)
     if n > 1:
         assert float(want["shut"].max()) == 1.0
+    _assert_all_equal(got, want)
+
+
+def _assert_all_equal(got: dict, want: dict) -> None:
+    """Bit for bit on all nine outputs: the kernel keeps the plain
+    version's every operation and its order."""
+    for k in ds.OUTS:
+        assert got[k].dtype == want[k].dtype, k
+        assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("n,t,n_lvl", [
+    (64, 1, 3),         # one step
+    (31, 129, 16),      # ragged N, smallest chunks, 16 levels
+    (200, 1000, 3),     # ragged N over 7 blocks, many ring turns
+    (1024, 257, 3),     # 32 blocks: 16 serving grids folded into N
+])
+def test_kernel_edges_match_plain(cuda, n, t, n_lvl):
+    tables = random_tables(n, t, n_lvl, seed=n + t, device=cuda)
+    before = ds.LAUNCHES
+    got = ds.day_scan(tables)
+    assert ds.LAUNCHES == before + 1
+    want = ds.day_scan_plain(tables)
+    torch.cuda.synchronize()
+    _assert_all_equal(got, want)
+
+
+@pytest.mark.parametrize("n_lvl", [1, 3, 16])
+@pytest.mark.parametrize("steps", ["1", "tc-1", "tc", "tc+1", "9tc+1"])
+def test_kernel_time_edges(cuda, n_lvl, steps):
+    """T around the kernel's chunk (`chunk_steps`): under one chunk, one
+    whole chunk, just past it, and past two turns of the rings."""
+    tc = ds.chunk_steps(n_lvl)
+    assert tc >= 1
+    t = {"1": 1, "tc-1": max(tc - 1, 1), "tc": tc, "tc+1": tc + 1,
+         "9tc+1": 9 * tc + 1}[steps]
+    tables = random_tables(37, t, n_lvl, seed=t, device=cuda)
+    got = ds.day_scan(tables)
+    want = ds.day_scan_plain(tables)
+    torch.cuda.synchronize()
+    _assert_all_equal(got, want)
 
 
 def test_kernel_rejects_too_many_levels(cuda):
-    tables = _tables(4, 10, ds.MAX_LEVELS + 1, seed=0, device=cuda)
+    tables = random_tables(4, 10, ds.MAX_LEVELS + 1, seed=0, device=cuda)
     with pytest.raises(ValueError, match="throttle levels"):
         ds.day_scan(tables)
 
