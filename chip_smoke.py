@@ -18,11 +18,38 @@ Run from the root of a checkout.  Phases (any failure exits non-zero):
      reference's golden answers in src/repro_torch/data/
      (front_mask / survives() / shutdown exactly, objectives rtol
      1e-5); the day-scan kernel must launch exactly once per query;
+     then the twin's other paths, each driven with the launch count set
+     to 0 just before it and read just after:
+     a. batched golden: `what_if_many` over the golden's four queries,
+        each report against the golden and bit for bit equal to its
+        serial answer; one launch per signature group;
+     b. K = 16 what-ifs of the thermal governor's temp_trip_c on the full
+        default grid through `query_batch`: one launch at N = 1024 (16 x
+        64 combos), each answer bit for bit equal to its serial query,
+        and the kernel bit for bit equal to its plain version on the
+        batch's own tables (all nine outputs);
+     c. `submit` / `run` from 4 threads (2 submit point what-ifs, 1
+        submits grid what-ifs, 1 drains), mixed signatures: every result
+        bit for bit equal to its serial answer, one launch per batch
+        signature group;
+     d. the legacy engine, `dse.day_pareto(engine="legacy")` on the
+        default grid: one launch, front / survives() / shutdown equal to
+        the fused engine's, trace extrema equal, sums within rtol 1e-5;
+        a repeat is served by the row cache (no row evaluated again);
+        the kernel against its plain version on the engine's tables;
+     e. `simulate_users` for 64 users (8 battery fades x 8 ambient
+        offsets) of one combo: one launch at N = 64, survives() /
+        shutdown / day hours equal to the same call on the CPU, traces
+        within rtol 1e-6 / atol 1e-4, sums within rtol 1e-5; the kernel
+        against its plain version on the call's tables;
   5. timing: day-scan kernel ms (CUDA events over many launches) at
      N = 64, 1 and 1024 (16 grids folded into N), its chain floor (probe
      mode "no loads or stores") beside the bound, the SM clock under the
-     kernel, the plain version's ms, warm query and what-if ms, and a
-     profile of warm queries;
+     kernel, the plain version's ms, warm query and what-if ms, a
+     profile of warm queries, batched ms per item at K = 1, 4 and 16
+     (warm, host clock ending in a copy to the host) beside the warm
+     serial query, row-stage passes per batch and a profile of one
+     K = 16 batch;
   6. flash-attention and SSD-scan kernels vs their plain versions on the
      card: at the zamba2-1.2b prefill shapes in bf16 and float32, flash
      at a GQA 4:1 + window 96 + ragged-S case at Dh = 128; SSD at the
@@ -68,14 +95,19 @@ Run from the root of a checkout.  Phases (any failure exits non-zero):
      prefill ms and tokens/s, Server decode ms per token, peak device
      memory, a profile of one prefill.
 
-The second-to-last lines are the `kernels` JSON object and the
-nvidia-smi line; the last line is the result object.
+The second-to-last lines are the `kernels` JSON object (the day scan's
+launches summed over the serial, batched, legacy and simulate_users
+paths of phase 4; its max_abs_err covers phase 3 and the tables of 4 b,
+d and e)
+and the nvidia-smi line; the last line is the result object.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -88,6 +120,16 @@ PEAK_F32_OPS_S = 67e12          # H100 SXM float32, outside tensor cores
 # or a division counted as one op)
 OPS_PER_STEP = 104
 OBJ_RTOL = 1e-5                 # objectives vs the golden (sums of traces)
+# legacy engine (float64 sums on the host) vs the fused engine (float32
+# sums on the card): the reference's tolerance (tests/test_twin.py)
+SUM_RTOL = SUM_ATOL = 1e-5
+# trace values (end SoC, peak skin) of the card against the CPU: the
+# reference's tolerance for the day scan (tests/test_kernels.py)
+TRACE_RTOL, TRACE_ATOL = 1e-6, 1e-4
+# the report fields a batched answer must share bit for bit with its serial
+# one (tests/test_twin_serving.py's _FIELDS)
+REPORT_FIELDS = ("time_to_empty_h", "peak_skin_c", "pod_hours", "end_soc",
+                 "energy_mwh", "throttled_h", "steady_mw", "day_hours")
 PEAK_BF16_OPS_S = 989e12        # H100 SXM bf16 tensor cores, dense
 PEAK_OPS_S = {"bfloat16": PEAK_BF16_OPS_S, "float32": PEAK_F32_OPS_S}
 LM_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py
@@ -215,16 +257,16 @@ def bound_ms(n: int, t: int, n_lvl: int) -> tuple:
                                                           "operations")
 
 
-def profile_queries(twin, reps: int) -> tuple:
-    """Device time of warm queries by kernel, from torch.profiler: the
-    device-busy ms per query, the day-scan kernel's share and the
-    number of kernels launched per query; returns (report, day-scan ms
-    per query or None)."""
+def profile_queries(run, reps: int, label: str = "warm query") -> tuple:
+    """Device time of `reps` calls of `run` (a warm query) by kernel,
+    from torch.profiler: the device-busy ms per call, the day-scan
+    kernel's share and the number of kernels launched per call; returns
+    (report, day-scan ms per call or None)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
-            twin.query()
+            run()
     rows = []
     for e in prof.key_averages():
         dev_us = getattr(e, "self_device_time_total",
@@ -239,7 +281,7 @@ def profile_queries(twin, reps: int) -> tuple:
     scan_us = sum(r[0] for r in rows if "day_scan" in r[2])
     top = "; ".join(f"{k[:48]} {us / 1e3:.3f} ms x{c:g}"
                     for us, c, k in rows[:5])
-    return (f"profile (per warm query, {reps} queries): device busy "
+    return (f"profile (per {label}, {reps} calls): device busy "
             f"{busy_us / 1e3:.3f} ms in {sum(r[1] for r in rows):g} "
             f"kernels, day_scan {scan_us / 1e3:.3f} ms; top: {top}",
             scan_us / 1e3)
@@ -271,6 +313,320 @@ def golden_overrides(spec: dict, daysim) -> dict:
     if "battery" in out:
         out["battery"] = daysim.BatterySpec.from_dict(out["battery"])
     return out
+
+
+def identical(name: str, got, want) -> None:
+    """A batched answer against its serial one: the same combos, front
+    and survival flags, and every field of REPORT_FIELDS bit for bit."""
+    import numpy as np
+    if got.combos != want.combos:
+        fail(f"{name}: combo labels differ from the serial answer")
+    pairs = [("front_mask", got.front_mask, want.front_mask),
+             ("survives", got.survives(), want.survives())]
+    pairs += [(f, getattr(got, f), getattr(want, f)) for f in REPORT_FIELDS]
+    for k, a, b in pairs:
+        if not np.array_equal(a, b):
+            diff = float(np.max(np.abs(np.asarray(a, float)
+                                       - np.asarray(b, float))))
+            fail(f"{name}: {k} differs from the serial answer (max abs "
+                 f"diff {diff})")
+
+
+def governor_grids(daysim, k: int, start: int = 0) -> list:
+    """k default-grid queries, each with the thermal governor's
+    temp_trip_c moved (value-level what-ifs of one signature, as
+    tests/test_twin_serving.py's _policies)."""
+    import dataclasses
+    gov = daysim.get_policy("thermal_governor")
+    return [{"policies": ("none", dataclasses.replace(
+                gov, name=f"v{start + i}",
+                temp_trip_c=38.0 + 0.1 * (start + i)), "battery_saver")}
+            for i in range(k)]
+
+
+def point_whatifs(daysim, k: int, start: int = 0) -> list:
+    """k one-combo what-ifs (tests/test_twin_serving.py's
+    _point_whatifs)."""
+    import dataclasses
+    gov = daysim.get_policy("thermal_governor")
+    return [{"platform": "aria2_display",
+             "design": daysim.DEFAULT_DESIGNS[1], "schedule": "commuter",
+             "policy": dataclasses.replace(
+                 gov, name=f"t{start + i}",
+                 temp_trip_c=38.0 + 0.05 * (start + i))}
+            for i in range(k)]
+
+
+@contextlib.contextmanager
+def scan_calls(ds):
+    """Record the tables and outputs of every day-scan call made
+    inside, so the kernel can be held to its plain version on the very
+    inputs the main path gave it."""
+    calls, real = [], ds.day_scan
+
+    def recording(tables):
+        ys = real(tables)
+        calls.append((tables, ys))
+        return ys
+
+    ds.day_scan = recording
+    try:
+        yield calls
+    finally:
+        ds.day_scan = real
+
+
+def held_to_plain(name: str, calls: list) -> float:
+    """Each recorded day-scan call against the plain version on its own
+    tables, all nine outputs bit for bit; returns the largest abs error
+    (these plain launches are not the main path's)."""
+    import torch
+    from repro_torch.kernels import day_scan as ds
+    worst = 0.0
+    for tables, ys in calls:
+        want = ds.day_scan_plain(tables)
+        torch.cuda.synchronize()
+        worst = max(worst, compare(ys, want))
+    print(f"{name}: kernel == plain on the main path's own tables at N = "
+          f"{[int(t['step_mw'].shape[-1]) for t, _ in calls]}, all nine "
+          f"outputs bit for bit")
+    return worst
+
+
+# The golden's four queries fall into three bucketed shape signatures:
+# the base grid and the battery what-if share one (value-level change),
+# the one-policy and the one-platform grids have N_b 32 and rows of
+# their own.
+GOLDEN_GROUPS = 3
+
+
+def twin_paths(twin, golden: dict, serial: dict, dt_s: float) -> tuple:
+    """Phase 4 a-e: the batched golden, the K = 16 batch, submit / run
+    from threads, the legacy engine and simulate_users; returns the
+    day-scan launches of those paths (each read just after its own run)
+    and the kernel's largest error against its plain version on the
+    tables of the K = 16 batch, the legacy engine and simulate_users."""
+    import numpy as np
+    from repro_torch.core import daysim, dse
+    from repro_torch.kernels import day_scan as ds
+    launches, worst_err = 0, 0.0
+
+    # a. the golden's four queries in one what_if_many
+    names = list(golden["queries"])
+    whatifs = [golden_overrides(golden["queries"][n]["overrides"], daysim)
+               for n in names]
+    batches = twin.stats.batches
+    ds.LAUNCHES = 0
+    reps = twin.what_if_many(whatifs)
+    n = ds.LAUNCHES
+    launches += n
+    if n != GOLDEN_GROUPS or twin.stats.batches - batches != GOLDEN_GROUPS:
+        fail(f"batched golden: {n} launches, "
+             f"{twin.stats.batches - batches} batches for {GOLDEN_GROUPS} "
+             f"signature groups")
+    for name, rep in zip(names, reps):
+        check_golden(f"batched {name}", rep, golden["queries"][name])
+        identical(f"batched {name}", rep, serial[name])
+    print(f"main path (batched golden): what_if_many over {len(names)} "
+          f"queries in {GOLDEN_GROUPS} signature groups, {n} launches; each "
+          f"matches the golden and equals its serial answer bit for bit")
+
+    # b. K = 16 value-level what-ifs on the full default grid
+    queries = governor_grids(daysim, 16)
+    want = [twin.query(**q) for q in queries]
+    with scan_calls(ds) as calls:
+        ds.LAUNCHES = 0
+        got = twin.query_batch(queries)
+        n = ds.LAUNCHES
+    launches += n
+    widths = [int(t["step_mw"].shape[-1]) for t, _ in calls]
+    if n != 1 or widths != [1024]:
+        fail(f"K = 16 batch: {n} launches at N = {widths}, want one at "
+             f"N = 1024")
+    for i, (g, w) in enumerate(zip(got, want)):
+        identical(f"K = 16 batch query {i}", g, w)
+    print(f"main path (K = 16 batch, default grid): 1 launch at N = "
+          f"{widths[0]}; all 16 answers equal their serial queries bit for "
+          f"bit (fronts {[int(r.front_mask.sum()) for r in got]})")
+    worst_err = max(worst_err, held_to_plain("K = 16 batch", calls))
+    del calls
+
+    # c. submit / run from 4 threads, mixed signatures
+    points = point_whatifs(daysim, 6, 300)
+    grids = governor_grids(daysim, 4, 300)
+    want = {f"p{i}": twin.what_if(**w) for i, w in enumerate(points)}
+    want.update({f"g{i}": twin.query(**q) for i, q in enumerate(grids)})
+    qid_to_key, results, errors = {}, {}, []
+    key_lock = threading.Lock()
+
+    def submit(items, tag):
+        for i, w in items:
+            qid = twin.submit(**w)
+            with key_lock:
+                qid_to_key[qid] = f"{tag}{i}"
+
+    def drain():
+        try:
+            for wi in twin.run():
+                results[wi.qid] = wi.report
+        except Exception as e:                  # noqa: BLE001
+            errors.append(repr(e))
+
+    batches = twin.stats.batches
+    ds.LAUNCHES = 0
+    threads = [threading.Thread(target=submit,
+                                args=(list(enumerate(points))[:3], "p")),
+               threading.Thread(target=submit,
+                                args=(list(enumerate(points))[3:], "p")),
+               threading.Thread(target=submit,
+                                args=(list(enumerate(grids)), "g")),
+               threading.Thread(target=drain)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+        if t.is_alive():
+            fail("submit / run: a thread did not finish in 600 s")
+    results.update({wi.qid: wi.report for wi in twin.run()})
+    n = ds.LAUNCHES
+    launches += n
+    if errors:
+        fail(f"submit / run: {errors}")
+    if len(results) != len(qid_to_key) or len(results) != 10:
+        fail(f"submit / run: {len(results)} results for "
+             f"{len(qid_to_key)} submissions")
+    if n != twin.stats.batches - batches:
+        fail(f"submit / run: {n} launches for "
+             f"{twin.stats.batches - batches} signature-group batches")
+    for qid, key in qid_to_key.items():
+        identical(f"submit / run {key}", results[qid], want[key])
+    print(f"main path (submit / run, 4 threads): 10 what-ifs (6 one-combo, "
+          f"4 grids) in {twin.stats.batches - batches} signature-group "
+          f"batches, {n} launches; every result equals its serial answer "
+          f"bit for bit")
+
+    # d. the legacy engine against the fused one
+    fused = serial["base"]
+    with scan_calls(ds) as calls:
+        ds.LAUNCHES = 0
+        legacy = dse.day_pareto(engine="legacy", dt_s=dt_s)
+        n = ds.LAUNCHES
+    rows = dict(daysim.CACHE_STATS)
+    ds.LAUNCHES = 0
+    again = dse.day_pareto(engine="legacy", dt_s=dt_s)
+    n_again = ds.LAUNCHES
+    launches += n + n_again
+    if n != 1 or n_again != 1:
+        fail(f"legacy engine: {n} and {n_again} launches, want 1 each")
+    stats = daysim.CACHE_STATS
+    if stats["evaluate_calls"] != rows["evaluate_calls"] \
+            or stats["misses"] != rows["misses"] \
+            or stats["hits"] <= rows["hits"]:
+        fail(f"legacy engine: the repeat missed the row cache ({rows} -> "
+             f"{stats})")
+    if legacy.combos != fused.combos:
+        fail("legacy engine: combo labels differ from the fused engine's")
+    for k, a, b in (("front_mask", legacy.front_mask, fused.front_mask),
+                    ("survives", legacy.survives(), fused.survives()),
+                    ("shutdown", legacy.shutdown, fused.shutdown),
+                    *((f, getattr(legacy, f), getattr(fused, f))
+                      for f in ("end_soc", "peak_skin_c", "steady_mw",
+                                "day_hours"))):
+        if not np.array_equal(a, b):
+            fail(f"legacy engine: {k} differs from the fused engine's")
+    worst = 0.0
+    for k in ("time_to_empty_h", "pod_hours", "energy_mwh", "throttled_h"):
+        a, b = getattr(legacy, k), getattr(fused, k)
+        worst = max(worst, float(np.max(np.abs(a - b)
+                                        / np.maximum(np.abs(b), 1e-30))))
+        if not np.allclose(a, b, rtol=SUM_RTOL, atol=SUM_ATOL):
+            miss(f"legacy engine: {k} outside rtol {SUM_RTOL} of the fused "
+                 f"engine's")
+        if not np.array_equal(getattr(again, k), a):
+            fail(f"legacy engine: the repeat changed {k}")
+    print(f"main path (legacy engine, default grid): 1 launch at N = "
+          f"{len(legacy)}; front / survives / shutdown and trace extrema "
+          f"equal to the fused engine's, sums within {worst:.3g} relative "
+          f"(rtol {SUM_RTOL:g}); the repeat hit the row cache "
+          f"({stats['hits'] - rows['hits']} rows, 0 evaluated)")
+    worst_err = max(worst_err, held_to_plain("legacy engine", calls))
+    del calls
+
+    # e. simulate_users: 64 users (battery fade x ambient offset) of one
+    # combo, on the card and on the CPU; on this combo the hotter half
+    # of the users hit the thermal hard-kill
+    fades = np.repeat(np.linspace(0.0, 0.35, 8), 8)
+    offsets = np.tile(np.linspace(-6.0, 8.0, 8), 8)
+    args = ("aria2_display", daysim.DEFAULT_DESIGNS[2], "field_day",
+            "thermal_governor")
+    kw = dict(fades=fades, ambient_offsets_c=offsets, dt_s=dt_s)
+    with scan_calls(ds) as calls:
+        ds.LAUNCHES = 0
+        users = daysim.simulate_users(*args, **kw)
+        n = ds.LAUNCHES
+    launches += n
+    widths = [int(t["step_mw"].shape[-1]) for t, _ in calls]
+    if n != 1 or widths != [len(fades)]:
+        fail(f"simulate_users: {n} launches at N = {widths}, want one at "
+             f"N = {len(fades)}")
+    cpu = daysim.simulate_users(*args, **kw, device="cpu")
+    if users.combos != cpu.combos:
+        fail("simulate_users: user labels differ from the CPU run's")
+    for k, a, b in (("survives", users.survives(), cpu.survives()),
+                    ("shutdown", users.shutdown, cpu.shutdown),
+                    ("day_hours", users.day_hours, cpu.day_hours)):
+        if not np.array_equal(a, b):
+            fail(f"simulate_users: {k} differs from the CPU run's")
+    for k, rtol, atol in (("end_soc", TRACE_RTOL, TRACE_ATOL),
+                          ("peak_skin_c", TRACE_RTOL, TRACE_ATOL),
+                          ("steady_mw", TRACE_RTOL, 0.0),
+                          *((f, SUM_RTOL, SUM_ATOL)
+                            for f in ("time_to_empty_h", "pod_hours",
+                                      "energy_mwh", "throttled_h"))):
+        if not np.allclose(getattr(users, k), getattr(cpu, k), rtol=rtol,
+                           atol=atol):
+            miss(f"simulate_users: {k} outside rtol {rtol} of the CPU "
+                 f"run's")
+    print(f"main path (simulate_users, {len(fades)} users): 1 launch at "
+          f"N = {len(fades)}; survive {int(users.survives().sum())}, "
+          f"shutdown {int(users.shutdown.sum())}; equal to the CPU run on "
+          f"discrete outputs, traces within rtol {TRACE_RTOL:g}, sums within "
+          f"rtol {SUM_RTOL:g}")
+    worst_err = max(worst_err, held_to_plain("simulate_users", calls))
+    return launches, worst_err
+
+
+def batch_timing(twin) -> str:
+    """Phase 5, batched: ms per item of warm `query_batch` calls at K = 1,
+    4 and 16 (host clock from a synchronize to the copy of the summary
+    to the host), row-stage passes per batch and a profile of one K = 16
+    batch."""
+    import numpy as np
+    import torch
+    from repro_torch.core import daysim
+    queries = governor_grids(daysim, 16)
+    per_item = {}
+    for k in (1, 4, 16):
+        twin.query_batch(queries[:k])
+        ms = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            twin.query_batch(queries[:k])
+            ms.append((time.perf_counter() - t0) * 1e3)
+        per_item[k] = float(np.mean(ms)) / k
+    passes = {}
+    for k in (1, 16):
+        p0 = daysim.ROW_STAGE_STATS["passes"]
+        twin.query_batch(queries[:k])
+        passes[k] = daysim.ROW_STAGE_STATS["passes"] - p0
+    report, _ = profile_queries(lambda: twin.query_batch(queries), 3,
+                                "K = 16 batch")
+    return (f"twin batched (warm query_batch of K default-grid what-ifs, mean "
+            f"of 5): ms per item "
+            + ", ".join(f"K={k} {v:.3f}" for k, v in per_item.items())
+            + f"; row-stage passes per batch K=1 {passes[1]}, K=16 "
+            f"{passes[16]}\n{report}")
 
 
 def _bound(n_bytes: float, n_ops: float, dtype: str) -> tuple:
@@ -877,6 +1233,7 @@ def main() -> None:
     base = twin.query()
     check_golden("base", base, golden["queries"]["base"])
     warm_first_ms = twin.stats.last_ms
+    serial = {"base": base}
     what_if_ms = {}
     for name, q in golden["queries"].items():
         if name == "base":
@@ -888,6 +1245,7 @@ def main() -> None:
             fail(f"what-if {name} launched the kernel "
                  f"{ds.LAUNCHES - before} times")
         check_golden(name, rep, q)
+        serial[name] = rep
         print(f"what-if {name}: {len(rep)} combos, front "
               f"{int(rep.front_mask.sum())}, survive "
               f"{int(rep.survives().sum())}: matches the golden")
@@ -895,6 +1253,9 @@ def main() -> None:
     print(f"main path: {launches} day_scan launches for "
           f"{twin.stats.queries} queries; base front "
           f"{int(base.front_mask.sum())} matches the golden")
+    n_twin, err_twin = twin_paths(twin, golden, serial, dt_s)
+    launches += n_twin
+    worst = max(worst, err_twin)
 
     # 5. timing (launches from here on are not the main path's)
     lib_fn = ds._day_scan_cuda
@@ -934,12 +1295,14 @@ def main() -> None:
           f"{np.min(q_ms):.2f} ms over 10 (first warm {warm_first_ms:.2f} "
           f"ms); what-if (new values: assembly + push + query): "
           + ", ".join(f"{k} {v:.2f} ms" for k, v in what_if_ms.items()))
-    report, in_query_ms = profile_queries(twin, 5)
+    report, in_query_ms = profile_queries(twin.query, 5)
     print(report)
     if in_query_ms is not None:
         print(f"day_scan inside a warm query (profiler): {in_query_ms:.4f} "
               f"ms; back to back (CUDA events): {kernel_ms:.4f} ms; ratio "
               f"{in_query_ms / kernel_ms:.3f}")
+    print(batch_timing(twin) + f"\n  beside the warm serial query: mean "
+          f"{np.mean(q_ms):.3f} ms")
     del twin
     lm_rows = lm_phases(dev)
     if MISSES:

@@ -10,7 +10,8 @@ when skin temperature or SoC crosses a trip threshold (with hysteresis)
 the policy downshifts fps / brightness / upload duty / capture duty and
 can force full offload.
 
-The serving path is the fused pipeline of `day_grid`:
+The serving path is the fused pipeline of `day_grid` and
+`day_grid_batch`:
 
   1. one row stage per platform (`scenarios.batched_fn` +
      `offload.pods_streams_device`) turns the combos' (level, segment)
@@ -19,16 +20,31 @@ The serving path is the fused pipeline of `day_grid`:
   3. `kernels.day_scan.day_scan` integrates the day (the CUDA kernel on
      the card, its plain torch version on the CPU);
   4. `_summarize_torch` reduces the (N, T) traces to objectives;
-  5. `dse.non_dominated_torch` marks the Pareto front.
+  5. `dse.non_dominated_torch` marks each query's Pareto front.
 
-Everything between the host assembly and the (N,)-sized summary stays
-on the device.  Two host caches back repeated queries: `_ASSEMBLIES`
+A batch of K queries of one bucketed shape signature is one pass of
+that pipeline: the queries' tables lie side by side along the combo
+axis, and the day scan launches once at N = K x N_b.  A single query is
+the batch of one.  Every step computes a lane the same way whatever the
+batch width (the step sums run in one fixed pairwise order,
+`_step_sums`), so a query answered inside a batch equals its serial
+answer bit for bit.  `day_grid_groups` takes queries of any signatures
+and runs one batch per signature.
+
+Everything between the host assembly and the summary stays on the
+device.  Two host caches back repeated queries: `_ASSEMBLIES`
 (value-keyed, bounded FIFO) holds the host half of a query — combos,
 padded scenario rows, constants, gather indices — and `_PIPELINES`
 (bounded FIFO, value + device keyed) holds that assembly's tensors
 resident on the device.  PyTorch runs eagerly, so there is no compiled
-executable to cache: `EXEC_STATS["traces"]` is kept for callers of the
+executable to cache: `EXEC_STATS` is kept for callers of the
 reference's counters and always reads 0.
+
+`engine="legacy"` is the reference's oracle for the fused engine: level
+tables filled through the row cache (`_ROW_CACHE`, one row-stage pass
+per platform for rows not seen before), numpy step tables pushed once,
+the same day-scan kernel, and the float64 host summary `_summarize`.
+`simulate_users` and `compiled_tables` run on those tables.
 
 `reference_integrate` is the reference package's pure-numpy per-step
 oracle, copied as-is.
@@ -42,6 +58,7 @@ import numpy as np
 import torch
 
 from .. import device as _device
+from ..kernels import day_scan as _ds
 from . import offload, scenarios
 from .platform import PlatformSpec
 from .scenarios import DEFAULT_MCS, ScenarioSet
@@ -624,6 +641,7 @@ def reference_integrate(tb: dict) -> dict:
             for k, v in out.items()}
 
 
+
 # ---------------------------------------------------------------------------
 # combos
 # ---------------------------------------------------------------------------
@@ -646,6 +664,10 @@ def _plat(p):
     return registry.get(p)
 
 
+# backend stream order of the per-stream pod tables
+STREAMS = tuple(offload.STREAM_SERVICE)
+
+
 @dataclass
 class _Combo:
     platform: PlatformSpec
@@ -655,6 +677,12 @@ class _Combo:
     battery: BatterySpec
     thermal: ThermalSpec
     puck: PuckSpec | None = None
+    mw_levels: np.ndarray = None        # (L, n_seg) filled by compile
+    pods_levels: np.ndarray = None      # (L, n_seg)
+    mbps_levels: np.ndarray = None      # (L, n_seg) gated uplink rate
+    pods_stream_levels: np.ndarray = None   # (L, n_seg, len(STREAMS))
+    mw_p_levels: np.ndarray = None      # (L, n_seg) puck active power
+    steady_mw: float = 0.0
 
     def label(self) -> dict:
         out = {"platform": self.platform.name,
@@ -674,21 +702,83 @@ def _theta_key(theta) -> tuple | None:
     return tuple(sorted((k, float(v)) for k, v in theta.items()))
 
 
+# legacy row cache: (context id, row knobs) -> the row's table columns,
+# where a context id stands for one (PlatformSpec, theta, n_users,
+# results_dir, device) combination, keyed by the spec itself (frozen,
+# hashable) so a modified same-named platform gets a fresh context.
+# Policy combos repeat the same (design, segment, level) rows, so rows
+# are evaluated once per context and then served from here.
+_ROW_CACHE: dict = {}
+_ROW_CACHE_MAX = 200_000
+_CTX_IDS: dict = {}
+CACHE_STATS = {"hits": 0, "misses": 0, "evaluate_calls": 0,
+               "evictions": 0}
+
+
+def _ctx_id(plat: PlatformSpec, theta, n_users: float, results_dir,
+            device) -> int:
+    """Small int id for one evaluation context (spec hashed once per
+    call, not once per row key)."""
+    key = (plat, _theta_key(theta), float(n_users), str(results_dir),
+           str(device))
+    return _CTX_IDS.setdefault(key, len(_CTX_IDS))
+
+
+def _row_key(row: dict) -> tuple:
+    return (tuple(row["on_device"]), float(row["compression"]),
+            float(row["fps_scale"]), int(row["mcs_tier"]),
+            float(row["upload_duty"]), float(row["brightness"]))
+
+
+def clear_row_cache() -> None:
+    _ROW_CACHE.clear()
+    _CTX_IDS.clear()
+    CACHE_STATS.update(hits=0, misses=0, evaluate_calls=0, evictions=0)
+
+
 # host caches of the fused pipeline (see the module docstring)
 _PIPELINES: dict = {}
 _PIPELINES_MAX = 32
 _ASSEMBLIES: dict = {}
 _ASSEMBLIES_MAX = 64
-EXEC_STATS = {"traces": 0}      # eager PyTorch never traces: stays 0
+EXEC_STATS = {"hits": 0, "misses": 0, "traces": 0}  # no executables: 0
 PIPELINE_STATS = {"hits": 0, "misses": 0, "evictions": 0}
 ASSEMBLY_STATS = {"hits": 0, "misses": 0, "evictions": 0}
+ROW_STAGE_STATS = {"passes": 0}     # fused row-stage passes run
+
+
+def clear_exec_cache() -> None:
+    """Drop the fused pipeline's host caches and zero their counters."""
+    _PIPELINES.clear()
+    _ASSEMBLIES.clear()
+    EXEC_STATS.update(hits=0, misses=0, traces=0)
+    PIPELINE_STATS.update(hits=0, misses=0, evictions=0)
+    ASSEMBLY_STATS.update(hits=0, misses=0, evictions=0)
+
+
+def cache_stats() -> dict:
+    """One snapshot of every daysim cache tier: hit/miss/eviction (and
+    trace) counters plus the live entry count, keyed by tier.
+
+    ``rows`` is the legacy engine's `_ROW_CACHE`, ``assemblies`` the
+    value-keyed host-assembly cache, ``pipelines`` the value- and
+    device-keyed cache of assemblies resident on the device, and
+    ``exec`` the reference's compiled-executable tier.  PyTorch runs
+    eagerly and the port compiles no executables, so ``exec`` always
+    reads 0 hits, 0 misses, 0 traces and size 0."""
+    return {
+        "rows": {**CACHE_STATS, "size": len(_ROW_CACHE)},
+        "assemblies": {**ASSEMBLY_STATS, "size": len(_ASSEMBLIES)},
+        "pipelines": {**PIPELINE_STATS, "size": len(_PIPELINES)},
+        "exec": {**EXEC_STATS, "size": 0},
+    }
 
 
 def bucket_size(n: int) -> int:
     """Canonical shape bucket for a grid axis: the smallest power of
-    two >= n (1, 2, 4, 8, ...).  Combo and scenario-row axes are padded
-    to buckets with clones of entry 0; padded combos are forced to
-    worst-case objectives before the front is taken and sliced off
+    two >= n (1, 2, 4, 8, ...).  Combo, scenario-row and batch axes are
+    padded to buckets with clones of entry 0; padded combos are forced
+    to worst-case objectives before the front is taken and sliced off
     before the DayReport is built, so padding never shows."""
     if n <= 0:
         raise ValueError(f"bucket_size needs n > 0, got {n}")
@@ -698,18 +788,20 @@ def bucket_size(n: int) -> int:
 @functools.lru_cache(maxsize=32)
 def _row_stage(plat: PlatformSpec):
     """Table stage for one platform: a batch of knob rows -> glasses
-    total mW, puck active mW and backend pods, float32 on the rows'
-    device."""
+    total mW, gated uplink Mbps, puck active mW, backend pods and
+    per-stream pods, float32 on the rows' device.  The fused pipeline
+    and the legacy engine's `_row_eval` run this same function, which
+    keeps their tables bit-identical."""
     eng = scenarios.batched_fn(plat)
     asr_j = plat.primitives.index("asr")
 
     def stage(vec, th, rates, gate_scale, p_base, p_wan):
         out = eng(vec, th)
-        pods, _ = offload.pods_streams_device(
+        pods, pods_stream = offload.pods_streams_device(
             vec["placement"][:, asr_j], vec["fps_scale"],
             vec["upload_duty"], rates, gate_scale)
         mw_p = p_base + p_wan * out["mbps"]
-        return out["total"], mw_p, pods
+        return out["total"], out["mbps"], mw_p, pods, pods_stream
 
     return stage
 
@@ -720,6 +812,45 @@ def _puck_coeffs(plat: PlatformSpec) -> tuple:
     if puck is None:
         return 0.0, 0.0
     return puck.base_mw + puck.wan_link_mw, puck.wan_mw_per_mbps
+
+
+def _put(a, dev: torch.device) -> torch.Tensor:
+    return torch.as_tensor(np.ascontiguousarray(a), device=dev)
+
+
+def _vec_np(sset: ScenarioSet) -> dict:
+    """A scenario batch's knob columns as the row stage takes them."""
+    return {"placement": sset.placement, "compression": sset.compression,
+            "fps_scale": sset.fps_scale, "mcs_tier": sset.mcs_tier,
+            "upload_duty": sset.upload_duty, "brightness": sset.brightness}
+
+
+def _theta_np(plat: PlatformSpec, theta) -> dict:
+    th = plat.theta_dict()
+    if theta:
+        th.update(theta)
+    return {k: np.float32(v) for k, v in th.items()}
+
+
+def _row_eval(plat: PlatformSpec, rows: list, n_users: float,
+              theta=None, results_dir=None, device="cuda") -> np.ndarray:
+    """Evaluate fresh scenario rows through the row stage on `device`
+    (one pass, one copy to the host); returns (R, 4 + S) float64
+    columns [total_mw, pods, mbps, *per-stream pods, mw_puck]."""
+    sset = ScenarioSet.build(rows, primitives=plat.primitives)
+    scenarios._validate(plat, sset)
+    dev = _device.resolve(device)
+    rr = offload.stream_rates(results_dir)
+    p_base, p_wan = _puck_coeffs(plat)
+    total, mbps, mw_p, pods, pods_stream = _row_stage(plat)(
+        {k: _put(v, dev) for k, v in _vec_np(sset).items()},
+        {k: _put(v, dev) for k, v in _theta_np(plat, theta).items()},
+        _put(np.asarray(rr["tok_per_cap"], np.float32), dev),
+        _put(np.float32(n_users), dev),     # duty=1.0, the daysim rule
+        _put(np.float32(p_base), dev), _put(np.float32(p_wan), dev))
+    cols = torch.cat([torch.stack([total, pods, mbps], dim=1),
+                      pods_stream, mw_p[:, None]], dim=1)
+    return cols.cpu().numpy().astype(np.float64)
 
 
 def _combo_rows(cb: _Combo, rows: list) -> tuple:
@@ -735,6 +866,55 @@ def _combo_rows(cb: _Combo, rows: list) -> tuple:
     rows.append(_design_row(cb.design, DaySegment("steady", 1.0),
                             ThrottleAction()))
     return start, len(rows) - 1
+
+
+def _compile_platform(plat: PlatformSpec, combos: list, n_users: float,
+                      theta=None, results_dir=None, device="cuda") -> None:
+    """Fill the level tables of every combo of one platform.
+
+    Rows are deduplicated (`_row_key`) and served from `_ROW_CACHE`;
+    only rows never seen in this (platform, theta, n_users,
+    results_dir, device) context go through the row stage — at most ONE
+    `_row_eval` call per compile, and zero on a warm cache.  The cache
+    is bounded by FIFO eviction of the oldest rows once `_ROW_CACHE_MAX`
+    is crossed, after this call has read its rows."""
+    if not combos:
+        return
+    dev = _device.resolve(device)
+    rows, slices = [], []
+    for cb in combos:
+        slices.append(_combo_rows(cb, rows))
+    ctx = (_ctx_id(plat, theta, n_users, results_dir, dev),)
+    keys = [ctx + _row_key(r) for r in rows]
+    fresh: dict = {}
+    for k, r in zip(keys, rows):
+        if k not in _ROW_CACHE and k not in fresh:
+            fresh[k] = r
+    CACHE_STATS["hits"] += sum(k in _ROW_CACHE for k in keys)
+    CACHE_STATS["misses"] += len(fresh)
+    if fresh:
+        fvals = _row_eval(plat, list(fresh.values()), n_users, theta,
+                          results_dir, dev)
+        CACHE_STATS["evaluate_calls"] += 1
+        for i, k in enumerate(fresh):
+            _ROW_CACHE[k] = tuple(fvals[i])
+    vals = np.asarray([_ROW_CACHE[k] for k in keys], np.float64)
+    totals, pods, mbps = vals[:, 0], vals[:, 1], vals[:, 2]
+    streams, mw_p = vals[:, 3:-1], vals[:, -1]
+    for cb, (start, steady_i) in zip(combos, slices):
+        n_seg, n_lvl = len(cb.schedule.segments), cb.policy.n_levels
+        cb.mw_levels = totals[start:steady_i].reshape(n_lvl, n_seg)
+        cb.pods_levels = pods[start:steady_i].reshape(n_lvl, n_seg)
+        cb.mbps_levels = mbps[start:steady_i].reshape(n_lvl, n_seg)
+        cb.pods_stream_levels = streams[start:steady_i].reshape(
+            n_lvl, n_seg, len(STREAMS))
+        cb.mw_p_levels = mw_p[start:steady_i].reshape(n_lvl, n_seg)
+        cb.steady_mw = float(totals[steady_i])
+    # bounded FIFO eviction AFTER serving this call (evicting before
+    # the value extraction above could drop entries this call indexes)
+    while len(_ROW_CACHE) > _ROW_CACHE_MAX:
+        del _ROW_CACHE[next(iter(_ROW_CACHE))]
+        CACHE_STATS["evictions"] += 1
 
 
 def _battery_const(bat: BatterySpec, th: ThermalSpec, dt_s: float,
@@ -755,7 +935,8 @@ def _battery_const(bat: BatterySpec, th: ThermalSpec, dt_s: float,
 def _combo_const(cb: _Combo, dt_s: float, standby_mw: float,
                  shutdown_c: float) -> dict:
     """Scan-constant scalars for one combo (policy thresholds + battery/
-    thermal coefficients), as Python floats cast to float32 later."""
+    thermal coefficients), as Python floats cast to float32 later;
+    shared by the legacy table builder and the fused pipeline."""
     return {
         "temp_trip": cb.policy.temp_trip_c,
         "temp_clear": cb.policy.temp_clear_c,
@@ -772,6 +953,76 @@ def _combo_const(cb: _Combo, dt_s: float, standby_mw: float,
             cb.puck.thermal if cb.puck is not None else cb.thermal,
             dt_s, "p_"),
     }
+
+
+def _step_rows(cb: _Combo, dt_s: float, n_steps: int) -> tuple:
+    """(segment of each real step, the combo's (n_steps,) step rows):
+    ambient (padded with the last segment's), capture duty and valid mask
+    (padded with 0), and the dock/pocket top-up current split across the
+    two nodes by capacity share."""
+    segs = cb.schedule.segments
+    seg_steps = [max(1, round(s.hours * 3600.0 / dt_s)) for s in segs]
+    seg_idx = np.repeat(np.arange(len(segs)), seg_steps)
+    t = len(seg_idx)
+    amb = np.full(n_steps, segs[-1].ambient_c, np.float32)
+    amb[:t] = np.asarray([s.ambient_c for s in segs], np.float32)[seg_idx]
+    active = np.zeros(n_steps, np.float32)
+    active[:t] = np.asarray([s.active for s in segs], np.float32)[seg_idx]
+    valid = np.zeros(n_steps, np.float32)
+    valid[:t] = 1.0
+    cap_g = cb.battery.capacity_mwh
+    cap_p = cb.puck.battery.capacity_mwh if cb.puck is not None else 0.0
+    share_g = cap_g / (cap_g + cap_p) if cap_p else 1.0
+    seg_charge = np.asarray([s.charge_mw for s in segs],
+                            np.float32)[seg_idx]
+    charge = np.zeros(n_steps, np.float32)
+    charge_p = np.zeros(n_steps, np.float32)
+    charge[:t] = seg_charge * np.float32(share_g)
+    charge_p[:t] = seg_charge * np.float32(1.0 - share_g)
+    return seg_idx, {"ambient": amb, "active": active, "valid": valid,
+                     "charge": charge, "charge_p": charge_p}
+
+
+def _act_mult(policy: ThrottlePolicy, n_levels: int) -> np.ndarray:
+    """Capture-duty multiplier of each throttle level (padded levels
+    repeat the deepest)."""
+    amult = np.ones(n_levels, np.float32)
+    for lv in range(1, policy.n_levels):
+        amult[lv:] = policy.action(lv).active_mult
+    return amult
+
+
+def _combo_tables(cb: _Combo, dt_s: float, n_steps: int,
+                  max_levels: int, standby_mw: float,
+                  shutdown_c: float = DEFAULT_SHUTDOWN_C) -> dict:
+    """Per-step numpy tables for one compiled combo, padded to the batch
+    shape (the reference's layout: step tables (T, L))."""
+    seg_idx, rows = _step_rows(cb, dt_s, n_steps)
+    t = len(seg_idx)
+    mw, pods, mw_p = cb.mw_levels, cb.pods_levels, cb.mw_p_levels
+    pods_stream = cb.pods_stream_levels          # (L, n_seg, S)
+    if mw.shape[0] < max_levels:            # pad levels with the last row
+        pad = max_levels - mw.shape[0]
+        mw = np.concatenate([mw, np.repeat(mw[-1:], pad, 0)])
+        pods = np.concatenate([pods, np.repeat(pods[-1:], pad, 0)])
+        pods_stream = np.concatenate([pods_stream,
+                                      np.repeat(pods_stream[-1:], pad, 0)])
+        mw_p = np.concatenate([mw_p, np.repeat(mw_p[-1:], pad, 0)])
+    n_streams = pods_stream.shape[-1]
+    step_mw = np.zeros((n_steps, max_levels), np.float32)
+    step_pods = np.zeros((n_steps, max_levels), np.float32)
+    step_pods_stream = np.zeros((n_steps, max_levels, n_streams),
+                                np.float32)
+    step_mw_p = np.zeros((n_steps, max_levels), np.float32)
+    step_mw[:t] = mw.T[seg_idx]
+    step_pods[:t] = pods.T[seg_idx]
+    step_pods_stream[:t] = pods_stream.transpose(1, 0, 2)[seg_idx]
+    step_mw_p[:t] = mw_p.T[seg_idx]
+    const = _combo_const(cb, dt_s, standby_mw, shutdown_c)
+    return {"step_mw": step_mw, "step_mw_p": step_mw_p,
+            "step_pods": step_pods, "step_pods_stream": step_pods_stream,
+            **rows, "act_mult": _act_mult(cb.policy, max_levels),
+            "const": {k: np.float32(v) for k, v in const.items()}}
 
 
 # ---------------------------------------------------------------------------
@@ -815,6 +1066,11 @@ class DayReport:
                 & (self.peak_skin_c <= skin_limit_c)
                 & ~self.shutdown)
 
+    def objectives(self) -> np.ndarray:
+        """(N, 3) [time_to_empty_h, peak_skin_c, pod_hours]."""
+        return np.stack([self.time_to_empty_h, self.peak_skin_c,
+                         self.pod_hours], axis=1)
+
     def row(self, i: int, _survives=None) -> dict:
         surv = self.survives() if _survives is None else _survives
         cost = offload.pod_cost(float(self.pod_hours[i]))
@@ -833,7 +1089,14 @@ class DayReport:
             "usd": round(cost["usd"], 2),
             "kgco2": round(cost["kgco2"], 1),
             "throttled_h": round(float(self.throttled_h[i]), 2),
+            **({"battery_fade": round(float(self.battery_fade[i]), 3)}
+               if self.battery_fade is not None
+               and self.battery_fade[i] else {}),
         }
+
+    def rows(self) -> list:
+        surv = self.survives()
+        return [self.row(i, surv) for i in range(len(self))]
 
     def front_indices(self) -> np.ndarray:
         if self.front_mask is None:
@@ -847,6 +1110,47 @@ class DayReport:
         surv = self.survives()
         rows = [self.row(i, surv) for i in self.front_indices()]
         return sorted(rows, key=lambda r: -r["time_to_empty_h"])
+
+
+def _summarize(ys: dict, tables: dict, dt_s: float) -> dict:
+    """(N, T) numpy traces -> (N,) objectives in float64 on the host
+    (the legacy engine's summary, the reference's as-is)."""
+    soc = np.asarray(ys["soc"], np.float64)
+    soc_p = np.asarray(ys["soc_p"], np.float64)
+    shut = np.asarray(ys["shut"], np.float64)
+    valid = np.asarray(tables["valid"], bool)
+    t_skin = np.asarray(ys["t_skin"], np.float64)
+    level = np.asarray(ys["level"])
+    active = np.asarray(tables["active"], np.float64)
+    day_steps = valid.sum(axis=1)
+    # either node emptying — or the thermal hard-kill — ends the day
+    dead = (np.minimum(soc, soc_p) <= 0.0) | (shut > 0.5)
+    hit = dead.any(axis=1)
+    first = np.argmax(dead, axis=1).astype(np.float64) + 1.0
+    tte = np.where(hit, first, day_steps) * dt_s / 3600.0
+    peak = np.where(valid, t_skin, -np.inf).max(axis=1)
+    t_skin_p = np.asarray(ys["t_skin_p"], np.float64)
+    peak_p = np.where(valid, t_skin_p, -np.inf).max(axis=1)
+    pods = np.asarray(ys["pods"], np.float64)
+    # capture-hours degraded by the policy while the device was still
+    # alive (time after the cell empties is lost outright, not throttled)
+    alive = np.concatenate([np.zeros_like(dead[:, :1]), dead[:, :-1]],
+                           axis=1) == 0.0
+    throttled = ((level > 0) & valid & alive) * active
+    drain = (np.asarray(ys["drain_mw"], np.float64)
+             + np.asarray(ys["drain_p_mw"], np.float64))
+    return {
+        "day_hours": day_steps * dt_s / 3600.0,
+        "time_to_empty_h": tte,
+        "end_soc": soc[:, -1],
+        "end_soc_puck": soc_p[:, -1],
+        "peak_skin_c": peak,
+        "peak_skin_puck_c": peak_p,
+        "pod_hours": pods.sum(axis=1) * dt_s / 3600.0,
+        "throttled_h": throttled.sum(axis=1) * dt_s / 3600.0,
+        "energy_mwh": drain.sum(axis=1) * dt_s / 3600.0,
+        "shutdown": shut[:, -1] > 0.5,
+    }
 
 
 def _batteries_arg(battery, plat_name: str) -> BatterySpec:
@@ -864,7 +1168,7 @@ DEFAULT_POLICIES = ("none", "thermal_governor", "battery_saver")
 
 def _enumerate_combos(platforms, designs, schedules, policies,
                       battery=None, thermal=None) -> tuple:
-    """Resolve grid axes into per-platform combo groups.
+    """Resolve grid axes into per-platform combo groups (no tables yet).
 
     Returns ([(plat, [combo, ...]), ...], skipped).  Designs whose
     placement a platform cannot run on-device are skipped, mirroring
@@ -893,6 +1197,69 @@ def _enumerate_combos(platforms, designs, schedules, policies,
     return groups, skipped
 
 
+def build_combos(platforms=DEFAULT_PLATFORMS, designs=DEFAULT_DESIGNS,
+                 schedules=DEFAULT_SCHEDULES, policies=DEFAULT_POLICIES,
+                 n_users: float = 1e6, battery=None,
+                 thermal: ThermalSpec | None = None, theta=None,
+                 results_dir=None, device="cuda") -> tuple:
+    """Enumerate runnable combos and fill their level tables (at most one
+    row-stage pass per platform on `device`, through the row cache).
+    Returns (combos, skipped); designs whose placement a platform cannot
+    run on-device are skipped."""
+    groups, skipped = _enumerate_combos(platforms, designs, schedules,
+                                        policies, battery, thermal)
+    combos = []
+    for plat, plat_combos in groups:
+        _compile_platform(plat, plat_combos, n_users, theta, results_dir,
+                          device)
+        combos.extend(plat_combos)
+    if not combos:
+        raise ValueError("no runnable (platform, design) combos")
+    return combos, skipped
+
+
+def batch_tables(combos: list, dt_s: float = DEFAULT_DT_S,
+                 standby_mw: float = DEFAULT_STANDBY_MW,
+                 shutdown_c: float = DEFAULT_SHUTDOWN_C) -> dict:
+    """Stack compiled combos' step tables (numpy, leading dim N, padded
+    to the longest schedule / deepest policy)."""
+    n_steps = max(cb.schedule.n_steps(dt_s) for cb in combos)
+    max_levels = max(cb.policy.n_levels for cb in combos)
+    per = [_combo_tables(cb, dt_s, n_steps, max_levels, standby_mw,
+                         shutdown_c)
+           for cb in combos]
+    out = {k: np.stack([p[k] for p in per]) for k in per[0] if k != "const"}
+    out["const"] = {k: np.stack([p["const"][k] for p in per])
+                    for k in per[0]["const"]}
+    return out
+
+
+def _kernel_tables(tb: dict, dev: torch.device) -> dict:
+    """`batch_tables` output -> the day scan's tensors on `dev` in its
+    time-major layout ((T, L, N) tables, (T, N) step rows, (L, N) level
+    multipliers), each pushed once; the constants go as one matrix."""
+    out = {k: _put(tb[k].transpose(1, 2, 0), dev) for k in _ds.TABLE_KEYS}
+    out.update({k: _put(tb[k].T, dev) for k in _ds.ROW_KEYS})
+    out["act_mult"] = _put(tb["act_mult"].T, dev)
+    keys = sorted(tb["const"])
+    mat = _put(np.stack([tb["const"][k] for k in keys]), dev)
+    out["const"] = dict(zip(keys, mat))
+    return out
+
+
+def _scan_legacy(combos: list, dt_s: float, standby_mw: float,
+                 shutdown_c: float, dev: torch.device) -> dict:
+    """The legacy engine's day: numpy tables, one day-scan launch at N =
+    len(combos), one copy of the traces to the host, and the float64
+    `_summarize`."""
+    tb = batch_tables(combos, dt_s, standby_mw, shutdown_c)
+    ys = _ds.day_scan(_kernel_tables(tb, dev))
+    host = torch.stack([ys[k].float() for k in _ds.OUTS]).cpu().numpy()
+    ys_np = dict(zip(_ds.OUTS, host))
+    ys_np["level"] = ys_np["level"].astype(np.int32)
+    return _summarize(ys_np, tb, dt_s)
+
+
 # ---------------------------------------------------------------------------
 # the fused day pipeline: rows -> tables -> day scan -> objectives -> front
 # ---------------------------------------------------------------------------
@@ -906,13 +1273,34 @@ def _hours(steps_sum, dt_s):
     return steps_sum * dt_s * _INV_3600
 
 
+def _step_sums(*xs) -> tuple:
+    """Sums over the step axis of (N, T) traces in one fixed pairwise
+    order: the steps are zero-padded to a power of two and halved,
+    x[:h] + x[h:], until one is left.  Every add is elementwise, so a
+    combo's sum does not depend on how many combos share the call (a
+    reduction kernel may split its work by its number of outputs), and
+    a query answered inside a batch keeps the bits it has alone."""
+    x = torch.stack([v.t() for v in xs])                # (k, T, N)
+    t = x.shape[1]
+    p = 1 << (t - 1).bit_length()
+    if p != t:
+        x = torch.cat([x, x.new_zeros((x.shape[0], p - t, x.shape[2]))],
+                      dim=1)
+    while x.shape[1] > 1:
+        h = x.shape[1] // 2
+        x = x[:, :h] + x[:, h:]
+    return tuple(x[:, 0])
+
+
 def _summarize_torch(ys: dict, valid, active, dt_s) -> dict:
     """(N, T) traces -> (N,) objectives, float32 on the traces' device
     (the reference's `_summarize_jax`, same expressions in the same
-    order).  Integer-step quantities and trace maxima are exact."""
+    order; the step sums in `_step_sums`' fixed order).  `dt_s` is a
+    0-dim or an (N,) tensor.  Integer-step quantities and trace maxima
+    are exact."""
     soc, soc_p, shut = ys["soc"], ys["soc_p"], ys["shut"]
     vb = valid > 0.0
-    day_steps = torch.sum(valid, dim=1)
+    day_steps = torch.sum(valid, dim=1)     # a count: exact in any order
     # either node emptying — or the thermal hard-kill — ends the day
     dead = (torch.minimum(soc, soc_p) <= 0.0) | (shut > 0.5)
     hit = torch.any(dead, dim=1)
@@ -927,6 +1315,8 @@ def _summarize_torch(ys: dict, valid, active, dt_s) -> dict:
                        dim=1)
     throttled = ((ys["level"] > 0) & vb & alive) * active
     drain = ys["drain_mw"] + ys["drain_p_mw"]
+    pods_sum, throttled_sum, drain_sum = _step_sums(ys["pods"], throttled,
+                                                    drain)
     return {
         "day_hours": _hours(day_steps, dt_s),
         "time_to_empty_h": tte,
@@ -934,9 +1324,9 @@ def _summarize_torch(ys: dict, valid, active, dt_s) -> dict:
         "end_soc_puck": soc_p[:, -1],
         "peak_skin_c": peak,
         "peak_skin_puck_c": peak_p,
-        "pod_hours": _hours(torch.sum(ys["pods"], dim=1), dt_s),
-        "throttled_h": _hours(torch.sum(throttled, dim=1), dt_s),
-        "energy_mwh": _hours(torch.sum(drain, dim=1), dt_s),
+        "pod_hours": _hours(pods_sum, dt_s),
+        "throttled_h": _hours(throttled_sum, dt_s),
+        "energy_mwh": _hours(drain_sum, dt_s),
         "shutdown": shut[:, -1] > 0.5,
     }
 
@@ -951,14 +1341,20 @@ def _design_key(d: dict) -> tuple:
 class _Assembly:
     """Host half of one fully-valued query, padded to bucket shapes:
     numpy masters for the value-level inputs (`dyn`) and the gather
-    indices / step rows (`ix`)."""
+    indices / step rows (`ix`), and the shape signature that decides
+    which queries can share one batch."""
     combos: list
     skipped: list
     dyn: dict               # numpy masters (incl. combo_w), bucketed
     ix: dict                # numpy gather indices / step data, bucketed
     plats: tuple            # platform specs, row-stage order
+    sig: tuple              # bucketed shape signature
+    row_ctx: tuple          # per platform: what its row stage reads
+                            # besides the rows (theta, n_users, rates)
     key: tuple              # value-level identity
     n_real: int             # combos before bucket padding
+    n_users: float
+    dt_s: float
 
 
 @dataclass
@@ -997,10 +1393,9 @@ def _assemble_query(platforms=DEFAULT_PLATFORMS, designs=DEFAULT_DESIGNS,
     T = max(cb.schedule.n_steps(dt_s) for cb in combos)
     L = max(cb.policy.n_levels for cb in combos)
     rr = offload.stream_rates(results_dir)
-    grp_dyn = []
-    lvl_row, seg_of, steady_of = [], [], []
-    ambs, acts, vals, chgs, chgs_p, amults, consts = \
-        [], [], [], [], [], [], []
+    grp_dyn, theta_keys, row_counts, row_ctx = [], [], [], []
+    lvl_row, seg_of, steady_of, amults, consts = [], [], [], [], []
+    step_rows = {k: [] for k in _ds.ROW_KEYS}
     base = 0
     for plat, grp in groups:
         rows, slices = [], []
@@ -1010,59 +1405,27 @@ def _assemble_query(platforms=DEFAULT_PLATFORMS, designs=DEFAULT_DESIGNS,
         scenarios._validate(plat, sset)
         r_b = bucket_size(len(rows)) if rows else 0
         sset = sset.pad(r_b)
-        th = plat.theta_dict()
-        if theta:
-            th.update(theta)
+        th = _theta_np(plat, theta)
         p_base, p_wan = _puck_coeffs(plat)
-        grp_dyn.append({
-            "vec": {"placement": sset.placement,
-                    "compression": sset.compression,
-                    "fps_scale": sset.fps_scale,
-                    "mcs_tier": sset.mcs_tier,
-                    "upload_duty": sset.upload_duty,
-                    "brightness": sset.brightness},
-            "theta": {k: np.float32(v) for k, v in th.items()},
-            "p_base": np.float32(p_base), "p_wan": np.float32(p_wan)})
+        grp_dyn.append({"vec": _vec_np(sset), "theta": th,
+                        "p_base": np.float32(p_base),
+                        "p_wan": np.float32(p_wan)})
+        theta_keys.append(tuple(sorted(th)))
+        row_counts.append(r_b)
+        row_ctx.append((tuple(sorted(th.items())), float(n_users),
+                        str(results_dir)))
         for cb, (start, steady_i) in zip(grp, slices):
-            segs = cb.schedule.segments
-            n_seg, n_lvl = len(segs), cb.policy.n_levels
-            seg_steps = [max(1, round(s.hours * 3600.0 / dt_s))
-                         for s in segs]
-            seg_idx = np.repeat(np.arange(n_seg), seg_steps)
-            t = len(seg_idx)
+            n_seg, n_lvl = len(cb.schedule.segments), cb.policy.n_levels
+            seg_idx, rows_t = _step_rows(cb, dt_s, T)
             so = np.full(T, n_seg - 1, np.int64)   # pad: last segment
-            so[:t] = seg_idx
+            so[:len(seg_idx)] = seg_idx
             seg_of.append(so)
             lv = np.minimum(np.arange(L), n_lvl - 1)  # pad: last level
             lvl_row.append(base + start + lv * n_seg)
             steady_of.append(base + steady_i)
-            amb = np.full(T, segs[-1].ambient_c, np.float32)
-            amb[:t] = np.asarray([s.ambient_c for s in segs],
-                                 np.float32)[seg_idx]
-            ambs.append(amb)
-            act = np.zeros(T, np.float32)
-            act[:t] = np.asarray([s.active for s in segs],
-                                 np.float32)[seg_idx]
-            acts.append(act)
-            val = np.zeros(T, np.float32)
-            val[:t] = 1.0
-            vals.append(val)
-            cap_g = cb.battery.capacity_mwh
-            cap_p = (cb.puck.battery.capacity_mwh
-                     if cb.puck is not None else 0.0)
-            share_g = cap_g / (cap_g + cap_p) if cap_p else 1.0
-            seg_charge = np.asarray([s.charge_mw for s in segs],
-                                    np.float32)[seg_idx]
-            chg = np.zeros(T, np.float32)
-            chg_p = np.zeros(T, np.float32)
-            chg[:t] = seg_charge * np.float32(share_g)
-            chg_p[:t] = seg_charge * np.float32(1.0 - share_g)
-            chgs.append(chg)
-            chgs_p.append(chg_p)
-            amult = np.ones(L, np.float32)
-            for l in range(1, n_lvl):
-                amult[l:] = cb.policy.action(l).active_mult
-            amults.append(amult)
+            for k, v in rows_t.items():
+                step_rows[k].append(v)
+            amults.append(_act_mult(cb.policy, L))
             consts.append(_combo_const(cb, dt_s, standby_mw, shutdown_c))
         base += r_b
 
@@ -1083,20 +1446,19 @@ def _assemble_query(platforms=DEFAULT_PLATFORMS, designs=DEFAULT_DESIGNS,
            "act_mult": _pad_n(np.stack(amults)),
            "const": {k: _pad_n(np.asarray([c[k] for c in consts],
                                           np.float32))
-                     for k in consts[0]},
+                     for k in sorted(consts[0])},
            "combo_w": combo_w,
            "dt_s": np.float32(dt_s)}
     ix = {"lvl_row": _pad_n(np.stack(lvl_row)),
           "seg_of": _pad_n(np.stack(seg_of)),
           "steady_of": _pad_n(np.asarray(steady_of, np.int64)),
-          "ambient": _pad_n(np.stack(ambs)),
-          "active": _pad_n(np.stack(acts)),
-          "valid": _pad_n(np.stack(vals)),
-          "charge": _pad_n(np.stack(chgs)),
-          "charge_p": _pad_n(np.stack(chgs_p))}
+          **{k: _pad_n(np.stack(v)) for k, v in step_rows.items()}}
 
     plats = tuple(plat for plat, _ in groups)
-    asm = _Assembly(combos, skipped, dyn, ix, plats, key, n_real)
+    sig = (plats, tuple(theta_keys), tuple(row_counts), n_b, T, L,
+           len(rr["tok_per_cap"]))
+    asm = _Assembly(combos, skipped, dyn, ix, plats, sig, tuple(row_ctx),
+                    key, n_real, float(n_users), float(dt_s))
     _ASSEMBLIES[key] = asm
     while len(_ASSEMBLIES) > _ASSEMBLIES_MAX:
         del _ASSEMBLIES[next(iter(_ASSEMBLIES))]
@@ -1104,35 +1466,44 @@ def _assemble_query(platforms=DEFAULT_PLATFORMS, designs=DEFAULT_DESIGNS,
     return asm
 
 
+def _batch_defaults() -> dict:
+    return {"platforms": DEFAULT_PLATFORMS, "designs": DEFAULT_DESIGNS,
+            "schedules": DEFAULT_SCHEDULES, "policies": DEFAULT_POLICIES,
+            "dt_s": DEFAULT_DT_S, "n_users": 1e6,
+            "standby_mw": DEFAULT_STANDBY_MW, "battery": None,
+            "thermal": None, "theta": None, "results_dir": None,
+            "shutdown_c": DEFAULT_SHUTDOWN_C}
+
+
 def _to_device(asm: _Assembly, dev: torch.device) -> _Pipeline:
     """Push one assembly's tensors to `dev`, in the kernel's time-major
-    layout: (T, L, N) gather rows and (T, N) step rows."""
-
-    def put(a):
-        return torch.as_tensor(np.ascontiguousarray(a), device=dev)
-
+    layout: (T, L, N) gather rows, (T, N) step rows, (L, N) level
+    multipliers and the (C, N) constant matrix (rows in sorted key
+    order)."""
     ix = asm.ix
     rows_tln = ix["lvl_row"].T[None, :, :] + ix["seg_of"].T[:, None, :]
-    dix = {"rows_tln": put(rows_tln), "steady_of": put(ix["steady_of"])}
-    for k in ("ambient", "active", "valid", "charge", "charge_p"):
-        dix[k] = put(ix[k].T)
+    dix = {"rows_tln": _put(rows_tln, dev),
+           "steady_of": _put(ix["steady_of"], dev)}
+    for k in _ds.ROW_KEYS:
+        dix[k] = _put(ix[k].T, dev)
     d = asm.dyn
     dyn = {"groups": tuple(
-               {"vec": {k: put(v) for k, v in g["vec"].items()},
-                "theta": {k: put(v) for k, v in g["theta"].items()},
-                "p_base": put(g["p_base"]), "p_wan": put(g["p_wan"])}
+               {"vec": {k: _put(v, dev) for k, v in g["vec"].items()},
+                "theta": {k: _put(v, dev) for k, v in g["theta"].items()},
+                "p_base": _put(g["p_base"], dev),
+                "p_wan": _put(g["p_wan"], dev)}
                for g in d["groups"]),
-           "rates": put(d["rates"]), "gate": put(d["gate"]),
-           "act_mult": put(d["act_mult"].T),
-           "const": {k: put(v) for k, v in d["const"].items()},
-           "combo_w": put(d["combo_w"]), "dt_s": put(d["dt_s"])}
+           "rates": _put(d["rates"], dev), "gate": _put(d["gate"], dev),
+           "act_mult": _put(d["act_mult"].T, dev),
+           "const": _put(np.stack(list(d["const"].values())), dev),
+           "combo_w": _put(d["combo_w"], dev),
+           "dt_s": _put(d["dt_s"], dev)}
     return _Pipeline(asm, dyn, dix)
 
 
-def _fused_pipeline(dev: torch.device, **query) -> _Pipeline:
-    """Assemble (or fetch) the device-resident pipeline of one query;
-    `query` takes `day_grid`'s grid arguments."""
-    asm = _assemble_query(**query)
+def _pipeline_for(asm: _Assembly, dev: torch.device) -> _Pipeline:
+    """The device-resident pipeline of one assembly (from `_PIPELINES`,
+    or pushed now)."""
     key = asm.key + (str(dev),)
     pipe = _PIPELINES.get(key)
     if pipe is not None:
@@ -1146,64 +1517,203 @@ def _fused_pipeline(dev: torch.device, **query) -> _Pipeline:
     return pipe
 
 
+def _fused_pipeline(dev: torch.device, **query) -> _Pipeline:
+    """Assemble (or fetch) the device-resident pipeline of one query;
+    `query` takes `day_grid`'s grid arguments."""
+    return _pipeline_for(_assemble_query(**query), dev)
+
+
+def _batch_rows(pipes: list) -> tuple:
+    """Row stages of a batch of same-signature pipelines: returns the
+    (K, R) glasses totals, puck mW and pods of every query's scenario
+    rows (its platforms' bucketed rows side by side, as one query lays
+    them out).  Per platform, queries whose row stage reads the same
+    theta, n_users and stream rates share ONE pass over their stacked
+    rows; each distinct context gets one pass, never one per query."""
+    out = ([], [], [])
+    for p, plat in enumerate(pipes[0].asm.plats):
+        by_ctx: dict = {}
+        for q, pipe in enumerate(pipes):
+            by_ctx.setdefault(pipe.asm.row_ctx[p], []).append(q)
+        parts = []
+        for qs in by_ctx.values():
+            gs = [pipes[q].dyn["groups"][p] for q in qs]
+            vec = gs[0]["vec"] if len(gs) == 1 else {
+                k: torch.cat([g["vec"][k] for g in gs]) for k in gs[0]["vec"]}
+            d0 = pipes[qs[0]].dyn
+            total, _, mw_p, pods, _ = _row_stage(plat)(
+                vec, gs[0]["theta"], d0["rates"], d0["gate"],
+                gs[0]["p_base"], gs[0]["p_wan"])
+            ROW_STAGE_STATS["passes"] += 1
+            parts.append((qs, [x.view(len(qs), -1)
+                               for x in (total, mw_p, pods)]))
+        for j in range(3):
+            if len(parts) == 1:
+                out[j].append(parts[0][1][j])
+                continue
+            buf = parts[0][1][j].new_empty(
+                (len(pipes), parts[0][1][j].shape[1]))
+            for qs, xs in parts:
+                buf[qs] = xs[j]
+            out[j].append(buf)
+    return tuple(torch.cat(o, dim=1) for o in out)
+
+
+def _batch_tables(pipes: list) -> tuple:
+    """Row stages + the day tables of a batch: each query's (T, L, N_b)
+    tables and (T, N_b) step rows laid side by side along the combo axis
+    (N = K x N_b).  Returns (the day-scan tables, the (N,) steady
+    totals)."""
+    total, mw_p, pods = _batch_rows(pipes)
+    if len(pipes) == 1:
+        rows, steady_of = pipes[0].ix["rows_tln"], pipes[0].ix["steady_of"]
+    else:
+        off = torch.arange(len(pipes), device=total.device) * total.shape[1]
+        rows = torch.stack([p.ix["rows_tln"] for p in pipes], dim=2) \
+            + off[:, None]
+        rows = rows.reshape(rows.shape[0], rows.shape[1], -1)
+        steady_of = (torch.stack([p.ix["steady_of"] for p in pipes])
+                     + off[:, None]).reshape(-1)
+    total, mw_p, pods = total.reshape(-1), mw_p.reshape(-1), pods.reshape(-1)
+
+    def side_by_side(get):
+        xs = [get(p) for p in pipes]
+        return xs[0] if len(xs) == 1 else torch.cat(xs, dim=-1)
+
+    const = side_by_side(lambda p: p.dyn["const"])
+    tables = {"step_mw": total[rows], "step_mw_p": mw_p[rows],
+              "step_pods": pods[rows],
+              "act_mult": side_by_side(lambda p: p.dyn["act_mult"]),
+              "const": dict(zip(pipes[0].asm.dyn["const"], const))}
+    for k in _ds.ROW_KEYS:
+        tables[k] = side_by_side(lambda p: p.ix[k])
+    return tables, total[steady_of]
+
+
 def day_tables(pipe: _Pipeline) -> tuple:
     """Row stages + the (T, L, N) gather of one pipeline: returns (the
-    day-scan tables, the (R,) glasses totals of all scenario rows)."""
-    dyn, ix = pipe.dyn, pipe.ix
-    outs = []
-    for plat, g in zip(pipe.asm.plats, dyn["groups"]):
-        total, mw_p, pods = _row_stage(plat)(
-            g["vec"], g["theta"], dyn["rates"], dyn["gate"],
-            g["p_base"], g["p_wan"])
-        outs.append((total, mw_p, pods))
-    total = torch.cat([o[0] for o in outs])
-    mw_p = torch.cat([o[1] for o in outs])
-    pods = torch.cat([o[2] for o in outs])
-    rows = ix["rows_tln"]
-    tables = {"step_mw": total[rows], "step_mw_p": mw_p[rows],
-              "step_pods": pods[rows], "act_mult": dyn["act_mult"],
-              "ambient": ix["ambient"], "active": ix["active"],
-              "valid": ix["valid"], "charge": ix["charge"],
-              "charge_p": ix["charge_p"], "const": dyn["const"]}
-    return tables, total
+    day-scan tables, the (N,) steady totals)."""
+    return _batch_tables([pipe])
 
 
-def _run_fused(pipe: _Pipeline) -> dict:
-    """The device half of a query: row stages, (T, L, N) gather, day
-    scan, summary and front, all on the pipeline's device."""
-    from ..kernels.day_scan import day_scan
+def _run_batch(pipes: list) -> dict:
+    """The device half of K same-signature queries: row stages, the
+    gather, ONE day-scan launch at N = K x N_b, summary and per-query
+    fronts, all on the pipelines' device.  A single query is the batch
+    of one; every step computes a lane's values the same way whatever
+    the batch width, so a query's bits do not depend on its batch."""
     from . import dse
-    dyn, ix = pipe.dyn, pipe.ix
-    tables, total = day_tables(pipe)
-    ys = day_scan(tables)
-    summ = _summarize_torch(ys, ix["valid"].t(), ix["active"].t(),
-                            dyn["dt_s"])
-    summ["steady_mw"] = total[ix["steady_of"]]
+    k = len(pipes)
+    tables, steady = _batch_tables(pipes)
+    ys = _ds.day_scan(tables)
+    n_b = pipes[0].ix["valid"].shape[1]
+    dt = torch.cat([p.dyn["dt_s"].reshape(1) for p in pipes])
+    summ = _summarize_torch(ys, tables["valid"].t(), tables["active"].t(),
+                            dt[:, None].expand(k, n_b).reshape(-1))
+    summ["steady_mw"] = steady
     obj = torch.stack([summ["time_to_empty_h"], summ["peak_skin_c"],
                        summ["pod_hours"]], dim=1)
     # bucket padding: zero-weight clone lanes are forced to the worst
     # corner (tte -inf maximized; peak/pods +inf minimized), so every
     # real row strictly dominates them
-    w = dyn["combo_w"] > 0.0
+    w = torch.cat([p.dyn["combo_w"] for p in pipes]) > 0.0
     worst = torch.tensor([-float("inf"), float("inf"), float("inf")],
                          dtype=obj.dtype).to(obj.device)
     obj = torch.where(w[:, None], obj, worst)
-    summ["front_mask"] = dse.non_dominated_torch(obj, maximize=(0,)) & w
+    front = dse.non_dominated_torch(obj.view(k, n_b, 3), maximize=(0,))
+    summ["front_mask"] = front.reshape(-1) & w
     return summ
 
 
-def _host_summary(summ: dict, n_real: int) -> tuple:
-    """Device summary dict -> (front, steady, host fields) as numpy, with
-    the bucket-padding lanes sliced off (one copy to the host)."""
+def _reports(summ: dict, asms: list, with_front: bool) -> list:
+    """Device summary of a batch -> one DayReport per query, its pad
+    lanes sliced off; the whole summary goes to the host in one copy."""
     keys = sorted(summ)
-    bools = [k for k in keys if summ[k].dtype == torch.bool]
-    floats = [k for k in keys if k not in bools]
-    f = torch.stack([summ[k] for k in floats]).cpu().numpy()
-    b = torch.stack([summ[k] for k in bools]).cpu().numpy()
-    host = {k: np.asarray(f[i], np.float64)[:n_real]
-            for i, k in enumerate(floats)}
-    host.update({k: b[i][:n_real] for i, k in enumerate(bools)})
-    return host.pop("front_mask"), host.pop("steady_mw"), host
+    host = torch.stack([summ[k].float() for k in keys]).cpu().numpy()
+    n_b = len(asms[0].dyn["combo_w"])
+    reps = []
+    for q, asm in enumerate(asms):
+        lanes = slice(q * n_b, q * n_b + asm.n_real)
+        f = {k: (host[i, lanes] > 0.5 if summ[k].dtype == torch.bool
+                 else host[i, lanes].astype(np.float64))
+             for i, k in enumerate(keys)}
+        front = f.pop("front_mask")
+        rep = DayReport(
+            combos=[cb.label() for cb in asm.combos],
+            steady_mw=f.pop("steady_mw"), n_users=asm.n_users,
+            dt_s=asm.dt_s, skipped=asm.skipped,
+            battery_fade=np.asarray([cb.battery.fade for cb in asm.combos]),
+            **f)
+        if with_front:
+            rep.front_mask = front
+        reps.append(rep)
+    return reps
+
+
+def _assemble_batch(queries, shared: dict) -> list:
+    """One `_Assembly` per query: each entry of `queries` is a dict of
+    `day_grid` grid kwargs layered over `shared` and the defaults."""
+    asms = []
+    for q in queries:
+        kw = _batch_defaults()
+        kw.update(shared)
+        kw.update(q)
+        asms.append(_assemble_query(**kw))
+    if not asms:
+        raise ValueError("day_grid_batch needs at least one query")
+    return asms
+
+
+def _answer(asms: list, dev: torch.device) -> list:
+    """Reports of same-signature assemblies: one pass of the pipeline."""
+    pipes = [_pipeline_for(a, dev) for a in asms]
+    return _reports(_run_batch(pipes), asms, with_front=True)
+
+
+def day_grid_batch(queries, device="cuda", **shared) -> list:
+    """Evaluate K fully-valued queries through ONE day-scan launch.
+
+    Each entry of `queries` is a dict of `day_grid` grid kwargs layered
+    over `shared` and the daysim defaults.  All K must land in the same
+    bucketed shape signature (same platforms, theta keys, schedule
+    steps, level count and combo / row buckets); value-level differences
+    (designs, thresholds, batteries, n_users, ambients) are what the
+    batch carries.  The queries are assembled on the host (value-cached)
+    and their day tables go side by side along the combo axis: the CUDA
+    kernel runs once at N = K x N_b.  Queries whose row stages read the
+    same theta, n_users and results_dir share one row-stage pass per
+    platform.  Every query's report equals its serial
+    `day_grid(..., with_front=True)` answer bit for bit; returns one
+    `DayReport` per query (front attached)."""
+    asms = _assemble_batch(queries, shared)
+    sig0 = asms[0].sig
+    for i, a in enumerate(asms[1:], 1):
+        if a.sig != sig0:
+            raise ValueError(
+                f"batch query {i} maps to a different bucketed shape "
+                f"signature than query 0 (N_b, T, L, rows "
+                f"{a.sig[3:6] + a.sig[2:3]} vs {sig0[3:6] + sig0[2:3]}); "
+                f"a batch is ONE day-scan launch — group queries by "
+                f"signature first (day_grid_groups does)")
+    return _answer(asms, _device.resolve(device))
+
+
+def day_grid_groups(queries, device="cuda", **shared) -> tuple:
+    """`day_grid_batch` over queries of any signatures: each query is
+    assembled once, the queries are grouped by bucketed shape signature
+    and each group runs as one batch (one day-scan launch).  Returns
+    (one report per query in submission order, the number of
+    groups)."""
+    asms = _assemble_batch(queries, shared)
+    dev = _device.resolve(device)
+    groups: dict = {}
+    for i, a in enumerate(asms):
+        groups.setdefault(a.sig, []).append(i)
+    reports: list = [None] * len(asms)
+    for idx in groups.values():
+        for i, rep in zip(idx, _answer([asms[i] for i in idx], dev)):
+            reports[i] = rep
+    return reports, len(groups)
 
 
 def day_grid(platforms=DEFAULT_PLATFORMS, designs=DEFAULT_DESIGNS,
@@ -1215,31 +1725,112 @@ def day_grid(platforms=DEFAULT_PLATFORMS, designs=DEFAULT_DESIGNS,
              shutdown_c: float = DEFAULT_SHUTDOWN_C,
              engine: str = "fused", with_front: bool = False,
              device="cuda") -> DayReport:
-    """Simulate every (platform x design x schedule x policy) combo
-    through the fused pipeline on `device`.
+    """Simulate every (platform x design x schedule x policy) combo on
+    `device`.
 
-    Designs whose placement a platform cannot run on-device are skipped
-    (recorded in `report.skipped`).  `battery` may be a single
-    BatterySpec or a {platform_name: BatterySpec} map; defaults come
-    from `BATTERIES`.  `with_front=True` fills `front_mask`.  Only the
-    reference's "fused" engine is ported."""
-    if engine != "fused":
-        raise ValueError(f"unknown engine {engine!r}; the port runs "
-                         f"engine='fused' only")
+    `engine="fused"` runs the device pipeline (row stages, table gather,
+    day scan, summary and front on the device: the batch of one of
+    `day_grid_batch`); `engine="legacy"` fills host-cached numpy tables
+    through the row cache, runs the same day scan and summarizes in
+    float64 on the host (the reference's oracle for the fused engine:
+    front masks and survival flags agree bit for bit).  Designs whose
+    placement a platform cannot run on-device are skipped (recorded in
+    `report.skipped`).  `battery` may be a single BatterySpec or a
+    {platform_name: BatterySpec} map; defaults come from `BATTERIES`.
+    `with_front=True` fills `front_mask`."""
+    if engine not in ("fused", "legacy"):
+        raise ValueError(f"unknown engine {engine!r}; "
+                         f"expected 'fused' or 'legacy'")
     dev = _device.resolve(device)
-    pipe = _fused_pipeline(
-        dev, platforms=platforms, designs=designs, schedules=schedules,
-        policies=policies, dt_s=dt_s, n_users=n_users,
-        standby_mw=standby_mw, battery=battery, thermal=thermal,
-        theta=theta, results_dir=results_dir, shutdown_c=shutdown_c)
-    asm = pipe.asm
-    front, steady, host = _host_summary(_run_fused(pipe), asm.n_real)
+    if engine == "fused":
+        asm = _assemble_query(
+            platforms=platforms, designs=designs, schedules=schedules,
+            policies=policies, dt_s=dt_s, n_users=n_users,
+            standby_mw=standby_mw, battery=battery, thermal=thermal,
+            theta=theta, results_dir=results_dir, shutdown_c=shutdown_c)
+        summ = _run_batch([_pipeline_for(asm, dev)])
+        return _reports(summ, [asm], with_front)[0]
+    combos, skipped = build_combos(platforms, designs, schedules,
+                                   policies, n_users, battery, thermal,
+                                   theta, results_dir, dev)
     rep = DayReport(
-        combos=[cb.label() for cb in asm.combos],
-        steady_mw=steady, n_users=n_users, dt_s=dt_s,
-        skipped=asm.skipped,
-        battery_fade=np.asarray([cb.battery.fade for cb in asm.combos]),
-        **host)
+        combos=[cb.label() for cb in combos],
+        steady_mw=np.asarray([cb.steady_mw for cb in combos]),
+        n_users=n_users, dt_s=dt_s, skipped=skipped,
+        battery_fade=np.asarray([cb.battery.fade for cb in combos]),
+        **_scan_legacy(combos, dt_s, standby_mw, shutdown_c, dev))
     if with_front:
-        rep.front_mask = front
+        from . import dse
+        rep.front_mask = dse.non_dominated(rep.objectives(), maximize=(0,))
     return rep
+
+
+def simulate_users(platform, design: dict, schedule, policy="none", *,
+                   fades=None, ambient_offsets_c=None,
+                   dt_s: float = DEFAULT_DT_S,
+                   n_users_backend: float = 1.0,
+                   standby_mw: float = DEFAULT_STANDBY_MW,
+                   battery: BatterySpec | None = None,
+                   thermal: ThermalSpec | None = None, theta=None,
+                   results_dir=None,
+                   shutdown_c: float = DEFAULT_SHUTDOWN_C,
+                   device="cuda") -> DayReport:
+    """Batched-user day for ONE (platform, design, schedule, policy)
+    combo: users differ by battery age (capacity-fade fraction) and
+    ambient-climate offset, and all of them run through one day-scan
+    launch with N = the number of users.
+
+    Age and climate touch only the battery/thermal constants and the
+    ambient rows, never the scenario knobs, so the whole batch costs at
+    most ONE row-stage pass through the row cache.  Per-user backend
+    demand defaults to `n_users_backend=1.0` (one wearable per row)."""
+    fades = np.atleast_1d(np.asarray(
+        0.0 if fades is None else fades, np.float64))
+    offs = np.atleast_1d(np.asarray(
+        0.0 if ambient_offsets_c is None else ambient_offsets_c,
+        np.float64))
+    n = max(fades.size, offs.size)
+    fades = np.broadcast_to(fades, (n,))
+    offs = np.broadcast_to(offs, (n,))
+    dev = _device.resolve(device)
+    plat = _plat(platform)
+    sched = _resolve(schedule, get_schedule, DaySchedule)
+    pol = _resolve(policy, get_policy, ThrottlePolicy)
+    bat = _batteries_arg(battery, plat.name)
+    therm = thermal or DEFAULT_THERMAL
+    puck = puck_for(plat)
+    combos = [_Combo(plat, design, sched.with_ambient_offset(float(o)),
+                     pol, bat.aged(float(f)), therm, puck)
+              for f, o in zip(fades, offs)]
+    _compile_platform(plat, combos, n_users_backend, theta, results_dir,
+                      dev)
+    summ = _scan_legacy(combos, dt_s, standby_mw, shutdown_c, dev)
+    labels = []
+    for cb, o in zip(combos, offs):
+        lb = cb.label()
+        lb["ambient_offset_c"] = round(float(o), 2)
+        labels.append(lb)
+    return DayReport(
+        combos=labels,
+        steady_mw=np.asarray([cb.steady_mw for cb in combos]),
+        n_users=n_users_backend, dt_s=dt_s, skipped=[],
+        battery_fade=np.asarray(fades, np.float64), **summ)
+
+
+def compiled_tables(platform, design: dict, schedule, policy="none",
+                    dt_s: float = DEFAULT_DT_S, n_users: float = 1e6,
+                    standby_mw: float = DEFAULT_STANDBY_MW,
+                    battery: BatterySpec | None = None,
+                    thermal: ThermalSpec | None = None,
+                    shutdown_c: float = DEFAULT_SHUTDOWN_C,
+                    device="cuda") -> dict:
+    """The per-step numpy tables of one combo (the legacy engine's,
+    through the row cache) — the input `reference_integrate` takes."""
+    plat = _plat(platform)
+    cb = _Combo(plat, design, _resolve(schedule, get_schedule, DaySchedule),
+                _resolve(policy, get_policy, ThrottlePolicy),
+                _batteries_arg(battery, plat.name),
+                thermal or DEFAULT_THERMAL, puck_for(plat))
+    _compile_platform(plat, [cb], n_users, device=_device.resolve(device))
+    return _combo_tables(cb, dt_s, cb.schedule.n_steps(dt_s),
+                         cb.policy.n_levels, standby_mw, shutdown_c)

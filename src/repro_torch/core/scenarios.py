@@ -214,6 +214,24 @@ class Features:
     r_dsp_asr: float
 
 
+def _row_sums(x: torch.Tensor) -> torch.Tensor:
+    """Sums of the rows of an (R, C) tensor, each independent of its
+    row's position in the batch.  On the card a reduction over the last
+    axis reads a row in 16-byte vectors from the row's first aligned
+    address, so with a row stride of C floats (147 components on the
+    SKUs) a row's sum order, and its last bit, followed its index: the
+    same scenario row gave another total in another batch.  The rows are
+    copied into a buffer whose row stride is a multiple of 4 floats, so
+    every row starts aligned; the CPU sums a row the same way either
+    way.  Verified with torch 2.11.0+cu128 on an H100;
+    tests/test_torch_kernels_cuda.py holds rows at shifted positions to
+    their own bits."""
+    r, c = x.shape
+    buf = x.new_zeros((r, -(-c // 4) * 4))
+    buf[:, :c] = x
+    return torch.sum(buf[:, :c], dim=1)
+
+
 def _rdiv(num: float, den: torch.Tensor) -> torch.Tensor:
     """float32 `num / den` for a Python-number dividend, as a true
     division (see the module note)."""
@@ -366,7 +384,7 @@ def batched_fn(platform: PlatformSpec):
         delivered = loads / eff
         return {"loads": loads,
                 "pd_loss": torch.sum(delivered - loads, dim=1),
-                "total": torch.sum(delivered, dim=1), "mbps": f.mbps_eff}
+                "total": _row_sums(delivered), "mbps": f.mbps_eff}
 
     return fn
 

@@ -1,5 +1,6 @@
 """Batched serving engine: admission queue + prefill + decode slots (the
-reference's `serving/engine.py`).
+reference's `serving/engine.py`), and the admission-queue drain that the
+design twin's micro-batching shares (`drain_microbatched`).
 
 Continuous-batching-lite: a fixed number of decode slots; a batch of
 queued requests is left-padded with token 0, its prompts are fed token
@@ -9,10 +10,37 @@ is float32, as in the reference.
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass, field
+from typing import Callable
 
 import numpy as np
 import torch
+
+
+def drain_microbatched(queue: list, window: int, eval_batch: Callable,
+                       max_items: int | None = None, lock=None) -> list:
+    """Generic admission-queue drain for batched serving: pop up to
+    `window` queued items at a time, evaluate each micro-batch with ONE
+    `eval_batch(batch) -> results` call, and collect the results in
+    submission order (at most `max_items` items total).
+
+    `lock`, when given, guards only the queue mutation — never the
+    evaluation — so `eval_batch` may itself serialize on the same lock
+    (the `DesignTwin.run` shape) and concurrent producers may keep
+    submitting while a batch is in flight."""
+    guard = lock if lock is not None else contextlib.nullcontext()
+    finished: list = []
+    budget = float("inf") if max_items is None else max_items
+    while budget > 0:
+        with guard:
+            batch = queue[: int(min(window, budget))]
+            del queue[: len(batch)]
+        if not batch:
+            break
+        finished.extend(eval_batch(batch))
+        budget -= len(batch)
+    return finished
 
 
 @dataclass

@@ -2,14 +2,9 @@
 design twin (on the CPU, through the day scan's plain version) against
 the JAX reference's fused pipeline on the default grid.
 
-Discrete outputs must be exactly equal.  Continuous ones are held to
-the reference's own tolerances: trace values (end SoC, peak skin
-temperature) to rtol 1e-6 / atol 1e-4 (`tests/test_kernels.py`), the
-steady total to rtol 1e-6, accumulated sums to rtol 1e-5 / atol 1e-5
-(`tests/test_twin.py`).  Bit equality is not expected on every
-continuous value: XLA on the CPU contracts a*b+c into fused
-multiply-adds and uses its own exp, while the port rounds every
-operation on its own, as its CUDA kernel does."""
+Discrete outputs must be exactly equal; continuous ones are held to
+the reference's own tolerances (`torch_day_reports.assert_reports_match`
+states them and why bit equality is not expected)."""
 import dataclasses
 
 import numpy as np
@@ -23,6 +18,7 @@ from repro_torch.core import daysim as t_daysim
 from repro_torch.core import dse as t_dse
 from repro_torch.kernels import day_scan as ds
 from repro_torch.serving.twin import DesignTwin as TTwin
+from torch_day_reports import assert_reports_match
 
 DT = 60.0
 
@@ -37,22 +33,6 @@ def port_day():
     return t_dse.day_pareto(dt_s=DT, device="cpu")
 
 
-def _assert_reports_match(got, want):
-    assert got.combos == want.combos
-    assert got.skipped == want.skipped
-    np.testing.assert_array_equal(got.front_mask, want.front_mask)
-    np.testing.assert_array_equal(got.survives(), want.survives())
-    np.testing.assert_array_equal(got.shutdown, want.shutdown)
-    np.testing.assert_array_equal(got.day_hours, want.day_hours)
-    for k in ("end_soc", "end_soc_puck", "peak_skin_c", "peak_skin_puck_c"):
-        np.testing.assert_allclose(getattr(got, k), getattr(want, k),
-                                   rtol=1e-6, atol=1e-4, err_msg=k)
-    np.testing.assert_allclose(got.steady_mw, want.steady_mw, rtol=1e-6)
-    for k in ("time_to_empty_h", "pod_hours", "energy_mwh", "throttled_h"):
-        np.testing.assert_allclose(getattr(got, k), getattr(want, k),
-                                   rtol=1e-5, atol=1e-5, err_msg=k)
-
-
 def test_discrete_outputs_exact(port_day, ref_day):
     assert port_day.combos == ref_day.combos
     assert port_day.skipped == ref_day.skipped
@@ -63,7 +43,7 @@ def test_discrete_outputs_exact(port_day, ref_day):
 
 
 def test_trace_extrema_and_sums(port_day, ref_day):
-    _assert_reports_match(port_day, ref_day)
+    assert_reports_match(port_day, ref_day)
     # on this grid the end SoC comes out bit-equal as well (peak skin
     # temperatures differ in the last ulp on some combos)
     np.testing.assert_array_equal(port_day.end_soc, ref_day.end_soc)
@@ -83,7 +63,7 @@ def test_twin_what_if_battery_saver():
     want = jt.what_if(policy="battery_saver")
     got = tt.what_if(policy="battery_saver")
     assert {cb["policy"] for cb in got.combos} == {"battery_saver"}
-    _assert_reports_match(got, want)
+    assert_reports_match(got, want)
     assert tt.stats.queries == 1 and tt.stats.traces == 0
 
 
@@ -101,7 +81,7 @@ def test_twin_value_what_ifs_with_survivors():
     got = TTwin(dt_s=DT, device="cpu", warm=False).what_if(
         policy=t_pol, battery=t_daysim.BatterySpec("xl", 6000.0))
     assert got.survives().any()
-    _assert_reports_match(got, want)
+    assert_reports_match(got, want)
 
 
 def test_twin_pipeline_cache_and_launch_count():
@@ -126,7 +106,7 @@ def test_bucket_padding_invisible():
     got = t_dse.day_pareto(device="cpu", **kw)
     want = j_dse.day_pareto(**{**kw, "designs": j_daysim.DEFAULT_DESIGNS})
     assert len(got) == 9
-    _assert_reports_match(got, want)
+    assert_reports_match(got, want)
 
 
 @pytest.mark.parametrize("n,k,maximize,seed", [
@@ -155,4 +135,6 @@ def test_non_dominated_torch_duplicates_kept():
 
 def test_unknown_engine_raises():
     with pytest.raises(ValueError, match="unknown engine"):
-        t_dse.day_pareto(engine="legacy", dt_s=DT, device="cpu")
+        t_dse.day_pareto(engine="magic", dt_s=DT, device="cpu")
+    with pytest.raises(ValueError, match="unknown engine"):
+        t_daysim.day_grid(engine="magic", dt_s=DT, device="cpu")

@@ -1,5 +1,7 @@
 """The CUDA kernels (day scan, flash attention, SSD scan) against their
-plain PyTorch versions on the card.
+plain PyTorch versions on the card, and the day scan's three paths
+through the twin: serial, batched (K queries folded into the combo axis)
+and the legacy engine.
 
 Needs an NVIDIA card with nvcc (the kernels have no CPU mode) and skips
 without one; it imports neither JAX nor the reference package, so it
@@ -7,13 +9,18 @@ runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_kernels_cuda.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import daysim, dse
 from repro_torch.kernels import day_scan as ds
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ssd_scan as ss
+from repro_torch.serving.twin import DesignTwin
+from torch_day_reports import assert_identical, assert_reports_match
 from torch_day_tables import random_tables
 
 
@@ -255,3 +262,122 @@ def test_kernels_reject_unsupported_shapes(cuda):
     B = torch.zeros(1, 8, 1, 64, device=cuda)
     with pytest.raises(ValueError, match="p in"):
         ss.ssd_scan(x, dt, A, B, B)
+
+
+@pytest.mark.parametrize("shift", [1, 2, 3])
+def test_row_stage_rows_keep_their_bits_at_any_position(cuda, shift):
+    """A scenario row's table values depend neither on where it sits in
+    a row-stage pass nor on the pass's size: the legacy engine evaluates
+    deduplicated rows, the batched path stacks queries' rows.
+
+    `scenarios._row_sums` rests on how PyTorch's CUDA sum reads a row
+    (from its first 16-byte-aligned address); verified with torch
+    2.11.0+cu128 on an H100 80GB HBM3.  A torch whose reduce reads rows
+    otherwise fails here (and in chip_smoke.py's legacy-vs-fused
+    phase)."""
+    pipe = daysim._fused_pipeline(cuda, dt_s=600.0)
+    for p, plat in enumerate(pipe.asm.plats):
+        g = pipe.dyn["groups"][p]
+        args = (g["theta"], pipe.dyn["rates"], pipe.dyn["gate"],
+                g["p_base"], g["p_wan"])
+        stage = daysim._row_stage(plat)
+        full = stage(g["vec"], *args)
+        for hi in (None, shift + 5, shift + 1):
+            part = stage({k: v[shift:hi].contiguous()
+                          for k, v in g["vec"].items()}, *args)
+            for x, y in zip(full, part):
+                assert torch.equal(x[shift:hi], y), (plat.name, hi)
+
+
+def _governor_grids(k: int, start: int = 0) -> list:
+    """k default-grid queries, each with the thermal governor's
+    temp_trip_c moved (value-level what-ifs of one signature)."""
+    gov = daysim.get_policy("thermal_governor")
+    return [{"policies": ("none", dataclasses.replace(
+                gov, name=f"v{start + i}",
+                temp_trip_c=38.0 + 0.1 * (start + i)), "battery_saver")}
+            for i in range(k)]
+
+
+@pytest.mark.parametrize("k", [1, 5, 16])
+def test_batched_twin_bit_identical_to_serial(cuda, k):
+    """K default-grid what-ifs in one batch: one kernel launch at N =
+    K x 64, each answer bit-identical to its serial query
+    on the card."""
+    twin = DesignTwin(dt_s=60.0, warm=False)
+    queries = _governor_grids(k)
+    serial = [twin.query(**q) for q in queries]
+    before = ds.LAUNCHES
+    batch = twin.query_batch(queries)
+    assert ds.LAUNCHES == before + 1
+    assert twin.stats.batches == 1
+    for s, b in zip(serial, batch):
+        assert_identical(s, b)
+
+
+def test_batch_one_launch_per_signature_group(cuda):
+    twin = DesignTwin(dt_s=60.0, warm=False)
+    gov = daysim.get_policy("thermal_governor")
+    points = [{"platform": "aria2_display", "design": daysim.DEFAULT_DESIGNS[1],
+               "schedule": "commuter",
+               "policy": dataclasses.replace(gov, name=f"t{i}",
+                                             temp_trip_c=38.0 + 0.05 * i)}
+              for i in range(3)]
+    items = [points[0], *_governor_grids(2, 50), points[1], points[2]]
+    serial = [twin.what_if(**w) for w in items]
+    before = ds.LAUNCHES
+    batch = twin.what_if_many(items)
+    assert ds.LAUNCHES == before + 2
+    assert twin.stats.batches == 2
+    for s, b in zip(serial, batch):
+        assert_identical(s, b)
+
+
+def test_legacy_matches_fused_on_the_card(cuda):
+    """The legacy engine (host tables, one launch, float64 summary)
+    against the fused one: discrete outputs identical, extrema equal."""
+    fused = dse.day_pareto(dt_s=60.0)
+    before = ds.LAUNCHES
+    legacy = dse.day_pareto(dt_s=60.0, engine="legacy")
+    assert ds.LAUNCHES == before + 1
+    assert legacy.combos == fused.combos
+    for k in ("front_mask", "shutdown"):
+        np.testing.assert_array_equal(getattr(legacy, k), getattr(fused, k))
+    np.testing.assert_array_equal(legacy.survives(), fused.survives())
+    for k in ("end_soc", "peak_skin_c", "steady_mw", "day_hours"):
+        np.testing.assert_array_equal(getattr(legacy, k), getattr(fused, k),
+                                      err_msg=k)
+    for k in ("time_to_empty_h", "pod_hours", "energy_mwh", "throttled_h"):
+        np.testing.assert_allclose(getattr(legacy, k), getattr(fused, k),
+                                   rtol=1e-5, atol=1e-5, err_msg=k)
+
+
+def test_simulate_users_on_the_card(cuda, monkeypatch):
+    """`simulate_users` (64 users: battery fades x ambient offsets) on
+    the card: one launch at N = 64, the kernel bit for bit equal to its
+    plain version on the call's own tables, and the report equal to the
+    same call on the CPU on discrete outputs, continuous ones within the
+    reference's tolerances."""
+    calls, scan = [], ds.day_scan
+
+    def recording(tables):
+        ys = scan(tables)
+        calls.append((tables, ys))
+        return ys
+
+    monkeypatch.setattr(ds, "day_scan", recording)
+    args = ("aria2_display", daysim.DEFAULT_DESIGNS[2], "field_day",
+            "thermal_governor")
+    kw = dict(fades=np.repeat(np.linspace(0.0, 0.35, 8), 8),
+              ambient_offsets_c=np.tile(np.linspace(-6.0, 8.0, 8), 8),
+              dt_s=120.0)
+    before = ds.LAUNCHES
+    got = daysim.simulate_users(*args, **kw)
+    assert ds.LAUNCHES == before + 1
+    assert [t["step_mw"].shape[-1] for t, _ in calls] == [64]
+    _assert_all_equal(calls[0][1], ds.day_scan_plain(calls[0][0]))
+    want = daysim.simulate_users(*args, **kw, device="cpu")
+    for rep in (got, want):
+        rep.front_mask = dse.non_dominated(rep.objectives(), maximize=(0,))
+    assert_reports_match(got, want)
+    assert 0 < int(got.shutdown.sum()) < 64
