@@ -12,6 +12,9 @@ Run from the root of a checkout.  Phases (any failure exits non-zero):
   3. kernel vs its plain PyTorch version on the card, on the serving
      grid's day tables (N = 64 combos, T = 4320 steps, L = 3 levels) and
      on ragged N = 63 and N = 200: all nine outputs bit for bit equal;
+     the full-trace mode at N = 64, 63 and 1 on the same tables: all 17
+     outputs bit for bit equal to `day_scan_plain(full=True)`, its first
+     nine equal to the default mode's;
   4. main path: `DesignTwin()` on the default grid at dt_s = 10 s (warm
      query, a repeat, then three what-ifs: another policy's thresholds,
      another battery, a single platform), each checked against the
@@ -42,14 +45,27 @@ Run from the root of a checkout.  Phases (any failure exits non-zero):
         shutdown / day hours equal to the same call on the CPU, traces
         within rtol 1e-6 / atol 1e-4, sums within rtol 1e-5; the kernel
         against its plain version on the call's tables;
+     f. `simulate` (examples/all_day.py's rayban_cam desk_day day, and a
+        throttled aria2_puck_split field_day): each one full-trace launch
+        at N = 1; level / shut / th_state / soc_state equal to the same
+        call on the CPU, the other traces within rtol 1e-6 / atol 1e-4,
+        the summary within rtol 1e-6; the kernel against its plain version
+        on the call's tables, all 17 outputs;
+     g. the steady-state layer (no kernel): the 2304-point
+        `dse.joint_pareto` on the card against the CPU (front_mask equal,
+        objectives within rtol 1e-6, `co_optimize` rows equal), and the
+        rows of `placement_sweep`, `compression_sweep`, `pareto` and
+        `platform_ablation` equal to the CPU's;
   5. timing: day-scan kernel ms (CUDA events over many launches) at
-     N = 64, 1 and 1024 (16 grids folded into N), its chain floor (probe
-     mode "no loads or stores") beside the bound, the SM clock under the
-     kernel, the plain version's ms, warm query and what-if ms, a
-     profile of warm queries, batched ms per item at K = 1, 4 and 16
-     (warm, host clock ending in a copy to the host) beside the warm
+     N = 64, 1 and 1024 (16 grids folded into N), the full-trace mode's
+     at N = 64 and 1 beside its bound, the default mode's chain floor
+     (probe mode "no loads or stores") beside the bound, the SM clock
+     under the kernel, the plain version's ms, warm query and what-if
+     ms, a profile of warm queries, batched ms per item at K = 1, 4 and
+     16 (warm, host clock ending in a copy to the host) beside the warm
      serial query, row-stage passes per batch and a profile of one
-     K = 16 batch;
+     K = 16 batch; the joint front's ms (host clock) and a profile of
+     one call;
   6. flash-attention and SSD-scan kernels vs their plain versions on the
      card: at the zamba2-1.2b prefill shapes in bf16 and float32, flash
      at a GQA 4:1 + window 96 + ragged-S case at Dh = 128; SSD at the
@@ -96,9 +112,9 @@ Run from the root of a checkout.  Phases (any failure exits non-zero):
      memory, a profile of one prefill.
 
 The second-to-last lines are the `kernels` JSON object (the day scan's
-launches summed over the serial, batched, legacy and simulate_users
-paths of phase 4; its max_abs_err covers phase 3 and the tables of 4 b,
-d and e)
+launches summed over the serial, batched, legacy, simulate_users and
+simulate paths of phase 4, both modes; its max_abs_err covers phase 3
+and the tables of 4 b, d, e and f)
 and the nvidia-smi line; the last line is the result object.
 """
 from __future__ import annotations
@@ -191,19 +207,22 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def compare(kernel: dict, plain: dict) -> float:
-    """Kernel vs plain outputs: all nine bit for bit equal (the kernel
-    keeps every operation of the plain version and its order); returns
-    the largest absolute difference, 0."""
+    """Kernel vs plain outputs: all of them (nine, or the full trace's
+    17) bit for bit equal (the kernel keeps every operation of the plain
+    version and its order); returns the largest absolute difference,
+    0."""
     import torch
-    from repro_torch.kernels import day_scan as ds
-    for k in ds.OUTS:
+    if tuple(kernel) != tuple(plain):
+        fail(f"day_scan kernel outputs {tuple(kernel)} != the plain "
+             f"version's {tuple(plain)}")
+    for k in plain:
         if kernel[k].dtype != plain[k].dtype or not torch.equal(kernel[k],
                                                                 plain[k]):
             err = float((kernel[k].double() - plain[k].double()).abs().max())
             fail(f"day_scan kernel {k} differs from the plain version (max "
                  f"abs diff {err})")
     return max(float((kernel[k].double() - plain[k].double()).abs().max())
-               for k in ds.OUTS)
+               for k in plain)
 
 
 def sm_clocks(fn, seconds: float) -> tuple:
@@ -243,14 +262,15 @@ def resize(tables: dict, n: int) -> dict:
     return out
 
 
-def bound_ms(n: int, t: int, n_lvl: int) -> tuple:
-    """(bound ms, "bytes" | "operations") of one day-scan call: the
-    bytes it must move (each input read once — one throttle level of
-    each table per step — and each output written once) over HBM
-    bandwidth vs its float ops over the float32 peak."""
+def bound_ms(n: int, t: int, n_lvl: int, n_out: int = 9) -> tuple:
+    """(bound ms, "bytes" | "operations") of one day-scan call with
+    `n_out` (T, N) outputs (9, or the full trace's 17): the bytes it
+    must move (each input read once — one throttle level of each table
+    per step — and each output written once) over HBM bandwidth vs its
+    float ops over the float32 peak."""
     f32 = 4
     read = (3 * t * n + 5 * t * n + n_lvl * n + 31 * n) * f32
-    write = 9 * t * n * f32
+    write = n_out * t * n * f32
     by_bytes = (read + write) / PEAK_BYTES_S * 1e3
     by_ops = n * t * OPS_PER_STEP / PEAK_F32_OPS_S * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
@@ -364,8 +384,8 @@ def scan_calls(ds):
     inputs the main path gave it."""
     calls, real = [], ds.day_scan
 
-    def recording(tables):
-        ys = real(tables)
+    def recording(tables, full=False):
+        ys = real(tables, full)
         calls.append((tables, ys))
         return ys
 
@@ -378,18 +398,18 @@ def scan_calls(ds):
 
 def held_to_plain(name: str, calls: list) -> float:
     """Each recorded day-scan call against the plain version on its own
-    tables, all nine outputs bit for bit; returns the largest abs error
-    (these plain launches are not the main path's)."""
+    tables in the call's mode, all outputs bit for bit; returns the
+    largest abs error (these plain launches are not the main path's)."""
     import torch
     from repro_torch.kernels import day_scan as ds
     worst = 0.0
     for tables, ys in calls:
-        want = ds.day_scan_plain(tables)
+        want = ds.day_scan_plain(tables, full=len(ys) > len(ds.OUTS))
         torch.cuda.synchronize()
         worst = max(worst, compare(ys, want))
     print(f"{name}: kernel == plain on the main path's own tables at N = "
-          f"{[int(t['step_mw'].shape[-1]) for t, _ in calls]}, all nine "
-          f"outputs bit for bit")
+          f"{[int(t['step_mw'].shape[-1]) for t, _ in calls]}, all "
+          f"{[len(ys) for _, ys in calls]} outputs bit for bit")
     return worst
 
 
@@ -594,6 +614,122 @@ def twin_paths(twin, golden: dict, serial: dict, dt_s: float) -> tuple:
           f"rtol {SUM_RTOL:g}")
     worst_err = max(worst_err, held_to_plain("simulate_users", calls))
     return launches, worst_err
+
+
+# phase 4 f's days: (platform, DEFAULT_DESIGNS index, schedule, policy)
+SIMULATE_DAYS = (("rayban_cam", 0, "desk_day", "battery_saver"),
+                 ("aria2_puck_split", 1, "field_day", "thermal_governor"))
+DISCRETE_TRACES = ("level", "shut", "th_state", "soc_state", "valid")
+CONTINUOUS_TRACES = ("soc", "soc_puck", "t_soc_c", "t_skin_c",
+                     "t_skin_puck_c", "p_mw", "p_puck_mw", "drain_mw",
+                     "drain_puck_mw", "pods")
+# objectives of the joint front, card vs CPU: the reference's rtol for
+# scenario totals (tests/test_platform_api.py)
+TOTAL_RTOL = 1e-6
+CO_BUDGETS = ({}, {"pod_budget": 40.0}, {"power_budget_mw": 1100.0},
+              {"usd_budget_per_day": 3.0e5})
+
+
+def simulate_days(dt_s: float) -> tuple:
+    """Phase 4 f: `simulate` on the card against the same call on the
+    CPU; returns (launches, full-trace launches, the kernel's largest
+    error against its plain version on the calls' own tables)."""
+    import numpy as np
+    from repro_torch.core import daysim
+    from repro_torch.kernels import day_scan as ds
+    launches = full_launches = 0
+    worst = 0.0
+    for plat, design, schedule, policy in SIMULATE_DAYS:
+        args = (plat, daysim.DEFAULT_DESIGNS[design], schedule, policy)
+        name = f"simulate {plat}/{schedule}/{policy}"
+        with scan_calls(ds) as calls:
+            ds.LAUNCHES = ds.FULL_LAUNCHES = 0
+            got = daysim.simulate(*args, dt_s=dt_s)
+            n, n_full = ds.LAUNCHES, ds.FULL_LAUNCHES
+        launches += n
+        full_launches += n_full
+        widths = [int(t["step_mw"].shape[-1]) for t, _ in calls]
+        if (n, n_full) != (1, 1) or widths != [1]:
+            fail(f"{name}: {n} launches ({n_full} full-trace) at N = "
+                 f"{widths}, want one full-trace launch at N = 1")
+        want = daysim.simulate(*args, dt_s=dt_s, device="cpu")
+        for k in DISCRETE_TRACES:
+            if not np.array_equal(getattr(got, k), getattr(want, k)):
+                fail(f"{name}: {k} differs from the CPU run's")
+        err = 0.0
+        for k in CONTINUOUS_TRACES:
+            a, b = getattr(got, k), getattr(want, k)
+            err = max(err, float(np.max(np.abs(a - b))))
+            if not np.allclose(a, b, rtol=TRACE_RTOL, atol=TRACE_ATOL):
+                miss(f"{name}: {k} outside rtol {TRACE_RTOL} / atol "
+                     f"{TRACE_ATOL} of the CPU run's")
+        if list(got.summary) != list(want.summary):
+            fail(f"{name}: summary keys differ from the CPU run's")
+        for k, v in want.summary.items():
+            if not np.isclose(got.summary[k], v, rtol=TOTAL_RTOL, atol=0.0):
+                miss(f"{name}: summary {k} {got.summary[k]} outside rtol "
+                     f"{TOTAL_RTOL} of the CPU run's {v}")
+        print(f"main path ({name}, dt_s = {dt_s:g}): 1 full-trace launch "
+              f"at N = 1, T = {len(got.level)}; level / shut / th_state / "
+              f"soc_state equal to the CPU run (throttled steps "
+              f"{int((got.level > 0).sum())}, thermal latch "
+              f"{int(got.th_state.sum())}, SoC latch "
+              f"{int(got.soc_state.sum())}), traces max abs diff "
+              f"{err:.3g}; tte {got.summary['time_to_empty_h']:.3f} h")
+        worst = max(worst, held_to_plain(name, calls))
+    return launches, full_launches, worst
+
+
+def steady_state_paths() -> None:
+    """Phase 4 g: the steady-state layer on the card against the CPU."""
+    import numpy as np
+    from repro_torch.core import dse
+    got = dse.joint_pareto()
+    want = dse.joint_pareto(device="cpu")
+    if len(got) != 2304:
+        fail(f"joint_pareto: {len(got)} points, want 2304")
+    if not np.array_equal(got.front_mask, want.front_mask):
+        fail(f"joint_pareto: the front on the card ({int(got.front_mask.sum())}"
+             f" points) differs from the CPU's ({int(want.front_mask.sum())})")
+    objs, ref = got.objectives(), want.objectives()
+    rel = float(np.max(np.abs(objs - ref) / np.maximum(np.abs(ref), 1e-30)))
+    if not np.allclose(objs, ref, rtol=TOTAL_RTOL, atol=0.0):
+        miss(f"joint_pareto: objectives {rel:.3g} relative off the CPU's "
+             f"(rtol {TOTAL_RTOL:g})")
+    for budgets in CO_BUDGETS:
+        if dse.co_optimize(got, **budgets) != dse.co_optimize(want,
+                                                             **budgets):
+            fail(f"co_optimize {budgets}: rows differ from the CPU's")
+    for name, fn in (("placement_sweep", dse.placement_sweep),
+                     ("compression_sweep", dse.compression_sweep),
+                     ("pareto", dse.pareto),
+                     ("platform_ablation", dse.platform_ablation)):
+        if fn() != fn(device="cpu"):
+            fail(f"{name}: rows on the card differ from the CPU's")
+    print(f"steady state (joint_pareto, {len(got)} points): front "
+          f"{int(got.front_mask.sum())} equal to the CPU's, objectives "
+          f"within {rel:.3g} relative ({int((got.device_mw != want.device_mw).sum())}"
+          f" device_mw values not bit-equal), co_optimize rows equal "
+          f"under {len(CO_BUDGETS)} budgets; placement_sweep, "
+          f"compression_sweep, pareto and platform_ablation rows equal")
+
+
+def steady_state_timing() -> str:
+    """Phase 5, steady state: the joint front's ms (host clock over warm
+    calls, each ending in its copies to the host) and a profile."""
+    import numpy as np
+    import torch
+    from repro_torch.core import dse
+    dse.joint_pareto()
+    ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dse.joint_pareto()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    report, _ = profile_queries(dse.joint_pareto, 3, "joint_pareto call")
+    return (f"joint_pareto (2304 points, warm, host clock, 5 calls): mean "
+            f"{np.mean(ms):.3f} ms, min {np.min(ms):.3f} ms\n{report}")
 
 
 def batch_timing(twin) -> str:
@@ -1224,6 +1360,25 @@ def main() -> None:
         worst = max(worst, compare(got, ds.day_scan_plain(tb)))
         print(f"day_scan kernel == plain at N={size}: all nine outputs "
               f"bit for bit, max abs err {worst:.3g}")
+    for size in (n, 63, 1):
+        tb = full if size == n else resize(full, size)
+        got = ds.day_scan(tb, full=True)
+        short = ds.day_scan(tb)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = ds.day_scan_plain(tb, full=True)
+        torch.cuda.synchronize()
+        plain_full_s = time.perf_counter() - t0
+        worst = max(worst, compare(got, want))
+        for k in ds.OUTS:
+            if not torch.equal(got[k], short[k]):
+                fail(f"full-trace mode {k} differs from the default mode's "
+                     f"at N={size}")
+        print(f"day_scan full-trace mode == plain at N={size}: all "
+              f"{len(got)} outputs bit for bit (plain {plain_full_s:.1f} s); "
+              f"its nine equal to the default mode's; thermal latch steps "
+              f"{int(want['th_state'].sum())}, SoC latch steps "
+              f"{int(want['soc_state'].sum())}")
 
     # 4. the main path through the user's entry point
     ds.LAUNCHES = 0
@@ -1256,6 +1411,12 @@ def main() -> None:
     n_twin, err_twin = twin_paths(twin, golden, serial, dt_s)
     launches += n_twin
     worst = max(worst, err_twin)
+    n_sim, n_full, err_sim = simulate_days(dt_s)
+    worst = max(worst, err_sim)
+    print(f"day_scan launches on the main path: {launches} default-mode, "
+          f"{n_full} full-trace ({launches + n_sim} in all)")
+    launches += n_sim
+    steady_state_paths()
 
     # 5. timing (launches from here on are not the main path's)
     lib_fn = ds._day_scan_cuda
@@ -1268,6 +1429,12 @@ def main() -> None:
     wide = resize(full, 1024)
     lib_fn(wide)
     wide_ms = cuda_ms(lambda: lib_fn(wide), 20)
+    lib_fn(full, True)
+    full_ms = cuda_ms(lambda: lib_fn(full, True), 50)
+    lib_fn(one, True)
+    full_one_ms = cuda_ms(lambda: lib_fn(one, True), 20)
+    fb_ms, fb_by = bound_ms(n, t, n_lvl, len(ds.TRACE_OUTS))
+    fb1_ms, fb1_by = bound_ms(1, t, n_lvl, len(ds.TRACE_OUTS))
     floor = lambda: ds.probe_launch(full, "no loads or stores")  # noqa: E731
     floor()
     floor_ms = cuda_ms(floor, 50)
@@ -1291,6 +1458,11 @@ def main() -> None:
           f"SM clock under the kernel {mhz} MHz (max {max_mhz} MHz)")
     print(f"day_scan plain version: {plain_ms:.1f} ms; bound "
           f"{b_ms:.5f} ms by {b_by}; library call: none")
+    print(f"day_scan full-trace mode: {full_ms:.4f} ms at N={n} (bound "
+          f"{fb_ms:.5f} ms by {fb_by}), {full_one_ms:.4f} ms at N=1 (bound "
+          f"{fb1_ms:.6f} ms by {fb1_by}); default mode {kernel_ms:.4f} / "
+          f"{one_ms:.4f} ms; chunk steps {ds.chunk_steps(n_lvl, True)} "
+          f"(default {ds.chunk_steps(n_lvl)})")
     print(f"twin warm query: mean {np.mean(q_ms):.2f} ms, min "
           f"{np.min(q_ms):.2f} ms over 10 (first warm {warm_first_ms:.2f} "
           f"ms); what-if (new values: assembly + push + query): "
@@ -1303,6 +1475,7 @@ def main() -> None:
               f"{in_query_ms / kernel_ms:.3f}")
     print(batch_timing(twin) + f"\n  beside the warm serial query: mean "
           f"{np.mean(q_ms):.3f} ms")
+    print(steady_state_timing())
     del twin
     lm_rows = lm_phases(dev)
     if MISSES:

@@ -107,7 +107,7 @@ def probe_day() -> None:
     if nvcc.wait():
         raise RuntimeError(f"nvcc failed for {src.name}:\n{nvcc.stderr.read()}")
     fdiv = ctypes.CDLL(str(lib)).day_scan_probe_launch
-    fdiv.argtypes = ds._ARGTYPES + [ctypes.c_int]
+    fdiv.argtypes = ds._argtypes(len(ds.OUTS)) + [ctypes.c_int]
     fdiv.restype = ctypes.c_int
     for label, log in sorted(build.BUILD_LOG.items()):
         if label.startswith("day_scan"):

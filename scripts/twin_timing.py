@@ -15,6 +15,9 @@ on first use) and prints:
     batches of K = 1, 4 and 16 what-ifs of the thermal governor's
     temp_trip_c (mean of 5 each) and the device-busy ms and kernel count
     of one K = 16 batch;
+  - the day-scan kernel's ms on the default grid's tables (CUDA events
+    over 50 back-to-back launches, three times), in its default mode
+    and, where the tree has it, its full-trace mode;
   - the card's name and power limit (nvidia-smi).
 
 Run it from the root of a checkout on a machine with a card; it exits
@@ -96,6 +99,28 @@ def main() -> None:
               + ", ".join(f"K={k} {v:.3f}" for k, v in per_item.items())
               + f"; K=16 batch device busy {busy:.3f} ms in {kernels:g} "
               f"kernels")
+    from repro_torch.kernels import day_scan as ds
+    tables, _ = daysim.day_tables(daysim._fused_pipeline(
+        torch.device("cuda"), dt_s=args.dt))
+    modes = {"default": lambda: ds._day_scan_cuda(tables)}
+    if hasattr(ds, "TRACE_OUTS"):
+        modes["full-trace"] = lambda: ds._day_scan_cuda(tables, True)
+    for name, launch in modes.items():
+        launch()
+        runs = []
+        for _ in range(3):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(50):
+                launch()
+            end.record()
+            torch.cuda.synchronize()
+            runs.append(start.elapsed_time(end) / 50)
+        n, t, n_lvl = ds._shape(tables)
+        print(f"{root.name}: day_scan {name} mode at N={n} T={t} "
+              f"L={n_lvl}: " + " / ".join(f"{r:.4f}" for r in runs)
+              + " ms (mean of 50 launches, 3 runs)")
     print(smi)
 
 

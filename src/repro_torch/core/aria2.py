@@ -24,11 +24,11 @@ Scenario knobs (the design space):
   brightness   — display brightness (display SKUs).
 
 Batch evaluation goes through `scenarios.ScenarioSet` and
-`scenarios.evaluate` (one batch of torch ops for a whole DSE grid).  The
-pre-redesign dict-based implementation survives as `legacy_*` — the
-reference oracle for parity tests.  The reference package's
+`scenarios.evaluate` (one batch of torch ops for a whole DSE grid); the
 single-`Scenario` wrappers (`total_mw`, `component_loads`,
-`offloaded_mbps`, `pd_share`, `build_system`) are not part of the port.
+`offloaded_mbps`, `pd_share`, `build_system`) evaluate a batch of one.
+The pre-redesign dict-based implementation survives as `legacy_*` — the
+reference oracle for parity tests.
 """
 from __future__ import annotations
 
@@ -40,7 +40,7 @@ import numpy as np
 from . import workloads
 from .platform import (PRIMITIVES, ComponentSpec, LoadRule, PlatformSpec,
                        register)
-from .power import Component
+from .power import Component, Rail, SystemModel
 
 # raw sensor data rates, Mbps (Table II; RGB after 2x2 binning, §V-A)
 RAW_MBPS = {
@@ -387,6 +387,66 @@ def platforms() -> tuple:
     return (aria2_platform(), aria2_display_platform(),
             aria2_capture_only_platform(), rayban_cam_platform(),
             aria2_puck_split_platform())
+
+
+# ---------------------------------------------------------------------------
+# single-Scenario wrappers over the batched engine (compatibility API)
+# ---------------------------------------------------------------------------
+
+def _single(sc: Scenario, theta=None, plat: PlatformSpec | None = None,
+            device="cuda"):
+    from . import scenarios as S
+    plat = plat or aria2_platform()
+    return plat, S.evaluate(plat, S.ScenarioSet.from_scenarios([sc]), theta,
+                            device)
+
+
+def offloaded_mbps(sc: Scenario, device="cuda"):
+    """Wireless uplink rate for a scenario (the compute<->comm trade)."""
+    _, rep = _single(sc, device=device)
+    return rep.offloaded_mbps[0]
+
+
+def component_loads(sc: Scenario, theta=None, device="cuda"):
+    """Mechanistic component loads (mW) for a scenario, as 0-dim tensors;
+    returns (loads, theta) like the pre-redesign API."""
+    plat, rep = _single(sc, theta, device=device)
+    th = dict(THETA0)
+    if theta:
+        th.update(theta)
+    names = plat.component_names()
+    mech = {c.name for c in plat.mech_components()}
+    loads = {n: rep.loads_mw[0, i] for i, n in enumerate(names)
+             if n in mech}
+    return loads, th
+
+
+def total_mw(sc: Scenario, theta=None, device="cuda"):
+    """Scenario total (mechanistic + tail + PD losses)."""
+    _, rep = _single(sc, theta, device=device)
+    return rep.total_mw[0]
+
+
+def pd_share(sc: Scenario, theta=None, device="cuda"):
+    _, rep = _single(sc, theta, device=device)
+    return rep.pd_share()[0]
+
+
+def build_system(sc: Scenario, theta=None,
+                 plat: PlatformSpec | None = None,
+                 device="cuda") -> SystemModel:
+    """Materialize a power.SystemModel snapshot of one scenario."""
+    plat, rep = _single(sc, theta, plat, device)
+    row = rep.loads_mw[0].cpu().numpy()
+    comps = [Component(c.name, c.category, c.process, idle_mw=float(mw),
+                       rail=c.rail, digital_fraction=c.digital_fraction)
+             for c, mw in zip(plat.components, row)]
+    th = dict(THETA0)
+    if theta:
+        th.update(theta)
+    rails = {r: Rail(r, min(e * th["eff_scale"], 0.97))
+             for r, e in plat.rails}
+    return SystemModel(comps, rails)
 
 
 # ---------------------------------------------------------------------------

@@ -44,7 +44,10 @@ reference's counters and always reads 0.
 tables filled through the row cache (`_ROW_CACHE`, one row-stage pass
 per platform for rows not seen before), numpy step tables pushed once,
 the same day-scan kernel, and the float64 host summary `_summarize`.
-`simulate_users` and `compiled_tables` run on those tables.
+`simulate_users` and `compiled_tables` run on those tables, and so does
+`simulate` (one combo's `DayTrace`: every per-step trace, through the
+kernel's full-trace mode); `scan_integrate` runs one combo's tables
+through that mode.
 
 `reference_integrate` is the reference package's pure-numpy per-step
 oracle, copied as-is.
@@ -1112,6 +1115,29 @@ class DayReport:
         return sorted(rows, key=lambda r: -r["time_to_empty_h"])
 
 
+@dataclass
+class DayTrace:
+    """Single-combo run with full per-step traces (examples, tests)."""
+    combo: dict
+    dt_s: float
+    soc: np.ndarray
+    soc_puck: np.ndarray
+    t_soc_c: np.ndarray
+    t_skin_c: np.ndarray
+    t_skin_puck_c: np.ndarray
+    level: np.ndarray
+    th_state: np.ndarray
+    soc_state: np.ndarray
+    shut: np.ndarray
+    p_mw: np.ndarray
+    p_puck_mw: np.ndarray
+    drain_mw: np.ndarray
+    drain_puck_mw: np.ndarray
+    pods: np.ndarray
+    valid: np.ndarray
+    summary: dict
+
+
 def _summarize(ys: dict, tables: dict, dt_s: float) -> dict:
     """(N, T) numpy traces -> (N,) objectives in float64 on the host
     (the legacy engine's summary, the reference's as-is)."""
@@ -1247,17 +1273,28 @@ def _kernel_tables(tb: dict, dev: torch.device) -> dict:
     return out
 
 
+def _scan_host(tb: dict, dev: torch.device, full: bool = False) -> dict:
+    """Numpy tables of N combos (the `batch_tables` layout) -> one
+    day-scan launch on `dev` (the full-trace mode when `full`) -> the
+    (N, T) numpy traces, in one copy to the host."""
+    tables = _kernel_tables(tb, dev)
+    # the default mode keeps the dispatch's one-argument call, which
+    # wrappers of `day_scan` (the smoke run's recorder, tests) rely on
+    ys = _ds.day_scan(tables, full=True) if full else _ds.day_scan(tables)
+    keys = _ds.TRACE_OUTS if full else _ds.OUTS
+    host = torch.stack([ys[k].float() for k in keys]).cpu().numpy()
+    ys_np = dict(zip(keys, host))
+    ys_np["level"] = ys_np["level"].astype(np.int32)
+    return ys_np
+
+
 def _scan_legacy(combos: list, dt_s: float, standby_mw: float,
                  shutdown_c: float, dev: torch.device) -> dict:
     """The legacy engine's day: numpy tables, one day-scan launch at N =
     len(combos), one copy of the traces to the host, and the float64
     `_summarize`."""
     tb = batch_tables(combos, dt_s, standby_mw, shutdown_c)
-    ys = _ds.day_scan(_kernel_tables(tb, dev))
-    host = torch.stack([ys[k].float() for k in _ds.OUTS]).cpu().numpy()
-    ys_np = dict(zip(_ds.OUTS, host))
-    ys_np["level"] = ys_np["level"].astype(np.int32)
-    return _summarize(ys_np, tb, dt_s)
+    return _summarize(_scan_host(tb, dev), tb, dt_s)
 
 
 # ---------------------------------------------------------------------------
@@ -1723,14 +1760,16 @@ def day_grid(platforms=DEFAULT_PLATFORMS, designs=DEFAULT_DESIGNS,
              thermal: ThermalSpec | None = None, theta=None,
              results_dir=None,
              shutdown_c: float = DEFAULT_SHUTDOWN_C,
-             engine: str = "fused", with_front: bool = False,
+             engine: str = "legacy", with_front: bool = False,
              device="cuda") -> DayReport:
     """Simulate every (platform x design x schedule x policy) combo on
     `device`.
 
     `engine="fused"` runs the device pipeline (row stages, table gather,
     day scan, summary and front on the device: the batch of one of
-    `day_grid_batch`); `engine="legacy"` fills host-cached numpy tables
+    `day_grid_batch`); `engine="legacy"` (the default, as in the
+    reference; `dse.day_pareto` asks for the fused engine) fills
+    host-cached numpy tables
     through the row cache, runs the same day scan and summarizes in
     float64 on the host (the reference's oracle for the fused engine:
     front masks and survival flags agree bit for bit).  Designs whose
@@ -1763,6 +1802,39 @@ def day_grid(platforms=DEFAULT_PLATFORMS, designs=DEFAULT_DESIGNS,
         from . import dse
         rep.front_mask = dse.non_dominated(rep.objectives(), maximize=(0,))
     return rep
+
+
+def simulate(platform, design: dict, schedule, policy="none",
+             dt_s: float = DEFAULT_DT_S, n_users: float = 1e6,
+             standby_mw: float = DEFAULT_STANDBY_MW,
+             battery: BatterySpec | None = None,
+             thermal: ThermalSpec | None = None, theta=None,
+             results_dir=None,
+             shutdown_c: float = DEFAULT_SHUTDOWN_C,
+             device="cuda") -> DayTrace:
+    """One (platform, design, schedule, policy) day with full traces: the
+    combo's tables through the row cache, one full-trace day-scan launch
+    at N = 1 on `device`, the float64 `_summarize`."""
+    dev = _device.resolve(device)
+    plat = _plat(platform)
+    cb = _Combo(plat, design, _resolve(schedule, get_schedule, DaySchedule),
+                _resolve(policy, get_policy, ThrottlePolicy),
+                _batteries_arg(battery, plat.name),
+                thermal or DEFAULT_THERMAL, puck_for(plat))
+    _compile_platform(plat, [cb], n_users, theta, results_dir, dev)
+    tb = batch_tables([cb], dt_s, standby_mw, shutdown_c)
+    ys = _scan_host(tb, dev, full=True)
+    summary = {k: float(v[0]) for k, v in _summarize(ys, tb, dt_s).items()}
+    summary["steady_mw"] = cb.steady_mw
+    return DayTrace(
+        combo=cb.label(), dt_s=dt_s, soc=ys["soc"][0],
+        soc_puck=ys["soc_p"][0], t_soc_c=ys["t_soc"][0],
+        t_skin_c=ys["t_skin"][0], t_skin_puck_c=ys["t_skin_p"][0],
+        level=ys["level"][0], th_state=ys["th_state"][0],
+        soc_state=ys["soc_state"][0], shut=ys["shut"][0],
+        p_mw=ys["p_mw"][0], p_puck_mw=ys["p_p_mw"][0],
+        drain_mw=ys["drain_mw"][0], drain_puck_mw=ys["drain_p_mw"][0],
+        pods=ys["pods"][0], valid=tb["valid"][0], summary=summary)
 
 
 def simulate_users(platform, design: dict, schedule, policy="none", *,
@@ -1834,3 +1906,15 @@ def compiled_tables(platform, design: dict, schedule, policy="none",
     _compile_platform(plat, [cb], n_users, device=_device.resolve(device))
     return _combo_tables(cb, dt_s, cb.schedule.n_steps(dt_s),
                          cb.policy.n_levels, standby_mw, shutdown_c)
+
+
+def scan_integrate(tb: dict, device="cuda") -> dict:
+    """One combo's tables (`compiled_tables`' layout) through one
+    full-trace day-scan launch on `device`: all 17 (T,) traces of the
+    reference's `_step_math` as numpy."""
+    batch = {k: np.asarray(tb[k], np.float32)[None]
+             for k in (*_ds.TABLE_KEYS, *_ds.ROW_KEYS, "act_mult")}
+    batch["const"] = {k: np.asarray(v, np.float32)[None]
+                      for k, v in tb["const"].items()}
+    ys = _scan_host(batch, _device.resolve(device), full=True)
+    return {k: v[0] for k, v in ys.items()}

@@ -1,19 +1,145 @@
-"""Day-level design-space exploration: the Pareto front over
-(time-to-empty h, peak skin °C, backend pod-hours) and the survival
-filter, on the port's fused day pipeline.
+"""Design-space exploration (§V-B, §VI-B) on the batched scenario
+engine, and the day-level Pareto front.
+
+Steady-state sweeps, each ONE batched evaluation of one `ScenarioSet`
+on the device (`scenarios.evaluate`) and one copy of its results to
+the host:
+  * placement_sweep      — all on/off-device primitive placements
+                           (Fig 4 shows 6 of them).
+  * compression_sweep    — compression x fps on the full-offload
+                           configuration (Fig 6).
+  * grid_sweep           — the full placement x compression x fps grid.
+  * sensitivity          — d(total power)/d(theta), one autograd pass
+                           through the batched engine.
+  * pareto               — placement x compression -> (power, offload
+                           bandwidth) front.
+  * joint_pareto         — placement x compression x fps x MCS (2304
+                           points by default) mapped to backend pods
+                           (`offload.pods_breakdown`) and the 3-objective
+                           (device mW, uplink Mbps, backend pods) front;
+                           `co_optimize` takes budget-constrained
+                           argmins over it.
+  * platform_ablation    — one scenario across the registered SKUs.
+
+Day level: `day_pareto` fronts (time-to-empty h, peak skin °C, backend
+pod-hours) on the port's day pipeline, and the survival filter.
 
 All dominance filtering uses the correct Pareto test — q dominates p
 iff q <= p in every objective and q < p in at least one — so points
 that tie on one objective at better cost in another are kept and exact
 duplicates all survive.  `non_dominated` is the reference's numpy
-filter, copied as-is (the legacy engine's front); `non_dominated_torch`
-is its tensor counterpart, which the fused pipeline runs on the device,
-one front per query of a batch.
+filter, copied as-is (the steady-state fronts' and the legacy engine's);
+`non_dominated_torch` is its tensor counterpart, which the fused
+pipeline runs on the device, one front per query of a batch.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import numpy as np
 import torch
+
+from .. import device as _device
+from . import aria2, offload, scenarios
+from .aria2 import Scenario
+from .platform import PlatformSpec, diff as platform_diff
+from .scenarios import MCS_TIERS, ScenarioSet, all_placements
+
+
+def _plat(platform: PlatformSpec | str | None) -> PlatformSpec:
+    if platform is None:
+        return aria2.aria2_platform()
+    if isinstance(platform, str):
+        from . import platform as registry
+        aria2.platforms()          # ensure built-ins registered
+        return registry.get(platform)
+    return platform
+
+
+def _host(x: torch.Tensor) -> np.ndarray:
+    return x.detach().cpu().numpy()
+
+
+def grid_sweep(platform=None, placements=None,
+               compressions=scenarios.GRID_COMPRESSIONS,
+               fps_scales=scenarios.GRID_FPS_SCALES, device="cuda",
+               **knobs) -> scenarios.BatchReport:
+    """Full DSE grid (default 16 x 8 x 6 = 768 points) in one batched
+    evaluation.  Default placements are every subset of the primitives
+    the platform can run on-device."""
+    plat = _plat(platform)
+    if placements is None:
+        placements = all_placements(plat.supported_primitives())
+    sset = ScenarioSet.grid(placements=placements,
+                            compressions=compressions,
+                            fps_scales=fps_scales,
+                            primitives=plat.primitives, **knobs)
+    return scenarios.evaluate(plat, sset, device=device)
+
+
+def placement_sweep(platform=None, device="cuda"):
+    plat = _plat(platform)
+    subsets = all_placements(plat.supported_primitives())
+    sset = ScenarioSet.grid(placements=subsets, compressions=(10.0,),
+                            fps_scales=(1.0,), primitives=plat.primitives)
+    rep = scenarios.evaluate(plat, sset, device=device)
+    totals = _host(rep.total_mw)
+    mbps = _host(rep.offloaded_mbps)
+    p0 = totals[0]                     # empty subset == full offload
+    rows = [{
+        "on_device": "+".join(subset) if subset else "(none)",
+        "total_mw": round(float(p), 1),
+        "delta_pct": round(100 * float(p - p0) / float(p0), 2),
+        "offload_mbps": round(float(m), 2),
+    } for subset, p, m in zip(subsets, totals, mbps)]
+    return sorted(rows, key=lambda r: r["total_mw"])
+
+
+def compression_sweep(compressions=(1, 2, 4, 8, 16, 32, 64, 128),
+                      fps_scales=(1, 2, 4, 8, 16, 32), platform=None,
+                      device="cuda"):
+    plat = _plat(platform)
+    sset = ScenarioSet.grid(placements=((),),
+                            compressions=[float(c) for c in compressions],
+                            fps_scales=[float(f) for f in fps_scales],
+                            primitives=plat.primitives)
+    rep = scenarios.evaluate(plat, sset, device=device)
+    totals = _host(rep.total_mw)
+    mbps = _host(rep.offloaded_mbps)
+    rows = []
+    for i, (c, f) in enumerate((c, f) for c in compressions
+                               for f in fps_scales):
+        rows.append({
+            "compression": c, "fps_scale": f,
+            "offload_mbps": round(float(mbps[i]), 2),
+            "total_mw": round(float(totals[i]), 1),
+        })
+    return rows
+
+
+def sensitivity(scenario: Scenario | None = None, keys=None, platform=None,
+                device="cuda"):
+    """d(total)/d(theta_k): mW of system power per unit of coefficient,
+    one reverse pass for the whole coefficient set."""
+    plat = _plat(platform)
+    dev = _device.resolve(device)
+    sc = scenario or aria2.FULL_ON_DEVICE
+    keys = keys or list(aria2.THETA0)
+    th0 = {k: torch.tensor(float(np.float32(aria2.THETA0[k])),
+                           device=dev, requires_grad=True) for k in keys}
+    sset = ScenarioSet.from_scenarios([sc])
+    scenarios._validate(plat, sset)
+    total = scenarios.evaluate_batched(plat, sset.vec(dev), th0)["total"][0]
+    grads = torch.autograd.grad(total, [th0[k] for k in keys],
+                                allow_unused=True)
+    base = float(total.detach())
+    rows = []
+    for k, g in zip(keys, grads):
+        grad, value = 0.0 if g is None else float(g), float(th0[k].detach())
+        rows.append({"theta": k, "value": value,
+                     "d_total_mw_d_theta": grad,
+                     "elasticity": grad * value / base})
+    return sorted(rows, key=lambda r: -abs(r["elasticity"]))
 
 
 def non_dominated(points, maximize: tuple = (), block: int = 2048
@@ -85,6 +211,233 @@ def non_dominated_torch(points: torch.Tensor,
     dominated = (le & lt & earlier).any(dim=1)
     mask = torch.zeros((q, n), dtype=torch.bool, device=dev)
     return mask.scatter(1, order, ~dominated)
+
+
+def pareto(compressions=(4, 10, 20, 40), platform=None, device="cuda"):
+    """Placement x compression -> non-dominated (power, bandwidth) points.
+
+    Row order of `pts` follows ScenarioSet.grid (placement outermost,
+    then compression), so labels stay in lockstep with the batch."""
+    plat = _plat(platform)
+    subsets = all_placements(plat.supported_primitives())
+    sset = ScenarioSet.grid(placements=subsets,
+                            compressions=[float(c) for c in compressions],
+                            fps_scales=(1.0,), primitives=plat.primitives)
+    labels = [(sset.on_device(i), float(sset.compression[i]))
+              for i in range(len(sset))]
+    rep = scenarios.evaluate(plat, sset, device=device)
+    totals = _host(rep.total_mw)
+    mbps = _host(rep.offloaded_mbps)
+    pts = [{
+        "on_device": "+".join(s) or "(none)",
+        "compression": int(c) if float(c).is_integer() else c,
+        "total_mw": round(float(totals[i]), 1),
+        "offload_mbps": round(float(mbps[i]), 2),
+    } for i, (s, c) in enumerate(labels)]
+    keep = non_dominated(np.stack([totals, mbps], axis=1), maximize=(1,))
+    front = sorted((pts[i] for i in np.flatnonzero(keep)),
+                   key=lambda r: r["total_mw"])
+    return pts, front
+
+
+# ---------------------------------------------------------------------------
+# joint device+backend co-optimization (the full-system Amdahl argument)
+# ---------------------------------------------------------------------------
+
+JOINT_MCS_TIERS = tuple(range(len(MCS_TIERS)))
+
+
+@dataclass
+class JointReport:
+    """Joint device+backend design-space evaluation.
+
+    Arrays share the ScenarioSet's leading dim N.  Objectives: device_mw
+    (minimize), uplink_mbps (maximize — context-fidelity proxy),
+    backend_pods (minimize).  front_mask marks the 3-objective
+    non-dominated set; sources records whether each backend stream's
+    capacity came from a dry-run artifact or the fallback bound, and
+    `breakdown` carries the per-stream pods (offload.PodsBreakdown)."""
+    sset: ScenarioSet
+    device_mw: np.ndarray           # (N,)
+    uplink_mbps: np.ndarray         # (N,)
+    backend_pods: np.ndarray        # (N,)
+    front_mask: np.ndarray          # (N,) bool
+    sources: dict                   # stream -> "dryrun" | "fallback"
+    n_users: float
+    duty: float
+    breakdown: offload.PodsBreakdown | None = None
+
+    def __len__(self) -> int:
+        return len(self.sset)
+
+    def objectives(self) -> np.ndarray:
+        """(N, 3) matrix [device_mw, uplink_mbps, backend_pods]."""
+        return np.stack([self.device_mw, self.uplink_mbps,
+                         self.backend_pods], axis=1)
+
+    def front_indices(self) -> np.ndarray:
+        return np.flatnonzero(self.front_mask)
+
+    def missing_streams(self) -> list:
+        """Fallback-sized streams that actually reach the backend."""
+        if self.breakdown is not None:
+            return self.breakdown.missing_streams()
+        return offload.missing_streams(self.sources)
+
+    def stream_archs(self) -> dict:
+        """stream -> serving arch chosen by min-pods (STREAM_CANDIDATES)."""
+        if self.breakdown is not None:
+            return dict(self.breakdown.archs)
+        return {s: arch for s, (arch, _, _) in
+                offload.STREAM_SERVICE.items()}
+
+    def cost_per_day(self) -> dict:
+        """Steady-state fleet cost: pods x 24 h -> $ and kgCO2 per day."""
+        return offload.pod_cost(self.backend_pods * 24.0)
+
+    def row(self, i: int) -> dict:
+        s = self.sset
+        cost = offload.pod_cost(float(self.backend_pods[i]) * 24.0)
+        out = {
+            "index": int(i),
+            "on_device": "+".join(s.on_device(i)) or "(none)",
+            "compression": float(s.compression[i]),
+            "fps_scale": float(s.fps_scale[i]),
+            "mcs": MCS_TIERS[int(s.mcs_tier[i])][0],
+            "upload_duty": round(float(s.upload_duty[i]), 3),
+            "brightness": round(float(s.brightness[i]), 3),
+            "device_mw": round(float(self.device_mw[i]), 1),
+            "uplink_mbps": round(float(self.uplink_mbps[i]), 2),
+            "backend_pods": round(float(self.backend_pods[i]), 1),
+            "usd_per_day": round(cost["usd"], 0),
+            "kgco2_per_day": round(cost["kgco2"], 0),
+        }
+        if self.breakdown is not None:
+            out["pods_by_stream"] = self.breakdown.row(i)
+        return out
+
+    def front_rows(self) -> list:
+        rows = [self.row(i) for i in self.front_indices()]
+        return sorted(rows, key=lambda r: r["device_mw"])
+
+
+def joint_pareto(platform=None, placements=None,
+                 compressions=scenarios.GRID_COMPRESSIONS,
+                 fps_scales=scenarios.GRID_FPS_SCALES,
+                 mcs_tiers=JOINT_MCS_TIERS,
+                 upload_duties=(1.0,), brightnesses=(0.0,),
+                 n_users: float = 1e6, duty: float = 0.35,
+                 results_dir=None, theta=None,
+                 device="cuda") -> JointReport:
+    """Joint device+backend Pareto sweep: the grid (16 placements x 8
+    compressions x 6 fps x 3 MCS tiers = 2304 points by default, times
+    any upload duties and brightnesses) in one batched evaluation on
+    `device`, one numpy fleet-sizing pass (`offload.pods_breakdown`) and
+    one blockwise dominance pass (`non_dominated`) on the host, in
+    float64."""
+    plat = _plat(platform)
+    if placements is None:
+        placements = all_placements(plat.supported_primitives())
+    sset = ScenarioSet.grid(placements=placements,
+                            compressions=[float(c) for c in compressions],
+                            fps_scales=[float(f) for f in fps_scales],
+                            mcs_tiers=[int(m) for m in mcs_tiers],
+                            upload_duties=[float(u) for u in upload_duties],
+                            brightnesses=[float(b) for b in brightnesses],
+                            primitives=plat.primitives)
+    rep = scenarios.evaluate(plat, sset, theta, device)
+    device_mw = _host(rep.total_mw).astype(np.float64)
+    uplink = _host(rep.offloaded_mbps).astype(np.float64)
+    bd = offload.pods_breakdown(sset, n_users=n_users, duty=duty,
+                                results_dir=results_dir)
+    objs = np.stack([device_mw, uplink, bd.pods], axis=1)
+    mask = non_dominated(objs, maximize=(1,))
+    return JointReport(sset, device_mw, uplink, bd.pods, mask, bd.sources,
+                       n_users, duty, breakdown=bd)
+
+
+def _lex_argmin(keys: list, feasible: np.ndarray):
+    """Index minimizing keys lexicographically over a feasibility mask."""
+    idx = np.flatnonzero(feasible)
+    if idx.size == 0:
+        return None
+    order = np.lexsort(tuple(np.asarray(k)[idx] for k in reversed(keys)))
+    return int(idx[order[0]])
+
+
+def co_optimize(rep: JointReport, pod_budget: float | None = None,
+                power_budget_mw: float | None = None,
+                usd_budget_per_day: float | None = None) -> dict:
+    """Constrained argmins over a joint grid (deterministic tie-breaks).
+
+    * device_optimum            — min device power, backend unconstrained
+      (ties broken toward fewer pods, then higher uplink).
+    * min_power_under_pod_budget — min device power s.t. pods <= budget.
+    * min_pods_under_power_budget — min pods s.t. device power <= budget
+      (ties toward lower power, then higher uplink).
+    * min_power_under_usd_budget — min device power s.t. the 24 h fleet
+      bill (offload.pod_cost) fits `usd_budget_per_day`.
+    Infeasible constraints yield None rows."""
+    ones = np.ones(len(rep), bool)
+    out = {"device_optimum": rep.row(_lex_argmin(
+        [rep.device_mw, rep.backend_pods, -rep.uplink_mbps], ones))}
+    if pod_budget is not None:
+        i = _lex_argmin([rep.device_mw, rep.backend_pods, -rep.uplink_mbps],
+                        rep.backend_pods <= pod_budget)
+        out["pod_budget"] = pod_budget
+        out["min_power_under_pod_budget"] = None if i is None else rep.row(i)
+    if power_budget_mw is not None:
+        i = _lex_argmin([rep.backend_pods, rep.device_mw, -rep.uplink_mbps],
+                        rep.device_mw <= power_budget_mw)
+        out["power_budget_mw"] = power_budget_mw
+        out["min_pods_under_power_budget"] = None if i is None else rep.row(i)
+    if usd_budget_per_day is not None:
+        usd = rep.cost_per_day()["usd"]
+        i = _lex_argmin([rep.device_mw, rep.backend_pods, -rep.uplink_mbps],
+                        usd <= usd_budget_per_day)
+        out["usd_budget_per_day"] = usd_budget_per_day
+        out["min_power_under_usd_budget"] = None if i is None else rep.row(i)
+    return out
+
+
+def platform_ablation(names=None, on_device=(), compression: float = 10.0,
+                      fps_scale: float = 1.0, device="cuda") -> list:
+    """Registry-driven SKU comparison: evaluate one common scenario row
+    across platforms and diff each SKU's component table against the
+    first (baseline) entry.  Placements a SKU cannot run are downshifted
+    to the supported subset."""
+    from . import platform as registry
+    if names is None:
+        names = registry.names()
+    plats = [_plat(n) for n in names]
+    base = plats[0]
+    rows = []
+    for plat in plats:
+        placement = tuple(p for p in on_device
+                          if p in plat.supported_primitives())
+        sset = ScenarioSet.grid(placements=(placement,),
+                                compressions=(float(compression),),
+                                fps_scales=(float(fps_scale),),
+                                primitives=plat.primitives)
+        rep = scenarios.evaluate(plat, sset, device=device)
+        d = platform_diff(base, plat)
+        rows.append({
+            "platform": plat.name,
+            "n_components": len(plat),
+            "on_device": "+".join(placement) or "(none)",
+            "total_mw": round(float(rep.total_mw[0]), 1),
+            "offload_mbps": round(float(rep.offloaded_mbps[0]), 2),
+            "vs_baseline": {
+                "added": sorted(d["added"]),
+                "dropped": sorted(d["dropped"]),
+                "changed": sorted(d["changed"]),
+                "theta": d["theta"], "raw_mbps": d["raw_mbps"],
+            },
+        })
+    base_mw = rows[0]["total_mw"]
+    for r in rows:
+        r["delta_mw_vs_baseline"] = round(r["total_mw"] - base_mw, 1)
+    return rows
 
 
 def day_pareto(platforms=None, designs=None, schedules=None, policies=None,

@@ -12,15 +12,22 @@ finite.
 `stream_rates` resolves each stream's serving cell once per artifact
 directory (the only part that touches the filesystem);
 `pods_streams_device` is the batched tensor math the day pipeline runs
-on the device; `pod_cost` prices pod-hours.
+on the device; `pod_cost` prices pod-hours.  `pods_breakdown` is the
+host numpy sizing of a whole `ScenarioSet` (the joint device + backend
+front's), `size_fleet` / `fleet_grid` its per-scenario rows.
 """
 from __future__ import annotations
 
 import json
+from dataclasses import dataclass, field
 from pathlib import Path
 
 import numpy as np
 import torch
+
+from . import aria2, scenarios
+from .aria2 import Scenario
+from .scenarios import ScenarioSet
 
 RESULTS = Path(__file__).resolve().parents[3] / "results"
 
@@ -61,6 +68,10 @@ KGCO2_PER_KWH = 0.30            # grid-average carbon intensity
 POD_CAPEX_USD_PER_HOUR = 260.0  # pod price amortized over service life
 
 
+def usd_per_pod_hour() -> float:
+    return POD_CAPEX_USD_PER_HOUR + POD_POWER_KW * USD_PER_KWH
+
+
 def pod_cost(pod_hours) -> dict:
     """pod-hours -> {pod_hours, energy_kwh, usd, kgco2}.
 
@@ -76,6 +87,41 @@ def pod_cost(pod_hours) -> dict:
     if np.ndim(pod_hours) == 0:
         return {k: float(v) for k, v in out.items()}
     return out
+
+
+def _check_fleet_args(n_users: float, duty: float) -> None:
+    """Shared validation for every fleet-sizing entry: a non-positive
+    user count or an out-of-range duty would zero (or negate) every pod
+    figure downstream."""
+    if not n_users > 0:
+        raise ValueError(f"n_users must be > 0, got {n_users}")
+    if not 0.0 <= duty <= 1.0:
+        raise ValueError(f"duty={duty} outside [0, 1]")
+
+
+@dataclass(frozen=True)
+class BackendDemand:
+    stream: str
+    arch: str
+    cell: str
+    tokens_per_user_s: float
+    offloaded: bool
+
+
+def backend_demand(sc: Scenario) -> list[BackendDemand]:
+    """Which backend services are active for a device scenario."""
+    on = sc.placements()
+    rows = []
+    rows.append(BackendDemand("rgb", *STREAM_SERVICE["rgb"][:2],
+                              STREAM_SERVICE["rgb"][2], True))  # RGB always
+    rows.append(BackendDemand(
+        "audio", *STREAM_SERVICE["audio"][:2], STREAM_SERVICE["audio"][2],
+        not on["asr"]))           # ASR off-device -> backend transcribes
+    rows.append(BackendDemand("signals", *STREAM_SERVICE["signals"][:2],
+                              STREAM_SERVICE["signals"][2], True))
+    rows.append(BackendDemand("context", *STREAM_SERVICE["context"][:2],
+                              STREAM_SERVICE["context"][2], True))
+    return rows
 
 
 def _shape_tokens(shape: str) -> float:
@@ -144,6 +190,152 @@ def capacity_table(results_dir=None) -> CapacityTable:
     if key not in _TABLES:
         _TABLES[key] = CapacityTable(key)
     return _TABLES[key]
+
+
+def size_fleet(sc: Scenario, n_users: float = 1e6,
+               duty: float = 0.35, results_dir=None) -> list[dict]:
+    """Pods needed to serve n_users wearables in scenario `sc`.
+
+    duty = fraction of the day streams are active; the scenario's own
+    upload_duty gating throttles ingest on top, as in `pods_breakdown`.
+    Rows sized from the fallback capacity carry
+    note="missing_artifact"; pods are always finite."""
+    _check_fleet_args(n_users, duty)
+    rows = []
+    eff_duty = duty * getattr(sc, "upload_duty", 1.0)
+    table = capacity_table(results_dir)
+    for d in backend_demand(sc):
+        if not d.offloaded:
+            rows.append({"stream": d.stream, "arch": d.arch,
+                         "pods": 0.0, "note": "computed on-device"})
+            continue
+        demand = n_users * eff_duty * d.tokens_per_user_s
+        if d.stream == "rgb":           # frame-driven VLM ingest
+            demand /= max(sc.fps_scale, 1.0)
+        arch, cell, cap, source = table.resolve(
+            STREAM_CANDIDATES.get(d.stream, ((d.arch, d.cell),)))
+        row = {
+            "stream": d.stream, "arch": arch, "cell": cell,
+            "tokens_per_s": demand,
+            "pod_tokens_per_s": round(cap, 1),
+            "pods": round(demand / cap, 1),
+        }
+        if source == "fallback":
+            row["note"] = "missing_artifact"    # sized from FALLBACK_BOUND_S
+        rows.append(row)
+    return rows
+
+
+def offload_summary(sc: Scenario, device="cuda") -> dict:
+    """Device-side uplink vs backend-side ingest for a scenario."""
+    return {
+        "scenario": sc.name,
+        "uplink_mbps": round(float(aria2.offloaded_mbps(sc, device)), 2),
+        "device_mw": round(float(aria2.total_mw(sc, device=device)), 1),
+        "backend": [d.__dict__ for d in backend_demand(sc)],
+    }
+
+
+@dataclass
+class PodsBreakdown:
+    """Vectorized fleet sizing with per-stream pod components.
+
+    Arrays share the ScenarioSet's leading dim N.  `active[s][i]` is True
+    where stream s reaches the backend for design point i (audio only
+    when ASR is off-device), so fallback capacities of inactive streams
+    raise no ``missing_artifact`` flag."""
+    pods: np.ndarray                # (N,) total backend pods
+    by_stream: dict                 # stream -> (N,) pods
+    archs: dict                     # stream -> chosen serving arch
+    cells: dict                     # stream -> shape cell of that arch
+    sources: dict                   # stream -> "dryrun" | "fallback"
+    active: dict = field(default_factory=dict)   # stream -> (N,) bool
+
+    def missing_streams(self) -> list[str]:
+        """Fallback-sized streams that are active in >= 1 design point."""
+        return [s for s, src in self.sources.items()
+                if src == "fallback" and bool(np.any(self.active[s]))]
+
+    def missing_row(self, i: int) -> list[str]:
+        """Fallback-sized streams active for design point i."""
+        return [s for s, src in self.sources.items()
+                if src == "fallback" and bool(self.active[s][i])]
+
+    def row(self, i: int) -> dict:
+        """stream -> pods for design point i (rounded display values)."""
+        return {s: round(float(p[i]), 1) for s, p in self.by_stream.items()}
+
+
+def pods_breakdown(sset: ScenarioSet, n_users: float = 1e6,
+                   duty: float = 0.35, results_dir=None) -> PodsBreakdown:
+    """Per-stream backend pods for a whole ScenarioSet, numpy float64 on
+    the host (no loop over scenarios): each stream's min-pods
+    STREAM_CANDIDATES cell, audio masked where ASR runs on-device,
+    upload_duty gating ingest, RGB->VLM ingest scaled down with the
+    frame-rate knob."""
+    _check_fleet_args(n_users, duty)
+    table = capacity_table(results_dir)
+    asr_on = np.asarray(sset.placement, np.float64)[
+        :, sset.primitives.index("asr")]
+    fps = np.maximum(np.asarray(sset.fps_scale, np.float64), 1.0)
+    gate = n_users * duty * np.asarray(sset.upload_duty, np.float64)
+    ones = np.ones(len(sset), np.float64)
+    by, archs, cells, sources, active = {}, {}, {}, {}, {}
+    for s, (arch0, cell0, tok) in STREAM_SERVICE.items():
+        arch, cell, cap, source = table.resolve(
+            STREAM_CANDIDATES.get(s, ((arch0, cell0),)))
+        archs[s], cells[s], sources[s] = arch, cell, source
+        if s == "rgb":
+            by[s] = gate * (tok / cap) / fps
+            active[s] = ones > 0.0
+        elif s == "audio":
+            by[s] = gate * (tok / cap) * (1.0 - asr_on)
+            active[s] = asr_on < 0.5
+        else:
+            by[s] = gate * (tok / cap) * ones
+            active[s] = ones > 0.0
+    pods = np.sum(np.stack(list(by.values())), axis=0)
+    return PodsBreakdown(pods, by, archs, cells, sources, active)
+
+
+def pods_vector(sset: ScenarioSet, n_users: float = 1e6, duty: float = 0.35,
+                results_dir=None) -> tuple[np.ndarray, dict]:
+    """((N,) backend pods, stream -> "dryrun" | "fallback") for a whole
+    ScenarioSet (see `pods_breakdown`)."""
+    bd = pods_breakdown(sset, n_users, duty, results_dir)
+    return bd.pods, bd.sources
+
+
+def missing_streams(sources: dict) -> list[str]:
+    """Streams whose capacity came from the fallback path (the raw
+    per-source view; `PodsBreakdown.missing_streams` knows which are
+    active)."""
+    return [s for s, src in sources.items() if src == "fallback"]
+
+
+def fleet_grid(sset: ScenarioSet, n_users: float = 1e6, duty: float = 0.35,
+               results_dir=None, platform=None, device="cuda") -> list[dict]:
+    """Fleet sizing for a whole ScenarioSet off one batched evaluation
+    on `device`: device power, gated uplink, total backend pods and the
+    per-stream pods of each scenario."""
+    plat = platform or aria2.aria2_platform()
+    rep = scenarios.evaluate(plat, sset, device=device)
+    totals = rep.total_mw.cpu().numpy()
+    mbps = rep.offloaded_mbps.cpu().numpy()
+    bd = pods_breakdown(sset, n_users, duty, results_dir)
+    out = []
+    for i in range(len(sset)):
+        missing = bd.missing_row(i)
+        out.append({
+            "scenario": sset.label(i),
+            "device_mw": round(float(totals[i]), 1),
+            "uplink_mbps": round(float(mbps[i]), 2),
+            "backend_pods": round(float(bd.pods[i]), 1),
+            "pods_by_stream": bd.row(i),
+            **({"note": "missing_artifact:" + "+".join(missing)}
+               if missing else {}),
+        })
+    return out
 
 
 def stream_rates(results_dir=None) -> dict:

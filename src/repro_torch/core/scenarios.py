@@ -13,6 +13,7 @@ maps a single-row function over the batch.
     sset = ScenarioSet.grid()                    # 768 design points
     rep = evaluate(platform, sset, device="cuda")
     rep.total_mw                                 # (768,) tensor
+    rep.category_breakdown()["wireless"]         # (768,) tensor
 
 Every expression keeps the reference engine's operation order.  Where
 a Python number is the dividend it is lifted to a tensor first
@@ -99,6 +100,15 @@ class ScenarioSet:
             "brightness": f32(self.brightness),
         }
 
+    def on_device(self, i: int) -> tuple:
+        return tuple(p for j, p in enumerate(self.primitives)
+                     if self.placement[i, j] > 0.5)
+
+    def label(self, i: int) -> str:
+        if self.names and i < len(self.names) and self.names[i]:
+            return self.names[i]
+        return "+".join(self.on_device(i)) or "(none)"
+
     # -- constructors -------------------------------------------------------
     @classmethod
     def build(cls, rows: list, primitives=PRIMITIVES) -> "ScenarioSet":
@@ -129,6 +139,17 @@ class ScenarioSet:
             names.append(r.get("name", ""))
         return cls(pl, comp, fps, mcs, duty, bright, tuple(names),
                    primitives)
+
+    @classmethod
+    def from_scenarios(cls, scenarios, primitives=PRIMITIVES):
+        """From `aria2.Scenario` objects."""
+        return cls.build([{
+            "name": s.name, "on_device": s.on_device,
+            "compression": s.compression, "fps_scale": s.fps_scale,
+            "mcs_tier": getattr(s, "mcs_tier", DEFAULT_MCS),
+            "upload_duty": getattr(s, "upload_duty", 1.0),
+            "brightness": getattr(s, "brightness", 0.0),
+        } for s in scenarios], primitives)
 
     @classmethod
     def grid(cls, placements=None, compressions=GRID_COMPRESSIONS,
@@ -179,6 +200,44 @@ class ScenarioSet:
             return _dc_replace(padded, names=tuple(self.names)
                                + ("",) * (n_rows - n))
         return padded
+
+    def row_matrix(self) -> np.ndarray:
+        """(N, n_prim + 5) float64 matrix of every knob column, the
+        canonical row identity used for deduplication."""
+        return np.column_stack([
+            np.asarray(self.placement, np.float64),
+            np.asarray(self.compression, np.float64),
+            np.asarray(self.fps_scale, np.float64),
+            np.asarray(self.mcs_tier, np.float64),
+            np.asarray(self.upload_duty, np.float64),
+            np.asarray(self.brightness, np.float64)])
+
+    def dedupe(self) -> tuple:
+        """(unique ScenarioSet, inverse indices): `inverse` maps every
+        original row to its unique representative, so
+        `evaluate(plat, unique).total_mw[inverse]` recovers the full
+        batch from one call on the unique rows."""
+        _, first, inverse = np.unique(self.row_matrix(), axis=0,
+                                      return_index=True,
+                                      return_inverse=True)
+        return self.take(first), inverse.reshape(-1)
+
+    def with_knob(self, **arrays) -> "ScenarioSet":
+        """Replace whole knob columns (broadcast scalars over N)."""
+        n = len(self)
+        if "mcs_tier" in arrays:
+            tiers = np.asarray(arrays["mcs_tier"])
+            if tiers.min() < 0 or tiers.max() >= len(MCS_TIERS):
+                raise ValueError(f"mcs_tier out of range "
+                                 f"[0, {len(MCS_TIERS)})")
+        for knob in ("upload_duty", "brightness"):
+            if knob in arrays:
+                _unit_knob(knob, arrays[knob])
+        upd = {k: np.broadcast_to(np.asarray(v, np.float32), (n,)).copy()
+               if k != "mcs_tier"
+               else np.broadcast_to(np.asarray(v, np.int32), (n,)).copy()
+               for k, v in arrays.items()}
+        return _dc_replace(self, **upd)
 
 
 # ---------------------------------------------------------------------------
@@ -390,13 +449,25 @@ def batched_fn(platform: PlatformSpec):
 
 
 def _theta(platform: PlatformSpec, theta=None, device="cuda") -> dict:
-    """Platform theta merged with overrides, as 0-dim float32 tensors."""
+    """Platform theta merged with overrides, as 0-dim float32 tensors.
+    An override that is already a tensor is cast, not copied, so
+    autograd reaches it (`dse.sensitivity`)."""
     dev = _device.resolve(device)
     th = platform.theta_dict()
     if theta:
         th.update(theta)
-    return {k: torch.tensor(float(np.float32(v)), dtype=torch.float32,
-                            device=dev) for k, v in th.items()}
+    return {k: v.to(device=dev, dtype=torch.float32)
+            if isinstance(v, torch.Tensor)
+            else torch.tensor(float(np.float32(v)), dtype=torch.float32,
+                              device=dev) for k, v in th.items()}
+
+
+def evaluate_batched(platform: PlatformSpec, vec: dict, theta=None) -> dict:
+    """Batch evaluation on a raw knob vector (`ScenarioSet.vec`), on the
+    vector's device: {"loads": (N, C), "pd_loss": (N,), "total": (N,),
+    "mbps": (N,)}.  Theta overrides may be tensors."""
+    return batched_fn(platform)(
+        vec, _theta(platform, theta, vec["compression"].device))
 
 
 @dataclass
@@ -408,6 +479,40 @@ class BatchReport:
     total_mw: torch.Tensor          # (N,)
     pd_loss_mw: torch.Tensor        # (N,)
     offloaded_mbps: torch.Tensor    # (N,)
+
+    def category_breakdown(self) -> dict:
+        """category -> (N,) mW; PD losses land under "power" (Fig 3).
+        Each category sums its own columns (the reference's product with
+        a 0/1 mask, without a matrix product that the card could run in
+        TF32)."""
+        out: dict = {}
+        cats = np.array([c.category for c in self.platform.components])
+        for cat in sorted(set(cats)):
+            idx = torch.as_tensor(np.flatnonzero(cats == cat),
+                                  device=self.loads_mw.device)
+            out[cat] = torch.sum(self.loads_mw[:, idx], dim=1)
+        out["power"] = out.get("power", 0.0) + self.pd_loss_mw
+        return out
+
+    def pd_share(self) -> torch.Tensor:
+        return self.pd_loss_mw / self.total_mw
+
+    def component_loads(self, i: int) -> dict:
+        names = self.platform.component_names()
+        row = self.loads_mw[i].detach().cpu().numpy()
+        return dict(zip(names, row.tolist()))
+
+    def rows(self) -> list:
+        """Host-side summary rows (one copy to the host for the batch)."""
+        total = self.total_mw.detach().cpu().numpy()
+        mbps = self.offloaded_mbps.detach().cpu().numpy()
+        return [{"name": self.sset.label(i),
+                 "on_device": "+".join(self.sset.on_device(i)) or "(none)",
+                 "compression": float(self.sset.compression[i]),
+                 "fps_scale": float(self.sset.fps_scale[i]),
+                 "total_mw": float(total[i]),
+                 "offload_mbps": float(mbps[i])}
+                for i in range(len(self.sset))]
 
 
 def _validate(platform: PlatformSpec, sset: ScenarioSet) -> None:
@@ -432,3 +537,26 @@ def evaluate(platform: PlatformSpec, sset: ScenarioSet, theta=None,
                                _theta(platform, theta, device))
     return BatchReport(platform, sset, out["loads"], out["total"],
                        out["pd_loss"], out["mbps"])
+
+
+def total_mw(platform: PlatformSpec, sset: ScenarioSet, theta=None,
+             device="cuda") -> torch.Tensor:
+    """(N,) delivered system power."""
+    return evaluate(platform, sset, theta, device).total_mw
+
+
+def component_loads(platform: PlatformSpec, sset: ScenarioSet, theta=None,
+                    device="cuda") -> torch.Tensor:
+    """(N, n_components) component loads (pre-PD), names aligned."""
+    return evaluate(platform, sset, theta, device).loads_mw
+
+
+def offloaded_mbps(platform: PlatformSpec, sset: ScenarioSet, theta=None,
+                   device="cuda") -> torch.Tensor:
+    """(N,) duty-gated average uplink rate."""
+    return evaluate(platform, sset, theta, device).offloaded_mbps
+
+
+def category_breakdown(platform: PlatformSpec, sset: ScenarioSet,
+                       theta=None, device="cuda") -> dict:
+    return evaluate(platform, sset, theta, device).category_breakdown()

@@ -23,10 +23,13 @@ neighbouring addresses at every step:
     const                           {key: (N,) float32}, keys CONST_KEYS
 
 Both return {name: (N, T)} for `OUTS` (transposed views of the (T, N)
-buffers; `level` int32).  The level tables are taken at the integer
+buffers; `level` int32), or with ``full=True`` for all of `TRACE_OUTS`
+(the full-trace mode `daysim.simulate` runs: the kernel's second
+compile-time variant).  The level tables are taken at the integer
 throttle level, where the reference's `take_linear` / hat-weight gather
-is exact.  `LAUNCHES` counts kernel launches (the plain version never
-bumps it).  `probe_launch` runs the kernel's probe modes (built with
+is exact.  `LAUNCHES` counts kernel launches of both modes,
+`FULL_LAUNCHES` those of the full-trace mode (the plain version bumps
+neither).  `probe_launch` runs the kernel's probe modes (built with
 ``-DDAY_SCAN_PROBE``) for `scripts/kernel_probe.py` and does not count.
 """
 from __future__ import annotations
@@ -41,6 +44,10 @@ from ..core.design import ste_gt, ste_lt
 # outputs, the subset the day summary reads
 OUTS = ("soc", "soc_p", "t_skin", "t_skin_p", "shut", "level", "pods",
         "drain_mw", "drain_p_mw")
+# the full-trace mode's: all 17 outputs of the reference's
+# daysim._step_math (the latches th_state / soc_state as 0 / 1)
+TRACE_OUTS = OUTS + ("t_soc", "t_soc_p", "th_state", "soc_state", "p_mw",
+                     "p_p_mw", "act", "alive")
 
 # per-combo constants in sorted key order: the rows of the kernel's
 # (C, N) constant matrix (enum ConstRow in csrc/day_scan.cu)
@@ -57,7 +64,8 @@ MAX_LEVELS = 16             # largest L the kernel takes
 TABLE_KEYS = ("step_mw", "step_mw_p", "step_pods")
 ROW_KEYS = ("ambient", "active", "valid", "charge", "charge_p")
 
-LAUNCHES = 0                # kernel launches in this process
+LAUNCHES = 0                # kernel launches in this process, both modes
+FULL_LAUNCHES = 0           # those of the full-trace mode
 
 
 def _shape(tables: dict) -> tuple:
@@ -86,15 +94,16 @@ def _check(tables: dict) -> None:
             raise ValueError(f"const {k}: want float32 ({n},) on {dev}")
 
 
-def day_scan(tables: dict) -> dict:
+def day_scan(tables: dict, full: bool = False) -> dict:
     """Integrate the day tables: the plain version for CPU tensors, the
-    CUDA kernel for CUDA tensors, an error for anything else."""
+    CUDA kernel for CUDA tensors, an error for anything else.  Returns
+    `OUTS`, or `TRACE_OUTS` when `full`."""
     _check(tables)
     dev = tables["step_mw"].device
     if dev.type == "cpu":
-        return day_scan_plain(tables)
+        return day_scan_plain(tables, full)
     if dev.type == "cuda":
-        return _day_scan_cuda(tables)
+        return _day_scan_cuda(tables, full)
     raise ValueError(f"day_scan runs on cpu or cuda tensors, got {dev}")
 
 
@@ -115,9 +124,10 @@ def _node_step(soc, t_soc, t_skin, p_mw, charge_mw, amb, pre, c):
     return soc_n, t_soc_n, t_skin_n, drain_mw
 
 
-def day_scan_plain(tables: dict) -> dict:
+def day_scan_plain(tables: dict, full: bool = False) -> dict:
     """The plain PyTorch version: daysim._step_math over a combo batch,
-    a Python loop over T, on whatever device the tables are on."""
+    a Python loop over T, on whatever device the tables are on; `OUTS`,
+    or `TRACE_OUTS` when `full`."""
     _check(tables)
     n, t_steps, _ = _shape(tables)
     c = tables["const"]
@@ -128,7 +138,7 @@ def day_scan_plain(tables: dict) -> dict:
     soc, soc_p = one, one
     t_soc, t_skin, t_soc_p, t_skin_p = amb0, amb0, amb0, amb0
     th_state, soc_state, shut = zero, zero, zero
-    out = {k: [] for k in OUTS}
+    out = {k: [] for k in (TRACE_OUTS if full else OUTS)}
     for t in range(t_steps):
         # hysteresis triggers evaluate on the previous step's state
         trip_t = ste_gt(t_skin, c["temp_trip"])
@@ -160,11 +170,15 @@ def day_scan_plain(tables: dict) -> dict:
             soc_p, t_soc_p, t_skin_p, p_p_mw, tables["charge_p"][t], amb,
             "p_", c)
         pods = act * tables["step_pods"][t][lv, cols] * alive
-        for k, v in (("soc", soc), ("soc_p", soc_p), ("t_skin", t_skin),
-                     ("t_skin_p", t_skin_p), ("shut", shut),
-                     ("level", lv.to(torch.int32)), ("pods", pods),
-                     ("drain_mw", drain_mw), ("drain_p_mw", drain_p_mw)):
-            out[k].append(v)
+        step = {"soc": soc, "soc_p": soc_p, "t_skin": t_skin,
+                "t_skin_p": t_skin_p, "shut": shut,
+                "level": lv.to(torch.int32), "pods": pods,
+                "drain_mw": drain_mw, "drain_p_mw": drain_p_mw,
+                "t_soc": t_soc, "t_soc_p": t_soc_p, "th_state": th_state,
+                "soc_state": soc_state, "p_mw": p_mw, "p_p_mw": p_p_mw,
+                "act": act, "alive": alive}
+        for k, v in out.items():
+            v.append(step[k])
     return {k: torch.stack(v).t() for k, v in out.items()}
 
 
@@ -186,7 +200,8 @@ def _node_step_staged(soc, t_soc, t_skin, p_mw, charge_dsoc, amb, pre, c):
     return soc_n, t_soc_n, t_skin_n, drain_mw
 
 
-def day_scan_staged_plain(tables: dict, chunk: int) -> dict:
+def day_scan_staged_plain(tables: dict, chunk: int,
+                          full: bool = False) -> dict:
     """The kernel's split in plain PyTorch (tests only).  Per chunk of
     `chunk` steps the state-independent products are formed first for
     every level (the prep warp's work): act = active * act_mult,
@@ -194,7 +209,7 @@ def day_scan_staged_plain(tables: dict, chunk: int) -> dict:
     charge * dsoc_coeff for both nodes.  Then the chain runs on them with
     boolean latches, an integer level and a gather at it.  Every operation
     and operand order is `day_scan_plain`'s, so every output is bit-equal
-    to it."""
+    to it, in both modes (`full`: act at the level is the prep's act_l)."""
     _check(tables)
     n, t_steps, _ = _shape(tables)
     c = tables["const"]
@@ -207,7 +222,7 @@ def day_scan_staged_plain(tables: dict, chunk: int) -> dict:
     th_state = soc_state = torch.zeros_like(amb0, dtype=torch.bool)
     shut = zero
     max_lv = c["max_level"].long()
-    out = {k: [] for k in OUTS}
+    out = {k: [] for k in (TRACE_OUTS if full else OUTS)}
     for t0 in range(0, t_steps, chunk):
         rows = slice(t0, t0 + chunk)
         act = tables["active"][rows, None, :] * tables["act_mult"]
@@ -241,16 +256,24 @@ def day_scan_staged_plain(tables: dict, chunk: int) -> dict:
             soc_p, t_soc_p, t_skin_p, drain_p_mw = _node_step_staged(
                 soc_p, t_soc_p, t_skin_p, p_p_mw, cd_p[j], amb, "p_", c)
             pods = pre_pods[j][lv, cols] * alive
-            for k, v in (("soc", soc), ("soc_p", soc_p), ("t_skin", t_skin),
-                         ("t_skin_p", t_skin_p), ("shut", shut),
-                         ("level", lv.to(torch.int32)), ("pods", pods),
-                         ("drain_mw", drain_mw),
-                         ("drain_p_mw", drain_p_mw)):
-                out[k].append(v)
+            step = {"soc": soc, "soc_p": soc_p, "t_skin": t_skin,
+                    "t_skin_p": t_skin_p, "shut": shut,
+                    "level": lv.to(torch.int32), "pods": pods,
+                    "drain_mw": drain_mw, "drain_p_mw": drain_p_mw}
+            if full:
+                step.update(t_soc=t_soc, t_soc_p=t_soc_p,
+                            th_state=th_state.float(),
+                            soc_state=soc_state.float(), p_mw=p_mw,
+                            p_p_mw=p_p_mw, act=act[j][lv, cols],
+                            alive=alive)
+            for k, v in out.items():
+                v.append(step[k])
     return {k: torch.stack(v).t() for k, v in out.items()}
 
 
-_ARGTYPES = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+def _argtypes(n_outs: int) -> list:
+    return [ctypes.c_void_p] * (10 + n_outs) + [ctypes.c_int] * 4 \
+        + [ctypes.c_void_p]
 
 
 def _lib():
@@ -258,25 +281,28 @@ def _lib():
     return build.load("day_scan")
 
 
-@functools.lru_cache(maxsize=1)
-def _entry():
-    fn = _lib().day_scan_launch
-    fn.argtypes = _ARGTYPES
+@functools.lru_cache(maxsize=2)
+def _entry(full: bool):
+    lib = _lib()
+    fn = lib.day_scan_full_launch if full else lib.day_scan_launch
+    fn.argtypes = _argtypes(len(TRACE_OUTS if full else OUTS))
     fn.restype = ctypes.c_int
     return fn
 
 
-def chunk_steps(n_lvl: int) -> int:
+def chunk_steps(n_lvl: int, full: bool = False) -> int:
     """Steps of one chunk of the kernel's shared-memory rings at L levels
-    (builds the kernel on first use)."""
+    in the default or the full-trace mode (builds the kernel on first
+    use)."""
     fn = _lib().day_scan_chunk_steps
-    fn.argtypes = [ctypes.c_int]
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
     fn.restype = ctypes.c_int
-    return fn(n_lvl)
+    return fn(n_lvl, int(full))
 
 
-def _launch(fn, tables: dict, *extra) -> dict:
-    """Call the C entry `fn` on the tables; returns the (T, N) outputs."""
+def _launch(fn, tables: dict, *extra, outs_keys=OUTS) -> dict:
+    """Call the C entry `fn` on the tables; returns the (T, N) outputs
+    `outs_keys`, in the entry's order."""
     n, t_steps, n_lvl = _shape(tables)
     if n_lvl > MAX_LEVELS:
         raise ValueError(f"day_scan kernel takes at most {MAX_LEVELS} "
@@ -288,14 +314,14 @@ def _launch(fn, tables: dict, *extra) -> dict:
     ins.append(torch.stack([tables["const"][k] for k in CONST_KEYS]))
     outs = {k: torch.empty((t_steps, n), device=dev,
                            dtype=torch.int32 if k == "level"
-                           else torch.float32) for k in OUTS}
+                           else torch.float32) for k in outs_keys}
     # `ins` may hold fresh copies that are freed when this returns, while
     # the kernel still runs: the caching allocator only hands their
     # memory to later work on the same stream, which runs after it
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(*[x.data_ptr() for x in ins],
-                 *[outs[k].data_ptr() for k in OUTS],
+                 *[v.data_ptr() for v in outs.values()],
                  n, t_steps, n_lvl, len(CONST_KEYS), stream, *extra)
     if err != 0:
         raise RuntimeError(f"day_scan kernel launch failed: CUDA error "
@@ -303,11 +329,14 @@ def _launch(fn, tables: dict, *extra) -> dict:
     return outs
 
 
-def _day_scan_cuda(tables: dict) -> dict:
-    """Launch csrc/day_scan.cu on the current stream (no sync)."""
-    global LAUNCHES
-    outs = _launch(_entry(), tables)
+def _day_scan_cuda(tables: dict, full: bool = False) -> dict:
+    """Launch csrc/day_scan.cu on the current stream (no sync), in the
+    full-trace mode when `full`."""
+    global LAUNCHES, FULL_LAUNCHES
+    outs = _launch(_entry(full), tables,
+                   outs_keys=TRACE_OUTS if full else OUTS)
     LAUNCHES += 1
+    FULL_LAUNCHES += full
     return {k: v.t() for k, v in outs.items()}
 
 
@@ -323,6 +352,6 @@ def probe_launch(tables: dict, mode: str, source: str = "day_scan") -> dict:
     Measurement only: `LAUNCHES` does not count it."""
     from . import build
     fn = build.load(source, ("DAY_SCAN_PROBE",)).day_scan_probe_launch
-    fn.argtypes = _ARGTYPES + [ctypes.c_int]
+    fn.argtypes = _argtypes(len(OUTS)) + [ctypes.c_int]
     fn.restype = ctypes.c_int
     return _launch(fn, tables, PROBE_MODES[mode])

@@ -23,7 +23,8 @@ kernel on the card.
 
 `TwinStats` tracks query and batch counts, latency, and the host
 pipeline-cache hits and misses.  PyTorch runs eagerly, so
-`TwinStats.traces` (the reference's retrace counter) always reads 0.
+`TwinStats.traces` and `exec_hits` / `exec_misses` (the reference's
+retrace and executable counters) always read 0.
 """
 from __future__ import annotations
 
@@ -51,6 +52,8 @@ class TwinStats:
                                 # counts one per signature group)
     pipeline_hits: int = 0      # queries served from a resident pipeline
     pipeline_misses: int = 0    # queries that assembled a new one
+    exec_hits: int = 0          # the reference's executable counters:
+    exec_misses: int = 0        # the port compiles nothing, so both stay 0
     traces: int = 0             # eager PyTorch never traces: stays 0
     last_ms: float = 0.0
     total_ms: float = 0.0

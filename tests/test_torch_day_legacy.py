@@ -205,3 +205,18 @@ def test_compiled_tables_match_reference(schedule, policy):
     for k in power:
         np.testing.assert_allclose(got[k], np.asarray(want[k]), rtol=1e-6,
                                    err_msg=k)
+
+
+def test_day_grid_defaults_to_the_legacy_engine(legacy_day):
+    """`day_grid()` with no engine is the reference's default, legacy:
+    bit-equal to engine="legacy" and to the JAX default in the fields
+    where the fused engine's float32 sums differ."""
+    got = daysim.day_grid(dt_s=DT, device="cpu")
+    legacy = daysim.day_grid(dt_s=DT, engine="legacy", device="cpu")
+    want = j_daysim.day_grid(dt_s=DT)
+    assert got.combos == legacy.combos == want.combos
+    for k in ("pod_hours", "time_to_empty_h", "throttled_h"):
+        np.testing.assert_array_equal(getattr(got, k), getattr(legacy, k))
+        np.testing.assert_array_equal(getattr(got, k), getattr(want, k))
+        np.testing.assert_array_equal(getattr(got, k),
+                                      getattr(legacy_day, k))

@@ -1,7 +1,8 @@
-"""The CUDA kernels (day scan, flash attention, SSD scan) against their
-plain PyTorch versions on the card, and the day scan's three paths
-through the twin: serial, batched (K queries folded into the combo axis)
-and the legacy engine.
+"""The CUDA kernels (day scan in both output modes, flash attention, SSD
+scan) against their plain PyTorch versions on the card, the day scan's
+paths: serial, batched (K queries folded into the combo axis), the
+legacy engine, `simulate_users` and `simulate`, and the joint device +
+backend front on the card against the CPU.
 
 Needs an NVIDIA card with nvcc (the kernels have no CPU mode) and skips
 without one; it imports neither JAX nor the reference package, so it
@@ -91,6 +92,54 @@ def test_kernel_time_edges(cuda, n_lvl, steps):
     want = ds.day_scan_plain(tables)
     torch.cuda.synchronize()
     _assert_all_equal(got, want)
+
+
+def _assert_full_equal(got: dict, want: dict) -> None:
+    """Bit for bit on all 17 outputs of the full-trace mode."""
+    assert tuple(got) == ds.TRACE_OUTS
+    for k in ds.TRACE_OUTS:
+        assert got[k].dtype == want[k].dtype, k
+        assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("n,t,n_lvl", [
+    (64, 700, 3), (63, 700, 3),     # the serving grid's width, ragged
+    (1, 700, 3),                    # simulate's: 31 of 32 lanes masked
+    (33, 129, 16),                  # 16 levels, the smallest chunks
+])
+def test_full_mode_matches_plain(cuda, n, t, n_lvl):
+    """The full-trace mode against its plain version on all 17 outputs,
+    and its first nine against the default mode's, which stays equal to
+    its own plain version."""
+    tables = random_tables(n, t, n_lvl, seed=n + 7, device=cuda)
+    before = (ds.LAUNCHES, ds.FULL_LAUNCHES)
+    got = ds.day_scan(tables, full=True)
+    short = ds.day_scan(tables)
+    assert (ds.LAUNCHES, ds.FULL_LAUNCHES) == (before[0] + 2, before[1] + 1)
+    want = ds.day_scan_plain(tables, full=True)
+    torch.cuda.synchronize()
+    _assert_full_equal(got, want)
+    _assert_all_equal(short, ds.day_scan_plain(tables))
+    for k in ds.OUTS:
+        assert torch.equal(got[k], short[k]), k
+    assert float(want["soc_state"].max()) == 1.0
+    if n > 1:
+        assert float(want["th_state"].max()) == 1.0
+
+
+@pytest.mark.parametrize("n_lvl", [1, 3, 16])
+@pytest.mark.parametrize("steps", ["tc-1", "tc", "tc+1", "9tc+1"])
+def test_full_mode_time_edges(cuda, n_lvl, steps):
+    """T around the full-trace mode's own (smaller) chunk."""
+    tc = ds.chunk_steps(n_lvl, full=True)
+    assert 1 <= tc <= ds.chunk_steps(n_lvl)
+    t = {"tc-1": max(tc - 1, 1), "tc": tc, "tc+1": tc + 1,
+         "9tc+1": 9 * tc + 1}[steps]
+    tables = random_tables(37, t, n_lvl, seed=t + 1, device=cuda)
+    got = ds.day_scan(tables, full=True)
+    want = ds.day_scan_plain(tables, full=True)
+    torch.cuda.synchronize()
+    _assert_full_equal(got, want)
 
 
 def test_kernel_rejects_too_many_levels(cuda):
@@ -381,3 +430,43 @@ def test_simulate_users_on_the_card(cuda, monkeypatch):
         rep.front_mask = dse.non_dominated(rep.objectives(), maximize=(0,))
     assert_reports_match(got, want)
     assert 0 < int(got.shutdown.sum()) < 64
+
+
+@pytest.mark.parametrize("args", [
+    ("rayban_cam", 0, "desk_day", "battery_saver"),
+    ("aria2_puck_split", 1, "field_day", "thermal_governor"),
+])
+def test_simulate_on_the_card(cuda, args):
+    """`simulate` on the card: one full-trace launch at N = 1; discrete
+    traces equal to the same call on the CPU, the others within the
+    reference's tolerance, the summary at rtol 1e-6."""
+    plat, design, schedule, policy = args
+    call = (plat, daysim.DEFAULT_DESIGNS[design], schedule, policy)
+    before = (ds.LAUNCHES, ds.FULL_LAUNCHES)
+    got = daysim.simulate(*call, dt_s=60.0)
+    assert (ds.LAUNCHES, ds.FULL_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    want = daysim.simulate(*call, dt_s=60.0, device="cpu")
+    for k in ("level", "shut", "th_state", "soc_state", "valid"):
+        np.testing.assert_array_equal(getattr(got, k), getattr(want, k),
+                                      err_msg=k)
+    for k in ("soc", "soc_puck", "t_soc_c", "t_skin_c", "t_skin_puck_c",
+              "p_mw", "p_puck_mw", "drain_mw", "drain_puck_mw", "pods"):
+        np.testing.assert_allclose(getattr(got, k), getattr(want, k),
+                                   rtol=1e-6, atol=1e-4, err_msg=k)
+    assert list(got.summary) == list(want.summary)
+    for k, v in want.summary.items():
+        assert got.summary[k] == pytest.approx(v, rel=1e-6), k
+
+
+def test_joint_pareto_on_the_card(cuda):
+    """The 2304-point joint front on the card against the CPU: the same
+    front, objectives at rtol 1e-6, the same co_optimize rows."""
+    got = dse.joint_pareto()
+    want = dse.joint_pareto(device="cpu")
+    np.testing.assert_array_equal(got.front_mask, want.front_mask)
+    np.testing.assert_allclose(got.objectives(), want.objectives(),
+                               rtol=1e-6)
+    for budgets in ({}, {"pod_budget": 40.0}, {"power_budget_mw": 1100.0},
+                    {"usd_budget_per_day": 3.0e5}):
+        assert dse.co_optimize(got, **budgets) == \
+            dse.co_optimize(want, **budgets), budgets

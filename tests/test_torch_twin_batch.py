@@ -305,3 +305,12 @@ def test_non_dominated_torch_batched(q, n, k, maximize, seed):
 def test_non_dominated_torch_rejects_other_ranks():
     with pytest.raises(ValueError, match="objectives"):
         dse.non_dominated_torch(torch.zeros(5))
+
+
+def test_twin_stats_keep_the_reference_counters(twin):
+    """`examples/what_if.py` reads `exec_hits` beside `traces`: the port
+    compiles nothing, so both executable counters stay 0 after queries."""
+    twin.query()
+    st = twin.stats
+    assert st.queries >= 1
+    assert (st.exec_hits, st.exec_misses, st.traces) == (0, 0, 0)
