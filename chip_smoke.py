@@ -56,6 +56,27 @@ Run from the root of a checkout.  Phases (any failure exits non-zero):
         objectives within rtol 1e-6, `co_optimize` rows equal), and the
         rows of `placement_sweep`, `compression_sweep`, `pareto` and
         `platform_ablation` equal to the CPU's;
+     h. the gradient co-design path (examples/gradient_codesign.py's
+        calls): a. `dse.sensitivity_map("aria2")` on the 768-point grid
+        against the CPU (totals rtol 1e-6, every d_mw_d leaf rtol 1e-5 /
+        atol 1e-3 mW) and the relaxed engine bit for bit equal to
+        `evaluate` at the grid's binary rows; b. the 540-step relaxed day
+        (aria2_display / offload_lean / field_day / battery_saver, dt_s =
+        60) and its gradient w.r.t. the policy point against the CPU
+        (tte_h / throttled_frac equal, soft_tte_h rtol 1e-5, gradients
+        rtol GRAD_RTOL with equal signs, d / d soc_trip positive), its
+        tte_h and throttled_frac equal to `simulate`'s (one full-trace
+        launch), at an exactly binary placement its t_skin / soc traces
+        within the trace tolerance of `simulate`'s, and its integrator on
+        `simulate`'s own tables bit for bit equal to the kernel (all 17
+        outputs); c. `dse.optimize_policy` on that day, 4
+        restarts, Adam steps cut from the example's 60 to 8: one
+        full-trace launch for the baseline and one per restart, each held
+        to its plain version (17 outputs), the returned policy's level /
+        shut / time-to-empty equal on the CPU; d. `calibrate.fit_ensemble`
+        (6 restarts x 150 steps) against the CPU from the same starts
+        (losses rtol 1e-3, the same best restart) and `fit_queue_coeff`
+        (rtol 1e-4);
   5. timing: day-scan kernel ms (CUDA events over many launches) at
      N = 64, 1 and 1024 (16 grids folded into N), the full-trace mode's
      at N = 64 and 1 beside its bound, the default mode's chain floor
@@ -65,7 +86,10 @@ Run from the root of a checkout.  Phases (any failure exits non-zero):
      16 (warm, host clock ending in a copy to the host) beside the warm
      serial query, row-stage passes per batch and a profile of one
      K = 16 batch; the joint front's ms (host clock) and a profile of
-     one call;
+     one call; the gradient path: ms per Adam step of 4 h c (host
+     clock) and a profile of one step, `simulate` ms, the example's
+     60-step `optimize_policy` estimated from them, ms per
+     `fit_ensemble` step, `sensitivity_map` ms;
   6. flash-attention and SSD-scan kernels vs their plain versions on the
      card: at the zamba2-1.2b prefill shapes in bf16 and float32, flash
      at a GQA 4:1 + window 96 + ragged-S case at Dh = 128; SSD at the
@@ -112,9 +136,9 @@ Run from the root of a checkout.  Phases (any failure exits non-zero):
      memory, a profile of one prefill.
 
 The second-to-last lines are the `kernels` JSON object (the day scan's
-launches summed over the serial, batched, legacy, simulate_users and
-simulate paths of phase 4, both modes; its max_abs_err covers phase 3
-and the tables of 4 b, d, e and f)
+launches summed over the serial, batched, legacy, simulate_users,
+simulate and gradient paths of phase 4, both modes; its max_abs_err
+covers phase 3 and the tables of 4 b, d, e, f and h)
 and the nvidia-smi line; the last line is the result object.
 """
 from __future__ import annotations
@@ -714,6 +738,305 @@ def steady_state_paths() -> None:
           f"compression_sweep, pareto and platform_ablation rows equal")
 
 
+# phase 4 h: examples/gradient_codesign.py's calls (platform, DEFAULT_DESIGNS
+# index, schedule, policy) at its dt_s; the example's 60 Adam steps of
+# optimize_policy are cut to GRAD_STEPS to bound the phase's time
+GRAD_DAY = ("aria2_display", 0, "field_day", "battery_saver")
+GRAD_DT = 60.0
+GRAD_RESTARTS, GRAD_STEPS, EXAMPLE_STEPS = 4, 8, 60
+ENSEMBLE = (6, 150)             # the example's fit_ensemble(n_restarts, steps)
+# sensitivity rows, card vs CPU (a zero row's gradient to 1e-3 mW)
+SENS_RTOL, SENS_ATOL = 1e-5, 1e-3
+# relaxed-day gradients w.r.t. the policy point, card vs CPU: 2.5e-7
+# relative read in the first card run on an H100, held at 40x that
+GRAD_RTOL, GRAD_ATOL = 1e-5, 1e-6
+# calibration losses (the reference's vmapped-vs-sequential tolerance)
+# and the queue coefficient, card vs CPU
+CAL_RTOL, QUEUE_RTOL = 1e-3, 1e-4
+BINARY_LOGIT = 200.0            # sigmoid(-200) == 0.0 exactly in float32
+
+
+def sensitivity_check() -> None:
+    """Phase 4 h a: the 768-point sensitivity map on the card against
+    the CPU, and the relaxed engine bit for bit equal to the hard one at
+    the grid's binary rows on the card."""
+    import numpy as np
+    import torch
+    from repro_torch.core import dse, scenarios
+    got = dse.sensitivity_map("aria2")
+    want = dse.sensitivity_map("aria2", device="cpu")
+    if len(got["sset"]) != 768:
+        fail(f"sensitivity_map: {len(got['sset'])} points, want 768")
+    rel = float(np.max(np.abs(got["total_mw"] - want["total_mw"])
+                       / np.abs(want["total_mw"])))
+    if not np.allclose(got["total_mw"], want["total_mw"], rtol=TOTAL_RTOL,
+                       atol=0.0):
+        miss(f"sensitivity_map: total_mw {rel:.3g} relative off the CPU's")
+    worst = 0.0
+    for k, w in want["d_mw_d"].items():
+        g = got["d_mw_d"][k]
+        worst = max(worst, float(np.max(np.abs(g - w) / np.maximum(
+            np.abs(w), SENS_ATOL / SENS_RTOL))))
+        if not np.allclose(g, w, rtol=SENS_RTOL, atol=SENS_ATOL):
+            miss(f"sensitivity_map: d_mw_d[{k}] outside rtol {SENS_RTOL} / "
+                 f"atol {SENS_ATOL} of the CPU's")
+    plat = dse._plat("aria2")
+    rep = scenarios.evaluate(plat, got["sset"])
+    out = scenarios.evaluate_relaxed(plat, scenarios.relax_vec(got["sset"]))
+    for k, hard in (("total", rep.total_mw), ("loads", rep.loads_mw),
+                    ("mbps", rep.offloaded_mbps),
+                    ("pd_loss", rep.pd_loss_mw)):
+        if not torch.equal(out[k], hard):
+            fail(f"relaxed engine {k} differs from evaluate's at binary "
+                 f"rows on the card")
+    print(f"gradient path a (sensitivity_map, 768 points): totals within "
+          f"{rel:.3g} relative of the CPU's, every d_mw_d leaf within "
+          f"{worst:.3g} relative; relaxed == evaluate bit for bit on the "
+          f"768 binary rows (loads, totals, Mbps, PD loss)")
+
+
+def relaxed_day_check(ds) -> tuple:
+    """Phase 4 h b: the 540-step relaxed day and its gradient w.r.t. the
+    policy point on the card against the CPU, and against `simulate` on
+    the card (one full-trace launch); returns (launches, the kernel's
+    largest error against its plain version)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import daysim, design
+    plat, d, sched, pol = GRAD_DAY
+    row = daysim.DEFAULT_DESIGNS[d]
+    outs, grads, binary = {}, {}, None
+    for dev in ("cuda", "cpu"):
+        f = daysim.relaxed_day_fn(plat, sched, pol, row, dt_s=GRAD_DT,
+                                  device=dev)
+        pt = {k: v.requires_grad_() for k, v in design.policy_point(
+            daysim.get_policy(pol), dev).items()}
+        outs[dev] = f(pt)
+        grads[dev] = np.asarray([float(g) for g in torch.autograd.grad(
+            outs[dev]["soft_tte_h"], list(pt.values()))])
+        if dev == "cuda":
+            binary = f({**{k: v.detach() for k, v in pt.items()},
+                        "placement_logits": torch.full(
+                            (4,), -BINARY_LOGIT, device=dev)})
+    names = list(design.policy_space().names())
+    with scan_calls(ds) as calls:
+        ds.LAUNCHES = ds.FULL_LAUNCHES = 0
+        tr = daysim.simulate(plat, row, sched, pol, dt_s=GRAD_DT)
+        n, n_full = ds.LAUNCHES, ds.FULL_LAUNCHES
+    if (n, n_full) != (1, 1):
+        fail(f"relaxed day's simulate: {n} launches ({n_full} full trace)")
+    card = {k: v.detach().cpu().numpy() for k, v in outs["cuda"].items()}
+    cpu = {k: v.detach().cpu().numpy() for k, v in outs["cpu"].items()}
+    if len(card["t_skin"]) != 540:
+        fail(f"relaxed day: {len(card['t_skin'])} steps, want 540")
+    tte = tr.summary["time_to_empty_h"]
+    if abs(float(card["tte_h"]) - tte) > 1e-6:
+        fail(f"relaxed day: tte_h {float(card['tte_h'])} != simulate's {tte}")
+    thr = float(np.mean(tr.level > 0))
+    if abs(float(card["throttled_frac"]) - thr) > 1e-7:
+        fail(f"relaxed day: throttled_frac {float(card['throttled_frac'])} "
+             f"!= simulate's {thr}")
+    # at a binary placement the relaxed tables are the hard ones up to
+    # the row sums' order (the relaxed engine sums its 12 rows in one
+    # pass, simulate's row cache its own batch): traces at the trace
+    # tolerance; the eager integrator on simulate's own tables is the
+    # kernel, bit for bit
+    bin_err = 0.0
+    for k, want in (("t_skin", tr.t_skin_c), ("soc", tr.soc)):
+        got = binary[k].detach().cpu().numpy()
+        bin_err = max(bin_err, float(np.max(np.abs(got - want))))
+        if not np.allclose(got, want, rtol=TRACE_RTOL, atol=TRACE_ATOL):
+            miss(f"relaxed day at a binary placement: {k} outside rtol "
+                 f"{TRACE_RTOL} / atol {TRACE_ATOL} of simulate's")
+    (tables, ys), = calls
+    one = {k: v[..., 0] for k, v in tables.items() if k != "const"}
+    one["const"] = {k: v[0] for k, v in tables["const"].items()}
+    eager = daysim._integrate_one(one)
+    for k in ds.TRACE_OUTS:
+        if not torch.equal(eager[k], ys[k][0]):
+            fail(f"relaxed day's integrator on simulate's tables: {k} "
+                 f"differs from the kernel's")
+    for k in ("tte_h", "throttled_frac"):
+        if card[k] != cpu[k]:
+            fail(f"relaxed day: {k} on the card differs from the CPU's")
+    soft_rel = abs(float(card["soft_tte_h"]) - float(cpu["soft_tte_h"])) \
+        / abs(float(cpu["soft_tte_h"]))
+    if soft_rel > 1e-5:
+        miss(f"relaxed day: soft_tte_h {soft_rel:.3g} relative off the CPU's")
+    g_card, g_cpu = grads["cuda"], grads["cpu"]
+    g_rel = float(np.max(np.abs(g_card - g_cpu)
+                         / np.maximum(np.abs(g_cpu), GRAD_ATOL)))
+    if not np.allclose(g_card, g_cpu, rtol=GRAD_RTOL, atol=GRAD_ATOL):
+        miss(f"relaxed day: gradient {dict(zip(names, g_card))} outside "
+             f"rtol {GRAD_RTOL} of the CPU's {dict(zip(names, g_cpu))}")
+    live = np.abs(g_cpu) > GRAD_ATOL
+    if not np.array_equal(np.sign(g_card[live]), np.sign(g_cpu[live])):
+        fail("relaxed day: a gradient's sign differs from the CPU's")
+    if not g_card[names.index("soc_trip")] > 0.0:
+        fail("relaxed day: d soft_tte_h / d soc_trip is not positive")
+    worst = held_to_plain("relaxed day's simulate", calls)
+    print(f"gradient path b (relaxed_day_fn {plat}/{sched}/{pol}, dt_s = "
+          f"{GRAD_DT:g}, 540 steps): tte_h {float(card['tte_h']):.4f} and "
+          f"throttled_frac {float(card['throttled_frac']):.6f} equal to "
+          f"simulate's and the CPU's; at a binary placement t_skin / soc "
+          f"within {bin_err:.3g} of simulate's; the eager integrator on "
+          f"simulate's tables == the kernel on all 17 outputs; soft_tte_h "
+          f"{float(card['soft_tte_h']):.6f} ({soft_rel:.3g} relative off "
+          f"the CPU); d soft_tte_h / d point "
+          + ", ".join(f"{k} {g:+.6g}" for k, g in zip(names, g_card))
+          + f" ({g_rel:.3g} relative off the CPU, signs equal)")
+    return n, worst
+
+
+def optimize_policy_check(ds) -> tuple:
+    """Phase 4 h c: the example's `optimize_policy` on the card (Adam
+    steps cut to GRAD_STEPS): one full-trace launch for the baseline and
+    one per hardened restart, each held to its plain version; the
+    returned policy re-simulated on the CPU.  Returns (launches, the
+    kernel's largest error, the call's wall s, the result)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import daysim, dse
+    plat, d, sched, pol = GRAD_DAY
+    row = daysim.DEFAULT_DESIGNS[d]
+    with scan_calls(ds) as calls:
+        ds.LAUNCHES = ds.FULL_LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt = dse.optimize_policy(plat, row, sched, pol,
+                                  n_restarts=GRAD_RESTARTS,
+                                  steps=GRAD_STEPS, dt_s=GRAD_DT)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n, n_full = ds.LAUNCHES, ds.FULL_LAUNCHES
+    if (n, n_full) != (1 + GRAD_RESTARTS, 1 + GRAD_RESTARTS):
+        fail(f"optimize_policy: {n} launches ({n_full} full trace), want "
+             f"{1 + GRAD_RESTARTS} full-trace launches")
+    worst = held_to_plain("optimize_policy", calls)
+    # the returned policy on the CPU against the card (a check launch)
+    args = (plat, row, sched, opt["policy"])
+    cpu = daysim.simulate(*args, dt_s=GRAD_DT, device="cpu")
+    card = daysim.simulate(*args, dt_s=GRAD_DT)
+    for k in ("level", "shut"):
+        if not np.array_equal(getattr(card, k), getattr(cpu, k)):
+            fail(f"optimize_policy: the returned policy's {k} on the CPU "
+                 f"differs from the card's")
+    tte = cpu.summary["time_to_empty_h"]
+    if not tte == card.summary["time_to_empty_h"] == opt["tte_h"]:
+        fail(f"optimize_policy: time_to_empty_h {opt['tte_h']} (card) vs "
+             f"{tte} (CPU)")
+    b = opt["baseline"]
+    print(f"gradient path c (optimize_policy {plat}/{sched}/{pol}, "
+          f"{GRAD_RESTARTS} restarts x {GRAD_STEPS} Adam steps, dt_s = "
+          f"{GRAD_DT:g}): {n} full-trace launches, each == plain (17 "
+          f"outputs); grid policy tte {b['tte_h']:.3f} h peak "
+          f"{b['peak_skin_c']:.3f} C -> trips T={opt['policy'].temp_trip_c:.2f}"
+          f" C SoC={opt['policy'].soc_trip:.3f}, tte {opt['tte_h']:.3f} h "
+          f"peak {opt['peak_skin_c']:.3f} C (gain {opt['gain_h']:+.3f} h, "
+          f"feasible {opt['feasible']}); level / shut / tte equal on the "
+          f"CPU; {wall:.2f} s wall")
+    return n, worst, wall, opt
+
+
+def calibration_check() -> None:
+    """Phase 4 h d: the example's `fit_ensemble` and `fit_queue_coeff`
+    on the card against the CPU, from the same start points."""
+    import numpy as np
+    from repro_torch.core import calibrate
+    r, steps = ENSEMBLE
+    got = calibrate.fit_ensemble(n_restarts=r, steps=steps)
+    want = calibrate.fit_ensemble(n_restarts=r, steps=steps, device="cpu")
+    rel = float(np.max(np.abs(got["losses"] - want["losses"])
+                       / np.abs(want["losses"])))
+    if not np.allclose(got["losses"], want["losses"], rtol=CAL_RTOL):
+        miss(f"fit_ensemble: losses {got['losses']} outside rtol {CAL_RTOL} "
+             f"of the CPU's {want['losses']}")
+    best = int(np.argmin(got["losses"]))
+    if best != int(np.argmin(want["losses"])):
+        miss(f"fit_ensemble: best restart {best} on the card, "
+             f"{int(np.argmin(want['losses']))} on the CPU")
+    q, q_cpu = calibrate.fit_queue_coeff(), \
+        calibrate.fit_queue_coeff(device="cpu")
+    q_rel = abs(q["queue_mw_per_duty"] - q_cpu["queue_mw_per_duty"]) \
+        / q_cpu["queue_mw_per_duty"]
+    if q_rel > QUEUE_RTOL:
+        miss(f"fit_queue_coeff: {q['queue_mw_per_duty']} vs the CPU's "
+             f"{q_cpu['queue_mw_per_duty']}")
+    print(f"gradient path d (fit_ensemble {r} restarts x {steps} steps): "
+          f"losses within {rel:.3g} relative of the CPU's, best restart "
+          f"{best} (loss {got['best_loss']:.4f}) on both; posterior best "
+          + ", ".join(f"{k} {p['best']:.3f}"
+                      for k, p in got["posterior"].items())
+          + f"; fit_queue_coeff {q['queue_mw_per_duty']:.4f} mW/duty "
+          f"({q_rel:.3g} relative off the CPU)")
+
+
+def gradient_timing(cap: float) -> str:
+    """Phase 5, gradient path: ms per Adam step of 4 h c (host clock over
+    warm steps: one batched value-and-grad of all restarts, the Adam
+    update and the projection) and a profile of one step; ms per
+    fit_ensemble step; sensitivity_map ms; the example's full
+    optimize_policy estimated from these."""
+    import numpy as np
+    import torch
+    from repro_torch.core import calibrate, daysim, design, dse
+    plat, d, sched, pol = GRAD_DAY
+    row = daysim.DEFAULT_DESIGNS[d]
+    f = daysim.relaxed_day_fn(plat, sched, pol, row, dt_s=GRAD_DT)
+    space = design.policy_space()
+    vg = torch.func.vmap(torch.func.grad_and_value(dse.policy_loss(f, cap)))
+    state = {"pts": space.clip(space.uniform_sample(0, GRAD_RESTARTS,
+                                                    "cuda"))}
+    state["adam"] = design.adam_init(state["pts"])
+
+    def step():
+        grads, _ = vg(state["pts"])
+        new, state["adam"] = design.adam_update(state["pts"], grads,
+                                                state["adam"], 0.08)
+        state["pts"] = space.clip(new)
+
+    step()
+    ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    step_ms = float(np.mean(ms))
+    prof = profile_device(step, "one Adam step of optimize_policy",
+                          tags=(), host_ops=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    daysim.simulate(plat, row, sched, pol, dt_s=GRAD_DT)
+    sim_ms = (time.perf_counter() - t0) * 1e3
+    r, steps = ENSEMBLE
+    calibrate.fit_ensemble(n_restarts=r, steps=5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    calibrate.fit_ensemble(n_restarts=r, steps=steps)
+    ens_ms = (time.perf_counter() - t0) * 1e3 / steps
+    dse.sensitivity_map("aria2")
+    sens = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dse.sensitivity_map("aria2")
+        sens.append((time.perf_counter() - t0) * 1e3)
+    full_s = ((EXAMPLE_STEPS + 1) * step_ms
+              + (1 + GRAD_RESTARTS) * sim_ms) / 1e3
+    return (f"optimize_policy Adam step ({GRAD_RESTARTS} restarts, 540 "
+            f"steps, batched value-and-grad + update, host clock, mean of "
+            f"2 warm): {step_ms:.1f} ms; simulate (one full-trace launch): "
+            f"{sim_ms:.2f} ms; the example's {EXAMPLE_STEPS}-step "
+            f"optimize_policy estimated at {full_s:.1f} s "
+            f"(({EXAMPLE_STEPS} + 1) steps + {1 + GRAD_RESTARTS} simulates)\n"
+            f"{prof}\nfit_ensemble ({r} restarts, {steps} steps, warm, host "
+            f"clock): {ens_ms:.3f} ms per step\nsensitivity_map (768 "
+            f"points, one reverse pass, warm, host clock, 3 calls): mean "
+            f"{np.mean(sens):.2f} ms, min {np.min(sens):.2f} ms")
+
+
 def steady_state_timing() -> str:
     """Phase 5, steady state: the joint front's ms (host clock over warm
     calls, each ending in its copies to the host) and a profile."""
@@ -1021,14 +1344,20 @@ def check_golden_lm(dev) -> None:
           f"rank miss at (row, rank) {rank16}")
 
 
-def profile_device(fn, label: str, reps: int = 1) -> str:
+def profile_device(fn, label: str, reps: int = 1,
+                   tags=("flash_kernel", "ssd_kernel"),
+                   host_ops: bool = True) -> str:
     """Device time per call of `fn` by kernel, from torch.profiler: the
-    device-busy ms beside the host-clock wall ms, the flash and SSD
-    kernels' ms and the top kernels."""
+    device-busy ms beside the host-clock wall ms, the ms of the kernels
+    whose names hold one of `tags` and the top kernels.  Without
+    `host_ops` the profiler records device activity only (a call of
+    ~10^5 kernels then takes seconds, not minutes, to summarize)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA]
+    if host_ops:
+        acts.insert(0, ProfilerActivity.CPU)
+    with profile(activities=acts) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(reps):
@@ -1054,9 +1383,9 @@ def profile_device(fn, label: str, reps: int = 1) -> str:
                     for us, c, k in rows[:6])
     return (f"profile ({label}, per call): wall {wall:.2f} ms, device busy "
             f"{busy:.2f} ms ({100 * (1 - busy / wall):.1f} % idle) in "
-            f"{sum(r[1] for r in rows):g} kernels; flash_kernel "
-            f"{share('flash_kernel'):.2f} ms, ssd_kernel "
-            f"{share('ssd_kernel'):.2f} ms; top: {top}")
+            f"{sum(r[1] for r in rows):g} kernels; "
+            + "".join(f"{t} {share(t):.2f} ms; " for t in tags)
+            + f"top: {top}")
 
 
 def check_served(batch, params32, params16, cfg32, cfg16, prefill32, dec,
@@ -1417,6 +1746,14 @@ def main() -> None:
           f"{n_full} full-trace ({launches + n_sim} in all)")
     launches += n_sim
     steady_state_paths()
+    sensitivity_check()
+    n_day, err_day = relaxed_day_check(ds)
+    n_opt, err_opt, _, opt = optimize_policy_check(ds)
+    calibration_check()
+    worst = max(worst, err_day, err_opt)
+    print(f"day_scan launches on the gradient path: {n_day + n_opt} "
+          f"full-trace ({launches + n_day + n_opt} on the main path in all)")
+    launches += n_day + n_opt
 
     # 5. timing (launches from here on are not the main path's)
     lib_fn = ds._day_scan_cuda
@@ -1476,6 +1813,7 @@ def main() -> None:
     print(batch_timing(twin) + f"\n  beside the warm serial query: mean "
           f"{np.mean(q_ms):.3f} ms")
     print(steady_state_timing())
+    print(gradient_timing(opt["peak_cap_c"]))
     del twin
     lm_rows = lm_phases(dev)
     if MISSES:

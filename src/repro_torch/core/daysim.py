@@ -63,6 +63,8 @@ import torch
 from .. import device as _device
 from ..kernels import day_scan as _ds
 from . import offload, scenarios
+from .design import (LOGIT_HI, placement_probs, soft_indicator, ste_gt,
+                     ste_lt, take_linear)
 from .platform import PlatformSpec
 from .scenarios import DEFAULT_MCS, ScenarioSet
 
@@ -1918,3 +1920,313 @@ def scan_integrate(tb: dict, device="cuda") -> dict:
                       for k, v in tb["const"].items()}
     ys = _scan_host(batch, _device.resolve(device), full=True)
     return {k: v[0] for k, v in ys.items()}
+
+
+# ---------------------------------------------------------------------------
+# the differentiable day: gradients from day objectives back to knobs
+# ---------------------------------------------------------------------------
+#
+# The reference differentiates an XLA scan of `_step_math`; here it is an
+# eager loop over T on any device (plain PyTorch, no kernel), autograd
+# recording every step.  `kernels.day_scan.day_scan_plain` stays the
+# kernel's forward-only test oracle and is not called here.
+
+def _node_step(soc, t_soc, t_skin, p_mw, charge_mw, amb, pre, const):
+    """One battery + thermal-RC Euler step for one node (`pre` prefixes
+    the node's const keys: "" = glasses, "p_" = puck); the reference's
+    operations in its order, with its max / min (an even gradient split
+    at a tie, where a clamp would pass all of it)."""
+    v = (const[pre + "v_full"] - const[pre + "sag_v"] * (1.0 - soc)
+         - const[pre + "knee_v"]
+         * torch.exp(-const[pre + "knee_sharp"] * soc))
+    i_a = p_mw * 1e-3 / v
+    loss_mw = i_a * i_a * const[pre + "r_ohm"] * 1e3
+    drain_mw = p_mw + loss_mw
+    soc_n = torch.minimum(torch.maximum(
+        soc - drain_mw * const[pre + "dsoc_coeff"]
+        + charge_mw * const[pre + "dsoc_coeff"], const["zero"]),
+        const["one"])
+    heat_w = drain_mw * 1e-3
+    flow = (t_soc - t_skin) * const[pre + "g_soc_skin"]
+    t_soc_n = t_soc + (heat_w - flow) * const[pre + "dt_c_soc"]
+    t_skin_n = t_skin + (flow - (t_skin - amb)
+                         * const[pre + "g_skin_amb"]) \
+        * const[pre + "dt_c_skin"]
+    return soc_n, t_soc_n, t_skin_n, drain_mw
+
+
+def _step_math(carry, x, const):
+    """One Euler step over BOTH nodes (glasses + optional puck), as the
+    reference's `_step_math`.
+
+    The throttle trip comparisons are straight-through estimators
+    (`design.ste_gt` / `ste_lt`): forward values are the exact hard
+    comparisons, the backward pass carries sigmoid surrogate gradients
+    into the trip/clear thresholds.  The level tables go through
+    `design.take_linear` (exact at the integer levels the forward
+    produces, `table[l+1] - table[l]` as the level's gradient), all four
+    in one call on `x["levels"]` ((4, L): mw, mw_p, pods, amult).  The
+    thermal shutdown is a latched hard kill (no STE)."""
+    (soc, soc_p, t_soc, t_skin, t_soc_p, t_skin_p,
+     th_state, soc_state, shut) = carry
+
+    # hysteresis triggers evaluate on the *previous* step's state
+    trip_t = ste_gt(t_skin, const["temp_trip"], const["ste_beta_c"])
+    clear_t = ste_lt(t_skin, const["temp_clear"], const["ste_beta_c"])
+    th_state = trip_t + (1.0 - trip_t) * (1.0 - clear_t) * th_state
+    soc_eff = torch.minimum(soc, soc_p)
+    trip_s = ste_lt(soc_eff, const["soc_trip"], const["ste_beta_soc"])
+    clear_s = ste_gt(soc_eff, const["soc_clear"], const["ste_beta_soc"])
+    soc_state = trip_s + (1.0 - trip_s) * (1.0 - clear_s) * soc_state
+    level_f = torch.minimum(th_state + soc_state, const["max_level"])
+
+    # thermal shutdown: latched hard kill; EITHER node overheating
+    # bricks the device
+    dt = soc.dtype
+    shut = torch.maximum(shut, (t_skin > const["shutdown_c"]).to(dt))
+    shut = torch.maximum(shut, (t_skin_p > const["shutdown_c"]).to(dt)
+                         * const["has_puck"])
+
+    alive = ((soc > 0.0).to(dt) * (soc_p > 0.0).to(dt)
+             * (1.0 - shut) * x["valid"])
+    mw_l, mw_p_l, pods_l, amult_l = take_linear(x["levels"],
+                                                level_f).unbind(0)
+    act = x["active"] * amult_l
+    p_mw = (act * mw_l + (1.0 - act) * const["standby_mw"]) * alive
+    p_p_mw = (act * mw_p_l + (1.0 - act) * const["p_standby_mw"]) \
+        * alive * const["has_puck"]
+
+    soc_n, t_soc_n, t_skin_n, drain_mw = _node_step(
+        soc, t_soc, t_skin, p_mw, x["charge"], x["amb"], "", const)
+    soc_p_n, t_soc_p_n, t_skin_p_n, drain_p_mw = _node_step(
+        soc_p, t_soc_p, t_skin_p, p_p_mw, x["charge_p"], x["amb"],
+        "p_", const)
+
+    pods = act * pods_l * alive
+    new = (soc_n, soc_p_n, t_soc_n, t_skin_n, t_soc_p_n, t_skin_p_n,
+           th_state, soc_state, shut)
+    out = {"soc": soc_n, "soc_p": soc_p_n, "t_soc": t_soc_n,
+           "t_skin": t_skin_n, "t_soc_p": t_soc_p_n,
+           "t_skin_p": t_skin_p_n,
+           "level": torch.round(level_f).to(torch.int32),
+           "th_state": th_state, "soc_state": soc_state, "shut": shut,
+           "p_mw": p_mw, "p_p_mw": p_p_mw, "drain_mw": drain_mw,
+           "drain_p_mw": drain_p_mw, "pods": pods,
+           "act": act, "alive": alive}
+    return new, out
+
+
+def _integrate_one(tb: dict) -> dict:
+    """Whole-day loop for one combo: {name: (T,)} traces of all 17
+    `_step_math` outputs.  Autograd-friendly: each step reads its rows
+    through one `unbind` per table, the outputs are collected in lists
+    and stacked at the end, and nothing autograd saves is written in
+    place."""
+    amb_rows = tb["ambient"].unbind(0)
+    amb0 = amb_rows[0]
+    one = torch.ones_like(amb0)
+    zero = torch.zeros_like(amb0)
+    const = {**tb["const"], "one": one, "zero": zero}
+    carry = (one, one, amb0, amb0, amb0, amb0, zero, zero, zero)
+    n_steps, n_lvl = tb["step_mw"].shape
+    levels = torch.stack([tb["step_mw"], tb["step_mw_p"], tb["step_pods"],
+                          tb["act_mult"].expand(n_steps, n_lvl)], dim=1)
+    rows = {"levels": levels.unbind(0), "amb": amb_rows,
+            **{k: tb[k].unbind(0) for k in ("active", "charge",
+                                             "charge_p", "valid")}}
+    outs = []
+    for t in range(n_steps):
+        carry, out = _step_math(carry, {k: v[t] for k, v in rows.items()},
+                                const)
+        outs.append(out)
+    return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+
+def _hard_logits(design_row: dict, primitives: tuple, device="cuda",
+                 dtype=torch.float32):
+    """A design's placement as saturated logits (sigmoid ~ 0/1)."""
+    on = set(design_row.get("on_device", ()))
+    return torch.tensor([LOGIT_HI if p in on else -LOGIT_HI
+                         for p in primitives], dtype=dtype,
+                        device=_device.resolve(device))
+
+
+def relaxed_day_fn(platform, schedule, policy, design_row=None, *,
+                   dt_s: float = 30.0, n_users: float = 1e6,
+                   standby_mw: float = DEFAULT_STANDBY_MW,
+                   battery: BatterySpec | None = None,
+                   thermal: ThermalSpec | None = None, theta=None,
+                   results_dir=None,
+                   tau: float = 1.0,
+                   shutdown_c: float = DEFAULT_SHUTDOWN_C,
+                   ste_beta_c: float = STE_BETA_C,
+                   ste_beta_soc: float = STE_BETA_SOC,
+                   soft_alive_margin: float = 0.03,
+                   soft_alive_beta: float = 80.0,
+                   device="cuda", dtype=torch.float32):
+    """Build `f(point) -> outputs`, differentiable end to end, on
+    `device` in float width `dtype`.
+
+    `point` is a DesignSpace point that may carry any subset of
+    `design.device_space` leaves (placement_logits, log2_compression,
+    log2_fps_scale, upload_duty — the latter scales every segment's
+    VAD gating) and/or `design.policy_space` leaves (temp_trip_c,
+    temp_band_c, soc_trip, soc_band); leaves not present fall back to
+    the static `design_row` dict / `policy` thresholds.  For every
+    throttle level the ThrottleAction multipliers compose with the
+    relaxed knobs, the per-(level, segment) power tables come from the
+    relaxed engine *inside the same graph*, and the whole day
+    integrates through `_integrate_one`, whose trip comparisons are
+    straight-through, so autograd reaches both the design knobs (via
+    the tables) and the policy thresholds (via the STE surrogates).
+    `f` takes one point (0-dim leaves); `torch.func.vmap` maps it over
+    restarts (`dse.gradient_descend`).
+
+    Outputs: `soft_tte_h` (smoothly-alive hours: the sum of
+    sigmoid((soc - margin) * beta) over steps — the maximization
+    surrogate), `tte_h` / `peak_skin_c` / `pod_hours` / `end_soc` /
+    `end_soc_puck` / `throttled_frac` (hard values off the same traces,
+    for reporting), plus the raw `t_skin` / `soc` traces."""
+    dev = _device.resolve(device)
+    plat = _plat(platform)
+    sched = _resolve(schedule, get_schedule, DaySchedule)
+    pol = _resolve(policy, get_policy, ThrottlePolicy)
+    bat = _batteries_arg(battery, plat.name)
+    therm = thermal or DEFAULT_THERMAL
+    puck = puck_for(plat)
+    row = dict(design_row or DEFAULT_DESIGNS[0])
+    n_lvl = pol.n_levels
+    segs = sched.segments
+    n_seg = len(segs)
+
+    def put(a):
+        return torch.as_tensor(np.asarray(a, np.float64),
+                               device=dev).to(dtype)
+
+    # static per-segment / per-level data
+    seg_steps = [max(1, round(s.hours * 3600.0 / dt_s)) for s in segs]
+    seg_idx = torch.as_tensor(np.repeat(np.arange(n_seg), seg_steps),
+                              device=dev)
+    n_steps = int(seg_idx.shape[0])
+    seg_duty = put([s.upload_duty for s in segs])
+    seg_bright = put([s.brightness for s in segs])
+    acts = [pol.action(lv) for lv in range(n_lvl)]
+    fps_mult = put([a.fps_mult for a in acts])
+    duty_mult = put([a.duty_mult for a in acts])
+    bright_mult = put([a.brightness_mult for a in acts])
+    act_mult = np.ones(n_lvl)
+    for lv in range(1, n_lvl):
+        act_mult[lv:] = acts[lv].active_mult
+    keep_lv = put([0.0 if a.offload else 1.0 for a in acts])
+    mcs_hot = put(np.eye(len(scenarios.MCS_TIERS))[
+        int(row.get("mcs_tier", DEFAULT_MCS))])
+    cap_g = bat.capacity_mwh
+    cap_p = puck.battery.capacity_mwh if puck is not None else 0.0
+    share_g = cap_g / (cap_g + cap_p) if cap_p else 1.0
+    seg_charge = np.asarray([s.charge_mw for s in segs])
+    static_const = {
+        "max_level": float(n_lvl - 1), "standby_mw": standby_mw,
+        "shutdown_c": shutdown_c,
+        "ste_beta_c": ste_beta_c, "ste_beta_soc": ste_beta_soc,
+        "has_puck": 1.0 if puck is not None else 0.0,
+        "p_standby_mw": puck.standby_mw if puck is not None else 0.0,
+        **_battery_const(bat, therm, dt_s),
+        **_battery_const(puck.battery if puck is not None else bat,
+                         puck.thermal if puck is not None else therm,
+                         dt_s, "p_"),
+    }
+    const0 = {k: put(v) for k, v in static_const.items()}
+    steps = {
+        "ambient": put([s.ambient_c for s in segs])[seg_idx],
+        "active": put([s.active for s in segs])[seg_idx],
+        "valid": torch.ones(n_steps, dtype=dtype, device=dev),
+        "charge": put(seg_charge * share_g)[seg_idx],
+        "charge_p": put(seg_charge * (1.0 - share_g))[seg_idx],
+        "act_mult": put(act_mult),
+    }
+    policy0 = {"temp_trip_c": put(pol.temp_trip_c),
+               "temp_band_c": put(pol.temp_trip_c - pol.temp_clear_c),
+               "soc_trip": put(pol.soc_trip),
+               "soc_band": put(pol.soc_clear - pol.soc_trip)}
+    logits0 = _hard_logits(row, plat.primitives, dev, dtype)
+    comp0 = put(float(row.get("compression", 10.0)))
+    fps0 = put(float(row.get("fps_scale", 1.0)))
+    th = scenarios._theta_relaxed(plat, theta, dev, dtype)
+    engine = scenarios._engine_relaxed(plat)
+    n_rows = n_lvl * n_seg
+    h = dt_s / 3600.0
+
+    def f(point: dict) -> dict:
+        pl = placement_probs(point.get("placement_logits", logits0),
+                                    tau)                    # (n_prim,)
+        comp = (2.0 ** point["log2_compression"]
+                if "log2_compression" in point else comp0)
+        fps = (2.0 ** point["log2_fps_scale"]
+               if "log2_fps_scale" in point else fps0)
+        # (L, S) knob rows: ThrottleAction multipliers compose smoothly
+        pl_rows = pl[None, :] * keep_lv[:, None]
+        vec = {
+            "placement": pl_rows[:, None, :].expand(
+                n_lvl, n_seg, pl.shape[-1]).reshape(n_rows, -1),
+            "compression": comp.expand(n_rows),
+            "fps_scale": (fps * fps_mult[:, None]
+                          * torch.ones_like(seg_duty)[None, :]
+                          ).reshape(-1),
+            "upload_duty": (point.get("upload_duty", 1.0)
+                            * seg_duty[None, :]
+                            * duty_mult[:, None]).reshape(-1),
+            "brightness": (seg_bright[None, :]
+                           * bright_mult[:, None]).reshape(-1),
+            "mcs_weights": mcs_hot.expand(n_rows, mcs_hot.shape[0]),
+        }
+        out = engine(vec, th)
+        totals = out["total"].reshape(n_lvl, n_seg)
+        mbps = out["mbps"].reshape(n_lvl, n_seg)
+        mw_p = (puck.level_mw(mbps) if puck is not None
+                else torch.zeros_like(totals))
+        # smooth backend fleet demand for the same rows (duty=1.0 as the
+        # hard path's level tables)
+        pods_rows = offload.pods_relaxed(
+            vec, n_users=n_users, duty=1.0, results_dir=results_dir,
+            primitives=plat.primitives).reshape(n_lvl, n_seg)
+        trip_t = point.get("temp_trip_c", policy0["temp_trip_c"])
+        trip_s = point.get("soc_trip", policy0["soc_trip"])
+        tb = {
+            "step_mw": totals.t()[seg_idx],             # (T, L)
+            "step_mw_p": mw_p.t()[seg_idx],
+            "step_pods": pods_rows.t()[seg_idx],
+            **steps,
+            "const": {
+                **const0,
+                "temp_trip": trip_t,
+                "temp_clear": trip_t - point.get("temp_band_c",
+                                                 policy0["temp_band_c"]),
+                "soc_trip": trip_s,
+                "soc_clear": trip_s + point.get("soc_band",
+                                                policy0["soc_band"]),
+            },
+        }
+        ys = _integrate_one(tb)
+        soc_eff = torch.minimum(ys["soc"], ys["soc_p"])
+        soft_alive = soft_indicator(soc_eff, soft_alive_margin,
+                                           soft_alive_beta)
+        dead = ((soc_eff <= 0.0) | (ys["shut"] > 0.5)).to(soc_eff.dtype)
+        # the first dead step (argmax takes the first maximum); no dead
+        # step gives the day's n_steps
+        first = torch.argmax(dead).to(soc_eff.dtype) + 1.0
+        tte_h = torch.where(torch.any(dead > 0.0), first,
+                            torch.full_like(first, float(n_steps))) * h
+        return {
+            "soft_tte_h": torch.sum(soft_alive) * h,
+            "tte_h": tte_h,
+            "peak_skin_c": torch.max(ys["t_skin"]),
+            "pod_hours": torch.sum(ys["pods"]) * h,
+            "end_soc": ys["soc"][-1],
+            "end_soc_puck": ys["soc_p"][-1],
+            "throttled_frac": torch.mean((ys["level"] > 0)
+                                         .to(soc_eff.dtype)),
+            "t_skin": ys["t_skin"],
+            "soc": ys["soc"],
+        }
+
+    return f

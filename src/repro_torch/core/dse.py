@@ -40,8 +40,9 @@ import numpy as np
 import torch
 
 from .. import device as _device
-from . import aria2, offload, scenarios
+from . import aria2, design, offload, scenarios
 from .aria2 import Scenario
+from .design import DesignSpace
 from .platform import PlatformSpec, diff as platform_diff
 from .scenarios import MCS_TIERS, ScenarioSet, all_placements
 
@@ -492,3 +493,237 @@ def survives_day(rep=None, skin_limit_c: float = 43.0, **kw):
         raise TypeError(f"got both a DayReport and grid kwargs "
                         f"{sorted(kw)}; pass one or the other")
     return rep.survives(skin_limit_c)
+
+
+# ---------------------------------------------------------------------------
+# gradient-based design optimization on the DesignSpace
+# ---------------------------------------------------------------------------
+
+@dataclass
+class GradResult:
+    """`gradient_descend` output: each restart's BEST-SEEN point along
+    its whole trajectory (leading dim R; not the final Adam iterate —
+    projected Adam can overshoot late) with the matching losses, plus
+    the best point/loss across restarts."""
+    space: DesignSpace
+    points: dict                    # {knob: (R, ...)}
+    losses: np.ndarray              # (R,)
+    best_point: dict                # {knob: (...)}  best restart
+    best_loss: float
+    steps: int
+
+    def restart_points(self) -> list:
+        r = len(self.losses)
+        return [{k: np.asarray(v)[i] for k, v in self.points.items()}
+                for i in range(r)]
+
+
+def _keep_better(better: torch.Tensor, new: dict, old: dict) -> dict:
+    return {k: torch.where(better.reshape((-1,) + (1,) * (p.ndim - 1)),
+                           p, old[k]) for k, p in new.items()}
+
+
+def gradient_descend(space: DesignSpace, loss_fn, n_restarts: int = 8,
+                     steps: int = 200, lr: float = 0.05, seed: int = 0,
+                     init: dict | None = None, starts: dict | None = None,
+                     device="cuda") -> GradResult:
+    """Projected Adam over a DesignSpace point, all restarts batched.
+
+    `loss_fn(point) -> 0-dim tensor` takes one point (0-dim or
+    knob-shaped leaves); every Adam update evaluates ALL restarts in one
+    `torch.func.vmap(torch.func.grad_and_value(loss_fn))` call, and the
+    projection (`space.clip`) keeps every leaf inside its declared
+    bounds.  The restarts sample uniformly in bounds from `seed`
+    (`DesignSpace.uniform_sample`), or are `starts` ({knob: (R, ...)})
+    when given; restart 0 starts from `init` when given (so a known-good
+    grid point can only be improved on).  The best point/loss seen over
+    ALL steps and restarts is tracked on the device (no host sync per
+    step), and one final evaluation lets the last projected update
+    compete."""
+    dev = _device.resolve(device)
+    if starts is not None:
+        pts = {k: starts[k].to(dev) if isinstance(starts[k], torch.Tensor)
+               else torch.tensor(np.array(starts[k]), device=dev)
+               for k in space.names()}
+        n_restarts = len(next(iter(pts.values())))
+    else:
+        pts = space.uniform_sample(seed, n_restarts, dev)
+    if init is not None:
+        space.validate(init)
+        pts = {k: torch.cat([torch.as_tensor(init[k], dtype=v.dtype,
+                                             device=dev)[None], v[1:]])
+               for k, v in pts.items()}
+    pts = space.clip(pts)
+    vg = torch.func.vmap(torch.func.grad_and_value(loss_fn))
+    state = design.adam_init(pts)
+    best_loss = torch.full((n_restarts,), float("inf"), device=dev)
+    best_pts = pts
+    for _ in range(steps):
+        grads, losses = vg(pts)
+        new, state = design.adam_update(pts, grads, state, lr)
+        better = losses < best_loss
+        best_loss = torch.where(better, losses, best_loss)
+        best_pts = _keep_better(better, pts, best_pts)
+        pts = space.clip(new)
+    _, losses = vg(pts)
+    better = losses < best_loss
+    best_loss = torch.where(better, losses, best_loss).cpu().numpy()
+    best_pts = {k: v.detach().cpu().numpy()
+                for k, v in _keep_better(better, pts, best_pts).items()}
+    i = int(np.argmin(best_loss))
+    return GradResult(space, best_pts, best_loss,
+                      {k: v[i] for k, v in best_pts.items()},
+                      float(best_loss[i]), steps)
+
+
+def sensitivity_map(platform=None, sset: ScenarioSet | None = None,
+                    theta=None, device="cuda") -> dict:
+    """Per-scenario d(total mW)/d(knob) over a whole grid in ONE reverse
+    pass.
+
+    Each scenario's total depends only on its own knob row, so pulling
+    back a ones-cotangent through `scenarios.total_mw_relaxed` yields
+    the exact per-scenario gradient rows for every knob at once — (N,)
+    for scalar knobs, (N, 4) for placement probabilities, (N, 3) for MCS
+    weights."""
+    plat = _plat(platform)
+    if sset is None:
+        sset = ScenarioSet.grid(
+            placements=all_placements(plat.supported_primitives()),
+            primitives=plat.primitives)
+    vec = {k: v.requires_grad_()
+           for k, v in scenarios.relax_vec(sset, device).items()}
+    total = scenarios.total_mw_relaxed(plat, vec, theta)
+    grads = torch.autograd.grad(total, list(vec.values()),
+                                grad_outputs=torch.ones_like(total),
+                                allow_unused=True, materialize_grads=True)
+    return {
+        "sset": sset,
+        "total_mw": _host(total),
+        "d_mw_d": {k: _host(g) for k, g in zip(vec, grads)},
+    }
+
+
+def sensitivity_rows(sense: dict, top: int = 10) -> list:
+    """Human-readable top rows of a `sensitivity_map` (largest placement
+    leverage first: the biggest |d mW / d placement prob| anywhere)."""
+    sset = sense["sset"]
+    pl = sense["d_mw_d"]["placement"]
+    lever = np.abs(pl).max(axis=1)
+    order = np.argsort(-lever)[:top]
+    return [{
+        "scenario": sset.label(int(i)),
+        "compression": float(sset.compression[i]),
+        "fps_scale": float(sset.fps_scale[i]),
+        "total_mw": round(float(sense["total_mw"][i]), 1),
+        "d_mw_d_placement": {p: round(float(pl[i, j]), 1)
+                             for j, p in enumerate(sset.primitives)},
+        "d_mw_d_upload_duty": round(
+            float(sense["d_mw_d"]["upload_duty"][i]), 1),
+        "d_mw_d_fps_scale": round(
+            float(sense["d_mw_d"]["fps_scale"][i]), 2),
+    } for i in order]
+
+
+def policy_loss(day_fn, cap: float, peak_weight: float = 8.0):
+    """`optimize_policy`'s objective on a relaxed day `day_fn`: minus the
+    smooth time-to-empty plus `peak_weight` x the mean softplus (sharpness
+    4 / K, written as logaddexp: `F.softplus` is the identity above its
+    threshold) of skin temperature above `cap`."""
+    def loss(point):
+        out = day_fn(point)
+        x = (out["t_skin"] - cap) * 4.0
+        exceed = torch.mean(torch.logaddexp(x, torch.zeros_like(x)) / 4.0)
+        return -out["soft_tte_h"] + peak_weight * exceed
+
+    return loss
+
+
+def optimize_policy(platform, design_row, schedule, policy_template,
+                    peak_cap_c: float | None = None,
+                    n_restarts: int = 6, steps: int = 120,
+                    lr: float = 0.08, seed: int = 0,
+                    dt_s: float = 60.0, peak_weight: float = 8.0,
+                    starts: dict | None = None, device="cuda",
+                    **day_kw) -> dict:
+    """Gradient-optimize ThrottlePolicy trip/clear bands through the
+    differentiable day (straight-through trip comparisons), then
+    HARD-validate.
+
+    Maximizes the smooth time-to-empty surrogate subject to a softplus
+    penalty on skin-time above `peak_cap_c` (default: the template
+    policy's own hard peak — "equal peak skin").  The template's
+    thresholds seed restart 0, so the optimizer can only improve on the
+    grid policy it starts from; every restart's best point is hardened
+    back into a `ThrottlePolicy` and re-simulated with the exact
+    integrator (`daysim.simulate`: one full-trace day-scan launch each,
+    after the baseline's) — the returned winner is the best HARD
+    time-to-empty among candidates whose hard peak respects the cap.
+    `starts` ({knob: (R, ...)}) replaces the sampled restarts.
+
+    `day_kw` accepts any day knob of `daysim.relaxed_day_fn` or
+    `daysim.simulate` (standby_mw/battery/thermal/theta/shutdown_c,
+    n_users/results_dir, tau/ste_beta_*/soft_alive_*); each is routed
+    only to the callee that understands it, unknown keys raise."""
+    from . import daysim
+    shared = {"standby_mw", "battery", "thermal", "theta", "shutdown_c",
+              "n_users", "results_dir"}
+    relax_only = {"tau", "ste_beta_c", "ste_beta_soc",
+                  "soft_alive_margin", "soft_alive_beta"}
+    unknown = set(day_kw) - shared - relax_only
+    if unknown:
+        raise TypeError(f"optimize_policy: unknown day kwargs "
+                        f"{sorted(unknown)}")
+    relax_kw = {k: v for k, v in day_kw.items()
+                if k in shared | relax_only}
+    sim_kw = {k: v for k, v in day_kw.items() if k in shared}
+    dev = _device.resolve(device)
+    pol = daysim._resolve(policy_template, daysim.get_policy,
+                          daysim.ThrottlePolicy)
+    if not pol.actions:
+        raise ValueError("policy_template needs throttle actions to tune")
+    f = daysim.relaxed_day_fn(platform, schedule, pol, design_row,
+                              dt_s=dt_s, device=dev, **relax_kw)
+    space = design.policy_space()
+    init = design.policy_point(pol, dev)
+    base = daysim.simulate(platform, design_row, schedule, pol, dt_s=dt_s,
+                           device=dev, **sim_kw)
+    cap = (float(base.summary["peak_skin_c"]) if peak_cap_c is None
+           else float(peak_cap_c))
+
+    res = gradient_descend(space, policy_loss(f, cap, peak_weight),
+                           n_restarts=n_restarts, steps=steps, lr=lr,
+                           seed=seed, init=init, starts=starts, device=dev)
+
+    def harden(pt) -> "daysim.ThrottlePolicy":
+        return daysim.ThrottlePolicy(
+            f"{pol.name}_grad",
+            temp_trip_c=float(pt["temp_trip_c"]),
+            temp_clear_c=float(pt["temp_trip_c"] - pt["temp_band_c"]),
+            soc_trip=float(pt["soc_trip"]),
+            soc_clear=float(min(pt["soc_trip"] + pt["soc_band"], 0.95)),
+            actions=pol.actions)
+
+    candidates = []
+    for pt in res.restart_points():
+        cand = harden(pt)
+        tr = daysim.simulate(platform, design_row, schedule, cand,
+                             dt_s=dt_s, device=dev, **sim_kw)
+        candidates.append((tr.summary["time_to_empty_h"],
+                           tr.summary["peak_skin_c"], cand, pt))
+    feasible = [c for c in candidates if c[1] <= cap + 1e-6]
+    pool = feasible or candidates
+    tte, peak, best_pol, best_pt = max(pool, key=lambda c: c[0])
+    return {
+        "policy": best_pol,
+        "point": {k: float(v) for k, v in best_pt.items()},
+        "tte_h": float(tte),
+        "peak_skin_c": float(peak),
+        "peak_cap_c": cap,
+        "feasible": bool(feasible),
+        "baseline": {"policy": pol.name,
+                     "tte_h": float(base.summary["time_to_empty_h"]),
+                     "peak_skin_c": float(base.summary["peak_skin_c"])},
+        "gain_h": float(tte - base.summary["time_to_empty_h"]),
+        "restarts": n_restarts, "steps": steps,
+    }

@@ -27,6 +27,7 @@ import torch
 
 from . import aria2, scenarios
 from .aria2 import Scenario
+from .platform import PRIMITIVES
 from .scenarios import ScenarioSet
 
 RESULTS = Path(__file__).resolve().parents[3] / "results"
@@ -296,6 +297,36 @@ def pods_breakdown(sset: ScenarioSet, n_users: float = 1e6,
             active[s] = ones > 0.0
     pods = np.sum(np.stack(list(by.values())), axis=0)
     return PodsBreakdown(pods, by, archs, cells, sources, active)
+
+
+def pods_relaxed(vec: dict, n_users: float = 1e6, duty: float = 0.35,
+                 results_dir=None, primitives=None):
+    """Differentiable fleet sizing over a RELAXED knob vector.
+
+    The smooth counterpart of `pods_breakdown` for the gradient path
+    (`scenarios.evaluate_relaxed` vecs): the audio stream is gated by
+    the ASR placement *probability* (exact at binary points), RGB->VLM
+    ingest scales with the continuous fps knob, and upload_duty gates
+    everything, so autograd sees how a design move shifts backend pods.
+    Capacities come from the same cached CapacityTable; returns a tensor
+    with the vec's leading shape."""
+    _check_fleet_args(n_users, duty)
+    prim = primitives or PRIMITIVES
+    table = capacity_table(results_dir)
+    asr_p = vec["placement"][..., prim.index("asr")]
+    fps = scenarios._maximum(vec["fps_scale"], 1.0)
+    gate = n_users * duty * vec["upload_duty"]
+    pods = 0.0
+    for s, (arch0, cell0, tok) in STREAM_SERVICE.items():
+        _, _, cap, _ = table.resolve(
+            STREAM_CANDIDATES.get(s, ((arch0, cell0),)))
+        if s == "rgb":
+            pods = pods + gate * (tok / cap) / fps
+        elif s == "audio":
+            pods = pods + gate * (tok / cap) * (1.0 - asr_p)
+        else:
+            pods = pods + gate * (tok / cap)
+    return pods
 
 
 def pods_vector(sset: ScenarioSet, n_users: float = 1e6, duty: float = 0.35,

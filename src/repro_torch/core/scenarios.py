@@ -291,6 +291,26 @@ def _row_sums(x: torch.Tensor) -> torch.Tensor:
     return torch.sum(buf[:, :c], dim=1)
 
 
+@functools.lru_cache(maxsize=None)
+def _scalar(c: float) -> torch.Tensor:
+    """`c` as a 0-dim float64 CPU tensor: an operand that a binary op on
+    any device takes as a scalar (no copy, no extra launch), cast to the
+    other operand's float width as a Python number would be."""
+    return torch.tensor(c, dtype=torch.float64)
+
+
+def _maximum(x: torch.Tensor, c: float) -> torch.Tensor:
+    """`max(x, c)` whose gradient splits evenly at a tie, as the
+    reference's `jnp.maximum` does (a clamp passes all of it): the relaxed
+    engine differentiates through it at fps_scale = 1."""
+    return torch.maximum(x, _scalar(c))
+
+
+def _minimum(x: torch.Tensor, c: float) -> torch.Tensor:
+    """`min(x, c)` with the reference's tie gradient (see `_maximum`)."""
+    return torch.minimum(x, _scalar(c))
+
+
 def _rdiv(num: float, den: torch.Tensor) -> torch.Tensor:
     """float32 `num / den` for a Python-number dividend, as a true
     division (see the module note)."""
@@ -361,7 +381,7 @@ def _npu(p, f, th):
     # queueing overhead: frame-driven NPU duty from the taskgraph sim
     # (shared by HT + ET nets), scaled down with the frame rate
     queue = th["queue_mw_per_duty"] * f.duty_npu \
-        / torch.clamp_min(f.fps_scale, 1.0)
+        / _maximum(f.fps_scale, 1.0)
     return any_on * active + (1.0 - any_on) * p["off_mw"] + queue
 
 
@@ -370,7 +390,7 @@ def _npu(p, f, th):
 LOAD_KINDS = {
     "sensor_fps": lambda p, f, th: p["mw"] * f.fps_f,
     "isp": lambda p, f, th: (p["active_mw"] * f.isp_duty
-                             / torch.clamp_min(f.fps_scale, 1.0)
+                             / _maximum(f.fps_scale, 1.0)
                              + p["floor_mw"]),
     "codec": lambda p, f, th: (th["codec_mw_per_rawmbps"] * f.codec_raw
                                + p["floor_mw"]),
@@ -385,7 +405,7 @@ LOAD_KINDS = {
     "dram": lambda p, f, th: (p["base_mw"]
                               + th["dram_mw_per_mbps"] * f.raw_visual / 8.0
                               + th["queue_mw_per_duty"] * f.duty_dram
-                              / torch.clamp_min(f.fps_scale, 1.0)),
+                              / _maximum(f.fps_scale, 1.0)),
     "wifi": lambda p, f, th: (th["wifi_link_mw"] * f.mcs_link_scale
                               + th["wifi_mw_per_mbps"] * f.mcs_ebit_scale
                               * f.mbps_eff),
@@ -420,6 +440,14 @@ def _tables(platform: PlatformSpec, device: torch.device) -> dict:
 
 
 @functools.lru_cache(maxsize=32)
+def _rules(platform: PlatformSpec) -> tuple:
+    """(column, load rule, params) of every non-constant component."""
+    return tuple((j, LOAD_KINDS[c.load.kind], c.load.p())
+                 for j, c in enumerate(platform.components)
+                 if c.load.kind != "const")
+
+
+@functools.lru_cache(maxsize=32)
 def batched_fn(platform: PlatformSpec):
     """Batched engine core for one platform.
 
@@ -427,25 +455,32 @@ def batched_fn(platform: PlatformSpec):
     takes a knob-vector dict of (R, ...) tensors (`ScenarioSet.vec`) and
     a theta dict of 0-dim float32 tensors (`_theta`) on one device, and
     returns (R, C) loads and (R,) totals / PD losses / gated uplink."""
-    comps = platform.components
-    rules = [(j, LOAD_KINDS[c.load.kind], c.load.p())
-             for j, c in enumerate(comps) if c.load.kind != "const"]
+    rules = _rules(platform)
 
     def fn(vec, th):
         tabs = _tables(platform, vec["compression"].device)
-        f = _features(platform, vec, tabs)
-        n = vec["compression"].shape[0]
-        cols = list(tabs["const_row"].expand(n, len(comps)).unbind(1))
-        for j, rule, p in rules:
-            cols[j] = rule(p, f, th)
-        loads = torch.stack(cols, dim=1)
-        eff = torch.clamp_max(tabs["rail_eff"] * th["eff_scale"], 0.97)
-        delivered = loads / eff
-        return {"loads": loads,
-                "pd_loss": torch.sum(delivered - loads, dim=1),
-                "total": _row_sums(delivered), "mbps": f.mbps_eff}
+        return _row_loads(rules, _features(platform, vec, tabs), th, tabs,
+                          vec["compression"].shape[0])
 
     return fn
+
+
+def _row_loads(rules: tuple, f: Features, th: dict, tabs: dict,
+               n: int) -> dict:
+    """Features of n rows -> {"loads", "pd_loss", "total", "mbps"}: the
+    load rules (`_rules`), the rail losses and the row sums, shared by
+    the hard and the relaxed engines (so both give the same bits at
+    binary rows)."""
+    cols = list(tabs["const_row"].expand(n, tabs["const_row"].shape[0])
+                .unbind(1))
+    for j, rule, p in rules:
+        cols[j] = rule(p, f, th)
+    loads = torch.stack(cols, dim=1)
+    eff = _minimum(tabs["rail_eff"] * th["eff_scale"], 0.97)
+    delivered = loads / eff
+    return {"loads": loads,
+            "pd_loss": torch.sum(delivered - loads, dim=1),
+            "total": _row_sums(delivered), "mbps": f.mbps_eff}
 
 
 def _theta(platform: PlatformSpec, theta=None, device="cuda") -> dict:
@@ -560,3 +595,154 @@ def offloaded_mbps(platform: PlatformSpec, sset: ScenarioSet, theta=None,
 def category_breakdown(platform: PlatformSpec, sset: ScenarioSet,
                        theta=None, device="cuda") -> dict:
     return evaluate(platform, sset, theta, device).category_breakdown()
+
+
+# ---------------------------------------------------------------------------
+# relaxed (differentiable-in-every-knob) evaluation
+# ---------------------------------------------------------------------------
+
+RELAXED_KEYS = ("placement", "compression", "fps_scale", "mcs_weights",
+                "upload_duty", "brightness")
+
+
+@functools.lru_cache(maxsize=64)
+def _relaxed_tables(platform: PlatformSpec, device: torch.device,
+                    dtype: torch.dtype) -> dict:
+    """The relaxed engine's constants in the batch's float width: the
+    (2^n, n) mask enumeration in placement-index order, the duty tables,
+    and the MCS scales, rail efficiencies and constant loads at their
+    float32 values (as the reference holds them) widened to `dtype`."""
+    n_prim = len(platform.primitives)
+    f32 = _tables(platform, device)
+
+    def wide(a):
+        return torch.as_tensor(np.asarray(a, np.float64),
+                               device=device).to(dtype)
+
+    return {
+        "masks": wide([[idx >> j & 1 for j in range(n_prim)]
+                       for idx in range(1 << n_prim)]),
+        "duty": {r: wide(platform.duty_table(r, d)) for r, d in
+                 (("isp", 1.0), ("npu", 0.0), ("dsp", 0.0),
+                  ("dram_bus", 0.0))},
+        **{k: f32[k].to(dtype) for k in ("mcs_ebit", "mcs_link",
+                                         "rail_eff", "const_row")},
+    }
+
+
+def _features_relaxed(platform: PlatformSpec, vec: dict,
+                      tabs: dict) -> Features:
+    """Differentiable feature path over relaxed (soft) discrete knobs.
+
+    `placement` holds per-primitive on-device probabilities; the
+    placement-indexed duty tables are interpolated multilinearly — the
+    exact expectation over the product-Bernoulli placement distribution,
+    which reduces to plain indexing at binary probabilities (every
+    weight is then an exact 0 or 1).  MCS scales are mixed by
+    `mcs_weights` (one-hot == the int path's lookup).  The weighted
+    sums are products and a sum, never a matrix product, which the card
+    could run in TF32."""
+    on = vec["placement"]
+    masks = tabs["masks"]
+    w = torch.prod(on[:, None, :] * masks
+                   + (1.0 - on[:, None, :]) * (1.0 - masks), dim=-1)
+
+    def duty_of(resource, default):
+        return torch.sum(w * tabs["duty"][resource], dim=-1)
+
+    mw = vec["mcs_weights"]
+    return _features_core(
+        platform, on, vec["compression"], vec["fps_scale"],
+        vec["upload_duty"], vec["brightness"], duty_of,
+        torch.sum(mw * tabs["mcs_ebit"], dim=-1),
+        torch.sum(mw * tabs["mcs_link"], dim=-1))
+
+
+@functools.lru_cache(maxsize=32)
+def _engine_relaxed(platform: PlatformSpec):
+    """Relaxed engine core for one platform: `fn(vec, th)` over a batch
+    of relaxed knob rows (a leading row axis on every leaf, one float
+    width) -> {"loads", "pd_loss", "total", "mbps"}, differentiable in
+    every knob and in theta.  The load rules, rail losses and row sums
+    are the hard engine's own (`_row_loads`)."""
+    rules = _rules(platform)
+
+    def fn(vec, th):
+        x = vec["compression"]
+        tabs = _relaxed_tables(platform, x.device, x.dtype)
+        return _row_loads(rules, _features_relaxed(platform, vec, tabs),
+                          th, tabs, x.shape[0])
+
+    return fn
+
+
+def relax_vec(sset: ScenarioSet, device="cuda") -> dict:
+    """ScenarioSet -> relaxed float32 knob vector (hard rows as a special
+    case).
+
+    Placement becomes float probabilities (0/1 for a hard set), the MCS
+    tier becomes a one-hot weight row — at these values the relaxed
+    engine reproduces `evaluate` exactly."""
+    dev = _device.resolve(device)
+
+    def put(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    return {
+        "placement": put(sset.placement),
+        "compression": put(sset.compression),
+        "fps_scale": put(sset.fps_scale),
+        "upload_duty": put(sset.upload_duty),
+        "brightness": put(sset.brightness),
+        "mcs_weights": put(np.eye(len(MCS_TIERS))[
+            np.asarray(sset.mcs_tier)]),
+    }
+
+
+def _validate_relaxed(platform: PlatformSpec, vec: dict) -> None:
+    missing = set(RELAXED_KEYS) - set(vec)
+    if missing:
+        raise ValueError(f"relaxed vec missing knobs {sorted(missing)}")
+    n_prim = len(platform.primitives)
+    if vec["placement"].shape[-1] != n_prim:
+        raise ValueError(
+            f"placement last dim {vec['placement'].shape[-1]} != "
+            f"platform {platform.name!r} primitive count {n_prim}")
+    if vec["mcs_weights"].shape[-1] != len(MCS_TIERS):
+        raise ValueError(f"mcs_weights last dim must be {len(MCS_TIERS)}")
+
+
+def _theta_relaxed(platform: PlatformSpec, theta=None, device="cuda",
+                   dtype=torch.float32) -> dict:
+    """Theta merge that KEEPS each tensor leaf as it is (its dtype and
+    its graph), unlike `_theta`, which casts to float32; Python numbers
+    become 0-dim tensors of `dtype` (the batch's float width), so
+    float64 finite differences run end to end."""
+    dev = _device.resolve(device)
+    th = platform.theta_dict()
+    if theta:
+        th.update(theta)
+    return {k: v if isinstance(v, torch.Tensor)
+            else torch.tensor(float(v), dtype=dtype, device=dev)
+            for k, v in th.items()}
+
+
+def evaluate_relaxed(platform: PlatformSpec, vec: dict,
+                     theta=None) -> dict:
+    """Batched relaxed evaluation on the vector's device, differentiable
+    in EVERY knob (placement probabilities, compression, fps, duty,
+    brightness, MCS weights) as well as theta.
+
+    `vec` is the relaxed knob dict (see `relax_vec` /
+    `design.device_vec`), all leaves sharing leading dim N.  Returns
+    {"loads": (N, C), "total": (N,), "pd_loss": (N,), "mbps": (N,)}."""
+    _validate_relaxed(platform, vec)
+    x = vec["compression"]
+    return _engine_relaxed(platform)(
+        vec, _theta_relaxed(platform, theta, x.device, x.dtype))
+
+
+def total_mw_relaxed(platform: PlatformSpec, vec: dict, theta=None):
+    """(N,) delivered totals; autograd flows through every knob leaf —
+    the substrate for `dse.sensitivity_map` and `dse.gradient_descend`."""
+    return evaluate_relaxed(platform, vec, theta)["total"]

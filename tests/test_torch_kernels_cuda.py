@@ -1,8 +1,9 @@
 """The CUDA kernels (day scan in both output modes, flash attention, SSD
 scan) against their plain PyTorch versions on the card, the day scan's
 paths: serial, batched (K queries folded into the combo axis), the
-legacy engine, `simulate_users` and `simulate`, and the joint device +
-backend front on the card against the CPU.
+legacy engine, `simulate_users`, `simulate` and `optimize_policy`, the
+joint device + backend front, and the gradient path (the relaxed engine
+and the differentiable day) on the card against the CPU.
 
 Needs an NVIDIA card with nvcc (the kernels have no CPU mode) and skips
 without one; it imports neither JAX nor the reference package, so it
@@ -16,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import daysim, dse
+from repro_torch.core import daysim, design, dse, scenarios
 from repro_torch.kernels import day_scan as ds
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ssd_scan as ss
@@ -470,3 +471,115 @@ def test_joint_pareto_on_the_card(cuda):
                     {"usd_budget_per_day": 3.0e5}):
         assert dse.co_optimize(got, **budgets) == \
             dse.co_optimize(want, **budgets), budgets
+
+
+# ---------------------------------------------------------------------------
+# the gradient co-design path on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("platform", ["aria2", "aria2_display",
+                                      "rayban_cam"])
+def test_relaxed_engine_equals_hard_engine_on_the_card(cuda, platform):
+    """Binary placements and one-hot MCS weights through the relaxed
+    engine give `evaluate`'s bits on the card too."""
+    plat = dse._plat(platform)
+    sset = scenarios.ScenarioSet.grid(
+        placements=scenarios.all_placements(plat.supported_primitives()),
+        compressions=(2.0, 16.0), fps_scales=(1.0, 4.0),
+        mcs_tiers=(0, 1, 2), upload_duties=(0.4,), brightnesses=(0.5,),
+        primitives=plat.primitives)
+    rep = scenarios.evaluate(plat, sset)
+    out = scenarios.evaluate_relaxed(plat, scenarios.relax_vec(sset))
+    assert torch.equal(rep.total_mw, out["total"])
+    assert torch.equal(rep.loads_mw, out["loads"])
+    assert torch.equal(rep.offloaded_mbps, out["mbps"])
+
+
+def test_relaxed_day_and_gradient_on_the_card(cuda):
+    """The relaxed day and d soft_tte_h / d policy point on the card
+    against the CPU (discrete outputs equal, traces at rtol 1e-6 / atol
+    1e-4, soft_tte_h at rtol 1e-5, gradients at rtol 1e-5 with equal
+    signs: 2.5e-7 read on an H100); at an exactly binary placement the
+    traces within the trace tolerance of `simulate`'s on the card (the
+    relaxed rows compose brightness x its throttle multiplier in
+    float32, as the reference does, so a level table may sit one ulp
+    off the hard one), and the eager integrator on `simulate`'s own
+    tables equal to the kernel on all 17 outputs."""
+    args = ("aria2_display", "field_day", "battery_saver",
+            daysim.DEFAULT_DESIGNS[0])
+    res = {}
+    for dev in ("cuda", "cpu"):
+        f = daysim.relaxed_day_fn(*args, dt_s=120.0, device=dev)
+        pt = {k: v.requires_grad_() for k, v in design.policy_point(
+            daysim.get_policy("battery_saver"), dev).items()}
+        out = f(pt)
+        g = torch.autograd.grad(out["soft_tte_h"], list(pt.values()))
+        res[dev] = ({k: v.detach().cpu().numpy() for k, v in out.items()},
+                    np.asarray([float(x) for x in g]))
+        if dev == "cuda":
+            binary = f({**{k: v.detach() for k, v in pt.items()},
+                        "placement_logits": torch.full((4,), -200.0,
+                                                       device=dev)})
+    (got, g_got), (want, g_want) = res["cuda"], res["cpu"]
+    for k in ("tte_h", "throttled_frac"):
+        assert got[k] == want[k], k
+    assert float(got["soft_tte_h"]) == pytest.approx(
+        float(want["soft_tte_h"]), rel=1e-5)
+    for k in ("t_skin", "soc"):
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-6, atol=1e-4)
+    np.testing.assert_allclose(g_got, g_want, rtol=1e-5, atol=1e-6)
+    live = np.abs(g_want) > 1e-6
+    np.testing.assert_array_equal(np.sign(g_got[live]),
+                                  np.sign(g_want[live]))
+    calls, scan = [], ds.day_scan
+
+    def recording(tables, full=False):
+        ys = scan(tables, full)
+        calls.append((tables, ys))
+        return ys
+
+    ds.day_scan = recording
+    try:
+        tr = daysim.simulate(args[0], args[3], args[1], args[2],
+                             dt_s=120.0)
+    finally:
+        ds.day_scan = scan
+    np.testing.assert_allclose(binary["t_skin"].cpu().numpy(), tr.t_skin_c,
+                               rtol=1e-6, atol=1e-4)
+    np.testing.assert_allclose(binary["soc"].cpu().numpy(), tr.soc,
+                               rtol=1e-6, atol=1e-4)
+    (tables, ys), = calls
+    one = {k: v[..., 0] for k, v in tables.items() if k != "const"}
+    one["const"] = {k: v[0] for k, v in tables["const"].items()}
+    eager = daysim._integrate_one(one)
+    for k in ds.TRACE_OUTS:
+        assert torch.equal(eager[k], ys[k][0]), k
+
+
+def test_optimize_policy_launches_held_to_plain(cuda, monkeypatch):
+    """`optimize_policy` on the card: one full-trace launch for the
+    baseline and one per hardened restart, each bit for bit equal to the
+    plain version on its own tables (all 17 outputs)."""
+    calls, scan = [], ds.day_scan
+
+    def recording(tables, full=False):
+        ys = scan(tables, full)
+        calls.append((tables, ys))
+        return ys
+
+    monkeypatch.setattr(ds, "day_scan", recording)
+    before = (ds.LAUNCHES, ds.FULL_LAUNCHES)
+    opt = dse.optimize_policy("aria2_display", daysim.DEFAULT_DESIGNS[0],
+                              "field_day", "battery_saver", n_restarts=2,
+                              steps=1, dt_s=120.0)
+    assert (ds.LAUNCHES - before[0], ds.FULL_LAUNCHES - before[1]) == (3, 3)
+    assert len(calls) == 3
+    for tables, ys in calls:
+        want = ds.day_scan_plain(tables, full=True)
+        assert tuple(ys) == tuple(want) == ds.TRACE_OUTS
+        for k in want:
+            assert torch.equal(ys[k], want[k]), k
+    cpu = daysim.simulate("aria2_display", daysim.DEFAULT_DESIGNS[0],
+                          "field_day", opt["policy"], dt_s=120.0,
+                          device="cpu")
+    assert cpu.summary["time_to_empty_h"] == opt["tte_h"]
