@@ -77,6 +77,31 @@ Run from the root of a checkout.  Phases (any failure exits non-zero):
         (6 restarts x 150 steps) against the CPU from the same starts
         (losses rtol 1e-3, the same best restart) and `fit_queue_coeff`
         (rtol 1e-4);
+     i. the fleet layer on `DEFAULT_POPULATION` (4 archetypes, 9
+        timezones, 4 streams, L = 3, T = 720 at dt_s 60), every day-scan
+        launch held to its plain version at once (17 outputs, bit for
+        bit, days >= 1 with their initial SoC): a. `fleet_day` for 4096
+        users, one launch a chunk and day, against the same call on the
+        CPU (survives() / shutdown / time-to-empty equal, peak skin and
+        end SoC within 1e-6, curves and pod-hours within rtol 1e-6; the
+        card's row stage puts some archetype-table entries an ulp off
+        the CPU's), and on the CPU's archetype tables every per-user
+        output equal to the CPU's; b. the
+        example's 100 000 users (fleet_size 1e6): launches = chunks, peak
+        device memory, a repeat bit-equal, the first 4096 users run alone
+        equal, the curve's integral equal to the scaled pod-hours within
+        1e-6; c. a 256-user week (7 days) undercharged (a 50 mW dock, days
+        1-6 start below a full battery) against the CPU as in a, and fully
+        recharged against the single day (curve within 1e-6); d.
+        `reference_fleet` against `fleet_day` on 24 users with mixed
+        survival (every per-user output equal); e. `autoscale.simulate`: `INSTANT` provisions the
+        curve's integral and drops nothing, the default spec within rtol
+        1e-6 of the CPU; f. `montecarlo.fleet_distribution` (256 users x 8
+        draws, dt_s 120, autoscaled) against the CPU (survival draws and
+        TTE equal, arrays within 1e-6), `reuse_prep` True and False
+        bit-identical; g. `dse.fleet_pareto()` (9 variants x 1024 users)
+        with and without an autoscaler: front_mask equal to the CPU's,
+        rows within rtol 1e-6;
   5. timing: day-scan kernel ms (CUDA events over many launches) at
      N = 64, 1 and 1024 (16 grids folded into N), the full-trace mode's
      at N = 64 and 1 beside its bound, the default mode's chain floor
@@ -89,7 +114,12 @@ Run from the root of a checkout.  Phases (any failure exits non-zero):
      one call; the gradient path: ms per Adam step of 4 h c (host
      clock) and a profile of one step, `simulate` ms, the example's
      60-step `optimize_policy` estimated from them, ms per
-     `fit_ensemble` step, `sensitivity_map` ms;
+     `fit_ensemble` step, `sensitivity_map` ms; the fleet layer:
+     `fleet_day` warm ms at 4096 and 100 000 users (host clock, ending in
+     the copy to the host), the full-trace kernel's ms at a fleet launch
+     (N = 4096 and a 16 384-user chunk, CUDA events) beside its bound, a
+     profile of one 4096-user call, Monte Carlo draws/s,
+     `autoscale.simulate` ms and kernels a call, `fleet_pareto` ms;
   6. flash-attention and SSD-scan kernels vs their plain versions on the
      card: at the zamba2-1.2b prefill shapes in bf16 and float32, flash
      at a GQA 4:1 + window 96 + ragged-S case at Dh = 128; SSD at the
@@ -137,8 +167,8 @@ Run from the root of a checkout.  Phases (any failure exits non-zero):
 
 The second-to-last lines are the `kernels` JSON object (the day scan's
 launches summed over the serial, batched, legacy, simulate_users,
-simulate and gradient paths of phase 4, both modes; its max_abs_err
-covers phase 3 and the tables of 4 b, d, e, f and h)
+simulate, gradient and fleet paths of phase 4, both modes; its
+max_abs_err covers phase 3 and the tables of 4 b, d, e, f, h and i)
 and the nvidia-smi line; the last line is the result object.
 """
 from __future__ import annotations
@@ -971,6 +1001,449 @@ def calibration_check() -> None:
           f"({q_rel:.3g} relative off the CPU)")
 
 
+# phase 4 i: the fleet layer at full width (DEFAULT_POPULATION: 4
+# archetypes, 9 timezones, 4 streams, L = 3, T = 720 at dt_s 60)
+FLEET_DT = 60.0
+FLEET_USERS = 4096              # benchmarks/fleet_bench.py's BENCH_USERS
+FLEET_BIG, FLEET_SIZE = 100_000, 1e6    # examples/fleet_capacity.py
+WEEK_USERS, WEEK_TRICKLE_MW = 256, 50.0
+REF_USERS, REF_KEY = 24, 3      # a port-sampled draw with mixed survival
+MC_USERS, MC_DRAWS, MC_DT = 256, 8, 120.0   # benchmarks/autoscale_bench.py
+PARETO_USERS = 1024
+# fleet curves and pod-hours, card vs CPU (the reference's parity budget)
+CURVE_RTOL = 1e-6
+FLEET_EXACT = ("time_to_empty_h", "shutdown", "day_hours")
+FLEET_PER_USER = ("time_to_empty_h", "peak_skin_c", "end_soc", "shutdown",
+                  "pod_hours", "day_hours")
+
+
+@contextlib.contextmanager
+def scan_checked(ds):
+    """Hold every day-scan call made inside to its plain version on its
+    own tables, at once (all outputs bit for bit), and drop it: records
+    (N, full, whether it carried an initial SoC below 1) per call and the
+    largest error in `stats`."""
+    stats = {"calls": [], "worst": 0.0}
+    real = ds.day_scan
+
+    def checking(tables, full=False):
+        import torch
+        ys = real(tables, full)
+        want = ds.day_scan_plain(tables, full)
+        torch.cuda.synchronize()
+        stats["worst"] = max(stats["worst"], compare(ys, want))
+        soc0 = any(k in tables and bool((tables[k] < 1.0).any())
+                   for k in ds.SOC0_KEYS)
+        stats["calls"].append((int(tables["step_mw"].shape[-1]), full,
+                               soc0))
+        return ys
+
+    ds.day_scan = checking
+    try:
+        yield stats
+    finally:
+        ds.day_scan = real
+
+
+def fleet_equal(name: str, got, want, same_tables: bool) -> str:
+    """A fleet report against the same call elsewhere: survival, shutdown
+    and time-to-empty equal (a failure); on the same archetype tables
+    every per-user output equal (a failure), on each device's own tables
+    peak skin within rtol 1e-6 and end SoC within 1e-6 (the row stage
+    puts some table entries an ulp apart between card and CPU); the
+    curves and pod-hours within CURVE_RTOL (misses)."""
+    import numpy as np
+    if not np.array_equal(got.survives(), want.survives()):
+        fail(f"{name}: survives() differs ({int(got.survives().sum())} vs "
+             f"{int(want.survives().sum())})")
+    for k in FLEET_EXACT + (FLEET_PER_USER if same_tables else ()):
+        if not np.array_equal(getattr(got, k), getattr(want, k)):
+            fail(f"{name}: {k} differs")
+    off = []
+    for k, rtol, atol in (("peak_skin_c", CURVE_RTOL, 0.0),
+                          ("end_soc", CURVE_RTOL, 1e-6)):
+        a, b = getattr(got, k), getattr(want, k)
+        off.append(f"{k} {int((a != b).sum())} (max abs diff "
+                   f"{float(np.max(np.abs(a - b))):.3g})")
+        if not np.allclose(a, b, rtol=rtol, atol=atol):
+            miss(f"{name}: {k} outside rtol {rtol:g} / atol {atol:g}")
+    worst = 0.0
+    for k in ("curve", "stream_curve", "pod_hours"):
+        a, b = getattr(got, k), getattr(want, k)
+        atol = CURVE_RTOL * float(np.max(np.abs(b))) if k != "pod_hours" \
+            else 0.0
+        worst = max(worst, float(np.max(np.abs(a - b)
+                                        / np.maximum(np.abs(b), 1e-30))))
+        if not np.allclose(a, b, rtol=CURVE_RTOL, atol=atol):
+            miss(f"{name}: {k} outside rtol {CURVE_RTOL:g}")
+    return (f"survive {int(got.survives().sum())} of {len(got)}, shutdown "
+            f"{int(got.shutdown.sum())}; users not bit-equal: "
+            + ", ".join(off) + f"; curves / pod-hours within {worst:.3g} "
+            "relative")
+
+
+def card_prep(spec, **kw):
+    """`fleet.prepare_fleet` built on the CPU (its row stage and tables)
+    and moved to the card: the card's fleet day on the CPU's tables."""
+    import dataclasses
+    import torch
+    from repro_torch.core import fleet
+    prep = fleet.prepare_fleet(spec, device="cpu", **kw)
+    dev = torch.device("cuda")
+    return dataclasses.replace(
+        prep, xs_dev={k: v.to(dev) for k, v in prep.xs_dev.items()},
+        device=dev)
+
+
+def fleet_tables_diff() -> str:
+    """How far the card's archetype tables (row stage on the card) sit
+    from the CPU's: entries not bit-equal."""
+    import torch
+    from repro_torch.core import fleet
+    got = fleet.prepare_fleet(fleet.DEFAULT_POPULATION, dt_s=FLEET_DT)
+    want = fleet.prepare_fleet(fleet.DEFAULT_POPULATION, dt_s=FLEET_DT,
+                               device="cpu")
+    diff = {k: int((v.cpu() != want.xs_dev[k]).sum())
+            for k, v in got.xs_dev.items()}
+    total = sum(v.numel() for v in got.xs_dev.values())
+    return (f"archetype tables card vs CPU: {sum(diff.values())} of {total} "
+            f"entries not bit-equal ("
+            + ", ".join(f"{k} {v}" for k, v in diff.items() if v) + ")")
+
+
+def fleet_paths() -> tuple:
+    """Phase 4 i: the fleet layer on the card against the CPU; returns
+    (day-scan launches of its main-path runs, the kernel's largest error
+    against its plain version on their tables)."""
+    import math
+    import numpy as np
+    import torch
+    from repro_torch.core import autoscale, dse, fleet, montecarlo
+    from repro_torch.kernels import day_scan as ds
+    spec = fleet.DEFAULT_POPULATION
+    launches, worst = 0, 0.0
+    print(fleet_tables_diff())
+
+    # a. 4096 users, card vs CPU
+    pop = fleet.sample_population(spec, FLEET_USERS, key=0)
+    with scan_checked(ds) as chk:
+        ds.LAUNCHES = ds.FULL_LAUNCHES = 0
+        got = fleet.fleet_day(pop, dt_s=FLEET_DT)
+        n, n_full = ds.LAUNCHES, ds.FULL_LAUNCHES
+    chunks = math.ceil(FLEET_USERS / fleet.CHUNK_USERS)
+    if (n, n_full) != (chunks, chunks):
+        fail(f"fleet_day ({FLEET_USERS} users): {n} launches ({n_full} full "
+             f"trace), want {chunks} (chunks x 1 day)")
+    with scan_checked(ds) as chk2:
+        ds.LAUNCHES = 0
+        same = fleet.fleet_day(pop, dt_s=FLEET_DT,
+                               prep=card_prep(spec, dt_s=FLEET_DT))
+        launches += ds.LAUNCHES
+    launches += n
+    worst = max(worst, chk["worst"], chk2["worst"])
+    want = fleet.fleet_day(pop, dt_s=FLEET_DT, device="cpu")
+    print(f"fleet_day ({FLEET_USERS} users, dt_s {FLEET_DT:g}, T "
+          f"{int(np.max(got.day_hours) * 3600 / FLEET_DT)}): {n} full-trace "
+          f"launch(es) at N = {[c[0] for c in chk['calls']]}, each == plain "
+          f"(17 outputs); vs the CPU: "
+          f"{fleet_equal('fleet_day 4096', got, want, False)}; on the CPU's "
+          f"tables: {fleet_equal('fleet_day 4096 (CPU tables)', same, want, True)}")
+
+    # b. the example's 100 000 users: peak memory, a repeat, the head run
+    # alone, the curve's integral
+    big = fleet.sample_population(spec, FLEET_BIG, key=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ds.LAUNCHES = 0
+    rep = fleet.fleet_day(big, dt_s=FLEET_DT, fleet_size=FLEET_SIZE)
+    n = ds.LAUNCHES
+    peak = torch.cuda.max_memory_allocated() - base
+    chunks = math.ceil(FLEET_BIG / fleet.CHUNK_USERS)
+    if n != chunks:
+        fail(f"fleet_day ({FLEET_BIG} users): {n} launches, want {chunks}")
+    with scan_checked(ds) as chk:
+        ds.LAUNCHES = 0
+        again = fleet.fleet_day(big, dt_s=FLEET_DT, fleet_size=FLEET_SIZE)
+        head = fleet.fleet_day(big.take(np.arange(FLEET_USERS)),
+                               dt_s=FLEET_DT, fleet_size=FLEET_SIZE)
+        n_more = ds.LAUNCHES
+    launches += n + n_more
+    worst = max(worst, chk["worst"])
+    for k in (*FLEET_PER_USER, "curve", "stream_curve"):
+        if not np.array_equal(getattr(again, k), getattr(rep, k)):
+            fail(f"fleet_day ({FLEET_BIG} users): a repeat changed {k}")
+    for k in FLEET_PER_USER:
+        if not np.array_equal(getattr(head, k),
+                              getattr(rep, k)[:FLEET_USERS]):
+            fail(f"fleet_day: the first {FLEET_USERS} users alone differ "
+                 f"from the {FLEET_BIG}-user run in {k}")
+    bin_hours = 24.0 / rep.curve.shape[0]
+    integral = rep.curve_total.sum() * bin_hours
+    scaled = rep.pod_hours.sum() * FLEET_SIZE / FLEET_BIG
+    if not math.isclose(integral, scaled, rel_tol=1e-6):
+        miss(f"fleet_day ({FLEET_BIG} users): curve integral {integral} vs "
+             f"scaled pod-hours {scaled}")
+    plan = rep.capacity_plan()
+    print(f"fleet_day ({FLEET_BIG} users, fleet_size {FLEET_SIZE:g}): {n} "
+          f"launches (chunks of {fleet.CHUNK_USERS}); peak device memory "
+          f"{peak / 2**30:.3f} GiB above the {base / 2**30:.3f} GiB held "
+          f"(torch.cuda.max_memory_allocated); a repeat bit-equal; the "
+          f"first {FLEET_USERS} users alone equal; curve integral "
+          f"{integral:.6g} pod-h/day vs scaled pod-hours {scaled:.6g} "
+          f"({abs(integral / scaled - 1):.3g} relative); survival "
+          f"{rep.survival_rate():.4f}, autoscaled ${plan['autoscaled']['usd']:,.0f}"
+          f"/day vs peak ${plan['peak_provisioned']['usd']:,.0f}/day; "
+          f"{n_more} more launches held to plain")
+
+    # c. the week: undercharged against the CPU, days >= 1 from soc0 < 1,
+    # the recharged week against the single day
+    wpop = fleet.sample_population(spec, WEEK_USERS, key=0)
+    with scan_checked(ds) as chk:
+        ds.LAUNCHES = 0
+        under = fleet.fleet_day(wpop, dt_s=FLEET_DT, n_days=7,
+                                overnight_charge_mw=WEEK_TRICKLE_MW)
+        n_under = ds.LAUNCHES
+        week = fleet.fleet_day(wpop, dt_s=FLEET_DT, n_days=7)
+        day = fleet.fleet_day(wpop, dt_s=FLEET_DT)
+        n = ds.LAUNCHES
+    launches += n
+    worst = max(worst, chk["worst"])
+    if n_under != 7 or n != 15:
+        fail(f"week: {n_under} launches undercharged, {n} in all; want 7 "
+             f"and 15")
+    started = sum(c[2] for c in chk["calls"][:7])
+    if started != 6:
+        fail(f"week: {started} of the undercharged days 1-6 started below "
+             f"a full battery, want 6")
+    cpu = fleet.fleet_day(wpop, dt_s=FLEET_DT, n_days=7,
+                          overnight_charge_mw=WEEK_TRICKLE_MW, device="cpu")
+    with scan_checked(ds) as chk:
+        ds.LAUNCHES = 0
+        same = fleet.fleet_day(wpop, dt_s=FLEET_DT, n_days=7,
+                               overnight_charge_mw=WEEK_TRICKLE_MW,
+                               prep=card_prep(spec, dt_s=FLEET_DT))
+        launches += ds.LAUNCHES
+    worst = max(worst, chk["worst"])
+    scale = float(day.curve.max())
+    drift = float(np.max(np.abs(week.curve - day.curve))) / scale
+    if not np.allclose(week.curve, day.curve, rtol=1e-6, atol=1e-6 * scale):
+        miss(f"week: the recharged week's curve {drift:.3g} off the day's")
+    print(f"week ({WEEK_USERS} users x 7 days): undercharged "
+          f"({WEEK_TRICKLE_MW:g} mW dock) 7 launches, days 1-6 from soc0 < 1, "
+          f"each == plain; vs the CPU: "
+          f"{fleet_equal('undercharged week', under, cpu, False)}; on the "
+          f"CPU's tables: "
+          f"{fleet_equal('undercharged week (CPU tables)', same, cpu, True)}"
+          f"; survival "
+          f"{under.survival_rate():.4f} vs one day {day.survival_rate():.4f}; "
+          f"recharged week's curve within {drift:.3g} of the day's")
+
+    # d. the per-user oracle on a population with mixed survival
+    rpop = fleet.sample_population(spec, REF_USERS, key=REF_KEY)
+    with scan_checked(ds) as chk:
+        ds.LAUNCHES = 0
+        got = fleet.fleet_day(rpop, dt_s=FLEET_DT)
+        n = ds.LAUNCHES
+    launches += n
+    worst = max(worst, chk["worst"])
+    ref = fleet.reference_fleet(rpop, dt_s=FLEET_DT)
+    surv = int(got.survives().sum())
+    if not 0 < surv < REF_USERS:
+        fail(f"reference_fleet: {surv} of {REF_USERS} survive, want a mix")
+    print(f"reference_fleet ({REF_USERS} users, key {REF_KEY}) vs fleet_day "
+          f"on the card: {fleet_equal('reference_fleet', got, ref, True)}")
+
+    # e. the autoscaler, card vs CPU
+    bh = 24.0 / got.curve.shape[0]
+    inst = autoscale.simulate(autoscale.INSTANT, want.curve_total, bh,
+                              stream_curve=want.stream_curve_total)
+    integral = want.curve_total.sum() * bh
+    if inst["dropped_pod_hours"] != 0.0 or not math.isclose(
+            inst["provisioned_pod_hours"], integral, rel_tol=1e-5):
+        miss(f"autoscale INSTANT: {inst['provisioned_pod_hours']} pod-h, "
+             f"dropped {inst['dropped_pod_hours']}; the curve integral "
+             f"{integral}")
+    spec_a = autoscale.AutoscalerSpec()
+    sim = autoscale.simulate(spec_a, want.curve_total, bh,
+                             stream_curve=want.stream_curve_total)
+    want_plan = autoscale.simulate(spec_a, want.curve_total, bh,
+                                   stream_curve=want.stream_curve_total,
+                                   device="cpu")
+    rel = 0.0
+    for k, v in want_plan.items():
+        if k in ("spec",):
+            continue
+        a, b = np.asarray(sim[k], float), np.asarray(v, float)
+        rel = max(rel, float(np.max(np.abs(a - b)
+                                    / np.maximum(np.abs(b), 1e-30))))
+        if not np.allclose(a, b, rtol=1e-6, atol=0.0):
+            miss(f"autoscale.simulate: {k} {sim[k]} vs the CPU's {v}")
+    print(f"autoscale: INSTANT provisions {inst['provisioned_pod_hours']:.6g} "
+          f"pod-h = the curve integral {integral:.6g}, drops 0; the default "
+          f"spec within {rel:.3g} relative of the CPU (dropped "
+          f"{sim['dropped_stream_hours']:.4g} stream-h, "
+          f"{sim['scale_down_events']} scale-downs)")
+
+    # f. Monte Carlo (benchmarks/autoscale_bench.py's configuration)
+    kw = dict(n_draws=MC_DRAWS, key=0, dt_s=MC_DT, fleet_size=FLEET_SIZE,
+              autoscaler=autoscale.AutoscalerSpec())
+    with scan_checked(ds) as chk:
+        ds.LAUNCHES = 0
+        dist = montecarlo.fleet_distribution(spec, MC_USERS, **kw)
+        slow = montecarlo.fleet_distribution(spec, MC_USERS,
+                                             reuse_prep=False, **kw)
+        n = ds.LAUNCHES
+    launches += n
+    worst = max(worst, chk["worst"])
+    if n != 2 * MC_DRAWS:
+        fail(f"fleet_distribution: {n} launches, want {2 * MC_DRAWS}")
+    cpu = montecarlo.fleet_distribution(spec, MC_USERS, device="cpu", **kw)
+    keys = ("survival_draws", "tte_draws", "curve_draws",
+            "stream_curve_draws", "usd_draws", "dynamic_usd_draws",
+            "dropped_stream_h_draws")
+    for k in keys:
+        if not np.array_equal(getattr(dist, k), getattr(slow, k)):
+            fail(f"fleet_distribution: reuse_prep changed {k}")
+    for k in ("survival_draws", "tte_draws"):
+        if not np.array_equal(getattr(dist, k), getattr(cpu, k)):
+            fail(f"fleet_distribution: {k} differ from the CPU's")
+    rel = 0.0
+    for k in keys[2:]:
+        a, b = getattr(dist, k), getattr(cpu, k)
+        rel = max(rel, float(np.max(np.abs(a - b)
+                                    / np.maximum(np.abs(b), 1e-30))))
+        if not np.allclose(a, b, rtol=1e-6, atol=1e-6 * float(b.max())):
+            miss(f"fleet_distribution: {k} outside 1e-6 of the CPU's")
+    sv = dist.survival_rate()
+    print(f"fleet_distribution ({MC_USERS} users x {MC_DRAWS} draws, dt_s "
+          f"{MC_DT:g}): {n} launches (reuse_prep True and False, "
+          f"bit-identical), each == plain; survival draws and TTE equal to "
+          f"the CPU's, curves and $ within {rel:.3g}; survival "
+          f"{sv['mean']:.4f} [{sv['lo']:.4f}, {sv['hi']:.4f}]")
+
+    # g. the fleet front, with and without an autoscaler
+    for scaler in (None, autoscale.AutoscalerSpec()):
+        with scan_checked(ds) as chk:
+            ds.LAUNCHES = 0
+            front = dse.fleet_pareto(n_users=PARETO_USERS,
+                                     autoscaler=scaler)
+            n = ds.LAUNCHES
+        launches += n
+        worst = max(worst, chk["worst"])
+        cpu = dse.fleet_pareto(n_users=PARETO_USERS, autoscaler=scaler,
+                               device="cpu")
+        name = f"fleet_pareto ({'autoscaled' if scaler else 'ideal'})"
+        if n != len(front.rows) or len(front.rows) != 9:
+            fail(f"{name}: {n} launches for {len(front.rows)} variants")
+        if not np.array_equal(front.front_mask, cpu.front_mask):
+            fail(f"{name}: front differs from the CPU's")
+        rel = 0.0
+        for g, w in zip(front.rows, cpu.rows):
+            if set(g) != set(w) or g["variant"] != w["variant"]:
+                fail(f"{name}: rows differ in keys or order")
+            for k, v in w.items():
+                if isinstance(v, str):
+                    continue
+                rel = max(rel, abs(g[k] - v) / max(abs(v), 1e-30))
+                if not math.isclose(g[k], v, rel_tol=1e-6, abs_tol=1e-9):
+                    miss(f"{name} {w['variant']}: {k} {g[k]} vs the CPU's "
+                         f"{v}")
+        print(f"{name} (9 variants x {PARETO_USERS} users): {n} launches, "
+              f"each == plain; front {int(front.front_mask.sum())} equal to "
+              f"the CPU's, rows within {rel:.3g} relative")
+    return launches, worst
+
+
+def fleet_timing() -> str:
+    """Phase 5, fleet layer: fleet_day warm ms at 4096 and 100 000 users
+    (host clock, ending in the copy to the host), the kernel's ms per
+    fleet launch (CUDA events) beside its bound, a profile of one 4096-user
+    call, Monte Carlo draws/s, autoscale.simulate ms and kernels a call,
+    fleet_pareto ms."""
+    import numpy as np
+    import torch
+    from repro_torch.core import autoscale, dse, fleet, montecarlo
+    from repro_torch.kernels import day_scan as ds
+    spec = fleet.DEFAULT_POPULATION
+    out = []
+
+    def wall(fn, reps):
+        fn()
+        ms = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return float(np.mean(ms)), float(np.min(ms))
+
+    pop = fleet.sample_population(spec, FLEET_USERS, key=0)
+    big = fleet.sample_population(spec, FLEET_BIG, key=0)
+    day = lambda: fleet.fleet_day(pop, dt_s=FLEET_DT)     # noqa: E731
+    m4, n4 = wall(day, 5)
+    m1, n1 = wall(lambda: fleet.fleet_day(big, dt_s=FLEET_DT,
+                                          fleet_size=FLEET_SIZE), 3)
+    out.append(f"fleet_day warm (host clock, ends in the copy to the host): "
+               f"{FLEET_USERS} users mean {m4:.2f} ms, min {n4:.2f} ms (5 "
+               f"calls); {FLEET_BIG} users mean {m1:.2f} ms, min {n1:.2f} ms "
+               f"(3 calls, {m1 * 1e3 / FLEET_BIG:.2f} us a user-day)")
+    # the kernel alone on a fleet launch's tables (4096, and a 100 000-user
+    # run's full chunk)
+    for p in (pop, big.take(np.arange(fleet.CHUNK_USERS))):
+        seen = []
+        real = ds.day_scan
+
+        def grab(tables, full=False):
+            seen.append(tables)
+            return real(tables, full)
+
+        ds.day_scan = grab
+        try:
+            fleet.fleet_day(p, dt_s=FLEET_DT)
+        finally:
+            ds.day_scan = real
+        tables = seen[0]
+        n, t, n_lvl = ds._shape(tables)
+        ds._day_scan_cuda(tables, True)
+        k_ms = cuda_ms(lambda: ds._day_scan_cuda(tables, True), 20)
+        b_ms, b_by = bound_ms(n, t, n_lvl, len(ds.TRACE_OUTS))
+        out.append(f"day_scan full trace at a fleet launch (N = {n}, T = {t}, "
+                   f"L = {n_lvl}, CUDA events, 20 launches): {k_ms:.4f} ms, "
+                   f"bound {b_ms:.5f} ms by {b_by} ({b_ms / k_ms:.1%} of it)")
+        FLEET_KERNEL_MS[n] = (k_ms, b_ms, b_by)
+        del seen, tables
+    out.append(profile_device(day, f"fleet_day {FLEET_USERS} users",
+                              tags=("day_scan",), host_ops=False))
+    kw = dict(n_draws=MC_DRAWS, key=0, dt_s=MC_DT, fleet_size=FLEET_SIZE,
+              autoscaler=autoscale.AutoscalerSpec())
+    mc, mc_min = wall(lambda: montecarlo.fleet_distribution(
+        spec, MC_USERS, **kw), 2)
+    out.append(f"fleet_distribution ({MC_USERS} users x {MC_DRAWS} draws, "
+               f"dt_s {MC_DT:g}, autoscaled, warm, host clock, 2 calls): "
+               f"mean {mc:.1f} ms = {MC_DRAWS * 1e3 / mc:.2f} draws/s (best "
+               f"{MC_DRAWS * 1e3 / mc_min:.2f})")
+    rep = fleet.fleet_day(pop, dt_s=FLEET_DT)
+    sim = lambda: autoscale.simulate(                      # noqa: E731
+        autoscale.AutoscalerSpec(), rep.curve_total, 1.0,
+        stream_curve=rep.stream_curve_total)
+    a_ms, a_min = wall(sim, 5)
+    out.append(f"autoscale.simulate (default spec, 24 x 12 substeps, warm, "
+               f"host clock, 5 calls): mean {a_ms:.2f} ms, min {a_min:.2f} "
+               f"ms\n" + profile_device(sim, "autoscale.simulate", tags=(),
+                                        host_ops=False))
+    for scaler in (None, autoscale.AutoscalerSpec()):
+        f_ms, _ = wall(lambda: dse.fleet_pareto(n_users=PARETO_USERS,
+                                                autoscaler=scaler), 1)
+        out.append(f"fleet_pareto (9 variants x {PARETO_USERS} users, "
+                   f"{'autoscaled' if scaler else 'ideal'}, warm, host "
+                   f"clock): {f_ms:.1f} ms")
+    return "\n".join(out)
+
+
+FLEET_KERNEL_MS: dict = {}      # N -> (kernel ms, bound ms, bound by)
+
+
 def gradient_timing(cap: float) -> str:
     """Phase 5, gradient path: ms per Adam step of 4 h c (host clock over
     warm steps: one batched value-and-grad of all restarts, the Adam
@@ -1754,6 +2227,11 @@ def main() -> None:
     print(f"day_scan launches on the gradient path: {n_day + n_opt} "
           f"full-trace ({launches + n_day + n_opt} on the main path in all)")
     launches += n_day + n_opt
+    n_fleet, err_fleet = fleet_paths()
+    worst = max(worst, err_fleet)
+    print(f"day_scan launches on the fleet layer: {n_fleet} full-trace "
+          f"({launches + n_fleet} on the main path in all)")
+    launches += n_fleet
 
     # 5. timing (launches from here on are not the main path's)
     lib_fn = ds._day_scan_cuda
@@ -1814,6 +2292,7 @@ def main() -> None:
           f"{np.mean(q_ms):.3f} ms")
     print(steady_state_timing())
     print(gradient_timing(opt["peak_cap_c"]))
+    print(fleet_timing())
     del twin
     lm_rows = lm_phases(dev)
     if MISSES:

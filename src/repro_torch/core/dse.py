@@ -22,7 +22,9 @@ the host:
   * platform_ablation    — one scenario across the registered SKUs.
 
 Day level: `day_pareto` fronts (time-to-empty h, peak skin °C, backend
-pod-hours) on the port's day pipeline, and the survival filter.
+pod-hours) on the port's day pipeline, and the survival filter.  Fleet
+level: `fleet_pareto` fronts of population variants ($/day, survival
+rate, and dropped stream-hours under an autoscaler).
 
 All dominance filtering uses the correct Pareto test — q dominates p
 iff q <= p in every objective and q < p in at least one — so points
@@ -34,7 +36,7 @@ pipeline runs on the device, one front per query of a batch.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -727,3 +729,105 @@ def optimize_policy(platform, design_row, schedule, policy_template,
         "gain_h": float(tte - base.summary["time_to_empty_h"]),
         "restarts": n_restarts, "steps": steps,
     }
+
+
+# ---------------------------------------------------------------------------
+# fleet-level fronts: population variants over ($/day, survival rate)
+# ---------------------------------------------------------------------------
+
+@dataclass
+class FleetFront:
+    """`fleet_pareto` output: one row per population variant plus the
+    non-dominated mask over (autoscaled fleet $/day minimized, survival
+    rate maximized — and dropped stream-hours minimized when the sweep
+    was priced with an autoscaler)."""
+    rows: list
+    front_mask: np.ndarray
+
+    def front_rows(self) -> list:
+        return [r for r, m in zip(self.rows, self.front_mask) if m]
+
+
+def fleet_pareto(spec=None, variants=None, n_users: int = 1024, key=0,
+                 dt_s: float = 60.0, fleet_size: float = 1e6,
+                 n_draws: int = 1, autoscaler=None, ci: float = 0.90,
+                 device="cuda", **kw) -> FleetFront:
+    """SKU-mix / policy Pareto front at fleet scale: backend $/day vs the
+    fraction of users whose device survives the day (vs dropped
+    stream-hours, when an `autoscale.AutoscalerSpec` prices the lagging
+    fleet), each variant's fleet day on `device`.
+
+    Each variant is a `(name, PopulationSpec)` — by default every
+    (policy x design) override of `spec` via
+    `PopulationSpec.with_overrides`.  ONE population sample (same key)
+    is reused across variants, so fronts compare policy/design choices
+    on the identical fleet.  Costs are the autoscaled diurnal-curve
+    pricing at `fleet_size` users.
+
+    `n_draws > 1` runs the sweep as Monte Carlo over the population key
+    (`montecarlo.fleet_distribution`, the same `key` per variant =
+    common random numbers): rows carry mean objectives plus `ci`-level
+    `*_lo` / `*_hi` bands, and the front ranks the means."""
+    from . import daysim, fleet, montecarlo
+    dev = str(_device.resolve(device))
+    if spec is None:
+        spec = fleet.DEFAULT_POPULATION
+    if variants is None:
+        variants = [(f"{pol}/{row['name']}",
+                     spec.with_overrides(f"{spec.name}:{pol}:"
+                                         f"{row['name']}",
+                                         policy=pol, design=row))
+                    for pol in daysim.DEFAULT_POLICIES
+                    for row in daysim.DEFAULT_DESIGNS]
+    rows = []
+    if n_draws > 1:
+        for name, vspec in variants:
+            dist = montecarlo.fleet_distribution(
+                vspec, n_users, n_draws, key, ci=ci,
+                autoscaler=autoscaler, dt_s=dt_s,
+                fleet_size=fleet_size, device=dev, **kw)
+            sv, cost = dist.survival_rate(), dist.cost()
+            usd = cost["autoscaled_usd"]
+            row = {
+                "variant": name, "n_draws": n_draws,
+                "survival_rate": sv["mean"],
+                "survival_lo": sv["lo"], "survival_hi": sv["hi"],
+                "usd_per_day": usd["mean"],
+                "usd_lo": usd["lo"], "usd_hi": usd["hi"],
+                "tte_p50_h": dist.tte_quantiles()["p50"]["mean"],
+            }
+            if autoscaler is not None:
+                row["dynamic_usd_per_day"] = cost["dynamic_usd"]["mean"]
+                drop = cost["dropped_stream_hours"]
+                row["dropped_stream_hours"] = drop["mean"]
+                row["dropped_stream_hours_hi"] = drop["hi"]
+            rows.append(row)
+    else:
+        pop = fleet.sample_population(spec, n_users, key)
+        for name, vspec in variants:
+            vpop = replace(pop, spec=vspec)
+            rep = fleet.fleet_day(vpop, dt_s=dt_s,
+                                  fleet_size=fleet_size, device=dev, **kw)
+            plan = rep.capacity_plan(autoscaler=autoscaler)
+            row = {
+                "variant": name,
+                "survival_rate": rep.survival_rate(),
+                "usd_per_day": plan["autoscaled"]["usd"],
+                "peak_usd_per_day": plan["peak_provisioned"]["usd"],
+                "kg_co2_per_day": plan["autoscaled"]["kgco2"],
+                "peak_pods": plan["peak_pods"],
+                "trough_peak_ratio": plan["trough_peak_ratio"],
+                "tte_p50_h": plan["tte_quantiles_h"]["p50"],
+                "shutdowns": plan["shutdowns"],
+            }
+            if autoscaler is not None:
+                row["dynamic_usd_per_day"] = plan["dynamic"]["usd"]
+                row["dropped_stream_hours"] = \
+                    plan["dropped_stream_hours"]
+            rows.append(row)
+    cols = ["usd_per_day", "survival_rate"]
+    maximize = (1,)
+    if autoscaler is not None:
+        cols.append("dropped_stream_hours")
+    pts = np.asarray([[r[c] for c in cols] for r in rows])
+    return FleetFront(rows, non_dominated(pts, maximize=maximize))

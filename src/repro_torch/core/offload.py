@@ -12,7 +12,9 @@ finite.
 `stream_rates` resolves each stream's serving cell once per artifact
 directory (the only part that touches the filesystem);
 `pods_streams_device` is the batched tensor math the day pipeline runs
-on the device; `pod_cost` prices pod-hours.  `pods_breakdown` is the
+on the device; `pod_cost` prices pod-hours and `curve_cost` a fleet's
+diurnal load curve (autoscaled, peak-provisioned, or through
+`autoscale.simulate`'s lagging fleet).  `pods_breakdown` is the
 host numpy sizing of a whole `ScenarioSet` (the joint device + backend
 front's), `size_fleet` / `fleet_grid` its per-scenario rows.
 """
@@ -98,6 +100,86 @@ def _check_fleet_args(n_users: float, duty: float) -> None:
         raise ValueError(f"n_users must be > 0, got {n_users}")
     if not 0.0 <= duty <= 1.0:
         raise ValueError(f"duty={duty} outside [0, 1]")
+
+
+def curve_cost(pods_by_hour, bin_hours: float = 1.0, *,
+               per_stream: bool = False, autoscaler=None,
+               stream_curve=None, device="cuda") -> dict:
+    """Price a diurnal backend load curve: autoscaled vs peak-provisioned
+    (vs *dynamic*, when an autoscaler is supplied).  Host numpy in
+    float64, as the reference computes it.
+
+    `pods_by_hour` is a (B,) pods-vs-hour-of-day curve (average pods
+    active during each bin) or (B, S) per-stream curves, summed over
+    streams first.  The bins must cover exactly one 24 h day
+    (`bin_hours * B == 24`).  Provisioning strategies priced via
+    `pod_cost`:
+
+      autoscaled        — capacity follows the curve instantaneously;
+                          pod-hours/day is the curve integral
+                          (sum * bin_hours)
+      peak_provisioned  — static fleet sized for the worst bin running
+                          all day
+      dynamic           — only with `autoscaler` (an
+                          `autoscale.AutoscalerSpec`): capacity lags
+                          demand through spin-up latency and the
+                          hysteresis band (`autoscale.simulate`, run on
+                          `device`); `stream_curve` (B,) turns the
+                          dropped fraction into dropped stream-hours
+
+    With `per_stream=True` and a (B, S) input, `"per_stream"` carries
+    the per-stream autoscaled pod-hours/$ breakdown.  The trough/peak
+    ratio is the flatness headline: 1.0 means timezone spreading has
+    fully flattened the day and autoscaling buys nothing."""
+    raw = np.asarray(pods_by_hour, np.float64)
+    curve = raw.sum(axis=1) if raw.ndim == 2 else raw
+    if curve.ndim != 1 or curve.size == 0:
+        raise ValueError(f"expected a (B,) or (B, S) curve, "
+                         f"got shape {np.shape(pods_by_hour)}")
+    if float(curve.min()) < 0.0:
+        raise ValueError("curve has negative pods")
+    if not np.isclose(bin_hours * curve.size, 24.0, rtol=1e-9):
+        raise ValueError(f"curve covers {bin_hours * curve.size:g} h "
+                         f"({curve.size} bins x {bin_hours:g} h), "
+                         f"expected a 24 h diurnal day — pass the "
+                         f"matching bin_hours")
+    if per_stream and raw.ndim != 2:
+        raise ValueError("per_stream=True needs a (B, S) curve, got "
+                         f"shape {np.shape(pods_by_hour)}")
+    peak = float(curve.max())
+    trough = float(curve.min())
+    auto_ph = float(curve.sum() * bin_hours)
+    peak_ph = peak * curve.size * bin_hours
+    auto, prov = pod_cost(auto_ph), pod_cost(peak_ph)
+    out = {
+        "peak_pods": peak, "trough_pods": trough,
+        "trough_peak_ratio": trough / peak if peak > 0 else 1.0,
+        "autoscaled": auto, "peak_provisioned": prov,
+        "savings_usd": prov["usd"] - auto["usd"],
+        "savings_pct": (100.0 * (1.0 - auto["usd"] / prov["usd"])
+                        if prov["usd"] > 0 else 0.0),
+    }
+    if per_stream:
+        stream_ph = raw.sum(axis=0) * bin_hours         # (S,)
+        out["per_stream"] = {
+            **pod_cost(stream_ph),
+            "peak_pods": raw.max(axis=0),
+            "share": (stream_ph / auto_ph if auto_ph > 0
+                      else np.zeros_like(stream_ph)),
+        }
+    if autoscaler is not None:
+        from . import autoscale
+        sim = autoscale.simulate(autoscaler, curve, bin_hours,
+                                 stream_curve=stream_curve, device=device)
+        dyn = pod_cost(sim["provisioned_pod_hours"])
+        out["dynamic"] = dyn
+        out["dynamic_gap_usd"] = dyn["usd"] - auto["usd"]
+        out["dropped_pod_hours"] = sim["dropped_pod_hours"]
+        out["dropped_stream_hours"] = sim["dropped_stream_hours"]
+        out["autoscaler"] = sim["spec"]
+        out["effective_spinup_h"] = sim["effective_spinup_h"]
+        out["peak_capacity_pods"] = sim["peak_capacity_pods"]
+    return out
 
 
 @dataclass(frozen=True)

@@ -21,6 +21,11 @@ neighbouring addresses at every step:
     charge, charge_p                (T, N) float32
     act_mult                        (L, N) float32
     const                           {key: (N,) float32}, keys CONST_KEYS
+    soc0, soc0_p (optional)         (N,) float32, full-trace mode only
+
+`soc0` / `soc0_p` start each combo's glasses and puck node from that
+state of charge instead of a full battery (`fleet.fleet_day`'s days after
+the first); absent, both start at 1.0 as before.
 
 Both return {name: (N, T)} for `OUTS` (transposed views of the (T, N)
 buffers; `level` int32), or with ``full=True`` for all of `TRACE_OUTS`
@@ -63,6 +68,7 @@ MAX_LEVELS = 16             # largest L the kernel takes
 
 TABLE_KEYS = ("step_mw", "step_mw_p", "step_pods")
 ROW_KEYS = ("ambient", "active", "valid", "charge", "charge_p")
+SOC0_KEYS = ("soc0", "soc0_p")      # the full trace's optional inputs
 
 LAUNCHES = 0                # kernel launches in this process, both modes
 FULL_LAUNCHES = 0           # those of the full-trace mode
@@ -73,7 +79,7 @@ def _shape(tables: dict) -> tuple:
     return n, t, n_lvl
 
 
-def _check(tables: dict) -> None:
+def _check(tables: dict, full: bool = False) -> None:
     n, t, n_lvl = _shape(tables)
     dev = tables["step_mw"].device
     if tuple(sorted(tables["const"])) != CONST_KEYS:
@@ -92,13 +98,24 @@ def _check(tables: dict) -> None:
         if tuple(x.shape) != (n,) or x.dtype != torch.float32 \
                 or x.device != dev:
             raise ValueError(f"const {k}: want float32 ({n},) on {dev}")
+    for k in SOC0_KEYS:
+        if k not in tables:
+            continue
+        if not full:
+            raise ValueError(f"{k}: an initial SoC is taken by the "
+                             f"full-trace mode only")
+        x = tables[k]
+        if tuple(x.shape) != (n,) or x.dtype != torch.float32 \
+                or x.device != dev:
+            raise ValueError(f"{k}: want float32 ({n},) on {dev}, got "
+                             f"{x.dtype} {tuple(x.shape)} on {x.device}")
 
 
 def day_scan(tables: dict, full: bool = False) -> dict:
     """Integrate the day tables: the plain version for CPU tensors, the
     CUDA kernel for CUDA tensors, an error for anything else.  Returns
     `OUTS`, or `TRACE_OUTS` when `full`."""
-    _check(tables)
+    _check(tables, full)
     dev = tables["step_mw"].device
     if dev.type == "cpu":
         return day_scan_plain(tables, full)
@@ -128,14 +145,14 @@ def day_scan_plain(tables: dict, full: bool = False) -> dict:
     """The plain PyTorch version: daysim._step_math over a combo batch,
     a Python loop over T, on whatever device the tables are on; `OUTS`,
     or `TRACE_OUTS` when `full`."""
-    _check(tables)
+    _check(tables, full)
     n, t_steps, _ = _shape(tables)
     c = tables["const"]
     cols = torch.arange(n, device=tables["step_mw"].device)
     amb0 = tables["ambient"][0]
     one = torch.ones_like(amb0)
     zero = torch.zeros_like(amb0)
-    soc, soc_p = one, one
+    soc, soc_p = tables.get("soc0", one), tables.get("soc0_p", one)
     t_soc, t_skin, t_soc_p, t_skin_p = amb0, amb0, amb0, amb0
     th_state, soc_state, shut = zero, zero, zero
     out = {k: [] for k in (TRACE_OUTS if full else OUTS)}
@@ -210,14 +227,14 @@ def day_scan_staged_plain(tables: dict, chunk: int,
     boolean latches, an integer level and a gather at it.  Every operation
     and operand order is `day_scan_plain`'s, so every output is bit-equal
     to it, in both modes (`full`: act at the level is the prep's act_l)."""
-    _check(tables)
+    _check(tables, full)
     n, t_steps, _ = _shape(tables)
     c = tables["const"]
     cols = torch.arange(n, device=tables["step_mw"].device)
     amb0 = tables["ambient"][0]
     one = torch.ones_like(amb0)
     zero = torch.zeros_like(amb0)
-    soc, soc_p = one, one
+    soc, soc_p = tables.get("soc0", one), tables.get("soc0_p", one)
     t_soc, t_skin, t_soc_p, t_skin_p = amb0, amb0, amb0, amb0
     th_state = soc_state = torch.zeros_like(amb0, dtype=torch.bool)
     shut = zero
@@ -285,7 +302,8 @@ def _lib():
 def _entry(full: bool):
     lib = _lib()
     fn = lib.day_scan_full_launch if full else lib.day_scan_launch
-    fn.argtypes = _argtypes(len(TRACE_OUTS if full else OUTS))
+    fn.argtypes = _argtypes(len(TRACE_OUTS if full else OUTS)) \
+        + [ctypes.c_void_p] * (len(SOC0_KEYS) if full else 0)
     fn.restype = ctypes.c_int
     return fn
 
@@ -333,7 +351,12 @@ def _day_scan_cuda(tables: dict, full: bool = False) -> dict:
     """Launch csrc/day_scan.cu on the current stream (no sync), in the
     full-trace mode when `full`."""
     global LAUNCHES, FULL_LAUNCHES
+    # the initial SoC (full trace only; null = a full charge), held here
+    # until the launch is queued
+    soc0 = [tables[k].contiguous() if k in tables else None
+             for k in SOC0_KEYS] if full else []
     outs = _launch(_entry(full), tables,
+                   *[None if x is None else x.data_ptr() for x in soc0],
                    outs_keys=TRACE_OUTS if full else OUTS)
     LAUNCHES += 1
     FULL_LAUNCHES += full

@@ -1,9 +1,10 @@
-"""The CUDA kernels (day scan in both output modes, flash attention, SSD
-scan) against their plain PyTorch versions on the card, the day scan's
-paths: serial, batched (K queries folded into the combo axis), the
-legacy engine, `simulate_users`, `simulate` and `optimize_policy`, the
-joint device + backend front, and the gradient path (the relaxed engine
-and the differentiable day) on the card against the CPU.
+"""The CUDA kernels (day scan in both output modes, with the full trace's
+initial SoC, flash attention, SSD scan) against their plain PyTorch
+versions on the card, the day scan's paths: serial, batched (K queries
+folded into the combo axis), the legacy engine, `simulate_users`,
+`simulate`, `optimize_policy` and the fleet day, the joint device +
+backend front, and the gradient path (the relaxed engine and the
+differentiable day) on the card against the CPU.
 
 Needs an NVIDIA card with nvcc (the kernels have no CPU mode) and skips
 without one; it imports neither JAX nor the reference package, so it
@@ -17,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import daysim, design, dse, scenarios
+from repro_torch.core import daysim, design, dse, fleet, scenarios
 from repro_torch.kernels import day_scan as ds
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ssd_scan as ss
@@ -583,3 +584,97 @@ def test_optimize_policy_launches_held_to_plain(cuda, monkeypatch):
                           "field_day", opt["policy"], dt_s=120.0,
                           device="cpu")
     assert cpu.summary["time_to_empty_h"] == opt["tte_h"]
+
+
+def _soc0(n: int, seed: int, device) -> dict:
+    g = torch.Generator().manual_seed(seed)
+    soc0 = 0.05 + 0.9 * torch.rand(n, generator=g)
+    soc0[0] = 0.0                   # a dead start
+    return {"soc0": soc0.to(device),
+            "soc0_p": (0.05 + 0.9 * torch.rand(n, generator=g)).to(device)}
+
+
+@pytest.mark.parametrize("n,t,n_lvl", [(1, 50, 1), (37, 300, 3),
+                                       (70, 200, 6), (200, 1000, 3)])
+def test_full_trace_initial_soc_matches_plain(cuda, n, t, n_lvl):
+    """The full-trace entry's soc0 / soc0_p: all 17 outputs bit for bit
+    equal to the plain version; absent, the launch equals one from a
+    full battery (soc0 = 1), and the default mode is untouched."""
+    tables = random_tables(n, t, n_lvl, seed=n + 3, device=cuda)
+    started = dict(tables, **_soc0(n, n, cuda))
+    before = ds.FULL_LAUNCHES
+    got = ds.day_scan(started, full=True)
+    assert ds.FULL_LAUNCHES == before + 1
+    want = ds.day_scan_plain(started, full=True)
+    torch.cuda.synchronize()
+    _assert_full_equal(got, want)
+    plain = ds.day_scan(tables, full=True)
+    ones = ds.day_scan(dict(tables, soc0=torch.ones(n, device=cuda),
+                            soc0_p=torch.ones(n, device=cuda)), full=True)
+    _assert_full_equal(ones, plain)
+    _assert_full_equal(plain, ds.day_scan_plain(tables, full=True))
+    if n > 1:
+        assert not torch.equal(got["soc"], plain["soc"])
+    with pytest.raises(ValueError, match="full-trace mode only"):
+        ds.day_scan(started)
+
+
+PER_USER = ("time_to_empty_h", "peak_skin_c", "end_soc", "shutdown",
+            "pod_hours", "day_hours")
+
+
+def test_fleet_day_chunks_and_positions_on_the_card(cuda, monkeypatch):
+    """Per-user results do not depend on the chunk size or on a user's
+    place in a chunk; one full-trace launch per chunk and day, each bit
+    for bit equal to the plain version on its own tables."""
+    calls, scan = [], ds.day_scan
+
+    def recording(tables, full=False):
+        ys = scan(tables, full)
+        calls.append((tables, ys))
+        return ys
+
+    pop = fleet.sample_population(fleet.DEFAULT_POPULATION, 300, key=5)
+    whole = fleet.fleet_day(pop, dt_s=60.0, n_days=2,
+                            overnight_charge_mw=50.0)
+    monkeypatch.setattr(ds, "day_scan", recording)
+    monkeypatch.setattr(fleet, "CHUNK_USERS", 128)
+    before = ds.FULL_LAUNCHES
+    small = fleet.fleet_day(pop, dt_s=60.0, n_days=2,
+                            overnight_charge_mw=50.0)
+    assert ds.FULL_LAUNCHES - before == 3 * 2
+    for tables, ys in calls:
+        want = ds.day_scan_plain(tables, full=True)
+        for k in want:
+            assert torch.equal(ys[k], want[k]), k
+    assert any("soc0" in t and bool((t["soc0"] < 1.0).any())
+               for t, _ in calls)
+    part = fleet.fleet_day(pop.take(np.arange(50, 150)), dt_s=60.0,
+                           n_days=2, overnight_charge_mw=50.0)
+    for k in PER_USER:
+        assert np.array_equal(getattr(small, k), getattr(whole, k)), k
+        assert np.array_equal(getattr(part, k),
+                              getattr(whole, k)[50:150]), k
+    np.testing.assert_allclose(small.curve, whole.curve, rtol=1e-12)
+
+
+def test_fleet_day_on_the_card_matches_cpu(cuda):
+    """512 users on the card against the same call on the CPU: survival,
+    shutdown and time-to-empty equal, peak skin, end SoC, the curves and
+    pod-hours within rtol 1e-6."""
+    pop = fleet.sample_population(fleet.DEFAULT_POPULATION, 512, key=2)
+    got = fleet.fleet_day(pop, dt_s=60.0)
+    want = fleet.fleet_day(pop, dt_s=60.0, device="cpu")
+    assert 0 < got.survives().sum() < len(got)
+    assert np.array_equal(got.survives(), want.survives())
+    for k in ("time_to_empty_h", "shutdown", "day_hours"):
+        assert np.array_equal(getattr(got, k), getattr(want, k)), k
+    np.testing.assert_allclose(got.peak_skin_c, want.peak_skin_c,
+                               rtol=1e-6, atol=0.0)
+    np.testing.assert_allclose(got.end_soc, want.end_soc, rtol=1e-6,
+                               atol=1e-6)
+    np.testing.assert_allclose(got.pod_hours, want.pod_hours, rtol=1e-6)
+    for k in ("curve", "stream_curve"):
+        w = getattr(want, k)
+        np.testing.assert_allclose(getattr(got, k), w, rtol=1e-6,
+                                   atol=1e-6 * float(w.max()), err_msg=k)
