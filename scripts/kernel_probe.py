@@ -5,10 +5,15 @@ for working on one kernel.
 
     python3 scripts/kernel_probe.py day              # day scan: designs x
                                                      # probe modes x N
-    python3 scripts/kernel_probe.py flash            # edges + time vs SDPA
+    python3 scripts/kernel_probe.py flash            # ptxas lines, edges at
+                                                     # Dh 64-256, times at
+                                                     # the LM shapes vs SDPA
     python3 scripts/kernel_probe.py ssd              # edges, group states,
                                                      # time per launch
     python3 scripts/kernel_probe.py flash-variants   # exp2 fold / 4 warps
+    python3 scripts/kernel_probe.py flash-compare OTHER.cu   # another copy
+                                                     # of the flash source
+                                                     # vs this one, in turns
 
 Run from the root of a checkout.  Every line it prints is a reading of
 the card named on its first line.  `day` builds csrc/day_scan.cu and the
@@ -161,8 +166,19 @@ def probe_flash() -> None:
     """Kernel vs plain (max abs) and vs plain on the kernel's tiles
     (relative RMS) over edge shapes, then the prefill-shape time beside
     scaled_dot_product_attention's."""
+    build.build("flash_attention")
+    for line in build.BUILD_LOG.get("flash_attention", "").splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            print(f"ptxas flash_attention: {line.strip()}")
     gen = torch.Generator(device=DEV).manual_seed(0)
     for B, Sq, Sk, H, KvH, Dh, causal, window in (
+            (1, 1100, 1100, 8, 4, 256, True, None),
+            (1, 1100, 1100, 8, 4, 256, True, 1024),
+            (1, 1000, 1000, 32, 32, 96, True, None),
+            (1, 300, 300, 8, 2, 96, True, 96),
+            (1, 130, 70, 4, 2, 256, False, None),
+            (1, 70, 130, 4, 4, 96, True, None),
+            (2, 257, 257, 8, 8, 256, True, 5),
             (2, 4096, 4096, 32, 32, 64, True, None),
             (1, 300, 300, 8, 2, 128, True, 96),
             (2, 200, 200, 4, 1, 64, False, None),
@@ -187,12 +203,25 @@ def probe_flash() -> None:
                   f"abs err {float((got.float() - want.float()).abs().max()):.3g}"
                   f", rel RMS vs tiled {rel_rms(got, tiled):.3g}, finite "
                   f"{bool(torch.isfinite(got).all())}")
-    q, k, v = (rn(gen, (2, 4096, 32, 64), torch.bfloat16) for _ in range(3))
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    print(f"flash bf16 B=2 S=4096 H=32 Dh=64 causal: "
-          f"{cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True)):.4f}"
-          f" ms; scaled_dot_product_attention "
-          f"{cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)):.4f} ms")  # noqa: E501
+    for (H, KvH, Dh, window) in FLASH_TIMED:
+        for dtype in (torch.bfloat16, torch.float32):
+            q = rn(gen, (2, 4096, H, Dh), dtype)
+            k, v = (rn(gen, (2, 4096, KvH, Dh), dtype) for _ in range(2))
+            flash = lambda: fa.flash_attention(  # noqa: E731
+                q, k, v, causal=True, window=window)
+            sdpa, backend = chip_smoke.sdpa_call(q, k, v, True, window)
+            bound, by = chip_smoke.flash_bound(q, k, True, window)
+            print(f"flash {str(dtype)[6:]} B=2 S=4096 H={H} KvH={KvH} "
+                  f"Dh={Dh} causal window={window}: {cuda_ms(flash):.4f} ms;"
+                  f" scaled_dot_product_attention {cuda_ms(sdpa):.4f} ms "
+                  f"({backend}); bound {bound:.4f} ms "
+                  f"by {by}", flush=True)
+
+
+# (H, KvH, Dh, window) timed at B = 2, S = 4096: zamba2's shared block,
+# gemma3-4b's global and local layers, phi-3-vision's layers
+FLASH_TIMED = ((32, 32, 64, None), (8, 4, 256, None), (8, 4, 256, 1024),
+               (32, 32, 96, None))
 
 
 def ssd_inputs(gen, b, s, h, g, n, dtype, dt_scale):
@@ -325,11 +354,54 @@ def probe_flash_variants() -> None:
             print(line, flush=True)
 
 
+def probe_flash_compare(other: str) -> None:
+    """The kernel built from another copy of csrc/flash_attention.cu
+    (`other`, e.g. a parent commit's) against this checkout's, bf16 and
+    float32, timed in turns (other, this, this, other) at the zamba2-1.2b
+    prefill shape, outputs compared bit for bit."""
+    lib = build.BUILD_DIR.parent / "probe" / "flash_other.so"
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(lib),
+                           other], capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed for {other}:\n{proc.stderr}")
+    fns = {"other": ctypes.CDLL(str(lib)).flash_attention_launch,
+           "this": build.load("flash_attention").flash_attention_launch}
+    for fn in fns.values():
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 \
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    gen = torch.Generator(device=DEV).manual_seed(2)
+    for dtype, reps in ((torch.bfloat16, 50), (torch.float32, 10)):
+        q, k, v = (rn(gen, (2, 4096, 32, 64), dtype) for _ in range(3))
+
+        def run(fn):
+            o = torch.empty_like(q)
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                     2, 4096, 4096, 32, 32, 64, 1, -1, 1 / math.sqrt(64),
+                     fa.DTYPES[dtype],
+                     torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"launch failed: CUDA error {err}")
+            return o
+
+        same = torch.equal(run(fns["other"]), run(fns["this"]))
+        for name in ("other", "this", "this", "other"):
+            print(f"flash {str(dtype)[6:]} B=2 S=4096 H=32 Dh=64 causal, "
+                  f"{name} ({other if name == 'other' else 'checkout'}): "
+                  f"{cuda_ms(lambda: run(fns[name]), reps):.4f} ms",
+                  flush=True)
+        print(f"{str(dtype)[6:]} outputs bit for bit equal: {same}")
+
+
 def main() -> None:
     probes = {"day": probe_day, "flash": probe_flash, "ssd": probe_ssd,
               "flash-variants": probe_flash_variants}
-    if len(sys.argv) != 2 or sys.argv[1] not in probes:
-        sys.exit(f"usage: kernel_probe.py {{{'|'.join(probes)}}}")
+    if len(sys.argv) == 3 and sys.argv[1] == "flash-compare":
+        probes["flash-compare"] = lambda: probe_flash_compare(sys.argv[2])
+    elif len(sys.argv) != 2 or sys.argv[1] not in probes:
+        sys.exit(f"usage: kernel_probe.py {{{'|'.join(probes)}}} | "
+                 f"flash-compare OTHER.cu")
     if not torch.cuda.is_available():
         sys.exit("kernel_probe.py: no CUDA card")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

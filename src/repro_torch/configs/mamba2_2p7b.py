@@ -11,7 +11,8 @@ def config() -> ModelConfig:
         n_layers=64, d_model=2560, n_heads=1, n_kv_heads=1, head_dim=1,
         d_ff=0, vocab=50280,
         ssm=SSDConfig(d_model=2560, d_state=128, head_dim=64, expand=2,
-                      n_groups=1, chunk=64))
+                      n_groups=1, chunk=64),
+        sub_quadratic=True)
 
 
 def smoke() -> ModelConfig:
@@ -21,4 +22,4 @@ def smoke() -> ModelConfig:
         d_ff=0, vocab=256,
         ssm=SSDConfig(d_model=64, d_state=16, head_dim=16, expand=2,
                       n_groups=1, chunk=8),
-        compute_dtype=torch.float32)
+        sub_quadratic=True, compute_dtype=torch.float32)

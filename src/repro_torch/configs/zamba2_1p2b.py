@@ -17,7 +17,7 @@ def config() -> ModelConfig:
         d_ff=8192, vocab=32000,
         ssm=SSDConfig(d_model=2048, d_state=64, head_dim=64, expand=2,
                       n_groups=1, chunk=64),
-        attn_every=6, long_context_window=4096)
+        attn_every=6, sub_quadratic=True, long_context_window=4096)
 
 
 def smoke() -> ModelConfig:
@@ -27,5 +27,5 @@ def smoke() -> ModelConfig:
         d_ff=128, vocab=256,
         ssm=SSDConfig(d_model=64, d_state=16, head_dim=16, expand=2,
                       n_groups=1, chunk=8),
-        attn_every=2, long_context_window=64,
+        attn_every=2, sub_quadratic=True, long_context_window=64,
         compute_dtype=torch.float32)

@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import hashlib
 import math
+import os
 
 import numpy as np
 import torch
@@ -52,7 +53,11 @@ def tables_from_numpy(tables: dict, device="cuda") -> dict:
 # language-model parameters
 # ---------------------------------------------------------------------------
 
-F32_LEAVES = ("A_log", "D", "dt_bias")   # float32 whatever the param dtype
+# float32 whatever the param dtype: the SSM's A_log / D / dt_bias and the
+# MoE router
+F32_LEAVES = ("A_log", "D", "dt_bias", "router")
+TRANSFORMER_FAMILIES = ("dense", "moe", "vlm")
+_BLOCK = 1 << 22            # elements of one seeded block (transformer tree)
 
 
 def _trunc_normal(rng, out: np.ndarray, std: float) -> np.ndarray:
@@ -68,15 +73,89 @@ def _trunc_normal(rng, out: np.ndarray, std: float) -> np.ndarray:
     return out
 
 
+def _trunc_normal_blocks(seed: int, leaf: int, shape, std: float,
+                         pool) -> np.ndarray:
+    """A float32 array of `shape`, Normal(0, std) truncated at 2 std,
+    drawn in blocks of `_BLOCK` elements, block b from its own stream
+    (seed, leaf, b), the blocks filled in parallel on `pool`'s threads
+    (numpy's generators release the GIL).  The values depend on the seed,
+    the leaf number and the shape only."""
+    out = np.empty(shape, np.float32)
+    flat = out.reshape(-1)
+
+    def fill(b):
+        part = flat[b * _BLOCK:(b + 1) * _BLOCK]
+        _trunc_normal(np.random.default_rng([seed, leaf, b]), part[None],
+                      std)
+
+    list(pool.map(fill, range(-(-flat.size // _BLOCK))))
+    return out
+
+
+def transformer_params_numpy(cfg, seed: int) -> dict:
+    """Seeded numpy parameters of `models.transformer` with the shapes
+    and scales of the reference's `transformer.init`: dense layers
+    Normal(0, 1/sqrt(fan_in)) (`dense_init`'s fan_in: the first axis of a
+    layer's leaf, or the one the reference names), the embedding Normal(0,
+    1), both truncated at 2 std; RMSNorm scales ones, non-parametric
+    norms `{}`; the MoE router (D, E); `patch_proj` (vision_embed_dim, D).
+    All float32, layer leaves stacked on a leading axis.  Leaves are
+    numbered in a fixed order and each is drawn by
+    `_trunc_normal_blocks`, so the tree depends on the seed alone."""
+    from concurrent.futures import ThreadPoolExecutor
+    L, d, V = cfg.n_layers, cfg.d_model, cfg.vocab
+    H, K, Dh, F = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
+    counter = iter(range(1 << 30))
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as pool:
+
+        def dense(shape, fan_in):
+            return _trunc_normal_blocks(seed, next(counter), shape,
+                                        1.0 / math.sqrt(max(fan_in, 1)),
+                                        pool)
+
+        def norm(*shape):
+            return {} if cfg.norm == "nonparametric_ln" else \
+                {"scale": np.ones(shape, np.float32)}
+
+        layers = {
+            "norm1": norm(L, d),
+            "attn": {"wq": dense((L, d, H, Dh), d),
+                     "wk": dense((L, d, K, Dh), d),
+                     "wv": dense((L, d, K, Dh), d),
+                     "wo": dense((L, H, Dh, d), H * Dh)},
+            "norm2": norm(L, d),
+        }
+        if cfg.n_experts:
+            E = cfg.n_experts
+            layers["moe"] = {"router": dense((L, d, E), d),
+                             "wi": dense((L, E, d, F), d),
+                             "wg": dense((L, E, d, F), d),
+                             "wo": dense((L, E, F, d), F)}
+        else:
+            layers["mlp"] = {"wi": dense((L, d, F), d),
+                             "wo": dense((L, F, d), F),
+                             "wg": dense((L, d, F), d)}
+        params = {"embed": {"table": dense((V, d), 1)},
+                  "layers": layers, "final_norm": norm(d)}
+        if cfg.vision_tokens:
+            params["patch_proj"] = dense((cfg.vision_embed_dim, d),
+                                         cfg.vision_embed_dim)
+    return params
+
+
 def lm_params_numpy(cfg, seed: int) -> dict:
-    """Seeded numpy parameters of `models.mamba_lm` with the shapes and
-    scales of the reference's `mamba_lm.init` / `ssd.mamba2_init`: dense
-    layers Normal(0, 1/sqrt(fan_in)) and the embedding Normal(0, 1), both
+    """Seeded numpy parameters of `cfg`'s model: the transformer families
+    through `transformer_params_numpy`; the SSM and hybrid families here,
+    as `models.mamba_lm`'s tree with the shapes and scales of the
+    reference's `mamba_lm.init` / `ssd.mamba2_init`: dense layers
+    Normal(0, 1/sqrt(fan_in)) and the embedding Normal(0, 1), both
     truncated at 2 std; conv_w over sqrt(d_conv); A_log = log(1 + 15 U);
     dt_bias the inverse softplus of a log-uniform dt in [dt_min, dt_max];
     D, norm scales ones; conv_b zeros.  All float32, layer leaves stacked
     on a leading axis.  Each leaf has its own stream (seed, leaf number),
     so the tree does not depend on the order leaves are read in."""
+    if cfg.family in TRANSFORMER_FAMILIES:
+        return transformer_params_numpy(cfg, seed)
     s, n_l, d = cfg.ssm, cfg.n_layers, cfg.d_model
     di, h = s.d_inner, s.n_heads
     proj_out = 2 * di + 2 * s.n_groups * s.d_state + h
@@ -148,9 +227,10 @@ def params_checksum(tree: dict) -> str:
 
 
 def lm_params_from_numpy(tree: dict, cfg, device="cuda") -> dict:
-    """The reference's `mamba_lm.init` parameter tree, as numpy arrays,
-    as the port's parameter tree on `device`: leaves in `cfg.param_dtype`
-    except A_log, D and dt_bias, which stay float32 as in the reference."""
+    """The reference's `init` parameter tree (`mamba_lm` or `transformer`),
+    as numpy arrays, as the port's parameter tree on `device`: leaves in
+    `cfg.param_dtype` except A_log, D, dt_bias and the MoE router, which
+    stay float32 as in the reference."""
     dev = _device.resolve(device)
 
     def put(node, name):

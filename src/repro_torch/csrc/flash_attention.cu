@@ -47,8 +47,19 @@
 // would leave ~1e-3 relative error against the float32 tolerance of
 // 2e-5).  256 threads: thread (ti, tj) = (tid / 16, tid % 16) owns query
 // rows ti + 16 r (r < 4), score columns tj + 16 c (c < 4) and output
-// columns 64 g + 4 tj .. + 3; smem row strides are padded (Dh + 4,
-// 64 + 16) so the float4 reads are free of bank conflicts.
+// columns GW g + CW tj .. + CW - 1 (g < Dh / GW): groups of GW = 64
+// columns, CW = 4 a thread (float4), where 64 divides Dh, and of 32, CW =
+// 2 (float2), where it does not (Dh 96); smem row strides are padded
+// (Dh + 4, 64 + 16) so the vector reads are free of bank conflicts.
+//
+// Head widths: Dh 64, 96, 128 and 256 in both dtypes.  A static_assert in
+// each kernel refuses a width whose columns the thread mapping would not
+// all cover, and one whose tiles would not fit the 227 KB of shared
+// memory a block may opt into (f32 at Dh 256: 220 160 B; bf16 at Dh 256:
+// 202 752 B).  bf16 at Dh 256 would need 128 accumulator + 64 Q-fragment
+// + 32 score registers a thread, over the 255 a thread may have: above
+// Dh 128 each k-step's Q fragment is re-read from the Q tile in shared
+// memory on every kv tile (QREG false) instead of staying in registers.
 
 #include <cstdint>
 
@@ -78,9 +89,10 @@ constexpr int F32_BQ = 64;         // query rows per block
 constexpr int F32_BK = 64;         // keys per kv tile
 constexpr int F32_THREADS = 256;
 constexpr int PS = F32_BK + 16;    // smem row stride of the P tile
+constexpr int SMEM_OPTIN_BYTES = 232448;   // sm_90: 227 KB a block
 
 template <int DH>
-constexpr int f32_smem_floats() {
+__host__ __device__ constexpr int f32_smem_floats() {
   return F32_BQ * (DH + 4) + 2 * F32_BK * (DH + 4) + F32_BQ * PS;
 }
 
@@ -88,7 +100,14 @@ template <int DH>
 __global__ void __launch_bounds__(F32_THREADS) flash_kernel_f32(FlashArgs a) {
   constexpr int BQ = F32_BQ, BK = F32_BK, THREADS = F32_THREADS;
   constexpr int DS = DH + 4;       // smem row stride of the Q/K/V tiles
-  constexpr int NG = DH / 64;      // groups of 64 output columns
+  constexpr int GW = DH % 64 == 0 ? 64 : 32;   // output columns a group
+  constexpr int CW = GW / 16;      // output columns a thread, per group
+  constexpr int NG = DH / GW;      // groups
+  static_assert(DH % 32 == 0 && DH > 0 && NG * GW == DH,
+                "flash f32: every output column must belong to a group of "
+                "16 threads x CW columns");
+  static_assert(f32_smem_floats<DH>() * 4 <= SMEM_OPTIN_BYTES,
+                "flash f32: tiles exceed the shared memory of a block");
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);
   float* ks = qs + BQ * DS;
@@ -109,13 +128,13 @@ __global__ void __launch_bounds__(F32_THREADS) flash_kernel_f32(FlashArgs a) {
         ? q[((size_t(b) * a.Sq + qi) * a.H + h) * DH + d] : 0.f;
   }
 
-  float m[4], l[4], acc[4][4 * NG];
+  float m[4], l[4], acc[4][CW * NG];
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     m[r] = NEG_INF;
     l[r] = 0.f;
 #pragma unroll
-    for (int e = 0; e < 4 * NG; ++e) acc[r][e] = 0.f;
+    for (int e = 0; e < CW * NG; ++e) acc[r][e] = 0.f;
   }
 
   int nk = (a.Sk + BK - 1) / BK;
@@ -191,7 +210,7 @@ __global__ void __launch_bounds__(F32_THREADS) flash_kernel_f32(FlashArgs a) {
       l[r] = l[r] * alpha + sum;
       m[r] = m_new;
 #pragma unroll
-      for (int e = 0; e < 4 * NG; ++e) acc[r][e] *= alpha;
+      for (int e = 0; e < CW * NG; ++e) acc[r][e] *= alpha;
     }
     __syncthreads();
 
@@ -206,16 +225,22 @@ __global__ void __launch_bounds__(F32_THREADS) flash_kernel_f32(FlashArgs a) {
       for (int jj = 0; jj < 4; ++jj) {
 #pragma unroll
         for (int g = 0; g < NG; ++g) {
-          const float4 vv = *reinterpret_cast<const float4*>(
-              &vs[(j + jj) * DS + 64 * g + 4 * tj]);
+          const float* vp = &vs[(j + jj) * DS + GW * g + CW * tj];
+          float vv[CW];
+          if constexpr (CW == 4) {
+            const float4 t = *reinterpret_cast<const float4*>(vp);
+            vv[0] = t.x; vv[1] = t.y; vv[2] = t.z; vv[3] = t.w;
+          } else {
+            const float2 t = *reinterpret_cast<const float2*>(vp);
+            vv[0] = t.x; vv[1] = t.y;
+          }
 #pragma unroll
           for (int r = 0; r < 4; ++r) {
             const float p = jj == 0 ? pr[r].x : jj == 1 ? pr[r].y
                           : jj == 2 ? pr[r].z : pr[r].w;
-            acc[r][4 * g + 0] = fmaf(p, vv.x, acc[r][4 * g + 0]);
-            acc[r][4 * g + 1] = fmaf(p, vv.y, acc[r][4 * g + 1]);
-            acc[r][4 * g + 2] = fmaf(p, vv.z, acc[r][4 * g + 2]);
-            acc[r][4 * g + 3] = fmaf(p, vv.w, acc[r][4 * g + 3]);
+#pragma unroll
+            for (int e = 0; e < CW; ++e)
+              acc[r][CW * g + e] = fmaf(p, vv[e], acc[r][CW * g + e]);
           }
         }
       }
@@ -231,8 +256,8 @@ __global__ void __launch_bounds__(F32_THREADS) flash_kernel_f32(FlashArgs a) {
 #pragma unroll
     for (int g = 0; g < NG; ++g)
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        row[64 * g + 4 * tj + e] = acc[r][4 * g + e] / den;
+      for (int e = 0; e < CW; ++e)
+        row[GW * g + CW * tj + e] = acc[r][CW * g + e] / den;
   }
 }
 
@@ -246,7 +271,7 @@ constexpr int BF_BK = 64;              // keys per kv tile
 constexpr int BF_THREADS = 32 * BF_WARPS;
 
 template <int DH>
-constexpr int bf_smem_bytes() {
+__host__ __device__ constexpr int bf_smem_bytes() {
   // Q tile, then two stages of (K tile, V tile); rows padded by 16 bytes
   return (BF_BQ + 4 * BF_BK) * (DH + 8) * 2;
 }
@@ -319,6 +344,13 @@ __global__ void __launch_bounds__(BF_THREADS) flash_kernel_bf16(FlashArgs a) {
   constexpr int KQ = DH / 16;      // k-steps of q.k
   constexpr int NS = BF_BK / 8;    // score n-tiles (8 keys each)
   constexpr int NO = DH / 8;       // output n-tiles (8 columns each)
+  // Q fragments stay in registers up to Dh 128; above, re-read per k-step
+  constexpr bool QREG = DH <= 128;
+  static_assert(DH % 16 == 0 && DH > 0,
+                "flash bf16: Dh must be whole 16-wide k-steps and pairs of "
+                "8-column output tiles, or columns go unwritten");
+  static_assert(bf_smem_bytes<DH>() <= SMEM_OPTIN_BYTES,
+                "flash bf16: tiles exceed the shared memory of a block");
   extern __shared__ float4 smem4[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem4);
   __nv_bfloat16* kvs = qs + BF_BQ * DS;     // stage st: K at 2 st, V at 2 st + 1
@@ -354,7 +386,7 @@ __global__ void __launch_bounds__(BF_THREADS) flash_kernel_bf16(FlashArgs a) {
   const int r_last = r_first + 15;
   const int row0 = r_first + g, row1 = row0 + 8;   // this thread's two rows
 
-  uint32_t qf[KQ][4];
+  uint32_t qf[QREG ? KQ : 1][4];
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
   float acc[NO][4];
 #pragma unroll
@@ -374,9 +406,9 @@ __global__ void __launch_bounds__(BF_THREADS) flash_kernel_bf16(FlashArgs a) {
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (kt == kt_begin) {          // Q fragments, once
+    if (QREG && kt == kt_begin) {  // Q fragments, once
 #pragma unroll
-      for (int kk = 0; kk < KQ; ++kk)
+      for (int kk = 0; kk < (QREG ? KQ : 0); ++kk)
         ldmatrix_x4(qf[kk], qs + (16 * warp + (lane & 15)) * DS + 16 * kk
                                 + 8 * (lane >> 4));
     }
@@ -395,13 +427,16 @@ __global__ void __launch_bounds__(BF_THREADS) flash_kernel_bf16(FlashArgs a) {
       for (int j = 0; j < NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < KQ; ++kk) {
+        if (!QREG)                 // this k-step's Q fragment, again
+          ldmatrix_x4(qf[0], qs + (16 * warp + (lane & 15)) * DS + 16 * kk
+                                 + 8 * (lane >> 4));
 #pragma unroll
         for (int j = 0; j < NS; j += 2) {
           uint32_t kb[4];
           ldmatrix_x4(kb, ks + (8 * j + (lane & 7) + ((lane >> 4) << 3)) * DS
                               + 16 * kk + 8 * ((lane >> 3) & 1));
-          mma_bf16(s[j], qf[kk], kb[0], kb[1]);
-          mma_bf16(s[j + 1], qf[kk], kb[2], kb[3]);
+          mma_bf16(s[j], qf[QREG ? kk : 0], kb[0], kb[1]);
+          mma_bf16(s[j + 1], qf[QREG ? kk : 0], kb[2], kb[3]);
         }
       }
 
@@ -538,10 +573,21 @@ extern "C" int flash_attention_launch(
   if (B == 0 || Sq == 0) return 0;
   const FlashArgs a{q, k, v, o, B, Sq, Sk, H, KvH, causal, window, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && Dh == 64) return launch_f32<64>(a, s);
-  if (dtype == 0 && Dh == 128) return launch_f32<128>(a, s);
-  if (dtype == 1 && Dh == 64) return launch_bf16<64>(a, s);
-  if (dtype == 1 && Dh == 128) return launch_bf16<128>(a, s);
+  if (dtype == 0) {
+    switch (Dh) {
+      case 64: return launch_f32<64>(a, s);
+      case 96: return launch_f32<96>(a, s);
+      case 128: return launch_f32<128>(a, s);
+      case 256: return launch_f32<256>(a, s);
+    }
+  } else if (dtype == 1) {
+    switch (Dh) {
+      case 64: return launch_bf16<64>(a, s);
+      case 96: return launch_bf16<96>(a, s);
+      case 128: return launch_bf16<128>(a, s);
+      case 256: return launch_bf16<256>(a, s);
+    }
+  }
   return int(cudaErrorInvalidValue);
 }
 

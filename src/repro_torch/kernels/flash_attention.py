@@ -19,9 +19,10 @@ miss the float32 tolerance.  `TILES` gives each path's (query rows, keys)
 per tile, the tiling on which the plain version keeps the kernel's
 running max.  See the source's header note.
 
-Inputs: float32 or bfloat16, all three alike, contiguous; Dh 64 or 128 on
-the card.  The output has q's dtype.  `LAUNCHES` counts kernel launches
-(the plain version never bumps it).
+Inputs: float32 or bfloat16, all three alike, contiguous; Dh 64, 96, 128
+or 256 on the card (phi-3-vision's heads are 96 wide, gemma3's 256).
+The output has q's dtype.  `LAUNCHES` counts kernel launches (the plain
+version never bumps it).
 """
 from __future__ import annotations
 
@@ -33,7 +34,7 @@ import torch
 
 from ..nn import attention as _attn
 
-HEAD_DIMS = (64, 128)       # head widths the kernel takes
+HEAD_DIMS = (64, 96, 128, 256)   # head widths the kernel takes
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # (query rows, keys) of the kernel's tiles, by dtype: F32_BQ / F32_BK and
 # BF_BQ / BF_BK in csrc/flash_attention.cu

@@ -1,8 +1,8 @@
-"""Prefill / decode steps (the reference's `launch/steps.py`, for the
-ported SSM and hybrid families; single card, so no sharding)."""
+"""Prefill / decode steps (the reference's `launch/steps.py`, single
+card, so no sharding, no `env` and no `serve_shard`)."""
 from __future__ import annotations
 
-_PORTED = ("ssm", "hybrid")
+_PORTED = ("dense", "moe", "vlm", "ssm", "hybrid")
 
 
 def _check_family(cfg) -> None:
@@ -13,13 +13,20 @@ def _check_family(cfg) -> None:
 
 
 def make_prefill_step(cfg, model):
-    """`prefill_step(params, inputs) -> last hidden (B, D)`.  SSM prefill
-    == forward; the last position's hidden is what serving consumes."""
+    """`prefill_step(params, inputs)`: for the transformer families
+    (last hidden (B, D), KV cache), as the reference returns; the VLM
+    reads `inputs["vision_embeds"]`.  SSM / hybrid prefill == forward:
+    the last position's hidden (B, D), what serving consumes."""
     _check_family(cfg)
 
     def prefill_step(params, inputs):
-        h, _ = model.forward(params, cfg, inputs["tokens"])
-        return h[:, -1, :]
+        if cfg.family == "vlm":
+            return model.prefill(params, cfg, inputs["tokens"],
+                                 vision_embeds=inputs["vision_embeds"])
+        if cfg.family in ("ssm", "hybrid"):
+            h, _ = model.forward(params, cfg, inputs["tokens"])
+            return h[:, -1, :]
+        return model.prefill(params, cfg, inputs["tokens"])
 
     return prefill_step
 

@@ -1,17 +1,27 @@
 """Architecture registry: arch id -> (config, model module).
 
-Only the ported architectures are here; any other id of the reference's
-registry raises, naming ROADMAP.md, which lists what is still to port.
+Every arch of the reference's registry but whisper-medium (the
+encoder-decoder family, not ported yet): that id raises, naming
+ROADMAP.md, which lists what is still to port.
 """
 from __future__ import annotations
 
 import importlib
 
-from . import mamba_lm
+from . import mamba_lm, transformer
 
 ARCHS = {
-    "zamba2-1.2b": ("repro_torch.configs.zamba2_1p2b", mamba_lm),
-    "mamba2-2.7b": ("repro_torch.configs.mamba2_2p7b", mamba_lm),
+    "olmo-1b":             ("repro_torch.configs.olmo_1b", transformer),
+    "gemma3-4b":           ("repro_torch.configs.gemma3_4b", transformer),
+    "granite-3-2b":        ("repro_torch.configs.granite_3_2b", transformer),
+    "yi-34b":              ("repro_torch.configs.yi_34b", transformer),
+    "zamba2-1.2b":         ("repro_torch.configs.zamba2_1p2b", mamba_lm),
+    "mamba2-2.7b":         ("repro_torch.configs.mamba2_2p7b", mamba_lm),
+    "phi-3-vision-4.2b":   ("repro_torch.configs.phi3_vision_4p2b",
+                            transformer),
+    "moonshot-v1-16b-a3b": ("repro_torch.configs.moonshot_v1_16b_a3b",
+                            transformer),
+    "dbrx-132b":           ("repro_torch.configs.dbrx_132b", transformer),
 }
 
 

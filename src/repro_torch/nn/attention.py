@@ -1,17 +1,22 @@
 """Attention substrate (the reference's `nn/attention.py`).
 
-Two plain prefill paths, numerically interchangeable:
+Three plain prefill paths, numerically interchangeable:
 
-1. ``sdpa``              — direct softmax(QK^T)V, for short sequences;
-2. ``chunked_attention`` — blocked online-softmax attention that never
-                           holds more than (B, H, chunk_q, chunk_k)
-                           scores, for long prefill.
+1. ``sdpa``                    — direct softmax(QK^T)V, for short
+                                 sequences;
+2. ``chunked_attention``       — blocked online-softmax attention that
+                                 never holds more than (B, H, chunk_q,
+                                 chunk_k) scores, for long prefill;
+3. ``local_chunked_attention`` — sliding window in O(S * window), the
+                                 reference's static-window path.
 
 The model's prefill calls neither directly: it goes through
 `kernels.flash_attention.flash_attention`, whose plain version picks
 between them as the reference's model does (`S > 2048`), and whose CUDA
 kernel replaces both on the card.  ``decode_attention`` serves one new
-token against a KV cache.
+token against a KV cache.  The reference's ``sharded_decode_attention``
+exists only on a mesh of devices (a KV cache sharded over its sequence
+axis): the port runs on one card and has no counterpart.
 
 Products of low-precision inputs are taken in float32, as the
 reference's ``preferred_element_type=jnp.float32`` does.
@@ -196,6 +201,41 @@ def chunked_attention(q, k, v, *, causal=True, window=None, q_offset=0,
         blocks.append(o.permute(0, 3, 1, 2, 4).reshape(B, chunk_q, H, Dh)
                       .to(q.dtype))
     return torch.cat(blocks, dim=1)[:, :q_valid]
+
+
+def local_chunked_attention(q, k, v, *, window: int, chunk_q=512,
+                            q_offset=0, scale=None):
+    """Sliding-window attention in O(S * window), static window: each q
+    block attends to one kv slice of (window + chunk_q) keys.  A plain
+    function (the reference's static-window path); the port's model
+    reaches the same function through the flash dispatch with `window`,
+    whose CUDA kernel skips the kv tiles before a block's window."""
+    B, Sq, H, Dh = q.shape
+    Sk, KvH = k.shape[1], k.shape[2]
+    G = H // KvH
+    scale = scale if scale is not None else 1.0 / math.sqrt(Dh)
+    chunk_q = min(chunk_q, Sq)
+    if Sq % chunk_q:
+        raise ValueError(f"Sq {Sq} is not a multiple of chunk_q {chunk_q}")
+    W = min(window + chunk_q, Sk)
+    qf = q.reshape(B, Sq, KvH, G, Dh).float()
+    blocks = []
+    for q_lo in range(0, Sq, chunk_q):
+        start = min(max(q_lo + chunk_q - W, 0), Sk - W)
+        ks, vs = k[:, start:start + W], v[:, start:start + W]
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qf[:, q_lo:q_lo + chunk_q],
+                         ks.float()) * scale
+        q_pos = q_offset + q_lo + torch.arange(chunk_q, device=q.device)
+        k_pos = start + torch.arange(W, device=q.device)
+        ok = (k_pos[None, :] <= q_pos[:, None]) & \
+            (k_pos[None, :] > q_pos[:, None] - window)
+        s = torch.where(ok, s, torch.full_like(s, NEG_INF))
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("bhgqk,bkhd->bhgqd", p.to(vs.dtype).float(),
+                         vs.float())
+        blocks.append(o.permute(0, 3, 1, 2, 4).reshape(B, chunk_q, H, Dh)
+                      .to(q.dtype))
+    return torch.cat(blocks, dim=1)
 
 
 # ---------------------------------------------------------------------------

@@ -7,12 +7,30 @@ tensors are made on) and a `device` that defaults to ``"cuda"``.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
 import torch.nn.functional as F
 
 from .. import device as _device
+
+# ---------------------------------------------------------------------------
+# dtype policy
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class DTypePolicy:
+    param_dtype: torch.dtype = torch.float32
+    compute_dtype: torch.dtype = torch.bfloat16
+
+    def cast(self, tree):
+        """Every tensor of a nested dict in `compute_dtype`."""
+        if isinstance(tree, dict):
+            return {k: self.cast(v) for k, v in tree.items()}
+        return tree.to(self.compute_dtype)
+
 
 # ---------------------------------------------------------------------------
 # initializers
@@ -38,6 +56,10 @@ def dense_init(gen, shape, dtype, fan_in: int | None = None,
                         device)
 
 
+def embed_init(gen, shape, dtype, device="cuda"):
+    return trunc_normal(gen, shape, dtype, 1.0, device)
+
+
 def rmsnorm_init(dim: int, dtype, device="cuda") -> dict:
     return {"scale": torch.ones((dim,), dtype=dtype,
                                 device=_device.resolve(device))}
@@ -52,7 +74,7 @@ def mlp_init(gen, d_model: int, d_ff: int, dtype, device="cuda") -> dict:
 
 def embed_init_params(gen, vocab: int, d_model: int, dtype,
                       device="cuda") -> dict:
-    return {"table": trunc_normal(gen, (vocab, d_model), dtype, 1.0, device)}
+    return {"table": embed_init(gen, (vocab, d_model), dtype, device)}
 
 
 # ---------------------------------------------------------------------------
@@ -68,6 +90,30 @@ def rmsnorm_apply(params: dict, x: torch.Tensor,
     var = torch.mean(torch.square(x), dim=-1, keepdim=True)
     y = x * torch.rsqrt(var + eps)
     return (y * params["scale"].float()).to(dtype)
+
+
+def nonparametric_layernorm(x: torch.Tensor,
+                            eps: float = 1e-5) -> torch.Tensor:
+    """OLMo-style LayerNorm without learnable scale/bias
+    [arXiv:2402.00838], in float32; the population variance, as
+    `jnp.var` takes it (torch's default would be the unbiased one)."""
+    dtype = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.var(x, dim=-1, keepdim=True, correction=0)
+    return ((x - mu) * torch.rsqrt(var + eps)).to(dtype)
+
+
+def norm_init(kind: str, dim: int, dtype, device="cuda") -> dict:
+    if kind == "nonparametric_ln":
+        return {}
+    return rmsnorm_init(dim, dtype, device)
+
+
+def norm_apply(kind: str, params: dict, x: torch.Tensor) -> torch.Tensor:
+    if kind == "nonparametric_ln":
+        return nonparametric_layernorm(x)
+    return rmsnorm_apply(params, x)
 
 
 def mlp_apply(params: dict, x: torch.Tensor) -> torch.Tensor:
@@ -88,3 +134,24 @@ def embed_apply(params: dict, tokens: torch.Tensor,
 def unembed_logits(table: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     """Tied unembedding: h @ table.T."""
     return h @ table.to(h.dtype).T
+
+
+# ---------------------------------------------------------------------------
+# misc
+# ---------------------------------------------------------------------------
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def count_params(params: dict) -> int:
+    return sum(t.numel() for t in _leaves(params))
+
+
+def param_bytes(params: dict) -> int:
+    return sum(t.numel() * t.element_size() for t in _leaves(params))

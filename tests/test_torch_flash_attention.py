@@ -41,6 +41,9 @@ def _close(got, want, tol):
     (1, 256, 4, 1, 64, True, 96, 128, 128),     # GQA 4:1 + window
     (2, 192, 8, 4, 32, False, None, 64, 64),    # bidirectional, ragged S
     (1, 320, 4, 4, 128, True, None, 128, 64),   # uneven blocks, pad path
+    (1, 192, 4, 4, 96, True, None, 64, 64),     # phi-3-vision's head width
+    (1, 200, 8, 4, 256, True, 72, 64, 64),      # gemma3's: GQA, window, ragged
+    (1, 130, 4, 2, 256, False, None, 64, 64),   # bidirectional Dh 256, ragged
 ])
 def test_flash_matches_pallas_and_oracle(dtype, B, S, H, KvH, Dh, causal,
                                          window, bq, bk):

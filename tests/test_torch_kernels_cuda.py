@@ -1,5 +1,6 @@
 """The CUDA kernels (day scan in both output modes, with the full trace's
-initial SoC, flash attention, SSD scan) against their plain PyTorch
+initial SoC, flash attention at Dh 64 / 96 / 128 / 256 and a transformer
+prefill through it, SSD scan) against their plain PyTorch
 versions on the card, the day scan's paths: serial, batched (K queries
 folded into the combo axis), the legacy engine, `simulate_users`,
 `simulate`, `optimize_policy` and the fleet day, the joint device +
@@ -180,6 +181,12 @@ def _randn(seed, shape, dtype, device, scale=1.0):
     (1, 300, 4, 4, 64, True, 5),        # window smaller than a tile
     (1, 130, 4, 2, 128, False, None),   # bidirectional, Dh 128
     (2, 257, 8, 8, 128, True, None),    # Dh 128, ragged S
+    (1, 1100, 8, 4, 256, True, None),   # gemma3 global: GQA 2:1, Dh 256
+    (1, 1100, 8, 4, 256, True, 1024),   # gemma3 local: window 1024
+    (2, 300, 4, 2, 256, True, 5),       # Dh 256, window below a tile
+    (1, 1000, 32, 32, 96, True, None),  # phi-3-vision: Dh 96
+    (2, 257, 8, 2, 96, True, 96),       # Dh 96, GQA 4:1 + window, ragged
+    (1, 130, 4, 4, 96, False, None),    # Dh 96 bidirectional
 ])
 def test_flash_kernel_matches_plain(cuda, dtype, B, S, H, KvH, Dh, causal,
                                     window):
@@ -237,6 +244,58 @@ def test_flash_kernel_ragged_sq_sk(cuda, dtype, B, Sq, Sk, causal, window):
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(),
                                atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Dh", [96, 256])
+@pytest.mark.parametrize("B,Sq,Sk,causal,window", [
+    (1, 130, 70, False, None),          # Sq, Sk off both tiles, Sq > Sk
+    (2, 200, 333, True, 40),            # window, Sq < Sk
+])
+def test_flash_kernel_wide_heads_ragged(cuda, dtype, Dh, B, Sq, Sk, causal,
+                                        window):
+    """Dh 96 and 256 (every output column written: a dropped column would
+    stay at torch.empty's garbage) with GQA and lengths off the tiles."""
+    q = _randn(0, (B, Sq, 8, Dh), dtype, cuda)
+    k = _randn(1, (B, Sk, 4, Dh), dtype, cuda)
+    v = _randn(2, (B, Sk, 4, Dh), dtype, cuda)
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    atol, rtol = FLASH_TOL[dtype]
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(),
+                               atol=atol, rtol=rtol)
+
+
+def test_transformer_prefill_on_the_card_matches_cpu(cuda):
+    """gemma3's smoke config (local and global layers, Dh 16 widened to
+    96 and 256 so the kernel takes them) in float32: the prefill step's
+    last hidden and cache on the card against the same call on the CPU,
+    one flash launch a layer."""
+    from repro_torch import convert
+    from repro_torch.launch import steps
+    from repro_torch.models import registry
+    base, model = registry.get("gemma3-4b", smoke=True)
+    for dh in (96, 256):
+        cfg = dataclasses.replace(base, head_dim=dh)
+        tree = convert.lm_params_numpy(cfg, 0)
+        toks = torch.as_tensor(np.random.default_rng(1).integers(
+            0, cfg.vocab, (2, 40)))
+        outs = {}
+        for dev in ("cpu", cuda):
+            params = convert.lm_params_from_numpy(tree, cfg, dev)
+            before = fa.LAUNCHES
+            outs[str(dev)] = steps.make_prefill_step(cfg, model)(
+                params, {"tokens": toks.to(dev)})
+            launched = fa.LAUNCHES - before
+        assert launched == cfg.n_layers
+        h_cpu, c_cpu = outs["cpu"]
+        h, c = outs[str(cuda)]
+        torch.testing.assert_close(h.cpu(), h_cpu, atol=1e-4, rtol=1e-4)
+        for key in c_cpu:
+            torch.testing.assert_close(c[key].cpu(), c_cpu[key], atol=1e-4,
+                                       rtol=1e-4)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -207,6 +207,7 @@ def test_bf16_server_raises_where_reference_fails():
 
 
 def test_registry_names_unported_archs():
-    assert t_reg.arch_names() == list(ARCHS)
+    assert t_reg.arch_names() == [a for a in j_reg.arch_names()
+                                  if a != "whisper-medium"]
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        t_reg.get("olmo-1b")
+        t_reg.get("whisper-medium")

@@ -37,6 +37,8 @@ from pathlib import Path
 
 import numpy as np
 
+from repro_torch.golden import golden_errors, rank_miss, spread
+
 GOLDEN = (Path(__file__).resolve().parents[1] / "src" / "repro_torch"
           / "data" / "golden_zamba2.json")
 ARCH = "zamba2-1.2b"
@@ -60,33 +62,17 @@ def port_config():
                                compute_dtype=torch.float32)
 
 
-def spread(logits: np.ndarray) -> float:
-    """The smallest over rows of the std of a row's logits (..., V) with
-    its top-1 left out."""
-    rows = logits.reshape(-1, logits.shape[-1]).astype(np.float64)
-    keep = np.ones(rows.shape, bool)
-    keep[np.arange(len(rows)), rows.argmax(-1)] = False
-    return float(rows[keep].reshape(len(rows), -1).std(-1).min())
-
-
-def check(logits: np.ndarray, golden: dict) -> tuple:
+def check(logits, golden: dict) -> tuple:
     """Hold (B, V) logits to the golden; returns (max abs error at the
     sampled and top-8 ids, tolerance).  Raises AssertionError."""
     tol = golden["atol_rel_to_spread"] * golden["spread"]
-    ids = np.asarray(golden["sample_ids"])
-    top_ids = np.asarray(golden["top8_ids"])
-    top_vals = np.asarray(golden["top8_logits"])
-    err = max(float(np.abs(logits[:, ids] - np.asarray(
-        golden["logits_at_sample"])).max()),
-        float(np.abs(np.take_along_axis(logits, top_ids, -1)
-                     - top_vals).max()))
+    err, rel1 = golden_errors(logits, golden)
     assert err <= tol, f"logits off by {err} > {tol}"
-    for r, row in enumerate(logits):
-        top = np.argsort(-row, kind="stable")[:TOPK]
-        for k in range(TOPK):
-            assert top[k] == top_ids[r, k] or \
-                abs(row[top[k]] - top_vals[r, k]) <= 2 * tol, \
-                f"row {r} rank {k}: id {top[k]} != golden {top_ids[r, k]}"
+    if "top1_rtol" in golden:
+        assert rel1 <= golden["top1_rtol"], \
+            f"top-1 logit off by {rel1} relative > {golden['top1_rtol']}"
+    miss = rank_miss(logits, golden, tol)
+    assert miss is None, f"(row, rank) {miss}: not the golden's top-8 id"
     return err, tol
 
 
