@@ -5,8 +5,9 @@
 Run from the root of a checkout.  Phases (any failure exits non-zero):
 
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: csrc/day_scan.cu, csrc/flash_attention.cu and csrc/ssd_scan.cu
-     with nvcc (sm_90a) from the checkout, and csrc/day_scan.cu once more
+  2. build: csrc/day_scan.cu, csrc/flash_attention.cu,
+     csrc/flash_attention_bwd.cu and csrc/ssd_scan.cu with nvcc (sm_90a)
+     from the checkout, and csrc/day_scan.cu once more
      with its probe modes (-DDAY_SCAN_PROBE), one nvcc each, all at once;
      the day scan's ptxas lines (registers, spills);
   3. kernel vs its plain PyTorch version on the card, on the serving
@@ -207,15 +208,59 @@ card, except the golden's seeded numpy weights):
      tokens/s and peak device memory, Server decode ms per token, a
      profile of one prefill.
 
-Nothing earlier is cut for time: the new phases add ~1-2 minutes.
+The training path and whisper-medium:
+
+ 18. the flash backward kernel (through the autograd function: the
+     forward kernel with its row lse, then the backward kernel) against
+     autograd of `flash_attention_plain`, float32 and bf16, at olmo-1b's
+     training shape (B = 2, S = 2048, H 16, Dh 128, causal), whisper's
+     encoder (1500 x 1500, Dh 64, bidirectional) and cross-attention (Sq
+     448, Sk 1500), gemma3-4b's global and local layers (H 8 / KvH 4, Dh
+     256, window 1024) and phi-3-vision's (Dh 96): float32 within
+     BWD_F32_REL of each gradient's largest magnitude, bf16 within
+     BWD_BF16_MAX of it and BWD_BF16_RMS relative RMS of the plain
+     version's bf16 run, whose distance to the float32 gradients must
+     exceed BWD_F32_REL;
+ 19. main path: olmo-1b at full width and depth (16 layers, float32
+     parameters, bf16 compute), B = 4 x S = 2048: the first step through
+     the kernels (16 forward + 16 backward launches, every gradient
+     finite, wq / wk / wv of every layer nonzero) against the same step
+     through the plain attention (loss and grad norm within
+     TRAIN_LOSS_RTOL / TRAIN_GNORM_RTOL); `launch.train.train` for 6
+     AdamW steps with a checkpoint (under build/, removed after), the
+     checkpoint restored bit for bit, `train` resumed from it for 2 more
+     steps, then one step with int8 gradient compression: every loss and
+     grad norm finite, 16 + 16 flash launches every step;
+ 20. olmo-1b at full width, 2 layers, float32, B = 1 x S = 512: one
+     `make_train_step` (remat) on the card and on the CPU from the same
+     numpy weights: loss, per-leaf gradients and updated parameters within
+     the stated tolerances;
+ 21. whisper-medium at full width: a bf16 prefill at full depth (24 + 24
+     layers, B = 2, 448 decoder tokens, 1500 frames), 72 flash launches
+     (24 bidirectional, 24 causal, 24 cross); its float32 golden at 4 + 4
+     layers (src/repro_torch/data/golden_whisper.json, written by
+     tests/torch_golden_whisper.py) held as gemma3-4b's is, with a bf16
+     control; 3 float32 decode steps on a prefilled cache against the
+     teacher-forced forward (DEC_ATOL_REL x the spread, the bf16 forward
+     outside it); one 2 + 2-layer train step through the kernels against
+     the plain attention (6 + 6 launches);
+ 22. timing: the backward kernel's ms at each phase 18 shape (bf16)
+     beside `flash_attention_bwd_plain`'s, scaled_dot_product_attention's
+     backward (a yardstick only) and the bound (2.5 x the forward's
+     products over the peak, or the bytes over HBM bandwidth); olmo-1b's
+     ms per step, tokens/s, share of the bf16 peak and peak memory; a
+     profile of one `make_train_step`.
+
+Nothing earlier is cut for time.
 
 The second-to-last lines are the `kernels` JSON object (the day scan's
 launches summed over the serial, batched, legacy, simulate_users,
 simulate, gradient and fleet paths of phase 4, both modes; its
 max_abs_err covers phase 3 and the tables of 4 b, d, e, f, h and i;
-flash's launches summed over phases 7, 12, 15 and 16, its max_abs_err
-over phases 6 and 11) and the nvidia-smi line; the last line is the
-result object.
+flash's launches summed over phases 7, 12, 15, 16 and 19-21, its
+max_abs_err over phases 6 and 11; the backward's launches over phases
+19-21, its max_abs_err over phase 18, its times at olmo-1b's shape) and
+the nvidia-smi line; the last line is the result object.
 """
 from __future__ import annotations
 
@@ -295,7 +340,8 @@ def nvidia_smi() -> str:
 
 def ptxas_kernels(log: str) -> list:
     """`flash_kernel_<dtype><Dh> N registers, spills` for each flash
-    instantiation in an nvcc -Xptxas -v log."""
+    instantiation in an nvcc -Xptxas -v log (`flash_bwd_<launch><dtype,
+    Dh>` for the backward's)."""
     import re
     out, name = [], None
     for line in log.splitlines():
@@ -303,6 +349,15 @@ def ptxas_kernels(log: str) -> list:
                       line)
         if m:
             name = f"{m.group(1)}<{m.group(2)}>"
+        m = re.search(r"entry function .*?(flash_bwd_[a-z]+)I(13__nv_"
+                      r"bfloat16|f)(?:Li(\d+))?E", line)
+        if m:
+            dtype = "bf16" if m.group(2) != "f" else "f32"
+            name = f"{m.group(1)}<{dtype}{', ' + m.group(3) if m.group(3) else ''}>"
+        m = re.search(r"entry function .*?(flash_bwd_[a-z]+_tc)ILi(\d+)E",
+                      line)
+        if m:                           # the bf16 tensor-core launches
+            name = f"{m.group(1)}<bf16, {m.group(2)}>"
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m and name:
@@ -1842,20 +1897,27 @@ def check_golden_lm(dev, golden_file: str, base_cfg, model) -> None:
     from repro_torch.nn import core
     golden = json.loads((ROOT / "src" / "repro_torch" / "data"
                          / golden_file).read_text())
-    cfg = dataclasses.replace(base_cfg, n_layers=golden["n_layers"],
-                              compute_dtype=torch.float32)
+    cut = {k: golden[k] for k in ("n_layers", "dec_layers") if k in golden}
+    cfg = dataclasses.replace(base_cfg, compute_dtype=torch.float32, **cut)
     tree = convert.lm_params_numpy(cfg, golden["seed"])
     if convert.params_checksum(tree) != golden["params_sha256"]:
         fail(f"golden {golden['arch']}: the seeded numpy weights differ from "
              f"the golden's (numpy's stream changed), not a parity failure")
     tol = golden["atol_rel_to_spread"] * golden["spread"]
     rtol1 = golden.get("top1_rtol")
-    tokens = torch.as_tensor(golden["tokens"], device=dev)
+    inputs = {"tokens": torch.as_tensor(golden["tokens"], device=dev)}
+    if "frames_seed" in golden:         # whisper's stub frame embeddings
+        frames = golden_frames(cfg, len(golden["tokens"]),
+                               golden["frames_seed"])
+        if frames_sha256(frames) != golden["frames_sha256"]:
+            fail(f"golden {golden['arch']}: the seeded frames differ from "
+                 f"the golden's (numpy's stream changed)")
+        inputs["frames"] = torch.as_tensor(frames, device=dev)
     misses = {}
     for dtype in (torch.float32, torch.bfloat16):
         c = dataclasses.replace(cfg, param_dtype=dtype, compute_dtype=dtype)
         params = convert.lm_params_from_numpy(tree, c, dev)
-        out = steps.make_prefill_step(c, model)(params, {"tokens": tokens})
+        out = steps.make_prefill_step(c, model)(params, inputs)
         h = out[0] if isinstance(out, tuple) else out
         logits = core.unembed_logits(params["embed"]["table"], h).float()
         if not bool(torch.isfinite(logits).all()):
@@ -1877,13 +1939,30 @@ def check_golden_lm(dev, golden_file: str, base_cfg, model) -> None:
     top1 = "" if rtol1 is None else (
         f" (top-1 left out: it is held to {rtol1:g} of itself; float32 "
         f"{rel1:.3g}, bf16 {rel16:.3g})")
-    print(f"golden ({golden['arch']} full width, {golden['n_layers']} layers, "
+    layers = "+".join(str(v) for v in cut.values())
+    print(f"golden ({golden['arch']} full width, {layers} layers, "
           f"B={len(golden['tokens'])} S={len(golden['tokens'][0])}): weights "
           f"checksum equal; float32 logits max abs err {err:.4g}{top1}, "
           f"top-8 rank miss at {rank}; tol {tol:.4g} "
           f"({golden['atol_rel_to_spread']:g} x spread "
           f"{golden['spread']:.4g}); bf16 control err {err16:.4g}, top-8 "
           f"rank miss at (row, rank) {rank16}")
+
+
+def golden_frames(cfg, batch: int, seed: int):
+    """A whisper golden's stub frames: (batch, audio_frames, D) standard
+    normal float32 from numpy's generator seeded `seed` (as
+    tests/torch_golden_whisper.py draws them)."""
+    import numpy as np
+    return np.random.default_rng(seed).standard_normal(
+        (batch, cfg.audio_frames, cfg.d_model), dtype=np.float32)
+
+
+def frames_sha256(a) -> str:
+    import hashlib
+    import numpy as np
+    return hashlib.sha256(np.ascontiguousarray(a, "<f4").tobytes()) \
+        .hexdigest()
 
 
 def profile_device(fn, label: str, reps: int = 1,
@@ -2232,8 +2311,9 @@ OTHER_LAYERS = 2                # their depth cut (yi-34b whole ~68 GB bf16)
 @contextlib.contextmanager
 def flash_calls(plain: bool = False, keep: bool = False):
     """Record every call the model makes to the flash dispatch: dtype,
-    head width, window and (with `keep`) the output; with `plain`, serve
-    each call by `flash_attention_plain` instead (no launch)."""
+    head width, window, causal, Sq, Sk and (with `keep`) the output; with
+    `plain`, serve each call by `flash_attention_plain` instead (no
+    launch; autograd differentiates it)."""
     from repro_torch.kernels import flash_attention as fa
     real = fa.flash_attention
     calls = []
@@ -2241,7 +2321,9 @@ def flash_calls(plain: bool = False, keep: bool = False):
     def recorded(q, k, v, **kw):
         o = (fa.flash_attention_plain if plain else real)(q, k, v, **kw)
         calls.append({"dtype": q.dtype, "Dh": q.shape[-1],
-                      "window": kw.get("window"), "out": o if keep else None})
+                      "window": kw.get("window"),
+                      "causal": kw.get("causal", True), "Sq": q.shape[1],
+                      "Sk": k.shape[1], "out": o if keep else None})
         return o
 
     fa.flash_attention = recorded
@@ -2585,6 +2667,600 @@ def check_moe(params, cfg, dev) -> str:
             f"tokens (the rest tied within 1e-6: {tied})")
 
 
+# ---------------------------------------------------------------------------
+# phases 18-22: the training path and whisper-medium
+# ---------------------------------------------------------------------------
+
+# flash backward shapes (name, B, Sq, Sk, H, KvH, Dh, causal, window): a
+# training step's attention at olmo-1b's heads, whisper's encoder and
+# cross-attention, gemma3-4b's global and local layers (GQA 2:1, Dh 256)
+# and phi-3-vision's (Dh 96)
+BWD_SHAPES = (("olmo-1b", 2, 2048, 2048, 16, 16, 128, True, None),
+              ("whisper encoder", 2, 1500, 1500, 16, 16, 64, False, None),
+              ("whisper cross", 2, 448, 1500, 16, 16, 64, False, None),
+              ("gemma3-4b global", 1, 2048, 2048, 8, 4, 256, True, None),
+              ("gemma3-4b local", 1, 2048, 2048, 8, 4, 256, True, 1024),
+              ("phi-3-vision", 1, 2048, 2048, 32, 32, 96, True, None))
+# float32 dq / dk / dv against autograd of `flash_attention_plain`: max
+# abs error over the gradient's largest magnitude (3.7e-6 the worst read
+# at these shapes on an H100 80GB HBM3 at 700 W: float32 sums in another
+# order)
+BWD_F32_REL = 1e-5
+# bf16 against the plain version's bf16 run: one bf16 spacing at the
+# gradient's largest magnitude (2^-7 of it) on each side, since the plain
+# run rounds dP to bf16 before its float32 sums where the kernel keeps
+# float32 (the two sit on either side of the exact value: 4e-3 to 6.5e-3
+# of the largest magnitude read at these shapes on an H100 80GB HBM3 at
+# 700 W), and a relative RMS error under half a spacing (2.7e-3 read)
+BWD_BF16_MAX, BWD_BF16_RMS = 2.0 ** -6, 2.0 ** -8
+TRAIN_ARCH = "olmo-1b"
+TRAIN_B, TRAIN_S = 4, 2048
+TRAIN_STEPS, RESUME_STEPS = 6, 2
+# bf16 compute through the kernel vs through the plain attention, first
+# step: relative differences of the loss and the gradient norm
+TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL = 5e-3, 5e-2
+# card vs CPU, float32, one make_train_step: loss, per-leaf gradient
+# relative RMS (read from the optimizer's first moment, (1 - b1) x the
+# clipped gradient)
+XDEV_LOSS_RTOL, XDEV_GRAD_RMS = 1e-5, 1e-4
+WHISPER_S = 448                 # Whisper's text context (n_text_ctx)
+CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
+
+
+def attn_pairs(Sq: int, Sk: int, causal: bool, window) -> float:
+    """(query, key) pairs the masks leave."""
+    import numpy as np
+    qi = np.arange(Sq)
+    hi = np.minimum(qi, Sk - 1) if causal else np.full(Sq, Sk - 1)
+    lo = np.maximum(0, qi - window + 1) if window is not None else 0 * qi
+    return float(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def flash_bwd_bound(q, k, causal: bool, window) -> tuple:
+    """Bound of one attention backward: q, k, v, o, dO and the row lse
+    read once, dq, dk, dv written once; 2.5 x the forward's products (dV,
+    dP, dQ, dK and the recomputed S: FlashAttention-2's count)."""
+    B, Sq, H, Dh = q.shape
+    Sk, KvH = k.shape[1], k.shape[2]
+    elt = q.element_size()
+    n_bytes = (5 * B * Sq * H + 4 * B * Sk * KvH) * Dh * elt + 4 * B * H * Sq
+    ops = 2.5 * 4.0 * B * H * Dh * attn_pairs(Sq, Sk, causal, window)
+    return _bound(n_bytes, ops, str(q.dtype)[6:])
+
+
+def autograd_plain(q, k, v, do, causal, window):
+    """dq, dk, dv by autograd of `flash_attention_plain`."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    with torch.enable_grad():
+        o = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+        return torch.autograd.grad(o, (q, k, v), do)
+
+
+def check_flash_bwd(dev) -> float:
+    """Phase 18: the backward kernel, through the autograd function, vs
+    autograd of the plain forward at BWD_SHAPES in float32 (BWD_F32_REL)
+    and bf16 (BWD_BF16_MAX / BWD_BF16_RMS, with a control: the bf16
+    gradients against the float32 ones must miss BWD_F32_REL); returns
+    the largest abs error."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device=dev).manual_seed(8)
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, B, Sq, Sk, H, KvH, Dh, causal, window in BWD_SHAPES:
+            q, do = (torch.randn((B, Sq, H, Dh), generator=gen, device=dev)
+                     .to(dtype) for _ in range(2))
+            k, v = (torch.randn((B, Sk, KvH, Dh), generator=gen, device=dev)
+                    .to(dtype) for _ in range(2))
+            qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+            f0, b0 = fa.LAUNCHES, fa.BWD_LAUNCHES
+            fa.flash_attention(qg, kg, vg, causal=causal,
+                               window=window).backward(do)
+            if (fa.LAUNCHES - f0, fa.BWD_LAUNCHES - b0) != (1, 1):
+                fail(f"flash bwd {name}: {fa.LAUNCHES - f0} forward / "
+                     f"{fa.BWD_LAUNCHES - b0} backward launches, want 1 / 1")
+            got = (qg.grad, kg.grad, vg.grad)
+            want = autograd_plain(q, k, v, do, causal, window)
+            torch.cuda.synchronize()
+            label = (f"flash bwd {name} B={B} Sq={Sq} Sk={Sk} H={H} "
+                     f"KvH={KvH} Dh={Dh} causal={causal} window={window} "
+                     f"{str(dtype)[6:]}")
+            rels = []
+            for g, a, b in zip("qkv", got, want):
+                if a.dtype != dtype or not bool(torch.isfinite(a).all()):
+                    fail(f"{label}: d{g} not finite or not {dtype}")
+                a, b = a.float(), b.float()
+                top = float(b.abs().max())
+                err = float((a - b).abs().max())
+                worst = max(worst, err)
+                rels.append(err / top)
+                if dtype == torch.float32 and err > BWD_F32_REL * top:
+                    miss(f"{label}: d{g} off autograd of the plain version "
+                         f"by {err / top:.3g} of its largest magnitude (tol "
+                         f"{BWD_F32_REL:g})")
+                if dtype == torch.bfloat16 and (
+                        err > BWD_BF16_MAX * top or
+                        rel_rms(a, b) > BWD_BF16_RMS):
+                    miss(f"{label}: d{g} off the plain version's bf16 run "
+                         f"by {err / top:.3g} of its largest magnitude (tol "
+                         f"{BWD_BF16_MAX:g}), rel RMS {rel_rms(a, b):.3g} "
+                         f"(tol {BWD_BF16_RMS:g})")
+            line = (f"{label}: dq/dk/dv vs autograd of the plain version, "
+                    f"max err / max |.| " + "/".join(f"{r:.3g}" for r in rels))
+            if dtype == torch.bfloat16:
+                ref = autograd_plain(q.float(), k.float(), v.float(),
+                                     do.float(), causal, window)
+                ctrl = min(float((a.float() - b).abs().max()
+                                 / b.abs().max()) for a, b in zip(got, ref))
+                if ctrl <= BWD_F32_REL:
+                    miss(f"{label}: the bf16 gradients are within the float32 "
+                         f"tolerance of the float32 ones ({ctrl:.3g}): the "
+                         f"tolerances do not tell the precisions apart")
+                line += (f" (tol {BWD_BF16_MAX:g}; rel RMS "
+                         + "/".join(f"{rel_rms(a, b):.3g}"
+                                    for a, b in zip(got, want))
+                         + f", tol {BWD_BF16_RMS:g}); control: vs the "
+                         f"float32 gradients {ctrl:.3g} > {BWD_F32_REL:g}")
+            else:
+                line += f" (tol {BWD_F32_REL:g})"
+            print(line)
+            del q, k, v, do, qg, kg, vg, got, want
+    return worst
+
+
+def time_flash_bwd(dev) -> list:
+    """Phase 22's kernel times: at each BWD_SHAPES entry in bf16, the
+    backward kernel alone (CUDA events, 10 calls, on the forward kernel's
+    own o and lse), the plain version `flash_attention_bwd_plain` (2
+    calls), scaled_dot_product_attention's backward (10 calls; a
+    yardstick, the port never calls it) and the bound; returns the rows
+    (name, ms, plain ms, bound, bound_by, sdpa backward ms)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device=dev).manual_seed(9)
+    rows = []
+    for name, B, Sq, Sk, H, KvH, Dh, causal, window in BWD_SHAPES:
+        q, do = (torch.randn((B, Sq, H, Dh), generator=gen, device=dev)
+                 .to(torch.bfloat16) for _ in range(2))
+        k, v = (torch.randn((B, Sk, KvH, Dh), generator=gen, device=dev)
+                .to(torch.bfloat16) for _ in range(2))
+        o, lse = fa._flash_cuda(q, k, v, causal=causal, window=window,
+                                lse=True)
+        bwd = lambda: fa._flash_bwd_cuda(  # noqa: E731
+            q, k, v, o, do, lse, causal=causal, window=window)
+        bwd()
+        ms = cuda_ms(bwd, 10)
+        plain = lambda: fa.flash_attention_bwd_plain(  # noqa: E731
+            q, k, v, o, do, lse, causal=causal, window=window)
+        plain()
+        plain_ms = cuda_ms(plain, 2)
+        qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+        sdpa, backend = sdpa_call(qs, ks, vs, causal, window)
+        o_s = sdpa()
+        do_t = do.transpose(1, 2)
+        sdpa_bwd = lambda: torch.autograd.grad(  # noqa: E731
+            o_s, (qs, ks, vs), do_t, retain_graph=True)
+        sdpa_bwd()
+        sdpa_ms = cuda_ms(sdpa_bwd, 10)
+        bound, by = flash_bwd_bound(q, k, causal, window)
+        rows.append((name, ms, plain_ms, bound, by, sdpa_ms))
+        print(f"flash bwd kernel ({name}: B={B} Sq={Sq} Sk={Sk} H={H} "
+              f"KvH={KvH} Dh={Dh} causal={causal} window={window} bf16): "
+              f"{ms:.4f} ms; plain {plain_ms:.3f} ms; "
+              f"scaled_dot_product_attention backward {sdpa_ms:.4f} ms by "
+              f"its {backend} backend; bound {bound:.5f} ms by {by} "
+              f"({bound / ms * 100:.1f} % of it reached)")
+        del q, k, v, do, o, lse, qs, ks, vs, o_s
+    return rows
+
+
+def train_flops(cfg, B: int, S: int) -> float:
+    """Products of one training step (2 flops a multiply-add): 6 x
+    parameters x tokens (forward, and the backward's two products per
+    weight) plus the attention's, 3.5 x the forward's q.k and p.v (the
+    forward and the backward's 2.5 x)."""
+    pairs = attn_pairs(S, S, True, None)
+    return 6.0 * cfg.n_params * B * S + \
+        3.5 * 4.0 * B * cfg.n_heads * cfg.head_dim * pairs * cfg.n_layers
+
+
+def grad_checks(label: str, grads, attn_keys) -> None:
+    """Every gradient leaf finite, and the attention projections' wq /
+    wk / wv of every layer nonzero (the flash kernel's output carries a
+    gradient): `attn_keys` are the (layer stack, attention) keys."""
+    import torch
+    from repro_torch import tree
+    bad = [i for i, g in enumerate(tree.leaves(grads))
+           if not bool(torch.isfinite(g).all())]
+    if bad:
+        fail(f"{label}: gradient leaves {bad} not finite")
+    for stack, attn in attn_keys:
+        for w in ("wq", "wk", "wv"):
+            g = grads[stack][attn][w]
+            zero = [i for i in range(g.shape[0])
+                    if not bool((g[i] != 0).any())]
+            if zero:
+                fail(f"{label}: {stack}.{attn}.{w} has no gradient on layers "
+                     f"{zero}: the attention output dropped it")
+
+
+def grads_vs_plain(label, loss_of, params, n_fwd, n_bwd, attn_keys) -> tuple:
+    """The loss and gradients of `loss_of` through the kernels (forward and
+    backward launches counted: `n_fwd`, `n_bwd` wanted), every gradient
+    checked (`grad_checks`), and again through `flash_attention_plain`;
+    returns (loss, grad norm, plain loss, plain grad norm)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import steps
+    from repro_torch.training import optimizer as opt
+    fa.LAUNCHES = fa.BWD_LAUNCHES = 0
+    loss, grads = steps.value_and_grad(loss_of, params)
+    torch.cuda.synchronize()
+    counts = (fa.LAUNCHES, fa.BWD_LAUNCHES)
+    if counts != (n_fwd, n_bwd):
+        fail(f"{label}: flash launched {counts[0]} forward / {counts[1]} "
+             f"backward, want {n_fwd} / {n_bwd}")
+    grad_checks(label, grads, attn_keys)
+    gnorm = float(opt.global_norm(grads))
+    del grads
+    with flash_calls(plain=True):
+        loss_p, grads_p = steps.value_and_grad(loss_of, params)
+    gnorm_p = float(opt.global_norm(grads_p))
+    del grads_p
+    loss, loss_p = float(loss), float(loss_p)
+    if not (abs(loss - loss_p) <= TRAIN_LOSS_RTOL * abs(loss_p) and
+            abs(gnorm - gnorm_p) <= TRAIN_GNORM_RTOL * gnorm_p):
+        miss(f"{label}: through the kernels loss {loss} grad norm {gnorm}, "
+             f"through the plain attention {loss_p} / {gnorm_p} (rtol "
+             f"{TRAIN_LOSS_RTOL:g} / {TRAIN_GNORM_RTOL:g})")
+    print(f"{label}: {counts[0]} forward + {counts[1]} backward flash "
+          f"launches; every gradient finite, wq / wk / wv nonzero on every "
+          f"layer; loss {loss:.6f} vs {loss_p:.6f} through the plain "
+          f"attention (rel {abs(loss - loss_p) / abs(loss_p):.3g}, tol "
+          f"{TRAIN_LOSS_RTOL:g}), grad norm {gnorm:.6g} vs {gnorm_p:.6g} "
+          f"(rel {abs(gnorm - gnorm_p) / gnorm_p:.3g}, tol "
+          f"{TRAIN_GNORM_RTOL:g})")
+    return loss, gnorm, loss_p, gnorm_p
+
+
+def train_olmo(dev) -> tuple:
+    """Phase 19: olmo-1b at full width and depth (16 layers, float32
+    parameters, bf16 compute), B = TRAIN_B x S = TRAIN_S: the first
+    step's loss and gradients through the kernels vs the plain attention
+    (`grads_vs_plain`, without remat: 16 + 16 launches); `train()` for
+    TRAIN_STEPS AdamW steps with a checkpoint at the end, the checkpoint
+    restored bit for bit, `train()` resumed from it for RESUME_STEPS more
+    (16 forward and 16 backward launches each step, every loss and grad
+    norm finite), then one step with int8 gradient compression; returns
+    (forward launches, backward launches, the timing line, the train
+    step's profile)."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.data.pipeline import DataConfig, lm_batch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import steps, train
+    from repro_torch.models import registry, transformer
+    from repro_torch.nn import core
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training import optimizer as opt
+    cfg, _ = registry.get(TRAIN_ARCH)
+    L = cfg.n_layers
+    # `train`'s own weights (seed 0)
+    params = transformer.init(torch.Generator(device=dev).manual_seed(0),
+                              cfg, dev)
+    print(f"{TRAIN_ARCH} training: {L} layers, "
+          f"{core.count_params(params) / 1e9:.3f} B parameters "
+          f"({cfg.param_dtype} parameters, {cfg.compute_dtype} compute), "
+          f"B={TRAIN_B} S={TRAIN_S}")
+    batch = lm_batch(DataConfig(cfg.vocab, TRAIN_S, TRAIN_B), 0, dev)
+    grads_vs_plain(f"{TRAIN_ARCH} first step", lambda p: transformer.loss_fn(
+        p, cfg, batch, remat=False), params, L, L, (("layers", "attn"),))
+
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    rec = {"t": None, "rows": []}
+
+    def on_step(s, m):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        rec["rows"].append((s, float(m["loss"]), float(m["grad_norm"]),
+                            fa.LAUNCHES, fa.BWD_LAUNCHES,
+                            (now - rec["t"]) * 1e3))
+        fa.LAUNCHES = fa.BWD_LAUNCHES = 0
+        rec["t"] = time.perf_counter()
+
+    kw = dict(smoke=False, batch=TRAIN_B, seq=TRAIN_S, device=dev,
+              ckpt_dir=str(CKPT_DIR), ckpt_every=TRAIN_STEPS, log_every=1,
+              on_step=on_step)
+    torch.cuda.reset_peak_memory_stats()
+    fa.LAUNCHES = fa.BWD_LAUNCHES = 0
+    torch.cuda.synchronize()
+    rec["t"] = time.perf_counter()
+    p6, losses = train.train(TRAIN_ARCH, steps=TRAIN_STEPS, **kw)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if ckpt.latest_step(CKPT_DIR) != TRAIN_STEPS:
+        fail(f"train: no checkpoint at step {TRAIN_STEPS}")
+    t0 = time.perf_counter()
+    like = (params, opt.init(params))
+    (restored, _), _ = ckpt.restore(CKPT_DIR, like)
+    restore_s = time.perf_counter() - t0
+    from repro_torch import tree
+    if not all(torch.equal(a, b) for a, b in zip(tree.leaves(restored),
+                                                 tree.leaves(p6))):
+        fail("train: the restored checkpoint differs from the trained "
+             "parameters")
+    del restored, like, p6
+    rec["t"] = time.perf_counter()
+    _, more = train.train(TRAIN_ARCH, steps=TRAIN_STEPS + RESUME_STEPS, **kw)
+    if len(losses) != TRAIN_STEPS or len(more) != RESUME_STEPS:
+        fail(f"train: {len(losses)} + {len(more)} steps, want {TRAIN_STEPS} "
+             f"+ {RESUME_STEPS} (resumed from step {TRAIN_STEPS})")
+    rows = rec["rows"]
+    for s, loss, gn, nf, nb, _ in rows:
+        if not (np.isfinite(loss) and np.isfinite(gn)) or (nf, nb) != (L, L):
+            fail(f"train step {s}: loss {loss}, grad norm {gn}, flash "
+                 f"{nf} forward / {nb} backward launches (want {L} / {L})")
+    rec["rows"] = []
+    rec["t"] = time.perf_counter()
+    _, closs = train.train(TRAIN_ARCH, steps=1, compress_grads=True,
+                           **{**kw, "ckpt_dir": None})
+    (_, _, cgn, cf, cb, _), = rec["rows"]
+    if not (np.isfinite(closs[0]) and np.isfinite(cgn)) or (cf, cb) != (L, L):
+        fail(f"train with compress_grads: loss {closs}, grad norm {cgn}, "
+             f"flash {cf} / {cb} launches")
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    step_ms = [r[5] for r in rows[1:TRAIN_STEPS]]
+    ms = float(np.mean(step_ms))
+    flops = train_flops(cfg, TRAIN_B, TRAIN_S)
+    line = (f"{TRAIN_ARCH} train() (bf16 compute, B={TRAIN_B} S={TRAIN_S}, "
+            f"{L} layers): losses "
+            + ", ".join(f"{r[1]:.4f}" for r in rows)
+            + " (steps 0-5, resumed 6-7); grad norms "
+            + ", ".join(f"{r[2]:.4g}" for r in rows)
+            + f"; {L} + {L} flash launches every step; compressed step loss "
+            f"{closs[0]:.4f}; ms per step {ms:.1f} (mean of steps 1-5: "
+            + ", ".join(f"{t:.1f}" for t in step_ms) + f"; step 0 "
+            f"{rows[0][5]:.1f}), {TRAIN_B * TRAIN_S / ms * 1e3:.0f} "
+            f"tokens/s; {flops / 1e12:.1f} TFLOP of products a step, "
+            f"{flops / (ms * 1e-3) / PEAK_BF16_OPS_S * 100:.1f} % of the bf16 "
+            f"peak; peak device memory {peak_gb:.2f} GB; checkpoint restore "
+            f"{restore_s:.1f} s")
+    step = steps.make_train_step(cfg, transformer)
+    state = opt.init(params)
+    prof = profile_device(lambda: step(params, state, batch),
+                          f"{TRAIN_ARCH} make_train_step (remat), "
+                          f"B={TRAIN_B} S={TRAIN_S}",
+                          tags=("flash_kernel", "flash_bwd"))
+    # the first step, the trained and resumed steps, the compressed step
+    n = L * (1 + TRAIN_STEPS + RESUME_STEPS + 1)
+    return n, n, line, prof
+
+
+def train_card_vs_cpu(dev) -> tuple:
+    """Phase 20: olmo-1b at full width, 2 layers, float32, B = 1 x S = 512:
+    one `make_train_step` (remat: each layer's forward runs again in the
+    backward) from the same numpy weights on the card and on the CPU;
+    loss within XDEV_LOSS_RTOL, each gradient leaf (the first moment /
+    (1 - b1)) within XDEV_GRAD_RMS relative RMS, updated parameters
+    within 2.1 x the step's lr (a near-zero gradient's sign may differ,
+    and Adam's first step moves a parameter by about lr x its sign);
+    returns the card's (forward, backward) flash launches."""
+    import dataclasses
+    import torch
+    from repro_torch import convert, tree
+    from repro_torch.data.pipeline import DataConfig, lm_batch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import steps
+    from repro_torch.models import registry, transformer
+    from repro_torch.training import optimizer as opt
+    full, _ = registry.get(TRAIN_ARCH)
+    cfg = dataclasses.replace(full, n_layers=2, param_dtype=torch.float32,
+                              compute_dtype=torch.float32)
+    t0 = time.perf_counter()
+    np_tree = convert.lm_params_numpy(cfg, LM_SEED)
+    batch = lm_batch(DataConfig(cfg.vocab, 512, 1), 0, "cpu")
+    step = steps.make_train_step(cfg, transformer)
+    out = []
+    for d in (dev, torch.device("cpu")):
+        params = convert.lm_params_from_numpy(np_tree, cfg, d)
+        fa.LAUNCHES = fa.BWD_LAUNCHES = 0
+        p, o, m = step(params, opt.init(params),
+                       {k: v.to(d) for k, v in batch.items()})
+        out.append((p, o, m, (fa.LAUNCHES, fa.BWD_LAUNCHES)))
+    (pc, oc, mc, counts), (pp, op, mp, _) = out
+    loss, loss_cpu = float(mc["loss"]), float(mp["loss"])
+    rms = max(rel_rms(a.cpu(), b) for a, b in zip(tree.leaves(oc["m"]),
+                                                  tree.leaves(op["m"])))
+    lr = float(mp["lr"])
+    dp = max(float((a.cpu() - b).abs().max()) for a, b in
+             zip(tree.leaves(pc), tree.leaves(pp)))
+    if counts != (2 * cfg.n_layers, cfg.n_layers) or \
+            abs(loss - loss_cpu) > XDEV_LOSS_RTOL * abs(loss_cpu) or \
+            rms > XDEV_GRAD_RMS or dp > 2.1 * lr:
+        miss(f"{TRAIN_ARCH} f32 train step, card vs CPU: launches {counts} "
+             f"(want {(2 * cfg.n_layers, cfg.n_layers)}), loss {loss} vs "
+             f"{loss_cpu}, gradient rel RMS {rms} (limit {XDEV_GRAD_RMS}), "
+             f"updated parameters {dp} apart (limit 2.1 x lr {lr})")
+    print(f"{TRAIN_ARCH} f32 make_train_step, 2 layers full width, B=1 "
+          f"S=512, card vs CPU ({time.perf_counter() - t0:.1f} s): {counts[0]} "
+          f"forward ({cfg.n_layers} recomputed) + {counts[1]} backward flash "
+          f"launches; loss {loss:.7f} vs {loss_cpu:.7f} (rel "
+          f"{abs(loss - loss_cpu) / abs(loss_cpu):.3g}, tol "
+          f"{XDEV_LOSS_RTOL:g}); worst per-leaf gradient rel RMS {rms:.3g} "
+          f"(tol {XDEV_GRAD_RMS:g}); grad norm {float(mc['grad_norm']):.6g} "
+          f"vs {float(mp['grad_norm']):.6g}; updated parameters max "
+          f"{dp:.3g} apart (lr {lr:.3g}, tol 2.1 lr)")
+    return counts
+
+
+def whisper_phases(dev) -> tuple:
+    """Phase 21: whisper-medium at full width.  a. a bf16 prefill at full
+    depth (24 + 24 layers), B = 2, decoder S = WHISPER_S against 1500
+    frames: 72 flash launches (24 bidirectional over the frames, 24
+    causal, 24 cross-attention), finite outputs, ms and tokens/s; b. the
+    float32 golden at 4 + 4 layers (bf16 control); c. float32 at full
+    depth, B = 1: 3 decode steps on the prefilled cache against the
+    teacher-forced forward (DEC_ATOL_REL x the spread; the bf16 forward
+    must miss); d. one train step at 2 + 2 layers through the backward
+    kernel vs the plain attention (6 + 6 launches).  Returns (forward
+    launches of a, c and d, backward launches of d)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import whisper_medium
+    from repro_torch.golden import spread
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import steps, train
+    from repro_torch.models import whisper
+    from repro_torch.nn import core
+    from repro_torch.data.pipeline import DataConfig, lm_batch
+    base = whisper_medium.config()
+    L, F = base.n_layers, base.audio_frames
+    cfg16 = dataclasses.replace(base, param_dtype=torch.bfloat16,
+                                compute_dtype=torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(TF_SEED + 5)
+    params16 = whisper.init(gen, cfg16, dev)
+    inputs = {"tokens": torch.randint(0, base.vocab, (B_PREFILL, WHISPER_S),
+                                      generator=gen, device=dev),
+              "frames": torch.randn((B_PREFILL, F, base.d_model),
+                                    generator=gen, device=dev)}
+    prefill16 = steps.make_prefill_step(cfg16, whisper)
+    fa.LAUNCHES = 0
+    with flash_calls() as calls:
+        h, cache = prefill16(params16, inputs)
+    torch.cuda.synchronize()
+    n_pre = fa.LAUNCHES
+    kinds = [(c["causal"], c["Sq"], c["Sk"]) for c in calls]
+    want = {(False, F, F): L, (True, WHISPER_S, WHISPER_S): base.dec_layers,
+            (False, WHISPER_S, F): base.dec_layers}
+    if n_pre != 2 * base.dec_layers + L or \
+            {k: kinds.count(k) for k in want} != want or \
+            {(c["dtype"], c["Dh"], c["window"]) for c in calls} != \
+            {(torch.bfloat16, base.head_dim, None)}:
+        fail(f"whisper-medium prefill launched flash {n_pre} times as "
+             f"{ {k: kinds.count(k) for k in set(kinds)} }, want {want}")
+    logits = core.unembed_logits(params16["embed"]["table"], h)
+    if h.shape != (B_PREFILL, base.d_model) or \
+            tuple(cache["xk"].shape) != (base.dec_layers, B_PREFILL, F,
+                                         base.n_kv_heads, base.head_dim) or \
+            not bool(torch.isfinite(h).all()) or \
+            not bool(torch.isfinite(logits).all()):
+        fail("whisper-medium prefill: last hidden, cache or logits wrong")
+    pf = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill16(params16, inputs)
+        torch.cuda.synchronize()
+        pf.append((time.perf_counter() - t0) * 1e3)
+    pf_ms = float(np.mean(pf[1:]))
+    print(f"main path: whisper-medium bf16 prefill ({L} + {base.dec_layers} "
+          f"layers, {core.count_params(params16) / 1e9:.3f} B parameters) "
+          f"B={B_PREFILL}, {WHISPER_S} decoder tokens against {F} frames: "
+          f"flash launched {n_pre} times ({L} bidirectional {F} x {F}, "
+          f"{base.dec_layers} causal, {base.dec_layers} cross {WHISPER_S} x "
+          f"{F}); finite; {pf_ms:.2f} ms mean of 3 after a warm call ("
+          + ", ".join(f"{t:.2f}" for t in pf) + f" ms), "
+          f"{B_PREFILL * WHISPER_S / pf_ms * 1e3:.0f} decoder tokens/s "
+          f"({B_PREFILL * (WHISPER_S + F) / pf_ms * 1e3:.0f} with the "
+          f"frames)")
+    del h, cache, logits, calls
+
+    # b. golden
+    check_golden_lm(dev, "golden_whisper.json", base, whisper)
+
+    # c. decode on a prefilled cache vs the teacher-forced forward, f32
+    cfg32 = dataclasses.replace(base, param_dtype=torch.float32,
+                                compute_dtype=torch.float32)
+    params32 = cast_params(params16, torch.float32)
+    tok = inputs["tokens"][:1]
+    fr = inputs["frames"][:1]
+    n_dec = 3
+    fa.LAUNCHES = 0
+    h, cache = whisper.prefill(params32, cfg32, tok, fr,
+                               max_len=WHISPER_S + n_dec)
+    table = params32["embed"]["table"]
+    seq = [tok]
+    dec = steps.make_decode_step(cfg32, whisper)
+    lg = core.unembed_logits(table, h)
+    got = []
+    for t in range(n_dec):
+        nxt = lg.argmax(-1)
+        seq.append(nxt[:, None])
+        lg, cache = dec(params32, nxt, cache, WHISPER_S + t)
+        got.append(lg)
+    seq = torch.cat(seq, 1)
+    ref = core.unembed_logits(table, whisper.forward(
+        params32, cfg32, seq, frames=fr)[0])[:, WHISPER_S:]
+    tol = DEC_ATOL_REL * spread(ref)
+    err = max(float((g - ref[:, t]).abs().max()) for t, g in enumerate(got))
+    h16, _ = whisper.forward(params16, cfg16, seq, frames=fr)
+    err16 = float((core.unembed_logits(params16["embed"]["table"], h16)
+                   [:, WHISPER_S:].float() - ref).abs().max())
+    n_fwd_c = fa.LAUNCHES         # the prefill and the two forwards
+    if not err <= tol < err16:
+        miss(f"whisper-medium decode: {n_dec} steps off the float32 forward "
+             f"by {err}, the bf16 forward by {err16}; tol {tol} must lie "
+             f"between them")
+    print(f"whisper-medium float32 ({L} + {base.dec_layers} layers): "
+          f"{n_dec} decode steps on a {WHISPER_S}-token prefilled cache vs "
+          f"the teacher-forced forward, max abs err {err:.4g}, tol "
+          f"{tol:.4g} ({DEC_ATOL_REL:g} x spread); bf16 forward err "
+          f"{err16:.4g}")
+    del params32, params16, cache, h16, ref
+
+    # d. one train step at 2 + 2 layers, kernels vs plain
+    cfg = dataclasses.replace(base, n_layers=2, dec_layers=2)
+    params = whisper.init(torch.Generator(device=dev)
+                          .manual_seed(TF_SEED + 6), cfg, dev)
+    batch = {**lm_batch(DataConfig(cfg.vocab, WHISPER_S, B_PREFILL), 0, dev),
+             **train.side_inputs(cfg, B_PREFILL, 0, dev)}
+    grads_vs_plain("whisper-medium train step (2 + 2 layers, bf16 "
+                   "compute)", lambda p: whisper.loss_fn(p, cfg, batch,
+                                                         remat=False),
+                   params, 6, 6, (("enc_layers", "attn"),
+                                  ("dec_layers", "attn"),
+                                  ("dec_layers", "xattn")))
+    return n_pre + n_fwd_c + 6, 6
+
+
+def training_phases(dev) -> tuple:
+    """Phases 18-22; returns (flash forward launches on their main paths,
+    the largest flash backward error, the backward kernel's `kernels`
+    row)."""
+    import torch
+    # 18. the backward kernel vs autograd of the plain version
+    worst = check_flash_bwd(dev)
+    torch.cuda.empty_cache()
+    # 19. olmo-1b training at full width
+    n_f19, n_b19, train_line, train_prof = train_olmo(dev)
+    torch.cuda.empty_cache()
+    # 20. card vs CPU
+    n_f20, n_b20 = train_card_vs_cpu(dev)
+    torch.cuda.empty_cache()
+    # 21. whisper-medium
+    n_f21, n_b21 = whisper_phases(dev)
+    torch.cuda.empty_cache()
+    # 22. timing
+    rows = time_flash_bwd(dev)
+    print(train_line)
+    print(train_prof)
+    n_bwd = n_b19 + n_b20 + n_b21
+    print(f"flash backward launches on the main paths: {n_bwd} ({n_b19} "
+          f"olmo-1b training, {n_b20} card vs CPU, {n_b21} whisper train "
+          f"step)")
+    name, ms, plain_ms, bound, by, sdpa_ms = rows[0]
+    return n_f19 + n_f20 + n_f21, worst, {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:36",
+        "launches": n_bwd, "max_abs_err": worst, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+        "library_ms": sdpa_ms}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2611,8 +3287,8 @@ def main() -> None:
 
     # 2. build, one nvcc per source, all started together
     t0 = time.perf_counter()
-    build.build_all(("day_scan", "flash_attention", "ssd_scan",
-                     ("day_scan", ("DAY_SCAN_PROBE",))))
+    build.build_all(("day_scan", "flash_attention", "flash_attention_bwd",
+                     "ssd_scan", ("day_scan", ("DAY_SCAN_PROBE",))))
     build.load("day_scan")
     print(f"kernel build: {time.perf_counter() - t0:.2f} s wall; nvcc "
           + ", ".join(f"{k} {v:.2f} s"
@@ -2622,6 +3298,8 @@ def main() -> None:
             print(f"ptxas day_scan: {line.strip()}")
     print("ptxas flash_attention: " + "; ".join(ptxas_kernels(
         build.BUILD_LOG.get("flash_attention", ""))))
+    print("ptxas flash_attention_bwd: " + "; ".join(ptxas_kernels(
+        build.BUILD_LOG.get("flash_attention_bwd", ""))))
 
     # 3. kernel vs plain on the serving grid's tables
     golden = json.loads((ROOT / "src" / "repro_torch" / "data"
@@ -2776,9 +3454,11 @@ def main() -> None:
     n_tf, err_tf = transformer_phases(dev)
     lm_rows[0]["launches"] += n_tf
     lm_rows[0]["max_abs_err"] = max(lm_rows[0]["max_abs_err"], err_tf)
+    n_train, _, bwd_row = training_phases(dev)
+    lm_rows[0]["launches"] += n_train
     print(f"flash launches on the main paths: {lm_rows[0]['launches']} "
-          f"({lm_rows[0]['launches'] - n_tf} zamba2-1.2b, {n_tf} transformer "
-          f"family)")
+          f"({lm_rows[0]['launches'] - n_tf - n_train} zamba2-1.2b, {n_tf} "
+          f"transformer family, {n_train} training and whisper-medium)")
     if MISSES:
         fail(f"{len(MISSES)} check(s) outside tolerance: " + "; ".join(MISSES))
     print(json.dumps({"kernels": [{
@@ -2787,7 +3467,7 @@ def main() -> None:
         "replaces": "src/repro/kernels/day_scan.py:47",
         "launches": launches, "max_abs_err": worst, "ms": kernel_ms,
         "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": None}] + lm_rows}))
+        "library_ms": None}] + lm_rows + [bwd_row]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -10,6 +10,10 @@ for working on one kernel.
                                                      # the LM shapes vs SDPA
     python3 scripts/kernel_probe.py ssd              # edges, group states,
                                                      # time per launch
+    python3 scripts/kernel_probe.py flash-bwd        # the backward kernel:
+                                                     # ptxas, edges vs its
+                                                     # plain version and
+                                                     # autograd, times
     python3 scripts/kernel_probe.py flash-variants   # exp2 fold / 4 warps
     python3 scripts/kernel_probe.py flash-compare OTHER.cu   # another copy
                                                      # of the flash source
@@ -218,6 +222,95 @@ def probe_flash() -> None:
                   f"by {by}", flush=True)
 
 
+def autograd_plain(q, k, v, do, causal, window):
+    """dq, dk, dv by autograd of `flash_attention_plain` (the yardstick
+    of the backward kernel)."""
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    with torch.enable_grad():
+        o = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+        return torch.autograd.grad(o, (q, k, v), do)
+
+
+def probe_flash_bwd() -> None:
+    """The backward kernel: ptxas lines, then over edge shapes the
+    forward's row lse against `flash_attention_lse_plain` and dq / dk / dv
+    against `flash_attention_bwd_plain` (on the kernel's own o and lse)
+    and autograd of the plain forward, relative to each gradient's
+    largest magnitude; then times at olmo-1b's, whisper's and phi-3's
+    shapes beside scaled_dot_product_attention's backward."""
+    build.build_all(("flash_attention", "flash_attention_bwd"))
+    for line in build.BUILD_LOG.get("flash_attention_bwd", "").splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            print(f"ptxas flash_attention_bwd: {line.strip()}")
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    for B, Sq, Sk, H, KvH, Dh, causal, window in (
+            (1, 300, 300, 4, 4, 64, True, None),
+            (1, 300, 300, 8, 2, 128, True, 96),
+            (2, 200, 200, 4, 1, 64, False, None),
+            (1, 130, 70, 4, 2, 96, False, None),
+            (1, 70, 130, 2, 2, 64, True, None),
+            (1, 257, 257, 8, 4, 256, True, 5),
+            (1, 300, 1500, 4, 4, 64, False, None),
+            (1, 1100, 1100, 8, 4, 256, True, 1024),
+            (1, 37, 37, 4, 4, 96, True, None)):
+        for dtype in (torch.float32, torch.bfloat16):
+            q = rn(gen, (B, Sq, H, Dh), dtype)
+            k, v = (rn(gen, (B, Sk, KvH, Dh), dtype) for _ in range(2))
+            do = rn(gen, (B, Sq, H, Dh), dtype)
+            o, lse = fa._flash_cuda(q, k, v, causal=causal, window=window,
+                                    lse=True)
+            got = fa._flash_bwd_cuda(q, k, v, o, do, lse, causal=causal,
+                                     window=window)
+            lse_err = float((lse - fa.flash_attention_lse_plain(
+                q, k, causal=causal, window=window)).abs().max())
+            tiled = fa.flash_attention_bwd_plain(q, k, v, o, do, lse,
+                                                 causal=causal, window=window)
+            auto = autograd_plain(q, k, v, do, causal, window)
+            torch.cuda.synchronize()
+
+            def rel(a, b):
+                return float((a.float() - b.float()).abs().max()
+                             / b.float().abs().max().clamp_min(1e-30))
+            print(f"flash bwd B={B} Sq={Sq} Sk={Sk} H={H} KvH={KvH} "
+                  f"Dh={Dh} causal={causal} window={window} "
+                  f"{str(dtype)[6:]}: lse max abs err {lse_err:.3g}; "
+                  f"dq/dk/dv max err / max |.| vs tiled plain "
+                  + "/".join(f"{rel(a, b):.3g}" for a, b in zip(got, tiled))
+                  + ", vs autograd "
+                  + "/".join(f"{rel(a, b):.3g}" for a, b in zip(got, auto))
+                  + f", finite {all(bool(torch.isfinite(g).all()) for g in got)}",
+                  flush=True)
+    for name, B, Sq, Sk, H, KvH, Dh, causal, window in BWD_TIMED:
+        for dtype in (torch.bfloat16, torch.float32):
+            q = rn(gen, (B, Sq, H, Dh), dtype)
+            k, v = (rn(gen, (B, Sk, KvH, Dh), dtype) for _ in range(2))
+            do = rn(gen, (B, Sq, H, Dh), dtype)
+            o, lse = fa._flash_cuda(q, k, v, causal=causal, window=window,
+                                    lse=True)
+            bwd = lambda: fa._flash_bwd_cuda(  # noqa: E731
+                q, k, v, o, do, lse, causal=causal, window=window)
+            fwd = lambda: fa._flash_cuda(  # noqa: E731
+                q, k, v, causal=causal, window=window, lse=True)
+            sdpa, backend = chip_smoke.sdpa_call(q, k, v, causal, window)
+            qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+            sdpa_g, _ = chip_smoke.sdpa_call(qs, ks, vs, causal, window)
+            o_s = sdpa_g()
+            sdpa_bwd = lambda: torch.autograd.grad(  # noqa: E731
+                o_s, (qs, ks, vs), do.transpose(1, 2), retain_graph=True)
+            bound, by = chip_smoke.flash_bound(q, k, causal, window)
+            print(f"flash bwd {name} {str(dtype)[6:]} B={B} Sq={Sq} Sk={Sk} "
+                  f"H={H} KvH={KvH} Dh={Dh}: backward {cuda_ms(bwd, 5):.3f} "
+                  f"ms, forward with lse {cuda_ms(fwd, 5):.3f} ms; SDPA "
+                  f"({backend}) backward {cuda_ms(sdpa_bwd, 5):.3f} ms; "
+                  f"forward bound {bound:.4f} ms by {by}", flush=True)
+
+
+# (name, B, Sq, Sk, H, KvH, Dh, causal, window) of the backward's times
+BWD_TIMED = (("olmo-1b", 4, 2048, 2048, 16, 16, 128, True, None),
+             ("whisper enc", 2, 1500, 1500, 16, 16, 64, False, None),
+             ("phi-3", 1, 2048, 2048, 32, 32, 96, True, None))
+
+
 # (H, KvH, Dh, window) timed at B = 2, S = 4096: zamba2's shared block,
 # gemma3-4b's global and local layers, phi-3-vision's layers
 FLASH_TIMED = ((32, 32, 64, None), (8, 4, 256, None), (8, 4, 256, 1024),
@@ -307,6 +400,21 @@ def variant_source() -> Path:
     return out
 
 
+def bind_forward(lib, with_lse: bool):
+    """A library's `flash_attention_launch` as a call of the source's
+    first ABI (q, k, v, o, B, ...): a build whose entry takes the row
+    log-sum-exp pointer after o gets a null one, so parent and change
+    run the same serving launch."""
+    fn = lib.flash_attention_launch
+    fn.argtypes = [ctypes.c_void_p] * (5 if with_lse else 4) \
+        + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int,
+                                ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    if not with_lse:
+        return fn
+    return lambda q, k, v, o, *rest: fn(q, k, v, o, None, *rest)
+
+
 def probe_flash_variants() -> None:
     """Four builds of the bf16 flash kernel, timed in turns at the prefill
     shape, each with its relative RMS against the plain version on its
@@ -326,11 +434,7 @@ def probe_flash_variants() -> None:
         err = proc.communicate()[1]
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {name}:\n{err}")
-        fn = ctypes.CDLL(str(lib)).flash_attention_launch
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 \
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        fns[name] = fn
+        fns[name] = bind_forward(ctypes.CDLL(str(lib)), True)
     gen = torch.Generator(device=DEV).manual_seed(2)
     q, k, v = (rn(gen, (2, 4096, 32, 64), torch.bfloat16) for _ in range(3))
 
@@ -365,12 +469,9 @@ def probe_flash_compare(other: str) -> None:
                            other], capture_output=True, text=True)
     if proc.returncode:
         raise RuntimeError(f"nvcc failed for {other}:\n{proc.stderr}")
-    fns = {"other": ctypes.CDLL(str(lib)).flash_attention_launch,
-           "this": build.load("flash_attention").flash_attention_launch}
-    for fn in fns.values():
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 \
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    fns = {"other": bind_forward(ctypes.CDLL(str(lib)),
+                                 "void* lse" in Path(other).read_text()),
+           "this": bind_forward(build.load("flash_attention"), True)}
     gen = torch.Generator(device=DEV).manual_seed(2)
     for dtype, reps in ((torch.bfloat16, 50), (torch.float32, 10)):
         q, k, v = (rn(gen, (2, 4096, 32, 64), dtype) for _ in range(3))
@@ -396,7 +497,8 @@ def probe_flash_compare(other: str) -> None:
 
 def main() -> None:
     probes = {"day": probe_day, "flash": probe_flash, "ssd": probe_ssd,
-              "flash-variants": probe_flash_variants}
+              "flash-variants": probe_flash_variants,
+              "flash-bwd": probe_flash_bwd}
     if len(sys.argv) == 3 and sys.argv[1] == "flash-compare":
         probes["flash-compare"] = lambda: probe_flash_compare(sys.argv[2])
     elif len(sys.argv) != 2 or sys.argv[1] not in probes:

@@ -143,9 +143,57 @@ def transformer_params_numpy(cfg, seed: int) -> dict:
     return params
 
 
+def whisper_params_numpy(cfg, seed: int) -> dict:
+    """Seeded numpy parameters of `models.whisper` with the shapes and
+    scales of the reference's `whisper.init`: dense layers Normal(0,
+    1/sqrt(fan_in)), the embedding Normal(0, 1), `pos_embed` (audio_frames,
+    D) Normal(0, 0.02), all truncated at 2 std; RMSNorm scales ones; the
+    MLPs ungated (`wi`, `wo`).  Encoder and decoder layers stacked on a
+    leading axis (`enc_layers`, `dec_layers`; a decoder layer adds
+    `norm_x` and the cross-attention `xattn`).  float32; leaves drawn as
+    `transformer_params_numpy` draws them."""
+    from concurrent.futures import ThreadPoolExecutor
+    d, V, F = cfg.d_model, cfg.vocab, cfg.d_ff
+    H, K, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    counter = iter(range(1 << 30))
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as pool:
+
+        def normal(shape, std):
+            return _trunc_normal_blocks(seed, next(counter), shape, std,
+                                        pool)
+
+        def dense(shape, fan_in):
+            return normal(shape, 1.0 / math.sqrt(max(fan_in, 1)))
+
+        def attn(L):
+            return {"wq": dense((L, d, H, Dh), d),
+                    "wk": dense((L, d, K, Dh), d),
+                    "wv": dense((L, d, K, Dh), d),
+                    "wo": dense((L, H, Dh, d), H * Dh)}
+
+        def layers(L, dec: bool):
+            out = {"norm1": {"scale": np.ones((L, d), np.float32)},
+                   "attn": attn(L),
+                   "norm2": {"scale": np.ones((L, d), np.float32)},
+                   "mlp": {"wi": dense((L, d, F), d),
+                           "wo": dense((L, F, d), F)}}
+            if dec:
+                out["norm_x"] = {"scale": np.ones((L, d), np.float32)}
+                out["xattn"] = attn(L)
+            return out
+
+        return {"embed": {"table": dense((V, d), 1)},
+                "pos_embed": normal((cfg.audio_frames, d), 0.02),
+                "enc_layers": layers(cfg.n_layers, False),
+                "enc_norm": {"scale": np.ones(d, np.float32)},
+                "dec_layers": layers(cfg.dec_layers, True),
+                "final_norm": {"scale": np.ones(d, np.float32)}}
+
+
 def lm_params_numpy(cfg, seed: int) -> dict:
     """Seeded numpy parameters of `cfg`'s model: the transformer families
-    through `transformer_params_numpy`; the SSM and hybrid families here,
+    through `transformer_params_numpy`, the encoder-decoder through
+    `whisper_params_numpy`; the SSM and hybrid families here,
     as `models.mamba_lm`'s tree with the shapes and scales of the
     reference's `mamba_lm.init` / `ssd.mamba2_init`: dense layers
     Normal(0, 1/sqrt(fan_in)) and the embedding Normal(0, 1), both
@@ -156,6 +204,8 @@ def lm_params_numpy(cfg, seed: int) -> dict:
     so the tree does not depend on the order leaves are read in."""
     if cfg.family in TRANSFORMER_FAMILIES:
         return transformer_params_numpy(cfg, seed)
+    if cfg.family == "encdec":
+        return whisper_params_numpy(cfg, seed)
     s, n_l, d = cfg.ssm, cfg.n_layers, cfg.d_model
     di, h = s.d_inner, s.n_heads
     proj_out = 2 * di + 2 * s.n_groups * s.d_state + h
@@ -227,10 +277,10 @@ def params_checksum(tree: dict) -> str:
 
 
 def lm_params_from_numpy(tree: dict, cfg, device="cuda") -> dict:
-    """The reference's `init` parameter tree (`mamba_lm` or `transformer`),
-    as numpy arrays, as the port's parameter tree on `device`: leaves in
-    `cfg.param_dtype` except A_log, D, dt_bias and the MoE router, which
-    stay float32 as in the reference."""
+    """The reference's `init` parameter tree (`mamba_lm`, `transformer`
+    or `whisper`), as numpy arrays, as the port's parameter tree on
+    `device`: leaves in `cfg.param_dtype` except A_log, D, dt_bias and
+    the MoE router, which stay float32 as in the reference."""
     dev = _device.resolve(device)
 
     def put(node, name):

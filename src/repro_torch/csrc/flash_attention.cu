@@ -52,6 +52,12 @@
 // 2 (float2), where it does not (Dh 96); smem row strides are padded
 // (Dh + 4, 64 + 16) so the vector reads are free of bank conflicts.
 //
+// The gradient: when asked (a non-null `lse`), both paths also write each
+// query row's log-sum-exp of its scaled, masked scores, m + log l (l the
+// sum of the unrounded p), which flash_attention_bwd.cu reads to recompute
+// P = exp(s - lse).  Serving passes null: its launches write o alone,
+// bit for bit as before the option existed.
+//
 // Head widths: Dh 64, 96, 128 and 256 in both dtypes.  A static_assert in
 // each kernel refuses a width whose columns the thread mapping would not
 // all cover, and one whose tiles would not fit the 227 KB of shared
@@ -76,6 +82,7 @@ struct FlashArgs {
   const void* k;
   const void* v;
   void* o;
+  float* lse;                      // (B, H, Sq) m + log l, or null
   int B, Sq, Sk, H, KvH;
   int causal, window;              // window < 0: none
   float scale;
@@ -251,6 +258,8 @@ __global__ void __launch_bounds__(F32_THREADS) flash_kernel_f32(FlashArgs a) {
   for (int r = 0; r < 4; ++r) {
     const int qi = q0 + ti + 16 * r;
     if (qi >= a.Sq) continue;
+    if (a.lse && tj == 0)          // every thread of the row holds m and l
+      a.lse[(size_t(b) * a.H + h) * a.Sq + qi] = m[r] + logf(l[r]);
     const float den = fmaxf(l[r], 1e-30f);
     float* row = o + (size_t(b) * a.Sq + qi) * a.H * DH + size_t(h) * DH;
 #pragma unroll
@@ -524,6 +533,8 @@ __global__ void __launch_bounds__(BF_THREADS) flash_kernel_bf16(FlashArgs a) {
   for (int r = 0; r < 2; ++r) {
     const int qi = r ? row1 : row0;
     if (qi >= a.Sq) continue;
+    if (a.lse && t4 == 0)          // the quad holds the row's m and l
+      a.lse[(size_t(b) * a.H + h) * a.Sq + qi] = m[r] + logf(l[r]);
     const float den = r ? den1 : den0;
     __nv_bfloat16* row = o + ((size_t(b) * a.Sq + qi) * a.H + h) * DH;
 #pragma unroll
@@ -561,17 +572,22 @@ int launch_bf16(const FlashArgs& a, cudaStream_t s) {
 }  // namespace
 
 // Plain C entry point (bound with ctypes).  dtype: 0 = float32,
-// 1 = bfloat16.  Launches on `stream`, does not synchronise, allocates
-// nothing; returns a CUDA error code (0 = success).
+// 1 = bfloat16.  `lse` is null, or (B, H, Sq) float32 that receives each
+// query row's log-sum-exp of its scaled, masked scores (m + log l), which
+// the backward kernel (flash_attention_bwd.cu) reads; the serving
+// launches pass null and write nothing more.  Launches on `stream`, does
+// not synchronise, allocates nothing; returns a CUDA error code (0 =
+// success).
 extern "C" int flash_attention_launch(
-    const void* q, const void* k, const void* v, void* o, int B, int Sq,
-    int Sk, int H, int KvH, int Dh, int causal, int window, float scale,
-    int dtype, void* stream) {
+    const void* q, const void* k, const void* v, void* o, void* lse, int B,
+    int Sq, int Sk, int H, int KvH, int Dh, int causal, int window,
+    float scale, int dtype, void* stream) {
   if (B < 0 || Sq < 0 || Sk < 1 || H < 1 || KvH < 1 || H % KvH != 0 ||
       B > 65535 || H > 65535 || (dtype == 1 && Sq > 65535 * BF_BQ))
     return int(cudaErrorInvalidValue);
   if (B == 0 || Sq == 0) return 0;
-  const FlashArgs a{q, k, v, o, B, Sq, Sk, H, KvH, causal, window, scale};
+  const FlashArgs a{q, k, v, o, static_cast<float*>(lse), B, Sq, Sk, H,
+                    KvH, causal, window, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     switch (Dh) {

@@ -45,6 +45,7 @@ import functools
 import torch
 
 from ..core.design import ste_gt, ste_lt
+from . import guard as _guard
 
 # outputs, the subset the day summary reads
 OUTS = ("soc", "soc_p", "t_skin", "t_skin_p", "shut", "level", "pods",
@@ -349,8 +350,10 @@ def _launch(fn, tables: dict, *extra, outs_keys=OUTS) -> dict:
 
 def _day_scan_cuda(tables: dict, full: bool = False) -> dict:
     """Launch csrc/day_scan.cu on the current stream (no sync), in the
-    full-trace mode when `full`."""
+    full-trace mode when `full`.  The kernel has no backward: a table
+    that requires a gradient raises (`guard.refuse_grad`)."""
     global LAUNCHES, FULL_LAUNCHES
+    _guard.refuse_grad("day_scan", tables)
     # the initial SoC (full trace only; null = a full charge), held here
     # until the launch is queued
     soc0 = [tables[k].contiguous() if k in tables else None

@@ -21,8 +21,25 @@ running max.  See the source's header note.
 
 Inputs: float32 or bfloat16, all three alike, contiguous; Dh 64, 96, 128
 or 256 on the card (phi-3-vision's heads are 96 wide, gemma3's 256).
-The output has q's dtype.  `LAUNCHES` counts kernel launches (the plain
-version never bumps it).
+The output has q's dtype.  `LAUNCHES` counts forward kernel launches
+(the plain version never bumps it).
+
+The gradient.  The reference differentiates its attention in XLA,
+outside the Pallas kernel; here the forward on the card is the kernel,
+so its gradient is a hand-written kernel too
+(`csrc/flash_attention_bwd.cu`, FlashAttention-2's recurrence from each
+row's log-sum-exp, which the forward kernel writes when asked).  When
+autograd needs a gradient (grad mode on and an input requiring one), the
+dispatch sends CUDA tensors through `FlashAttention`, an autograd
+function whose forward is the kernel with that output and whose backward
+is the backward kernel; otherwise it launches the forward alone, as
+serving does.  `BWD_LAUNCHES` counts backward calls (three kernels
+each).  `flash_attention_lse_plain` and `flash_attention_bwd_plain` are
+their plain versions: the latter runs the same recurrence on the
+backward kernel's tiles (`BWD_TILES`) and is held to autograd of the
+plain forward by the CPU tests.  The backward kernel runs bf16 at Dh 64,
+96 and 128 on the tensor cores (mma.sync), float32 and bf16 at Dh 256 on
+the CUDA cores.
 """
 from __future__ import annotations
 
@@ -40,7 +57,15 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # BF_BQ / BF_BK in csrc/flash_attention.cu
 TILES = {torch.float32: (64, 64), torch.bfloat16: (128, 64)}
 
-LAUNCHES = 0                # kernel launches in this process
+# (query rows, keys) of the backward's CUDA-core tiles by head width (the
+# float32 path, and bf16 at Dh 256): BQ and bwd_bk<DH> in
+# csrc/flash_attention_bwd.cu; its bf16 tensor-core path (Dh <= 128) walks
+# 32 query rows against 64 keys in dK / dV (TC_BQ, TC_ROWS), 64 against 64
+# in dQ
+BWD_TILES = {64: (64, 64), 96: (64, 64), 128: (64, 64), 256: (64, 32)}
+
+LAUNCHES = 0                # forward kernel launches in this process
+BWD_LAUNCHES = 0            # backward kernel calls (three launches each)
 
 
 def _check(q, k, v) -> None:
@@ -71,6 +96,9 @@ def flash_attention(q, k, v, *, causal=True, window=None, scale=None):
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      scale=scale)
     if q.device.type == "cuda":
+        if torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v)):
+            return FlashAttention.apply(q, k, v, causal, window, scale)
         return _flash_cuda(q, k, v, causal=causal, window=window,
                            scale=scale)
     raise ValueError(f"flash_attention runs on cpu or cuda tensors, got "
@@ -87,21 +115,104 @@ def flash_attention_plain(q, k, v, *, causal=True, window=None, scale=None):
               bidirectional=bidirectional)
 
 
+def _scores(q, k, q0, q1, k0, k1, causal, window, scale):
+    """Scaled scores of query rows [q0, q1) against keys [k0, k1) in
+    float32, (B, KvH, G, q1 - q0, k1 - k0), and the mask (True = seen)."""
+    B, _, H, Dh = q.shape
+    KvH = k.shape[2]
+    qg = q[:, q0:q1].reshape(B, q1 - q0, KvH, H // KvH, Dh).float()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k[:, k0:k1].float()) * scale
+    qi = torch.arange(q0, q1, device=q.device)[:, None]
+    kj = torch.arange(k0, k1, device=q.device)[None, :]
+    ok = torch.ones_like(s[0, 0, 0], dtype=torch.bool)
+    if causal:
+        ok &= kj <= qi
+    if window is not None:
+        ok &= kj > qi - window
+    return s, ok
+
+
+def flash_attention_lse_plain(q, k, *, causal=True, window=None,
+                              scale=None):
+    """Each query row's log-sum-exp of its scaled, masked scores, (B, H,
+    Sq) float32: what the forward kernel writes for its backward."""
+    B, Sq, H, Dh = q.shape
+    scale = scale if scale is not None else 1.0 / math.sqrt(Dh)
+    s, ok = _scores(q, k, 0, Sq, 0, k.shape[1], causal, window, scale)
+    s = s.masked_fill(~ok, _attn.NEG_INF)
+    return torch.logsumexp(s, dim=-1).reshape(B, H, Sq)
+
+
+def flash_attention_bwd_plain(q, k, v, o, do, lse, *, causal=True,
+                              window=None, scale=None):
+    """(dq, dk, dv) of attention from the forward's output `o`, the
+    output gradient `do` and the row log-sum-exp `lse` (B, H, Sq), by the
+    backward kernel's recurrence on its CUDA-core tiles (`BWD_TILES`;
+    (64, 64) at other widths), in float32: delta = rowsum(dO o O);
+    per tile P = exp(S scale - lse) (masked entries 0), dV += P^T dO,
+    dS = P o (dO V^T - delta), dQ += dS K scale, dK += dS^T Q scale.
+    Tiles no row of which sees a key are skipped, as the kernel skips
+    them.  The gradients have the inputs' dtypes."""
+    B, Sq, H, Dh = q.shape
+    Sk, KvH = k.shape[1], k.shape[2]
+    G = H // KvH
+    scale = scale if scale is not None else 1.0 / math.sqrt(Dh)
+    bq, bk = BWD_TILES.get(Dh, (64, 64))
+    dof = do.reshape(B, Sq, KvH, G, Dh).float()
+    delta = (dof * o.reshape(B, Sq, KvH, G, Dh).float()).sum(-1) \
+        .permute(0, 2, 3, 1)                          # (B, KvH, G, Sq)
+    lse = lse.reshape(B, KvH, G, Sq)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    dq = torch.zeros((B, Sq, KvH, G, Dh), dtype=torch.float32,
+                     device=q.device)
+    dk = torch.zeros((B, Sk, KvH, Dh), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    for q0 in range(0, Sq, bq):
+        q1 = min(q0 + bq, Sq)
+        for k0 in range(0, Sk, bk):
+            k1 = min(k0 + bk, Sk)
+            if (causal and k0 > q1 - 1) or \
+                    (window is not None and k1 - 1 <= q0 - window):
+                continue
+            s, ok = _scores(qf, kf, q0, q1, k0, k1, causal, window, scale)
+            p = torch.where(ok, torch.exp(s - lse[..., q0:q1, None]),
+                            torch.zeros_like(s))
+            d_o = dof[:, q0:q1]
+            dv[:, k0:k1] += torch.einsum("bhgqk,bqhgd->bkhd", p, d_o)
+            dp = torch.einsum("bqhgd,bkhd->bhgqk", d_o, vf[:, k0:k1])
+            ds = p * (dp - delta[..., q0:q1, None])
+            dq[:, q0:q1] += torch.einsum("bhgqk,bkhd->bqhgd", ds,
+                                         kf[:, k0:k1])
+            dk[:, k0:k1] += torch.einsum(
+                "bhgqk,bqhgd->bkhd", ds,
+                qf[:, q0:q1].reshape(B, q1 - q0, KvH, G, Dh))
+    return ((dq * scale).reshape(B, Sq, H, Dh).to(q.dtype),
+            (dk * scale).to(k.dtype), dv.to(v.dtype))
+
+
 @functools.lru_cache(maxsize=1)
 def _lib():
     from . import build
     fn = build.load("flash_attention").flash_attention_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 \
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 \
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _flash_cuda(q, k, v, *, causal=True, window=None, scale=None):
-    """Launch csrc/flash_attention.cu on the current stream (no sync)."""
-    global LAUNCHES
-    B, Sq, H, Dh = q.shape
-    Sk, KvH = k.shape[1], k.shape[2]
+@functools.lru_cache(maxsize=1)
+def _bwd_lib():
+    from . import build
+    fn = build.load("flash_attention_bwd").flash_attention_bwd_launch
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 \
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _kernel_args(q, k, v, window, scale):
+    """Shape checks of the CUDA path; returns (q, k, v aligned, scale)."""
+    Dh = q.shape[3]
     if Dh not in HEAD_DIMS:
         raise ValueError(f"flash_attention kernel takes Dh in {HEAD_DIMS}, "
                          f"got {Dh}")
@@ -112,11 +223,25 @@ def _flash_cuda(q, k, v, *, causal=True, window=None, scale=None):
     # off that alignment is copied first
     q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone()
                for t in (q, k, v))
+    return q, k, v, scale
+
+
+def _flash_cuda(q, k, v, *, causal=True, window=None, scale=None,
+                lse=False):
+    """Launch csrc/flash_attention.cu on the current stream (no sync).
+    Returns the output, or (output, lse (B, H, Sq) float32) when `lse`."""
+    global LAUNCHES
+    B, Sq, H, Dh = q.shape
+    Sk, KvH = k.shape[1], k.shape[2]
+    q, k, v, scale = _kernel_args(q, k, v, window, scale)
     out = torch.empty_like(q)
+    row_lse = torch.empty((B, H, Sq), dtype=torch.float32,
+                          device=q.device) if lse else None
     fn = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 None if row_lse is None else row_lse.data_ptr(),
                  B, Sq, Sk, H, KvH, Dh, int(bool(causal)),
                  -1 if window is None else int(window), float(scale),
                  DTYPES[q.dtype], stream)
@@ -124,4 +249,56 @@ def _flash_cuda(q, k, v, *, causal=True, window=None, scale=None):
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
     LAUNCHES += 1
-    return out
+    return (out, row_lse) if lse else out
+
+
+def _flash_bwd_cuda(q, k, v, o, do, lse, *, causal=True, window=None,
+                    scale=None):
+    """Launch csrc/flash_attention_bwd.cu (three kernels) on the current
+    stream (no sync); returns (dq, dk, dv) in the inputs' dtype."""
+    global BWD_LAUNCHES
+    B, Sq, H, Dh = q.shape
+    Sk, KvH = k.shape[1], k.shape[2]
+    q, k, v, scale = _kernel_args(q, k, v, window, scale)
+    if Sq == 0 or B == 0:
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    fn = _bwd_lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 B, Sq, Sk, H, KvH, Dh, int(bool(causal)),
+                 -1 if window is None else int(window), float(scale),
+                 DTYPES[q.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention backward kernel launch failed: "
+                           f"CUDA error {err}")
+    BWD_LAUNCHES += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """The forward kernel with its row log-sum-exp, and the backward
+    kernel as its gradient.  Saves q, k, v, o and the lse; the backward
+    launches on a contiguous dO.  Under activation checkpointing the
+    recompute runs (and counts) the forward kernel again."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        o, lse = _flash_cuda(q, k, v, causal=causal, window=window,
+                             scale=scale, lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.mask = (causal, window, scale)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        causal, window, scale = ctx.mask
+        dq, dk, dv = _flash_bwd_cuda(q, k, v, o, do.contiguous(), lse,
+                                     causal=causal, window=window,
+                                     scale=scale)
+        return dq, dk, dv, None, None, None

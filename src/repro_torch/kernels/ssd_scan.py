@@ -32,6 +32,7 @@ import functools
 import torch
 
 from ..nn import ssd as _ssd
+from . import guard as _guard
 
 CHUNKS = (64,)              # chunk lengths the kernel takes
 HEAD_DIMS = (64,)           # p
@@ -228,8 +229,11 @@ def _call(entry, ins, outs, x, B, chunk):
 
 
 def _ssd_cuda(x, dt, A, B, C, *, chunk=64):
-    """Launch csrc/ssd_scan.cu on the current stream (no sync)."""
+    """Launch csrc/ssd_scan.cu on the current stream (no sync).  The
+    kernel has no backward yet: an input that requires a gradient raises
+    (`guard.refuse_grad`)."""
     global LAUNCHES
+    _guard.refuse_grad("ssd_scan", x, dt, A, B, C)
     ins, states, decay = _prepare(x, dt, A, B, C, chunk)
     y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     _call("ssd_scan_launch", ins, (y, states, decay), x, B, chunk)

@@ -22,6 +22,7 @@ from __future__ import annotations
 import functools
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .. import device as _device
 from ..kernels import flash_attention as _flash
@@ -52,7 +53,8 @@ def init(gen: torch.Generator, cfg, device="cuda") -> dict:
                                        cfg.n_kv_heads, cfg.head_dim, dtype,
                                        device),
             "norm2": core.rmsnorm_init(cfg.d_model, dtype, device),
-            "mlp": core.mlp_init(gen, cfg.d_model, cfg.d_ff, dtype, device),
+            "mlp": core.mlp_init(gen, cfg.d_model, cfg.d_ff, dtype,
+                                 device=device),
         }
     return params
 
@@ -92,26 +94,52 @@ def _shared_block(p, cfg, x, window):
     return x + core.mlp_apply(p["mlp"], h)
 
 
-def _backbone(params, cfg, h, window):
+def _backbone(params, cfg, h, window, remat=False):
+    """Every mamba layer and shared-block call; with `remat` each mamba
+    layer runs under activation checkpointing, as the reference's scan
+    body does (the shared block is not checkpointed there either)."""
     n = cfg.n_layers
     k = cfg.attn_every
     n_full = n // k if k else 0
+
+    def mamba(i, x):
+        p = _layer(params["layers"], i)
+        if remat:
+            return checkpoint(_mamba_layer, p, cfg, x, use_reentrant=False)
+        return _mamba_layer(p, cfg, x)
+
     for c in range(n_full):
         for i in range(c * k, (c + 1) * k):
-            h = _mamba_layer(_layer(params["layers"], i), cfg, h)
+            h = mamba(i, h)
         h = _shared_block(params["shared"], cfg, h, window)
     for i in range(n_full * k, n):           # trailing mamba layers
-        h = _mamba_layer(_layer(params["layers"], i), cfg, h)
+        h = mamba(i, h)
     return h
+
+
+def _forward(params, cfg, tokens, window=None, remat=False):
+    h = core.embed_apply(params["embed"], tokens, cfg.compute_dtype)
+    h = _backbone(params, cfg, h, window, remat)
+    h = core.rmsnorm_apply(params["final_norm"], h)
+    return h, torch.zeros((), dtype=torch.float32, device=h.device)
 
 
 @torch.no_grad()
 def forward(params, cfg, tokens, *, window=None):
     """tokens (B, S) int -> (final hidden (B, S, D), zero aux loss)."""
-    h = core.embed_apply(params["embed"], tokens, cfg.compute_dtype)
-    h = _backbone(params, cfg, h, window)
-    h = core.rmsnorm_apply(params["final_norm"], h)
-    return h, torch.zeros((), dtype=torch.float32, device=h.device)
+    return _forward(params, cfg, tokens, window)
+
+
+def loss_fn(params, cfg, batch, *, remat=True):
+    """Chunked cross-entropy of the final hidden against
+    `batch["labels"]` (masked by `batch["mask"]` where given).  On the
+    card the SSD kernel has no backward yet, so a loss whose parameters
+    require a gradient raises there (`kernels.guard`); on the CPU the
+    plain scan is differentiable."""
+    h, _ = _forward(params, cfg, batch["tokens"], remat=remat)
+    return core.chunked_softmax_xent(params["embed"]["table"], h,
+                                     batch["labels"], batch.get("mask"),
+                                     chunk=min(cfg.ce_chunk, h.shape[1]))
 
 
 # ---------------------------------------------------------------------------

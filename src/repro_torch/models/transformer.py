@@ -21,6 +21,13 @@ slices) changes nothing here.  MoE layers take `nn.moe.moe_apply` (the reference
 single-device `moe_apply_dense`, computed per expert).  Decode is one
 token through plain PyTorch ops.
 
+Training: `loss_fn` (chunked cross-entropy + the MoE aux loss) is
+differentiable; with `remat` each layer runs under
+`torch.utils.checkpoint` (the reference's `jax.checkpoint`), and on the
+card the flash dispatch runs the kernel's autograd function, whose
+backward is the backward kernel (the recompute launches the forward
+again).
+
 Single card: the reference's sharding constraints are the identity
 without a mesh, so the port takes no `env`, and `decode_step` no
 `serve_shard` (the reference's `sharded_decode_attention` needs a mesh).
@@ -28,6 +35,7 @@ without a mesh, so the port takes no `env`, and `decode_step` no
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .. import device as _device
 from ..kernels import flash_attention as _flash
@@ -50,7 +58,8 @@ def _layer_init(gen, cfg, dtype, device) -> dict:
         p["moe"] = moe_lib.moe_init(gen, cfg.d_model, cfg.d_ff,
                                     cfg.n_experts, dtype, device)
     else:
-        p["mlp"] = core.mlp_init(gen, cfg.d_model, cfg.d_ff, dtype, device)
+        p["mlp"] = core.mlp_init(gen, cfg.d_model, cfg.d_ff, dtype,
+                                 device=device)
     return p
 
 
@@ -151,25 +160,56 @@ def embed_tokens(params, cfg, tokens, vision_embeds=None):
     return h
 
 
-def _backbone(params, cfg, h):
-    """All layers; returns (h, aux, ks, vs)."""
+def _backbone(params, cfg, h, remat: bool = False):
+    """All layers; returns (h, aux, ks, vs).  With `remat` each layer runs
+    under activation checkpointing (the reference's
+    `jax.checkpoint(nothing_saveable)`: only the layer's input is kept,
+    the layer runs again in the backward pass) and no K / V is kept."""
     flags = layer_flags(cfg)
     auxes, ks, vs = [], [], []
     for i in range(cfg.n_layers):
-        h, aux, k, v = _layer_apply(_layer(params["layers"], i), cfg, h,
-                                    flags["window"][i], flags["theta"][i])
+        args = (_layer(params["layers"], i), cfg, h, flags["window"][i],
+                flags["theta"][i])
+        if remat:
+            h, aux = checkpoint(_layer_train, *args, use_reentrant=False)
+        else:
+            h, aux, k, v = _layer_apply(*args)
+            ks.append(k)
+            vs.append(v)
         auxes.append(aux)
-        ks.append(k)
-        vs.append(v)
     return h, torch.stack(auxes).mean(), ks, vs
+
+
+def _layer_train(p, cfg, x, window: int, theta: float):
+    """One layer without its K / V: (x, aux)."""
+    x, aux, _, _ = _layer_apply(p, cfg, x, window, theta)
+    return x, aux
+
+
+def _forward(params, cfg, tokens, vision_embeds=None, remat=False):
+    h = embed_tokens(params, cfg, tokens, vision_embeds)
+    h, aux, _, _ = _backbone(params, cfg, h, remat)
+    return core.norm_apply(cfg.norm, params["final_norm"], h), aux
 
 
 @torch.no_grad()
 def forward(params, cfg, tokens, *, vision_embeds=None):
     """tokens (B, S) -> (final hidden (B, S, D), MoE aux loss (scalar))."""
-    h = embed_tokens(params, cfg, tokens, vision_embeds)
-    h, aux, _, _ = _backbone(params, cfg, h)
-    return core.norm_apply(cfg.norm, params["final_norm"], h), aux
+    return _forward(params, cfg, tokens, vision_embeds)
+
+
+def loss_fn(params, cfg, batch, *, remat=True):
+    """Chunked cross-entropy of the final hidden against `batch["labels"]`
+    (masked by `batch["mask"]` where given) plus `moe_aux_weight` x the
+    MoE aux loss; the VLM reads `batch["vision_embeds"]`.  Differentiable
+    (grad mode on): on the card the flash dispatch runs its autograd
+    function."""
+    h, aux = _forward(params, cfg, batch["tokens"],
+                      batch.get("vision_embeds"), remat)
+    ce = core.chunked_softmax_xent(params["embed"]["table"], h,
+                                   batch["labels"], batch.get("mask"),
+                                   chunk=min(cfg.ce_chunk, h.shape[1]))
+    return ce + cfg.moe_aux_weight * aux
 
 
 # ---------------------------------------------------------------------------

@@ -65,11 +65,16 @@ def rmsnorm_init(dim: int, dtype, device="cuda") -> dict:
                                 device=_device.resolve(device))}
 
 
-def mlp_init(gen, d_model: int, d_ff: int, dtype, device="cuda") -> dict:
-    return {"wi": dense_init(gen, (d_model, d_ff), dtype, device=device),
-            "wo": dense_init(gen, (d_ff, d_model), dtype, fan_in=d_ff,
-                             device=device),
-            "wg": dense_init(gen, (d_model, d_ff), dtype, device=device)}
+def mlp_init(gen, d_model: int, d_ff: int, dtype, gated: bool = True,
+             device="cuda") -> dict:
+    """`wi`, `wo` and, when `gated`, the gate `wg` (the reference's
+    names)."""
+    p = {"wi": dense_init(gen, (d_model, d_ff), dtype, device=device),
+         "wo": dense_init(gen, (d_ff, d_model), dtype, fan_in=d_ff,
+                          device=device)}
+    if gated:
+        p["wg"] = dense_init(gen, (d_model, d_ff), dtype, device=device)
+    return p
 
 
 def embed_init_params(gen, vocab: int, d_model: int, dtype,
@@ -116,13 +121,24 @@ def norm_apply(kind: str, params: dict, x: torch.Tensor) -> torch.Tensor:
     return rmsnorm_apply(params, x)
 
 
-def mlp_apply(params: dict, x: torch.Tensor) -> torch.Tensor:
-    """Gated SiLU MLP: ``silu(x @ wg) * (x @ wi) @ wo``."""
+# the reference's activations: jax.nn.gelu defaults to the tanh
+# approximation, torch's gelu to the exact erf
+ACTIVATIONS = {"silu": F.silu,
+               "gelu": lambda x: F.gelu(x, approximate="tanh"),
+               "relu": F.relu}
+
+
+def mlp_apply(params: dict, x: torch.Tensor,
+              activation: str = "silu") -> torch.Tensor:
+    """Gated MLP ``act(x @ wg) * (x @ wi) @ wo``, or without a gate
+    ``act(x @ wi) @ wo``; `activation` is "silu", "gelu" (tanh
+    approximation) or "relu"."""
+    act = ACTIVATIONS[activation]
     h = x @ params["wi"].to(x.dtype)
     if "wg" in params:
-        h = F.silu(x @ params["wg"].to(x.dtype)) * h
+        h = act(x @ params["wg"].to(x.dtype)) * h
     else:
-        h = F.silu(h)
+        h = act(h)
     return h @ params["wo"].to(x.dtype)
 
 
@@ -134,6 +150,32 @@ def embed_apply(params: dict, tokens: torch.Tensor,
 def unembed_logits(table: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     """Tied unembedding: h @ table.T."""
     return h @ table.to(h.dtype).T
+
+
+def chunked_softmax_xent(table: torch.Tensor, h: torch.Tensor,
+                         labels: torch.Tensor, mask: torch.Tensor | None = None,
+                         chunk: int = 512) -> torch.Tensor:
+    """Mean cross-entropy of the tied unembedding over (B, S) positions
+    without holding (B, S, V) logits at once: per sequence chunk, the
+    (B, chunk, V) logits in float32, their log-sum-exp minus the gold
+    logit, masked and summed; over max(sum(mask), 1)."""
+    B, S, D = h.shape
+    assert S % chunk == 0, (S, chunk)
+    n = S // chunk
+    hs = h.reshape(B, n, chunk, D).transpose(0, 1)            # (n, B, c, D)
+    ls = labels.reshape(B, n, chunk).transpose(0, 1).long()   # (n, B, c)
+    if mask is None:
+        ms = torch.ones((n, B, chunk), dtype=torch.float32, device=h.device)
+    else:
+        ms = mask.reshape(B, n, chunk).transpose(0, 1).float()
+    w = table.to(h.dtype)
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(n):
+        logits = (hs[i] @ w.T).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, ls[i][..., None])[..., 0]
+        total = total + ((lse - gold) * ms[i]).sum()
+    return total / torch.clamp(ms.sum(), min=1.0)
 
 
 # ---------------------------------------------------------------------------

@@ -737,3 +737,114 @@ def test_fleet_day_on_the_card_matches_cpu(cuda):
         w = getattr(want, k)
         np.testing.assert_allclose(getattr(got, k), w, rtol=1e-6,
                                    atol=1e-6 * float(w.max()), err_msg=k)
+
+
+# ---------------------------------------------------------------------------
+# the flash backward kernel and training on the card
+# ---------------------------------------------------------------------------
+
+# float32 gradients against autograd of the plain forward: max error over
+# the gradient's largest magnitude (1.5e-6 read on an H100 80GB HBM3 at
+# 700 W); bf16 against
+# the plain version's bf16 run, which rounds dP to bf16 where the kernel
+# keeps float32: two bf16 spacings (2^-6) of the largest magnitude
+BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -6}
+
+
+def _autograd_plain(q, k, v, do, causal, window):
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    with torch.enable_grad():
+        o = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+        return torch.autograd.grad(o, (q, k, v), do)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk,H,KvH,Dh,causal,window", [
+    (1, 300, 300, 4, 4, 64, True, None),
+    (1, 300, 300, 8, 2, 128, True, 96),     # GQA 4:1 + window
+    (2, 200, 200, 4, 1, 64, False, None),   # bidirectional, GQA 4:1
+    (1, 130, 70, 4, 2, 96, False, None),    # Sq > Sk, Dh 96
+    (1, 70, 130, 2, 2, 64, True, None),     # Sq < Sk causal
+    (1, 257, 257, 8, 4, 256, True, 5),      # Dh 256, window below a tile
+    (1, 100, 300, 4, 4, 64, False, None),   # cross-attention shape
+    (1, 37, 37, 4, 4, 96, True, None),      # below one tile
+])
+def test_flash_bwd_kernel_matches_plain(cuda, dtype, B, Sq, Sk, H, KvH, Dh,
+                                        causal, window):
+    """dq / dk / dv through the autograd function (forward kernel with its
+    lse, backward kernel) against autograd of the plain forward."""
+    q, do = (_randn(i, (B, Sq, H, Dh), dtype, cuda) for i in (0, 3))
+    k, v = (_randn(i, (B, Sk, KvH, Dh), dtype, cuda) for i in (1, 2))
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    f0, b0 = fa.LAUNCHES, fa.BWD_LAUNCHES
+    fa.flash_attention(qg, kg, vg, causal=causal, window=window).backward(do)
+    assert (fa.LAUNCHES - f0, fa.BWD_LAUNCHES - b0) == (1, 1)
+    want = _autograd_plain(q, k, v, do, causal, window)
+    torch.cuda.synchronize()
+    for got, w in zip((qg.grad, kg.grad, vg.grad), want):
+        assert got.dtype == dtype and bool(torch.isfinite(got).all())
+        err = float((got.float() - w.float()).abs().max())
+        assert err <= BWD_TOL[dtype] * float(w.float().abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_forward_lse_and_serving_output(cuda, dtype):
+    """The forward's row lse matches its plain version; asking for it
+    leaves the output bit for bit as the serving launch writes it."""
+    q = _randn(0, (2, 300, 8, 128), dtype, cuda)
+    k, v = (_randn(i, (2, 300, 2, 128), dtype, cuda) for i in (1, 2))
+    o, lse = fa._flash_cuda(q, k, v, causal=True, window=96, lse=True)
+    with torch.no_grad():
+        served = fa.flash_attention(q, k, v, causal=True, window=96)
+    torch.cuda.synchronize()
+    assert torch.equal(o, served)
+    want = fa.flash_attention_lse_plain(q, k, causal=True, window=96)
+    torch.testing.assert_close(lse, want, rtol=0, atol=1e-5)
+
+
+def test_train_step_on_the_card_matches_cpu(cuda):
+    """olmo-1b's smoke config (heads widened to Dh 64 for the kernel) in
+    float32: one `make_train_step` (remat) on the card and on the CPU from
+    the same weights; loss within 1e-5, the first moments within 1e-4
+    relative RMS; one forward, one recompute and one backward launch a
+    layer."""
+    from repro_torch import convert, tree
+    from repro_torch.data.pipeline import DataConfig, lm_batch
+    from repro_torch.launch import steps
+    from repro_torch.models import registry
+    from repro_torch.training import optimizer as opt
+    base, model = registry.get("olmo-1b", smoke=True)
+    cfg = dataclasses.replace(base, head_dim=64)
+    np_tree = convert.lm_params_numpy(cfg, 0)
+    batch = lm_batch(DataConfig(cfg.vocab, 64, 2), 0, "cpu")
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        params = convert.lm_params_from_numpy(np_tree, cfg, dev)
+        f0, b0 = fa.LAUNCHES, fa.BWD_LAUNCHES
+        _, state, m = steps.make_train_step(cfg, model)(
+            params, opt.init(params), {k: v.to(dev) for k, v in
+                                       batch.items()})
+        out.append((state, m, (fa.LAUNCHES - f0, fa.BWD_LAUNCHES - b0)))
+    (s_card, m_card, launched), (s_cpu, m_cpu, _) = out
+    assert launched == (2 * cfg.n_layers, cfg.n_layers)
+    assert float(m_card["loss"]) == pytest.approx(float(m_cpu["loss"]),
+                                                  rel=1e-5)
+    for a, b in zip(tree.leaves(s_card["m"]), tree.leaves(s_cpu["m"])):
+        assert _rel_rms(a.cpu(), b) <= 1e-4
+
+
+def test_kernels_without_backward_raise_on_the_card(cuda):
+    """A grad-requiring input to the SSD or day-scan kernel raises instead
+    of returning an output that carries no gradient."""
+    x = _randn(0, (1, 128, 2, 64), torch.float32, cuda).requires_grad_()
+    dt = torch.full((1, 128, 2), 0.1, device=cuda)
+    A = -torch.ones(2, device=cuda)
+    Bm = _randn(1, (1, 128, 1, 64), torch.float32, cuda)
+    with pytest.raises(RuntimeError, match="ROADMAP.md"):
+        ss.ssd_scan(x, dt, A, Bm, Bm, chunk=64)
+    with torch.no_grad():
+        ss.ssd_scan(x, dt, A, Bm, Bm, chunk=64)         # serving: fine
+    tables = random_tables(5, 30, 2, 0, cuda)
+    tables["step_mw"] = tables["step_mw"].clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="ROADMAP.md"):
+        ds.day_scan(tables)
