@@ -6,10 +6,11 @@ Run from the root of a checkout.  Phases (any failure exits non-zero):
 
   1. device: the card's name and power limit (nvidia-smi);
   2. build: csrc/day_scan.cu, csrc/flash_attention.cu,
-     csrc/flash_attention_bwd.cu and csrc/ssd_scan.cu with nvcc (sm_90a)
-     from the checkout, and csrc/day_scan.cu once more
+     csrc/flash_attention_bwd.cu, csrc/ssd_scan.cu and csrc/ssd_scan_bwd.cu
+     with nvcc (sm_90a) from the checkout, and csrc/day_scan.cu once more
      with its probe modes (-DDAY_SCAN_PROBE), one nvcc each, all at once;
-     the day scan's ptxas lines (registers, spills);
+     the ptxas lines (registers, spills) of the day scan and the
+     backward kernels;
   3. kernel vs its plain PyTorch version on the card, on the serving
      grid's day tables (N = 64 combos, T = 4320 steps, L = 3 levels) and
      on ragged N = 63 and N = 200: all nine outputs bit for bit equal;
@@ -166,8 +167,8 @@ Run from the root of a checkout.  Phases (any failure exits non-zero):
      prefill ms and tokens/s, Server decode ms per token, peak device
      memory, a profile of one prefill.
 
-The transformer family (weights from a seeded torch.Generator on the
-card, except the golden's seeded numpy weights):
+The transformer family (weights from a seeded CPU torch.Generator,
+moved to the card, except the golden's seeded numpy weights):
 
  11. flash vs its plain version at the new head widths, float32 and bf16,
      with phase 6's tolerances: gemma3-4b's global and local layers (B =
@@ -251,16 +252,55 @@ The training path and whisper-medium:
      ms per step, tokens/s, share of the bf16 peak and peak memory; a
      profile of one `make_train_step`.
 
+The SSD family's training path:
+
+ 23. a. every family's `init` (transformer, MoE, VLM, hybrid, SSM,
+     encdec smoke configs) from one CPU-generator seed bit-equal on the
+     card and the CPU, and `train.side_inputs` (encdec, VLM) likewise;
+     b. the SSD forward's serving launch and the launch that keeps its
+     group states (what `SSDScan` runs) give the same y bit for bit, at
+     zamba2's and mamba2-2.7b's prefill shapes; c. the SSD backward
+     kernel (through `ssd_scan`'s autograd route) against
+     `ssd_scan_bwd_plain` at zamba2's (b 2, s 4096, h 64, n 64) and
+     mamba2-2.7b's (h 80, n 128) shapes, a ragged s, one group (no
+     split) and g = 2: float32 within SSD_BWD_F32_REL of each gradient's
+     largest magnitude, bf16 within SSD_BWD_BF16_RMS relative RMS, which
+     the plain version with W and G o E rounded to bf16 must exceed;
+     a second run bit-equal;
+ 24. main path: zamba2-1.2b at full width and depth (38 mamba layers, 6
+     shared-block calls, f32 parameters, bf16 compute), B = 4 x S =
+     2048: the first step through the kernels (114 SSD forward launches,
+     38 backward calls, 6 + 6 flash, every gradient finite and A_log /
+     dt_bias / in_proj / conv_w / out_proj nonzero in every layer)
+     against the same step through the plain SSD and attention (loss and
+     grad norm within TRAIN_LOSS_RTOL / TRAIN_GNORM_RTOL);
+     `launch.train.train` for 6 AdamW steps with a checkpoint restored
+     bit for bit, the same launches every step, the losses finite and
+     moving;
+ 25. zamba2-1.2b at full width, 2 layers, float32, B = 1 x S = 512: one
+     `make_train_step` on the card and on the CPU from the same numpy
+     weights, held as phase 20; mamba2-2.7b at full width, 4 of 64
+     layers: one bf16-compute step through the kernels against the plain
+     SSD;
+ 26. timing: the SSD backward's ms at zamba2's and mamba2-2.7b's
+     prefill shapes and phase 24's, beside `ssd_scan_bwd_plain`'s and the
+     bound (no library call computes the SSD gradient); zamba2-1.2b's ms
+     per step, tokens/s, share of the bf16 peak (`ssm_train_flops`) and
+     peak memory; a profile of one `make_train_step`.
+
 Nothing earlier is cut for time.
 
 The second-to-last lines are the `kernels` JSON object (the day scan's
 launches summed over the serial, batched, legacy, simulate_users,
 simulate, gradient and fleet paths of phase 4, both modes; its
 max_abs_err covers phase 3 and the tables of 4 b, d, e, f, h and i;
-flash's launches summed over phases 7, 12, 15, 16 and 19-21, its
+flash's launches summed over phases 7, 12, 15, 16, 19-21 and 24, its
 max_abs_err over phases 6 and 11; the backward's launches over phases
-19-21, its max_abs_err over phase 18, its times at olmo-1b's shape) and
-the nvidia-smi line; the last line is the result object.
+19-21 and 24, its max_abs_err over phase 18, its times at olmo-1b's
+shape; the SSD scan's launches over phases 7, 24 and 25; the SSD
+backward's calls over phases 24-25, its max_abs_err over phase 23 c, its
+times at zamba2's prefill shape) and the nvidia-smi line; the last line
+is the result object.
 """
 from __future__ import annotations
 
@@ -341,7 +381,8 @@ def nvidia_smi() -> str:
 def ptxas_kernels(log: str) -> list:
     """`flash_kernel_<dtype><Dh> N registers, spills` for each flash
     instantiation in an nvcc -Xptxas -v log (`flash_bwd_<launch><dtype,
-    Dh>` for the backward's)."""
+    Dh>` for the backward's, `ssd_bwd_<launch><dtype, n>` for the SSD
+    backward's)."""
     import re
     out, name = [], None
     for line in log.splitlines():
@@ -358,6 +399,11 @@ def ptxas_kernels(log: str) -> list:
                       line)
         if m:                           # the bf16 tensor-core launches
             name = f"{m.group(1)}<bf16, {m.group(2)}>"
+        m = re.search(r"entry function .*?(ssd_bwd_[a-z]+)I(13__nv_bfloat16"
+                      r"|f)?Li(\d+)E", line)
+        if m:                           # the SSD backward's launches
+            dtype = {None: "", "f": "f32, "}.get(m.group(2), "bf16, ")
+            name = f"{m.group(1)}<{dtype}{m.group(3)}>"
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m and name:
@@ -1707,18 +1753,36 @@ def flash_bound(q, k, causal: bool, window) -> tuple:
     return _bound(n_bytes, 4.0 * B * H * Dh * pairs, str(q.dtype)[6:])
 
 
+def ssd_ops(x, Bm, chunk: int) -> float:
+    """Products of one SSD scan (2 flops a multiply-add): per chunk of L
+    rows C.B and W.(x dt) over the L(L+1)/2 pairs i >= j, C.state and
+    the state update."""
+    b, s, h, p = x.shape
+    n = Bm.shape[3]
+    lens = [min(chunk, s - c) for c in range(0, s, chunk)]
+    return b * h * sum(L * (L + 1) / 2 * 2 * (n + p) + 4 * L * p * n
+                       for L in lens)
+
+
 def ssd_bound(x, Bm, chunk: int) -> tuple:
     """Bound of one SSD scan: x, B, C, dt, A read once and y written
-    once; per chunk of L rows the products C.B and W.(x dt) over the
-    L(L+1)/2 pairs i >= j, C.state and the state update (2 flops a
-    multiply-add)."""
+    once; the products of `ssd_ops`."""
     b, s, h, p = x.shape
     g, n = Bm.shape[2], Bm.shape[3]
     n_bytes = (2 * b * s * h * p + 2 * b * s * g * n) * x.element_size() \
         + 4 * (b * s * h + h)
-    lens = [min(chunk, s - c) for c in range(0, s, chunk)]
-    per_bh = sum(L * (L + 1) / 2 * 2 * (n + p) + 4 * L * p * n for L in lens)
-    return _bound(n_bytes, b * h * per_bh, str(x.dtype)[6:])
+    return _bound(n_bytes, ssd_ops(x, Bm, chunk), str(x.dtype)[6:])
+
+
+def ssd_bwd_bound(x, Bm, chunk: int) -> tuple:
+    """Bound of one SSD backward: x, dy, B, C, dt, A read once and dx,
+    dB, dC, ddt, dA written once; 2.5 x the forward's products (as the
+    flash backward's bound counts)."""
+    b, s, h, p = x.shape
+    g, n = Bm.shape[2], Bm.shape[3]
+    n_bytes = (3 * b * s * h * p + 4 * b * s * g * n) * x.element_size() \
+        + 4 * (2 * b * s * h + 2 * h)
+    return _bound(n_bytes, 2.5 * ssd_ops(x, Bm, chunk), str(x.dtype)[6:])
 
 
 def ssd_scratch_bytes(x, Bm, chunk: int) -> tuple:
@@ -2440,8 +2504,8 @@ def transformer_phases(dev) -> tuple:
     cfg16 = dataclasses.replace(base, param_dtype=torch.bfloat16,
                                 compute_dtype=torch.bfloat16)
     t0 = time.perf_counter()
-    params32 = transformer.init(
-        torch.Generator(device=dev).manual_seed(TF_SEED), cfg32, dev)
+    params32 = transformer.init(torch.Generator().manual_seed(TF_SEED),
+                                cfg32, dev)
     params16 = cast_params(params32, torch.bfloat16)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
@@ -2449,7 +2513,7 @@ def transformer_phases(dev) -> tuple:
           f"{core.count_params(params16) / 1e9:.3f} B parameters "
           f"({base.n_params / 1e9:.3f} B analytic), bf16 "
           f"{core.param_bytes(params16) / 1e9:.2f} GB; seeded weights "
-          f"(torch.Generator on the card) in {init_s:.1f} s")
+          f"(a CPU torch.Generator, moved to the card) in {init_s:.1f} s")
     tokens = torch.randint(0, base.vocab, (B_PREFILL, S_PREFILL),
                            generator=torch.Generator(device=dev)
                            .manual_seed(TF_SEED + 1), device=dev)
@@ -2526,13 +2590,13 @@ def transformer_phases(dev) -> tuple:
     cfg = dataclasses.replace(phi3_vision_4p2b.config(),
                               param_dtype=torch.bfloat16,
                               compute_dtype=torch.bfloat16)
-    gen = torch.Generator(device=dev).manual_seed(TF_SEED + 2)
+    gen = torch.Generator().manual_seed(TF_SEED + 2)
     params = transformer.init(gen, cfg, dev)
     inputs = {"tokens": torch.randint(0, cfg.vocab, (B_PREFILL, S_PREFILL),
-                                      generator=gen, device=dev),
+                                      generator=gen).to(dev),
               "vision_embeds": torch.randn(
                   (B_PREFILL, cfg.vision_tokens, cfg.vision_embed_dim),
-                  generator=gen, device=dev)}
+                  generator=gen).to(dev)}
     fa.LAUNCHES = 0
     with flash_calls() as calls:
         h, cache = steps.make_prefill_step(cfg, transformer)(params, inputs)
@@ -2563,10 +2627,10 @@ def transformer_phases(dev) -> tuple:
         cfg = dataclasses.replace(full, n_layers=OTHER_LAYERS,
                                   param_dtype=torch.bfloat16,
                                   compute_dtype=torch.bfloat16)
-        gen = torch.Generator(device=dev).manual_seed(TF_SEED + 3)
+        gen = torch.Generator().manual_seed(TF_SEED + 3)
         params = model.init(gen, cfg, dev)
-        tokens = torch.randint(0, cfg.vocab, (1, S_PREFILL), generator=gen,
-                               device=dev)
+        tokens = torch.randint(0, cfg.vocab, (1, S_PREFILL),
+                               generator=gen).to(dev)
         step = steps.make_prefill_step(cfg, model)
         fa.LAUNCHES = 0
         with flash_calls(keep=True) as kcalls:
@@ -2949,8 +3013,7 @@ def train_olmo(dev) -> tuple:
     cfg, _ = registry.get(TRAIN_ARCH)
     L = cfg.n_layers
     # `train`'s own weights (seed 0)
-    params = transformer.init(torch.Generator(device=dev).manual_seed(0),
-                              cfg, dev)
+    params = transformer.init(torch.Generator().manual_seed(0), cfg, dev)
     print(f"{TRAIN_ARCH} training: {L} layers, "
           f"{core.count_params(params) / 1e9:.3f} B parameters "
           f"({cfg.param_dtype} parameters, {cfg.compute_dtype} compute), "
@@ -3120,12 +3183,12 @@ def whisper_phases(dev) -> tuple:
     L, F = base.n_layers, base.audio_frames
     cfg16 = dataclasses.replace(base, param_dtype=torch.bfloat16,
                                 compute_dtype=torch.bfloat16)
-    gen = torch.Generator(device=dev).manual_seed(TF_SEED + 5)
+    gen = torch.Generator().manual_seed(TF_SEED + 5)
     params16 = whisper.init(gen, cfg16, dev)
     inputs = {"tokens": torch.randint(0, base.vocab, (B_PREFILL, WHISPER_S),
-                                      generator=gen, device=dev),
+                                      generator=gen).to(dev),
               "frames": torch.randn((B_PREFILL, F, base.d_model),
-                                    generator=gen, device=dev)}
+                                    generator=gen).to(dev)}
     prefill16 = steps.make_prefill_step(cfg16, whisper)
     fa.LAUNCHES = 0
     with flash_calls() as calls:
@@ -3213,8 +3276,8 @@ def whisper_phases(dev) -> tuple:
 
     # d. one train step at 2 + 2 layers, kernels vs plain
     cfg = dataclasses.replace(base, n_layers=2, dec_layers=2)
-    params = whisper.init(torch.Generator(device=dev)
-                          .manual_seed(TF_SEED + 6), cfg, dev)
+    params = whisper.init(torch.Generator().manual_seed(TF_SEED + 6), cfg,
+                          dev)
     batch = {**lm_batch(DataConfig(cfg.vocab, WHISPER_S, B_PREFILL), 0, dev),
              **train.side_inputs(cfg, B_PREFILL, 0, dev)}
     grads_vs_plain("whisper-medium train step (2 + 2 layers, bf16 "
@@ -3261,6 +3324,551 @@ def training_phases(dev) -> tuple:
         "library_ms": sdpa_ms}
 
 
+# ---------------------------------------------------------------------------
+# phases 23-26: the SSD family's training path
+# ---------------------------------------------------------------------------
+
+# one smoke config of each family (transformer, MoE, VLM, hybrid, SSM,
+# encdec) for the seed check
+SEED_ARCHS = ("olmo-1b", "moonshot-v1-16b-a3b", "phi-3-vision-4.2b",
+              "zamba2-1.2b", "mamba2-2.7b", "whisper-medium")
+# SSD backward shapes (name, b, s, h, g, n, dt scale): zamba2's and
+# mamba2-2.7b's layers at the prefill shape, a ragged s, an s inside one
+# group (no split) and g > 1; dt x 0.05 makes the state gradient carried
+# between the groups count
+SSD_BWD_SHAPES = (("zamba2", 2, 4096, 64, 1, 64, 1.0),
+                  ("mamba2-2.7b", 2, 4096, 80, 1, 128, 1.0),
+                  ("ragged", 2, 1000, 64, 1, 64, 0.05),
+                  ("one group", 2, 500, 64, 1, 64, 0.05),
+                  ("g=2", 1, 1100, 8, 2, 128, 0.05))
+# float32 gradients against `ssd_scan_bwd_plain`: max abs error over the
+# gradient's largest magnitude (float32 sums in another order)
+SSD_BWD_F32_REL = 1e-5
+# bf16 against the plain version on the same bf16 inputs: the kernel keeps
+# every product in float32 and rounds dx / dB / dC once, so only sum order
+# and the rounding it flips separate them; relative RMS limit of each
+# gradient, which the plain version with W and G o E rounded to bf16
+# before their products (a tensor-core shortcut) must exceed on dx, dB, dC
+SSD_BWD_BF16_RMS = 5e-4
+SSM_TRAIN_ARCH = "zamba2-1.2b"
+SSM_TRAIN_B, SSM_TRAIN_S = 4, 2048
+SSM_TRAIN_STEPS = 6
+MAMBA2_LAYERS = 4               # mamba2-2.7b's depth cut (of 64)
+MAMBA_KEYS = ("A_log", "dt_bias", "in_proj", "conv_w", "out_proj")
+SSM_CKPT_DIR = ROOT / "build" / "chip_smoke_ssm_ckpt"
+
+
+def check_seeds(dev) -> None:
+    """Phase 23 a: one seed gives bit-equal weights on the CPU and the
+    card for every family, and bit-equal side inputs."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.launch import train
+    from repro_torch.models import registry
+    for arch in SEED_ARCHS:
+        cfg, model = registry.get(arch, smoke=True)
+        card = model.init(torch.Generator().manual_seed(0), cfg, dev)
+        cpu = model.init(torch.Generator().manual_seed(0), cfg, "cpu")
+        leaves = list(zip(tree.leaves(card), tree.leaves(cpu)))
+        bad = [i for i, (a, b) in enumerate(leaves)
+               if a.device.type != "cuda" or not torch.equal(a.cpu(), b)]
+        if bad:
+            fail(f"seed: {arch} init from one seed differs between the card "
+                 f"and the CPU on leaves {bad}")
+        line = f"seed: {arch} init bit-equal on the card and the CPU " \
+            f"({len(leaves)} leaves)"
+        if cfg.family in ("encdec", "vlm"):
+            for step in (0, 3):
+                (k, a), = train.side_inputs(cfg, 2, step, dev).items()
+                b = train.side_inputs(cfg, 2, step, "cpu")[k]
+                if a.device.type != "cuda" or not torch.equal(a.cpu(), b):
+                    fail(f"seed: {arch} side input {k} at step {step} "
+                         f"differs between the card and the CPU")
+            line += f"; side inputs ({k}) bit-equal at steps 0 and 3"
+        print(line)
+
+
+def ssd_bwd_inputs(gen, b, s, h, g, n, dtype, dt_scale):
+    """x, dt, A, B, C and dy on the card, phase 6's draws."""
+    import torch
+    dev = gen.device
+
+    def rn(shape, dt, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device=dev)).to(dt)
+
+    x = rn((b, s, h, 64), dtype, 0.5)
+    dt = dt_scale * torch.nn.functional.softplus(rn((b, s, h), torch.float32))
+    A = -torch.exp(rn((h,), torch.float32, 0.3))
+    return (x, dt, A, rn((b, s, g, n), dtype, 0.3), rn((b, s, g, n), dtype,
+                                                      0.3),
+            rn((b, s, h, 64), dtype))
+
+
+def ssd_grads(ins, dy):
+    """The five gradients through `ssd_scan` (SSDScan on the card)."""
+    import torch
+    from repro_torch.kernels import ssd_scan as ss
+    leaves = [t.detach().clone().requires_grad_() for t in ins]
+    with torch.enable_grad():
+        y = ss.ssd_scan(*leaves, chunk=64)
+    return torch.autograd.grad(y, leaves, dy)
+
+
+def check_ssd_forward_states(dev) -> None:
+    """Phase 23 b: the forward's serving launch and the launch that keeps
+    its group states (what `SSDScan` runs) give the same y bit for bit,
+    and so does `ssd_scan` with inputs that need a gradient."""
+    import torch
+    from repro_torch.kernels import ssd_scan as ss
+    gen = torch.Generator(device=dev).manual_seed(10)
+    for b, s, h, g, n in ((B_PREFILL, S_PREFILL, 64, 1, 64),
+                          (B_PREFILL, S_PREFILL, 80, 1, 128)):
+        for dtype in (torch.bfloat16, torch.float32):
+            ins = ssd_bwd_inputs(gen, b, s, h, g, n, dtype, 1.0)[:5]
+            y = ss._ssd_cuda(*ins, chunk=64)
+            y2, states = ss._ssd_cuda(*ins, chunk=64, states=True)
+            leaves = [t.clone().requires_grad_() for t in ins]
+            with torch.enable_grad():
+                y3 = ss.ssd_scan(*leaves, chunk=64)
+            torch.cuda.synchronize()
+            if not (torch.equal(y, y2) and torch.equal(y, y3.detach())) or \
+                    tuple(states.shape) != (b, h, ss.n_groups(s), n, 64):
+                fail(f"ssd forward b={b} s={s} h={h} n={n} {dtype}: y with "
+                     f"the group states kept differs from the serving "
+                     f"launch's")
+            print(f"ssd forward b={b} s={s} h={h} n={n} {str(dtype)[6:]}: "
+                  f"y bit-equal with and without the group states kept, "
+                  f"and through SSDScan")
+
+
+def check_ssd_bwd(dev) -> float:
+    """Phase 23 c: the backward kernel (through `ssd_scan`'s autograd
+    route) against `ssd_scan_bwd_plain` at SSD_BWD_SHAPES, float32 within
+    SSD_BWD_F32_REL of each gradient's largest magnitude, bf16 within
+    SSD_BWD_BF16_RMS relative RMS with the rounded control outside it;
+    a second run bit-equal; returns the largest abs error."""
+    import torch
+    from repro_torch.kernels import ssd_scan as ss
+    gen = torch.Generator(device=dev).manual_seed(11)
+    names = ("dx", "ddt", "dA", "dB", "dC")
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, b, s, h, g, n, dt_scale in SSD_BWD_SHAPES:
+            *ins, dy = ssd_bwd_inputs(gen, b, s, h, g, n, dtype, dt_scale)
+            b0 = ss.BWD_LAUNCHES
+            got = ssd_grads(ins, dy)
+            again = ssd_grads(ins, dy)
+            calls = ss.BWD_LAUNCHES - b0
+            want = ss.ssd_scan_bwd_plain(*ins, dy, chunk=64)
+            torch.cuda.synchronize()
+            label = (f"ssd bwd {name} b={b} s={s} h={h} g={g} n={n} dt "
+                     f"x{dt_scale:g} {str(dtype)[6:]}")
+            if calls != 2:
+                fail(f"{label}: {calls} backward calls, want 2")
+            if not all(torch.equal(a, c) for a, c in zip(got, again)):
+                fail(f"{label}: two runs differ")
+            rels, rms = [], []
+            for k, a, w in zip(names, got, want):
+                if a.dtype != w.dtype or not bool(torch.isfinite(a).all()):
+                    fail(f"{label}: {k} not finite or not {w.dtype}")
+                err = float((a.float() - w.float()).abs().max())
+                top = float(w.float().abs().max())
+                worst = max(worst, err)
+                rels.append(err / top)
+                rms.append(rel_rms(a.float(), w.float()))
+                if dtype == torch.float32 and err > SSD_BWD_F32_REL * top:
+                    miss(f"{label}: {k} off the plain version by "
+                         f"{err / top:.3g} of its largest magnitude (tol "
+                         f"{SSD_BWD_F32_REL:g})")
+                if dtype == torch.bfloat16 and rms[-1] > SSD_BWD_BF16_RMS:
+                    miss(f"{label}: {k} rel RMS {rms[-1]:.3g} off the plain "
+                         f"version (tol {SSD_BWD_BF16_RMS:g})")
+            line = (f"{label}: vs ssd_scan_bwd_plain, max err / max |.| "
+                    + " ".join(f"{k} {r:.3g}" for k, r in zip(names, rels)))
+            if dtype == torch.bfloat16:
+                ctrl = ss.ssd_scan_bwd_plain(*ins, dy, chunk=64, rounded=True)
+                c_rms = [rel_rms(c.float(), w.float())
+                         for c, w in zip(ctrl, want)]
+                low = min(c_rms[i] for i in (0, 3, 4))
+                if low <= SSD_BWD_BF16_RMS:
+                    miss(f"{label}: the rounded control is within the bf16 "
+                         f"limit ({low:.3g}): the check tells nothing")
+                line += ("; rel RMS " + " ".join(
+                    f"{k} {r:.3g}" for k, r in zip(names, rms))
+                    + f" (tol {SSD_BWD_BF16_RMS:g}); control (W, G o E "
+                    f"rounded to bf16) " + " ".join(
+                        f"{k} {r:.3g}" for k, r in zip(names, c_rms)))
+            else:
+                line += f" (tol {SSD_BWD_F32_REL:g})"
+            print(line + "; a second run bit-equal")
+            del ins, dy, got, again, want
+    return worst
+
+
+@contextlib.contextmanager
+def plain_ssd():
+    """Within the block, `ssd_scan` on CUDA tensors goes to
+    `ssd_scan_plain` (autograd of the plain version: the reference of the
+    kernel checks, never the path itself)."""
+    from repro_torch.kernels import ssd_scan as ss
+    real = ss.ssd_scan
+    ss.ssd_scan = lambda x, dt, A, B, C, *, chunk=64: \
+        ss.ssd_scan_plain(x, dt, A, B, C, chunk=chunk)
+    try:
+        yield
+    finally:
+        ss.ssd_scan = real
+
+
+def mamba_grad_checks(label, grads, n_layers) -> None:
+    """Every gradient finite, and MAMBA_KEYS nonzero in every mamba layer
+    (the SSD kernel's output carries a gradient to each of them)."""
+    import torch
+    from repro_torch import tree
+    bad = [i for i, g in enumerate(tree.leaves(grads))
+           if not bool(torch.isfinite(g).all())]
+    if bad:
+        fail(f"{label}: gradient leaves {bad} not finite")
+    mamba = grads["layers"]["mamba"]
+    for key in MAMBA_KEYS:
+        zero = [i for i in range(n_layers) if not bool((mamba[key][i] != 0)
+                                                       .any())]
+        if zero:
+            fail(f"{label}: mamba.{key} has no gradient on layers {zero}")
+
+
+def ssm_grads_vs_plain(label, model, params, cfg, batch, seq) -> tuple:
+    """The loss and gradients of `model.loss_fn` through the SSD and
+    flash kernels (SSD forward launches, backward calls and flash
+    launches counted against one call a layer, without remat), every
+    gradient checked (`mamba_grad_checks`), and again through the plain
+    SSD and attention (with remat: autograd of the plain scan keeps
+    every chunk's L x L products, ~0.6 GB a layer at B = 4 x S = 2048);
+    returns (loss, grad norm, plain loss, plain grad norm)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa, ssd_scan as ss
+    from repro_torch.launch import steps
+    from repro_torch.training import optimizer as opt
+    L = cfg.n_layers
+    n_attn = L // cfg.attn_every if cfg.attn_every else 0
+    want = (L * ss.kernel_launches(seq, cfg.ssm.chunk), L, n_attn, n_attn)
+    ss.LAUNCHES = ss.BWD_LAUNCHES = fa.LAUNCHES = fa.BWD_LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats()
+    loss, grads = steps.value_and_grad(
+        lambda p: model.loss_fn(p, cfg, batch, remat=False), params)
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    counts = (ss.LAUNCHES, ss.BWD_LAUNCHES, fa.LAUNCHES, fa.BWD_LAUNCHES)
+    if counts != want:
+        fail(f"{label}: SSD {counts[0]} forward launches / {counts[1]} "
+             f"backward calls, flash {counts[2]} / {counts[3]}; want {want}")
+    mamba_grad_checks(label, grads, L)
+    gnorm = float(opt.global_norm(grads))
+    del grads
+    torch.cuda.empty_cache()
+    with plain_ssd(), flash_calls(plain=True):
+        loss_p, grads_p = steps.value_and_grad(
+            lambda p: model.loss_fn(p, cfg, batch, remat=True), params)
+    gnorm_p = float(opt.global_norm(grads_p))
+    del grads_p
+    loss, loss_p = float(loss), float(loss_p)
+    if not (abs(loss - loss_p) <= TRAIN_LOSS_RTOL * abs(loss_p) and
+            abs(gnorm - gnorm_p) <= TRAIN_GNORM_RTOL * gnorm_p):
+        miss(f"{label}: through the kernels loss {loss} grad norm {gnorm}, "
+             f"through the plain SSD and attention {loss_p} / {gnorm_p} "
+             f"(rtol {TRAIN_LOSS_RTOL:g} / {TRAIN_GNORM_RTOL:g})")
+    print(f"{label}: SSD {counts[0]} forward launches + {counts[1]} backward "
+          f"calls, flash {counts[2]} + {counts[3]}; every gradient finite, "
+          f"{' / '.join(MAMBA_KEYS)} nonzero on every layer; peak device "
+          f"memory {peak_gb:.2f} GB; loss "
+          f"{loss:.6f} vs {loss_p:.6f} through the plain SSD and attention "
+          f"(rel {abs(loss - loss_p) / abs(loss_p):.3g}, tol "
+          f"{TRAIN_LOSS_RTOL:g}), grad norm {gnorm:.6g} vs {gnorm_p:.6g} "
+          f"(rel {abs(gnorm - gnorm_p) / gnorm_p:.3g}, tol "
+          f"{TRAIN_GNORM_RTOL:g})")
+    return loss, gnorm, loss_p, gnorm_p
+
+
+def ssm_train_flops(cfg, B: int, S: int) -> float:
+    """Products of one SSM / hybrid training step: 6 x parameters x
+    tokens, the shared block's attention (3.5 x the forward's q.k and
+    p.v) and every SSD scan's (3.5 x the forward's `ssd_ops`: forward
+    and a backward of 2.5 x)."""
+    import torch
+    n_attn = cfg.n_layers // cfg.attn_every if cfg.attn_every else 0
+    s = cfg.ssm
+    x = torch.empty((B, S, s.n_heads, s.head_dim), device="meta")
+    Bm = torch.empty((B, S, s.n_groups, s.d_state), device="meta")
+    return 6.0 * cfg.n_params * B * S + \
+        3.5 * 4.0 * B * cfg.n_heads * cfg.head_dim \
+        * attn_pairs(S, S, True, None) * n_attn + \
+        3.5 * ssd_ops(x, Bm, s.chunk) * cfg.n_layers
+
+
+def train_zamba2(dev) -> tuple:
+    """Phase 24: zamba2-1.2b at full width and depth (38 mamba layers, 6
+    shared-block calls; float32 parameters, bf16 compute), B =
+    SSM_TRAIN_B x S = SSM_TRAIN_S: the first step through the kernels
+    against the plain SSD and attention (`ssm_grads_vs_plain`);
+    `launch.train.train` for SSM_TRAIN_STEPS AdamW steps with a
+    checkpoint, restored bit for bit; every step's launches counted,
+    losses finite and moving.  Returns (SSD forward launches, SSD
+    backward calls, flash forward, flash backward on this path, the
+    timing line, the initial weights and the batch)."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch import tree
+    from repro_torch.data.pipeline import DataConfig, lm_batch
+    from repro_torch.kernels import flash_attention as fa, ssd_scan as ss
+    from repro_torch.launch import train
+    from repro_torch.models import mamba_lm, registry
+    from repro_torch.nn import core
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training import optimizer as opt
+    cfg, _ = registry.get(SSM_TRAIN_ARCH)
+    L = cfg.n_layers
+    n_attn = L // cfg.attn_every
+    t0 = time.perf_counter()
+    params = mamba_lm.init(torch.Generator().manual_seed(0), cfg, dev)
+    torch.cuda.synchronize()
+    print(f"{SSM_TRAIN_ARCH} training: {L} mamba layers + {n_attn} shared "
+          f"block calls, {core.count_params(params) / 1e9:.3f} B parameters "
+          f"({cfg.param_dtype} parameters, {cfg.compute_dtype} compute), "
+          f"B={SSM_TRAIN_B} S={SSM_TRAIN_S}; weights drawn on the host in "
+          f"{time.perf_counter() - t0:.1f} s")
+    batch = lm_batch(DataConfig(cfg.vocab, SSM_TRAIN_S, SSM_TRAIN_B), 0, dev)
+    ssm_grads_vs_plain(f"{SSM_TRAIN_ARCH} first step", mamba_lm, params,
+                       cfg, batch, SSM_TRAIN_S)
+    torch.cuda.empty_cache()
+
+    shutil.rmtree(SSM_CKPT_DIR, ignore_errors=True)
+    rec = {"t": None, "rows": []}
+
+    def on_step(s, m):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        rec["rows"].append((s, float(m["loss"]), float(m["grad_norm"]),
+                            (ss.LAUNCHES, ss.BWD_LAUNCHES, fa.LAUNCHES,
+                             fa.BWD_LAUNCHES), (now - rec["t"]) * 1e3))
+        ss.LAUNCHES = ss.BWD_LAUNCHES = fa.LAUNCHES = fa.BWD_LAUNCHES = 0
+        rec["t"] = time.perf_counter()
+
+    torch.cuda.reset_peak_memory_stats()
+    ss.LAUNCHES = ss.BWD_LAUNCHES = fa.LAUNCHES = fa.BWD_LAUNCHES = 0
+    torch.cuda.synchronize()
+    rec["t"] = time.perf_counter()
+    p6, losses = train.train(SSM_TRAIN_ARCH, smoke=False, steps=SSM_TRAIN_STEPS,
+                             batch=SSM_TRAIN_B, seq=SSM_TRAIN_S, device=dev,
+                             ckpt_dir=str(SSM_CKPT_DIR),
+                             ckpt_every=SSM_TRAIN_STEPS, log_every=1,
+                             on_step=on_step)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if ckpt.latest_step(SSM_CKPT_DIR) != SSM_TRAIN_STEPS:
+        fail(f"{SSM_TRAIN_ARCH} train: no checkpoint at step "
+             f"{SSM_TRAIN_STEPS}")
+    t1 = time.perf_counter()
+    (restored, _), _ = ckpt.restore(SSM_CKPT_DIR, (params, opt.init(params)))
+    restore_s = time.perf_counter() - t1
+    if not all(torch.equal(a, b) for a, b in zip(tree.leaves(restored),
+                                                 tree.leaves(p6))):
+        fail(f"{SSM_TRAIN_ARCH} train: the restored checkpoint differs from "
+             f"the trained parameters")
+    del restored, p6
+    shutil.rmtree(SSM_CKPT_DIR, ignore_errors=True)
+    rows = rec["rows"]
+    want = (L * ss.kernel_launches(SSM_TRAIN_S, cfg.ssm.chunk), L, n_attn,
+            n_attn)
+    for s, loss, gn, counts, _ in rows:
+        if not (np.isfinite(loss) and np.isfinite(gn)) or counts != want:
+            fail(f"{SSM_TRAIN_ARCH} train step {s}: loss {loss}, grad norm "
+                 f"{gn}, launches (SSD forward, SSD backward, flash forward, "
+                 f"flash backward) {counts}, want {want}")
+    if len(rows) != SSM_TRAIN_STEPS or len(set(losses)) < 2:
+        fail(f"{SSM_TRAIN_ARCH} train: losses {losses} do not move")
+    step_ms = [r[4] for r in rows[1:]]
+    ms = float(np.mean(step_ms))
+    flops = ssm_train_flops(cfg, SSM_TRAIN_B, SSM_TRAIN_S)
+    line = (f"{SSM_TRAIN_ARCH} train() (bf16 compute, B={SSM_TRAIN_B} "
+            f"S={SSM_TRAIN_S}, {L} layers): losses "
+            + ", ".join(f"{r[1]:.4f}" for r in rows) + "; grad norms "
+            + ", ".join(f"{r[2]:.4g}" for r in rows)
+            + f"; every step SSD {want[0]} forward launches + {L} backward "
+            f"calls, flash {n_attn} + {n_attn}; ms per step {ms:.1f} (mean "
+            f"of steps 1-{len(rows) - 1}: "
+            + ", ".join(f"{t:.1f}" for t in step_ms) + f"; step 0 "
+            f"{rows[0][4]:.1f}), {SSM_TRAIN_B * SSM_TRAIN_S / ms * 1e3:.0f} "
+            f"tokens/s; {flops / 1e12:.1f} TFLOP of products a step, "
+            f"{flops / (ms * 1e-3) / PEAK_BF16_OPS_S * 100:.1f} % of the bf16 "
+            f"peak; peak device memory {peak_gb:.2f} GB; checkpoint restore "
+            f"{restore_s:.1f} s")
+    print(line)
+    n = len(rows) + 1                # the trained steps and the first step
+    return want[0] * n, L * n, n_attn * n, n_attn * n, line, params, batch
+
+
+def ssm_card_vs_cpu(dev) -> tuple:
+    """Phase 25 a: zamba2-1.2b at full width, 2 layers, float32, B = 1 x
+    S = 512: one `make_train_step` (remat) on the card and on the CPU from
+    the same numpy weights, held as phase 20 holds olmo-1b's; returns the
+    card's (SSD forward launches, SSD backward calls)."""
+    import dataclasses
+    import torch
+    from repro_torch import convert, tree
+    from repro_torch.data.pipeline import DataConfig, lm_batch
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.launch import steps
+    from repro_torch.models import mamba_lm, registry
+    from repro_torch.training import optimizer as opt
+    full, _ = registry.get(SSM_TRAIN_ARCH)
+    cfg = dataclasses.replace(full, n_layers=2, param_dtype=torch.float32,
+                              compute_dtype=torch.float32)
+    seq = 512
+    t0 = time.perf_counter()
+    np_tree = convert.lm_params_numpy(cfg, LM_SEED)
+    batch = lm_batch(DataConfig(cfg.vocab, seq, 1), 0, "cpu")
+    step = steps.make_train_step(cfg, mamba_lm)
+    out = []
+    for d in (dev, torch.device("cpu")):
+        params = convert.lm_params_from_numpy(np_tree, cfg, d)
+        ss.LAUNCHES = ss.BWD_LAUNCHES = 0
+        p, o, m = step(params, opt.init(params),
+                       {k: v.to(d) for k, v in batch.items()})
+        out.append((p, o, m, (ss.LAUNCHES, ss.BWD_LAUNCHES)))
+    (pc, oc, mc, counts), (pp, op, mp, _) = out
+    loss, loss_cpu = float(mc["loss"]), float(mp["loss"])
+    rms = max(rel_rms(a.cpu(), b) for a, b in zip(tree.leaves(oc["m"]),
+                                                  tree.leaves(op["m"])))
+    lr = float(mp["lr"])
+    dp = max(float((a.cpu() - b).abs().max()) for a, b in
+             zip(tree.leaves(pc), tree.leaves(pp)))
+    # remat: each layer's forward runs again in the backward
+    want = (2 * cfg.n_layers * ss.kernel_launches(seq, cfg.ssm.chunk),
+            cfg.n_layers)
+    if counts != want or \
+            abs(loss - loss_cpu) > XDEV_LOSS_RTOL * abs(loss_cpu) or \
+            rms > XDEV_GRAD_RMS or dp > 2.1 * lr:
+        miss(f"{SSM_TRAIN_ARCH} f32 train step, card vs CPU: SSD launches "
+             f"{counts} (want {want}), loss {loss} vs {loss_cpu}, gradient "
+             f"rel RMS {rms} (limit {XDEV_GRAD_RMS}), updated parameters "
+             f"{dp} apart (limit 2.1 x lr {lr})")
+    print(f"{SSM_TRAIN_ARCH} f32 make_train_step, 2 layers full width, B=1 "
+          f"S={seq}, card vs CPU ({time.perf_counter() - t0:.1f} s): SSD "
+          f"{counts[0]} forward launches ({cfg.n_layers} calls recomputed) + "
+          f"{counts[1]} backward calls; loss {loss:.7f} vs {loss_cpu:.7f} "
+          f"(rel {abs(loss - loss_cpu) / abs(loss_cpu):.3g}, tol "
+          f"{XDEV_LOSS_RTOL:g}); worst per-leaf gradient rel RMS {rms:.3g} "
+          f"(tol {XDEV_GRAD_RMS:g}); grad norm {float(mc['grad_norm']):.6g} "
+          f"vs {float(mp['grad_norm']):.6g}; updated parameters max "
+          f"{dp:.3g} apart (lr {lr:.3g}, tol 2.1 lr)")
+    return counts
+
+
+def mamba2_step(dev) -> tuple:
+    """Phase 25 b: mamba2-2.7b at full width, depth cut to MAMBA2_LAYERS,
+    one bf16-compute train step (B = SSM_TRAIN_B x S = SSM_TRAIN_S)
+    through the kernels against the plain SSD; returns (SSD forward
+    launches, backward calls)."""
+    import dataclasses
+    import torch
+    from repro_torch.data.pipeline import DataConfig, lm_batch
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.models import mamba_lm, registry
+    full, _ = registry.get("mamba2-2.7b")
+    cfg = dataclasses.replace(full, n_layers=MAMBA2_LAYERS)
+    params = mamba_lm.init(torch.Generator().manual_seed(1), cfg, dev)
+    batch = lm_batch(DataConfig(cfg.vocab, SSM_TRAIN_S, SSM_TRAIN_B), 0, dev)
+    ssm_grads_vs_plain(f"mamba2-2.7b train step ({MAMBA2_LAYERS} of "
+                       f"{full.n_layers} layers, h {cfg.ssm.n_heads}, n "
+                       f"{cfg.ssm.d_state}, bf16 compute, B={SSM_TRAIN_B} "
+                       f"S={SSM_TRAIN_S})", mamba_lm, params, cfg, batch,
+                       SSM_TRAIN_S)
+    return (MAMBA2_LAYERS * ss.kernel_launches(SSM_TRAIN_S, cfg.ssm.chunk),
+            MAMBA2_LAYERS)
+
+
+def time_ssd_bwd(dev) -> list:
+    """Phase 26's kernel times: the backward kernel alone (CUDA events,
+    10 calls, on the forward's own group states) at the bf16 shapes of
+    zamba2's and mamba2-2.7b's prefill and of phase 24's step, beside
+    `ssd_scan_bwd_plain` (1 call) and the bound; no library call computes
+    the SSD gradient.  Returns the rows (name, ms, plain ms, bound,
+    bound_by)."""
+    import torch
+    from repro_torch.kernels import ssd_scan as ss
+    gen = torch.Generator(device=dev).manual_seed(12)
+    rows = []
+    for name, b, s, h, g, n in (
+            ("zamba2", B_PREFILL, S_PREFILL, 64, 1, 64),
+            ("mamba2-2.7b", B_PREFILL, S_PREFILL, 80, 1, 128),
+            ("zamba2 train step", SSM_TRAIN_B, SSM_TRAIN_S, 64, 1, 64)):
+        *ins, dy = ssd_bwd_inputs(gen, b, s, h, g, n, torch.bfloat16, 1.0)
+        _, states = ss._ssd_cuda(*ins, chunk=64, states=True)
+        bwd = lambda: ss._ssd_bwd_cuda(*ins, dy, states)  # noqa: E731
+        bwd()
+        ms = cuda_ms(bwd, 10)
+        plain = lambda: ss.ssd_scan_bwd_plain(*ins, dy)  # noqa: E731
+        plain()
+        plain_ms = cuda_ms(plain, 1)
+        bound, by = ssd_bwd_bound(ins[0], ins[3], 64)
+        rows.append((name, ms, plain_ms, bound, by))
+        print(f"ssd bwd kernel ({name}: b={b} s={s} h={h} p=64 g={g} n={n} "
+              f"bf16): {ms:.4f} ms ({ss.bwd_kernel_launches(s)} launches); "
+              f"plain {plain_ms:.2f} ms; bound {bound:.5f} ms by {by} "
+              f"({bound / ms * 100:.1f} % of it reached); library call: none")
+        del ins, dy, states
+    return rows
+
+
+def ssm_training_phases(dev) -> tuple:
+    """Phases 23-26; returns (SSD forward launches on the main paths, the
+    SSD backward's `kernels` row, flash forward and backward launches on
+    the main paths)."""
+    import torch
+    from repro_torch.launch import steps
+    from repro_torch.models import mamba_lm, registry
+    from repro_torch.training import optimizer as opt
+    # 23. the seed repair; the forward's states; the backward vs plain
+    check_seeds(dev)
+    check_ssd_forward_states(dev)
+    worst = check_ssd_bwd(dev)
+    torch.cuda.empty_cache()
+    # 24. zamba2-1.2b training at full width and depth
+    n_f24, n_b24, fa_f24, fa_b24, train_line, params, batch = \
+        train_zamba2(dev)
+    torch.cuda.empty_cache()
+    # 26 (on these weights): a profile of one make_train_step
+    cfg, _ = registry.get(SSM_TRAIN_ARCH)
+    step = steps.make_train_step(cfg, mamba_lm)
+    state = opt.init(params)
+    prof = profile_device(lambda: step(params, state, batch),
+                          f"{SSM_TRAIN_ARCH} make_train_step (remat), "
+                          f"B={SSM_TRAIN_B} S={SSM_TRAIN_S}",
+                          tags=("ssd_kernel", "ssd_bwd", "flash_kernel",
+                                "flash_bwd"))
+    del params, state, batch
+    torch.cuda.empty_cache()
+    # 25. card vs CPU; mamba2-2.7b
+    n_f25, n_b25 = ssm_card_vs_cpu(dev)
+    n_f25b, n_b25b = mamba2_step(dev)
+    torch.cuda.empty_cache()
+    # 26. timing
+    rows = time_ssd_bwd(dev)
+    print(train_line)
+    print(prof)
+    n_bwd = n_b24 + n_b25 + n_b25b
+    print(f"ssd backward calls on the main paths: {n_bwd} ({n_b24} "
+          f"zamba2-1.2b training, {n_b25} card vs CPU, {n_b25b} mamba2-2.7b)")
+    _, ms, plain_ms, bound, by = rows[0]
+    return n_f24 + n_f25 + n_f25b, {
+        "name": "ssd_scan_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd_scan_bwd.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:28",
+        "launches": n_bwd, "max_abs_err": worst, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+        "library_ms": None}, fa_f24, fa_b24
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3288,7 +3896,8 @@ def main() -> None:
     # 2. build, one nvcc per source, all started together
     t0 = time.perf_counter()
     build.build_all(("day_scan", "flash_attention", "flash_attention_bwd",
-                     "ssd_scan", ("day_scan", ("DAY_SCAN_PROBE",))))
+                     "ssd_scan", "ssd_scan_bwd",
+                     ("day_scan", ("DAY_SCAN_PROBE",))))
     build.load("day_scan")
     print(f"kernel build: {time.perf_counter() - t0:.2f} s wall; nvcc "
           + ", ".join(f"{k} {v:.2f} s"
@@ -3300,6 +3909,8 @@ def main() -> None:
         build.BUILD_LOG.get("flash_attention", ""))))
     print("ptxas flash_attention_bwd: " + "; ".join(ptxas_kernels(
         build.BUILD_LOG.get("flash_attention_bwd", ""))))
+    print("ptxas ssd_scan_bwd: " + "; ".join(ptxas_kernels(
+        build.BUILD_LOG.get("ssd_scan_bwd", ""))))
 
     # 3. kernel vs plain on the serving grid's tables
     golden = json.loads((ROOT / "src" / "repro_torch" / "data"
@@ -3456,9 +4067,16 @@ def main() -> None:
     lm_rows[0]["max_abs_err"] = max(lm_rows[0]["max_abs_err"], err_tf)
     n_train, _, bwd_row = training_phases(dev)
     lm_rows[0]["launches"] += n_train
+    n_ssd_train, ssd_bwd_row, fa_f, fa_b = ssm_training_phases(dev)
+    lm_rows[0]["launches"] += fa_f
+    bwd_row["launches"] += fa_b
+    lm_rows[1]["launches"] += n_ssd_train
     print(f"flash launches on the main paths: {lm_rows[0]['launches']} "
-          f"({lm_rows[0]['launches'] - n_tf - n_train} zamba2-1.2b, {n_tf} "
-          f"transformer family, {n_train} training and whisper-medium)")
+          f"({lm_rows[0]['launches'] - n_tf - n_train - fa_f} zamba2-1.2b "
+          f"prefill, {n_tf} transformer family, {n_train} training and "
+          f"whisper-medium, {fa_f} zamba2-1.2b training); SSD forward "
+          f"launches {lm_rows[1]['launches']} ({n_ssd_train} in phases "
+          f"24-25)")
     if MISSES:
         fail(f"{len(MISSES)} check(s) outside tolerance: " + "; ".join(MISSES))
     print(json.dumps({"kernels": [{
@@ -3467,7 +4085,7 @@ def main() -> None:
         "replaces": "src/repro/kernels/day_scan.py:47",
         "launches": launches, "max_abs_err": worst, "ms": kernel_ms,
         "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": None}] + lm_rows + [bwd_row]}))
+        "library_ms": None}] + lm_rows + [bwd_row, ssd_bwd_row]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

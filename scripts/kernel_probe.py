@@ -18,6 +18,17 @@ for working on one kernel.
     python3 scripts/kernel_probe.py flash-compare OTHER.cu   # another copy
                                                      # of the flash source
                                                      # vs this one, in turns
+    python3 scripts/kernel_probe.py ssd-bwd          # the SSD backward:
+                                                     # ptxas, edges vs its
+                                                     # plain version and
+                                                     # autograd, times
+    python3 scripts/kernel_probe.py ssd-compare OTHER.cu     # the SSD
+                                                     # forward's serving
+                                                     # launch, another
+                                                     # source vs this one
+    python3 scripts/kernel_probe.py row-stage        # the first op of the
+                                                     # row stage whose bits
+                                                     # differ card vs CPU
 
 Run from the root of a checkout.  Every line it prints is a reading of
 the card named on its first line.  `day` builds csrc/day_scan.cu and the
@@ -374,6 +385,218 @@ def probe_ssd() -> None:
               f"per launch: {per}")
 
 
+def rel_max(a, b) -> float:
+    return float((a.float() - b.float()).abs().max()
+                 / b.float().abs().max().clamp_min(1e-30))
+
+
+def probe_ssd_bwd() -> None:
+    """The SSD backward kernel: ptxas lines; over edge shapes (one chunk,
+    one group, ragged s, g > 1, n = 128, several groups) in float32 and
+    bf16 the five gradients against `ssd_scan_bwd_plain` and, in float32,
+    autograd of `ssd_scan_plain`, relative to each gradient's largest
+    magnitude (bf16: relative RMS beside the control with W and GE
+    rounded to bf16), and a second run bit for bit; then times at
+    zamba2's and mamba2-2.7b's shapes beside the forward, the plain
+    version and the bound, with each launch's device time."""
+    from torch.profiler import ProfilerActivity, profile
+    build.build_all(("ssd_scan", "ssd_scan_bwd"))
+    for line in build.BUILD_LOG.get("ssd_scan_bwd", "").splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            print(f"ptxas ssd_scan_bwd: {line.strip()}")
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    names = ("dx", "ddt", "dA", "dB", "dC")
+    for b, s, h, g, n in ((1, 40, 2, 1, 64), (1, 512, 2, 1, 64),
+                          (2, 1000, 8, 2, 64), (1, 600, 4, 2, 128),
+                          (1, 1, 2, 1, 64), (3, 700, 6, 3, 64),
+                          (1, 1100, 4, 1, 128), (1, 4096, 4, 1, 64)):
+        for dtype in (torch.float32, torch.bfloat16):
+            ins = ssd_inputs(gen, b, s, h, g, n, dtype, 0.05)
+            dy = rn(gen, (b, s, h, 64), dtype)
+            before = ss.BWD_LAUNCHES
+            got = chip_smoke.ssd_grads(ins, dy)
+            calls = ss.BWD_LAUNCHES - before
+            again = chip_smoke.ssd_grads(ins, dy)
+            plain = ss.ssd_scan_bwd_plain(*ins, dy, chunk=64)
+            torch.cuda.synchronize()
+            line = (f"ssd bwd b={b} s={s} h={h} g={g} n={n} "
+                    f"{str(dtype)[6:]}: {calls} call(s); vs plain "
+                    + " ".join(f"{k} {rel_max(a, w):.3g}"
+                               for k, a, w in zip(names, got, plain)))
+            if dtype == torch.float32:
+                leaves = [t.clone().requires_grad_() for t in ins]
+                with torch.enable_grad():
+                    auto = torch.autograd.grad(
+                        ss.ssd_scan_plain(*leaves, chunk=64), leaves, dy)
+                line += "; vs autograd " + " ".join(
+                    f"{k} {rel_max(a, w):.3g}"
+                    for k, a, w in zip(names, got, auto))
+            else:
+                ctrl = ss.ssd_scan_bwd_plain(*ins, dy, chunk=64, rounded=True)
+                line += "; rel RMS " + " ".join(
+                    f"{k} {rel_rms(a, w):.3g}"
+                    for k, a, w in zip(names, got, plain)) + \
+                    "; control " + " ".join(
+                        f"{k} {rel_rms(a, w):.3g}"
+                        for k, a, w in zip(names, ctrl, plain))
+            line += (f"; repeat bit-equal "
+                     f"{all(torch.equal(a, c) for a, c in zip(got, again))}"
+                     f"; finite "
+                     f"{all(bool(torch.isfinite(t).all()) for t in got)}")
+            print(line, flush=True)
+    for label, b, s, h, g, n in (("zamba2", 2, 4096, 64, 1, 64),
+                                 ("mamba2-2.7b", 2, 4096, 80, 1, 128),
+                                 ("zamba2 train", 4, 2048, 64, 1, 64)):
+        for dtype in (torch.bfloat16, torch.float32):
+            ins = ssd_inputs(gen, b, s, h, g, n, dtype, 1.0)
+            dy = rn(gen, (b, s, h, 64), dtype)
+            _, st = ss._ssd_cuda(*ins, chunk=64, states=True)
+            bwd = lambda: ss._ssd_bwd_cuda(*ins, dy, st)  # noqa: E731
+            fwd = lambda: ss._ssd_cuda(*ins, chunk=64, states=True)  # noqa
+            ms, fwd_ms = cuda_ms(bwd, 10), cuda_ms(fwd, 10)
+            plain_ms = cuda_ms(lambda: ss.ssd_scan_bwd_plain(*ins, dy), 1)
+            bound, by = chip_smoke.ssd_bwd_bound(ins[0], ins[3], 64)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                bwd()
+                torch.cuda.synchronize()
+            per = "; ".join(f"{e.key[:40]} {e.self_device_time_total:.1f} us"
+                            for e in prof.key_averages()
+                            if "ssd_bwd" in e.key)
+            print(f"ssd bwd {label} {str(dtype)[6:]} b={b} s={s} h={h} "
+                  f"n={n}: {ms:.4f} ms (forward with states {fwd_ms:.4f} "
+                  f"ms); plain {plain_ms:.2f} ms; bound {bound:.5f} ms by "
+                  f"{by}; per launch: {per}", flush=True)
+            del ins, dy, st
+
+
+def probe_ssd_compare(other: str) -> None:
+    """The forward kernel built from another copy of csrc/ssd_scan.cu
+    (`other`, e.g. the parent commit's) against this checkout's serving
+    launch (no group states asked for), bf16 and float32 at zamba2's
+    prefill shape and mamba2-2.7b's: y compared bit for bit, timed in
+    turns (other, this, this, other)."""
+    lib = build.BUILD_DIR.parent / "probe" / "ssd_other.so"
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(lib),
+                           other], capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed for {other}:\n{proc.stderr}")
+    fn = ctypes.CDLL(str(lib)).ssd_scan_launch
+    fn.argtypes = ss._lib().argtypes
+    fn.restype = ctypes.c_int
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    for b, s, h, g, n in ((2, 4096, 64, 1, 64), (2, 4096, 80, 1, 128)):
+        for dtype, reps in ((torch.bfloat16, 50), (torch.float32, 10)):
+            ins = ssd_inputs(gen, b, s, h, g, n, dtype, 1.0)
+
+            def run_other():
+                done, st, decay = ss._prepare(*ins, 64)
+                y = torch.empty_like(ins[0])
+                err = fn(*[t.data_ptr() for t in done], y.data_ptr(),
+                         st.data_ptr(), decay.data_ptr(), b, s, h, 64, g, n,
+                         64, ss.GROUP_CHUNKS, ss.DTYPES[dtype],
+                         torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"launch failed: CUDA error {err}")
+                return y
+
+            this = lambda: ss._ssd_cuda(*ins, chunk=64)  # noqa: E731
+            same = torch.equal(run_other(), this())
+            for name in ("other", "this", "this", "other"):
+                f = run_other if name == "other" else this
+                print(f"ssd {str(dtype)[6:]} b={b} s={s} h={h} n={n}, {name} "
+                      f"({other if name == 'other' else 'checkout'}): "
+                      f"{cuda_ms(f, reps):.4f} ms", flush=True)
+            print(f"ssd {str(dtype)[6:]} b={b} s={s} h={h} n={n}: y bit for "
+                  f"bit equal: {same}", flush=True)
+
+
+def _bits_equal(a, b) -> bool:
+    """Same shape, dtype and bits (NaNs included)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        a, b = a.contiguous(), b.contiguous()
+        width = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+        return torch.equal(a.view(width[a.element_size()]),
+                           b.view(width[b.element_size()]))
+    return torch.equal(a, b)
+
+
+def record_ops(fn):
+    """Run `fn()` recording each aten op in order: (op, host copies of its
+    tensor inputs, host copies of its tensor outputs)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    def host(xs):
+        return [x.detach().cpu().clone() for x in tree_leaves(xs)
+                if isinstance(x, torch.Tensor)]
+
+    class Record(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            self.ops.append((str(func), host((args, kwargs or {})),
+                             host(out)))
+            return out
+
+    with Record() as rec:
+        fn()
+    return rec.ops
+
+
+def probe_row_stage() -> None:
+    """The row stage (`scenarios._features` and `_row_loads`: the load
+    rules, the rail losses, the row sums) of every registered platform
+    on its default scenario grid, once on the card and once on the CPU
+    from the same inputs, each aten op recorded; prints the first op
+    whose output bits differ, with whether its inputs were bit-equal
+    (then the op itself rounds differently on the card)."""
+    from repro_torch.core import platform as registry
+    from repro_torch.core import scenarios as sc
+    for name in registry.names():
+        plat = registry.get(name)
+        sset = sc.ScenarioSet.grid()
+        runs = []
+        for dev in (DEV, torch.device("cpu")):
+            vec, th = sset.vec(dev), sc._theta(plat, None, dev)
+            tabs = sc._tables(plat, dev)
+            rules = sc._rules(plat)
+            n = vec["compression"].shape[0]
+            run = lambda: sc._row_loads(  # noqa: E731
+                rules, sc._features(plat, vec, tabs), th, tabs, n)
+            run()                       # caches filled outside the record
+            runs.append(record_ops(run))
+        card, cpu = runs
+        line = (f"row stage {name} ({len(card)} ops on the card, {len(cpu)} "
+                f"on the CPU): ")
+        for k, ((op, ins, outs), (op2, ins2, outs2)) in enumerate(
+                zip(card, cpu)):
+            if op != op2:
+                line += f"op {k} differs in kind: {op} vs {op2}"
+                break
+            bad = [(a, b) for a, b in zip(outs, outs2)
+                   if not _bits_equal(a, b)]
+            if bad:
+                a, b = bad[0]
+                diff = (a.double() - b.double()).abs()
+                same_in = all(_bits_equal(x, y) for x, y in zip(ins, ins2))
+                line += (f"first differing output at op {k} {op}: shape "
+                         f"{tuple(a.shape)} {a.dtype}, {int((diff > 0).sum())}"
+                         f" elements differ, max abs diff {float(diff.max()):.3g}"
+                         f" at max |value| {float(b.double().abs().max()):.3g}; "
+                         f"its inputs bit-equal: {same_in} (input shapes "
+                         f"{[tuple(x.shape) for x in ins]})")
+                break
+        else:
+            line += "every op's output bit-equal"
+        print(line, flush=True)
+
+
 def variant_source() -> Path:
     """csrc/flash_attention.cu with two knobs: FA_WARPS (warps a block)
     and FA_EXP2 (scale·log2e folded into exp2f)."""
@@ -498,12 +721,15 @@ def probe_flash_compare(other: str) -> None:
 def main() -> None:
     probes = {"day": probe_day, "flash": probe_flash, "ssd": probe_ssd,
               "flash-variants": probe_flash_variants,
-              "flash-bwd": probe_flash_bwd}
-    if len(sys.argv) == 3 and sys.argv[1] == "flash-compare":
-        probes["flash-compare"] = lambda: probe_flash_compare(sys.argv[2])
+              "flash-bwd": probe_flash_bwd, "ssd-bwd": probe_ssd_bwd,
+              "row-stage": probe_row_stage}
+    compare = {"flash-compare": probe_flash_compare,
+               "ssd-compare": probe_ssd_compare}
+    if len(sys.argv) == 3 and sys.argv[1] in compare:
+        probes[sys.argv[1]] = lambda: compare[sys.argv[1]](sys.argv[2])
     elif len(sys.argv) != 2 or sys.argv[1] not in probes:
         sys.exit(f"usage: kernel_probe.py {{{'|'.join(probes)}}} | "
-                 f"flash-compare OTHER.cu")
+                 f"{{{'|'.join(compare)}}} OTHER.cu")
     if not torch.cuda.is_available():
         sys.exit("kernel_probe.py: no CUDA card")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -17,6 +17,11 @@
 //   3. ssd_kernel_scan_*, grid (G, h, b): each group scans its chunks from
 //      its incoming state (the whole per-chunk body below).
 //
+// Launch 2 leaves the float32 incoming state of every group in `states`;
+// when autograd needs the gradient the wrapper keeps that buffer for the
+// backward (csrc/ssd_scan_bwd.cu) instead of dropping it: the launches are
+// the same either way.
+//
 // A scan of one group (s <= GROUP * L) is launch 3 alone.  GROUP = 8:
 // at the prefill shape (64 chunks) that makes 8 groups, 1024 blocks in
 // launch 3 and 16.8 MB of group states, which stay in the 50 MB L2;

@@ -6,6 +6,11 @@ it would give the kernel's inputs no gradient and raise nothing.  A
 wrapper whose kernel has no backward calls `refuse_grad` before it
 launches: while autograd records (grad mode on), an input that requires
 a gradient raises instead.
+
+Flash attention and the SSD scan have backward kernels behind their
+autograd functions (`FlashAttention`, `SSDScan`).  The day scan
+(`day_scan._day_scan_cuda`) is the one kernel that still lacks a
+backward and calls this guard.
 """
 from __future__ import annotations
 

@@ -20,11 +20,14 @@ def _check_family(cfg) -> None:
 def value_and_grad(loss_of, params):
     """(loss, gradient tree) of `loss_of(params)` (the reference's
     `jax.value_and_grad`): the leaves are detached copies that require a
-    gradient, so `params` itself is left as it is."""
+    gradient, so `params` itself is left as it is.  A leaf the loss does
+    not use gets a zero gradient, as in JAX (zamba2 cut below
+    `attn_every` layers never calls its shared block)."""
     leaves = [p.detach().requires_grad_() for p in _tree.leaves(params)]
     with torch.enable_grad():
         loss = loss_of(_tree.unflatten(params, leaves))
-        grads = torch.autograd.grad(loss, leaves)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
     return loss.detach(), _tree.unflatten(params, list(grads))
 
 

@@ -6,9 +6,11 @@ optional int8 gradient compression with error feedback, asynchronous
 atomic checkpoints, restart from the latest one, SIGTERM handling and
 the straggler watchdog.  The reference's mesh option has no counterpart:
 one card.  The encoder-decoder's frames and the VLM's vision embeddings
-are drawn per step from a `torch.Generator` seeded by (17, step) (the
-reference draws them from a threefry key folded by step), so runs
-repeat and a resumed run sees the same inputs.
+are drawn per step from a CPU `torch.Generator` seeded by (17, step)
+(the reference draws them from a threefry key folded by step), so runs
+repeat and a resumed run sees the same inputs.  Every draw (weights and
+side inputs) is made on the CPU and moved to the device, so one seed
+gives the same run's inputs on the CPU and the card.
 """
 from __future__ import annotations
 
@@ -33,18 +35,18 @@ DATA_SEED = 17                  # the side inputs' stream (the reference's)
 
 def side_inputs(cfg, batch: int, step: int, device) -> dict:
     """The synthetic frames (encdec) or vision embeddings (vlm) of one
-    step: standard normal, from a generator seeded by (DATA_SEED,
-    step)."""
+    step: standard normal, drawn on the CPU from a generator seeded by
+    (DATA_SEED, step), then moved to `device`."""
     if cfg.family not in ("encdec", "vlm"):
         return {}
     seed = int(np.random.SeedSequence([DATA_SEED, step]).generate_state(1)[0])
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = torch.Generator().manual_seed(seed)
     if cfg.family == "encdec":
-        return {"frames": torch.randn((batch, cfg.audio_frames, cfg.d_model),
-                                      generator=gen, device=device)}
-    return {"vision_embeds": torch.randn(
-        (batch, cfg.vision_tokens, cfg.vision_embed_dim), generator=gen,
-        device=device)}
+        shape, key = (batch, cfg.audio_frames, cfg.d_model), "frames"
+    else:
+        shape = (batch, cfg.vision_tokens, cfg.vision_embed_dim)
+        key = "vision_embeds"
+    return {key: torch.randn(shape, generator=gen).to(device)}
 
 
 def train(arch: str, *, smoke: bool = True, steps: int = 50,
@@ -52,8 +54,9 @@ def train(arch: str, *, smoke: bool = True, steps: int = 50,
           ckpt_every: int = 20, compress_grads: bool = False,
           lr: float = 3e-3, log_every: int = 10, device="cuda",
           on_step=None):
-    """Train `arch` for `steps` steps from seeded weights
-    (`torch.Generator` seed 0 on `device`), or from the latest checkpoint
+    """Train `arch` for `steps` steps from seeded weights (a CPU
+    `torch.Generator`, seed 0, drawn on the host and moved to `device`:
+    the same weights on every device), or from the latest checkpoint
     under `ckpt_dir`; returns (params, losses of the steps run).
     `on_step(step, metrics)` sees each step's metrics ({"loss",
     "grad_norm", "lr"})."""
@@ -61,7 +64,10 @@ def train(arch: str, *, smoke: bool = True, steps: int = 50,
     cfg, model = registry.get(arch, smoke=smoke)
     if cfg.family == "encdec":
         seq = max(seq, 16)
-    params = model.init(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator().manual_seed(0), cfg, dev)
+    print(f"init: {arch} weights drawn on the host and moved to {dev} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     opt_cfg = opt_lib.OptConfig(lr=lr, warmup_steps=10, total_steps=steps)
     opt_state = opt_lib.init(params)
     err_state = comp_lib.init_error_state(params) if compress_grads \

@@ -33,8 +33,9 @@ from ..nn import core, ssd
 
 def init(gen: torch.Generator, cfg, device="cuda") -> dict:
     """Random parameters with the reference `init`'s shapes and scales,
-    drawn from `gen` (torch's stream, not the reference's; a generator on
-    `device`)."""
+    drawn from `gen` (torch's stream, not the reference's) on the CPU and
+    moved to `device`: `gen` is a CPU generator, and one seed gives the
+    same weights on every device."""
     device = _device.resolve(device)
     dtype = cfg.param_dtype
     layers = [{"norm": core.rmsnorm_init(cfg.d_model, dtype, device),
@@ -133,9 +134,10 @@ def forward(params, cfg, tokens, *, window=None):
 def loss_fn(params, cfg, batch, *, remat=True):
     """Chunked cross-entropy of the final hidden against
     `batch["labels"]` (masked by `batch["mask"]` where given).  On the
-    card the SSD kernel has no backward yet, so a loss whose parameters
-    require a gradient raises there (`kernels.guard`); on the CPU the
-    plain scan is differentiable."""
+    card every SSD scan's gradient comes from the backward kernel
+    (`kernels.ssd_scan.SSDScan`) and every shared block's attention
+    gradient from flash's (`FlashAttention`); on the CPU autograd runs
+    through the plain versions."""
     h, _ = _forward(params, cfg, batch["tokens"], remat=remat)
     return core.chunked_softmax_xent(params["embed"]["table"], h,
                                      batch["labels"], batch.get("mask"),

@@ -65,8 +65,9 @@ def _layer_init(gen, cfg, dtype, device) -> dict:
 
 def init(gen: torch.Generator, cfg, device="cuda") -> dict:
     """Random parameters with the reference `init`'s shapes and scales,
-    drawn from `gen` (torch's stream, not the reference's; a generator on
-    `device`)."""
+    drawn from `gen` (torch's stream, not the reference's) on the CPU and
+    moved to `device`: `gen` is a CPU generator, and one seed gives the
+    same weights on every device."""
     device = _device.resolve(device)
     dtype = cfg.param_dtype
     params = {

@@ -71,8 +71,9 @@ def _layer(tree, i: int):
 
 def init(gen: torch.Generator, cfg, device="cuda") -> dict:
     """Random parameters with the reference `init`'s shapes and scales,
-    drawn from `gen` (a generator on `device`; torch's stream, not the
-    reference's)."""
+    drawn from `gen` (torch's stream, not the reference's) on the CPU and
+    moved to `device`: `gen` is a CPU generator, and one seed gives the
+    same weights on every device."""
     device = _device.resolve(device)
     dtype = cfg.param_dtype
     return {

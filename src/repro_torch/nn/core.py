@@ -2,8 +2,11 @@
 
 Parameters are plain nested dicts of tensors with the reference's names
 and layouts, so a parameter tree crosses between the packages leaf by
-leaf.  Initializers take an explicit `torch.Generator` (on the device the
-tensors are made on) and a `device` that defaults to ``"cuda"``.
+leaf.  Initializers take an explicit `torch.Generator` and a `device`
+that defaults to ``"cuda"``.  The generator lies on the CPU whatever
+`device` says: every draw is made there and the result moved, so one
+seed gives bit-equal weights on the CPU and the card (a generator on
+another device raises `ValueError`).
 """
 from __future__ import annotations
 
@@ -37,14 +40,27 @@ class DTypePolicy:
 # ---------------------------------------------------------------------------
 
 
+def host_generator(gen: torch.Generator) -> torch.Generator:
+    """`gen`, which must be a CPU generator: initializers draw on the
+    host and move the result, so the weights do not depend on the
+    device they are made for."""
+    if gen.device.type != "cpu":
+        raise ValueError(f"initializers draw on a CPU torch.Generator and "
+                         f"move the result to the device; got a generator "
+                         f"on {gen.device} (use torch.Generator()"
+                         f".manual_seed(seed))")
+    return gen
+
+
 def trunc_normal(gen: torch.Generator, shape, dtype, stddev: float,
                  device="cuda") -> torch.Tensor:
-    """Normal(0, stddev) truncated at two standard deviations."""
-    x = torch.empty(shape, dtype=torch.float32,
-                    device=_device.resolve(device))
+    """Normal(0, stddev) truncated at two standard deviations, drawn on
+    the CPU from `gen`, rounded to `dtype` there and moved to `device`."""
+    device = _device.resolve(device)
+    x = torch.empty(shape, dtype=torch.float32)
     torch.nn.init.trunc_normal_(x, 0.0, stddev, -2.0 * stddev, 2.0 * stddev,
-                                generator=gen)
-    return x.to(dtype)
+                                generator=host_generator(gen))
+    return x.to(dtype).to(device)
 
 
 def dense_init(gen, shape, dtype, fan_in: int | None = None,

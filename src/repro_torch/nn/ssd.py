@@ -117,8 +117,13 @@ def ssd_chunked(x, dt, A, B, C, state0=None, chunk=64):
         dA = dtc.float() * A                                  # (b,L,h)
         cA = torch.cumsum(dA, dim=1)                          # inclusive
         seg = cA[:, :, None, :] - cA[:, None, :, :]           # (b,i,j,h)
-        Ldec = torch.where(tri[None, :, :, None], torch.exp(seg),
-                           torch.zeros((), dtype=f32, device=x.device))
+        # exp only below the diagonal: above it seg > 0 can overflow, and
+        # inf there would make the masked entries' gradient 0 * inf = NaN
+        # (the reference's where(tri, exp(seg), 0) has that fault); the
+        # values are the reference's
+        zero = torch.zeros((), dtype=f32, device=x.device)
+        low = tri[None, :, :, None]
+        Ldec = torch.where(low, torch.exp(torch.where(low, seg, zero)), zero)
         Bh = Bc.repeat_interleave(rep, dim=2).float()         # (b,L,h,n)
         Ch = Cc.repeat_interleave(rep, dim=2).float()
         xdt = xc.float() * dtc[..., None].float()             # (b,L,h,p)
@@ -157,14 +162,16 @@ def ssd_step(state, xt, dtt, A, Bt, Ct):
 # ---------------------------------------------------------------------------
 
 def mamba2_init(gen, cfg: SSDConfig, dtype, device="cuda") -> dict:
+    """Drawn on the CPU from `gen` (a CPU generator), with dt_bias and
+    A_log computed there, then moved to `device`."""
     device = _device.resolve(device)
     di, h = cfg.d_inner, cfg.n_heads
     proj_out = 2 * di + 2 * cfg.n_groups * cfg.d_state + h
-    u = torch.rand((h,), generator=gen, device=device)
+    u = torch.rand((h,), generator=core.host_generator(gen))
     dt = torch.exp(u * (math.log(cfg.dt_max) - math.log(cfg.dt_min))
                    + math.log(cfg.dt_min))
     dt_bias = dt + torch.log(-torch.expm1(-dt))     # inverse softplus
-    u = torch.rand((h,), generator=gen, device=device)
+    u = torch.rand((h,), generator=gen)
     return {
         "in_proj": core.dense_init(gen, (cfg.d_model, proj_out), dtype,
                                    device=device),
@@ -172,9 +179,9 @@ def mamba2_init(gen, cfg: SSDConfig, dtype, device="cuda") -> dict:
                                     dtype, 1.0 / math.sqrt(cfg.d_conv),
                                     device),
         "conv_b": torch.zeros((cfg.conv_dim,), dtype=dtype, device=device),
-        "A_log": torch.log(1.0 + u * 15.0),
+        "A_log": torch.log(1.0 + u * 15.0).to(device),
         "D": torch.ones((h,), device=device),
-        "dt_bias": dt_bias.float(),
+        "dt_bias": dt_bias.float().to(device),
         "norm": core.rmsnorm_init(di, dtype, device),
         "out_proj": core.dense_init(gen, (di, cfg.d_model), dtype, fan_in=di,
                                     device=device),

@@ -834,17 +834,52 @@ def test_train_step_on_the_card_matches_cpu(cuda):
 
 
 def test_kernels_without_backward_raise_on_the_card(cuda):
-    """A grad-requiring input to the SSD or day-scan kernel raises instead
-    of returning an output that carries no gradient."""
+    """A grad-requiring input to the day-scan kernel, the one kernel
+    without a backward, raises instead of returning an output that
+    carries no gradient; the SSD scan's output carries one (its backward
+    kernel, one call)."""
     x = _randn(0, (1, 128, 2, 64), torch.float32, cuda).requires_grad_()
     dt = torch.full((1, 128, 2), 0.1, device=cuda)
     A = -torch.ones(2, device=cuda)
     Bm = _randn(1, (1, 128, 1, 64), torch.float32, cuda)
-    with pytest.raises(RuntimeError, match="ROADMAP.md"):
-        ss.ssd_scan(x, dt, A, Bm, Bm, chunk=64)
+    b0 = ss.BWD_LAUNCHES
+    y = ss.ssd_scan(x, dt, A, Bm, Bm, chunk=64)
+    y.square().sum().backward()
+    assert ss.BWD_LAUNCHES == b0 + 1
+    assert bool(torch.isfinite(x.grad).all()) and bool((x.grad != 0).any())
     with torch.no_grad():
         ss.ssd_scan(x, dt, A, Bm, Bm, chunk=64)         # serving: fine
     tables = random_tables(5, 30, 2, 0, cuda)
     tables["step_mw"] = tables["step_mw"].clone().requires_grad_()
     with pytest.raises(RuntimeError, match="ROADMAP.md"):
         ds.day_scan(tables)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,g,n", [(1, 70, 2, 1, 64), (2, 600, 4, 2, 64),
+                                       (1, 1100, 4, 1, 128)])
+def test_ssd_bwd_matches_plain(cuda, dtype, b, s, h, g, n):
+    """The SSD backward kernel (through `SSDScan`) against
+    `ssd_scan_bwd_plain` on the same inputs: float32 within 1e-5 of each
+    gradient's largest entry, bf16 within 5e-4 relative RMS (the kernel
+    keeps every product in float32); two runs bit-equal."""
+    ins = [_randn(0, (b, s, h, 64), dtype, cuda),
+           0.05 * torch.nn.functional.softplus(
+               _randn(1, (b, s, h), torch.float32, cuda)),
+           -torch.exp(0.3 * _randn(2, (h,), torch.float32, cuda)),
+           0.3 * _randn(3, (b, s, g, n), dtype, cuda),
+           0.3 * _randn(4, (b, s, g, n), dtype, cuda)]
+    dy = _randn(5, (b, s, h, 64), dtype, cuda)
+    runs = []
+    for _ in range(2):
+        leaves = [t.clone().requires_grad_() for t in ins]
+        y = ss.ssd_scan(*leaves, chunk=64)
+        runs.append(torch.autograd.grad(y, leaves, dy))
+    want = ss.ssd_scan_bwd_plain(*ins, dy, chunk=64)
+    for a, c, w in zip(*runs, want):
+        assert torch.equal(a, c) and a.dtype == w.dtype
+        a, w = a.float(), w.float()
+        if dtype == torch.float32:
+            assert float((a - w).abs().max()) <= 1e-5 * float(w.abs().max())
+        else:
+            assert _rel_rms(a, w) <= 5e-4

@@ -1,0 +1,264 @@
+"""Port parity of the SSD scan's gradient: the backward's plain version
+`ssd_scan_bwd_plain` against `jax.grad` of sum(y * w) through the
+reference's `nn/ssd.ssd_chunked` and against torch autograd of
+`ssd_scan_plain`; the plain version of the kernel's split
+(`ssd_scan_bwd_split_plain`) against the unsplit one; and the wiring of
+`SSDScan`, the autograd function of the card's route, with the CUDA
+launchers swapped for their plain versions.  Inputs come from numpy.
+
+Tolerance, all float32: each of dx, ddt, dA, dB and dC within 1e-5 of
+its largest magnitude (the sums run in other orders; dA sums every
+row's dt da, so it carries the most rounding).
+
+dt is drawn at a quarter of the forward tests' scale for the parity
+cases.  The reference masks its decay matrix with `where(i >= j,
+exp(c_i - c_j), 0)`, so once a chunk's decay passes exp(88) the masked
+entries overflow and their zero cotangent times inf makes ddt and dA NaN
+in `jax.grad` (at zamba2's full width a few % of chunks do).  The port's
+`ssd_chunked` takes exp only below the diagonal and its backward never
+forms the masked entries; `test_bwd_plain_finite_where_the_reference_
+overflows` pins that difference."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.nn import ssd as j_ssd
+from repro_torch.kernels import ssd_scan as ss
+
+REL = 1e-5
+NAMES = ("dx", "ddt", "dA", "dB", "dC")
+
+
+def _inputs(seed, b, s, h, p, g, n, dt_scale=1.0):
+    """float32 numpy x, dt, A, B, C and the output weights w (= dy)."""
+    rng = np.random.default_rng(seed)
+    arrs = (0.5 * rng.standard_normal((b, s, h, p)),
+            dt_scale * np.log1p(np.exp(rng.standard_normal((b, s, h)))),
+            -np.exp(0.3 * rng.standard_normal(h)),
+            0.3 * rng.standard_normal((b, s, g, n)),
+            0.3 * rng.standard_normal((b, s, g, n)),
+            rng.standard_normal((b, s, h, p)))
+    return [a.astype(np.float32) for a in arrs]
+
+
+def _close(got, want, label):
+    for name, a, b in zip(NAMES, got, want):
+        b = np.asarray(b, np.float32)
+        a = a.detach().float().numpy()
+        assert a.shape == b.shape, (label, name)
+        scale = max(float(np.abs(b).max()), 1e-30)
+        np.testing.assert_allclose(a, b, rtol=0, atol=REL * scale,
+                                   err_msg=f"{label}: {name}")
+
+
+def _autograd_plain(t, chunk):
+    leaves = [x.clone().requires_grad_() for x in t[:5]]
+    y = ss.ssd_scan_plain(*leaves, chunk=chunk)
+    return torch.autograd.grad(y, leaves, t[5])
+
+
+# (b, s, h, p, g, n, dt_scale): ragged s, g = 1 and g > 1, s within one
+# chunk, s past a group of 8 chunks (dt small, so the carried state counts)
+CASES = [(2, 100, 4, 8, 1, 16, 0.25),
+         (1, 150, 4, 8, 2, 16, 0.25),
+         (2, 40, 2, 16, 1, 16, 0.25),
+         (1, 64, 6, 8, 3, 8, 0.25),
+         (1, 581, 2, 8, 1, 16, 0.05)]
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,dt_scale", CASES)
+def test_bwd_plain_matches_jax_grad(b, s, h, p, g, n, dt_scale):
+    arrs = _inputs(b + s + h + g, b, s, h, p, g, n, dt_scale)
+    w = jnp.asarray(arrs[5])
+
+    def loss(x, dt, A, B, C):
+        return jnp.sum(j_ssd.ssd_chunked(x, dt, A, B, C, chunk=64)[0] * w)
+
+    want = jax.grad(loss, argnums=(0, 1, 2, 3, 4))(
+        *(jnp.asarray(a) for a in arrs[:5]))
+    t = [torch.from_numpy(a) for a in arrs]
+    got = ss.ssd_scan_bwd_plain(*t, chunk=64)
+    _close(got, want, "vs jax.grad")
+    _close(got, _autograd_plain(t, 64), "vs autograd")
+
+
+def test_bwd_plain_finite_where_the_reference_overflows():
+    """At the forward tests' dt scale some chunk decays pass exp(88):
+    `jax.grad` of the reference gives NaN in ddt and dA there; the plain
+    backward and autograd of the port's plain scan stay finite and
+    agree, and dx, dB, dC (which never see the masked decay's cotangent)
+    agree with the reference's."""
+    arrs = _inputs(9, 2, 100, 4, 8, 1, 16, 1.0)
+    w = jnp.asarray(arrs[5])
+    want = jax.grad(lambda *a: jnp.sum(j_ssd.ssd_chunked(*a, chunk=64)[0]
+                                       * w), argnums=(0, 1, 2, 3, 4))(
+        *(jnp.asarray(a) for a in arrs[:5]))
+    t = [torch.from_numpy(a) for a in arrs]
+    got = ss.ssd_scan_bwd_plain(*t, chunk=64)
+    assert np.isnan(np.asarray(want[1])).any()
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    _close(got, _autograd_plain(t, 64), "vs autograd")
+    keep = (0, 3, 4)
+    _close([got[i] for i in keep], [want[i] for i in keep], "finite part")
+
+
+def test_bwd_plain_keeps_the_dtypes():
+    """bf16 x / B / C / dy: dx, dB, dC come back bf16, ddt and dA
+    float32, one bf16 rounding from the float32 run on the same
+    values."""
+    t = [torch.from_numpy(a) for a in _inputs(3, 1, 70, 2, 8, 1, 16)]
+    low = [x.to(torch.bfloat16) if i in (0, 3, 4, 5) else x
+           for i, x in enumerate(t)]
+    got = ss.ssd_scan_bwd_plain(*low, chunk=64)
+    ref = ss.ssd_scan_bwd_plain(*(x.float() for x in low), chunk=64)
+    assert [x.dtype for x in got] == [torch.bfloat16, torch.float32,
+                                      torch.float32, torch.bfloat16,
+                                      torch.bfloat16]
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a.float(), b, rtol=2 ** -8, atol=1e-6)
+
+
+def test_bwd_rounded_control_differs():
+    """The control of the card's bf16 check (W and GE rounded to bf16)
+    moves the gradients by far more than float32 rounding."""
+    t = [torch.from_numpy(a) for a in _inputs(4, 1, 128, 2, 16, 1, 16)]
+    exact = ss.ssd_scan_bwd_plain(*t, chunk=64)
+    ctrl = ss.ssd_scan_bwd_plain(*t, chunk=64, rounded=True)
+    for name, a, b in zip(NAMES, ctrl, exact):
+        if name == "dA":
+            continue
+        assert float((a - b).abs().max() / b.abs().max()) > 1e-4, name
+
+
+# (b, s, h, p, g, n, chunk, group): groups of 2 chunks of 8 with a ragged
+# tail; the kernel's own chunk 64 and group 8 at three groups
+SPLITS = [(2, 61, 4, 8, 2, 8, 8, 2),
+          (1, 40, 2, 8, 1, 8, 8, 2),
+          (1, 1100, 2, 8, 1, 16, 64, 8)]
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk,group", SPLITS)
+def test_bwd_split_plain_matches_unsplit(b, s, h, p, g, n, chunk, group):
+    """Launches 1-2's group composition: each group's own state gradient
+    and decay, the pass from the last group, then each group from its
+    forward state and its outgoing gradient, against the unsplit
+    backward (dt x 0.05: the carried state and its gradient count)."""
+    t = [torch.from_numpy(a)
+         for a in _inputs(s + chunk, b, s, h, p, g, n, 0.05)]
+    want = ss.ssd_scan_bwd_plain(*t, chunk=chunk)
+    got = ss.ssd_scan_bwd_split_plain(*t, chunk=chunk, group=group)
+    _close(got, [x.numpy() for x in want], "split")
+    G = ss.n_groups(s, chunk, group)
+    kept = ss.ssd_split_states_plain(*t[:5], chunk=chunk, group=group) \
+        .permute(0, 2, 1, 4, 3).contiguous()       # the kernel's layout
+    again = ss.ssd_scan_bwd_split_plain(*t, kept if G > 1 else None,
+                                        chunk=chunk, group=group)
+    for a, c in zip(got, again):
+        torch.testing.assert_close(a, c, rtol=0, atol=0)
+
+
+def _plain_launchers(monkeypatch, asked=None):
+    """Swap the CUDA launchers for their plain versions, counting as the
+    launchers count; `asked` records whether each forward asked for the
+    group states."""
+    def fwd(x, dt, A, B, C, *, chunk=64, states=False):
+        ss.LAUNCHES += ss.kernel_launches(x.shape[1], chunk)
+        if asked is not None:
+            asked.append(states)
+        y = ss.ssd_scan_plain(x, dt, A, B, C, chunk=chunk)
+        if not states:
+            return y
+        if ss.n_groups(x.shape[1], chunk) == 1:
+            return y, None
+        return y, ss.ssd_split_states_plain(x, dt, A, B, C, chunk=chunk) \
+            .permute(0, 2, 1, 4, 3).contiguous()
+
+    def bwd(x, dt, A, B, C, dy, states, *, chunk=64):
+        assert dy.is_contiguous()
+        ss.BWD_LAUNCHES += 1
+        return ss.ssd_scan_bwd_split_plain(x, dt, A, B, C, dy, states,
+                                           chunk=chunk)
+
+    monkeypatch.setattr(ss, "_ssd_cuda", fwd)
+    monkeypatch.setattr(ss, "_ssd_bwd_cuda", bwd)
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,dt_scale", CASES)
+def test_ssd_autograd_function_wiring(monkeypatch, b, s, h, p, g, n,
+                                      dt_scale):
+    """`SSDScan` (the forward asking for its group states, saved tensors,
+    the backward on a contiguous dy, one count each) gives autograd's
+    gradients of the plain version."""
+    asked = []
+    _plain_launchers(monkeypatch, asked)
+    t = [torch.from_numpy(a)
+         for a in _inputs(7 + s, b, s, h, p, g, n, dt_scale)]
+    want = _autograd_plain(t, 64)
+    leaves = [x.clone().requires_grad_() for x in t[:5]]
+    f0, b0 = ss.LAUNCHES, ss.BWD_LAUNCHES
+    y = ss.SSDScan.apply(*leaves, 64)
+    # a non-contiguous output gradient reaches the kernel contiguous
+    y.backward(t[5].transpose(1, 2).contiguous().transpose(1, 2))
+    assert ss.LAUNCHES - f0 == ss.kernel_launches(s)
+    assert ss.BWD_LAUNCHES - b0 == 1 and asked == [True]
+    _close([x.grad for x in leaves], [x.numpy() for x in want], "SSDScan")
+
+
+def test_ssd_autograd_survives_checkpoint(monkeypatch):
+    """Under non-reentrant activation checkpointing the forward runs (and
+    counts) again in the backward pass; the gradients are unchanged."""
+    from torch.utils.checkpoint import checkpoint
+    _plain_launchers(monkeypatch)
+    t = [torch.from_numpy(a) for a in _inputs(5, 1, 600, 4, 8, 2, 16, 0.05)]
+
+    def f(*ins):
+        return ss.SSDScan.apply(*ins, 64) * 2.0
+
+    grads = []
+    for remat in (False, True):
+        leaves = [x.clone().requires_grad_() for x in t[:5]]
+        f0, b0 = ss.LAUNCHES, ss.BWD_LAUNCHES
+        y = checkpoint(f, *leaves, use_reentrant=False) if remat \
+            else f(*leaves)
+        y.backward(t[5])
+        assert (ss.LAUNCHES - f0, ss.BWD_LAUNCHES - b0) == \
+            ((6 if remat else 3), 1)
+        grads.append([x.grad for x in leaves])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+class _CudaLike:
+    """What the dispatch reads of a CUDA tensor: its device type and
+    whether it requires a gradient."""
+    device = torch.device("cuda")
+    shape = (1, 64, 2, 64)
+
+    def __init__(self, requires_grad: bool):
+        self.requires_grad = requires_grad
+
+
+def test_ssd_dispatch_routes_grads_through_the_function(monkeypatch):
+    """CUDA inputs go through `SSDScan` when autograd needs a gradient of
+    any of them, to the forward launch alone otherwise (no grad required,
+    or grad mode off), asking for no group states; CPU inputs take the
+    plain version."""
+    calls = []
+    monkeypatch.setattr(ss, "_check", lambda *a: None)
+    monkeypatch.setattr(ss, "_ssd_cuda", lambda *a, **kw: calls.append(
+        ("forward", kw.get("states", False))))
+    monkeypatch.setattr(ss.SSDScan, "apply",
+                        lambda *a: calls.append(("autograd", a[-1])))
+    for i in range(5):
+        ins = [_CudaLike(j == i) for j in range(5)]
+        ss.ssd_scan(*ins, chunk=64)
+        with torch.no_grad():
+            ss.ssd_scan(*ins, chunk=64)
+    ss.ssd_scan(*[_CudaLike(False) for _ in range(5)], chunk=64)
+    assert calls == [("autograd", 64), ("forward", False)] * 5 \
+        + [("forward", False)]
+    t = [torch.from_numpy(a) for a in _inputs(1, 1, 30, 2, 8, 1, 8)]
+    y = ss.ssd_scan(t[0].requires_grad_(), *t[1:5], chunk=64)
+    assert y.grad_fn is not None and len(calls) == 11

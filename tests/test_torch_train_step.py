@@ -3,7 +3,10 @@ every gradient against `jax.value_and_grad` of the reference's on the
 smoke configs, one `make_train_step` against the reference's, the flash
 backward's plain version against autograd of the plain forward, the
 autograd function's wiring (with the CUDA launchers swapped for their
-plain versions), and the guards of the kernels that have no backward.
+plain versions), the SSD family's loss through the SSD's card route
+(`SSDScan`, launchers swapped the same way), the day scan's guard (the
+one kernel without a backward), and the seed contract of the inits
+(every draw on a CPU generator, then moved).
 
 Both packages get the same numpy weights (`convert.lm_params_numpy`) and
 the same batch.  Tolerances, all float32: the loss within 1e-5 relative;
@@ -334,7 +337,7 @@ def test_flash_dispatch_routes_grads_through_the_function(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# kernels without a backward raise
+# the day scan has no backward: its launcher raises
 # ---------------------------------------------------------------------------
 
 def test_guard_raises_only_for_grad_inputs():
@@ -347,19 +350,6 @@ def test_guard_raises_only_for_grad_inputs():
         guard.refuse_grad("k", [x, (w,)])
     with torch.no_grad():
         guard.refuse_grad("k", w)                  # autograd records nothing
-
-
-def test_ssd_kernel_refuses_grad_inputs():
-    """The SSD scan's CUDA launcher raises before it touches the card when
-    an input requires a gradient (here CPU tensors reach the launcher
-    directly; the dispatch would send them to the plain version)."""
-    b, s, h, p, n = 1, 64, 2, 64, 64
-    x = torch.zeros((b, s, h, p), requires_grad=True)
-    dt = torch.zeros((b, s, h))
-    A = -torch.ones(h)
-    Bm = torch.zeros((b, s, 1, n))
-    with pytest.raises(RuntimeError, match="ssd_scan: .*ROADMAP.md"):
-        ss._ssd_cuda(x, dt, A, Bm, Bm, chunk=64)
 
 
 def test_day_scan_kernel_refuses_grad_inputs():
@@ -375,15 +365,134 @@ def test_day_scan_kernel_refuses_grad_inputs():
         ds._day_scan_cuda(tables, full=True)
 
 
-def test_mamba_loss_on_the_card_raises_through_the_ssd_guard(monkeypatch):
-    """zamba2's loss with the SSD scan sent to its CUDA launcher (as on
-    the card): the guard raises instead of returning a gradient-less
-    output."""
-    lm = _setup("zamba2-1.2b")
+# ---------------------------------------------------------------------------
+# the SSD family's loss through the SSD's card route
+# ---------------------------------------------------------------------------
+
+def _plain_ssd_route(monkeypatch):
+    """Send every SSD scan through `SSDScan` (the card's route for inputs
+    that need a gradient) with its CUDA launchers swapped for their plain
+    versions, counting calls as the launchers count."""
+    def fwd(x, dt, A, B, C, *, chunk=64, states=False):
+        ss.LAUNCHES += ss.kernel_launches(x.shape[1], chunk)
+        y = ss.ssd_scan_plain(x, dt, A, B, C, chunk=chunk)
+        if not states:
+            return y
+        if ss.n_groups(x.shape[1], chunk) == 1:
+            return y, None
+        return y, ss.ssd_split_states_plain(x, dt, A, B, C, chunk=chunk) \
+            .permute(0, 2, 1, 4, 3).contiguous()
+
+    def bwd(x, dt, A, B, C, dy, states, *, chunk=64):
+        ss.BWD_LAUNCHES += 1
+        return ss.ssd_scan_bwd_split_plain(x, dt, A, B, C, dy, states,
+                                           chunk=chunk)
+
+    monkeypatch.setattr(ss, "_ssd_cuda", fwd)
+    monkeypatch.setattr(ss, "_ssd_bwd_cuda", bwd)
     monkeypatch.setattr(ss, "ssd_scan",
                         lambda x, dt, A, B, C, *, chunk=64:
-                        ss._ssd_cuda(x, dt, A, B, C, chunk=chunk))
-    with pytest.raises(RuntimeError, match="ssd_scan"):
-        t_steps.value_and_grad(
-            lambda p: lm["tmodel"].loss_fn(p, lm["tcfg"], lm["tb"]),
-            lm["tp"])
+                        ss.SSDScan.apply(x, dt, A, B, C, chunk))
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "mamba2-2.7b"])
+def test_ssm_loss_through_the_ssd_route_matches_the_cpu_path(monkeypatch,
+                                                             arch):
+    """The loss and every gradient with each mamba layer's scan through
+    `SSDScan` (one forward with its group states and one backward call a
+    layer) equal the CPU path's (autograd of the plain scan) within the
+    float32 tolerance."""
+    lm = _setup(arch)
+    loss_of = lambda p: lm["tmodel"].loss_fn(  # noqa: E731
+        p, lm["tcfg"], lm["tb"], remat=False)
+    want_loss, want = t_steps.value_and_grad(loss_of, lm["tp"])
+    _plain_ssd_route(monkeypatch)
+    f0, b0 = ss.LAUNCHES, ss.BWD_LAUNCHES
+    loss, grads = t_steps.value_and_grad(loss_of, lm["tp"])
+    n = lm["tcfg"].n_layers
+    assert ss.BWD_LAUNCHES - b0 == n
+    assert ss.LAUNCHES - f0 == n * ss.kernel_launches(S)
+    np.testing.assert_allclose(float(loss), float(want_loss), rtol=LOSS_RTOL)
+    for a, b in zip(t_tree.leaves(grads), t_tree.leaves(want)):
+        scale = max(float(b.abs().max()), 1e-30)
+        torch.testing.assert_close(a, b, rtol=0, atol=GRAD_REL * scale)
+    mamba = grads["layers"]["mamba"]
+    for key in ("A_log", "dt_bias", "in_proj", "conv_w", "out_proj"):
+        assert all(bool((mamba[key][i] != 0).any()) for i in range(n)), key
+
+
+# ---------------------------------------------------------------------------
+# seeds: every init draws on a CPU generator and moves the result
+# ---------------------------------------------------------------------------
+
+FAMILIES = ("olmo-1b", "moonshot-v1-16b-a3b", "phi-3-vision-4.2b",
+            "zamba2-1.2b", "mamba2-2.7b", "whisper-medium")
+
+
+def _record_draws(monkeypatch):
+    """Wrap the draws the inits use, recording each one's tensor and
+    generator devices."""
+    seen = []
+    trunc, rand, randn = torch.nn.init.trunc_normal_, torch.rand, torch.randn
+
+    def rec_trunc(x, *a, generator=None, **kw):
+        seen.append((x.device.type, generator.device.type))
+        return trunc(x, *a, generator=generator, **kw)
+
+    def rec(fn):
+        def draw(*a, generator=None, **kw):
+            out = fn(*a, generator=generator, **kw)
+            seen.append((out.device.type, generator.device.type))
+            return out
+        return draw
+
+    monkeypatch.setattr(torch.nn.init, "trunc_normal_", rec_trunc)
+    monkeypatch.setattr(torch, "rand", rec(rand))
+    monkeypatch.setattr(torch, "randn", rec(randn))
+    return seen
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_init_draws_on_the_host_whatever_the_device(monkeypatch, arch):
+    """`init` for another device (here "meta", which holds no values)
+    draws every value on the CPU generator it is given and moves the
+    result; the same seed on the CPU gives the weights it gave before
+    the draws moved to the host (the goldens and training tests hold
+    those values)."""
+    cfg, model = t_reg.get(arch, smoke=True)
+    seen = _record_draws(monkeypatch)
+    params = model.init(torch.Generator().manual_seed(0), cfg, "meta")
+    assert seen and set(seen) == {("cpu", "cpu")}
+    assert {x.device.type for x in t_tree.leaves(params)} == {"meta"}
+    cpu = model.init(torch.Generator().manual_seed(0), cfg, "cpu")
+    again = model.init(torch.Generator().manual_seed(0), cfg, "cpu")
+    for a, b, m in zip(t_tree.leaves(cpu), t_tree.leaves(again),
+                       t_tree.leaves(params)):
+        assert torch.equal(a, b) and a.shape == m.shape and a.dtype == m.dtype
+
+
+@pytest.mark.parametrize("arch", ["phi-3-vision-4.2b", "whisper-medium"])
+def test_side_inputs_draw_on_the_host(monkeypatch, arch):
+    from repro_torch.launch import train as t_train
+    cfg, _ = t_reg.get(arch, smoke=True)
+    want = t_train.side_inputs(cfg, 2, 3, "cpu")
+    seen = _record_draws(monkeypatch)
+    got = t_train.side_inputs(cfg, 2, 3, "meta")
+    assert seen == [("cpu", "cpu")]
+    (k, v), = got.items()
+    assert v.device.type == "meta" and v.shape == want[k].shape
+
+
+class _CardGenerator:
+    """What an init reads of a generator on the card: its device."""
+    device = torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_init_refuses_a_generator_off_the_host(arch):
+    cfg, model = t_reg.get(arch, smoke=True)
+    with pytest.raises(ValueError, match="CPU torch.Generator"):
+        model.init(_CardGenerator(), cfg, "cpu")
+    with pytest.raises(ValueError, match="CPU torch.Generator"):
+        t_core.trunc_normal(_CardGenerator(), (2, 2), torch.float32, 1.0,
+                            "cpu")
