@@ -217,11 +217,13 @@ The training path and whisper-medium:
      training shape (B = 2, S = 2048, H 16, Dh 128, causal), whisper's
      encoder (1500 x 1500, Dh 64, bidirectional) and cross-attention (Sq
      448, Sk 1500), gemma3-4b's global and local layers (H 8 / KvH 4, Dh
-     256, window 1024) and phi-3-vision's (Dh 96): float32 within
-     BWD_F32_REL of each gradient's largest magnitude, bf16 within
-     BWD_BF16_MAX of it and BWD_BF16_RMS relative RMS of the plain
-     version's bf16 run, whose distance to the float32 gradients must
-     exceed BWD_F32_REL;
+     256, window 1024), phi-3-vision's (Dh 96) and zamba2-1.2b's shared
+     block at phase 24's step (B = 4, S = 2048, H 32, Dh 64, causal):
+     float32 within BWD_F32_REL of each gradient's largest magnitude,
+     bf16 within BWD_BF16_MAX of it and BWD_BF16_RMS relative RMS of the
+     plain version's bf16 run, whose distance to the float32 gradients
+     must exceed BWD_F32_REL; at every shape and dtype a second run
+     through the autograd function bit for bit equal to the first;
  19. main path: olmo-1b at full width and depth (16 layers, float32
      parameters, bf16 compute), B = 4 x S = 2048: the first step through
      the kernels (16 forward + 16 backward launches, every gradient
@@ -288,15 +290,28 @@ The SSD family's training path:
      per step, tokens/s, share of the bf16 peak (`ssm_train_flops`) and
      peak memory; a profile of one `make_train_step`.
 
+The transformer family's Dh 256 training path:
+
+ 27. main path: gemma3-4b at full width, depth cut to 12 of 34 layers (10
+     local with window 1024, 2 global), float32 parameters, bf16 compute,
+     B = 4 x S = 2048: the first step through the kernels (12 forward +
+     12 backward launches, every gradient finite, wq / wk / wv of every
+     layer nonzero) against the same step through the plain attention
+     (loss and grad norm within TRAIN_LOSS_RTOL / TRAIN_GNORM_RTOL); 3
+     steps of `launch.train.train` (12 + 12 launches each): ms per step,
+     tokens/s, share of the bf16 peak (`train_flops`, each layer's window
+     counted), peak memory; a profile of one `make_train_step` with the
+     backward kernel's busy ms.
+
 Nothing earlier is cut for time.
 
 The second-to-last lines are the `kernels` JSON object (the day scan's
 launches summed over the serial, batched, legacy, simulate_users,
 simulate, gradient and fleet paths of phase 4, both modes; its
 max_abs_err covers phase 3 and the tables of 4 b, d, e, f, h and i;
-flash's launches summed over phases 7, 12, 15, 16, 19-21 and 24, its
-max_abs_err over phases 6 and 11; the backward's launches over phases
-19-21 and 24, its max_abs_err over phase 18, its times at olmo-1b's
+flash's launches summed over phases 7, 12, 15, 16, 19-21, 24 and 27,
+its max_abs_err over phases 6 and 11; the backward's launches over phases
+19-21, 24 and 27, its max_abs_err over phase 18, its times at olmo-1b's
 shape; the SSD scan's launches over phases 7, 24 and 25; the SSD
 backward's calls over phases 24-25, its max_abs_err over phase 23 c, its
 times at zamba2's prefill shape) and the nvidia-smi line; the last line
@@ -395,9 +410,8 @@ def ptxas_kernels(log: str) -> list:
         if m:
             dtype = "bf16" if m.group(2) != "f" else "f32"
             name = f"{m.group(1)}<{dtype}{', ' + m.group(3) if m.group(3) else ''}>"
-        m = re.search(r"entry function .*?(flash_bwd_[a-z]+_tc)ILi(\d+)E",
-                      line)
-        if m:                           # the bf16 tensor-core launches
+        m = re.search(r"entry function .*?(flash_bwd_hb)ILi(\d+)E", line)
+        if m:                           # the bf16 tensor-core launch
             name = f"{m.group(1)}<bf16, {m.group(2)}>"
         m = re.search(r"entry function .*?(ssd_bwd_[a-z]+)I(13__nv_bfloat16"
                       r"|f)?Li(\d+)E", line)
@@ -2737,14 +2751,17 @@ def check_moe(params, cfg, dev) -> str:
 
 # flash backward shapes (name, B, Sq, Sk, H, KvH, Dh, causal, window): a
 # training step's attention at olmo-1b's heads, whisper's encoder and
-# cross-attention, gemma3-4b's global and local layers (GQA 2:1, Dh 256)
-# and phi-3-vision's (Dh 96)
+# cross-attention, gemma3-4b's global and local layers (GQA 2:1, Dh 256),
+# phi-3-vision's (Dh 96) and zamba2-1.2b's shared block at phase 24's
+# step (B 4 x S 2048, Dh 64)
 BWD_SHAPES = (("olmo-1b", 2, 2048, 2048, 16, 16, 128, True, None),
               ("whisper encoder", 2, 1500, 1500, 16, 16, 64, False, None),
               ("whisper cross", 2, 448, 1500, 16, 16, 64, False, None),
               ("gemma3-4b global", 1, 2048, 2048, 8, 4, 256, True, None),
               ("gemma3-4b local", 1, 2048, 2048, 8, 4, 256, True, 1024),
-              ("phi-3-vision", 1, 2048, 2048, 32, 32, 96, True, None))
+              ("phi-3-vision", 1, 2048, 2048, 32, 32, 96, True, None),
+              ("zamba2-1.2b shared block", 4, 2048, 2048, 32, 32, 64, True,
+               None))
 # float32 dq / dk / dv against autograd of `flash_attention_plain`: max
 # abs error over the gradient's largest magnitude (3.7e-6 the worst read
 # at these shapes on an H100 80GB HBM3 at 700 W: float32 sums in another
@@ -2802,12 +2819,26 @@ def autograd_plain(q, k, v, do, causal, window):
         return torch.autograd.grad(o, (q, k, v), do)
 
 
+def bits_equal(a, b) -> bool:
+    """Same shape, dtype and bits (NaNs included)."""
+    import torch
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        a, b = a.contiguous(), b.contiguous()
+        width = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+        return torch.equal(a.view(width[a.element_size()]),
+                           b.view(width[b.element_size()]))
+    return torch.equal(a, b)
+
+
 def check_flash_bwd(dev) -> float:
     """Phase 18: the backward kernel, through the autograd function, vs
     autograd of the plain forward at BWD_SHAPES in float32 (BWD_F32_REL)
     and bf16 (BWD_BF16_MAX / BWD_BF16_RMS, with a control: the bf16
-    gradients against the float32 ones must miss BWD_F32_REL); returns
-    the largest abs error."""
+    gradients against the float32 ones must miss BWD_F32_REL), and a
+    second run through the function bit for bit equal to the first;
+    returns the largest abs error."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     gen = torch.Generator(device=dev).manual_seed(8)
@@ -2818,14 +2849,22 @@ def check_flash_bwd(dev) -> float:
                      .to(dtype) for _ in range(2))
             k, v = (torch.randn((B, Sk, KvH, Dh), generator=gen, device=dev)
                     .to(dtype) for _ in range(2))
-            qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
-            f0, b0 = fa.LAUNCHES, fa.BWD_LAUNCHES
-            fa.flash_attention(qg, kg, vg, causal=causal,
-                               window=window).backward(do)
-            if (fa.LAUNCHES - f0, fa.BWD_LAUNCHES - b0) != (1, 1):
-                fail(f"flash bwd {name}: {fa.LAUNCHES - f0} forward / "
-                     f"{fa.BWD_LAUNCHES - b0} backward launches, want 1 / 1")
-            got = (qg.grad, kg.grad, vg.grad)
+            runs = []
+            for _ in range(2):
+                qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+                f0, b0 = fa.LAUNCHES, fa.BWD_LAUNCHES
+                fa.flash_attention(qg, kg, vg, causal=causal,
+                                   window=window).backward(do)
+                if (fa.LAUNCHES - f0, fa.BWD_LAUNCHES - b0) != (1, 1):
+                    fail(f"flash bwd {name}: {fa.LAUNCHES - f0} forward / "
+                         f"{fa.BWD_LAUNCHES - b0} backward launches, want "
+                         f"1 / 1")
+                runs.append((qg.grad, kg.grad, vg.grad))
+            got = runs[0]
+            torch.cuda.synchronize()
+            if not all(bits_equal(a, b) for a, b in zip(*runs)):
+                fail(f"flash bwd {name} {str(dtype)[6:]}: a second run's "
+                     f"gradients differ from the first's")
             want = autograd_plain(q, k, v, do, causal, window)
             torch.cuda.synchronize()
             label = (f"flash bwd {name} B={B} Sq={Sq} Sk={Sk} H={H} "
@@ -2852,7 +2891,8 @@ def check_flash_bwd(dev) -> float:
                          f"{BWD_BF16_MAX:g}), rel RMS {rel_rms(a, b):.3g} "
                          f"(tol {BWD_BF16_RMS:g})")
             line = (f"{label}: dq/dk/dv vs autograd of the plain version, "
-                    f"max err / max |.| " + "/".join(f"{r:.3g}" for r in rels))
+                    f"max err / max |.| " + "/".join(f"{r:.3g}" for r in rels)
+                    + "; a second run bit-equal")
             if dtype == torch.bfloat16:
                 ref = autograd_plain(q.float(), k.float(), v.float(),
                                      do.float(), causal, window)
@@ -2870,7 +2910,7 @@ def check_flash_bwd(dev) -> float:
             else:
                 line += f" (tol {BWD_F32_REL:g})"
             print(line)
-            del q, k, v, do, qg, kg, vg, got, want
+            del q, k, v, do, qg, kg, vg, got, want, runs
     return worst
 
 
@@ -2924,10 +2964,14 @@ def train_flops(cfg, B: int, S: int) -> float:
     """Products of one training step (2 flops a multiply-add): 6 x
     parameters x tokens (forward, and the backward's two products per
     weight) plus the attention's, 3.5 x the forward's q.k and p.v (the
-    forward and the backward's 2.5 x)."""
-    pairs = attn_pairs(S, S, True, None)
+    forward and the backward's 2.5 x), each layer over the (query, key)
+    pairs its own window leaves (`transformer.layer_flags`)."""
+    from repro_torch.models import transformer
+    pairs = sum(attn_pairs(S, S, True, None if w >= transformer.BIG_WINDOW
+                           else w)
+                for w in transformer.layer_flags(cfg)["window"])
     return 6.0 * cfg.n_params * B * S + \
-        3.5 * 4.0 * B * cfg.n_heads * cfg.head_dim * pairs * cfg.n_layers
+        3.5 * 4.0 * B * cfg.n_heads * cfg.head_dim * pairs
 
 
 def grad_checks(label: str, grads, attn_keys) -> None:
@@ -2950,11 +2994,13 @@ def grad_checks(label: str, grads, attn_keys) -> None:
                      f"{zero}: the attention output dropped it")
 
 
-def grads_vs_plain(label, loss_of, params, n_fwd, n_bwd, attn_keys) -> tuple:
+def grads_vs_plain(label, loss_of, params, n_fwd, n_bwd, attn_keys,
+                   plain_loss_of=None) -> tuple:
     """The loss and gradients of `loss_of` through the kernels (forward and
     backward launches counted: `n_fwd`, `n_bwd` wanted), every gradient
-    checked (`grad_checks`), and again through `flash_attention_plain`;
-    returns (loss, grad norm, plain loss, plain grad norm)."""
+    checked (`grad_checks`), and again through `flash_attention_plain`
+    (by `plain_loss_of` where given: the same loss under remat); returns
+    (loss, grad norm, plain loss, plain grad norm)."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import steps
@@ -2970,7 +3016,8 @@ def grads_vs_plain(label, loss_of, params, n_fwd, n_bwd, attn_keys) -> tuple:
     gnorm = float(opt.global_norm(grads))
     del grads
     with flash_calls(plain=True):
-        loss_p, grads_p = steps.value_and_grad(loss_of, params)
+        loss_p, grads_p = steps.value_and_grad(plain_loss_of or loss_of,
+                                               params)
     gnorm_p = float(opt.global_norm(grads_p))
     del grads_p
     loss, loss_p = float(loss), float(loss_p)
@@ -3869,6 +3916,112 @@ def ssm_training_phases(dev) -> tuple:
         "library_ms": None}, fa_f24, fa_b24
 
 
+# ---------------------------------------------------------------------------
+# phase 27: gemma3-4b training (the Dh 256 backward on a main path)
+# ---------------------------------------------------------------------------
+
+GEMMA_TRAIN_ARCH = "gemma3-4b"
+GEMMA_TRAIN_LAYERS = 12         # of 34: 10 local and 2 global (5:1)
+GEMMA_TRAIN_STEPS = 3
+
+
+def train_gemma3(dev) -> tuple:
+    """Phase 27: gemma3-4b at full width, depth cut to GEMMA_TRAIN_LAYERS
+    (10 local, 2 global: `transformer.layer_flags`), float32 parameters,
+    bf16 compute, B = TRAIN_B x S = TRAIN_S: the first step through the
+    kernels (12 + 12 launches, every gradient finite, wq / wk / wv nonzero
+    on every layer) against the same step through the plain attention
+    (under remat: the plain scores of 12 layers would not fit beside the
+    rest), held as phase 19 holds olmo-1b's; GEMMA_TRAIN_STEPS steps of
+    `launch.train.train` (12 + 12 launches each, losses and grad norms
+    finite): ms a step, tokens/s, share of the bf16 peak (`train_flops`,
+    each layer's window counted), peak device memory; a profile of one
+    `make_train_step`.  Returns (forward launches, backward launches, the
+    timing line, the profile)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.data.pipeline import DataConfig, lm_batch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import steps, train
+    from repro_torch.models import registry, transformer
+    from repro_torch.nn import core
+    from repro_torch.training import optimizer as opt
+    full, _ = registry.get(GEMMA_TRAIN_ARCH)
+    cfg = dataclasses.replace(full, n_layers=GEMMA_TRAIN_LAYERS)
+    L = cfg.n_layers
+    n_local = sum(w < transformer.BIG_WINDOW
+                  for w in transformer.layer_flags(cfg)["window"])
+    t0 = time.perf_counter()
+    params = transformer.init(torch.Generator().manual_seed(0), cfg, dev)
+    print(f"{GEMMA_TRAIN_ARCH} training: {L} of {full.n_layers} layers "
+          f"({n_local} local, window {cfg.window}; {L - n_local} global), "
+          f"{core.count_params(params) / 1e9:.3f} B parameters "
+          f"({cfg.param_dtype} parameters, {cfg.compute_dtype} compute), "
+          f"B={TRAIN_B} S={TRAIN_S}; weights drawn on the host in "
+          f"{time.perf_counter() - t0:.1f} s")
+    batch = lm_batch(DataConfig(cfg.vocab, TRAIN_S, TRAIN_B), 0, dev)
+    grads_vs_plain(f"{GEMMA_TRAIN_ARCH} first step ({L} layers)",
+                   lambda p: transformer.loss_fn(p, cfg, batch, remat=False),
+                   params, L, L, (("layers", "attn"),),
+                   plain_loss_of=lambda p: transformer.loss_fn(
+                       p, cfg, batch, remat=True))
+    torch.cuda.empty_cache()
+    rec = {"t": None, "rows": []}
+
+    def on_step(s, m):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        rec["rows"].append((s, float(m["loss"]), float(m["grad_norm"]),
+                            fa.LAUNCHES, fa.BWD_LAUNCHES,
+                            (now - rec["t"]) * 1e3))
+        fa.LAUNCHES = fa.BWD_LAUNCHES = 0
+        rec["t"] = time.perf_counter()
+
+    torch.cuda.reset_peak_memory_stats()
+    fa.LAUNCHES = fa.BWD_LAUNCHES = 0
+    torch.cuda.synchronize()
+    rec["t"] = time.perf_counter()
+    _, losses = train.train(GEMMA_TRAIN_ARCH, smoke=False,
+                            steps=GEMMA_TRAIN_STEPS, batch=TRAIN_B,
+                            seq=TRAIN_S, device=dev, log_every=1,
+                            on_step=on_step, layers=L)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    rows = rec["rows"]
+    if len(rows) != GEMMA_TRAIN_STEPS:
+        fail(f"{GEMMA_TRAIN_ARCH} train: {len(rows)} steps, want "
+             f"{GEMMA_TRAIN_STEPS}")
+    for s, loss, gn, nf, nb, _ in rows:
+        if not (np.isfinite(loss) and np.isfinite(gn)) or (nf, nb) != (L, L):
+            fail(f"{GEMMA_TRAIN_ARCH} train step {s}: loss {loss}, grad norm "
+                 f"{gn}, flash {nf} forward / {nb} backward launches (want "
+                 f"{L} / {L})")
+    step_ms = [r[5] for r in rows[1:]]
+    ms = float(np.mean(step_ms))
+    flops = train_flops(cfg, TRAIN_B, TRAIN_S)
+    line = (f"{GEMMA_TRAIN_ARCH} train() (bf16 compute, B={TRAIN_B} "
+            f"S={TRAIN_S}, {L} of {full.n_layers} layers): losses "
+            + ", ".join(f"{r[1]:.4f}" for r in rows) + "; grad norms "
+            + ", ".join(f"{r[2]:.4g}" for r in rows)
+            + f"; {L} + {L} flash launches every step; ms per step {ms:.1f} "
+            f"(mean of steps 1-{len(rows) - 1}: "
+            + ", ".join(f"{t:.1f}" for t in step_ms) + f"; step 0 "
+            f"{rows[0][5]:.1f}), {TRAIN_B * TRAIN_S / ms * 1e3:.0f} "
+            f"tokens/s; {flops / 1e12:.1f} TFLOP of products a step (each "
+            f"layer's window counted), "
+            f"{flops / (ms * 1e-3) / PEAK_BF16_OPS_S * 100:.1f} % of the bf16 "
+            f"peak; peak device memory {peak_gb:.2f} GB")
+    step = steps.make_train_step(cfg, transformer)
+    state = opt.init(params)
+    prof = profile_device(lambda: step(params, state, batch),
+                          f"{GEMMA_TRAIN_ARCH} make_train_step (remat), {L} "
+                          f"layers, B={TRAIN_B} S={TRAIN_S}",
+                          tags=("flash_kernel", "flash_bwd"))
+    n = L * (1 + GEMMA_TRAIN_STEPS)  # the first step and the trained steps
+    return n, n, line, prof
+
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4071,12 +4224,21 @@ def main() -> None:
     lm_rows[0]["launches"] += fa_f
     bwd_row["launches"] += fa_b
     lm_rows[1]["launches"] += n_ssd_train
+    torch.cuda.empty_cache()
+    # 27. gemma3-4b training, 12 layers
+    g_f, g_b, gemma_line, gemma_prof = train_gemma3(dev)
+    print(gemma_line)
+    print(gemma_prof)
+    lm_rows[0]["launches"] += g_f
+    bwd_row["launches"] += g_b
     print(f"flash launches on the main paths: {lm_rows[0]['launches']} "
-          f"({lm_rows[0]['launches'] - n_tf - n_train - fa_f} zamba2-1.2b "
-          f"prefill, {n_tf} transformer family, {n_train} training and "
-          f"whisper-medium, {fa_f} zamba2-1.2b training); SSD forward "
-          f"launches {lm_rows[1]['launches']} ({n_ssd_train} in phases "
-          f"24-25)")
+          f"({lm_rows[0]['launches'] - n_tf - n_train - fa_f - g_f} "
+          f"zamba2-1.2b prefill, {n_tf} transformer family, {n_train} "
+          f"training and whisper-medium, {fa_f} zamba2-1.2b training, {g_f} "
+          f"gemma3-4b training); flash backward calls "
+          f"{bwd_row['launches']} ({fa_b} zamba2-1.2b training, {g_b} "
+          f"gemma3-4b training); SSD forward launches "
+          f"{lm_rows[1]['launches']} ({n_ssd_train} in phases 24-25)")
     if MISSES:
         fail(f"{len(MISSES)} check(s) outside tolerance: " + "; ".join(MISSES))
     print(json.dumps({"kernels": [{

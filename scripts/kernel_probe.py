@@ -18,6 +18,10 @@ for working on one kernel.
     python3 scripts/kernel_probe.py flash-compare OTHER.cu   # another copy
                                                      # of the flash source
                                                      # vs this one, in turns
+    python3 scripts/kernel_probe.py flash-bwd-compare OTHER.cu   # another
+                                                     # copy of the flash
+                                                     # backward's source vs
+                                                     # this one, in turns
     python3 scripts/kernel_probe.py ssd-bwd          # the SSD backward:
                                                      # ptxas, edges vs its
                                                      # plain version and
@@ -263,6 +267,8 @@ def probe_flash_bwd() -> None:
             (1, 257, 257, 8, 4, 256, True, 5),
             (1, 300, 1500, 4, 4, 64, False, None),
             (1, 1100, 1100, 8, 4, 256, True, 1024),
+            (1, 600, 600, 8, 4, 256, True, None),
+            (1, 130, 200, 4, 2, 256, False, None),
             (1, 37, 37, 4, 4, 96, True, None)):
         for dtype in (torch.float32, torch.bfloat16):
             q = rn(gen, (B, Sq, H, Dh), dtype)
@@ -272,12 +278,16 @@ def probe_flash_bwd() -> None:
                                     lse=True)
             got = fa._flash_bwd_cuda(q, k, v, o, do, lse, causal=causal,
                                      window=window)
+            again = fa._flash_bwd_cuda(q, k, v, o, do, lse, causal=causal,
+                                       window=window)
             lse_err = float((lse - fa.flash_attention_lse_plain(
                 q, k, causal=causal, window=window)).abs().max())
             tiled = fa.flash_attention_bwd_plain(q, k, v, o, do, lse,
                                                  causal=causal, window=window)
             auto = autograd_plain(q, k, v, do, causal, window)
             torch.cuda.synchronize()
+            repeat = all(chip_smoke.bits_equal(a, b)
+                         for a, b in zip(got, again))
 
             def rel(a, b):
                 return float((a.float() - b.float()).abs().max()
@@ -289,8 +299,8 @@ def probe_flash_bwd() -> None:
                   + "/".join(f"{rel(a, b):.3g}" for a, b in zip(got, tiled))
                   + ", vs autograd "
                   + "/".join(f"{rel(a, b):.3g}" for a, b in zip(got, auto))
-                  + f", finite {all(bool(torch.isfinite(g).all()) for g in got)}",
-                  flush=True)
+                  + f", finite {all(bool(torch.isfinite(g).all()) for g in got)}"
+                  f", a repeat bit-equal {repeat}", flush=True)
     for name, B, Sq, Sk, H, KvH, Dh, causal, window in BWD_TIMED:
         for dtype in (torch.bfloat16, torch.float32):
             q = rn(gen, (B, Sq, H, Dh), dtype)
@@ -511,18 +521,6 @@ def probe_ssd_compare(other: str) -> None:
                   f"bit equal: {same}", flush=True)
 
 
-def _bits_equal(a, b) -> bool:
-    """Same shape, dtype and bits (NaNs included)."""
-    if a.shape != b.shape or a.dtype != b.dtype:
-        return False
-    if a.is_floating_point():
-        a, b = a.contiguous(), b.contiguous()
-        width = {2: torch.int16, 4: torch.int32, 8: torch.int64}
-        return torch.equal(a.view(width[a.element_size()]),
-                           b.view(width[b.element_size()]))
-    return torch.equal(a, b)
-
-
 def record_ops(fn):
     """Run `fn()` recording each aten op in order: (op, host copies of its
     tensor inputs, host copies of its tensor outputs)."""
@@ -580,11 +578,12 @@ def probe_row_stage() -> None:
                 line += f"op {k} differs in kind: {op} vs {op2}"
                 break
             bad = [(a, b) for a, b in zip(outs, outs2)
-                   if not _bits_equal(a, b)]
+                   if not chip_smoke.bits_equal(a, b)]
             if bad:
                 a, b = bad[0]
                 diff = (a.double() - b.double()).abs()
-                same_in = all(_bits_equal(x, y) for x, y in zip(ins, ins2))
+                same_in = all(chip_smoke.bits_equal(x, y)
+                              for x, y in zip(ins, ins2))
                 line += (f"first differing output at op {k} {op}: shape "
                          f"{tuple(a.shape)} {a.dtype}, {int((diff > 0).sum())}"
                          f" elements differ, max abs diff {float(diff.max()):.3g}"
@@ -718,12 +717,77 @@ def probe_flash_compare(other: str) -> None:
         print(f"{str(dtype)[6:]} outputs bit for bit equal: {same}")
 
 
+def probe_flash_bwd_compare(other: str) -> None:
+    """The backward kernel built from another copy of
+    csrc/flash_attention_bwd.cu (`other`, e.g. the parent commit's)
+    against this checkout's, at
+    every bf16 shape of `chip_smoke.BWD_SHAPES` on the forward kernel's
+    own o and lse: each build's largest gradient error against
+    `flash_attention_bwd_plain` (over each gradient's largest magnitude),
+    whether a repeat is bit-equal, and times in turns (other, this, this,
+    other)."""
+    lib = build.BUILD_DIR.parent / "probe" / "flash_bwd_other.so"
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(lib),
+                           other], capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed for {other}:\n{proc.stderr}")
+    for line in proc.stderr.splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            print(f"ptxas other: {line.strip()}")
+    fn = ctypes.CDLL(str(lib)).flash_attention_bwd_launch
+    fn.argtypes = fa._bwd_lib().argtypes
+    fn.restype = ctypes.c_int
+    gen = torch.Generator(device=DEV).manual_seed(9)
+    for name, B, Sq, Sk, H, KvH, Dh, causal, window in chip_smoke.BWD_SHAPES:
+        q, do = (rn(gen, (B, Sq, H, Dh), torch.bfloat16) for _ in range(2))
+        k, v = (rn(gen, (B, Sk, KvH, Dh), torch.bfloat16) for _ in range(2))
+        o, lse = fa._flash_cuda(q, k, v, causal=causal, window=window,
+                                lse=True)
+
+        def run_other():
+            dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+            delta = torch.empty((B, H, Sq), dtype=torch.float32, device=DEV)
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                     do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                     dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Sq, Sk,
+                     H, KvH, Dh, int(causal),
+                     -1 if window is None else window, 1 / math.sqrt(Dh), 1,
+                     torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"launch failed: CUDA error {err}")
+            return dq, dk, dv
+
+        this = lambda: fa._flash_bwd_cuda(  # noqa: E731
+            q, k, v, o, do, lse, causal=causal, window=window)
+        plain = fa.flash_attention_bwd_plain(q, k, v, o, do, lse,
+                                             causal=causal, window=window)
+        label = (f"flash bwd {name} B={B} Sq={Sq} Sk={Sk} H={H} KvH={KvH} "
+                 f"Dh={Dh} causal={causal} window={window} bf16")
+        for who, f in (("other", run_other), ("this", this)):
+            a, b = f(), f()
+            torch.cuda.synchronize()
+            rel = [float((x.float() - w.float()).abs().max()
+                         / w.float().abs().max()) for x, w in zip(a, plain)]
+            same = all(chip_smoke.bits_equal(x, y) for x, y in zip(a, b))
+            print(f"{label}, {who}: dq/dk/dv max err / max |.| vs "
+                  f"flash_attention_bwd_plain "
+                  + "/".join(f"{r:.3g}" for r in rel)
+                  + f"; a repeat bit-equal: {same}", flush=True)
+        for who in ("other", "this", "this", "other"):
+            f = run_other if who == "other" else this
+            print(f"{label}, {who} ({other if who == 'other' else 'checkout'}"
+                  f"): {cuda_ms(f, 10):.4f} ms", flush=True)
+        del q, k, v, do, o, lse, plain
+
+
 def main() -> None:
     probes = {"day": probe_day, "flash": probe_flash, "ssd": probe_ssd,
               "flash-variants": probe_flash_variants,
               "flash-bwd": probe_flash_bwd, "ssd-bwd": probe_ssd_bwd,
               "row-stage": probe_row_stage}
     compare = {"flash-compare": probe_flash_compare,
+               "flash-bwd-compare": probe_flash_bwd_compare,
                "ssd-compare": probe_ssd_compare}
     if len(sys.argv) == 3 and sys.argv[1] in compare:
         probes[sys.argv[1]] = lambda: compare[sys.argv[1]](sys.argv[2])

@@ -12,50 +12,64 @@
 // scratch delta (B, H, Sq) float32; all contiguous.  Query head h reads
 // kv head h / (H / KvH).
 //
-// The FlashAttention-2 recurrence, in three launches:
-//   1. delta = rowsum(dO o O) per query row (one warp a row);
-//   2. dK / dV: a block owns one (batch, kv head, kv tile) and walks the
-//      group's G query heads and the query tiles that can see its keys;
-//      per query tile it recomputes P = exp(S scale - lse) (masked
-//      entries 0), then dV += P^T dO, dP = dO V^T, dS = P o (dP - delta),
-//      dK += dS^T Q; dK is scaled once at the end.  One block sums a kv
-//      head's whole gradient, so no atomics, and the result does not
-//      depend on the order blocks run in;
-//   3. dQ: a block owns one (batch, head, query tile) and walks the kv
-//      tiles its rows can see, recomputing P and dS the same way, dQ +=
-//      dS K, scaled at the end.
-// Tiles are skipped as in the forward: kv tiles above the diagonal and
-// before a window's first key; masks (keys >= Sk, rows >= Sq, causal,
-// window k > q - window) run per element.  Products, sums and the
-// exponential are float32 whatever the inputs' type (bf16 inputs are
-// widened as they are staged); dq, dk, dv are rounded to the inputs'
-// type once, at the end.
+// The FlashAttention-2 recurrence: delta = rowsum(dO o O) per query row
+// (one warp a row, its own launch); then per (query tile, kv tile) P =
+// exp(S scale - lse) (masked entries 0), dV += P^T dO, dP = dO V^T, dS =
+// P o (dP - delta), dK += dS^T Q, dQ += dS K; dK and dQ are scaled once
+// at the end.  A block that sums dK / dV owns a kv tile and walks the
+// group's G query heads and the query tiles that see its keys; a block
+// that sums dQ owns a query tile and walks the kv tiles its rows see.
+// Each sum is one block's, in a fixed order: no atomics, and a run
+// repeats bit for bit.  Tiles no row of which sees a key are skipped;
+// masks (keys >= Sk, rows >= Sq, causal, window k > q - window) run per
+// element only in tiles that straddle one.
 //
 // What bounds it: at olmo-1b's training shape (B = 4, S = 2048, H = 16,
 // Dh = 128, causal) the function is ~172 GFLOP of products (2.5 x the
 // forward's) against ~0.1 GB of traffic, so it is bound by operations.
-// Both designs recompute S and dP in launches 2 and 3: seven tile
-// products where the function needs five.
 //
-// bfloat16 at Dh 64, 96 and 128 (flash_bwd_dkdv_tc, flash_bwd_dq_tc):
-// mma.sync m16n8k16 bf16 x bf16 -> f32, 4 warps a block, each owning 16
-// keys (dK / dV) or 16 query rows (dQ), tiles staged by cp.async,
-// fragments by ldmatrix.  S and dP come out of the tensor cores in f32;
-// P = exp(S scale - lse) and dS are f32; dV takes bf16(P) as the A
-// fragment in registers (the plain version rounds p to v's dtype the same
-// way); dK and dQ take dS split into bf16(dS) and bf16(dS - bf16(dS)), two
-// products whose sum is float32-accurate, so dS is not rounded where the
-// plain version keeps it float32.  At Dh 256 a warp's dK and dV
-// accumulators alone would take 256 registers a thread: that width stays
-// on the CUDA cores.
+// bfloat16, every Dh (flash_bwd_hb: launch 2 holds the dK / dV blocks and
+// then the dQ blocks in one grid, so dQ blocks fill the SMs a causal
+// call's short dK / dV blocks leave).  A block owns 64 rows (keys, or
+// query rows) and walks 64-row steps (query tiles, or kv tiles).  Every
+// product is a wgmma chain (m64nNk16, bf16 in, float32 sums):
+//   - S^T = K Q^T and dP^T = V dO^T (S and dP in a dQ block): both
+//     operands K-major tiles in shared memory, computed once a step;
+//   - dV += P^T dO, dK += dS^T Q (dQ += dS K): A is P^T or dS^T as bf16
+//     register fragments, packed from the S^T / dP^T accumulators as they
+//     lie (a warp's 16 rows), B the step's tile read MN-major (these
+//     products contract over the tiles' rows).  On mma.sync with B by
+//     ldmatrix.trans they took 5-15 % longer, and S and dP 12-19 %
+//     (H100, in turns: PERF.md);
+//   - Dh <= 128: one warpgroup a block, two blocks an SM (two warpgroups
+//     sharing a block's tiles were 2-6 % slower: a block-wide barrier each
+//     step kept them in lockstep, so neither hid the other's wait on its
+//     wgmma).  P^T and dS^T stay in registers; a thread holds Dh / 2
+//     floats each of dK and dV;
+//   - Dh 256: two warpgroups split Dh, so a thread holds 128 floats of
+//     dK and dV (FlashAttention-2's head-dim-256 layout).  Warpgroup 0
+//     computes S^T and P^T, warpgroup 1 dP^T and, reading P^T as float32,
+//     dS^T; they share P^T and dS^T as bf16 fragments through shared
+//     memory (48 words a thread, in fragment order: no bank conflicts);
+//   - tiles live in shared memory in the 128-byte swizzle (16-byte chunk
+//     c of row r at c ^ (r % 8)), which wgmma reads either way (K-major
+//     or MN-major) and cp.async fills 16 bytes a thread; Q, dO, lse and
+//     delta (K and V in a dQ block) sit in a ring of two stages, the next
+//     step's copies issued before this step's products;
+//   - dS is rounded once to bf16 for both of its products, not split
+//     into two bf16 parts, and P once for dV, as
+//     flash_attention_bwd_plain rounds them; S and dP are still computed
+//     again by the dQ blocks, which keeps every sum in one block: seven
+//     tile products where the function needs five.  P = 2^((S scale -
+//     lse) log2 e) by ex2.approx.
+// Shared memory at Dh 256: K, V 64 KB, two stages of Q, dO 128 KB, lse
+// and delta 1 KB, the exchange 24 KB: 218 KB of the 227 a block may have.
 //
-// float32, and bfloat16 at Dh 256 (flash_bwd_dkdv, flash_bwd_dq): every
-// product on the CUDA cores in float32 (64 x 64 tiles, or 64 x 32 at Dh
-// 256, staged in shared memory, 4 x 4 register tiles as in the forward's
-// float32 path; TF32 would miss the float32 tolerance).  It was the first
-// design for bf16 at every width too: 11.7 ms at olmo-1b's B = 4 shape,
-// where the tensor-core path takes 1.85 ms (H100 80GB HBM3 at 700 W, in
-// turns).
+// float32 (flash_bwd_dkdv, flash_bwd_dq): every product on the CUDA
+// cores in float32 (64 x 64 tiles, or 64 x 32 at Dh 256, staged in
+// shared memory, 4 x 4 register tiles as in the forward's float32 path;
+// TF32 would miss the float32 tolerance), launch 2 dK / dV and launch 3
+// dQ, each recomputing S and dP.
 
 #include <cstdint>
 #include <type_traits>
@@ -434,22 +448,39 @@ int launch_bwd(const BwdArgs& a, int dh, cudaStream_t s) {
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16 on the tensor cores (mma.sync m16n8k16), Dh 64 / 96 / 128
+// bfloat16 on the tensor cores, every Dh
 // ---------------------------------------------------------------------------
 
-constexpr int TC_WARPS = 4;
-constexpr int TC_THREADS = 32 * TC_WARPS;
-constexpr int TC_ROWS = 16 * TC_WARPS;  // keys (dK / dV) or query rows (dQ) a block owns
-constexpr int TC_BQ = 32;               // query rows a dK / dV step walks
-constexpr int TC_BK = 64;               // keys a dQ step walks
+constexpr int HB_TILE = 64;   // rows a block owns, of a tile and of a step
+constexpr float LOG2E = 1.4426950408889634f;
 
+// Dh 256: two warpgroups split Dh between them; Dh <= 128: one
+// warpgroup a block, two blocks an SM
 template <int DH>
-__host__ __device__ constexpr int tc_dkdv_bytes() {
-  return (2 * TC_ROWS + 2 * TC_BQ) * (DH + 8) * 2 + 2 * TC_BQ * 4;
+__host__ __device__ constexpr bool hb_split() { return DH > 128; }
+template <int DH>
+__host__ __device__ constexpr int hb_threads() {
+  return hb_split<DH>() ? 256 : 128;
 }
+// bytes of one 64-row bf16 tile: ceil(DH / 64) column blocks of 64 rows x
+// 128 bytes, each in the 128-byte swizzle wgmma and TMA read (16-byte
+// chunk c of row r at chunk c ^ (r % 8) of its 128-byte line)
 template <int DH>
-__host__ __device__ constexpr int tc_dq_bytes() {
-  return (2 * TC_ROWS + 2 * TC_BK) * (DH + 8) * 2 + 2 * TC_ROWS * 4;
+__host__ __device__ constexpr int hb_tile_bytes() {
+  return (DH + 63) / 64 * HB_TILE * 128;
+}
+// shared memory of a block: two fixed tiles, two stages of two streamed
+// tiles, two stages of 64 rows' lse and delta, with Dh split the exchange
+// of P and dS (48 words a thread of a warpgroup), 1024 bytes to align
+template <int DH>
+__host__ __device__ constexpr int hb_smem_bytes() {
+  return 6 * hb_tile_bytes<DH>() + 2 * 2 * HB_TILE * 4
+       + (hb_split<DH>() ? 48 * 128 * 4 : 0) + 1024;
+}
+
+// byte offset of 16-byte chunk c of row r in a 64-row swizzled tile
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return (c >> 3) * (HB_TILE * 128) + r * 128 + (((c & 7) ^ (r & 7)) << 4);
 }
 
 // the forward's helpers (csrc/flash_attention.cu), repeated: each source
@@ -462,93 +493,226 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :: "r"(smem_u32(dst)), "l"(src), "r"(src_bytes));
 }
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(src_bytes));
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
 __device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::);
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-// c (16 x 8 f32) += a (16 x 16 bf16, row) . b (16 x 8 bf16, col)
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// copies made by the threads (cp.async) visible to wgmma's reads
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// rows [r0, r0 + ROWS) of head `hd` of a (B, S, heads, DH) bf16 tensor
-// into smem rows of stride DH + 8 by cp.async; rows >= S are zeros
-template <int DH, int ROWS>
-__device__ __forceinline__ void stage_bf16(__nv_bfloat16* dst,
-                                           const __nv_bfloat16* src, int b,
-                                           int S, int heads, int hd, int r0) {
+// wgmma's shared-memory matrix descriptor of a K-major tile in the
+// 128-byte swizzle: start address, leading offset 16 bytes (unused in
+// this swizzle), 1024 bytes between 8-row groups, swizzle mode 1
+__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+  return uint64_t((smem_u32(p) & 0x3FFFF) >> 4) | (uint64_t(1) << 16)
+       | (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
+}
+// d (64 x 64 f32, the warpgroup's) = [d +] a (64 x 16) . b (64 x 16)^T,
+// both bf16 in shared memory
+__device__ __forceinline__ void wgmma_64x64(float d[32], uint64_t da,
+                                            uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+// d (64 x N f32, the warpgroup's) += a (64 x 16 bf16, each thread's
+// register fragment) . b (16 x N), b an MN-major tile in shared memory
+template <int N>
+__device__ void wgmma_rs(float* d, const uint32_t a[4], uint64_t db);
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t a[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<96>(float* d, const uint32_t a[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float* d, const uint32_t a[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+// wgmma's descriptor of an MN-major tile in the 128-byte swizzle (the B
+// operand of a product that contracts over the tile's rows): 8192 bytes
+// between 64-column blocks, 1024 between 8-row groups
+__device__ __forceinline__ uint64_t mn_desc(const void* p) {
+  return uint64_t((smem_u32(p) & 0x3FFFF) >> 4) | (uint64_t(8192 >> 4) << 16)
+       | (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
+}
+// keeps the compiler from moving a use of d across the wgmma's issue or
+// wait
+template <int N = 32>
+__device__ __forceinline__ void fence_acc(float* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d = a . b^T over DH for the warpgroup: a and b 64-row K-major tiles, d
+// its 64 x 64 products in the m16n8 accumulator layout (warp w rows 16 w
+// .. 16 w + 15; n-tile j, element e at d[4 j + e]: row g + 8 (e / 2),
+// column 8 j + 2 t4 + e % 2).  Issues one wgmma chain, committed as a
+// group (wait for it with wg_wait)
+template <int DH>
+__device__ __forceinline__ void wg_issue(float d[32], const unsigned char* a,
+                                         const unsigned char* b) {
+  fence_acc(d);
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk) {
+    const int off = (kk >> 2) * (HB_TILE * 128) + (kk & 3) * 32;
+    wgmma_64x64(d, sw128_desc(a + off), sw128_desc(b + off), kk > 0);
+  }
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// d (the warpgroup's 64 x N f32) += a (64 x 64 bf16, four k-steps of
+// register fragments) . b (64 rows x N columns from chunk c0 of an
+// MN-major tile in shared memory): one register-A wgmma chain, committed
+// as a group
+template <int N>
+__device__ __forceinline__ void wg_accumulate(float* d, const uint32_t a[4][4],
+                                              const unsigned char* b, int c0) {
+  fence_acc<N / 2>(d);
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs<N>(d, a[kk], mn_desc(b + (c0 >> 3) * (HB_TILE * 128)
+                                  + kk * 16 * 128));
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// the issued chains done, their accumulators d0 (N / 2 floats a thread;
+// and d1) ready
+template <int N>
+__device__ __forceinline__ void wg_wait(float* d0, float* d1) {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  fence_acc<N / 2>(d0);
+  if (d1 != nullptr) fence_acc<N / 2>(d1);
+}
+
+// 2^x by the SFU's approximation (relative error ~2^-22; results below
+// 2^-126 flush to 0).  P is rounded to bf16 for its product and dS after
+// one more multiply, so the approximation does not show in the
+// gradients; exp2f made the kernel 5-18 % slower (H100, in turns)
+__device__ __forceinline__ float hb_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// accumulator n-tiles 2 kk and 2 kk + 1 as the bf16 A fragment of k-step
+// kk
+__device__ __forceinline__ void frag_a_acc(uint32_t f[4], const float d[32],
+                                           int kk) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+    f[r] = pack_bf16(d[8 * kk + 2 * r], d[8 * kk + 2 * r + 1]);
+}
+
+// rows [r0, r0 + 64) of head `hd` of a (B, S, heads, DH) bf16 tensor into
+// a swizzled tile by cp.async; rows >= S are zeros
+template <int DH>
+__device__ __forceinline__ void stage_tile(unsigned char* dst, const void* src,
+                                           int b, int S, int heads, int hd,
+                                           int r0) {
   constexpr int CH = DH / 8;       // 16-byte chunks a row
-  for (int idx = threadIdx.x; idx < ROWS * CH; idx += TC_THREADS) {
+  const __nv_bfloat16* base = static_cast<const __nv_bfloat16*>(src);
+  for (int idx = threadIdx.x; idx < HB_TILE * CH; idx += hb_threads<DH>()) {
     const int r = idx / CH, c = idx % CH, t = r0 + r;
     const bool in = t < S;
     const __nv_bfloat16* g =
-        src + ((size_t(b) * S + (in ? t : 0)) * heads + hd) * DH + 8 * c;
-    cp_async16(dst + r * (DH + 8) + 8 * c, g, in ? 16 : 0);
+        base + ((size_t(b) * S + (in ? t : 0)) * heads + hd) * DH + 8 * c;
+    cp_async16(dst + swz(r, c), g, in ? 16 : 0);
   }
 }
-
-// the A fragment (16 x 16) of rows r0.. at k-step kk of a row-major tile
-template <int DS>
-__device__ __forceinline__ void frag_a(uint32_t f[4],
-                                       const __nv_bfloat16* t, int r0,
-                                       int kk, int lane) {
-  ldmatrix_x4(f, t + (r0 + (lane & 15)) * DS + 16 * kk + 8 * (lane >> 4));
-}
-// the B fragments of n-tiles j, j + 1 at k-step kk, the tile's rows the n
-// index and its columns the k index (a tile read as its transpose)
-template <int DS>
-__device__ __forceinline__ void frag_b_rows(uint32_t f[4],
-                                            const __nv_bfloat16* t, int j,
-                                            int kk, int lane) {
-  ldmatrix_x4(f, t + (8 * j + (lane & 7) + ((lane >> 4) << 3)) * DS
-                   + 16 * kk + 8 * ((lane >> 3) & 1));
-}
-// the B fragments of n-tiles j, j + 1 at k-step kk, the tile's rows the k
-// index and its columns the n index
-template <int DS>
-__device__ __forceinline__ void frag_b_cols(uint32_t f[4],
-                                            const __nv_bfloat16* t, int j,
-                                            int kk, int lane) {
-  ldmatrix_x4_trans(f, t + (16 * kk + (lane & 7) + 8 * ((lane >> 3) & 1)) * DS
-                         + 8 * j + 8 * (lane >> 4));
-}
-// accumulator n-tiles c0, c1 (16 columns) as an A fragment in bf16, and
-// its remainder x - bf16(x) as a second: the two products sum to a
-// float32-accurate one
-__device__ __forceinline__ void split_a(uint32_t hi[4], uint32_t lo[4],
-                                        const float c0[4], const float c1[4]) {
-  const float x[8] = {c0[0], c0[1], c0[2], c0[3], c1[0], c1[1], c1[2], c1[3]};
-  float r[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-    r[i] = x[i] - __bfloat162float(__float2bfloat16_rn(x[i]));
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    hi[i] = pack_bf16(x[2 * i], x[2 * i + 1]);
-    lo[i] = pack_bf16(r[2 * i], r[2 * i + 1]);
+// rows [q0, q0 + 64) of head h of lse, then of delta, into rows[0, 128)
+__device__ __forceinline__ void stage_rows(float* rows, const BwdArgs& a,
+                                           int b, int h, int q0) {
+  if (threadIdx.x < 2 * HB_TILE) {
+    const int qi = q0 + threadIdx.x % HB_TILE;
+    const float* src = threadIdx.x < HB_TILE ? a.lse : a.delta;
+    const bool in = qi < a.Sq;
+    cp_async4(rows + threadIdx.x,
+              src + (size_t(b) * a.H + h) * a.Sq + (in ? qi : 0), in ? 4 : 0);
   }
 }
 
@@ -558,128 +722,190 @@ __device__ __forceinline__ bool seen(const BwdArgs& a, int qi, int kj) {
   if (a.window >= 0) ok = ok && kj > qi - a.window;
   return ok;
 }
+// every (query, key) of the 64-row tiles at q0 and k0 is seen: no mask
+__device__ __forceinline__ bool all_seen(const BwdArgs& a, int q0, int k0) {
+  return q0 + HB_TILE <= a.Sq && k0 + HB_TILE <= a.Sk &&
+         (!a.causal || k0 + HB_TILE - 1 <= q0) &&
+         (a.window < 0 || k0 > q0 + HB_TILE - 1 - a.window);
+}
 
-// dK and dV of one (64-key tile, kv head, batch): warp w owns keys 16 w ..
-// 16 w + 15 and walks the group's query heads in steps of TC_BQ rows:
-// S^T = K Q^T, dP^T = V dO^T, P^T = exp(S^T scale - lse), dS^T = P^T o
-// (dP^T - delta), dV += bf16(P^T) dO, dK += dS^T Q with dS^T split in
-// two bf16 parts
+// The block's shared memory, 1024-aligned: the fixed tiles of each kind
+// (0: K or Q, 1: V or dO), stage st's streamed tiles of each kind, the
+// stages' lse / delta rows, and with Dh split the exchange: xp [32][128]
+// floats (P, then dS as bf16 pairs in its first 16 rows), xpb [16][128]
+// P as bf16 pairs
 template <int DH>
-__global__ void __launch_bounds__(TC_THREADS) flash_bwd_dkdv_tc(BwdArgs a) {
-  constexpr int DS = DH + 8, KS = DH / 16, NQ = TC_BQ / 8, ND = DH / 8;
-  static_assert(DH % 16 == 0 && ND % 2 == 0,
-                "flash bwd tc: Dh must be whole 16-wide k-steps");
-  extern __shared__ float4 smem4[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem4);
-  __nv_bfloat16* vs = ks + TC_ROWS * DS;
-  __nv_bfloat16* qs = vs + TC_ROWS * DS;
-  __nv_bfloat16* dos = qs + TC_BQ * DS;
-  float* lse_s = reinterpret_cast<float*>(dos + TC_BQ * DS);
-  float* del_s = lse_s + TC_BQ;
+struct HbSmem {
+  unsigned char* base;
+  static constexpr int TB = hb_tile_bytes<DH>();
+  __device__ explicit HbSmem(void* raw)
+      : base(reinterpret_cast<unsigned char*>(
+            (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023))) {}
+  __device__ unsigned char* fixed(int kind) const { return base + kind * TB; }
+  __device__ unsigned char* stage(int st, int kind) const {
+    return base + (2 + 2 * st + kind) * TB;
+  }
+  __device__ float* rows(int st) const {
+    return reinterpret_cast<float*>(base + 6 * TB) + 2 * HB_TILE * st;
+  }
+  __device__ float* xp() const { return rows(0) + 4 * HB_TILE; }
+  __device__ uint32_t* xpb() const {
+    return reinterpret_cast<uint32_t*>(xp() + 32 * 128);
+  }
+};
 
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int g = lane / 4, t4 = lane % 4;
-  const int k0 = blockIdx.x * TC_ROWS, kvh = blockIdx.y, b = blockIdx.z;
-  const int G = a.H / a.KvH;
-  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q);
-  const __nv_bfloat16* dout = static_cast<const __nv_bfloat16*>(a.dout);
-  stage_bf16<DH, TC_ROWS>(ks, static_cast<const __nv_bfloat16*>(a.k), b,
-                          a.Sk, a.KvH, kvh, k0);
-  stage_bf16<DH, TC_ROWS>(vs, static_cast<const __nv_bfloat16*>(a.v), b,
-                          a.Sk, a.KvH, kvh, k0);
-  cp_async_commit();
-
-  const int nq = (a.Sq + TC_BQ - 1) / TC_BQ;
-  const int k_last = min(k0 + TC_ROWS, a.Sk) - 1;
-  const int qt_begin = a.causal ? min(nq, k0 / TC_BQ) : 0;
-  int qt_end = nq;
+// query tiles [begin, end) whose rows see a key of [k0, k0 + 64)
+__device__ __forceinline__ void query_tiles(const BwdArgs& a, int k0,
+                                            int& begin, int& end) {
+  const int nq = (a.Sq + HB_TILE - 1) / HB_TILE;
+  const int k_last = min(k0 + HB_TILE, a.Sk) - 1;
+  begin = a.causal ? min(nq, k0 / HB_TILE) : 0;
+  end = nq;
   if (a.window >= 0)
-    qt_end = max(0, min(nq, (k_last + a.window - 1) / TC_BQ + 1));
-  const int key0 = k0 + 16 * warp + g, key1 = key0 + 8;
+    end = max(0, min(nq, (k_last + a.window - 1) / HB_TILE + 1));
+  end = max(begin, end);
+}
+// kv tiles [begin, end) a key of which rows [q0, q0 + 64) see
+__device__ __forceinline__ void kv_tiles(const BwdArgs& a, int q0, int& begin,
+                                         int& end) {
+  end = (a.Sk + HB_TILE - 1) / HB_TILE;
+  if (a.causal) end = min(end, (q0 + HB_TILE - 1) / HB_TILE + 1);
+  begin = 0;
+  if (a.window >= 0) begin = max(0, (q0 - a.window + 1) / HB_TILE);
+  end = max(begin, end);
+}
+
+// dK and dV of one (64-key tile, kv head, batch).  Steps walk the
+// group's G query heads and the 64-row query tiles that see a key of the
+// tile; the next step's Q, dO, lse and delta are copied while this one
+// computes.  Dh split: warpgroup 0 computes S^T = K Q^T and P^T,
+// warpgroup 1 dP^T = V dO^T and dS^T from P^T (float32, through xp);
+// both then add bf16(P^T) dO and bf16(dS^T) Q into their half of Dh.
+// Otherwise the one warpgroup computes S^T and dP^T, keeps P^T and dS^T
+// in registers and adds both products over all of Dh.
+template <int DH>
+__device__ __forceinline__ void hb_dkdv(const BwdArgs& a,
+                                        const HbSmem<DH>& sm, int kt,
+                                        int kvh, int b) {
+  constexpr bool SPLIT = hb_split<DH>();
+  constexpr int ND = SPLIT ? DH / 16 : DH / 8;  // n-tiles of 8 a thread sums
+  const int wg = threadIdx.x / 128, wt = threadIdx.x % 128, w = wt / 32;
+  const int lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
+  const int k0 = kt * HB_TILE, G = a.H / a.KvH;
+  int qt_begin, qt_end;
+  query_tiles(a, k0, qt_begin, qt_end);
+  const int per_head = qt_end - qt_begin, n_steps = G * per_head;
+  auto load_step = [&](int i, int st) {
+    const int h = kvh * G + i / per_head;
+    const int q0 = (qt_begin + i % per_head) * HB_TILE;
+    stage_tile<DH>(sm.stage(st, 0), a.q, b, a.Sq, a.H, h, q0);
+    stage_tile<DH>(sm.stage(st, 1), a.dout, b, a.Sq, a.H, h, q0);
+    stage_rows(sm.rows(st), a, b, h, q0);
+  };
+  stage_tile<DH>(sm.fixed(0), a.k, b, a.Sk, a.KvH, kvh, k0);
+  stage_tile<DH>(sm.fixed(1), a.v, b, a.Sk, a.KvH, kvh, k0);
+  if (n_steps > 0) load_step(0, 0);
+  cp_async_commit();
 
   float dk[ND][4], dv[ND][4];
 #pragma unroll
   for (int j = 0; j < ND; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+  const int key0 = k0 + 16 * w + g;       // this thread's keys: key0, + 8
+  const int c0 = SPLIT ? wg * (DH / 16) : 0;  // first chunk it sums into
 
-  for (int gq = 0; gq < G; ++gq) {
-    const int h = kvh * G + gq;
-    for (int qt = qt_begin; qt < qt_end; ++qt) {
-      const int q0 = qt * TC_BQ;
-      __syncthreads();             // the previous step's readers are done
-      stage_bf16<DH, TC_BQ>(qs, q, b, a.Sq, a.H, h, q0);
-      stage_bf16<DH, TC_BQ>(dos, dout, b, a.Sq, a.H, h, q0);
-      cp_async_commit();
-      if (threadIdx.x < TC_BQ) {
-        const int qi = q0 + threadIdx.x;
-        const size_t at = (size_t(b) * a.H + h) * a.Sq + qi;
-        lse_s[threadIdx.x] = qi < a.Sq ? a.lse[at] : 0.f;
-        del_s[threadIdx.x] = qi < a.Sq ? a.delta[at] : 0.f;
+  for (int i = 0; i < n_steps; ++i) {
+    const int st = i & 1;
+    const int q0 = (qt_begin + i % per_head) * HB_TILE;
+    cp_async_wait_all();             // step i's tiles have landed
+    fence_proxy_async();
+    __syncthreads();                 // ... for every thread; step i - 1 done
+    if (i + 1 < n_steps) load_step(i + 1, st ^ 1);
+    cp_async_commit();
+    const unsigned char* qs = sm.stage(st, 0);
+    const unsigned char* dos = sm.stage(st, 1);
+    const float* lse_s = sm.rows(st);
+    const float* del_s = lse_s + HB_TILE;
+    const bool full = all_seen(a, q0, k0);
+    uint32_t pa[4][4], sa[4][4];     // bf16 P^T and dS^T, k-steps of 16
+    if constexpr (SPLIT) {
+      float* xp = sm.xp();
+      uint32_t* xpu = reinterpret_cast<uint32_t*>(xp);
+      uint32_t* xpb = sm.xpb();
+      float acc[32];
+      wg_issue<DH>(acc, sm.fixed(wg), sm.stage(st, wg));
+      wg_wait<64>(acc, nullptr);
+      if (wg == 0) {               // P^T = exp(S^T scale - lse), masked 0
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int qc = 8 * j + 2 * t4 + (e & 1);
+            const bool ok = full || seen(a, q0 + qc, key0 + 8 * (e >> 1));
+            const float p = ok
+                ? hb_exp2((acc[4 * j + e] * a.scale - lse_s[qc]) * LOG2E)
+                : 0.f;
+            acc[4 * j + e] = p;
+            xp[(4 * j + e) * 128 + wt] = p;
+          }
+#pragma unroll
+        for (int r = 0; r < 16; ++r)
+          xpb[r * 128 + wt] = pack_bf16(acc[2 * r], acc[2 * r + 1]);
       }
-      cp_async_wait_all();
       __syncthreads();
-
-      float st[NQ][4], dpt[NQ][4];
+      if (wg == 1) {               // dS^T = P^T o (dP^T - delta)
 #pragma unroll
-      for (int j = 0; j < NQ; ++j)
+        for (int j = 0; j < 8; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+          for (int e = 0; e < 4; ++e)
+            acc[4 * j + e] = xp[(4 * j + e) * 128 + wt]
+                * (acc[4 * j + e] - del_s[8 * j + 2 * t4 + (e & 1)]);
 #pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        uint32_t kf[4], vf[4];
-        frag_a<DS>(kf, ks, 16 * warp, kk, lane);
-        frag_a<DS>(vf, vs, 16 * warp, kk, lane);
-#pragma unroll
-        for (int j = 0; j < NQ; j += 2) {
-          uint32_t qb[4], db[4];
-          frag_b_rows<DS>(qb, qs, j, kk, lane);
-          frag_b_rows<DS>(db, dos, j, kk, lane);
-          mma_bf16(st[j], kf, qb[0], qb[1]);
-          mma_bf16(st[j + 1], kf, qb[2], qb[3]);
-          mma_bf16(dpt[j], vf, db[0], db[1]);
-          mma_bf16(dpt[j + 1], vf, db[2], db[3]);
-        }
+        for (int r = 0; r < 16; ++r)
+          xpu[r * 128 + wt] = pack_bf16(acc[2 * r], acc[2 * r + 1]);
       }
+      __syncthreads();
 #pragma unroll
-      for (int j = 0; j < NQ; ++j)
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          pa[kk][r] = xpb[(4 * kk + r) * 128 + wt];
+          sa[kk][r] = xpu[(4 * kk + r) * 128 + wt];
+        }
+    } else {
+      float s[32], dp[32];
+      wg_issue<DH>(s, sm.fixed(0), qs);
+      wg_issue<DH>(dp, sm.fixed(1), dos);
+      wg_wait<64>(s, dp);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int qc = 8 * j + 2 * t4 + (e & 1);
-          const float p = seen(a, q0 + qc, e < 2 ? key0 : key1)
-              ? expf(st[j][e] * a.scale - lse_s[qc]) : 0.f;
-          st[j][e] = p;
-          dpt[j][e] = p * (dpt[j][e] - del_s[qc]);
+          const bool ok = full || seen(a, q0 + qc, key0 + 8 * (e >> 1));
+          const float p = ok
+              ? hb_exp2((s[4 * j + e] * a.scale - lse_s[qc]) * LOG2E) : 0.f;
+          s[4 * j + e] = p;
+          dp[4 * j + e] = p * (dp[4 * j + e] - del_s[qc]);
         }
 #pragma unroll
-      for (int kk = 0; kk < TC_BQ / 16; ++kk) {
-        uint32_t pa[4], sh[4], sl[4];
-        pa[0] = pack_bf16(st[2 * kk][0], st[2 * kk][1]);
-        pa[1] = pack_bf16(st[2 * kk][2], st[2 * kk][3]);
-        pa[2] = pack_bf16(st[2 * kk + 1][0], st[2 * kk + 1][1]);
-        pa[3] = pack_bf16(st[2 * kk + 1][2], st[2 * kk + 1][3]);
-        split_a(sh, sl, dpt[2 * kk], dpt[2 * kk + 1]);
-#pragma unroll
-        for (int j = 0; j < ND; j += 2) {
-          uint32_t db[4], qb[4];
-          frag_b_cols<DS>(db, dos, j, kk, lane);
-          frag_b_cols<DS>(qb, qs, j, kk, lane);
-          mma_bf16(dv[j], pa, db[0], db[1]);
-          mma_bf16(dv[j + 1], pa, db[2], db[3]);
-          mma_bf16(dk[j], sh, qb[0], qb[1]);
-          mma_bf16(dk[j + 1], sh, qb[2], qb[3]);
-          mma_bf16(dk[j], sl, qb[0], qb[1]);
-          mma_bf16(dk[j + 1], sl, qb[2], qb[3]);
-        }
+      for (int kk = 0; kk < 4; ++kk) {
+        frag_a_acc(pa[kk], s, kk);
+        frag_a_acc(sa[kk], dp, kk);
       }
     }
+    // dV += bf16(P^T) dO, dK += bf16(dS^T) Q
+    wg_accumulate<8 * ND>(&dv[0][0], pa, dos, c0);
+    wg_accumulate<8 * ND>(&dk[0][0], sa, qs, c0);
+    wg_wait<8 * ND>(&dv[0][0], &dk[0][0]);
   }
   cp_async_wait_all();             // nothing in flight at exit
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int key = r ? key1 : key0;
+    const int key = key0 + 8 * r;
     if (key >= a.Sk) continue;
-    const size_t at = ((size_t(b) * a.Sk + key) * a.KvH + kvh) * DH;
+    const size_t at = ((size_t(b) * a.Sk + key) * a.KvH + kvh) * DH + 8 * c0;
     __nv_bfloat16* dkr = static_cast<__nv_bfloat16*>(a.dk) + at;
     __nv_bfloat16* dvr = static_cast<__nv_bfloat16*>(a.dv) + at;
 #pragma unroll
@@ -692,112 +918,123 @@ __global__ void __launch_bounds__(TC_THREADS) flash_bwd_dkdv_tc(BwdArgs a) {
   }
 }
 
-// dQ of one (64-row query tile, head, batch): warp w owns rows 16 w ..
-// 16 w + 15 and walks the kv tiles they see, TC_BK keys a step:
-// S = Q K^T, dP = dO V^T, P, dS as above, dQ += dS K with dS split in two
-// bf16 parts
+// dQ of one (64-row query tile, head, batch).  Steps walk the 64-key
+// tiles the rows see; the next tile's K and V are copied while this one
+// computes.  Dh split: warpgroup 0 computes S = Q K^T and P, warpgroup 1
+// dP = dO V^T and dS from P; both add bf16(dS) K into their half of Dh.
+// Otherwise the one warpgroup computes S, dP, P and dS in registers and
+// adds bf16(dS) K over all of Dh.
 template <int DH>
-__global__ void __launch_bounds__(TC_THREADS) flash_bwd_dq_tc(BwdArgs a) {
-  constexpr int DS = DH + 8, KS = DH / 16, NK = TC_BK / 8, ND = DH / 8;
-  extern __shared__ float4 smem4[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem4);
-  __nv_bfloat16* dos = qs + TC_ROWS * DS;
-  __nv_bfloat16* ks = dos + TC_ROWS * DS;
-  __nv_bfloat16* vs = ks + TC_BK * DS;
-  float* lse_s = reinterpret_cast<float*>(vs + TC_BK * DS);
-  float* del_s = lse_s + TC_ROWS;
-
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int g = lane / 4, t4 = lane % 4;
-  const int q0 = blockIdx.x * TC_ROWS, h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (a.H / a.KvH);
-  const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(a.k);
-  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(a.v);
-  stage_bf16<DH, TC_ROWS>(qs, static_cast<const __nv_bfloat16*>(a.q), b,
-                          a.Sq, a.H, h, q0);
-  stage_bf16<DH, TC_ROWS>(dos, static_cast<const __nv_bfloat16*>(a.dout), b,
-                          a.Sq, a.H, h, q0);
+__device__ __forceinline__ void hb_dq(const BwdArgs& a, const HbSmem<DH>& sm,
+                                      int qt, int h, int b) {
+  constexpr bool SPLIT = hb_split<DH>();
+  constexpr int ND = SPLIT ? DH / 16 : DH / 8;
+  const int wg = threadIdx.x / 128, wt = threadIdx.x % 128, w = wt / 32;
+  const int lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
+  const int q0 = qt * HB_TILE, kvh = h / (a.H / a.KvH);
+  int kt_begin, kt_end;
+  kv_tiles(a, q0, kt_begin, kt_end);
+  auto load_step = [&](int kt, int st) {
+    stage_tile<DH>(sm.stage(st, 0), a.k, b, a.Sk, a.KvH, kvh, kt * HB_TILE);
+    stage_tile<DH>(sm.stage(st, 1), a.v, b, a.Sk, a.KvH, kvh, kt * HB_TILE);
+  };
+  stage_tile<DH>(sm.fixed(0), a.q, b, a.Sq, a.H, h, q0);
+  stage_tile<DH>(sm.fixed(1), a.dout, b, a.Sq, a.H, h, q0);
+  if (kt_begin < kt_end) load_step(kt_begin, 0);
   cp_async_commit();
-  if (threadIdx.x < TC_ROWS) {
-    const int qi = q0 + threadIdx.x;
+
+  // this thread's rows r0 = q0 + 16 w + g and r0 + 8: their lse and delta
+  const int r0 = q0 + 16 * w + g;
+  float lse_r[2], del_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = r0 + 8 * r;
     const size_t at = (size_t(b) * a.H + h) * a.Sq + qi;
-    lse_s[threadIdx.x] = qi < a.Sq ? a.lse[at] : 0.f;
-    del_s[threadIdx.x] = qi < a.Sq ? a.delta[at] : 0.f;
+    lse_r[r] = qi < a.Sq ? a.lse[at] : 0.f;
+    del_r[r] = qi < a.Sq ? a.delta[at] : 0.f;
   }
-
-  int kt_end = (a.Sk + TC_BK - 1) / TC_BK;
-  if (a.causal) kt_end = min(kt_end, (q0 + TC_ROWS - 1) / TC_BK + 1);
-  int kt_begin = 0;
-  if (a.window >= 0) kt_begin = max(0, (q0 - a.window + 1) / TC_BK);
-  const int r0 = 16 * warp + g, r1 = r0 + 8;      // this thread's two rows
-
   float dq[ND][4];
 #pragma unroll
   for (int j = 0; j < ND; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dq[j][e] = 0.f;
+  const int c0 = SPLIT ? wg * (DH / 16) : 0;
 
   for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k0 = kt * TC_BK;
-    __syncthreads();               // the previous step's readers are done
-    stage_bf16<DH, TC_BK>(ks, k, b, a.Sk, a.KvH, kvh, k0);
-    stage_bf16<DH, TC_BK>(vs, v, b, a.Sk, a.KvH, kvh, k0);
-    cp_async_commit();
+    const int st = (kt - kt_begin) & 1, k0 = kt * HB_TILE;
     cp_async_wait_all();
+    fence_proxy_async();
     __syncthreads();
-
-    float s[NK][4], dp[NK][4];
+    if (kt + 1 < kt_end) load_step(kt + 1, st ^ 1);
+    cp_async_commit();
+    const unsigned char* ks = sm.stage(st, 0);
+    const bool full = all_seen(a, q0, k0);
+    uint32_t sa[4][4];               // bf16 dS, k-steps of 16 keys
+    if constexpr (SPLIT) {
+      float* xp = sm.xp();
+      uint32_t* xpu = reinterpret_cast<uint32_t*>(xp);
+      float acc[32];
+      wg_issue<DH>(acc, sm.fixed(wg), sm.stage(st, wg));
+      wg_wait<64>(acc, nullptr);
+      if (wg == 0) {               // P = exp(S scale - lse), masked 0
 #pragma unroll
-    for (int j = 0; j < NK; ++j)
+        for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      uint32_t qf[4], df[4];
-      frag_a<DS>(qf, qs, 16 * warp, kk, lane);
-      frag_a<DS>(df, dos, 16 * warp, kk, lane);
-#pragma unroll
-      for (int j = 0; j < NK; j += 2) {
-        uint32_t kb[4], vb[4];
-        frag_b_rows<DS>(kb, ks, j, kk, lane);
-        frag_b_rows<DS>(vb, vs, j, kk, lane);
-        mma_bf16(s[j], qf, kb[0], kb[1]);
-        mma_bf16(s[j + 1], qf, kb[2], kb[3]);
-        mma_bf16(dp[j], df, vb[0], vb[1]);
-        mma_bf16(dp[j + 1], df, vb[2], vb[3]);
+          for (int e = 0; e < 4; ++e) {
+            const bool ok = full || seen(a, r0 + 8 * (e >> 1),
+                                         k0 + 8 * j + 2 * t4 + (e & 1));
+            xp[(4 * j + e) * 128 + wt] = ok
+                ? hb_exp2((acc[4 * j + e] * a.scale - lse_r[e >> 1]) * LOG2E)
+                : 0.f;
+          }
       }
+      __syncthreads();
+      if (wg == 1) {               // dS = P o (dP - delta)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[4 * j + e] = xp[(4 * j + e) * 128 + wt]
+                             * (acc[4 * j + e] - del_r[e >> 1]);
+#pragma unroll
+        for (int r = 0; r < 16; ++r)
+          xpu[r * 128 + wt] = pack_bf16(acc[2 * r], acc[2 * r + 1]);
+      }
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) sa[kk][r] = xpu[(4 * kk + r) * 128 + wt];
+    } else {
+      float s[32], dp[32];
+      wg_issue<DH>(s, sm.fixed(0), ks);
+      wg_issue<DH>(dp, sm.fixed(1), sm.stage(st, 1));
+      wg_wait<64>(s, dp);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool ok = full || seen(a, r0 + 8 * (e >> 1),
+                                       k0 + 8 * j + 2 * t4 + (e & 1));
+          const float p = ok
+              ? hb_exp2((s[4 * j + e] * a.scale - lse_r[e >> 1]) * LOG2E)
+              : 0.f;
+          dp[4 * j + e] = p * (dp[4 * j + e] - del_r[e >> 1]);
+        }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) frag_a_acc(sa[kk], dp, kk);
     }
-#pragma unroll
-    for (int j = 0; j < NK; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e < 2 ? r0 : r1;
-        const float p = seen(a, q0 + r, k0 + 8 * j + 2 * t4 + (e & 1))
-            ? expf(s[j][e] * a.scale - lse_s[r]) : 0.f;
-        dp[j][e] = p * (dp[j][e] - del_s[r]);
-      }
-#pragma unroll
-    for (int kk = 0; kk < TC_BK / 16; ++kk) {
-      uint32_t sh[4], sl[4];
-      split_a(sh, sl, dp[2 * kk], dp[2 * kk + 1]);
-#pragma unroll
-      for (int j = 0; j < ND; j += 2) {
-        uint32_t kb[4];
-        frag_b_cols<DS>(kb, ks, j, kk, lane);
-        mma_bf16(dq[j], sh, kb[0], kb[1]);
-        mma_bf16(dq[j + 1], sh, kb[2], kb[3]);
-        mma_bf16(dq[j], sl, kb[0], kb[1]);
-        mma_bf16(dq[j + 1], sl, kb[2], kb[3]);
-      }
-    }
+    // dQ += bf16(dS) K
+    wg_accumulate<8 * ND>(&dq[0][0], sa, ks, c0);
+    wg_wait<8 * ND>(&dq[0][0], nullptr);
   }
-  cp_async_wait_all();             // nothing in flight at exit
+  cp_async_wait_all();
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int qi = q0 + (r ? r1 : r0);
+    const int qi = r0 + 8 * r;
     if (qi >= a.Sq) continue;
     __nv_bfloat16* row = static_cast<__nv_bfloat16*>(a.dq)
-        + ((size_t(b) * a.Sq + qi) * a.H + h) * DH;
+        + ((size_t(b) * a.Sq + qi) * a.H + h) * DH + 8 * c0;
 #pragma unroll
     for (int j = 0; j < ND; ++j)
       *reinterpret_cast<uint32_t*>(row + 8 * j + 2 * t4) =
@@ -805,38 +1042,57 @@ __global__ void __launch_bounds__(TC_THREADS) flash_bwd_dq_tc(BwdArgs a) {
   }
 }
 
+// launch 2 of the bf16 path: the dK / dV blocks (kv tile slowest, so a
+// causal call's longest blocks start first), then the dQ blocks (query
+// tile slowest, last tile first) in one grid
 template <int DH>
-int launch_bwd_tc(const BwdArgs& a, int dh, cudaStream_t s) {
+__global__ void __launch_bounds__(hb_threads<DH>(), 256 / hb_threads<DH>())
+    flash_bwd_hb(BwdArgs a) {
+  static_assert(DH % 32 == 0 && DH <= 256,
+                "flash bwd hb: a warpgroup's n-tiles must come in pairs");
+  static_assert(hb_smem_bytes<DH>() <= SMEM_OPTIN_BYTES,
+                "flash bwd hb: tiles exceed the shared memory of a block");
+  extern __shared__ float4 smem4[];
+  const HbSmem<DH> sm(smem4);
+  const int n_kv = (a.Sk + HB_TILE - 1) / HB_TILE * a.KvH * a.B;
+  const int id = blockIdx.x;
+  if (id < n_kv) {
+    const int kt = id / (a.KvH * a.B), rest = id % (a.KvH * a.B);
+    hb_dkdv<DH>(a, sm, kt, rest % a.KvH, rest / a.KvH);
+  } else {
+    const int j = id - n_kv, nq = (a.Sq + HB_TILE - 1) / HB_TILE;
+    const int qt = nq - 1 - j / (a.H * a.B), rest = j % (a.H * a.B);
+    hb_dq<DH>(a, sm, qt, rest % a.H, rest / a.H);
+  }
+}
+
+template <int DH>
+int launch_bwd_hb(const BwdArgs& a, int dh, cudaStream_t s) {
   const size_t rows = size_t(a.B) * a.Sq * a.H;
   flash_bwd_delta<__nv_bfloat16><<<unsigned((rows + 7) / 8), THREADS, 0, s>>>(
       a, dh);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
-  err = cudaFuncSetAttribute(flash_bwd_dkdv_tc<DH>,
+  err = cudaFuncSetAttribute(flash_bwd_hb<DH>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             tc_dkdv_bytes<DH>());
+                             hb_smem_bytes<DH>());
   if (err != cudaSuccess) return int(err);
-  const dim3 grid_kv((a.Sk + TC_ROWS - 1) / TC_ROWS, a.KvH, a.B);
-  flash_bwd_dkdv_tc<DH><<<grid_kv, TC_THREADS, tc_dkdv_bytes<DH>(), s>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return int(err);
-  err = cudaFuncSetAttribute(flash_bwd_dq_tc<DH>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             tc_dq_bytes<DH>());
-  if (err != cudaSuccess) return int(err);
-  const dim3 grid_q((a.Sq + TC_ROWS - 1) / TC_ROWS, a.H, a.B);
-  flash_bwd_dq_tc<DH><<<grid_q, TC_THREADS, tc_dq_bytes<DH>(), s>>>(a);
+  const size_t blocks = size_t((a.Sk + HB_TILE - 1) / HB_TILE) * a.KvH * a.B +
+                        size_t((a.Sq + HB_TILE - 1) / HB_TILE) * a.H * a.B;
+  if (blocks > 0x7fffffffu) return int(cudaErrorInvalidValue);
+  flash_bwd_hb<DH><<<unsigned(blocks), hb_threads<DH>(), hb_smem_bytes<DH>(),
+                     s>>>(a);
   return int(cudaGetLastError());
 }
 
 template <typename T>
 int launch_dtype(const BwdArgs& a, int dh, cudaStream_t s) {
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-    switch (dh) {                  // Dh 256 stays on the CUDA cores
-      case 64: return launch_bwd_tc<64>(a, dh, s);
-      case 96: return launch_bwd_tc<96>(a, dh, s);
-      case 128: return launch_bwd_tc<128>(a, dh, s);
-      case 256: return launch_bwd<T, 256>(a, dh, s);
+    switch (dh) {
+      case 64: return launch_bwd_hb<64>(a, dh, s);
+      case 96: return launch_bwd_hb<96>(a, dh, s);
+      case 128: return launch_bwd_hb<128>(a, dh, s);
+      case 256: return launch_bwd_hb<256>(a, dh, s);
     }
   } else {
     switch (dh) {
@@ -854,8 +1110,9 @@ int launch_dtype(const BwdArgs& a, int dh, cudaStream_t s) {
 // Plain C entry point (bound with ctypes).  dtype: 0 = float32,
 // 1 = bfloat16 (q, k, v, o, dout, dq, dk, dv all of it; lse and delta
 // float32).  dk / dv are written whole (zeros where no query sees a key).
-// Three launches on `stream`, no synchronisation, no allocation; returns
-// a CUDA error code (0 = success).
+// Three launches (float32) or two (bfloat16) on `stream`, no
+// synchronisation, no allocation; returns a CUDA error code (0 =
+// success).
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* delta, void* dq, void* dk,

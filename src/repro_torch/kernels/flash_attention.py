@@ -33,13 +33,14 @@ autograd needs a gradient (grad mode on and an input requiring one), the
 dispatch sends CUDA tensors through `FlashAttention`, an autograd
 function whose forward is the kernel with that output and whose backward
 is the backward kernel; otherwise it launches the forward alone, as
-serving does.  `BWD_LAUNCHES` counts backward calls (three kernels
-each).  `flash_attention_lse_plain` and `flash_attention_bwd_plain` are
+serving does.  `BWD_LAUNCHES` counts backward calls (two kernels each
+in bf16, three in float32).  `flash_attention_lse_plain` and `flash_attention_bwd_plain` are
 their plain versions: the latter runs the same recurrence on the
 backward kernel's tiles (`BWD_TILES`) and is held to autograd of the
-plain forward by the CPU tests.  The backward kernel runs bf16 at Dh 64,
-96 and 128 on the tensor cores (mma.sync), float32 and bf16 at Dh 256 on
-the CUDA cores.
+plain forward by the CPU tests.  The backward kernel runs bf16 at every
+Dh on the tensor cores (every product a wgmma chain, P and dS rounded to
+bf16 once), float32 on the CUDA cores; every sum runs in a fixed order,
+so a call repeats bit for bit.
 """
 from __future__ import annotations
 
@@ -57,15 +58,16 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # BF_BQ / BF_BK in csrc/flash_attention.cu
 TILES = {torch.float32: (64, 64), torch.bfloat16: (128, 64)}
 
-# (query rows, keys) of the backward's CUDA-core tiles by head width (the
-# float32 path, and bf16 at Dh 256): BQ and bwd_bk<DH> in
-# csrc/flash_attention_bwd.cu; its bf16 tensor-core path (Dh <= 128) walks
-# 32 query rows against 64 keys in dK / dV (TC_BQ, TC_ROWS), 64 against 64
-# in dQ
-BWD_TILES = {64: (64, 64), 96: (64, 64), 128: (64, 64), 256: (64, 32)}
+# (query rows, keys) of the backward's tiles by dtype and head width: bf16
+# 64 x 64 at every width (HB_ROWS in csrc/flash_attention_bwd.cu), float32
+# BQ x bwd_bk<DH> (64 x 32 at Dh 256)
+BWD_TILES = {torch.bfloat16: {64: (64, 64), 96: (64, 64), 128: (64, 64),
+                              256: (64, 64)},
+             torch.float32: {64: (64, 64), 96: (64, 64), 128: (64, 64),
+                             256: (64, 32)}}
 
 LAUNCHES = 0                # forward kernel launches in this process
-BWD_LAUNCHES = 0            # backward kernel calls (three launches each)
+BWD_LAUNCHES = 0            # backward kernel calls (two or three launches)
 
 
 def _check(q, k, v) -> None:
@@ -147,17 +149,25 @@ def flash_attention_bwd_plain(q, k, v, o, do, lse, *, causal=True,
                               window=None, scale=None):
     """(dq, dk, dv) of attention from the forward's output `o`, the
     output gradient `do` and the row log-sum-exp `lse` (B, H, Sq), by the
-    backward kernel's recurrence on its CUDA-core tiles (`BWD_TILES`;
+    backward kernel's recurrence on its tiles (`BWD_TILES` of q's dtype;
     (64, 64) at other widths), in float32: delta = rowsum(dO o O);
     per tile P = exp(S scale - lse) (masked entries 0), dV += P^T dO,
     dS = P o (dO V^T - delta), dQ += dS K scale, dK += dS^T Q scale.
+    P is rounded to q's dtype before its product and dS before its two,
+    as the kernel's bf16 path rounds them once for the tensor cores
+    (float32: no rounding); dS itself is formed from the unrounded P.
     Tiles no row of which sees a key are skipped, as the kernel skips
     them.  The gradients have the inputs' dtypes."""
     B, Sq, H, Dh = q.shape
     Sk, KvH = k.shape[1], k.shape[2]
     G = H // KvH
     scale = scale if scale is not None else 1.0 / math.sqrt(Dh)
-    bq, bk = BWD_TILES.get(Dh, (64, 64))
+    bq, bk = BWD_TILES.get(q.dtype, BWD_TILES[torch.float32]) \
+        .get(Dh, (64, 64))
+
+    def operand(t):                   # a tensor-core operand's rounding
+        return t.to(q.dtype).float()
+
     dof = do.reshape(B, Sq, KvH, G, Dh).float()
     delta = (dof * o.reshape(B, Sq, KvH, G, Dh).float()).sum(-1) \
         .permute(0, 2, 3, 1)                          # (B, KvH, G, Sq)
@@ -178,9 +188,10 @@ def flash_attention_bwd_plain(q, k, v, o, do, lse, *, causal=True,
             p = torch.where(ok, torch.exp(s - lse[..., q0:q1, None]),
                             torch.zeros_like(s))
             d_o = dof[:, q0:q1]
-            dv[:, k0:k1] += torch.einsum("bhgqk,bqhgd->bkhd", p, d_o)
+            dv[:, k0:k1] += torch.einsum("bhgqk,bqhgd->bkhd", operand(p),
+                                         d_o)
             dp = torch.einsum("bqhgd,bkhd->bhgqk", d_o, vf[:, k0:k1])
-            ds = p * (dp - delta[..., q0:q1, None])
+            ds = operand(p * (dp - delta[..., q0:q1, None]))
             dq[:, q0:q1] += torch.einsum("bhgqk,bkhd->bqhgd", ds,
                                          kf[:, k0:k1])
             dk[:, k0:k1] += torch.einsum(
@@ -254,8 +265,9 @@ def _flash_cuda(q, k, v, *, causal=True, window=None, scale=None,
 
 def _flash_bwd_cuda(q, k, v, o, do, lse, *, causal=True, window=None,
                     scale=None):
-    """Launch csrc/flash_attention_bwd.cu (three kernels) on the current
-    stream (no sync); returns (dq, dk, dv) in the inputs' dtype."""
+    """Launch csrc/flash_attention_bwd.cu (three kernels in float32, two
+    in bf16) on the current stream (no sync); returns (dq, dk, dv) in the
+    inputs' dtype."""
     global BWD_LAUNCHES
     B, Sq, H, Dh = q.shape
     Sk, KvH = k.shape[1], k.shape[2]

@@ -15,6 +15,7 @@ gives the same run's inputs on the CPU and the card.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import signal
 import time
 
@@ -53,15 +54,21 @@ def train(arch: str, *, smoke: bool = True, steps: int = 50,
           batch: int = 8, seq: int = 64, ckpt_dir: str | None = None,
           ckpt_every: int = 20, compress_grads: bool = False,
           lr: float = 3e-3, log_every: int = 10, device="cuda",
-          on_step=None):
+          on_step=None, layers: int | None = None):
     """Train `arch` for `steps` steps from seeded weights (a CPU
     `torch.Generator`, seed 0, drawn on the host and moved to `device`:
     the same weights on every device), or from the latest checkpoint
     under `ckpt_dir`; returns (params, losses of the steps run).
     `on_step(step, metrics)` sees each step's metrics ({"loss",
-    "grad_norm", "lr"})."""
+    "grad_norm", "lr"}).  `layers` cuts the depth to that many layers
+    (the config's first `layers`, at full width)."""
     dev = _device.resolve(device)
     cfg, model = registry.get(arch, smoke=smoke)
+    if layers is not None:
+        if not 0 < layers <= cfg.n_layers:
+            raise ValueError(f"layers must be in 1..{cfg.n_layers}, got "
+                             f"{layers}")
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     if cfg.family == "encdec":
         seq = max(seq, 16)
     t0 = time.perf_counter()

@@ -768,6 +768,8 @@ def _autograd_plain(q, k, v, do, causal, window):
     (1, 257, 257, 8, 4, 256, True, 5),      # Dh 256, window below a tile
     (1, 100, 300, 4, 4, 64, False, None),   # cross-attention shape
     (1, 37, 37, 4, 4, 96, True, None),      # below one tile
+    (1, 600, 600, 8, 4, 256, True, None),   # Dh 256 GQA, many tiles
+    (1, 130, 200, 4, 2, 256, False, None),  # Dh 256 ragged, bidirectional
 ])
 def test_flash_bwd_kernel_matches_plain(cuda, dtype, B, Sq, Sk, H, KvH, Dh,
                                         causal, window):
@@ -785,6 +787,27 @@ def test_flash_bwd_kernel_matches_plain(cuda, dtype, B, Sq, Sk, H, KvH, Dh,
         assert got.dtype == dtype and bool(torch.isfinite(got).all())
         err = float((got.float() - w.float()).abs().max())
         assert err <= BWD_TOL[dtype] * float(w.float().abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk,H,KvH,Dh,causal,window", [
+    (2, 300, 300, 8, 2, 128, True, 96),
+    (1, 600, 600, 8, 4, 256, True, None),
+    (2, 200, 330, 4, 4, 64, False, None),
+])
+def test_flash_bwd_kernel_repeats_bit_for_bit(cuda, dtype, B, Sq, Sk, H,
+                                              KvH, Dh, causal, window):
+    """Every sum of the backward kernel runs in a fixed order: two calls
+    on the same inputs give the same bits."""
+    q, do = (_randn(i, (B, Sq, H, Dh), dtype, cuda) for i in (0, 3))
+    k, v = (_randn(i, (B, Sk, KvH, Dh), dtype, cuda) for i in (1, 2))
+    o, lse = fa._flash_cuda(q, k, v, causal=causal, window=window, lse=True)
+    runs = [fa._flash_bwd_cuda(q, k, v, o, do, lse, causal=causal,
+                               window=window) for _ in range(2)]
+    torch.cuda.synchronize()
+    width = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    for a, b in zip(*runs):
+        assert torch.equal(a.view(width), b.view(width))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

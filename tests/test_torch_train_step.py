@@ -17,6 +17,7 @@ expert choice is discrete and taken on the same logits in both, so its
 gradients are held the same way.  The flash backward's plain version
 against autograd: 2e-6 of each gradient's largest magnitude."""
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -230,16 +231,70 @@ def test_flash_bwd_plain_matches_autograd(B, Sq, Sk, H, KvH, Dh, causal,
                                    atol=2e-6 * float(b.abs().max()))
 
 
+def _rounded_bwd(q, k, v, o, do, lse, causal, window, rounded=True):
+    """The backward in float32, untiled, from bf16 inputs: P rounded to
+    bf16 before dV's product and dS before dQ's and dK's (`rounded`), as
+    the bf16 kernel rounds its tensor-core operands, or neither."""
+    B, Sq, H, Dh = q.shape
+    Sk, KvH = k.shape[1], k.shape[2]
+    G = H // KvH
+    scale = 1.0 / math.sqrt(Dh)
+    rnd = (lambda t: t.to(torch.bfloat16).float()) if rounded \
+        else (lambda t: t)
+    qf, dof, of = (t.float().reshape(B, Sq, KvH, G, Dh) for t in (q, do, o))
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kf) * scale
+    qi = torch.arange(Sq)[:, None]
+    kj = torch.arange(Sk)[None, :]
+    ok = torch.ones((Sq, Sk), dtype=torch.bool)
+    if causal:
+        ok &= kj <= qi
+    if window is not None:
+        ok &= kj > qi - window
+    p = torch.where(ok, torch.exp(s - lse.reshape(B, KvH, G, Sq, 1)), 0.0)
+    delta = (dof * of).sum(-1).permute(0, 2, 3, 1)[..., None]
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dof, vf)
+    ds = rnd(p * (dp - delta))
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", rnd(p), dof)
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf) * scale
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qf) * scale
+    return dq.reshape(B, Sq, H, Dh), dk, dv
+
+
 def test_flash_bwd_plain_bf16_keeps_the_dtype():
     q, k, v, do = (t.to(torch.bfloat16) for t in _qkv(1, 64, 64, 2, 2, 64))
     o = fa.flash_attention_plain(q, k, v)
     lse = fa.flash_attention_lse_plain(q, k)
     got = fa.flash_attention_bwd_plain(q, k, v, o, do, lse)
     assert all(g.dtype == torch.bfloat16 for g in got)
-    ref = fa.flash_attention_bwd_plain(*(t.float() for t in (q, k, v, o, do)),
-                                       lse)
+    ref = _rounded_bwd(q, k, v, o, do, lse, True, None)
     for a, b in zip(got, ref):          # one bf16 rounding of the result
         torch.testing.assert_close(a.float(), b, rtol=2 ** -8, atol=1e-6)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KvH,Dh,causal,window", [
+    (1, 150, 150, 4, 2, 64, True, 40),
+    (1, 100, 100, 4, 2, 256, True, None),
+    (1, 70, 130, 2, 2, 96, False, None),
+])
+def test_flash_bwd_plain_rounds_p_and_ds_like_the_kernel(B, Sq, Sk, H, KvH,
+                                                         Dh, causal, window):
+    """In bf16 the plain version rounds P before dV's product and dS
+    before dQ's and dK's, once each, as the kernel does: its gradients
+    are one bf16 rounding from that computation's, and further than that
+    from the same computation without the two roundings (the control)."""
+    q, k, v, do = (t.to(torch.bfloat16)
+                   for t in _qkv(B, Sq, Sk, H, KvH, Dh, seed=3))
+    o = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    lse = fa.flash_attention_lse_plain(q, k, causal=causal, window=window)
+    got = fa.flash_attention_bwd_plain(q, k, v, o, do, lse, causal=causal,
+                                       window=window)
+    want = _rounded_bwd(q, k, v, o, do, lse, causal, window)
+    unrounded = _rounded_bwd(q, k, v, o, do, lse, causal, window, False)
+    for a, b, c in zip(got, want, unrounded):
+        torch.testing.assert_close(a.float(), b, rtol=2 ** -8, atol=1e-6)
+        with pytest.raises(AssertionError):
+            torch.testing.assert_close(a.float(), c, rtol=2 ** -8, atol=1e-6)
 
 
 def _plain_launchers(monkeypatch):

@@ -402,6 +402,25 @@ def test_train_step_metrics_and_compression():
     assert losses == [float(m["loss"]) for _, m in seen]
 
 
+def test_train_cuts_the_depth():
+    """`layers` trains the config's first layers at full width: every
+    stacked layer leaf has that many rows, the rest of the tree is the
+    full config's; a depth outside 1..n_layers raises."""
+    from repro_torch.models import registry
+    cfg, model = registry.get("gemma3-4b", smoke=True)
+    params, losses = t_train.train("gemma3-4b", smoke=True, steps=1,
+                                   batch=2, seq=16, device="cpu", layers=2)
+    assert len(losses) == 1 and math.isfinite(losses[0])
+    full = model.init(torch.Generator().manual_seed(0), cfg, "cpu")
+    assert set(params) == set(full)
+    for leaf, want in zip(t_tree.leaves(params["layers"]),
+                          t_tree.leaves(full["layers"])):
+        assert leaf.shape == (2,) + tuple(want.shape[1:])
+    with pytest.raises(ValueError):
+        t_train.train("gemma3-4b", smoke=True, steps=1, batch=2, seq=16,
+                      device="cpu", layers=cfg.n_layers + 1)
+
+
 @pytest.mark.parametrize("arch", ["whisper-medium", "phi-3-vision-4.2b"])
 def test_side_inputs_are_seeded_per_step(arch):
     from repro_torch.models import registry
