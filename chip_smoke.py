@@ -284,11 +284,14 @@ The SSD family's training path:
      weights, held as phase 20; mamba2-2.7b at full width, 4 of 64
      layers: one bf16-compute step through the kernels against the plain
      SSD;
- 26. timing: the SSD backward's ms at zamba2's and mamba2-2.7b's
-     prefill shapes and phase 24's, beside `ssd_scan_bwd_plain`'s and the
-     bound (no library call computes the SSD gradient); zamba2-1.2b's ms
-     per step, tokens/s, share of the bf16 peak (`ssm_train_flops`) and
-     peak memory; a profile of one `make_train_step`.
+ 26. timing: the SSD backward's ptxas lines (registers and spills of
+     every entry; a spill in a bf16 launch is a miss); its ms at
+     zamba2's and mamba2-2.7b's prefill shapes and phase 24's, beside
+     `ssd_scan_bwd_plain`'s and the bound (no library call computes the
+     SSD gradient); zamba2-1.2b's ms per step, tokens/s, share of the
+     bf16 peak (`ssm_train_flops`) and peak memory; a profile of one
+     `make_train_step`, with the SSD backward's busy ms in it and each
+     of its launches' mean device time.
 
 The transformer family's Dh 256 training path:
 
@@ -321,6 +324,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import re
 import subprocess
 import sys
 import threading
@@ -398,7 +402,6 @@ def ptxas_kernels(log: str) -> list:
     instantiation in an nvcc -Xptxas -v log (`flash_bwd_<launch><dtype,
     Dh>` for the backward's, `ssd_bwd_<launch><dtype, n>` for the SSD
     backward's)."""
-    import re
     out, name = [], None
     for line in log.splitlines():
         m = re.search(r"entry function .*?(flash_kernel_[a-z0-9]+)ILi(\d+)E",
@@ -413,8 +416,8 @@ def ptxas_kernels(log: str) -> list:
         m = re.search(r"entry function .*?(flash_bwd_hb)ILi(\d+)E", line)
         if m:                           # the bf16 tensor-core launch
             name = f"{m.group(1)}<bf16, {m.group(2)}>"
-        m = re.search(r"entry function .*?(ssd_bwd_[a-z]+)I(13__nv_bfloat16"
-                      r"|f)?Li(\d+)E", line)
+        m = re.search(r"entry function .*?(ssd_bwd_[a-z0-9_]+?)I(13__nv_"
+                      r"bfloat16|f)?Li(\d+)E", line)
         if m:                           # the SSD backward's launches
             dtype = {None: "", "f": "f32, "}.get(m.group(2), "bf16, ")
             name = f"{m.group(1)}<{dtype}{m.group(3)}>"
@@ -3397,6 +3400,9 @@ SSD_BWD_F32_REL = 1e-5
 # gradient, which the plain version with W and G o E rounded to bf16
 # before their products (a tensor-core shortcut) must exceed on dx, dB, dC
 SSD_BWD_BF16_RMS = 5e-4
+# the SSD backward's bf16 launches by name in a profile (phase 26 reads
+# each one's device time from the zamba2 step's profile)
+SSD_BWD_LAUNCHES = ("ssd_bwd_walk", "ssd_bwd_pass", "ssd_bwd_chunk")
 SSM_TRAIN_ARCH = "zamba2-1.2b"
 SSM_TRAIN_B, SSM_TRAIN_S = 4, 2048
 SSM_TRAIN_STEPS = 6
@@ -3838,9 +3844,9 @@ def time_ssd_bwd(dev) -> list:
     """Phase 26's kernel times: the backward kernel alone (CUDA events,
     10 calls, on the forward's own group states) at the bf16 shapes of
     zamba2's and mamba2-2.7b's prefill and of phase 24's step, beside
-    `ssd_scan_bwd_plain` (1 call) and the bound; no library call computes
-    the SSD gradient.  Returns the rows (name, ms, plain ms, bound,
-    bound_by)."""
+    `ssd_scan_bwd_plain` (1 call) and the bound; no library call
+    computes the SSD gradient.  Returns the rows (name, ms, plain ms,
+    bound, bound_by)."""
     import torch
     from repro_torch.kernels import ssd_scan as ss
     gen = torch.Generator(device=dev).manual_seed(12)
@@ -3862,9 +3868,25 @@ def time_ssd_bwd(dev) -> list:
         print(f"ssd bwd kernel ({name}: b={b} s={s} h={h} p=64 g={g} n={n} "
               f"bf16): {ms:.4f} ms ({ss.bwd_kernel_launches(s)} launches); "
               f"plain {plain_ms:.2f} ms; bound {bound:.5f} ms by {by} "
-              f"({bound / ms * 100:.1f} % of it reached); library call: none")
+              f"({bound / ms * 100:.1f} % of it reached); library call: "
+              f"none")
         del ins, dy, states
     return rows
+
+
+def check_ssd_bwd_ptxas() -> None:
+    """Phase 26: the backward's ptxas lines (registers, spills) of every
+    entry, and no spills in its bf16 launches."""
+    from repro_torch.kernels import build
+    lines = ptxas_kernels(build.BUILD_LOG.get("ssd_scan_bwd", ""))
+    if not lines:
+        print("ptxas ssd_scan_bwd: not measured (no build log in this "
+              "process)")
+        return
+    for line in lines:
+        print(f"ptxas ssd_scan_bwd {line}")
+        if "bf16" in line.split()[0] and "spills 0 / 0 B" not in line:
+            miss(f"ptxas ssd_scan_bwd: {line}: the bf16 backward spills")
 
 
 def ssm_training_phases(dev) -> tuple:
@@ -3891,8 +3913,8 @@ def ssm_training_phases(dev) -> tuple:
     prof = profile_device(lambda: step(params, state, batch),
                           f"{SSM_TRAIN_ARCH} make_train_step (remat), "
                           f"B={SSM_TRAIN_B} S={SSM_TRAIN_S}",
-                          tags=("ssd_kernel", "ssd_bwd", "flash_kernel",
-                                "flash_bwd"))
+                          tags=("ssd_kernel", "ssd_bwd", *SSD_BWD_LAUNCHES,
+                                "flash_kernel", "flash_bwd"))
     del params, state, batch
     torch.cuda.empty_cache()
     # 25. card vs CPU; mamba2-2.7b
@@ -3900,9 +3922,18 @@ def ssm_training_phases(dev) -> tuple:
     n_f25b, n_b25b = mamba2_step(dev)
     torch.cuda.empty_cache()
     # 26. timing
+    check_ssd_bwd_ptxas()
     rows = time_ssd_bwd(dev)
     print(train_line)
     print(prof)
+    busy = {t: re.search(rf"{t} ([0-9.]+) ms", prof)
+            for t in ("ssd_bwd", *SSD_BWD_LAUNCHES)}
+    print(f"{SSM_TRAIN_ARCH} make_train_step: SSD backward busy "
+          + (f"{busy['ssd_bwd'].group(1)} ms ({cfg.n_layers} calls); a "
+             "launch: " + ", ".join(
+                 f"{t} {float(busy[t].group(1)) / cfg.n_layers:.4f} ms"
+                 for t in SSD_BWD_LAUNCHES)
+             if all(busy.values()) else "not measured"))
     n_bwd = n_b24 + n_b25 + n_b25b
     print(f"ssd backward calls on the main paths: {n_bwd} ({n_b24} "
           f"zamba2-1.2b training, {n_b25} card vs CPU, {n_b25b} mamba2-2.7b)")

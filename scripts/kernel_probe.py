@@ -26,6 +26,10 @@ for working on one kernel.
                                                      # ptxas, edges vs its
                                                      # plain version and
                                                      # autograd, times
+    python3 scripts/kernel_probe.py ssd-bwd-compare OTHER.cu   # another
+                                                     # copy of the SSD
+                                                     # backward's source
+                                                     # vs this one, in turns
     python3 scripts/kernel_probe.py ssd-compare OTHER.cu     # the SSD
                                                      # forward's serving
                                                      # launch, another
@@ -781,6 +785,77 @@ def probe_flash_bwd_compare(other: str) -> None:
         del q, k, v, do, o, lse, plain
 
 
+def bind_ssd_bwd(path: str):
+    """Build another copy of csrc/ssd_scan_bwd.cu (with this checkout's
+    entry point) into build/probe/ and return a call (x, dt, A, B, C, dy,
+    states) -> (dx, ddt, dA, dB, dC) through the checkout's wrapper."""
+    lib = build.BUILD_DIR.parent / "probe" / "ssd_bwd_other.so"
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(lib),
+                           path], capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed for {path}:\n{proc.stderr}")
+    print("ptxas other: " + "; ".join(chip_smoke.ptxas_kernels(proc.stderr)))
+    fn = ctypes.CDLL(str(lib)).ssd_scan_bwd_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ss._bwd_lib().argtypes
+
+    def run(x, dt, A, B, C, dy, states):
+        saved = ss._bwd_lib
+        ss._bwd_lib = lambda: fn
+        try:
+            return ss._ssd_bwd_cuda(x, dt, A, B, C, dy, states)
+        finally:
+            ss._bwd_lib = saved
+    return run
+
+
+def probe_ssd_bwd_compare(other: str) -> None:
+    """The SSD backward built from another copy of csrc/ssd_scan_bwd.cu
+    (`other`: the parent commit's, or an edited copy of this one) against
+    this checkout's, at zamba2's and mamba2-2.7b's prefill shapes and phase
+    24's step shape, bf16 and float32, on the forward kernel's own group
+    states: each build's largest gradient error against
+    `ssd_scan_bwd_plain` (over each gradient's largest magnitude; bf16
+    also the relative RMS), whether a repeat is bit-equal, and times in
+    turns (other, this, this, other)."""
+    build.build_all(("ssd_scan", "ssd_scan_bwd"))
+    print("ptxas this: " + "; ".join(chip_smoke.ptxas_kernels(
+        build.BUILD_LOG.get("ssd_scan_bwd", ""))))
+    run_other = bind_ssd_bwd(other)
+    names = ("dx", "ddt", "dA", "dB", "dC")
+    gen = torch.Generator(device=DEV).manual_seed(13)
+    for label, b, s, h, g, n in (("zamba2", 2, 4096, 64, 1, 64),
+                                 ("mamba2-2.7b", 2, 4096, 80, 1, 128),
+                                 ("zamba2 train", 4, 2048, 64, 1, 64)):
+        for dtype in (torch.bfloat16, torch.float32):
+            ins = ssd_inputs(gen, b, s, h, g, n, dtype, 1.0)
+            dy = rn(gen, (b, s, h, 64), dtype)
+            _, st = ss._ssd_cuda(*ins, chunk=64, states=True)
+            fns = {"other": lambda: run_other(*ins, dy, st),
+                   "this": lambda: ss._ssd_bwd_cuda(*ins, dy, st)}
+            plain = ss.ssd_scan_bwd_plain(*ins, dy, chunk=64)
+            tag = (f"ssd bwd {label} {str(dtype)[6:]} b={b} s={s} h={h} "
+                   f"g={g} n={n}")
+            for who, f in fns.items():
+                a, c = f(), f()
+                torch.cuda.synchronize()
+                line = (f"{tag}, {who}: vs plain " + " ".join(
+                    f"{k} {rel_max(x, w):.3g}"
+                    for k, x, w in zip(names, a, plain)))
+                if dtype == torch.bfloat16:
+                    line += "; rel RMS " + " ".join(
+                        f"{k} {rel_rms(x, w):.3g}"
+                        for k, x, w in zip(names, a, plain))
+                same = all(torch.equal(x, y) for x, y in zip(a, c))
+                print(line + f"; a repeat bit-equal: {same}", flush=True)
+            for who in ("other", "this", "this", "other"):
+                where = other if who == "other" else "checkout"
+                print(f"{tag}, {who} ({where}): "
+                      f"{cuda_ms(fns[who], 10):.4f} ms", flush=True)
+            del ins, dy, st, plain
+
+
 def main() -> None:
     probes = {"day": probe_day, "flash": probe_flash, "ssd": probe_ssd,
               "flash-variants": probe_flash_variants,
@@ -788,7 +863,8 @@ def main() -> None:
               "row-stage": probe_row_stage}
     compare = {"flash-compare": probe_flash_compare,
                "flash-bwd-compare": probe_flash_bwd_compare,
-               "ssd-compare": probe_ssd_compare}
+               "ssd-compare": probe_ssd_compare,
+               "ssd-bwd-compare": probe_ssd_bwd_compare}
     if len(sys.argv) == 3 and sys.argv[1] in compare:
         probes[sys.argv[1]] = lambda: compare[sys.argv[1]](sys.argv[2])
     elif len(sys.argv) != 2 or sys.argv[1] not in probes:

@@ -36,9 +36,12 @@ forward alone, as serving does.  `BWD_LAUNCHES` counts backward calls
 (`bwd_kernel_launches(s)` kernels each).  `ssd_scan_bwd_plain` is the
 backward's plain version, chunk by chunk from the gradient equations
 (the tests hold it to autograd of `ssd_scan_plain` and to `jax.grad`
-of the reference); `ssd_scan_bwd_split_plain` mirrors the kernel's
-split.  The backward returns dx, dB, dC in x's dtype, ddt and dA in
-float32.
+of the reference); `ssd_scan_bwd_split_plain` mirrors the bf16
+kernel's split (walks, pass, chunk blocks that sum the dB / dC of
+`BWD_HEADS` heads of a B/C group), and `split=k` on the plain version
+takes every operand the bf16 kernel splits as the sum of its first k
+bf16 parts (`split_parts`).  The backward returns dx, dB, dC in x's dtype, ddt and
+dA in float32.
 """
 from __future__ import annotations
 
@@ -57,6 +60,10 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the prefill shape 64 chunks make 8 groups, whose f32 states (16.8 MB)
 # stay in the 50 MB L2
 GROUP_CHUNKS = 8
+
+# heads of one B/C group a block of the bf16 backward takes
+# (csrc/ssd_scan_bwd.cu HEADS): it sums their dB and dC itself
+BWD_HEADS = 8
 
 LAUNCHES = 0                # kernel launches in this process
 BWD_LAUNCHES = 0            # backward kernel calls in this process
@@ -139,12 +146,57 @@ def ssd_scan_rounded_plain(x, dt, A, B, C, *, chunk=64):
     return torch.cat(ys, dim=1)[:, :s]
 
 
-def _bwd_chunks(x, dt, A, B, C, dy, S0, dS, chunk, rounded=False):
-    """The backward of the scan over whole chunks (s a multiple of
-    `chunk`) from the incoming state S0 (b, h, p, n), given the output
-    gradient dy and the gradient dS of the final state.  Per chunk of L
-    rows, with a = dt A, c its inclusive cumsum, u = dt x, S the chunk's
-    incoming state, dS' its outgoing state's gradient and E_ij =
+def split_parts(t, parts):
+    """The bf16 parts of the float32 tensor `t` as the backward kernel
+    splits a float32 operand: the first is bf16(t), each next one bf16 of
+    what the parts before leave.  Returned as float32 tensors; with three
+    their sum is t, bit for bit, over float32's normal range."""
+    out, rest = [], t.float()
+    for _ in range(parts):
+        part = rest.to(torch.bfloat16).float()
+        out.append(part)
+        rest = rest - part
+    return out
+
+
+def _operand(t, split):
+    """What an exact tensor-core product sees of the float32 operand t
+    split into `split` bf16 parts (the sum of the parts); t itself when
+    `split` is None."""
+    if split is None:
+        return t
+    parts = split_parts(t, split)
+    out = parts[0]
+    for part in parts[1:]:
+        out = out + part
+    return out
+
+
+def _state_step(S, x_, dt_, A, B_, split=None):
+    """One chunk forward: S (b, h, p, n) <- exp(c_L) S + sum_j (x_j dt_j
+    exp(c_L - c_j)) B_j^T, the scaled x split as the kernel splits it."""
+    cA = torch.cumsum(dt_ * A, dim=1)
+    v = x_ * (dt_ * torch.exp(cA[:, -1:] - cA))[..., None]
+    upd = torch.einsum("bjhp,bjhn->bhpn", _operand(v, split), B_)
+    return S * torch.exp(cA[:, -1])[..., None, None] + upd
+
+
+def _grad_step(dS, dy_, dt_, A, C_, split=None):
+    """One chunk in reverse: the gradient of the chunk's outgoing state
+    (b, h, p, n) to that of its incoming state, exp(c_L) dS + sum_i
+    (exp(c_i) dy_i) C_i^T, the scaled dy split as the kernel splits it."""
+    cA = torch.cumsum(dt_ * A, dim=1)
+    v = dy_ * torch.exp(cA)[..., None]
+    return dS * torch.exp(cA[:, -1])[..., None, None] + torch.einsum(
+        "bihp,bihn->bhpn", _operand(v, split), C_)
+
+
+def _chunk_grads(x_, dt_, A, B_, C_, dy_, S, dS, tri, rounded=False,
+                 split=None):
+    """One chunk's gradient, per head, float32: x_ / dy_ (b, L, h, p),
+    dt_ (b, L, h), B_ / C_ repeated to the heads (b, L, h, n), S the
+    chunk's incoming state and dS the gradient of its outgoing state
+    (b, h, p, n).  With a = dt A, c its cumsum, u = dt x and E_ij =
     exp(c_i - c_j) for i >= j (else 0):
       W = (C B^T) o E, G = dy u^T, GE = G o E
       du = W^T dy + exp(c_L - c) (B dS'^T)          dx = dt du
@@ -152,63 +204,76 @@ def _bwd_chunks(x, dt, A, B, C, dy, S0, dS, chunk, rounded=False):
       dc = rowsum(W o G) - colsum(W o G) + C.(dy S) exp(c) - r, with
            r_j = exp(c_L - c_j) u_j.(dS' B_j); the last row adds
            exp(c_L) <dS', S> + sum_j r_j
-      da = reverse cumsum of dc; ddt = x.du + A da; dA += sum dt da
-      dS <- exp(c_L) dS' + dy^T (exp(c) C)
-    Returns float32 dx, ddt (b, s, h), dA (b, h) and per-head dB / dC
-    (b, s, h, n).  `rounded` rounds W and GE to
-    bf16 before the products that take them (a tensor-core shortcut:
-    the control of the card's bf16 check)."""
-    b, s, h, _ = x.shape
-    rep = h // B.shape[2]
-    xf, dyf, dtf = x.float(), dy.float(), dt.float()
-    Bh = B.repeat_interleave(rep, dim=2).float()
-    Ch = C.repeat_interleave(rep, dim=2).float()
+      da = reverse cumsum of dc; ddt = x.du + A da; dA = sum dt da
+    Returns dx, ddt (b, L, h), dA (b, h), dB, dC (b, L, h, n).
+    `rounded` rounds W and GE to bf16 before the products that take them
+    (a tensor-core shortcut: the control of the card's bf16 check);
+    `split` takes W, GE, S and dS' as the sums of that many bf16 parts
+    there, as the bf16 kernel does."""
+    zero = torch.zeros((), dtype=torch.float32, device=x_.device)
+    cA = torch.cumsum(dt_ * A, dim=1)                       # (b,L,h)
+    E = torch.where(tri[None, :, :, None],
+                    torch.exp(cA[:, :, None] - cA[:, None]), zero)
+    u = x_ * dt_[..., None]
+    W = torch.einsum("bihn,bjhn->bijh", C_, B_) * E
+    G = torch.einsum("bihp,bjhp->bijh", dy_, u)
+    GE = G * E
+    if rounded:
+        Wr, GEr = (t.to(torch.bfloat16).float() for t in (W, GE))
+    else:
+        Wr, GEr = _operand(W, split), _operand(GE, split)
+    Sr, dSr = _operand(S, split), _operand(dS, split)
+    eca = torch.exp(cA)
+    dec = torch.exp(cA[:, -1:] - cA)
+    last = torch.exp(cA[:, -1])                             # (b,h)
+    dus = dec[..., None] * torch.einsum("bjhn,bhpn->bjhp", B_, dSr)
+    du = torch.einsum("bijh,bihp->bjhp", Wr, dy_) + dus
+    dCs = eca[..., None] * torch.einsum("bihp,bhpn->bihn", dy_, Sr)
+    dC_ = torch.einsum("bijh,bjhn->bihn", GEr, B_) + dCs
+    dB_ = torch.einsum("bijh,bihn->bjhn", GEr, C_) \
+        + dec[..., None] * torch.einsum("bjhp,bhpn->bjhn", u, dSr)
+    M = W * G
+    r = (u * dus).sum(-1)                                   # (b,L,h)
+    dc = M.sum(2) - M.sum(1) + (C_ * dCs).sum(-1) - r
+    dc[:, -1] += last * (dS * S).sum((-2, -1)) + r.sum(1)
+    da = torch.flip(torch.cumsum(torch.flip(dc, [1]), 1), [1])
+    return (du * dt_[..., None], (x_ * du).sum(-1) + A * da,
+            (dt_ * da).sum(1), dB_, dC_)
+
+
+def _per_head(x, dt, B, C, dy):
+    """float32 x, dt, dy and B / C repeated to x's heads."""
+    rep = x.shape[2] // B.shape[2]
+    return (x.float(), dt.float(), B.repeat_interleave(rep, dim=2).float(),
+            C.repeat_interleave(rep, dim=2).float(), dy.float())
+
+
+def _bwd_chunks(x, dt, A, B, C, dy, S0, dS, chunk, rounded=False,
+                split=None):
+    """The backward of the scan over whole chunks (s a multiple of
+    `chunk`) from the incoming state S0 (b, h, p, n), given the output
+    gradient dy and the gradient dS of the final state: every chunk's
+    incoming state forward, then the chunks in reverse (`_chunk_grads`),
+    carrying the state gradient.  Returns float32 dx, ddt (b, s, h), dA
+    (b, h) and per-head dB / dC (b, s, h, n)."""
+    xf, dtf, Bh, Ch, dyf = _per_head(x, dt, B, C, dy)
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                 device=x.device))
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    nc = s // chunk
-    cuts = [slice(c * chunk, (c + 1) * chunk) for c in range(nc)]
+    cuts = [slice(c * chunk, (c + 1) * chunk)
+            for c in range(x.shape[1] // chunk)]
     states, S = [], S0
     for sl in cuts:                     # each chunk's incoming state
-        cA = torch.cumsum(dtf[:, sl] * A, dim=1)
         states.append(S)
-        upd = torch.einsum("bjhn,bjhp,bjh->bhpn", Bh[:, sl],
-                           xf[:, sl] * dtf[:, sl, :, None],
-                           torch.exp(cA[:, -1:] - cA))
-        S = S * torch.exp(cA[:, -1])[..., None, None] + upd
-    dA = torch.zeros((b, h), dtype=torch.float32, device=x.device)
+        S = _state_step(S, xf[:, sl], dtf[:, sl], A, Bh[:, sl], split)
+    dA = torch.zeros(dtf[:, 0].shape, dtype=torch.float32, device=x.device)
     outs = []
     for sl, S in zip(reversed(cuts), reversed(states)):
-        x_, dy_, dt_, B_, C_ = xf[:, sl], dyf[:, sl], dtf[:, sl], Bh[:, sl], \
-            Ch[:, sl]
-        cA = torch.cumsum(dt_ * A, dim=1)                       # (b,L,h)
-        E = torch.where(tri[None, :, :, None],
-                        torch.exp(cA[:, :, None] - cA[:, None]), zero)
-        u = x_ * dt_[..., None]
-        W = torch.einsum("bihn,bjhn->bijh", C_, B_) * E
-        G = torch.einsum("bihp,bjhp->bijh", dy_, u)
-        GE = G * E
-        Wr, GEr = (t.to(torch.bfloat16).float() if rounded else t
-                   for t in (W, GE))
-        eca = torch.exp(cA)
-        dec = torch.exp(cA[:, -1:] - cA)
-        last = torch.exp(cA[:, -1])                             # (b,h)
-        dus = dec[..., None] * torch.einsum("bjhn,bhpn->bjhp", B_, dS)
-        du = torch.einsum("bijh,bihp->bjhp", Wr, dy_) + dus
-        dCs = eca[..., None] * torch.einsum("bihp,bhpn->bihn", dy_, S)
-        dC_ = torch.einsum("bijh,bjhn->bihn", GEr, B_) + dCs
-        dB_ = torch.einsum("bijh,bihn->bjhn", GEr, C_) \
-            + dec[..., None] * torch.einsum("bjhp,bhpn->bjhn", u, dS)
-        M = W * G
-        r = (u * dus).sum(-1)                                   # (b,L,h)
-        dc = M.sum(2) - M.sum(1) + (C_ * dCs).sum(-1) - r
-        dc[:, -1] += last * (dS * S).sum((-2, -1)) + r.sum(1)
-        da = torch.flip(torch.cumsum(torch.flip(dc, [1]), 1), [1])
-        dA = dA + (dt_ * da).sum(1)
-        outs.append((du * dt_[..., None], (x_ * du).sum(-1) + A * da,
-                     dB_, dC_))
-        dS = dS * last[..., None, None] + torch.einsum(
-            "bihp,bihn->bhpn", dy_ * eca[..., None], C_)
+        *o, dA_c, dB_, dC_ = _chunk_grads(xf[:, sl], dtf[:, sl], A, Bh[:, sl],
+                                          Ch[:, sl], dyf[:, sl], S, dS, tri,
+                                          rounded, split)
+        dA = dA + dA_c
+        outs.append((*o, dB_, dC_))
+        dS = _grad_step(dS, dyf[:, sl], dtf[:, sl], A, Ch[:, sl], split)
     dx, ddt, dBh, dCh = (torch.cat(t[::-1], 1) for t in zip(*outs))
     return dx, ddt, dA, dBh, dCh
 
@@ -229,65 +294,98 @@ def _bwd_out(x, B, s, dx, ddt, dA, dBh, dCh):
     return dx[:, :s].to(x.dtype), ddt[:, :s], dA.sum(0), dB, dC
 
 
-def ssd_scan_bwd_plain(x, dt, A, B, C, dy, *, chunk=64, rounded=False):
+def ssd_scan_bwd_plain(x, dt, A, B, C, dy, *, chunk=64, rounded=False,
+                       split=None):
     """(dx, ddt, dA, dB, dC) of `ssd_scan_plain` given dy, by the gradient
     equations chunk by chunk in float32 (`_bwd_chunks`, from a zero
     state).  A ragged tail reads as dt = 0 and x = B = C = dy = 0, as in
-    the forward."""
+    the forward.  `rounded`: W and GE rounded to one bf16 before their
+    products (the control of the card's bf16 check); `split`: every
+    float32 operand the bf16 kernel splits (W, GE, S, dS', the scaled x
+    and dy of the walks) taken as the sum of that many bf16 parts."""
     b, s, h, p = x.shape
     n = B.shape[3]
     rows = -(-s // chunk) * chunk
     x, dt, B, C, dy = _pad_rows((x, dt, B, C, dy), rows)
     zero = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
     return _bwd_out(x, B, s, *_bwd_chunks(x, dt, A, B, C, dy, zero, zero,
-                                          chunk, rounded))
+                                          chunk, rounded, split))
+
+
+def head_sets(t, g, heads=None):
+    """Per-head rows (b, s, h, n) summed over sets of `heads` consecutive
+    heads of each of the g B/C groups, the last set of a group short when
+    heads does not divide h / g: (b, s, g, nsplit, n), nsplit =
+    ceil((h / g) / heads).  The bf16 backward kernel's blocks sum their
+    heads so."""
+    heads = BWD_HEADS if heads is None else heads
+    b, s, h, n = t.shape
+    hpg = h // g
+    nsplit = -(-hpg // heads)
+    t = torch.nn.functional.pad(t.reshape(b, s, g, hpg, n),
+                                (0, 0, 0, nsplit * heads - hpg))
+    return t.reshape(b, s, g, nsplit, heads, n).sum(4)
 
 
 def ssd_scan_bwd_split_plain(x, dt, A, B, C, dy, states=None, *, chunk=64,
-                             group=GROUP_CHUNKS):
-    """The backward kernel's split in plain PyTorch: `states` are the
+                             group=GROUP_CHUNKS, heads=None):
+    """The bf16 backward kernel's split in plain PyTorch: `states` are the
     forward's group states as the kernel keeps them, (b, h, G, n, p)
-    float32 (None: computed here; zero when G = 1).  Launch 1: each
-    group's gradient of its incoming state from its own rows (walking
-    its chunks forward: the sum over chunks k of D_k exp(c) C^T dy, D_k
-    the product of the decays of the group's chunks before k) and its
-    decay; launch 2: the gradient of every group's outgoing state, from
-    the last group to the first; launch 3: each group's backward from
-    its incoming state and that gradient (`_bwd_chunks`)."""
+    float32 (None: computed here; zero when G = 1).  Launch 1, two walks
+    per group: forward from the group's state, every chunk's incoming
+    state; in reverse from a zero gradient, each chunk's local dS' (from
+    the group's later rows) and the product of the decays after it, which
+    end in the group's own incoming-state gradient and decay.  Launch 2:
+    the gradient of every group's outgoing state, from the last group to
+    the first.  Launch 3, per chunk: dS' = local + decay x its group's
+    outgoing gradient, the chunk's gradient (`_chunk_grads`), dB and dC
+    summed over sets of `heads` heads of a B/C group (`head_sets`), the
+    sets summed after."""
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     G = n_groups(s, chunk, group)
-    rows = G * group * chunk
+    nc = -(-s // chunk)
     if states is None:
         S0 = ssd_split_states_plain(x, dt, A, B, C, chunk=chunk, group=group)
     else:
-        S0 = states.permute(0, 2, 1, 4, 3)
-    S0 = S0.reshape(b * G, h, p, n)
-    xg, dtg, Bg, Cg, dyg = _by_group((x, dt, B, C, dy), chunk, group)
+        S0 = states.permute(0, 2, 1, 4, 3).contiguous()
+    xf, dtf, Bh, Ch, dyf = _per_head(*_pad_rows((x, dt, B, C, dy),
+                                                nc * chunk))
+    cut = [slice(c * chunk, (c + 1) * chunk) for c in range(nc)]
+    spans = [range(gi * group, min(nc, (gi + 1) * group)) for gi in range(G)]
     # launch 1
-    Ch = Cg.repeat_interleave(h // g, dim=2).float()
-    loc = torch.zeros_like(S0)
-    dec = torch.ones((b * G, h), dtype=torch.float32, device=x.device)
-    for c in range(group):
-        sl = slice(c * chunk, (c + 1) * chunk)
-        cA = torch.cumsum(dtg[:, sl].float() * A, dim=1)
-        loc = loc + dec[..., None, None] * torch.einsum(
-            "bihp,bihn->bhpn", dyg[:, sl].float() * torch.exp(cA)[..., None],
-            Ch[:, sl])
-        dec = dec * torch.exp(cA[:, -1])
+    S_in, loc, fac, own, gdec = [None] * nc, [None] * nc, [None] * nc, [], []
+    for gi, span in enumerate(spans):
+        S = S0[:, gi]
+        for c in span:
+            S_in[c] = S
+            S = _state_step(S, xf[:, cut[c]], dtf[:, cut[c]], A,
+                            Bh[:, cut[c]])
+        X, f = torch.zeros_like(S), torch.ones_like(S[..., 0, 0])
+        for c in reversed(span):
+            loc[c], fac[c] = X, f
+            X = _grad_step(X, dyf[:, cut[c]], dtf[:, cut[c]], A,
+                           Ch[:, cut[c]])
+            f = f * torch.exp((dtf[:, cut[c]] * A).sum(1))
+        own.append(X)
+        gdec.append(f)
     # launch 2
-    loc, dec = loc.reshape(b, G, h, p, n), dec.reshape(b, G, h)
-    run, out = torch.zeros_like(loc[:, 0]), [None] * G
+    run, out = torch.zeros_like(own[0]), [None] * G
     for gi in reversed(range(G)):
         out[gi] = run
-        run = loc[:, gi] + dec[:, gi, :, None, None] * run
-    dS_end = torch.stack(out, 1).reshape(b * G, h, p, n)
+        run = own[gi] + gdec[gi][..., None, None] * run
     # launch 3
-    dx, ddt, dA, dBh, dCh = _bwd_chunks(xg, dtg, A, Bg, Cg, dyg, S0,
-                                        dS_end, chunk)
-    dx, ddt, dBh, dCh = (t.reshape(b, rows, *t.shape[2:])
-                         for t in (dx, ddt, dBh, dCh))
-    return _bwd_out(x, B, s, dx, ddt, dA, dBh, dCh)
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=x.device))
+    outs = [_chunk_grads(xf[:, sl], dtf[:, sl], A, Bh[:, sl], Ch[:, sl],
+                         dyf[:, sl], S_in[c],
+                         loc[c] + fac[c][..., None, None] * out[c // group],
+                         tri)
+            for c, sl in enumerate(cut)]
+    dx, ddt, dA, dBh, dCh = zip(*outs)
+    dx, ddt, dBh, dCh = (torch.cat(t, 1)[:, :s] for t in (dx, ddt, dBh, dCh))
+    dB, dC = (head_sets(t, g, heads).sum(3).to(x.dtype) for t in (dBh, dCh))
+    return dx.to(x.dtype), ddt, torch.stack(dA).sum((0, 1)), dB, dC
 
 
 def bwd_kernel_launches(s: int, chunk: int = 64) -> int:
@@ -418,19 +516,34 @@ def _ssd_cuda(x, dt, A, B, C, *, chunk=64, states=False):
 @functools.lru_cache(maxsize=1)
 def _bwd_lib():
     from . import build
-    fn = build.load("ssd_scan_bwd").ssd_scan_bwd_launch
-    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 9 \
+    lib = build.load("ssd_scan_bwd")
+    fn = lib.ssd_scan_bwd_launch
+    fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 9 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    heads = lib.ssd_scan_bwd_heads()
+    if heads != BWD_HEADS:
+        raise RuntimeError(f"csrc/ssd_scan_bwd.cu takes {heads} heads a "
+                           f"block, BWD_HEADS says {BWD_HEADS}")
     return fn
+
+
+def bwd_rows(h: int, g: int, dtype) -> int:
+    """Rows per position of the backward kernel's float32 dB / dC: one
+    per head in float32, one per block of `BWD_HEADS` heads of a B/C
+    group in bf16 (the kernel sums its heads)."""
+    if dtype == torch.float32:
+        return h
+    return g * -(-(h // g) // BWD_HEADS)
 
 
 def _ssd_bwd_cuda(x, dt, A, B, C, dy, states, *, chunk=64):
     """Launch csrc/ssd_scan_bwd.cu on the current stream (no sync):
     `bwd_kernel_launches(s)` kernels.  `states` are the forward's group
     states (`_ssd_cuda(..., states=True)`).  Returns (dx, ddt, dA, dB,
-    dC): dx, dB, dC in x's dtype, ddt and dA float32; the kernel writes
-    per-head dB / dC and per-group dA partials, summed here."""
+    dC): dx, dB, dC in x's dtype, ddt and dA float32.  The kernel writes
+    float32 dB / dC rows (`bwd_rows`) and dA parts per (batch, head,
+    group) in float32 or per (batch, head, chunk) in bf16, summed here."""
     global BWD_LAUNCHES
     _check(x, dt, A, B, C)
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
@@ -447,16 +560,20 @@ def _ssd_bwd_cuda(x, dt, A, B, C, dy, states, *, chunk=64):
                   not states.is_contiguous()):
         raise ValueError(f"the backward at s = {s} needs the forward's "
                          f"group states, float32 {(b, h, G, n, p)}")
+    bf = x.dtype == torch.bfloat16
     f32 = dict(dtype=torch.float32, device=x.device)
     chunk_states = torch.empty((b, h, nc, n, p), **f32)
     dstates = torch.empty((b, h, G, n, p), **f32) if G > 1 else None
     gdecay = torch.empty((b, h, G), **f32)
+    dsloc = torch.empty((b, h, nc, n, p), **f32) if bf else None
+    facs = torch.empty((b, h, nc), **f32) if bf else None
     dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     ddt = torch.empty((b, s, h), **f32)
-    dBh, dCh = (torch.empty((b, s, h, n), **f32) for _ in range(2))
-    dAp = torch.empty((b, h, G), **f32)
-    outs = (states if G > 1 else None, chunk_states, dstates, gdecay, dx,
-            ddt, dBh, dCh, dAp)
+    rows = bwd_rows(h, g, x.dtype)
+    dBp, dCp = (torch.empty((b, s, rows, n), **f32) for _ in range(2))
+    dAp = torch.empty((b, h, nc if bf else G), **f32)
+    outs = (states if G > 1 else None, chunk_states, dstates, gdecay, dsloc,
+            facs, dx, ddt, dBp, dCp, dAp)
     fn = _bwd_lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -468,8 +585,8 @@ def _ssd_bwd_cuda(x, dt, A, B, C, dy, states, *, chunk=64):
         raise RuntimeError(f"ssd_scan backward kernel launch failed: CUDA "
                            f"error {err}")
     BWD_LAUNCHES += 1
-    dB, dC = (t.view(b, s, g, h // g, n).sum(3).to(x.dtype)
-              for t in (dBh, dCh))
+    dB, dC = (t.view(b, s, g, rows // g, n).sum(3).to(x.dtype)
+              for t in (dBp, dCp))
     return dx, ddt, dAp.sum((0, 2)), dB, dC
 
 

@@ -880,12 +880,19 @@ def test_kernels_without_backward_raise_on_the_card(cuda):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,s,h,g,n", [(1, 70, 2, 1, 64), (2, 600, 4, 2, 64),
-                                       (1, 1100, 4, 1, 128)])
+                                       (1, 1100, 4, 1, 128), (1, 1, 2, 1, 64),
+                                       (3, 700, 6, 3, 64), (2, 1000, 8, 2, 64),
+                                       (1, 600, 20, 1, 64),
+                                       (2, 300, 10, 1, 128)])
 def test_ssd_bwd_matches_plain(cuda, dtype, b, s, h, g, n):
     """The SSD backward kernel (through `SSDScan`) against
     `ssd_scan_bwd_plain` on the same inputs: float32 within 1e-5 of each
     gradient's largest entry, bf16 within 5e-4 relative RMS (the kernel
-    keeps every product in float32); two runs bit-equal."""
+    keeps every product in float32); two runs bit-equal.  The shapes
+    cross the bf16 chunk blocks' edges: s = 1, a ragged tail, fewer heads
+    a B/C group than a block takes (h 6 g 3, h 8 g 2), more and not a
+    multiple of them (20 and 10 heads of one group: 8 + 8 + 4, 8 + 2),
+    n 128."""
     ins = [_randn(0, (b, s, h, 64), dtype, cuda),
            0.05 * torch.nn.functional.softplus(
                _randn(1, (b, s, h), torch.float32, cuda)),
@@ -904,5 +911,7 @@ def test_ssd_bwd_matches_plain(cuda, dtype, b, s, h, g, n):
         a, w = a.float(), w.float()
         if dtype == torch.float32:
             assert float((a - w).abs().max()) <= 1e-5 * float(w.abs().max())
-        else:
+        elif bool(w.any()):
             assert _rel_rms(a, w) <= 5e-4
+        else:                       # s = 1: dA is 0 on both sides
+            assert not bool(a.any())

@@ -1,14 +1,19 @@
 """Port parity of the SSD scan's gradient: the backward's plain version
 `ssd_scan_bwd_plain` against `jax.grad` of sum(y * w) through the
 reference's `nn/ssd.ssd_chunked` and against torch autograd of
-`ssd_scan_plain`; the plain version of the kernel's split
-(`ssd_scan_bwd_split_plain`) against the unsplit one; and the wiring of
-`SSDScan`, the autograd function of the card's route, with the CUDA
-launchers swapped for their plain versions.  Inputs come from numpy.
+`ssd_scan_plain`; the plain version of the bf16 kernel's split
+(`ssd_scan_bwd_split_plain`: walks, pass, chunk blocks summing the dB /
+dC of a set of heads) against the unsplit one and `jax.grad`; the
+kernel's bf16 split of float32 operands (`split_parts`, `split=`)
+against the card check's limit; and the wiring of `SSDScan`, the
+autograd function of the card's route, with the CUDA launchers swapped
+for their plain versions.  Inputs come from numpy.
 
 Tolerance, all float32: each of dx, ddt, dA, dB and dC within 1e-5 of
 its largest magnitude (the sums run in other orders; dA sums every
-row's dt da, so it carries the most rounding).
+row's dt da, so it carries the most rounding).  The split emulation on
+bf16 inputs is held to the card check's own limit, 5e-4 relative RMS
+(chip_smoke.SSD_BWD_BF16_RMS).
 
 dt is drawn at a quarter of the forward tests' scale for the parity
 cases.  The reference masks its decay matrix with `where(i >= j,
@@ -18,6 +23,8 @@ in `jax.grad` (at zamba2's full width a few % of chunks do).  The port's
 `ssd_chunked` takes exp only below the diagonal and its backward never
 forms the masked entries; `test_bwd_plain_finite_where_the_reference_
 overflows` pins that difference."""
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -157,6 +164,140 @@ def test_bwd_split_plain_matches_unsplit(b, s, h, p, g, n, chunk, group):
                                         chunk=chunk, group=group)
     for a, c in zip(got, again):
         torch.testing.assert_close(a, c, rtol=0, atol=0)
+
+
+# (b, s, h, p, g, n, dt_scale, heads): head sets of the kernel's chunk
+# blocks that are whole (h / g = heads), short (h 6 g 3 under 8 heads),
+# split with a short last set (12 heads of one group in sets of 5) and
+# several sets a group (h 8 g 2 in sets of 2), across groups of chunks
+HEAD_SETS = [(1, 64, 6, 8, 3, 8, 0.25, 8),
+             (2, 100, 12, 8, 1, 16, 0.25, 5),
+             (1, 150, 8, 8, 2, 16, 0.25, 2),
+             (1, 581, 4, 8, 1, 16, 0.05, 4)]
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,dt_scale,heads", HEAD_SETS)
+def test_bwd_split_plain_matches_jax_grad(b, s, h, p, g, n, dt_scale,
+                                          heads):
+    """The bf16 kernel's split (walks from each group's state and from a
+    zero gradient, the pass, each chunk from its state and dS' = local +
+    decay x its group's gradient, dB / dC summed over sets of `heads`)
+    against `jax.grad` of the reference."""
+    arrs = _inputs(b * s + h + heads, b, s, h, p, g, n, dt_scale)
+    w = jnp.asarray(arrs[5])
+    want = jax.grad(lambda *a: jnp.sum(j_ssd.ssd_chunked(*a, chunk=64)[0]
+                                       * w), argnums=(0, 1, 2, 3, 4))(
+        *(jnp.asarray(a) for a in arrs[:5]))
+    t = [torch.from_numpy(a) for a in arrs]
+    _close(ss.ssd_scan_bwd_split_plain(*t, chunk=64, heads=heads), want,
+           "split vs jax.grad")
+
+
+def test_head_sets_sum_each_group_in_order():
+    """`head_sets`: (b, s, h, n) rows to (b, s, g, nsplit, n), each set
+    the sum of its own heads of one B/C group, the short last set padded
+    with nothing but zeros."""
+    t = torch.arange(2 * 3 * 12 * 4, dtype=torch.float32).reshape(2, 3, 12, 4)
+    got = ss.head_sets(t, 2, 4)                  # 6 heads a group: 4 + 2
+    assert got.shape == (2, 3, 2, 2, 4)
+    torch.testing.assert_close(got[:, :, 0, 0], t[:, :, 0:4].sum(2))
+    torch.testing.assert_close(got[:, :, 0, 1], t[:, :, 4:6].sum(2))
+    torch.testing.assert_close(got[:, :, 1, 1], t[:, :, 10:12].sum(2))
+    torch.testing.assert_close(got.sum(3), t.reshape(2, 3, 2, 6, 4).sum(3))
+
+
+def test_bwd_rows_sum_heads_in_the_bf16_kernel():
+    """The rows of float32 dB / dC the backward kernel writes a position:
+    one a head in float32; in bf16 one a block of `BWD_HEADS` heads of a
+    B/C group (the kernel sums them), so never one a head where a group
+    has more heads than one."""
+    assert ss.BWD_HEADS == 8
+    for h, g, want in ((64, 1, 8), (80, 1, 10), (6, 3, 3), (8, 2, 2),
+                       (20, 1, 3), (2, 1, 1)):
+        assert ss.bwd_rows(h, g, torch.float32) == h
+        assert ss.bwd_rows(h, g, torch.bfloat16) == want
+
+
+@pytest.mark.parametrize("parts", [1, 2, 3])
+def test_split_parts_reconstruct(parts):
+    """The kernel's split of a float32 operand into bf16 parts: with
+    three, the parts sum back to every value bit for bit (over float32's
+    normal range, signs and exponents mixed); with fewer, the remainder
+    is at most half a spacing of the last part: 2^-(8 parts) of the value
+    (bf16 keeps 8 significant bits)."""
+    rng = np.random.default_rng(parts)
+    v = torch.from_numpy((rng.standard_normal(4096)
+                          * 10.0 ** rng.uniform(-30, 30, 4096))
+                         .astype(np.float32))
+    got = ss.split_parts(v, parts)
+    assert len(got) == parts
+    assert all(torch.equal(q, q.to(torch.bfloat16).float()) for q in got)
+    total = got[0]
+    for q in got[1:]:
+        total = total + q
+    if parts == 3:
+        assert torch.equal(total, v)
+    rel = ((total - v).abs() / v.abs()).max()
+    assert float(rel) <= 2.0 ** -(8 * parts)
+
+
+# phase 23 c's SSD_BWD_SHAPES (name, b, s, h, g, n, dt scale) and its
+# bf16 limit SSD_BWD_BF16_RMS: the widths, the ragged tail, the one group
+# and g = 2 as the card checks them; the batch cut to 1 and the prefill
+# length 4096 to 1024 for the CPU's time (a relative RMS over rows does
+# not depend on their count)
+PHASE_23C = (("zamba2", 1, 1024, 64, 1, 64, 1.0),
+             ("mamba2-2.7b", 1, 1024, 80, 1, 128, 1.0),
+             ("ragged", 1, 1000, 64, 1, 64, 0.05),
+             ("one group", 1, 500, 64, 1, 64, 0.05),
+             ("g=2", 1, 1100, 8, 2, 128, 0.05))
+BF16_RMS = 5e-4
+
+
+def _rel_rms(a, b):
+    a, b = a.float(), b.float()
+    return float((a - b).square().mean().sqrt()
+                 / b.square().mean().sqrt().clamp_min(1e-30))
+
+
+@functools.lru_cache(maxsize=1)
+def _phase_23c(i):
+    """bf16 inputs at phase 23 c's shape i (its scales, drawn with numpy),
+    the unsplit plain backward and the rounded control's."""
+    _, b, s, h, g, n, dt_scale = PHASE_23C[i]
+    arrs = _inputs(i, b, s, h, 64, g, n, dt_scale)
+    t = [torch.from_numpy(a).to(torch.bfloat16) if k in (0, 3, 4, 5)
+         else torch.from_numpy(a) for k, a in enumerate(arrs)]
+    return (t, ss.ssd_scan_bwd_plain(*t, chunk=64),
+            ss.ssd_scan_bwd_plain(*t, chunk=64, rounded=True))
+
+
+@pytest.fixture
+def two_threads():
+    """Hold torch to two threads for the test: the suite runs several
+    workers at once, and wall-clock tests elsewhere feel the load."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("parts", [3, 2])
+@pytest.mark.parametrize("i", range(len(PHASE_23C)))
+def test_bwd_split_emulation_within_the_bf16_limit(two_threads, i, parts):
+    """The bf16 kernel's arithmetic in plain PyTorch (every operand it
+    splits taken as the sum of its bf16 parts) stays within the card
+    check's 5e-4 relative RMS of the unsplit plain version on each
+    gradient at phase 23 c's widths, and the rounded control (W and GE
+    one bf16 each) does not on dx, dB and dC: three parts are the
+    float32 operand itself."""
+    t, want, ctrl = _phase_23c(i)
+    got = ss.ssd_scan_bwd_plain(*t, chunk=64, split=parts)
+    rms = [_rel_rms(a, w) for a, w in zip(got, want)]
+    assert max(rms) <= BF16_RMS, (PHASE_23C[i][0], rms)
+    if parts == 3:
+        assert all(torch.equal(a, w) for a, w in zip(got, want))
+    assert min(_rel_rms(ctrl[k], want[k]) for k in (0, 3, 4)) > BF16_RMS
 
 
 def _plain_launchers(monkeypatch, asked=None):
