@@ -306,18 +306,53 @@ The transformer family's Dh 256 training path:
      counted), peak memory; a profile of one `make_train_step` with the
      backward kernel's busy ms.
 
+mamba2-2.7b's tuned config (SSD chunk 128), the perception nets and the
+launch tools:
+
+ 28. a. the SSD forward at mamba2-2.7b's prefill shape (B = 2 x S =
+        4096, h 80, n 128) asked for at chunk 128: against
+        `ssd_scan_plain(chunk=128)` with phase 6's tolerances and bf16
+        control, its launches equal to a chunk-64 call's and y bit-equal
+        to it (the kernels run their own 64-row tile); its ms at chunk 64
+        and 128 in turns; the backward against
+        `ssd_scan_bwd_plain(chunk=128)` with phase 23 c's tolerances;
+     b. main path: `mamba2_2p7b.tuned()` at full width and depth (64
+        layers), bf16 prefill B = 2 x S = 4096 through
+        `launch.steps.make_prefill_step`: 192 SSD launches, tokens/s,
+        share of the bf16 peak (`ssm_prefill_flops`), peak memory, a
+        profile;
+     c. its 4-layer float32 golden (`golden_mamba2.json`, chunk 128) as
+        phase 8, with the bf16 control;
+     d. the Server in float32 at full depth, as phase 9: decode ms per
+        token at B = 2;
+     e. a train step at 4 of 64 layers through `SSDScan` at chunk 128
+        against the plain SSD at chunk 128, as phase 25 b;
+ 29. the six perception nets (`perception/nets.py`) at the frozen FLOP
+     table's shapes on the card against their CPU runs on the same seeded
+     weights, TF32 off (the Conformer's float32 run against the CPU's
+     float64 run, with a TF32 control that must miss): ms per call,
+     `torch_flops()` beside XLA's count;
+ 30. the measured-cell harness: `launch.dryrun.run_cell` on mamba2-2.7b
+     tuned x prefill_32k and olmo-1b x train_4k (each at its batch cut)
+     into a temporary directory, each artifact's step ms, peak memory,
+     counted FLOPs against the analytical compute term and
+     `roofline_fraction`, then `roofline_grid` over the directory (each
+     measured row at its own batch beside the full-batch analytical
+     terms).
+
 Nothing earlier is cut for time.
 
 The second-to-last lines are the `kernels` JSON object (the day scan's
 launches summed over the serial, batched, legacy, simulate_users,
 simulate, gradient and fleet paths of phase 4, both modes; its
 max_abs_err covers phase 3 and the tables of 4 b, d, e, f, h and i;
-flash's launches summed over phases 7, 12, 15, 16, 19-21, 24 and 27,
-its max_abs_err over phases 6 and 11; the backward's launches over phases
-19-21, 24 and 27, its max_abs_err over phase 18, its times at olmo-1b's
-shape; the SSD scan's launches over phases 7, 24 and 25; the SSD
-backward's calls over phases 24-25, its max_abs_err over phase 23 c, its
-times at zamba2's prefill shape) and the nvidia-smi line; the last line
+flash's launches summed over phases 7, 12, 15, 16, 19-21, 24, 27 and
+30, its max_abs_err over phases 6 and 11; the backward's launches over
+phases 19-21, 24, 27 and 30, its max_abs_err over phase 18, its times at
+olmo-1b's shape; the SSD scan's launches over phases 7, 24, 25, 28 and
+30, its max_abs_err over phases 6 and 28 a; the SSD backward's calls
+over phases 24-25 and 28 e, its max_abs_err over phases 23 c and 28 a,
+its times at zamba2's prefill shape) and the nvidia-smi line; the last line
 is the result object.
 """
 from __future__ import annotations
@@ -1802,7 +1837,7 @@ def ssd_bwd_bound(x, Bm, chunk: int) -> tuple:
     return _bound(n_bytes, 2.5 * ssd_ops(x, Bm, chunk), str(x.dtype)[6:])
 
 
-def ssd_scratch_bytes(x, Bm, chunk: int) -> tuple:
+def ssd_scratch_bytes(x, Bm) -> tuple:
     """(group-state bytes, re-read input bytes) the kernel's split moves
     beyond the function's own traffic (not part of its bound): launch 1
     writes G - 1 f32 states, launch 2 reads them and writes G, launch 3
@@ -1810,7 +1845,7 @@ def ssd_scratch_bytes(x, Bm, chunk: int) -> tuple:
     from repro_torch.kernels import ssd_scan as ss
     b, s, h, p = x.shape
     g, n = Bm.shape[2], Bm.shape[3]
-    G = ss.n_groups(s, chunk)
+    G = ss.n_groups(s)
     if G == 1:
         return 0.0, 0.0
     states = (4 * G - 2) * b * h * n * p * 4.0
@@ -1892,14 +1927,16 @@ def check_flash_rounding(got, q, k, v) -> None:
           f"unrounded-p control {control:.3g}")
 
 
-def check_ssd_bf16(got, want, x, dt, A, Bm, Cm, label: str) -> None:
-    """The bf16 SSD kernel against the plain version: relative RMS error
-    under SSD_BF16_LIMIT, which the plain version with x dt and W rounded
-    to bf16 before their product (a tensor-core shortcut) must exceed."""
+def check_ssd_bf16(got, want, x, dt, A, Bm, Cm, label: str,
+                   chunk: int = 64) -> None:
+    """The bf16 SSD kernel against the plain version at `chunk`: relative
+    RMS error under SSD_BF16_LIMIT, which the plain version with x dt and
+    W rounded to bf16 before their product (a tensor-core shortcut) must
+    exceed."""
     from repro_torch.kernels import ssd_scan as ss
     kernel = rel_rms(got, want)
-    control = rel_rms(ss.ssd_scan_rounded_plain(x, dt, A, Bm, Cm, chunk=64),
-                      want)
+    control = rel_rms(ss.ssd_scan_rounded_plain(x, dt, A, Bm, Cm,
+                                                chunk=chunk), want)
     if not kernel <= SSD_BF16_LIMIT < control:
         miss(f"{label}: kernel rel RMS {kernel:.3g}, bf16-product control "
              f"{control:.3g}, limit {SSD_BF16_LIMIT:g} must lie between them")
@@ -2231,7 +2268,6 @@ def lm_phases(dev) -> list:
     import numpy as np
     import torch
     import torch.nn.functional as F
-    from repro_torch import convert
     from repro_torch.configs import zamba2_1p2b
     from repro_torch.kernels import flash_attention as fa, ssd_scan as ss
     from repro_torch.launch import steps
@@ -2252,16 +2288,18 @@ def lm_phases(dev) -> list:
     cfg32 = dataclasses.replace(base, param_dtype=torch.float32,
                                 compute_dtype=torch.float32)
     t0 = time.perf_counter()
-    tree = convert.lm_params_numpy(cfg32, LM_SEED)
+    # `mamba_lm.init` on a seeded CPU generator: ~5x faster than the
+    # single-threaded numpy stream the golden's weights come from
+    params32 = mamba_lm.init(torch.Generator().manual_seed(LM_SEED), cfg32,
+                             dev)
     gen_s = time.perf_counter() - t0
-    params16 = convert.lm_params_from_numpy(tree, cfg16, dev)
-    params32 = convert.lm_params_from_numpy(tree, cfg32, dev)
-    del tree
+    params16 = cast_params(params32, torch.bfloat16)
     n_par = sum(t.numel() for t in _leaves(params16))
     n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params16))
     print(f"zamba2-1.2b: {base.n_layers} layers, {n_par / 1e9:.3f} B "
           f"parameters ({cfg16.n_params / 1e9:.3f} B analytic), bf16 "
-          f"{n_bytes / 1e9:.2f} GB; seeded numpy weights in {gen_s:.1f} s")
+          f"{n_bytes / 1e9:.2f} GB; seeded weights (`mamba_lm.init`, a CPU "
+          f"generator) in {gen_s:.1f} s")
     tokens = torch.as_tensor(np.random.default_rng(LM_SEED + 1).integers(
         0, base.vocab, (B_PREFILL, S_PREFILL)), device=dev)
     prefill16 = steps.make_prefill_step(cfg16, mamba_lm)
@@ -2323,7 +2361,7 @@ def lm_phases(dev) -> list:
     ssd_plain_ms = cuda_ms(lambda: ss.ssd_scan_plain(x, dt, A, Bm, Cm,
                                                      chunk=64), 3)
     s_bound, s_by = ssd_bound(x, Bm, 64)
-    s_states, s_reread = ssd_scratch_bytes(x, Bm, 64)
+    s_states, s_reread = ssd_scratch_bytes(x, Bm)
     del q, k, v, qt, kt, vt, x, dt, Bm, Cm
     torch.cuda.reset_peak_memory_stats()
     pf = []
@@ -2415,9 +2453,12 @@ def flash_calls(plain: bool = False, keep: bool = False):
 
 
 def cast_params(tree, dtype):
-    """A parameter tree in `dtype`, the MoE router left in float32."""
+    """A parameter tree in `dtype`, the leaves the reference keeps in
+    float32 (the MoE router; the SSD's A_log, D, dt_bias) left as they
+    are."""
+    from repro_torch.convert import F32_LEAVES
     return {k: cast_params(v, dtype) if isinstance(v, dict)
-            else v if k == "router" else v.to(dtype)
+            else v if k in F32_LEAVES else v.to(dtype)
             for k, v in tree.items()}
 
 
@@ -3457,13 +3498,13 @@ def ssd_bwd_inputs(gen, b, s, h, g, n, dtype, dt_scale):
             rn((b, s, h, 64), dtype))
 
 
-def ssd_grads(ins, dy):
+def ssd_grads(ins, dy, chunk: int = 64):
     """The five gradients through `ssd_scan` (SSDScan on the card)."""
     import torch
     from repro_torch.kernels import ssd_scan as ss
     leaves = [t.detach().clone().requires_grad_() for t in ins]
     with torch.enable_grad():
-        y = ss.ssd_scan(*leaves, chunk=64)
+        y = ss.ssd_scan(*leaves, chunk=chunk)
     return torch.autograd.grad(y, leaves, dy)
 
 
@@ -3478,8 +3519,8 @@ def check_ssd_forward_states(dev) -> None:
                           (B_PREFILL, S_PREFILL, 80, 1, 128)):
         for dtype in (torch.bfloat16, torch.float32):
             ins = ssd_bwd_inputs(gen, b, s, h, g, n, dtype, 1.0)[:5]
-            y = ss._ssd_cuda(*ins, chunk=64)
-            y2, states = ss._ssd_cuda(*ins, chunk=64, states=True)
+            y = ss._ssd_cuda(*ins)
+            y2, states = ss._ssd_cuda(*ins, states=True)
             leaves = [t.clone().requires_grad_() for t in ins]
             with torch.enable_grad():
                 y3 = ss.ssd_scan(*leaves, chunk=64)
@@ -3494,28 +3535,30 @@ def check_ssd_forward_states(dev) -> None:
                   f"and through SSDScan")
 
 
-def check_ssd_bwd(dev) -> float:
-    """Phase 23 c: the backward kernel (through `ssd_scan`'s autograd
-    route) against `ssd_scan_bwd_plain` at SSD_BWD_SHAPES, float32 within
-    SSD_BWD_F32_REL of each gradient's largest magnitude, bf16 within
-    SSD_BWD_BF16_RMS relative RMS with the rounded control outside it;
-    a second run bit-equal; returns the largest abs error."""
+def check_ssd_bwd(dev, shapes=SSD_BWD_SHAPES, chunk: int = 64,
+                  seed: int = 11) -> float:
+    """Phase 23 c (and 28 a at chunk 128): the backward kernel (through
+    `ssd_scan`'s autograd route) against `ssd_scan_bwd_plain` at `chunk`
+    at `shapes`, float32 within SSD_BWD_F32_REL of each gradient's
+    largest magnitude, bf16 within SSD_BWD_BF16_RMS relative RMS with the
+    rounded control outside it; a second run bit-equal; returns the
+    largest abs error."""
     import torch
     from repro_torch.kernels import ssd_scan as ss
-    gen = torch.Generator(device=dev).manual_seed(11)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     names = ("dx", "ddt", "dA", "dB", "dC")
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
-        for name, b, s, h, g, n, dt_scale in SSD_BWD_SHAPES:
+        for name, b, s, h, g, n, dt_scale in shapes:
             *ins, dy = ssd_bwd_inputs(gen, b, s, h, g, n, dtype, dt_scale)
             b0 = ss.BWD_LAUNCHES
-            got = ssd_grads(ins, dy)
-            again = ssd_grads(ins, dy)
+            got = ssd_grads(ins, dy, chunk)
+            again = ssd_grads(ins, dy, chunk)
             calls = ss.BWD_LAUNCHES - b0
-            want = ss.ssd_scan_bwd_plain(*ins, dy, chunk=64)
+            want = ss.ssd_scan_bwd_plain(*ins, dy, chunk=chunk)
             torch.cuda.synchronize()
             label = (f"ssd bwd {name} b={b} s={s} h={h} g={g} n={n} dt "
-                     f"x{dt_scale:g} {str(dtype)[6:]}")
+                     f"x{dt_scale:g} {str(dtype)[6:]} chunk {chunk}")
             if calls != 2:
                 fail(f"{label}: {calls} backward calls, want 2")
             if not all(torch.equal(a, c) for a, c in zip(got, again)):
@@ -3539,7 +3582,8 @@ def check_ssd_bwd(dev) -> float:
             line = (f"{label}: vs ssd_scan_bwd_plain, max err / max |.| "
                     + " ".join(f"{k} {r:.3g}" for k, r in zip(names, rels)))
             if dtype == torch.bfloat16:
-                ctrl = ss.ssd_scan_bwd_plain(*ins, dy, chunk=64, rounded=True)
+                ctrl = ss.ssd_scan_bwd_plain(*ins, dy, chunk=chunk,
+                                             rounded=True)
                 c_rms = [rel_rms(c.float(), w.float())
                          for c, w in zip(ctrl, want)]
                 low = min(c_rms[i] for i in (0, 3, 4))
@@ -3556,21 +3600,6 @@ def check_ssd_bwd(dev) -> float:
             print(line + "; a second run bit-equal")
             del ins, dy, got, again, want
     return worst
-
-
-@contextlib.contextmanager
-def plain_ssd():
-    """Within the block, `ssd_scan` on CUDA tensors goes to
-    `ssd_scan_plain` (autograd of the plain version: the reference of the
-    kernel checks, never the path itself)."""
-    from repro_torch.kernels import ssd_scan as ss
-    real = ss.ssd_scan
-    ss.ssd_scan = lambda x, dt, A, B, C, *, chunk=64: \
-        ss.ssd_scan_plain(x, dt, A, B, C, chunk=chunk)
-    try:
-        yield
-    finally:
-        ss.ssd_scan = real
 
 
 def mamba_grad_checks(label, grads, n_layers) -> None:
@@ -3600,11 +3629,11 @@ def ssm_grads_vs_plain(label, model, params, cfg, batch, seq) -> tuple:
     returns (loss, grad norm, plain loss, plain grad norm)."""
     import torch
     from repro_torch.kernels import flash_attention as fa, ssd_scan as ss
-    from repro_torch.launch import steps
+    from repro_torch.launch import dryrun, steps
     from repro_torch.training import optimizer as opt
     L = cfg.n_layers
     n_attn = L // cfg.attn_every if cfg.attn_every else 0
-    want = (L * ss.kernel_launches(seq, cfg.ssm.chunk), L, n_attn, n_attn)
+    want = (L * ss.kernel_launches(seq), L, n_attn, n_attn)
     ss.LAUNCHES = ss.BWD_LAUNCHES = fa.LAUNCHES = fa.BWD_LAUNCHES = 0
     torch.cuda.reset_peak_memory_stats()
     loss, grads = steps.value_and_grad(
@@ -3619,7 +3648,7 @@ def ssm_grads_vs_plain(label, model, params, cfg, batch, seq) -> tuple:
     gnorm = float(opt.global_norm(grads))
     del grads
     torch.cuda.empty_cache()
-    with plain_ssd(), flash_calls(plain=True):
+    with dryrun.plain_kernels():
         loss_p, grads_p = steps.value_and_grad(
             lambda p: model.loss_fn(p, cfg, batch, remat=True), params)
     gnorm_p = float(opt.global_norm(grads_p))
@@ -3730,7 +3759,7 @@ def train_zamba2(dev) -> tuple:
     del restored, p6
     shutil.rmtree(SSM_CKPT_DIR, ignore_errors=True)
     rows = rec["rows"]
-    want = (L * ss.kernel_launches(SSM_TRAIN_S, cfg.ssm.chunk), L, n_attn,
+    want = (L * ss.kernel_launches(SSM_TRAIN_S), L, n_attn,
             n_attn)
     for s, loss, gn, counts, _ in rows:
         if not (np.isfinite(loss) and np.isfinite(gn)) or counts != want:
@@ -3796,7 +3825,7 @@ def ssm_card_vs_cpu(dev) -> tuple:
     dp = max(float((a.cpu() - b).abs().max()) for a, b in
              zip(tree.leaves(pc), tree.leaves(pp)))
     # remat: each layer's forward runs again in the backward
-    want = (2 * cfg.n_layers * ss.kernel_launches(seq, cfg.ssm.chunk),
+    want = (2 * cfg.n_layers * ss.kernel_launches(seq),
             cfg.n_layers)
     if counts != want or \
             abs(loss - loss_cpu) > XDEV_LOSS_RTOL * abs(loss_cpu) or \
@@ -3817,26 +3846,29 @@ def ssm_card_vs_cpu(dev) -> tuple:
     return counts
 
 
-def mamba2_step(dev) -> tuple:
-    """Phase 25 b: mamba2-2.7b at full width, depth cut to MAMBA2_LAYERS,
-    one bf16-compute train step (B = SSM_TRAIN_B x S = SSM_TRAIN_S)
-    through the kernels against the plain SSD; returns (SSD forward
-    launches, backward calls)."""
+def mamba2_step(dev, tuned: bool = False) -> tuple:
+    """Phase 25 b (and 28 e with `tuned`: SSD chunk 128): mamba2-2.7b at
+    full width, depth cut to MAMBA2_LAYERS, one bf16-compute train step
+    (B = SSM_TRAIN_B x S = SSM_TRAIN_S) through the kernels against the
+    plain SSD at the config's chunk; returns (SSD forward launches,
+    backward calls)."""
     import dataclasses
     import torch
+    from repro_torch.configs import mamba2_2p7b
     from repro_torch.data.pipeline import DataConfig, lm_batch
     from repro_torch.kernels import ssd_scan as ss
-    from repro_torch.models import mamba_lm, registry
-    full, _ = registry.get("mamba2-2.7b")
+    from repro_torch.models import mamba_lm
+    full = mamba2_2p7b.tuned() if tuned else mamba2_2p7b.config()
     cfg = dataclasses.replace(full, n_layers=MAMBA2_LAYERS)
     params = mamba_lm.init(torch.Generator().manual_seed(1), cfg, dev)
     batch = lm_batch(DataConfig(cfg.vocab, SSM_TRAIN_S, SSM_TRAIN_B), 0, dev)
-    ssm_grads_vs_plain(f"mamba2-2.7b train step ({MAMBA2_LAYERS} of "
-                       f"{full.n_layers} layers, h {cfg.ssm.n_heads}, n "
-                       f"{cfg.ssm.d_state}, bf16 compute, B={SSM_TRAIN_B} "
+    ssm_grads_vs_plain(f"mamba2-2.7b{' tuned' if tuned else ''} train step "
+                       f"({MAMBA2_LAYERS} of {full.n_layers} layers, h "
+                       f"{cfg.ssm.n_heads}, n {cfg.ssm.d_state}, chunk "
+                       f"{cfg.ssm.chunk}, bf16 compute, B={SSM_TRAIN_B} "
                        f"S={SSM_TRAIN_S})", mamba_lm, params, cfg, batch,
                        SSM_TRAIN_S)
-    return (MAMBA2_LAYERS * ss.kernel_launches(SSM_TRAIN_S, cfg.ssm.chunk),
+    return (MAMBA2_LAYERS * ss.kernel_launches(SSM_TRAIN_S),
             MAMBA2_LAYERS)
 
 
@@ -3856,7 +3888,7 @@ def time_ssd_bwd(dev) -> list:
             ("mamba2-2.7b", B_PREFILL, S_PREFILL, 80, 1, 128),
             ("zamba2 train step", SSM_TRAIN_B, SSM_TRAIN_S, 64, 1, 64)):
         *ins, dy = ssd_bwd_inputs(gen, b, s, h, g, n, torch.bfloat16, 1.0)
-        _, states = ss._ssd_cuda(*ins, chunk=64, states=True)
+        _, states = ss._ssd_cuda(*ins, states=True)
         bwd = lambda: ss._ssd_bwd_cuda(*ins, dy, states)  # noqa: E731
         bwd()
         ms = cuda_ms(bwd, 10)
@@ -4051,6 +4083,358 @@ def train_gemma3(dev) -> tuple:
     n = L * (1 + GEMMA_TRAIN_STEPS)  # the first step and the trained steps
     return n, n, line, prof
 
+
+
+# ---------------------------------------------------------------------------
+# phase 28: mamba2-2.7b's tuned config (SSD chunk 128)
+# ---------------------------------------------------------------------------
+
+TUNED_CHUNK = 128               # mamba2_2p7b.tuned()'s ssm.chunk
+# the SSD at mamba2-2.7b's prefill shape (name, b, s, h, g, n, dt scale)
+MAMBA2_SSD_SHAPE = ("mamba2-2.7b", B_PREFILL, S_PREFILL, 80, 1, 128, 1.0)
+
+
+def ssm_prefill_flops(cfg, B: int, S: int) -> float:
+    """Products of one SSM prefill (2 flops a multiply-add): every token
+    through each layer's projections (2 x parameters, less the
+    embedding, which is a lookup), each layer's SSD scan at the kernels'
+    tile (`ssd_ops`), and the last position's unembedding."""
+    import torch
+    from repro_torch.kernels import ssd_scan as ss
+    s = cfg.ssm
+    x = torch.empty((B, S, s.n_heads, s.head_dim), device="meta")
+    Bm = torch.empty((B, S, s.n_groups, s.d_state), device="meta")
+    emb = cfg.vocab * cfg.d_model
+    return 2.0 * B * S * (cfg.n_params - emb) + \
+        cfg.n_layers * ssd_ops(x, Bm, ss.TILE) + 2.0 * B * emb
+
+
+def check_ssd_tuned_chunk(dev) -> tuple:
+    """Phase 28 a: the SSD forward at mamba2-2.7b's prefill shape asked
+    for at chunk 128 against `ssd_scan_plain(chunk=128)`, with phase 11's
+    tolerances and bf16 control (at chunk 128), its launches equal to a
+    chunk-64 call's and its output bit-equal to it (one kernel, one tile);
+    the backward at the same shape against `ssd_scan_bwd_plain(chunk=128)`
+    with phase 23 c's; the forward's ms at chunk 64 and 128 (CUDA events,
+    20 calls each, in turns), the plain version's at 128 and the bound.
+    Returns (forward max abs err, backward max abs err, timing line,
+    (ms, plain ms, bound, bound by))."""
+    import torch
+    from repro_torch.kernels import ssd_scan as ss
+    name, b, s, h, g, n, _ = MAMBA2_SSD_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(13)
+    worst = 0.0
+    timing = None
+    for dtype in (torch.bfloat16, torch.float32):
+        tol = LM_TOL[str(dtype)[6:]]
+        x, dt, A, Bm, Cm, _ = ssd_bwd_inputs(gen, b, s, h, g, n, dtype, 1.0)
+        ins = (x, dt, A, Bm, Cm)
+        n0 = ss.LAUNCHES
+        got = ss.ssd_scan(*ins, chunk=TUNED_CHUNK)
+        n128 = ss.LAUNCHES - n0
+        at64 = ss.ssd_scan(*ins, chunk=64)
+        n64 = ss.LAUNCHES - n0 - n128
+        want = ss.ssd_scan_plain(*ins, chunk=TUNED_CHUNK)
+        label = (f"ssd {name} b={b} s={s} h={h} g={g} n={n} "
+                 f"{str(dtype)[6:]} chunk {TUNED_CHUNK}")
+        worst = max(worst, hold(label, got, want, max(tol, 1e-4), 5 * tol))
+        torch.cuda.synchronize()
+        if n128 != n64 or n128 != ss.kernel_launches(s) or \
+                not torch.equal(got, at64):
+            fail(f"{label}: {n128} launches (chunk 64: {n64}), or y differs "
+                 f"from the chunk-64 call's")
+        if dtype == torch.bfloat16:
+            check_ssd_bf16(got, want, *ins, label, chunk=TUNED_CHUNK)
+            runs = {64: [], TUNED_CHUNK: []}
+            for c in (64, TUNED_CHUNK, TUNED_CHUNK, 64):
+                fn = lambda c=c: ss.ssd_scan(*ins, chunk=c)  # noqa: E731
+                fn()
+                runs[c].append(cuda_ms(fn, 20))
+            plain = lambda: ss.ssd_scan_plain(  # noqa: E731
+                *ins, chunk=TUNED_CHUNK)
+            plain()
+            plain_ms = cuda_ms(plain, 3)
+            bound, by = ssd_bound(x, Bm, ss.TILE)
+            ms = float(sum(runs[TUNED_CHUNK]) / 2)
+            timing = (f"ssd kernel ({name} prefill shape b={b} s={s} h={h} "
+                      f"p=64 g={g} n={n} bf16), in turns: chunk 64 "
+                      + " / ".join(f"{t:.4f}" for t in runs[64])
+                      + f" ms, chunk {TUNED_CHUNK} "
+                      + " / ".join(f"{t:.4f}" for t in runs[TUNED_CHUNK])
+                      + f" ms ({n128} launches a call either way); plain at "
+                      f"chunk {TUNED_CHUNK} {plain_ms:.3f} ms; bound "
+                      f"{bound:.5f} ms by {by}")
+            row = (ms, plain_ms, bound, by)
+        print(f"{label}: {n128} launches, as at chunk 64, y bit-equal to "
+              f"the chunk-64 call's")
+        del x, dt, A, Bm, Cm, ins, got, at64, want
+    bwd = check_ssd_bwd(dev, (MAMBA2_SSD_SHAPE,), TUNED_CHUNK, seed=14)
+    return worst, bwd, timing, row
+
+
+def mamba2_tuned_phases(dev) -> tuple:
+    """Phase 28: mamba2-2.7b's tuned config (SSD chunk 128) on the card
+    through the user's entry points; returns (SSD forward launches and
+    backward calls on the main paths, the forward's and backward's
+    largest errors, the forward's timing row at mamba2's shape)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import mamba2_2p7b
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.launch import steps
+    from repro_torch.models import mamba_lm
+    from repro_torch.nn import core
+    # 28 a. the SSD kernels at chunk 128
+    err_f, err_b, timing, row = check_ssd_tuned_chunk(dev)
+    torch.cuda.empty_cache()
+    # 28 b. the full-depth bf16 prefill
+    base = mamba2_2p7b.tuned()
+    cfg16 = dataclasses.replace(base, param_dtype=torch.bfloat16,
+                                compute_dtype=torch.bfloat16)
+    cfg32 = dataclasses.replace(base, param_dtype=torch.float32,
+                                compute_dtype=torch.float32)
+    t0 = time.perf_counter()
+    params32 = mamba_lm.init(torch.Generator().manual_seed(LM_SEED), cfg32,
+                             dev)
+    gen_s = time.perf_counter() - t0
+    params16 = cast_params(params32, torch.bfloat16)
+    print(f"mamba2-2.7b tuned: {base.n_layers} layers, SSD chunk "
+          f"{base.ssm.chunk}, pure_dp {base.pure_dp} (a mesh knob, inert on "
+          f"one card); {cfg16.n_params / 1e9:.3f} B parameters; seeded "
+          f"weights (`mamba_lm.init`, a CPU generator) in {gen_s:.1f} s")
+    tokens = torch.as_tensor(np.random.default_rng(LM_SEED + 1).integers(
+        0, base.vocab, (B_PREFILL, S_PREFILL)), device=dev)
+    prefill16 = steps.make_prefill_step(cfg16, mamba_lm)
+    want = base.n_layers * ss.kernel_launches(S_PREFILL)
+    ss.LAUNCHES = 0
+    h = prefill16(params16, {"tokens": tokens})
+    torch.cuda.synchronize()
+    n_prefill = ss.LAUNCHES
+    if n_prefill != want:
+        fail(f"mamba2-2.7b tuned prefill launched the SSD kernels "
+             f"{n_prefill} times, want {want}")
+    logits = core.unembed_logits(params16["embed"]["table"], h)
+    if h.shape != (B_PREFILL, base.d_model) or not bool(
+            torch.isfinite(logits).all()):
+        fail("mamba2-2.7b tuned prefill: last hidden or logits not finite")
+    print(f"main path: mamba2-2.7b tuned bf16 prefill B={B_PREFILL} "
+          f"S={S_PREFILL}: SSD launched {n_prefill} times ({base.n_layers} "
+          f"x {ss.kernel_launches(S_PREFILL)}, as at chunk 64); last hidden "
+          f"and logits {tuple(logits.shape)} finite")
+    torch.cuda.reset_peak_memory_stats()
+    pf = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill16(params16, {"tokens": tokens})
+        torch.cuda.synchronize()
+        pf.append((time.perf_counter() - t0) * 1e3)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    pf_ms = float(np.mean(pf[1:]))
+    share = ssm_prefill_flops(base, B_PREFILL, S_PREFILL) / (
+        pf_ms / 1e3) / PEAK_BF16_OPS_S
+    print(f"mamba2-2.7b tuned prefill (bf16, B={B_PREFILL} S={S_PREFILL}, "
+          f"{base.n_layers} layers): {pf_ms:.2f} ms mean of 3 after a warm "
+          f"call (" + ", ".join(f"{t:.2f}" for t in pf) + " ms), "
+          f"{B_PREFILL * S_PREFILL / pf_ms * 1e3:.0f} tokens/s, "
+          f"{100 * share:.1f} % of the bf16 peak (ssm_prefill_flops); peak "
+          f"device memory {peak_gb:.2f} GB")
+    print(profile_device(lambda: prefill16(params16, {"tokens": tokens}),
+                         f"mamba2-2.7b tuned bf16 prefill, B={B_PREFILL} "
+                         f"S={S_PREFILL}"))
+    print(timing)
+    del h, logits
+    # 28 c. the golden (4 layers, float32 vs the JAX reference, chunk 128)
+    check_golden_lm(dev, "golden_mamba2.json", base, mamba_lm)
+    # 28 d. the Server, float32, full width and depth
+    serve_and_check(cfg32, cfg16, params32, params16, mamba_lm, dev)
+    del params16, params32
+    torch.cuda.empty_cache()
+    # 28 e. a train step at 4 layers through SSDScan at chunk 128
+    n_f, n_b = mamba2_step(dev, tuned=True)
+    torch.cuda.empty_cache()
+    return n_prefill + n_f, n_b, err_f, err_b, row
+
+
+# ---------------------------------------------------------------------------
+# phase 29: the perception nets
+# ---------------------------------------------------------------------------
+
+NET_SEED = 5
+NET_TOL = 1e-5                  # float32, of the output's largest entry
+NET_F64_TOL = 1e-9              # float64, of the output's largest entry
+# the Conformer's attention saturates as its activations grow (logits
+# ~450), so float32 sum order moves its output by up to ~6e-3 of the
+# largest logit on either device (against float64: the card 3.9e-3, the
+# CPU 6.1e-3, my chip run 3, PR 24): its card float32 run is held to the
+# CPU's float64 run within NET_F32_VS_F64, under what TF32 moves (17-54
+# of ~450, 4-12 %, emulated on the CPU), and a TF32 run must miss it
+NET_F32_VS_F64 = {"asr_conformer": 1.5e-2}
+
+
+def _double(tree):
+    from repro_torch import tree as _tree
+    return _tree.map(lambda t: t.double(), tree)
+
+
+def _net_err(got, want) -> float:
+    """Max abs error over a net's outputs, over the largest |want| (at
+    least 1)."""
+    import torch
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for g, w in zip(got, want):
+        if g.shape != w.shape or not bool(torch.isfinite(g).all()):
+            fail(f"net output not finite or of shape {tuple(g.shape)}")
+    scale = max(1.0, max(float(w.abs().max()) for w in want))
+    return max(float((g.cpu().double() - w.double()).abs().max())
+               for g, w in zip(got, want)) / scale
+
+
+def perception_phase(dev) -> None:
+    """Phase 29: each of the six nets at its `measured_flops` shape on the
+    card against its CPU run on the same seeded weights and input, TF32
+    off (cuDNN's float32 convolutions default to it): in float64 within
+    NET_F64_TOL of the largest output (the function), in float32 within
+    NET_TOL, but for NET_F32_VS_F64 (the Conformer) whose card float32
+    run is held to the CPU's float64 run instead, with a TF32 run as the
+    control that must miss; ms per call in float32 (CUDA events, 20 calls
+    after a warm one) and `torch_flops()` beside XLA's count."""
+    import numpy as np
+    import torch
+    from repro_torch import tree
+    from repro_torch.perception import nets
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ours, xla = nets.torch_flops(), nets.measured_flops()
+    for i, (key, (name, shape)) in enumerate(nets.FLOPS_INPUTS.items()):
+        params = nets.init(name, torch.Generator().manual_seed(NET_SEED + i),
+                           "cpu")
+        x = torch.from_numpy(np.random.default_rng(NET_SEED + i)
+                             .standard_normal(shape).astype(np.float32))
+        fn = nets.NET_FNS[name]
+        card = tree.map(lambda t: t.to(dev), params)
+        xd = x.to(dev)
+        want, exact = fn(params, x), fn(_double(params), x.double())
+        got, got64 = fn(card, xd), fn(_double(card), xd.double())
+        torch.cuda.synchronize()
+        err, err64 = _net_err(got, want), _net_err(got64, exact)
+        if err64 > NET_F64_TOL:
+            miss(f"{name}: card off the CPU in float64 by {err64:.3g} of "
+                 f"the largest output (tol {NET_F64_TOL:g})")
+        if name in NET_F32_VS_F64:
+            tol = NET_F32_VS_F64[name]
+            vs64 = _net_err(got, exact)
+            torch.backends.cudnn.allow_tf32 = True
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                tf32 = _net_err(fn(card, xd), exact)
+            finally:
+                torch.backends.cudnn.allow_tf32 = False
+                torch.backends.cuda.matmul.allow_tf32 = False
+            if vs64 > tol:
+                miss(f"{name}: card float32 off the CPU's float64 by "
+                     f"{vs64:.3g} of the largest output (tol {tol:g})")
+            if tf32 <= tol:
+                miss(f"{name}: the TF32 control is within the float32 "
+                     f"limit ({tf32:.3g} <= {tol:g}), so the check would "
+                     f"not see TF32")
+            f32 = (f"float32 vs the CPU's float64 {vs64:.3g} (tol {tol:g}; "
+                   f"the CPU's own float32 {_net_err(want, exact):.3g}, "
+                   f"card vs CPU float32 {err:.3g}), TF32 control "
+                   f"{tf32:.3g} (must exceed the tol)")
+        else:
+            if err > NET_TOL:
+                miss(f"{name}: card off the CPU in float32 by {err:.3g} of "
+                     f"the largest output (tol {NET_TOL:g})")
+            f32 = f"float32 {err:.3g} (tol {NET_TOL:g})"
+        call = lambda: fn(card, xd)  # noqa: E731
+        call()
+        ms = cuda_ms(call, 20)
+        print(f"perception {name} {tuple(shape)}: card vs CPU, of the "
+              f"largest output: float64 {err64:.3g} (tol {NET_F64_TOL:g}), "
+              f"{f32}; {ms:.4f} ms a call (float32); products "
+              f"{ours[key] / 1e6:.3f} MFLOP (FlopCounterMode) beside XLA's "
+              f"{xla[key] / 1e6:.3f} MFLOP (frozen; it counts the "
+              f"reference's in-call weight draws and elementwise work); "
+              f"{ours[key] / ms / 1e9:.3f} TFLOP/s")
+
+
+# ---------------------------------------------------------------------------
+# phase 30: the measured-cell harness
+# ---------------------------------------------------------------------------
+
+HARNESS_CELLS = (("mamba2-2.7b", "prefill_32k", True),
+                 ("olmo-1b", "train_4k", False))
+
+
+def harness_phase(dev) -> tuple:
+    """Phase 30: `launch.dryrun.run_cell` on HARNESS_CELLS (mamba2-2.7b
+    tuned x prefill_32k, olmo-1b x train_4k) into a temporary directory,
+    each at its batch cut; each artifact's step ms, peak memory, counted
+    FLOPs against the analytical compute term, `roofline_fraction` and
+    the share of the roofline reached; then `roofline_grid` over the
+    directory.  Returns (SSD forward launches, flash forward launches,
+    flash backward calls) of the two cells."""
+    import tempfile
+    from repro_torch.configs import mamba2_2p7b
+    from repro_torch.kernels import flash_attention as fa, ssd_scan as ss
+    from repro_torch.launch import dryrun, sweep
+    counts = [0, 0, 0]
+    with tempfile.TemporaryDirectory() as d:
+        for arch, shape, tuned in HARNESS_CELLS:
+            ss.LAUNCHES = fa.LAUNCHES = fa.BWD_LAUNCHES = 0
+            t0 = time.perf_counter()
+            rec = dryrun.run_cell(arch, shape, d, device=dev,
+                                  cfg=mamba2_2p7b.tuned() if tuned else None)
+            wall = time.perf_counter() - t0
+            counts = [counts[0] + ss.LAUNCHES, counts[1] + fa.LAUNCHES,
+                      counts[2] + fa.BWD_LAUNCHES]
+            label = f"harness {arch}{' tuned' if tuned else ''} x {shape}"
+            if rec.get("skipped"):
+                print(f"{label}: skipped ({rec['reason']})")
+                continue
+            if not rec.get("ok"):
+                fail(f"{label}: {rec.get('error')}\n{rec.get('traceback')}")
+            t = rec["terms"]
+            print(f"{label}: batch {rec['batch']} (reduced: "
+                  f"{'; '.join(rec['reduced']) or 'none'}); steps "
+                  + ", ".join(f"{x:.1f}" for x in rec["step_ms"])
+                  + f" ms after a {rec['warmup_s']:.2f} s warm-up, "
+                  f"{rec['tokens_per_s']:.0f} tokens/s; peak memory "
+                  f"{rec['memory']['peak_bytes'] / 1e9:.2f} GB (analytical "
+                  f"{rec['memory']['analytical_bytes'] / 1e9:.2f}); counted "
+                  f"{rec['flops_per_dev'] / 1e12:.2f} TFLOP (on "
+                  f"{rec['flops_counted_on']}) -> compute term "
+                  f"{t['compute_s']:.4f} s vs the analytical "
+                  f"{rec['analytical_compute_s']:.4f} s; memory term "
+                  f"{t['memory_s']:.4f} s; dominant {rec['dominant']}, "
+                  f"roofline_fraction {rec['roofline_fraction']:.3f}, "
+                  f"useful_flops_ratio {rec['useful_flops_ratio']:.3f}; the "
+                  f"step reached {100 * rec['achieved_fraction']:.1f} % of "
+                  f"its bound; SSD launches {ss.LAUNCHES}, flash "
+                  f"{fa.LAUNCHES} + {fa.BWD_LAUNCHES} backward; {wall:.1f} s")
+        rows = sweep.roofline_grid(d)
+        by = {}
+        for r in rows:
+            by[r["source"]] = by.get(r["source"], 0) + 1
+        print(f"roofline_grid over the harness directory: {len(rows)} cells, "
+              + ", ".join(f"{v} {k}" for k, v in sorted(by.items())) + "; "
+              + "; ".join(
+                  f"{r['arch']} x {r['shape']}: at its global batch "
+                  f"{r['batch']} bound {r['bound_s']:.4f} s by "
+                  f"{r['dominant']} (analytical); measured at batch "
+                  f"{m['batch']}: bound {m['bound_s']:.4f} s by "
+                  f"{m['dominant']}, step {m['step_s']:.4f} s, "
+                  f"{100 * m['achieved_fraction']:.1f} % of the bound"
+                  for r in rows if r["source"] == "dryrun"
+                  for m in (r["measured"],)))
+        if by.get("dryrun", 0) != sum(
+                sweep.cell_status(d, a, s) == "ok"
+                for a, s, _ in HARNESS_CELLS):
+            fail("roofline_grid did not read every ok harness artifact")
+    return tuple(counts)
 
 
 def _leaves(tree):
@@ -4262,14 +4646,41 @@ def main() -> None:
     print(gemma_prof)
     lm_rows[0]["launches"] += g_f
     bwd_row["launches"] += g_b
+    torch.cuda.empty_cache()
+    # 28. mamba2-2.7b tuned (SSD chunk 128)
+    t0 = time.perf_counter()
+    n_m_f, n_m_b, err_mf, err_mb, m_row = mamba2_tuned_phases(dev)
+    lm_rows[1]["launches"] += n_m_f
+    lm_rows[1]["max_abs_err"] = max(lm_rows[1]["max_abs_err"], err_mf)
+    ssd_bwd_row["launches"] += n_m_b
+    ssd_bwd_row["max_abs_err"] = max(ssd_bwd_row["max_abs_err"], err_mb)
+    torch.cuda.empty_cache()
+    t28 = time.perf_counter() - t0
+    # 29. the perception nets
+    t0 = time.perf_counter()
+    perception_phase(dev)
+    t29 = time.perf_counter() - t0
+    # 30. the measured-cell harness
+    t0 = time.perf_counter()
+    h_ssd, h_f, h_b = harness_phase(dev)
+    lm_rows[1]["launches"] += h_ssd
+    lm_rows[0]["launches"] += h_f
+    bwd_row["launches"] += h_b
+    t30 = time.perf_counter() - t0
+    print(f"phases 28-30: {t28:.1f} s, {t29:.1f} s, {t30:.1f} s; "
+          f"mamba2-2.7b's SSD forward at its prefill shape (chunk "
+          f"{TUNED_CHUNK}): {m_row[0]:.4f} ms, plain {m_row[1]:.3f} ms, "
+          f"bound {m_row[2]:.5f} ms by {m_row[3]}")
     print(f"flash launches on the main paths: {lm_rows[0]['launches']} "
-          f"({lm_rows[0]['launches'] - n_tf - n_train - fa_f - g_f} "
+          f"({lm_rows[0]['launches'] - n_tf - n_train - fa_f - g_f - h_f} "
           f"zamba2-1.2b prefill, {n_tf} transformer family, {n_train} "
           f"training and whisper-medium, {fa_f} zamba2-1.2b training, {g_f} "
-          f"gemma3-4b training); flash backward calls "
+          f"gemma3-4b training, {h_f} the harness); flash backward calls "
           f"{bwd_row['launches']} ({fa_b} zamba2-1.2b training, {g_b} "
-          f"gemma3-4b training); SSD forward launches "
-          f"{lm_rows[1]['launches']} ({n_ssd_train} in phases 24-25)")
+          f"gemma3-4b training, {h_b} the harness); SSD forward launches "
+          f"{lm_rows[1]['launches']} ({n_ssd_train} in phases 24-25, "
+          f"{n_m_f} mamba2-2.7b tuned, {h_ssd} the harness); SSD backward "
+          f"calls {ssd_bwd_row['launches']} ({n_m_b} mamba2-2.7b tuned)")
     if MISSES:
         fail(f"{len(MISSES)} check(s) outside tolerance: " + "; ".join(MISSES))
     print(json.dumps({"kernels": [{

@@ -464,9 +464,9 @@ def probe_ssd_bwd() -> None:
         for dtype in (torch.bfloat16, torch.float32):
             ins = ssd_inputs(gen, b, s, h, g, n, dtype, 1.0)
             dy = rn(gen, (b, s, h, 64), dtype)
-            _, st = ss._ssd_cuda(*ins, chunk=64, states=True)
+            _, st = ss._ssd_cuda(*ins, states=True)
             bwd = lambda: ss._ssd_bwd_cuda(*ins, dy, st)  # noqa: E731
-            fwd = lambda: ss._ssd_cuda(*ins, chunk=64, states=True)  # noqa
+            fwd = lambda: ss._ssd_cuda(*ins, states=True)  # noqa
             ms, fwd_ms = cuda_ms(bwd, 10), cuda_ms(fwd, 10)
             plain_ms = cuda_ms(lambda: ss.ssd_scan_bwd_plain(*ins, dy), 1)
             bound, by = chip_smoke.ssd_bwd_bound(ins[0], ins[3], 64)
@@ -504,17 +504,17 @@ def probe_ssd_compare(other: str) -> None:
             ins = ssd_inputs(gen, b, s, h, g, n, dtype, 1.0)
 
             def run_other():
-                done, st, decay = ss._prepare(*ins, 64)
+                done, st, decay = ss._prepare(*ins)
                 y = torch.empty_like(ins[0])
                 err = fn(*[t.data_ptr() for t in done], y.data_ptr(),
                          st.data_ptr(), decay.data_ptr(), b, s, h, 64, g, n,
-                         64, ss.GROUP_CHUNKS, ss.DTYPES[dtype],
+                         ss.TILE, ss.GROUP_CHUNKS, ss.DTYPES[dtype],
                          torch.cuda.current_stream().cuda_stream)
                 if err:
                     raise RuntimeError(f"launch failed: CUDA error {err}")
                 return y
 
-            this = lambda: ss._ssd_cuda(*ins, chunk=64)  # noqa: E731
+            this = lambda: ss._ssd_cuda(*ins)  # noqa: E731
             same = torch.equal(run_other(), this())
             for name in ("other", "this", "this", "other"):
                 f = run_other if name == "other" else this
@@ -831,7 +831,7 @@ def probe_ssd_bwd_compare(other: str) -> None:
         for dtype in (torch.bfloat16, torch.float32):
             ins = ssd_inputs(gen, b, s, h, g, n, dtype, 1.0)
             dy = rn(gen, (b, s, h, 64), dtype)
-            _, st = ss._ssd_cuda(*ins, chunk=64, states=True)
+            _, st = ss._ssd_cuda(*ins, states=True)
             fns = {"other": lambda: run_other(*ins, dy, st),
                    "this": lambda: ss._ssd_bwd_cuda(*ins, dy, st)}
             plain = ss.ssd_scan_bwd_plain(*ins, dy, chunk=64)

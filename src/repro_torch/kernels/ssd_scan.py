@@ -20,9 +20,12 @@ decays (b, h, G).  See the source's header note.
 
 Shapes: x (b, s, h, p), dt (b, s, h) float32, A (h,) float32, B/C
 (b, s, g, n) with x's dtype (float32 or bfloat16); y (b, s, h, p) in x's
-dtype.  On the card: chunk 64, p 64, n 64 or 128.  `LAUNCHES` counts
+dtype.  On the card: p 64, n 64 or 128, any chunk.  The chunk picks the
+plain version's float32 sum order, not the function: y is the same
+function of (x, dt, A, B, C) at every chunk, so the kernels run their own
+`TILE`-row chunks whatever chunk the caller asks for.  `LAUNCHES` counts
 kernel launches, `kernel_launches(s)` per call: 3, or 1 when one group
-holds every chunk (the plain version never bumps it).
+holds every tile (the plain version never bumps it).
 
 The gradient.  The reference differentiates `ssd_chunked` in XLA,
 outside the Pallas kernel; here the forward on the card is the kernel,
@@ -52,12 +55,12 @@ import torch
 
 from ..nn import ssd as _ssd
 
-CHUNKS = (64,)              # chunk lengths the kernel takes
+TILE = 64                   # rows of the kernels' chunk (L in the csrc/)
 HEAD_DIMS = (64,)           # p
 STATE_DIMS = (64, 128)      # n
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# chunks per group of the kernel's split (GROUP in csrc/ssd_scan.cu): at
-# the prefill shape 64 chunks make 8 groups, whose f32 states (16.8 MB)
+# tiles per group of the kernel's split (GROUP in csrc/ssd_scan.cu): at
+# the prefill shape 64 tiles make 8 groups, whose f32 states (16.8 MB)
 # stay in the 50 MB L2
 GROUP_CHUNKS = 8
 
@@ -99,8 +102,8 @@ def ssd_scan(x, dt, A, B, C, *, chunk=64):
     if x.device.type == "cuda":
         if torch.is_grad_enabled() and any(t.requires_grad
                                            for t in (x, dt, A, B, C)):
-            return SSDScan.apply(x, dt, A, B, C, chunk)
-        return _ssd_cuda(x, dt, A, B, C, chunk=chunk)
+            return SSDScan.apply(x, dt, A, B, C)
+        return _ssd_cuda(x, dt, A, B, C)
     raise ValueError(f"ssd_scan runs on cpu or cuda tensors, got {x.device}")
 
 
@@ -388,14 +391,14 @@ def ssd_scan_bwd_split_plain(x, dt, A, B, C, dy, states=None, *, chunk=64,
     return dx.to(x.dtype), ddt, torch.stack(dA).sum((0, 1)), dB, dC
 
 
-def bwd_kernel_launches(s: int, chunk: int = 64) -> int:
+def bwd_kernel_launches(s: int) -> int:
     """Kernels one backward call at sequence length s launches: the
-    chunk states and the groups' own state gradients, the pass over the
-    groups, the scan; no pass when one group holds every chunk."""
-    return 2 if n_groups(s, chunk) == 1 else 3
+    tiles' states and the groups' own state gradients, the pass over the
+    groups, the scan; no pass when one group holds every tile."""
+    return 2 if n_groups(s) == 1 else 3
 
 
-def n_groups(s: int, chunk: int = 64, group: int = GROUP_CHUNKS) -> int:
+def n_groups(s: int, chunk: int = TILE, group: int = GROUP_CHUNKS) -> int:
     """Groups of `group` chunks the kernel splits a length-s scan into."""
     return -(-(-(-s // chunk)) // group)
 
@@ -444,10 +447,10 @@ def ssd_scan_split_plain(x, dt, A, B, C, *, chunk=64, group=GROUP_CHUNKS):
     return y.reshape(b, G * group * chunk, h, p)[:, :s]
 
 
-def kernel_launches(s: int, chunk: int = 64) -> int:
+def kernel_launches(s: int) -> int:
     """Kernels one call at sequence length s launches: the three passes
-    of the split, or the scan alone when one group holds every chunk."""
-    return 1 if n_groups(s, chunk) == 1 else 3
+    of the split, or the scan alone when one group holds every tile."""
+    return 1 if n_groups(s) == 1 else 3
 
 
 @functools.lru_cache(maxsize=None)
@@ -461,19 +464,18 @@ def _lib(entry="ssd_scan_launch"):
     return fn
 
 
-def _prepare(x, dt, A, B, C, chunk):
+def _prepare(x, dt, A, B, C):
     """Checked, dense, 16-byte aligned inputs and the split's scratch."""
     b, s, h, p = x.shape
-    g, n = B.shape[2], B.shape[3]
-    if chunk not in CHUNKS or p not in HEAD_DIMS or n not in STATE_DIMS:
-        raise ValueError(f"ssd_scan kernel takes chunk in {CHUNKS}, p in "
-                         f"{HEAD_DIMS}, n in {STATE_DIMS}; got chunk={chunk}"
-                         f", p={p}, n={n}")
+    n = B.shape[3]
+    if p not in HEAD_DIMS or n not in STATE_DIMS:
+        raise ValueError(f"ssd_scan kernel takes p in {HEAD_DIMS}, n in "
+                         f"{STATE_DIMS}; got p={p}, n={n}")
     # the kernel copies dense row-major 16-byte rows with cp.async; the
     # model's x/B/C are views into the conv output, so this copies them
     ins = [t.contiguous() for t in (x, dt, A, B, C)]
     ins = [t if t.data_ptr() % 16 == 0 else t.clone() for t in ins]
-    G = n_groups(s, chunk)
+    G = n_groups(s)
     states = decay = None
     if G > 1:                   # group states and decays of the split
         states = torch.empty((b, h, G, n, p), dtype=torch.float32,
@@ -482,34 +484,41 @@ def _prepare(x, dt, A, B, C, chunk):
     return ins, states, decay
 
 
-def _call(entry, ins, outs, x, B, chunk):
+def _dims(x, B) -> tuple:
+    """The launchers' int arguments: b, s, h, p, g, n, the chunk (always
+    the kernels' `TILE`, never the caller's), the group, the dtype code."""
     b, s, h, p = x.shape
-    g, n = B.shape[2], B.shape[3]
-    fn = _lib(entry)
-    # `ins` and the scratch may be freed when this returns while the
+    return (b, s, h, p, B.shape[2], B.shape[3], TILE, GROUP_CHUNKS,
+            DTYPES[x.dtype])
+
+
+def _call(fn, tensors, dims, what) -> None:
+    """`fn(pointers of tensors (None for None), *dims, stream)` on the
+    current stream of the tensors' device."""
+    dev = tensors[0].device
+    # the inputs and the scratch may be freed when this returns while the
     # kernels still run: the caching allocator hands their memory only to
     # later work on the same stream
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(*[t.data_ptr() for t in ins],
-                 *[None if t is None else t.data_ptr() for t in outs],
-                 b, s, h, p, g, n, chunk, GROUP_CHUNKS, DTYPES[x.dtype],
-                 stream)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(*[None if t is None else t.data_ptr() for t in tensors],
+                 *dims, stream)
     if err != 0:
-        raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
 
 
-def _ssd_cuda(x, dt, A, B, C, *, chunk=64, states=False):
+def _ssd_cuda(x, dt, A, B, C, *, states=False):
     """Launch csrc/ssd_scan.cu on the current stream (no sync).  Returns
     y, or with `states` (y, the group states): the float32 incoming state
     of every group, (b, h, G, n, p), which launch 2 writes into the
-    split's scratch (None when one group holds every chunk: its state is
+    split's scratch (None when one group holds every tile: its state is
     zero).  Asking for them changes no launch."""
     global LAUNCHES
-    ins, st, decay = _prepare(x, dt, A, B, C, chunk)
+    ins, st, decay = _prepare(x, dt, A, B, C)
     y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
-    _call("ssd_scan_launch", ins, (y, st, decay), x, B, chunk)
-    LAUNCHES += kernel_launches(x.shape[1], chunk)
+    _call(_lib("ssd_scan_launch"), (*ins, y, st, decay), _dims(x, B),
+          "ssd_scan")
+    LAUNCHES += kernel_launches(x.shape[1])
     return (y, st) if states else y
 
 
@@ -537,24 +546,24 @@ def bwd_rows(h: int, g: int, dtype) -> int:
     return g * -(-(h // g) // BWD_HEADS)
 
 
-def _ssd_bwd_cuda(x, dt, A, B, C, dy, states, *, chunk=64):
+def _ssd_bwd_cuda(x, dt, A, B, C, dy, states):
     """Launch csrc/ssd_scan_bwd.cu on the current stream (no sync):
     `bwd_kernel_launches(s)` kernels.  `states` are the forward's group
     states (`_ssd_cuda(..., states=True)`).  Returns (dx, ddt, dA, dB,
     dC): dx, dB, dC in x's dtype, ddt and dA float32.  The kernel writes
     float32 dB / dC rows (`bwd_rows`) and dA parts per (batch, head,
-    group) in float32 or per (batch, head, chunk) in bf16, summed here."""
+    group) in float32 or per (batch, head, tile) in bf16, summed here."""
     global BWD_LAUNCHES
     _check(x, dt, A, B, C)
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
         raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype} on {dy.device} "
                          f"does not fit x {tuple(x.shape)} {x.dtype}")
-    ins, _, _ = _prepare(x, dt, A, B, C, chunk)
+    ins, _, _ = _prepare(x, dt, A, B, C)
     dy = dy.contiguous()
     dy = dy if dy.data_ptr() % 16 == 0 else dy.clone()
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
-    G, nc = n_groups(s, chunk), -(-s // chunk)
+    G, nc = n_groups(s), -(-s // TILE)
     if G > 1 and (states is None or tuple(states.shape) != (b, h, G, n, p)
                   or states.dtype != torch.float32 or
                   not states.is_contiguous()):
@@ -572,18 +581,9 @@ def _ssd_bwd_cuda(x, dt, A, B, C, dy, states, *, chunk=64):
     rows = bwd_rows(h, g, x.dtype)
     dBp, dCp = (torch.empty((b, s, rows, n), **f32) for _ in range(2))
     dAp = torch.empty((b, h, nc if bf else G), **f32)
-    outs = (states if G > 1 else None, chunk_states, dstates, gdecay, dsloc,
-            facs, dx, ddt, dBp, dCp, dAp)
-    fn = _bwd_lib()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(*[t.data_ptr() for t in ins], dy.data_ptr(),
-                 *[None if t is None else t.data_ptr() for t in outs],
-                 b, s, h, p, g, n, chunk, GROUP_CHUNKS, DTYPES[x.dtype],
-                 stream)
-    if err != 0:
-        raise RuntimeError(f"ssd_scan backward kernel launch failed: CUDA "
-                           f"error {err}")
+    _call(_bwd_lib(), (*ins, dy, states if G > 1 else None, chunk_states,
+                       dstates, gdecay, dsloc, facs, dx, ddt, dBp, dCp, dAp),
+          _dims(x, B), "ssd_scan backward")
     BWD_LAUNCHES += 1
     dB, dC = (t.view(b, s, g, rows // g, n).sum(3).to(x.dtype)
               for t in (dBp, dCp))
@@ -592,39 +592,39 @@ def _ssd_bwd_cuda(x, dt, A, B, C, dy, states, *, chunk=64):
 
 class SSDScan(torch.autograd.Function):
     """The forward kernel keeping its group states, and the backward
-    kernel as its gradient.  Saves x, dt, A, B, C and the group states;
-    the backward launches on a contiguous dy.  Under activation
-    checkpointing the recompute runs (and counts) the forward again."""
+    kernel as its gradient, both at the kernels' `TILE` (the caller's
+    chunk only orders the plain version's sums).  Saves x, dt, A, B, C
+    and the group states; the backward launches on a contiguous dy.
+    Under activation checkpointing the recompute runs (and counts) the
+    forward again."""
 
     @staticmethod
-    def forward(ctx, x, dt, A, B, C, chunk):
-        y, states = _ssd_cuda(x, dt, A, B, C, chunk=chunk, states=True)
+    def forward(ctx, x, dt, A, B, C):
+        y, states = _ssd_cuda(x, dt, A, B, C, states=True)
         ctx.save_for_backward(x, dt, A, B, C, states)
-        ctx.chunk = chunk
         return y
 
     @staticmethod
     def backward(ctx, dy):
         x, dt, A, B, C, states = ctx.saved_tensors
-        grads = _ssd_bwd_cuda(x, dt, A, B, C, dy.contiguous(), states,
-                              chunk=ctx.chunk)
-        return (*grads, None)
+        return _ssd_bwd_cuda(x, dt, A, B, C, dy.contiguous(), states)
 
 
-def ssd_group_states_cuda(x, dt, A, B, C, *, chunk=64):
+def ssd_group_states_cuda(x, dt, A, B, C):
     """The kernel's launches 1-2 alone on CUDA tensors: the float32
     incoming state of every group, (b, G, h, p, n) like
-    `ssd_split_states_plain`.  For the card's checks of the split's
-    state products; s must span more than one group.  Adds its two
-    launches to `LAUNCHES`."""
+    `ssd_split_states_plain` at chunk `TILE`.  For the card's checks of
+    the split's state products; s must span more than one group.  Adds
+    its two launches to `LAUNCHES`."""
     global LAUNCHES
     if x.device.type != "cuda":
         raise ValueError(f"ssd_group_states_cuda takes CUDA tensors, got "
                          f"{x.device}")
     _check(x, dt, A, B, C)
-    if n_groups(x.shape[1], chunk) < 2:
+    if n_groups(x.shape[1]) < 2:
         raise ValueError(f"s = {x.shape[1]} fits one group: no group states")
-    ins, states, decay = _prepare(x, dt, A, B, C, chunk)
-    _call("ssd_scan_states_launch", ins, (states, decay), x, B, chunk)
+    ins, states, decay = _prepare(x, dt, A, B, C)
+    _call(_lib("ssd_scan_states_launch"), (*ins, states, decay), _dims(x, B),
+          "ssd_scan")
     LAUNCHES += 2
     return states.permute(0, 2, 1, 4, 3)

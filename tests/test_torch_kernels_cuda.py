@@ -362,6 +362,43 @@ def test_ssd_kernel_split_edges(cuda, dtype, b, s, h, g, n):
                                    atol=1e-4, rtol=1e-4)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("chunk", [128, 32])
+def test_ssd_kernels_run_their_tile_at_any_chunk(cuda, dtype, chunk):
+    """A scan asked for at another chunk (mamba2-2.7b tuned: 128) runs the
+    kernels' own 64-row tile: the launches and y of a chunk-64 call, bit
+    for bit; y and the gradients against the plain versions at the chunk
+    asked for, at the tolerances above."""
+    b, s, h, g, n = 1, 1000, 4, 1, 128
+    ins = [_randn(0, (b, s, h, 64), dtype, cuda, 0.5),
+           0.05 * torch.nn.functional.softplus(
+               _randn(1, (b, s, h), torch.float32, cuda)),
+           -torch.exp(_randn(2, (h,), torch.float32, cuda, 0.3)),
+           _randn(3, (b, s, g, n), dtype, cuda, 0.3),
+           _randn(4, (b, s, g, n), dtype, cuda, 0.3)]
+    dy = _randn(5, (b, s, h, 64), dtype, cuda)
+    before = ss.LAUNCHES
+    got = ss.ssd_scan(*ins, chunk=chunk)
+    assert ss.LAUNCHES == before + ss.kernel_launches(s) == before + 3
+    assert torch.equal(got, ss.ssd_scan(*ins, chunk=64))
+    want = ss.ssd_scan_plain(*ins, chunk=chunk)
+    tol = TOL[dtype]
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(),
+                               atol=max(tol, 1e-4), rtol=5 * tol)
+    leaves = [t.clone().requires_grad_() for t in ins]
+    b0 = ss.BWD_LAUNCHES
+    grads = torch.autograd.grad(ss.ssd_scan(*leaves, chunk=chunk), leaves,
+                                dy)
+    assert ss.BWD_LAUNCHES == b0 + 1
+    for a, w in zip(grads, ss.ssd_scan_bwd_plain(*ins, dy, chunk=chunk)):
+        a, w = a.float(), w.float()
+        if dtype == torch.float32:
+            assert float((a - w).abs().max()) <= 1e-5 * float(w.abs().max())
+        else:
+            assert _rel_rms(a, w) <= 5e-4
+
+
 def test_kernels_reject_unsupported_shapes(cuda):
     q = torch.zeros(1, 8, 2, 32, device=cuda)
     with pytest.raises(ValueError, match="Dh in"):

@@ -91,6 +91,32 @@ def test_bwd_plain_matches_jax_grad(b, s, h, p, g, n, dt_scale):
     _close(got, _autograd_plain(t, 64), "vs autograd")
 
 
+# mamba2-2.7b's tuned config scans at chunk 128 (and the reference's perf
+# variants at 32): s ragged, s under one chunk, s over several
+CHUNK_CASES = [(1, 300, 2, 8, 1, 16, 128, 0.25),
+               (2, 100, 4, 8, 2, 16, 128, 0.25),
+               (1, 581, 2, 8, 1, 16, 128, 0.05),
+               (1, 100, 2, 8, 1, 16, 32, 0.25),
+               (2, 20, 4, 8, 2, 16, 32, 0.25)]
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk,dt_scale", CHUNK_CASES)
+def test_bwd_plain_at_config_chunks_matches_jax_grad(b, s, h, p, g, n, chunk,
+                                                     dt_scale):
+    arrs = _inputs(chunk + s + h, b, s, h, p, g, n, dt_scale)
+    w = jnp.asarray(arrs[5])
+
+    def loss(x, dt, A, B, C):
+        return jnp.sum(j_ssd.ssd_chunked(x, dt, A, B, C, chunk=chunk)[0] * w)
+
+    want = jax.grad(loss, argnums=(0, 1, 2, 3, 4))(
+        *(jnp.asarray(a) for a in arrs[:5]))
+    t = [torch.from_numpy(a) for a in arrs]
+    got = ss.ssd_scan_bwd_plain(*t, chunk=chunk)
+    _close(got, want, f"chunk {chunk} vs jax.grad")
+    _close(got, _autograd_plain(t, chunk), f"chunk {chunk} vs autograd")
+
+
 def test_bwd_plain_finite_where_the_reference_overflows():
     """At the forward tests' dt scale some chunk decays pass exp(88):
     `jax.grad` of the reference gives NaN in ddt and dA there; the plain
@@ -304,23 +330,24 @@ def _plain_launchers(monkeypatch, asked=None):
     """Swap the CUDA launchers for their plain versions, counting as the
     launchers count; `asked` records whether each forward asked for the
     group states."""
-    def fwd(x, dt, A, B, C, *, chunk=64, states=False):
-        ss.LAUNCHES += ss.kernel_launches(x.shape[1], chunk)
+    def fwd(x, dt, A, B, C, *, states=False):
+        chunk = ss.TILE
+        ss.LAUNCHES += ss.kernel_launches(x.shape[1])
         if asked is not None:
             asked.append(states)
         y = ss.ssd_scan_plain(x, dt, A, B, C, chunk=chunk)
         if not states:
             return y
-        if ss.n_groups(x.shape[1], chunk) == 1:
+        if ss.n_groups(x.shape[1]) == 1:
             return y, None
         return y, ss.ssd_split_states_plain(x, dt, A, B, C, chunk=chunk) \
             .permute(0, 2, 1, 4, 3).contiguous()
 
-    def bwd(x, dt, A, B, C, dy, states, *, chunk=64):
+    def bwd(x, dt, A, B, C, dy, states):
         assert dy.is_contiguous()
         ss.BWD_LAUNCHES += 1
         return ss.ssd_scan_bwd_split_plain(x, dt, A, B, C, dy, states,
-                                           chunk=chunk)
+                                           chunk=ss.TILE)
 
     monkeypatch.setattr(ss, "_ssd_cuda", fwd)
     monkeypatch.setattr(ss, "_ssd_bwd_cuda", bwd)
@@ -339,12 +366,76 @@ def test_ssd_autograd_function_wiring(monkeypatch, b, s, h, p, g, n,
     want = _autograd_plain(t, 64)
     leaves = [x.clone().requires_grad_() for x in t[:5]]
     f0, b0 = ss.LAUNCHES, ss.BWD_LAUNCHES
-    y = ss.SSDScan.apply(*leaves, 64)
+    y = ss.SSDScan.apply(*leaves)
     # a non-contiguous output gradient reaches the kernel contiguous
     y.backward(t[5].transpose(1, 2).contiguous().transpose(1, 2))
     assert ss.LAUNCHES - f0 == ss.kernel_launches(s)
     assert ss.BWD_LAUNCHES - b0 == 1 and asked == [True]
     _close([x.grad for x in leaves], [x.numpy() for x in want], "SSDScan")
+
+
+def _recording_launchers(monkeypatch, dims):
+    """Swap the ctypes launchers for their plain versions at the chunk
+    they are handed (float32 only), recording the int arguments each
+    launch gets: what `_call` passes to csrc/ssd_scan*.cu."""
+    monkeypatch.setattr(ss, "_lib", lambda entry="ssd_scan_launch": entry)
+    monkeypatch.setattr(ss, "_bwd_lib", lambda: "ssd_scan_bwd_launch")
+
+    def call(fn, tensors, d, what):
+        dims.append((fn, d))
+        tile, group = d[6], d[7]
+        if fn == "ssd_scan_launch":
+            x, dt, A, B, C, y, st, _ = tensors
+            y.copy_(ss.ssd_scan_plain(x, dt, A, B, C, chunk=tile))
+            if st is not None:
+                st.copy_(ss.ssd_split_states_plain(
+                    x, dt, A, B, C, chunk=tile, group=group)
+                    .permute(0, 2, 1, 4, 3))
+            return
+        x, dt, A, B, C, dy, st, *_, dx, ddt, dBp, dCp, dAp = tensors
+        grads = ss.ssd_scan_bwd_split_plain(x, dt, A, B, C, dy, st,
+                                            chunk=tile, group=group)
+        b, s, h, _ = x.shape
+        g, n = B.shape[2], B.shape[3]
+        dx.copy_(grads[0])
+        ddt.copy_(grads[1])
+        dAp.zero_()
+        dAp[0, :, 0] = grads[2]
+        for rows, d_ in ((dBp, grads[3]), (dCp, grads[4])):
+            rows.zero_()
+            rows.view(b, s, g, h // g, n)[:, :, :, 0] = d_
+
+    monkeypatch.setattr(ss, "_call", call)
+
+
+@pytest.mark.parametrize("chunk", [128, 64, 32])
+def test_ssd_card_route_runs_the_tile_at_any_chunk(monkeypatch, chunk):
+    """A scan asked for at any chunk reaches both launchers with the
+    kernels' tile (64), counts the launches of chunk 64, and gives the
+    plain version's y and gradients at the chunk asked for (the chunk
+    orders the sums, not the function)."""
+    dims = []
+    _recording_launchers(monkeypatch, dims)
+    b, s, h, p, g, n = 1, 600, 2, 64, 1, 64
+    t = [torch.from_numpy(a) for a in _inputs(3, b, s, h, p, g, n, 0.05)]
+    want_y = ss.ssd_scan_plain(*t[:5], chunk=chunk)
+    want = _autograd_plain(t, chunk)
+    leaves = [x.clone().requires_grad_() for x in t[:5]]
+    f0, b0 = ss.LAUNCHES, ss.BWD_LAUNCHES
+    y = ss.SSDScan.apply(*leaves)
+    y.backward(t[5])
+    assert (ss.LAUNCHES - f0, ss.BWD_LAUNCHES - b0) == \
+        (ss.kernel_launches(s), 1) == (3, 1)
+    assert dims == [(fn, (b, s, h, p, g, n, 64, ss.GROUP_CHUNKS, 0))
+                    for fn in ("ssd_scan_launch", "ssd_scan_bwd_launch")]
+    np.testing.assert_allclose(y.detach().numpy(), want_y.numpy(),
+                               atol=1e-4, rtol=1e-4)
+    _close([x.grad for x in leaves], [x.numpy() for x in want],
+           f"tile at chunk {chunk}")
+    dims.clear()
+    y2 = ss._ssd_cuda(*t[:5])
+    assert torch.equal(y2, y.detach()) and len(dims) == 1 \
+        and dims[0][1][6] == ss.TILE
 
 
 def test_ssd_autograd_survives_checkpoint(monkeypatch):
@@ -355,7 +446,7 @@ def test_ssd_autograd_survives_checkpoint(monkeypatch):
     t = [torch.from_numpy(a) for a in _inputs(5, 1, 600, 4, 8, 2, 16, 0.05)]
 
     def f(*ins):
-        return ss.SSDScan.apply(*ins, 64) * 2.0
+        return ss.SSDScan.apply(*ins) * 2.0
 
     grads = []
     for remat in (False, True):
@@ -389,17 +480,18 @@ def test_ssd_dispatch_routes_grads_through_the_function(monkeypatch):
     calls = []
     monkeypatch.setattr(ss, "_check", lambda *a: None)
     monkeypatch.setattr(ss, "_ssd_cuda", lambda *a, **kw: calls.append(
-        ("forward", kw.get("states", False))))
+        ("forward", len(a), kw.get("states", False))))
     monkeypatch.setattr(ss.SSDScan, "apply",
-                        lambda *a: calls.append(("autograd", a[-1])))
+                        lambda *a: calls.append(("autograd", len(a))))
     for i in range(5):
         ins = [_CudaLike(j == i) for j in range(5)]
         ss.ssd_scan(*ins, chunk=64)
         with torch.no_grad():
-            ss.ssd_scan(*ins, chunk=64)
-    ss.ssd_scan(*[_CudaLike(False) for _ in range(5)], chunk=64)
-    assert calls == [("autograd", 64), ("forward", False)] * 5 \
-        + [("forward", False)]
+            ss.ssd_scan(*ins, chunk=128)
+    ss.ssd_scan(*[_CudaLike(False) for _ in range(5)], chunk=128)
+    # the five inputs alone: the caller's chunk never reaches the card
+    assert calls == [("autograd", 5), ("forward", 5, False)] * 5 \
+        + [("forward", 5, False)]
     t = [torch.from_numpy(a) for a in _inputs(1, 1, 30, 2, 8, 1, 8)]
     y = ss.ssd_scan(t[0].requires_grad_(), *t[1:5], chunk=64)
     assert y.grad_fn is not None and len(calls) == 11

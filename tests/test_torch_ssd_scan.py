@@ -77,6 +77,41 @@ def test_ragged_length_matches_ssd_chunked(s):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", [
+    (1, 256, 2, 8, 1, 16, 128),     # mamba2-2.7b tuned: two whole chunks
+    (2, 100, 4, 8, 2, 16, 128),     # s < chunk: one chunk of s rows
+    (1, 300, 2, 8, 1, 16, 128),     # ragged: the dt = 0 tail pad
+    (2, 96, 4, 8, 2, 16, 32),       # the reference's ssd32 variant
+    (1, 70, 2, 8, 1, 16, 32),       # ragged at 32
+])
+def test_plain_at_config_chunks_matches_pallas_and_ssd_chunked(
+        dtype, b, s, h, p, g, n, chunk):
+    """The plain version at the chunks configs and perf variants ask for
+    against the reference's `ssd_chunked` at that chunk and, where its
+    launcher takes the length (s a multiple of min(chunk, s)), the
+    Pallas kernel in interpret mode."""
+    from repro.kernels import ssd_scan as j_kernel
+    j, t = _inputs(s + chunk, dtype, b, s, h, p, g, n)
+    got = ss.ssd_scan(*t, chunk=chunk)
+    assert got.dtype == T_DT[dtype] and got.shape == (b, s, h, p)
+    _close(got, j_ssd.ssd_chunked(*j, chunk=chunk)[0], dtype)
+    if s % min(chunk, s) == 0:
+        _close(got, j_kernel.ssd_scan(*j, chunk=chunk, interpret=True), dtype)
+
+
+@pytest.mark.parametrize("chunk", [128, 32])
+def test_tile_equals_config_chunk(chunk):
+    """The kernels' own 64-row tile computes the function of any chunk:
+    the plain version at `TILE` against the plain version and the
+    reference's `ssd_chunked` at the config's chunk (float32 sum order
+    only), on a ragged length with a slow decay (the carry counts)."""
+    j, t = _inputs(7, "float32", 1, 1000, 4, 64, 1, 128, dt_scale=0.05)
+    tiled = ss.ssd_scan_plain(*t, chunk=ss.TILE)
+    _close(tiled, j_ssd.ssd_chunked(*j, chunk=chunk)[0], "float32")
+    _close(tiled, ss.ssd_scan_plain(*t, chunk=chunk).numpy(), "float32")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("b,s,h,p,g,n,chunk,group", [
     (2, 100, 4, 8, 2, 16, 32, 2),   # ragged s, g = 2
     (1, 256, 2, 8, 1, 16, 32, 3),   # 3 groups do not divide 8 chunks

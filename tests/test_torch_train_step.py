@@ -428,26 +428,27 @@ def _plain_ssd_route(monkeypatch):
     """Send every SSD scan through `SSDScan` (the card's route for inputs
     that need a gradient) with its CUDA launchers swapped for their plain
     versions, counting calls as the launchers count."""
-    def fwd(x, dt, A, B, C, *, chunk=64, states=False):
-        ss.LAUNCHES += ss.kernel_launches(x.shape[1], chunk)
+    def fwd(x, dt, A, B, C, *, states=False):
+        chunk = ss.TILE
+        ss.LAUNCHES += ss.kernel_launches(x.shape[1])
         y = ss.ssd_scan_plain(x, dt, A, B, C, chunk=chunk)
         if not states:
             return y
-        if ss.n_groups(x.shape[1], chunk) == 1:
+        if ss.n_groups(x.shape[1]) == 1:
             return y, None
         return y, ss.ssd_split_states_plain(x, dt, A, B, C, chunk=chunk) \
             .permute(0, 2, 1, 4, 3).contiguous()
 
-    def bwd(x, dt, A, B, C, dy, states, *, chunk=64):
+    def bwd(x, dt, A, B, C, dy, states):
         ss.BWD_LAUNCHES += 1
         return ss.ssd_scan_bwd_split_plain(x, dt, A, B, C, dy, states,
-                                           chunk=chunk)
+                                           chunk=ss.TILE)
 
     monkeypatch.setattr(ss, "_ssd_cuda", fwd)
     monkeypatch.setattr(ss, "_ssd_bwd_cuda", bwd)
     monkeypatch.setattr(ss, "ssd_scan",
                         lambda x, dt, A, B, C, *, chunk=64:
-                        ss.SSDScan.apply(x, dt, A, B, C, chunk))
+                        ss.SSDScan.apply(x, dt, A, B, C))
 
 
 @pytest.mark.parametrize("arch", ["zamba2-1.2b", "mamba2-2.7b"])

@@ -99,12 +99,16 @@ def test_configs_match_reference(lm):
 
 
 @pytest.mark.parametrize("arch", ["gemma3-4b", "yi-34b",
-                                  "moonshot-v1-16b-a3b", "dbrx-132b"])
+                                  "moonshot-v1-16b-a3b", "dbrx-132b",
+                                  "mamba2-2.7b"])
 def test_tuned_configs_match_reference(arch):
     mod = j_reg.ARCHS[arch][0].split(".")[-1]
     j_mod = __import__(f"repro.configs.{mod}", fromlist=["tuned"])
     t_mod = __import__(f"repro_torch.configs.{mod}", fromlist=["tuned"])
-    _same_config(t_mod.tuned(), j_mod.tuned())
+    t, j = t_mod.tuned(), j_mod.tuned()
+    _same_config(t, j)
+    if j.ssm is not None:               # mamba2-2.7b: SSD chunk 128
+        assert dataclasses.asdict(t.ssm) == dataclasses.asdict(j.ssm)
 
 
 def test_shapes_match_reference():
