@@ -338,7 +338,20 @@ launch tools:
      counted FLOPs against the analytical compute term and
      `roofline_fraction`, then `roofline_grid` over the directory (each
      measured row at its own batch beside the full-batch analytical
-     terms).
+     terms);
+ 31. the port's lint and the card's sync audit: a. `python -m
+     repro_torch.analysis` in-process over src/repro_torch with the
+     port's baseline (exit 0, or the phase fails), its findings by rule,
+     suppressed and baselined; b. under
+     `torch.cuda.set_sync_debug_mode("warn")`, every synchronizing
+     operation torch reports on one warm default-grid `DesignTwin.query`,
+     one `autoscale.simulate`, one Adam step of `optimize_policy` (phase
+     5's settings) and 5 `decode_step`s of a zamba2-1.2b Server (phase
+     9's width and depth), by the port's file:line: each site inside a
+     function of the analysis' static hot set must carry a finding
+     (new, suppressed or baselined), and one that does not fails the
+     phase; the syncs per path, the sites outside the hot set and how
+     many of them a finding covers are printed.
 
 Nothing earlier is cut for time.
 
@@ -359,6 +372,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import re
 import subprocess
 import sys
@@ -4437,6 +4451,154 @@ def harness_phase(dev) -> tuple:
     return tuple(counts)
 
 
+# ---------------------------------------------------------------------------
+# phase 31: the port's lint and the card's sync audit
+# ---------------------------------------------------------------------------
+
+# the autoscaler's demand: a diurnal day of 24 hourly bins (pods)
+AUDIT_CURVE = tuple(40.0 + 30.0 * max(0.0, math.sin(math.pi * (h - 6) / 14))
+                    for h in range(24))
+# the Server: 2 requests of 2 prompt tokens and 4 new tokens each, 2
+# slots: 2 teacher-forced steps + 3 decode steps = 5 `decode_step` calls
+AUDIT_PROMPT, AUDIT_NEW = 2, 4
+AUDIT_BUDGET_S = 60.0
+
+
+def lint_audit_phase(dev, cap: float) -> None:
+    """Phase 31: a. the port's lint (`python -m repro_torch.analysis`
+    in-process over src/repro_torch with its baseline; exit 0 or fail),
+    its findings by rule, suppressed and baselined; b. the sync audit:
+    under `torch.cuda.set_sync_debug_mode("warn")` each synchronizing
+    operation torch reports on four host-bound paths, by the port's
+    file:line: one warm default-grid `DesignTwin.query` (one day-scan
+    launch), one `autoscale.simulate`, one Adam step of `optimize_policy`
+    at phase 5's settings (skin cap `cap`), 5 `decode_step`s of a
+    zamba2-1.2b Server at phase 9's width and depth.  Every site inside
+    a function of the static hot set must carry a finding (new,
+    suppressed or baselined); a site the rules miss fails the phase."""
+    import contextlib
+    import dataclasses
+    import io
+    import numpy as np
+    import torch
+    from repro_torch.analysis import audit, engine
+    from repro_torch.analysis.__main__ import BASELINE, main as lint_main
+    from repro_torch.configs import zamba2_1p2b
+    from repro_torch.core import autoscale, daysim, design, dse
+    from repro_torch.kernels import day_scan as ds
+    from repro_torch.models import mamba_lm
+    from repro_torch.serving.engine import Request, Server
+    from repro_torch.serving.twin import DesignTwin
+    t_start = time.perf_counter()
+    src = ROOT / "src" / "repro_torch"
+    # a. the lint gate, through the CLI
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = lint_main([str(src)])
+    if rc != 0:
+        fail(f"lint: python -m repro_torch.analysis exited {rc}:\n"
+             f"{out.getvalue()}")
+    res = engine.analyze([str(src)], baseline_path=BASELINE)
+    by_rule = {}
+    for f in ([f for f, _ in res.suppressed]
+              + [f for _, f in res.baselined]):
+        by_rule[f.rule] = by_rule.get(f.rule, 0) + 1
+    print(f"phase 31 a, lint: exit {rc} over {res.files_scanned} files "
+          f"({out.getvalue().strip().splitlines()[-1]}); findings by rule "
+          + ", ".join(f"{k} {v}" for k, v in sorted(by_rule.items()))
+          + f"; {len(res.suppressed)} suppressed, {len(res.baselined)} "
+          f"baselined, {len(res.new)} new; hot set "
+          f"{len(res.context.hot)} functions")
+
+    # b. the four paths, each warmed once, then one audited call
+    golden = json.loads((src / "data" / "golden_day_pareto.json")
+                        .read_text())
+    twin = DesignTwin(dt_s=golden["dt_s"])
+    twin.query()
+    curve = np.asarray(AUDIT_CURVE)
+    spec = autoscale.AutoscalerSpec()
+    autoscale.simulate(spec, curve, 1.0)
+    plat, d, sched, pol = GRAD_DAY
+    f = daysim.relaxed_day_fn(plat, sched, pol, daysim.DEFAULT_DESIGNS[d],
+                              dt_s=GRAD_DT)
+    space = design.policy_space()
+    vg = torch.func.vmap(torch.func.grad_and_value(dse.policy_loss(f, cap)))
+    state = {"pts": space.clip(space.uniform_sample(0, GRAD_RESTARTS, dev))}
+    state["adam"] = design.adam_init(state["pts"])
+
+    def adam_step():
+        grads, _ = vg(state["pts"])
+        new, state["adam"] = design.adam_update(state["pts"], grads,
+                                                state["adam"], 0.08)
+        state["pts"] = space.clip(new)
+
+    adam_step()
+    cfg = dataclasses.replace(zamba2_1p2b.config(),
+                              param_dtype=torch.float32,
+                              compute_dtype=torch.float32)
+    params = mamba_lm.init(torch.Generator().manual_seed(LM_SEED), cfg, dev)
+    rng = np.random.default_rng(LM_SEED + 3)
+
+    def serve():
+        srv = Server(cfg, mamba_lm, params, batch_slots=2, max_len=16,
+                     eos=-1)
+        for i in range(2):
+            srv.submit(Request(i, rng.integers(2, cfg.vocab, AUDIT_PROMPT)
+                               .astype(np.int32), max_new_tokens=AUDIT_NEW))
+        srv.run()
+        return srv.stats.decode_steps + AUDIT_PROMPT
+
+    serve()
+    runs = (("twin query", lambda: twin.query()),
+            ("autoscale.simulate", lambda: autoscale.simulate(spec, curve,
+                                                              1.0)),
+            ("optimize_policy Adam step", adam_step),
+            ("Server decode", serve))
+    ds.LAUNCHES = 0
+    missed = []
+    for name, fn in runs:
+        torch.cuda.synchronize()
+        with audit.record_syncs() as sites:
+            got = fn()
+        torch.cuda.synchronize()
+        if name == "twin query" and ds.LAUNCHES != 1:
+            fail(f"sync audit: the twin query launched the day scan "
+                 f"{ds.LAUNCHES} times, want 1")
+        if name == "Server decode" and got != 5:
+            fail(f"sync audit: the Server ran {got} decode_step calls, "
+                 f"want 5")
+        rows = audit.classify(sites, res)
+        hot = [r for r in rows if r["hot"]]
+        cold = [r for r in rows if not r["hot"]]
+        missed += [(name, r) for r in hot if not r["covered"]]
+        print(f"phase 31 b, sync audit, {name}: "
+              f"{sum(r['syncs'] for r in rows)} syncs at "
+              f"{len(rows)} sites; in the hot set "
+              f"{sum(r['syncs'] for r in hot)} at {len(hot)} sites, "
+              f"{sum(r['covered'] for r in hot)} covered ("
+              + "; ".join(f"{r['site']} {r['function'].rsplit('.', 1)[-1]}"
+                          f" x{r['syncs']} {'/'.join(r['rules']) or 'MISSED'}"
+                          for r in hot)
+              + f"); outside it {sum(r['syncs'] for r in cold)} at "
+              f"{len(cold)} sites, {sum(r['covered'] for r in cold)} "
+              f"covered by a finding ("
+              + "; ".join(f"{r['site']} "
+                          f"{(r['function'] or '-').rsplit('.', 1)[-1]} "
+                          f"x{r['syncs']}"
+                          + (f" {'/'.join(r['rules'])}" if r["rules"]
+                             else "")
+                          for r in cold) + ")")
+    del params
+    torch.cuda.empty_cache()
+    took = time.perf_counter() - t_start
+    print(f"phase 31: {took:.1f} s (budget {AUDIT_BUDGET_S:g} s)")
+    if missed:
+        fail("sync audit: sites in the static hot set that no finding "
+             "covers: " + "; ".join(f"{n}: {r['site']} "
+                                    f"({r['function']}) x{r['syncs']}"
+                                    for n, r in missed))
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4667,6 +4829,8 @@ def main() -> None:
     lm_rows[0]["launches"] += h_f
     bwd_row["launches"] += h_b
     t30 = time.perf_counter() - t0
+    # 31. the port's lint and the sync audit
+    lint_audit_phase(dev, opt["peak_cap_c"])
     print(f"phases 28-30: {t28:.1f} s, {t29:.1f} s, {t30:.1f} s; "
           f"mamba2-2.7b's SSD forward at its prefill shape (chunk "
           f"{TUNED_CHUNK}): {m_row[0]:.4f} ms, plain {m_row[1]:.3f} ms, "

@@ -147,6 +147,8 @@ def _scale_scan(demand: torch.Tensor, params: dict, n_boot: int) -> dict:
 
 
 def _validate_curve(curve, bin_hours: float) -> np.ndarray:
+    # repro: ignore[R002,R006]: host input check: the curve is the caller's
+    # numpy demand, not a tensor
     c = np.asarray(curve, np.float64)
     if c.ndim != 1 or c.size == 0:
         raise ValueError(f"expected a (B,) demand curve, got shape "
@@ -188,7 +190,10 @@ def simulate(spec: AutoscalerSpec, curve, bin_hours: float = 1.0,
                            ("max_pods", np.inf if spec.max_pods is None
                             else spec.max_pods))}
     traj = _scale_scan(torch.as_tensor(demand, device=dev), params, n_boot)
+    # repro: ignore[R002]: the call's one copy of its trajectories to the host
     host = torch.stack([traj[k] for k in TRAJ_KEYS]).cpu().numpy()
+    # repro: ignore[R006]: host float64 summary of the copied trajectories, as
+    # the reference sums them
     traj = {k: v.astype(np.float64) for k, v in zip(TRAJ_KEYS, host)}
 
     billed = traj["cap"] + traj["booting"]
@@ -209,6 +214,8 @@ def simulate(spec: AutoscalerSpec, curve, bin_hours: float = 1.0,
         "scale_down_events": int(traj["down"].sum()),
     }
     if stream_curve is not None:
+        # repro: ignore[R002,R006]: host float64 stream curve of the caller, as
+        # the reference reads it
         s = np.asarray(stream_curve, np.float64)
         if s.shape != c.shape:
             raise ValueError(f"stream_curve shape {s.shape} != demand "

@@ -292,6 +292,8 @@ def synth_queue_trace(n: int = 240, seed: int = QUEUE_TRACE_SEED) -> dict:
     noise are deliberately NOT in the linear model being fitted.  Drawn
     with `np.random.RandomState(seed)`, the same draws in the same order
     as the reference package's trace."""
+    # repro: ignore[R003]: the reference's draws in the reference's order
+    # (np.random.RandomState(seed)), for the calibration's parity
     rng = np.random.RandomState(seed)
     plat = aria2.aria2_platform()
     tabs = {r: np.asarray(plat.duty_table(r, 0.0))

@@ -554,6 +554,7 @@ def _design_row(design: dict, seg: DaySegment,
         "on_device": () if act.offload else tuple(design["on_device"]),
         "compression": float(design.get("compression", 10.0)),
         "fps_scale": float(design.get("fps_scale", 1.0)) * act.fps_mult,
+        # repro: ignore[R002]: host design dict value (a Python int)
         "mcs_tier": int(design.get("mcs_tier", DEFAULT_MCS)),
         "upload_duty": min(1.0, seg.upload_duty * act.duty_mult),
         "brightness": min(1.0, seg.brightness * act.brightness_mult),
@@ -704,6 +705,8 @@ class _Combo:
 def _theta_key(theta) -> tuple | None:
     if not theta:
         return None
+    # repro: ignore[R002]: cache key from the caller's theta overrides: host
+    # floats on the query path
     return tuple(sorted((k, float(v)) for k, v in theta.items()))
 
 
@@ -820,6 +823,8 @@ def _puck_coeffs(plat: PlatformSpec) -> tuple:
 
 
 def _put(a, dev: torch.device) -> torch.Tensor:
+    # repro: ignore[R002]: one push of a new assembly's host arrays;
+    # `_PIPELINES` keeps the result, so a warm query never reaches it
     return torch.as_tensor(np.ascontiguousarray(a), device=dev)
 
 
@@ -1214,6 +1219,8 @@ def _enumerate_combos(platforms, designs, schedules, policies,
         plat_combos = []
         for d in designs:
             if not set(d["on_device"]) <= supported:
+                # repro: ignore[R006]: host assembly: a list of skipped-design
+                # dicts, not tensors
                 skipped.append({"platform": plat.name,
                                 "design": d.get("name", ""),
                                 "reason": "unsupported placement"})
@@ -1221,6 +1228,8 @@ def _enumerate_combos(platforms, designs, schedules, policies,
             plat_combos.extend(
                 _Combo(plat, d, sched, pol, bat, therm, puck)
                 for sched in schedules for pol in policies)
+        # repro: ignore[R006]: host assembly: a list of (platform, combos), not
+        # tensors
         groups.append((plat, plat_combos))
     return groups, skipped
 
@@ -1421,12 +1430,20 @@ def _assemble_query(platforms=DEFAULT_PLATFORMS, designs=DEFAULT_DESIGNS,
                                cb.policy, cb.battery, cb.thermal)
                               for cb in grp))
                  for plat, grp in groups),
+           # repro: ignore[R002]: host query arguments (Python numbers)
+           # normalised into the assembly's cache key
            float(dt_s), float(n_users), float(standby_mw),
+           # repro: ignore[R002]: host query arguments (Python numbers)
+           # normalised into the assembly's cache key
            _theta_key(theta), str(results_dir), float(shutdown_c))
     asm = _ASSEMBLIES.get(key)
     if asm is not None:
+        # repro: ignore[R002]: the assembly cache's hit counter: host
+        # bookkeeping by design
         ASSEMBLY_STATS["hits"] += 1
         return asm
+    # repro: ignore[R002]: the assembly cache's miss counter: host bookkeeping
+    # by design
     ASSEMBLY_STATS["misses"] += 1
 
     T = max(cb.schedule.n_steps(dt_s) for cb in combos)
@@ -1439,6 +1456,8 @@ def _assemble_query(platforms=DEFAULT_PLATFORMS, designs=DEFAULT_DESIGNS,
     for plat, grp in groups:
         rows, slices = [], []
         for cb in grp:
+            # repro: ignore[R006]: host assembly on a cache miss: numpy rows,
+            # not tensors
             slices.append(_combo_rows(cb, rows))
         sset = ScenarioSet.build(rows, primitives=plat.primitives)
         scenarios._validate(plat, sset)
@@ -1446,11 +1465,15 @@ def _assemble_query(platforms=DEFAULT_PLATFORMS, designs=DEFAULT_DESIGNS,
         sset = sset.pad(r_b)
         th = _theta_np(plat, theta)
         p_base, p_wan = _puck_coeffs(plat)
+        # repro: ignore[R006]: host assembly on a cache miss: numpy rows, not
+        # tensors
         grp_dyn.append({"vec": _vec_np(sset), "theta": th,
                         "p_base": np.float32(p_base),
                         "p_wan": np.float32(p_wan)})
         theta_keys.append(tuple(sorted(th)))
         row_counts.append(r_b)
+        # repro: ignore[R006]: host assembly on a cache miss: numpy rows, not
+        # tensors
         row_ctx.append((tuple(sorted(th.items())), float(n_users),
                         str(results_dir)))
         for cb, (start, steady_i) in zip(grp, slices):
@@ -1458,13 +1481,21 @@ def _assemble_query(platforms=DEFAULT_PLATFORMS, designs=DEFAULT_DESIGNS,
             seg_idx, rows_t = _step_rows(cb, dt_s, T)
             so = np.full(T, n_seg - 1, np.int64)   # pad: last segment
             so[:len(seg_idx)] = seg_idx
+            # repro: ignore[R006]: host assembly on a cache miss: numpy rows,
+            # not tensors
             seg_of.append(so)
             lv = np.minimum(np.arange(L), n_lvl - 1)  # pad: last level
             lvl_row.append(base + start + lv * n_seg)
             steady_of.append(base + steady_i)
             for k, v in rows_t.items():
+                # repro: ignore[R006]: host assembly on a cache miss: numpy
+                # rows, not tensors
                 step_rows[k].append(v)
+            # repro: ignore[R006]: host assembly on a cache miss: numpy rows,
+            # not tensors
             amults.append(_act_mult(cb.policy, L))
+            # repro: ignore[R006]: host assembly on a cache miss: numpy rows,
+            # not tensors
             consts.append(_combo_const(cb, dt_s, standby_mw, shutdown_c))
         base += r_b
 
@@ -1472,6 +1503,8 @@ def _assemble_query(platforms=DEFAULT_PLATFORMS, designs=DEFAULT_DESIGNS,
     n_b = bucket_size(n_real)
 
     def _pad_n(a):
+        # repro: ignore[R002]: host assembly on a cache miss: numpy arrays, not
+        # tensors
         a = np.asarray(a)
         if n_b == n_real:
             return a
@@ -1480,6 +1513,8 @@ def _assemble_query(platforms=DEFAULT_PLATFORMS, designs=DEFAULT_DESIGNS,
     combo_w = np.zeros(n_b, np.float32)
     combo_w[:n_real] = 1.0
     dyn = {"groups": tuple(grp_dyn),
+           # repro: ignore[R002]: host assembly on a cache miss: numpy arrays,
+           # not tensors
            "rates": np.asarray(rr["tok_per_cap"], np.float32),
            "gate": np.float32(n_users),
            "act_mult": _pad_n(np.stack(amults)),
@@ -1497,10 +1532,16 @@ def _assemble_query(platforms=DEFAULT_PLATFORMS, designs=DEFAULT_DESIGNS,
     sig = (plats, tuple(theta_keys), tuple(row_counts), n_b, T, L,
            len(rr["tok_per_cap"]))
     asm = _Assembly(combos, skipped, dyn, ix, plats, sig, tuple(row_ctx),
+                    # repro: ignore[R002]: host query argument (a Python
+                    # number) in the assembly record
                     key, n_real, float(n_users), float(dt_s))
+    # repro: ignore[R002]: the value-keyed assembly cache: host bookkeeping by
+    # design
     _ASSEMBLIES[key] = asm
     while len(_ASSEMBLIES) > _ASSEMBLIES_MAX:
         del _ASSEMBLIES[next(iter(_ASSEMBLIES))]
+        # repro: ignore[R002]: the assembly cache's eviction counter: host
+        # bookkeeping by design
         ASSEMBLY_STATS["evictions"] += 1
     return asm
 
@@ -1546,12 +1587,20 @@ def _pipeline_for(asm: _Assembly, dev: torch.device) -> _Pipeline:
     key = asm.key + (str(dev),)
     pipe = _PIPELINES.get(key)
     if pipe is not None:
+        # repro: ignore[R002]: the pipeline cache's hit counter: host
+        # bookkeeping by design
         PIPELINE_STATS["hits"] += 1
         return pipe
+    # repro: ignore[R002]: the pipeline cache's miss counter: host bookkeeping
+    # by design
     PIPELINE_STATS["misses"] += 1
+    # repro: ignore[R002]: the device-pipeline cache: host bookkeeping by
+    # design
     pipe = _PIPELINES[key] = _to_device(asm, dev)
     while len(_PIPELINES) > _PIPELINES_MAX:
         del _PIPELINES[next(iter(_PIPELINES))]
+        # repro: ignore[R002]: the pipeline cache's eviction counter: host
+        # bookkeeping by design
         PIPELINE_STATS["evictions"] += 1
     return pipe
 
@@ -1578,12 +1627,18 @@ def _batch_rows(pipes: list) -> tuple:
         for qs in by_ctx.values():
             gs = [pipes[q].dyn["groups"][p] for q in qs]
             vec = gs[0]["vec"] if len(gs) == 1 else {
+                # repro: ignore[R006]: one concatenation per platform and row
+                # context of a batch, not per step
                 k: torch.cat([g["vec"][k] for g in gs]) for k in gs[0]["vec"]}
             d0 = pipes[qs[0]].dyn
             total, _, mw_p, pods, _ = _row_stage(plat)(
                 vec, gs[0]["theta"], d0["rates"], d0["gate"],
                 gs[0]["p_base"], gs[0]["p_wan"])
+            # repro: ignore[R002]: the row-stage pass counter
+            # (ROW_STAGE_STATS): host bookkeeping by design
             ROW_STAGE_STATS["passes"] += 1
+            # repro: ignore[R006]: one entry per platform and row context of a
+            # batch, not per step
             parts.append((qs, [x.view(len(qs), -1)
                                for x in (total, mw_p, pods)]))
         for j in range(3):
@@ -1668,12 +1723,16 @@ def _reports(summ: dict, asms: list, with_front: bool) -> list:
     """Device summary of a batch -> one DayReport per query, its pad
     lanes sliced off; the whole summary goes to the host in one copy."""
     keys = sorted(summ)
+    # repro: ignore[R002]: the twin's one copy of a batch summary to the host:
+    # what the user asked for
     host = torch.stack([summ[k].float() for k in keys]).cpu().numpy()
     n_b = len(asms[0].dyn["combo_w"])
     reps = []
     for q, asm in enumerate(asms):
         lanes = slice(q * n_b, q * n_b + asm.n_real)
         f = {k: (host[i, lanes] > 0.5 if summ[k].dtype == torch.bool
+                 # repro: ignore[R006]: host float64 report fields of the
+                 # copied summary, as the reference's DayReport
                  else host[i, lanes].astype(np.float64))
              for i, k in enumerate(keys)}
         front = f.pop("front_mask")
@@ -1685,6 +1744,8 @@ def _reports(summ: dict, asms: list, with_front: bool) -> list:
             **f)
         if with_front:
             rep.front_mask = front
+        # repro: ignore[R006]: host DayReport objects, one per query of the
+        # batch
         reps.append(rep)
     return reps
 

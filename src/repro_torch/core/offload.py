@@ -271,6 +271,8 @@ def capacity_table(results_dir=None) -> CapacityTable:
     """Shared per-directory CapacityTable (loaded once, cached)."""
     key = (Path(results_dir) if results_dir else RESULTS / "dryrun").resolve()
     if key not in _TABLES:
+        # repro: ignore[R002]: the per-directory capacity-table cache: host
+        # bookkeeping by design
         _TABLES[key] = CapacityTable(key)
     return _TABLES[key]
 
@@ -462,9 +464,13 @@ def stream_rates(results_dir=None) -> dict:
         arch, cell, cap, source = table.resolve(
             STREAM_CANDIDATES.get(s, ((arch0, cell0),)))
         streams.append(s)
+        # repro: ignore[R006]: host float rates of the capacity table, not
+        # tensors
         rates.append(tok / cap)
         archs[s], cells[s], sources[s] = arch, cell, source
     return {"streams": tuple(streams),
+            # repro: ignore[R006]: host float64 rates, as the reference's
+            # stream_rates
             "tok_per_cap": np.asarray(rates, np.float64),
             "archs": archs, "cells": cells, "sources": sources}
 
@@ -488,6 +494,8 @@ def pods_streams_device(asr_on, fps_scale, upload_duty, tok_per_cap,
             x = x / fps
         elif s == "audio":
             x = x * (1.0 - asr_on)
+        # repro: ignore[R006]: one column per backend stream (4), stacked once
+        # after the loop
         cols.append(x)
     pods_stream = torch.stack(cols, dim=-1)
     return torch.sum(pods_stream, dim=-1), pods_stream

@@ -33,6 +33,8 @@ class DataConfig:
 
 
 def _batch_rng(cfg: DataConfig, step: int) -> np.random.Generator:
+    # repro: ignore[R003]: the reference's host data pipeline: one numpy stream
+    # per (seed, step, host)
     return np.random.default_rng(
         np.random.SeedSequence([cfg.seed, step, cfg.host_id]))
 

@@ -196,6 +196,8 @@ def day_scan_plain(tables: dict, full: bool = False) -> dict:
                 "soc_state": soc_state, "p_mw": p_mw, "p_p_mw": p_p_mw,
                 "act": act, "alive": alive}
         for k, v in out.items():
+            # repro: ignore[R006]: the plain version's per-step trace (the CPU
+            # path; the card launches the kernel)
             v.append(step[k])
     return {k: torch.stack(v).t() for k, v in out.items()}
 

@@ -254,6 +254,8 @@ def _flash_cuda(q, k, v, *, causal=True, window=None, scale=None,
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  None if row_lse is None else row_lse.data_ptr(),
                  B, Sq, Sk, H, KvH, Dh, int(bool(causal)),
+                 # repro: ignore[R002]: host launch scalars (the window and the
+                 # scale are Python numbers)
                  -1 if window is None else int(window), float(scale),
                  DTYPES[q.dtype], stream)
     if err != 0:
@@ -283,6 +285,8 @@ def _flash_bwd_cuda(q, k, v, o, do, lse, *, causal=True, window=None,
                  do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                  B, Sq, Sk, H, KvH, Dh, int(bool(causal)),
+                 # repro: ignore[R002]: host launch scalars (the window and the
+                 # scale are Python numbers)
                  -1 if window is None else int(window), float(scale),
                  DTYPES[q.dtype], stream)
     if err != 0:

@@ -172,6 +172,8 @@ def decode_step(params, cfg, token, cache, cur_len):
     """One token (B,) at position `cur_len` through the SSM backbone (+ the
     shared attention for zamba2).  Returns (logits (B, V), new cache); the
     input cache is left as it was."""
+    # repro: ignore[R002]: cur_len is the caller's host position (the Server
+    # passes an int); int() only normalises it
     cur_len = int(cur_len)
     h = core.embed_apply(params["embed"], token[:, None],
                          cfg.compute_dtype)[:, 0]
@@ -211,7 +213,11 @@ def decode_step(params, cfg, token, cache, cur_len):
         h = h + attn_lib.out_proj(sp["attn"], o[:, None, :])[:, 0]
         hn = core.rmsnorm_apply(sp["norm2"], h[:, None, :])
         h = h + core.mlp_apply(sp["mlp"], hn)[:, 0]
+        # repro: ignore[R006]: one cache entry per layer, stacked once after
+        # the loop
         k_out.append(kc)
+        # repro: ignore[R006]: one cache entry per layer, stacked once after
+        # the loop
         v_out.append(vc)
     for i in range(n_full * k, n):
         h = mamba(i, h)

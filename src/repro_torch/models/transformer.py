@@ -175,8 +175,14 @@ def _backbone(params, cfg, h, remat: bool = False):
             h, aux = checkpoint(_layer_train, *args, use_reentrant=False)
         else:
             h, aux, k, v = _layer_apply(*args)
+            # repro: ignore[R006]: one cache entry per layer, stacked once
+            # after the loop
             ks.append(k)
+            # repro: ignore[R006]: one cache entry per layer, stacked once
+            # after the loop
             vs.append(v)
+        # repro: ignore[R006]: one aux loss per layer, summed once after the
+        # loop
         auxes.append(aux)
     return h, torch.stack(auxes).mean(), ks, vs
 
@@ -252,6 +258,8 @@ def decode_step(params, cfg, token, cache, cur_len):
     window (`BIG_WINDOW` on global layers).  Writes position `cur_len`
     of every layer's K / V into `cache` in place and returns (logits
     (B, V), cache)."""
+    # repro: ignore[R002]: cur_len is the caller's host position (the Server
+    # passes an int); int() only normalises it
     cur_len = int(cur_len)
     h = _scale(core.embed_apply(params["embed"], token[:, None],
                                 cfg.compute_dtype), cfg)[:, 0]

@@ -226,6 +226,8 @@ def prefill(params, cfg, tokens, frames, *, max_len: int | None = None):
         xk, xv = _enc_kv(p["xattn"], enc)
         h, k, v = _dec_layer(p, cfg, h, (xk, xv))
         for name, t in (("k", k), ("v", v), ("xk", xk), ("xv", xv)):
+            # repro: ignore[R006]: one cross-attention cache entry per decoder
+            # layer, stacked once after the loop
             cache[name].append(t)
     h = core.rmsnorm_apply(params["final_norm"], h)
 
@@ -248,6 +250,8 @@ def decode_step(params, cfg, token, cache, cur_len):
     positions (int or 0-dim tensor).  Writes position `cur_len` of every
     layer's K / V into `cache` in place and returns (logits (B, V),
     cache)."""
+    # repro: ignore[R002]: cur_len is the caller's host position (the Server
+    # passes an int); int() only normalises it
     cur_len = int(cur_len)
     h = core.embed_apply(params["embed"], token[:, None],
                          cfg.compute_dtype)[:, 0]

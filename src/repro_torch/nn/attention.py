@@ -77,6 +77,8 @@ def qkv_proj(params: dict, x: torch.Tensor):
     for name in ("wq", "wk", "wv"):
         w = params[name].to(x.dtype)
         d, h, dh = w.shape
+        # repro: ignore[R006]: one projection per q / k / v weight, not per
+        # step
         out.append((x @ w.reshape(d, h * dh)).reshape(*x.shape[:-1], h, dh))
     return tuple(out)
 

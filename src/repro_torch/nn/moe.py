@@ -116,6 +116,8 @@ def moe_apply(params: dict, x: torch.Tensor, top_k: int):
     rows[slot] = xf.repeat_interleave(top_k, dim=0)
     out = torch.empty_like(rows)
     start = 0
+    # repro: ignore[R002]: the documented host sync of a MoE layer: the
+    # per-expert row counts size each expert's product
     for e, n in enumerate(counts.tolist()):
         if n:
             r = rows[start:start + n]

@@ -135,6 +135,8 @@ def ssd_chunked(x, dt, A, B, C, state0=None, chunk=64):
         decay_out = torch.exp(cA[:, -1:, :] - cA)             # (b,L,h)
         upd = torch.einsum("bjhn,bjhp,bjh->bhpn", Bh, xdt, decay_out)
         state = state * torch.exp(cA[:, -1, :])[..., None, None] + upd
+        # repro: ignore[R006]: one output per chunk of the plain SSD,
+        # concatenated once (the card runs the SSD kernel)
         ys.append((y_intra + y_inter).to(x.dtype))
     y = torch.cat(ys, dim=1)
     return y[:, :s_orig], state

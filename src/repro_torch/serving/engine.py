@@ -98,6 +98,7 @@ class Server:
         toks = np.zeros((B, S), np.int64)
         for i, r in enumerate(reqs):
             toks[i, S - len(r.prompt):] = r.prompt   # left-pad
+        # repro: ignore[R002]: one push of a batch's prompts
         toks = torch.as_tensor(toks, device=self.device)
         cache = self.model.init_cache(self.cfg, B, self.max_len,
                                       torch.float32, self.device)
@@ -117,6 +118,9 @@ class Server:
             next_tok = torch.argmax(logits, dim=-1)
             for _ in range(max(r.max_new_tokens for r in batch)):
                 max_steps -= 1
+                # repro: ignore[R002]: greedy decode hands each step's tokens
+                # to the host (EOS and length checks): the Server's one sync a
+                # step
                 toks = next_tok.tolist()
                 for i, r in enumerate(batch):
                     if not r.done and len(r.out_tokens) < r.max_new_tokens:

@@ -952,3 +952,30 @@ def test_ssd_bwd_matches_plain(cuda, dtype, b, s, h, g, n):
             assert _rel_rms(a, w) <= 5e-4
         else:                       # s = 1: dA is 0 on both sides
             assert not bool(a.any())
+
+
+def test_twin_query_syncs_are_covered_by_the_lint(cuda):
+    """Every synchronizing operation torch reports (sync debug mode
+    "warn") in a warm default-grid twin query sits, when its function is
+    in the lint's static hot set, on a statement the lint covers (a
+    finding, a reasoned suppression or a baseline entry)."""
+    from pathlib import Path
+    from repro_torch.analysis import audit
+    from repro_torch.analysis.__main__ import BASELINE
+    from repro_torch.analysis.engine import analyze
+    src = Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+    res = analyze([str(src)], baseline_path=BASELINE)
+    assert res.exit_code == 0
+    twin = DesignTwin(dt_s=60.0)
+    twin.query()
+    before = ds.LAUNCHES
+    torch.cuda.synchronize()
+    with audit.record_syncs() as sites:
+        twin.query()
+    torch.cuda.synchronize()
+    assert ds.LAUNCHES == before + 1
+    rows = audit.classify(sites, res)
+    assert sum(r["syncs"] for r in rows) >= 1       # the summary's copy
+    assert all(r["site"] is not None for r in rows), rows
+    missed = [r for r in rows if r["hot"] and not r["covered"]]
+    assert missed == [], missed
