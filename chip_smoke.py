@@ -353,6 +353,34 @@ launch tools:
      phase; the syncs per path, the sites outside the hot set and how
      many of them a finding covers are printed.
 
+The widths the TPU kernels take, every smoke config, the examples:
+
+ 32. a. the kernels at widths they are not built for, each against its
+        plain version on the card: flash forward and backward, float32
+        and bf16, at tests/test_kernels.py's sweep shapes and at Dh 8
+        and 16 (the head zero-padded to 64; phase 6's and 18's
+        tolerances and controls), the SSD forward and backward at the
+        sweep's shapes and p 16 / n 16 (x, B, C padded to 64; phase 6's
+        and 23 c's), each with one launch and its bf16 ms beside the
+        plain version's, SDPA's and the bound at the true width; the day
+        scan past 16 levels on the main path: a `DesignTwin` on the
+        serving grid answers a what-if with a seeded policy of 17, 32
+        and 64 levels, one launch each, the kernel bit-equal to its plain
+        version on the what-if's tables (all nine outputs, and all 17 in
+        the full-trace mode), its ms beside the bound;
+     b. every arch's `smoke()` config (Dh 8 or 16, SSD p 16 / n 16): a
+        float32 prefill through the kernels against the same call on the
+        CPU (1e-4), and `launch.train.train(arch, steps=2)` at its
+        defaults against the same steps through the plain attention and
+        SSD (phase 19's TRAIN_LOSS_RTOL / TRAIN_GNORM_RTOL), launches
+        counted from 0 for each;
+     c. the ten examples/torch_*.py through `main([..., "--device",
+        "cuda"])` at the reference's size (gradient_codesign's Adam steps
+        cut to EXAMPLE_GRAD_STEPS, train_backend_lm's 200 steps to 20), each
+        with its kernels' launches counted from 0, and its figures
+        against the same `main` on the CPU where that run is short
+        (EXAMPLE_TOL); the phase's seconds against PHASE32_BUDGET_S.
+
 Nothing earlier is cut for time.
 
 The second-to-last lines are the `kernels` JSON object (the day scan's
@@ -365,8 +393,11 @@ phases 19-21, 24, 27 and 30, its max_abs_err over phase 18, its times at
 olmo-1b's shape; the SSD scan's launches over phases 7, 24, 25, 28 and
 30, its max_abs_err over phases 6 and 28 a; the SSD backward's calls
 over phases 24-25 and 28 e, its max_abs_err over phases 23 c and 28 a,
-its times at zamba2's prefill shape) and the nvidia-smi line; the last line
-is the result object.
+its times at zamba2's prefill shape; then the rows of the narrow
+widths, phase 32's: each kernel's launches on the main paths of 32 b and
+32 c (the day scan's on 32 a's what-ifs), its max_abs_err over 32 a, its
+times at the Dh 16, p 16 / n 16 and 64-level shapes) and the nvidia-smi
+line; the last line is the result object.
 """
 from __future__ import annotations
 
@@ -2890,19 +2921,20 @@ def bits_equal(a, b) -> bool:
     return torch.equal(a, b)
 
 
-def check_flash_bwd(dev) -> float:
-    """Phase 18: the backward kernel, through the autograd function, vs
-    autograd of the plain forward at BWD_SHAPES in float32 (BWD_F32_REL)
+def check_flash_bwd(dev, shapes=BWD_SHAPES, seed: int = 8) -> float:
+    """Phase 18 (and 32 a at the narrow widths): the backward kernel,
+    through the autograd function, vs autograd of the plain forward at
+    `shapes` in float32 (BWD_F32_REL)
     and bf16 (BWD_BF16_MAX / BWD_BF16_RMS, with a control: the bf16
     gradients against the float32 ones must miss BWD_F32_REL), and a
     second run through the function bit for bit equal to the first;
     returns the largest abs error."""
     import torch
     from repro_torch.kernels import flash_attention as fa
-    gen = torch.Generator(device=dev).manual_seed(8)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
-        for name, B, Sq, Sk, H, KvH, Dh, causal, window in BWD_SHAPES:
+        for name, B, Sq, Sk, H, KvH, Dh, causal, window in shapes:
             q, do = (torch.randn((B, Sq, H, Dh), generator=gen, device=dev)
                      .to(dtype) for _ in range(2))
             k, v = (torch.randn((B, Sk, KvH, Dh), generator=gen, device=dev)
@@ -3496,20 +3528,21 @@ def check_seeds(dev) -> None:
         print(line)
 
 
-def ssd_bwd_inputs(gen, b, s, h, g, n, dtype, dt_scale):
-    """x, dt, A, B, C and dy on the card, phase 6's draws."""
+def ssd_bwd_inputs(gen, b, s, h, g, n, dtype, dt_scale, p=64):
+    """x, dt, A, B, C and dy on the card, phase 6's draws (x and dy p
+    wide)."""
     import torch
     dev = gen.device
 
     def rn(shape, dt, scale=1.0):
         return (scale * torch.randn(shape, generator=gen, device=dev)).to(dt)
 
-    x = rn((b, s, h, 64), dtype, 0.5)
+    x = rn((b, s, h, p), dtype, 0.5)
     dt = dt_scale * torch.nn.functional.softplus(rn((b, s, h), torch.float32))
     A = -torch.exp(rn((h,), torch.float32, 0.3))
     return (x, dt, A, rn((b, s, g, n), dtype, 0.3), rn((b, s, g, n), dtype,
                                                       0.3),
-            rn((b, s, h, 64), dtype))
+            rn((b, s, h, p), dtype))
 
 
 def ssd_grads(ins, dy, chunk: int = 64):
@@ -3550,39 +3583,53 @@ def check_ssd_forward_states(dev) -> None:
 
 
 def check_ssd_bwd(dev, shapes=SSD_BWD_SHAPES, chunk: int = 64,
-                  seed: int = 11) -> float:
-    """Phase 23 c (and 28 a at chunk 128): the backward kernel (through
-    `ssd_scan`'s autograd route) against `ssd_scan_bwd_plain` at `chunk`
-    at `shapes`, float32 within SSD_BWD_F32_REL of each gradient's
-    largest magnitude, bf16 within SSD_BWD_BF16_RMS relative RMS with the
-    rounded control outside it; a second run bit-equal; returns the
-    largest abs error."""
+                  seed: int = 11, exact: bool = False) -> float:
+    """Phase 23 c (28 a at chunk 128, 32 a at the narrow widths): the
+    backward kernel (through `ssd_scan`'s autograd route) against
+    `ssd_scan_bwd_plain` at `chunk` at `shapes` ((name, b, s, h, g, n, dt
+    scale[, p]); p 64 unless given), float32 within SSD_BWD_F32_REL of
+    each gradient's largest magnitude, bf16 within SSD_BWD_BF16_RMS
+    relative RMS with the rounded control outside it; a second run
+    bit-equal; returns the largest abs error.  With `exact` the float32
+    kernel is held to the plain version run in float64, the same
+    tolerance: at dt x 1 the float32 plain version's own dA is 5e-6 to
+    1.1e-5 of its largest magnitude off float64 (a sum of s terms that
+    cancel), so two float32 runs may differ by twice that."""
     import torch
     from repro_torch.kernels import ssd_scan as ss
     gen = torch.Generator(device=dev).manual_seed(seed)
     names = ("dx", "ddt", "dA", "dB", "dC")
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
-        for name, b, s, h, g, n, dt_scale in shapes:
-            *ins, dy = ssd_bwd_inputs(gen, b, s, h, g, n, dtype, dt_scale)
+        for name, b, s, h, g, n, dt_scale, *p in shapes:
+            p = p[0] if p else 64
+            *ins, dy = ssd_bwd_inputs(gen, b, s, h, g, n, dtype, dt_scale, p)
             b0 = ss.BWD_LAUNCHES
             got = ssd_grads(ins, dy, chunk)
             again = ssd_grads(ins, dy, chunk)
             calls = ss.BWD_LAUNCHES - b0
-            want = ss.ssd_scan_bwd_plain(*ins, dy, chunk=chunk)
+            f64 = exact and dtype == torch.float32
+            want = ss.ssd_scan_bwd_plain(
+                *(t.double() if f64 else t for t in (*ins, dy)),
+                chunk=chunk)
             torch.cuda.synchronize()
-            label = (f"ssd bwd {name} b={b} s={s} h={h} g={g} n={n} dt "
-                     f"x{dt_scale:g} {str(dtype)[6:]} chunk {chunk}")
+            label = (f"ssd bwd {name} b={b} s={s} h={h} p={p} g={g} n={n} "
+                     f"dt x{dt_scale:g} {str(dtype)[6:]} chunk {chunk}")
             if calls != 2:
                 fail(f"{label}: {calls} backward calls, want 2")
             if not all(torch.equal(a, c) for a, c in zip(got, again)):
                 fail(f"{label}: two runs differ")
             rels, rms = [], []
             for k, a, w in zip(names, got, want):
-                if a.dtype != w.dtype or not bool(torch.isfinite(a).all()):
+                if a.dtype != (w.dtype if w.dtype != torch.float64
+                               else torch.float32) \
+                        or not bool(torch.isfinite(a).all()):
                     fail(f"{label}: {k} not finite or not {w.dtype}")
-                err = float((a.float() - w.float()).abs().max())
-                top = float(w.float().abs().max())
+                # float64 differences when the reference is (exact)
+                wide = torch.float64 if w.dtype == torch.float64 \
+                    else torch.float32
+                err = float((a.to(wide) - w).abs().max())
+                top = float(w.to(wide).abs().max())
                 worst = max(worst, err)
                 rels.append(err / top)
                 rms.append(rel_rms(a.float(), w.float()))
@@ -3593,7 +3640,9 @@ def check_ssd_bwd(dev, shapes=SSD_BWD_SHAPES, chunk: int = 64,
                 if dtype == torch.bfloat16 and rms[-1] > SSD_BWD_BF16_RMS:
                     miss(f"{label}: {k} rel RMS {rms[-1]:.3g} off the plain "
                          f"version (tol {SSD_BWD_BF16_RMS:g})")
-            line = (f"{label}: vs ssd_scan_bwd_plain, max err / max |.| "
+            line = (f"{label}: vs ssd_scan_bwd_plain"
+                    + (" in float64" if want[1].dtype == torch.float64
+                       else "") + ", max err / max |.| "
                     + " ".join(f"{k} {r:.3g}" for k, r in zip(names, rels)))
             if dtype == torch.bfloat16:
                 ctrl = ss.ssd_scan_bwd_plain(*ins, dy, chunk=chunk,
@@ -4598,6 +4647,566 @@ def lint_audit_phase(dev, cap: float) -> None:
                                     f"({r['function']}) x{r['syncs']}"
                                     for n, r in missed))
 
+# ---------------------------------------------------------------------------
+# phase 32: the narrow widths, every smoke config, the reference's examples
+# ---------------------------------------------------------------------------
+
+# flash shapes the kernels are not built for (name, B, Sq, Sk, H, KvH, Dh,
+# causal, window): tests/test_kernels.py's sweep (Dh 32 and 64), the smoke
+# configs' Dh 8 (granite-3-2b, yi-34b, dbrx-132b) and Dh 16 (olmo-1b,
+# gemma3-4b, zamba2-1.2b, whisper-medium, phi-3-vision, moonshot)
+NARROW_FLASH = (("sweep 1", 1, 128, 128, 2, 2, 32, True, None),
+                ("sweep 2", 2, 256, 256, 4, 2, 64, True, None),
+                ("sweep 3", 1, 256, 256, 4, 1, 64, True, 96),
+                ("sweep 4", 2, 192, 192, 8, 4, 32, False, None),
+                ("sweep 5", 1, 320, 320, 4, 4, 128, True, None),
+                ("Dh 8", 2, 1024, 1024, 8, 8, 8, True, None),
+                ("Dh 16", 2, 1024, 1024, 4, 2, 16, True, 200))
+# SSD shapes (name, b, s, h, g, n, dt scale, p): the sweep's (chunk
+# aside; the kernels run their own tile) and the smoke configs' p 16 / n 16
+# at a length that splits into groups
+NARROW_SSD = (("sweep 1", 1, 128, 2, 1, 16, 1.0, 8),
+              ("sweep 2", 2, 256, 4, 2, 32, 1.0, 16),
+              ("sweep 3", 1, 256, 8, 1, 64, 1.0, 32),
+              ("sweep 4", 2, 128, 4, 4, 16, 1.0, 8),
+              ("p 16 n 16", 2, 1000, 8, 1, 16, 0.05, 16))
+# day-scan levels past the 16 the kernel took before (it is handed the three
+# a step can select, whatever L)
+NARROW_LEVELS = (17, 32, 64)
+# the examples' cuts: gradient_codesign's Adam steps to 2 (each takes
+# ~4.7 s of host-bound launches; 4 h c holds the same optimize_policy
+# call at GRAD_STEPS against the CPU, so 32 c shows the example's loop
+# runs, and the run stays inside its time limit), train_backend_lm's 200
+# steps to 20; the rest run at the reference's size
+EXAMPLE_GRAD_STEPS = 2
+EXAMPLES = (("quickstart", ()), ("end_to_end_system", ()),
+            ("wearable_dse", ()), ("joint_codesign", ()), ("what_if", ()),
+            ("all_day", ()),
+            ("gradient_codesign", ("--steps", str(EXAMPLE_GRAD_STEPS))),
+            ("fleet_capacity", ()), ("serve_backend", ()),
+            ("train_backend_lm", ("--steps", "20")))
+# continuous figures, card vs CPU (rtol, atol), by the earlier phase that
+# holds the same path: steady-state rows 4 g (TOTAL_RTOL; the
+# sensitivities at 4 h a's 1e-5), the day reports 4 (trace rtol 1e-6 /
+# atol 1e-4, sums 1e-5), the LM losses phase 19's TRAIN_LOSS_RTOL; an
+# example whose CPU run takes far over 20 s is not run on the CPU (4 h and
+# 4 i hold its calls card vs CPU)
+EXAMPLE_TOL = {"quickstart": (1e-5, 0.0), "end_to_end_system": (1e-6, 0.0),
+               "wearable_dse": (1e-6, 0.0), "joint_codesign": (1e-6, 0.0),
+               "what_if": (1e-5, 1e-4), "all_day": (1e-5, 1e-4),
+               "serve_backend": (0.0, 0.0),
+               "train_backend_lm": (TRAIN_LOSS_RTOL, 0.0)}
+# figures a card run and a CPU run in one process do not share: the
+# daysim cache tiers count the process's history
+EXAMPLE_SKIP = {"what_if": ("cache",)}
+PHASE32_BUDGET_S = 150.0
+
+
+def kernel_counts() -> dict:
+    """Every kernel wrapper's launch count."""
+    from repro_torch.kernels import day_scan as ds, flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+    return {"day_scan": ds.LAUNCHES, "flash_attention": fa.LAUNCHES,
+            "flash_attention_bwd": fa.BWD_LAUNCHES,
+            "ssd_scan": ss.LAUNCHES, "ssd_scan_bwd": ss.BWD_LAUNCHES}
+
+
+def zero_counts() -> None:
+    from repro_torch.kernels import day_scan as ds, flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+    ds.LAUNCHES = ds.FULL_LAUNCHES = 0
+    fa.LAUNCHES = fa.BWD_LAUNCHES = 0
+    ss.LAUNCHES = ss.BWD_LAUNCHES = 0
+
+
+def narrow_flash(dev) -> tuple:
+    """Phase 32 a, flash forward: every NARROW_FLASH shape through the
+    kernel (one launch, the head zero-padded) against the plain version at
+    phase 6's tolerances, float32 and bf16, with the bf16 rounding control
+    on the causal unwindowed shapes; bf16 ms (CUDA events, the wrapper's
+    padding included) beside the plain version's, SDPA's and the bound at
+    the true width.  Returns (largest abs error, the Dh 16 row)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device=dev).manual_seed(32)
+    worst, row = 0.0, None
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = LM_TOL[str(dtype)[6:]]
+        bf16 = dtype == torch.bfloat16
+        for name, B, Sq, Sk, H, KvH, Dh, causal, window in NARROW_FLASH:
+            q = torch.randn((B, Sq, H, Dh), generator=gen, device=dev) \
+                .to(dtype)
+            k, v = (torch.randn((B, Sk, KvH, Dh), generator=gen, device=dev)
+                    .to(dtype) for _ in range(2))
+            before = fa.LAUNCHES
+            got = fa.flash_attention(q, k, v, causal=causal, window=window)
+            if fa.LAUNCHES != before + 1:
+                fail(f"flash {name} Dh={Dh}: {fa.LAUNCHES - before} launches")
+            label = (f"phase 32 a flash {name} B={B} S={Sq} H={H} KvH={KvH} "
+                     f"Dh={Dh} (kernel width {fa.kernel_width(Dh)}) causal="
+                     f"{causal} window={window} {str(dtype)[6:]}")
+            worst = max(worst, hold(
+                label, got, fa.flash_attention_plain(
+                    q, k, v, causal=causal, window=window),
+                FLASH_BF16_ATOL if bf16 else tol,
+                FLASH_BF16_RTOL if bf16 else tol))
+            if bf16 and causal and window is None:
+                check_flash_rounding(got, q, k, v)
+            if not bf16:
+                continue
+            call = lambda: fa._flash_cuda(  # noqa: E731
+                q, k, v, causal=causal, window=window)
+            call()
+            ms = cuda_ms(call, 20)
+            plain = lambda: fa.flash_attention_plain(  # noqa: E731
+                q, k, v, causal=causal, window=window)
+            plain()
+            plain_ms = cuda_ms(plain, 3)
+            sdpa, backend = sdpa_call(q, k, v, causal, window)
+            sdpa()
+            sdpa_ms = cuda_ms(sdpa, 20)
+            bound, by = flash_bound(q, k, causal, window)
+            print(f"{label}: {ms:.4f} ms (padding included), plain "
+                  f"{plain_ms:.3f} ms, scaled_dot_product_attention "
+                  f"{sdpa_ms:.4f} ms by its {backend} backend, bound "
+                  f"{bound:.5f} ms by {by} at the true width")
+            if name == "Dh 16":
+                row = (ms, plain_ms, bound, by, sdpa_ms)
+    return worst, row
+
+
+def narrow_flash_bwd_row(dev) -> tuple:
+    """The flash backward's bf16 ms at NARROW_FLASH's Dh 16 shape (CUDA
+    events, on the forward kernel's own o and lse), the plain version's,
+    SDPA's backward and the bound at the true width."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    _, B, Sq, Sk, H, KvH, Dh, causal, window = NARROW_FLASH[-1]
+    gen = torch.Generator(device=dev).manual_seed(33)
+    q, do = (torch.randn((B, Sq, H, Dh), generator=gen, device=dev)
+             .to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((B, Sk, KvH, Dh), generator=gen, device=dev)
+            .to(torch.bfloat16) for _ in range(2))
+    o, lse = fa._flash_cuda(q, k, v, causal=causal, window=window, lse=True)
+    bwd = lambda: fa._flash_bwd_cuda(  # noqa: E731
+        q, k, v, o, do, lse, causal=causal, window=window)
+    bwd()
+    ms = cuda_ms(bwd, 10)
+    plain = lambda: fa.flash_attention_bwd_plain(  # noqa: E731
+        q, k, v, o, do, lse, causal=causal, window=window)
+    plain()
+    plain_ms = cuda_ms(plain, 2)
+    qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+    sdpa, backend = sdpa_call(qs, ks, vs, causal, window)
+    o_s = sdpa()
+    sdpa_bwd = lambda: torch.autograd.grad(  # noqa: E731
+        o_s, (qs, ks, vs), do.transpose(1, 2), retain_graph=True)
+    sdpa_bwd()
+    sdpa_ms = cuda_ms(sdpa_bwd, 10)
+    bound, by = flash_bwd_bound(q, k, causal, window)
+    print(f"phase 32 a flash bwd Dh 16 (B={B} S={Sq} H={H} KvH={KvH} "
+          f"window={window} bf16): {ms:.4f} ms (padding included), plain "
+          f"{plain_ms:.3f} ms, scaled_dot_product_attention backward "
+          f"{sdpa_ms:.4f} ms by its {backend} backend, bound {bound:.5f} ms "
+          f"by {by} at the true width")
+    return ms, plain_ms, bound, by, sdpa_ms
+
+
+def narrow_ssd(dev) -> tuple:
+    """Phase 32 a, SSD forward: every NARROW_SSD shape through the kernel
+    (x, B, C zero-padded) against the plain version at phase 6's
+    tolerances, float32 and bf16 (with its rounded control); bf16 ms
+    beside the plain version's and the bound at the true widths.  Returns
+    (largest abs error, the p 16 n 16 row)."""
+    import torch
+    from repro_torch.kernels import ssd_scan as ss
+    gen = torch.Generator(device=dev).manual_seed(34)
+    worst, row = 0.0, None
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = LM_TOL[str(dtype)[6:]]
+        for name, b, s, h, g, n, dt_scale, p in NARROW_SSD:
+            x, dt, A, Bm, Cm, _ = ssd_bwd_inputs(gen, b, s, h, g, n, dtype,
+                                                 dt_scale, p)
+            before = ss.LAUNCHES
+            got = ss.ssd_scan(x, dt, A, Bm, Cm, chunk=64)
+            if ss.LAUNCHES - before != ss.kernel_launches(s):
+                fail(f"ssd {name}: {ss.LAUNCHES - before} launches")
+            want = ss.ssd_scan_plain(x, dt, A, Bm, Cm, chunk=64)
+            label = (f"phase 32 a ssd {name} b={b} s={s} h={h} p={p} g={g} "
+                     f"n={n} (kernel widths {ss.kernel_widths(p, n)}) dt "
+                     f"x{dt_scale:g} {str(dtype)[6:]}")
+            worst = max(worst, hold(label, got, want, max(tol, 1e-4),
+                                    5 * tol))
+            if dtype != torch.bfloat16:
+                continue
+            check_ssd_bf16(got, want, x, dt, A, Bm, Cm, label)
+            call = lambda: ss._ssd_cuda(x, dt, A, Bm, Cm)  # noqa: E731
+            call()
+            ms = cuda_ms(call, 20)
+            plain = lambda: ss.ssd_scan_plain(  # noqa: E731
+                x, dt, A, Bm, Cm, chunk=64)
+            plain()
+            plain_ms = cuda_ms(plain, 3)
+            bound, by = ssd_bound(x, Bm, 64)
+            print(f"{label}: {ms:.4f} ms (padding included), plain "
+                  f"{plain_ms:.3f} ms, bound {bound:.6f} ms by {by} at the "
+                  f"true widths")
+            if name == "p 16 n 16":
+                row = (ms, plain_ms, bound, by)
+    return worst, row
+
+
+def narrow_ssd_bwd_row(dev) -> tuple:
+    """The SSD backward's bf16 ms at NARROW_SSD's p 16 n 16 shape (CUDA
+    events, on the forward's own group states), the plain version's and
+    the bound at the true widths."""
+    import torch
+    from repro_torch.kernels import ssd_scan as ss
+    _, b, s, h, g, n, dt_scale, p = NARROW_SSD[-1]
+    gen = torch.Generator(device=dev).manual_seed(35)
+    *ins, dy = ssd_bwd_inputs(gen, b, s, h, g, n, torch.bfloat16, dt_scale,
+                              p)
+    _, states = ss._ssd_cuda(*ins, states=True)
+    bwd = lambda: ss._ssd_bwd_cuda(*ins, dy, states)  # noqa: E731
+    bwd()
+    ms = cuda_ms(bwd, 10)
+    plain = lambda: ss.ssd_scan_bwd_plain(*ins, dy, chunk=64)  # noqa: E731
+    plain()
+    plain_ms = cuda_ms(plain, 2)
+    bound, by = ssd_bwd_bound(ins[0], ins[3], 64)
+    print(f"phase 32 a ssd bwd p 16 n 16 (b={b} s={s} h={h} bf16): "
+          f"{ms:.4f} ms (padding included), plain {plain_ms:.3f} ms, bound "
+          f"{bound:.6f} ms by {by} at the true widths")
+    return ms, plain_ms, bound, by
+
+
+def level_policy(daysim, n_lvl: int):
+    """The thermal governor with n_lvl - 1 seeded throttle actions: a
+    policy of n_lvl levels."""
+    import dataclasses
+
+    import numpy as np
+    r = np.random.default_rng(n_lvl)
+    actions = tuple(daysim.ThrottleAction(
+        fps_mult=float(r.uniform(1.0, 4.0)),
+        duty_mult=float(r.uniform(0.3, 1.0)),
+        brightness_mult=float(r.uniform(0.3, 1.0)),
+        active_mult=float(r.uniform(0.3, 1.0)),
+        offload=bool(r.integers(0, 2))) for _ in range(n_lvl - 1))
+    return dataclasses.replace(daysim.get_policy("thermal_governor"),
+                               name=f"levels{n_lvl}", actions=actions)
+
+
+def side_by_side(tables: list) -> dict:
+    """Day tables of any level counts laid side by side along N, each
+    padded to the largest L with zero levels: no step reads a level
+    above 2, so every combo's plain outputs are its own table's."""
+    import torch
+    top = max(t["step_mw"].shape[1] for t in tables)
+
+    def pad(x):                         # (T, L, N) or (L, N) to `top`
+        lv = x.dim() - 2
+        return torch.nn.functional.pad(
+            x, (0, 0) * (x.dim() - 1 - lv) + (0, top - x.shape[lv]))
+    out = {k: torch.cat([pad(t[k]) if k in ("step_mw", "step_mw_p",
+                                            "step_pods", "act_mult")
+                         else t[k] for t in tables], dim=-1)
+           for k in tables[0] if k != "const"}
+    out["const"] = {k: torch.cat([t["const"][k] for t in tables])
+                    for k in tables[0]["const"]}
+    return out
+
+
+def narrow_levels(dev, dt_s: float) -> tuple:
+    """Phase 32 a, the day scan past 16 levels, on the main path: a
+    `DesignTwin` on the serving grid answers a what-if with a seeded
+    policy of L levels for each NARROW_LEVELS L (one launch each, counted
+    from 0); the kernel held to its plain version on the what-ifs' own
+    tables (all nine outputs, and all 17 in the full-trace mode), bit for
+    bit, the plain version run once over the three side by side
+    (`side_by_side`); the default mode's ms (CUDA events) beside the
+    bound.  Returns (main-path launches, the L = 64 row)."""
+    import torch
+    from repro_torch.core import daysim
+    from repro_torch.kernels import day_scan as ds
+    from repro_torch.serving.twin import DesignTwin
+    twin = DesignTwin(dt_s=dt_s, device=dev)
+    launches, runs = 0, []
+    for n_lvl in NARROW_LEVELS:
+        pol = level_policy(daysim, n_lvl)
+        with scan_calls(ds) as calls:
+            before = ds.LAUNCHES
+            rep = twin.what_if(policy=pol)
+            n = ds.LAUNCHES - before
+        if n != 1 or len(calls) != 1:
+            fail(f"what-if at {n_lvl} levels: {n} day-scan launches")
+        launches += n
+        tables, ys = calls[0]
+        if ds._shape(tables)[2] != n_lvl:
+            fail(f"what-if at {n_lvl} levels built "
+                 f"{ds._shape(tables)[2]}-level tables")
+        runs.append((tables, ys, ds.day_scan(tables, full=True), rep))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    # the full trace's plain run computes the default mode's nine too
+    want = ds.day_scan_plain(side_by_side([r[0] for r in runs]), full=True)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    col, row = 0, None
+    for tables, ys, full, rep in runs:
+        N, T, L = ds._shape(tables)
+        mine = {k: v[col:col + N] for k, v in want.items()}
+        col += N
+        compare(ys, {k: mine[k] for k in ds.OUTS})
+        compare(full, mine)
+        ms = cuda_ms(lambda: ds._day_scan_cuda(tables), 10)  # noqa: B023
+        bound, by = bound_ms(N, T, L)
+        print(f"phase 32 a day scan at L = {L} (what-if on the serving grid, "
+              f"N = {N}, T = {T}): 1 launch, all nine outputs and all 17 in "
+              f"the full-trace mode bit-equal to the plain version; levels "
+              f"reached {int(mine['level'].max())}; front "
+              f"{int(rep.front_mask.sum())}, survive "
+              f"{int(rep.survives().sum())}; {ms:.4f} ms (chunk steps "
+              f"{ds.chunk_steps(L)} / full {ds.chunk_steps(L, True)}), bound "
+              f"{bound:.6f} ms by {by}")
+        row = (ms, plain_ms, bound, by)
+    print(f"phase 32 a day scan plain version (full trace) over the "
+          f"{len(runs)} what-ifs side by side (N = {col}): {plain_ms:.1f} ms")
+    return launches, row
+
+
+def _tensors(out):
+    """The tensors of a step's output (tuples / dicts nested), in order."""
+    import torch
+    if torch.is_tensor(out):
+        return [out]
+    if isinstance(out, dict):
+        return [t for k in sorted(out) for t in _tensors(out[k])]
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in _tensors(o)]
+    return []
+
+
+def smoke_configs(dev) -> dict:
+    """Phase 32 b: every arch's `smoke()` config on the card through the
+    kernels: a float32 prefill (`make_prefill_step`, B = 2 x S = 48) from
+    one seed against the same call on the CPU (every output within 1e-4,
+    the card test's tolerance), then `launch.train.train(arch, steps=2)`
+    at its defaults (smoke, the card) against the same two steps through
+    the plain attention and SSD (loss and grad norm per step within
+    TRAIN_LOSS_RTOL / TRAIN_GNORM_RTOL); each run's kernel launches
+    counted from 0, every arch launching a kernel.  Returns the launches
+    of these main paths by kernel."""
+    import torch
+    from repro_torch.launch import dryrun, steps, train as train_lib
+    from repro_torch.models import registry
+    totals = dict.fromkeys(kernel_counts(), 0)
+    for arch in registry.arch_names():
+        cfg, model = registry.get(arch, smoke=True)
+        toks = torch.randint(2, cfg.vocab, (2, 48),
+                             generator=torch.Generator().manual_seed(32))
+        outs, counts = {}, None
+        for d in ("cpu", dev):
+            params = model.init(torch.Generator().manual_seed(0), cfg, d)
+            batch = {"tokens": toks.to(d),
+                     **train_lib.side_inputs(cfg, 2, 0, d)}
+            zero_counts()
+            outs[str(d)] = _tensors(steps.make_prefill_step(cfg, model)(
+                params, batch))
+            if d != "cpu":
+                torch.cuda.synchronize()
+                counts = kernel_counts()
+        for key in totals:
+            totals[key] += counts[key]
+        if not counts["flash_attention"] + counts["ssd_scan"]:
+            fail(f"{arch} smoke prefill launched no kernel")
+        worst = 0.0
+        for i, (a, b) in enumerate(zip(outs[str(dev)], outs["cpu"])):
+            a, b = a.float().cpu(), b.float()
+            if a.shape != b.shape or not torch.allclose(a, b, atol=1e-4,
+                                                        rtol=1e-4):
+                miss(f"{arch} smoke prefill output {i}: card vs CPU off "
+                     f"(atol = rtol = 1e-4)")
+            worst = max(worst, float((a - b).abs().max()))
+        runs = {}
+        for plain in (False, True):
+            metrics = []
+            zero_counts()
+            with (dryrun.plain_kernels() if plain
+                  else contextlib.nullcontext()), \
+                    contextlib.redirect_stdout(None):
+                train_lib.train(arch, steps=2, on_step=lambda s, m: (
+                    metrics.append((float(m["loss"]),
+                                    float(m["grad_norm"])))))
+            runs[plain] = (metrics, kernel_counts())
+        (got, train_counts), (want, plain_counts) = runs[False], runs[True]
+        for key in totals:
+            totals[key] += train_counts[key]
+        if any(plain_counts.values()):
+            fail(f"{arch}: the plain run launched {plain_counts}")
+        if not train_counts["flash_attention_bwd"] \
+                + train_counts["ssd_scan_bwd"]:
+            fail(f"{arch} smoke train launched no backward kernel")
+        for i, ((lk, gk), (lp, gp)) in enumerate(zip(got, want)):
+            if not (abs(lk - lp) <= TRAIN_LOSS_RTOL * abs(lp) and
+                    abs(gk - gp) <= TRAIN_GNORM_RTOL * gp):
+                miss(f"{arch} smoke train step {i}: loss {lk} grad norm {gk} "
+                     f"through the kernels, {lp} / {gp} through the plain "
+                     f"attention and SSD")
+        print(f"phase 32 b {arch} (smoke: d_model {cfg.d_model}, "
+              f"{cfg.n_layers} layers): prefill card vs CPU max abs err "
+              f"{worst:.3g}, launches {counts}; train(steps=2) losses "
+              + ", ".join(f"{lk:.6f} / {lp:.6f}" for (lk, _), (lp, _)
+                          in zip(got, want))
+              + " (kernels / plain), grad norms "
+              + ", ".join(f"{gk:.6g} / {gp:.6g}" for (_, gk), (_, gp)
+                          in zip(got, want))
+              + f", launches {train_counts}")
+    return totals
+
+
+def load_example(name: str):
+    """The module examples/torch_<name>.py of this checkout."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"torch_{name}", ROOT / "examples" / f"torch_{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def same_figures(label: str, got, want, rtol: float, atol: float) -> int:
+    """The figures of a card run against its CPU run: discrete ones (ints,
+    bools, strings, integer and boolean arrays) equal, floats within
+    (rtol, atol); reports and other dataclasses field by field.  Returns
+    the number of figures compared."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    if torch.is_tensor(got):
+        got, want = got.detach().cpu().numpy(), want.detach().cpu().numpy()
+    if dataclasses.is_dataclass(got) and not isinstance(got, type):
+        return sum(same_figures(f"{label}.{f.name}", getattr(got, f.name),
+                                getattr(want, f.name), rtol, atol)
+                   for f in dataclasses.fields(got))
+    if isinstance(got, dict):
+        if list(got) != list(want):
+            miss(f"{label}: keys {list(got)} != {list(want)}")
+            return 1
+        return sum(same_figures(f"{label}[{k!r}]", got[k], want[k], rtol,
+                                atol) for k in got)
+    if isinstance(got, (list, tuple)):
+        if len(got) != len(want):
+            miss(f"{label}: {len(got)} entries != {len(want)}")
+            return 1
+        return sum(same_figures(f"{label}[{i}]", a, b, rtol, atol)
+                   for i, (a, b) in enumerate(zip(got, want)))
+    if isinstance(got, np.ndarray) or isinstance(got, (float, np.floating)):
+        a, b = np.asarray(got), np.asarray(want)
+        if a.shape != b.shape:
+            miss(f"{label}: shape {a.shape} != {b.shape}")
+        elif a.dtype.kind in "biuUSO":
+            if not np.array_equal(a, b):
+                miss(f"{label}: {a} != {b} (discrete)")
+        elif not np.allclose(a, b, rtol=rtol, atol=atol, equal_nan=True):
+            miss(f"{label}: card {a} vs CPU {b} beyond rtol {rtol:g} atol "
+                 f"{atol:g}")
+        return 1
+    if isinstance(got, (bool, int, str, type(None), np.integer, np.bool_)):
+        if got != want:
+            miss(f"{label}: {got!r} != {want!r} (discrete)")
+        return 1
+    return 0
+
+
+def examples_phase(dev) -> dict:
+    """Phase 32 c: the ten examples/torch_*.py through `main([...,
+    "--device", "cuda"])` at the reference's size (EXAMPLES' cuts), each
+    with the kernel counts set to 0 just before it and read just after;
+    the figures of each against the same `main` on the CPU where
+    EXAMPLE_TOL names it.  Returns the launches by kernel."""
+    import io
+
+    import torch
+    totals = dict.fromkeys(kernel_counts(), 0)
+    for name, cut in EXAMPLES:
+        mod = load_example(name)
+        buf = io.StringIO()
+        zero_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            got = mod.main([*cut, "--device", "cuda"])
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        counts = kernel_counts()
+        for key in totals:
+            totals[key] += counts[key]
+        lines = len(buf.getvalue().splitlines())
+        line = (f"phase 32 c examples/torch_{name}.py {' '.join(cut)}: "
+                f"exit clean in {card_s:.1f} s, {lines} lines printed; "
+                f"kernels launched "
+                + ", ".join(f"{k} x{v}" for k, v in counts.items() if v))
+        if name in EXAMPLE_TOL:
+            rtol, atol = EXAMPLE_TOL[name]
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                want = mod.main([*cut, "--device", "cpu"])
+            for key in EXAMPLE_SKIP.get(name, ()):
+                got.pop(key), want.pop(key)
+            n = same_figures(name, got, want, rtol, atol)
+            line += (f"; {n} figures equal to the CPU run's (rtol {rtol:g}, "
+                     f"atol {atol:g}; CPU {time.perf_counter() - t0:.1f} s)")
+        else:
+            line += "; not run on the CPU (phases 4 h / 4 i hold its calls)"
+        print(line)
+    return totals
+
+
+def narrow_phase(dev, dt_s: float) -> tuple:
+    """Phase 32 (a-c); returns the kernel rows of the narrow widths."""
+    import torch
+    t0 = time.perf_counter()
+    err_f, f_row = narrow_flash(dev)
+    err_fb = check_flash_bwd(dev, shapes=NARROW_FLASH, seed=36)
+    fb_row = narrow_flash_bwd_row(dev)
+    err_s, s_row = narrow_ssd(dev)
+    err_sb = check_ssd_bwd(dev, shapes=NARROW_SSD, seed=37, exact=True)
+    sb_row = narrow_ssd_bwd_row(dev)
+    n_lvl, d_row = narrow_levels(dev, dt_s)
+    torch.cuda.empty_cache()
+    t_a = time.perf_counter() - t0
+    b = smoke_configs(dev)
+    t_b = time.perf_counter() - t0 - t_a
+    c = examples_phase(dev)
+    t_c = time.perf_counter() - t0 - t_a - t_b
+    total = t_a + t_b + t_c
+    print(f"phase 32: {total:.1f} s (a {t_a:.1f} s, b {t_b:.1f} s, c "
+          f"{t_c:.1f} s; budget {PHASE32_BUDGET_S:g} s); main-path launches "
+          f"b {b}, c {c}")
+    n = {k: b[k] + c[k] for k in b}
+
+    def row(name, src, replaces, launches, err, t, lib):
+        return {"name": name, "route": "cuda",
+                "source": f"src/repro_torch/csrc/{src}.cu",
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": t[0], "plain_ms": t[1],
+                "bound_ms": t[2], "bound_by": t[3], "library_ms": lib}
+    fl, ssd = ("src/repro/kernels/flash_attention.py:36",
+               "src/repro/kernels/ssd_scan.py:28")
+    return [row("flash_attention (Dh < 64, zero-padded)", "flash_attention",
+                fl, n["flash_attention"], err_f, f_row, f_row[4]),
+            row("flash_attention_bwd (Dh < 64, zero-padded)",
+                "flash_attention_bwd", fl, n["flash_attention_bwd"], err_fb,
+                fb_row, fb_row[4]),
+            row("ssd_scan (p, n < 64, zero-padded)", "ssd_scan", ssd,
+                n["ssd_scan"], err_s, s_row, None),
+            row("ssd_scan_bwd (p, n < 64, zero-padded)", "ssd_scan_bwd", ssd,
+                n["ssd_scan_bwd"], err_sb, sb_row, None),
+            row("day_scan (17-64 levels)", "day_scan",
+                "src/repro/kernels/day_scan.py:47", n_lvl, 0.0, d_row,
+                None)]
+
 
 def _leaves(tree):
     if isinstance(tree, dict):
@@ -4831,6 +5440,8 @@ def main() -> None:
     t30 = time.perf_counter() - t0
     # 31. the port's lint and the sync audit
     lint_audit_phase(dev, opt["peak_cap_c"])
+    # 32. the narrow widths, every smoke config, the ten examples
+    narrow_rows = narrow_phase(dev, dt_s)
     print(f"phases 28-30: {t28:.1f} s, {t29:.1f} s, {t30:.1f} s; "
           f"mamba2-2.7b's SSD forward at its prefill shape (chunk "
           f"{TUNED_CHUNK}): {m_row[0]:.4f} ms, plain {m_row[1]:.3f} ms, "
@@ -4853,7 +5464,8 @@ def main() -> None:
         "replaces": "src/repro/kernels/day_scan.py:47",
         "launches": launches, "max_abs_err": worst, "ms": kernel_ms,
         "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": None}] + lm_rows + [bwd_row, ssd_bwd_row]}))
+        "library_ms": None}] + lm_rows + [bwd_row, ssd_bwd_row]
+        + narrow_rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

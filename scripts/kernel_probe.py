@@ -34,6 +34,11 @@ for working on one kernel.
                                                      # forward's serving
                                                      # launch, another
                                                      # source vs this one
+    python3 scripts/kernel_probe.py day-compare OTHER.cu     # another copy
+                                                     # of the day scan's
+                                                     # source vs this one,
+                                                     # in turns, and their
+                                                     # SASS
     python3 scripts/kernel_probe.py row-stage        # the first op of the
                                                      # row stage whose bits
                                                      # differ card vs CPU
@@ -721,6 +726,73 @@ def probe_flash_compare(other: str) -> None:
         print(f"{str(dtype)[6:]} outputs bit for bit equal: {same}")
 
 
+def sass(lib: Path) -> dict:
+    """{kernel name: its SASS instructions} of a built library, by
+    cuobjdump ({} when cuobjdump is missing or fails); a name is cut to
+    start at its function's own name, past the anonymous namespace's
+    tag (which holds the source file's name)."""
+    try:
+        out = subprocess.run(["cuobjdump", "-sass", str(lib)],
+                             capture_output=True, text=True).stdout
+    except OSError:
+        return {}
+    funcs, cur = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            name = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]+?\d+(?=[a-z])",
+                          "", name)
+            cur = funcs.setdefault(name, [])
+        elif cur is not None and "/*" in line:
+            cur.append(line.split("/*")[1].split("*/")[-1].strip()
+                       if line.strip().startswith("/*") else
+                       line.split("/*")[0].strip())
+    return funcs
+
+
+def probe_day_compare(other: str) -> None:
+    """The day scan built from another copy of csrc/day_scan.cu (`other`,
+    e.g. a parent commit's) against this checkout's on the serving grid's
+    tables (N 64, T 4320, L 3, dt_s 10): all nine outputs bit for bit,
+    times in turns (other, this, this, other, other, this; CUDA events
+    over 50 launches), and how many SASS lines of each kernel differ."""
+    import difflib
+
+    from repro_torch.core import daysim
+    lib = build.BUILD_DIR.parent / "probe" / "day_other.so"
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(lib),
+                           other], capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed for {other}:\n{proc.stderr}")
+    fn = ctypes.CDLL(str(lib)).day_scan_launch
+    fn.argtypes = ds._argtypes(len(ds.OUTS))
+    fn.restype = ctypes.c_int
+    fns = {"other": fn, "this": ds._entry(False)}
+    full, _ = daysim.day_tables(daysim._fused_pipeline(DEV, dt_s=10.0))
+    want = ds.day_scan_plain(full)
+    for who, f in fns.items():
+        got = {k: v.t() for k, v in ds._launch(f, full).items()}
+        chip_smoke.compare(got, want)
+        print(f"day scan ({who}) == plain on the serving grid: all nine "
+              f"outputs bit for bit")
+    for who in ("other", "this", "this", "other", "other", "this"):
+        print(f"day scan N=64 T=4320 L=3, {who} "
+              f"({other if who == 'other' else 'checkout'}): "
+              f"{cuda_ms(lambda: ds._launch(fns[who], full), 50):.4f} ms",
+              flush=True)
+    mine = sass(build.library_path("day_scan"))
+    for name, lines in sorted(sass(lib).items()):
+        if name not in mine:
+            print(f"SASS {name}: not in this build")
+            continue
+        sm = difflib.SequenceMatcher(None, lines, mine[name], autojunk=False)
+        changed = sum(max(i2 - i1, j2 - j1) for tag, i1, i2, j1, j2
+                      in sm.get_opcodes() if tag != "equal")
+        print(f"SASS {name}: {len(lines)} / {len(mine[name])} instructions, "
+              f"{changed} differ")
+
+
 def probe_flash_bwd_compare(other: str) -> None:
     """The backward kernel built from another copy of
     csrc/flash_attention_bwd.cu (`other`, e.g. the parent commit's)
@@ -864,7 +936,8 @@ def main() -> None:
     compare = {"flash-compare": probe_flash_compare,
                "flash-bwd-compare": probe_flash_bwd_compare,
                "ssd-compare": probe_ssd_compare,
-               "ssd-bwd-compare": probe_ssd_bwd_compare}
+               "ssd-bwd-compare": probe_ssd_bwd_compare,
+               "day-compare": probe_day_compare}
     if len(sys.argv) == 3 and sys.argv[1] in compare:
         probes[sys.argv[1]] = lambda: compare[sys.argv[1]](sys.argv[2])
     elif len(sys.argv) != 2 or sys.argv[1] not in probes:

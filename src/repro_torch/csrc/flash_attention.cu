@@ -8,7 +8,10 @@
 // one thread block owns one (batch, head, query tile) and loops over the kv
 // tiles itself; m, l and acc live in registers, so nothing carries between
 // blocks.  Layout: q (B, Sq, H, Dh), k/v (B, Sk, KvH, Dh), o like q, all
-// contiguous; query head h reads kv head h / (H / KvH).
+// contiguous; query head h reads kv head h / (H / KvH).  Dh is one of the
+// widths instantiated below; the wrapper zero-pads a narrower head to the
+// next of them (the padded columns add exact zeros to every product) and
+// passes the true width's scale.
 //
 // Semantics follow _flash_kernel line for line: s = (q . k) * scale in
 // float32; keys >= Sk, above the diagonal (causal) or at or before

@@ -2,6 +2,9 @@
 // dQ, dK and dV of flash_attention.cu's function, causal, sliding-window
 // or bidirectional, grouped-query, float32 or bfloat16 inputs.
 //
+// A narrower head arrives zero-padded, with its dO and O padded likewise,
+// from the wrapper (kernels/flash_attention.py), as in the forward.
+//
 // The TPU package has no such kernel: its training differentiates
 // attention in XLA, outside src/repro/kernels/flash_attention.py:
 // _flash_kernel.  The port's forward on the card is the hand-written

@@ -1,5 +1,7 @@
 // Mamba2 SSD chunked scan for Hopper (sm_90a) [arXiv:2405.21060], from a
-// zero state, returning y only; float32 or bfloat16 x/B/C.
+// zero state, returning y only; float32 or bfloat16 x/B/C.  Built for p 64
+// and n 64 or 128; the wrapper zero-pads a narrower x, B or C to them
+// (padded columns add exact zeros to every sum) and slices y back.
 //
 // Replaces the TPU Pallas kernel src/repro/kernels/ssd_scan.py:_ssd_kernel
 // (launcher `ssd_scan`, its pallas_call).  That kernel walks (batch, head,

@@ -1,6 +1,7 @@
 // The gradient of the Mamba2 SSD chunked scan for Hopper (sm_90a)
 // [arXiv:2405.21060]: given dy, the gradients of x, dt, A, B and C of the
-// scan from a zero state; float32 or bfloat16 x/B/C/dy.
+// scan from a zero state; float32 or bfloat16 x/B/C/dy.  Narrower p and n
+// arrive zero-padded (dy too) from the wrapper, as in the forward.
 //
 // It differentiates what csrc/ssd_scan.cu computes, the TPU Pallas kernel
 // src/repro/kernels/ssd_scan.py:_ssd_kernel (launcher `ssd_scan`).  The

@@ -15,7 +15,8 @@ kernels are held to tolerances and spell out their multiply-adds
 (scale, decay, the bf16 split's remainders) rounded as written.
 ``-Xptxas -v`` leaves each kernel's registers, stack and spills in
 `BUILD_LOG`; ``-D`` macros (`defines`) build a source's variants, such
-as the day scan's probe modes.
+as the day scan's probe modes.  `launch` calls a loaded entry point on
+the current stream, and `pad_cols` widens a tensor to a built width.
 """
 from __future__ import annotations
 
@@ -28,6 +29,8 @@ import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -109,3 +112,26 @@ def load(name: str, defines=()) -> ctypes.CDLL:
     if lib is None:
         lib = _LOADED[key] = ctypes.CDLL(str(build(name, defines)))
     return lib
+
+
+def launch(fn, tensors, args, what: str) -> None:
+    """`fn(pointers of tensors (None for None), *args, stream)` on the
+    current stream of the tensors' device; raises if it returns a CUDA
+    error."""
+    dev = tensors[0].device
+    # the inputs and the scratch may be freed when this returns while the
+    # kernels still run: the caching allocator hands their memory only to
+    # later work on the same stream
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(*[None if t is None else t.data_ptr() for t in tensors],
+                 *args, stream)
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+
+
+def pad_cols(t, width: int):
+    """t with its last axis zero-padded to `width` (t itself at width)."""
+    if t.shape[-1] == width:
+        return t
+    return torch.nn.functional.pad(t, (0, width - t.shape[-1]))

@@ -10,8 +10,13 @@ plain version.  The kernel is warp-specialised: per block of 32 combos a
 compute warp runs the chain with the state in registers, while a load, a
 prep and a store warp stage chunks of `chunk_steps(L)` steps through
 shared memory and form each step's state-independent products for every
-level ahead of it.  `day_scan_staged_plain` mirrors that split on the CPU
-(tests only) and is bit-equal to `day_scan_plain`.
+level ahead of it.  The level a step selects is the number of tripped
+triggers (thermal, SoC) clamped to max_level, so 0, 1 or 2 whatever L
+the policy has: the kernel is handed those first `LEVELS_READ` = 3
+levels of the tables, so it takes any L on one instance (the plain
+version gathers at the level over all L).  `day_scan_staged_plain`
+mirrors that split on the CPU (tests only) and is bit-equal to
+`day_scan_plain`.
 
 Tables use the port's time-major layout, so the kernel's warps read
 neighbouring addresses at every step:
@@ -65,7 +70,9 @@ CONST_KEYS = (
     "p_v_full", "r_ohm", "sag_v", "shutdown_c", "soc_clear", "soc_trip",
     "standby_mw", "ste_beta_c", "ste_beta_soc", "temp_clear", "temp_trip",
     "v_full")
-MAX_LEVELS = 16             # largest L the kernel takes
+# levels a step can select (none, one or both triggers tripped): all the
+# kernel is handed of an L-level table
+LEVELS_READ = 3
 
 TABLE_KEYS = ("step_mw", "step_mw_p", "step_pods")
 ROW_KEYS = ("ambient", "active", "valid", "charge", "charge_p")
@@ -313,8 +320,8 @@ def _entry(full: bool):
 
 def chunk_steps(n_lvl: int, full: bool = False) -> int:
     """Steps of one chunk of the kernel's shared-memory rings at L levels
-    in the default or the full-trace mode (builds the kernel on first
-    use)."""
+    in the default or the full-trace mode, the same at every L (builds
+    the kernel on first use)."""
     fn = _lib().day_scan_chunk_steps
     fn.argtypes = [ctypes.c_int, ctypes.c_int]
     fn.restype = ctypes.c_int
@@ -325,12 +332,11 @@ def _launch(fn, tables: dict, *extra, outs_keys=OUTS) -> dict:
     """Call the C entry `fn` on the tables; returns the (T, N) outputs
     `outs_keys`, in the entry's order."""
     n, t_steps, n_lvl = _shape(tables)
-    if n_lvl > MAX_LEVELS:
-        raise ValueError(f"day_scan kernel takes at most {MAX_LEVELS} "
-                         f"throttle levels, got {n_lvl}")
     dev = tables["step_mw"].device
-    ins = [tables[k].contiguous() for k in TABLE_KEYS]
-    ins.append(tables["act_mult"].contiguous())
+    # the levels a step can select: no step reads the others
+    n_lvl = min(n_lvl, LEVELS_READ)
+    ins = [tables[k][:, :n_lvl].contiguous() for k in TABLE_KEYS]
+    ins.append(tables["act_mult"][:n_lvl].contiguous())
     ins += [tables[k].contiguous() for k in ROW_KEYS]
     ins.append(torch.stack([tables["const"][k] for k in CONST_KEYS]))
     outs = {k: torch.empty((t_steps, n), device=dev,

@@ -19,10 +19,16 @@ miss the float32 tolerance.  `TILES` gives each path's (query rows, keys)
 per tile, the tiling on which the plain version keeps the kernel's
 running max.  See the source's header note.
 
-Inputs: float32 or bfloat16, all three alike, contiguous; Dh 64, 96, 128
-or 256 on the card (phi-3-vision's heads are 96 wide, gemma3's 256).
-The output has q's dtype.  `LAUNCHES` counts forward kernel launches
-(the plain version never bumps it).
+Inputs: float32 or bfloat16, all three alike, contiguous; any Dh up to
+`MAX_HEAD_DIM` = 256 on the card.  The kernels are built for the widths
+`HEAD_DIMS` (phi-3-vision's heads are 96 wide, gemma3's 256); a narrower
+head (the smoke configs' 8 and 16, the reference sweep's 32) is zero-padded
+to the next of them (`kernel_width`) and the outputs sliced back.  The
+padded columns add exact zeros to every product, so the scores, the row
+log-sum-exp and the kept columns are the true width's; the scale is the
+true width's 1 / sqrt(Dh).  A width the kernels are built for launches
+as it is.  The output has q's dtype.  `LAUNCHES` counts forward kernel
+launches (the plain version never bumps it).
 
 The gradient.  The reference differentiates its attention in XLA,
 outside the Pallas kernel; here the forward on the card is the kernel,
@@ -51,8 +57,10 @@ import math
 import torch
 
 from ..nn import attention as _attn
+from .build import launch as _call, pad_cols as _pad_cols
 
-HEAD_DIMS = (64, 96, 128, 256)   # head widths the kernel takes
+HEAD_DIMS = (64, 96, 128, 256)   # head widths the kernels are built for
+MAX_HEAD_DIM = HEAD_DIMS[-1]     # wider heads: ROADMAP.md queue 2, item 1
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # (query rows, keys) of the kernel's tiles, by dtype: F32_BQ / F32_BK and
 # BF_BQ / BF_BK in csrc/flash_attention.cu
@@ -149,10 +157,11 @@ def flash_attention_bwd_plain(q, k, v, o, do, lse, *, causal=True,
                               window=None, scale=None):
     """(dq, dk, dv) of attention from the forward's output `o`, the
     output gradient `do` and the row log-sum-exp `lse` (B, H, Sq), by the
-    backward kernel's recurrence on its tiles (`BWD_TILES` of q's dtype;
-    (64, 64) at other widths), in float32: delta = rowsum(dO o O);
-    per tile P = exp(S scale - lse) (masked entries 0), dV += P^T dO,
-    dS = P o (dO V^T - delta), dQ += dS K scale, dK += dS^T Q scale.
+    backward kernel's recurrence on its tiles (`BWD_TILES` of q's dtype
+    at the width the kernel runs Dh at; (64, 64) above), in float32:
+    delta = rowsum(dO o O); per tile P = exp(S scale - lse) (masked
+    entries 0), dV += P^T dO, dS = P o (dO V^T - delta), dQ += dS K
+    scale, dK += dS^T Q scale.
     P is rounded to q's dtype before its product and dS before its two,
     as the kernel's bf16 path rounds them once for the tensor cores
     (float32: no rounding); dS itself is formed from the unrounded P.
@@ -162,8 +171,10 @@ def flash_attention_bwd_plain(q, k, v, o, do, lse, *, causal=True,
     Sk, KvH = k.shape[1], k.shape[2]
     G = H // KvH
     scale = scale if scale is not None else 1.0 / math.sqrt(Dh)
+    # a narrow head runs on the tiles of the width the kernel pads it to
+    width = kernel_width(Dh) if Dh <= MAX_HEAD_DIM else Dh
     bq, bk = BWD_TILES.get(q.dtype, BWD_TILES[torch.float32]) \
-        .get(Dh, (64, 64))
+        .get(width, (64, 64))
 
     def operand(t):                   # a tensor-core operand's rounding
         return t.to(q.dtype).float()
@@ -221,20 +232,41 @@ def _bwd_lib():
     return fn
 
 
-def _kernel_args(q, k, v, window, scale):
-    """Shape checks of the CUDA path; returns (q, k, v aligned, scale)."""
-    Dh = q.shape[3]
-    if Dh not in HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel takes Dh in {HEAD_DIMS}, "
-                         f"got {Dh}")
+def kernel_width(Dh: int) -> int:
+    """The head width the kernels run a Dh-wide head at: the narrowest of
+    `HEAD_DIMS` that holds it (the head zero-padded to it)."""
+    for width in HEAD_DIMS:
+        if Dh <= width:
+            return width
+    raise ValueError(f"flash_attention kernel takes Dh up to {MAX_HEAD_DIM} "
+                     f"(narrower heads are zero-padded to one of "
+                     f"{HEAD_DIMS}), got {Dh}; wider heads are ROADMAP.md "
+                     f"queue 2, item 1")
+
+
+def _kernel_args(window, scale, Dh, *ts):
+    """Checks of the CUDA path; returns (scale, the tensors `ts` padded to
+    the kernels' width and 16-byte aligned).  The default scale is the
+    true width's, before any padding."""
+    width = kernel_width(Dh)
     if window is not None and window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
     scale = scale if scale is not None else 1.0 / math.sqrt(Dh)
     # the bf16 kernel copies 16-byte rows with cp.async: a view that starts
     # off that alignment is copied first
-    q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone()
-               for t in (q, k, v))
-    return q, k, v, scale
+    ts = [_pad_cols(t, width) for t in ts]
+    return scale, [t if t.data_ptr() % 16 == 0 else t.clone() for t in ts]
+
+
+def _launch_args(q, k, causal, window, scale) -> tuple:
+    """The launchers' scalar arguments: B, Sq, Sk, H, KvH, the (padded)
+    Dh, causal, the window (-1: none), the scale, the dtype code."""
+    B, Sq, H, Dh = q.shape
+    return (B, Sq, k.shape[1], H, k.shape[2], Dh, 1 if causal else 0,
+            # repro: ignore[R002]: host launch scalars (the window and the
+            # scale are Python numbers)
+            -1 if window is None else int(window), float(scale),
+            DTYPES[q.dtype])
 
 
 def _flash_cuda(q, k, v, *, causal=True, window=None, scale=None,
@@ -243,25 +275,15 @@ def _flash_cuda(q, k, v, *, causal=True, window=None, scale=None,
     Returns the output, or (output, lse (B, H, Sq) float32) when `lse`."""
     global LAUNCHES
     B, Sq, H, Dh = q.shape
-    Sk, KvH = k.shape[1], k.shape[2]
-    q, k, v, scale = _kernel_args(q, k, v, window, scale)
+    scale, (q, k, v) = _kernel_args(window, scale, Dh, q, k, v)
     out = torch.empty_like(q)
     row_lse = torch.empty((B, H, Sq), dtype=torch.float32,
                           device=q.device) if lse else None
-    fn = _lib()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 None if row_lse is None else row_lse.data_ptr(),
-                 B, Sq, Sk, H, KvH, Dh, int(bool(causal)),
-                 # repro: ignore[R002]: host launch scalars (the window and the
-                 # scale are Python numbers)
-                 -1 if window is None else int(window), float(scale),
-                 DTYPES[q.dtype], stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
-                           f"error {err}")
+    _call(_lib(), (q, k, v, out, row_lse),
+          _launch_args(q, k, causal, window, scale), "flash_attention")
     LAUNCHES += 1
+    if out.shape[3] != Dh:
+        out = out[..., :Dh].contiguous()
     return (out, row_lse) if lse else out
 
 
@@ -269,30 +291,23 @@ def _flash_bwd_cuda(q, k, v, o, do, lse, *, causal=True, window=None,
                     scale=None):
     """Launch csrc/flash_attention_bwd.cu (three kernels in float32, two
     in bf16) on the current stream (no sync); returns (dq, dk, dv) in the
-    inputs' dtype."""
+    inputs' dtype.  A padded head pads o and dO with zeros too, so the
+    row sums of dO o O are the true width's."""
     global BWD_LAUNCHES
     B, Sq, H, Dh = q.shape
-    Sk, KvH = k.shape[1], k.shape[2]
-    q, k, v, scale = _kernel_args(q, k, v, window, scale)
     if Sq == 0 or B == 0:
+        kernel_width(Dh)
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    scale, (q, k, v, o, do) = _kernel_args(window, scale, Dh, q, k, v, o,
+                                           do)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    fn = _bwd_lib()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                 B, Sq, Sk, H, KvH, Dh, int(bool(causal)),
-                 # repro: ignore[R002]: host launch scalars (the window and the
-                 # scale are Python numbers)
-                 -1 if window is None else int(window), float(scale),
-                 DTYPES[q.dtype], stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attention backward kernel launch failed: "
-                           f"CUDA error {err}")
+    _call(_bwd_lib(), (q, k, v, o, do, lse, delta, dq, dk, dv),
+          _launch_args(q, k, causal, window, scale),
+          "flash_attention backward")
     BWD_LAUNCHES += 1
+    if q.shape[3] != Dh:
+        dq, dk, dv = (t[..., :Dh].contiguous() for t in (dq, dk, dv))
     return dq, dk, dv
 
 

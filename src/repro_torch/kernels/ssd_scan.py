@@ -20,7 +20,15 @@ decays (b, h, G).  See the source's header note.
 
 Shapes: x (b, s, h, p), dt (b, s, h) float32, A (h,) float32, B/C
 (b, s, g, n) with x's dtype (float32 or bfloat16); y (b, s, h, p) in x's
-dtype.  On the card: p 64, n 64 or 128, any chunk.  The chunk picks the
+dtype.  On the card: any p up to 64 and n up to 128, any chunk.  The
+kernels are built for p 64 and n 64 or 128 (`HEAD_DIMS`, `STATE_DIMS`);
+a narrower x is zero-padded to p 64 and narrower B / C to the next built
+n (`kernel_widths`), and y (dx, dB, dC) sliced back.  The padded columns
+add exact zeros to every sum (y's p columns are independent of each
+other; the state's padded rows and columns stay zero), so the kept
+columns, ddt and dA are the true widths'.  The group states of a padded
+call are kept at the padded widths.  Widths the kernels are built for
+launch as they are.  The chunk picks the
 plain version's float32 sum order, not the function: y is the same
 function of (x, dt, A, B, C) at every chunk, so the kernels run their own
 `TILE`-row chunks whatever chunk the caller asks for.  `LAUNCHES` counts
@@ -54,10 +62,14 @@ import functools
 import torch
 
 from ..nn import ssd as _ssd
+from .build import launch as _call, pad_cols as _pad_cols
 
 TILE = 64                   # rows of the kernels' chunk (L in the csrc/)
-HEAD_DIMS = (64,)           # p
-STATE_DIMS = (64, 128)      # n
+HEAD_DIMS = (64,)           # p the kernels are built for
+STATE_DIMS = (64, 128)      # n the kernels are built for
+# wider: ROADMAP.md queue 2, item 2 (y's p columns are independent, so a
+# p above 64 can run in blocks of 64)
+MAX_HEAD_DIM, MAX_STATE_DIM = HEAD_DIMS[-1], STATE_DIMS[-1]
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # tiles per group of the kernel's split (GROUP in csrc/ssd_scan.cu): at
 # the prefill shape 64 tiles make 8 groups, whose f32 states (16.8 MB)
@@ -245,10 +257,12 @@ def _chunk_grads(x_, dt_, A, B_, C_, dy_, S, dS, tri, rounded=False,
 
 
 def _per_head(x, dt, B, C, dy):
-    """float32 x, dt, dy and B / C repeated to x's heads."""
+    """x, dt, dy and B / C repeated to x's heads, in float32 (float64
+    inputs stay float64)."""
+    dtype = torch.promote_types(x.dtype, torch.float32)
     rep = x.shape[2] // B.shape[2]
-    return (x.float(), dt.float(), B.repeat_interleave(rep, dim=2).float(),
-            C.repeat_interleave(rep, dim=2).float(), dy.float())
+    return tuple(t.to(dtype) for t in (x, dt, B.repeat_interleave(rep, dim=2),
+                                       C.repeat_interleave(rep, dim=2), dy))
 
 
 def _bwd_chunks(x, dt, A, B, C, dy, S0, dS, chunk, rounded=False,
@@ -258,7 +272,8 @@ def _bwd_chunks(x, dt, A, B, C, dy, S0, dS, chunk, rounded=False,
     gradient dy and the gradient dS of the final state: every chunk's
     incoming state forward, then the chunks in reverse (`_chunk_grads`),
     carrying the state gradient.  Returns float32 dx, ddt (b, s, h), dA
-    (b, h) and per-head dB / dC (b, s, h, n)."""
+    (b, h) and per-head dB / dC (b, s, h, n) (float64 from float64
+    inputs)."""
     xf, dtf, Bh, Ch, dyf = _per_head(x, dt, B, C, dy)
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                 device=x.device))
@@ -268,7 +283,7 @@ def _bwd_chunks(x, dt, A, B, C, dy, S0, dS, chunk, rounded=False,
     for sl in cuts:                     # each chunk's incoming state
         states.append(S)
         S = _state_step(S, xf[:, sl], dtf[:, sl], A, Bh[:, sl], split)
-    dA = torch.zeros(dtf[:, 0].shape, dtype=torch.float32, device=x.device)
+    dA = torch.zeros(dtf[:, 0].shape, dtype=xf.dtype, device=x.device)
     outs = []
     for sl, S in zip(reversed(cuts), reversed(states)):
         *o, dA_c, dB_, dC_ = _chunk_grads(xf[:, sl], dtf[:, sl], A, Bh[:, sl],
@@ -301,16 +316,19 @@ def ssd_scan_bwd_plain(x, dt, A, B, C, dy, *, chunk=64, rounded=False,
                        split=None):
     """(dx, ddt, dA, dB, dC) of `ssd_scan_plain` given dy, by the gradient
     equations chunk by chunk in float32 (`_bwd_chunks`, from a zero
-    state).  A ragged tail reads as dt = 0 and x = B = C = dy = 0, as in
-    the forward.  `rounded`: W and GE rounded to one bf16 before their
-    products (the control of the card's bf16 check); `split`: every
-    float32 operand the bf16 kernel splits (W, GE, S, dS', the scaled x
-    and dy of the walks) taken as the sum of that many bf16 parts."""
+    state), or in float64 from float64 inputs (the exact reference of
+    the card's float32 checks).  A ragged tail reads as dt = 0 and x = B
+    = C = dy = 0, as in the forward.  `rounded`: W and GE rounded to one
+    bf16 before their products (the control of the card's bf16 check);
+    `split`: every float32 operand the bf16 kernel splits (W, GE, S, dS',
+    the scaled x and dy of the walks) taken as the sum of that many bf16
+    parts."""
     b, s, h, p = x.shape
     n = B.shape[3]
     rows = -(-s // chunk) * chunk
     x, dt, B, C, dy = _pad_rows((x, dt, B, C, dy), rows)
-    zero = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+    zero = torch.zeros((b, h, p, n), device=x.device,
+                       dtype=torch.promote_types(x.dtype, torch.float32))
     return _bwd_out(x, B, s, *_bwd_chunks(x, dt, A, B, C, dy, zero, zero,
                                           chunk, rounded, split))
 
@@ -464,16 +482,28 @@ def _lib(entry="ssd_scan_launch"):
     return fn
 
 
+def kernel_widths(p: int, n: int) -> tuple:
+    """The (p, n) the kernels run a (p, n) scan at: the narrowest built
+    widths that hold them (x, B and C zero-padded to them)."""
+    if p > MAX_HEAD_DIM or n > MAX_STATE_DIM:
+        raise ValueError(f"ssd_scan kernel takes p up to {MAX_HEAD_DIM} and "
+                         f"n up to {MAX_STATE_DIM} (narrower ones are "
+                         f"zero-padded to p in {HEAD_DIMS}, n in "
+                         f"{STATE_DIMS}); got p={p}, n={n}; wider ones are "
+                         f"ROADMAP.md queue 2, item 2")
+    return (next(w for w in HEAD_DIMS if p <= w),
+            next(w for w in STATE_DIMS if n <= w))
+
+
 def _prepare(x, dt, A, B, C):
-    """Checked, dense, 16-byte aligned inputs and the split's scratch."""
-    b, s, h, p = x.shape
-    n = B.shape[3]
-    if p not in HEAD_DIMS or n not in STATE_DIMS:
-        raise ValueError(f"ssd_scan kernel takes p in {HEAD_DIMS}, n in "
-                         f"{STATE_DIMS}; got p={p}, n={n}")
+    """Checked, dense, 16-byte aligned inputs, x / B / C padded to the
+    kernels' widths, and the split's scratch at those widths."""
+    b, s, h, _ = x.shape
+    p, n = kernel_widths(x.shape[3], B.shape[3])
     # the kernel copies dense row-major 16-byte rows with cp.async; the
     # model's x/B/C are views into the conv output, so this copies them
-    ins = [t.contiguous() for t in (x, dt, A, B, C)]
+    ins = [_pad_cols(x, p), dt, A, _pad_cols(B, n), _pad_cols(C, n)]
+    ins = [t.contiguous() for t in ins]
     ins = [t if t.data_ptr() % 16 == 0 else t.clone() for t in ins]
     G = n_groups(s)
     states = decay = None
@@ -492,33 +522,20 @@ def _dims(x, B) -> tuple:
             DTYPES[x.dtype])
 
 
-def _call(fn, tensors, dims, what) -> None:
-    """`fn(pointers of tensors (None for None), *dims, stream)` on the
-    current stream of the tensors' device."""
-    dev = tensors[0].device
-    # the inputs and the scratch may be freed when this returns while the
-    # kernels still run: the caching allocator hands their memory only to
-    # later work on the same stream
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(*[None if t is None else t.data_ptr() for t in tensors],
-                 *dims, stream)
-    if err != 0:
-        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
-
-
 def _ssd_cuda(x, dt, A, B, C, *, states=False):
     """Launch csrc/ssd_scan.cu on the current stream (no sync).  Returns
     y, or with `states` (y, the group states): the float32 incoming state
-    of every group, (b, h, G, n, p), which launch 2 writes into the
-    split's scratch (None when one group holds every tile: its state is
-    zero).  Asking for them changes no launch."""
+    of every group, (b, h, G, n, p) at the kernels' widths, which launch
+    2 writes into the split's scratch (None when one group holds every
+    tile: its state is zero).  Asking for them changes no launch."""
     global LAUNCHES
     ins, st, decay = _prepare(x, dt, A, B, C)
-    y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
-    _call(_lib("ssd_scan_launch"), (*ins, y, st, decay), _dims(x, B),
-          "ssd_scan")
+    y = torch.empty_like(ins[0])
+    _call(_lib("ssd_scan_launch"), (*ins, y, st, decay),
+          _dims(ins[0], ins[3]), "ssd_scan")
     LAUNCHES += kernel_launches(x.shape[1])
+    if y.shape[3] != x.shape[3]:
+        y = y[..., :x.shape[3]].contiguous()
     return (y, st) if states else y
 
 
@@ -549,17 +566,21 @@ def bwd_rows(h: int, g: int, dtype) -> int:
 def _ssd_bwd_cuda(x, dt, A, B, C, dy, states):
     """Launch csrc/ssd_scan_bwd.cu on the current stream (no sync):
     `bwd_kernel_launches(s)` kernels.  `states` are the forward's group
-    states (`_ssd_cuda(..., states=True)`).  Returns (dx, ddt, dA, dB,
-    dC): dx, dB, dC in x's dtype, ddt and dA float32.  The kernel writes
-    float32 dB / dC rows (`bwd_rows`) and dA parts per (batch, head,
-    group) in float32 or per (batch, head, tile) in bf16, summed here."""
+    states (`_ssd_cuda(..., states=True)`, at the kernels' widths).
+    Returns (dx, ddt, dA, dB, dC): dx, dB, dC in x's dtype, ddt and dA
+    float32.  The kernel writes float32 dB / dC rows (`bwd_rows`) and dA
+    parts per (batch, head, group) in float32 or per (batch, head, tile)
+    in bf16, summed here.  A padded call pads dy with zeros as well, so
+    the padded columns add nothing to ddt and dA."""
     global BWD_LAUNCHES
     _check(x, dt, A, B, C)
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
         raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype} on {dy.device} "
                          f"does not fit x {tuple(x.shape)} {x.dtype}")
+    p0, n0 = x.shape[3], B.shape[3]
     ins, _, _ = _prepare(x, dt, A, B, C)
-    dy = dy.contiguous()
+    x, B = ins[0], ins[3]
+    dy = _pad_cols(dy, x.shape[3]).contiguous()
     dy = dy if dy.data_ptr() % 16 == 0 else dy.clone()
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
@@ -585,8 +606,10 @@ def _ssd_bwd_cuda(x, dt, A, B, C, dy, states):
                        dstates, gdecay, dsloc, facs, dx, ddt, dBp, dCp, dAp),
           _dims(x, B), "ssd_scan backward")
     BWD_LAUNCHES += 1
-    dB, dC = (t.view(b, s, g, rows // g, n).sum(3).to(x.dtype)
+    dB, dC = (t.view(b, s, g, rows // g, n).sum(3)[..., :n0].to(x.dtype)
               for t in (dBp, dCp))
+    if p != p0:
+        dx = dx[..., :p0].contiguous()
     return dx, ddt, dAp.sum((0, 2)), dB, dC
 
 
@@ -614,8 +637,9 @@ def ssd_group_states_cuda(x, dt, A, B, C):
     """The kernel's launches 1-2 alone on CUDA tensors: the float32
     incoming state of every group, (b, G, h, p, n) like
     `ssd_split_states_plain` at chunk `TILE`.  For the card's checks of
-    the split's state products; s must span more than one group.  Adds
-    its two launches to `LAUNCHES`."""
+    the split's state products; s must span more than one group.  A
+    padded call's states come back at the true widths (the padded rows
+    and columns are zero).  Adds its two launches to `LAUNCHES`."""
     global LAUNCHES
     if x.device.type != "cuda":
         raise ValueError(f"ssd_group_states_cuda takes CUDA tensors, got "
@@ -624,7 +648,7 @@ def ssd_group_states_cuda(x, dt, A, B, C):
     if n_groups(x.shape[1]) < 2:
         raise ValueError(f"s = {x.shape[1]} fits one group: no group states")
     ins, states, decay = _prepare(x, dt, A, B, C)
-    _call(_lib("ssd_scan_states_launch"), (*ins, states, decay), _dims(x, B),
-          "ssd_scan")
+    _call(_lib("ssd_scan_states_launch"), (*ins, states, decay),
+          _dims(ins[0], ins[3]), "ssd_scan")
     LAUNCHES += 2
-    return states.permute(0, 2, 1, 4, 3)
+    return states.permute(0, 2, 1, 4, 3)[..., :x.shape[3], :B.shape[3]]

@@ -54,11 +54,13 @@ def train(arch: str, *, smoke: bool = True, steps: int = 50,
           batch: int = 8, seq: int = 64, ckpt_dir: str | None = None,
           ckpt_every: int = 20, compress_grads: bool = False,
           lr: float = 3e-3, log_every: int = 10, device="cuda",
-          on_step=None, layers: int | None = None):
+          on_step=None, layers: int | None = None, params=None):
     """Train `arch` for `steps` steps from seeded weights (a CPU
     `torch.Generator`, seed 0, drawn on the host and moved to `device`:
-    the same weights on every device), or from the latest checkpoint
-    under `ckpt_dir`; returns (params, losses of the steps run).
+    the same weights on every device), from `params` when given (a tree
+    of the config's shapes on `device`, e.g. another package's weights
+    through `convert`), or from the latest checkpoint under `ckpt_dir`;
+    returns (params, losses of the steps run).
     `on_step(step, metrics)` sees each step's metrics ({"loss",
     "grad_norm", "lr"}).  `layers` cuts the depth to that many layers
     (the config's first `layers`, at full width)."""
@@ -71,10 +73,11 @@ def train(arch: str, *, smoke: bool = True, steps: int = 50,
         cfg = dataclasses.replace(cfg, n_layers=layers)
     if cfg.family == "encdec":
         seq = max(seq, 16)
-    t0 = time.perf_counter()
-    params = model.init(torch.Generator().manual_seed(0), cfg, dev)
-    print(f"init: {arch} weights drawn on the host and moved to {dev} in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if params is None:
+        t0 = time.perf_counter()
+        params = model.init(torch.Generator().manual_seed(0), cfg, dev)
+        print(f"init: {arch} weights drawn on the host and moved to {dev} "
+              f"in {time.perf_counter() - t0:.1f} s", flush=True)
     opt_cfg = opt_lib.OptConfig(lr=lr, warmup_steps=10, total_steps=steps)
     opt_state = opt_lib.init(params)
     err_state = comp_lib.init_error_state(params) if compress_grads \

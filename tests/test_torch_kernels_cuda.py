@@ -1,6 +1,7 @@
 """The CUDA kernels (day scan in both output modes, with the full trace's
-initial SoC, flash attention at Dh 64 / 96 / 128 / 256 and a transformer
-prefill through it, SSD scan) against their plain PyTorch
+initial SoC, up to 64 levels, flash attention at Dh 64 / 96 / 128 / 256
+and at narrower heads zero-padded to them, and transformer prefills
+through it, SSD scan at p 64 and narrower) against their plain PyTorch
 versions on the card, the day scan's paths: serial, batched (K queries
 folded into the combo axis), the legacy engine, `simulate_users`,
 `simulate`, `optimize_policy` and the fleet day, the joint device +
@@ -67,7 +68,7 @@ def _assert_all_equal(got: dict, want: dict) -> None:
 
 @pytest.mark.parametrize("n,t,n_lvl", [
     (64, 1, 3),         # one step
-    (31, 129, 16),      # ragged N, smallest chunks, 16 levels
+    (31, 129, 16),      # ragged N, 16 levels
     (200, 1000, 3),     # ragged N over 7 blocks, many ring turns
     (1024, 257, 3),     # 32 blocks: 16 serving grids folded into N
 ])
@@ -108,7 +109,7 @@ def _assert_full_equal(got: dict, want: dict) -> None:
 @pytest.mark.parametrize("n,t,n_lvl", [
     (64, 700, 3), (63, 700, 3),     # the serving grid's width, ragged
     (1, 700, 3),                    # simulate's: 31 of 32 lanes masked
-    (33, 129, 16),                  # 16 levels, the smallest chunks
+    (33, 129, 16),                  # 16 levels
 ])
 def test_full_mode_matches_plain(cuda, n, t, n_lvl):
     """The full-trace mode against its plain version on all 17 outputs,
@@ -143,12 +144,6 @@ def test_full_mode_time_edges(cuda, n_lvl, steps):
     want = ds.day_scan_plain(tables, full=True)
     torch.cuda.synchronize()
     _assert_full_equal(got, want)
-
-
-def test_kernel_rejects_too_many_levels(cuda):
-    tables = random_tables(4, 10, ds.MAX_LEVELS + 1, seed=0, device=cuda)
-    with pytest.raises(ValueError, match="throttle levels"):
-        ds.day_scan(tables)
 
 
 # tolerances of tests/test_kernels.py; bf16 flash is held tighter: one
@@ -400,15 +395,18 @@ def test_ssd_kernels_run_their_tile_at_any_chunk(cuda, dtype, chunk):
 
 
 def test_kernels_reject_unsupported_shapes(cuda):
-    q = torch.zeros(1, 8, 2, 32, device=cuda)
-    with pytest.raises(ValueError, match="Dh in"):
+    """Widths above the kernels' largest raise, naming the limit and the
+    roadmap item that lifts it (narrower ones are padded)."""
+    q = torch.zeros(1, 8, 2, fa.MAX_HEAD_DIM + 1, device=cuda)
+    with pytest.raises(ValueError, match="Dh up to 256.*queue 2, item 1"):
         fa.flash_attention(q, q, q)
-    x = torch.zeros(1, 8, 2, 32, device=cuda)
     dt = torch.zeros(1, 8, 2, device=cuda)
     A = torch.zeros(2, device=cuda)
-    B = torch.zeros(1, 8, 1, 64, device=cuda)
-    with pytest.raises(ValueError, match="p in"):
-        ss.ssd_scan(x, dt, A, B, B)
+    for p, n in ((ss.MAX_HEAD_DIM + 1, 64), (64, ss.MAX_STATE_DIM + 1)):
+        x = torch.zeros(1, 8, 2, p, device=cuda)
+        B = torch.zeros(1, 8, 1, n, device=cuda)
+        with pytest.raises(ValueError, match="p up to 64.*queue 2, item 2"):
+            ss.ssd_scan(x, dt, A, B, B)
 
 
 @pytest.mark.parametrize("shift", [1, 2, 3])
@@ -979,3 +977,138 @@ def test_twin_query_syncs_are_covered_by_the_lint(cuda):
     assert all(r["site"] is not None for r in rows), rows
     missed = [r for r in rows if r["hot"] and not r["covered"]]
     assert missed == [], missed
+
+
+# ---------------------------------------------------------------------------
+# widths the kernels are not built for: zero-padded to the next built one
+# (flash Dh < 256, SSD p < 64 / n < 128), and the day scan past 16 levels
+# (it is handed the three levels a step can select, whatever L)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,KvH,Dh,causal,window", [
+    (1, 128, 2, 2, 32, True, None),     # tests/test_kernels.py's sweep
+    (2, 192, 8, 4, 32, False, None),
+    (2, 200, 8, 8, 8, True, None),      # granite-3-2b / yi-34b / dbrx heads
+    (2, 300, 4, 2, 16, True, 40),       # olmo-1b / gemma3-4b / zamba2 heads
+    (1, 130, 4, 4, 16, False, None),
+    (1, 70, 4, 2, 80, True, None),      # padded to 96
+    (1, 70, 4, 2, 112, True, None),     # padded to 128
+    (1, 70, 4, 2, 200, True, 20),       # padded to 256
+])
+def test_flash_kernel_narrow_heads(cuda, dtype, B, S, H, KvH, Dh, causal,
+                                   window):
+    """A head narrower than the kernels' widths launches the kernel once
+    (zero-padded) and matches the plain version; its gradients through
+    the autograd function match autograd of the plain forward."""
+    q, do = (_randn(i, (B, S, H, Dh), dtype, cuda) for i in (0, 3))
+    k, v = (_randn(i, (B, S, KvH, Dh), dtype, cuda) for i in (1, 2))
+    before = fa.LAUNCHES
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    assert fa.LAUNCHES == before + 1
+    assert got.shape == q.shape and got.is_contiguous()
+    want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    atol, rtol = FLASH_TOL[dtype]
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), atol=atol,
+                               rtol=rtol)
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    f0, b0 = fa.LAUNCHES, fa.BWD_LAUNCHES
+    fa.flash_attention(qg, kg, vg, causal=causal, window=window).backward(do)
+    assert (fa.LAUNCHES - f0, fa.BWD_LAUNCHES - b0) == (1, 1)
+    grads = _autograd_plain(q, k, v, do, causal, window)
+    torch.cuda.synchronize()
+    for a, w in zip((qg.grad, kg.grad, vg.grad), grads):
+        assert a.shape == w.shape and a.dtype == dtype
+        err = float((a.float() - w.float()).abs().max())
+        assert err <= BWD_TOL[dtype] * float(w.float().abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,p,g,n", [
+    (1, 128, 2, 8, 1, 16),              # tests/test_kernels.py's sweep
+    (2, 256, 4, 16, 2, 32),
+    (1, 256, 8, 32, 1, 64),
+    (2, 128, 4, 8, 4, 16),
+    (2, 1000, 8, 16, 1, 16),            # zamba2 / mamba2 smoke widths, split
+    (1, 600, 4, 40, 2, 100),            # n padded to 128
+])
+def test_ssd_kernel_narrow_widths(cuda, dtype, b, s, h, p, g, n):
+    """Narrow p and n through the kernels (zero-padded): y against the
+    plain version at the reference's tolerances, the gradients through
+    `SSDScan` against `ssd_scan_bwd_plain` (float32 1e-5 of the largest
+    entry, bf16 5e-4 relative RMS)."""
+    ins = [_randn(0, (b, s, h, p), dtype, cuda, 0.5),
+           0.05 * torch.nn.functional.softplus(
+               _randn(1, (b, s, h), torch.float32, cuda)),
+           -torch.exp(0.3 * _randn(2, (h,), torch.float32, cuda)),
+           _randn(3, (b, s, g, n), dtype, cuda, 0.3),
+           _randn(4, (b, s, g, n), dtype, cuda, 0.3)]
+    dy = _randn(5, (b, s, h, p), dtype, cuda)
+    before = ss.LAUNCHES
+    y = ss.ssd_scan(*ins, chunk=64)
+    assert ss.LAUNCHES == before + ss.kernel_launches(s)
+    tol = TOL[dtype]
+    np.testing.assert_allclose(
+        y.float().cpu().numpy(),
+        ss.ssd_scan_plain(*ins, chunk=64).float().cpu().numpy(),
+        atol=max(tol, 1e-4), rtol=5 * tol)
+    leaves = [t.clone().requires_grad_() for t in ins]
+    got = torch.autograd.grad(ss.ssd_scan(*leaves, chunk=64), leaves, dy)
+    want = ss.ssd_scan_bwd_plain(*ins, dy, chunk=64)
+    for a, w in zip(got, want):
+        assert a.shape == w.shape and a.dtype == w.dtype
+        a, w = a.float(), w.float()
+        if dtype == torch.float32:
+            assert float((a - w).abs().max()) <= 1e-5 * float(w.abs().max())
+        else:
+            assert _rel_rms(a, w) <= 5e-4
+
+
+@pytest.mark.parametrize("n_lvl", [17, 32, 64, 300])
+@pytest.mark.parametrize("n,steps", [(37, "tc+1"), (64, "9tc+1"),
+                                     (1, "tc-1")])
+def test_kernel_many_levels_match_plain(cuda, n_lvl, n, steps):
+    """17 to 300 levels in both output modes (the kernel is handed the three
+    a step can select, on the chunk of L = 3), T around each mode's
+    chunk: every output bit for bit equal to the plain version."""
+    for full in (False, True):
+        tc = ds.chunk_steps(n_lvl, full)
+        assert tc == ds.chunk_steps(3, full) >= 1
+        t = {"tc-1": max(tc - 1, 1), "tc+1": tc + 1,
+             "9tc+1": 9 * tc + 1}[steps]
+        tables = random_tables(n, t, n_lvl, seed=n_lvl + n, device=cuda)
+        before = ds.LAUNCHES
+        got = ds.day_scan(tables, full=full)
+        assert ds.LAUNCHES == before + 1
+        want = ds.day_scan_plain(tables, full=full)
+        torch.cuda.synchronize()
+        (_assert_full_equal if full else _assert_all_equal)(got, want)
+
+
+def test_transformer_prefill_unwidened_smoke_matches_cpu(cuda):
+    """gemma3's smoke config at its own head width (Dh 16, padded to 64 on
+    the card) in float32: the prefill step's last hidden and cache on the
+    card against the same call on the CPU, one flash launch a layer."""
+    from repro_torch import convert
+    from repro_torch.launch import steps
+    from repro_torch.models import registry
+    cfg, model = registry.get("gemma3-4b", smoke=True)
+    assert cfg.head_dim < min(fa.HEAD_DIMS)
+    tree = convert.lm_params_numpy(cfg, 0)
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 40)))
+    outs = {}
+    for dev in ("cpu", cuda):
+        params = convert.lm_params_from_numpy(tree, cfg, dev)
+        before = fa.LAUNCHES
+        outs[str(dev)] = steps.make_prefill_step(cfg, model)(
+            params, {"tokens": toks.to(dev)})
+        launched = fa.LAUNCHES - before
+    assert launched == cfg.n_layers
+    h_cpu, c_cpu = outs["cpu"]
+    h, c = outs[str(cuda)]
+    torch.testing.assert_close(h.cpu(), h_cpu, atol=1e-4, rtol=1e-4)
+    for key in c_cpu:
+        torch.testing.assert_close(c[key].cpu(), c_cpu[key], atol=1e-4,
+                                   rtol=1e-4)
