@@ -16,7 +16,9 @@ Run from the root of a checkout.  Phases (any failure exits non-zero):
      on ragged N = 63 and N = 200: all nine outputs bit for bit equal;
      the full-trace mode at N = 64, 63 and 1 on the same tables: all 17
      outputs bit for bit equal to `day_scan_plain(full=True)`, its first
-     nine equal to the default mode's;
+     nine equal to the default mode's (the plain version, a host loop
+     whose time does not grow with N, runs once over the ragged sizes
+     side by side, once at N = 64, once over the full-trace sizes);
   4. main path: `DesignTwin()` on the default grid at dt_s = 10 s (warm
      query, a repeat, then three what-ifs: another policy's thresholds,
      another battery, a single platform), each checked against the
@@ -104,24 +106,24 @@ Run from the root of a checkout.  Phases (any failure exits non-zero):
         bit-identical; g. `dse.fleet_pareto()` (9 variants x 1024 users)
         with and without an autoscaler: front_mask equal to the CPU's,
         rows within rtol 1e-6;
-  5. timing: day-scan kernel ms (CUDA events over many launches) at
-     N = 64, 1 and 1024 (16 grids folded into N), the full-trace mode's
-     at N = 64 and 1 beside its bound, the default mode's chain floor
-     (probe mode "no loads or stores") beside the bound, the SM clock
-     under the kernel, the plain version's ms, warm query and what-if
-     ms, a profile of warm queries, batched ms per item at K = 1, 4 and
-     16 (warm, host clock ending in a copy to the host) beside the warm
-     serial query, row-stage passes per batch and a profile of one
-     K = 16 batch; the joint front's ms (host clock) and a profile of
-     one call; the gradient path: ms per Adam step of 4 h c (host
-     clock) and a profile of one step, `simulate` ms, the example's
-     60-step `optimize_policy` estimated from them, ms per
-     `fit_ensemble` step, `sensitivity_map` ms; the fleet layer:
-     `fleet_day` warm ms at 4096 and 100 000 users (host clock, ending in
-     the copy to the host), the full-trace kernel's ms at a fleet launch
-     (N = 4096 and a 16 384-user chunk, CUDA events) beside its bound, a
-     profile of one 4096-user call, Monte Carlo draws/s,
-     `autoscale.simulate` ms and kernels a call, `fleet_pareto` ms;
+  5. timing: day-scan kernel ms (CUDA events over many launches) at N =
+     64, 1 and 1024 (16 grids folded into N), the full-trace mode's at N =
+     64 and 1 beside its bound, the default mode's chain floor (probe mode
+     "no loads or stores") beside the bound, the SM clock under the
+     kernel, the plain version's ms (phase 3's call), warm query and
+     what-if ms, a profile of warm queries, batched ms per item at K = 1,
+     4 and 16 (warm, host clock ending in a copy to the host) beside the
+     warm serial query, row-stage passes per batch and a profile of one K
+     = 16 batch; the joint front's ms (host clock) and a profile of one
+     call; the gradient path: ms per Adam step of 4 h c (host clock) and a
+     profile of one step, `simulate` ms, the example's 60-step
+     `optimize_policy` estimated from them, ms per `fit_ensemble` step,
+     `sensitivity_map` ms; the fleet layer: `fleet_day` warm ms at 4096
+     and 100 000 users (host clock, ending in the copy to the host), the
+     full-trace kernel's ms at a fleet launch (N = 4096 and a 16 384-user
+     chunk, CUDA events) beside its bound, a profile of one 4096-user
+     call, Monte Carlo draws/s, `autoscale.simulate` ms and kernels a
+     call, `fleet_pareto` ms;
   6. flash-attention and SSD-scan kernels vs their plain versions on the
      card: at the zamba2-1.2b prefill shapes in bf16 and float32, flash
      at a GQA 4:1 + window 96 + ragged-S case at Dh = 128; SSD at the
@@ -195,9 +197,10 @@ moved to the card, except the golden's seeded numpy weights):
      = 4096, 576 seeded vision embeddings), 32 flash launches at Dh 96
      without a window, finite outputs;
  16. olmo-1b, granite-3-2b, yi-34b, moonshot-v1-16b-a3b and dbrx-132b at
-     full width, depth cut to 2 layers (yi-34b whole is ~68 GB in bf16,
-     dbrx-132b ~264 GB): a bf16 prefill (B = 1, S = 4096) through the
-     kernel (2 launches) and again through `flash_attention_plain`
+     full width, depth cut to 1 layer (yi-34b whole is ~68 GB in bf16,
+     dbrx-132b ~264 GB; their weights are drawn on the host, ~20 s a
+     billion): a bf16 prefill (B = 1, S = 4096) through the
+     kernel (1 launch) and again through `flash_attention_plain`
      (none), every layer's attention output within ATTN_RMS_LIMIT and
      the last hidden within HIDDEN_RMS_LIMIT relative RMS; for the two
      MoE archs `moe_apply` against `moe_apply_dense` on layer 0 (bf16
@@ -381,7 +384,33 @@ The widths the TPU kernels take, every smoke config, the examples:
         against the same `main` on the CPU where that run is short
         (EXAMPLE_TOL); the phase's seconds against PHASE32_BUDGET_S.
 
-Nothing earlier is cut for time.
+The widths above the built ones:
+
+ 33. a. flash forward and backward past Dh 256 (the wide kernels: the
+        head padded to a multiple of 64, output column blocks of up to
+        256) at WIDE_FLASH (Dh 257, 320, 512, 576; causal GQA, a window,
+        bidirectional, Sq < Sk), the SSD forward and backward past p 64
+        and n 128 (p-blocks of 64 as heads, one call an n-block) at
+        WIDE_SSD, float32 and bf16, each against its plain version at
+        phase 6's and 18's / 23 c's tolerances and controls, the float32
+        SSD backward against the plain version in float64, every
+        backward run bit-equal to its repeat, the group states against
+        the plain split's;
+     b. gemma3-4b's smoke config with heads 320 wide and mamba2-2.7b's
+        with the SSD at p 128 / n 256 (`phase33_configs`), each as 32 b:
+        a prefill against the CPU and two `train()` steps against the
+        plain path, launches counted from 0;
+     c. bf16 times at WIDE_FLASH_TIMED (B 2, S 4096, H 16, Dh 512,
+        causal) and WIDE_SSD_TIMED (b 2, s 4096, h 32, p 128, g 1, n
+        256): each kernel forward and backward beside its plain version,
+        its bound at the true width and, for flash, SDPA's (its backend
+        named); the phase's seconds against PHASE33_BUDGET_S.
+
+Then one line of wall seconds per phase (`phase_lines`).  Cut for time,
+never a check: phase 5 reads the plain day scan's ms from phase 3's
+(warm) call at N = 64 (CUDA events) instead of three more calls, and
+times one warm Adam step of 4 h c, not two; phase 22 times the plain
+flash backward over one warm call, not two.
 
 The second-to-last lines are the `kernels` JSON object (the day scan's
 launches summed over the serial, batched, legacy, simulate_users,
@@ -396,8 +425,10 @@ over phases 24-25 and 28 e, its max_abs_err over phases 23 c and 28 a,
 its times at zamba2's prefill shape; then the rows of the narrow
 widths, phase 32's: each kernel's launches on the main paths of 32 b and
 32 c (the day scan's on 32 a's what-ifs), its max_abs_err over 32 a, its
-times at the Dh 16, p 16 / n 16 and 64-level shapes) and the nvidia-smi
-line; the last line is the result object.
+times at the Dh 16, p 16 / n 16 and 64-level shapes; then the rows of
+the wide widths, phase 33's: each kernel's launches on 33 b's main
+paths, its max_abs_err over 33 a, its times at 33 c's shapes) and the
+nvidia-smi line; the last line is the result object.
 """
 from __future__ import annotations
 
@@ -479,16 +510,25 @@ def nvidia_smi() -> str:
 
 def ptxas_kernels(log: str) -> list:
     """`flash_kernel_<dtype><Dh> N registers, spills` for each flash
-    instantiation in an nvcc -Xptxas -v log (`flash_bwd_<launch><dtype,
-    Dh>` for the backward's, `ssd_bwd_<launch><dtype, n>` for the SSD
-    backward's)."""
+    instantiation in an nvcc -Xptxas -v log (`flash_wide_<dtype>` for the
+    wide heads', `flash_bwd_<launch><dtype, Dh>` for the backward's,
+    `ssd_kernel_<launch><n>` and `ssd_bwd_<launch><dtype, n>` for the SSD
+    kernels', "y f32" / "dx f32" for the float32-output instances)."""
     out, name = [], None
     for line in log.splitlines():
         m = re.search(r"entry function .*?(flash_kernel_[a-z0-9]+)ILi(\d+)E",
                       line)
         if m:
             name = f"{m.group(1)}<{m.group(2)}>"
-        m = re.search(r"entry function .*?(flash_bwd_[a-z]+)I(13__nv_"
+        m = re.search(r"entry function .*?(flash_wide_[a-z0-9]+)E", line)
+        if m:                           # Dh above 256
+            name = m.group(1)
+        m = re.search(r"entry function .*?(ssd_kernel_[a-z0-9_]+?)"
+                      r"ILi(\d+)E(Lb1E)?", line)
+        if m:                           # the SSD forward's launches
+            name = (f"{m.group(1)}<{m.group(2)}"
+                    f"{', y f32' if m.group(3) else ''}>")
+        m = re.search(r"entry function .*?(flash_bwd_[a-z_]+)I(13__nv_"
                       r"bfloat16|f)(?:Li(\d+))?E", line)
         if m:
             dtype = "bf16" if m.group(2) != "f" else "f32"
@@ -497,10 +537,11 @@ def ptxas_kernels(log: str) -> list:
         if m:                           # the bf16 tensor-core launch
             name = f"{m.group(1)}<bf16, {m.group(2)}>"
         m = re.search(r"entry function .*?(ssd_bwd_[a-z0-9_]+?)I(13__nv_"
-                      r"bfloat16|f)?Li(\d+)E", line)
+                      r"bfloat16|f)?Li(\d+)E(Lb1E)?", line)
         if m:                           # the SSD backward's launches
             dtype = {None: "", "f": "f32, "}.get(m.group(2), "bf16, ")
-            name = f"{m.group(1)}<{dtype}{m.group(3)}>"
+            name = (f"{m.group(1)}<{dtype}{m.group(3)}"
+                    f"{', dx f32' if m.group(4) else ''}>")
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m and name:
@@ -510,6 +551,34 @@ def ptxas_kernels(log: str) -> list:
             out.append(f"{name} {m.group(1)} registers, {spill}")
             name = None
     return out
+
+
+def ms_of(fn) -> tuple:
+    """(fn(), its device ms): one call between CUDA events."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+PHASE_STARTS: dict = {}     # phase -> host clock at its start
+
+
+def phase(n) -> None:
+    """Mark the start of phase n: its wall seconds run to the next mark
+    (`phase_lines`)."""
+    PHASE_STARTS[n] = time.perf_counter()
+
+
+def phase_lines() -> list:
+    """One line of wall seconds per phase, from the marks."""
+    marks = list(PHASE_STARTS.items()) + [(None, time.perf_counter())]
+    return [f"phase {n}: {t1 - t0:.1f} s wall"
+            for (n, t0), (_, t1) in zip(marks, marks[1:])]
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -1711,7 +1780,7 @@ FLEET_KERNEL_MS: dict = {}      # N -> (kernel ms, bound ms, bound by)
 
 def gradient_timing(cap: float) -> str:
     """Phase 5, gradient path: ms per Adam step of 4 h c (host clock over
-    warm steps: one batched value-and-grad of all restarts, the Adam
+    one warm step: one batched value-and-grad of all restarts, the Adam
     update and the projection) and a profile of one step; ms per
     fit_ensemble step; sensitivity_map ms; the example's full
     optimize_policy estimated from these."""
@@ -1734,14 +1803,11 @@ def gradient_timing(cap: float) -> str:
         state["pts"] = space.clip(new)
 
     step()
-    ms = []
-    for _ in range(2):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        step()
-        torch.cuda.synchronize()
-        ms.append((time.perf_counter() - t0) * 1e3)
-    step_ms = float(np.mean(ms))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
     prof = profile_device(step, "one Adam step of optimize_policy",
                           tags=(), host_ops=False)
     torch.cuda.synchronize()
@@ -1764,8 +1830,8 @@ def gradient_timing(cap: float) -> str:
     full_s = ((EXAMPLE_STEPS + 1) * step_ms
               + (1 + GRAD_RESTARTS) * sim_ms) / 1e3
     return (f"optimize_policy Adam step ({GRAD_RESTARTS} restarts, 540 "
-            f"steps, batched value-and-grad + update, host clock, mean of "
-            f"2 warm): {step_ms:.1f} ms; simulate (one full-trace launch): "
+            f"steps, batched value-and-grad + update, host clock, one "
+            f"warm): {step_ms:.1f} ms; simulate (one full-trace launch): "
             f"{sim_ms:.2f} ms; the example's {EXAMPLE_STEPS}-step "
             f"optimize_policy estimated at {full_s:.1f} s "
             f"(({EXAMPLE_STEPS} + 1) steps + {1 + GRAD_RESTARTS} simulates)\n"
@@ -2324,9 +2390,11 @@ def lm_phases(dev) -> list:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     # 6. kernels vs plain
+    phase(6)
     worst = check_lm_kernels(dev)
 
     # 7. main path: the bf16 prefill step at full width and depth
+    phase(7)
     base = zamba2_1p2b.config()
     cfg16 = dataclasses.replace(base, param_dtype=torch.bfloat16,
                                 compute_dtype=torch.bfloat16)
@@ -2368,13 +2436,16 @@ def lm_phases(dev) -> list:
           f"times; last hidden and logits {tuple(logits.shape)} finite")
 
     # 8. golden
+    phase(8)
     check_golden_lm(dev, "golden_zamba2.json", base, mamba_lm)
 
     # 9. the Server, float32, full width and depth
+    phase(9)
     serve_and_check(cfg32, cfg16, params32, params16, mamba_lm, dev)
     del params32
 
     # 10. timing (launches from here on are not the main path's)
+    phase(10)
     gen = torch.Generator(device=dev).manual_seed(2)
     q, k, v = (torch.randn((B_PREFILL, S_PREFILL, 32, 64), generator=gen,
                            device=dev).to(torch.bfloat16) for _ in range(3))
@@ -2469,7 +2540,7 @@ TF_SEED = 3                     # torch.Generator seed of the new phases
 TOP1_RTOL = 1e-5                # gemma3-4b's top-1 logit (its golden's)
 OTHER_ARCHS = ("olmo-1b", "granite-3-2b", "yi-34b", "moonshot-v1-16b-a3b",
                "dbrx-132b")
-OTHER_LAYERS = 2                # their depth cut (yi-34b whole ~68 GB bf16)
+OTHER_LAYERS = 1                # their depth cut (yi-34b whole ~68 GB bf16)
 
 
 @contextlib.contextmanager
@@ -2598,9 +2669,11 @@ def transformer_phases(dev) -> tuple:
     from repro_torch.nn import core, moe
 
     # 11. flash at the new head widths vs plain
+    phase(11)
     worst = check_wide_flash(dev)
 
     # 12. main path: gemma3-4b's bf16 prefill at full width and depth
+    phase(12)
     base = gemma3_4b.config()
     cfg32 = dataclasses.replace(base, param_dtype=torch.float32,
                                 compute_dtype=torch.float32)
@@ -2653,9 +2726,11 @@ def transformer_phases(dev) -> tuple:
     del h, cache, logits, calls
 
     # 13. golden: 6 layers in float32 against the JAX reference
+    phase(13)
     check_golden_lm(dev, "golden_gemma3.json", base, transformer)
 
     # 14. the Server at full width and depth, float32
+    phase(14)
     dec_ms = serve_and_check(cfg32, cfg16, params32, params16, transformer,
                              dev, TOP1_RTOL)
     del params32
@@ -2690,6 +2765,7 @@ def transformer_phases(dev) -> tuple:
     del params16, tokens
 
     # 15. phi-3-vision at full width and depth, 576 vision embeddings
+    phase(15)
     cfg = dataclasses.replace(phi3_vision_4p2b.config(),
                               param_dtype=torch.bfloat16,
                               compute_dtype=torch.bfloat16)
@@ -2724,6 +2800,7 @@ def transformer_phases(dev) -> tuple:
     del params, inputs, h, cache, logits, calls
 
     # 16. the five other archs at full width, depth cut, kernel vs plain
+    phase(16)
     n_other = 0
     for arch in OTHER_ARCHS:
         full, model = registry.get(arch)
@@ -2770,6 +2847,7 @@ def transformer_phases(dev) -> tuple:
         torch.cuda.empty_cache()
 
     # 17. timing of the new shapes
+    phase(17)
     time_wide_flash(dev)
     print(prefill_line)
     print(prefill_profile)
@@ -3007,8 +3085,8 @@ def check_flash_bwd(dev, shapes=BWD_SHAPES, seed: int = 8) -> float:
 def time_flash_bwd(dev) -> list:
     """Phase 22's kernel times: at each BWD_SHAPES entry in bf16, the
     backward kernel alone (CUDA events, 10 calls, on the forward kernel's
-    own o and lse), the plain version `flash_attention_bwd_plain` (2
-    calls), scaled_dot_product_attention's backward (10 calls; a
+    own o and lse), the plain version `flash_attention_bwd_plain` (1 warm
+    call), scaled_dot_product_attention's backward (10 calls; a
     yardstick, the port never calls it) and the bound; returns the rows
     (name, ms, plain ms, bound, bound_by, sdpa backward ms)."""
     import torch
@@ -3029,7 +3107,7 @@ def time_flash_bwd(dev) -> list:
         plain = lambda: fa.flash_attention_bwd_plain(  # noqa: E731
             q, k, v, o, do, lse, causal=causal, window=window)
         plain()
-        plain_ms = cuda_ms(plain, 2)
+        plain_ms = cuda_ms(plain, 1)
         qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
         sdpa, backend = sdpa_call(qs, ks, vs, causal, window)
         o_s = sdpa()
@@ -3171,9 +3249,10 @@ def train_olmo(dev) -> tuple:
         fa.LAUNCHES = fa.BWD_LAUNCHES = 0
         rec["t"] = time.perf_counter()
 
+    # `params` are `train`'s own seed-0 weights: passed, not drawn again
     kw = dict(smoke=False, batch=TRAIN_B, seq=TRAIN_S, device=dev,
               ckpt_dir=str(CKPT_DIR), ckpt_every=TRAIN_STEPS, log_every=1,
-              on_step=on_step)
+              on_step=on_step, params=params)
     torch.cuda.reset_peak_memory_stats()
     fa.LAUNCHES = fa.BWD_LAUNCHES = 0
     torch.cuda.synchronize()
@@ -3432,18 +3511,23 @@ def training_phases(dev) -> tuple:
     row)."""
     import torch
     # 18. the backward kernel vs autograd of the plain version
+    phase(18)
     worst = check_flash_bwd(dev)
     torch.cuda.empty_cache()
     # 19. olmo-1b training at full width
+    phase(19)
     n_f19, n_b19, train_line, train_prof = train_olmo(dev)
     torch.cuda.empty_cache()
     # 20. card vs CPU
+    phase(20)
     n_f20, n_b20 = train_card_vs_cpu(dev)
     torch.cuda.empty_cache()
     # 21. whisper-medium
+    phase(21)
     n_f21, n_b21 = whisper_phases(dev)
     torch.cuda.empty_cache()
     # 22. timing
+    phase(22)
     rows = time_flash_bwd(dev)
     print(train_line)
     print(train_prof)
@@ -3615,8 +3699,10 @@ def check_ssd_bwd(dev, shapes=SSD_BWD_SHAPES, chunk: int = 64,
             torch.cuda.synchronize()
             label = (f"ssd bwd {name} b={b} s={s} h={h} p={p} g={g} n={n} "
                      f"dt x{dt_scale:g} {str(dtype)[6:]} chunk {chunk}")
-            if calls != 2:
-                fail(f"{label}: {calls} backward calls, want 2")
+            if calls != 2 * len(ss.state_blocks(n)):
+                fail(f"{label}: {calls} backward calls, want "
+                     f"{2 * len(ss.state_blocks(n))} (two runs, one call "
+                     f"an n-block)")
             if not all(torch.equal(a, c) for a, c in zip(got, again)):
                 fail(f"{label}: two runs differ")
             rels, rms = [], []
@@ -3807,7 +3893,7 @@ def train_zamba2(dev) -> tuple:
                              batch=SSM_TRAIN_B, seq=SSM_TRAIN_S, device=dev,
                              ckpt_dir=str(SSM_CKPT_DIR),
                              ckpt_every=SSM_TRAIN_STEPS, log_every=1,
-                             on_step=on_step)
+                             on_step=on_step, params=params)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if ckpt.latest_step(SSM_CKPT_DIR) != SSM_TRAIN_STEPS:
         fail(f"{SSM_TRAIN_ARCH} train: no checkpoint at step "
@@ -3993,11 +4079,13 @@ def ssm_training_phases(dev) -> tuple:
     from repro_torch.models import mamba_lm, registry
     from repro_torch.training import optimizer as opt
     # 23. the seed repair; the forward's states; the backward vs plain
+    phase(23)
     check_seeds(dev)
     check_ssd_forward_states(dev)
     worst = check_ssd_bwd(dev)
     torch.cuda.empty_cache()
     # 24. zamba2-1.2b training at full width and depth
+    phase(24)
     n_f24, n_b24, fa_f24, fa_b24, train_line, params, batch = \
         train_zamba2(dev)
     torch.cuda.empty_cache()
@@ -4013,10 +4101,12 @@ def ssm_training_phases(dev) -> tuple:
     del params, state, batch
     torch.cuda.empty_cache()
     # 25. card vs CPU; mamba2-2.7b
+    phase(25)
     n_f25, n_b25 = ssm_card_vs_cpu(dev)
     n_f25b, n_b25b = mamba2_step(dev)
     torch.cuda.empty_cache()
     # 26. timing
+    phase(26)
     check_ssd_bwd_ptxas()
     rows = time_ssd_bwd(dev)
     print(train_line)
@@ -4111,7 +4201,7 @@ def train_gemma3(dev) -> tuple:
     _, losses = train.train(GEMMA_TRAIN_ARCH, smoke=False,
                             steps=GEMMA_TRAIN_STEPS, batch=TRAIN_B,
                             seq=TRAIN_S, device=dev, log_every=1,
-                            on_step=on_step, layers=L)
+                            on_step=on_step, layers=L, params=params)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     rows = rec["rows"]
     if len(rows) != GEMMA_TRAIN_STEPS:
@@ -4897,6 +4987,16 @@ def level_policy(daysim, n_lvl: int):
                                name=f"levels{n_lvl}", actions=actions)
 
 
+def by_cols(out: dict, sizes: list) -> list:
+    """Each table's columns of `out`, the plain outputs of tables of
+    `sizes` combos laid side by side along N (`side_by_side`), in order."""
+    cols, col = [], 0
+    for size in sizes:
+        cols.append({k: v[col:col + size] for k, v in out.items()})
+        col += size
+    return cols
+
+
 def side_by_side(tables: list) -> dict:
     """Day tables of any level counts laid side by side along N, each
     padded to the largest L with zero levels: no step reads a level
@@ -4952,11 +5052,10 @@ def narrow_levels(dev, dt_s: float) -> tuple:
     want = ds.day_scan_plain(side_by_side([r[0] for r in runs]), full=True)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    col, row = 0, None
-    for tables, ys, full, rep in runs:
+    row = None
+    sizes = [ds._shape(r[0])[0] for r in runs]
+    for (tables, ys, full, rep), mine in zip(runs, by_cols(want, sizes)):
         N, T, L = ds._shape(tables)
-        mine = {k: v[col:col + N] for k, v in want.items()}
-        col += N
         compare(ys, {k: mine[k] for k in ds.OUTS})
         compare(full, mine)
         ms = cuda_ms(lambda: ds._day_scan_cuda(tables), 10)  # noqa: B023
@@ -4971,7 +5070,8 @@ def narrow_levels(dev, dt_s: float) -> tuple:
               f"{bound:.6f} ms by {by}")
         row = (ms, plain_ms, bound, by)
     print(f"phase 32 a day scan plain version (full trace) over the "
-          f"{len(runs)} what-ifs side by side (N = {col}): {plain_ms:.1f} ms")
+          f"{len(runs)} what-ifs side by side (N = {sum(sizes)}): "
+          f"{plain_ms:.1f} ms")
     return launches, row
 
 
@@ -4987,81 +5087,102 @@ def _tensors(out):
     return []
 
 
-def smoke_configs(dev) -> dict:
-    """Phase 32 b: every arch's `smoke()` config on the card through the
-    kernels: a float32 prefill (`make_prefill_step`, B = 2 x S = 48) from
-    one seed against the same call on the CPU (every output within 1e-4,
-    the card test's tolerance), then `launch.train.train(arch, steps=2)`
-    at its defaults (smoke, the card) against the same two steps through
-    the plain attention and SSD (loss and grad norm per step within
+def smoke_run(dev, label: str, arch: str, cfg, model) -> dict:
+    """One smoke config on the card through the kernels: a float32
+    prefill (`make_prefill_step`, B = 2 x S = 48) from one seed against
+    the same call on the CPU (every output within 1e-4, the card test's
+    tolerance), then `launch.train.train(arch, steps=2, cfg=cfg)` at its
+    defaults (smoke, the card) against the same two steps through the
+    plain attention and SSD (loss and grad norm per step within
     TRAIN_LOSS_RTOL / TRAIN_GNORM_RTOL); each run's kernel launches
-    counted from 0, every arch launching a kernel.  Returns the launches
-    of these main paths by kernel."""
+    counted from 0, the prefill launching a forward kernel and the steps
+    a backward one.  Returns the launches of these main paths by
+    kernel."""
     import torch
     from repro_torch.launch import dryrun, steps, train as train_lib
+    totals = dict.fromkeys(kernel_counts(), 0)
+    toks = torch.randint(2, cfg.vocab, (2, 48),
+                         generator=torch.Generator().manual_seed(32))
+    outs, counts = {}, None
+    for d in ("cpu", dev):
+        params = model.init(torch.Generator().manual_seed(0), cfg, d)
+        batch = {"tokens": toks.to(d),
+                 **train_lib.side_inputs(cfg, 2, 0, d)}
+        zero_counts()
+        outs[str(d)] = _tensors(steps.make_prefill_step(cfg, model)(
+            params, batch))
+        if d != "cpu":
+            torch.cuda.synchronize()
+            counts = kernel_counts()
+    for key in totals:
+        totals[key] += counts[key]
+    if not counts["flash_attention"] + counts["ssd_scan"]:
+        fail(f"{arch} smoke prefill launched no kernel")
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(outs[str(dev)], outs["cpu"])):
+        a, b = a.float().cpu(), b.float()
+        if a.shape != b.shape or not torch.allclose(a, b, atol=1e-4,
+                                                    rtol=1e-4):
+            miss(f"{label} {arch} smoke prefill output {i}: card vs CPU off "
+                 f"(atol = rtol = 1e-4)")
+        worst = max(worst, float((a - b).abs().max()))
+    runs = {}
+    for plain in (False, True):
+        metrics = []
+        zero_counts()
+        with (dryrun.plain_kernels() if plain
+              else contextlib.nullcontext()), \
+                contextlib.redirect_stdout(None):
+            train_lib.train(arch, steps=2, cfg=cfg, on_step=lambda s, m: (
+                metrics.append((float(m["loss"]),
+                                float(m["grad_norm"])))))
+        runs[plain] = (metrics, kernel_counts())
+    (got, train_counts), (want, plain_counts) = runs[False], runs[True]
+    for key in totals:
+        totals[key] += train_counts[key]
+    if any(plain_counts.values()):
+        fail(f"{arch}: the plain run launched {plain_counts}")
+    if not train_counts["flash_attention_bwd"] \
+            + train_counts["ssd_scan_bwd"]:
+        fail(f"{arch} smoke train launched no backward kernel")
+    for i, ((lk, gk), (lp, gp)) in enumerate(zip(got, want)):
+        if not (abs(lk - lp) <= TRAIN_LOSS_RTOL * abs(lp) and
+                abs(gk - gp) <= TRAIN_GNORM_RTOL * gp):
+            miss(f"{label} {arch} smoke train step {i}: loss {lk} grad norm "
+                 f"{gk} through the kernels, {lp} / {gp} through the plain "
+                 f"attention and SSD")
+    print(f"{label} {arch} (smoke: d_model {cfg.d_model}, "
+          f"{cfg.n_layers} layers{widths_note(cfg)}): prefill card vs CPU "
+          f"max abs err {worst:.3g}, launches {counts}; train(steps=2) "
+          f"losses "
+          + ", ".join(f"{lk:.6f} / {lp:.6f}" for (lk, _), (lp, _)
+                      in zip(got, want))
+          + " (kernels / plain), grad norms "
+          + ", ".join(f"{gk:.6g} / {gp:.6g}" for (_, gk), (_, gp)
+                      in zip(got, want))
+          + f", launches {train_counts}")
+    return totals
+
+
+def widths_note(cfg) -> str:
+    """The kernel widths of a config, for its smoke line."""
+    if cfg.ssm is not None:
+        note = f", SSD p {cfg.ssm.head_dim} n {cfg.ssm.d_state}"
+        return note + (f", Dh {cfg.head_dim}" if cfg.family == "hybrid"
+                       else "")
+    return f", Dh {cfg.head_dim}"
+
+
+def smoke_configs(dev) -> dict:
+    """Phase 32 b: every arch's `smoke()` config on the card (`smoke_run`).
+    Returns the launches of these main paths by kernel."""
     from repro_torch.models import registry
     totals = dict.fromkeys(kernel_counts(), 0)
     for arch in registry.arch_names():
         cfg, model = registry.get(arch, smoke=True)
-        toks = torch.randint(2, cfg.vocab, (2, 48),
-                             generator=torch.Generator().manual_seed(32))
-        outs, counts = {}, None
-        for d in ("cpu", dev):
-            params = model.init(torch.Generator().manual_seed(0), cfg, d)
-            batch = {"tokens": toks.to(d),
-                     **train_lib.side_inputs(cfg, 2, 0, d)}
-            zero_counts()
-            outs[str(d)] = _tensors(steps.make_prefill_step(cfg, model)(
-                params, batch))
-            if d != "cpu":
-                torch.cuda.synchronize()
-                counts = kernel_counts()
+        counts = smoke_run(dev, "phase 32 b", arch, cfg, model)
         for key in totals:
             totals[key] += counts[key]
-        if not counts["flash_attention"] + counts["ssd_scan"]:
-            fail(f"{arch} smoke prefill launched no kernel")
-        worst = 0.0
-        for i, (a, b) in enumerate(zip(outs[str(dev)], outs["cpu"])):
-            a, b = a.float().cpu(), b.float()
-            if a.shape != b.shape or not torch.allclose(a, b, atol=1e-4,
-                                                        rtol=1e-4):
-                miss(f"{arch} smoke prefill output {i}: card vs CPU off "
-                     f"(atol = rtol = 1e-4)")
-            worst = max(worst, float((a - b).abs().max()))
-        runs = {}
-        for plain in (False, True):
-            metrics = []
-            zero_counts()
-            with (dryrun.plain_kernels() if plain
-                  else contextlib.nullcontext()), \
-                    contextlib.redirect_stdout(None):
-                train_lib.train(arch, steps=2, on_step=lambda s, m: (
-                    metrics.append((float(m["loss"]),
-                                    float(m["grad_norm"])))))
-            runs[plain] = (metrics, kernel_counts())
-        (got, train_counts), (want, plain_counts) = runs[False], runs[True]
-        for key in totals:
-            totals[key] += train_counts[key]
-        if any(plain_counts.values()):
-            fail(f"{arch}: the plain run launched {plain_counts}")
-        if not train_counts["flash_attention_bwd"] \
-                + train_counts["ssd_scan_bwd"]:
-            fail(f"{arch} smoke train launched no backward kernel")
-        for i, ((lk, gk), (lp, gp)) in enumerate(zip(got, want)):
-            if not (abs(lk - lp) <= TRAIN_LOSS_RTOL * abs(lp) and
-                    abs(gk - gp) <= TRAIN_GNORM_RTOL * gp):
-                miss(f"{arch} smoke train step {i}: loss {lk} grad norm {gk} "
-                     f"through the kernels, {lp} / {gp} through the plain "
-                     f"attention and SSD")
-        print(f"phase 32 b {arch} (smoke: d_model {cfg.d_model}, "
-              f"{cfg.n_layers} layers): prefill card vs CPU max abs err "
-              f"{worst:.3g}, launches {counts}; train(steps=2) losses "
-              + ", ".join(f"{lk:.6f} / {lp:.6f}" for (lk, _), (lp, _)
-                          in zip(got, want))
-              + " (kernels / plain), grad norms "
-              + ", ".join(f"{gk:.6g} / {gp:.6g}" for (_, gk), (_, gp)
-                          in zip(got, want))
-              + f", launches {train_counts}")
     return totals
 
 
@@ -5208,6 +5329,254 @@ def narrow_phase(dev, dt_s: float) -> tuple:
                 None)]
 
 
+# ---------------------------------------------------------------------------
+# phase 33: widths above the built ones
+# ---------------------------------------------------------------------------
+
+# flash shapes past Dh 256 (name, B, Sq, Sk, H, KvH, Dh, causal, window):
+# tests/test_torch_kernel_wide.py's cases at the card's scale (causal GQA,
+# window, bidirectional ragged, Sq != Sk); Dh 320 and 576 end in a 64-wide
+# column block, 512 is two full ones, 257 pads to 320
+WIDE_FLASH = (("Dh 320 GQA", 1, 600, 600, 4, 2, 320, True, None),
+              ("Dh 320 window", 1, 600, 600, 4, 2, 320, True, 96),
+              ("Dh 512 bidirectional", 2, 300, 300, 4, 4, 512, False, None),
+              ("Dh 512 Sq < Sk", 1, 200, 330, 4, 2, 512, False, None),
+              ("Dh 257 window 5", 1, 257, 257, 2, 1, 257, True, 5),
+              ("Dh 576", 1, 1100, 1100, 4, 4, 576, True, None))
+# SSD shapes (name, b, s, h, g, n, dt scale, p): the CPU tests' (p, n) at
+# lengths that split into groups (p-blocks as heads, n-blocks summed)
+WIDE_SSD = (("p 128 n 128", 2, 1000, 4, 1, 128, 0.05, 128),
+            ("p 80 n 64", 1, 600, 4, 2, 64, 0.05, 80),
+            ("p 64 n 256", 2, 1000, 4, 1, 256, 0.05, 64),
+            ("p 128 n 192", 1, 1100, 4, 2, 192, 0.05, 128),
+            ("p 65 n 129", 1, 300, 2, 1, 129, 1.0, 65))
+# the timed shapes: flash (B, S, H, KvH, Dh, causal, window) and SSD (b, s,
+# h, g, n, dt scale, p), bf16
+WIDE_FLASH_TIMED = (2, 4096, 16, 16, 512, True, None)
+WIDE_SSD_TIMED = (2, 4096, 32, 1, 256, 1.0, 128)
+PHASE33_BUDGET_S = 60.0
+
+
+def phase33_configs() -> tuple:
+    """Phase 33 b's derived smoke configs, (arch, cfg, model):
+    gemma3-4b's heads 320 wide (its local and global layers) and
+    mamba2-2.7b's SSD at p 128 and n 256, by `dataclasses.replace` as
+    tests/test_torch_kernel_wide.py derives them in both packages."""
+    import dataclasses
+    from repro_torch.models import registry
+    g_cfg, g_model = registry.get("gemma3-4b", smoke=True)
+    m_cfg, m_model = registry.get("mamba2-2.7b", smoke=True)
+    return (("gemma3-4b", dataclasses.replace(g_cfg, head_dim=320), g_model),
+            ("mamba2-2.7b", dataclasses.replace(m_cfg, ssm=dataclasses.replace(
+                m_cfg.ssm, head_dim=128, d_state=256)), m_model))
+
+
+def phase33_flash(dev) -> float:
+    """Phase 33 a, flash forward: every WIDE_FLASH shape through the wide
+    kernel (one launch, the head padded to a multiple of 64) against the
+    plain version at phase 6's tolerances, float32 and bf16, with the
+    bf16 rounding control on the causal unwindowed shapes.  Returns the
+    largest abs error."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device=dev).manual_seed(38)
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = LM_TOL[str(dtype)[6:]]
+        bf16 = dtype == torch.bfloat16
+        for name, B, Sq, Sk, H, KvH, Dh, causal, window in WIDE_FLASH:
+            q = torch.randn((B, Sq, H, Dh), generator=gen, device=dev) \
+                .to(dtype)
+            k, v = (torch.randn((B, Sk, KvH, Dh), generator=gen, device=dev)
+                    .to(dtype) for _ in range(2))
+            before = fa.LAUNCHES
+            got = fa.flash_attention(q, k, v, causal=causal, window=window)
+            if fa.LAUNCHES != before + 1:
+                fail(f"flash {name}: {fa.LAUNCHES - before} launches")
+            label = (f"phase 33 a flash {name} B={B} Sq={Sq} Sk={Sk} H={H} "
+                     f"KvH={KvH} Dh={Dh} (kernel width {fa.kernel_width(Dh)},"
+                     f" {-(-fa.kernel_width(Dh) // fa.WIDE_OW)} column "
+                     f"blocks) causal={causal} window={window} "
+                     f"{str(dtype)[6:]}")
+            worst = max(worst, hold(
+                label, got, fa.flash_attention_plain(
+                    q, k, v, causal=causal, window=window),
+                FLASH_BF16_ATOL if bf16 else tol,
+                FLASH_BF16_RTOL if bf16 else tol))
+            if bf16 and causal and window is None:
+                check_flash_rounding(got, q, k, v)
+    return worst
+
+
+def phase33_ssd(dev) -> float:
+    """Phase 33 a, SSD forward: every WIDE_SSD shape through the kernels
+    (p in blocks of 64 run as heads, one call an n-block:
+    `kernel_launches(s, n)` launches) against the plain version at phase
+    6's tolerances, float32 and bf16 (with its rounded control), and,
+    where s spans more than one group, the float32 group states
+    (`ssd_group_states_cuda`) against the plain split's at the float32
+    tolerance.  Returns the largest abs error."""
+    import torch
+    from repro_torch.kernels import ssd_scan as ss
+    gen = torch.Generator(device=dev).manual_seed(39)
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = LM_TOL[str(dtype)[6:]]
+        for name, b, s, h, g, n, dt_scale, p in WIDE_SSD:
+            x, dt, A, Bm, Cm, _ = ssd_bwd_inputs(gen, b, s, h, g, n, dtype,
+                                                 dt_scale, p)
+            before = ss.LAUNCHES
+            got = ss.ssd_scan(x, dt, A, Bm, Cm, chunk=64)
+            if ss.LAUNCHES - before != ss.kernel_launches(s, n):
+                fail(f"ssd {name}: {ss.LAUNCHES - before} launches, want "
+                     f"{ss.kernel_launches(s, n)}")
+            want = ss.ssd_scan_plain(x, dt, A, Bm, Cm, chunk=64)
+            label = (f"phase 33 a ssd {name} b={b} s={s} h={h} g={g} (kernel "
+                     f"widths {ss.kernel_widths(p, n)}, n-blocks "
+                     f"{[w for *_, w in ss.state_blocks(n)]}) dt "
+                     f"x{dt_scale:g} {str(dtype)[6:]}")
+            worst = max(worst, hold(label, got, want, max(tol, 1e-4),
+                                    5 * tol))
+            if dtype == torch.bfloat16:
+                check_ssd_bf16(got, want, x, dt, A, Bm, Cm, label)
+            if ss.n_groups(s) > 1:
+                hold(f"{label} group states",
+                     ss.ssd_group_states_cuda(x, dt, A, Bm, Cm),
+                     ss.ssd_split_states_plain(x, dt, A, Bm, Cm, chunk=64),
+                     max(LM_TOL["float32"], 1e-4), 5 * LM_TOL["float32"])
+    return worst
+
+
+def phase33_timing(dev) -> tuple:
+    """Phase 33 c, bf16: at WIDE_FLASH_TIMED the wide forward (CUDA
+    events, 5 calls) and backward (3 calls, on the forward kernel's own o
+    and lse), their plain versions (1 call each), scaled_dot_product_
+    attention's forward and backward (its backend named) and the bounds
+    at the true width; at WIDE_SSD_TIMED the SSD forward and backward (10
+    calls), their plain versions (2 calls) and the bounds.  Returns the
+    rows (ms, plain ms, bound, by, library ms) of the four kernels."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+    gen = torch.Generator(device=dev).manual_seed(40)
+    B, S, H, KvH, Dh, causal, window = WIDE_FLASH_TIMED
+    bf = torch.bfloat16
+    q, do = (torch.randn((B, S, H, Dh), generator=gen, device=dev).to(bf)
+             for _ in range(2))
+    k, v = (torch.randn((B, S, KvH, Dh), generator=gen, device=dev).to(bf)
+            for _ in range(2))
+    mask = dict(causal=causal, window=window)
+    fwd = lambda: fa._flash_cuda(q, k, v, **mask)  # noqa: E731
+    fwd()
+    f_ms = cuda_ms(fwd, 5)
+    o, lse = fa._flash_cuda(q, k, v, lse=True, **mask)
+    bwd = lambda: fa._flash_bwd_cuda(q, k, v, o, do, lse, **mask)  # noqa
+    bwd()
+    b_ms = cuda_ms(bwd, 3)
+    f_plain = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, **mask), 1)
+    b_plain = cuda_ms(lambda: fa.flash_attention_bwd_plain(
+        q, k, v, o, do, lse, **mask), 1)
+    qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+    sdpa, backend = sdpa_call(qs, ks, vs, causal, window)
+    with torch.no_grad():
+        sdpa()
+        f_sdpa = cuda_ms(sdpa, 5)
+    o_s = sdpa()
+    do_t = do.transpose(1, 2)
+    sdpa_bwd = lambda: torch.autograd.grad(  # noqa: E731
+        o_s, (qs, ks, vs), do_t, retain_graph=True)
+    sdpa_bwd()
+    b_sdpa = cuda_ms(sdpa_bwd, 3)
+    f_bound, f_by = flash_bound(q, k, causal, window)
+    b_bound, b_by = flash_bwd_bound(q, k, causal, window)
+    shape = (f"B={B} S={S} H={H} KvH={KvH} Dh={Dh} causal={causal} bf16, "
+             f"{-(-Dh // fa.WIDE_OW)} column blocks")
+    print(f"phase 33 c flash forward ({shape}): {f_ms:.4f} ms; plain "
+          f"{f_plain:.3f} ms; scaled_dot_product_attention {f_sdpa:.4f} ms "
+          f"by its {backend} backend; bound {f_bound:.5f} ms by {f_by} "
+          f"({f_bound / f_ms * 100:.1f} % of it reached)")
+    print(f"phase 33 c flash backward ({shape}): {b_ms:.4f} ms; plain "
+          f"{b_plain:.3f} ms; scaled_dot_product_attention backward "
+          f"{b_sdpa:.4f} ms by its {backend} backend; bound {b_bound:.5f} ms "
+          f"by {b_by} ({b_bound / b_ms * 100:.1f} % of it reached)")
+    del q, k, v, do, o, lse, qs, ks, vs, o_s
+    b, s, h, g, n, dt_scale, p = WIDE_SSD_TIMED
+    *ins, dy = ssd_bwd_inputs(gen, b, s, h, g, n, bf, dt_scale, p)
+    fwd = lambda: ss._ssd_cuda(*ins)  # noqa: E731
+    fwd()
+    sf_ms = cuda_ms(fwd, 10)
+    _, states = ss._ssd_cuda(*ins, states=True)
+    bwd = lambda: ss._ssd_bwd_cuda(*ins, dy, states)  # noqa: E731
+    bwd()
+    sb_ms = cuda_ms(bwd, 10)
+    plain = lambda: ss.ssd_scan_plain(*ins, chunk=64)  # noqa: E731
+    plain()
+    sf_plain = cuda_ms(plain, 2)
+    plain = lambda: ss.ssd_scan_bwd_plain(*ins, dy, chunk=64)  # noqa: E731
+    plain()
+    sb_plain = cuda_ms(plain, 2)
+    sf_bound, sf_by = ssd_bound(ins[0], ins[3], 64)
+    sb_bound, sb_by = ssd_bwd_bound(ins[0], ins[3], 64)
+    shape = (f"b={b} s={s} h={h} p={p} g={g} n={n} bf16, kernel widths "
+             f"{ss.kernel_widths(p, n)}, {len(ss.state_blocks(n))} n-blocks")
+    print(f"phase 33 c ssd forward ({shape}): {sf_ms:.4f} ms; plain "
+          f"{sf_plain:.3f} ms; bound {sf_bound:.5f} ms by {sf_by}")
+    print(f"phase 33 c ssd backward ({shape}): {sb_ms:.4f} ms; plain "
+          f"{sb_plain:.3f} ms; bound {sb_bound:.5f} ms by {sb_by}")
+    return ((f_ms, f_plain, f_bound, f_by, f_sdpa),
+            (b_ms, b_plain, b_bound, b_by, b_sdpa),
+            (sf_ms, sf_plain, sf_bound, sf_by, None),
+            (sb_ms, sb_plain, sb_bound, sb_by, None))
+
+
+def phase33(dev) -> list:
+    """Phase 33 (a-c); returns the kernel rows of the wide widths: each
+    kernel's launches on 33 b's main paths, its max_abs_err over 33 a,
+    its times at the 33 c shapes."""
+    import torch
+    t0 = time.perf_counter()
+    err_f = phase33_flash(dev)
+    err_fb = check_flash_bwd(dev, shapes=WIDE_FLASH, seed=41)
+    err_s = phase33_ssd(dev)
+    err_sb = check_ssd_bwd(dev, shapes=WIDE_SSD, seed=42, exact=True)
+    torch.cuda.empty_cache()
+    t_a = time.perf_counter() - t0
+    n = dict.fromkeys(kernel_counts(), 0)
+    for arch, cfg, model in phase33_configs():
+        counts = smoke_run(dev, "phase 33 b", arch, cfg, model)
+        for key in n:
+            n[key] += counts[key]
+    t_b = time.perf_counter() - t0 - t_a
+    rows = phase33_timing(dev)
+    torch.cuda.empty_cache()
+    t_c = time.perf_counter() - t0 - t_a - t_b
+    total = t_a + t_b + t_c
+    print(f"phase 33: {total:.1f} s (a {t_a:.1f} s, b {t_b:.1f} s, c "
+          f"{t_c:.1f} s; budget {PHASE33_BUDGET_S:g} s); main-path launches "
+          f"b {n}")
+    if total > PHASE33_BUDGET_S:
+        miss(f"phase 33 took {total:.1f} s, over its {PHASE33_BUDGET_S:g} s "
+             f"budget")
+    fl, ssd = ("src/repro/kernels/flash_attention.py:36",
+               "src/repro/kernels/ssd_scan.py:28")
+
+    def row(name, src, replaces, launches, err, t):
+        return {"name": name, "route": "cuda",
+                "source": f"src/repro_torch/csrc/{src}.cu",
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": t[0], "plain_ms": t[1],
+                "bound_ms": t[2], "bound_by": t[3], "library_ms": t[4]}
+    return [row("flash_attention (Dh > 256, wide kernel)", "flash_attention",
+                fl, n["flash_attention"], err_f, rows[0]),
+            row("flash_attention_bwd (Dh > 256, wide kernel)",
+                "flash_attention_bwd", fl, n["flash_attention_bwd"], err_fb,
+                rows[1]),
+            row("ssd_scan (p > 64, n > 128, in blocks)", "ssd_scan", ssd,
+                n["ssd_scan"], err_s, rows[2]),
+            row("ssd_scan_bwd (p > 64, n > 128, in blocks)", "ssd_scan_bwd",
+                ssd, n["ssd_scan_bwd"], err_sb, rows[3])]
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -5226,6 +5595,7 @@ def main() -> None:
     from repro_torch.serving.twin import DesignTwin
 
     # 1. device
+    phase(1)
     smi = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
     dev = torch.device("cuda", 0)
@@ -5233,6 +5603,7 @@ def main() -> None:
           f"{torch.__version__} cuda {torch.version.cuda}")
 
     # 2. build, one nvcc per source, all started together
+    phase(2)
     t0 = time.perf_counter()
     build.build_all(("day_scan", "flash_attention", "flash_attention_bwd",
                      "ssd_scan", "ssd_scan_bwd",
@@ -5252,6 +5623,7 @@ def main() -> None:
         build.BUILD_LOG.get("ssd_scan_bwd", ""))))
 
     # 3. kernel vs plain on the serving grid's tables
+    phase(3)
     golden = json.loads((ROOT / "src" / "repro_torch" / "data"
                          / "golden_day_pareto.json").read_text())
     dt_s = golden["dt_s"]
@@ -5261,34 +5633,45 @@ def main() -> None:
     print(f"serving grid: N={n} combos ({pipe.asm.n_real} real), "
           f"T={t} steps, L={n_lvl} levels")
     worst = 0.0
-    for size in (n, 63, 200):
-        tb = full if size == n else resize(full, size)
-        got = ds.day_scan(tb)
-        torch.cuda.synchronize()
-        worst = max(worst, compare(got, ds.day_scan_plain(tb)))
+    # the plain version's time is its host loop's, not N's: it runs once
+    # over the ragged sizes side by side, then alone at N = n, warm (the
+    # call phase 5 reports), and once over the full-trace sizes
+    ragged = {size: resize(full, size) for size in (63, 200)}
+    got = {size: ds.day_scan(tb) for size, tb in ragged.items()}
+    got[n] = ds.day_scan(full)
+    torch.cuda.synchronize()
+    want = dict(zip(ragged, by_cols(ds.day_scan_plain(side_by_side(
+        list(ragged.values()))), list(ragged))))
+    want[n], plain_ms = ms_of(lambda: ds.day_scan_plain(full))
+    for size in (63, n, 200):
+        worst = max(worst, compare(got[size], want[size]))
         print(f"day_scan kernel == plain at N={size}: all nine outputs "
               f"bit for bit, max abs err {worst:.3g}")
-    for size in (n, 63, 1):
-        tb = full if size == n else resize(full, size)
-        got = ds.day_scan(tb, full=True)
-        short = ds.day_scan(tb)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        want = ds.day_scan_plain(tb, full=True)
-        torch.cuda.synchronize()
-        plain_full_s = time.perf_counter() - t0
-        worst = max(worst, compare(got, want))
+    tbs = {n: full, 63: ragged[63], 1: resize(full, 1)}
+    got = {size: (ds.day_scan(tb, full=True), ds.day_scan(tb))
+           for size, tb in tbs.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = dict(zip(tbs, by_cols(ds.day_scan_plain(
+        side_by_side(list(tbs.values())), full=True), list(tbs))))
+    torch.cuda.synchronize()
+    plain_full_s = time.perf_counter() - t0
+    for size, (trace, short) in got.items():
+        worst = max(worst, compare(trace, want[size]))
         for k in ds.OUTS:
-            if not torch.equal(got[k], short[k]):
+            if not torch.equal(trace[k], short[k]):
                 fail(f"full-trace mode {k} differs from the default mode's "
                      f"at N={size}")
         print(f"day_scan full-trace mode == plain at N={size}: all "
-              f"{len(got)} outputs bit for bit (plain {plain_full_s:.1f} s); "
-              f"its nine equal to the default mode's; thermal latch steps "
-              f"{int(want['th_state'].sum())}, SoC latch steps "
-              f"{int(want['soc_state'].sum())}")
+              f"{len(trace)} outputs bit for bit; its nine equal to the "
+              f"default mode's; thermal latch steps "
+              f"{int(want[size]['th_state'].sum())}, SoC latch steps "
+              f"{int(want[size]['soc_state'].sum())}")
+    print(f"day_scan plain version (full trace) over N = "
+          f"{'+'.join(map(str, tbs))} side by side: {plain_full_s:.1f} s")
 
     # 4. the main path through the user's entry point
+    phase(4)
     ds.LAUNCHES = 0
     twin = DesignTwin(dt_s=dt_s)                  # warm query
     if ds.LAUNCHES != 1:
@@ -5340,6 +5723,7 @@ def main() -> None:
     launches += n_fleet
 
     # 5. timing (launches from here on are not the main path's)
+    phase(5)
     lib_fn = ds._day_scan_cuda
     for _ in range(3):
         lib_fn(full)
@@ -5360,8 +5744,6 @@ def main() -> None:
     floor()
     floor_ms = cuda_ms(floor, 50)
     mhz, max_mhz = sm_clocks(lambda: lib_fn(full), 1.0)
-    ds.day_scan_plain(full)
-    plain_ms = cuda_ms(lambda: ds.day_scan_plain(full), 2)
     b_ms, b_by = bound_ms(n, t, n_lvl)
     for _ in range(2):
         twin.query()
@@ -5377,8 +5759,9 @@ def main() -> None:
           f"{floor_ms * 1e3 * float(mhz) / t:.0f} SM cycles a step; "
           f"kernel {kernel_ms * 1e3 * float(mhz) / t:.0f} SM cycles a step; "
           f"SM clock under the kernel {mhz} MHz (max {max_mhz} MHz)")
-    print(f"day_scan plain version: {plain_ms:.1f} ms; bound "
-          f"{b_ms:.5f} ms by {b_by}; library call: none")
+    print(f"day_scan plain version: {plain_ms:.1f} ms (phase 3's call at "
+          f"N={n}, CUDA events); bound {b_ms:.5f} ms by {b_by}; library "
+          f"call: none")
     print(f"day_scan full-trace mode: {full_ms:.4f} ms at N={n} (bound "
           f"{fb_ms:.5f} ms by {fb_by}), {full_one_ms:.4f} ms at N=1 (bound "
           f"{fb1_ms:.6f} ms by {fb1_by}); default mode {kernel_ms:.4f} / "
@@ -5412,6 +5795,7 @@ def main() -> None:
     lm_rows[1]["launches"] += n_ssd_train
     torch.cuda.empty_cache()
     # 27. gemma3-4b training, 12 layers
+    phase(27)
     g_f, g_b, gemma_line, gemma_prof = train_gemma3(dev)
     print(gemma_line)
     print(gemma_prof)
@@ -5419,6 +5803,7 @@ def main() -> None:
     bwd_row["launches"] += g_b
     torch.cuda.empty_cache()
     # 28. mamba2-2.7b tuned (SSD chunk 128)
+    phase(28)
     t0 = time.perf_counter()
     n_m_f, n_m_b, err_mf, err_mb, m_row = mamba2_tuned_phases(dev)
     lm_rows[1]["launches"] += n_m_f
@@ -5428,10 +5813,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     t28 = time.perf_counter() - t0
     # 29. the perception nets
+    phase(29)
     t0 = time.perf_counter()
     perception_phase(dev)
     t29 = time.perf_counter() - t0
     # 30. the measured-cell harness
+    phase(30)
     t0 = time.perf_counter()
     h_ssd, h_f, h_b = harness_phase(dev)
     lm_rows[1]["launches"] += h_ssd
@@ -5439,9 +5826,16 @@ def main() -> None:
     bwd_row["launches"] += h_b
     t30 = time.perf_counter() - t0
     # 31. the port's lint and the sync audit
+    phase(31)
     lint_audit_phase(dev, opt["peak_cap_c"])
     # 32. the narrow widths, every smoke config, the ten examples
+    phase(32)
     narrow_rows = narrow_phase(dev, dt_s)
+    # 33. widths above the built ones
+    phase(33)
+    wide_rows = phase33(dev)
+    for line in phase_lines():
+        print(line)
     print(f"phases 28-30: {t28:.1f} s, {t29:.1f} s, {t30:.1f} s; "
           f"mamba2-2.7b's SSD forward at its prefill shape (chunk "
           f"{TUNED_CHUNK}): {m_row[0]:.4f} ms, plain {m_row[1]:.3f} ms, "
@@ -5465,7 +5859,7 @@ def main() -> None:
         "launches": launches, "max_abs_err": worst, "ms": kernel_ms,
         "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None}] + lm_rows + [bwd_row, ssd_bwd_row]
-        + narrow_rows}))
+        + narrow_rows + wide_rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

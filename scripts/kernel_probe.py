@@ -42,6 +42,10 @@ for working on one kernel.
     python3 scripts/kernel_probe.py row-stage        # the first op of the
                                                      # row stage whose bits
                                                      # differ card vs CPU
+    python3 scripts/kernel_probe.py wide             # chip_smoke.py's
+                                                     # phase 33 alone: the
+                                                     # widths above the
+                                                     # built ones
 
 Run from the root of a checkout.  Every line it prints is a reading of
 the card named on its first line.  `day` builds csrc/day_scan.cu and the
@@ -909,8 +913,10 @@ def probe_ssd_bwd_compare(other: str) -> None:
             plain = ss.ssd_scan_bwd_plain(*ins, dy, chunk=64)
             tag = (f"ssd bwd {label} {str(dtype)[6:]} b={b} s={s} h={h} "
                    f"g={g} n={n}")
+            firsts = []
             for who, f in fns.items():
                 a, c = f(), f()
+                firsts.append(a)
                 torch.cuda.synchronize()
                 line = (f"{tag}, {who}: vs plain " + " ".join(
                     f"{k} {rel_max(x, w):.3g}"
@@ -921,6 +927,8 @@ def probe_ssd_bwd_compare(other: str) -> None:
                         for k, x, w in zip(names, a, plain))
                 same = all(torch.equal(x, y) for x, y in zip(a, c))
                 print(line + f"; a repeat bit-equal: {same}", flush=True)
+            print(f"{tag}: other and this bit-equal: "
+                  f"{all(torch.equal(x, y) for x, y in zip(*firsts))}")
             for who in ("other", "this", "this", "other"):
                 where = other if who == "other" else "checkout"
                 print(f"{tag}, {who} ({where}): "
@@ -928,11 +936,29 @@ def probe_ssd_bwd_compare(other: str) -> None:
             del ins, dy, st, plain
 
 
+def probe_wide() -> None:
+    """chip_smoke.py's phase 33 alone: the flash and SSD sources built at
+    once, the wide kernels' ptxas lines, then the wide widths against
+    their plain versions, the derived smoke configs and the timed
+    shapes; the misses listed at the end."""
+    build.build_all(("flash_attention", "flash_attention_bwd", "ssd_scan",
+                     "ssd_scan_bwd"))
+    for name in ("flash_attention", "flash_attention_bwd", "ssd_scan",
+                 "ssd_scan_bwd"):
+        lines = [k for k in chip_smoke.ptxas_kernels(build.BUILD_LOG.get(
+            name, "")) if "wide" in k or "f32>" in k]
+        print(f"ptxas {name}: " + "; ".join(lines))
+    chip_smoke.phase33(DEV)
+    print(f"misses: {len(chip_smoke.MISSES)}")
+    for m in chip_smoke.MISSES:
+        print(f"  {m}")
+
+
 def main() -> None:
     probes = {"day": probe_day, "flash": probe_flash, "ssd": probe_ssd,
               "flash-variants": probe_flash_variants,
               "flash-bwd": probe_flash_bwd, "ssd-bwd": probe_ssd_bwd,
-              "row-stage": probe_row_stage}
+              "row-stage": probe_row_stage, "wide": probe_wide}
     compare = {"flash-compare": probe_flash_compare,
                "flash-bwd-compare": probe_flash_bwd_compare,
                "ssd-compare": probe_ssd_compare,

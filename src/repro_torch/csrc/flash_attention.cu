@@ -69,6 +69,23 @@
 // + 32 score registers a thread, over the 255 a thread may have: above
 // Dh 128 each k-step's Q fragment is re-read from the Q tile in shared
 // memory on every kv tile (QREG false) instead of staying in registers.
+//
+// Wider heads (flash_wide_bf16, flash_wide_f32): the TPU kernel takes any
+// Dh (its BlockSpec is (1, bq, 1, Dh)).  Here a Dh above 256 no longer
+// fits one block's tiles or registers, so the wrapper pads it to a
+// multiple of 64 and a grid axis splits the output columns into blocks of
+// up to WIDE_OW = 256.  Each block forms S = Q K^T over the whole Dh by
+// walking it in 64-column slices of Q and K staged in shared memory (bf16:
+// a ring of two stages filled by cp.async), runs the online softmax as the
+// kernels above do (same tiles, masks, expf, P rounded once to V's dtype),
+// and multiplies P by its own columns of V.  Every column block computes
+// the same S in the same order, so m, l and the lse agree in all of them;
+// block 0 writes the lse.  What bounds it: the function is bound by
+// operations as at the built widths (at B 2, S 4096, H 16, Dh 512, causal,
+// ~550 GFLOP); the design repeats Q K^T once per column block (Dh / 256
+// times) and re-reads the Q slices from L2 on every kv tile, the price of
+// keeping S whole in registers at any Dh.  Shared memory: 89 088 B in
+// bf16, 121 856 B in float32.
 
 #include <cstdint>
 
@@ -548,6 +565,434 @@ __global__ void __launch_bounds__(BF_THREADS) flash_kernel_bf16(FlashArgs a) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// Dh above 256 (any multiple of 64: the wrapper pads to one): a grid axis
+// over output column blocks, q.k walked in 64-column slices
+// ---------------------------------------------------------------------------
+
+constexpr int WIDE_SLICE = 64;     // columns of q.k one step stages
+constexpr int WIDE_OW = 256;       // output columns a block owns, at most
+
+// two stages of (Q slice, K slice), then the V tile's WIDE_OW columns;
+// rows padded by 16 bytes
+__host__ __device__ constexpr int wide_bf_smem_bytes() {
+  return (2 * (BF_BQ + BF_BK) * (WIDE_SLICE + 8)
+          + BF_BK * (WIDE_OW + 8)) * 2;
+}
+// the Q and K slices, the V tile, the P tile
+__host__ __device__ constexpr int wide_f32_smem_floats() {
+  return (F32_BQ + F32_BK) * (WIDE_SLICE + 4) + F32_BK * (WIDE_OW + 4)
+       + F32_BQ * PS;
+}
+static_assert(wide_bf_smem_bytes() <= SMEM_OPTIN_BYTES &&
+              wide_f32_smem_floats() * 4 <= SMEM_OPTIN_BYTES,
+              "flash wide: tiles exceed the shared memory of a block");
+
+// Stage rows [r0, r0 + ROWS), columns [d0, d0 + w) (w a multiple of 8) of
+// head `hd` of a (B, S, heads, dh) bf16 tensor into smem rows of stride
+// `ds`; rows >= S are zero-filled.
+template <int ROWS>
+__device__ __forceinline__ void stage_cols(__nv_bfloat16* dst, int ds,
+                                           const __nv_bfloat16* src, int b,
+                                           int S, int heads, int hd, int r0,
+                                           int dh, int d0, int w) {
+  const int ch = w / 8;            // 16-byte chunks per row
+  for (int idx = threadIdx.x; idx < ROWS * ch; idx += BF_THREADS) {
+    const int r = idx / ch, c = idx % ch, t = r0 + r;
+    const bool in = t < S;
+    const __nv_bfloat16* g =
+        src + ((size_t(b) * S + (in ? t : 0)) * heads + hd) * dh + d0 + 8 * c;
+    cp_async16(dst + r * ds + 8 * c, g, in ? 16 : 0);
+  }
+}
+
+// bf16, grid (B H, query tiles, column blocks): flash_kernel_bf16's warps,
+// masks and online softmax; S = Q K^T summed over dh / 64 slices of Q and
+// K staged by cp.async in a ring of two (the next slice, or the next kv
+// tile's first, loads while this one computes), then acc += bf16(P) V over
+// the block's own output columns.  Every column block forms the same S in
+// the same order, so m, l and the lse agree in all of them: block 0 writes
+// the lse.
+__global__ void __launch_bounds__(BF_THREADS) flash_wide_bf16(FlashArgs a,
+                                                              int dh) {
+  constexpr int SS = WIDE_SLICE + 8;       // slice row stride
+  constexpr int VS = WIDE_OW + 8;          // V tile row stride
+  constexpr int UNIT = (BF_BQ + BF_BK) * SS;   // one stage: Q then K slice
+  constexpr int NS = BF_BK / 8;            // score n-tiles
+  constexpr int NO = WIDE_OW / 8;          // output n-tiles of a full block
+  extern __shared__ float4 smem4[];
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem4);
+  __nv_bfloat16* vs = ring + 2 * UNIT;
+
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BF_BQ;   // heaviest first
+  const int c0 = blockIdx.z * WIDE_OW;
+  const int cw = min(WIDE_OW, dh - c0);    // this block's output columns
+  const int nsl = dh / WIDE_SLICE;
+  const int kvh = h / (a.H / a.KvH);
+  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q);
+  const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(a.k);
+  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(a.v);
+  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(a.o);
+
+  int kt_end = (a.Sk + BF_BK - 1) / BF_BK;
+  if (a.causal) kt_end = min(kt_end, (q0 + BF_BQ - 1) / BF_BK + 1);
+  int kt_begin = 0;
+  if (a.window >= 0) kt_begin = max(0, (q0 - a.window + 1) / BF_BK);
+  kt_begin = min(kt_begin, kt_end);
+
+  // slice sl of kv tile kt into stage st
+  auto stage_slice = [&](int kt, int sl, int st) {
+    __nv_bfloat16* dst = ring + st * UNIT;
+    stage_cols<BF_BQ>(dst, SS, q, b, a.Sq, a.H, h, q0, dh, WIDE_SLICE * sl,
+                      WIDE_SLICE);
+    stage_cols<BF_BK>(dst + BF_BQ * SS, SS, k, b, a.Sk, a.KvH, kvh,
+                      kt * BF_BK, dh, WIDE_SLICE * sl, WIDE_SLICE);
+  };
+  if (kt_begin < kt_end) stage_slice(kt_begin, 0, 0);
+  cp_async_commit();
+
+  const int r_first = q0 + 16 * warp, r_last = r_first + 15;
+  const int row0 = r_first + g, row1 = row0 + 8;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float acc[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int k0 = kt * BF_BK;
+    bool live = k0 < a.Sk;
+    if (a.causal) live = live && k0 <= r_last;
+    if (a.window >= 0) live = live && k0 + BF_BK - 1 > r_first - a.window;
+
+    float s[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    for (int sl = 0; sl < nsl; ++sl) {
+      const int u = (kt - kt_begin) * nsl + sl;   // stage u & 1
+      // the V tile joins the second slice's copies (its readers finished
+      // with the tile before); dh > 256 makes 5 slices at least, so the
+      // second slice's wait completes it
+      if (sl == 0)
+        stage_cols<BF_BK>(vs, VS, v, b, a.Sk, a.KvH, kvh, k0, dh, c0, cw);
+      if (sl + 1 < nsl) stage_slice(kt, sl + 1, (u + 1) & 1);
+      else if (kt + 1 < kt_end) stage_slice(kt + 1, 0, (u + 1) & 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncthreads();
+      if (live) {
+        const __nv_bfloat16* qs = ring + (u & 1) * UNIT;
+        const __nv_bfloat16* ks = qs + BF_BQ * SS;
+#pragma unroll
+        for (int kk = 0; kk < WIDE_SLICE / 16; ++kk) {
+          uint32_t qf[4];
+          ldmatrix_x4(qf, qs + (16 * warp + (lane & 15)) * SS + 16 * kk
+                              + 8 * (lane >> 4));
+#pragma unroll
+          for (int j = 0; j < NS; j += 2) {
+            uint32_t kb[4];
+            ldmatrix_x4(kb, ks + (8 * j + (lane & 7) + ((lane >> 4) << 3)) * SS
+                                + 16 * kk + 8 * ((lane >> 3) & 1));
+            mma_bf16(s[j], qf, kb[0], kb[1]);
+            mma_bf16(s[j + 1], qf, kb[2], kb[3]);
+          }
+        }
+      }
+      __syncthreads();             // this stage is refilled next step
+    }
+    if (live) {
+      bool edge = k0 + BF_BK > a.Sk;
+      if (a.causal) edge = edge || k0 + BF_BK - 1 > r_first;
+      if (a.window >= 0) edge = edge || k0 <= r_last - a.window;
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s[j][e] * a.scale;
+          if (edge) {
+            const int kj = k0 + 8 * j + 2 * t4 + (e & 1);
+            const int qi = e < 2 ? row0 : row1;
+            bool ok = kj < a.Sk;
+            if (a.causal) ok = ok && kj <= qi;
+            if (a.window >= 0) ok = ok && kj > qi - a.window;
+            if (!ok) x = NEG_INF;
+          }
+          s[j][e] = x;
+        }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = NEG_INF;
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+          mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[r], mx);
+        alpha[r] = expf(m[r] - m_new);
+        m[r] = m_new;
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < NS; ++j) {
+          s[j][2 * r] = expf(s[j][2 * r] - m_new);
+          s[j][2 * r + 1] = expf(s[j][2 * r + 1] - m_new);
+          sum += s[j][2 * r] + s[j][2 * r + 1];
+        }
+        l[r] = l[r] * alpha[r] + sum;
+      }
+#pragma unroll
+      for (int j = 0; j < NO; ++j) {
+        acc[j][0] *= alpha[0];
+        acc[j][1] *= alpha[0];
+        acc[j][2] *= alpha[1];
+        acc[j][3] *= alpha[1];
+      }
+#pragma unroll
+      for (int kk = 0; kk < BF_BK / 16; ++kk) {
+        uint32_t pa[4];
+        pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+        pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+        pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+        pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+        for (int j = 0; j < NO; j += 2) {
+          if (8 * j >= cw) break;  // past this block's columns
+          uint32_t vb[4];
+          ldmatrix_x4_trans(vb, vs + (16 * kk + (lane & 7)
+                                      + 8 * ((lane >> 3) & 1)) * VS
+                                    + 8 * j + 8 * (lane >> 4));
+          mma_bf16(acc[j], pa, vb[0], vb[1]);
+          mma_bf16(acc[j + 1], pa, vb[2], vb[3]);
+        }
+      }
+    }
+    __syncthreads();               // the V tile is refilled next tile
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = r ? row1 : row0;
+    if (qi >= a.Sq) continue;
+    if (a.lse && t4 == 0 && blockIdx.z == 0)
+      a.lse[(size_t(b) * a.H + h) * a.Sq + qi] = m[r] + logf(l[r]);
+    const float den = fmaxf(l[r], 1e-30f);
+    __nv_bfloat16* row = o + ((size_t(b) * a.Sq + qi) * a.H + h) * dh + c0;
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+      if (8 * j >= cw) break;
+      const uint32_t w = pack_bf16(acc[j][2 * r] / den,
+                                   acc[j][2 * r + 1] / den);
+      *reinterpret_cast<uint32_t*>(row + 8 * j + 2 * t4) = w;
+    }
+  }
+}
+
+// float32, grid (query tiles x column blocks, H, B): flash_kernel_f32's
+// thread mapping; S summed over dh / 64 slices of Q and K staged in shared
+// memory, then acc += P V over the block's own output columns (groups of
+// 64, 4 a thread).  Block 0 of a query tile writes the lse.
+__global__ void __launch_bounds__(F32_THREADS) flash_wide_f32(FlashArgs a,
+                                                              int dh) {
+  constexpr int BQ = F32_BQ, BK = F32_BK, THREADS = F32_THREADS;
+  constexpr int SS = WIDE_SLICE + 4;       // slice row stride
+  constexpr int VS = WIDE_OW + 4;          // V tile row stride
+  constexpr int NG = WIDE_OW / 64;         // output column groups, at most
+  extern __shared__ float4 smem4[];
+  float* qs = reinterpret_cast<float*>(smem4);
+  float* ks = qs + BQ * SS;
+  float* vs = ks + BK * SS;
+  float* ps = vs + BK * VS;
+
+  const int ncb = (dh + WIDE_OW - 1) / WIDE_OW;
+  const int tid = threadIdx.x, ti = tid / 16, tj = tid % 16;
+  const int q0 = blockIdx.x / ncb * BQ, cb = blockIdx.x % ncb;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int c0 = cb * WIDE_OW, cw = min(WIDE_OW, dh - c0);
+  const int nsl = dh / WIDE_SLICE;
+  const int kvh = h / (a.H / a.KvH);
+  const float* q = static_cast<const float*>(a.q);
+  const float* k = static_cast<const float*>(a.k);
+  const float* v = static_cast<const float*>(a.v);
+  float* o = static_cast<float*>(a.o);
+
+  float m[4], l[4], acc[4][4 * NG];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    m[r] = NEG_INF;
+    l[r] = 0.f;
+#pragma unroll
+    for (int e = 0; e < 4 * NG; ++e) acc[r][e] = 0.f;
+  }
+
+  int nk = (a.Sk + BK - 1) / BK;
+  if (a.causal) nk = min(nk, (q0 + BQ - 1) / BK + 1);
+  for (int kt = 0; kt < nk; ++kt) {
+    const int k0 = kt * BK;
+    float s[4][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[r][c] = 0.f;
+    for (int sl = 0; sl < nsl; ++sl) {
+      const int d0 = WIDE_SLICE * sl;
+      __syncthreads();             // the previous step's readers are done
+      for (int idx = tid; idx < BQ * WIDE_SLICE; idx += THREADS) {
+        const int r = idx / WIDE_SLICE, d = idx % WIDE_SLICE, qi = q0 + r;
+        qs[r * SS + d] = qi < a.Sq
+            ? q[((size_t(b) * a.Sq + qi) * a.H + h) * dh + d0 + d] : 0.f;
+      }
+      for (int idx = tid; idx < BK * WIDE_SLICE; idx += THREADS) {
+        const int r = idx / WIDE_SLICE, d = idx % WIDE_SLICE, kj = k0 + r;
+        ks[r * SS + d] = kj < a.Sk
+            ? k[((size_t(b) * a.Sk + kj) * a.KvH + kvh) * dh + d0 + d] : 0.f;
+      }
+      if (sl == 0)
+        for (int idx = tid; idx < BK * cw; idx += THREADS) {
+          const int r = idx / cw, d = idx % cw, kj = k0 + r;
+          vs[r * VS + d] = kj < a.Sk
+              ? v[((size_t(b) * a.Sk + kj) * a.KvH + kvh) * dh + c0 + d]
+              : 0.f;
+        }
+      __syncthreads();
+#pragma unroll 4
+      for (int d = 0; d < WIDE_SLICE; d += 4) {
+        float4 qv[4], kv[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          qv[r] = *reinterpret_cast<const float4*>(
+              &qs[(ti + 16 * r) * SS + d]);
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          kv[c] = *reinterpret_cast<const float4*>(
+              &ks[(tj + 16 * c) * SS + d]);
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            float t = s[r][c];
+            t = fmaf(qv[r].x, kv[c].x, t);
+            t = fmaf(qv[r].y, kv[c].y, t);
+            t = fmaf(qv[r].z, kv[c].z, t);
+            t = fmaf(qv[r].w, kv[c].w, t);
+            s[r][c] = t;
+          }
+      }
+    }
+
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int qi = q0 + ti + 16 * r;
+      float mx = NEG_INF;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int kj = k0 + tj + 16 * c;
+        bool ok = kj < a.Sk;
+        if (a.causal) ok = ok && kj <= qi;
+        if (a.window >= 0) ok = ok && kj > qi - a.window;
+        s[r][c] = ok ? s[r][c] * a.scale : NEG_INF;
+        mx = fmaxf(mx, s[r][c]);
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[r], mx);
+      const float alpha = expf(m[r] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float p = expf(s[r][c] - m_new);
+        sum += p;
+        ps[(ti + 16 * r) * PS + tj + 16 * c] = p;
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      l[r] = l[r] * alpha + sum;
+      m[r] = m_new;
+#pragma unroll
+      for (int e = 0; e < 4 * NG; ++e) acc[r][e] *= alpha;
+    }
+    __syncthreads();
+
+#pragma unroll 2
+    for (int j = 0; j < BK; j += 4) {
+      float4 pr[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        pr[r] = *reinterpret_cast<const float4*>(&ps[(ti + 16 * r) * PS + j]);
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+#pragma unroll
+        for (int gi = 0; gi < NG; ++gi) {
+          if (64 * gi >= cw) break;
+          const float4 t = *reinterpret_cast<const float4*>(
+              &vs[(j + jj) * VS + 64 * gi + 4 * tj]);
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const float p = jj == 0 ? pr[r].x : jj == 1 ? pr[r].y
+                          : jj == 2 ? pr[r].z : pr[r].w;
+            acc[r][4 * gi] = fmaf(p, t.x, acc[r][4 * gi]);
+            acc[r][4 * gi + 1] = fmaf(p, t.y, acc[r][4 * gi + 1]);
+            acc[r][4 * gi + 2] = fmaf(p, t.z, acc[r][4 * gi + 2]);
+            acc[r][4 * gi + 3] = fmaf(p, t.w, acc[r][4 * gi + 3]);
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int qi = q0 + ti + 16 * r;
+    if (qi >= a.Sq) continue;
+    if (a.lse && tj == 0 && cb == 0)
+      a.lse[(size_t(b) * a.H + h) * a.Sq + qi] = m[r] + logf(l[r]);
+    const float den = fmaxf(l[r], 1e-30f);
+    float* row = o + ((size_t(b) * a.Sq + qi) * a.H + h) * dh + c0;
+#pragma unroll
+    for (int gi = 0; gi < NG; ++gi) {
+      if (64 * gi >= cw) break;
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        row[64 * gi + 4 * tj + e] = acc[r][4 * gi + e] / den;
+    }
+  }
+}
+
+int launch_wide(const FlashArgs& a, int dh, int dtype, cudaStream_t s) {
+  const int ncb = (dh + WIDE_OW - 1) / WIDE_OW;
+  if (dtype == 1) {
+    const int nq = (a.Sq + BF_BQ - 1) / BF_BQ;
+    if (nq > 65535 || ncb > 65535 || size_t(a.B) * a.H > 0x7fffffffu)
+      return int(cudaErrorInvalidValue);
+    const int bytes = wide_bf_smem_bytes();
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_wide_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return int(err);
+    flash_wide_bf16<<<dim3(a.B * a.H, nq, ncb), BF_THREADS, bytes, s>>>(a,
+                                                                        dh);
+    return int(cudaGetLastError());
+  }
+  const size_t nx = size_t((a.Sq + F32_BQ - 1) / F32_BQ) * ncb;
+  if (nx > 0x7fffffffu) return int(cudaErrorInvalidValue);
+  const int bytes = wide_f32_smem_floats() * int(sizeof(float));
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_wide_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return int(err);
+  flash_wide_f32<<<dim3(unsigned(nx), a.H, a.B), F32_THREADS, bytes, s>>>(
+      a, dh);
+  return int(cudaGetLastError());
+}
+
 template <int DH>
 int launch_f32(const FlashArgs& a, cudaStream_t s) {
   const int bytes = f32_smem_floats<DH>() * int(sizeof(float));
@@ -607,6 +1052,8 @@ extern "C" int flash_attention_launch(
       case 256: return launch_bf16<256>(a, s);
     }
   }
+  if ((dtype == 0 || dtype == 1) && Dh > 256 && Dh % WIDE_SLICE == 0)
+    return launch_wide(a, Dh, dtype, s);
   return int(cudaErrorInvalidValue);
 }
 

@@ -73,6 +73,24 @@
 // shared memory, 4 x 4 register tiles as in the forward's float32 path;
 // TF32 would miss the float32 tolerance), launch 2 dK / dV and launch 3
 // dQ, each recomputing S and dP.
+//
+// Dh above 256, both dtypes (flash_bwd_wide_dkdv, flash_bwd_wide_dq; the
+// wrapper pads Dh to a multiple of 64, as the forward's wide path): the
+// float32 path's three launches, its 4 x 4 register tiles on 64 query
+// rows x 32 keys, with a grid axis over output column blocks of up to 256
+// columns.  Each block forms S = Q K^T and dP = dO V^T over the whole Dh,
+// walking it in 64-column slices staged in shared memory, then dS = P o
+// (dP - delta), and sums dV_c += P^T dO_c and dK_c += dS^T Q_c (dQ_c +=
+// dS K_c) over its own columns c.  Inputs are widened to float32 in
+// shared memory; in bf16, P and dS are rounded to bf16 once, as
+// flash_attention_bwd_plain rounds them, so every product of the bf16
+// path is of two bf16 values, exact in float32.  Sums in a fixed order,
+// no atomics: a call repeats bit for bit.  What bounds it: the function
+// is bound by operations (at B 2, S 4096, H 16, Dh 512, causal, ~1.37
+// TFLOP of products); the design repeats S and dP once per column block
+// (Dh / 256 times) and runs bf16 on the CUDA cores, not the tensor cores,
+// the price of a first kernel that is right at any Dh (a speed lead in
+// ROADMAP.md).
 
 #include <cstdint>
 #include <type_traits>
@@ -447,6 +465,332 @@ int launch_bwd(const BwdArgs& a, int dh, cudaStream_t s) {
   if (err != cudaSuccess) return int(err);
   const dim3 grid_q((a.Sq + BQ - 1) / BQ, a.H, a.B);
   flash_bwd_dq<T, DH><<<grid_q, THREADS, bytes_q, s>>>(a);
+  return int(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// Dh above 256 (a multiple of 64: the wrapper pads to one), either dtype on
+// the CUDA cores: a grid axis over output column blocks
+// ---------------------------------------------------------------------------
+
+constexpr int WIDE_SLICE = 64;     // columns of Q K^T / dO V^T a step stages
+constexpr int WIDE_OW = 256;       // output columns a block owns, at most
+constexpr int WIDE_BK = 32;        // keys of a kv tile
+constexpr int WIDE_SS = WIDE_SLICE + 4;   // slice row stride
+constexpr int WIDE_CS = WIDE_OW + 4;      // column-block row stride
+constexpr int WIDE_PS = WIDE_BK + 16;     // P / dS row stride
+
+// launch 2: Q, dO, K, V slices; Q and dO column blocks; P, dS; lse, delta
+__host__ __device__ constexpr int wide_dkdv_floats() {
+  return 2 * (BQ + WIDE_BK) * WIDE_SS + 2 * BQ * WIDE_CS + 2 * BQ * WIDE_PS
+       + 2 * BQ;
+}
+// launch 3: Q, dO, K, V slices; the K column block; dS; lse, delta
+__host__ __device__ constexpr int wide_dq_floats() {
+  return 2 * (BQ + WIDE_BK) * WIDE_SS + WIDE_BK * WIDE_CS + BQ * WIDE_PS
+       + 2 * BQ;
+}
+static_assert(wide_dkdv_floats() * 4 <= SMEM_OPTIN_BYTES,
+              "flash bwd wide: tiles exceed the shared memory of a block");
+
+// rows [r0, r0 + rows), columns [d0, d0 + w) of head `hd` of a (B, S,
+// heads, dh) tensor into float32 smem rows of stride `ds`; rows >= S are 0
+template <typename T>
+__device__ __forceinline__ void stage_cols(float* dst, int ds, const T* src,
+                                           int rows, int b, int S, int heads,
+                                           int hd, int r0, int dh, int d0,
+                                           int w) {
+  for (int idx = threadIdx.x; idx < rows * w; idx += THREADS) {
+    const int r = idx / w, d = idx % w, t = r0 + r;
+    dst[r * ds + d] = t < S
+        ? widen(src[((size_t(b) * S + t) * heads + hd) * dh + d0 + d]) : 0.f;
+  }
+}
+
+// out[r][c] += rows ti + 16 r of `a` dotted with rows tj + 16 c (c < NC)
+// of `b` over one slice, both float32 smem tiles of row stride WIDE_SS
+template <int NC>
+__device__ __forceinline__ void slice_dots(float out[4][NC], const float* a,
+                                           const float* b, int ti, int tj) {
+#pragma unroll 4
+  for (int d = 0; d < WIDE_SLICE; d += 4) {
+    float4 av[4], bv[NC];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      av[r] = *reinterpret_cast<const float4*>(
+          &a[(ti + 16 * r) * WIDE_SS + d]);
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      bv[c] = *reinterpret_cast<const float4*>(
+          &b[(tj + 16 * c) * WIDE_SS + d]);
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        float t = out[r][c];
+        t = fmaf(av[r].x, bv[c].x, t);
+        t = fmaf(av[r].y, bv[c].y, t);
+        t = fmaf(av[r].z, bv[c].z, t);
+        t = fmaf(av[r].w, bv[c].w, t);
+        out[r][c] = t;
+      }
+  }
+}
+
+// P and dS of a (BQ x WIDE_BK) tile into shared memory (row stride WIDE_PS),
+// masked entries 0; bf16 rounds P (for dV) and dS (for dK and dQ) once, as
+// flash_attention_bwd_plain does, dS formed from the unrounded P
+template <typename T, int NC>
+__device__ __forceinline__ void wide_p_ds(float s[4][NC],
+                                          float dp[4][NC], float* ps,
+                                          float* dss, const BwdArgs& a,
+                                          const float* lse_s,
+                                          const float* del_s, int q0, int k0,
+                                          int ti, int tj) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int row = ti + 16 * r, qi = q0 + row;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int kj = k0 + tj + 16 * c;
+      bool ok = qi < a.Sq && kj < a.Sk;
+      if (a.causal) ok = ok && kj <= qi;
+      if (a.window >= 0) ok = ok && kj > qi - a.window;
+      float p = ok ? expf(s[r][c] * a.scale - lse_s[row]) : 0.f;
+      float ds = p * (dp[r][c] - del_s[row]);
+      if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+        p = __bfloat162float(__float2bfloat16_rn(p));
+        ds = __bfloat162float(__float2bfloat16_rn(ds));
+      }
+      if (ps) ps[row * WIDE_PS + tj + 16 * c] = p;
+      dss[row * WIDE_PS + tj + 16 * c] = ds;
+    }
+  }
+}
+
+// write rows ti + 16 i (i < NR) of acc x mult, columns [c0, c0 + cw), to
+// rows r0 + ti + 16 i < S of head `hd` of a (B, S, heads, dh) tensor
+template <typename T, int NR>
+__device__ __forceinline__ void store_cols(T* dst, float (*acc)[WIDE_OW / 16],
+                                           float mult, int b, int S,
+                                           int heads, int hd, int r0, int dh,
+                                           int c0, int cw, int ti, int tj) {
+#pragma unroll
+  for (int i = 0; i < NR; ++i) {
+    const int t = r0 + ti + 16 * i;
+    if (t >= S) continue;
+    T* row = dst + ((size_t(b) * S + t) * heads + hd) * dh + c0;
+#pragma unroll
+    for (int g = 0; g < WIDE_OW / 64; ++g) {
+      if (64 * g >= cw) break;
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        narrow(&row[64 * g + 4 * tj + e], acc[i][4 * g + e] * mult);
+    }
+  }
+}
+
+// launch 2: dK and dV of one (kv tile x column block, kv head, batch).  S
+// and dP are formed over the whole dh in slices; dV_c += P^T dO_c and dK_c
+// += dS^T Q_c over the block's columns c.
+template <typename T>
+__global__ void __launch_bounds__(THREADS) flash_bwd_wide_dkdv(BwdArgs a,
+                                                               int dh) {
+  constexpr int NC = WIDE_BK / 16, NR = WIDE_BK / 16;
+  extern __shared__ float4 smem4[];
+  float* qs = reinterpret_cast<float*>(smem4);
+  float* dos = qs + BQ * WIDE_SS;
+  float* ks = dos + BQ * WIDE_SS;
+  float* vs = ks + WIDE_BK * WIDE_SS;
+  float* qc = vs + WIDE_BK * WIDE_SS;
+  float* doc = qc + BQ * WIDE_CS;
+  float* ps = doc + BQ * WIDE_CS;
+  float* dss = ps + BQ * WIDE_PS;
+  float* lse_s = dss + BQ * WIDE_PS;
+  float* del_s = lse_s + BQ;
+
+  const int ncb = (dh + WIDE_OW - 1) / WIDE_OW;
+  const int tid = threadIdx.x, ti = tid / 16, tj = tid % 16;
+  const int k0 = blockIdx.x / ncb * WIDE_BK, cb = blockIdx.x % ncb;
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int c0 = cb * WIDE_OW, cw = min(WIDE_OW, dh - c0);
+  const int nsl = dh / WIDE_SLICE, G = a.H / a.KvH;
+  const T* q = static_cast<const T*>(a.q);
+  const T* k = static_cast<const T*>(a.k);
+  const T* v = static_cast<const T*>(a.v);
+  const T* dout = static_cast<const T*>(a.dout);
+
+  const int nq = (a.Sq + BQ - 1) / BQ;
+  const int k_last = min(k0 + WIDE_BK, a.Sk) - 1;
+  const int qt_begin = a.causal ? min(nq, k0 / BQ) : 0;
+  int qt_end = nq;
+  if (a.window >= 0)
+    qt_end = max(0, min(nq, (k_last + a.window - 1) / BQ + 1));
+
+  float dk[NR][WIDE_OW / 16], dv[NR][WIDE_OW / 16];
+#pragma unroll
+  for (int i = 0; i < NR; ++i)
+#pragma unroll
+    for (int e = 0; e < WIDE_OW / 16; ++e) dk[i][e] = dv[i][e] = 0.f;
+
+  for (int g = 0; g < G; ++g) {
+    const int h = kvh * G + g;
+    for (int qt = qt_begin; qt < qt_end; ++qt) {
+      const int q0 = qt * BQ;
+      float s[4][NC], dp[4][NC];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < NC; ++c) s[r][c] = dp[r][c] = 0.f;
+      for (int sl = 0; sl < nsl; ++sl) {
+        const int d0 = WIDE_SLICE * sl;
+        __syncthreads();           // the previous step's readers are done
+        stage_cols<T>(qs, WIDE_SS, q, BQ, b, a.Sq, a.H, h, q0, dh, d0,
+                      WIDE_SLICE);
+        stage_cols<T>(dos, WIDE_SS, dout, BQ, b, a.Sq, a.H, h, q0, dh, d0,
+                      WIDE_SLICE);
+        stage_cols<T>(ks, WIDE_SS, k, WIDE_BK, b, a.Sk, a.KvH, kvh, k0, dh, d0,
+                      WIDE_SLICE);
+        stage_cols<T>(vs, WIDE_SS, v, WIDE_BK, b, a.Sk, a.KvH, kvh, k0, dh, d0,
+                      WIDE_SLICE);
+        if (sl == 0) {
+          stage_cols<T>(qc, WIDE_CS, q, BQ, b, a.Sq, a.H, h, q0, dh, c0, cw);
+          stage_cols<T>(doc, WIDE_CS, dout, BQ, b, a.Sq, a.H, h, q0, dh, c0,
+                        cw);
+          if (tid < BQ) {
+            const int qi = q0 + tid;
+            const size_t at = (size_t(b) * a.H + h) * a.Sq + qi;
+            lse_s[tid] = qi < a.Sq ? a.lse[at] : 0.f;
+            del_s[tid] = qi < a.Sq ? a.delta[at] : 0.f;
+          }
+        }
+        __syncthreads();
+        slice_dots<NC>(s, qs, ks, ti, tj);       // S += Q K^T
+        slice_dots<NC>(dp, dos, vs, ti, tj);     // dP += dO V^T
+      }
+      wide_p_ds<T, NC>(s, dp, ps, dss, a, lse_s, del_s, q0, k0, ti, tj);
+      __syncthreads();
+      // dV += P^T dO, dK += dS^T Q over this block's columns (tile_accum's
+      // 256-column layout; columns past cw are never stored)
+      tile_accum<WIDE_OW, NR, BQ, WIDE_PS, true>(dv, ps, doc, ti, tj);
+      tile_accum<WIDE_OW, NR, BQ, WIDE_PS, true>(dk, dss, qc, ti, tj);
+    }
+  }
+  store_cols<T, NR>(static_cast<T*>(a.dk), dk, a.scale, b, a.Sk, a.KvH, kvh,
+                    k0, dh, c0, cw, ti, tj);
+  store_cols<T, NR>(static_cast<T*>(a.dv), dv, 1.f, b, a.Sk, a.KvH, kvh, k0,
+                    dh, c0, cw, ti, tj);
+}
+
+// launch 3: dQ of one (query tile x column block, head, batch): S and dP
+// over the whole dh in slices, dQ_c += dS K_c
+template <typename T>
+__global__ void __launch_bounds__(THREADS) flash_bwd_wide_dq(BwdArgs a,
+                                                             int dh) {
+  constexpr int NC = WIDE_BK / 16;
+  extern __shared__ float4 smem4[];
+  float* qs = reinterpret_cast<float*>(smem4);
+  float* dos = qs + BQ * WIDE_SS;
+  float* ks = dos + BQ * WIDE_SS;
+  float* vs = ks + WIDE_BK * WIDE_SS;
+  float* kc = vs + WIDE_BK * WIDE_SS;
+  float* dss = kc + WIDE_BK * WIDE_CS;
+  float* lse_s = dss + BQ * WIDE_PS;
+  float* del_s = lse_s + BQ;
+
+  const int ncb = (dh + WIDE_OW - 1) / WIDE_OW;
+  const int tid = threadIdx.x, ti = tid / 16, tj = tid % 16;
+  const int q0 = blockIdx.x / ncb * BQ, cb = blockIdx.x % ncb;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int c0 = cb * WIDE_OW, cw = min(WIDE_OW, dh - c0);
+  const int nsl = dh / WIDE_SLICE;
+  const int kvh = h / (a.H / a.KvH);
+  const T* q = static_cast<const T*>(a.q);
+  const T* k = static_cast<const T*>(a.k);
+  const T* v = static_cast<const T*>(a.v);
+  const T* dout = static_cast<const T*>(a.dout);
+
+  if (tid < BQ) {
+    const int qi = q0 + tid;
+    const size_t at = (size_t(b) * a.H + h) * a.Sq + qi;
+    lse_s[tid] = qi < a.Sq ? a.lse[at] : 0.f;
+    del_s[tid] = qi < a.Sq ? a.delta[at] : 0.f;
+  }
+  int kt_end = (a.Sk + WIDE_BK - 1) / WIDE_BK;
+  if (a.causal) kt_end = min(kt_end, (q0 + BQ - 1) / WIDE_BK + 1);
+  int kt_begin = 0;
+  if (a.window >= 0) kt_begin = max(0, (q0 - a.window + 1) / WIDE_BK);
+
+  float dq[4][WIDE_OW / 16];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int e = 0; e < WIDE_OW / 16; ++e) dq[r][e] = 0.f;
+
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int k0 = kt * WIDE_BK;
+    float s[4][NC], dp[4][NC];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < NC; ++c) s[r][c] = dp[r][c] = 0.f;
+    for (int sl = 0; sl < nsl; ++sl) {
+      const int d0 = WIDE_SLICE * sl;
+      __syncthreads();             // the previous step's readers are done
+      stage_cols<T>(qs, WIDE_SS, q, BQ, b, a.Sq, a.H, h, q0, dh, d0,
+                    WIDE_SLICE);
+      stage_cols<T>(dos, WIDE_SS, dout, BQ, b, a.Sq, a.H, h, q0, dh, d0,
+                    WIDE_SLICE);
+      stage_cols<T>(ks, WIDE_SS, k, WIDE_BK, b, a.Sk, a.KvH, kvh, k0, dh, d0,
+                    WIDE_SLICE);
+      stage_cols<T>(vs, WIDE_SS, v, WIDE_BK, b, a.Sk, a.KvH, kvh, k0, dh, d0,
+                    WIDE_SLICE);
+      if (sl == 0)
+        stage_cols<T>(kc, WIDE_CS, k, WIDE_BK, b, a.Sk, a.KvH, kvh, k0, dh, c0,
+                      cw);
+      __syncthreads();
+      slice_dots<NC>(s, qs, ks, ti, tj);         // S += Q K^T
+      slice_dots<NC>(dp, dos, vs, ti, tj);       // dP += dO V^T
+    }
+    wide_p_ds<T, NC>(s, dp, nullptr, dss, a, lse_s, del_s, q0, k0, ti, tj);
+    __syncthreads();
+    // dQ += dS K
+    tile_accum<WIDE_OW, 4, WIDE_BK, WIDE_PS, false>(dq, dss, kc, ti, tj);
+  }
+  store_cols<T, 4>(static_cast<T*>(a.dq), dq, a.scale, b, a.Sq, a.H, h, q0,
+                   dh, c0, cw, ti, tj);
+}
+
+template <typename T>
+int launch_bwd_wide(const BwdArgs& a, int dh, cudaStream_t s) {
+  const size_t rows = size_t(a.B) * a.Sq * a.H;
+  const size_t ncb = (dh + WIDE_OW - 1) / WIDE_OW;
+  const size_t nx_kv = size_t((a.Sk + WIDE_BK - 1) / WIDE_BK) * ncb;
+  const size_t nx_q = size_t((a.Sq + BQ - 1) / BQ) * ncb;
+  if ((rows + 7) / 8 > 0x7fffffffu || nx_kv > 0x7fffffffu ||
+      nx_q > 0x7fffffffu)
+    return int(cudaErrorInvalidValue);
+  flash_bwd_delta<T><<<unsigned((rows + 7) / 8), THREADS, 0, s>>>(a, dh);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return int(err);
+
+  const int bytes = wide_dkdv_floats() * int(sizeof(float));
+  err = cudaFuncSetAttribute(flash_bwd_wide_dkdv<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err != cudaSuccess) return int(err);
+  flash_bwd_wide_dkdv<T><<<dim3(unsigned(nx_kv), a.KvH, a.B), THREADS, bytes,
+                           s>>>(a, dh);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return int(err);
+
+  const int bytes_q = wide_dq_floats() * int(sizeof(float));
+  err = cudaFuncSetAttribute(flash_bwd_wide_dq<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes_q);
+  if (err != cudaSuccess) return int(err);
+  flash_bwd_wide_dq<T><<<dim3(unsigned(nx_q), a.H, a.B), THREADS, bytes_q,
+                         s>>>(a, dh);
   return int(cudaGetLastError());
 }
 
@@ -1105,6 +1449,7 @@ int launch_dtype(const BwdArgs& a, int dh, cudaStream_t s) {
       case 256: return launch_bwd<T, 256>(a, dh, s);
     }
   }
+  if (dh > 256 && dh % WIDE_SLICE == 0) return launch_bwd_wide<T>(a, dh, s);
   return int(cudaErrorInvalidValue);
 }
 

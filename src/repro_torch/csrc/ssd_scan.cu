@@ -1,7 +1,15 @@
 // Mamba2 SSD chunked scan for Hopper (sm_90a) [arXiv:2405.21060], from a
 // zero state, returning y only; float32 or bfloat16 x/B/C.  Built for p 64
 // and n 64 or 128; the wrapper zero-pads a narrower x, B or C to them
-// (padded columns add exact zeros to every sum) and slices y back.
+// (padded columns add exact zeros to every sum) and slices y back.  Any
+// wider p or n runs in blocks (kernels/ssd_scan.py `ssd_blocked`): p in
+// blocks of 64 columns as heads of their own (y's p columns and the
+// state's p rows never mix), n in blocks of up to 128 columns, one call a
+// block, whose y's the wrapper sums (y is linear in the n-blocks of B and
+// C).  A bf16 call of a block of such a sum writes a float32 y (dtype 2,
+// the YF32 instances), so the sum rounds to bf16 once.  A wider N
+// instance was not taken: the bf16 scan's tiles at N 256 would need 238
+// KB of shared memory, over the 227 KB a block may have.
 //
 // Replaces the TPU Pallas kernel src/repro/kernels/ssd_scan.py:_ssd_kernel
 // (launcher `ssd_scan`, its pallas_call).  That kernel walks (batch, head,
@@ -738,7 +746,8 @@ constexpr int scan_bf16_smem_bytes() {
          + (L * SB + 2 * L * (N + 8) + 6 * L * SB + 3 * N * SB) * 2;
 }
 
-template <int N>
+// YF32: y in float32, a part of a sum over n-blocks that rounds once
+template <int N, bool YF32 = false>
 __global__ void __launch_bounds__(THREADS, N == 64 ? 2 : 1)
 ssd_kernel_scan_bf16(SsdArgs a) {
   using T = __nv_bfloat16;
@@ -912,6 +921,17 @@ ssd_kernel_scan_bf16(SsdArgs a) {
         const int i = 16 * rt + g + 8 * r, t = t0 + i;
         if (t >= a.s) continue;
         const float e = eca[i];
+        if constexpr (YF32) {
+          float* out = static_cast<float*>(a.y)
+                       + ((size_t(bb) * a.s + t) * a.h + hh) * P + 32 * half
+                       + 2 * t4;
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+            *reinterpret_cast<float2*>(out + 8 * nt) = make_float2(
+                yi[nt][2 * r] + yo[nt][2 * r] * e,
+                yi[nt][2 * r + 1] + yo[nt][2 * r + 1] * e);
+          continue;
+        }
         T* row = y + ((size_t(bb) * a.s + t) * a.h + hh) * P + 32 * half
                  + 2 * t4;
 #pragma unroll
@@ -985,14 +1005,25 @@ int dispatch(const SsdArgs& a, int n, int dtype, bool states_only,
                         state_bf16_smem_bytes<128>(), ssd_kernel_pass<128>,
                         ssd_kernel_scan_bf16<128>,
                         scan_bf16_smem_bytes<128>(), n, a, states_only, s);
+  if (dtype == 2 && n == 64)
+    return launch_split(ssd_kernel_state_bf16<64>,
+                        state_bf16_smem_bytes<64>(), ssd_kernel_pass<64>,
+                        ssd_kernel_scan_bf16<64, true>,
+                        scan_bf16_smem_bytes<64>(), n, a, states_only, s);
+  if (dtype == 2 && n == 128)
+    return launch_split(ssd_kernel_state_bf16<128>,
+                        state_bf16_smem_bytes<128>(), ssd_kernel_pass<128>,
+                        ssd_kernel_scan_bf16<128, true>,
+                        scan_bf16_smem_bytes<128>(), n, a, states_only, s);
   return int(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // Plain C entry point (bound with ctypes).  dtype: 0 = float32,
-// 1 = bfloat16 (x, B, C and y; dt and A are float32).  Supported:
-// chunk 64, p 64, n 64 or 128.  `states` (b, h, G, n, p) and `decay`
+// 1 = bfloat16 (x, B, C and y; dt and A are float32), 2 = bfloat16 x, B,
+// C with a float32 y (one n-block's part of a sum).  Supported: chunk 64,
+// p 64, n 64 or 128.  `states` (b, h, G, n, p) and `decay`
 // (b, h, G) are float32 scratch for G = ceil(ceil(s / 64) / group)
 // groups, unused (may be null) when G = 1; group must be 8.  Launches
 // three kernels (one when G = 1) on `stream`, does not synchronise,

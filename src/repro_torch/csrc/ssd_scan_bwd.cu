@@ -1,7 +1,12 @@
 // The gradient of the Mamba2 SSD chunked scan for Hopper (sm_90a)
 // [arXiv:2405.21060]: given dy, the gradients of x, dt, A, B and C of the
 // scan from a zero state; float32 or bfloat16 x/B/C/dy.  Narrower p and n
-// arrive zero-padded (dy too) from the wrapper, as in the forward.
+// arrive zero-padded (dy too) from the wrapper, as in the forward; wider
+// ones in the forward's blocks (kernels/ssd_scan.py `ssd_blocked_bwd`):
+// p-blocks as heads, one call an n-block from that block's group states,
+// the wrapper summing dx, ddt and dA over the n-blocks and laying their dB
+// and dC side by side.  A bf16 call of such a sum writes a float32 dx
+// (dtype 2, the DXF32 instances), so dx rounds to bf16 once.
 //
 // It differentiates what csrc/ssd_scan.cu computes, the TPU Pallas kernel
 // src/repro/kernels/ssd_scan.py:_ssd_kernel (launcher `ssd_scan`).  The
@@ -971,7 +976,8 @@ constexpr int chunk_smem_bytes() {
          + UNION_BYTES;
 }
 
-template <int N>
+// DXF32: dx in float32, a part of a sum over n-blocks that rounds once
+template <int N, bool DXF32 = false>
 __global__ void __launch_bounds__(THREADS, N == 64 ? 2 : 1)
 ssd_bwd_chunk_bf16(BwdArgs a) {
   constexpr int SN = N + 8, NQ = N / 64;
@@ -1288,10 +1294,18 @@ ssd_bwd_chunk_bf16(BwdArgs a) {
         for (int nt = 0; nt < 4; ++nt) {
           const float2 xv = ld_bf2(xs + r * SB + 32 * hf + 8 * nt + 2 * t4);
           xd[hr] += xv.x * du[nt][2 * hr] + xv.y * du[nt][2 * hr + 1];
-          if (tt < a.s)
+          if constexpr (DXF32) {
+            if (tt < a.s)
+              *reinterpret_cast<float2*>(
+                  static_cast<float*>(a.dx)
+                  + ((size_t(bb) * a.s + tt) * a.h + hh) * P + 32 * hf
+                  + 2 * t4 + 8 * nt) = make_float2(
+                      du[nt][2 * hr] * dts[r], du[nt][2 * hr + 1] * dts[r]);
+          } else if (tt < a.s) {
             *reinterpret_cast<__nv_bfloat162*>(row + 8 * nt) =
                 __floats2bfloat162_rn(du[nt][2 * hr] * dts[r],
                                       du[nt][2 * hr + 1] * dts[r]);
+          }
         }
         float v = xd[hr];
         v += __shfl_xor_sync(0xffffffffu, v, 1);
@@ -1458,7 +1472,7 @@ int launch_f32(const BwdArgs& a, cudaStream_t s) {
   return int(cudaGetLastError());
 }
 
-template <int N>
+template <int N, bool DXF32 = false>
 int launch_bf16(const BwdArgs& a, cudaStream_t s) {
   cudaError_t err;
   err = cudaFuncSetAttribute(ssd_bwd_walk_bf16<N>,
@@ -1475,12 +1489,12 @@ int launch_bf16(const BwdArgs& a, cudaStream_t s) {
     err = cudaGetLastError();
     if (err != cudaSuccess) return int(err);
   }
-  err = cudaFuncSetAttribute(ssd_bwd_chunk_bf16<N>,
+  err = cudaFuncSetAttribute(ssd_bwd_chunk_bf16<N, DXF32>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              chunk_smem_bytes<N>());
   if (err != cudaSuccess) return int(err);
-  ssd_bwd_chunk_bf16<N><<<dim3(a.nc, a.g * a.nsplit, a.b), THREADS,
-                          chunk_smem_bytes<N>(), s>>>(a);
+  ssd_bwd_chunk_bf16<N, DXF32><<<dim3(a.nc, a.g * a.nsplit, a.b), THREADS,
+                                 chunk_smem_bytes<N>(), s>>>(a);
   return int(cudaGetLastError());
 }
 
@@ -1491,7 +1505,8 @@ int launch_bf16(const BwdArgs& a, cudaStream_t s) {
 extern "C" int ssd_scan_bwd_heads() { return HEADS; }
 
 // Plain C entry point (bound with ctypes).  dtype: 0 = float32,
-// 1 = bfloat16 (x, B, C, dy and dx; dt, A and the rest float32).
+// 1 = bfloat16 (x, B, C, dy and dx; dt, A and the rest float32), 2 =
+// bfloat16 with a float32 dx (one n-block's part of a sum).
 // Supported: chunk 64, p 64, n 64 or 128, group 8.  With G = ceil(nc / 8)
 // groups of the nc = ceil(s / 64) chunks: `states` (b, h, G, n, p) are the
 // forward's group states (null when G = 1); `cstates` (b, h, nc, n, p),
@@ -1521,7 +1536,7 @@ extern "C" int ssd_scan_bwd_launch(
   const int nsplit = (h / g + HEADS - 1) / HEADS;
   if (G > 1 && (states == nullptr || dstates == nullptr))
     return int(cudaErrorInvalidValue);
-  if (dtype == 1 && (dsloc == nullptr || facs == nullptr ||
+  if (dtype >= 1 && (dsloc == nullptr || facs == nullptr ||
                      size_t(g) * nsplit > 65535))
     return int(cudaErrorInvalidValue);
   const BwdArgs a{x, dt, A, B, C, dy, G > 1 ? states : nullptr, cstates,
@@ -1532,6 +1547,8 @@ extern "C" int ssd_scan_bwd_launch(
   if (dtype == 0 && n == 128) return launch_f32<128>(a, st);
   if (dtype == 1 && n == 64) return launch_bf16<64>(a, st);
   if (dtype == 1 && n == 128) return launch_bf16<128>(a, st);
+  if (dtype == 2 && n == 64) return launch_bf16<64, true>(a, st);
+  if (dtype == 2 && n == 128) return launch_bf16<128, true>(a, st);
   return int(cudaErrorInvalidValue);
 }
 #endif

@@ -19,16 +19,19 @@ miss the float32 tolerance.  `TILES` gives each path's (query rows, keys)
 per tile, the tiling on which the plain version keeps the kernel's
 running max.  See the source's header note.
 
-Inputs: float32 or bfloat16, all three alike, contiguous; any Dh up to
-`MAX_HEAD_DIM` = 256 on the card.  The kernels are built for the widths
-`HEAD_DIMS` (phi-3-vision's heads are 96 wide, gemma3's 256); a narrower
-head (the smoke configs' 8 and 16, the reference sweep's 32) is zero-padded
-to the next of them (`kernel_width`) and the outputs sliced back.  The
-padded columns add exact zeros to every product, so the scores, the row
-log-sum-exp and the kept columns are the true width's; the scale is the
-true width's 1 / sqrt(Dh).  A width the kernels are built for launches
-as it is.  The output has q's dtype.  `LAUNCHES` counts forward kernel
-launches (the plain version never bumps it).
+Inputs: float32 or bfloat16, all three alike, contiguous; any Dh, as the
+TPU kernel takes.  The kernels are built for the widths `HEAD_DIMS`
+(phi-3-vision's heads are 96 wide, gemma3's 256); a narrower head (the
+smoke configs' 8 and 16, the reference sweep's 32) is zero-padded to the
+next of them (`kernel_width`) and the outputs sliced back.  A wider head
+is zero-padded to a multiple of `WIDE_SLICE` and runs on the wide kernels
+(a grid axis over blocks of up to `WIDE_OW` output columns, each forming
+the scores over the whole head in 64-column slices).  The padded columns
+add exact zeros to every product, so the scores, the row log-sum-exp and
+the kept columns are the true width's; the scale is the true width's 1 /
+sqrt(Dh).  A width the kernels are built for launches as it is.  The
+output has q's dtype.  `LAUNCHES` counts forward kernel launches (the
+plain version never bumps it).
 
 The gradient.  The reference differentiates its attention in XLA,
 outside the Pallas kernel; here the forward on the card is the kernel,
@@ -43,10 +46,11 @@ serving does.  `BWD_LAUNCHES` counts backward calls (two kernels each
 in bf16, three in float32).  `flash_attention_lse_plain` and `flash_attention_bwd_plain` are
 their plain versions: the latter runs the same recurrence on the
 backward kernel's tiles (`BWD_TILES`) and is held to autograd of the
-plain forward by the CPU tests.  The backward kernel runs bf16 at every
-Dh on the tensor cores (every product a wgmma chain, P and dS rounded to
-bf16 once), float32 on the CUDA cores; every sum runs in a fixed order,
-so a call repeats bit for bit.
+plain forward by the CPU tests.  The backward kernel runs bf16 at the
+built widths on the tensor cores (every product a wgmma chain, P and dS
+rounded to bf16 once), float32, and both dtypes above 256 (in output
+column blocks, P and dS rounded in bf16 as well), on the CUDA cores; every
+sum runs in a fixed order, so a call repeats bit for bit.
 """
 from __future__ import annotations
 
@@ -60,19 +64,24 @@ from ..nn import attention as _attn
 from .build import launch as _call, pad_cols as _pad_cols
 
 HEAD_DIMS = (64, 96, 128, 256)   # head widths the kernels are built for
-MAX_HEAD_DIM = HEAD_DIMS[-1]     # wider heads: ROADMAP.md queue 2, item 1
+# wider heads run on the wide kernels, padded to a multiple of WIDE_SLICE
+# (their q.k slices), in output column blocks of up to WIDE_OW columns
+WIDE_SLICE, WIDE_OW = 64, 256
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # (query rows, keys) of the kernel's tiles, by dtype: F32_BQ / F32_BK and
-# BF_BQ / BF_BK in csrc/flash_attention.cu
+# BF_BQ / BF_BK in csrc/flash_attention.cu, the wide kernels' too
 TILES = {torch.float32: (64, 64), torch.bfloat16: (128, 64)}
 
 # (query rows, keys) of the backward's tiles by dtype and head width: bf16
-# 64 x 64 at every width (HB_ROWS in csrc/flash_attention_bwd.cu), float32
-# BQ x bwd_bk<DH> (64 x 32 at Dh 256)
+# 64 x 64 at every built width (HB_ROWS in csrc/flash_attention_bwd.cu),
+# float32 BQ x bwd_bk<DH> (64 x 32 at Dh 256); the wide kernels ("wide")
+# 64 x WIDE_BK in both
 BWD_TILES = {torch.bfloat16: {64: (64, 64), 96: (64, 64), 128: (64, 64),
-                              256: (64, 64)},
+                              256: (64, 64), "wide": (64, 32)},
              torch.float32: {64: (64, 64), 96: (64, 64), 128: (64, 64),
-                             256: (64, 32)}}
+                             256: (64, 32), "wide": (64, 32)}}
+# the grid dimensions the card launches at most (y and z)
+MAX_GRID_YZ = 65535
 
 LAUNCHES = 0                # forward kernel launches in this process
 BWD_LAUNCHES = 0            # backward kernel calls (two or three launches)
@@ -172,9 +181,9 @@ def flash_attention_bwd_plain(q, k, v, o, do, lse, *, causal=True,
     G = H // KvH
     scale = scale if scale is not None else 1.0 / math.sqrt(Dh)
     # a narrow head runs on the tiles of the width the kernel pads it to
-    width = kernel_width(Dh) if Dh <= MAX_HEAD_DIM else Dh
-    bq, bk = BWD_TILES.get(q.dtype, BWD_TILES[torch.float32]) \
-        .get(width, (64, 64))
+    width = kernel_width(Dh)
+    bq, bk = BWD_TILES.get(q.dtype, BWD_TILES[torch.float32])[
+        width if width in HEAD_DIMS else "wide"]
 
     def operand(t):                   # a tensor-core operand's rounding
         return t.to(q.dtype).float()
@@ -233,24 +242,32 @@ def _bwd_lib():
 
 
 def kernel_width(Dh: int) -> int:
-    """The head width the kernels run a Dh-wide head at: the narrowest of
-    `HEAD_DIMS` that holds it (the head zero-padded to it)."""
+    """The head width the kernels run a Dh-wide head at (the head
+    zero-padded to it): the narrowest of `HEAD_DIMS` that holds it, or
+    above them the next multiple of `WIDE_SLICE` (the wide kernels)."""
     for width in HEAD_DIMS:
         if Dh <= width:
             return width
-    raise ValueError(f"flash_attention kernel takes Dh up to {MAX_HEAD_DIM} "
-                     f"(narrower heads are zero-padded to one of "
-                     f"{HEAD_DIMS}), got {Dh}; wider heads are ROADMAP.md "
-                     f"queue 2, item 1")
+    return -(-Dh // WIDE_SLICE) * WIDE_SLICE
 
 
 def _kernel_args(window, scale, Dh, *ts):
     """Checks of the CUDA path; returns (scale, the tensors `ts` padded to
     the kernels' width and 16-byte aligned).  The default scale is the
-    true width's, before any padding."""
+    true width's, before any padding.  Refuses only what the card cannot
+    launch: a grid dimension above `MAX_GRID_YZ`."""
     width = kernel_width(Dh)
     if window is not None and window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
+    B, Sq, H, _ = ts[0].shape
+    # bf16 puts its query tiles on a grid axis of their own
+    tiles = -(-Sq // TILES[torch.bfloat16][0]) \
+        if ts[0].dtype == torch.bfloat16 else 1
+    if max(B, H, -(-width // WIDE_OW), tiles) > MAX_GRID_YZ:
+        raise ValueError(f"flash_attention on the card: B = {B}, H = {H}, "
+                         f"{tiles} query tiles, {-(-width // WIDE_OW)} "
+                         f"column blocks; a grid dimension above "
+                         f"{MAX_GRID_YZ} does not launch")
     scale = scale if scale is not None else 1.0 / math.sqrt(Dh)
     # the bf16 kernel copies 16-byte rows with cp.async: a view that starts
     # off that alignment is copied first
@@ -296,7 +313,6 @@ def _flash_bwd_cuda(q, k, v, o, do, lse, *, causal=True, window=None,
     global BWD_LAUNCHES
     B, Sq, H, Dh = q.shape
     if Sq == 0 or B == 0:
-        kernel_width(Dh)
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
     scale, (q, k, v, o, do) = _kernel_args(window, scale, Dh, q, k, v, o,
                                            do)

@@ -20,19 +20,24 @@ decays (b, h, G).  See the source's header note.
 
 Shapes: x (b, s, h, p), dt (b, s, h) float32, A (h,) float32, B/C
 (b, s, g, n) with x's dtype (float32 or bfloat16); y (b, s, h, p) in x's
-dtype.  On the card: any p up to 64 and n up to 128, any chunk.  The
-kernels are built for p 64 and n 64 or 128 (`HEAD_DIMS`, `STATE_DIMS`);
-a narrower x is zero-padded to p 64 and narrower B / C to the next built
-n (`kernel_widths`), and y (dx, dB, dC) sliced back.  The padded columns
-add exact zeros to every sum (y's p columns are independent of each
-other; the state's padded rows and columns stay zero), so the kept
-columns, ddt and dA are the true widths'.  The group states of a padded
-call are kept at the padded widths.  Widths the kernels are built for
-launch as they are.  The chunk picks the
-plain version's float32 sum order, not the function: y is the same
-function of (x, dt, A, B, C) at every chunk, so the kernels run their own
-`TILE`-row chunks whatever chunk the caller asks for.  `LAUNCHES` counts
-kernel launches, `kernel_launches(s)` per call: 3, or 1 when one group
+dtype.  On the card: any p and n, as the TPU kernel takes, at any chunk.
+The kernels are built for p 64 and n 64 or 128 (`HEAD_DIMS`,
+`STATE_DIMS`); other widths run in blocks of them (`ssd_blocked`,
+`ssd_blocked_bwd`, written once for the card and the CPU tests, which hand
+it the plain version).  x is zero-padded to a multiple of 64 columns and
+its p-blocks run as heads of their own (y's p columns and the state's p
+rows never mix); B / C run in n-blocks of up to 128 columns
+(`state_blocks`), each zero-padded to the next built n, one call a block,
+and y is the sum of the blocks' y (y is linear in the n-blocks of B and
+C), taken in float32 and rounded once.  The padded columns add exact
+zeros to every sum, so the kept columns, ddt and dA are the true widths';
+y (dx, dB, dC) is sliced back.  The group states are kept at the
+kernels' widths (`kernel_widths`).  Widths the kernels are built for
+launch as they are.  The chunk picks the plain version's float32 sum
+order, not the function: y is the same function of (x, dt, A, B, C) at
+every chunk, so the kernels run their own `TILE`-row chunks whatever
+chunk the caller asks for.  `LAUNCHES` counts kernel launches,
+`kernel_launches(s, n)` per call: per n-block 3, or 1 when one group
 holds every tile (the plain version never bumps it).
 
 The gradient.  The reference differentiates `ssd_chunked` in XLA,
@@ -44,7 +49,8 @@ function whose forward is the kernel keeping its group states (the
 float32 incoming state of every group, which launch 2 writes anyway)
 and whose backward is the backward kernel; otherwise it launches the
 forward alone, as serving does.  `BWD_LAUNCHES` counts backward calls
-(`bwd_kernel_launches(s)` kernels each).  `ssd_scan_bwd_plain` is the
+(one an n-block, `bwd_kernel_launches(s)` kernels each).
+`ssd_scan_bwd_plain` is the
 backward's plain version, chunk by chunk from the gradient equations
 (the tests hold it to autograd of `ssd_scan_plain` and to `jax.grad`
 of the reference); `ssd_scan_bwd_split_plain` mirrors the bf16
@@ -65,11 +71,9 @@ from ..nn import ssd as _ssd
 from .build import launch as _call, pad_cols as _pad_cols
 
 TILE = 64                   # rows of the kernels' chunk (L in the csrc/)
-HEAD_DIMS = (64,)           # p the kernels are built for
-STATE_DIMS = (64, 128)      # n the kernels are built for
-# wider: ROADMAP.md queue 2, item 2 (y's p columns are independent, so a
-# p above 64 can run in blocks of 64)
-MAX_HEAD_DIM, MAX_STATE_DIM = HEAD_DIMS[-1], STATE_DIMS[-1]
+HEAD_DIMS = (64,)           # p the kernels are built for (wider: blocks)
+STATE_DIMS = (64, 128)      # n the kernels are built for (wider: blocks)
+MAX_GRID_YZ = 65535         # the grid dimensions the card launches at most
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # tiles per group of the kernel's split (GROUP in csrc/ssd_scan.cu): at
 # the prefill shape 64 tiles make 8 groups, whose f32 states (16.8 MB)
@@ -465,10 +469,11 @@ def ssd_scan_split_plain(x, dt, A, B, C, *, chunk=64, group=GROUP_CHUNKS):
     return y.reshape(b, G * group * chunk, h, p)[:, :s]
 
 
-def kernel_launches(s: int) -> int:
-    """Kernels one call at sequence length s launches: the three passes
-    of the split, or the scan alone when one group holds every tile."""
-    return 1 if n_groups(s) == 1 else 3
+def kernel_launches(s: int, n: int = 64) -> int:
+    """Kernels one scan at sequence length s and n state columns launches:
+    per n-block (`state_blocks`) the three passes of the split, or the
+    scan alone when one group holds every tile."""
+    return len(state_blocks(n)) * (1 if n_groups(s) == 1 else 3)
 
 
 @functools.lru_cache(maxsize=None)
@@ -482,61 +487,149 @@ def _lib(entry="ssd_scan_launch"):
     return fn
 
 
+def state_blocks(n: int) -> list:
+    """The n-blocks a scan with n state columns runs as: (first column,
+    end column, the built width the block is zero-padded to), 128 columns
+    a block, the last narrower block padded to the next of `STATE_DIMS`."""
+    top = STATE_DIMS[-1]
+    return [(n0, min(n, n0 + top),
+             next(w for w in STATE_DIMS if min(n, n0 + top) - n0 <= w))
+            for n0 in range(0, max(n, 1), top)]
+
+
 def kernel_widths(p: int, n: int) -> tuple:
-    """The (p, n) the kernels run a (p, n) scan at: the narrowest built
-    widths that hold them (x, B and C zero-padded to them)."""
-    if p > MAX_HEAD_DIM or n > MAX_STATE_DIM:
-        raise ValueError(f"ssd_scan kernel takes p up to {MAX_HEAD_DIM} and "
-                         f"n up to {MAX_STATE_DIM} (narrower ones are "
-                         f"zero-padded to p in {HEAD_DIMS}, n in "
-                         f"{STATE_DIMS}); got p={p}, n={n}; wider ones are "
-                         f"ROADMAP.md queue 2, item 2")
-    return (next(w for w in HEAD_DIMS if p <= w),
-            next(w for w in STATE_DIMS if n <= w))
+    """The (p, n) the kernels run a (p, n) scan at: p zero-padded to a
+    multiple of 64 (blocks of 64 columns, run as heads), n the sum of its
+    blocks' built widths (`state_blocks`)."""
+    top = HEAD_DIMS[-1]
+    return -(-p // top) * top, sum(w for _, _, w in state_blocks(n))
+
+
+def _p_view(t, k):
+    """t (b, s, h, p) zero-padded to k blocks of 64 columns and viewed as
+    (b, s, h k, 64)."""
+    b, s, h, _ = t.shape
+    t = _pad_cols(t, k * HEAD_DIMS[-1])
+    return t if k == 1 else t.reshape(b, s, h * k, HEAD_DIMS[-1])
+
+
+def _p_blocks(x, dt, A):
+    """x in p-blocks of 64 columns run as heads (`_p_view`), dt and A
+    repeated k times over the heads, and k.  Head h k + j reads B/C group
+    h // rep, as head h does: y's p columns and the state's p rows never
+    mix."""
+    k = -(-x.shape[3] // HEAD_DIMS[-1])
+    if k == 1:
+        return _p_view(x, k), dt, A, k
+    return (_p_view(x, k), dt.repeat_interleave(k, dim=2),
+            A.repeat_interleave(k), k)
+
+
+def ssd_blocked(x, dt, A, B, C, scan):
+    """y of the scan at any p and n, from `scan(x, dt, A, B, C, f32) ->
+    (y, aux)` run at the built widths: x in p-blocks of 64 folded into the
+    heads (`_p_blocks`), B / C in n-blocks (`state_blocks`), one call a
+    block.  y is linear in the n-blocks of (B, C) (C B^T and C state^T are
+    sums over n, and the state's n columns evolve apart), so y is the sum
+    of the blocks' y, taken in float32 (`f32` asks the block for a float32
+    y) and rounded once to x's dtype.  Returns (y, [aux of each block]).
+    On the card `scan` launches the kernel; the CPU tests hand it the
+    plain version."""
+    b, s, h, p = x.shape
+    xv, dtv, Av, _ = _p_blocks(x, dt, A)
+    blocks = state_blocks(B.shape[3])
+    parts = [scan(xv, dtv, Av, B[..., n0:n1], C[..., n0:n1], len(blocks) > 1)
+             for n0, n1, _ in blocks]
+    y = parts[0][0]
+    for part, _ in parts[1:]:
+        y = y + part
+    y = y.to(x.dtype).reshape(b, s, h, -1)
+    if y.shape[3] != p:
+        y = y[..., :p].contiguous()
+    return y, [a for _, a in parts]
+
+
+def ssd_blocked_bwd(x, dt, A, B, C, dy, bwd):
+    """(dx, ddt, dA, dB, dC) at any p and n from `bwd(x, dt, A, B, C, dy,
+    j, f32) -> the five gradients of n-block j` at the built widths, the
+    blocks of `ssd_blocked`: dx, ddt and dA are summed over the n-blocks in
+    float32 (dx rounded once), dB and dC are the blocks' side by side;
+    then ddt and dA are summed over each head's p-blocks in float32 and dx
+    viewed back."""
+    b, s, h, p = x.shape
+    xv, dtv, Av, k = _p_blocks(x, dt, A)
+    dyv = _p_view(dy, k)
+    blocks = state_blocks(B.shape[3])
+    parts = [bwd(xv, dtv, Av, B[..., n0:n1], C[..., n0:n1], dyv, j,
+                 len(blocks) > 1) for j, (n0, n1, _) in enumerate(blocks)]
+    dx, ddt, dA, dB, dC = parts[0]
+    for gx, gdt, gA, _, _ in parts[1:]:
+        dx, ddt, dA = dx + gx, ddt + gdt, dA + gA
+    if len(parts) > 1:
+        dB, dC = (torch.cat([g[i] for g in parts], -1) for i in (3, 4))
+    dx = dx.to(x.dtype).reshape(b, s, h, -1)
+    if dx.shape[3] != p:
+        dx = dx[..., :p].contiguous()
+    if k > 1:
+        ddt = ddt.reshape(b, s, h, k).sum(-1)
+        dA = dA.reshape(h, k).sum(-1)
+    return dx, ddt, dA, dB, dC
 
 
 def _prepare(x, dt, A, B, C):
-    """Checked, dense, 16-byte aligned inputs, x / B / C padded to the
-    kernels' widths, and the split's scratch at those widths."""
-    b, s, h, _ = x.shape
-    p, n = kernel_widths(x.shape[3], B.shape[3])
+    """Checked, dense, 16-byte aligned inputs of one block (x at p 64), B
+    and C padded to the block's built width, and the split's scratch at
+    those widths."""
+    b, s, h, p = x.shape
+    if max(b, h) > MAX_GRID_YZ:
+        raise ValueError(f"ssd_scan on the card: b = {b}, {h} heads (p-blocks "
+                         f"of 64 counted as heads); a grid dimension above "
+                         f"{MAX_GRID_YZ} does not launch")
+    n = next(w for w in STATE_DIMS if B.shape[3] <= w)
     # the kernel copies dense row-major 16-byte rows with cp.async; the
     # model's x/B/C are views into the conv output, so this copies them
-    ins = [_pad_cols(x, p), dt, A, _pad_cols(B, n), _pad_cols(C, n)]
+    ins = [x, dt, A, _pad_cols(B, n), _pad_cols(C, n)]
     ins = [t.contiguous() for t in ins]
     ins = [t if t.data_ptr() % 16 == 0 else t.clone() for t in ins]
     G = n_groups(s)
     states = decay = None
     if G > 1:                   # group states and decays of the split
-        states = torch.empty((b, h, G, n, p), dtype=torch.float32,
-                             device=x.device)
-        decay = torch.empty((b, h, G), dtype=torch.float32, device=x.device)
+        states = ins[0].new_empty((b, h, G, n, p), dtype=torch.float32)
+        decay = ins[0].new_empty((b, h, G), dtype=torch.float32)
     return ins, states, decay
 
 
-def _dims(x, B) -> tuple:
+def _dims(x, B, f32=False) -> tuple:
     """The launchers' int arguments: b, s, h, p, g, n, the chunk (always
-    the kernels' `TILE`, never the caller's), the group, the dtype code."""
+    the kernels' `TILE`, never the caller's), the group, the dtype code
+    (2: bf16 inputs with a float32 y, or dx, for a sum over n-blocks)."""
     b, s, h, p = x.shape
-    return (b, s, h, p, B.shape[2], B.shape[3], TILE, GROUP_CHUNKS,
-            DTYPES[x.dtype])
+    code = 2 if f32 and x.dtype == torch.bfloat16 else DTYPES[x.dtype]
+    return (b, s, h, p, B.shape[2], B.shape[3], TILE, GROUP_CHUNKS, code)
 
 
 def _ssd_cuda(x, dt, A, B, C, *, states=False):
-    """Launch csrc/ssd_scan.cu on the current stream (no sync).  Returns
-    y, or with `states` (y, the group states): the float32 incoming state
-    of every group, (b, h, G, n, p) at the kernels' widths, which launch
-    2 writes into the split's scratch (None when one group holds every
-    tile: its state is zero).  Asking for them changes no launch."""
-    global LAUNCHES
-    ins, st, decay = _prepare(x, dt, A, B, C)
-    y = torch.empty_like(ins[0])
-    _call(_lib("ssd_scan_launch"), (*ins, y, st, decay),
-          _dims(ins[0], ins[3]), "ssd_scan")
-    LAUNCHES += kernel_launches(x.shape[1])
-    if y.shape[3] != x.shape[3]:
-        y = y[..., :x.shape[3]].contiguous()
-    return (y, st) if states else y
+    """Launch csrc/ssd_scan.cu on the current stream (no sync), one call
+    (`kernel_launches(s)` kernels) an n-block (`ssd_blocked`).  Returns y,
+    or with `states` (y, the group states): the float32 incoming state of
+    every group, (b, h k, G, n', 64) at the kernels' widths (p in k blocks
+    of 64 run as heads, n' the n-blocks' built widths side by side), which
+    launch 2 writes into the split's scratch (None when one group holds
+    every tile: its state is zero).  Asking for them changes no launch."""
+    def block(x_, dt_, A_, B_, C_, f32):
+        global LAUNCHES
+        ins, st, decay = _prepare(x_, dt_, A_, B_, C_)
+        y = torch.empty_like(ins[0],
+                             dtype=torch.float32 if f32 else x_.dtype)
+        _call(_lib("ssd_scan_launch"), (*ins, y, st, decay),
+              _dims(ins[0], ins[3], f32), "ssd_scan")
+        LAUNCHES += kernel_launches(x_.shape[1])
+        return y, st
+
+    y, st = ssd_blocked(x, dt, A, B, C, block)
+    if states and st[0] is not None and len(st) > 1:
+        st = [torch.cat(st, 3)]
+    return (y, st[0]) if states else y
 
 
 @functools.lru_cache(maxsize=1)
@@ -563,24 +656,18 @@ def bwd_rows(h: int, g: int, dtype) -> int:
     return g * -(-(h // g) // BWD_HEADS)
 
 
-def _ssd_bwd_cuda(x, dt, A, B, C, dy, states):
-    """Launch csrc/ssd_scan_bwd.cu on the current stream (no sync):
-    `bwd_kernel_launches(s)` kernels.  `states` are the forward's group
-    states (`_ssd_cuda(..., states=True)`, at the kernels' widths).
-    Returns (dx, ddt, dA, dB, dC): dx, dB, dC in x's dtype, ddt and dA
-    float32.  The kernel writes float32 dB / dC rows (`bwd_rows`) and dA
-    parts per (batch, head, group) in float32 or per (batch, head, tile)
-    in bf16, summed here.  A padded call pads dy with zeros as well, so
-    the padded columns add nothing to ddt and dA."""
+def _bwd_block(x, dt, A, B, C, dy, states, f32):
+    """One backward call (`bwd_kernel_launches(s)` kernels) at p 64 and
+    an n-block, from that block's group states.  Returns dx (float32 when
+    `f32`, else x's dtype), ddt and dA float32, dB and dC in x's dtype at
+    the block's true width.  The kernel writes float32 dB / dC rows
+    (`bwd_rows`) and dA parts per (batch, head, group) in float32 or per
+    (batch, head, tile) in bf16, summed here."""
     global BWD_LAUNCHES
-    _check(x, dt, A, B, C)
-    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
-        raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype} on {dy.device} "
-                         f"does not fit x {tuple(x.shape)} {x.dtype}")
-    p0, n0 = x.shape[3], B.shape[3]
+    n0 = B.shape[3]
     ins, _, _ = _prepare(x, dt, A, B, C)
     x, B = ins[0], ins[3]
-    dy = _pad_cols(dy, x.shape[3]).contiguous()
+    dy = dy.contiguous()
     dy = dy if dy.data_ptr() % 16 == 0 else dy.clone()
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
@@ -591,26 +678,46 @@ def _ssd_bwd_cuda(x, dt, A, B, C, dy, states):
         raise ValueError(f"the backward at s = {s} needs the forward's "
                          f"group states, float32 {(b, h, G, n, p)}")
     bf = x.dtype == torch.bfloat16
-    f32 = dict(dtype=torch.float32, device=x.device)
-    chunk_states = torch.empty((b, h, nc, n, p), **f32)
-    dstates = torch.empty((b, h, G, n, p), **f32) if G > 1 else None
-    gdecay = torch.empty((b, h, G), **f32)
-    dsloc = torch.empty((b, h, nc, n, p), **f32) if bf else None
-    facs = torch.empty((b, h, nc), **f32) if bf else None
-    dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
-    ddt = torch.empty((b, s, h), **f32)
+    fl = dict(dtype=torch.float32, device=x.device)
+    chunk_states = torch.empty((b, h, nc, n, p), **fl)
+    dstates = torch.empty((b, h, G, n, p), **fl) if G > 1 else None
+    gdecay = torch.empty((b, h, G), **fl)
+    dsloc = torch.empty((b, h, nc, n, p), **fl) if bf else None
+    facs = torch.empty((b, h, nc), **fl) if bf else None
+    dx = torch.empty_like(x, dtype=torch.float32 if f32 else x.dtype)
+    ddt = torch.empty((b, s, h), **fl)
     rows = bwd_rows(h, g, x.dtype)
-    dBp, dCp = (torch.empty((b, s, rows, n), **f32) for _ in range(2))
-    dAp = torch.empty((b, h, nc if bf else G), **f32)
+    dBp, dCp = (torch.empty((b, s, rows, n), **fl) for _ in range(2))
+    dAp = torch.empty((b, h, nc if bf else G), **fl)
     _call(_bwd_lib(), (*ins, dy, states if G > 1 else None, chunk_states,
                        dstates, gdecay, dsloc, facs, dx, ddt, dBp, dCp, dAp),
-          _dims(x, B), "ssd_scan backward")
+          _dims(x, B, f32), "ssd_scan backward")
     BWD_LAUNCHES += 1
     dB, dC = (t.view(b, s, g, rows // g, n).sum(3)[..., :n0].to(x.dtype)
               for t in (dBp, dCp))
-    if p != p0:
-        dx = dx[..., :p0].contiguous()
     return dx, ddt, dAp.sum((0, 2)), dB, dC
+
+
+def _ssd_bwd_cuda(x, dt, A, B, C, dy, states):
+    """Launch csrc/ssd_scan_bwd.cu on the current stream (no sync), one
+    call an n-block (`ssd_blocked_bwd`), each from its columns of the
+    forward's group states (`_ssd_cuda(..., states=True)`, at the kernels'
+    widths).  Returns (dx, ddt, dA, dB, dC): dx, dB, dC in x's dtype, ddt
+    and dA float32.  A padded call pads dy with zeros as well, so the
+    padded columns add nothing to ddt and dA."""
+    _check(x, dt, A, B, C)
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
+        raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype} on {dy.device} "
+                         f"does not fit x {tuple(x.shape)} {x.dtype}")
+    blocks = state_blocks(B.shape[3])
+    offs = [sum(w for *_, w in blocks[:j]) for j in range(len(blocks))]
+
+    def block(x_, dt_, A_, B_, C_, dy_, j, f32):
+        st = states
+        if st is not None and len(blocks) > 1:
+            st = st[:, :, :, offs[j]:offs[j] + blocks[j][2]].contiguous()
+        return _bwd_block(x_, dt_, A_, B_, C_, dy_, st, f32)
+    return ssd_blocked_bwd(x, dt, A, B, C, dy, block)
 
 
 class SSDScan(torch.autograd.Function):
@@ -634,12 +741,13 @@ class SSDScan(torch.autograd.Function):
 
 
 def ssd_group_states_cuda(x, dt, A, B, C):
-    """The kernel's launches 1-2 alone on CUDA tensors: the float32
-    incoming state of every group, (b, G, h, p, n) like
-    `ssd_split_states_plain` at chunk `TILE`.  For the card's checks of
-    the split's state products; s must span more than one group.  A
-    padded call's states come back at the true widths (the padded rows
-    and columns are zero).  Adds its two launches to `LAUNCHES`."""
+    """The kernel's launches 1-2 alone on CUDA tensors, one call an
+    n-block: the float32 incoming state of every group, (b, G, h, p, n)
+    like `ssd_split_states_plain` at chunk `TILE`, at the true widths (the
+    padded rows and columns are zero; the p-blocks' rows and the
+    n-blocks' columns laid back side by side).  For the card's checks of
+    the split's state products; s must span more than one group.  Adds
+    its two launches an n-block to `LAUNCHES`."""
     global LAUNCHES
     if x.device.type != "cuda":
         raise ValueError(f"ssd_group_states_cuda takes CUDA tensors, got "
@@ -647,8 +755,16 @@ def ssd_group_states_cuda(x, dt, A, B, C):
     _check(x, dt, A, B, C)
     if n_groups(x.shape[1]) < 2:
         raise ValueError(f"s = {x.shape[1]} fits one group: no group states")
-    ins, states, decay = _prepare(x, dt, A, B, C)
-    _call(_lib("ssd_scan_states_launch"), (*ins, states, decay),
-          _dims(ins[0], ins[3]), "ssd_scan")
-    LAUNCHES += 2
-    return states.permute(0, 2, 1, 4, 3)[..., :x.shape[3], :B.shape[3]]
+    b, _, h, p = x.shape
+    xv, dtv, Av, k = _p_blocks(x, dt, A)
+    out = []
+    for n0, n1, _ in state_blocks(B.shape[3]):
+        ins, states, decay = _prepare(xv, dtv, Av, B[..., n0:n1],
+                                      C[..., n0:n1])
+        _call(_lib("ssd_scan_states_launch"), (*ins, states, decay),
+              _dims(ins[0], ins[3]), "ssd_scan")
+        LAUNCHES += 2
+        G = states.shape[2]
+        out.append(states.permute(0, 2, 1, 4, 3)
+                   .reshape(b, G, h, k * HEAD_DIMS[-1], -1)[..., :n1 - n0])
+    return torch.cat(out, -1)[..., :p, :]

@@ -54,7 +54,7 @@ def train(arch: str, *, smoke: bool = True, steps: int = 50,
           batch: int = 8, seq: int = 64, ckpt_dir: str | None = None,
           ckpt_every: int = 20, compress_grads: bool = False,
           lr: float = 3e-3, log_every: int = 10, device="cuda",
-          on_step=None, layers: int | None = None, params=None):
+          on_step=None, layers: int | None = None, params=None, cfg=None):
     """Train `arch` for `steps` steps from seeded weights (a CPU
     `torch.Generator`, seed 0, drawn on the host and moved to `device`:
     the same weights on every device), from `params` when given (a tree
@@ -63,9 +63,12 @@ def train(arch: str, *, smoke: bool = True, steps: int = 50,
     returns (params, losses of the steps run).
     `on_step(step, metrics)` sees each step's metrics ({"loss",
     "grad_norm", "lr"}).  `layers` cuts the depth to that many layers
-    (the config's first `layers`, at full width)."""
+    (the config's first `layers`, at full width).  `cfg` trains a config
+    of `arch`'s model in place of the registry's (e.g. its smoke config
+    at other widths)."""
     dev = _device.resolve(device)
-    cfg, model = registry.get(arch, smoke=smoke)
+    reg_cfg, model = registry.get(arch, smoke=smoke)
+    cfg = reg_cfg if cfg is None else cfg
     if layers is not None:
         if not 0 < layers <= cfg.n_layers:
             raise ValueError(f"layers must be in 1..{cfg.n_layers}, got "

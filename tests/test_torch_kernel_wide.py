@@ -1,0 +1,302 @@
+"""The widths above the ones the port's kernels are built for, which the
+TPU kernels take: flash attention at any head width past 256, the SSD scan
+at any p past 64 and any n past 128.
+
+- The plain flash forward at Dh 320 and 512 against the Pallas kernel in
+  interpret mode (`repro.kernels.ops`), at the reference's tolerances
+  (`tests/test_kernels.py`: float32 2e-5, bf16 2e-2); its plain backward
+  against `jax.grad` of `ref.flash_attention_ref`.
+- The SSD's block decomposition (`ssd_blocked` / `ssd_blocked_bwd`, what
+  the card runs, handed the plain version for its blocks) against the
+  Pallas kernel, against `jax.grad` of `repro.nn.ssd.ssd_chunked` and, in
+  float32, against the plain backward run in float64.
+- gemma3-4b's smoke config with heads 320 wide and mamba2-2.7b's with the
+  SSD at p 128 / n 256, derived alike in both packages: prefill logits.
+- The wrappers' card route with the ctypes launch swapped for the plain
+  version at the width it is handed (`tests/test_torch_kernel_widths.py`'s
+  helpers): a wide call reaches the launch, counted, at the padded head
+  or in the SSD's blocks, and never the plain version.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops, ref
+from repro.launch import steps as j_steps
+from repro.models import registry as j_reg
+from repro.nn import ssd as j_ssd
+from repro_torch import convert
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ssd_scan as ss
+from repro_torch.launch import steps as t_steps
+from repro_torch.models import registry as t_reg
+from test_torch_kernel_widths import (PLAIN_FLASH, PLAIN_SSD, _flash_launches,
+                                      _OnCard, _qkv, _rel_close,
+                                      _ssd_inputs, _ssd_launches)
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}        # tests/test_kernels.py
+REL = 1e-5          # float32 gradients, of the largest magnitude
+
+# (B, Sq, Sk, H, KvH, Dh, causal, window): causal GQA, a window,
+# bidirectional at a ragged S, Sq != Sk, a ragged causal S; Dh 320 ends in
+# a 64-wide column block of the wide kernels, 512 in two full ones
+FLASH_CASES = [
+    (1, 128, 128, 4, 2, 320, True, None),
+    (1, 128, 128, 2, 2, 320, True, 48),
+    (2, 96, 96, 2, 2, 512, False, None),
+    (1, 80, 144, 4, 2, 512, False, None),
+    (1, 100, 100, 2, 1, 512, True, None),
+]
+# (p, n): p in two blocks of 64, p padded to two blocks, n in two blocks of
+# 128, n in a block of 128 and one of 64
+SSD_WIDTHS = [(128, 128), (80, 64), (64, 256), (128, 192)]
+
+
+def _plain_block(x, dt, A, B, C, f32):
+    """One block of the decomposition by the plain version, y in float32
+    (the bf16 kernel's products are exact in float32)."""
+    return ss.ssd_scan_plain(x.float(), dt, A, B.float(), C.float()), None
+
+
+def _plain_block_bwd(x, dt, A, B, C, dy, j, f32):
+    return ss.ssd_scan_bwd_plain(x, dt, A, B, C, dy)
+
+
+# ---------------------------------------------------------------------------
+# flash attention past Dh 256
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Sq,Sk,H,KvH,Dh,causal,window", FLASH_CASES)
+def test_flash_plain_matches_pallas_past_256(dtype, B, Sq, Sk, H, KvH, Dh,
+                                             causal, window):
+    (jq, jk, jv), (tq, tk, tv, _) = _qkv(Sq + Dh, B, Sq, Sk, H, KvH, Dh,
+                                         dtype)
+    got = fa.flash_attention(tq, tk, tv, causal=causal, window=window)
+    want = ops.flash_attention(jq, jk, jv, causal=causal, window=window,
+                               block_q=64, block_k=64)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KvH,Dh,causal,window", FLASH_CASES)
+def test_flash_bwd_plain_matches_jax_grad_past_256(B, Sq, Sk, H, KvH, Dh,
+                                                   causal, window):
+    """`flash_attention_bwd_plain` on the wide kernels' tiles against
+    `jax.grad` of the reference's attention, float32."""
+    (jq, jk, jv), (q, k, v, do) = _qkv(Sq + Dh + 1, B, Sq, Sk, H, KvH, Dh)
+    w = jnp.asarray(do.numpy())
+
+    def loss(q_, k_, v_):
+        return jnp.sum(ref.flash_attention_ref(q_, k_, v_, causal=causal,
+                                               window=window) * w)
+    want = jax.grad(loss, argnums=(0, 1, 2))(jq, jk, jv)
+    mask = dict(causal=causal, window=window)
+    got = fa.flash_attention_bwd_plain(
+        q, k, v, PLAIN_FLASH(q, k, v, **mask), do,
+        fa.flash_attention_lse_plain(q, k, **mask), **mask)
+    assert fa.BWD_TILES[torch.float32]["wide"] == (64, 32)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        b = np.asarray(b, np.float32)
+        assert a.shape == b.shape, name
+        np.testing.assert_allclose(a.numpy(), b, rtol=0,
+                                   atol=REL * float(np.abs(b).max()),
+                                   err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# the SSD's block decomposition past p 64 and n 128
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("p,n", SSD_WIDTHS)
+@pytest.mark.parametrize("g", [1, 2])
+def test_ssd_blocks_match_pallas(dtype, p, n, g):
+    """y from the blocks (p-blocks as heads, n-blocks summed in float32)
+    against the Pallas kernel and the sequential oracle."""
+    j, t = _ssd_inputs(p + n + g, 1, 128, 4, p, g, n, dtype)
+    got, _ = ss.ssd_blocked(*t[:5], _plain_block)
+    assert got.dtype == t[0].dtype and got.shape == t[0].shape
+    tol = TOL[dtype]
+    for want in (ops.ssd_scan(*j, chunk=64), ref.ssd_scan_ref(*j)):
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32),
+                                   atol=max(tol, 1e-4), rtol=5 * tol)
+
+
+@pytest.mark.parametrize("p,n", SSD_WIDTHS)
+@pytest.mark.parametrize("g", [1, 2])
+def test_ssd_blocks_grads_match_jax(p, n, g):
+    """At a ragged s (100: the tail reads as dt = 0), y and every gradient
+    of the blocks (`ssd_blocked_bwd`: dx, ddt, dA summed over the n-blocks
+    and ddt, dA over each head's p-blocks, dB / dC side by side) against
+    `ssd_chunked` and its `jax.grad`, float32, dt at a quarter scale (the
+    reference's gradient overflows on fast decays)."""
+    j, t = _ssd_inputs(p * n + g, 2, 100, 4, p, g, n, dt_scale=0.25)
+    y, _ = ss.ssd_blocked(*t[:5], _plain_block)
+    np.testing.assert_allclose(
+        y.numpy(), np.asarray(j_ssd.ssd_chunked(*j, chunk=64)[0]), rtol=0,
+        atol=REL * float(y.abs().max()))
+    w = jnp.asarray(t[5].numpy())
+
+    def loss(*a):
+        return jnp.sum(j_ssd.ssd_chunked(*a, chunk=64)[0] * w)
+    want = jax.grad(loss, argnums=(0, 1, 2, 3, 4))(*j)
+    got = ss.ssd_blocked_bwd(*t, _plain_block_bwd)
+    for name, a, b in zip(("dx", "ddt", "dA", "dB", "dC"), got, want):
+        b = np.asarray(b, np.float32)
+        assert a.shape == b.shape, name
+        np.testing.assert_allclose(a.numpy(), b, rtol=0,
+                                   atol=REL * float(np.abs(b).max()),
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("p,n", SSD_WIDTHS)
+def test_ssd_blocks_float32_backward_vs_float64(p, n):
+    """The blocks' float32 backward against the plain backward run whole
+    in float64 (the exact reference of the card's float32 check) over more
+    than one group: within 1e-5 of each gradient's largest magnitude.  dt
+    x 0.05 as the card's phase 33 a draws it (the state carried between
+    groups counts); at dt x 1 the float32 plain version's own dA, blocked
+    or whole, is up to 6e-5 of its largest magnitude off float64 on these
+    inputs (a sum of terms that cancel)."""
+    _, t = _ssd_inputs(p + 2 * n, 1, 600, 2, p, 1, n, dt_scale=0.05)
+    got = ss.ssd_blocked_bwd(*t, _plain_block_bwd)
+    want = ss.ssd_scan_bwd_plain(*(x.double() for x in t))
+    for a, w in zip(got, want):
+        assert a.dtype == torch.float32 and a.shape == w.shape
+        assert float((a.double() - w).abs().max()) <= \
+            REL * float(w.abs().max())
+
+
+def test_state_blocks_and_launch_counts():
+    assert ss.state_blocks(16) == [(0, 16, 64)]
+    assert ss.state_blocks(128) == [(0, 128, 128)]
+    assert ss.state_blocks(129) == [(0, 128, 128), (128, 129, 64)]
+    assert ss.state_blocks(256) == [(0, 128, 128), (128, 256, 128)]
+    assert ss.state_blocks(300) == [(0, 128, 128), (128, 256, 128),
+                                    (256, 300, 64)]
+    assert [ss.kernel_launches(s, n) for s, n in
+            ((512, 64), (513, 64), (512, 256), (513, 256), (100, 300))] == \
+        [1, 3, 2, 6, 3]
+
+
+# ---------------------------------------------------------------------------
+# the derived smoke configs through the models
+# ---------------------------------------------------------------------------
+
+def _derive(arch, cfg):
+    """Phase 33 b's configs (chip_smoke.py), in either package."""
+    if arch == "gemma3-4b":
+        return dataclasses.replace(cfg, head_dim=320)
+    return dataclasses.replace(cfg, ssm=dataclasses.replace(
+        cfg.ssm, head_dim=128, d_state=256))
+
+
+@pytest.mark.parametrize("arch", ["gemma3-4b", "mamba2-2.7b"])
+def test_derived_configs_prefill_matches_reference(arch):
+    jcfg, jmodel = j_reg.get(arch, smoke=True)
+    tcfg, tmodel = t_reg.get(arch, smoke=True)
+    jcfg, tcfg = _derive(arch, jcfg), _derive(arch, tcfg)
+    assert (tcfg.head_dim, tcfg.ssm and (tcfg.ssm.head_dim,
+                                         tcfg.ssm.d_state)) == \
+        ((320, None) if arch == "gemma3-4b" else (1, (128, 256)))
+    tree = convert.lm_params_numpy(tcfg, seed=3)
+    toks = np.random.default_rng(4).integers(0, tcfg.vocab, (2, 40))
+    hj, _ = j_steps.make_prefill_step(jcfg, jmodel, None)(
+        jax.tree.map(jnp.asarray, tree), {"tokens": jnp.asarray(toks)})
+    ht, _ = t_steps.make_prefill_step(tcfg, tmodel)(
+        convert.lm_params_from_numpy(tree, tcfg, device="cpu"),
+        {"tokens": torch.as_tensor(toks)})
+    hj = np.asarray(hj, np.float32)
+    assert tuple(ht.shape) == hj.shape
+    np.testing.assert_allclose(ht.float().numpy(), hj, rtol=0,
+                               atol=1e-5 * float(np.abs(hj).max()))
+
+
+# ---------------------------------------------------------------------------
+# the card route, the launch swapped for the plain version
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("Dh,width", [(257, 320), (320, 320), (512, 512),
+                                      (600, 640)])
+def test_wide_flash_on_the_card_route(monkeypatch, Dh, width):
+    """A CUDA-typed call past Dh 256 launches the wide path at the head
+    padded to a multiple of 64 with the true width's scale, forward and
+    backward, counted, and never reaches the plain version; o and the
+    gradients equal the plain version's at the true width."""
+    seen = []
+    _flash_launches(monkeypatch, seen)
+    leaves = _qkv(Dh, 1, 70, 70, 4, 2, Dh)[1]
+    q, k, v, do = leaves
+    mask = dict(causal=True, window=24)
+    want = PLAIN_FLASH(q, k, v, **mask)
+    grads = fa.flash_attention_bwd_plain(
+        q, k, v, want, do, fa.flash_attention_lse_plain(q, k, **mask),
+        **mask)
+
+    def refuse(*a, **kw):
+        raise AssertionError("the card route reached the plain version")
+    monkeypatch.setattr(fa, "flash_attention_plain", refuse)
+    before = fa.LAUNCHES
+    with torch.no_grad():
+        got = fa.flash_attention(*(t.as_subclass(_OnCard)
+                                   for t in (q, k, v)), **mask)
+    assert fa.LAUNCHES == before + 1
+    assert seen[-1][:2] == ("forward", width)
+    _rel_close(got.as_subclass(torch.Tensor), want, f"Dh {Dh}")
+    qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+    f0, b0 = fa.LAUNCHES, fa.BWD_LAUNCHES
+    fa.FlashAttention.apply(*qkv, True, 24, None).backward(do)
+    assert (fa.LAUNCHES - f0, fa.BWD_LAUNCHES - b0) == (1, 1)
+    assert [(fn, d) for fn, d, _ in seen[-2:]] == [("forward", width),
+                                                  ("backward", width)]
+    assert all(s == 1.0 / np.sqrt(Dh) for _, _, s in seen)
+    for name, a, w in zip("qkv", qkv, grads):
+        assert a.grad.shape == w.shape
+        _rel_close(a.grad, w, "d" + name)
+
+
+@pytest.mark.parametrize("p,n,s", [(128, 256, 70), (80, 192, 600),
+                                   (65, 129, 600)])
+def test_wide_ssd_on_the_card_route(monkeypatch, p, n, s):
+    """A CUDA-typed call past p 64 / n 128 launches at p 64 (the p-blocks
+    as heads) once per n-block, each at its built width, and never reaches
+    the plain version; through `SSDScan` y and every gradient equal the
+    plain version's at the true widths, the group states kept at the
+    kernels' widths."""
+    seen = []
+    _ssd_launches(monkeypatch, seen)
+    b, h, g = 1, 2, 1
+    _, t = _ssd_inputs(p + n + s, b, s, h, p, g, n, dt_scale=0.05)
+    want = PLAIN_SSD(*t[:5], chunk=ss.TILE)
+    grads = ss.ssd_scan_bwd_split_plain(*t, chunk=ss.TILE)
+
+    def refuse(*a, **kw):
+        raise AssertionError("the card route reached the plain version")
+    monkeypatch.setattr(ss, "ssd_scan_plain", refuse)
+    blocks = [("ssd_scan_launch", 64, w) for *_, w in ss.state_blocks(n)]
+    before = ss.LAUNCHES
+    got = ss.ssd_scan(*(x.as_subclass(_OnCard) for x in t[:5]))
+    assert ss.LAUNCHES == before + ss.kernel_launches(s, n)
+    assert seen == blocks
+    _rel_close(got.as_subclass(torch.Tensor), want, f"p {p} n {n}")
+    y, states = ss._ssd_cuda(*t[:5], states=True)
+    if ss.n_groups(s) > 1:
+        assert tuple(states.shape) == (b, h * -(-p // 64), ss.n_groups(s),
+                                       ss.kernel_widths(p, n)[1], 64)
+    leaves = [x.clone().requires_grad_() for x in t[:5]]
+    seen.clear()
+    b0 = ss.BWD_LAUNCHES
+    ss.SSDScan.apply(*leaves).backward(t[5])
+    assert ss.BWD_LAUNCHES - b0 == len(ss.state_blocks(n))
+    assert seen == blocks + [("ssd_scan_bwd_launch", 64, w)
+                             for *_, w in ss.state_blocks(n)]
+    for name, a, w in zip(("x", "dt", "A", "B", "C"), leaves, grads):
+        assert a.grad.shape == w.shape, name
+        _rel_close(a.grad, w, "d" + name)

@@ -350,17 +350,30 @@ def test_plain_backward_in_float64():
 
 
 def test_refusals_name_the_limit_and_the_roadmap_item():
-    with pytest.raises(ValueError, match="Dh up to 256.*queue 2, item 1"):
-        fa.kernel_width(257)
-    with pytest.raises(ValueError, match="p up to 64.*queue 2, item 2"):
-        ss.kernel_widths(65, 64)
-    with pytest.raises(ValueError, match="n up to 128.*queue 2, item 2"):
-        ss.kernel_widths(64, 129)
+    """No width the TPU kernels take is refused: Dh 257 / 512 get their
+    padded widths (the wide kernels), p 65 / 128 and n 129 / 256 their
+    blocks; only what the card cannot launch raises, a grid dimension
+    above 65 535, and the message names that limit."""
+    assert (fa.kernel_width(257), fa.kernel_width(512)) == (320, 512)
+    assert (ss.kernel_widths(65, 64), ss.kernel_widths(128, 64)) == \
+        ((128, 64), (128, 64))
+    assert (ss.kernel_widths(64, 129), ss.kernel_widths(64, 256)) == \
+        ((64, 192), (64, 256))
     assert [fa.kernel_width(d) for d in (1, 64, 65, 96, 97, 129, 256)] == \
         [64, 64, 96, 96, 128, 256, 256]
     assert [ss.kernel_widths(p, n) for p, n in ((1, 1), (64, 64),
                                                 (64, 65), (8, 128))] == \
         [(64, 64), (64, 64), (64, 128), (64, 128)]
+    limit = f"grid dimension above {fa.MAX_GRID_YZ}"
+    many = torch.zeros(1, 1, 1, 512).expand(fa.MAX_GRID_YZ + 1, 1, 2, 512)
+    with pytest.raises(ValueError, match=limit):
+        fa._kernel_args(None, None, 512, many, many, many)
+    heads = torch.zeros(1, 1, 1, 1).expand(1, 1, ss.MAX_GRID_YZ // 2 + 1,
+                                           128)
+    dt = torch.zeros(1, 1, 1).expand(1, 1, heads.shape[2])
+    B = torch.zeros(1, 1, 1, 16)
+    with pytest.raises(ValueError, match=limit):   # p-blocks are heads
+        ss._ssd_cuda(heads, dt, dt[0, 0], B, B)
     assert ds.LEVELS_READ == 3
 
 

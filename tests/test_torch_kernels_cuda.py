@@ -1,7 +1,8 @@
 """The CUDA kernels (day scan in both output modes, with the full trace's
-initial SoC, up to 64 levels, flash attention at Dh 64 / 96 / 128 / 256
-and at narrower heads zero-padded to them, and transformer prefills
-through it, SSD scan at p 64 and narrower) against their plain PyTorch
+initial SoC, up to 64 levels, flash attention at Dh 64 / 96 / 128 / 256,
+at narrower heads zero-padded to them and at wider heads on the wide
+kernels, and transformer prefills through it, SSD scan at p 64 and
+narrower, and at wider p and n in blocks) against their plain PyTorch
 versions on the card, the day scan's paths: serial, batched (K queries
 folded into the combo axis), the legacy engine, `simulate_users`,
 `simulate`, `optimize_policy` and the fleet day, the joint device +
@@ -395,18 +396,28 @@ def test_ssd_kernels_run_their_tile_at_any_chunk(cuda, dtype, chunk):
 
 
 def test_kernels_reject_unsupported_shapes(cuda):
-    """Widths above the kernels' largest raise, naming the limit and the
-    roadmap item that lifts it (narrower ones are padded)."""
-    q = torch.zeros(1, 8, 2, fa.MAX_HEAD_DIM + 1, device=cuda)
-    with pytest.raises(ValueError, match="Dh up to 256.*queue 2, item 1"):
-        fa.flash_attention(q, q, q)
-    dt = torch.zeros(1, 8, 2, device=cuda)
-    A = torch.zeros(2, device=cuda)
-    for p, n in ((ss.MAX_HEAD_DIM + 1, 64), (64, ss.MAX_STATE_DIM + 1)):
-        x = torch.zeros(1, 8, 2, p, device=cuda)
-        B = torch.zeros(1, 8, 1, n, device=cuda)
-        with pytest.raises(ValueError, match="p up to 64.*queue 2, item 2"):
-            ss.ssd_scan(x, dt, A, B, B)
+    """No width the TPU kernels take is refused: Dh 257 and 512 run on the
+    wide kernels, p 65 / 128 and n 129 / 256 in blocks, each within the
+    reference's tolerance of its plain version; only a grid dimension the
+    card cannot launch raises, naming the limit."""
+    for Dh in (257, 512):
+        q = _randn(Dh, (1, 100, 2, Dh), torch.float32, cuda)
+        got = fa.flash_attention(q, q, q)
+        np.testing.assert_allclose(
+            got.cpu().numpy(), fa.flash_attention_plain(q, q, q).cpu().numpy(),
+            atol=TOL[torch.float32], rtol=TOL[torch.float32])
+    dt = 0.05 * torch.ones(1, 100, 2, device=cuda)
+    A = -torch.ones(2, device=cuda)
+    for p, n in ((65, 64), (128, 64), (64, 129), (64, 256)):
+        x = _randn(p, (1, 100, 2, p), torch.float32, cuda, 0.5)
+        B = _randn(n, (1, 100, 1, n), torch.float32, cuda, 0.3)
+        np.testing.assert_allclose(
+            ss.ssd_scan(x, dt, A, B, B).cpu().numpy(),
+            ss.ssd_scan_plain(x, dt, A, B, B).cpu().numpy(), atol=1e-4,
+            rtol=5 * TOL[torch.float32])
+    many = torch.zeros(65536, 1, 1, 64, device=cuda)
+    with pytest.raises(ValueError, match="grid dimension above 65535"):
+        fa.flash_attention(many, many, many)
 
 
 @pytest.mark.parametrize("shift", [1, 2, 3])
@@ -1112,3 +1123,106 @@ def test_transformer_prefill_unwidened_smoke_matches_cpu(cuda):
     for key in c_cpu:
         torch.testing.assert_close(c[key].cpu(), c_cpu[key], atol=1e-4,
                                    rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# widths above the built ones: the wide flash kernels, the SSD's blocks
+# ---------------------------------------------------------------------------
+
+WIDE_FLASH_CASES = [
+    (1, 300, 300, 4, 2, 320, True, None),     # causal GQA, 64-wide last block
+    (1, 300, 300, 4, 2, 320, True, 96),       # window
+    (2, 200, 200, 2, 2, 512, False, None),    # bidirectional, two blocks
+    (1, 130, 210, 4, 2, 512, False, None),    # Sq < Sk
+    (1, 257, 257, 2, 1, 257, True, 5),        # padded to 320, small window
+    (1, 700, 700, 2, 2, 576, True, None),     # three column blocks
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk,H,KvH,Dh,causal,window", WIDE_FLASH_CASES)
+def test_flash_wide_kernel_matches_plain(cuda, dtype, B, Sq, Sk, H, KvH, Dh,
+                                         causal, window):
+    """The forward past Dh 256 (one launch) against the plain version at
+    the built widths' tolerances."""
+    q = _randn(0, (B, Sq, H, Dh), dtype, cuda)
+    k, v = (_randn(i, (B, Sk, KvH, Dh), dtype, cuda) for i in (1, 2))
+    before = fa.LAUNCHES
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    assert fa.LAUNCHES == before + 1
+    want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    atol, rtol = FLASH_TOL[dtype]
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk,H,KvH,Dh,causal,window", WIDE_FLASH_CASES)
+def test_flash_wide_bwd_matches_plain_and_repeats(cuda, dtype, B, Sq, Sk, H,
+                                                  KvH, Dh, causal, window):
+    """The backward past Dh 256 through the autograd function against
+    autograd of the plain forward (BWD_TOL of each gradient's largest
+    magnitude), and two calls on the same inputs bit for bit equal."""
+    q, do = (_randn(i, (B, Sq, H, Dh), dtype, cuda) for i in (0, 3))
+    k, v = (_randn(i, (B, Sk, KvH, Dh), dtype, cuda) for i in (1, 2))
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    fa.flash_attention(qg, kg, vg, causal=causal, window=window).backward(do)
+    want = _autograd_plain(q, k, v, do, causal, window)
+    o, lse = fa._flash_cuda(q, k, v, causal=causal, window=window, lse=True)
+    runs = [fa._flash_bwd_cuda(q, k, v, o, do, lse, causal=causal,
+                               window=window) for _ in range(2)]
+    torch.cuda.synchronize()
+    width = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    for got, w, a, b in zip((qg.grad, kg.grad, vg.grad), want, *runs):
+        assert got.dtype == dtype and bool(torch.isfinite(got).all())
+        err = float((got.float() - w.float()).abs().max())
+        assert err <= BWD_TOL[dtype] * float(w.float().abs().max())
+        assert torch.equal(a.view(width), b.view(width))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,p,g,n", [
+    (2, 1000, 4, 128, 1, 128),          # p in two blocks of 64
+    (1, 600, 4, 80, 2, 64),             # p padded to two blocks
+    (2, 1000, 4, 64, 1, 256),           # n in two blocks of 128
+    (1, 1100, 4, 128, 2, 192),          # n in a block of 128 and one of 64
+    (1, 70, 2, 65, 1, 129),             # one group, both padded
+])
+def test_ssd_kernels_past_the_built_widths(cuda, dtype, b, s, h, p, g, n):
+    """p past 64 and n past 128 through the kernels (p-blocks as heads,
+    one call an n-block, float32 partial y / dx in bf16): y against the
+    plain version at the reference's tolerances, the gradients through
+    `SSDScan` against `ssd_scan_bwd_plain` (float32 1e-5 of the largest
+    entry, bf16 5e-4 relative RMS), two backward runs bit-equal."""
+    ins = [_randn(0, (b, s, h, p), dtype, cuda, 0.5),
+           0.05 * torch.nn.functional.softplus(
+               _randn(1, (b, s, h), torch.float32, cuda)),
+           -torch.exp(0.3 * _randn(2, (h,), torch.float32, cuda)),
+           _randn(3, (b, s, g, n), dtype, cuda, 0.3),
+           _randn(4, (b, s, g, n), dtype, cuda, 0.3)]
+    dy = _randn(5, (b, s, h, p), dtype, cuda)
+    before = ss.LAUNCHES
+    y = ss.ssd_scan(*ins, chunk=64)
+    assert ss.LAUNCHES == before + ss.kernel_launches(s, n)
+    tol = TOL[dtype]
+    np.testing.assert_allclose(
+        y.float().cpu().numpy(),
+        ss.ssd_scan_plain(*ins, chunk=64).float().cpu().numpy(),
+        atol=max(tol, 1e-4), rtol=5 * tol)
+    runs = []
+    for _ in range(2):
+        leaves = [t.clone().requires_grad_() for t in ins]
+        runs.append(torch.autograd.grad(ss.ssd_scan(*leaves, chunk=64),
+                                        leaves, dy))
+    want = ss.ssd_scan_bwd_plain(*ins, dy, chunk=64)
+    for a, c, w in zip(*runs, want):
+        assert torch.equal(a, c)
+        assert a.shape == w.shape and a.dtype == w.dtype
+        a, w = a.float(), w.float()
+        if dtype == torch.float32:
+            assert float((a - w).abs().max()) <= 1e-5 * float(w.abs().max())
+        else:
+            assert _rel_rms(a, w) <= 5e-4
