@@ -404,7 +404,10 @@ The widths above the built ones:
         causal) and WIDE_SSD_TIMED (b 2, s 4096, h 32, p 128, g 1, n
         256): each kernel forward and backward beside its plain version,
         its bound at the true width and, for flash, SDPA's (its backend
-        named); the phase's seconds against PHASE33_BUDGET_S.
+        named), the flash backward (the bf16 wide backward, a cluster of
+        column blocks on wgmma) over 10 calls with its share of the bound
+        and its ratio to SDPA's backward; the phase's seconds against
+        PHASE33_BUDGET_S.
 
 Then one line of wall seconds per phase (`phase_lines`).  Cut for time,
 never a check: phase 5 reads the plain day scan's ms from phase 3's
@@ -511,7 +514,8 @@ def nvidia_smi() -> str:
 def ptxas_kernels(log: str) -> list:
     """`flash_kernel_<dtype><Dh> N registers, spills` for each flash
     instantiation in an nvcc -Xptxas -v log (`flash_wide_<dtype>` for the
-    wide heads', `flash_bwd_<launch><dtype, Dh>` for the backward's,
+    wide heads', `flash_bwd_<launch><dtype, Dh>` for the backward's
+    (`flash_bwd_hw<bf16>` past Dh 256),
     `ssd_kernel_<launch><n>` and `ssd_bwd_<launch><dtype, n>` for the SSD
     kernels', "y f32" / "dx f32" for the float32-output instances)."""
     out, name = [], None
@@ -536,6 +540,9 @@ def ptxas_kernels(log: str) -> list:
         m = re.search(r"entry function .*?(flash_bwd_hb)ILi(\d+)E", line)
         if m:                           # the bf16 tensor-core launch
             name = f"{m.group(1)}<bf16, {m.group(2)}>"
+        m = re.search(r"entry function .*?(flash_bwd_hw)E", line)
+        if m:                           # the bf16 launch past Dh 256
+            name = f"{m.group(1)}<bf16>"
         m = re.search(r"entry function .*?(ssd_bwd_[a-z0-9_]+?)I(13__nv_"
                       r"bfloat16|f)?Li(\d+)E(Lb1E)?", line)
         if m:                           # the SSD backward's launches
@@ -5449,12 +5456,14 @@ def phase33_ssd(dev) -> float:
 
 def phase33_timing(dev) -> tuple:
     """Phase 33 c, bf16: at WIDE_FLASH_TIMED the wide forward (CUDA
-    events, 5 calls) and backward (3 calls, on the forward kernel's own o
-    and lse), their plain versions (1 call each), scaled_dot_product_
-    attention's forward and backward (its backend named) and the bounds
-    at the true width; at WIDE_SSD_TIMED the SSD forward and backward (10
-    calls), their plain versions (2 calls) and the bounds.  Returns the
-    rows (ms, plain ms, bound, by, library ms) of the four kernels."""
+    events, 5 calls) and backward (10 calls, as phase 22 times the built
+    widths, on the forward kernel's own o and lse), their plain versions
+    (1 call each), scaled_dot_product_attention's forward and backward
+    (its backend named; its backward over 10 calls too, and its ratio
+    to ours) and the bounds at the true width; at WIDE_SSD_TIMED the SSD
+    forward and backward (10 calls), their plain versions (2 calls) and
+    the bounds.  Returns the rows (ms, plain ms, bound, by, library ms)
+    of the four kernels."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as ss
@@ -5472,7 +5481,7 @@ def phase33_timing(dev) -> tuple:
     o, lse = fa._flash_cuda(q, k, v, lse=True, **mask)
     bwd = lambda: fa._flash_bwd_cuda(q, k, v, o, do, lse, **mask)  # noqa
     bwd()
-    b_ms = cuda_ms(bwd, 3)
+    b_ms = cuda_ms(bwd, 10)
     f_plain = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, **mask), 1)
     b_plain = cuda_ms(lambda: fa.flash_attention_bwd_plain(
         q, k, v, o, do, lse, **mask), 1)
@@ -5486,7 +5495,7 @@ def phase33_timing(dev) -> tuple:
     sdpa_bwd = lambda: torch.autograd.grad(  # noqa: E731
         o_s, (qs, ks, vs), do_t, retain_graph=True)
     sdpa_bwd()
-    b_sdpa = cuda_ms(sdpa_bwd, 3)
+    b_sdpa = cuda_ms(sdpa_bwd, 10)
     f_bound, f_by = flash_bound(q, k, causal, window)
     b_bound, b_by = flash_bwd_bound(q, k, causal, window)
     shape = (f"B={B} S={S} H={H} KvH={KvH} Dh={Dh} causal={causal} bf16, "
@@ -5495,10 +5504,11 @@ def phase33_timing(dev) -> tuple:
           f"{f_plain:.3f} ms; scaled_dot_product_attention {f_sdpa:.4f} ms "
           f"by its {backend} backend; bound {f_bound:.5f} ms by {f_by} "
           f"({f_bound / f_ms * 100:.1f} % of it reached)")
-    print(f"phase 33 c flash backward ({shape}): {b_ms:.4f} ms; plain "
-          f"{b_plain:.3f} ms; scaled_dot_product_attention backward "
-          f"{b_sdpa:.4f} ms by its {backend} backend; bound {b_bound:.5f} ms "
-          f"by {b_by} ({b_bound / b_ms * 100:.1f} % of it reached)")
+    print(f"phase 33 c flash backward ({shape}): {b_ms:.4f} ms over 10 "
+          f"calls, {b_bound / b_ms * 100:.2f} % of its bound {b_bound:.5f} "
+          f"ms by {b_by}, {b_sdpa / b_ms:.2f}x as fast as "
+          f"scaled_dot_product_attention's backward {b_sdpa:.4f} ms by its "
+          f"{backend} backend; plain {b_plain:.3f} ms")
     del q, k, v, do, o, lse, qs, ks, vs, o_s
     b, s, h, g, n, dt_scale, p = WIDE_SSD_TIMED
     *ins, dy = ssd_bwd_inputs(gen, b, s, h, g, n, bf, dt_scale, p)

@@ -21,7 +21,12 @@ for working on one kernel.
     python3 scripts/kernel_probe.py flash-bwd-compare OTHER.cu   # another
                                                      # copy of the flash
                                                      # backward's source vs
-                                                     # this one, in turns
+                                                     # this one, in turns,
+                                                     # built and wide widths
+    python3 scripts/kernel_probe.py flash-bwd-variants   # the bf16 wide
+                                                     # backward with one
+                                                     # part of its step
+                                                     # dropped, in turns
     python3 scripts/kernel_probe.py ssd-bwd          # the SSD backward:
                                                      # ptxas, edges vs its
                                                      # plain version and
@@ -799,54 +804,61 @@ def probe_day_compare(other: str) -> None:
 
 def probe_flash_bwd_compare(other: str) -> None:
     """The backward kernel built from another copy of
-    csrc/flash_attention_bwd.cu (`other`, e.g. the parent commit's)
-    against this checkout's, at
-    every bf16 shape of `chip_smoke.BWD_SHAPES` on the forward kernel's
-    own o and lse: each build's largest gradient error against
-    `flash_attention_bwd_plain` (over each gradient's largest magnitude),
-    whether a repeat is bit-equal, and times in turns (other, this, this,
+    csrc/flash_attention_bwd.cu (`other`, e.g. the parent commit's, with
+    this checkout's entry point) against this checkout's, both through the
+    checkout's wrapper (padding, scratch), on the forward kernel's own o
+    and lse: at every `chip_smoke.BWD_SHAPES` entry and every
+    `chip_smoke.WIDE_FLASH` shape, bf16 and float32, and at
+    `chip_smoke.WIDE_FLASH_TIMED` in bf16.  For each: each build's largest
+    gradient error against `flash_attention_bwd_plain` (over each
+    gradient's largest magnitude), whether a repeat is bit-equal, whether
+    the two builds' outputs are, and times in turns (other, this, this,
     other)."""
+    build.build_all(("flash_attention", "flash_attention_bwd"))
+    print("ptxas this: " + "; ".join(chip_smoke.ptxas_kernels(
+        build.BUILD_LOG.get("flash_attention_bwd", ""))))
     lib = build.BUILD_DIR.parent / "probe" / "flash_bwd_other.so"
     lib.parent.mkdir(parents=True, exist_ok=True)
     proc = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(lib),
                            other], capture_output=True, text=True)
     if proc.returncode:
         raise RuntimeError(f"nvcc failed for {other}:\n{proc.stderr}")
-    for line in proc.stderr.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            print(f"ptxas other: {line.strip()}")
+    print("ptxas other: " + "; ".join(chip_smoke.ptxas_kernels(proc.stderr)))
     fn = ctypes.CDLL(str(lib)).flash_attention_bwd_launch
     fn.argtypes = fa._bwd_lib().argtypes
     fn.restype = ctypes.c_int
+    B, S, H, KvH, Dh, causal, window = chip_smoke.WIDE_FLASH_TIMED
+    shapes = [(s_, dtype) for s_ in chip_smoke.BWD_SHAPES
+              + chip_smoke.WIDE_FLASH
+              for dtype in (torch.bfloat16, torch.float32)]
+    shapes.append((("timed", B, S, S, H, KvH, Dh, causal, window),
+                   torch.bfloat16))
     gen = torch.Generator(device=DEV).manual_seed(9)
-    for name, B, Sq, Sk, H, KvH, Dh, causal, window in chip_smoke.BWD_SHAPES:
-        q, do = (rn(gen, (B, Sq, H, Dh), torch.bfloat16) for _ in range(2))
-        k, v = (rn(gen, (B, Sk, KvH, Dh), torch.bfloat16) for _ in range(2))
-        o, lse = fa._flash_cuda(q, k, v, causal=causal, window=window,
-                                lse=True)
+    for (name, B, Sq, Sk, H, KvH, Dh, causal, window), dtype in shapes:
+        q, do = (rn(gen, (B, Sq, H, Dh), dtype) for _ in range(2))
+        k, v = (rn(gen, (B, Sk, KvH, Dh), dtype) for _ in range(2))
+        mask = dict(causal=causal, window=window)
+        o, lse = fa._flash_cuda(q, k, v, lse=True, **mask)
+
+        def this():
+            return fa._flash_bwd_cuda(q, k, v, o, do, lse, **mask)
 
         def run_other():
-            dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-            delta = torch.empty((B, H, Sq), dtype=torch.float32, device=DEV)
-            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                     do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                     dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Sq, Sk,
-                     H, KvH, Dh, int(causal),
-                     -1 if window is None else window, 1 / math.sqrt(Dh), 1,
-                     torch.cuda.current_stream().cuda_stream)
-            if err:
-                raise RuntimeError(f"launch failed: CUDA error {err}")
-            return dq, dk, dv
-
-        this = lambda: fa._flash_bwd_cuda(  # noqa: E731
-            q, k, v, o, do, lse, causal=causal, window=window)
-        plain = fa.flash_attention_bwd_plain(q, k, v, o, do, lse,
-                                             causal=causal, window=window)
+            saved = fa._bwd_lib
+            fa._bwd_lib = lambda: fn
+            try:
+                return this()
+            finally:
+                fa._bwd_lib = saved
+        plain = fa.flash_attention_bwd_plain(q, k, v, o, do, lse, **mask)
         label = (f"flash bwd {name} B={B} Sq={Sq} Sk={Sk} H={H} KvH={KvH} "
-                 f"Dh={Dh} causal={causal} window={window} bf16")
+                 f"Dh={Dh} causal={causal} window={window} "
+                 f"{str(dtype)[6:]}")
+        firsts = []
         for who, f in (("other", run_other), ("this", this)):
             a, b = f(), f()
             torch.cuda.synchronize()
+            firsts.append(a)
             rel = [float((x.float() - w.float()).abs().max()
                          / w.float().abs().max()) for x, w in zip(a, plain)]
             same = all(chip_smoke.bits_equal(x, y) for x, y in zip(a, b))
@@ -854,11 +866,187 @@ def probe_flash_bwd_compare(other: str) -> None:
                   f"flash_attention_bwd_plain "
                   + "/".join(f"{r:.3g}" for r in rel)
                   + f"; a repeat bit-equal: {same}", flush=True)
+        print(f"{label}: other and this bit-equal: "
+              f"{all(chip_smoke.bits_equal(x, y) for x, y in zip(*firsts))}")
+        reps = 10 if name != "timed" else 3
+        times = {"other": [], "this": []}
         for who in ("other", "this", "this", "other"):
             f = run_other if who == "other" else this
+            times[who].append(cuda_ms(f, reps))
             print(f"{label}, {who} ({other if who == 'other' else 'checkout'}"
-                  f"): {cuda_ms(f, 10):.4f} ms", flush=True)
-        del q, k, v, do, o, lse, plain
+                  f"): {times[who][-1]:.4f} ms", flush=True)
+        print(f"{label}: other / this {sum(times['other']) / sum(times['this']):.3f}"
+              f" (means of {reps} calls in turns)", flush=True)
+        del q, k, v, do, o, lse, plain, firsts
+
+
+# source edits of csrc/flash_attention_bwd.cu for `flash-bwd-variants`:
+# each drops or changes one part of the bf16 wide backward's step (the
+# dropped ones give wrong gradients: they only time what is left)
+_HW_TOTALS = ("    float4 sv = *peer(sp, 0), dv = *peer(dp, 0);\n"
+              "    for (int c = 1; c < x.ncb; ++c) {")
+_HW_BARRIERS = ('  asm volatile("barrier.cluster.arrive.release.aligned;\\n" '
+                '::: "memory");',
+                '  asm volatile("barrier.cluster.wait.acquire.aligned;\\n" '
+                '::: "memory");',
+                '  asm volatile("barrier.cluster.arrive.relaxed.aligned;\\n" '
+                '::: "memory");')
+_HW_PARTIAL = ("  if (nc == 2) wg_issue<128>(acc, a, b);\n"
+               "  else if (nc == 3) wg_issue<192>(acc, a, b);\n"
+               "  else wg_issue<256>(acc, a, b);\n"
+               "  wg_wait<64>(acc, nullptr);")
+_LOCAL = (_HW_TOTALS, "    float4 sv = *sp, dv = *dp;\n"
+                      "    for (int c = 1; c < 1; ++c) {")
+# items head-major (each head's kv tiles, then query tiles, together), so
+# the clusters running at once walk one head's tiles, which L2 holds
+_HEAD_MAJOR = [("    const int kt = id / (a.KvH * a.B), rest = id % (a.KvH * a.B);\n"
+                "    hw_dkdv(a, x, sm, kt, rest % a.KvH, rest / a.KvH, cb);",
+                "    const int nk = (a.Sk + HB_TILE - 1) / HB_TILE;\n"
+                "    const int kt = id % nk, rest = id / nk;\n"
+                "    hw_dkdv(a, x, sm, kt, rest % a.KvH, rest / a.KvH, cb);"),
+               ("    const int qt = nq - 1 - j / (a.H * a.B), rest = j % (a.H * a.B);\n"
+                "    hw_dq(a, x, sm, qt, rest % a.H, rest / a.H, cb);",
+                "    const int qt = nq - 1 - j % nq, rest = j / nq;\n"
+                "    hw_dq(a, x, sm, qt, rest % a.H, rest / a.H, cb);")]
+# the arrive after the partials are read with release semantics (a fence
+# a step): what the relaxed arrive saves
+_RELEASE = [("  asm volatile(\"barrier.cluster.arrive.relaxed.aligned;\\n\" ::: "
+             "\"memory\");",
+             "  asm volatile(\"barrier.cluster.arrive.release.aligned;\\n\" ::: "
+             "\"memory\");")]
+# the next step's copies issued after the publish barrier, not before
+# the partial products (the barrier's release then has no copy in flight
+# to order; the exchange modes only)
+_COPIES_AFTER_PUBLISH = [
+    ("    if (i + 1 < n_steps) load_step(i + 1, st ^ 1);\n"
+     "    cp_async_commit();\n    const unsigned char* qs = sm.stage(st, 0);\n"
+     "    const unsigned char* dos = sm.stage(st, 1);\n    float acc[32];",
+     "    const unsigned char* qs = sm.stage(st, 0);\n"
+     "    const unsigned char* dos = sm.stage(st, 1);\n    float acc[32];"),
+    ("    if (x.mode == HW_EXCHANGE) hw_publish(acc, sm.xch(), i == 0);\n",
+     "    if (x.mode == HW_EXCHANGE) hw_publish(acc, sm.xch(), i == 0);\n"
+     "    if (i + 1 < n_steps) load_step(i + 1, st ^ 1);\n"
+     "    cp_async_commit();\n"),
+    ("    if (kt + 1 < kt_end) load_step(kt + 1, st ^ 1);\n"
+     "    cp_async_commit();\n    const unsigned char* ks = sm.stage(st, 0);\n"
+     "    float acc[32];",
+     "    const unsigned char* ks = sm.stage(st, 0);\n    float acc[32];"),
+    ("      hw_publish(acc, sm.xch(), kt == kt_begin);\n",
+     "      hw_publish(acc, sm.xch(), kt == kt_begin);\n"
+     "      if (kt + 1 < kt_end) load_step(kt + 1, st ^ 1);\n"
+     "      cp_async_commit();\n")]
+# the partials read by ld.shared::cluster at mapa.shared::cluster
+# addresses, not by generic loads
+_CLUSTER_LOADS = [
+    ("__device__ __forceinline__ const float4* peer(const float4* p, int rank) {",
+     """__device__ __forceinline__ float4 ldc(const float4* p, int rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\\n"
+               : "=r"(remote) : "r"(smem_u32(p)), "r"(rank));
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(remote)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ const float4* peer(const float4* p, int rank) {"""),
+    (_HW_TOTALS + """
+      const float4 s1 = *peer(sp, c), d1 = *peer(dp, c);""",
+     """    float4 sv = ldc(sp, 0), dv = ldc(dp, 0);
+    for (int c = 1; c < x.ncb; ++c) {
+      const float4 s1 = ldc(sp, c), d1 = ldc(dp, c);""")]
+# the streamed tiles copied for the first two steps only (later steps
+# reuse them): what the staging costs
+_NO_STAGING = [("    if (i + 1 < n_steps) load_step(i + 1, st ^ 1);\n"
+                "    cp_async_commit();\n    const unsigned char* qs",
+                "    if (i + 1 < n_steps && i == 0) load_step(i + 1, st ^ 1);\n"
+                "    cp_async_commit();\n    const unsigned char* qs"),
+               ("    if (kt + 1 < kt_end) load_step(kt + 1, st ^ 1);\n"
+                "    cp_async_commit();\n    const unsigned char* ks = "
+                "sm.stage(st, 0);\n    float acc[32];",
+                "    if (kt + 1 < kt_end && kt == kt_begin) "
+                "load_step(kt + 1, st ^ 1);\n"
+                "    cp_async_commit();\n    const unsigned char* ks = "
+                "sm.stage(st, 0);\n    float acc[32];")]
+BWD_VARIANTS = {
+    "as built": [],
+    "release arrive after the reads": _RELEASE,
+    "copies issued after the publish": _COPIES_AFTER_PUBLISH,
+    "head-major items": _HEAD_MAJOR,
+    "ld.shared::cluster loads": _CLUSTER_LOADS,
+    "head-major items, ld.shared::cluster loads": [*_HEAD_MAJOR,
+                                                   *_CLUSTER_LOADS],
+    "own partials only (no DSMEM reads)": [_LOCAL],
+    "own partials, block barriers for cluster ones": [
+        _LOCAL, *[(b, "  __syncthreads();") for b in _HW_BARRIERS]],
+    "no partial products (S, dP partials zero)": [
+        (_HW_PARTIAL, "#pragma unroll\n"
+                      "  for (int i = 0; i < 32; ++i) acc[i] = 0.f;")],
+    "streamed tiles copied twice only": _NO_STAGING,
+    "own partials, block barriers, tiles copied twice only": [
+        _LOCAL, *[(b, "  __syncthreads();") for b in _HW_BARRIERS],
+        *_NO_STAGING],
+}
+
+
+def probe_flash_bwd_variants() -> None:
+    """Builds of csrc/flash_attention_bwd.cu with one part of the bf16
+    wide backward's step dropped or changed (`BWD_VARIANTS`), timed in
+    turns (each in order, then in reverse) at
+    `chip_smoke.WIDE_FLASH_TIMED`, each beside its largest gradient error
+    against `flash_attention_bwd_plain`: where the step's time goes."""
+    src = (build.CSRC / "flash_attention_bwd.cu").read_text()
+    out = build.BUILD_DIR.parent / "probe"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for i, (name, edits) in enumerate(BWD_VARIANTS.items()):
+        text = src
+        for old, new in edits:
+            if old not in text:
+                raise RuntimeError(f"flash bwd source changed: {old!r}")
+            text = text.replace(old, new)
+        path = out / f"flash_bwd_variant{i}.cu"
+        path.write_text(text)
+        lib = out / f"flash_bwd_variant{i}.so"
+        procs[name] = (lib, subprocess.Popen(
+            [build.nvcc(), *build.NVCC_FLAGS, "-o", str(lib), str(path)],
+            stderr=subprocess.PIPE, text=True))
+    fns = {}
+    for name, (lib, proc) in procs.items():
+        err = proc.communicate()[1]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {name}:\n{err}")
+        print(f"ptxas {name}: " + "; ".join(
+            k for k in chip_smoke.ptxas_kernels(err) if "hw<" in k))
+        fn = ctypes.CDLL(str(lib)).flash_attention_bwd_launch
+        fn.argtypes = fa._bwd_lib().argtypes
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    B, S, H, KvH, Dh, causal, window = chip_smoke.WIDE_FLASH_TIMED
+    gen = torch.Generator(device=DEV).manual_seed(9)
+    q, do = (rn(gen, (B, S, H, Dh), torch.bfloat16) for _ in range(2))
+    k, v = (rn(gen, (B, S, KvH, Dh), torch.bfloat16) for _ in range(2))
+    o, lse = fa._flash_cuda(q, k, v, lse=True, causal=causal)
+
+    def run(fn):
+        saved = fa._bwd_lib
+        fa._bwd_lib = lambda: fn
+        try:
+            return fa._flash_bwd_cuda(q, k, v, o, do, lse, causal=causal)
+        finally:
+            fa._bwd_lib = saved
+    plain = fa.flash_attention_bwd_plain(q, k, v, o, do, lse, causal=causal)
+    for name, fn in fns.items():
+        got = run(fn)
+        rel = [float((a.float() - w.float()).abs().max()
+                     / w.float().abs().max()) for a, w in zip(got, plain)]
+        print(f"flash bwd variant {name}: dq/dk/dv max err / max |.| "
+              + "/".join(f"{r:.3g}" for r in rel), flush=True)
+    order = list(fns)
+    for name in order + order[::-1]:
+        print(f"flash bwd variant {name} (B={B} S={S} H={H} Dh={Dh} causal "
+              f"bf16): {cuda_ms(lambda: run(fns[name]), 5):.4f} ms",
+              flush=True)
 
 
 def bind_ssd_bwd(path: str):
@@ -938,7 +1126,8 @@ def probe_ssd_bwd_compare(other: str) -> None:
 
 def probe_wide() -> None:
     """chip_smoke.py's phase 33 alone: the flash and SSD sources built at
-    once, the wide kernels' ptxas lines, then the wide widths against
+    once, the wide kernels' ptxas lines (registers and spills, the bf16
+    backward's `flash_bwd_hw` among them), then the wide widths against
     their plain versions, the derived smoke configs and the timed
     shapes; the misses listed at the end."""
     build.build_all(("flash_attention", "flash_attention_bwd", "ssd_scan",
@@ -946,7 +1135,7 @@ def probe_wide() -> None:
     for name in ("flash_attention", "flash_attention_bwd", "ssd_scan",
                  "ssd_scan_bwd"):
         lines = [k for k in chip_smoke.ptxas_kernels(build.BUILD_LOG.get(
-            name, "")) if "wide" in k or "f32>" in k]
+            name, "")) if "wide" in k or "f32>" in k or "hw<" in k]
         print(f"ptxas {name}: " + "; ".join(lines))
     chip_smoke.phase33(DEV)
     print(f"misses: {len(chip_smoke.MISSES)}")
@@ -958,6 +1147,7 @@ def main() -> None:
     probes = {"day": probe_day, "flash": probe_flash, "ssd": probe_ssd,
               "flash-variants": probe_flash_variants,
               "flash-bwd": probe_flash_bwd, "ssd-bwd": probe_ssd_bwd,
+              "flash-bwd-variants": probe_flash_bwd_variants,
               "row-stage": probe_row_stage, "wide": probe_wide}
     compare = {"flash-compare": probe_flash_compare,
                "flash-bwd-compare": probe_flash_bwd_compare,

@@ -31,7 +31,7 @@
 // Dh = 128, causal) the function is ~172 GFLOP of products (2.5 x the
 // forward's) against ~0.1 GB of traffic, so it is bound by operations.
 //
-// bfloat16, every Dh (flash_bwd_hb: launch 2 holds the dK / dV blocks and
+// bfloat16, Dh <= 256 (flash_bwd_hb: launch 2 holds the dK / dV blocks and
 // then the dQ blocks in one grid, so dQ blocks fill the SMs a causal
 // call's short dK / dV blocks leave).  A block owns 64 rows (keys, or
 // query rows) and walks 64-row steps (query tiles, or kv tiles).  Every
@@ -74,23 +74,52 @@
 // TF32 would miss the float32 tolerance), launch 2 dK / dV and launch 3
 // dQ, each recomputing S and dP.
 //
-// Dh above 256, both dtypes (flash_bwd_wide_dkdv, flash_bwd_wide_dq; the
-// wrapper pads Dh to a multiple of 64, as the forward's wide path): the
-// float32 path's three launches, its 4 x 4 register tiles on 64 query
-// rows x 32 keys, with a grid axis over output column blocks of up to 256
-// columns.  Each block forms S = Q K^T and dP = dO V^T over the whole Dh,
-// walking it in 64-column slices staged in shared memory, then dS = P o
-// (dP - delta), and sums dV_c += P^T dO_c and dK_c += dS^T Q_c (dQ_c +=
-// dS K_c) over its own columns c.  Inputs are widened to float32 in
-// shared memory; in bf16, P and dS are rounded to bf16 once, as
-// flash_attention_bwd_plain rounds them, so every product of the bf16
-// path is of two bf16 values, exact in float32.  Sums in a fixed order,
-// no atomics: a call repeats bit for bit.  What bounds it: the function
-// is bound by operations (at B 2, S 4096, H 16, Dh 512, causal, ~1.37
-// TFLOP of products); the design repeats S and dP once per column block
-// (Dh / 256 times) and runs bf16 on the CUDA cores, not the tensor cores,
-// the price of a first kernel that is right at any Dh (a speed lead in
-// ROADMAP.md).
+// Dh above 256 (the wrapper pads Dh to a multiple of 64, as the forward's
+// wide path).  What bounds it: operations (at B 2, S 4096, H 16, Dh 512,
+// causal, ~1.37 TFLOP of products against ~0.5 GB of traffic).  A 64-row
+// bf16 tile at Dh 512 is 64 KB, so no block holds the four tiles a step
+// reads (Q, dO, K, V), and 64 rows of dK and dV at Dh 512 are 256 KB of
+// float32 sums, more than an SM's registers: each block owns an output
+// column block of up to 256 columns.
+//
+// bfloat16 (flash_bwd_hw): a thread-block cluster of column blocks on the
+// tensor cores.  The head's 64-column chunks are dealt into ncb =
+// ceil(Dh / 256) column blocks of 2-4 chunks; the ncb blocks of a cluster
+// share one kv tile (dK / dV blocks) or one query tile (dQ blocks), as in
+// flash_bwd_hb, and block c stages only its own columns: Q_c, dO_c, K_c,
+// V_c.  Per step, warpgroup 0 forms the partial S_c^T = K_c Q_c^T and
+// warpgroup 1 dP_c^T = V_c dO_c^T (wgmma m64n64k16 chains, both operands
+// K-major in the 128-byte swizzle); the blocks exchange the float32
+// partials through distributed shared memory and every warpgroup of every
+// block sums the ncb of them in rank order, so every block holds the same
+// S and dP bit for bit; then P and dS (rounded once to bf16, dS from the
+// unrounded P) and dV_c += P^T dO_c, dK_c += dS^T Q_c (dQ_c += dS K_c),
+// register-A wgmma over the warpgroup's half of the block's columns.  So S
+// and dP are formed once per cluster: seven tile products where the
+// function needs five (the dQ blocks form S and dP again, which keeps
+// every sum in one block: no atomics, a call repeats bit for bit).  This
+// is the first of the two designs weighed; the second, column blocks that
+// each form S and dP over the whole head from slices streamed through a
+// ring, re-reads K and V from L2 every step and forms S and dP 2 ncb
+// times (11 tile products at Dh 512).  Tiles are staged in bf16 by
+// cp.async, Q_c / dO_c (K_c / V_c in a dQ block) in a ring of two stages.
+// Shared memory: the fixed tiles 64 KB, two stages 128 KB, the exchange
+// 32 KB, lse and delta 1 KB: 226 KB of the 227 a block may have, so one
+// block an SM.  A cluster holds at most 8 blocks (the portable limit:
+// Dh <= 2048); a wider head runs in more passes of the same kernel,
+// without a cluster: one pass per column block adds its partials into
+// float32 totals in global memory (the wrapper's scratch, zeroed), and a
+// last pass reads the totals for its products.
+//
+// float32 (flash_bwd_wide_dkdv, flash_bwd_wide_dq): the float32 path's
+// three launches, its 4 x 4 register tiles on 64 query rows x 32 keys on
+// the CUDA cores (TF32 would miss the float32 tolerance), with a grid axis
+// over output column blocks of up to 256 columns.  Each block forms S = Q
+// K^T and dP = dO V^T over the whole Dh, walking it in 64-column slices
+// staged in shared memory, then dS = P o (dP - delta), and sums dV_c +=
+// P^T dO_c and dK_c += dS^T Q_c (dQ_c += dS K_c) over its own columns c:
+// S and dP are formed Dh / 256 times per launch.  Sums in a fixed order,
+// no atomics: a call repeats bit for bit.
 
 #include <cstdint>
 #include <type_traits>
@@ -126,9 +155,6 @@ __device__ __forceinline__ float widen(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 __device__ __forceinline__ void narrow(float* p, float x) { *p = x; }
-__device__ __forceinline__ void narrow(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 // keys a kv tile holds: 64, or 32 at Dh 256 (its tiles would not fit)
 template <int DH>
@@ -469,8 +495,8 @@ int launch_bwd(const BwdArgs& a, int dh, cudaStream_t s) {
 }
 
 // ---------------------------------------------------------------------------
-// Dh above 256 (a multiple of 64: the wrapper pads to one), either dtype on
-// the CUDA cores: a grid axis over output column blocks
+// Dh above 256 (a multiple of 64: the wrapper pads to one), float32 on the
+// CUDA cores: a grid axis over output column blocks
 // ---------------------------------------------------------------------------
 
 constexpr int WIDE_SLICE = 64;     // columns of Q K^T / dO V^T a step stages
@@ -538,9 +564,8 @@ __device__ __forceinline__ void slice_dots(float out[4][NC], const float* a,
 }
 
 // P and dS of a (BQ x WIDE_BK) tile into shared memory (row stride WIDE_PS),
-// masked entries 0; bf16 rounds P (for dV) and dS (for dK and dQ) once, as
-// flash_attention_bwd_plain does, dS formed from the unrounded P
-template <typename T, int NC>
+// masked entries 0
+template <int NC>
 __device__ __forceinline__ void wide_p_ds(float s[4][NC],
                                           float dp[4][NC], float* ps,
                                           float* dss, const BwdArgs& a,
@@ -556,12 +581,8 @@ __device__ __forceinline__ void wide_p_ds(float s[4][NC],
       bool ok = qi < a.Sq && kj < a.Sk;
       if (a.causal) ok = ok && kj <= qi;
       if (a.window >= 0) ok = ok && kj > qi - a.window;
-      float p = ok ? expf(s[r][c] * a.scale - lse_s[row]) : 0.f;
-      float ds = p * (dp[r][c] - del_s[row]);
-      if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-        p = __bfloat162float(__float2bfloat16_rn(p));
-        ds = __bfloat162float(__float2bfloat16_rn(ds));
-      }
+      const float p = ok ? expf(s[r][c] * a.scale - lse_s[row]) : 0.f;
+      const float ds = p * (dp[r][c] - del_s[row]);
       if (ps) ps[row * WIDE_PS + tj + 16 * c] = p;
       dss[row * WIDE_PS + tj + 16 * c] = ds;
     }
@@ -668,7 +689,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_wide_dkdv(BwdArgs a,
         slice_dots<NC>(s, qs, ks, ti, tj);       // S += Q K^T
         slice_dots<NC>(dp, dos, vs, ti, tj);     // dP += dO V^T
       }
-      wide_p_ds<T, NC>(s, dp, ps, dss, a, lse_s, del_s, q0, k0, ti, tj);
+      wide_p_ds<NC>(s, dp, ps, dss, a, lse_s, del_s, q0, k0, ti, tj);
       __syncthreads();
       // dV += P^T dO, dK += dS^T Q over this block's columns (tile_accum's
       // 256-column layout; columns past cw are never stored)
@@ -752,7 +773,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_wide_dq(BwdArgs a,
       slice_dots<NC>(s, qs, ks, ti, tj);         // S += Q K^T
       slice_dots<NC>(dp, dos, vs, ti, tj);       // dP += dO V^T
     }
-    wide_p_ds<T, NC>(s, dp, nullptr, dss, a, lse_s, del_s, q0, k0, ti, tj);
+    wide_p_ds<NC>(s, dp, nullptr, dss, a, lse_s, del_s, q0, k0, ti, tj);
     __syncthreads();
     // dQ += dS K
     tile_accum<WIDE_OW, 4, WIDE_BK, WIDE_PS, false>(dq, dss, kc, ti, tj);
@@ -795,7 +816,7 @@ int launch_bwd_wide(const BwdArgs& a, int dh, cudaStream_t s) {
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16 on the tensor cores, every Dh
+// bfloat16 on the tensor cores, Dh <= 256
 // ---------------------------------------------------------------------------
 
 constexpr int HB_TILE = 64;   // rows a block owns, of a tile and of a step
@@ -1432,6 +1453,481 @@ int launch_bwd_hb(const BwdArgs& a, int dh, cudaStream_t s) {
   return int(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// bfloat16 on the tensor cores, Dh above 256: a cluster of column blocks
+// that exchange their partial S and dP (the header's design).  Taken over
+// column blocks that each form S and dP over the whole head because it
+// stages every tile once a step and forms S and dP once a cluster; what
+// it pays instead is the exchange: reading the peers' partials and a
+// cluster barrier a step, with one block an SM to hide them
+// ---------------------------------------------------------------------------
+
+constexpr int HW_CHUNK = 64;       // columns of a chunk, the swizzle's line
+constexpr int HW_MAX_CHUNKS = 4;   // chunks a column block owns, at most
+constexpr int HW_CLUSTER = 8;      // blocks of a cluster, at most (portable)
+constexpr int HW_TB = HW_MAX_CHUNKS * HB_TILE * 128;   // bytes of a tile
+// shared memory: six tiles (two fixed, two stages of two), the exchange
+// (S and dP partials, 16 KB each), two stages of lse and delta, 1024 bytes
+// to align
+constexpr int HW_SMEM_BYTES = 7 * HW_TB + 2 * 2 * HB_TILE * 4 + 1024;
+static_assert(HW_SMEM_BYTES <= SMEM_OPTIN_BYTES,
+              "flash bwd hw: tiles exceed the shared memory of a block");
+
+// how a launch finds S and dP: summed over the cluster's partials (one
+// launch, Dh <= 2048); added into the global totals by one column block
+// (dK / dV blocks alone, no products); read from the totals
+enum HwMode { HW_EXCHANGE = 0, HW_ADD = 1, HW_READ = 2 };
+
+struct HwArgs {
+  int dh, nch, ncb;                // padded Dh, its chunks, column blocks
+  int mode, cb;                    // HwMode; HW_ADD: the column block
+  float* tot;                      // HW_ADD / HW_READ: (B, H, nq, nk) tiles
+                                   // of [S, dP][query][key] float32
+};
+
+// the block's shared memory, 1024-aligned (the same offsets in every
+// block of a cluster)
+struct HwSmem {
+  unsigned char* base;
+  __device__ explicit HwSmem(void* raw)
+      : base(reinterpret_cast<unsigned char*>(
+            (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023))) {}
+  __device__ unsigned char* fixed(int kind) const { return base + kind * HW_TB; }
+  __device__ unsigned char* stage(int st, int kind) const {
+    return base + (2 + 2 * st + kind) * HW_TB;
+  }
+  // [S, dP][n-tile j][thread wt] float4: a warpgroup's 64 x 64 partial in
+  // accumulator order
+  __device__ unsigned char* xch() const { return base + 6 * HW_TB; }
+  __device__ float* rows(int st) const {
+    return reinterpret_cast<float*>(base + 7 * HW_TB) + 2 * HB_TILE * st;
+  }
+};
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// the arrive after a step's partials are read: no release fence, since
+// the loads are consumed before it (a fence a step cost 0.9 ms at Dh 512,
+// H100, in turns: PERF.md)
+__device__ __forceinline__ void cluster_arrive_read() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+// the generic address of `p`'s counterpart in the shared memory of the
+// cluster's block `rank` (plain loads from it are ordered by the barriers)
+__device__ __forceinline__ const float4* peer(const float4* p, int rank) {
+  uint64_t out;
+  asm("mapa.u64 %0, %1, %2;\n"
+      : "=l"(out) : "l"(reinterpret_cast<uint64_t>(p)), "r"(rank));
+  return reinterpret_cast<const float4*>(out);
+}
+
+// rows [r0, r0 + 64), chunks [ch0, ch0 + nc) of head `hd` of a (B, S,
+// heads, dh) bf16 tensor into a swizzled tile by cp.async; rows >= S
+// zeros.  Lane l of warp w copies 16-byte piece l of rows w + 8 i (a row
+// of up to 4 chunks is 32 pieces; lanes past nc chunks idle)
+__device__ __forceinline__ void stage_chunks(unsigned char* dst,
+                                             const void* src, int b, int S,
+                                             int heads, int hd, int r0,
+                                             int dh, int ch0, int nc) {
+  const int c = threadIdx.x % 32, w = threadIdx.x / 32;
+  if (c >= nc * (HW_CHUNK / 8)) return;
+  const size_t stride = size_t(heads) * dh;
+  const __nv_bfloat16* base = static_cast<const __nv_bfloat16*>(src)
+      + (size_t(b) * S * heads + hd) * dh + HW_CHUNK * ch0 + 8 * c;
+#pragma unroll
+  for (int i = 0; i < HB_TILE / 8; ++i) {
+    const int r = w + 8 * i, t = r0 + r;
+    const bool in = t < S;
+    cp_async16(dst + swz(r, c), base + (in ? t : 0) * stride, in ? 16 : 0);
+  }
+}
+
+// acc = the warpgroup's partial a . b^T over the block's nc chunks (2-4):
+// one wgmma chain, waited for
+__device__ __forceinline__ void hw_partial(float acc[32], const unsigned char* a,
+                                           const unsigned char* b, int nc) {
+  if (nc == 2) wg_issue<128>(acc, a, b);
+  else if (nc == 3) wg_issue<192>(acc, a, b);
+  else wg_issue<256>(acc, a, b);
+  wg_wait<64>(acc, nullptr);
+}
+
+// d (a thread's 64 floats) += a (the 64 x 64 bf16 fragments) . b over the
+// warpgroup's nw chunks (1 or 2) from chunk j0 of the MN-major tile b;
+// with e given, e += f . c alike; waited for
+__device__ __forceinline__ void hw_accumulate(float* d, const uint32_t a[4][4],
+                                              const unsigned char* b,
+                                              float* e, const uint32_t f[4][4],
+                                              const unsigned char* c, int j0,
+                                              int nw) {
+  if (nw == 2) {
+    wg_accumulate<128>(d, a, b, 8 * j0);
+    if (e != nullptr) wg_accumulate<128>(e, f, c, 8 * j0);
+    wg_wait<128>(d, e);
+  } else {
+    wg_accumulate<64>(d, a, b, 8 * j0);
+    if (e != nullptr) wg_accumulate<64>(e, f, c, 8 * j0);
+    wg_wait<64>(d, e);
+  }
+}
+
+// S and dP of n-tile j of this thread's accumulator (elements 4 j .. 4 j
+// + 3) into s and d: HW_EXCHANGE sums the cluster's ncb partials in rank
+// order; HW_READ loads the totals tile `tot` at [query][key] offsets
+// `at(e)`
+template <typename At>
+__device__ __forceinline__ void hw_totals(float s[4], float d[4],
+                                          const HwArgs& x, const float4* xch,
+                                          const float* tot, int j, At at) {
+  if (x.mode == HW_EXCHANGE) {
+    const float4* sp = xch + j * 128 + threadIdx.x % 128;
+    const float4* dp = sp + 8 * 128;
+    float4 sv = *peer(sp, 0), dv = *peer(dp, 0);
+    for (int c = 1; c < x.ncb; ++c) {
+      const float4 s1 = *peer(sp, c), d1 = *peer(dp, c);
+      sv.x += s1.x; sv.y += s1.y; sv.z += s1.z; sv.w += s1.w;
+      dv.x += d1.x; dv.y += d1.y; dv.z += d1.z; dv.w += d1.w;
+    }
+    s[0] = sv.x; s[1] = sv.y; s[2] = sv.z; s[3] = sv.w;
+    d[0] = dv.x; d[1] = dv.y; d[2] = dv.z; d[3] = dv.w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[e] = tot[at(e)];
+      d[e] = tot[HB_TILE * HB_TILE + at(e)];
+    }
+  }
+}
+
+// this warpgroup's partial (acc: S in warpgroup 0, dP in warpgroup 1) into
+// the exchange, visible to the cluster; `first`: no step before it whose
+// partials a block may still read
+__device__ __forceinline__ void hw_publish(const float acc[32],
+                                           unsigned char* xch, bool first) {
+  const int wg = threadIdx.x / 128, wt = threadIdx.x % 128;
+  if (!first) cluster_wait();      // every block has read the last partials
+  float4* out = reinterpret_cast<float4*>(xch + wg * 16384);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    out[j * 128 + wt] = make_float4(acc[4 * j], acc[4 * j + 1],
+                                    acc[4 * j + 2], acc[4 * j + 3]);
+  cluster_arrive();
+  cluster_wait();
+}
+
+// the totals tile of (b, h, query tile qt, kv tile kt)
+__device__ __forceinline__ float* hw_tile(const BwdArgs& a, const HwArgs& x,
+                                          int b, int h, int qt, int kt) {
+  const int nq = (a.Sq + HB_TILE - 1) / HB_TILE;
+  const int nk = (a.Sk + HB_TILE - 1) / HB_TILE;
+  return x.tot + (((size_t(b) * a.H + h) * nq + qt) * nk + kt)
+                 * (2 * HB_TILE * HB_TILE);
+}
+
+// the column block's chunks: [ch0, ch0 + nc) of the head, this
+// warpgroup's [j0, j0 + nw) of the block's (warpgroup 0 the first half)
+struct HwCols {
+  int ch0, nc, j0, nw;
+  __device__ HwCols(const HwArgs& x, int cb) {
+    ch0 = cb * x.nch / x.ncb;
+    nc = (cb + 1) * x.nch / x.ncb - ch0;
+    const int half = (nc + 1) / 2;
+    j0 = threadIdx.x < 128 ? 0 : half;
+    nw = threadIdx.x < 128 ? half : nc - half;
+  }
+};
+
+// dK and dV of one (64-key tile, kv head, batch) over column block cb.
+// Steps walk the group's G query heads and the query tiles that see a key
+// of the tile, as hb_dkdv; warpgroup 0 forms S^T's partial, warpgroup 1
+// dP^T's, both then P^T and dS^T from the totals and add bf16(P^T) dO_c and
+// bf16(dS^T) Q_c into their half of the block's columns.
+__device__ __forceinline__ void hw_dkdv(const BwdArgs& a, const HwArgs& x,
+                                        const HwSmem& sm, int kt, int kvh,
+                                        int b, int cb) {
+  const int wg = threadIdx.x / 128, wt = threadIdx.x % 128, w = wt / 32;
+  const int lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
+  const int k0 = kt * HB_TILE, G = a.H / a.KvH;
+  const HwCols col(x, cb);
+  const bool products = x.mode != HW_ADD;
+  int qt_begin, qt_end;
+  query_tiles(a, k0, qt_begin, qt_end);
+  const int per_head = qt_end - qt_begin, n_steps = G * per_head;
+  auto load_step = [&](int i, int st) {
+    const int h = kvh * G + i / per_head;
+    const int q0 = (qt_begin + i % per_head) * HB_TILE;
+    stage_chunks(sm.stage(st, 0), a.q, b, a.Sq, a.H, h, q0, x.dh, col.ch0,
+                 col.nc);
+    stage_chunks(sm.stage(st, 1), a.dout, b, a.Sq, a.H, h, q0, x.dh, col.ch0,
+                 col.nc);
+    if (products) stage_rows(sm.rows(st), a, b, h, q0);
+  };
+  if (x.mode != HW_READ) {
+    stage_chunks(sm.fixed(0), a.k, b, a.Sk, a.KvH, kvh, k0, x.dh, col.ch0,
+                 col.nc);
+    stage_chunks(sm.fixed(1), a.v, b, a.Sk, a.KvH, kvh, k0, x.dh, col.ch0,
+                 col.nc);
+  }
+  if (n_steps > 0) load_step(0, 0);
+  cp_async_commit();
+
+  float dk[64], dv[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dk[i] = dv[i] = 0.f;
+  const int key0 = 16 * w + g;     // this thread's keys in the tile: + 8
+  const float4* xch = reinterpret_cast<const float4*>(sm.xch());
+
+  for (int i = 0; i < n_steps; ++i) {
+    const int st = i & 1, h = kvh * G + i / per_head;
+    const int qt = qt_begin + i % per_head, q0 = qt * HB_TILE;
+    cp_async_wait_all();             // step i's tiles have landed
+    fence_proxy_async();
+    __syncthreads();                 // ... for every thread; step i - 1 done
+    if (i + 1 < n_steps) load_step(i + 1, st ^ 1);
+    cp_async_commit();
+    const unsigned char* qs = sm.stage(st, 0);
+    const unsigned char* dos = sm.stage(st, 1);
+    float acc[32];
+    if (x.mode != HW_READ) hw_partial(acc, sm.fixed(wg), sm.stage(st, wg),
+                                      col.nc);
+    float* tot = x.mode == HW_EXCHANGE ? nullptr : hw_tile(a, x, b, h, qt, kt);
+    // [query][key] offset of element e of n-tile j (S^T: keys are rows)
+    auto at = [&](int j, int e) {
+      return (8 * j + 2 * t4 + (e & 1)) * HB_TILE + key0 + 8 * (e >> 1);
+    };
+    if (x.mode == HW_ADD) {          // totals += this block's partial
+      float* t = tot + wg * HB_TILE * HB_TILE;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) t[at(j, e)] += acc[4 * j + e];
+      continue;
+    }
+    if (x.mode == HW_EXCHANGE) hw_publish(acc, sm.xch(), i == 0);
+    const float* lse_s = sm.rows(st);
+    const float* del_s = lse_s + HB_TILE;
+    const bool full = all_seen(a, q0, k0);
+    uint32_t pa[4][4], sa[4][4];     // bf16 P^T and dS^T, k-steps of 16
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float s[4], d[4];
+      hw_totals(s, d, x, xch, tot, j, [&](int e) { return at(j, e); });
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qc = 8 * j + 2 * t4 + (e & 1);
+        const bool ok = full || seen(a, q0 + qc, k0 + key0 + 8 * (e >> 1));
+        const float p = ok
+            ? hb_exp2((s[e] * a.scale - lse_s[qc]) * LOG2E) : 0.f;
+        s[e] = p;
+        d[e] = p * (d[e] - del_s[qc]);
+      }
+      pa[j >> 1][2 * (j & 1)] = pack_bf16(s[0], s[1]);
+      pa[j >> 1][2 * (j & 1) + 1] = pack_bf16(s[2], s[3]);
+      sa[j >> 1][2 * (j & 1)] = pack_bf16(d[0], d[1]);
+      sa[j >> 1][2 * (j & 1) + 1] = pack_bf16(d[2], d[3]);
+    }
+    if (x.mode == HW_EXCHANGE) cluster_arrive_read();
+    // dV += bf16(P^T) dO, dK += bf16(dS^T) Q over this warpgroup's chunks
+    hw_accumulate(dv, pa, dos, dk, sa, qs, col.j0, col.nw);
+  }
+  if (x.mode == HW_EXCHANGE && n_steps > 0) cluster_wait();
+  cp_async_wait_all();             // nothing in flight at exit
+  if (!products) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = k0 + key0 + 8 * r;
+    if (key >= a.Sk) continue;
+    const size_t at = ((size_t(b) * a.Sk + key) * a.KvH + kvh) * x.dh
+                      + HW_CHUNK * (col.ch0 + col.j0);
+    __nv_bfloat16* dkr = static_cast<__nv_bfloat16*>(a.dk) + at;
+    __nv_bfloat16* dvr = static_cast<__nv_bfloat16*>(a.dv) + at;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      if (j >= 8 * col.nw) break;
+      *reinterpret_cast<uint32_t*>(dkr + 8 * j + 2 * t4) =
+          pack_bf16(dk[4 * j + 2 * r] * a.scale,
+                    dk[4 * j + 2 * r + 1] * a.scale);
+      *reinterpret_cast<uint32_t*>(dvr + 8 * j + 2 * t4) =
+          pack_bf16(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
+// dQ of one (64-row query tile, head, batch) over column block cb: steps
+// walk the kv tiles the rows see, as hb_dq; warpgroup 0 forms S's partial,
+// warpgroup 1 dP's, both then dS from the totals and add bf16(dS) K_c into
+// their half of the block's columns.
+__device__ __forceinline__ void hw_dq(const BwdArgs& a, const HwArgs& x,
+                                      const HwSmem& sm, int qt, int h, int b,
+                                      int cb) {
+  const int wg = threadIdx.x / 128, wt = threadIdx.x % 128, w = wt / 32;
+  const int lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
+  const int q0 = qt * HB_TILE, kvh = h / (a.H / a.KvH);
+  const HwCols col(x, cb);
+  int kt_begin, kt_end;
+  kv_tiles(a, q0, kt_begin, kt_end);
+  auto load_step = [&](int kt, int st) {
+    stage_chunks(sm.stage(st, 0), a.k, b, a.Sk, a.KvH, kvh, kt * HB_TILE,
+                 x.dh, col.ch0, col.nc);
+    if (x.mode != HW_READ)
+      stage_chunks(sm.stage(st, 1), a.v, b, a.Sk, a.KvH, kvh, kt * HB_TILE,
+                   x.dh, col.ch0, col.nc);
+  };
+  if (x.mode != HW_READ) {
+    stage_chunks(sm.fixed(0), a.q, b, a.Sq, a.H, h, q0, x.dh, col.ch0,
+                 col.nc);
+    stage_chunks(sm.fixed(1), a.dout, b, a.Sq, a.H, h, q0, x.dh, col.ch0,
+                 col.nc);
+  }
+  if (kt_begin < kt_end) load_step(kt_begin, 0);
+  cp_async_commit();
+
+  // this thread's rows in the tile, row0 and row0 + 8: their lse and delta
+  const int row0 = 16 * w + g;
+  float lse_r[2], del_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + row0 + 8 * r;
+    const size_t at = (size_t(b) * a.H + h) * a.Sq + qi;
+    lse_r[r] = qi < a.Sq ? a.lse[at] : 0.f;
+    del_r[r] = qi < a.Sq ? a.delta[at] : 0.f;
+  }
+  float dq[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dq[i] = 0.f;
+  const float4* xch = reinterpret_cast<const float4*>(sm.xch());
+
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int st = (kt - kt_begin) & 1, k0 = kt * HB_TILE;
+    cp_async_wait_all();
+    fence_proxy_async();
+    __syncthreads();
+    if (kt + 1 < kt_end) load_step(kt + 1, st ^ 1);
+    cp_async_commit();
+    const unsigned char* ks = sm.stage(st, 0);
+    float acc[32];
+    const float* tot = nullptr;
+    if (x.mode == HW_EXCHANGE) {
+      hw_partial(acc, sm.fixed(wg), sm.stage(st, wg), col.nc);
+      hw_publish(acc, sm.xch(), kt == kt_begin);
+    } else {
+      tot = hw_tile(a, x, b, h, qt, kt);
+    }
+    const bool full = all_seen(a, q0, k0);
+    uint32_t sa[4][4];               // bf16 dS, k-steps of 16 keys
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float s[4], d[4];
+      hw_totals(s, d, x, xch, tot, j, [&](int e) {
+        return (row0 + 8 * (e >> 1)) * HB_TILE + 8 * j + 2 * t4 + (e & 1);
+      });
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool ok = full || seen(a, q0 + row0 + 8 * (e >> 1),
+                                     k0 + 8 * j + 2 * t4 + (e & 1));
+        const float p = ok
+            ? hb_exp2((s[e] * a.scale - lse_r[e >> 1]) * LOG2E) : 0.f;
+        d[e] = p * (d[e] - del_r[e >> 1]);
+      }
+      sa[j >> 1][2 * (j & 1)] = pack_bf16(d[0], d[1]);
+      sa[j >> 1][2 * (j & 1) + 1] = pack_bf16(d[2], d[3]);
+    }
+    if (x.mode == HW_EXCHANGE) cluster_arrive_read();
+    // dQ += bf16(dS) K over this warpgroup's chunks
+    hw_accumulate(dq, sa, ks, nullptr, sa, ks, col.j0, col.nw);
+  }
+  if (x.mode == HW_EXCHANGE && kt_begin < kt_end) cluster_wait();
+  cp_async_wait_all();
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + row0 + 8 * r;
+    if (qi >= a.Sq) continue;
+    __nv_bfloat16* row = static_cast<__nv_bfloat16*>(a.dq)
+        + ((size_t(b) * a.Sq + qi) * a.H + h) * x.dh
+        + HW_CHUNK * (col.ch0 + col.j0);
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      if (j >= 8 * col.nw) break;
+      *reinterpret_cast<uint32_t*>(row + 8 * j + 2 * t4) =
+          pack_bf16(dq[4 * j + 2 * r] * a.scale,
+                    dq[4 * j + 2 * r + 1] * a.scale);
+    }
+  }
+}
+
+// the dK / dV items (kv tile slowest), then the dQ items (last query tile
+// first), as flash_bwd_hb; HW_EXCHANGE and HW_READ launch ncb blocks an
+// item (a cluster of them in HW_EXCHANGE), HW_ADD one, dK / dV items only
+__global__ void __launch_bounds__(256, 1) flash_bwd_hw(BwdArgs a, HwArgs x) {
+  extern __shared__ float4 smem4[];
+  const HwSmem sm(smem4);
+  const int per = x.mode == HW_ADD ? 1 : x.ncb;
+  const int id = blockIdx.x / per;
+  const int cb = x.mode == HW_ADD ? x.cb : int(blockIdx.x % per);
+  const int n_kv = (a.Sk + HB_TILE - 1) / HB_TILE * a.KvH * a.B;
+  if (id < n_kv) {
+    const int kt = id / (a.KvH * a.B), rest = id % (a.KvH * a.B);
+    hw_dkdv(a, x, sm, kt, rest % a.KvH, rest / a.KvH, cb);
+  } else {
+    const int j = id - n_kv, nq = (a.Sq + HB_TILE - 1) / HB_TILE;
+    const int qt = nq - 1 - j / (a.H * a.B), rest = j % (a.H * a.B);
+    hw_dq(a, x, sm, qt, rest % a.H, rest / a.H, cb);
+  }
+}
+
+int launch_hw(const BwdArgs& a, const HwArgs& x, size_t blocks, int cluster,
+              cudaStream_t s) {
+  if (blocks > 0x7fffffffu) return int(cudaErrorInvalidValue);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(unsigned(blocks));
+  cfg.blockDim = dim3(256);
+  cfg.dynamicSmemBytes = HW_SMEM_BYTES;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = unsigned(cluster);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, flash_bwd_hw, a, x);
+  return int(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// delta, then one launch of clusters of ncb blocks (ncb <= 8), or ncb
+// launches adding each column block's partials into the totals (after
+// `delta`'s B H Sq floats in the wrapper's zeroed scratch) and one
+// reading them
+int launch_bwd_hw(const BwdArgs& a, int dh, cudaStream_t s) {
+  const size_t rows = size_t(a.B) * a.Sq * a.H;
+  flash_bwd_delta<__nv_bfloat16><<<unsigned((rows + 7) / 8), THREADS, 0, s>>>(
+      a, dh);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return int(err);
+  err = cudaFuncSetAttribute(flash_bwd_hw,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             HW_SMEM_BYTES);
+  if (err != cudaSuccess) return int(err);
+  HwArgs x{dh, dh / HW_CHUNK, (dh / HW_CHUNK + HW_MAX_CHUNKS - 1)
+                                  / HW_MAX_CHUNKS, HW_EXCHANGE, 0, nullptr};
+  const size_t n_kv = size_t((a.Sk + HB_TILE - 1) / HB_TILE) * a.KvH * a.B;
+  const size_t n_q = size_t((a.Sq + HB_TILE - 1) / HB_TILE) * a.H * a.B;
+  if (x.ncb <= HW_CLUSTER)
+    return launch_hw(a, x, x.ncb * (n_kv + n_q), x.ncb, s);
+  x.tot = a.delta + rows;
+  x.mode = HW_ADD;
+  for (x.cb = 0; x.cb < x.ncb; ++x.cb) {
+    const int e = launch_hw(a, x, n_kv, 1, s);
+    if (e != 0) return e;
+  }
+  x.mode = HW_READ;
+  return launch_hw(a, x, x.ncb * (n_kv + n_q), 1, s);
+}
+
 template <typename T>
 int launch_dtype(const BwdArgs& a, int dh, cudaStream_t s) {
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {
@@ -1441,6 +1937,8 @@ int launch_dtype(const BwdArgs& a, int dh, cudaStream_t s) {
       case 128: return launch_bwd_hb<128>(a, dh, s);
       case 256: return launch_bwd_hb<256>(a, dh, s);
     }
+    if (dh > 256 && dh % HW_CHUNK == 0) return launch_bwd_hw(a, dh, s);
+    return int(cudaErrorInvalidValue);
   } else {
     switch (dh) {
       case 64: return launch_bwd<T, 64>(a, dh, s);
@@ -1448,19 +1946,21 @@ int launch_dtype(const BwdArgs& a, int dh, cudaStream_t s) {
       case 128: return launch_bwd<T, 128>(a, dh, s);
       case 256: return launch_bwd<T, 256>(a, dh, s);
     }
+    if (dh > 256 && dh % WIDE_SLICE == 0) return launch_bwd_wide<T>(a, dh, s);
+    return int(cudaErrorInvalidValue);
   }
-  if (dh > 256 && dh % WIDE_SLICE == 0) return launch_bwd_wide<T>(a, dh, s);
-  return int(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // Plain C entry point (bound with ctypes).  dtype: 0 = float32,
 // 1 = bfloat16 (q, k, v, o, dout, dq, dk, dv all of it; lse and delta
-// float32).  dk / dv are written whole (zeros where no query sees a key).
-// Three launches (float32) or two (bfloat16) on `stream`, no
-// synchronisation, no allocation; returns a CUDA error code (0 =
-// success).
+// float32).  `delta` is the scratch: B H Sq floats, and for a bf16 head of
+// more than 8 column blocks (Dh > 2048) then B H nq nk 8192 zeroed floats
+// of S / dP totals (nq, nk: 64-row tiles of Sq, Sk).  dk / dv are written
+// whole (zeros where no query sees a key).  Three launches (float32) or
+// two (bfloat16; Dh > 2048: ncb + 2) on `stream`, no synchronisation, no
+// allocation; returns a CUDA error code (0 = success).
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* delta, void* dq, void* dk,

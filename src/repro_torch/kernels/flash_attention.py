@@ -46,11 +46,13 @@ serving does.  `BWD_LAUNCHES` counts backward calls (two kernels each
 in bf16, three in float32).  `flash_attention_lse_plain` and `flash_attention_bwd_plain` are
 their plain versions: the latter runs the same recurrence on the
 backward kernel's tiles (`BWD_TILES`) and is held to autograd of the
-plain forward by the CPU tests.  The backward kernel runs bf16 at the
-built widths on the tensor cores (every product a wgmma chain, P and dS
-rounded to bf16 once), float32, and both dtypes above 256 (in output
-column blocks, P and dS rounded in bf16 as well), on the CUDA cores; every
-sum runs in a fixed order, so a call repeats bit for bit.
+plain forward by the CPU tests.  The backward kernel runs bf16 on the
+tensor cores (every product a wgmma chain, P and dS rounded to bf16
+once): at the built widths in blocks of 64 rows, above 256 in clusters of
+`wide_bwd_blocks` column blocks that exchange their partial scores (past
+`WIDE_BWD_CLUSTER` blocks, Dh > 2048, in passes through float32 totals in
+the scratch, `bwd_scratch_floats`); float32 runs on the CUDA cores.
+Every sum runs in a fixed order, so a call repeats bit for bit.
 """
 from __future__ import annotations
 
@@ -73,15 +75,19 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 TILES = {torch.float32: (64, 64), torch.bfloat16: (128, 64)}
 
 # (query rows, keys) of the backward's tiles by dtype and head width: bf16
-# 64 x 64 at every built width (HB_ROWS in csrc/flash_attention_bwd.cu),
-# float32 BQ x bwd_bk<DH> (64 x 32 at Dh 256); the wide kernels ("wide")
-# 64 x WIDE_BK in both
+# 64 x 64 at every width (HB_TILE in csrc/flash_attention_bwd.cu, the wide
+# kernel's too), float32 BQ x bwd_bk<DH> (64 x 32 at Dh 256) and, on the
+# wide kernels ("wide"), 64 x WIDE_BK
 BWD_TILES = {torch.bfloat16: {64: (64, 64), 96: (64, 64), 128: (64, 64),
-                              256: (64, 64), "wide": (64, 32)},
+                              256: (64, 64), "wide": (64, 64)},
              torch.float32: {64: (64, 64), 96: (64, 64), 128: (64, 64),
                              256: (64, 32), "wide": (64, 32)}}
 # the grid dimensions the card launches at most (y and z)
 MAX_GRID_YZ = 65535
+# the bf16 backward past Dh 256: column blocks of up to WIDE_BWD_CHUNKS
+# 64-column chunks, at most WIDE_BWD_CLUSTER of them in one cluster (the
+# portable limit); more run in passes through totals in the scratch
+WIDE_BWD_CHUNKS, WIDE_BWD_CLUSTER = 4, 8
 
 LAUNCHES = 0                # forward kernel launches in this process
 BWD_LAUNCHES = 0            # backward kernel calls (two or three launches)
@@ -251,6 +257,26 @@ def kernel_width(Dh: int) -> int:
     return -(-Dh // WIDE_SLICE) * WIDE_SLICE
 
 
+def wide_bwd_blocks(width: int) -> int:
+    """Column blocks of the bf16 backward at a padded head `width` past
+    256 (its 64-column chunks dealt into blocks of at most
+    `WIDE_BWD_CHUNKS`): the cluster size up to `WIDE_BWD_CLUSTER`."""
+    return -(-(width // WIDE_SLICE) // WIDE_BWD_CHUNKS)
+
+
+def bwd_scratch_floats(B: int, Sq: int, Sk: int, H: int, width: int,
+                       dtype) -> int:
+    """Floats of the backward's scratch: each row's delta (B H Sq) and,
+    for a bf16 head of more column blocks than a cluster holds, float32
+    S and dP totals of every pair of 64-row tiles (B H nq nk 2 64 64),
+    which the passes add into and so want zeroed."""
+    n = B * H * Sq
+    if dtype == torch.bfloat16 and width not in HEAD_DIMS and \
+            wide_bwd_blocks(width) > WIDE_BWD_CLUSTER:
+        n += B * H * -(-Sq // 64) * -(-Sk // 64) * 2 * 64 * 64
+    return n
+
+
 def _kernel_args(window, scale, Dh, *ts):
     """Checks of the CUDA path; returns (scale, the tensors `ts` padded to
     the kernels' width and 16-byte aligned).  The default scale is the
@@ -307,9 +333,9 @@ def _flash_cuda(q, k, v, *, causal=True, window=None, scale=None,
 def _flash_bwd_cuda(q, k, v, o, do, lse, *, causal=True, window=None,
                     scale=None):
     """Launch csrc/flash_attention_bwd.cu (three kernels in float32, two
-    in bf16) on the current stream (no sync); returns (dq, dk, dv) in the
-    inputs' dtype.  A padded head pads o and dO with zeros too, so the
-    row sums of dO o O are the true width's."""
+    in bf16, more past Dh 2048) on the current stream (no sync); returns
+    (dq, dk, dv) in the inputs' dtype.  A padded head pads o and dO with
+    zeros too, so the row sums of dO o O are the true width's."""
     global BWD_LAUNCHES
     B, Sq, H, Dh = q.shape
     if Sq == 0 or B == 0:
@@ -317,8 +343,10 @@ def _flash_bwd_cuda(q, k, v, o, do, lse, *, causal=True, window=None,
     scale, (q, k, v, o, do) = _kernel_args(window, scale, Dh, q, k, v, o,
                                            do)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    _call(_bwd_lib(), (q, k, v, o, do, lse, delta, dq, dk, dv),
+    n = bwd_scratch_floats(B, Sq, k.shape[1], H, q.shape[3], q.dtype)
+    scratch = (torch.empty if n == B * H * Sq else torch.zeros)(
+        n, dtype=torch.float32, device=q.device)
+    _call(_bwd_lib(), (q, k, v, o, do, lse, scratch, dq, dk, dv),
           _launch_args(q, k, causal, window, scale),
           "flash_attention backward")
     BWD_LAUNCHES += 1

@@ -5,7 +5,8 @@ at any p past 64 and any n past 128.
 - The plain flash forward at Dh 320 and 512 against the Pallas kernel in
   interpret mode (`repro.kernels.ops`), at the reference's tolerances
   (`tests/test_kernels.py`: float32 2e-5, bf16 2e-2); its plain backward
-  against `jax.grad` of `ref.flash_attention_ref`.
+  against `jax.grad` of `ref.flash_attention_ref`, on the float32 wide
+  kernels' tiles and on the bf16 one's (64 x 64, pinned).
 - The SSD's block decomposition (`ssd_blocked` / `ssd_blocked_bwd`, what
   the card runs, handed the plain version for its blocks) against the
   Pallas kernel, against `jax.grad` of `repro.nn.ssd.ssd_chunked` and, in
@@ -15,7 +16,8 @@ at any p past 64 and any n past 128.
 - The wrappers' card route with the ctypes launch swapped for the plain
   version at the width it is handed (`tests/test_torch_kernel_widths.py`'s
   helpers): a wide call reaches the launch, counted, at the padded head
-  or in the SSD's blocks, and never the plain version.
+  or in the SSD's blocks, and never the plain version; the bf16
+  backward's column blocks and scratch (totals past Dh 2048).
 """
 import dataclasses
 
@@ -106,6 +108,49 @@ def test_flash_bwd_plain_matches_jax_grad_past_256(B, Sq, Sk, H, KvH, Dh,
         assert a.shape == b.shape, name
         np.testing.assert_allclose(a.numpy(), b, rtol=0,
                                    atol=REL * float(np.abs(b).max()),
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KvH,Dh,causal,window", FLASH_CASES)
+def test_flash_bwd_plain_on_the_bf16_wide_tiles_matches_jax_grad(
+        monkeypatch, B, Sq, Sk, H, KvH, Dh, causal, window):
+    """The bf16 wide backward's tiles are 64 x 64 (the tensor-core
+    kernel's, as at the built widths): `flash_attention_bwd_plain`'s
+    recurrence on them, run in float32, against `jax.grad` of the
+    reference's attention at the float32 tolerance; and its bf16 run
+    (P and dS rounded once) against `jax.grad` of the same bf16 inputs
+    within one bf16 spacing of the largest gradient."""
+    assert fa.BWD_TILES[torch.bfloat16]["wide"] == (64, 64)
+    (jq, jk, jv), (q, k, v, do) = _qkv(Sq + Dh + 2, B, Sq, Sk, H, KvH, Dh)
+    mask = dict(causal=causal, window=window)
+
+    def grads(q, k, v, do):
+        return fa.flash_attention_bwd_plain(
+            q, k, v, PLAIN_FLASH(q, k, v, **mask), do,
+            fa.flash_attention_lse_plain(q, k, **mask), **mask)
+
+    def jax_grads(q, k, v, do):
+        w = jnp.asarray(do.float().numpy())
+
+        def loss(q_, k_, v_):
+            return jnp.sum(ref.flash_attention_ref(q_, k_, v_, **mask) * w)
+        return jax.grad(loss, argnums=(0, 1, 2))(
+            *(jnp.asarray(t.float().numpy()) for t in (q, k, v)))
+
+    monkeypatch.setitem(fa.BWD_TILES[torch.float32], "wide",
+                        fa.BWD_TILES[torch.bfloat16]["wide"])
+    for name, a, b in zip(("dq", "dk", "dv"), grads(q, k, v, do),
+                          jax_grads(q, k, v, do)):
+        b = np.asarray(b, np.float32)
+        np.testing.assert_allclose(a.numpy(), b, rtol=0,
+                                   atol=REL * float(np.abs(b).max()),
+                                   err_msg=name)
+    low = [t.to(torch.bfloat16) for t in (q, k, v, do)]
+    for name, a, b in zip(("dq", "dk", "dv"), grads(*low), jax_grads(*low)):
+        b = np.asarray(b, np.float32)
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape, name
+        np.testing.assert_allclose(a.float().numpy(), b, rtol=0,
+                                   atol=2.0 ** -6 * float(np.abs(b).max()),
                                    err_msg=name)
 
 
@@ -260,6 +305,59 @@ def test_wide_flash_on_the_card_route(monkeypatch, Dh, width):
     for name, a, w in zip("qkv", qkv, grads):
         assert a.grad.shape == w.shape
         _rel_close(a.grad, w, "d" + name)
+
+
+@pytest.mark.parametrize("Dh,width,blocks", [(320, 320, 2), (512, 512, 2),
+                                             (576, 576, 3), (2048, 2048, 8),
+                                             (2100, 2112, 9)])
+def test_wide_bf16_bwd_blocks_and_scratch_on_the_card_route(monkeypatch, Dh,
+                                                            width, blocks):
+    """The bf16 backward past Dh 256 runs clusters of `wide_bwd_blocks`
+    column blocks (up to 4 chunks of 64 columns each, at most 8 a
+    cluster); the wrapper hands the launch its scratch: each row's delta,
+    and past 8 blocks (Dh > 2048, the passes) float32 S and dP totals of
+    every pair of 64-row tiles, zeroed.  The gradients are the plain
+    version's at the true width, within a bf16 spacing (the padded
+    width's sums may round on the other side)."""
+    seen = []
+
+    def call(fn, tensors, args, what):
+        q, k, v, o, do, lse, scratch, dq, dk, dv = tensors
+        _, _, _, _, _, Dh_k, causal, window, scale, dtype = args
+        seen.append((fn, Dh_k, dtype, scratch.clone()))
+        for d, w in zip((dq, dk, dv), fa.flash_attention_bwd_plain(
+                q, k, v, o, do, lse, causal=bool(causal),
+                window=None if window < 0 else window, scale=scale)):
+            d.copy_(w)
+
+    monkeypatch.setattr(fa, "_bwd_lib", lambda: "backward")
+    monkeypatch.setattr(fa, "_call", call)
+    B, Sq, Sk, H, KvH = 1, 70, 90, 4, 2
+    q, k, v, do = (t.to(torch.bfloat16)
+                   for t in _qkv(Dh, B, Sq, Sk, H, KvH, Dh)[1])
+    mask = dict(causal=False, window=None)
+    o = PLAIN_FLASH(q, k, v, **mask)
+    lse = fa.flash_attention_lse_plain(q, k, **mask)
+    before = fa.BWD_LAUNCHES
+    got = fa._flash_bwd_cuda(q, k, v, o, do, lse, **mask)
+    assert fa.BWD_LAUNCHES == before + 1
+    fn, Dh_k, dtype, scratch = seen[-1]
+    assert (fn, Dh_k, dtype) == ("backward", width, 1)
+    assert fa.kernel_width(Dh) == width
+    assert fa.wide_bwd_blocks(width) == blocks
+    totals = B * H * 2 * 2 * 2 * 64 * 64 if blocks > fa.WIDE_BWD_CLUSTER \
+        else 0
+    assert scratch.dtype == torch.float32
+    assert scratch.numel() == B * H * Sq + totals
+    assert fa.bwd_scratch_floats(B, Sq, Sk, H, width, torch.bfloat16) == \
+        scratch.numel()
+    if totals:
+        assert not bool(scratch.any())
+    for a, w in zip(got, fa.flash_attention_bwd_plain(q, k, v, o, do, lse,
+                                                      **mask)):
+        assert a.shape == w.shape and a.dtype == torch.bfloat16
+        a, w = a.float(), w.float()
+        assert float((a - w).abs().max()) <= 2.0 ** -7 * float(w.abs().max())
 
 
 @pytest.mark.parametrize("p,n,s", [(128, 256, 70), (80, 192, 600),

@@ -1183,6 +1183,53 @@ def test_flash_wide_bwd_matches_plain_and_repeats(cuda, dtype, B, Sq, Sk, H,
         assert torch.equal(a.view(width), b.view(width))
 
 
+# bf16 backward past Dh 256 at the largest cluster (8 column blocks, Dh
+# 2048) and past it (9 blocks: passes through the scratch's totals)
+WIDE_BWD_EXTRA = [
+    (1, 200, 200, 2, 1, 1024, True, None),    # four column blocks
+    (1, 130, 130, 2, 2, 2048, True, 70),      # eight, a window
+    (1, 130, 150, 2, 1, 2100, False, None),   # padded to 2112: nine
+]
+# phase 18's bf16 tolerances (chip_smoke.BWD_BF16_MAX / BWD_BF16_RMS): one
+# bf16 spacing at the gradient's largest magnitude each side, and a
+# relative RMS under half a spacing
+WIDE_BWD_BF16 = (2.0 ** -6, 2.0 ** -8)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KvH,Dh,causal,window",
+                         WIDE_FLASH_CASES + WIDE_BWD_EXTRA)
+def test_flash_wide_bf16_bwd_matches_plain_version(cuda, B, Sq, Sk, H, KvH,
+                                                   Dh, causal, window):
+    """The bf16 backward past Dh 256 (clusters of column blocks on the
+    tensor cores) on the forward kernel's own o and lse against
+    `flash_attention_bwd_plain` at phase 18's bf16 tolerances, one call
+    counted, a repeat bit-equal; the control: the same gradients against
+    float32 ones miss the float32 tolerance."""
+    bf = torch.bfloat16
+    q, do = (_randn(i, (B, Sq, H, Dh), bf, cuda) for i in (0, 3))
+    k, v = (_randn(i, (B, Sk, KvH, Dh), bf, cuda) for i in (1, 2))
+    mask = dict(causal=causal, window=window)
+    o, lse = fa._flash_cuda(q, k, v, lse=True, **mask)
+    before = fa.BWD_LAUNCHES
+    runs = [fa._flash_bwd_cuda(q, k, v, o, do, lse, **mask)
+            for _ in range(2)]
+    assert fa.BWD_LAUNCHES == before + 2
+    want = fa.flash_attention_bwd_plain(q, k, v, o, do, lse, **mask)
+    f32 = _autograd_plain(q.float(), k.float(), v.float(), do.float(),
+                          causal, window)
+    torch.cuda.synchronize()
+    top, rms = WIDE_BWD_BF16
+    for a, b, w, f in zip(*runs, want, f32):
+        assert a.dtype == bf and a.shape == w.shape
+        assert bool(torch.isfinite(a).all())
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+        a, w, f = a.float(), w.float(), f.float()
+        assert float((a - w).abs().max()) <= top * float(w.abs().max())
+        assert _rel_rms(a, w) <= rms
+        ctrl = float((a - f).abs().max() / f.abs().max())
+        assert ctrl > BWD_TOL[torch.float32], ctrl
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,s,h,p,g,n", [
     (2, 1000, 4, 128, 1, 128),          # p in two blocks of 64
