@@ -208,9 +208,12 @@ moved to the card, except the golden's seeded numpy weights):
      ids equal to the CPU's up to ties;
  17. timing: bf16 flash ms at gemma3's global and local shapes and
      phi-3's beside the plain version's, `scaled_dot_product_attention`'s
-     (and the kernel that served it) and the bound; gemma3-4b prefill ms,
-     tokens/s and peak device memory, Server decode ms per token, a
-     profile of one prefill.
+     (and the kernel that served it) and the bound; the same shapes in
+     float32 beside SDPA's float32 forward (`f32_beside_sdpa`: TF32 off,
+     its backend, the bound at the float32 peak, whether its output meets
+     the kernel's float32 tolerance); gemma3-4b prefill ms, tokens/s and
+     peak device memory, Server decode ms per token, a profile of one
+     prefill.
 
 The training path and whisper-medium:
 
@@ -253,7 +256,8 @@ The training path and whisper-medium:
  22. timing: the backward kernel's ms at each phase 18 shape (bf16)
      beside `flash_attention_bwd_plain`'s, scaled_dot_product_attention's
      backward (a yardstick only) and the bound (2.5 x the forward's
-     products over the peak, or the bytes over HBM bandwidth); olmo-1b's
+     products over the peak, or the bytes over HBM bandwidth), and in
+     float32 beside SDPA's float32 backward (`f32_beside_sdpa`); olmo-1b's
      ms per step, tokens/s, share of the bf16 peak and peak memory; a
      profile of one `make_train_step`.
 
@@ -388,8 +392,12 @@ The widths above the built ones:
 
  33. a. flash forward and backward past Dh 256 (the wide kernels: the
         head padded to a multiple of 64, output column blocks of up to
-        256) at WIDE_FLASH (Dh 257, 320, 512, 576; causal GQA, a window,
-        bidirectional, Sq < Sk), the SSD forward and backward past p 64
+        256; bf16 a cluster of them, `flash_fwd_hw`) at WIDE_FLASH (Dh
+        257, 320, 512, 576; causal GQA, a window, bidirectional, Sq < Sk)
+        and, forward only, WIDE_FLASH_FWD_EXTRA (Dh 2112: nine column
+        blocks, no cluster), the bf16 forward's repeat bit-equal and its
+        row lse within 1e-5 of the plain version's, the SSD forward and
+        backward past p 64
         and n 128 (p-blocks of 64 as heads, one call an n-block) at
         WIDE_SSD, float32 and bf16, each against its plain version at
         phase 6's and 18's / 23 c's tolerances and controls, the float32
@@ -404,9 +412,11 @@ The widths above the built ones:
         causal) and WIDE_SSD_TIMED (b 2, s 4096, h 32, p 128, g 1, n
         256): each kernel forward and backward beside its plain version,
         its bound at the true width and, for flash, SDPA's (its backend
-        named), the flash backward (the bf16 wide backward, a cluster of
-        column blocks on wgmma) over 10 calls with its share of the bound
-        and its ratio to SDPA's backward; the phase's seconds against
+        named), the flash forward and backward (the bf16 wide kernels,
+        clusters of column blocks on wgmma) over 10 calls each with their
+        shares of the bound and their ratios to SDPA's; flash in float32
+        at the same shape beside SDPA's float32 forward and backward
+        (`f32_beside_sdpa`); the phase's seconds against
         PHASE33_BUDGET_S.
 
 Then one line of wall seconds per phase (`phase_lines`).  Cut for time,
@@ -513,8 +523,9 @@ def nvidia_smi() -> str:
 
 def ptxas_kernels(log: str) -> list:
     """`flash_kernel_<dtype><Dh> N registers, spills` for each flash
-    instantiation in an nvcc -Xptxas -v log (`flash_wide_<dtype>` for the
-    wide heads', `flash_bwd_<launch><dtype, Dh>` for the backward's
+    instantiation in an nvcc -Xptxas -v log (`flash_wide_f32` and
+    `flash_fwd_hw<bf16>` for the wide heads',
+    `flash_bwd_<launch><dtype, Dh>` for the backward's
     (`flash_bwd_hw<bf16>` past Dh 256),
     `ssd_kernel_<launch><n>` and `ssd_bwd_<launch><dtype, n>` for the SSD
     kernels', "y f32" / "dx f32" for the float32-output instances)."""
@@ -540,8 +551,8 @@ def ptxas_kernels(log: str) -> list:
         m = re.search(r"entry function .*?(flash_bwd_hb)ILi(\d+)E", line)
         if m:                           # the bf16 tensor-core launch
             name = f"{m.group(1)}<bf16, {m.group(2)}>"
-        m = re.search(r"entry function .*?(flash_bwd_hw)E", line)
-        if m:                           # the bf16 launch past Dh 256
+        m = re.search(r"entry function .*?(flash_(?:bwd|fwd)_hw)E", line)
+        if m:                           # the bf16 launches past Dh 256
             name = f"{m.group(1)}<bf16>"
         m = re.search(r"entry function .*?(ssd_bwd_[a-z0-9_]+?)I(13__nv_"
                       r"bfloat16|f)?Li(\d+)E(Lb1E)?", line)
@@ -1998,6 +2009,78 @@ def sdpa_call(q, k, v, causal: bool, window) -> tuple:
         qt, kt, vt, attn_mask=mask, is_causal=is_causal, **kw)), backend
 
 
+def f32_beside_sdpa(label: str, q, k, v, causal: bool, window, reps: int,
+                    do=None) -> tuple:
+    """A float32 flash row beside the library: the kernel's ms (the
+    forward, or with `do` the backward on the forward kernel's own o and
+    lse) and `scaled_dot_product_attention`'s in float32 (CUDA events,
+    `reps` calls each; a yardstick, the port never calls it) with TF32
+    off for matmuls and cuDNN while they run, the backend the dispatcher
+    picks, the bound at the float32 peak and, forward, whether SDPA's
+    output meets the kernel's float32 tolerance against the plain version
+    (LM_TOL), backward, its gradients' largest error against the
+    kernel's (over each gradient's largest magnitude).  Returns (ms,
+    library ms, bound, bound_by)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    mask = dict(causal=causal, window=window)
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+        sdpa, backend = sdpa_call(qs, ks, vs, causal, window)
+        if do is None:
+            kern = lambda: fa._flash_cuda(q, k, v, **mask)  # noqa: E731
+            kern()
+            ms = cuda_ms(kern, reps)
+            with torch.no_grad():
+                sdpa()
+                lib_ms = cuda_ms(sdpa, reps)
+                got = sdpa().transpose(1, 2)
+            want = fa.flash_attention_plain(q, k, v, **mask)
+            tol = LM_TOL["float32"]
+            meets = bool(torch.allclose(got, want, atol=tol, rtol=tol))
+            detail = (f"SDPA's output vs the plain version max abs err "
+                      f"{float((got - want).abs().max()):.3g}: "
+                      f"{'meets' if meets else 'misses'} the kernel's "
+                      f"float32 tolerance (atol = rtol = {tol:g})")
+            bound, by = flash_bound(q, k, causal, window)
+            what = "forward"
+            del got, want
+        else:
+            o, lse = fa._flash_cuda(q, k, v, lse=True, **mask)
+            kern = lambda: fa._flash_bwd_cuda(  # noqa: E731
+                q, k, v, o, do, lse, **mask)
+            mine = kern()
+            ms = cuda_ms(kern, reps)
+            o_s = sdpa()
+            do_t = do.transpose(1, 2)
+            bwd = lambda: torch.autograd.grad(  # noqa: E731
+                o_s, (qs, ks, vs), do_t, retain_graph=True)
+            theirs = bwd()
+            lib_ms = cuda_ms(bwd, reps)
+            rel = max(float((a - b).abs().max() / b.abs().max())
+                      for a, b in zip(theirs, mine))
+            detail = (f"SDPA's gradients vs the kernel's: largest error over "
+                      f"the gradient's largest magnitude {rel:.3g} (the "
+                      f"kernel's float32 tolerance against autograd "
+                      f"{BWD_F32_REL:g})")
+            bound, by = flash_bwd_bound(q, k, causal, window)
+            what = "backward"
+            del o, lse, mine, o_s, theirs
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = saved
+    print(f"{label} float32 {what}: kernel {ms:.4f} ms; "
+          f"scaled_dot_product_attention {lib_ms:.4f} ms by its {backend} "
+          f"backend (TF32 off: matmul and cuDNN), {lib_ms / ms:.3f} of the "
+          f"kernel's time; bound {bound:.5f} ms by {by} at the float32 peak "
+          f"({bound / ms * 100:.2f} % of it reached); {detail}")
+    return ms, lib_ms, bound, by
+
+
 def hold(name: str, got, want, atol: float, rtol: float) -> float:
     """Kernel output vs the plain version's: finite and allclose; returns
     the largest absolute error."""
@@ -2659,6 +2742,10 @@ def time_wide_flash(dev) -> list:
               f"ms by its {backend} backend (max diff to the kernel "
               f"{diff:.3g}); "
               f"bound {bound:.5f} ms by {by}")
+        q, k, v = (t.float() for t in (q, k, v))
+        f32_beside_sdpa(f"flash kernel ({name}: B={B_PREFILL} S={S_PREFILL} "
+                        f"H={H} KvH={KvH} Dh={Dh} window={window})", q, k, v,
+                        True, window, 10)
         del q, k, v
     return rows
 
@@ -3131,7 +3218,12 @@ def time_flash_bwd(dev) -> list:
               f"scaled_dot_product_attention backward {sdpa_ms:.4f} ms by "
               f"its {backend} backend; bound {bound:.5f} ms by {by} "
               f"({bound / ms * 100:.1f} % of it reached)")
-        del q, k, v, do, o, lse, qs, ks, vs, o_s
+        del o, lse, qs, ks, vs, o_s
+        q, k, v, do = (t.float() for t in (q, k, v, do))
+        f32_beside_sdpa(f"flash bwd kernel ({name}: B={B} Sq={Sq} Sk={Sk} "
+                        f"H={H} KvH={KvH} Dh={Dh} causal={causal} "
+                        f"window={window})", q, k, v, causal, window, 10, do)
+        del q, k, v, do
     return rows
 
 
@@ -5350,6 +5442,10 @@ WIDE_FLASH = (("Dh 320 GQA", 1, 600, 600, 4, 2, 320, True, None),
               ("Dh 512 Sq < Sk", 1, 200, 330, 4, 2, 512, False, None),
               ("Dh 257 window 5", 1, 257, 257, 2, 1, 257, True, 5),
               ("Dh 576", 1, 1100, 1100, 4, 4, 576, True, None))
+# the forward past a cluster (Dh 2112: nine column blocks, each forming the
+# scores over the whole head), 33 a's forward only
+WIDE_FLASH_FWD_EXTRA = (("Dh 2112 no cluster", 1, 300, 300, 2, 1, 2112,
+                         True, None),)
 # SSD shapes (name, b, s, h, g, n, dt scale, p): the CPU tests' (p, n) at
 # lengths that split into groups (p-blocks as heads, n-blocks summed)
 WIDE_SSD = (("p 128 n 128", 2, 1000, 4, 1, 128, 0.05, 128),
@@ -5379,11 +5475,14 @@ def phase33_configs() -> tuple:
 
 
 def phase33_flash(dev) -> float:
-    """Phase 33 a, flash forward: every WIDE_FLASH shape through the wide
-    kernel (one launch, the head padded to a multiple of 64) against the
-    plain version at phase 6's tolerances, float32 and bf16, with the
-    bf16 rounding control on the causal unwindowed shapes.  Returns the
-    largest abs error."""
+    """Phase 33 a, flash forward: every WIDE_FLASH and
+    WIDE_FLASH_FWD_EXTRA shape through the wide kernel (one launch, the
+    head padded to a multiple of 64) against the plain version at phase
+    6's tolerances, float32 and bf16; in bf16 the rounding control on the
+    causal unwindowed shapes, a repeat bit-equal (with the row lse, whose
+    serving launch's o is the same bits) and the lse against
+    `flash_attention_lse_plain` within 1e-5.  Returns the largest abs
+    error."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     gen = torch.Generator(device=dev).manual_seed(38)
@@ -5391,27 +5490,43 @@ def phase33_flash(dev) -> float:
     for dtype in (torch.float32, torch.bfloat16):
         tol = LM_TOL[str(dtype)[6:]]
         bf16 = dtype == torch.bfloat16
-        for name, B, Sq, Sk, H, KvH, Dh, causal, window in WIDE_FLASH:
+        for name, B, Sq, Sk, H, KvH, Dh, causal, window in \
+                WIDE_FLASH + WIDE_FLASH_FWD_EXTRA:
             q = torch.randn((B, Sq, H, Dh), generator=gen, device=dev) \
                 .to(dtype)
             k, v = (torch.randn((B, Sk, KvH, Dh), generator=gen, device=dev)
                     .to(dtype) for _ in range(2))
+            mask = dict(causal=causal, window=window)
             before = fa.LAUNCHES
-            got = fa.flash_attention(q, k, v, causal=causal, window=window)
+            got = fa.flash_attention(q, k, v, **mask)
             if fa.LAUNCHES != before + 1:
                 fail(f"flash {name}: {fa.LAUNCHES - before} launches")
+            width = fa.kernel_width(Dh)
+            blocks = (f"{fa.wide_bwd_blocks(width)} column blocks"
+                      + (" without a cluster" if fa.wide_bwd_blocks(width)
+                         > fa.WIDE_BWD_CLUSTER else " in a cluster")
+                      if bf16 else f"{-(-width // fa.WIDE_OW)} column blocks")
             label = (f"phase 33 a flash {name} B={B} Sq={Sq} Sk={Sk} H={H} "
-                     f"KvH={KvH} Dh={Dh} (kernel width {fa.kernel_width(Dh)},"
-                     f" {-(-fa.kernel_width(Dh) // fa.WIDE_OW)} column "
-                     f"blocks) causal={causal} window={window} "
-                     f"{str(dtype)[6:]}")
+                     f"KvH={KvH} Dh={Dh} (kernel width {width}, {blocks}) "
+                     f"causal={causal} window={window} {str(dtype)[6:]}")
             worst = max(worst, hold(
-                label, got, fa.flash_attention_plain(
-                    q, k, v, causal=causal, window=window),
+                label, got, fa.flash_attention_plain(q, k, v, **mask),
                 FLASH_BF16_ATOL if bf16 else tol,
                 FLASH_BF16_RTOL if bf16 else tol))
-            if bf16 and causal and window is None:
+            if not bf16:
+                continue
+            if causal and window is None:
                 check_flash_rounding(got, q, k, v)
+            runs = [fa._flash_cuda(q, k, v, lse=True, **mask)
+                    for _ in range(2)]
+            torch.cuda.synchronize()
+            if not (bits_equal(runs[0][0], runs[1][0])
+                    and bits_equal(runs[0][0], got)
+                    and bits_equal(runs[0][1], runs[1][1])):
+                miss(f"{label}: a repeat of the forward (o, lse) is not "
+                     f"bit-equal, or its o not the serving launch's")
+            hold(f"{label} row lse", runs[0][1],
+                 fa.flash_attention_lse_plain(q, k, **mask), 1e-5, 0.0)
     return worst
 
 
@@ -5455,15 +5570,17 @@ def phase33_ssd(dev) -> float:
 
 
 def phase33_timing(dev) -> tuple:
-    """Phase 33 c, bf16: at WIDE_FLASH_TIMED the wide forward (CUDA
-    events, 5 calls) and backward (10 calls, as phase 22 times the built
-    widths, on the forward kernel's own o and lse), their plain versions
-    (1 call each), scaled_dot_product_attention's forward and backward
-    (its backend named; its backward over 10 calls too, and its ratio
-    to ours) and the bounds at the true width; at WIDE_SSD_TIMED the SSD
+    """Phase 33 c, bf16: at WIDE_FLASH_TIMED the wide forward and
+    backward (CUDA events, 10 calls each, the backward as phase 22 times
+    the built widths, on the forward kernel's own o and lse), their plain
+    versions (1 call each), scaled_dot_product_attention's forward and
+    backward (its backend named; 10 calls each, and its ratio to ours)
+    and the bounds at the true width with the share of each reached; then
+    the same shape in float32 beside SDPA's float32 forward (3 calls) and
+    backward (2 calls) (`f32_beside_sdpa`); at WIDE_SSD_TIMED the SSD
     forward and backward (10 calls), their plain versions (2 calls) and
     the bounds.  Returns the rows (ms, plain ms, bound, by, library ms)
-    of the four kernels."""
+    of the four bf16 kernels."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as ss
@@ -5477,7 +5594,7 @@ def phase33_timing(dev) -> tuple:
     mask = dict(causal=causal, window=window)
     fwd = lambda: fa._flash_cuda(q, k, v, **mask)  # noqa: E731
     fwd()
-    f_ms = cuda_ms(fwd, 5)
+    f_ms = cuda_ms(fwd, 10)
     o, lse = fa._flash_cuda(q, k, v, lse=True, **mask)
     bwd = lambda: fa._flash_bwd_cuda(q, k, v, o, do, lse, **mask)  # noqa
     bwd()
@@ -5489,7 +5606,7 @@ def phase33_timing(dev) -> tuple:
     sdpa, backend = sdpa_call(qs, ks, vs, causal, window)
     with torch.no_grad():
         sdpa()
-        f_sdpa = cuda_ms(sdpa, 5)
+        f_sdpa = cuda_ms(sdpa, 10)
     o_s = sdpa()
     do_t = do.transpose(1, 2)
     sdpa_bwd = lambda: torch.autograd.grad(  # noqa: E731
@@ -5499,17 +5616,25 @@ def phase33_timing(dev) -> tuple:
     f_bound, f_by = flash_bound(q, k, causal, window)
     b_bound, b_by = flash_bwd_bound(q, k, causal, window)
     shape = (f"B={B} S={S} H={H} KvH={KvH} Dh={Dh} causal={causal} bf16, "
-             f"{-(-Dh // fa.WIDE_OW)} column blocks")
-    print(f"phase 33 c flash forward ({shape}): {f_ms:.4f} ms; plain "
-          f"{f_plain:.3f} ms; scaled_dot_product_attention {f_sdpa:.4f} ms "
-          f"by its {backend} backend; bound {f_bound:.5f} ms by {f_by} "
-          f"({f_bound / f_ms * 100:.1f} % of it reached)")
+             f"{fa.wide_bwd_blocks(fa.kernel_width(Dh))} column blocks in a "
+             f"cluster")
+    print(f"phase 33 c flash forward ({shape}): {f_ms:.4f} ms over 10 "
+          f"calls, {f_bound / f_ms * 100:.2f} % of its bound {f_bound:.5f} "
+          f"ms by {f_by}, {f_sdpa / f_ms:.2f}x as fast as "
+          f"scaled_dot_product_attention {f_sdpa:.4f} ms (10 calls) by its "
+          f"{backend} backend; plain {f_plain:.3f} ms")
     print(f"phase 33 c flash backward ({shape}): {b_ms:.4f} ms over 10 "
           f"calls, {b_bound / b_ms * 100:.2f} % of its bound {b_bound:.5f} "
           f"ms by {b_by}, {b_sdpa / b_ms:.2f}x as fast as "
           f"scaled_dot_product_attention's backward {b_sdpa:.4f} ms by its "
           f"{backend} backend; plain {b_plain:.3f} ms")
-    del q, k, v, do, o, lse, qs, ks, vs, o_s
+    del o, lse, qs, ks, vs, o_s
+    q, k, v, do = (t.float() for t in (q, k, v, do))
+    label = (f"phase 33 c flash (B={B} S={S} H={H} KvH={KvH} Dh={Dh} "
+             f"causal={causal})")
+    f32_beside_sdpa(label, q, k, v, causal, window, 3)
+    f32_beside_sdpa(label, q, k, v, causal, window, 2, do)
+    del q, k, v, do
     b, s, h, g, n, dt_scale, p = WIDE_SSD_TIMED
     *ins, dy = ssd_bwd_inputs(gen, b, s, h, g, n, bf, dt_scale, p)
     fwd = lambda: ss._ssd_cuda(*ins)  # noqa: E731

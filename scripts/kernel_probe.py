@@ -700,15 +700,28 @@ def probe_flash_variants() -> None:
 
 def probe_flash_compare(other: str) -> None:
     """The kernel built from another copy of csrc/flash_attention.cu
-    (`other`, e.g. a parent commit's) against this checkout's, bf16 and
-    float32, timed in turns (other, this, this, other) at the zamba2-1.2b
-    prefill shape, outputs compared bit for bit."""
+    (`other`, e.g. a parent commit's) against this checkout's.  At the
+    zamba2-1.2b prefill shape, bf16 and float32, both called directly:
+    times in turns (other, this, this, other), outputs bit for bit.  Then
+    through the checkout's wrapper (padding; `_lib` swapped): at
+    `FLASH_TIMED` in both dtypes (the built widths 64, 96, 256), every
+    `chip_smoke.WIDE_FLASH` shape in both dtypes and
+    `chip_smoke.WIDE_FLASH_TIMED` in bf16, each with o and its row lse
+    compared bit for bit between the builds; in bf16 past Dh 256 also each
+    build's largest error against the plain version and whether a repeat
+    is bit-equal; times in turns at the timed shapes and the bf16 wide
+    ones; last, how many SASS instructions of each kernel differ."""
     lib = build.BUILD_DIR.parent / "probe" / "flash_other.so"
     lib.parent.mkdir(parents=True, exist_ok=True)
     proc = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(lib),
                            other], capture_output=True, text=True)
     if proc.returncode:
         raise RuntimeError(f"nvcc failed for {other}:\n{proc.stderr}")
+    print("ptxas other: " + "; ".join(chip_smoke.ptxas_kernels(proc.stderr)))
+    build.build("flash_attention")
+    print("ptxas this: " + ("; ".join(chip_smoke.ptxas_kernels(
+        build.BUILD_LOG["flash_attention"]))
+        if "flash_attention" in build.BUILD_LOG else "built before"))
     fns = {"other": bind_forward(ctypes.CDLL(str(lib)),
                                  "void* lse" in Path(other).read_text()),
            "this": bind_forward(build.load("flash_attention"), True)}
@@ -733,6 +746,167 @@ def probe_flash_compare(other: str) -> None:
                   f"{cuda_ms(lambda: run(fns[name]), reps):.4f} ms",
                   flush=True)
         print(f"{str(dtype)[6:]} outputs bit for bit equal: {same}")
+    other_fn = ctypes.CDLL(str(lib)).flash_attention_launch
+    other_fn.argtypes = fa._lib().argtypes
+    other_fn.restype = ctypes.c_int
+    B, S, H, KvH, Dh, causal, window = chip_smoke.WIDE_FLASH_TIMED
+    shapes = [((f"timed Dh {d}", 2, 4096, 4096, h, kvh, d, True, w), dtype)
+              for h, kvh, d, w in FLASH_TIMED[1:]
+              for dtype in (torch.bfloat16, torch.float32)]
+    shapes += [(s_, dtype) for s_ in chip_smoke.WIDE_FLASH
+               for dtype in (torch.bfloat16, torch.float32)]
+    shapes.append((("timed", B, S, S, H, KvH, Dh, causal, window),
+                   torch.bfloat16))
+    for (name, B, Sq, Sk, H, KvH, Dh, causal, window), dtype in shapes:
+        q = rn(gen, (B, Sq, H, Dh), dtype)
+        k, v = (rn(gen, (B, Sk, KvH, Dh), dtype) for _ in range(2))
+        mask = dict(causal=causal, window=window)
+
+        def this():
+            return fa._flash_cuda(q, k, v, lse=True, **mask)
+
+        def run_other():
+            saved = fa._lib
+            fa._lib = lambda: other_fn
+            try:
+                return this()
+            finally:
+                fa._lib = saved
+        label = (f"flash {name} B={B} Sq={Sq} Sk={Sk} H={H} KvH={KvH} "
+                 f"Dh={Dh} causal={causal} window={window} "
+                 f"{str(dtype)[6:]}")
+        wide_bf16 = dtype == torch.bfloat16 and Dh > 256
+        firsts = []
+        for who, f in (("other", run_other), ("this", this)):
+            a, b = f(), f()
+            torch.cuda.synchronize()
+            firsts.append(a)
+            if wide_bf16:
+                err = float((a[0].float() - fa.flash_attention_plain(
+                    q, k, v, **mask).float()).abs().max())
+                same = all(chip_smoke.bits_equal(x, y) for x, y in zip(a, b))
+                print(f"{label}, {who}: max abs err vs flash_attention_plain "
+                      f"{err:.3g}; a repeat bit-equal: {same}", flush=True)
+        print(f"{label}: other and this bit-equal (o, lse): "
+              f"{all(chip_smoke.bits_equal(x, y) for x, y in zip(*firsts))}",
+              flush=True)
+        if not (name.startswith("timed") or wide_bf16):
+            continue
+        reps = 20 if Dh <= 256 and dtype == torch.bfloat16 else \
+            10 if Sq * Sk * Dh < 2 ** 31 else 5
+        times = {"other": [], "this": []}
+        for who in ("other", "this", "this", "other"):
+            f = run_other if who == "other" else this
+            times[who].append(cuda_ms(f, reps))
+            print(f"{label}, {who} ({other if who == 'other' else 'checkout'}"
+                  f"): {times[who][-1]:.4f} ms", flush=True)
+        print(f"{label}: other / this "
+              f"{sum(times['other']) / sum(times['this']):.3f} (means of "
+              f"{reps} calls in turns)", flush=True)
+        del q, k, v, firsts
+    sass_diff(lib, build.library_path("flash_attention"))
+
+
+# source edits of csrc/flash_attention.cu for `flash-wide-variants`: each
+# drops or changes one part of the bf16 wide forward's step (the dropped
+# ones give wrong outputs: they only time what is left)
+_FW_BARRIERS = [('  asm volatile("barrier.cluster.arrive.release.aligned;\\n" '
+                 '::: "memory");', "  __syncthreads();"),
+                ('  asm volatile("barrier.cluster.arrive.relaxed.aligned;\\n" '
+                 '::: "memory");', "  __syncthreads();"),
+                ('  asm volatile("barrier.cluster.wait.acquire.aligned;\\n" '
+                 '::: "memory");', "")]
+# each block's partial written into its own exchange (wrong scores: the
+# sum adds it to itself), so no distributed shared memory is touched
+_FW_LOCAL = [("  float4* out = push ? const_cast<float4*>(peer(mine, 1 - cb)) "
+              ": mine;", "  float4* out = mine;")]
+_FW_COPIES = [("    if (i + 2 < n) stage_kv(ks + (i & 1) * FW_KB, a.k, i + 2);",
+               "    if (i + 2 < n && i == 0) "
+               "stage_kv(ks + (i & 1) * FW_KB, a.k, i + 2);"),
+              ("    if (i + 1 < n) stage_kv(vs + ((i + 1) & 1) * FW_KB, a.v, "
+               "i + 1);",
+               "    if (i + 1 < n && i == 0) "
+               "stage_kv(vs + ((i + 1) & 1) * FW_KB, a.v, i + 1);")]
+FWD_VARIANTS = {
+    "as built": [],
+    "two ranks pulled (the peer's partial read from its exchange)": [
+        ("  const bool push = x.ranks == 2;", "  const bool push = false;")],
+    "the partials-read arrive with a release fence": [
+        ("    cluster_arrive_relaxed();              // R_i",
+         "    cluster_arrive();                      // R_i")],
+    "own exchange only (no DSMEM)": _FW_LOCAL,
+    "own exchange, block barriers for the cluster's": [*_FW_LOCAL,
+                                                       *_FW_BARRIERS],
+    "no partial products (S partials zero)": [
+        ("    fw_scores<NC>(s, qw, ks + (i & 1) * FW_KB, false);",
+         "#pragma unroll\n"
+         "    for (int e = 0; e < 32; ++e) s[e] = 0.f;")],
+    "no PV products": [
+        ("    if (live) fw_pv<NC>(acc, pa, vs + (i & 1) * FW_KB);",
+         "    if (live) fence_acc<NC * 32>(acc);")],
+    "K and V copied for the first kv tiles only": _FW_COPIES,
+    "own exchange, block barriers, copies for the first tiles only": [
+        *_FW_LOCAL, *_FW_BARRIERS, *_FW_COPIES],
+    "design b: no cluster, each block forms S over the head": [
+        ("  x.ranks = x.ncb <= FW_CLUSTER ? x.ncb : 1;", "  x.ranks = 1;")],
+}
+
+
+def probe_flash_wide_variants() -> None:
+    """Builds of csrc/flash_attention.cu with one part of the bf16 wide
+    forward's step dropped or changed (`FWD_VARIANTS`), timed in turns
+    (each in order, then in reverse) at `chip_smoke.WIDE_FLASH_TIMED`,
+    each beside its largest error against the plain version: where the
+    step's time goes."""
+    src = (build.CSRC / "flash_attention.cu").read_text()
+    out = build.BUILD_DIR.parent / "probe"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for i, (name, edits) in enumerate(FWD_VARIANTS.items()):
+        text = src
+        for old, new in edits:
+            if old not in text:
+                raise RuntimeError(f"flash source changed: {old!r}")
+            text = text.replace(old, new)
+        path = out / f"flash_fwd_variant{i}.cu"
+        path.write_text(text)
+        lib = out / f"flash_fwd_variant{i}.so"
+        procs[name] = (lib, subprocess.Popen(
+            [build.nvcc(), *build.NVCC_FLAGS, "-o", str(lib), str(path)],
+            stderr=subprocess.PIPE, text=True))
+    fns = {}
+    for name, (lib, proc) in procs.items():
+        err = proc.communicate()[1]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {name}:\n{err}")
+        print(f"ptxas {name}: " + "; ".join(
+            k for k in chip_smoke.ptxas_kernels(err) if "hw<" in k))
+        fn = ctypes.CDLL(str(lib)).flash_attention_launch
+        fn.argtypes = fa._lib().argtypes
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    B, S, H, KvH, Dh, causal, window = chip_smoke.WIDE_FLASH_TIMED
+    gen = torch.Generator(device=DEV).manual_seed(9)
+    q = rn(gen, (B, S, H, Dh), torch.bfloat16)
+    k, v = (rn(gen, (B, S, KvH, Dh), torch.bfloat16) for _ in range(2))
+
+    def run(fn):
+        saved = fa._lib
+        fa._lib = lambda: fn
+        try:
+            return fa._flash_cuda(q, k, v, causal=causal, window=window)
+        finally:
+            fa._lib = saved
+    plain = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    for name, fn in fns.items():
+        err = float((run(fn).float() - plain.float()).abs().max())
+        print(f"flash fwd variant {name}: max abs err vs plain {err:.3g}",
+              flush=True)
+    order = list(fns)
+    for name in order + order[::-1]:
+        print(f"flash fwd variant {name} (B={B} S={S} H={H} Dh={Dh} causal "
+              f"bf16): {cuda_ms(lambda: run(fns[name]), 5):.4f} ms",
+              flush=True)
 
 
 def sass(lib: Path) -> dict:
@@ -765,8 +939,6 @@ def probe_day_compare(other: str) -> None:
     tables (N 64, T 4320, L 3, dt_s 10): all nine outputs bit for bit,
     times in turns (other, this, this, other, other, this; CUDA events
     over 50 launches), and how many SASS lines of each kernel differ."""
-    import difflib
-
     from repro_torch.core import daysim
     lib = build.BUILD_DIR.parent / "probe" / "day_other.so"
     lib.parent.mkdir(parents=True, exist_ok=True)
@@ -790,8 +962,16 @@ def probe_day_compare(other: str) -> None:
               f"({other if who == 'other' else 'checkout'}): "
               f"{cuda_ms(lambda: ds._launch(fns[who], full), 50):.4f} ms",
               flush=True)
-    mine = sass(build.library_path("day_scan"))
-    for name, lines in sorted(sass(lib).items()):
+    sass_diff(lib, build.library_path("day_scan"))
+
+
+def sass_diff(other: Path, this: Path) -> None:
+    """For each kernel of the library `other`, its SASS instructions and
+    this build's and how many of them differ (a kernel whose SASS is the
+    same in both builds times the same: a difference in turns is noise)."""
+    import difflib
+    mine = sass(this)
+    for name, lines in sorted(sass(other).items()):
         if name not in mine:
             print(f"SASS {name}: not in this build")
             continue
@@ -1135,7 +1315,7 @@ def probe_wide() -> None:
     for name in ("flash_attention", "flash_attention_bwd", "ssd_scan",
                  "ssd_scan_bwd"):
         lines = [k for k in chip_smoke.ptxas_kernels(build.BUILD_LOG.get(
-            name, "")) if "wide" in k or "f32>" in k or "hw<" in k]
+            name, "")) if "wide" in k or "f32>" in k or "_hw<" in k]
         print(f"ptxas {name}: " + "; ".join(lines))
     chip_smoke.phase33(DEV)
     print(f"misses: {len(chip_smoke.MISSES)}")
@@ -1148,6 +1328,7 @@ def main() -> None:
               "flash-variants": probe_flash_variants,
               "flash-bwd": probe_flash_bwd, "ssd-bwd": probe_ssd_bwd,
               "flash-bwd-variants": probe_flash_bwd_variants,
+              "flash-wide-variants": probe_flash_wide_variants,
               "row-stage": probe_row_stage, "wide": probe_wide}
     compare = {"flash-compare": probe_flash_compare,
                "flash-bwd-compare": probe_flash_bwd_compare,

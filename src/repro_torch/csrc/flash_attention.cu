@@ -19,7 +19,9 @@
 // alpha = exp(m - m_new), p = exp(s - m_new), l = l * alpha + rowsum p
 // (p unrounded), acc = acc * alpha + round_to_v_dtype(p) @ v;
 // o = acc / max(l, 1e-30) in q's dtype.  exp is expf (no exp2 folding, no
-// fast math), so p equals the plain version's for the same s and m.
+// fast math), so p equals the plain version's for the same s and m, in
+// every kernel but the bf16 one past Dh 256, which folds the scale into
+// log2 units and takes ex2.approx (see its section).
 //
 // What bounds it: at the slice's shape (B = 2, S = 4096, H = 32, Dh = 64,
 // causal, bf16) the work is ~137 GFLOP of products against ~134 MB of
@@ -70,22 +72,22 @@
 // Dh 128 each k-step's Q fragment is re-read from the Q tile in shared
 // memory on every kv tile (QREG false) instead of staying in registers.
 //
-// Wider heads (flash_wide_bf16, flash_wide_f32): the TPU kernel takes any
+// Wider heads (flash_fwd_hw, flash_wide_f32): the TPU kernel takes any
 // Dh (its BlockSpec is (1, bq, 1, Dh)).  Here a Dh above 256 no longer
 // fits one block's tiles or registers, so the wrapper pads it to a
-// multiple of 64 and a grid axis splits the output columns into blocks of
-// up to WIDE_OW = 256.  Each block forms S = Q K^T over the whole Dh by
-// walking it in 64-column slices of Q and K staged in shared memory (bf16:
-// a ring of two stages filled by cp.async), runs the online softmax as the
-// kernels above do (same tiles, masks, expf, P rounded once to V's dtype),
-// and multiplies P by its own columns of V.  Every column block computes
-// the same S in the same order, so m, l and the lse agree in all of them;
-// block 0 writes the lse.  What bounds it: the function is bound by
-// operations as at the built widths (at B 2, S 4096, H 16, Dh 512, causal,
-// ~550 GFLOP); the design repeats Q K^T once per column block (Dh / 256
-// times) and re-reads the Q slices from L2 on every kv tile, the price of
-// keeping S whole in registers at any Dh.  Shared memory: 89 088 B in
-// bf16, 121 856 B in float32.
+// multiple of 64 and each block owns a column block of up to 256 output
+// columns.  bf16 (flash_fwd_hw, the design and why in its section): a
+// thread-block cluster of the column blocks on wgmma, each forming a
+// partial S over its own columns, the partials summed in rank order
+// through distributed shared memory.  float32 (flash_wide_f32):
+// each block forms S = Q K^T over the whole Dh by walking it in 64-column
+// slices of Q and K staged in shared memory, runs the online softmax as
+// flash_kernel_f32 does, and multiplies P by its own columns of V; every
+// column block computes the same S in the same order, so m, l and the lse
+// agree in all of them and block 0 writes the lse.  What bounds them: the
+// function is bound by operations as at the built widths (at B 2, S 4096,
+// H 16, Dh 512, causal, ~550 GFLOP).  Shared memory: 230 400 B in bf16,
+// 121 856 B in float32.
 
 #include <cstdint>
 
@@ -566,234 +568,605 @@ __global__ void __launch_bounds__(BF_THREADS) flash_kernel_bf16(FlashArgs a) {
 }
 
 // ---------------------------------------------------------------------------
-// Dh above 256 (any multiple of 64: the wrapper pads to one): a grid axis
-// over output column blocks, q.k walked in 64-column slices
+// Dh above 256 (any multiple of 64: the wrapper pads to one)
 // ---------------------------------------------------------------------------
 
-constexpr int WIDE_SLICE = 64;     // columns of q.k one step stages
-constexpr int WIDE_OW = 256;       // output columns a block owns, at most
+constexpr int WIDE_SLICE = 64;     // columns of q.k a float32 step stages
+constexpr int WIDE_OW = 256;       // output columns a float32 block owns
 
-// two stages of (Q slice, K slice), then the V tile's WIDE_OW columns;
-// rows padded by 16 bytes
-__host__ __device__ constexpr int wide_bf_smem_bytes() {
-  return (2 * (BF_BQ + BF_BK) * (WIDE_SLICE + 8)
-          + BF_BK * (WIDE_OW + 8)) * 2;
-}
-// the Q and K slices, the V tile, the P tile
+// float32: the Q and K slices, the V tile, the P tile
 __host__ __device__ constexpr int wide_f32_smem_floats() {
   return (F32_BQ + F32_BK) * (WIDE_SLICE + 4) + F32_BK * (WIDE_OW + 4)
        + F32_BQ * PS;
 }
-static_assert(wide_bf_smem_bytes() <= SMEM_OPTIN_BYTES &&
-              wide_f32_smem_floats() * 4 <= SMEM_OPTIN_BYTES,
+static_assert(wide_f32_smem_floats() * 4 <= SMEM_OPTIN_BYTES,
               "flash wide: tiles exceed the shared memory of a block");
 
-// Stage rows [r0, r0 + ROWS), columns [d0, d0 + w) (w a multiple of 8) of
-// head `hd` of a (B, S, heads, dh) bf16 tensor into smem rows of stride
-// `ds`; rows >= S are zero-filled.
+// bfloat16 (flash_fwd_hw): a thread-block cluster of column blocks on the
+// tensor cores, the forward of flash_attention_bwd.cu's flash_bwd_hw
+// (design a).  Taken over column blocks that each form S over the whole
+// head (design b) because it stages every tile once a block (Q once, K and
+// V once a kv tile) and forms Q K^T once a cluster: two products where
+// the function needs two, against Dh / 256 + 1 for design b, whose blocks
+// also re-read Q from L2 every kv tile.  What it pays instead is the
+// exchange: two cluster barrier phases a kv tile and 32 KB of partials a
+// block through distributed shared memory.  In turns at B 2, S 4096, H
+// 16, Dh 512, causal (H100, PERF.md) design b, as built below for more
+// than 8 column blocks, took 2.91 ms against 2.20 for design a (6.3 for
+// the mma.sync kernel it replaces, 4.7 for SDPA).  What holds it back
+// there: of 2.2 ms the cluster barriers ~0.30, the distributed shared
+// memory 0.24, the partial products 0.24, the copies 0.16; one block an
+// SM, its two warpgroups in step, so little hides a step's latencies.
+//
+// A block owns 128 query rows (two warpgroups of 64) and one column block:
+// the head's 64-column chunks are dealt into ncb = ceil(Dh / 256) blocks of
+// 2-4 chunks, and block c stages only its own columns of Q (once), K and V
+// (each kv tile, two stages each), in bf16 by cp.async into the 128-byte
+// swizzle.  Per kv tile each warpgroup forms its partial S_c = Q_c K_c^T
+// (a wgmma m64n64k16 chain, both operands K-major) and publishes it, and
+// after a cluster barrier sums the ncb partials in rank order, so every
+// block holds the same S, m, l and P bit for bit: at two ranks each block
+// writes its partial into the peer's exchange and keeps its own in
+// registers (a + b is b + a), past two each reads the others' from their
+// exchanges.  Then acc_c += bf16(P) V_c: register-A wgmma, P packed from
+// the scores as they lie, V_c read MN-major.  The exchange is one buffer:
+// a second barrier phase a tile says it has been read, and each phase has
+// work between its arrive and its wait (the softmax, the PV product).
+// Shared memory: Q_c 64 KB, two K_c and two V_c 128 KB, the exchange 32
+// KB: 225 KB of the 227 a block may have, one block an SM.  No atomics: a
+// call repeats bit for bit, and block 0's lse is every block's.
+//
+// The softmax keeps flash_kernel_bf16's masks and tile skipping, per
+// warpgroup (a tile wholly masked for its 64 rows is skipped; every block
+// of a cluster skips alike), with the scale folded into log2 units: p =
+// 2^(s scale log2e - m) by ex2.approx (relative error ~2^-22 before P's
+// rounding to bf16), m + log l = m ln 2 + log l.  A cluster holds at most
+// 8 blocks (the portable limit: Dh <= 2048); past that the same kernel runs
+// without a cluster, each block forming S over the whole head itself, one
+// column block's Q and K chunks after another (design b, unpipelined).
+constexpr int FW_ROWS = 128;       // query rows of a block: two warpgroups
+constexpr int FW_BK = 64;          // keys of a kv tile
+constexpr int FW_CHUNK = 64;       // columns of a chunk: a 128-byte line
+constexpr int FW_MAX_CHUNKS = 4;   // chunks of a column block, at most
+constexpr int FW_CLUSTER = 8;      // blocks of a cluster, at most (portable)
+constexpr int FW_QB = FW_MAX_CHUNKS * FW_ROWS * 128;   // the Q tile, 64 KB
+constexpr int FW_KB = FW_MAX_CHUNKS * FW_BK * 128;     // a K or V tile, 32 KB
+constexpr int FW_XB = FW_ROWS * FW_BK * 4;             // an exchange, 32 KB
+// Q, two stages of K and of V, the exchange, 1024 bytes to align
+constexpr int FW_SMEM_BYTES = FW_QB + 4 * FW_KB + FW_XB + 1024;
+static_assert(FW_SMEM_BYTES <= SMEM_OPTIN_BYTES,
+              "flash fwd hw: tiles exceed the shared memory of a block");
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+// flash_attention_bwd.cu's wgmma, swizzle and cluster helpers, repeated:
+// each source builds alone
+// copies made by the threads (cp.async) visible to wgmma's reads
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// wgmma's shared-memory matrix descriptor of a K-major tile in the
+// 128-byte swizzle: start address, leading offset 16 bytes (unused in
+// this swizzle), 1024 bytes between 8-row groups, swizzle mode 1
+__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+  return uint64_t((smem_u32(p) & 0x3FFFF) >> 4) | (uint64_t(1) << 16)
+       | (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
+}
+// wgmma's descriptor of an MN-major tile of 64 rows in the 128-byte
+// swizzle (the B operand of a product that contracts over the tile's
+// rows): 8192 bytes between 64-column chunks, 1024 between 8-row groups
+__device__ __forceinline__ uint64_t mn_desc(const void* p) {
+  return uint64_t((smem_u32(p) & 0x3FFFF) >> 4) | (uint64_t(8192 >> 4) << 16)
+       | (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
+}
+// d (64 x 64 f32, the warpgroup's) = [d +] a (64 x 16) . b (64 x 16)^T,
+// both bf16 in shared memory
+__device__ __forceinline__ void wgmma_64x64(float d[32], uint64_t da,
+                                            uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+// d (64 x N f32, the warpgroup's) += a (64 x 16 bf16, each thread's
+// register fragment) . b (16 x N), b an MN-major tile in shared memory
+template <int N>
+__device__ void wgmma_rs(float* d, const uint32_t a[4], uint64_t db);
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t a[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float* d, const uint32_t a[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+// keeps the compiler from moving a use of d across the wgmma's issue or
+// wait
+template <int N = 32>
+__device__ __forceinline__ void fence_acc(float* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// the arrive after a step's partials are read: no release fence, since the
+// loads are consumed before it (0.29 ms of 2.5 at Dh 512, H100, in turns:
+// PERF.md); the block's copies become visible by a block barrier after
+// its wait
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+// the generic address of `p`'s counterpart in the shared memory of the
+// cluster's block `rank` (plain loads from it are ordered by the barriers)
+__device__ __forceinline__ const float4* peer(const float4* p, int rank) {
+  uint64_t out;
+  asm("mapa.u64 %0, %1, %2;\n"
+      : "=l"(out) : "l"(reinterpret_cast<uint64_t>(p)), "r"(rank));
+  return reinterpret_cast<const float4*>(out);
+}
+// 2^x by the SFU's approximation (relative error ~2^-22; results below
+// 2^-126 flush to 0)
+__device__ __forceinline__ float fw_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// byte offset of 16-byte piece c of row r in a swizzled tile of ROWS rows
+// (piece c of chunk c / 8: chunks ROWS x 128 bytes apart)
 template <int ROWS>
-__device__ __forceinline__ void stage_cols(__nv_bfloat16* dst, int ds,
-                                           const __nv_bfloat16* src, int b,
-                                           int S, int heads, int hd, int r0,
-                                           int dh, int d0, int w) {
-  const int ch = w / 8;            // 16-byte chunks per row
-  for (int idx = threadIdx.x; idx < ROWS * ch; idx += BF_THREADS) {
-    const int r = idx / ch, c = idx % ch, t = r0 + r;
-    const bool in = t < S;
-    const __nv_bfloat16* g =
-        src + ((size_t(b) * S + (in ? t : 0)) * heads + hd) * dh + d0 + 8 * c;
-    cp_async16(dst + r * ds + 8 * c, g, in ? 16 : 0);
+__device__ __forceinline__ uint32_t fw_swz(int r, int c) {
+  return (c >> 3) * (ROWS * 128) + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+}
+
+// rows [r0, r0 + ROWS), chunks [ch0, ch0 + nc) of head `hd` of a (B, S,
+// heads, dh) bf16 tensor into a swizzled tile by cp.async; rows >= S
+// zeros.  Lane l of warp w copies 16-byte piece l of rows w + 8 i (a row
+// of up to 4 chunks is 32 pieces; lanes past nc chunks idle): its piece
+// lands at one swizzled slot of every 8-row group, 1024 bytes apart, and
+// one running pointer walks the rows (the copies run while the scores and
+// the accumulator hold most of the registers)
+template <int ROWS>
+__device__ __forceinline__ void fw_stage(unsigned char* dst, const void* src,
+                                         int b, int S, int heads, int hd,
+                                         int r0, int dh, int ch0, int nc) {
+  const int c = threadIdx.x % 32, w = threadIdx.x / 32;
+  if (c >= nc * (FW_CHUNK / 8)) return;
+  const size_t stride = size_t(heads) * dh * 8;    // 8 rows apart
+  const __nv_bfloat16* row0 = static_cast<const __nv_bfloat16*>(src)
+      + (size_t(b) * S * heads + hd) * dh + FW_CHUNK * ch0 + 8 * c;
+  const __nv_bfloat16* g = row0 + size_t(r0 + w) * heads * dh;
+  unsigned char* d = dst + fw_swz<ROWS>(w, c);
+#pragma unroll 4
+  for (int i = 0; i < ROWS / 8; ++i, g += stride, d += 1024) {
+    const bool in = r0 + w + 8 * i < S;
+    cp_async16(d, in ? g : row0, in ? 16 : 0);
   }
 }
 
-// bf16, grid (B H, query tiles, column blocks): flash_kernel_bf16's warps,
-// masks and online softmax; S = Q K^T summed over dh / 64 slices of Q and
-// K staged by cp.async in a ring of two (the next slice, or the next kv
-// tile's first, loads while this one computes), then acc += bf16(P) V over
-// the block's own output columns.  Every column block forms the same S in
-// the same order, so m, l and the lse agree in all of them: block 0 writes
-// the lse.
-__global__ void __launch_bounds__(BF_THREADS) flash_wide_bf16(FlashArgs a,
-                                                              int dh) {
-  constexpr int SS = WIDE_SLICE + 8;       // slice row stride
-  constexpr int VS = WIDE_OW + 8;          // V tile row stride
-  constexpr int UNIT = (BF_BQ + BF_BK) * SS;   // one stage: Q then K slice
-  constexpr int NS = BF_BK / 8;            // score n-tiles
-  constexpr int NO = WIDE_OW / 8;          // output n-tiles of a full block
-  extern __shared__ float4 smem4[];
-  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem4);
-  __nv_bfloat16* vs = ring + 2 * UNIT;
-
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int g = lane / 4, t4 = lane % 4;
-  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BF_BQ;   // heaviest first
-  const int c0 = blockIdx.z * WIDE_OW;
-  const int cw = min(WIDE_OW, dh - c0);    // this block's output columns
-  const int nsl = dh / WIDE_SLICE;
-  const int kvh = h / (a.H / a.KvH);
-  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q);
-  const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(a.k);
-  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(a.v);
-  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(a.o);
-
-  int kt_end = (a.Sk + BF_BK - 1) / BF_BK;
-  if (a.causal) kt_end = min(kt_end, (q0 + BF_BQ - 1) / BF_BK + 1);
-  int kt_begin = 0;
-  if (a.window >= 0) kt_begin = max(0, (q0 - a.window + 1) / BF_BK);
-  kt_begin = min(kt_begin, kt_end);
-
-  // slice sl of kv tile kt into stage st
-  auto stage_slice = [&](int kt, int sl, int st) {
-    __nv_bfloat16* dst = ring + st * UNIT;
-    stage_cols<BF_BQ>(dst, SS, q, b, a.Sq, a.H, h, q0, dh, WIDE_SLICE * sl,
-                      WIDE_SLICE);
-    stage_cols<BF_BK>(dst + BF_BQ * SS, SS, k, b, a.Sk, a.KvH, kvh,
-                      kt * BF_BK, dh, WIDE_SLICE * sl, WIDE_SLICE);
-  };
-  if (kt_begin < kt_end) stage_slice(kt_begin, 0, 0);
-  cp_async_commit();
-
-  const int r_first = q0 + 16 * warp, r_last = r_first + 15;
-  const int row0 = r_first + g, row1 = row0 + 8;
-  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
-  float acc[NO][4];
+// d (the warpgroup's 64 x 64 f32 scores, accumulator order) = [d +] a .
+// b^T over NC chunks: a the warpgroup's 64 rows of the Q tile, b the K
+// tile, both K-major; one wgmma chain, waited for
+template <int NC>
+__device__ __forceinline__ void fw_scores(float d[32], const unsigned char* a,
+                                          const unsigned char* b,
+                                          bool accumulate) {
+  fence_acc(d);
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
-  for (int j = 0; j < NO; ++j)
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k0 = kt * BF_BK;
-    bool live = k0 < a.Sk;
-    if (a.causal) live = live && k0 <= r_last;
-    if (a.window >= 0) live = live && k0 + BF_BK - 1 > r_first - a.window;
-
-    float s[NS][4];
-#pragma unroll
-    for (int j = 0; j < NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-    for (int sl = 0; sl < nsl; ++sl) {
-      const int u = (kt - kt_begin) * nsl + sl;   // stage u & 1
-      // the V tile joins the second slice's copies (its readers finished
-      // with the tile before); dh > 256 makes 5 slices at least, so the
-      // second slice's wait completes it
-      if (sl == 0)
-        stage_cols<BF_BK>(vs, VS, v, b, a.Sk, a.KvH, kvh, k0, dh, c0, cw);
-      if (sl + 1 < nsl) stage_slice(kt, sl + 1, (u + 1) & 1);
-      else if (kt + 1 < kt_end) stage_slice(kt + 1, 0, (u + 1) & 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-      __syncthreads();
-      if (live) {
-        const __nv_bfloat16* qs = ring + (u & 1) * UNIT;
-        const __nv_bfloat16* ks = qs + BF_BQ * SS;
-#pragma unroll
-        for (int kk = 0; kk < WIDE_SLICE / 16; ++kk) {
-          uint32_t qf[4];
-          ldmatrix_x4(qf, qs + (16 * warp + (lane & 15)) * SS + 16 * kk
-                              + 8 * (lane >> 4));
-#pragma unroll
-          for (int j = 0; j < NS; j += 2) {
-            uint32_t kb[4];
-            ldmatrix_x4(kb, ks + (8 * j + (lane & 7) + ((lane >> 4) << 3)) * SS
-                                + 16 * kk + 8 * ((lane >> 3) & 1));
-            mma_bf16(s[j], qf, kb[0], kb[1]);
-            mma_bf16(s[j + 1], qf, kb[2], kb[3]);
-          }
-        }
-      }
-      __syncthreads();             // this stage is refilled next step
-    }
-    if (live) {
-      bool edge = k0 + BF_BK > a.Sk;
-      if (a.causal) edge = edge || k0 + BF_BK - 1 > r_first;
-      if (a.window >= 0) edge = edge || k0 <= r_last - a.window;
-#pragma unroll
-      for (int j = 0; j < NS; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float x = s[j][e] * a.scale;
-          if (edge) {
-            const int kj = k0 + 8 * j + 2 * t4 + (e & 1);
-            const int qi = e < 2 ? row0 : row1;
-            bool ok = kj < a.Sk;
-            if (a.causal) ok = ok && kj <= qi;
-            if (a.window >= 0) ok = ok && kj > qi - a.window;
-            if (!ok) x = NEG_INF;
-          }
-          s[j][e] = x;
-        }
-      float alpha[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        float mx = NEG_INF;
-#pragma unroll
-        for (int j = 0; j < NS; ++j)
-          mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        const float m_new = fmaxf(m[r], mx);
-        alpha[r] = expf(m[r] - m_new);
-        m[r] = m_new;
-        float sum = 0.f;
-#pragma unroll
-        for (int j = 0; j < NS; ++j) {
-          s[j][2 * r] = expf(s[j][2 * r] - m_new);
-          s[j][2 * r + 1] = expf(s[j][2 * r + 1] - m_new);
-          sum += s[j][2 * r] + s[j][2 * r + 1];
-        }
-        l[r] = l[r] * alpha[r] + sum;
-      }
-#pragma unroll
-      for (int j = 0; j < NO; ++j) {
-        acc[j][0] *= alpha[0];
-        acc[j][1] *= alpha[0];
-        acc[j][2] *= alpha[1];
-        acc[j][3] *= alpha[1];
-      }
-#pragma unroll
-      for (int kk = 0; kk < BF_BK / 16; ++kk) {
-        uint32_t pa[4];
-        pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-        pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-        pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-        pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-        for (int j = 0; j < NO; j += 2) {
-          if (8 * j >= cw) break;  // past this block's columns
-          uint32_t vb[4];
-          ldmatrix_x4_trans(vb, vs + (16 * kk + (lane & 7)
-                                      + 8 * ((lane >> 3) & 1)) * VS
-                                    + 8 * j + 8 * (lane >> 4));
-          mma_bf16(acc[j], pa, vb[0], vb[1]);
-          mma_bf16(acc[j + 1], pa, vb[2], vb[3]);
-        }
-      }
-    }
-    __syncthreads();               // the V tile is refilled next tile
+  for (int kk = 0; kk < 4 * NC; ++kk) {
+    const int off = (kk & 3) * 32;
+    wgmma_64x64(d, sw128_desc(a + (kk >> 2) * (FW_ROWS * 128) + off),
+                sw128_desc(b + (kk >> 2) * (FW_BK * 128) + off),
+                accumulate || kk > 0);
   }
-  cp_async_wait<0>();
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  fence_acc(d);
+}
 
+// acc (the warpgroup's 64 x 64 NC f32) += p (64 x 64 bf16: four k-steps of
+// register fragments) . v (the V tile's 64 keys x NC chunks, read
+// MN-major): one register-A wgmma chain, waited for
+template <int NC>
+__device__ __forceinline__ void fw_pv(float* acc, const uint32_t p[4][4],
+                                      const unsigned char* v) {
+  fence_acc<NC * 32>(acc);
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const unsigned char* rows = v + kk * 16 * 128;
+#pragma unroll
+    for (int c = 0; c + 1 < NC; c += 2)
+      wgmma_rs<128>(acc + 32 * c, p[kk], mn_desc(rows + c * (FW_BK * 128)));
+    if constexpr (NC % 2 == 1)
+      wgmma_rs<64>(acc + 32 * (NC - 1), p[kk],
+                   mn_desc(rows + (NC - 1) * (FW_BK * 128)));
+  }
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  fence_acc<NC * 32>(acc);
+}
+
+// the scores s: the cluster's `ranks` partials summed in rank order, from
+// this thread's slot `mine` of the exchange (8 float4 128 apart) in each
+// block's shared memory (its own read locally), half a slot at a time
+__device__ __forceinline__ void fw_totals(float s[32], const float4* mine,
+                                          int ranks, int me) {
+  for (int r = 0; r < ranks; ++r) {
+    const float4* src = r == me ? mine : peer(mine, r);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float t[16];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float4 v = src[(4 * h + j) * 128];
+        t[4 * j] = v.x; t[4 * j + 1] = v.y; t[4 * j + 2] = v.z;
+        t[4 * j + 3] = v.w;
+      }
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+        s[16 * h + i] = r == 0 ? t[i] : s[16 * h + i] + t[i];
+    }
+  }
+}
+
+struct FwArgs {
+  int dh, nch, ncb;                // padded Dh, its chunks, column blocks
+  int ranks;                       // blocks summing partials (ncb), or 1:
+                                   // each block forms S over the head
+};
+
+// a block's place: (batch, head), its query tile (heaviest first), the kv
+// tiles its rows see, its threads' rows
+struct FwPlace {
+  int b, h, kvh, q0, kt_begin, kt_end;
+  int wg, r_first, r_last, row0, row1, t4;
+  __device__ FwPlace(const FlashArgs& a, const FwArgs& x) {
+    const int bh = blockIdx.x / x.ncb;
+    b = bh / a.H;
+    h = bh % a.H;
+    kvh = h / (a.H / a.KvH);
+    q0 = (gridDim.y - 1 - blockIdx.y) * FW_ROWS;
+    kt_end = (a.Sk + FW_BK - 1) / FW_BK;
+    if (a.causal) kt_end = min(kt_end, (q0 + FW_ROWS - 1) / FW_BK + 1);
+    kt_begin = 0;
+    if (a.window >= 0) kt_begin = max(0, (q0 - a.window + 1) / FW_BK);
+    kt_begin = min(kt_begin, kt_end);
+    wg = threadIdx.x / 128;
+    r_first = q0 + 64 * wg;                  // the warpgroup's 64 rows
+    r_last = r_first + 63;
+    const int lane = threadIdx.x % 32;
+    row0 = r_first + 16 * (threadIdx.x % 128 / 32) + lane / 4;
+    row1 = row0 + 8;                         // the thread's two rows
+    t4 = lane % 4;
+  }
+  // a kv tile wholly masked for the warpgroup's rows changes nothing
+  __device__ bool live(const FlashArgs& a, int kt) const {
+    const int k0 = kt * FW_BK;
+    bool ok = true;
+    if (a.causal) ok = k0 <= r_last;
+    if (a.window >= 0) ok = ok && k0 + FW_BK - 1 > r_first - a.window;
+    return ok;
+  }
+};
+
+// kv tile kt's scores s (the warpgroup's, accumulator order) into P: scale
+// into log2 units, mask where the tile crosses an edge, the online
+// softmax on the thread's two rows (m in log2 units, l its part of the row
+// sum, acc rescaled), P rounded to bf16 as k-step fragments (score
+// n-tiles 2 kk and 2 kk + 1 make k-step kk)
+template <int NC>
+__device__ __forceinline__ void fw_softmax(float s[32], uint32_t pa[4][4],
+                                           float m[2], float l[2],
+                                           float* acc, const FlashArgs& a,
+                                           const FwPlace& p, float sl2,
+                                           int kt) {
+  const int k0 = kt * FW_BK;
+  bool edge = k0 + FW_BK > a.Sk;
+  if (a.causal) edge = edge || k0 + FW_BK - 1 > p.r_first;
+  if (a.window >= 0) edge = edge || k0 <= p.r_last - a.window;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float v = s[4 * j + e] * sl2;
+      if (edge) {
+        const int kj = k0 + 8 * j + 2 * p.t4 + (e & 1);
+        const int qi = e < 2 ? p.row0 : p.row1;
+        bool ok = kj < a.Sk;
+        if (a.causal) ok = ok && kj <= qi;
+        if (a.window >= 0) ok = ok && kj > qi - a.window;
+        if (!ok) v = NEG_INF;
+      }
+      s[4 * j + e] = v;
+    }
+  float alpha[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = NEG_INF;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      mx = fmaxf(mx, fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m[r], mx);
+    alpha[r] = fw_exp2(m[r] - m_new);
+    m[r] = m_new;
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      s[4 * j + 2 * r] = fw_exp2(s[4 * j + 2 * r] - m_new);
+      s[4 * j + 2 * r + 1] = fw_exp2(s[4 * j + 2 * r + 1] - m_new);
+      sum += s[4 * j + 2 * r] + s[4 * j + 2 * r + 1];
+    }
+    l[r] = l[r] * alpha[r] + sum;
+  }
+#pragma unroll
+  for (int j = 0; j < NC * 8; ++j) {
+    acc[4 * j] *= alpha[0];
+    acc[4 * j + 1] *= alpha[0];
+    acc[4 * j + 2] *= alpha[1];
+    acc[4 * j + 3] *= alpha[1];
+  }
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      pa[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+}
+
+// o = acc / max(l, 1e-30) over the block's columns, and (column block 0)
+// the row lse = m ln 2 + log l
+template <int NC>
+__device__ __forceinline__ void fw_store(const FlashArgs& a, const FwArgs& x,
+                                         const FwPlace& p, float* acc,
+                                         float m[2], float l[2], int cb) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
   }
+  const int ch0 = cb * x.nch / x.ncb;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int qi = r ? row1 : row0;
+    const int qi = r ? p.row1 : p.row0;
     if (qi >= a.Sq) continue;
-    if (a.lse && t4 == 0 && blockIdx.z == 0)
-      a.lse[(size_t(b) * a.H + h) * a.Sq + qi] = m[r] + logf(l[r]);
+    if (a.lse && p.t4 == 0 && cb == 0)     // the quad holds the row's m, l
+      a.lse[(size_t(p.b) * a.H + p.h) * a.Sq + qi] =
+          (m[r] == NEG_INF ? NEG_INF : m[r] * LN2) + logf(l[r]);
     const float den = fmaxf(l[r], 1e-30f);
-    __nv_bfloat16* row = o + ((size_t(b) * a.Sq + qi) * a.H + h) * dh + c0;
+    __nv_bfloat16* row = static_cast<__nv_bfloat16*>(a.o)
+        + ((size_t(p.b) * a.Sq + qi) * a.H + p.h) * x.dh + FW_CHUNK * ch0;
 #pragma unroll
-    for (int j = 0; j < NO; ++j) {
-      if (8 * j >= cw) break;
-      const uint32_t w = pack_bf16(acc[j][2 * r] / den,
-                                   acc[j][2 * r + 1] / den);
-      *reinterpret_cast<uint32_t*>(row + 8 * j + 2 * t4) = w;
-    }
+    for (int j = 0; j < NC * 8; ++j)
+      *reinterpret_cast<uint32_t*>(row + 8 * j + 2 * p.t4) =
+          pack_bf16(acc[4 * j + 2 * r] / den, acc[4 * j + 2 * r + 1] / den);
   }
+}
+
+// column block cb (NC chunks) of one (128-row query tile, head, batch) in
+// a cluster of ranks blocks.  Kv tile i's step, software-pipelined so that
+// each cluster barrier has work between its arrive and its wait:
+//   wait B_i (tile i's partials are in place) -> stage K_{i+2} -> the
+//   scores: at two ranks this block's partial (kept in registers) plus the
+//   peer's, which the peer wrote into this block's exchange; past two,
+//   every rank's partial from its own exchange, in rank order -> arrive
+//   R_i (read; this thread's K_{i+1} and V_i have landed) -> softmax ->
+//   wait R_i, block barrier -> stage V_{i+1} -> S_{i+1}'s partial
+//   published -> arrive B_{i+1} -> acc += bf16(P_i) V_i.
+// K and V in two stages each, the exchange in one buffer (R_i frees it).
+template <int NC>
+__device__ __forceinline__ void fw_cluster(const FlashArgs& a,
+                                           const FwArgs& x,
+                                           unsigned char* sm, int cb) {
+  const FwPlace p(a, x);
+  const int ch0 = cb * x.nch / x.ncb, n = p.kt_end - p.kt_begin;
+  const bool push = x.ranks == 2;
+  const unsigned char* qw = sm + p.wg * 64 * 128;   // the warpgroup's Q rows
+  unsigned char* ks = sm + FW_QB;                  // two stages
+  unsigned char* vs = ks + 2 * FW_KB;              // two stages
+  // this thread's slot of the exchange ([wg][n-tile j][thread] float4) and
+  // where its partials go: the peer's slot at two ranks, else its own
+  float4* mine = reinterpret_cast<float4*>(vs + 2 * FW_KB)
+      + p.wg * 1024 + threadIdx.x % 128;
+  float4* out = push ? const_cast<float4*>(peer(mine, 1 - cb)) : mine;
+  auto stage_kv = [&](unsigned char* dst, const void* src, int i) {
+    fw_stage<FW_BK>(dst, src, p.b, a.Sk, a.KvH, p.kvh,
+                    (p.kt_begin + i) * FW_BK, x.dh, ch0, NC);
+  };
+  // S_i's partial Q_c K_c^T into s and out
+  auto publish = [&](float s[32], int i) {
+    if (!p.live(a, p.kt_begin + i)) return;
+    fw_scores<NC>(s, qw, ks + (i & 1) * FW_KB, false);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      out[j * 128] = make_float4(s[4 * j], s[4 * j + 1], s[4 * j + 2],
+                                 s[4 * j + 3]);
+  };
+  const float sl2 = a.scale * LOG2E;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float acc[NC * 32];
+#pragma unroll
+  for (int i = 0; i < NC * 32; ++i) acc[i] = 0.f;
+  float s[32];                             // a partial, then the scores
+
+  if (n > 0) {
+    fw_stage<FW_ROWS>(sm, a.q, p.b, a.Sq, a.H, p.h, p.q0, x.dh, ch0, NC);
+    stage_kv(ks, a.k, 0);
+    stage_kv(vs, a.v, 0);
+    cp_async_commit();
+    if (n > 1) stage_kv(ks + FW_KB, a.k, 1);
+    cp_async_commit();
+    cp_async_wait<1>();                    // Q, K_0 and V_0 have landed
+    fence_proxy_async();
+    __syncthreads();
+    cluster_arrive();                      // every block of the cluster
+    cluster_wait();                        // runs: its memory may be written
+    publish(s, 0);
+    cluster_arrive();                      // B_0
+  }
+  for (int i = 0; i < n; ++i) {
+    const bool live = p.live(a, p.kt_begin + i);
+    cluster_wait();                        // B_i: tile i's partials are in
+    if (i + 2 < n) stage_kv(ks + (i & 1) * FW_KB, a.k, i + 2);
+    cp_async_commit();
+    if (live && push) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 v = mine[j * 128];
+        s[4 * j] += v.x; s[4 * j + 1] += v.y; s[4 * j + 2] += v.z;
+        s[4 * j + 3] += v.w;
+      }
+    } else if (live) {
+      fw_totals(s, mine, x.ranks, cb);
+    }
+    cp_async_wait<1>();                    // K_{i+1} and V_i have landed
+    fence_proxy_async();
+    cluster_arrive_relaxed();              // R_i
+    uint32_t pa[4][4];
+    if (live) fw_softmax<NC>(s, pa, m, l, acc, a, p, sl2, p.kt_begin + i);
+    cluster_wait();                        // R_i: every block has read tile
+    __syncthreads();                       // i's partials; every thread's
+                                           // copies are visible
+    if (i + 1 < n) stage_kv(vs + ((i + 1) & 1) * FW_KB, a.v, i + 1);
+    cp_async_commit();
+    if (i + 1 < n) {
+      publish(s, i + 1);
+      cluster_arrive();                    // B_{i+1}
+    }
+    if (live) fw_pv<NC>(acc, pa, vs + (i & 1) * FW_KB);
+  }
+  cp_async_wait<0>();                      // nothing in flight at exit
+  fw_store<NC>(a, x, p, acc, m, l, cb);
+}
+
+// column block cb (NC chunks) without a cluster (more column blocks than a
+// cluster holds): per kv tile, S over the whole head, one column block's
+// Q and K chunks after another staged and multiplied in turn, then acc_c
+// += bf16(P) V_c with V in two stages
+template <int NC>
+__device__ __forceinline__ void fw_solo(const FlashArgs& a, const FwArgs& x,
+                                        unsigned char* sm, int cb) {
+  const FwPlace p(a, x);
+  const int ch0 = cb * x.nch / x.ncb;
+  const unsigned char* qw = sm + p.wg * 64 * 128;
+  unsigned char* ks = sm + FW_QB;
+  unsigned char* vs = ks + 2 * FW_KB;              // two stages
+  auto stage_v = [&](int st, int kt) {
+    fw_stage<FW_BK>(vs + st * FW_KB, a.v, p.b, a.Sk, a.KvH, p.kvh,
+                    kt * FW_BK, x.dh, ch0, NC);
+  };
+  if (p.kt_begin < p.kt_end) stage_v(0, p.kt_begin);
+  cp_async_commit();
+  const float sl2 = a.scale * LOG2E;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float acc[NC * 32];
+#pragma unroll
+  for (int i = 0; i < NC * 32; ++i) acc[i] = 0.f;
+
+  for (int kt = p.kt_begin; kt < p.kt_end; ++kt) {
+    const int st = (kt - p.kt_begin) & 1;
+    const bool live = p.live(a, kt);
+    float s[32];
+    for (int c = 0; c < x.ncb; ++c) {      // one column block at a time
+      const int c0 = c * x.nch / x.ncb, cn = (c + 1) * x.nch / x.ncb - c0;
+      __syncthreads();                     // the last chunks' readers done
+      if (c == 0 && kt + 1 < p.kt_end) stage_v(st ^ 1, kt + 1);
+      fw_stage<FW_ROWS>(sm, a.q, p.b, a.Sq, a.H, p.h, p.q0, x.dh, c0, cn);
+      fw_stage<FW_BK>(ks, a.k, p.b, a.Sk, a.KvH, p.kvh, kt * FW_BK, x.dh,
+                      c0, cn);
+      cp_async_commit();
+      cp_async_wait<0>();
+      fence_proxy_async();
+      __syncthreads();
+      if (!live) continue;
+      if (cn == 2) fw_scores<2>(s, qw, ks, c > 0);
+      else if (cn == 3) fw_scores<3>(s, qw, ks, c > 0);
+      else fw_scores<4>(s, qw, ks, c > 0);
+    }
+    if (!live) continue;
+    uint32_t pa[4][4];
+    fw_softmax<NC>(s, pa, m, l, acc, a, p, sl2, kt);
+    fw_pv<NC>(acc, pa, vs + st * FW_KB);
+  }
+  cp_async_wait<0>();
+  fw_store<NC>(a, x, p, acc, m, l, cb);
+}
+
+template <int NC>
+__device__ __forceinline__ void fw_block(const FlashArgs& a, const FwArgs& x,
+                                         unsigned char* sm, int cb) {
+  if (x.ranks > 1) fw_cluster<NC>(a, x, sm, cb);
+  else fw_solo<NC>(a, x, sm, cb);
+}
+
+// grid (ncb B H, query tiles): block x is column block x % ncb of (batch,
+// head) x / ncb, a cluster of the ncb column blocks (ranks = ncb) or, past
+// FW_CLUSTER of them, no cluster (ranks = 1)
+__global__ void __launch_bounds__(256, 1) flash_fwd_hw(FlashArgs a,
+                                                       FwArgs x) {
+  extern __shared__ float4 smem4[];
+  unsigned char* sm = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem4) + 1023) & ~uintptr_t(1023));
+  const int cb = blockIdx.x % x.ncb;
+  const int nc = (cb + 1) * x.nch / x.ncb - cb * x.nch / x.ncb;
+  if (nc == 2) fw_block<2>(a, x, sm, cb);
+  else if (nc == 3) fw_block<3>(a, x, sm, cb);
+  else fw_block<4>(a, x, sm, cb);
 }
 
 // float32, grid (query tiles x column blocks, H, B): flash_kernel_f32's
@@ -968,20 +1341,9 @@ __global__ void __launch_bounds__(F32_THREADS) flash_wide_f32(FlashArgs a,
   }
 }
 
-int launch_wide(const FlashArgs& a, int dh, int dtype, cudaStream_t s) {
+// float32: grid (query tiles x column blocks, H, B)
+int launch_wide_f32(const FlashArgs& a, int dh, cudaStream_t s) {
   const int ncb = (dh + WIDE_OW - 1) / WIDE_OW;
-  if (dtype == 1) {
-    const int nq = (a.Sq + BF_BQ - 1) / BF_BQ;
-    if (nq > 65535 || ncb > 65535 || size_t(a.B) * a.H > 0x7fffffffu)
-      return int(cudaErrorInvalidValue);
-    const int bytes = wide_bf_smem_bytes();
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_wide_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return int(err);
-    flash_wide_bf16<<<dim3(a.B * a.H, nq, ncb), BF_THREADS, bytes, s>>>(a,
-                                                                        dh);
-    return int(cudaGetLastError());
-  }
   const size_t nx = size_t((a.Sq + F32_BQ - 1) / F32_BQ) * ncb;
   if (nx > 0x7fffffffu) return int(cudaErrorInvalidValue);
   const int bytes = wide_f32_smem_floats() * int(sizeof(float));
@@ -991,6 +1353,35 @@ int launch_wide(const FlashArgs& a, int dh, int dtype, cudaStream_t s) {
   flash_wide_f32<<<dim3(unsigned(nx), a.H, a.B), F32_THREADS, bytes, s>>>(
       a, dh);
   return int(cudaGetLastError());
+}
+
+// bfloat16: grid (ncb B H, query tiles), clusters of the ncb column blocks
+// (ncb <= FW_CLUSTER), else none
+int launch_fwd_hw(const FlashArgs& a, int dh, cudaStream_t s) {
+  const int nch = dh / FW_CHUNK;
+  FwArgs x{dh, nch, (nch + FW_MAX_CHUNKS - 1) / FW_MAX_CHUNKS, 0};
+  x.ranks = x.ncb <= FW_CLUSTER ? x.ncb : 1;
+  const int nq = (a.Sq + FW_ROWS - 1) / FW_ROWS;
+  const size_t nx = size_t(x.ncb) * a.B * a.H;
+  if (nq > 65535 || nx > 0x7fffffffu) return int(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_hw, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      FW_SMEM_BYTES);
+  if (err != cudaSuccess) return int(err);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(unsigned(nx), unsigned(nq));
+  cfg.blockDim = dim3(256);
+  cfg.dynamicSmemBytes = FW_SMEM_BYTES;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = unsigned(x.ranks);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, flash_fwd_hw, a, x);
+  return int(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 template <int DH>
@@ -1052,8 +1443,10 @@ extern "C" int flash_attention_launch(
       case 256: return launch_bf16<256>(a, s);
     }
   }
-  if ((dtype == 0 || dtype == 1) && Dh > 256 && Dh % WIDE_SLICE == 0)
-    return launch_wide(a, Dh, dtype, s);
+  if (Dh > 256 && Dh % WIDE_SLICE == 0) {
+    if (dtype == 0) return launch_wide_f32(a, Dh, s);
+    if (dtype == 1) return launch_fwd_hw(a, Dh, s);
+  }
   return int(cudaErrorInvalidValue);
 }
 

@@ -24,12 +24,17 @@ TPU kernel takes.  The kernels are built for the widths `HEAD_DIMS`
 (phi-3-vision's heads are 96 wide, gemma3's 256); a narrower head (the
 smoke configs' 8 and 16, the reference sweep's 32) is zero-padded to the
 next of them (`kernel_width`) and the outputs sliced back.  A wider head
-is zero-padded to a multiple of `WIDE_SLICE` and runs on the wide kernels
-(a grid axis over blocks of up to `WIDE_OW` output columns, each forming
-the scores over the whole head in 64-column slices).  The padded columns
-add exact zeros to every product, so the scores, the row log-sum-exp and
-the kept columns are the true width's; the scale is the true width's 1 /
-sqrt(Dh).  A width the kernels are built for launches as it is.  The
+is zero-padded to a multiple of `WIDE_SLICE` and runs on the wide kernels,
+each block owning up to `WIDE_OW` output columns: in bf16 a cluster of
+`wide_bwd_blocks` column blocks (the backward's blocks) on the tensor
+cores, each forming partial scores over its own columns and summing the
+cluster's partials in rank order (past `WIDE_BWD_CLUSTER` blocks, Dh >
+2048, no cluster: each block forms the scores over the whole head); in
+float32 blocks that each form the scores over the whole head in 64-column
+slices.  Both keep the built widths' (query rows, keys) tiles.  The
+padded columns add exact zeros to every product, so the scores, the row
+log-sum-exp and the kept columns are the true width's; the scale is the
+true width's 1 / sqrt(Dh).  A width the kernels are built for launches as it is.  The
 output has q's dtype.  `LAUNCHES` counts forward kernel launches (the
 plain version never bumps it).
 
@@ -71,7 +76,8 @@ HEAD_DIMS = (64, 96, 128, 256)   # head widths the kernels are built for
 WIDE_SLICE, WIDE_OW = 64, 256
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # (query rows, keys) of the kernel's tiles, by dtype: F32_BQ / F32_BK and
-# BF_BQ / BF_BK in csrc/flash_attention.cu, the wide kernels' too
+# BF_BQ / BF_BK in csrc/flash_attention.cu, the wide kernels' too (bf16:
+# FW_ROWS / FW_BK, a block's two warpgroups of 64 rows)
 TILES = {torch.float32: (64, 64), torch.bfloat16: (128, 64)}
 
 # (query rows, keys) of the backward's tiles by dtype and head width: bf16
@@ -84,9 +90,10 @@ BWD_TILES = {torch.bfloat16: {64: (64, 64), 96: (64, 64), 128: (64, 64),
                              256: (64, 32), "wide": (64, 32)}}
 # the grid dimensions the card launches at most (y and z)
 MAX_GRID_YZ = 65535
-# the bf16 backward past Dh 256: column blocks of up to WIDE_BWD_CHUNKS
+# the bf16 kernels past Dh 256: column blocks of up to WIDE_BWD_CHUNKS
 # 64-column chunks, at most WIDE_BWD_CLUSTER of them in one cluster (the
-# portable limit); more run in passes through totals in the scratch
+# portable limit); more run, backward, in passes through totals in the
+# scratch and, forward, without a cluster
 WIDE_BWD_CHUNKS, WIDE_BWD_CLUSTER = 4, 8
 
 LAUNCHES = 0                # forward kernel launches in this process
@@ -258,9 +265,10 @@ def kernel_width(Dh: int) -> int:
 
 
 def wide_bwd_blocks(width: int) -> int:
-    """Column blocks of the bf16 backward at a padded head `width` past
-    256 (its 64-column chunks dealt into blocks of at most
-    `WIDE_BWD_CHUNKS`): the cluster size up to `WIDE_BWD_CLUSTER`."""
+    """Column blocks of the bf16 kernels (backward and forward) at a
+    padded head `width` past 256 (its 64-column chunks dealt into blocks
+    of at most `WIDE_BWD_CHUNKS`): the cluster size up to
+    `WIDE_BWD_CLUSTER`."""
     return -(-(width // WIDE_SLICE) // WIDE_BWD_CHUNKS)
 
 

@@ -6,7 +6,10 @@ at any p past 64 and any n past 128.
   interpret mode (`repro.kernels.ops`), at the reference's tolerances
   (`tests/test_kernels.py`: float32 2e-5, bf16 2e-2); its plain backward
   against `jax.grad` of `ref.flash_attention_ref`, on the float32 wide
-  kernels' tiles and on the bf16 one's (64 x 64, pinned).
+  kernels' tiles and on the bf16 one's (64 x 64, pinned); the plain
+  forward on the bf16 wide forward's tile (128 x 64, the built widths')
+  against the Pallas kernel at Dh 320, 512 and 576, and the wrapper's
+  grid check at that tile.
 - The SSD's block decomposition (`ssd_blocked` / `ssd_blocked_bwd`, what
   the card runs, handed the plain version for its blocks) against the
   Pallas kernel, against `jax.grad` of `repro.nn.ssd.ssd_chunked` and, in
@@ -16,8 +19,9 @@ at any p past 64 and any n past 128.
 - The wrappers' card route with the ctypes launch swapped for the plain
   version at the width it is handed (`tests/test_torch_kernel_widths.py`'s
   helpers): a wide call reaches the launch, counted, at the padded head
-  or in the SSD's blocks, and never the plain version; the bf16
-  backward's column blocks and scratch (totals past Dh 2048).
+  or in the SSD's blocks, and never the plain version (Dh 2100, padded
+  to 2112: nine column blocks, past a cluster); the bf16 backward's
+  column blocks and scratch (totals past Dh 2048).
 """
 import dataclasses
 
@@ -35,6 +39,7 @@ from repro_torch import convert
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ssd_scan as ss
 from repro_torch.launch import steps as t_steps
+from repro_torch.nn import attention as attn
 from repro_torch.models import registry as t_reg
 from test_torch_kernel_widths import (PLAIN_FLASH, PLAIN_SSD, _flash_launches,
                                       _OnCard, _qkv, _rel_close,
@@ -154,6 +159,63 @@ def test_flash_bwd_plain_on_the_bf16_wide_tiles_matches_jax_grad(
                                    err_msg=name)
 
 
+# the bf16 wide forward's shapes (B, Sq, Sk, H, KvH, Dh, causal, window):
+# causal GQA, windowed, three column blocks; each spans more than one of
+# its 128-row query tiles and 64-key tiles
+WIDE_FWD_CASES = [
+    (1, 200, 200, 4, 2, 320, True, None),
+    (1, 200, 200, 4, 2, 512, True, 70),
+    (1, 150, 150, 2, 1, 576, True, None),
+]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KvH,Dh,causal,window", WIDE_FWD_CASES)
+def test_flash_plain_on_the_bf16_wide_tiles_matches_pallas(B, Sq, Sk, H,
+                                                           KvH, Dh, causal,
+                                                           window):
+    """The bf16 wide forward keeps the built widths' tile (`TILES`: 128
+    query rows, two warpgroups of 64, by 64 keys).  The plain forward on
+    that tile (`chunked_attention`, bf16 inputs, p rounded to v's dtype
+    before its product, l from the unrounded p, as the kernel) against
+    the Pallas kernel in interpret mode on the same bf16 inputs, at the
+    reference's bf16 tolerance (2e-2, `tests/test_kernels.py`)."""
+    bq, bk = fa.TILES[torch.bfloat16]
+    assert (bq, bk) == (128, 64)
+    (jq, jk, jv), (tq, tk, tv, _) = _qkv(Sq + Dh + 3, B, Sq, Sk, H, KvH, Dh,
+                                         "bfloat16")
+    got = attn.chunked_attention(tq, tk, tv, causal=causal, window=window,
+                                 chunk_q=bq, chunk_k=bk)
+    want = ops.flash_attention(jq, jk, jv, causal=causal, window=window,
+                               block_q=64, block_k=64)
+    assert got.dtype == torch.bfloat16 and got.shape == tq.shape
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               atol=TOL["bfloat16"], rtol=TOL["bfloat16"])
+
+
+@pytest.mark.parametrize("Dh", [320, 2100])
+def test_wide_bf16_forward_grid_check_at_its_tile(Dh):
+    """The bf16 wide forward's query tiles (`TILES`' 128 rows) lie on a
+    grid axis of at most `MAX_GRID_YZ` (its column blocks ride with the
+    (batch, head) pairs on the other): an Sq of exactly that many tiles
+    passes the wrapper's check, one row more raises before any launch, at
+    one column block a cluster holds and past them (Dh 2100 -> 2112, nine
+    blocks).  Meta tensors: nothing is allocated."""
+    bq = fa.TILES[torch.bfloat16][0]
+    width = fa.kernel_width(Dh)
+    assert fa.wide_bwd_blocks(width) == (2 if Dh == 320 else 9)
+
+    def q(rows):
+        return torch.empty((1, rows, 1, Dh), dtype=torch.bfloat16,
+                           device="meta")
+    scale, (padded,) = fa._kernel_args(None, None, Dh, q(fa.MAX_GRID_YZ * bq))
+    assert padded.shape[3] == width and scale == 1.0 / np.sqrt(Dh)
+    with pytest.raises(ValueError, match="grid dimension above 65535"):
+        fa._kernel_args(None, None, Dh, q(fa.MAX_GRID_YZ * bq + 1))
+    # float32 keeps its query tiles on the x axis: no such limit
+    fa._kernel_args(None, None, Dh, q(fa.MAX_GRID_YZ * bq + 1).float())
+
+
 # ---------------------------------------------------------------------------
 # the SSD's block decomposition past p 64 and n 128
 # ---------------------------------------------------------------------------
@@ -269,7 +331,7 @@ def test_derived_configs_prefill_matches_reference(arch):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("Dh,width", [(257, 320), (320, 320), (512, 512),
-                                      (600, 640)])
+                                      (600, 640), (2100, 2112)])
 def test_wide_flash_on_the_card_route(monkeypatch, Dh, width):
     """A CUDA-typed call past Dh 256 launches the wide path at the head
     padded to a multiple of 64 with the true width's scale, forward and

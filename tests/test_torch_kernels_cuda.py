@@ -1136,6 +1136,7 @@ WIDE_FLASH_CASES = [
     (1, 130, 210, 4, 2, 512, False, None),    # Sq < Sk
     (1, 257, 257, 2, 1, 257, True, 5),        # padded to 320, small window
     (1, 700, 700, 2, 2, 576, True, None),     # three column blocks
+    (1, 200, 200, 2, 1, 2112, True, None),    # nine: past a cluster
 ]
 
 
@@ -1157,6 +1158,47 @@ def test_flash_wide_kernel_matches_plain(cuda, dtype, B, Sq, Sk, H, KvH, Dh,
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), atol=atol,
                                rtol=rtol)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KvH,Dh,causal,window", WIDE_FLASH_CASES)
+def test_flash_wide_bf16_forward_repeats_and_its_lse(cuda, B, Sq, Sk, H, KvH,
+                                                     Dh, causal, window):
+    """The bf16 forward past Dh 256 (clusters of column blocks that sum
+    their partial scores in rank order; past 8 blocks none): a repeat is
+    bit-equal, asking for the row lse leaves o as the serving launch
+    writes it, and the lse (column block 0's, which every block holds)
+    matches `flash_attention_lse_plain` within 1e-5."""
+    bf = torch.bfloat16
+    q = _randn(0, (B, Sq, H, Dh), bf, cuda)
+    k, v = (_randn(i, (B, Sk, KvH, Dh), bf, cuda) for i in (1, 2))
+    mask = dict(causal=causal, window=window)
+    runs = [fa._flash_cuda(q, k, v, lse=True, **mask) for _ in range(2)]
+    served = fa._flash_cuda(q, k, v, **mask)
+    want = fa.flash_attention_lse_plain(q, k, **mask)
+    torch.cuda.synchronize()
+    (o, lse), (o2, lse2) = runs
+    assert torch.equal(o.view(torch.int16), o2.view(torch.int16))
+    assert torch.equal(o.view(torch.int16), served.view(torch.int16))
+    assert torch.equal(lse, lse2)
+    torch.testing.assert_close(lse, want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("Dh", [320, 512, 576])
+def test_flash_wide_bf16_rounds_p_like_the_reference(cuda, Dh):
+    """The bf16 forward past Dh 256 rounds p to v's dtype before the PV
+    product, on the built widths' tiles (`TILES`): against the plain
+    version on those tiles it is closer than that version with p left
+    unrounded is (ex2.approx moves p by ~2^-22 before its rounding)."""
+    from repro_torch.nn import attention as attn
+    q = _randn(0, (1, 700, 4, Dh), torch.bfloat16, cuda)
+    k, v = (_randn(i, (1, 700, 2, Dh), torch.bfloat16, cuda) for i in (1, 2))
+    got = fa.flash_attention(q, k, v, causal=True)
+    bq, bk = fa.TILES[torch.bfloat16]
+    tiles = {"causal": True, "chunk_q": bq, "chunk_k": bk}
+    want = attn.chunked_attention(q, k, v, **tiles)
+    control = attn.chunked_attention(q, k, v.float(), **tiles)
+    assert _rel_rms(got, want) <= FLASH_ROUNDING_LIMIT < \
+        _rel_rms(control, want)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
