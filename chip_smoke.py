@@ -391,12 +391,16 @@ The widths the TPU kernels take, every smoke config, the examples:
 The widths above the built ones:
 
  33. a. flash forward and backward past Dh 256 (the wide kernels: the
-        head padded to a multiple of 64, output column blocks of up to
-        256; bf16 a cluster of them, `flash_fwd_hw`) at WIDE_FLASH (Dh
-        257, 320, 512, 576; causal GQA, a window, bidirectional, Sq < Sk)
-        and, forward only, WIDE_FLASH_FWD_EXTRA (Dh 2112: nine column
-        blocks, no cluster), the bf16 forward's repeat bit-equal and its
-        row lse within 1e-5 of the plain version's, the SSD forward and
+        head padded to a multiple of 64, clusters of column blocks on
+        wgmma, bf16 `flash_fwd_hw` / `flash_bwd_hw`, float32
+        `flash_fwd_hf` / `flash_bwd_hf` with split operands; each line
+        names its blocks) at WIDE_FLASH (Dh 257, 320, 512, 576; causal
+        GQA, a window, bidirectional, Sq < Sk) and, forward only,
+        WIDE_FLASH_FWD_EXTRA (Dh 2112, no cluster), the forward's repeat
+        bit-equal and its row lse within 1e-5 of the plain version's in
+        both dtypes, the float32 controls (the plain version on
+        bf16-rounded inputs misses the float32 tolerances, forward and
+        backward: `check_f32_split`, `check_f32_bwd_split`), the SSD forward and
         backward past p 64
         and n 128 (p-blocks of 64 as heads, one call an n-block) at
         WIDE_SSD, float32 and bf16, each against its plain version at
@@ -407,7 +411,9 @@ The widths above the built ones:
      b. gemma3-4b's smoke config with heads 320 wide and mamba2-2.7b's
         with the SSD at p 128 / n 256 (`phase33_configs`), each as 32 b:
         a prefill against the CPU and two `train()` steps against the
-        plain path, launches counted from 0;
+        plain path, launches counted from 0 (both configs compute in
+        float32: the wide flash launches are the float32 kernels',
+        counted by dtype, `wide_launches`);
      c. bf16 times at WIDE_FLASH_TIMED (B 2, S 4096, H 16, Dh 512,
         causal) and WIDE_SSD_TIMED (b 2, s 4096, h 32, p 128, g 1, n
         256): each kernel forward and backward beside its plain version,
@@ -416,7 +422,8 @@ The widths above the built ones:
         clusters of column blocks on wgmma) over 10 calls each with their
         shares of the bound and their ratios to SDPA's; flash in float32
         at the same shape beside SDPA's float32 forward and backward
-        (`f32_beside_sdpa`); the phase's seconds against
+        (`f32_beside_sdpa`, the bound at the float32 matrix-product peak)
+        and their plain versions; the phase's seconds against
         PHASE33_BUDGET_S.
 
 Then one line of wall seconds per phase (`phase_lines`).  Cut for time,
@@ -440,8 +447,9 @@ widths, phase 32's: each kernel's launches on the main paths of 32 b and
 32 c (the day scan's on 32 a's what-ifs), its max_abs_err over 32 a, its
 times at the Dh 16, p 16 / n 16 and 64-level shapes; then the rows of
 the wide widths, phase 33's: each kernel's launches on 33 b's main
-paths, its max_abs_err over 33 a, its times at 33 c's shapes) and the
-nvidia-smi line; the last line is the result object.
+paths, its max_abs_err over 33 a, its times at 33 c's shapes, the
+float32 wide kernels in rows of their own) and the nvidia-smi line; the
+last line is the result object.
 """
 from __future__ import annotations
 
@@ -475,7 +483,13 @@ TRACE_RTOL, TRACE_ATOL = 1e-6, 1e-4
 REPORT_FIELDS = ("time_to_empty_h", "peak_skin_c", "pod_hours", "end_soc",
                  "energy_mwh", "throttled_h", "steady_mw", "day_hours")
 PEAK_BF16_OPS_S = 989e12        # H100 SXM bf16 tensor cores, dense
-PEAK_OPS_S = {"bfloat16": PEAK_BF16_OPS_S, "float32": PEAK_F32_OPS_S}
+# float32 matrix products: the least time the card takes for a product
+# exact to float32 is on its tensor cores, each operand split into three
+# bf16 parts and six part products (989 / 6 TFLOP/s; three TF32 products
+# at 495 give the same), above the CUDA cores' 67.  Elementwise float32
+# work (the day scan's bound) keeps PEAK_F32_OPS_S
+PEAK_F32_MATMUL_OPS_S = PEAK_BF16_OPS_S / 6
+PEAK_OPS_S = {"bfloat16": PEAK_BF16_OPS_S, "float32": PEAK_F32_MATMUL_OPS_S}
 LM_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py
 # bf16 flash vs plain: twice the reading at the prefill shape (0.0039),
 # plus one bf16 spacing of the value
@@ -523,10 +537,10 @@ def nvidia_smi() -> str:
 
 def ptxas_kernels(log: str) -> list:
     """`flash_kernel_<dtype><Dh> N registers, spills` for each flash
-    instantiation in an nvcc -Xptxas -v log (`flash_wide_f32` and
-    `flash_fwd_hw<bf16>` for the wide heads',
+    instantiation in an nvcc -Xptxas -v log (`flash_fwd_hw<bf16>` and
+    `flash_fwd_hf<f32>` for the wide heads',
     `flash_bwd_<launch><dtype, Dh>` for the backward's
-    (`flash_bwd_hw<bf16>` past Dh 256),
+    (`flash_bwd_hw<bf16>` and `flash_bwd_hf<f32>` past Dh 256),
     `ssd_kernel_<launch><n>` and `ssd_bwd_<launch><dtype, n>` for the SSD
     kernels', "y f32" / "dx f32" for the float32-output instances)."""
     out, name = [], None
@@ -535,9 +549,6 @@ def ptxas_kernels(log: str) -> list:
                       line)
         if m:
             name = f"{m.group(1)}<{m.group(2)}>"
-        m = re.search(r"entry function .*?(flash_wide_[a-z0-9]+)E", line)
-        if m:                           # Dh above 256
-            name = m.group(1)
         m = re.search(r"entry function .*?(ssd_kernel_[a-z0-9_]+?)"
                       r"ILi(\d+)E(Lb1E)?", line)
         if m:                           # the SSD forward's launches
@@ -551,9 +562,11 @@ def ptxas_kernels(log: str) -> list:
         m = re.search(r"entry function .*?(flash_bwd_hb)ILi(\d+)E", line)
         if m:                           # the bf16 tensor-core launch
             name = f"{m.group(1)}<bf16, {m.group(2)}>"
-        m = re.search(r"entry function .*?(flash_(?:bwd|fwd)_hw)E", line)
-        if m:                           # the bf16 launches past Dh 256
-            name = f"{m.group(1)}<bf16>"
+        m = re.search(r"entry function .*?(flash_(?:bwd|fwd)_h([wf]))"
+                      r"(?:ILi(\d)E)?E", line)
+        if m:                           # the launches past Dh 256
+            name = (f"{m.group(1)}<{'bf16' if m.group(2) == 'w' else 'f32'}"
+                    f"{', mode ' + m.group(3) if m.group(3) else ''}>")
         m = re.search(r"entry function .*?(ssd_bwd_[a-z0-9_]+?)I(13__nv_"
                       r"bfloat16|f)?Li(\d+)E(Lb1E)?", line)
         if m:                           # the SSD backward's launches
@@ -1912,7 +1925,8 @@ def batch_timing(twin) -> str:
 
 def _bound(n_bytes: float, n_ops: float, dtype: str) -> tuple:
     """(bound ms, "bytes" | "operations"): the larger of the bytes over
-    HBM bandwidth and the operations over the peak for `dtype`."""
+    HBM bandwidth and the matrix-product operations over the peak for
+    `dtype` (float32: PEAK_F32_MATMUL_OPS_S)."""
     by_bytes = n_bytes / PEAK_BYTES_S * 1e3
     by_ops = n_ops / PEAK_OPS_S[dtype] * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
@@ -2016,11 +2030,11 @@ def f32_beside_sdpa(label: str, q, k, v, causal: bool, window, reps: int,
     lse) and `scaled_dot_product_attention`'s in float32 (CUDA events,
     `reps` calls each; a yardstick, the port never calls it) with TF32
     off for matmuls and cuDNN while they run, the backend the dispatcher
-    picks, the bound at the float32 peak and, forward, whether SDPA's
-    output meets the kernel's float32 tolerance against the plain version
-    (LM_TOL), backward, its gradients' largest error against the
-    kernel's (over each gradient's largest magnitude).  Returns (ms,
-    library ms, bound, bound_by)."""
+    picks, the bound at the float32 matrix-product peak and, forward,
+    whether SDPA's output meets the kernel's float32 tolerance against
+    the plain version (LM_TOL), backward, its gradients' largest error
+    against the kernel's (over each gradient's largest magnitude).
+    Returns (ms, library ms, bound, bound_by)."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     mask = dict(causal=causal, window=window)
@@ -2076,8 +2090,9 @@ def f32_beside_sdpa(label: str, q, k, v, causal: bool, window, reps: int,
     print(f"{label} float32 {what}: kernel {ms:.4f} ms; "
           f"scaled_dot_product_attention {lib_ms:.4f} ms by its {backend} "
           f"backend (TF32 off: matmul and cuDNN), {lib_ms / ms:.3f} of the "
-          f"kernel's time; bound {bound:.5f} ms by {by} at the float32 peak "
-          f"({bound / ms * 100:.2f} % of it reached); {detail}")
+          f"kernel's time; bound {bound:.5f} ms by {by} at the float32 "
+          f"matrix-product peak ({PEAK_F32_MATMUL_OPS_S / 1e12:.1f} TFLOP/s, "
+          f"{bound / ms * 100:.2f} % of it reached); {detail}")
     return ms, lib_ms, bound, by
 
 
@@ -3093,14 +3108,16 @@ def bits_equal(a, b) -> bool:
     return torch.equal(a, b)
 
 
-def check_flash_bwd(dev, shapes=BWD_SHAPES, seed: int = 8) -> float:
-    """Phase 18 (and 32 a at the narrow widths): the backward kernel,
-    through the autograd function, vs autograd of the plain forward at
-    `shapes` in float32 (BWD_F32_REL)
+def check_flash_bwd(dev, shapes=BWD_SHAPES, seed: int = 8, note=None,
+                    errors=None) -> float:
+    """Phase 18 (and 32 a at the narrow widths, 33 a at the wide ones):
+    the backward kernel, through the autograd function, vs autograd of
+    the plain forward at `shapes` in float32 (BWD_F32_REL)
     and bf16 (BWD_BF16_MAX / BWD_BF16_RMS, with a control: the bf16
     gradients against the float32 ones must miss BWD_F32_REL), and a
     second run through the function bit for bit equal to the first;
-    returns the largest abs error."""
+    `note(dtype, Dh)` adds to each line's label, `errors` (a dict) takes
+    the largest abs error of each dtype; returns the largest abs error."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -3131,7 +3148,8 @@ def check_flash_bwd(dev, shapes=BWD_SHAPES, seed: int = 8) -> float:
             torch.cuda.synchronize()
             label = (f"flash bwd {name} B={B} Sq={Sq} Sk={Sk} H={H} "
                      f"KvH={KvH} Dh={Dh} causal={causal} window={window} "
-                     f"{str(dtype)[6:]}")
+                     f"{str(dtype)[6:]}"
+                     + (f" ({note(dtype, Dh)})" if note else ""))
             rels = []
             for g, a, b in zip("qkv", got, want):
                 if a.dtype != dtype or not bool(torch.isfinite(a).all()):
@@ -3140,6 +3158,8 @@ def check_flash_bwd(dev, shapes=BWD_SHAPES, seed: int = 8) -> float:
                 top = float(b.abs().max())
                 err = float((a - b).abs().max())
                 worst = max(worst, err)
+                if errors is not None:
+                    errors[dtype] = max(errors.get(dtype, 0.0), err)
                 rels.append(err / top)
                 if dtype == torch.float32 and err > BWD_F32_REL * top:
                     miss(f"{label}: d{g} off autograd of the plain version "
@@ -5474,19 +5494,42 @@ def phase33_configs() -> tuple:
                 m_cfg.ssm, head_dim=128, d_state=256)), m_model))
 
 
+def check_f32_split(label: str, got, q, k, v, mask) -> None:
+    """The float32 wide forward splits its operands into three bf16 parts:
+    the checks can see a shortcut to one part.  The plain version on the
+    inputs rounded to bf16 (what one part would multiply) must miss the
+    float32 tolerance (LM_TOL) against the plain version that the kernel's
+    output `got` meets."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    want = fa.flash_attention_plain(q, k, v, **mask)
+    ctl = fa.flash_attention_plain(*(t.bfloat16().float() for t in (q, k, v)),
+                                   **mask)
+    tol = LM_TOL["float32"]
+    err = float((ctl - want).abs().max())
+    if torch.allclose(ctl, want, atol=tol, rtol=tol):
+        miss(f"{label}: the plain version on bf16-rounded inputs meets the "
+             f"float32 tolerance ({err:.3g}): the checks cannot see a "
+             f"one-part shortcut")
+    print(f"{label} control: the plain version on bf16-rounded inputs off "
+          f"by {err:.3g}, outside atol = rtol = {tol:g} (the kernel: "
+          f"{float((got - want).abs().max()):.3g})")
+
+
 def phase33_flash(dev) -> float:
     """Phase 33 a, flash forward: every WIDE_FLASH and
     WIDE_FLASH_FWD_EXTRA shape through the wide kernel (one launch, the
     head padded to a multiple of 64) against the plain version at phase
-    6's tolerances, float32 and bf16; in bf16 the rounding control on the
-    causal unwindowed shapes, a repeat bit-equal (with the row lse, whose
-    serving launch's o is the same bits) and the lse against
-    `flash_attention_lse_plain` within 1e-5.  Returns the largest abs
-    error."""
+    6's tolerances, float32 and bf16; the controls (bf16: the rounding
+    control on the causal unwindowed shapes; float32: the bf16-rounded
+    inputs at Dh 320, `check_f32_split`); in both, a repeat bit-equal
+    (with the row lse, whose serving launch's o is the same bits) and
+    the lse against `flash_attention_lse_plain` within 1e-5.  Returns
+    the largest abs error of each dtype, {dtype: error}."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     gen = torch.Generator(device=dev).manual_seed(38)
-    worst = 0.0
+    worst = {}
     for dtype in (torch.float32, torch.bfloat16):
         tol = LM_TOL[str(dtype)[6:]]
         bf16 = dtype == torch.bfloat16
@@ -5502,21 +5545,23 @@ def phase33_flash(dev) -> float:
             if fa.LAUNCHES != before + 1:
                 fail(f"flash {name}: {fa.LAUNCHES - before} launches")
             width = fa.kernel_width(Dh)
-            blocks = (f"{fa.wide_bwd_blocks(width)} column blocks"
-                      + (" without a cluster" if fa.wide_bwd_blocks(width)
-                         > fa.WIDE_BWD_CLUSTER else " in a cluster")
-                      if bf16 else f"{-(-width // fa.WIDE_OW)} column blocks")
+            ncb = fa.wide_blocks(width, dtype, forward=True)
+            blocks = (f"{ncb} column blocks of "
+                      + ("2-4 chunks" if bf16 else "1-2 chunks, operands in "
+                         "three bf16 parts,")
+                      + (" without a cluster" if ncb > fa.WIDE_BWD_CLUSTER
+                         else " in a cluster"))
             label = (f"phase 33 a flash {name} B={B} Sq={Sq} Sk={Sk} H={H} "
                      f"KvH={KvH} Dh={Dh} (kernel width {width}, {blocks}) "
                      f"causal={causal} window={window} {str(dtype)[6:]}")
-            worst = max(worst, hold(
+            worst[dtype] = max(worst.get(dtype, 0.0), hold(
                 label, got, fa.flash_attention_plain(q, k, v, **mask),
                 FLASH_BF16_ATOL if bf16 else tol,
                 FLASH_BF16_RTOL if bf16 else tol))
-            if not bf16:
-                continue
-            if causal and window is None:
+            if bf16 and causal and window is None:
                 check_flash_rounding(got, q, k, v)
+            if not bf16 and name == "Dh 320 GQA":
+                check_f32_split(label, got, q, k, v, mask)
             runs = [fa._flash_cuda(q, k, v, lse=True, **mask)
                     for _ in range(2)]
             torch.cuda.synchronize()
@@ -5577,10 +5622,11 @@ def phase33_timing(dev) -> tuple:
     backward (its backend named; 10 calls each, and its ratio to ours)
     and the bounds at the true width with the share of each reached; then
     the same shape in float32 beside SDPA's float32 forward (3 calls) and
-    backward (2 calls) (`f32_beside_sdpa`); at WIDE_SSD_TIMED the SSD
-    forward and backward (10 calls), their plain versions (2 calls) and
-    the bounds.  Returns the rows (ms, plain ms, bound, by, library ms)
-    of the four bf16 kernels."""
+    backward (2 calls) (`f32_beside_sdpa`) and their plain versions (1
+    call each); at WIDE_SSD_TIMED the SSD forward and backward (10
+    calls), their plain versions (2 calls) and the bounds.  Returns the
+    rows (ms, plain ms, bound, by, library ms) of the four bf16 kernels,
+    then of the float32 forward and backward."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as ss
@@ -5630,11 +5676,21 @@ def phase33_timing(dev) -> tuple:
           f"{backend} backend; plain {b_plain:.3f} ms")
     del o, lse, qs, ks, vs, o_s
     q, k, v, do = (t.float() for t in (q, k, v, do))
+    f32 = torch.float32
     label = (f"phase 33 c flash (B={B} S={S} H={H} KvH={KvH} Dh={Dh} "
-             f"causal={causal})")
-    f32_beside_sdpa(label, q, k, v, causal, window, 3)
-    f32_beside_sdpa(label, q, k, v, causal, window, 2, do)
-    del q, k, v, do
+             f"causal={causal}; forward {wide_note(f32, Dh, True)}, "
+             f"backward {wide_note(f32, Dh)})")
+    ff_ms, ff_lib, ff_bound, ff_by = f32_beside_sdpa(label, q, k, v, causal,
+                                                     window, 3)
+    fb_ms, fb_lib, fb_bound, fb_by = f32_beside_sdpa(label, q, k, v, causal,
+                                                     window, 2, do)
+    ff_plain = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, **mask), 1)
+    o, lse = fa._flash_cuda(q, k, v, lse=True, **mask)
+    fb_plain = cuda_ms(lambda: fa.flash_attention_bwd_plain(
+        q, k, v, o, do, lse, **mask), 1)
+    print(f"phase 33 c flash float32 plain versions: forward {ff_plain:.3f} "
+          f"ms, backward {fb_plain:.3f} ms (1 call each)")
+    del q, k, v, do, o, lse
     b, s, h, g, n, dt_scale, p = WIDE_SSD_TIMED
     *ins, dy = ssd_bwd_inputs(gen, b, s, h, g, n, bf, dt_scale, p)
     fwd = lambda: ss._ssd_cuda(*ins)  # noqa: E731
@@ -5661,26 +5717,96 @@ def phase33_timing(dev) -> tuple:
     return ((f_ms, f_plain, f_bound, f_by, f_sdpa),
             (b_ms, b_plain, b_bound, b_by, b_sdpa),
             (sf_ms, sf_plain, sf_bound, sf_by, None),
-            (sb_ms, sb_plain, sb_bound, sb_by, None))
+            (sb_ms, sb_plain, sb_bound, sb_by, None),
+            (ff_ms, ff_plain, ff_bound, ff_by, ff_lib),
+            (fb_ms, fb_plain, fb_bound, fb_by, fb_lib))
+
+
+def wide_note(dtype, Dh: int, forward: bool = False) -> str:
+    """The wide kernel's column blocks at Dh: how many, of what, and
+    whether in a cluster (the labels of phase 33)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    width = fa.kernel_width(Dh)
+    if width in fa.HEAD_DIMS:
+        return f"kernel width {width}"
+    ncb = fa.wide_blocks(width, dtype, forward)
+    what = ("2-4 chunks" if dtype == torch.bfloat16 else
+            ("1-2 chunks" if forward else "one chunk")
+            + ", operands in three bf16 parts,")
+    return (f"kernel width {width}, {ncb} column blocks of {what}"
+            + (" without a cluster" if ncb > fa.WIDE_BWD_CLUSTER
+               else " in a cluster"))
+
+
+def check_f32_bwd_split(dev) -> None:
+    """The float32 wide backward's control, at WIDE_FLASH's first
+    (causal) shape: autograd of the plain version on the inputs and dO
+    rounded to bf16 must miss BWD_F32_REL against the float32 gradients,
+    every one of them."""
+    import torch
+    name, B, Sq, Sk, H, KvH, Dh, causal, window = WIDE_FLASH[0]
+    gen = torch.Generator(device=dev).manual_seed(43)
+    q, do = (torch.randn((B, Sq, H, Dh), generator=gen, device=dev)
+             for _ in range(2))
+    k, v = (torch.randn((B, Sk, KvH, Dh), generator=gen, device=dev)
+            for _ in range(2))
+    want = autograd_plain(q, k, v, do, causal, window)
+    ctl = autograd_plain(*(t.bfloat16().float() for t in (q, k, v, do)),
+                         causal, window)
+    rel = min(float((a - b).abs().max() / b.abs().max())
+              for a, b in zip(ctl, want))
+    if rel <= BWD_F32_REL:
+        miss(f"flash bwd {name} float32 control: bf16-rounded inputs within "
+             f"the float32 tolerance ({rel:.3g})")
+    print(f"flash bwd {name} float32 control: autograd of the plain version "
+          f"on bf16-rounded inputs, least of dq/dk/dv max err / max |.| "
+          f"{rel:.3g} > {BWD_F32_REL:g}")
+
+
+@contextlib.contextmanager
+def wide_launches():
+    """Count the flash launches past Dh 256 by (forward | backward,
+    dtype code), through the wrappers' launch (`flash_attention._call`)."""
+    from repro_torch.kernels import flash_attention as fa
+    real, counts = fa._call, {}
+
+    def counted(fn, tensors, args, what):
+        if args[5] > 256:             # the padded head width
+            key = ("backward" in what, args[-1])
+            counts[key] = counts.get(key, 0) + 1
+        return real(fn, tensors, args, what)
+    fa._call = counted
+    try:
+        yield counts
+    finally:
+        fa._call = real
 
 
 def phase33(dev) -> list:
     """Phase 33 (a-c); returns the kernel rows of the wide widths: each
     kernel's launches on 33 b's main paths, its max_abs_err over 33 a,
-    its times at the 33 c shapes."""
+    its times at the 33 c shapes.  The four rows of PRs 27-29 (their
+    times bf16) count every launch of their wrapper on 33 b's paths; the
+    float32 rows (this slice's path: 33 b's smoke configs compute in
+    float32) count the float32 launches past Dh 256."""
     import torch
     t0 = time.perf_counter()
     err_f = phase33_flash(dev)
-    err_fb = check_flash_bwd(dev, shapes=WIDE_FLASH, seed=41)
+    err_b = {}
+    err_fb = check_flash_bwd(dev, shapes=WIDE_FLASH, seed=41,
+                             note=wide_note, errors=err_b)
+    check_f32_bwd_split(dev)
     err_s = phase33_ssd(dev)
     err_sb = check_ssd_bwd(dev, shapes=WIDE_SSD, seed=42, exact=True)
     torch.cuda.empty_cache()
     t_a = time.perf_counter() - t0
     n = dict.fromkeys(kernel_counts(), 0)
-    for arch, cfg, model in phase33_configs():
-        counts = smoke_run(dev, "phase 33 b", arch, cfg, model)
-        for key in n:
-            n[key] += counts[key]
+    with wide_launches() as wide:
+        for arch, cfg, model in phase33_configs():
+            counts = smoke_run(dev, "phase 33 b", arch, cfg, model)
+            for key in n:
+                n[key] += counts[key]
     t_b = time.perf_counter() - t0 - t_a
     rows = phase33_timing(dev)
     torch.cuda.empty_cache()
@@ -5688,7 +5814,7 @@ def phase33(dev) -> list:
     total = t_a + t_b + t_c
     print(f"phase 33: {total:.1f} s (a {t_a:.1f} s, b {t_b:.1f} s, c "
           f"{t_c:.1f} s; budget {PHASE33_BUDGET_S:g} s); main-path launches "
-          f"b {n}")
+          f"b {n}; past Dh 256 by (backward, dtype code) {wide}")
     if total > PHASE33_BUDGET_S:
         miss(f"phase 33 took {total:.1f} s, over its {PHASE33_BUDGET_S:g} s "
              f"budget")
@@ -5701,11 +5827,18 @@ def phase33(dev) -> list:
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": err, "ms": t[0], "plain_ms": t[1],
                 "bound_ms": t[2], "bound_by": t[3], "library_ms": t[4]}
+    f32, bf = torch.float32, torch.bfloat16
     return [row("flash_attention (Dh > 256, wide kernel)", "flash_attention",
-                fl, n["flash_attention"], err_f, rows[0]),
+                fl, n["flash_attention"], err_f[bf], rows[0]),
             row("flash_attention_bwd (Dh > 256, wide kernel)",
-                "flash_attention_bwd", fl, n["flash_attention_bwd"], err_fb,
-                rows[1]),
+                "flash_attention_bwd", fl, n["flash_attention_bwd"],
+                err_b.get(bf, err_fb), rows[1]),
+            row("flash_attention (Dh > 256, float32 wide kernel)",
+                "flash_attention", fl, wide.get((False, 0), 0), err_f[f32],
+                rows[4]),
+            row("flash_attention_bwd (Dh > 256, float32 wide kernel)",
+                "flash_attention_bwd", fl, wide.get((True, 0), 0),
+                err_b.get(f32, err_fb), rows[5]),
             row("ssd_scan (p > 64, n > 128, in blocks)", "ssd_scan", ssd,
                 n["ssd_scan"], err_s, rows[2]),
             row("ssd_scan_bwd (p > 64, n > 128, in blocks)", "ssd_scan_bwd",

@@ -706,11 +706,14 @@ def probe_flash_compare(other: str) -> None:
     through the checkout's wrapper (padding; `_lib` swapped): at
     `FLASH_TIMED` in both dtypes (the built widths 64, 96, 256), every
     `chip_smoke.WIDE_FLASH` shape in both dtypes and
-    `chip_smoke.WIDE_FLASH_TIMED` in bf16, each with o and its row lse
-    compared bit for bit between the builds; in bf16 past Dh 256 also each
-    build's largest error against the plain version and whether a repeat
-    is bit-equal; times in turns at the timed shapes and the bf16 wide
-    ones; last, how many SASS instructions of each kernel differ."""
+    `chip_smoke.WIDE_FLASH_TIMED` in both, each with o and its row lse
+    compared bit for bit between the builds; past Dh 256 also each
+    build's largest error against the plain version (o, and in float32
+    the lse against `flash_attention_lse_plain`), whether a repeat is
+    bit-equal and, in float32 (whose kernels differ from the parent's),
+    the two builds' largest difference; times in turns at the timed
+    shapes and the wide ones; last, how many SASS instructions of each
+    kernel differ."""
     lib = build.BUILD_DIR.parent / "probe" / "flash_other.so"
     lib.parent.mkdir(parents=True, exist_ok=True)
     proc = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(lib),
@@ -755,8 +758,8 @@ def probe_flash_compare(other: str) -> None:
               for dtype in (torch.bfloat16, torch.float32)]
     shapes += [(s_, dtype) for s_ in chip_smoke.WIDE_FLASH
                for dtype in (torch.bfloat16, torch.float32)]
-    shapes.append((("timed", B, S, S, H, KvH, Dh, causal, window),
-                   torch.bfloat16))
+    shapes += [(("timed", B, S, S, H, KvH, Dh, causal, window), dtype)
+               for dtype in (torch.bfloat16, torch.float32)]
     for (name, B, Sq, Sk, H, KvH, Dh, causal, window), dtype in shapes:
         q = rn(gen, (B, Sq, H, Dh), dtype)
         k, v = (rn(gen, (B, Sk, KvH, Dh), dtype) for _ in range(2))
@@ -775,22 +778,32 @@ def probe_flash_compare(other: str) -> None:
         label = (f"flash {name} B={B} Sq={Sq} Sk={Sk} H={H} KvH={KvH} "
                  f"Dh={Dh} causal={causal} window={window} "
                  f"{str(dtype)[6:]}")
-        wide_bf16 = dtype == torch.bfloat16 and Dh > 256
+        wide = Dh > 256
+        f32 = dtype == torch.float32
         firsts = []
         for who, f in (("other", run_other), ("this", this)):
             a, b = f(), f()
             torch.cuda.synchronize()
             firsts.append(a)
-            if wide_bf16:
+            if wide:
                 err = float((a[0].float() - fa.flash_attention_plain(
                     q, k, v, **mask).float()).abs().max())
                 same = all(chip_smoke.bits_equal(x, y) for x, y in zip(a, b))
+                lse = ""
+                if f32:
+                    lse_err = (a[1] - fa.flash_attention_lse_plain(q, k, **mask))
+                    lse = f", lse {float(lse_err.abs().max()):.3g}"
                 print(f"{label}, {who}: max abs err vs flash_attention_plain "
-                      f"{err:.3g}; a repeat bit-equal: {same}", flush=True)
-        print(f"{label}: other and this bit-equal (o, lse): "
-              f"{all(chip_smoke.bits_equal(x, y) for x, y in zip(*firsts))}",
-              flush=True)
-        if not (name.startswith("timed") or wide_bf16):
+                      f"{err:.3g}{lse}; a repeat bit-equal: {same}",
+                      flush=True)
+        line = (f"{label}: other and this bit-equal (o, lse): "
+                f"{all(chip_smoke.bits_equal(x, y) for x, y in zip(*firsts))}")
+        if wide and f32:
+            line += ("; their largest difference o "
+                     f"{float((firsts[0][0] - firsts[1][0]).abs().max()):.3g}, "
+                     f"lse {float((firsts[0][1] - firsts[1][1]).abs().max()):.3g}")
+        print(line, flush=True)
+        if not (name.startswith("timed") or wide):
             continue
         reps = 20 if Dh <= 256 and dtype == torch.bfloat16 else \
             10 if Sq * Sk * Dh < 2 ** 31 else 5
@@ -852,17 +865,57 @@ FWD_VARIANTS = {
 }
 
 
-def probe_flash_wide_variants() -> None:
-    """Builds of csrc/flash_attention.cu with one part of the bf16 wide
-    forward's step dropped or changed (`FWD_VARIANTS`), timed in turns
-    (each in order, then in reverse) at `chip_smoke.WIDE_FLASH_TIMED`,
-    each beside its largest error against the plain version: where the
-    step's time goes."""
+# the same for the float32 wide forward (flash_fwd_hf)
+_FF_LOCAL = [("        if (r < x.ranks) t[r] = (r == cb ? xch : peer(xch, r))[pos];",
+              "        if (r < x.ranks) t[r] = xch[pos];"),
+             ("          (r == cb ? xch : const_cast<float4*>(peer(xch, r)))[pos]"
+              " = t[0];", "          xch[pos] = t[0];")]
+_FF_COPIES = [("    ff_split_kv<NC>(vs, slots);\n    if (i + 1 < n) ff_copy_kv<NC>",
+               "    if (i == 0) ff_split_kv<NC>(vs, slots);\n"
+               "    if (i + 1 < n && i == 0) ff_copy_kv<NC>"),
+              ("    if (i + 1 < n) {               // K_{i+1} in, V_{i+1} to the "
+               "slots", "    if (i + 1 < n && i == 0) {")]
+FWD_F32_VARIANTS = {
+    "as built": [],
+    "64-column blocks (one chunk, 8 a cluster at Dh 512)": [
+        ("constexpr int FF_MAX_CHUNKS = 2;", "constexpr int FF_MAX_CHUNKS = 1;")],
+    "own exchange only (no DSMEM)": _FF_LOCAL,
+    "own exchange, block barriers for the cluster's": [*_FF_LOCAL,
+                                                       *_FW_BARRIERS],
+    "no owner sums (the barrier kept)": [
+        ("    for (int pos = lo + threadIdx.x; pos < hi; pos += 256) {",
+         "    for (int pos = lo + threadIdx.x; pos < lo; pos += 256) {")],
+    "no partial products (S partials zero)": [
+        ("    ff_scores<NC>(s, qw, ks);",
+         "#pragma unroll\n    for (int e = 0; e < 32; ++e) s[e] = 0.f;")],
+    "no PV products": [
+        ("    ff_frags(f, s);\n    ff_pv(tmp, f, vs);",
+         "    for (int e = 0; e < 32; ++e) tmp[e] = 0.f;"),
+        ("    if constexpr (NC > 1) ff_accumulate<NC - 1>(acc + 32, f, "
+         "vs + FF_KP,\n                                                live);",
+         "")],
+    "K and V split and copied for the first tiles only": _FF_COPIES,
+    "own exchange, block barriers, first tiles' copies only": [
+        *_FF_LOCAL, *_FW_BARRIERS, *_FF_COPIES],
+    "one bf16 part (hi.hi only: the precision control)": [
+        ("constexpr int FF_PAIRS = 6;", "constexpr int FF_PAIRS = 1;")],
+    "design b: no cluster, each block forms S over the head": [
+        ("  x.ranks = x.ncb <= FW_CLUSTER ? x.ncb : 1;", "  x.ranks = 1;")],
+}
+
+
+def probe_flash_wide_variants(variants=None, dtype=torch.bfloat16) -> None:
+    """Builds of csrc/flash_attention.cu with one part of the wide
+    forward's step dropped or changed (`FWD_VARIANTS` for bf16,
+    `FWD_F32_VARIANTS` for float32), timed in turns (each in order, then
+    in reverse) at `chip_smoke.WIDE_FLASH_TIMED`, each beside its largest
+    error against the plain version: where the step's time goes."""
+    variants = FWD_VARIANTS if variants is None else variants
     src = (build.CSRC / "flash_attention.cu").read_text()
     out = build.BUILD_DIR.parent / "probe"
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for i, (name, edits) in enumerate(FWD_VARIANTS.items()):
+    for i, (name, edits) in enumerate(variants.items()):
         text = src
         for old, new in edits:
             if old not in text:
@@ -880,15 +933,16 @@ def probe_flash_wide_variants() -> None:
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {name}:\n{err}")
         print(f"ptxas {name}: " + "; ".join(
-            k for k in chip_smoke.ptxas_kernels(err) if "hw<" in k))
+            k for k in chip_smoke.ptxas_kernels(err)
+            if ("hw<" if dtype == torch.bfloat16 else "hf<") in k))
         fn = ctypes.CDLL(str(lib)).flash_attention_launch
         fn.argtypes = fa._lib().argtypes
         fn.restype = ctypes.c_int
         fns[name] = fn
     B, S, H, KvH, Dh, causal, window = chip_smoke.WIDE_FLASH_TIMED
     gen = torch.Generator(device=DEV).manual_seed(9)
-    q = rn(gen, (B, S, H, Dh), torch.bfloat16)
-    k, v = (rn(gen, (B, S, KvH, Dh), torch.bfloat16) for _ in range(2))
+    q = rn(gen, (B, S, H, Dh), dtype)
+    k, v = (rn(gen, (B, S, KvH, Dh), dtype) for _ in range(2))
 
     def run(fn):
         saved = fa._lib
@@ -905,8 +959,8 @@ def probe_flash_wide_variants() -> None:
     order = list(fns)
     for name in order + order[::-1]:
         print(f"flash fwd variant {name} (B={B} S={S} H={H} Dh={Dh} causal "
-              f"bf16): {cuda_ms(lambda: run(fns[name]), 5):.4f} ms",
-              flush=True)
+              f"{str(dtype)[6:]}): {cuda_ms(lambda: run(fns[name]), 5):.4f} "
+              f"ms", flush=True)
 
 
 def sass(lib: Path) -> dict:
@@ -989,11 +1043,13 @@ def probe_flash_bwd_compare(other: str) -> None:
     checkout's wrapper (padding, scratch), on the forward kernel's own o
     and lse: at every `chip_smoke.BWD_SHAPES` entry and every
     `chip_smoke.WIDE_FLASH` shape, bf16 and float32, and at
-    `chip_smoke.WIDE_FLASH_TIMED` in bf16.  For each: each build's largest
+    `chip_smoke.WIDE_FLASH_TIMED` in both.  For each: each build's largest
     gradient error against `flash_attention_bwd_plain` (over each
     gradient's largest magnitude), whether a repeat is bit-equal, whether
-    the two builds' outputs are, and times in turns (other, this, this,
-    other)."""
+    the two builds' outputs are (float32 past Dh 256, whose kernels differ
+    from the parent's: their largest difference over each gradient's
+    largest magnitude), and times in turns (other, this, this, other);
+    last, how many SASS instructions of each kernel differ."""
     build.build_all(("flash_attention", "flash_attention_bwd"))
     print("ptxas this: " + "; ".join(chip_smoke.ptxas_kernels(
         build.BUILD_LOG.get("flash_attention_bwd", ""))))
@@ -1011,8 +1067,8 @@ def probe_flash_bwd_compare(other: str) -> None:
     shapes = [(s_, dtype) for s_ in chip_smoke.BWD_SHAPES
               + chip_smoke.WIDE_FLASH
               for dtype in (torch.bfloat16, torch.float32)]
-    shapes.append((("timed", B, S, S, H, KvH, Dh, causal, window),
-                   torch.bfloat16))
+    shapes += [(("timed", B, S, S, H, KvH, Dh, causal, window), dtype)
+               for dtype in (torch.bfloat16, torch.float32)]
     gen = torch.Generator(device=DEV).manual_seed(9)
     for (name, B, Sq, Sk, H, KvH, Dh, causal, window), dtype in shapes:
         q, do = (rn(gen, (B, Sq, H, Dh), dtype) for _ in range(2))
@@ -1046,8 +1102,13 @@ def probe_flash_bwd_compare(other: str) -> None:
                   f"flash_attention_bwd_plain "
                   + "/".join(f"{r:.3g}" for r in rel)
                   + f"; a repeat bit-equal: {same}", flush=True)
-        print(f"{label}: other and this bit-equal: "
-              f"{all(chip_smoke.bits_equal(x, y) for x, y in zip(*firsts))}")
+        line = (f"{label}: other and this bit-equal: "
+                f"{all(chip_smoke.bits_equal(x, y) for x, y in zip(*firsts))}")
+        if Dh > 256 and dtype == torch.float32:
+            line += ("; their largest difference dq/dk/dv / max |.| "
+                     + "/".join(f"{float((x - y).abs().max() / y.abs().max()):.3g}"
+                                for x, y in zip(*firsts)))
+        print(line, flush=True)
         reps = 10 if name != "timed" else 3
         times = {"other": [], "this": []}
         for who in ("other", "this", "this", "other"):
@@ -1058,6 +1119,7 @@ def probe_flash_bwd_compare(other: str) -> None:
         print(f"{label}: other / this {sum(times['other']) / sum(times['this']):.3f}"
               f" (means of {reps} calls in turns)", flush=True)
         del q, k, v, do, o, lse, plain, firsts
+    sass_diff(lib, build.library_path("flash_attention_bwd"))
 
 
 # source edits of csrc/flash_attention_bwd.cu for `flash-bwd-variants`:
@@ -1169,17 +1231,58 @@ BWD_VARIANTS = {
 }
 
 
-def probe_flash_bwd_variants() -> None:
-    """Builds of csrc/flash_attention_bwd.cu with one part of the bf16
-    wide backward's step dropped or changed (`BWD_VARIANTS`), timed in
-    turns (each in order, then in reverse) at
-    `chip_smoke.WIDE_FLASH_TIMED`, each beside its largest gradient error
-    against `flash_attention_bwd_plain`: where the step's time goes."""
+# the same for the float32 wide backward (flash_bwd_hf)
+_HF_LOCAL = [("        const float4* src = r == me ? xch : peer(xch, r);",
+              "        const float4* src = xch;"),
+             ("        float4* dst = r == me ? xch : const_cast<float4*>"
+              "(peer(xch, r));", "        float4* dst = xch;")]
+_HF_COPIES = [("    if (i + 1 < n_steps) split(sm.stage(st ^ 1, 0), "
+               "sm.stage(st ^ 1, 1));\n    if (i + 2 < n_steps) copy(i + 2);",
+               "    if (i + 1 < n_steps && i == 0) split(sm.stage(st ^ 1, 0), "
+               "sm.stage(st ^ 1, 1));\n"
+               "    if (i + 2 < n_steps && i == 0) copy(i + 2);"),
+              ("    if (i + 1 < n) split(sm.stage(st ^ 1, 0), "
+               "sm.stage(st ^ 1, 1));\n    if (i + 2 < n) copy(i + 2);",
+               "    if (i + 1 < n && i == 0) split(sm.stage(st ^ 1, 0), "
+               "sm.stage(st ^ 1, 1));\n"
+               "    if (i + 2 < n && i == 0) copy(i + 2);")]
+_HF_BARRIERS = [(b, "  __syncthreads();") for b in _HW_BARRIERS]
+BWD_F32_VARIANTS = {
+    "as built": [],
+    "own exchange only (no DSMEM reads)": _HF_LOCAL,
+    "own exchange, block barriers for the cluster's": [*_HF_LOCAL,
+                                                       *_HF_BARRIERS],
+    "no owner sums, P or dS (the barrier kept)": [
+        ("       pos < end; pos += 256) {", "       pos < 0; pos += 256) {")],
+    "no partial products (S, dP partials zero)": [
+        ("      hf_issue(acc, sm.fixed(wg), HF_PT, sm.stage(st, wg), HF_PT);",
+         "      for (int e = 0; e < 32; ++e) acc[e] = 0.f;")],
+    "no dV, dK, dQ products": [
+        ("      hf_rs<4>(tmp, f, sm.stage(st, 1 - wg), 0);",
+         "      for (int e = 0; e < 32; ++e) tmp[e] = 0.f;"),
+        ("    hf_rs<2>(tmp, f, sm.stage(st, 0), 2 * wg);",
+         "    for (int e = 0; e < 32; ++e) tmp[e] = 0.f;")],
+    "tiles split and copied for the first steps only": _HF_COPIES,
+    "own exchange, block barriers, first steps' copies only": [
+        *_HF_LOCAL, *_HF_BARRIERS, *_HF_COPIES],
+    "one bf16 part (hi.hi only: the precision control)": [
+        ("constexpr int HF_PAIRS = 6;", "constexpr int HF_PAIRS = 1;")],
+}
+
+
+def probe_flash_bwd_variants(variants=None, dtype=torch.bfloat16) -> None:
+    """Builds of csrc/flash_attention_bwd.cu with one part of the wide
+    backward's step dropped or changed (`BWD_VARIANTS` for bf16,
+    `BWD_F32_VARIANTS` for float32), timed in turns (each in order, then
+    in reverse) at `chip_smoke.WIDE_FLASH_TIMED`, each beside its largest
+    gradient error against `flash_attention_bwd_plain`: where the step's
+    time goes."""
+    variants = BWD_VARIANTS if variants is None else variants
     src = (build.CSRC / "flash_attention_bwd.cu").read_text()
     out = build.BUILD_DIR.parent / "probe"
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for i, (name, edits) in enumerate(BWD_VARIANTS.items()):
+    for i, (name, edits) in enumerate(variants.items()):
         text = src
         for old, new in edits:
             if old not in text:
@@ -1197,15 +1300,16 @@ def probe_flash_bwd_variants() -> None:
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {name}:\n{err}")
         print(f"ptxas {name}: " + "; ".join(
-            k for k in chip_smoke.ptxas_kernels(err) if "hw<" in k))
+            k for k in chip_smoke.ptxas_kernels(err)
+            if ("hw<" if dtype == torch.bfloat16 else "hf<") in k))
         fn = ctypes.CDLL(str(lib)).flash_attention_bwd_launch
         fn.argtypes = fa._bwd_lib().argtypes
         fn.restype = ctypes.c_int
         fns[name] = fn
     B, S, H, KvH, Dh, causal, window = chip_smoke.WIDE_FLASH_TIMED
     gen = torch.Generator(device=DEV).manual_seed(9)
-    q, do = (rn(gen, (B, S, H, Dh), torch.bfloat16) for _ in range(2))
-    k, v = (rn(gen, (B, S, KvH, Dh), torch.bfloat16) for _ in range(2))
+    q, do = (rn(gen, (B, S, H, Dh), dtype) for _ in range(2))
+    k, v = (rn(gen, (B, S, KvH, Dh), dtype) for _ in range(2))
     o, lse = fa._flash_cuda(q, k, v, lse=True, causal=causal)
 
     def run(fn):
@@ -1225,8 +1329,8 @@ def probe_flash_bwd_variants() -> None:
     order = list(fns)
     for name in order + order[::-1]:
         print(f"flash bwd variant {name} (B={B} S={S} H={H} Dh={Dh} causal "
-              f"bf16): {cuda_ms(lambda: run(fns[name]), 5):.4f} ms",
-              flush=True)
+              f"{str(dtype)[6:]}): {cuda_ms(lambda: run(fns[name]), 5):.4f} "
+              f"ms", flush=True)
 
 
 def bind_ssd_bwd(path: str):
@@ -1315,7 +1419,7 @@ def probe_wide() -> None:
     for name in ("flash_attention", "flash_attention_bwd", "ssd_scan",
                  "ssd_scan_bwd"):
         lines = [k for k in chip_smoke.ptxas_kernels(build.BUILD_LOG.get(
-            name, "")) if "wide" in k or "f32>" in k or "_hw<" in k]
+            name, "")) if "f32>" in k or "_hw<" in k or "_hf<" in k]
         print(f"ptxas {name}: " + "; ".join(lines))
     chip_smoke.phase33(DEV)
     print(f"misses: {len(chip_smoke.MISSES)}")
@@ -1329,6 +1433,10 @@ def main() -> None:
               "flash-bwd": probe_flash_bwd, "ssd-bwd": probe_ssd_bwd,
               "flash-bwd-variants": probe_flash_bwd_variants,
               "flash-wide-variants": probe_flash_wide_variants,
+              "flash-wide-f32-variants": lambda: probe_flash_wide_variants(
+                  FWD_F32_VARIANTS, torch.float32),
+              "flash-bwd-f32-variants": lambda: probe_flash_bwd_variants(
+                  BWD_F32_VARIANTS, torch.float32),
               "row-stage": probe_row_stage, "wide": probe_wide}
     compare = {"flash-compare": probe_flash_compare,
                "flash-bwd-compare": probe_flash_bwd_compare,

@@ -72,22 +72,24 @@
 // Dh 128 each k-step's Q fragment is re-read from the Q tile in shared
 // memory on every kv tile (QREG false) instead of staying in registers.
 //
-// Wider heads (flash_fwd_hw, flash_wide_f32): the TPU kernel takes any
-// Dh (its BlockSpec is (1, bq, 1, Dh)).  Here a Dh above 256 no longer
-// fits one block's tiles or registers, so the wrapper pads it to a
-// multiple of 64 and each block owns a column block of up to 256 output
-// columns.  bf16 (flash_fwd_hw, the design and why in its section): a
-// thread-block cluster of the column blocks on wgmma, each forming a
-// partial S over its own columns, the partials summed in rank order
-// through distributed shared memory.  float32 (flash_wide_f32):
-// each block forms S = Q K^T over the whole Dh by walking it in 64-column
-// slices of Q and K staged in shared memory, runs the online softmax as
-// flash_kernel_f32 does, and multiplies P by its own columns of V; every
-// column block computes the same S in the same order, so m, l and the lse
-// agree in all of them and block 0 writes the lse.  What bounds them: the
-// function is bound by operations as at the built widths (at B 2, S 4096,
-// H 16, Dh 512, causal, ~550 GFLOP).  Shared memory: 230 400 B in bf16,
-// 121 856 B in float32.
+// Wider heads (flash_fwd_hw, flash_fwd_hf): the TPU kernel takes any Dh
+// (its BlockSpec is (1, bq, 1, Dh)).  Here a Dh above 256 no longer fits
+// one block's tiles or registers, so the wrapper pads it to a multiple of
+// 64 and each block owns a column block of the head: a thread-block
+// cluster of the column blocks on wgmma, each forming a partial S over its
+// own columns, the partials summed in rank order through distributed
+// shared memory (the design and why in flash_fwd_hw's section), so m, l
+// and the lse agree in every block and block 0 writes the lse.  float32
+// (flash_fwd_hf) splits every float32 operand into three bf16 parts (v =
+// hi + mid + lo, every bit of v) and runs a product as six bf16 part
+// products (all whose bits reach 2^-24 of it; TF32 keeps 10 bits and would
+// miss the float32 tolerance), in column blocks of one or two chunks,
+// each owner of a run of the exchange's items writing the totals into
+// every block; P stays float32.  What bounds them: the function is bound
+// by operations as at the built widths (at B 2, S 4096, H 16, Dh 512,
+// causal, ~550 GFLOP; in float32 the tensor cores give 989 / 6 TFLOP/s of
+// float32-exact products).  Shared memory: 230 400 B in bf16, 230 400 B
+// in float32.
 
 #include <cstdint>
 
@@ -571,17 +573,6 @@ __global__ void __launch_bounds__(BF_THREADS) flash_kernel_bf16(FlashArgs a) {
 // Dh above 256 (any multiple of 64: the wrapper pads to one)
 // ---------------------------------------------------------------------------
 
-constexpr int WIDE_SLICE = 64;     // columns of q.k a float32 step stages
-constexpr int WIDE_OW = 256;       // output columns a float32 block owns
-
-// float32: the Q and K slices, the V tile, the P tile
-__host__ __device__ constexpr int wide_f32_smem_floats() {
-  return (F32_BQ + F32_BK) * (WIDE_SLICE + 4) + F32_BK * (WIDE_OW + 4)
-       + F32_BQ * PS;
-}
-static_assert(wide_f32_smem_floats() * 4 <= SMEM_OPTIN_BYTES,
-              "flash wide: tiles exceed the shared memory of a block");
-
 // bfloat16 (flash_fwd_hw): a thread-block cluster of column blocks on the
 // tensor cores, the forward of flash_attention_bwd.cu's flash_bwd_hw
 // (design a).  Taken over column blocks that each form S over the whole
@@ -907,12 +898,11 @@ struct FwPlace {
 // kv tile kt's scores s (the warpgroup's, accumulator order) into P: scale
 // into log2 units, mask where the tile crosses an edge, the online
 // softmax on the thread's two rows (m in log2 units, l its part of the row
-// sum, acc rescaled), P rounded to bf16 as k-step fragments (score
-// n-tiles 2 kk and 2 kk + 1 make k-step kk)
+// sum, acc rescaled); P left in s, float32
 template <int NC>
-__device__ __forceinline__ void fw_softmax(float s[32], uint32_t pa[4][4],
-                                           float m[2], float l[2],
-                                           float* acc, const FlashArgs& a,
+__device__ __forceinline__ void fw_softmax(float s[32], float m[2],
+                                           float l[2], float* acc,
+                                           const FlashArgs& a,
                                            const FwPlace& p, float sl2,
                                            int kt) {
   const int k0 = kt * FW_BK;
@@ -962,6 +952,10 @@ __device__ __forceinline__ void fw_softmax(float s[32], uint32_t pa[4][4],
     acc[4 * j + 2] *= alpha[1];
     acc[4 * j + 3] *= alpha[1];
   }
+}
+// P rounded to bf16 as k-step fragments (score n-tiles 2 kk and 2 kk + 1
+// make k-step kk)
+__device__ __forceinline__ void fw_pack(uint32_t pa[4][4], const float s[32]) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
@@ -1078,7 +1072,10 @@ __device__ __forceinline__ void fw_cluster(const FlashArgs& a,
     fence_proxy_async();
     cluster_arrive_relaxed();              // R_i
     uint32_t pa[4][4];
-    if (live) fw_softmax<NC>(s, pa, m, l, acc, a, p, sl2, p.kt_begin + i);
+    if (live) {
+      fw_softmax<NC>(s, m, l, acc, a, p, sl2, p.kt_begin + i);
+      fw_pack(pa, s);
+    }
     cluster_wait();                        // R_i: every block has read tile
     __syncthreads();                       // i's partials; every thread's
                                            // copies are visible
@@ -1140,7 +1137,8 @@ __device__ __forceinline__ void fw_solo(const FlashArgs& a, const FwArgs& x,
     }
     if (!live) continue;
     uint32_t pa[4][4];
-    fw_softmax<NC>(s, pa, m, l, acc, a, p, sl2, kt);
+    fw_softmax<NC>(s, m, l, acc, a, p, sl2, kt);
+    fw_pack(pa, s);
     fw_pv<NC>(acc, pa, vs + st * FW_KB);
   }
   cp_async_wait<0>();
@@ -1169,209 +1167,452 @@ __global__ void __launch_bounds__(256, 1) flash_fwd_hw(FlashArgs a,
   else fw_block<4>(a, x, sm, cb);
 }
 
-// float32, grid (query tiles x column blocks, H, B): flash_kernel_f32's
-// thread mapping; S summed over dh / 64 slices of Q and K staged in shared
-// memory, then acc += P V over the block's own output columns (groups of
-// 64, 4 a thread).  Block 0 of a query tile writes the lse.
-__global__ void __launch_bounds__(F32_THREADS) flash_wide_f32(FlashArgs a,
-                                                              int dh) {
-  constexpr int BQ = F32_BQ, BK = F32_BK, THREADS = F32_THREADS;
-  constexpr int SS = WIDE_SLICE + 4;       // slice row stride
-  constexpr int VS = WIDE_OW + 4;          // V tile row stride
-  constexpr int NG = WIDE_OW / 64;         // output column groups, at most
-  extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);
-  float* ks = qs + BQ * SS;
-  float* vs = ks + BK * SS;
-  float* ps = vs + BK * VS;
+// float32 (flash_fwd_hf): flash_fwd_hw's cluster on the tensor cores with
+// every operand split into three bf16 parts (the header's design), one or
+// two 64-column chunks a column block (ncb = ceil(Dh / 128): 4 a cluster
+// at Dh 512, Dh <= 1024 in a cluster).  The parts triple the bf16 tiles'
+// bytes, so K and V have one stage and the K tile doubles as the
+// exchange, which is free between a tile's partial product and the next
+// tile's K; one buffer of float32 slots takes each thread's cp.async
+// copies a step ahead (cp.async cannot split), split in while a chain
+// runs.  The owners of the exchange's items sum the cluster's partials
+// and write the totals into every block (two cluster barrier phases a kv
+// tile); P stays float32, split for its product; each chain's sums begin
+// at zero and are added in float32.  Against one-chunk blocks (8 ranks at
+// Dh 512) the two-chunk ones halve the exchange, the barriers and the
+// softmax a product pays (PERF.md)
+constexpr int FF_PARTS = 3;        // bf16 parts of a float32 operand
+// part products of a . b, pair p = (a part ff_pa(p), b part ff_pb(p)):
+// hi.hi, hi.mid, mid.hi, hi.lo, mid.mid, lo.hi, every one whose bits
+// reach 2^-24 of the product; chains run them from the last, smallest
+// first
+constexpr int FF_PAIRS = 6;
+__device__ __forceinline__ int ff_pa(int p) {
+  return p == 2 || p == 4 ? 1 : p == 5 ? 2 : 0;
+}
+__device__ __forceinline__ int ff_pb(int p) {
+  return p == 1 || p == 4 ? 1 : p == 3 ? 2 : 0;
+}
+constexpr int FF_MAX_CHUNKS = 2;   // chunks of a column block, at most
+constexpr int FF_QP = FW_ROWS * 128;       // a Q chunk's part, 16 KB
+constexpr int FF_KP = FW_BK * 128;         // a K or V chunk's part, 8 KB
+constexpr int FF_QPS = FF_MAX_CHUNKS * FF_QP;   // between Q's parts
+constexpr int FF_KPS = FF_MAX_CHUNKS * FF_KP;   // between K's or V's parts
+constexpr int FF_ITEMS = FW_ROWS * FW_BK / 4;   // float4s of the partials
+// shared memory: Q in parts (96 KB); K in parts, which is also the
+// exchange between a tile's partial product and the next tile's K (48
+// KB); V in parts (48 KB); float32 slots of one chunk of 128 rows (32
+// KB); 1024 bytes to align: 225 KB
+constexpr int FF_QB = FF_PARTS * FF_QPS;
+constexpr int FF_KB = FF_PARTS * FF_KPS > FF_ITEMS * 16 ? FF_PARTS * FF_KPS
+                                                        : FF_ITEMS * 16;
+constexpr int FF_VB = FF_PARTS * FF_KPS;
+constexpr int FF_SMEM_BYTES = FF_QB + FF_KB + FF_VB + FW_ROWS * FW_CHUNK * 4
+                            + 1024;
+static_assert(FF_SMEM_BYTES <= SMEM_OPTIN_BYTES,
+              "flash fwd hf: tiles exceed the shared memory of a block");
 
-  const int ncb = (dh + WIDE_OW - 1) / WIDE_OW;
-  const int tid = threadIdx.x, ti = tid / 16, tj = tid % 16;
-  const int q0 = blockIdx.x / ncb * BQ, cb = blockIdx.x % ncb;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int c0 = cb * WIDE_OW, cw = min(WIDE_OW, dh - c0);
-  const int nsl = dh / WIDE_SLICE;
-  const int kvh = h / (a.H / a.KvH);
-  const float* q = static_cast<const float*>(a.q);
-  const float* k = static_cast<const float*>(a.k);
-  const float* v = static_cast<const float*>(a.v);
-  float* o = static_cast<float*>(a.o);
-
-  float m[4], l[4], acc[4][4 * NG];
+// (u, v) = hi + mid + lo, bf16 pairs that hold every bit of both (each
+// remainder is exact), as csrc/ssd_scan_bwd.cu splits: w[q] packs part q
+__device__ __forceinline__ void split3(float u, float v, uint32_t w[FF_PARTS]) {
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    m[r] = NEG_INF;
-    l[r] = 0.f;
-#pragma unroll
-    for (int e = 0; e < 4 * NG; ++e) acc[r][e] = 0.f;
+  for (int q = 0; q < FF_PARTS; ++q) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(u, v);
+    w[q] = *reinterpret_cast<const uint32_t*>(&h);
+    u -= __low2float(h);
+    v -= __high2float(h);
   }
-
-  int nk = (a.Sk + BK - 1) / BK;
-  if (a.causal) nk = min(nk, (q0 + BQ - 1) / BK + 1);
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * BK;
-    float s[4][4];
+}
+// rows [r0, r0 + ROWS) of the 64-column chunk `ch` of head `hd` of a (B, S,
+// heads, dh) float32 tensor into float32 slots `f` by cp.async: thread t
+// copies float4s t + 256 i (row (t + 256 i) / 16, columns 4 ((t + 256 i) %
+// 16) + 0..3), rows >= S zeros.  cp.async cannot split; each thread splits
+// its own slots (ff_split), so the slots need no barrier
+template <int ROWS>
+__device__ __forceinline__ void ff_copy(float4* f, const void* src, int b,
+                                        int S, int heads, int hd, int r0,
+                                        int dh, int ch) {
+  const float* base = static_cast<const float*>(src)
+      + (size_t(b) * S * heads + hd) * dh + FW_CHUNK * ch;
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
+  for (int i = 0; i < ROWS / 16; ++i) {
+    const int idx = threadIdx.x + 256 * i, t = r0 + idx / 16;
+    const bool in = t < S;
+    cp_async16(f + idx, base + size_t(in ? t : 0) * heads * dh
+                            + 4 * (idx % 16), in ? 16 : 0);
+  }
+}
+// this thread's slots of `f` (landed) split into the three parts of a
+// swizzled chunk tile of ROWS rows (part q at dst + q `ps`)
+template <int ROWS>
+__device__ __forceinline__ void ff_split(unsigned char* dst, const float4* f,
+                                         int ps) {
+#pragma unroll 1                   // one float4 at a time: it runs beside a
+  for (int i = 0; i < ROWS / 16; ++i) {   // chain that holds most registers
+    const int idx = threadIdx.x + 256 * i, r = idx / 16, c4 = idx % 16;
+    const float4 v = f[idx];
+    uint32_t lo[FF_PARTS], hi[FF_PARTS];
+    split3(v.x, v.y, lo);
+    split3(v.z, v.w, hi);
+    unsigned char* d = dst + fw_swz<ROWS>(r, c4 >> 1) + 8 * (c4 & 1);
 #pragma unroll
-      for (int c = 0; c < 4; ++c) s[r][c] = 0.f;
-    for (int sl = 0; sl < nsl; ++sl) {
-      const int d0 = WIDE_SLICE * sl;
-      __syncthreads();             // the previous step's readers are done
-      for (int idx = tid; idx < BQ * WIDE_SLICE; idx += THREADS) {
-        const int r = idx / WIDE_SLICE, d = idx % WIDE_SLICE, qi = q0 + r;
-        qs[r * SS + d] = qi < a.Sq
-            ? q[((size_t(b) * a.Sq + qi) * a.H + h) * dh + d0 + d] : 0.f;
-      }
-      for (int idx = tid; idx < BK * WIDE_SLICE; idx += THREADS) {
-        const int r = idx / WIDE_SLICE, d = idx % WIDE_SLICE, kj = k0 + r;
-        ks[r * SS + d] = kj < a.Sk
-            ? k[((size_t(b) * a.Sk + kj) * a.KvH + kvh) * dh + d0 + d] : 0.f;
-      }
-      if (sl == 0)
-        for (int idx = tid; idx < BK * cw; idx += THREADS) {
-          const int r = idx / cw, d = idx % cw, kj = k0 + r;
-          vs[r * VS + d] = kj < a.Sk
-              ? v[((size_t(b) * a.Sk + kj) * a.KvH + kvh) * dh + c0 + d]
-              : 0.f;
-        }
-      __syncthreads();
-#pragma unroll 4
-      for (int d = 0; d < WIDE_SLICE; d += 4) {
-        float4 qv[4], kv[4];
+    for (int q = 0; q < FF_PARTS; ++q)
+      *reinterpret_cast<uint2*>(d + q * ps) = make_uint2(lo[q], hi[q]);
+  }
+  asm volatile("" ::: "memory");   // the slots are read before new copies
+}
+// d (the warpgroup's 64 x 64 scores, accumulator order) = q . k^T over NC
+// chunks: q the warpgroup's 64 rows of the Q chunks, k the K chunks, both
+// K-major in three parts; the part products smallest first, one wgmma
+// chain, committed (wait with ff_wait)
+// (the pairs a runtime loop, each descriptor its tile's plus an offset in
+// 16-byte units: the unrolled chain's descriptors, hoisted, held ~100
+// registers)
+template <int NC>
+__device__ __forceinline__ void ff_scores(float d[32], const unsigned char* q,
+                                          const unsigned char* k) {
+  const uint64_t dq = sw128_desc(q), dk = sw128_desc(k);
+  fence_acc(d);
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll 1
+  for (int p = FF_PAIRS - 1; p >= 0; --p) {
+    const uint64_t qa = dq + ff_pa(p) * (FF_QPS >> 4);
+    const uint64_t kb = dk + ff_pb(p) * (FF_KPS >> 4);
 #pragma unroll
-        for (int r = 0; r < 4; ++r)
-          qv[r] = *reinterpret_cast<const float4*>(
-              &qs[(ti + 16 * r) * SS + d]);
+    for (int kk = 0; kk < 4 * NC; ++kk)
+      wgmma_64x64(d, qa + (((kk >> 2) * FF_QP + (kk & 3) * 32) >> 4),
+                  kb + (((kk >> 2) * FF_KP + (kk & 3) * 32) >> 4),
+                  p < FF_PAIRS - 1 || kk > 0);
+  }
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// P's float32 scores (accumulator order) split into three parts of
+// register-A fragments (score n-tiles 2 kk and 2 kk + 1 make k-step kk)
+__device__ __forceinline__ void ff_frags(uint32_t f[FF_PARTS][4][4],
+                                         const float s[32]) {
 #pragma unroll
-        for (int c = 0; c < 4; ++c)
-          kv[c] = *reinterpret_cast<const float4*>(
-              &ks[(tj + 16 * c) * SS + d]);
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            float t = s[r][c];
-            t = fmaf(qv[r].x, kv[c].x, t);
-            t = fmaf(qv[r].y, kv[c].y, t);
-            t = fmaf(qv[r].z, kv[c].z, t);
-            t = fmaf(qv[r].w, kv[c].w, t);
-            s[r][c] = t;
-          }
-      }
-    }
-
+  for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
-      const int qi = q0 + ti + 16 * r;
-      float mx = NEG_INF;
+      uint32_t w[FF_PARTS];
+      split3(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1], w);
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int kj = k0 + tj + 16 * c;
-        bool ok = kj < a.Sk;
-        if (a.causal) ok = ok && kj <= qi;
-        if (a.window >= 0) ok = ok && kj > qi - a.window;
-        s[r][c] = ok ? s[r][c] * a.scale : NEG_INF;
-        mx = fmaxf(mx, s[r][c]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[r], mx);
-      const float alpha = expf(m[r] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float p = expf(s[r][c] - m_new);
-        sum += p;
-        ps[(ti + 16 * r) * PS + tj + 16 * c] = p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l[r] = l[r] * alpha + sum;
-      m[r] = m_new;
-#pragma unroll
-      for (int e = 0; e < 4 * NG; ++e) acc[r][e] *= alpha;
+      for (int q = 0; q < FF_PARTS; ++q) f[q][kk][r] = w[q];
     }
-    __syncthreads();
-
-#pragma unroll 2
-    for (int j = 0; j < BK; j += 4) {
-      float4 pr[4];
+}
+// d (the warpgroup's 64 x 64, from zero) = P . v: P's fragments f, v one V
+// chunk read MN-major in three parts; the part products smallest first,
+// one register-A chain, committed (wait with ff_wait)
+__device__ __forceinline__ void ff_pv(float d[32],
+                                      const uint32_t f[FF_PARTS][4][4],
+                                      const unsigned char* v) {
+  const uint64_t dv = mn_desc(v);
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
-        pr[r] = *reinterpret_cast<const float4*>(&ps[(ti + 16 * r) * PS + j]);
+  for (int i = 0; i < 32; ++i) d[i] = 0.f;
+  fence_acc(d);
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
+  for (int p = FF_PAIRS - 1; p >= 0; --p)
 #pragma unroll
-        for (int gi = 0; gi < NG; ++gi) {
-          if (64 * gi >= cw) break;
-          const float4 t = *reinterpret_cast<const float4*>(
-              &vs[(j + jj) * VS + 64 * gi + 4 * tj]);
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<64>(d, f[ff_pa(p)][kk],
+                   dv + ((ff_pb(p) * FF_KPS + kk * 16 * 128) >> 4));
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void ff_wait(float d[32]) {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  fence_acc(d);
+}
+// acc (chunk c's 32 floats at acc + 32 c) += P V over the block's NC
+// chunks of V, one chain a chunk, each summed from zero (and added if the
+// tile is `live`)
+template <int NC>
+__device__ __forceinline__ void ff_accumulate(float* acc,
+                                              const uint32_t f[FF_PARTS][4][4],
+                                              const unsigned char* v,
+                                              bool live) {
 #pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            const float p = jj == 0 ? pr[r].x : jj == 1 ? pr[r].y
-                          : jj == 2 ? pr[r].z : pr[r].w;
-            acc[r][4 * gi] = fmaf(p, t.x, acc[r][4 * gi]);
-            acc[r][4 * gi + 1] = fmaf(p, t.y, acc[r][4 * gi + 1]);
-            acc[r][4 * gi + 2] = fmaf(p, t.z, acc[r][4 * gi + 2]);
-            acc[r][4 * gi + 3] = fmaf(p, t.w, acc[r][4 * gi + 3]);
-          }
-        }
-      }
-    }
+  for (int c = 0; c < NC; ++c) {
+    float tmp[32];
+    ff_pv(tmp, f, v + c * FF_KP);
+    ff_wait(tmp);
+    if (live)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) acc[32 * c + e] += tmp[e];
   }
+}
 
+// o = acc / max(l, 1e-30) over the block's NC chunks (from ch0), float32,
+// and (column block 0) the row lse = m ln 2 + log l
+template <int NC>
+__device__ __forceinline__ void ff_store(const FlashArgs& a, const FwArgs& x,
+                                         const FwPlace& p, const float* acc,
+                                         float m[2], float l[2], int cb,
+                                         int ch0) {
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int qi = q0 + ti + 16 * r;
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = r ? p.row1 : p.row0;
     if (qi >= a.Sq) continue;
-    if (a.lse && tj == 0 && cb == 0)
-      a.lse[(size_t(b) * a.H + h) * a.Sq + qi] = m[r] + logf(l[r]);
+    if (a.lse && p.t4 == 0 && cb == 0)     // the quad holds the row's m, l
+      a.lse[(size_t(p.b) * a.H + p.h) * a.Sq + qi] =
+          (m[r] == NEG_INF ? NEG_INF : m[r] * LN2) + logf(l[r]);
     const float den = fmaxf(l[r], 1e-30f);
-    float* row = o + ((size_t(b) * a.Sq + qi) * a.H + h) * dh + c0;
+    float* row = static_cast<float*>(a.o)
+        + ((size_t(p.b) * a.Sq + qi) * a.H + p.h) * x.dh + FW_CHUNK * ch0;
 #pragma unroll
-    for (int gi = 0; gi < NG; ++gi) {
-      if (64 * gi >= cw) break;
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        row[64 * gi + 4 * tj + e] = acc[r][4 * gi + e] / den;
-    }
+    for (int j = 0; j < 8 * NC; ++j)
+      *reinterpret_cast<float2*>(row + 8 * j + 2 * p.t4) =
+          make_float2(acc[4 * j + 2 * r] / den, acc[4 * j + 2 * r + 1] / den);
   }
 }
 
-// float32: grid (query tiles x column blocks, H, B)
-int launch_wide_f32(const FlashArgs& a, int dh, cudaStream_t s) {
-  const int ncb = (dh + WIDE_OW - 1) / WIDE_OW;
-  const size_t nx = size_t((a.Sq + F32_BQ - 1) / F32_BQ) * ncb;
-  if (nx > 0x7fffffffu) return int(cudaErrorInvalidValue);
-  const int bytes = wide_f32_smem_floats() * int(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_wide_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return int(err);
-  flash_wide_f32<<<dim3(unsigned(nx), a.H, a.B), F32_THREADS, bytes, s>>>(
-      a, dh);
-  return int(cudaGetLastError());
+// the block's NC chunks (from ch0) of rows [r0, r0 + FW_BK) of a K or V
+// tensor through the slots into the parts at dst
+template <int NC>
+__device__ __forceinline__ void ff_copy_kv(float4* slots, const void* src,
+                                           const FlashArgs& a,
+                                           const FwPlace& p, const FwArgs& x,
+                                           int r0, int ch0) {
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+    ff_copy<FW_BK>(slots + c * (FF_ITEMS / 2), src, p.b, a.Sk, a.KvH, p.kvh,
+                   r0, x.dh, ch0 + c);
+}
+template <int NC>
+__device__ __forceinline__ void ff_split_kv(unsigned char* dst,
+                                            const float4* slots) {
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+    ff_split<FW_BK>(dst + c * FF_KP, slots + c * (FF_ITEMS / 2), FF_KPS);
+}
+// the block's Q chunks (128 rows), one at a time through the slots
+template <int NC>
+__device__ __forceinline__ void ff_stage_q(unsigned char* sm, float4* slots,
+                                           const FlashArgs& a,
+                                           const FwPlace& p, const FwArgs& x,
+                                           int ch0) {
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    ff_copy<FW_ROWS>(slots, a.q, p.b, a.Sq, a.H, p.h, p.q0, x.dh, ch0 + c);
+    cp_async_commit();
+    cp_async_wait<0>();
+    ff_split<FW_ROWS>(sm + c * FF_QP, slots, FF_QPS);
+  }
 }
 
-// bfloat16: grid (ncb B H, query tiles), clusters of the ncb column blocks
-// (ncb <= FW_CLUSTER), else none
-int launch_fwd_hw(const FlashArgs& a, int dh, cudaStream_t s) {
+// column block cb (NC chunks) of one (128-row query tile, head, batch) in a
+// cluster of `ranks` blocks.  Kv tile i's step: each warpgroup's partial
+// S_c = Q_c K_c^T (while it runs, V_i is split in and K_{i+1} copied to
+// the slots); the K tile becomes the exchange: each warpgroup publishes
+// its partial there; a cluster barrier; the owner of each run of the
+// exchange's items sums the ranks' partials in rank order and writes the
+// totals in their place in every block's exchange; a cluster barrier;
+// each warpgroup reads its scores from its own exchange, runs the online
+// softmax in float32 and adds P V_c, each chunk's product summed from
+// zero (while the first runs, K_{i+1} is split in and V_{i+1} copied).
+// The next publish writes only the block's own exchange, which no block
+// touches between the second barrier and the next first one: two barrier
+// phases a tile.
+template <int NC>
+__device__ __forceinline__ void ff_cluster(const FlashArgs& a,
+                                           const FwArgs& x,
+                                           unsigned char* sm, int cb) {
+  const FwPlace p(a, x);
+  const int n = p.kt_end - p.kt_begin, wt = threadIdx.x % 128;
+  const int ch0 = cb * x.nch / x.ncb;
+  const unsigned char* qw = sm + p.wg * 64 * 128;  // the warpgroup's Q rows
+  unsigned char* ks = sm + FF_QB;                  // K, or the exchange
+  unsigned char* vs = ks + FF_KB;
+  float4* xch = reinterpret_cast<float4*>(ks);
+  float4* slots = reinterpret_cast<float4*>(vs + FF_VB);
+  auto k0 = [&](int i) { return (p.kt_begin + i) * FW_BK; };
+  const float sl2 = a.scale * LOG2E;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, acc[32 * NC];
+#pragma unroll
+  for (int i = 0; i < 32 * NC; ++i) acc[i] = 0.f;
+  if (n > 0) {
+    ff_stage_q<NC>(sm, slots, a, p, x, ch0);
+    ff_copy_kv<NC>(slots, a.k, a, p, x, k0(0), ch0);
+    cp_async_commit();
+    cp_async_wait<0>();
+    ff_split_kv<NC>(ks, slots);
+    ff_copy_kv<NC>(slots, a.v, a, p, x, k0(0), ch0);
+    cp_async_commit();
+  }
+  // the run of items this block owns
+  const int lo = (cb * FF_ITEMS + x.ranks - 1) / x.ranks;
+  const int hi = ((cb + 1) * FF_ITEMS + x.ranks - 1) / x.ranks;
+
+  for (int i = 0; i < n; ++i) {
+    const int kt = p.kt_begin + i;
+    const bool live = p.live(a, kt);
+    fence_proxy_async();           // K_i split in is visible to wgmma, for
+    __syncthreads();               // every thread; tile i - 1 done
+    // the products run whether the tile is live or not: a wgmma chain
+    // across a branch is serialized
+    float s[32];
+    ff_scores<NC>(s, qw, ks);
+    cp_async_wait<0>();            // V_i's slots have landed
+    ff_split_kv<NC>(vs, slots);
+    if (i + 1 < n) ff_copy_kv<NC>(slots, a.k, a, p, x, k0(i + 1), ch0);
+    cp_async_commit();
+    ff_wait(s);
+    __syncthreads();               // K_i read: the tile is the exchange
+    if (live)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        xch[p.wg * 1024 + j * 128 + wt] =
+            make_float4(s[4 * j], s[4 * j + 1], s[4 * j + 2], s[4 * j + 3]);
+    cluster_arrive();
+    cluster_wait();                // the partials are published
+    for (int pos = lo + threadIdx.x; pos < hi; pos += 256) {
+      float4 t[FW_CLUSTER];
+#pragma unroll
+      for (int r = 0; r < FW_CLUSTER; ++r)
+        if (r < x.ranks) t[r] = (r == cb ? xch : peer(xch, r))[pos];
+#pragma unroll
+      for (int r = 1; r < FW_CLUSTER; ++r)
+        if (r < x.ranks) {
+          t[0].x += t[r].x; t[0].y += t[r].y; t[0].z += t[r].z;
+          t[0].w += t[r].w;
+        }
+#pragma unroll
+      for (int r = 0; r < FW_CLUSTER; ++r)
+        if (r < x.ranks)
+          (r == cb ? xch : const_cast<float4*>(peer(xch, r)))[pos] = t[0];
+    }
+    cluster_arrive();
+    cluster_wait();                // every owner's totals are in place
+    if (live) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 v = xch[p.wg * 1024 + j * 128 + wt];
+        s[4 * j] = v.x; s[4 * j + 1] = v.y; s[4 * j + 2] = v.z;
+        s[4 * j + 3] = v.w;
+      }
+      fw_softmax<NC>(s, m, l, acc, a, p, sl2, kt);
+    }
+    fence_proxy_async();           // V_i split in is visible to wgmma;
+    __syncthreads();               // every thread has read the exchange
+    uint32_t f[FF_PARTS][4][4];
+    float tmp[32];
+    ff_frags(f, s);
+    ff_pv(tmp, f, vs);
+    if (i + 1 < n) {               // K_{i+1} in, V_{i+1} to the slots
+      cp_async_wait<0>();
+      ff_split_kv<NC>(ks, slots);
+      ff_copy_kv<NC>(slots, a.v, a, p, x, k0(i + 1), ch0);
+    }
+    cp_async_commit();
+    ff_wait(tmp);
+    if constexpr (NC > 1) ff_accumulate<NC - 1>(acc + 32, f, vs + FF_KP,
+                                                live);
+    if (live)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) acc[e] += tmp[e];
+  }
+  cp_async_wait<0>();              // nothing in flight at exit
+  ff_store<NC>(a, x, p, acc, m, l, cb, ch0);
+}
+
+// column block cb (NC chunks) without a cluster (more blocks than a
+// cluster holds): per kv tile, S over the whole head, one chunk of Q and K
+// after another staged and multiplied, each chunk's product summed from
+// zero and added in float32 in chunk order (so every block holds the same
+// S), then acc += P V_c
+template <int NC>
+__device__ __forceinline__ void ff_solo(const FlashArgs& a, const FwArgs& x,
+                                        unsigned char* sm, int cb) {
+  const FwPlace p(a, x);
+  const int ch0 = cb * x.nch / x.ncb;
+  const unsigned char* qw = sm + p.wg * 64 * 128;
+  unsigned char* ks = sm + FF_QB;
+  unsigned char* vs = ks + FF_KB;
+  float4* slots = reinterpret_cast<float4*>(vs + FF_VB);
+  const float sl2 = a.scale * LOG2E;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, acc[32 * NC];
+#pragma unroll
+  for (int i = 0; i < 32 * NC; ++i) acc[i] = 0.f;
+
+  for (int kt = p.kt_begin; kt < p.kt_end; ++kt) {
+    const bool live = p.live(a, kt);
+    float s[32], tmp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    for (int c = 0; c < x.nch; ++c) {
+      __syncthreads();             // the last chunk's readers are done
+      ff_copy<FW_ROWS>(slots, a.q, p.b, a.Sq, a.H, p.h, p.q0, x.dh, c);
+      cp_async_commit();
+      cp_async_wait<0>();
+      ff_split<FW_ROWS>(sm, slots, FF_QPS);
+      ff_copy_kv<1>(slots, a.k, a, p, x, kt * FW_BK, c);
+      cp_async_commit();
+      cp_async_wait<0>();
+      ff_split_kv<1>(ks, slots);
+      if (c == 0) {
+        ff_copy_kv<NC>(slots, a.v, a, p, x, kt * FW_BK, ch0);
+        cp_async_commit();
+        cp_async_wait<0>();
+        ff_split_kv<NC>(vs, slots);
+      }
+      fence_proxy_async();
+      __syncthreads();
+      ff_scores<1>(tmp, qw, ks);
+      ff_wait(tmp);
+#pragma unroll
+      for (int e = 0; e < 32; ++e) s[e] += tmp[e];
+    }
+    if (live) fw_softmax<NC>(s, m, l, acc, a, p, sl2, kt);
+    uint32_t f[FF_PARTS][4][4];
+    ff_frags(f, s);
+    ff_accumulate<NC>(acc, f, vs, live);
+  }
+  ff_store<NC>(a, x, p, acc, m, l, cb, ch0);
+}
+
+template <int NC>
+__device__ __forceinline__ void ff_block(const FlashArgs& a, const FwArgs& x,
+                                         unsigned char* sm, int cb) {
+  if (x.ranks > 1) ff_cluster<NC>(a, x, sm, cb);
+  else ff_solo<NC>(a, x, sm, cb);
+}
+
+// flash_fwd_hw's grid, column blocks of one or two chunks
+__global__ void __launch_bounds__(256, 1) flash_fwd_hf(FlashArgs a,
+                                                       FwArgs x) {
+  extern __shared__ float4 smem4[];
+  unsigned char* sm = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem4) + 1023) & ~uintptr_t(1023));
+  const int cb = blockIdx.x % x.ncb;
+  if ((cb + 1) * x.nch / x.ncb - cb * x.nch / x.ncb == 2) ff_block<2>(a, x, sm, cb);
+  else ff_block<1>(a, x, sm, cb);
+}
+
+// grid (ncb B H, query tiles), clusters of the ncb column blocks (ncb <=
+// FW_CLUSTER), else none.  bf16: flash_fwd_hw, column blocks of 2-4
+// chunks; float32: flash_fwd_hf, of 1-2
+int launch_fwd_wide(const FlashArgs& a, int dh, bool bf16, cudaStream_t s) {
   const int nch = dh / FW_CHUNK;
-  FwArgs x{dh, nch, (nch + FW_MAX_CHUNKS - 1) / FW_MAX_CHUNKS, 0};
+  const int chunks = bf16 ? FW_MAX_CHUNKS : FF_MAX_CHUNKS;
+  FwArgs x{dh, nch, (nch + chunks - 1) / chunks, 0};
   x.ranks = x.ncb <= FW_CLUSTER ? x.ncb : 1;
+  void (*kernel)(FlashArgs, FwArgs) = bf16 ? flash_fwd_hw : flash_fwd_hf;
+  const int smem = bf16 ? FW_SMEM_BYTES : FF_SMEM_BYTES;
   const int nq = (a.Sq + FW_ROWS - 1) / FW_ROWS;
   const size_t nx = size_t(x.ncb) * a.B * a.H;
   if (nq > 65535 || nx > 0x7fffffffu) return int(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_hw, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      FW_SMEM_BYTES);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return int(err);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(unsigned(nx), unsigned(nq));
   cfg.blockDim = dim3(256);
-  cfg.dynamicSmemBytes = FW_SMEM_BYTES;
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = s;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -1380,7 +1621,7 @@ int launch_fwd_hw(const FlashArgs& a, int dh, cudaStream_t s) {
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, flash_fwd_hw, a, x);
+  err = cudaLaunchKernelEx(&cfg, kernel, a, x);
   return int(err != cudaSuccess ? err : cudaGetLastError());
 }
 
@@ -1443,10 +1684,8 @@ extern "C" int flash_attention_launch(
       case 256: return launch_bf16<256>(a, s);
     }
   }
-  if (Dh > 256 && Dh % WIDE_SLICE == 0) {
-    if (dtype == 0) return launch_wide_f32(a, Dh, s);
-    if (dtype == 1) return launch_fwd_hw(a, Dh, s);
-  }
+  if (Dh > 256 && Dh % FW_CHUNK == 0 && (dtype == 0 || dtype == 1))
+    return launch_fwd_wide(a, Dh, dtype == 1, s);
   return int(cudaErrorInvalidValue);
 }
 

@@ -111,15 +111,38 @@
 // float32 totals in global memory (the wrapper's scratch, zeroed), and a
 // last pass reads the totals for its products.
 //
-// float32 (flash_bwd_wide_dkdv, flash_bwd_wide_dq): the float32 path's
-// three launches, its 4 x 4 register tiles on 64 query rows x 32 keys on
-// the CUDA cores (TF32 would miss the float32 tolerance), with a grid axis
-// over output column blocks of up to 256 columns.  Each block forms S = Q
-// K^T and dP = dO V^T over the whole Dh, walking it in 64-column slices
-// staged in shared memory, then dS = P o (dP - delta), and sums dV_c +=
-// P^T dO_c and dK_c += dS^T Q_c (dQ_c += dS K_c) over its own columns c:
-// S and dP are formed Dh / 256 times per launch.  Sums in a fixed order,
-// no atomics: a call repeats bit for bit.
+// float32 (flash_bwd_hf): flash_bwd_hw's cluster on the tensor cores, an
+// instance a mode.  wgmma has no float32 operand, and TF32 keeps 10 bits
+// (and takes K-major operands only, where dV += P^T dO and dK += dS^T Q
+// read dO and Q MN-major), so every float32 operand v is split into three
+// bf16 parts, v = hi + mid + lo, which hold every bit of it (each
+// remainder is exact, as csrc/ssd_scan_bwd.cu splits), and a product runs
+// as six bf16 part products, hi.hi, hi.mid, mid.hi, hi.lo, mid.mid and
+// lo.hi: every one whose bits reach 2^-24 of the product (bf16 products
+// are exact in float32).  Six products at 989 TFLOP/s are 165 TFLOP/s of
+// float32-exact products, 2.5x the CUDA cores' 67; two TF32 parts would
+// be 8 bytes an element against three bf16 parts' 6.  A chain runs the
+// part products smallest first into float32 sums begun at zero each step
+// and added to the running sums in float32, so the tensor cores'
+// accumulation rounds only a step's part.  The parts triple the bf16
+// tiles' bytes, so a column block is one 64-column chunk (ncb = Dh / 64,
+// 8 a cluster at Dh 512): the fixed tiles 48 KB, two stages of the
+// streamed ones 96 KB, the exchange 32 KB, float32 slots 32 KB, lse and
+// delta 1 KB: 210 KB.  cp.async cannot convert: each thread copies its
+// float32 slots a step ahead and splits them into the other stage while
+// the step's partial product runs.  Warpgroup 0 forms S_c^T's partial,
+// warpgroup 1 dP_c^T's (dK / dV blocks; S_c's and dP_c's in dQ blocks);
+// the exchange's items are dealt to the cluster's ranks in equal runs,
+// and each item's owner sums the ranks' partials in rank order, forms P
+// and dS from them and writes them in their place in every block's
+// exchange (two cluster barrier phases a step, no "read" phase: a block
+// writes only its own exchange, and no other block touches it between
+// the second barrier and the next first one).  Then warpgroup 0 adds dV_c
+// += P^T dO_c and warpgroup 1 dK_c += dS^T Q_c; in a dQ block each adds
+// dS K_c over half the tile's keys and the halves are summed once at the
+// end.  P, dS and their products are float32-exact.  Past 8 blocks (Dh >
+// 512) the passes through float32 totals, as bf16's past 8.  Sums in a
+// fixed order, no atomics: a call repeats bit for bit.
 
 #include <cstdint>
 #include <type_traits>
@@ -491,327 +514,6 @@ int launch_bwd(const BwdArgs& a, int dh, cudaStream_t s) {
   if (err != cudaSuccess) return int(err);
   const dim3 grid_q((a.Sq + BQ - 1) / BQ, a.H, a.B);
   flash_bwd_dq<T, DH><<<grid_q, THREADS, bytes_q, s>>>(a);
-  return int(cudaGetLastError());
-}
-
-// ---------------------------------------------------------------------------
-// Dh above 256 (a multiple of 64: the wrapper pads to one), float32 on the
-// CUDA cores: a grid axis over output column blocks
-// ---------------------------------------------------------------------------
-
-constexpr int WIDE_SLICE = 64;     // columns of Q K^T / dO V^T a step stages
-constexpr int WIDE_OW = 256;       // output columns a block owns, at most
-constexpr int WIDE_BK = 32;        // keys of a kv tile
-constexpr int WIDE_SS = WIDE_SLICE + 4;   // slice row stride
-constexpr int WIDE_CS = WIDE_OW + 4;      // column-block row stride
-constexpr int WIDE_PS = WIDE_BK + 16;     // P / dS row stride
-
-// launch 2: Q, dO, K, V slices; Q and dO column blocks; P, dS; lse, delta
-__host__ __device__ constexpr int wide_dkdv_floats() {
-  return 2 * (BQ + WIDE_BK) * WIDE_SS + 2 * BQ * WIDE_CS + 2 * BQ * WIDE_PS
-       + 2 * BQ;
-}
-// launch 3: Q, dO, K, V slices; the K column block; dS; lse, delta
-__host__ __device__ constexpr int wide_dq_floats() {
-  return 2 * (BQ + WIDE_BK) * WIDE_SS + WIDE_BK * WIDE_CS + BQ * WIDE_PS
-       + 2 * BQ;
-}
-static_assert(wide_dkdv_floats() * 4 <= SMEM_OPTIN_BYTES,
-              "flash bwd wide: tiles exceed the shared memory of a block");
-
-// rows [r0, r0 + rows), columns [d0, d0 + w) of head `hd` of a (B, S,
-// heads, dh) tensor into float32 smem rows of stride `ds`; rows >= S are 0
-template <typename T>
-__device__ __forceinline__ void stage_cols(float* dst, int ds, const T* src,
-                                           int rows, int b, int S, int heads,
-                                           int hd, int r0, int dh, int d0,
-                                           int w) {
-  for (int idx = threadIdx.x; idx < rows * w; idx += THREADS) {
-    const int r = idx / w, d = idx % w, t = r0 + r;
-    dst[r * ds + d] = t < S
-        ? widen(src[((size_t(b) * S + t) * heads + hd) * dh + d0 + d]) : 0.f;
-  }
-}
-
-// out[r][c] += rows ti + 16 r of `a` dotted with rows tj + 16 c (c < NC)
-// of `b` over one slice, both float32 smem tiles of row stride WIDE_SS
-template <int NC>
-__device__ __forceinline__ void slice_dots(float out[4][NC], const float* a,
-                                           const float* b, int ti, int tj) {
-#pragma unroll 4
-  for (int d = 0; d < WIDE_SLICE; d += 4) {
-    float4 av[4], bv[NC];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-      av[r] = *reinterpret_cast<const float4*>(
-          &a[(ti + 16 * r) * WIDE_SS + d]);
-#pragma unroll
-    for (int c = 0; c < NC; ++c)
-      bv[c] = *reinterpret_cast<const float4*>(
-          &b[(tj + 16 * c) * WIDE_SS + d]);
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        float t = out[r][c];
-        t = fmaf(av[r].x, bv[c].x, t);
-        t = fmaf(av[r].y, bv[c].y, t);
-        t = fmaf(av[r].z, bv[c].z, t);
-        t = fmaf(av[r].w, bv[c].w, t);
-        out[r][c] = t;
-      }
-  }
-}
-
-// P and dS of a (BQ x WIDE_BK) tile into shared memory (row stride WIDE_PS),
-// masked entries 0
-template <int NC>
-__device__ __forceinline__ void wide_p_ds(float s[4][NC],
-                                          float dp[4][NC], float* ps,
-                                          float* dss, const BwdArgs& a,
-                                          const float* lse_s,
-                                          const float* del_s, int q0, int k0,
-                                          int ti, int tj) {
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = ti + 16 * r, qi = q0 + row;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int kj = k0 + tj + 16 * c;
-      bool ok = qi < a.Sq && kj < a.Sk;
-      if (a.causal) ok = ok && kj <= qi;
-      if (a.window >= 0) ok = ok && kj > qi - a.window;
-      const float p = ok ? expf(s[r][c] * a.scale - lse_s[row]) : 0.f;
-      const float ds = p * (dp[r][c] - del_s[row]);
-      if (ps) ps[row * WIDE_PS + tj + 16 * c] = p;
-      dss[row * WIDE_PS + tj + 16 * c] = ds;
-    }
-  }
-}
-
-// write rows ti + 16 i (i < NR) of acc x mult, columns [c0, c0 + cw), to
-// rows r0 + ti + 16 i < S of head `hd` of a (B, S, heads, dh) tensor
-template <typename T, int NR>
-__device__ __forceinline__ void store_cols(T* dst, float (*acc)[WIDE_OW / 16],
-                                           float mult, int b, int S,
-                                           int heads, int hd, int r0, int dh,
-                                           int c0, int cw, int ti, int tj) {
-#pragma unroll
-  for (int i = 0; i < NR; ++i) {
-    const int t = r0 + ti + 16 * i;
-    if (t >= S) continue;
-    T* row = dst + ((size_t(b) * S + t) * heads + hd) * dh + c0;
-#pragma unroll
-    for (int g = 0; g < WIDE_OW / 64; ++g) {
-      if (64 * g >= cw) break;
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        narrow(&row[64 * g + 4 * tj + e], acc[i][4 * g + e] * mult);
-    }
-  }
-}
-
-// launch 2: dK and dV of one (kv tile x column block, kv head, batch).  S
-// and dP are formed over the whole dh in slices; dV_c += P^T dO_c and dK_c
-// += dS^T Q_c over the block's columns c.
-template <typename T>
-__global__ void __launch_bounds__(THREADS) flash_bwd_wide_dkdv(BwdArgs a,
-                                                               int dh) {
-  constexpr int NC = WIDE_BK / 16, NR = WIDE_BK / 16;
-  extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);
-  float* dos = qs + BQ * WIDE_SS;
-  float* ks = dos + BQ * WIDE_SS;
-  float* vs = ks + WIDE_BK * WIDE_SS;
-  float* qc = vs + WIDE_BK * WIDE_SS;
-  float* doc = qc + BQ * WIDE_CS;
-  float* ps = doc + BQ * WIDE_CS;
-  float* dss = ps + BQ * WIDE_PS;
-  float* lse_s = dss + BQ * WIDE_PS;
-  float* del_s = lse_s + BQ;
-
-  const int ncb = (dh + WIDE_OW - 1) / WIDE_OW;
-  const int tid = threadIdx.x, ti = tid / 16, tj = tid % 16;
-  const int k0 = blockIdx.x / ncb * WIDE_BK, cb = blockIdx.x % ncb;
-  const int kvh = blockIdx.y, b = blockIdx.z;
-  const int c0 = cb * WIDE_OW, cw = min(WIDE_OW, dh - c0);
-  const int nsl = dh / WIDE_SLICE, G = a.H / a.KvH;
-  const T* q = static_cast<const T*>(a.q);
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
-  const T* dout = static_cast<const T*>(a.dout);
-
-  const int nq = (a.Sq + BQ - 1) / BQ;
-  const int k_last = min(k0 + WIDE_BK, a.Sk) - 1;
-  const int qt_begin = a.causal ? min(nq, k0 / BQ) : 0;
-  int qt_end = nq;
-  if (a.window >= 0)
-    qt_end = max(0, min(nq, (k_last + a.window - 1) / BQ + 1));
-
-  float dk[NR][WIDE_OW / 16], dv[NR][WIDE_OW / 16];
-#pragma unroll
-  for (int i = 0; i < NR; ++i)
-#pragma unroll
-    for (int e = 0; e < WIDE_OW / 16; ++e) dk[i][e] = dv[i][e] = 0.f;
-
-  for (int g = 0; g < G; ++g) {
-    const int h = kvh * G + g;
-    for (int qt = qt_begin; qt < qt_end; ++qt) {
-      const int q0 = qt * BQ;
-      float s[4][NC], dp[4][NC];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < NC; ++c) s[r][c] = dp[r][c] = 0.f;
-      for (int sl = 0; sl < nsl; ++sl) {
-        const int d0 = WIDE_SLICE * sl;
-        __syncthreads();           // the previous step's readers are done
-        stage_cols<T>(qs, WIDE_SS, q, BQ, b, a.Sq, a.H, h, q0, dh, d0,
-                      WIDE_SLICE);
-        stage_cols<T>(dos, WIDE_SS, dout, BQ, b, a.Sq, a.H, h, q0, dh, d0,
-                      WIDE_SLICE);
-        stage_cols<T>(ks, WIDE_SS, k, WIDE_BK, b, a.Sk, a.KvH, kvh, k0, dh, d0,
-                      WIDE_SLICE);
-        stage_cols<T>(vs, WIDE_SS, v, WIDE_BK, b, a.Sk, a.KvH, kvh, k0, dh, d0,
-                      WIDE_SLICE);
-        if (sl == 0) {
-          stage_cols<T>(qc, WIDE_CS, q, BQ, b, a.Sq, a.H, h, q0, dh, c0, cw);
-          stage_cols<T>(doc, WIDE_CS, dout, BQ, b, a.Sq, a.H, h, q0, dh, c0,
-                        cw);
-          if (tid < BQ) {
-            const int qi = q0 + tid;
-            const size_t at = (size_t(b) * a.H + h) * a.Sq + qi;
-            lse_s[tid] = qi < a.Sq ? a.lse[at] : 0.f;
-            del_s[tid] = qi < a.Sq ? a.delta[at] : 0.f;
-          }
-        }
-        __syncthreads();
-        slice_dots<NC>(s, qs, ks, ti, tj);       // S += Q K^T
-        slice_dots<NC>(dp, dos, vs, ti, tj);     // dP += dO V^T
-      }
-      wide_p_ds<NC>(s, dp, ps, dss, a, lse_s, del_s, q0, k0, ti, tj);
-      __syncthreads();
-      // dV += P^T dO, dK += dS^T Q over this block's columns (tile_accum's
-      // 256-column layout; columns past cw are never stored)
-      tile_accum<WIDE_OW, NR, BQ, WIDE_PS, true>(dv, ps, doc, ti, tj);
-      tile_accum<WIDE_OW, NR, BQ, WIDE_PS, true>(dk, dss, qc, ti, tj);
-    }
-  }
-  store_cols<T, NR>(static_cast<T*>(a.dk), dk, a.scale, b, a.Sk, a.KvH, kvh,
-                    k0, dh, c0, cw, ti, tj);
-  store_cols<T, NR>(static_cast<T*>(a.dv), dv, 1.f, b, a.Sk, a.KvH, kvh, k0,
-                    dh, c0, cw, ti, tj);
-}
-
-// launch 3: dQ of one (query tile x column block, head, batch): S and dP
-// over the whole dh in slices, dQ_c += dS K_c
-template <typename T>
-__global__ void __launch_bounds__(THREADS) flash_bwd_wide_dq(BwdArgs a,
-                                                             int dh) {
-  constexpr int NC = WIDE_BK / 16;
-  extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);
-  float* dos = qs + BQ * WIDE_SS;
-  float* ks = dos + BQ * WIDE_SS;
-  float* vs = ks + WIDE_BK * WIDE_SS;
-  float* kc = vs + WIDE_BK * WIDE_SS;
-  float* dss = kc + WIDE_BK * WIDE_CS;
-  float* lse_s = dss + BQ * WIDE_PS;
-  float* del_s = lse_s + BQ;
-
-  const int ncb = (dh + WIDE_OW - 1) / WIDE_OW;
-  const int tid = threadIdx.x, ti = tid / 16, tj = tid % 16;
-  const int q0 = blockIdx.x / ncb * BQ, cb = blockIdx.x % ncb;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int c0 = cb * WIDE_OW, cw = min(WIDE_OW, dh - c0);
-  const int nsl = dh / WIDE_SLICE;
-  const int kvh = h / (a.H / a.KvH);
-  const T* q = static_cast<const T*>(a.q);
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
-  const T* dout = static_cast<const T*>(a.dout);
-
-  if (tid < BQ) {
-    const int qi = q0 + tid;
-    const size_t at = (size_t(b) * a.H + h) * a.Sq + qi;
-    lse_s[tid] = qi < a.Sq ? a.lse[at] : 0.f;
-    del_s[tid] = qi < a.Sq ? a.delta[at] : 0.f;
-  }
-  int kt_end = (a.Sk + WIDE_BK - 1) / WIDE_BK;
-  if (a.causal) kt_end = min(kt_end, (q0 + BQ - 1) / WIDE_BK + 1);
-  int kt_begin = 0;
-  if (a.window >= 0) kt_begin = max(0, (q0 - a.window + 1) / WIDE_BK);
-
-  float dq[4][WIDE_OW / 16];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int e = 0; e < WIDE_OW / 16; ++e) dq[r][e] = 0.f;
-
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k0 = kt * WIDE_BK;
-    float s[4][NC], dp[4][NC];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < NC; ++c) s[r][c] = dp[r][c] = 0.f;
-    for (int sl = 0; sl < nsl; ++sl) {
-      const int d0 = WIDE_SLICE * sl;
-      __syncthreads();             // the previous step's readers are done
-      stage_cols<T>(qs, WIDE_SS, q, BQ, b, a.Sq, a.H, h, q0, dh, d0,
-                    WIDE_SLICE);
-      stage_cols<T>(dos, WIDE_SS, dout, BQ, b, a.Sq, a.H, h, q0, dh, d0,
-                    WIDE_SLICE);
-      stage_cols<T>(ks, WIDE_SS, k, WIDE_BK, b, a.Sk, a.KvH, kvh, k0, dh, d0,
-                    WIDE_SLICE);
-      stage_cols<T>(vs, WIDE_SS, v, WIDE_BK, b, a.Sk, a.KvH, kvh, k0, dh, d0,
-                    WIDE_SLICE);
-      if (sl == 0)
-        stage_cols<T>(kc, WIDE_CS, k, WIDE_BK, b, a.Sk, a.KvH, kvh, k0, dh, c0,
-                      cw);
-      __syncthreads();
-      slice_dots<NC>(s, qs, ks, ti, tj);         // S += Q K^T
-      slice_dots<NC>(dp, dos, vs, ti, tj);       // dP += dO V^T
-    }
-    wide_p_ds<NC>(s, dp, nullptr, dss, a, lse_s, del_s, q0, k0, ti, tj);
-    __syncthreads();
-    // dQ += dS K
-    tile_accum<WIDE_OW, 4, WIDE_BK, WIDE_PS, false>(dq, dss, kc, ti, tj);
-  }
-  store_cols<T, 4>(static_cast<T*>(a.dq), dq, a.scale, b, a.Sq, a.H, h, q0,
-                   dh, c0, cw, ti, tj);
-}
-
-template <typename T>
-int launch_bwd_wide(const BwdArgs& a, int dh, cudaStream_t s) {
-  const size_t rows = size_t(a.B) * a.Sq * a.H;
-  const size_t ncb = (dh + WIDE_OW - 1) / WIDE_OW;
-  const size_t nx_kv = size_t((a.Sk + WIDE_BK - 1) / WIDE_BK) * ncb;
-  const size_t nx_q = size_t((a.Sq + BQ - 1) / BQ) * ncb;
-  if ((rows + 7) / 8 > 0x7fffffffu || nx_kv > 0x7fffffffu ||
-      nx_q > 0x7fffffffu)
-    return int(cudaErrorInvalidValue);
-  flash_bwd_delta<T><<<unsigned((rows + 7) / 8), THREADS, 0, s>>>(a, dh);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return int(err);
-
-  const int bytes = wide_dkdv_floats() * int(sizeof(float));
-  err = cudaFuncSetAttribute(flash_bwd_wide_dkdv<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             bytes);
-  if (err != cudaSuccess) return int(err);
-  flash_bwd_wide_dkdv<T><<<dim3(unsigned(nx_kv), a.KvH, a.B), THREADS, bytes,
-                           s>>>(a, dh);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return int(err);
-
-  const int bytes_q = wide_dq_floats() * int(sizeof(float));
-  err = cudaFuncSetAttribute(flash_bwd_wide_dq<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             bytes_q);
-  if (err != cudaSuccess) return int(err);
-  flash_bwd_wide_dq<T><<<dim3(unsigned(nx_q), a.H, a.B), THREADS, bytes_q,
-                         s>>>(a, dh);
   return int(cudaGetLastError());
 }
 
@@ -1879,13 +1581,535 @@ __global__ void __launch_bounds__(256, 1) flash_bwd_hw(BwdArgs a, HwArgs x) {
   }
 }
 
-int launch_hw(const BwdArgs& a, const HwArgs& x, size_t blocks, int cluster,
-              cudaStream_t s) {
+// ---------------------------------------------------------------------------
+// float32 on the tensor cores, Dh above 256: flash_bwd_hw's cluster of
+// column blocks with every operand split into three bf16 parts (the
+// header's design).  A block owns one 64-column chunk; the owners of the
+// exchange's items sum the cluster's partials and form P and dS from them
+// ---------------------------------------------------------------------------
+
+constexpr int HF_PARTS = 3;        // bf16 parts of a float32 operand
+// part products of a . b, pair p = (a part hf_pa(p), b part hf_pb(p)):
+// hi.hi, hi.mid, mid.hi, hi.lo, mid.mid, lo.hi, every one whose bits
+// reach 2^-24 of the product; chains run them from the last, smallest
+// first
+constexpr int HF_PAIRS = 6;
+__device__ __forceinline__ int hf_pa(int p) {
+  return p == 2 || p == 4 ? 1 : p == 5 ? 2 : 0;
+}
+__device__ __forceinline__ int hf_pb(int p) {
+  return p == 1 || p == 4 ? 1 : p == 3 ? 2 : 0;
+}
+constexpr int HF_PT = HB_TILE * 128;       // one part of a chunk tile, 8 KB
+constexpr int HF_TB = HF_PARTS * HF_PT;    // a chunk tile in parts, 24 KB
+constexpr int HF_ITEMS = HB_TILE * HB_TILE / 4;   // float4s of a partial
+// shared memory: six tiles (two fixed, two stages of two), the exchange
+// (S and dP partials, 16 KB each), the float32 slots of two chunk tiles
+// (32 KB), two stages of lse and delta, 1024 bytes to align: 210 KB
+constexpr int HF_SMEM_BYTES = 6 * HF_TB + 2 * 2 * HF_ITEMS * 16
+                            + 2 * 2 * HB_TILE * 4 + 1024;
+static_assert(HF_SMEM_BYTES <= SMEM_OPTIN_BYTES,
+              "flash bwd hf: tiles exceed the shared memory of a block");
+
+struct HfSmem {
+  unsigned char* base;
+  __device__ explicit HfSmem(void* raw)
+      : base(reinterpret_cast<unsigned char*>(
+            (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023))) {}
+  __device__ unsigned char* fixed(int kind) const { return base + kind * HF_TB; }
+  __device__ unsigned char* stage(int st, int kind) const {
+    return base + (2 + 2 * st + kind) * HF_TB;
+  }
+  // [S | dP][n-tile j][thread wt] float4: the warpgroups' 64 x 64
+  // partials in accumulator order, then in the owners' items P and dS
+  __device__ float4* xch() const {
+    return reinterpret_cast<float4*>(base + 6 * HF_TB);
+  }
+  // the float32 slots of two chunk tiles (kind 0, kind 1), for hf_copy
+  __device__ float4* slots(int kind) const {
+    return xch() + (2 + kind) * HF_ITEMS;
+  }
+  __device__ float* rows(int st) const {
+    return reinterpret_cast<float*>(base + 6 * HF_TB + 4 * HF_ITEMS * 16)
+           + 2 * HB_TILE * st;
+  }
+};
+
+// (u, v) = hi + mid + lo, bf16 pairs that hold every bit of both (each
+// remainder is exact), as csrc/ssd_scan_bwd.cu splits: w[q] packs part q
+__device__ __forceinline__ void split3(float u, float v, uint32_t w[HF_PARTS]) {
+#pragma unroll
+  for (int q = 0; q < HF_PARTS; ++q) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(u, v);
+    w[q] = *reinterpret_cast<const uint32_t*>(&h);
+    u -= __low2float(h);
+    v -= __high2float(h);
+  }
+}
+
+// rows [r0, r0 + ROWS) of the 64-column chunk `ch` of head `hd` of a (B, S,
+// heads, dh) float32 tensor into float32 slots `f` by cp.async: thread t
+// copies float4s t + 256 i (row (t + 256 i) / 16, columns 4 ((t + 256 i) %
+// 16) + 0..3), rows >= S zeros.  cp.async cannot split; each thread splits
+// its own slots (hf_split), so the slots need no barrier
+template <int ROWS>
+__device__ __forceinline__ void hf_copy(float4* f, const void* src, int b,
+                                        int S, int heads, int hd, int r0,
+                                        int dh, int ch) {
+  const float* base = static_cast<const float*>(src)
+      + (size_t(b) * S * heads + hd) * dh + 64 * ch;
+#pragma unroll
+  for (int i = 0; i < ROWS / 16; ++i) {
+    const int idx = threadIdx.x + 256 * i, t = r0 + idx / 16;
+    const bool in = t < S;
+    cp_async16(f + idx, base + size_t(in ? t : 0) * heads * dh
+                            + 4 * (idx % 16), in ? 16 : 0);
+  }
+}
+// this thread's slots of `f` (landed) split into the three parts of a
+// swizzled chunk tile of ROWS rows (part q at dst + q ROWS 128)
+template <int ROWS>
+__device__ __forceinline__ void hf_split(unsigned char* dst, const float4* f) {
+#pragma unroll
+  for (int i = 0; i < ROWS / 16; ++i) {
+    const int idx = threadIdx.x + 256 * i, r = idx / 16, c4 = idx % 16;
+    const float4 v = f[idx];
+    uint32_t lo[HF_PARTS], hi[HF_PARTS];
+    split3(v.x, v.y, lo);
+    split3(v.z, v.w, hi);
+    unsigned char* d = dst + r * 128 + (((c4 >> 1) ^ (r & 7)) << 4)
+                     + 8 * (c4 & 1);
+#pragma unroll
+    for (int q = 0; q < HF_PARTS; ++q)
+      *reinterpret_cast<uint2*>(d + q * ROWS * 128) = make_uint2(lo[q], hi[q]);
+  }
+  asm volatile("" ::: "memory");   // the slots are read before new copies
+}
+
+// acc = a . b^T over one chunk for the warpgroup: a (its 64 M rows) and b
+// (64 N rows) K-major chunk tiles in three parts, `pa` and `pb` bytes
+// apart; the part products smallest first, one wgmma chain, committed
+// (wait for it with wg_wait)
+// (the pairs a runtime loop, each descriptor its tile's plus an offset in
+// 16-byte units, so that the chain's descriptors are not all hoisted into
+// registers)
+__device__ __forceinline__ void hf_issue(float acc[32], const unsigned char* a,
+                                         int pa, const unsigned char* b,
+                                         int pb) {
+  const uint64_t da = sw128_desc(a), db = sw128_desc(b);
+  fence_acc(acc);
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll 1
+  for (int p = HF_PAIRS - 1; p >= 0; --p) {
+    const uint64_t ap = da + hf_pa(p) * (pa >> 4), bp = db + hf_pb(p) * (pb >> 4);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_64x64(acc, ap + 2 * kk, bp + 2 * kk, p < HF_PAIRS - 1 || kk > 0);
+  }
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// d (the warpgroup's 64 x 64, from zero) = f (A fragments of NK k-steps, in
+// three parts) . b (an MN-major chunk tile in three parts, k-step kk at
+// rows 16 (k0 + kk)): the part products smallest first, one register-A
+// chain, committed (wait with wg_wait)
+template <int NK>
+__device__ __forceinline__ void hf_rs(float d[32],
+                                      const uint32_t f[HF_PARTS][NK][4],
+                                      const unsigned char* b, int k0) {
+  const uint64_t db = mn_desc(b + k0 * 16 * 128);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) d[i] = 0.f;
+  fence_acc(d);
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int p = HF_PAIRS - 1; p >= 0; --p)
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk)
+      wgmma_rs<64>(d, f[hf_pa(p)][kk],
+                   db + ((hf_pb(p) * HF_PT + kk * 16 * 128) >> 4));
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// A fragments of NK k-steps from 8 NK accumulator floats v (n-tiles 2 kk
+// and 2 kk + 1 make k-step kk), split into parts
+template <int NK>
+__device__ __forceinline__ void hf_frags(uint32_t f[HF_PARTS][NK][4],
+                                         const float* v) {
+#pragma unroll
+  for (int kk = 0; kk < NK; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      uint32_t w[HF_PARTS];
+      split3(v[8 * kk + 2 * r], v[8 * kk + 2 * r + 1], w);
+#pragma unroll
+      for (int q = 0; q < HF_PARTS; ++q) f[q][kk][r] = w[q];
+    }
+}
+
+// P and dS of exchange item `pos` (n-tile j = pos / 128 of thread wt = pos
+// % 128: element e at row 16 (wt / 32) + (wt % 32) / 4 + 8 (e / 2), column
+// 8 j + 2 (wt % 4) + e % 2) from its totals s (S; S^T in a dK / dV block,
+// `kv`, whose rows are keys) and d (dP), masked entries 0; `rows` holds
+// the query tile's lse, then its delta
+__device__ __forceinline__ void hf_pds(float4& s, float4& d, const BwdArgs& a,
+                                       bool kv, int q0, int k0, bool full,
+                                       const float* rows, int pos) {
+  const int wt = pos % 128, lane = wt % 32;
+  const int row0 = 16 * (wt / 32) + lane / 4, col0 = 8 * (pos / 128)
+                                                    + 2 * (lane % 4);
+  float sv[4] = {s.x, s.y, s.z, s.w}, dv[4] = {d.x, d.y, d.z, d.w};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int m = row0 + 8 * (e >> 1), n = col0 + (e & 1);
+    const int qr = kv ? n : m, kr = kv ? m : n;
+    const bool ok = full || seen(a, q0 + qr, k0 + kr);
+    const float p = ok ? expf(sv[e] * a.scale - rows[qr]) : 0.f;
+    sv[e] = p;
+    dv[e] = p * (dv[e] - rows[HB_TILE + qr]);
+  }
+  s = make_float4(sv[0], sv[1], sv[2], sv[3]);
+  d = make_float4(dv[0], dv[1], dv[2], dv[3]);
+}
+
+// this warpgroup's partial (S in warpgroup 0, dP in 1) into the exchange
+// (every block's reads of the last step's items ended at its last
+// barrier); then a cluster barrier: the partials are published
+__device__ __forceinline__ void hf_publish(const float acc[32], float4* xch) {
+  const int wg = threadIdx.x / 128, wt = threadIdx.x % 128;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    xch[wg * HF_ITEMS + j * 128 + wt] =
+        make_float4(acc[4 * j], acc[4 * j + 1], acc[4 * j + 2], acc[4 * j + 3]);
+  cluster_arrive();
+  cluster_wait();
+}
+// the run of items block `me` owns: S and dP summed over the cluster's
+// `ranks` partials in rank order, P and dS from them written in their
+// place in every block's exchange (no other block reads or writes these
+// items until the barrier that ends this); then that barrier, after which
+// each block reads its P and dS from its own exchange
+__device__ __forceinline__ void hf_reduce(const BwdArgs& a, int ranks, int me,
+                                          float4* xch, bool kv, int q0,
+                                          int k0, bool full,
+                                          const float* rows) {
+  const int end = ((me + 1) * HF_ITEMS + ranks - 1) / ranks;
+  for (int pos = (me * HF_ITEMS + ranks - 1) / ranks + threadIdx.x;
+       pos < end; pos += 256) {
+    float4 s[HW_CLUSTER], d[HW_CLUSTER];
+#pragma unroll
+    for (int r = 0; r < HW_CLUSTER; ++r)
+      if (r < ranks) {
+        const float4* src = r == me ? xch : peer(xch, r);
+        s[r] = src[pos];
+        d[r] = src[HF_ITEMS + pos];
+      }
+#pragma unroll
+    for (int r = 1; r < HW_CLUSTER; ++r)
+      if (r < ranks) {
+        s[0].x += s[r].x; s[0].y += s[r].y; s[0].z += s[r].z;
+        s[0].w += s[r].w;
+        d[0].x += d[r].x; d[0].y += d[r].y; d[0].z += d[r].z;
+        d[0].w += d[r].w;
+      }
+    hf_pds(s[0], d[0], a, kv, q0, k0, full, rows, pos);
+#pragma unroll
+    for (int r = 0; r < HW_CLUSTER; ++r)
+      if (r < ranks) {
+        float4* dst = r == me ? xch : const_cast<float4*>(peer(xch, r));
+        dst[pos] = s[0];
+        dst[HF_ITEMS + pos] = d[0];
+      }
+  }
+  cluster_arrive();
+  cluster_wait();
+}
+// this thread's items of n-tiles [j0, j0 + NJ) of one half of the
+// exchange (0: P, 1: dS), into v
+template <int NJ>
+__device__ __forceinline__ void hf_gather(float* v, const float4* xch,
+                                          int half, int j0) {
+  const int wt = threadIdx.x % 128;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const float4 t = xch[half * HF_ITEMS + (j0 + j) * 128 + wt];
+    v[4 * j] = t.x; v[4 * j + 1] = t.y; v[4 * j + 2] = t.z;
+    v[4 * j + 3] = t.w;
+  }
+}
+// HW_READ: this thread's P (half 0) or dS (1) of n-tiles [j0, j0 + NJ)
+// from the global totals `tot` ([S, dP][query][key]), its element e of
+// n-tile j at offset at(j, e)
+template <int NJ, typename At>
+__device__ __forceinline__ void hf_read(float* v, const BwdArgs& a,
+                                        const float* tot, int half, int j0,
+                                        bool kv, int q0, int k0, bool full,
+                                        const float* rows, At at) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    float e4[2][4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      e4[0][e] = tot[at(j0 + j, e)];
+      e4[1][e] = tot[HB_TILE * HB_TILE + at(j0 + j, e)];
+    }
+    float4 s = make_float4(e4[0][0], e4[0][1], e4[0][2], e4[0][3]);
+    float4 d = make_float4(e4[1][0], e4[1][1], e4[1][2], e4[1][3]);
+    hf_pds(s, d, a, kv, q0, k0, full, rows, (j0 + j) * 128 + threadIdx.x % 128);
+    const float4 t = half ? d : s;
+    v[4 * j] = t.x; v[4 * j + 1] = t.y; v[4 * j + 2] = t.z;
+    v[4 * j + 3] = t.w;
+  }
+}
+
+// dV (warpgroup 0) and dK (1) of one (64-key tile, kv head, batch) over
+// column chunk cb.  Steps walk the group's G query heads and the query
+// tiles that see a key of the tile, as hw_dkdv; warpgroup 0 forms S^T's
+// partial K_c Q_c^T, warpgroup 1 dP^T's V_c dO_c^T; from the owners' P^T
+// and dS^T, dV_c += P^T dO_c (0) and dK_c += dS^T Q_c (1), each step's
+// product summed from zero and added in float32.  The next step's Q_c and
+// dO_c are loaded into registers a step ahead and split into the other
+// stage while this step's products run.
+template <int MODE>
+__device__ __forceinline__ void hf_dkdv(const BwdArgs& a, const HwArgs& x,
+                                        const HfSmem& sm, int kt, int kvh,
+                                        int b, int cb) {
+  const int wg = threadIdx.x / 128, wt = threadIdx.x % 128, w = wt / 32;
+  const int lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
+  const int k0 = kt * HB_TILE, G = a.H / a.KvH;
+  int qt_begin, qt_end;
+  query_tiles(a, k0, qt_begin, qt_end);
+  const int per_head = qt_end - qt_begin, n_steps = G * per_head;
+  auto head = [&](int i) { return kvh * G + i / per_head; };
+  auto tile = [&](int i) { return qt_begin + i % per_head; };
+  auto copy = [&](int i) {         // step i's Q_c and dO_c into the slots
+    hf_copy<HB_TILE>(sm.slots(0), a.q, b, a.Sq, a.H, head(i),
+                     tile(i) * HB_TILE, x.dh, cb);
+    hf_copy<HB_TILE>(sm.slots(1), a.dout, b, a.Sq, a.H, head(i),
+                     tile(i) * HB_TILE, x.dh, cb);
+  };
+  auto split = [&](unsigned char* t0, unsigned char* t1) {
+    hf_split<HB_TILE>(t0, sm.slots(0));
+    hf_split<HB_TILE>(t1, sm.slots(1));
+  };
+  hf_copy<HB_TILE>(sm.slots(0), a.k, b, a.Sk, a.KvH, kvh, k0, x.dh, cb);
+  hf_copy<HB_TILE>(sm.slots(1), a.v, b, a.Sk, a.KvH, kvh, k0, x.dh, cb);
+  cp_async_commit();
+  cp_async_wait_all();
+  split(sm.fixed(0), sm.fixed(1));
+  if (n_steps > 0) {
+    copy(0);
+    cp_async_commit();
+    cp_async_wait_all();
+    split(sm.stage(0, 0), sm.stage(0, 1));
+    stage_rows(sm.rows(0), a, b, head(0), tile(0) * HB_TILE);
+  }
+  if (n_steps > 1) copy(1);
+  cp_async_commit();
+
+  float out[32];                   // dV (warpgroup 0) or dK (1)
+#pragma unroll
+  for (int i = 0; i < 32; ++i) out[i] = 0.f;
+  // [query][key] offset of element e of n-tile j (S^T: keys are rows)
+  auto at = [&](int j, int e) {
+    return (8 * j + 2 * t4 + (e & 1)) * HB_TILE + 16 * w + g + 8 * (e >> 1);
+  };
+
+  for (int i = 0; i < n_steps; ++i) {
+    const int st = i & 1, h = head(i), qt = tile(i), q0 = qt * HB_TILE;
+    cp_async_wait_all();             // step i's rows, i + 1's slots landed
+    fence_proxy_async();             // step i's split tiles are visible to
+    __syncthreads();                 // wgmma, for every thread; i - 1 done
+    if (i + 1 < n_steps)
+      stage_rows(sm.rows(st ^ 1), a, b, head(i + 1), tile(i + 1) * HB_TILE);
+    cp_async_commit();
+    const bool full = all_seen(a, q0, k0);
+    float acc[32], tmp[32];
+    if constexpr (MODE != HW_READ)
+      hf_issue(acc, sm.fixed(wg), HF_PT, sm.stage(st, wg), HF_PT);
+    // while the partial runs: step i + 1's tiles split, i + 2's copied
+    if (i + 1 < n_steps) split(sm.stage(st ^ 1, 0), sm.stage(st ^ 1, 1));
+    if (i + 2 < n_steps) copy(i + 2);
+    cp_async_commit();
+    if constexpr (MODE != HW_READ) wg_wait<64>(acc, nullptr);
+    float* tot = MODE == HW_EXCHANGE ? nullptr : hw_tile(a, x, b, h, qt, kt);
+    if constexpr (MODE == HW_ADD) {  // totals += this block's partial
+      float* t = tot + wg * HB_TILE * HB_TILE;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) t[at(j, e)] += acc[4 * j + e];
+    } else {
+      float v[32];                   // P^T (warpgroup 0) or dS^T (1)
+      if constexpr (MODE == HW_EXCHANGE) {
+        hf_publish(acc, sm.xch());
+        hf_reduce(a, x.ncb, cb, sm.xch(), true, q0, k0, full, sm.rows(st));
+        hf_gather<8>(v, sm.xch(), wg, 0);
+      } else {
+        hf_read<8>(v, a, tot, wg, 0, true, q0, k0, full, sm.rows(st), at);
+      }
+      uint32_t f[HF_PARTS][4][4];
+      hf_frags<4>(f, v);
+      hf_rs<4>(tmp, f, sm.stage(st, 1 - wg), 0);
+      wg_wait<64>(tmp, nullptr);
+#pragma unroll
+      for (int e = 0; e < 32; ++e) out[e] += tmp[e];
+    }
+  }
+  cp_async_wait_all();             // nothing in flight at exit
+  if constexpr (MODE == HW_ADD) return;
+  const float mult = wg ? a.scale : 1.f;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = k0 + 16 * w + g + 8 * r;
+    if (key >= a.Sk) continue;
+    float* row = static_cast<float*>(wg ? a.dk : a.dv)
+        + ((size_t(b) * a.Sk + key) * a.KvH + kvh) * x.dh + HW_CHUNK * cb;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<float2*>(row + 8 * j + 2 * t4) =
+          make_float2(out[4 * j + 2 * r] * mult, out[4 * j + 2 * r + 1] * mult);
+  }
+}
+
+// dQ of one (64-row query tile, head, batch) over column chunk cb: steps
+// walk the kv tiles the rows see, as hw_dq; warpgroup 0 forms S's partial
+// Q_c K_c^T, warpgroup 1 dP's dO_c V_c^T; from the owners' dS, each
+// warpgroup adds dS K_c over its half of the tile's keys (32 w .. + 31)
+// into its own float32 sums, and the two halves are added once at the end.
+template <int MODE>
+__device__ __forceinline__ void hf_dq(const BwdArgs& a, const HwArgs& x,
+                                      const HfSmem& sm, int qt, int h, int b,
+                                      int cb) {
+  const int wg = threadIdx.x / 128, wt = threadIdx.x % 128, w = wt / 32;
+  const int lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
+  const int q0 = qt * HB_TILE, kvh = h / (a.H / a.KvH);
+  int kt_begin, kt_end;
+  kv_tiles(a, q0, kt_begin, kt_end);
+  const int n = kt_end - kt_begin;
+  auto copy = [&](int i) {         // step i's K_c and V_c into the slots
+    const int k0 = (kt_begin + i) * HB_TILE;
+    hf_copy<HB_TILE>(sm.slots(0), a.k, b, a.Sk, a.KvH, kvh, k0, x.dh, cb);
+    hf_copy<HB_TILE>(sm.slots(1), a.v, b, a.Sk, a.KvH, kvh, k0, x.dh, cb);
+  };
+  auto split = [&](unsigned char* t0, unsigned char* t1) {
+    hf_split<HB_TILE>(t0, sm.slots(0));
+    hf_split<HB_TILE>(t1, sm.slots(1));
+  };
+  hf_copy<HB_TILE>(sm.slots(0), a.q, b, a.Sq, a.H, h, q0, x.dh, cb);
+  hf_copy<HB_TILE>(sm.slots(1), a.dout, b, a.Sq, a.H, h, q0, x.dh, cb);
+  stage_rows(sm.rows(0), a, b, h, q0);
+  cp_async_commit();
+  cp_async_wait_all();
+  split(sm.fixed(0), sm.fixed(1));
+  if (n > 0) {
+    copy(0);
+    cp_async_commit();
+    cp_async_wait_all();
+    split(sm.stage(0, 0), sm.stage(0, 1));
+  }
+  if (n > 1) copy(1);
+  cp_async_commit();
+
+  float out[32];                   // dQ_c over this warpgroup's keys
+#pragma unroll
+  for (int i = 0; i < 32; ++i) out[i] = 0.f;
+  const int row0 = 16 * w + g;     // this thread's rows: + 8
+  const float* rows = sm.rows(0);
+
+  for (int i = 0; i < n; ++i) {
+    const int st = i & 1, kt = kt_begin + i, k0 = kt * HB_TILE;
+    cp_async_wait_all();             // step i + 1's slots have landed
+    fence_proxy_async();
+    __syncthreads();
+    const bool full = all_seen(a, q0, k0);
+    float v[16], tmp[32];            // dS of this warpgroup's keys
+    float acc[32];
+    if constexpr (MODE == HW_EXCHANGE)
+      hf_issue(acc, sm.fixed(wg), HF_PT, sm.stage(st, wg), HF_PT);
+    // while the partial runs: step i + 1's tiles split, i + 2's copied
+    if (i + 1 < n) split(sm.stage(st ^ 1, 0), sm.stage(st ^ 1, 1));
+    if (i + 2 < n) copy(i + 2);
+    cp_async_commit();
+    if constexpr (MODE == HW_EXCHANGE) {
+      wg_wait<64>(acc, nullptr);
+      hf_publish(acc, sm.xch());
+      hf_reduce(a, x.ncb, cb, sm.xch(), false, q0, k0, full, rows);
+      hf_gather<4>(v, sm.xch(), 1, 4 * wg);
+    } else {
+      hf_read<4>(v, a, hw_tile(a, x, b, h, qt, kt), 1, 4 * wg, false, q0, k0,
+                 full, rows, [&](int j, int e) {
+                   return (row0 + 8 * (e >> 1)) * HB_TILE + 8 * j + 2 * t4
+                          + (e & 1);
+                 });
+    }
+    uint32_t f[HF_PARTS][2][4];
+    hf_frags<2>(f, v);
+    hf_rs<2>(tmp, f, sm.stage(st, 0), 2 * wg);
+    wg_wait<64>(tmp, nullptr);
+#pragma unroll
+    for (int e = 0; e < 32; ++e) out[e] += tmp[e];
+  }
+  cp_async_wait_all();
+  // dQ_c = warpgroup 0's sums + warpgroup 1's, through the fixed Q tile
+  float4* half = reinterpret_cast<float4*>(sm.fixed(0));
+  if (wg == 1)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      half[j * 128 + wt] = make_float4(out[4 * j], out[4 * j + 1],
+                                       out[4 * j + 2], out[4 * j + 3]);
+  __syncthreads();
+  if (wg == 1) return;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float4 t = half[j * 128 + wt];
+    out[4 * j] += t.x; out[4 * j + 1] += t.y; out[4 * j + 2] += t.z;
+    out[4 * j + 3] += t.w;
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + row0 + 8 * r;
+    if (qi >= a.Sq) continue;
+    float* row = static_cast<float*>(a.dq)
+        + ((size_t(b) * a.Sq + qi) * a.H + h) * x.dh + HW_CHUNK * cb;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<float2*>(row + 8 * j + 2 * t4) =
+          make_float2(out[4 * j + 2 * r] * a.scale,
+                      out[4 * j + 2 * r + 1] * a.scale);
+  }
+}
+
+// flash_bwd_hw's items, one chunk a column block; an instance a mode
+// (HwMode), so that no wgmma chain spans a branch on it
+template <int MODE>
+__global__ void __launch_bounds__(256, 1) flash_bwd_hf(BwdArgs a, HwArgs x) {
+  extern __shared__ float4 smem4[];
+  const HfSmem sm(smem4);
+  const int per = MODE == HW_ADD ? 1 : x.ncb;
+  const int id = blockIdx.x / per;
+  const int cb = MODE == HW_ADD ? x.cb : int(blockIdx.x % per);
+  const int n_kv = (a.Sk + HB_TILE - 1) / HB_TILE * a.KvH * a.B;
+  if (id < n_kv) {
+    const int kt = id / (a.KvH * a.B), rest = id % (a.KvH * a.B);
+    hf_dkdv<MODE>(a, x, sm, kt, rest % a.KvH, rest / a.KvH, cb);
+  } else if constexpr (MODE != HW_ADD) {
+    const int j = id - n_kv, nq = (a.Sq + HB_TILE - 1) / HB_TILE;
+    const int qt = nq - 1 - j / (a.H * a.B), rest = j % (a.H * a.B);
+    hf_dq<MODE>(a, x, sm, qt, rest % a.H, rest / a.H, cb);
+  }
+}
+
+// one launch of `kernel` (flash_bwd_hw or flash_bwd_hf) over `blocks`
+// blocks in clusters of `cluster`
+int launch_hw(void (*kernel)(BwdArgs, HwArgs), int smem, const BwdArgs& a,
+              const HwArgs& x, size_t blocks, int cluster, cudaStream_t s) {
   if (blocks > 0x7fffffffu) return int(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return int(err);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(unsigned(blocks));
   cfg.blockDim = dim3(256);
-  cfg.dynamicSmemBytes = HW_SMEM_BYTES;
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = s;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -1894,38 +2118,44 @@ int launch_hw(const BwdArgs& a, const HwArgs& x, size_t blocks, int cluster,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, flash_bwd_hw, a, x);
+  err = cudaLaunchKernelEx(&cfg, kernel, a, x);
   return int(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 // delta, then one launch of clusters of ncb blocks (ncb <= 8), or ncb
 // launches adding each column block's partials into the totals (after
 // `delta`'s B H Sq floats in the wrapper's zeroed scratch) and one
-// reading them
-int launch_bwd_hw(const BwdArgs& a, int dh, cudaStream_t s) {
+// reading them.  bf16: flash_bwd_hw, column blocks of 2-4 chunks;
+// float32: flash_bwd_hf, one chunk a column block
+template <typename T>
+int launch_bwd_wide(const BwdArgs& a, int dh, cudaStream_t s) {
+  constexpr bool BF16 = std::is_same_v<T, __nv_bfloat16>;
+  using Kernel = void (*)(BwdArgs, HwArgs);
+  const Kernel kernels[3] = {
+      BF16 ? flash_bwd_hw : flash_bwd_hf<HW_EXCHANGE>,
+      BF16 ? flash_bwd_hw : flash_bwd_hf<HW_ADD>,
+      BF16 ? flash_bwd_hw : flash_bwd_hf<HW_READ>};   // by HwMode
+  const int smem = BF16 ? HW_SMEM_BYTES : HF_SMEM_BYTES;
+  const int chunks = BF16 ? HW_MAX_CHUNKS : 1;    // a column block's, at most
   const size_t rows = size_t(a.B) * a.Sq * a.H;
-  flash_bwd_delta<__nv_bfloat16><<<unsigned((rows + 7) / 8), THREADS, 0, s>>>(
-      a, dh);
-  cudaError_t err = cudaGetLastError();
+  flash_bwd_delta<T><<<unsigned((rows + 7) / 8), THREADS, 0, s>>>(a, dh);
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
-  err = cudaFuncSetAttribute(flash_bwd_hw,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             HW_SMEM_BYTES);
-  if (err != cudaSuccess) return int(err);
-  HwArgs x{dh, dh / HW_CHUNK, (dh / HW_CHUNK + HW_MAX_CHUNKS - 1)
-                                  / HW_MAX_CHUNKS, HW_EXCHANGE, 0, nullptr};
+  HwArgs x{dh, dh / HW_CHUNK, (dh / HW_CHUNK + chunks - 1) / chunks,
+           HW_EXCHANGE, 0, nullptr};
   const size_t n_kv = size_t((a.Sk + HB_TILE - 1) / HB_TILE) * a.KvH * a.B;
   const size_t n_q = size_t((a.Sq + HB_TILE - 1) / HB_TILE) * a.H * a.B;
   if (x.ncb <= HW_CLUSTER)
-    return launch_hw(a, x, x.ncb * (n_kv + n_q), x.ncb, s);
+    return launch_hw(kernels[HW_EXCHANGE], smem, a, x, x.ncb * (n_kv + n_q),
+                     x.ncb, s);
   x.tot = a.delta + rows;
   x.mode = HW_ADD;
   for (x.cb = 0; x.cb < x.ncb; ++x.cb) {
-    const int e = launch_hw(a, x, n_kv, 1, s);
+    const int e = launch_hw(kernels[HW_ADD], smem, a, x, n_kv, 1, s);
     if (e != 0) return e;
   }
   x.mode = HW_READ;
-  return launch_hw(a, x, x.ncb * (n_kv + n_q), 1, s);
+  return launch_hw(kernels[HW_READ], smem, a, x, x.ncb * (n_kv + n_q), 1, s);
 }
 
 template <typename T>
@@ -1937,7 +2167,7 @@ int launch_dtype(const BwdArgs& a, int dh, cudaStream_t s) {
       case 128: return launch_bwd_hb<128>(a, dh, s);
       case 256: return launch_bwd_hb<256>(a, dh, s);
     }
-    if (dh > 256 && dh % HW_CHUNK == 0) return launch_bwd_hw(a, dh, s);
+    if (dh > 256 && dh % HW_CHUNK == 0) return launch_bwd_wide<T>(a, dh, s);
     return int(cudaErrorInvalidValue);
   } else {
     switch (dh) {
@@ -1946,7 +2176,7 @@ int launch_dtype(const BwdArgs& a, int dh, cudaStream_t s) {
       case 128: return launch_bwd<T, 128>(a, dh, s);
       case 256: return launch_bwd<T, 256>(a, dh, s);
     }
-    if (dh > 256 && dh % WIDE_SLICE == 0) return launch_bwd_wide<T>(a, dh, s);
+    if (dh > 256 && dh % HW_CHUNK == 0) return launch_bwd_wide<T>(a, dh, s);
     return int(cudaErrorInvalidValue);
   }
 }

@@ -24,18 +24,19 @@ TPU kernel takes.  The kernels are built for the widths `HEAD_DIMS`
 (phi-3-vision's heads are 96 wide, gemma3's 256); a narrower head (the
 smoke configs' 8 and 16, the reference sweep's 32) is zero-padded to the
 next of them (`kernel_width`) and the outputs sliced back.  A wider head
-is zero-padded to a multiple of `WIDE_SLICE` and runs on the wide kernels,
-each block owning up to `WIDE_OW` output columns: in bf16 a cluster of
-`wide_bwd_blocks` column blocks (the backward's blocks) on the tensor
-cores, each forming partial scores over its own columns and summing the
-cluster's partials in rank order (past `WIDE_BWD_CLUSTER` blocks, Dh >
-2048, no cluster: each block forms the scores over the whole head); in
-float32 blocks that each form the scores over the whole head in 64-column
-slices.  Both keep the built widths' (query rows, keys) tiles.  The
-padded columns add exact zeros to every product, so the scores, the row
+is zero-padded to a multiple of `WIDE_SLICE` and runs on the wide kernels:
+a cluster of column blocks on the tensor cores, each forming partial
+scores over its own columns, the cluster's partials summed in rank order
+(past `WIDE_BWD_CLUSTER` blocks no cluster: each block forms the scores
+over the whole head).  bf16 deals the head into `wide_bwd_blocks` blocks
+of 2-4 chunks of 64 columns (Dh <= 2048 in a cluster); float32
+(`wide_f32_blocks`) into blocks of 1-2 chunks (Dh <= 1024 in a cluster)
+and splits every float32 operand into three bf16 parts, whose six part
+products hold every bit of a float32 product.  Both run `WIDE_TILES`.  The padded
+columns add exact zeros to every product, so the scores, the row
 log-sum-exp and the kept columns are the true width's; the scale is the
-true width's 1 / sqrt(Dh).  A width the kernels are built for launches as it is.  The
-output has q's dtype.  `LAUNCHES` counts forward kernel launches (the
+true width's 1 / sqrt(Dh).  A width the kernels are built for launches as
+it is.  The output has q's dtype.  `LAUNCHES` counts forward kernel launches (the
 plain version never bumps it).
 
 The gradient.  The reference differentiates its attention in XLA,
@@ -47,8 +48,9 @@ autograd needs a gradient (grad mode on and an input requiring one), the
 dispatch sends CUDA tensors through `FlashAttention`, an autograd
 function whose forward is the kernel with that output and whose backward
 is the backward kernel; otherwise it launches the forward alone, as
-serving does.  `BWD_LAUNCHES` counts backward calls (two kernels each
-in bf16, three in float32).  `flash_attention_lse_plain` and `flash_attention_bwd_plain` are
+serving does.  `BWD_LAUNCHES` counts backward calls (two kernels each,
+three in float32 at the built widths, more in the passes past a
+cluster).  `flash_attention_lse_plain` and `flash_attention_bwd_plain` are
 their plain versions: the latter runs the same recurrence on the
 backward kernel's tiles (`BWD_TILES`) and is held to autograd of the
 plain forward by the CPU tests.  The backward kernel runs bf16 on the
@@ -56,8 +58,11 @@ tensor cores (every product a wgmma chain, P and dS rounded to bf16
 once): at the built widths in blocks of 64 rows, above 256 in clusters of
 `wide_bwd_blocks` column blocks that exchange their partial scores (past
 `WIDE_BWD_CLUSTER` blocks, Dh > 2048, in passes through float32 totals in
-the scratch, `bwd_scratch_floats`); float32 runs on the CUDA cores.
-Every sum runs in a fixed order, so a call repeats bit for bit.
+the scratch, `bwd_scratch_floats`).  float32 runs on the CUDA cores at the
+built widths and, above 256, on the tensor cores in clusters of
+`wide_f32_blocks` column blocks of one chunk with its operands split into
+three bf16 parts (past a cluster, Dh > 512, in passes through the
+totals).  Every sum runs in a fixed order, so a call repeats bit for bit.
 """
 from __future__ import annotations
 
@@ -72,29 +77,33 @@ from .build import launch as _call, pad_cols as _pad_cols
 
 HEAD_DIMS = (64, 96, 128, 256)   # head widths the kernels are built for
 # wider heads run on the wide kernels, padded to a multiple of WIDE_SLICE
-# (their q.k slices), in output column blocks of up to WIDE_OW columns
-WIDE_SLICE, WIDE_OW = 64, 256
+# (their 64-column chunks, a 128-byte line of bf16)
+WIDE_SLICE = 64
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# (query rows, keys) of the kernel's tiles, by dtype: F32_BQ / F32_BK and
-# BF_BQ / BF_BK in csrc/flash_attention.cu, the wide kernels' too (bf16:
-# FW_ROWS / FW_BK, a block's two warpgroups of 64 rows)
+# (query rows, keys) of the kernel's tiles at the built widths, by dtype:
+# F32_BQ / F32_BK and BF_BQ / BF_BK in csrc/flash_attention.cu
 TILES = {torch.float32: (64, 64), torch.bfloat16: (128, 64)}
+# ... and past Dh 256, both dtypes: FW_ROWS / FW_BK (a block's two
+# warpgroups of 64 rows), the query tiles on a grid axis of their own
+WIDE_TILES = {torch.float32: (128, 64), torch.bfloat16: (128, 64)}
 
 # (query rows, keys) of the backward's tiles by dtype and head width: bf16
 # 64 x 64 at every width (HB_TILE in csrc/flash_attention_bwd.cu, the wide
-# kernel's too), float32 BQ x bwd_bk<DH> (64 x 32 at Dh 256) and, on the
-# wide kernels ("wide"), 64 x WIDE_BK
+# kernels' too), float32 BQ x bwd_bk<DH> (64 x 32 at Dh 256) and, on the
+# wide kernel ("wide"), HB_TILE's 64 x 64
 BWD_TILES = {torch.bfloat16: {64: (64, 64), 96: (64, 64), 128: (64, 64),
                               256: (64, 64), "wide": (64, 64)},
              torch.float32: {64: (64, 64), 96: (64, 64), 128: (64, 64),
-                             256: (64, 32), "wide": (64, 32)}}
+                             256: (64, 32), "wide": (64, 64)}}
 # the grid dimensions the card launches at most (y and z)
 MAX_GRID_YZ = 65535
-# the bf16 kernels past Dh 256: column blocks of up to WIDE_BWD_CHUNKS
-# 64-column chunks, at most WIDE_BWD_CLUSTER of them in one cluster (the
-# portable limit); more run, backward, in passes through totals in the
-# scratch and, forward, without a cluster
+# the kernels past Dh 256: column blocks of up to WIDE_BWD_CHUNKS 64-column
+# chunks in bf16 (float32: WIDE_F32_FWD_CHUNKS forward, one backward), at
+# most WIDE_BWD_CLUSTER of them in one cluster (the portable limit); more
+# run, backward, in passes through totals in the scratch and, forward,
+# without a cluster
 WIDE_BWD_CHUNKS, WIDE_BWD_CLUSTER = 4, 8
+WIDE_F32_FWD_CHUNKS = 2
 
 LAUNCHES = 0                # forward kernel launches in this process
 BWD_LAUNCHES = 0            # backward kernel calls (two or three launches)
@@ -272,15 +281,31 @@ def wide_bwd_blocks(width: int) -> int:
     return -(-(width // WIDE_SLICE) // WIDE_BWD_CHUNKS)
 
 
+def wide_f32_blocks(width: int, forward: bool = False) -> int:
+    """Column blocks of the float32 kernels at a padded head `width` past
+    256: the backward's one 64-column chunk each, the forward's 1-2 (its
+    chunks dealt into blocks of at most `WIDE_F32_FWD_CHUNKS`); the
+    cluster size up to `WIDE_BWD_CLUSTER`."""
+    chunks = width // WIDE_SLICE
+    return -(-chunks // WIDE_F32_FWD_CHUNKS) if forward else chunks
+
+
+def wide_blocks(width: int, dtype, forward: bool = False) -> int:
+    """Column blocks of the wide kernels at a padded `width` past 256, of
+    the backward or the `forward`."""
+    return wide_bwd_blocks(width) if dtype == torch.bfloat16 else \
+        wide_f32_blocks(width, forward)
+
+
 def bwd_scratch_floats(B: int, Sq: int, Sk: int, H: int, width: int,
                        dtype) -> int:
     """Floats of the backward's scratch: each row's delta (B H Sq) and,
-    for a bf16 head of more column blocks than a cluster holds, float32
-    S and dP totals of every pair of 64-row tiles (B H nq nk 2 64 64),
-    which the passes add into and so want zeroed."""
+    for a head of more column blocks than a cluster holds, float32 S and
+    dP totals of every pair of 64-row tiles (B H nq nk 2 64 64), which
+    the passes add into and so want zeroed."""
     n = B * H * Sq
-    if dtype == torch.bfloat16 and width not in HEAD_DIMS and \
-            wide_bwd_blocks(width) > WIDE_BWD_CLUSTER:
+    if width not in HEAD_DIMS and wide_blocks(width, dtype) > \
+            WIDE_BWD_CLUSTER:
         n += B * H * -(-Sq // 64) * -(-Sk // 64) * 2 * 64 * 64
     return n
 
@@ -294,13 +319,13 @@ def _kernel_args(window, scale, Dh, *ts):
     if window is not None and window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
     B, Sq, H, _ = ts[0].shape
-    # bf16 puts its query tiles on a grid axis of their own
-    tiles = -(-Sq // TILES[torch.bfloat16][0]) \
-        if ts[0].dtype == torch.bfloat16 else 1
-    if max(B, H, -(-width // WIDE_OW), tiles) > MAX_GRID_YZ:
+    # bf16, and float32 past Dh 256, put the forward's query tiles on a
+    # grid axis of their own
+    tiles = -(-Sq // WIDE_TILES[ts[0].dtype][0]) \
+        if ts[0].dtype == torch.bfloat16 or width not in HEAD_DIMS else 1
+    if max(B, H, tiles) > MAX_GRID_YZ:
         raise ValueError(f"flash_attention on the card: B = {B}, H = {H}, "
-                         f"{tiles} query tiles, {-(-width // WIDE_OW)} "
-                         f"column blocks; a grid dimension above "
+                         f"{tiles} query tiles; a grid dimension above "
                          f"{MAX_GRID_YZ} does not launch")
     scale = scale if scale is not None else 1.0 / math.sqrt(Dh)
     # the bf16 kernel copies 16-byte rows with cp.async: a view that starts
@@ -340,8 +365,9 @@ def _flash_cuda(q, k, v, *, causal=True, window=None, scale=None,
 
 def _flash_bwd_cuda(q, k, v, o, do, lse, *, causal=True, window=None,
                     scale=None):
-    """Launch csrc/flash_attention_bwd.cu (three kernels in float32, two
-    in bf16, more past Dh 2048) on the current stream (no sync); returns
+    """Launch csrc/flash_attention_bwd.cu (two kernels; three in float32
+    at the built widths; more past a cluster, Dh > 2048 in bf16 or 512 in
+    float32) on the current stream (no sync); returns
     (dq, dk, dv) in the inputs' dtype.  A padded head pads o and dO with
     zeros too, so the row sums of dO o O are the true width's."""
     global BWD_LAUNCHES

@@ -5,11 +5,11 @@ at any p past 64 and any n past 128.
 - The plain flash forward at Dh 320 and 512 against the Pallas kernel in
   interpret mode (`repro.kernels.ops`), at the reference's tolerances
   (`tests/test_kernels.py`: float32 2e-5, bf16 2e-2); its plain backward
-  against `jax.grad` of `ref.flash_attention_ref`, on the float32 wide
-  kernels' tiles and on the bf16 one's (64 x 64, pinned); the plain
-  forward on the bf16 wide forward's tile (128 x 64, the built widths')
-  against the Pallas kernel at Dh 320, 512 and 576, and the wrapper's
-  grid check at that tile.
+  against `jax.grad` of `ref.flash_attention_ref`, on the wide kernels'
+  tiles (64 x 64 in both dtypes, pinned); the plain forward on the wide
+  forward's tile (128 x 64, the bf16 built widths') against the Pallas
+  kernel at Dh 320, 512 and 576, and the wrapper's grid check at that
+  tile in both dtypes.
 - The SSD's block decomposition (`ssd_blocked` / `ssd_blocked_bwd`, what
   the card runs, handed the plain version for its blocks) against the
   Pallas kernel, against `jax.grad` of `repro.nn.ssd.ssd_chunked` and, in
@@ -20,8 +20,9 @@ at any p past 64 and any n past 128.
   version at the width it is handed (`tests/test_torch_kernel_widths.py`'s
   helpers): a wide call reaches the launch, counted, at the padded head
   or in the SSD's blocks, and never the plain version (Dh 2100, padded
-  to 2112: nine column blocks, past a cluster); the bf16 backward's
-  column blocks and scratch (totals past Dh 2048).
+  to 2112: nine column blocks, past a cluster); the backward's column
+  blocks and scratch in both dtypes (totals past Dh 2048 in bf16, past
+  Dh 512 in float32).
 """
 import dataclasses
 
@@ -107,7 +108,7 @@ def test_flash_bwd_plain_matches_jax_grad_past_256(B, Sq, Sk, H, KvH, Dh,
     got = fa.flash_attention_bwd_plain(
         q, k, v, PLAIN_FLASH(q, k, v, **mask), do,
         fa.flash_attention_lse_plain(q, k, **mask), **mask)
-    assert fa.BWD_TILES[torch.float32]["wide"] == (64, 32)
+    assert fa.BWD_TILES[torch.float32]["wide"] == (64, 64)
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         b = np.asarray(b, np.float32)
         assert a.shape == b.shape, name
@@ -195,25 +196,31 @@ def test_flash_plain_on_the_bf16_wide_tiles_matches_pallas(B, Sq, Sk, H,
 
 @pytest.mark.parametrize("Dh", [320, 2100])
 def test_wide_bf16_forward_grid_check_at_its_tile(Dh):
-    """The bf16 wide forward's query tiles (`TILES`' 128 rows) lie on a
-    grid axis of at most `MAX_GRID_YZ` (its column blocks ride with the
-    (batch, head) pairs on the other): an Sq of exactly that many tiles
-    passes the wrapper's check, one row more raises before any launch, at
-    one column block a cluster holds and past them (Dh 2100 -> 2112, nine
-    blocks).  Meta tensors: nothing is allocated."""
-    bq = fa.TILES[torch.bfloat16][0]
+    """The wide forward's query tiles (`WIDE_TILES`' 128 rows, both
+    dtypes) lie on a grid axis of at most `MAX_GRID_YZ` (its column blocks
+    ride with the (batch, head) pairs on the other): an Sq of exactly that
+    many tiles passes the wrapper's check, one row more raises before any
+    launch, at column blocks a cluster holds and past them (Dh 2100 ->
+    2112: nine bf16 blocks, 33 float32 ones).  The float32 kernel at a
+    built width keeps its query tiles on the x axis: no such limit there.
+    Meta tensors: nothing is allocated."""
     width = fa.kernel_width(Dh)
     assert fa.wide_bwd_blocks(width) == (2 if Dh == 320 else 9)
+    assert fa.wide_f32_blocks(width) == width // 64
+    assert fa.wide_f32_blocks(width, forward=True) == (3 if Dh == 320 else 17)
 
-    def q(rows):
-        return torch.empty((1, rows, 1, Dh), dtype=torch.bfloat16,
-                           device="meta")
-    scale, (padded,) = fa._kernel_args(None, None, Dh, q(fa.MAX_GRID_YZ * bq))
-    assert padded.shape[3] == width and scale == 1.0 / np.sqrt(Dh)
-    with pytest.raises(ValueError, match="grid dimension above 65535"):
-        fa._kernel_args(None, None, Dh, q(fa.MAX_GRID_YZ * bq + 1))
-    # float32 keeps its query tiles on the x axis: no such limit
-    fa._kernel_args(None, None, Dh, q(fa.MAX_GRID_YZ * bq + 1).float())
+    def q(rows, dtype, d=Dh):
+        return torch.empty((1, rows, 1, d), dtype=dtype, device="meta")
+    for dtype in (torch.bfloat16, torch.float32):
+        bq = fa.WIDE_TILES[dtype][0]
+        assert bq == 128
+        scale, (padded,) = fa._kernel_args(None, None, Dh,
+                                           q(fa.MAX_GRID_YZ * bq, dtype))
+        assert padded.shape[3] == width and scale == 1.0 / np.sqrt(Dh)
+        with pytest.raises(ValueError, match="grid dimension above 65535"):
+            fa._kernel_args(None, None, Dh, q(fa.MAX_GRID_YZ * bq + 1, dtype))
+    fa._kernel_args(None, None, 256,
+                    q(fa.MAX_GRID_YZ * 128 + 1, torch.float32, 256))
 
 
 # ---------------------------------------------------------------------------
@@ -422,6 +429,108 @@ def test_wide_bf16_bwd_blocks_and_scratch_on_the_card_route(monkeypatch, Dh,
         assert float((a - w).abs().max()) <= 2.0 ** -7 * float(w.abs().max())
 
 
+@pytest.mark.parametrize("Dh,width,blocks", [(257, 320, 5), (512, 512, 8),
+                                             (576, 576, 9), (2100, 2112, 33)])
+def test_wide_f32_bwd_blocks_and_scratch_on_the_card_route(monkeypatch, Dh,
+                                                           width, blocks):
+    """The float32 backward past Dh 256 runs clusters of `wide_f32_blocks`
+    column blocks (one 64-column chunk each, at most 8 a cluster: Dh <=
+    512); past 8 (the passes) the wrapper's scratch holds, after each
+    row's delta, float32 S and dP totals of every pair of 64-row tiles,
+    zeroed.  The gradients are the plain version's at the true width
+    within the float32 tolerance (1e-5 of the largest magnitude)."""
+    seen = []
+
+    def call(fn, tensors, args, what):
+        q, k, v, o, do, lse, scratch, dq, dk, dv = tensors
+        _, _, _, _, _, Dh_k, causal, window, scale, dtype = args
+        seen.append((fn, Dh_k, dtype, scratch.clone()))
+        for d, w in zip((dq, dk, dv), fa.flash_attention_bwd_plain(
+                q, k, v, o, do, lse, causal=bool(causal),
+                window=None if window < 0 else window, scale=scale)):
+            d.copy_(w)
+
+    monkeypatch.setattr(fa, "_bwd_lib", lambda: "backward")
+    monkeypatch.setattr(fa, "_call", call)
+    B, Sq, Sk, H, KvH = 1, 70, 130, 2, 1
+    q, k, v, do = _qkv(Dh, B, Sq, Sk, H, KvH, Dh)[1]
+    mask = dict(causal=False, window=None)
+    o = PLAIN_FLASH(q, k, v, **mask)
+    lse = fa.flash_attention_lse_plain(q, k, **mask)
+    before = fa.BWD_LAUNCHES
+    got = fa._flash_bwd_cuda(q, k, v, o, do, lse, **mask)
+    assert fa.BWD_LAUNCHES == before + 1
+    fn, Dh_k, dtype, scratch = seen[-1]
+    assert (fn, Dh_k, dtype) == ("backward", width, 0)
+    assert fa.wide_f32_blocks(width) == blocks
+    assert fa.wide_blocks(width, torch.float32) == blocks
+    totals = B * H * 2 * 3 * 2 * 64 * 64 if blocks > fa.WIDE_BWD_CLUSTER \
+        else 0
+    assert scratch.numel() == B * H * Sq + totals
+    assert fa.bwd_scratch_floats(B, Sq, Sk, H, width, torch.float32) == \
+        scratch.numel()
+    if totals:
+        assert not bool(scratch.any())
+    for a, w in zip(got, fa.flash_attention_bwd_plain(q, k, v, o, do, lse,
+                                                      **mask)):
+        assert a.shape == w.shape and a.dtype == torch.float32
+        assert float((a - w).abs().max()) <= REL * float(w.abs().max())
+
+
+@pytest.mark.parametrize("width,dtype,floats", [
+    (512, torch.float32, 0), (576, torch.float32, 1),
+    (2048, torch.bfloat16, 0), (2112, torch.bfloat16, 1),
+    (256, torch.float32, 0), (256, torch.bfloat16, 0)])
+def test_bwd_scratch_counts_totals_past_a_cluster(width, dtype, floats):
+    """`bwd_scratch_floats`: B H Sq delta floats, and S and dP totals of
+    every pair of 64-row tiles exactly where the wide kernel runs in
+    passes: past 8 one-chunk float32 blocks (Dh > 512) or 8 bf16 blocks of
+    up to four chunks (Dh > 2048), never at a built width."""
+    B, Sq, Sk, H = 2, 100, 200, 3
+    totals = B * H * 2 * 4 * 2 * 64 * 64
+    assert fa.bwd_scratch_floats(B, Sq, Sk, H, width, dtype) == \
+        B * H * Sq + floats * totals
+    if width not in fa.HEAD_DIMS:
+        assert (fa.wide_blocks(width, dtype) > fa.WIDE_BWD_CLUSTER) == \
+            bool(floats)
+
+
+# float32 shapes past the wide kernels' 64 x 64 tiles' edges: a ragged
+# Sq and Sk on both sides, a window across tiles, Sq > Sk, one tile
+F32_BWD_TILE_CASES = [
+    (1, 130, 70, 2, 1, 320, False, None),
+    (1, 150, 150, 2, 2, 384, True, 40),
+    (2, 64, 64, 2, 1, 448, True, None),
+]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KvH,Dh,causal,window", F32_BWD_TILE_CASES)
+def test_flash_bwd_plain_on_the_f32_wide_tiles_matches_jax_grad(
+        B, Sq, Sk, H, KvH, Dh, causal, window):
+    """`flash_attention_bwd_plain` on the float32 wide kernel's tiles
+    (`BWD_TILES[float32]["wide"]`: 64 x 64, the kernel's HB_TILE) against
+    `jax.grad` of the reference's attention at the float32 tolerance
+    (1e-5 of each gradient's largest magnitude), at shapes whose edges
+    cut those tiles."""
+    assert fa.BWD_TILES[torch.float32]["wide"] == (64, 64)
+    (jq, jk, jv), (q, k, v, do) = _qkv(Sq + Dh + 4, B, Sq, Sk, H, KvH, Dh)
+    w = jnp.asarray(do.numpy())
+    mask = dict(causal=causal, window=window)
+
+    def loss(q_, k_, v_):
+        return jnp.sum(ref.flash_attention_ref(q_, k_, v_, **mask) * w)
+    want = jax.grad(loss, argnums=(0, 1, 2))(jq, jk, jv)
+    got = fa.flash_attention_bwd_plain(
+        q, k, v, PLAIN_FLASH(q, k, v, **mask), do,
+        fa.flash_attention_lse_plain(q, k, **mask), **mask)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        b = np.asarray(b, np.float32)
+        assert a.shape == b.shape, name
+        np.testing.assert_allclose(a.numpy(), b, rtol=0,
+                                   atol=REL * float(np.abs(b).max()),
+                                   err_msg=name)
+
+
 @pytest.mark.parametrize("p,n,s", [(128, 256, 70), (80, 192, 600),
                                    (65, 129, 600)])
 def test_wide_ssd_on_the_card_route(monkeypatch, p, n, s):
@@ -460,3 +569,36 @@ def test_wide_ssd_on_the_card_route(monkeypatch, p, n, s):
     for name, a, w in zip(("x", "dt", "A", "B", "C"), leaves, grads):
         assert a.grad.shape == w.shape, name
         _rel_close(a.grad, w, "d" + name)
+
+
+# ---------------------------------------------------------------------------
+# scripts/kernel_probe.py's variants: each edit still finds its source text
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("source,table", [
+    ("flash_attention", "FWD_VARIANTS"),
+    ("flash_attention", "FWD_F32_VARIANTS"),
+    ("flash_attention_bwd", "BWD_VARIANTS"),
+    ("flash_attention_bwd", "BWD_F32_VARIANTS")])
+def test_kernel_probe_variant_edits_apply(source, table):
+    """`flash-wide-variants` / `flash-bwd-variants` (and their float32
+    forms) build copies of a CUDA source with one part of a step dropped
+    or changed by text edits, and stop on an edit whose text the source no
+    longer holds: every edit of every variant applies to the sources as
+    they stand.  Runs on the CPU: it only reads the sources."""
+    import importlib
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    sys.path.insert(0, str(root / "scripts"))
+    try:
+        probe = importlib.import_module("kernel_probe")
+    finally:
+        sys.path.remove(str(root / "scripts"))
+    text = (root / "src" / "repro_torch" / "csrc" / f"{source}.cu") \
+        .read_text()
+    variants = getattr(probe, table)
+    assert "as built" in variants and len(variants) > 5
+    for name, edits in variants.items():
+        for old, _ in edits:
+            assert old in text, f"{table} {name!r}: {old[:60]!r}"

@@ -1272,6 +1272,93 @@ def test_flash_wide_bf16_bwd_matches_plain_version(cuda, B, Sq, Sk, H, KvH,
         assert ctrl > BWD_TOL[torch.float32], ctrl
 
 
+@pytest.mark.parametrize("B,Sq,Sk,H,KvH,Dh,causal,window",
+                         WIDE_FLASH_CASES + [(1, 150, 150, 2, 1, 2100, True,
+                                              None)])
+def test_flash_wide_f32_forward_repeats_and_its_lse(cuda, B, Sq, Sk, H, KvH,
+                                                    Dh, causal, window):
+    """The float32 forward past Dh 256 (clusters of column blocks of one or
+    two chunks on the tensor cores, every operand split into three bf16
+    parts; past 8 blocks none, Dh 2100 -> 2112): within the float32
+    tolerance of the plain version, a repeat bit-equal, asking for the
+    row lse leaves o as the serving launch writes it, and the lse (column
+    block 0's) within 1e-5 of `flash_attention_lse_plain`."""
+    f32 = torch.float32
+    q = _randn(0, (B, Sq, H, Dh), f32, cuda)
+    k, v = (_randn(i, (B, Sk, KvH, Dh), f32, cuda) for i in (1, 2))
+    mask = dict(causal=causal, window=window)
+    runs = [fa._flash_cuda(q, k, v, lse=True, **mask) for _ in range(2)]
+    served = fa._flash_cuda(q, k, v, **mask)
+    want = fa.flash_attention_plain(q, k, v, **mask)
+    want_lse = fa.flash_attention_lse_plain(q, k, **mask)
+    torch.cuda.synchronize()
+    (o, lse), (o2, lse2) = runs
+    atol, rtol = FLASH_TOL[f32]
+    torch.testing.assert_close(o, want, atol=atol, rtol=rtol)
+    assert torch.equal(o.view(torch.int32), o2.view(torch.int32))
+    assert torch.equal(o.view(torch.int32), served.view(torch.int32))
+    assert torch.equal(lse.view(torch.int32), lse2.view(torch.int32))
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KvH,Dh,causal,window",
+                         WIDE_FLASH_CASES + WIDE_BWD_EXTRA)
+def test_flash_wide_f32_bwd_matches_plain_version(cuda, B, Sq, Sk, H, KvH,
+                                                  Dh, causal, window):
+    """The float32 backward past Dh 256 (clusters of up to 8 one-chunk
+    column blocks, operands split into three bf16 parts; past 8, passes
+    through the scratch's totals) on the forward kernel's own o and lse
+    against `flash_attention_bwd_plain` on its tiles (1e-5 of each
+    gradient's largest magnitude), one call counted, a repeat
+    bit-equal."""
+    f32 = torch.float32
+    q, do = (_randn(i, (B, Sq, H, Dh), f32, cuda) for i in (0, 3))
+    k, v = (_randn(i, (B, Sk, KvH, Dh), f32, cuda) for i in (1, 2))
+    mask = dict(causal=causal, window=window)
+    o, lse = fa._flash_cuda(q, k, v, lse=True, **mask)
+    before = fa.BWD_LAUNCHES
+    runs = [fa._flash_bwd_cuda(q, k, v, o, do, lse, **mask)
+            for _ in range(2)]
+    assert fa.BWD_LAUNCHES == before + 2
+    want = fa.flash_attention_bwd_plain(q, k, v, o, do, lse, **mask)
+    torch.cuda.synchronize()
+    for a, b, w in zip(*runs, want):
+        assert a.dtype == f32 and a.shape == w.shape
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        assert float((a - w).abs().max()) <= BWD_TOL[f32] * \
+            float(w.abs().max())
+
+
+def test_flash_wide_f32_tolerances_see_a_one_part_shortcut(cuda):
+    """The control of the float32 wide kernels' split: at a causal shape
+    the kernels meet the float32 tolerances (forward 2e-5 against the
+    plain version, backward 1e-5 of each gradient's largest magnitude
+    against autograd of it), while the plain version on the inputs
+    rounded to bf16 (what one bf16 part would multiply) misses both."""
+    f32 = torch.float32
+    B, Sq, Sk, H, KvH, Dh, causal, window = WIDE_FLASH_CASES[0]
+    q, do = (_randn(i, (B, Sq, H, Dh), f32, cuda) for i in (0, 3))
+    k, v = (_randn(i, (B, Sk, KvH, Dh), f32, cuda) for i in (1, 2))
+    mask = dict(causal=causal, window=window)
+    rounded = [t.bfloat16().float() for t in (q, k, v, do)]
+    atol, rtol = FLASH_TOL[f32]
+    want = fa.flash_attention_plain(q, k, v, **mask)
+    got = fa.flash_attention(q, k, v, **mask)
+    torch.cuda.synchronize()
+    assert torch.allclose(got, want, atol=atol, rtol=rtol)
+    assert not torch.allclose(fa.flash_attention_plain(*rounded[:3], **mask),
+                              want, atol=atol, rtol=rtol)
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    fa.flash_attention(qg, kg, vg, **mask).backward(do)
+    grads = _autograd_plain(q, k, v, do, causal, window)
+    ctl = _autograd_plain(*rounded, causal, window)
+    torch.cuda.synchronize()
+    for a, c, w in zip((qg.grad, kg.grad, vg.grad), ctl, grads):
+        top = float(w.abs().max())
+        assert float((a - w).abs().max()) <= BWD_TOL[f32] * top
+        assert float((c - w).abs().max()) > BWD_TOL[f32] * top
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,s,h,p,g,n", [
     (2, 1000, 4, 128, 1, 128),          # p in two blocks of 64
