@@ -135,7 +135,10 @@ Run from the root of a checkout.  Phases (any failure exits non-zero):
      against the plain version on the kernel's own tiles
      (`flash_attention.TILES`), a relative RMS error under
      FLASH_ROUNDING_LIMIT, which the same plain version with p left
-     unrounded (v in float32) must exceed.  SSD: tests/test_kernels.py's
+     unrounded (v in float32) must exceed; in float32 (the split-operand
+     kernels on wgmma) at the prefill shape, the plain version
+     on bf16-rounded inputs must miss the float32 tolerance
+     (`check_f32_split`).  SSD: tests/test_kernels.py's
      atol max(tol, 1e-4), rtol 5 tol (tol 2e-5 float32, 2e-2 bf16); in
      bf16 also a relative RMS error under SSD_BF16_LIMIT, which the plain
      version with x dt and W rounded to bf16 must exceed; and the split's
@@ -177,7 +180,7 @@ moved to the card, except the golden's seeded numpy weights):
      2, S = 4096, H 8 / KvH 4, Dh 256, no window / window 1024),
      phi-3-vision's (H 32, Dh 96) and two ragged S (1100 at Dh 256 with
      the window, 1000 at Dh 96); the bf16 rounding control at the causal
-     full-length shapes;
+     full-length shapes, the float32 split's at gemma3's global one;
  12. main path: gemma3-4b's prefill step at full width and depth (34
      layers, bf16) on B = 2 prompts of S = 4096: flash launched exactly 34
      times, 29 with window 1024 and 5 without, all bf16 at Dh 256; last
@@ -211,7 +214,9 @@ moved to the card, except the golden's seeded numpy weights):
      (and the kernel that served it) and the bound; the same shapes in
      float32 beside SDPA's float32 forward (`f32_beside_sdpa`: TF32 off,
      its backend, the bound at the float32 peak, whether its output meets
-     the kernel's float32 tolerance); gemma3-4b prefill ms, tokens/s and
+     the kernel's float32 tolerance), and float32 alone at zamba2-1.2b's
+     prefill shape (Dh 64) and olmo-1b's (B 2 x S 2048, Dh 128), the
+     former with its plain version's ms; gemma3-4b prefill ms, tokens/s and
      peak device memory, Server decode ms per token, a profile of one
      prefill.
 
@@ -229,7 +234,10 @@ The training path and whisper-medium:
      bf16 within BWD_BF16_MAX of it and BWD_BF16_RMS relative RMS of the
      plain version's bf16 run, whose distance to the float32 gradients
      must exceed BWD_F32_REL; at every shape and dtype a second run
-     through the autograd function bit for bit equal to the first;
+     through the autograd function bit for bit equal to the first; the
+     float32 controls at whisper's cross-attention (Dh 64) and gemma3-4b's
+     global layer (Dh 256): autograd of the plain version on bf16-rounded
+     inputs must miss BWD_F32_REL (`check_f32_bwd_split`);
  19. main path: olmo-1b at full width and depth (16 layers, float32
      parameters, bf16 compute), B = 4 x S = 2048: the first step through
      the kernels (16 forward + 16 backward launches, every gradient
@@ -257,7 +265,8 @@ The training path and whisper-medium:
      beside `flash_attention_bwd_plain`'s, scaled_dot_product_attention's
      backward (a yardstick only) and the bound (2.5 x the forward's
      products over the peak, or the bytes over HBM bandwidth), and in
-     float32 beside SDPA's float32 backward (`f32_beside_sdpa`); olmo-1b's
+     float32 beside SDPA's float32 backward (`f32_beside_sdpa`), and at
+     olmo-1b's the float32 plain version's ms; olmo-1b's
      ms per step, tokens/s, share of the bf16 peak and peak memory; a
      profile of one `make_train_step`.
 
@@ -295,7 +304,8 @@ The SSD family's training path:
      every entry; a spill in a bf16 launch is a miss); its ms at
      zamba2's and mamba2-2.7b's prefill shapes and phase 24's, beside
      `ssd_scan_bwd_plain`'s and the bound (no library call computes the
-     SSD gradient); zamba2-1.2b's ms per step, tokens/s, share of the
+     SSD gradient); the float32 SSD forward and backward at zamba2's
+     prefill shape with their bounds; zamba2-1.2b's ms per step, tokens/s, share of the
      bf16 peak (`ssm_train_flops`) and peak memory; a profile of one
      `make_train_step`, with the SSD backward's busy ms in it and each
      of its launches' mean device time.
@@ -386,7 +396,10 @@ The widths the TPU kernels take, every smoke config, the examples:
         cut to EXAMPLE_GRAD_STEPS, train_backend_lm's 200 steps to 20), each
         with its kernels' launches counted from 0, and its figures
         against the same `main` on the CPU where that run is short
-        (EXAMPLE_TOL); the phase's seconds against PHASE32_BUDGET_S.
+        (EXAMPLE_TOL); the phase's seconds against PHASE32_BUDGET_S;
+        the float32 flash launches at the built widths on b and c (the
+        smoke configs compute in float32) counted by width
+        (`flash_launches_by`), which must not be 0.
 
 The widths above the built ones:
 
@@ -413,7 +426,7 @@ The widths above the built ones:
         a prefill against the CPU and two `train()` steps against the
         plain path, launches counted from 0 (both configs compute in
         float32: the wide flash launches are the float32 kernels',
-        counted by dtype, `wide_launches`);
+        counted by dtype and width, `flash_launches_by`);
      c. bf16 times at WIDE_FLASH_TIMED (B 2, S 4096, H 16, Dh 512,
         causal) and WIDE_SSD_TIMED (b 2, s 4096, h 32, p 128, g 1, n
         256): each kernel forward and backward beside its plain version,
@@ -448,8 +461,12 @@ widths, phase 32's: each kernel's launches on the main paths of 32 b and
 times at the Dh 16, p 16 / n 16 and 64-level shapes; then the rows of
 the wide widths, phase 33's: each kernel's launches on 33 b's main
 paths, its max_abs_err over 33 a, its times at 33 c's shapes, the
-float32 wide kernels in rows of their own) and the nvidia-smi line; the
-last line is the result object.
+float32 wide kernels in rows of their own; then the float32 kernels at
+the built widths, Dh <= 256: their float32 launches on 32 b-c's
+main paths, their max_abs_err over phases 6 and 11 (forward) and 18
+(backward), their times at zamba2-1.2b's prefill shape (phase 17) and
+olmo-1b's training shape (phase 22)) and the nvidia-smi line; the last
+line is the result object.
 """
 from __future__ import annotations
 
@@ -535,12 +552,22 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+# the instances of the kernels on wgmma by their mode template argument:
+# flash_fwd_hf's FfMode, flash_bwd_hf's HwMode
+FWD_HF_MODES = {"0": "cluster", "1": "one block", "2": "no cluster"}
+BWD_HF_MODES = {"0": "cluster exchange", "1": "add totals",
+                "2": "read totals", "3": "one block"}
+
+
 def ptxas_kernels(log: str) -> list:
     """`flash_kernel_<dtype><Dh> N registers, spills` for each flash
-    instantiation in an nvcc -Xptxas -v log (`flash_fwd_hw<bf16>` and
-    `flash_fwd_hf<f32>` for the wide heads',
-    `flash_bwd_<launch><dtype, Dh>` for the backward's
-    (`flash_bwd_hw<bf16>` and `flash_bwd_hf<f32>` past Dh 256),
+    instantiation in an nvcc -Xptxas -v log (`flash_fwd_hw<bf16>` for the
+    wide bf16 heads', `flash_fwd_hf<f32, mode>` for float32 at every
+    width: "one block" at Dh 64 and 128, "cluster" at 256 and past it, "no
+    cluster" past 8 column blocks), `flash_bwd_<launch><dtype, Dh>` for the
+    backward's (`flash_bwd_hw<bf16>` past Dh 256, `flash_bwd_hf<f32, mode>`
+    for float32: "one block" at Dh 64, "cluster exchange" at 128-512,
+    "add totals" / "read totals" past 8 column blocks),
     `ssd_kernel_<launch><n>` and `ssd_bwd_<launch><dtype, n>` for the SSD
     kernels', "y f32" / "dx f32" for the float32-output instances)."""
     out, name = [], None
@@ -562,11 +589,12 @@ def ptxas_kernels(log: str) -> list:
         m = re.search(r"entry function .*?(flash_bwd_hb)ILi(\d+)E", line)
         if m:                           # the bf16 tensor-core launch
             name = f"{m.group(1)}<bf16, {m.group(2)}>"
-        m = re.search(r"entry function .*?(flash_(?:bwd|fwd)_h([wf]))"
+        m = re.search(r"entry function .*?(flash_(bwd|fwd)_h([wf]))"
                       r"(?:ILi(\d)E)?E", line)
-        if m:                           # the launches past Dh 256
-            name = (f"{m.group(1)}<{'bf16' if m.group(2) == 'w' else 'f32'}"
-                    f"{', mode ' + m.group(3) if m.group(3) else ''}>")
+        if m:                           # the launches on wgmma
+            modes = FWD_HF_MODES if m.group(2) == "fwd" else BWD_HF_MODES
+            name = (f"{m.group(1)}<{'bf16' if m.group(3) == 'w' else 'f32'}"
+                    f"{', ' + modes[m.group(4)] if m.group(4) else ''}>")
         m = re.search(r"entry function .*?(ssd_bwd_[a-z0-9_]+?)I(13__nv_"
                       r"bfloat16|f)?Li(\d+)E(Lb1E)?", line)
         if m:                           # the SSD backward's launches
@@ -2161,7 +2189,8 @@ def check_ssd_bf16(got, want, x, dt, A, Bm, Cm, label: str,
 
 
 def check_lm_kernels(dev) -> dict:
-    """Phase 6: flash and SSD kernels vs their plain versions."""
+    """Phase 6: flash and SSD kernels vs their plain versions; returns the
+    largest errors by kernel ("flash_f32": float32 flash alone)."""
     import torch
     from repro_torch.kernels import flash_attention as fa, ssd_scan as ss
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -2170,7 +2199,7 @@ def check_lm_kernels(dev) -> dict:
         return (scale * torch.randn(shape, generator=gen, device=dev)) \
             .to(dtype)
 
-    worst = {"flash_attention": 0.0, "ssd_scan": 0.0}
+    worst = {"flash_attention": 0.0, "ssd_scan": 0.0, "flash_f32": 0.0}
     for dtype in (torch.bfloat16, torch.float32):
         tol = LM_TOL[str(dtype)[6:]]
         for B, S, H, KvH, Dh, window in ((B_PREFILL, S_PREFILL, 32, 32, 64,
@@ -2189,6 +2218,11 @@ def check_lm_kernels(dev) -> dict:
             worst["flash_attention"] = max(worst["flash_attention"], err)
             if bf16 and S == S_PREFILL:
                 check_flash_rounding(got, q, k, v)
+            if not bf16:
+                worst["flash_f32"] = max(worst["flash_f32"], err)
+            if not bf16 and S == S_PREFILL:
+                check_f32_split(f"flash B={B} S={S} H={H} Dh={Dh} float32",
+                                got, q, k, v, dict(causal=True, window=window))
         # dt x 0.05 (slow decay) makes the state carried between the
         # split's groups count in y; dt x 1 is the reference tests' range
         for b, s, h, g, n, dt_scale in ((B_PREFILL, S_PREFILL, 64, 1, 64, 1),
@@ -2477,9 +2511,10 @@ def serve_and_check(cfg32, cfg16, params32, params16, model, dev,
     return dec_ms
 
 
-def lm_phases(dev) -> list:
-    """Phases 6-10 (the zamba2-1.2b serving slice); returns the flash and
-    SSD rows of the `kernels` line."""
+def lm_phases(dev) -> tuple:
+    """Phases 6-10 (the zamba2-1.2b serving slice); returns (the flash and
+    SSD rows of the `kernels` line, phase 6's largest float32 flash
+    error)."""
     import dataclasses
     import numpy as np
     import torch
@@ -2626,7 +2661,7 @@ def lm_phases(dev) -> list:
              "replaces": "src/repro/kernels/ssd_scan.py:28",
              "launches": n_ssd, "max_abs_err": worst["ssd_scan"],
              "ms": ssd_ms, "plain_ms": ssd_plain_ms, "bound_ms": s_bound,
-             "bound_by": s_by, "library_ms": None}]
+             "bound_by": s_by, "library_ms": None}], worst["flash_f32"]
 
 
 # relative RMS limits of a bf16 prefill through the flash kernel against
@@ -2683,15 +2718,15 @@ def cast_params(tree, dtype):
             for k, v in tree.items()}
 
 
-def check_wide_flash(dev) -> float:
+def check_wide_flash(dev) -> tuple:
     """Phase 11: flash at gemma3-4b's and phi-3-vision's head widths
     against its plain version, float32 and bf16, with phase 6's
     tolerances; the bf16 rounding control on the causal shapes; returns
-    the largest absolute error."""
+    the largest absolute error, and float32's alone."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     gen = torch.Generator(device=dev).manual_seed(4)
-    worst = 0.0
+    worst = worst_f32 = 0.0
     for dtype in (torch.bfloat16, torch.float32):
         bf16 = dtype == torch.bfloat16
         tol = LM_TOL[str(dtype)[6:]]
@@ -2715,8 +2750,14 @@ def check_wide_flash(dev) -> float:
             worst = max(worst, err)
             if bf16 and S == S_PREFILL and window is None:
                 check_flash_rounding(got, q, k, v)
+            if not bf16:
+                worst_f32 = max(worst_f32, err)
+            if not bf16 and S == S_PREFILL and window is None and Dh == 256:
+                check_f32_split(f"flash B={B} S={S} H={H} KvH={KvH} Dh={Dh} "
+                                f"float32", got, q, k, v,
+                                dict(causal=True, window=window))
             del q, k, v, got
-    return worst
+    return worst, worst_f32
 
 
 def time_wide_flash(dev) -> list:
@@ -2724,11 +2765,13 @@ def time_wide_flash(dev) -> list:
     global and local layers and phi-3-vision's, beside the plain
     version's (3 calls), `scaled_dot_product_attention`'s (a yardstick:
     the port never calls it) with the kernel that served it, and the
-    bound; returns the rows."""
+    bound; float32 there and at zamba2-1.2b's and olmo-1b's prefill
+    shapes beside SDPA's float32; returns zamba2-1.2b's float32 (ms,
+    plain ms, bound, bound_by, SDPA ms), the float32 built-width row's."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     gen = torch.Generator(device=dev).manual_seed(5)
-    rows = []
+    f32_row = None
     for name, H, KvH, Dh, window in (("gemma3-4b global", 8, 4, 256, None),
                                      ("gemma3-4b local", 8, 4, 256, 1024),
                                      ("phi-3-vision", 32, 32, 96, None)):
@@ -2750,7 +2793,6 @@ def time_wide_flash(dev) -> list:
         diff = float((sdpa().transpose(1, 2).float() - flash().float())
                      .abs().max())
         bound, by = flash_bound(q, k, True, window)
-        rows.append((name, ms))
         print(f"flash kernel ({name}: B={B_PREFILL} S={S_PREFILL} H={H} "
               f"KvH={KvH} Dh={Dh} window={window} bf16): {ms:.4f} ms; plain "
               f"{plain_ms:.3f} ms; scaled_dot_product_attention {sdpa_ms:.4f} "
@@ -2762,12 +2804,28 @@ def time_wide_flash(dev) -> list:
                         f"H={H} KvH={KvH} Dh={Dh} window={window})", q, k, v,
                         True, window, 10)
         del q, k, v
-    return rows
+    # float32 alone at zamba2-1.2b's prefill shape and olmo-1b's (B 2 x S
+    # 2048, Dh 128), the first the float32 built-width row's time
+    for name, S, H, Dh in (("zamba2-1.2b", S_PREFILL, 32, 64),
+                           ("olmo-1b", 2048, 16, 128)):
+        q, k, v = (torch.randn((B_PREFILL, S, H, Dh), generator=gen,
+                               device=dev) for _ in range(3))
+        ms, lib_ms, bound, by = f32_beside_sdpa(
+            f"flash kernel ({name}: B={B_PREFILL} S={S} H={H} KvH={H} "
+            f"Dh={Dh} window=None)", q, k, v, True, None, 10)
+        if f32_row is None:
+            plain = lambda: fa.flash_attention_plain(  # noqa: E731
+                q, k, v, causal=True)
+            plain()
+            f32_row = (ms, cuda_ms(plain, 1), bound, by, lib_ms)
+        del q, k, v
+    return f32_row
 
 
 def transformer_phases(dev) -> tuple:
     """Phases 11-17 (the transformer family's serving slice); returns
-    (flash launches on its main paths, largest flash error)."""
+    (flash launches on its main paths, largest flash error, phase 11's
+    largest float32 flash error, phase 17's float32 row)."""
     import dataclasses
     import numpy as np
     import torch
@@ -2779,7 +2837,7 @@ def transformer_phases(dev) -> tuple:
 
     # 11. flash at the new head widths vs plain
     phase(11)
-    worst = check_wide_flash(dev)
+    worst, worst_f32 = check_wide_flash(dev)
 
     # 12. main path: gemma3-4b's bf16 prefill at full width and depth
     phase(12)
@@ -2957,10 +3015,10 @@ def transformer_phases(dev) -> tuple:
 
     # 17. timing of the new shapes
     phase(17)
-    time_wide_flash(dev)
+    f32_row = time_wide_flash(dev)
     print(prefill_line)
     print(prefill_profile)
-    return n_gemma + n_phi + n_other, worst
+    return n_gemma + n_phi + n_other, worst, worst_f32, f32_row
 
 
 def prefill_flops(cfg, B: int, S: int) -> float:
@@ -3201,12 +3259,14 @@ def time_flash_bwd(dev) -> list:
     backward kernel alone (CUDA events, 10 calls, on the forward kernel's
     own o and lse), the plain version `flash_attention_bwd_plain` (1 warm
     call), scaled_dot_product_attention's backward (10 calls; a
-    yardstick, the port never calls it) and the bound; returns the rows
-    (name, ms, plain ms, bound, bound_by, sdpa backward ms)."""
+    yardstick, the port never calls it) and the bound, then float32 beside
+    SDPA's float32; returns the rows (name, ms, plain ms, bound, bound_by,
+    sdpa backward ms) and the first shape's (olmo-1b's) float32 (ms, plain
+    ms, bound, bound_by, SDPA ms), the float32 built-width row's."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     gen = torch.Generator(device=dev).manual_seed(9)
-    rows = []
+    rows, f32_row = [], None
     for name, B, Sq, Sk, H, KvH, Dh, causal, window in BWD_SHAPES:
         q, do = (torch.randn((B, Sq, H, Dh), generator=gen, device=dev)
                  .to(torch.bfloat16) for _ in range(2))
@@ -3240,11 +3300,20 @@ def time_flash_bwd(dev) -> list:
               f"({bound / ms * 100:.1f} % of it reached)")
         del o, lse, qs, ks, vs, o_s
         q, k, v, do = (t.float() for t in (q, k, v, do))
-        f32_beside_sdpa(f"flash bwd kernel ({name}: B={B} Sq={Sq} Sk={Sk} "
-                        f"H={H} KvH={KvH} Dh={Dh} causal={causal} "
-                        f"window={window})", q, k, v, causal, window, 10, do)
+        f_ms, f_lib, f_bound, f_by = f32_beside_sdpa(
+            f"flash bwd kernel ({name}: B={B} Sq={Sq} Sk={Sk} H={H} "
+            f"KvH={KvH} Dh={Dh} causal={causal} window={window})", q, k, v,
+            causal, window, 10, do)
+        if f32_row is None:
+            o, lse = fa._flash_cuda(q, k, v, causal=causal, window=window,
+                                    lse=True)
+            plain = lambda: fa.flash_attention_bwd_plain(  # noqa: E731
+                q, k, v, o, do, lse, causal=causal, window=window)
+            plain()
+            f32_row = (f_ms, cuda_ms(plain, 1), f_bound, f_by, f_lib)
+            del o, lse
         del q, k, v, do
-    return rows
+    return rows, f32_row
 
 
 def train_flops(cfg, B: int, S: int) -> float:
@@ -3627,11 +3696,16 @@ def whisper_phases(dev) -> tuple:
 def training_phases(dev) -> tuple:
     """Phases 18-22; returns (flash forward launches on their main paths,
     the largest flash backward error, the backward kernel's `kernels`
+    row, phase 18's largest float32 backward error, phase 22's float32
     row)."""
     import torch
     # 18. the backward kernel vs autograd of the plain version
     phase(18)
-    worst = check_flash_bwd(dev)
+    errors = {}
+    worst = check_flash_bwd(dev, errors=errors)
+    shapes = {s_[0]: s_ for s_ in BWD_SHAPES}
+    for name in ("whisper cross", "gemma3-4b global"):   # Dh 64, 256
+        check_f32_bwd_split(dev, shapes[name])
     torch.cuda.empty_cache()
     # 19. olmo-1b training at full width
     phase(19)
@@ -3647,7 +3721,7 @@ def training_phases(dev) -> tuple:
     torch.cuda.empty_cache()
     # 22. timing
     phase(22)
-    rows = time_flash_bwd(dev)
+    rows, f32_row = time_flash_bwd(dev)
     print(train_line)
     print(train_prof)
     n_bwd = n_b19 + n_b20 + n_b21
@@ -3661,7 +3735,7 @@ def training_phases(dev) -> tuple:
         "replaces": "src/repro/kernels/flash_attention.py:36",
         "launches": n_bwd, "max_abs_err": worst, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-        "library_ms": sdpa_ms}
+        "library_ms": sdpa_ms}, errors[torch.float32], f32_row
 
 
 # ---------------------------------------------------------------------------
@@ -4171,6 +4245,29 @@ def time_ssd_bwd(dev) -> list:
               f"({bound / ms * 100:.1f} % of it reached); library call: "
               f"none")
         del ins, dy, states
+    # float32 at zamba2's prefill shape, forward and backward, each beside
+    # its bound: the bytes, or the float32 products at the float32 matrix-
+    # product peak (164.8 TFLOP/s) and, beside it, at the CUDA cores' 67
+    *ins, dy = ssd_bwd_inputs(gen, B_PREFILL, S_PREFILL, 64, 1, 64,
+                              torch.float32, 1.0)
+    fwd = lambda: ss._ssd_cuda(*ins)  # noqa: E731
+    fwd()
+    f_ms = cuda_ms(fwd, 10)
+    _, states = ss._ssd_cuda(*ins, states=True)
+    bwd = lambda: ss._ssd_bwd_cuda(*ins, dy, states)  # noqa: E731
+    bwd()
+    b_ms = cuda_ms(bwd, 10)
+    ops = ssd_ops(ins[0], ins[3], 64)
+    for what, ms, (bound, by), n_ops in (
+            ("forward", f_ms, ssd_bound(ins[0], ins[3], 64), ops),
+            ("backward", b_ms, ssd_bwd_bound(ins[0], ins[3], 64), 2.5 * ops)):
+        print(f"ssd float32 {what} kernel (zamba2: b={B_PREFILL} "
+              f"s={S_PREFILL} h=64 p=64 g=1 n=64): {ms:.4f} ms over 10 "
+              f"calls; bound {bound:.5f} ms by {by} ({bound / ms * 100:.2f} "
+              f"% of it reached; the products at the CUDA cores' "
+              f"{PEAK_F32_OPS_S / 1e12:.0f} TFLOP/s "
+              f"{n_ops / PEAK_F32_OPS_S * 1e3:.5f} ms); library call: none")
+    del ins, dy, states
     return rows
 
 
@@ -4952,8 +5049,8 @@ def narrow_flash(dev) -> tuple:
             if fa.LAUNCHES != before + 1:
                 fail(f"flash {name} Dh={Dh}: {fa.LAUNCHES - before} launches")
             label = (f"phase 32 a flash {name} B={B} S={Sq} H={H} KvH={KvH} "
-                     f"Dh={Dh} (kernel width {fa.kernel_width(Dh)}) causal="
-                     f"{causal} window={window} {str(dtype)[6:]}")
+                     f"Dh={Dh} (kernel width {fa.kernel_width(Dh, dtype)}) "
+                     f"causal={causal} window={window} {str(dtype)[6:]}")
             worst = max(worst, hold(
                 label, got, fa.flash_attention_plain(
                     q, k, v, causal=causal, window=window),
@@ -5404,7 +5501,9 @@ def examples_phase(dev) -> dict:
 
 
 def narrow_phase(dev, dt_s: float) -> tuple:
-    """Phase 32 (a-c); returns the kernel rows of the narrow widths."""
+    """Phase 32 (a-c); returns the kernel rows of the narrow widths and
+    the float32 flash (forward, backward) launches at the built widths on
+    32 b-c's main paths."""
     import torch
     t0 = time.perf_counter()
     err_f, f_row = narrow_flash(dev)
@@ -5416,14 +5515,22 @@ def narrow_phase(dev, dt_s: float) -> tuple:
     n_lvl, d_row = narrow_levels(dev, dt_s)
     torch.cuda.empty_cache()
     t_a = time.perf_counter() - t0
-    b = smoke_configs(dev)
-    t_b = time.perf_counter() - t0 - t_a
-    c = examples_phase(dev)
+    with flash_launches_by() as by:
+        b = smoke_configs(dev)
+        t_b = time.perf_counter() - t0 - t_a
+        c = examples_phase(dev)
     t_c = time.perf_counter() - t0 - t_a - t_b
     total = t_a + t_b + t_c
+    # the float32 kernels at the built widths (the smoke configs compute in
+    # float32 at Dh 8 / 16, padded to 64)
+    f32 = (by.get((False, 0, False), 0), by.get((True, 0, False), 0))
     print(f"phase 32: {total:.1f} s (a {t_a:.1f} s, b {t_b:.1f} s, c "
           f"{t_c:.1f} s; budget {PHASE32_BUDGET_S:g} s); main-path launches "
-          f"b {b}, c {c}")
+          f"b {b}, c {c}; flash by (backward, dtype code, past Dh 256) "
+          f"{by}")
+    if not all(f32):
+        fail(f"phase 32 b-c launched the float32 flash kernels at the built "
+             f"widths {f32[0]} / {f32[1]} times (forward / backward)")
     n = {k: b[k] + c[k] for k in b}
 
     def row(name, src, replaces, launches, err, t, lib):
@@ -5445,7 +5552,7 @@ def narrow_phase(dev, dt_s: float) -> tuple:
                 n["ssd_scan_bwd"], err_sb, sb_row, None),
             row("day_scan (17-64 levels)", "day_scan",
                 "src/repro/kernels/day_scan.py:47", n_lvl, 0.0, d_row,
-                None)]
+                None)], f32
 
 
 # ---------------------------------------------------------------------------
@@ -5544,7 +5651,7 @@ def phase33_flash(dev) -> float:
             got = fa.flash_attention(q, k, v, **mask)
             if fa.LAUNCHES != before + 1:
                 fail(f"flash {name}: {fa.LAUNCHES - before} launches")
-            width = fa.kernel_width(Dh)
+            width = fa.kernel_width(Dh, dtype)
             ncb = fa.wide_blocks(width, dtype, forward=True)
             blocks = (f"{ncb} column blocks of "
                       + ("2-4 chunks" if bf16 else "1-2 chunks, operands in "
@@ -5661,9 +5768,9 @@ def phase33_timing(dev) -> tuple:
     b_sdpa = cuda_ms(sdpa_bwd, 10)
     f_bound, f_by = flash_bound(q, k, causal, window)
     b_bound, b_by = flash_bwd_bound(q, k, causal, window)
+    ncb = fa.wide_bwd_blocks(fa.kernel_width(Dh, torch.bfloat16))
     shape = (f"B={B} S={S} H={H} KvH={KvH} Dh={Dh} causal={causal} bf16, "
-             f"{fa.wide_bwd_blocks(fa.kernel_width(Dh))} column blocks in a "
-             f"cluster")
+             f"{ncb} column blocks in a cluster")
     print(f"phase 33 c flash forward ({shape}): {f_ms:.4f} ms over 10 "
           f"calls, {f_bound / f_ms * 100:.2f} % of its bound {f_bound:.5f} "
           f"ms by {f_by}, {f_sdpa / f_ms:.2f}x as fast as "
@@ -5727,7 +5834,7 @@ def wide_note(dtype, Dh: int, forward: bool = False) -> str:
     whether in a cluster (the labels of phase 33)."""
     import torch
     from repro_torch.kernels import flash_attention as fa
-    width = fa.kernel_width(Dh)
+    width = fa.kernel_width(Dh, dtype)
     if width in fa.HEAD_DIMS:
         return f"kernel width {width}"
     ncb = fa.wide_blocks(width, dtype, forward)
@@ -5739,13 +5846,13 @@ def wide_note(dtype, Dh: int, forward: bool = False) -> str:
                else " in a cluster"))
 
 
-def check_f32_bwd_split(dev) -> None:
-    """The float32 wide backward's control, at WIDE_FLASH's first
-    (causal) shape: autograd of the plain version on the inputs and dO
-    rounded to bf16 must miss BWD_F32_REL against the float32 gradients,
-    every one of them."""
+def check_f32_bwd_split(dev, shape=WIDE_FLASH[0]) -> None:
+    """The float32 backward's control, at `shape` (WIDE_FLASH's first,
+    causal, in phase 33 a; phase 18's at Dh 64 and 256): autograd of the
+    plain version on the inputs and dO rounded to bf16 must miss
+    BWD_F32_REL against the float32 gradients, every one of them."""
     import torch
-    name, B, Sq, Sk, H, KvH, Dh, causal, window = WIDE_FLASH[0]
+    name, B, Sq, Sk, H, KvH, Dh, causal, window = shape
     gen = torch.Generator(device=dev).manual_seed(43)
     q, do = (torch.randn((B, Sq, H, Dh), generator=gen, device=dev)
              for _ in range(2))
@@ -5765,16 +5872,16 @@ def check_f32_bwd_split(dev) -> None:
 
 
 @contextlib.contextmanager
-def wide_launches():
-    """Count the flash launches past Dh 256 by (forward | backward,
-    dtype code), through the wrappers' launch (`flash_attention._call`)."""
+def flash_launches_by():
+    """Count the flash launches by (backward, dtype code, past Dh 256: the
+    padded head width the launch takes), through the wrappers' launch
+    (`flash_attention._call`)."""
     from repro_torch.kernels import flash_attention as fa
     real, counts = fa._call, {}
 
     def counted(fn, tensors, args, what):
-        if args[5] > 256:             # the padded head width
-            key = ("backward" in what, args[-1])
-            counts[key] = counts.get(key, 0) + 1
+        key = ("backward" in what, args[-1], args[5] > 256)
+        counts[key] = counts.get(key, 0) + 1
         return real(fn, tensors, args, what)
     fa._call = counted
     try:
@@ -5802,7 +5909,7 @@ def phase33(dev) -> list:
     torch.cuda.empty_cache()
     t_a = time.perf_counter() - t0
     n = dict.fromkeys(kernel_counts(), 0)
-    with wide_launches() as wide:
+    with flash_launches_by() as by:
         for arch, cfg, model in phase33_configs():
             counts = smoke_run(dev, "phase 33 b", arch, cfg, model)
             for key in n:
@@ -5814,7 +5921,7 @@ def phase33(dev) -> list:
     total = t_a + t_b + t_c
     print(f"phase 33: {total:.1f} s (a {t_a:.1f} s, b {t_b:.1f} s, c "
           f"{t_c:.1f} s; budget {PHASE33_BUDGET_S:g} s); main-path launches "
-          f"b {n}; past Dh 256 by (backward, dtype code) {wide}")
+          f"b {n}; by (backward, dtype code, past Dh 256) {by}")
     if total > PHASE33_BUDGET_S:
         miss(f"phase 33 took {total:.1f} s, over its {PHASE33_BUDGET_S:g} s "
              f"budget")
@@ -5834,15 +5941,35 @@ def phase33(dev) -> list:
                 "flash_attention_bwd", fl, n["flash_attention_bwd"],
                 err_b.get(bf, err_fb), rows[1]),
             row("flash_attention (Dh > 256, float32 wide kernel)",
-                "flash_attention", fl, wide.get((False, 0), 0), err_f[f32],
-                rows[4]),
+                "flash_attention", fl, by.get((False, 0, True), 0),
+                err_f[f32], rows[4]),
             row("flash_attention_bwd (Dh > 256, float32 wide kernel)",
-                "flash_attention_bwd", fl, wide.get((True, 0), 0),
+                "flash_attention_bwd", fl, by.get((True, 0, True), 0),
                 err_b.get(f32, err_fb), rows[5]),
             row("ssd_scan (p > 64, n > 128, in blocks)", "ssd_scan", ssd,
                 n["ssd_scan"], err_s, rows[2]),
             row("ssd_scan_bwd (p > 64, n > 128, in blocks)", "ssd_scan_bwd",
                 ssd, n["ssd_scan_bwd"], err_sb, rows[3])]
+
+
+def f32_built_rows(launches, errs, times) -> list:
+    """The kernel rows of the float32 flash kernels at the built widths
+    (split operands on wgmma, Dh <= 256), forward then backward in each
+    argument: `launches` on phase 32 b-c's main paths, largest `errs`
+    (phases 6 and 11; 18), `times` (ms, plain ms, bound, bound_by, SDPA
+    ms) at zamba2-1.2b's prefill shape (phase 17) and olmo-1b's training
+    shape (phase 22)."""
+    return [{"name": name, "route": "cuda",
+             "source": f"src/repro_torch/csrc/{src}.cu",
+             "replaces": "src/repro/kernels/flash_attention.py:36",
+             "launches": n, "max_abs_err": err, "ms": t[0],
+             "plain_ms": t[1], "bound_ms": t[2], "bound_by": t[3],
+             "library_ms": t[4]}
+            for name, src, n, err, t in zip(
+                ("flash_attention (float32, Dh <= 256, split operands)",
+                 "flash_attention_bwd (float32, Dh <= 256, split operands)"),
+                ("flash_attention", "flash_attention_bwd"), launches, errs,
+                times)]
 
 
 def _leaves(tree):
@@ -6051,11 +6178,11 @@ def main() -> None:
     print(gradient_timing(opt["peak_cap_c"]))
     print(fleet_timing())
     del twin
-    lm_rows = lm_phases(dev)
-    n_tf, err_tf = transformer_phases(dev)
+    lm_rows, f32_err6 = lm_phases(dev)
+    n_tf, err_tf, f32_err11, f32_fwd = transformer_phases(dev)
     lm_rows[0]["launches"] += n_tf
     lm_rows[0]["max_abs_err"] = max(lm_rows[0]["max_abs_err"], err_tf)
-    n_train, _, bwd_row = training_phases(dev)
+    n_train, _, bwd_row, f32_err18, f32_bwd = training_phases(dev)
     lm_rows[0]["launches"] += n_train
     n_ssd_train, ssd_bwd_row, fa_f, fa_b = ssm_training_phases(dev)
     lm_rows[0]["launches"] += fa_f
@@ -6098,7 +6225,7 @@ def main() -> None:
     lint_audit_phase(dev, opt["peak_cap_c"])
     # 32. the narrow widths, every smoke config, the ten examples
     phase(32)
-    narrow_rows = narrow_phase(dev, dt_s)
+    narrow_rows, f32_launches = narrow_phase(dev, dt_s)
     # 33. widths above the built ones
     phase(33)
     wide_rows = phase33(dev)
@@ -6127,7 +6254,9 @@ def main() -> None:
         "launches": launches, "max_abs_err": worst, "ms": kernel_ms,
         "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None}] + lm_rows + [bwd_row, ssd_bwd_row]
-        + narrow_rows + wide_rows}))
+        + narrow_rows + wide_rows + f32_built_rows(
+            f32_launches, (max(f32_err6, f32_err11), f32_err18),
+            (f32_fwd, f32_bwd))}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

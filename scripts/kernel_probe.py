@@ -27,6 +27,10 @@ for working on one kernel.
                                                      # backward with one
                                                      # part of its step
                                                      # dropped, in turns
+                                                     # (flash-bwd-f32-
+                                                     # built-variants: the
+                                                     # float32 clusters at
+                                                     # Dh 128 and 256)
     python3 scripts/kernel_probe.py ssd-bwd          # the SSD backward:
                                                      # ptxas, edges vs its
                                                      # plain version and
@@ -698,6 +702,17 @@ def probe_flash_variants() -> None:
             print(line, flush=True)
 
 
+def other_width(text: str):
+    """`kernel_width` as another copy of a flash source (`text`) takes
+    heads: a copy that still holds the CUDA-core float32 kernels
+    (`flash_kernel_f32`, `flash_bwd_dkdv`) runs float32 at bf16's widths,
+    Dh 96 unpadded; one without them, this checkout's rule (96 at 128)."""
+    real = fa.kernel_width
+    if "flash_kernel_f32" in text or "flash_bwd_dkdv" in text:
+        return lambda Dh, dtype: real(Dh, torch.bfloat16)
+    return real
+
+
 def probe_flash_compare(other: str) -> None:
     """The kernel built from another copy of csrc/flash_attention.cu
     (`other`, e.g. a parent commit's) against this checkout's.  At the
@@ -707,13 +722,15 @@ def probe_flash_compare(other: str) -> None:
     `FLASH_TIMED` in both dtypes (the built widths 64, 96, 256), every
     `chip_smoke.WIDE_FLASH` shape in both dtypes and
     `chip_smoke.WIDE_FLASH_TIMED` in both, each with o and its row lse
-    compared bit for bit between the builds; past Dh 256 also each
-    build's largest error against the plain version (o, and in float32
-    the lse against `flash_attention_lse_plain`), whether a repeat is
-    bit-equal and, in float32 (whose kernels differ from the parent's),
+    compared bit for bit between the builds; past Dh 256 and in float32
+    also each build's largest error against the plain version (o, and in
+    float32 the lse against `flash_attention_lse_plain`), whether a repeat
+    is bit-equal and, in float32 (whose kernels differ from the parent's),
     the two builds' largest difference; times in turns at the timed
-    shapes and the wide ones; last, how many SASS instructions of each
-    kernel differ."""
+    shapes (olmo-1b's prefill, B 2 x S 2048, H 16, Dh 128, among them)
+    and the wide ones, each build at the head width it takes
+    (`other_width`); last, how many SASS instructions of each kernel
+    differ."""
     lib = build.BUILD_DIR.parent / "probe" / "flash_other.so"
     lib.parent.mkdir(parents=True, exist_ok=True)
     proc = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(lib),
@@ -756,6 +773,9 @@ def probe_flash_compare(other: str) -> None:
     shapes = [((f"timed Dh {d}", 2, 4096, 4096, h, kvh, d, True, w), dtype)
               for h, kvh, d, w in FLASH_TIMED[1:]
               for dtype in (torch.bfloat16, torch.float32)]
+    shapes += [(("timed olmo-1b Dh 128", 2, 2048, 2048, 16, 16, 128, True,
+                 None), dtype) for dtype in (torch.bfloat16, torch.float32)]
+    width = other_width(Path(other).read_text())
     shapes += [(s_, dtype) for s_ in chip_smoke.WIDE_FLASH
                for dtype in (torch.bfloat16, torch.float32)]
     shapes += [(("timed", B, S, S, H, KvH, Dh, causal, window), dtype)
@@ -769,12 +789,12 @@ def probe_flash_compare(other: str) -> None:
             return fa._flash_cuda(q, k, v, lse=True, **mask)
 
         def run_other():
-            saved = fa._lib
-            fa._lib = lambda: other_fn
+            saved = fa._lib, fa.kernel_width
+            fa._lib, fa.kernel_width = (lambda: other_fn), width
             try:
                 return this()
             finally:
-                fa._lib = saved
+                fa._lib, fa.kernel_width = saved
         label = (f"flash {name} B={B} Sq={Sq} Sk={Sk} H={H} KvH={KvH} "
                  f"Dh={Dh} causal={causal} window={window} "
                  f"{str(dtype)[6:]}")
@@ -785,7 +805,7 @@ def probe_flash_compare(other: str) -> None:
             a, b = f(), f()
             torch.cuda.synchronize()
             firsts.append(a)
-            if wide:
+            if wide or f32:
                 err = float((a[0].float() - fa.flash_attention_plain(
                     q, k, v, **mask).float()).abs().max())
                 same = all(chip_smoke.bits_equal(x, y) for x, y in zip(a, b))
@@ -798,7 +818,7 @@ def probe_flash_compare(other: str) -> None:
                       flush=True)
         line = (f"{label}: other and this bit-equal (o, lse): "
                 f"{all(chip_smoke.bits_equal(x, y) for x, y in zip(*firsts))}")
-        if wide and f32:
+        if f32:
             line += ("; their largest difference o "
                      f"{float((firsts[0][0] - firsts[1][0]).abs().max()):.3g}, "
                      f"lse {float((firsts[0][1] - firsts[1][1]).abs().max()):.3g}")
@@ -866,10 +886,10 @@ FWD_VARIANTS = {
 
 
 # the same for the float32 wide forward (flash_fwd_hf)
-_FF_LOCAL = [("        if (r < x.ranks) t[r] = (r == cb ? xch : peer(xch, r))[pos];",
-              "        if (r < x.ranks) t[r] = xch[pos];"),
-             ("          (r == cb ? xch : const_cast<float4*>(peer(xch, r)))[pos]"
-              " = t[0];", "          xch[pos] = t[0];")]
+_FF_LOCAL = [("      if (r < x.ranks) t[r] = (r == cb ? xch : peer(xch, r))[pos];",
+              "      if (r < x.ranks) t[r] = xch[pos];"),
+             ("        (r == cb ? xch : const_cast<float4*>(peer(xch, r)))[pos]"
+              " = t[0];", "        xch[pos] = t[0];")]
 _FF_COPIES = [("    ff_split_kv<NC>(vs, slots);\n    if (i + 1 < n) ff_copy_kv<NC>",
                "    if (i == 0) ff_split_kv<NC>(vs, slots);\n"
                "    if (i + 1 < n && i == 0) ff_copy_kv<NC>"),
@@ -883,8 +903,8 @@ FWD_F32_VARIANTS = {
     "own exchange, block barriers for the cluster's": [*_FF_LOCAL,
                                                        *_FW_BARRIERS],
     "no owner sums (the barrier kept)": [
-        ("    for (int pos = lo + threadIdx.x; pos < hi; pos += 256) {",
-         "    for (int pos = lo + threadIdx.x; pos < lo; pos += 256) {")],
+        ("  for (int pos = lo + threadIdx.x; pos < hi; pos += 256) {",
+         "  for (int pos = lo + threadIdx.x; pos < lo; pos += 256) {")],
     "no partial products (S partials zero)": [
         ("    ff_scores<NC>(s, qw, ks);",
          "#pragma unroll\n    for (int e = 0; e < 32; ++e) s[e] = 0.f;")],
@@ -1046,10 +1066,11 @@ def probe_flash_bwd_compare(other: str) -> None:
     `chip_smoke.WIDE_FLASH_TIMED` in both.  For each: each build's largest
     gradient error against `flash_attention_bwd_plain` (over each
     gradient's largest magnitude), whether a repeat is bit-equal, whether
-    the two builds' outputs are (float32 past Dh 256, whose kernels differ
-    from the parent's: their largest difference over each gradient's
-    largest magnitude), and times in turns (other, this, this, other);
-    last, how many SASS instructions of each kernel differ."""
+    the two builds' outputs are (float32, whose kernels differ from the
+    parent's: their largest difference over each gradient's largest
+    magnitude), and times in turns (other, this, this, other), each build
+    at the head width it takes (`other_width`); last, how many SASS
+    instructions of each kernel differ."""
     build.build_all(("flash_attention", "flash_attention_bwd"))
     print("ptxas this: " + "; ".join(chip_smoke.ptxas_kernels(
         build.BUILD_LOG.get("flash_attention_bwd", ""))))
@@ -1069,6 +1090,7 @@ def probe_flash_bwd_compare(other: str) -> None:
               for dtype in (torch.bfloat16, torch.float32)]
     shapes += [(("timed", B, S, S, H, KvH, Dh, causal, window), dtype)
                for dtype in (torch.bfloat16, torch.float32)]
+    width = other_width(Path(other).read_text())
     gen = torch.Generator(device=DEV).manual_seed(9)
     for (name, B, Sq, Sk, H, KvH, Dh, causal, window), dtype in shapes:
         q, do = (rn(gen, (B, Sq, H, Dh), dtype) for _ in range(2))
@@ -1080,12 +1102,12 @@ def probe_flash_bwd_compare(other: str) -> None:
             return fa._flash_bwd_cuda(q, k, v, o, do, lse, **mask)
 
         def run_other():
-            saved = fa._bwd_lib
-            fa._bwd_lib = lambda: fn
+            saved = fa._bwd_lib, fa.kernel_width
+            fa._bwd_lib, fa.kernel_width = (lambda: fn), width
             try:
                 return this()
             finally:
-                fa._bwd_lib = saved
+                fa._bwd_lib, fa.kernel_width = saved
         plain = fa.flash_attention_bwd_plain(q, k, v, o, do, lse, **mask)
         label = (f"flash bwd {name} B={B} Sq={Sq} Sk={Sk} H={H} KvH={KvH} "
                  f"Dh={Dh} causal={causal} window={window} "
@@ -1104,7 +1126,7 @@ def probe_flash_bwd_compare(other: str) -> None:
                   + f"; a repeat bit-equal: {same}", flush=True)
         line = (f"{label}: other and this bit-equal: "
                 f"{all(chip_smoke.bits_equal(x, y) for x, y in zip(*firsts))}")
-        if Dh > 256 and dtype == torch.float32:
+        if dtype == torch.float32:
             line += ("; their largest difference dq/dk/dv / max |.| "
                      + "/".join(f"{float((x - y).abs().max() / y.abs().max()):.3g}"
                                 for x, y in zip(*firsts)))
@@ -1270,13 +1292,42 @@ BWD_F32_VARIANTS = {
 }
 
 
-def probe_flash_bwd_variants(variants=None, dtype=torch.bfloat16) -> None:
+# the float32 backward at the built widths, (name, B, S, H, KvH, Dh,
+# causal): zamba2's shared block (Dh 64, a block alone), olmo-1b's
+# training shape (Dh 128, clusters of 2) and gemma3-4b's global layer (Dh
+# 256, clusters of 4), for `flash-bwd-f32-built-variants`
+BUILT_F32_SHAPES = (("zamba2 shared block", 4, 2048, 32, 32, 64, True),
+                    ("olmo-1b", 2, 2048, 16, 16, 128, True),
+                    ("gemma3-4b global", 1, 2048, 8, 4, 256, True))
+
+
+# the float32 backward at the built widths (`flash-bwd-f32-built-variants`,
+# at BUILT_F32_SHAPES): P by the SFU's ex2.approx in place of expf (a
+# change of the float32 numerics: one more rounding of the argument), and
+# the parts of the step the exchange does not own
+BWD_F32_BUILT_VARIANTS = {
+    "as built": [],
+    "P by ex2.approx (the scale folded into log2 units)": [
+        ("    sv[e] = ok ? expf(sv[e] * a.scale - rows[qr]) : 0.f;",
+         "    sv[e] = ok ? hb_exp2((sv[e] * a.scale - rows[qr]) * LOG2E) "
+         ": 0.f;")],
+    "no partial products (S, dP partials zero)":
+        BWD_F32_VARIANTS["no partial products (S, dP partials zero)"],
+    "no dV, dK, dQ products": BWD_F32_VARIANTS["no dV, dK, dQ products"],
+    "tiles split and copied for the first steps only": _HF_COPIES,
+    "one bf16 part (hi.hi only: the precision control)":
+        BWD_F32_VARIANTS["one bf16 part (hi.hi only: the precision control)"],
+}
+
+
+def probe_flash_bwd_variants(variants=None, dtype=torch.bfloat16,
+                             shapes=None) -> None:
     """Builds of csrc/flash_attention_bwd.cu with one part of the wide
     backward's step dropped or changed (`BWD_VARIANTS` for bf16,
     `BWD_F32_VARIANTS` for float32), timed in turns (each in order, then
-    in reverse) at `chip_smoke.WIDE_FLASH_TIMED`, each beside its largest
-    gradient error against `flash_attention_bwd_plain`: where the step's
-    time goes."""
+    in reverse) at `shapes` ((name, B, S, H, KvH, Dh, causal); by default
+    `chip_smoke.WIDE_FLASH_TIMED`), each beside its largest gradient error
+    against `flash_attention_bwd_plain`: where the step's time goes."""
     variants = BWD_VARIANTS if variants is None else variants
     src = (build.CSRC / "flash_attention_bwd.cu").read_text()
     out = build.BUILD_DIR.parent / "probe"
@@ -1306,31 +1357,35 @@ def probe_flash_bwd_variants(variants=None, dtype=torch.bfloat16) -> None:
         fn.argtypes = fa._bwd_lib().argtypes
         fn.restype = ctypes.c_int
         fns[name] = fn
-    B, S, H, KvH, Dh, causal, window = chip_smoke.WIDE_FLASH_TIMED
+    if shapes is None:
+        shapes = [("timed", *chip_smoke.WIDE_FLASH_TIMED[:6])]
     gen = torch.Generator(device=DEV).manual_seed(9)
-    q, do = (rn(gen, (B, S, H, Dh), dtype) for _ in range(2))
-    k, v = (rn(gen, (B, S, KvH, Dh), dtype) for _ in range(2))
-    o, lse = fa._flash_cuda(q, k, v, lse=True, causal=causal)
+    for label, B, S, H, KvH, Dh, causal in shapes:
+        q, do = (rn(gen, (B, S, H, Dh), dtype) for _ in range(2))
+        k, v = (rn(gen, (B, S, KvH, Dh), dtype) for _ in range(2))
+        o, lse = fa._flash_cuda(q, k, v, lse=True, causal=causal)
 
-    def run(fn):
-        saved = fa._bwd_lib
-        fa._bwd_lib = lambda: fn
-        try:
-            return fa._flash_bwd_cuda(q, k, v, o, do, lse, causal=causal)
-        finally:
-            fa._bwd_lib = saved
-    plain = fa.flash_attention_bwd_plain(q, k, v, o, do, lse, causal=causal)
-    for name, fn in fns.items():
-        got = run(fn)
-        rel = [float((a.float() - w.float()).abs().max()
-                     / w.float().abs().max()) for a, w in zip(got, plain)]
-        print(f"flash bwd variant {name}: dq/dk/dv max err / max |.| "
-              + "/".join(f"{r:.3g}" for r in rel), flush=True)
-    order = list(fns)
-    for name in order + order[::-1]:
-        print(f"flash bwd variant {name} (B={B} S={S} H={H} Dh={Dh} causal "
-              f"{str(dtype)[6:]}): {cuda_ms(lambda: run(fns[name]), 5):.4f} "
-              f"ms", flush=True)
+        def run(fn):
+            saved = fa._bwd_lib
+            fa._bwd_lib = lambda: fn
+            try:
+                return fa._flash_bwd_cuda(q, k, v, o, do, lse, causal=causal)
+            finally:
+                fa._bwd_lib = saved
+        plain = fa.flash_attention_bwd_plain(q, k, v, o, do, lse,
+                                             causal=causal)
+        for name, fn in fns.items():
+            got = run(fn)
+            rel = [float((a.float() - w.float()).abs().max()
+                         / w.float().abs().max()) for a, w in zip(got, plain)]
+            print(f"flash bwd variant {name} ({label}): dq/dk/dv max err / "
+                  f"max |.| " + "/".join(f"{r:.3g}" for r in rel), flush=True)
+        order = list(fns)
+        for name in order + order[::-1]:
+            print(f"flash bwd variant {name} ({label}: B={B} S={S} H={H} "
+                  f"Dh={Dh} causal {str(dtype)[6:]}): "
+                  f"{cuda_ms(lambda: run(fns[name]), 5):.4f} ms", flush=True)
+        del q, k, v, do, o, lse, plain
 
 
 def bind_ssd_bwd(path: str):
@@ -1437,6 +1492,8 @@ def main() -> None:
                   FWD_F32_VARIANTS, torch.float32),
               "flash-bwd-f32-variants": lambda: probe_flash_bwd_variants(
                   BWD_F32_VARIANTS, torch.float32),
+              "flash-bwd-f32-built-variants": lambda: probe_flash_bwd_variants(
+                  BWD_F32_BUILT_VARIANTS, torch.float32, BUILT_F32_SHAPES),
               "row-stage": probe_row_stage, "wide": probe_wide}
     compare = {"flash-compare": probe_flash_compare,
                "flash-bwd-compare": probe_flash_bwd_compare,

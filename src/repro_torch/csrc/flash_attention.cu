@@ -20,8 +20,9 @@
 // (p unrounded), acc = acc * alpha + round_to_v_dtype(p) @ v;
 // o = acc / max(l, 1e-30) in q's dtype.  exp is expf (no exp2 folding, no
 // fast math), so p equals the plain version's for the same s and m, in
-// every kernel but the bf16 one past Dh 256, which folds the scale into
-// log2 units and takes ex2.approx (see its section).
+// the bf16 kernel at the built widths; the kernels on wgmma (bf16 past Dh
+// 256, float32 at every width) fold the scale into log2 units and take
+// ex2.approx (see flash_fwd_hw's section).
 //
 // What bounds it: at the slice's shape (B = 2, S = 4096, H = 32, Dh = 64,
 // causal, bf16) the work is ~137 GFLOP of products against ~134 MB of
@@ -47,15 +48,14 @@
 // the wgmma rate, a warp reads its K/V fragments from shared memory for
 // 16 rows only, and the accurate expf costs ~10 instructions per score.
 //
-// float32 (flash_kernel_f32): the CUDA cores, with 64 x 64 tiles staged in
-// shared memory as float32 and 4 x 4 register tiles (TF32 tensor cores
-// would leave ~1e-3 relative error against the float32 tolerance of
-// 2e-5).  256 threads: thread (ti, tj) = (tid / 16, tid % 16) owns query
-// rows ti + 16 r (r < 4), score columns tj + 16 c (c < 4) and output
-// columns GW g + CW tj .. + CW - 1 (g < Dh / GW): groups of GW = 64
-// columns, CW = 4 a thread (float4), where 64 divides Dh, and of 32, CW =
-// 2 (float2), where it does not (Dh 96); smem row strides are padded
-// (Dh + 4, 64 + 16) so the vector reads are free of bank conflicts.
+// float32 runs flash_fwd_hf at every width (the wide section below: every
+// operand split into three bf16 parts on wgmma; TF32 tensor cores would
+// leave ~1e-3 relative error against the float32 tolerance of 2e-5), the
+// wrapper padding Dh 96 to 128: at Dh 64 and 128 each 128-row block holds
+// the whole head, so it runs alone (no exchange, no cluster barrier); at
+// Dh 256 two column blocks in a cluster.  The CUDA-core kernel it replaced
+// (64 x 64 tiles) took 1.33x SDPA's float32 time at phi-3's shape and paid
+// every kv tile from 0 under a window (H100, PERF.md).
 //
 // The gradient: when asked (a non-null `lse`), both paths also write each
 // query row's log-sum-exp of its scaled, masked scores, m + log l (l the
@@ -63,14 +63,15 @@
 // P = exp(s - lse).  Serving passes null: its launches write o alone,
 // bit for bit as before the option existed.
 //
-// Head widths: Dh 64, 96, 128 and 256 in both dtypes.  A static_assert in
-// each kernel refuses a width whose columns the thread mapping would not
-// all cover, and one whose tiles would not fit the 227 KB of shared
-// memory a block may opt into (f32 at Dh 256: 220 160 B; bf16 at Dh 256:
-// 202 752 B).  bf16 at Dh 256 would need 128 accumulator + 64 Q-fragment
-// + 32 score registers a thread, over the 255 a thread may have: above
-// Dh 128 each k-step's Q fragment is re-read from the Q tile in shared
-// memory on every kv tile (QREG false) instead of staying in registers.
+// Head widths: bf16 Dh 64, 96, 128 and 256 here (flash_kernel_bf16),
+// float32 any multiple of 64.  A static_assert in the bf16 kernel refuses
+// a width whose columns the thread mapping would not all cover, and one
+// whose tiles would not fit the 227 KB of shared memory a block may opt
+// into (at Dh 256: 202 752 B).  bf16 at Dh 256 would need 128 accumulator
+// + 64 Q-fragment + 32 score registers a thread, over the 255 a thread may
+// have: above Dh 128 each k-step's Q fragment is re-read from the Q tile
+// in shared memory on every kv tile (QREG false) instead of staying in
+// registers.
 //
 // Wider heads (flash_fwd_hw, flash_fwd_hf): the TPU kernel takes any Dh
 // (its BlockSpec is (1, bq, 1, Dh)).  Here a Dh above 256 no longer fits
@@ -112,187 +113,7 @@ struct FlashArgs {
   float scale;
 };
 
-// ---------------------------------------------------------------------------
-// float32: CUDA cores
-// ---------------------------------------------------------------------------
-
-constexpr int F32_BQ = 64;         // query rows per block
-constexpr int F32_BK = 64;         // keys per kv tile
-constexpr int F32_THREADS = 256;
-constexpr int PS = F32_BK + 16;    // smem row stride of the P tile
 constexpr int SMEM_OPTIN_BYTES = 232448;   // sm_90: 227 KB a block
-
-template <int DH>
-__host__ __device__ constexpr int f32_smem_floats() {
-  return F32_BQ * (DH + 4) + 2 * F32_BK * (DH + 4) + F32_BQ * PS;
-}
-
-template <int DH>
-__global__ void __launch_bounds__(F32_THREADS) flash_kernel_f32(FlashArgs a) {
-  constexpr int BQ = F32_BQ, BK = F32_BK, THREADS = F32_THREADS;
-  constexpr int DS = DH + 4;       // smem row stride of the Q/K/V tiles
-  constexpr int GW = DH % 64 == 0 ? 64 : 32;   // output columns a group
-  constexpr int CW = GW / 16;      // output columns a thread, per group
-  constexpr int NG = DH / GW;      // groups
-  static_assert(DH % 32 == 0 && DH > 0 && NG * GW == DH,
-                "flash f32: every output column must belong to a group of "
-                "16 threads x CW columns");
-  static_assert(f32_smem_floats<DH>() * 4 <= SMEM_OPTIN_BYTES,
-                "flash f32: tiles exceed the shared memory of a block");
-  extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);
-  float* ks = qs + BQ * DS;
-  float* vs = ks + BK * DS;
-  float* ps = vs + BK * DS;
-
-  const int tid = threadIdx.x, ti = tid / 16, tj = tid % 16;
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (a.H / a.KvH);
-  const float* q = static_cast<const float*>(a.q);
-  const float* k = static_cast<const float*>(a.k);
-  const float* v = static_cast<const float*>(a.v);
-  float* o = static_cast<float*>(a.o);
-
-  for (int idx = tid; idx < BQ * DH; idx += THREADS) {
-    const int r = idx / DH, d = idx % DH, qi = q0 + r;
-    qs[r * DS + d] = qi < a.Sq
-        ? q[((size_t(b) * a.Sq + qi) * a.H + h) * DH + d] : 0.f;
-  }
-
-  float m[4], l[4], acc[4][CW * NG];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    m[r] = NEG_INF;
-    l[r] = 0.f;
-#pragma unroll
-    for (int e = 0; e < CW * NG; ++e) acc[r][e] = 0.f;
-  }
-
-  int nk = (a.Sk + BK - 1) / BK;
-  if (a.causal) nk = min(nk, (q0 + BQ - 1) / BK + 1);   // skip above diagonal
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();               // the previous tile's readers are done
-    for (int idx = tid; idx < BK * DH; idx += THREADS) {
-      const int r = idx / DH, d = idx % DH, kj = k0 + r;
-      const size_t off = ((size_t(b) * a.Sk + kj) * a.KvH + kvh) * DH + d;
-      ks[r * DS + d] = kj < a.Sk ? k[off] : 0.f;
-      vs[r * DS + d] = kj < a.Sk ? v[off] : 0.f;
-    }
-    __syncthreads();
-
-    // scores of this thread's 4 x 4 tile
-    float s[4][4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[r][c] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < DH; d += 4) {
-      float4 qv[4], kv[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        qv[r] = *reinterpret_cast<const float4*>(&qs[(ti + 16 * r) * DS + d]);
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        kv[c] = *reinterpret_cast<const float4*>(&ks[(tj + 16 * c) * DS + d]);
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          float t = s[r][c];
-          t = fmaf(qv[r].x, kv[c].x, t);
-          t = fmaf(qv[r].y, kv[c].y, t);
-          t = fmaf(qv[r].z, kv[c].z, t);
-          t = fmaf(qv[r].w, kv[c].w, t);
-          s[r][c] = t;
-        }
-    }
-
-    // mask, online softmax, P to shared memory
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int qi = q0 + ti + 16 * r;
-      float mx = NEG_INF;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int kj = k0 + tj + 16 * c;
-        bool ok = kj < a.Sk;
-        if (a.causal) ok = ok && kj <= qi;
-        if (a.window >= 0) ok = ok && kj > qi - a.window;
-        s[r][c] = ok ? s[r][c] * a.scale : NEG_INF;
-        mx = fmaxf(mx, s[r][c]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[r], mx);
-      const float alpha = expf(m[r] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float p = expf(s[r][c] - m_new);
-        sum += p;
-        ps[(ti + 16 * r) * PS + tj + 16 * c] = p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l[r] = l[r] * alpha + sum;
-      m[r] = m_new;
-#pragma unroll
-      for (int e = 0; e < CW * NG; ++e) acc[r][e] *= alpha;
-    }
-    __syncthreads();
-
-    // acc += P @ V
-#pragma unroll 2
-    for (int j = 0; j < BK; j += 4) {
-      float4 pr[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        pr[r] = *reinterpret_cast<const float4*>(&ps[(ti + 16 * r) * PS + j]);
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-#pragma unroll
-        for (int g = 0; g < NG; ++g) {
-          const float* vp = &vs[(j + jj) * DS + GW * g + CW * tj];
-          float vv[CW];
-          if constexpr (CW == 4) {
-            const float4 t = *reinterpret_cast<const float4*>(vp);
-            vv[0] = t.x; vv[1] = t.y; vv[2] = t.z; vv[3] = t.w;
-          } else {
-            const float2 t = *reinterpret_cast<const float2*>(vp);
-            vv[0] = t.x; vv[1] = t.y;
-          }
-#pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            const float p = jj == 0 ? pr[r].x : jj == 1 ? pr[r].y
-                          : jj == 2 ? pr[r].z : pr[r].w;
-#pragma unroll
-            for (int e = 0; e < CW; ++e)
-              acc[r][CW * g + e] = fmaf(p, vv[e], acc[r][CW * g + e]);
-          }
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int qi = q0 + ti + 16 * r;
-    if (qi >= a.Sq) continue;
-    if (a.lse && tj == 0)          // every thread of the row holds m and l
-      a.lse[(size_t(b) * a.H + h) * a.Sq + qi] = m[r] + logf(l[r]);
-    const float den = fmaxf(l[r], 1e-30f);
-    float* row = o + (size_t(b) * a.Sq + qi) * a.H * DH + size_t(h) * DH;
-#pragma unroll
-    for (int g = 0; g < NG; ++g)
-#pragma unroll
-      for (int e = 0; e < CW; ++e)
-        row[GW * g + CW * tj + e] = acc[r][CW * g + e] / den;
-  }
-}
 
 // ---------------------------------------------------------------------------
 // bfloat16: tensor cores (mma.sync m16n8k16)
@@ -1167,10 +988,14 @@ __global__ void __launch_bounds__(256, 1) flash_fwd_hw(FlashArgs a,
   else fw_block<4>(a, x, sm, cb);
 }
 
-// float32 (flash_fwd_hf): flash_fwd_hw's cluster on the tensor cores with
-// every operand split into three bf16 parts (the header's design), one or
-// two 64-column chunks a column block (ncb = ceil(Dh / 128): 4 a cluster
-// at Dh 512, Dh <= 1024 in a cluster).  The parts triple the bf16 tiles'
+// float32 (flash_fwd_hf, every width): flash_fwd_hw's cluster on the
+// tensor cores with every operand split into three bf16 parts (the
+// header's design), one or two 64-column chunks a column block (ncb =
+// ceil(Dh / 128): 4 a cluster at Dh 512, Dh <= 1024 in a cluster; at Dh 64
+// and 128 one block holds the head and runs alone, FF_ONE, with Q split
+// once and resident, K and V copied a step ahead and split while a chain
+// runs, and no exchange; at Dh 256 a cluster of 2).  The parts triple the
+// bf16 tiles'
 // bytes, so K and V have one stage and the K tile doubles as the
 // exchange, which is free between a tile's partial product and the next
 // tile's K; one buffer of float32 slots takes each thread's cp.async
@@ -1202,7 +1027,8 @@ constexpr int FF_ITEMS = FW_ROWS * FW_BK / 4;   // float4s of the partials
 // shared memory: Q in parts (96 KB); K in parts, which is also the
 // exchange between a tile's partial product and the next tile's K (48
 // KB); V in parts (48 KB); float32 slots of one chunk of 128 rows (32
-// KB); 1024 bytes to align: 225 KB
+// KB); 1024 bytes to align: 225 KB (at Dh 128, FF_ONE, all of it holds
+// the head's tiles: 227 KB is what binds the design)
 constexpr int FF_QB = FF_PARTS * FF_QPS;
 constexpr int FF_KB = FF_PARTS * FF_KPS > FF_ITEMS * 16 ? FF_PARTS * FF_KPS
                                                         : FF_ITEMS * 16;
@@ -1405,6 +1231,50 @@ __device__ __forceinline__ void ff_stage_q(unsigned char* sm, float4* slots,
   }
 }
 
+// the cluster's exchange of ff_cluster's tile (the K tile, read by now):
+// the warpgroup's partial s published in the block's exchange; a cluster
+// barrier; the owner of each item of [lo, hi) sums the ranks' partials in
+// rank order and writes the total in its place in every block's exchange;
+// a cluster barrier; s read back (the scores) where the tile is `live`
+__device__ __forceinline__ void ff_exchange(float s[32], float4* xch,
+                                            const FwArgs& x, int cb, int lo,
+                                            int hi, bool live, int wg) {
+  const int wt = threadIdx.x % 128;
+  __syncthreads();                 // K_i read: the tile is the exchange
+  if (live)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      xch[wg * 1024 + j * 128 + wt] =
+          make_float4(s[4 * j], s[4 * j + 1], s[4 * j + 2], s[4 * j + 3]);
+  cluster_arrive();
+  cluster_wait();                  // the partials are published
+  for (int pos = lo + threadIdx.x; pos < hi; pos += 256) {
+    float4 t[FW_CLUSTER];
+#pragma unroll
+    for (int r = 0; r < FW_CLUSTER; ++r)
+      if (r < x.ranks) t[r] = (r == cb ? xch : peer(xch, r))[pos];
+#pragma unroll
+    for (int r = 1; r < FW_CLUSTER; ++r)
+      if (r < x.ranks) {
+        t[0].x += t[r].x; t[0].y += t[r].y; t[0].z += t[r].z;
+        t[0].w += t[r].w;
+      }
+#pragma unroll
+    for (int r = 0; r < FW_CLUSTER; ++r)
+      if (r < x.ranks)
+        (r == cb ? xch : const_cast<float4*>(peer(xch, r)))[pos] = t[0];
+  }
+  cluster_arrive();
+  cluster_wait();                  // every owner's totals are in place
+  if (live)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float4 v = xch[wg * 1024 + j * 128 + wt];
+      s[4 * j] = v.x; s[4 * j + 1] = v.y; s[4 * j + 2] = v.z;
+      s[4 * j + 3] = v.w;
+    }
+}
+
 // column block cb (NC chunks) of one (128-row query tile, head, batch) in a
 // cluster of `ranks` blocks.  Kv tile i's step: each warpgroup's partial
 // S_c = Q_c K_c^T (while it runs, V_i is split in and K_{i+1} copied to
@@ -1417,13 +1287,15 @@ __device__ __forceinline__ void ff_stage_q(unsigned char* sm, float4* slots,
 // zero (while the first runs, K_{i+1} is split in and V_{i+1} copied).
 // The next publish writes only the block's own exchange, which no block
 // touches between the second barrier and the next first one: two barrier
-// phases a tile.
-template <int NC>
+// phases a tile.  ONE: the head is this block's one column block (Dh 64
+// or 128), so its partial is S: no exchange and no cluster barrier, two
+// block barriers a tile (K_i split in; V_i split in and K_i read)
+template <int NC, bool ONE>
 __device__ __forceinline__ void ff_cluster(const FlashArgs& a,
                                            const FwArgs& x,
                                            unsigned char* sm, int cb) {
   const FwPlace p(a, x);
-  const int n = p.kt_end - p.kt_begin, wt = threadIdx.x % 128;
+  const int n = p.kt_end - p.kt_begin;
   const int ch0 = cb * x.nch / x.ncb;
   const unsigned char* qw = sm + p.wg * 64 * 128;  // the warpgroup's Q rows
   unsigned char* ks = sm + FF_QB;                  // K, or the exchange
@@ -1462,41 +1334,8 @@ __device__ __forceinline__ void ff_cluster(const FlashArgs& a,
     if (i + 1 < n) ff_copy_kv<NC>(slots, a.k, a, p, x, k0(i + 1), ch0);
     cp_async_commit();
     ff_wait(s);
-    __syncthreads();               // K_i read: the tile is the exchange
-    if (live)
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        xch[p.wg * 1024 + j * 128 + wt] =
-            make_float4(s[4 * j], s[4 * j + 1], s[4 * j + 2], s[4 * j + 3]);
-    cluster_arrive();
-    cluster_wait();                // the partials are published
-    for (int pos = lo + threadIdx.x; pos < hi; pos += 256) {
-      float4 t[FW_CLUSTER];
-#pragma unroll
-      for (int r = 0; r < FW_CLUSTER; ++r)
-        if (r < x.ranks) t[r] = (r == cb ? xch : peer(xch, r))[pos];
-#pragma unroll
-      for (int r = 1; r < FW_CLUSTER; ++r)
-        if (r < x.ranks) {
-          t[0].x += t[r].x; t[0].y += t[r].y; t[0].z += t[r].z;
-          t[0].w += t[r].w;
-        }
-#pragma unroll
-      for (int r = 0; r < FW_CLUSTER; ++r)
-        if (r < x.ranks)
-          (r == cb ? xch : const_cast<float4*>(peer(xch, r)))[pos] = t[0];
-    }
-    cluster_arrive();
-    cluster_wait();                // every owner's totals are in place
-    if (live) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float4 v = xch[p.wg * 1024 + j * 128 + wt];
-        s[4 * j] = v.x; s[4 * j + 1] = v.y; s[4 * j + 2] = v.z;
-        s[4 * j + 3] = v.w;
-      }
-      fw_softmax<NC>(s, m, l, acc, a, p, sl2, kt);
-    }
+    if constexpr (!ONE) ff_exchange(s, xch, x, cb, lo, hi, live, p.wg);
+    if (live) fw_softmax<NC>(s, m, l, acc, a, p, sl2, kt);
     fence_proxy_async();           // V_i split in is visible to wgmma;
     __syncthreads();               // every thread has read the exchange
     uint32_t f[FF_PARTS][4][4];
@@ -1575,33 +1414,46 @@ __device__ __forceinline__ void ff_solo(const FlashArgs& a, const FwArgs& x,
   ff_store<NC>(a, x, p, acc, m, l, cb, ch0);
 }
 
-template <int NC>
+// how a float32 block finds its scores: summed over its cluster's
+// partials; alone, the head being its one column block (Dh 64, 128);
+// over the whole head, one chunk after another (past a cluster)
+enum FfMode { FF_CLUSTER = 0, FF_ONE = 1, FF_SOLO = 2 };
+
+template <int NC, int MODE>
 __device__ __forceinline__ void ff_block(const FlashArgs& a, const FwArgs& x,
                                          unsigned char* sm, int cb) {
-  if (x.ranks > 1) ff_cluster<NC>(a, x, sm, cb);
-  else ff_solo<NC>(a, x, sm, cb);
+  if constexpr (MODE == FF_SOLO) ff_solo<NC>(a, x, sm, cb);
+  else ff_cluster<NC, MODE == FF_ONE>(a, x, sm, cb);
 }
 
-// flash_fwd_hw's grid, column blocks of one or two chunks
+// flash_fwd_hw's grid, column blocks of one or two chunks; an instance a
+// mode (FfMode), so that no wgmma chain spans a branch on it
+template <int MODE>
 __global__ void __launch_bounds__(256, 1) flash_fwd_hf(FlashArgs a,
                                                        FwArgs x) {
   extern __shared__ float4 smem4[];
   unsigned char* sm = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem4) + 1023) & ~uintptr_t(1023));
   const int cb = blockIdx.x % x.ncb;
-  if ((cb + 1) * x.nch / x.ncb - cb * x.nch / x.ncb == 2) ff_block<2>(a, x, sm, cb);
-  else ff_block<1>(a, x, sm, cb);
+  if ((cb + 1) * x.nch / x.ncb - cb * x.nch / x.ncb == 2)
+    ff_block<2, MODE>(a, x, sm, cb);
+  else
+    ff_block<1, MODE>(a, x, sm, cb);
 }
 
 // grid (ncb B H, query tiles), clusters of the ncb column blocks (ncb <=
 // FW_CLUSTER), else none.  bf16: flash_fwd_hw, column blocks of 2-4
-// chunks; float32: flash_fwd_hf, of 1-2
+// chunks (Dh > 256); float32: flash_fwd_hf, of 1-2 (every multiple of 64:
+// one block alone at Dh 64 and 128, a cluster of 2 at Dh 256)
 int launch_fwd_wide(const FlashArgs& a, int dh, bool bf16, cudaStream_t s) {
   const int nch = dh / FW_CHUNK;
   const int chunks = bf16 ? FW_MAX_CHUNKS : FF_MAX_CHUNKS;
   FwArgs x{dh, nch, (nch + chunks - 1) / chunks, 0};
   x.ranks = x.ncb <= FW_CLUSTER ? x.ncb : 1;
-  void (*kernel)(FlashArgs, FwArgs) = bf16 ? flash_fwd_hw : flash_fwd_hf;
+  void (*kernel)(FlashArgs, FwArgs) =
+      bf16 ? flash_fwd_hw
+      : x.ncb == 1 ? flash_fwd_hf<FF_ONE>
+      : x.ranks > 1 ? flash_fwd_hf<FF_CLUSTER> : flash_fwd_hf<FF_SOLO>;
   const int smem = bf16 ? FW_SMEM_BYTES : FF_SMEM_BYTES;
   const int nq = (a.Sq + FW_ROWS - 1) / FW_ROWS;
   const size_t nx = size_t(x.ncb) * a.B * a.H;
@@ -1623,18 +1475,6 @@ int launch_fwd_wide(const FlashArgs& a, int dh, bool bf16, cudaStream_t s) {
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, kernel, a, x);
   return int(err != cudaSuccess ? err : cudaGetLastError());
-}
-
-template <int DH>
-int launch_f32(const FlashArgs& a, cudaStream_t s) {
-  const int bytes = f32_smem_floats<DH>() * int(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel_f32<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
-  if (err != cudaSuccess) return int(err);
-  const dim3 grid((a.Sq + F32_BQ - 1) / F32_BQ, a.H, a.B);
-  flash_kernel_f32<DH><<<grid, F32_THREADS, bytes, s>>>(a);
-  return int(cudaGetLastError());
 }
 
 template <int DH>
@@ -1669,14 +1509,7 @@ extern "C" int flash_attention_launch(
   const FlashArgs a{q, k, v, o, static_cast<float*>(lse), B, Sq, Sk, H,
                     KvH, causal, window, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    switch (Dh) {
-      case 64: return launch_f32<64>(a, s);
-      case 96: return launch_f32<96>(a, s);
-      case 128: return launch_f32<128>(a, s);
-      case 256: return launch_f32<256>(a, s);
-    }
-  } else if (dtype == 1) {
+  if (dtype == 1) {
     switch (Dh) {
       case 64: return launch_bf16<64>(a, s);
       case 96: return launch_bf16<96>(a, s);
@@ -1684,7 +1517,9 @@ extern "C" int flash_attention_launch(
       case 256: return launch_bf16<256>(a, s);
     }
   }
-  if (Dh > 256 && Dh % FW_CHUNK == 0 && (dtype == 0 || dtype == 1))
+  // float32 at every multiple of 64 (the wrapper pads Dh 96 to 128), bf16
+  // past 256
+  if (Dh > 0 && Dh % FW_CHUNK == 0 && (dtype == 0 || (dtype == 1 && Dh > 256)))
     return launch_fwd_wide(a, Dh, dtype == 1, s);
   return int(cudaErrorInvalidValue);
 }

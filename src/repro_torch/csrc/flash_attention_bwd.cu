@@ -68,11 +68,11 @@
 // Shared memory at Dh 256: K, V 64 KB, two stages of Q, dO 128 KB, lse
 // and delta 1 KB, the exchange 24 KB: 218 KB of the 227 a block may have.
 //
-// float32 (flash_bwd_dkdv, flash_bwd_dq): every product on the CUDA
-// cores in float32 (64 x 64 tiles, or 64 x 32 at Dh 256, staged in
-// shared memory, 4 x 4 register tiles as in the forward's float32 path;
-// TF32 would miss the float32 tolerance), launch 2 dK / dV and launch 3
-// dQ, each recomputing S and dP.
+// float32 at every width runs flash_bwd_hf (its paragraph below: every
+// operand split into three bf16 parts on the tensor cores; TF32 would
+// miss the float32 tolerance), Dh 96 zero-padded to 128 by the wrapper.
+// The CUDA-core kernels it replaced at Dh <= 256 (64 x 64 tiles, three
+// launches) took 1.5-2.9x SDPA's float32 backward (H100, PERF.md).
 //
 // Dh above 256 (the wrapper pads Dh to a multiple of 64, as the forward's
 // wide path).  What bounds it: operations (at B 2, S 4096, H 16, Dh 512,
@@ -111,8 +111,8 @@
 // float32 totals in global memory (the wrapper's scratch, zeroed), and a
 // last pass reads the totals for its products.
 //
-// float32 (flash_bwd_hf): flash_bwd_hw's cluster on the tensor cores, an
-// instance a mode.  wgmma has no float32 operand, and TF32 keeps 10 bits
+// float32 (flash_bwd_hf, every width): flash_bwd_hw's cluster on the
+// tensor cores, an instance a mode.  wgmma has no float32 operand, and TF32 keeps 10 bits
 // (and takes K-major operands only, where dV += P^T dO and dK += dS^T Q
 // read dO and Q MN-major), so every float32 operand v is split into three
 // bf16 parts, v = hi + mid + lo, which hold every bit of it (each
@@ -141,8 +141,15 @@
 // += P^T dO_c and warpgroup 1 dK_c += dS^T Q_c; in a dQ block each adds
 // dS K_c over half the tile's keys and the halves are summed once at the
 // end.  P, dS and their products are float32-exact.  Past 8 blocks (Dh >
-// 512) the passes through float32 totals, as bf16's past 8.  Sums in a
-// fixed order, no atomics: a call repeats bit for bit.
+// 512) the passes through float32 totals, as bf16's past 8.  At the built
+// widths a head is 1, 2 or 4 chunks.  Dh 64 runs each block alone
+// (HW_ONE), where an exchange between blocks is pure cost: in a dK / dV
+// block warpgroup 0 turns its S^T into P^T and hands it to warpgroup 1
+// through the block's own exchange, which turns its dP^T into dS^T (a dQ
+// block: P of half the keys one way, dP of the other half the other way),
+// one block barrier a step and no cluster barrier or distributed shared
+// memory.  Dh 128 and 256 keep the owners' exchange of 2 and 4 ranks.
+// Sums in a fixed order, no atomics: a call repeats bit for bit.
 
 #include <cstdint>
 #include <type_traits>
@@ -153,8 +160,7 @@
 
 namespace {
 
-constexpr int THREADS = 256;       // 16 x 16: thread (ti, tj)
-constexpr int BQ = 64;             // query rows of a tile
+constexpr int THREADS = 256;       // the delta launch's, 8 warps
 constexpr int SMEM_OPTIN_BYTES = 232448;   // sm_90: 227 KB a block
 
 struct BwdArgs {
@@ -177,149 +183,6 @@ __device__ __forceinline__ float widen(float x) { return x; }
 __device__ __forceinline__ float widen(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
-__device__ __forceinline__ void narrow(float* p, float x) { *p = x; }
-
-// keys a kv tile holds: 64, or 32 at Dh 256 (its tiles would not fit)
-template <int DH>
-__host__ __device__ constexpr int bwd_bk() { return DH <= 128 ? 64 : 32; }
-
-// shared memory floats of launches 2 and 3: K, V, Q, dO tiles (row stride
-// DH + 4), P and dS tiles (row stride BK + 16), lse and delta of the tile
-template <int DH>
-__host__ __device__ constexpr int bwd_smem_floats() {
-  return 2 * bwd_bk<DH>() * (DH + 4) + 2 * BQ * (DH + 4)
-       + 2 * BQ * (bwd_bk<DH>() + 16) + 2 * BQ;
-}
-
-// rows [r0, r0 + ROWS) of head `hd` of a (B, S, heads, DH) tensor into
-// float32 smem rows of stride DH + 4; rows >= S are zeros
-template <typename T, int DH, int ROWS>
-__device__ __forceinline__ void stage(float* dst, const T* src, int b, int S,
-                                      int heads, int hd, int r0) {
-  for (int idx = threadIdx.x; idx < ROWS * DH; idx += THREADS) {
-    const int r = idx / DH, d = idx % DH, t = r0 + r;
-    dst[r * (DH + 4) + d] =
-        t < S ? widen(src[((size_t(b) * S + t) * heads + hd) * DH + d]) : 0.f;
-  }
-}
-
-// rows ti + 16 r (r < 4) of `a` dotted with rows tj + 16 c (c < NC) of
-// `b`, both float32 smem tiles of row stride DH + 4
-template <int DH, int NC>
-__device__ __forceinline__ void tile_dots(float out[4][NC], const float* a,
-                                          const float* b, int ti, int tj) {
-  constexpr int DS = DH + 4;
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) out[r][c] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < DH; d += 4) {
-    float4 av[4], bv[NC];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-      av[r] = *reinterpret_cast<const float4*>(&a[(ti + 16 * r) * DS + d]);
-#pragma unroll
-    for (int c = 0; c < NC; ++c)
-      bv[c] = *reinterpret_cast<const float4*>(&b[(tj + 16 * c) * DS + d]);
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        float t = out[r][c];
-        t = fmaf(av[r].x, bv[c].x, t);
-        t = fmaf(av[r].y, bv[c].y, t);
-        t = fmaf(av[r].z, bv[c].z, t);
-        t = fmaf(av[r].w, bv[c].w, t);
-        out[r][c] = t;
-      }
-  }
-}
-
-// acc[i][.] += sum_j w[j][row_i] * x[j][cols]: rows row_i = ti + 16 i
-// (i < NR) of a weight tile read transposed (w is J x stride WS, row i at
-// column ti + 16 i) or straight (TRANS false: w row ti + 16 i, column j),
-// against J rows of a float32 tile x of row stride DH + 4; this thread's
-// output columns are GW g + CW tj + e (groups of GW = 64 columns, CW = 4
-// a thread, or GW = 32, CW = 2 where 64 does not divide DH)
-template <int DH, int NR, int J, int WS, bool TRANS>
-__device__ __forceinline__ void tile_accum(float (*acc)[DH / 16],
-                                           const float* w, const float* x,
-                                           int ti, int tj) {
-  constexpr int DS = DH + 4;
-  constexpr int GW = DH % 64 == 0 ? 64 : 32;
-  constexpr int CW = GW / 16;
-  constexpr int NG = DH / GW;
-#pragma unroll 2
-  for (int j = 0; j < J; ++j) {
-    float wv[NR];
-#pragma unroll
-    for (int i = 0; i < NR; ++i)
-      wv[i] = TRANS ? w[j * WS + ti + 16 * i] : w[(ti + 16 * i) * WS + j];
-#pragma unroll
-    for (int g = 0; g < NG; ++g) {
-      const float* xp = &x[j * DS + GW * g + CW * tj];
-      float xv[CW];
-      if constexpr (CW == 4) {
-        const float4 t = *reinterpret_cast<const float4*>(xp);
-        xv[0] = t.x; xv[1] = t.y; xv[2] = t.z; xv[3] = t.w;
-      } else {
-        const float2 t = *reinterpret_cast<const float2*>(xp);
-        xv[0] = t.x; xv[1] = t.y;
-      }
-#pragma unroll
-      for (int i = 0; i < NR; ++i)
-#pragma unroll
-        for (int e = 0; e < CW; ++e)
-          acc[i][CW * g + e] = fmaf(wv[i], xv[e], acc[i][CW * g + e]);
-    }
-  }
-}
-
-// write rows ti + 16 i (i < NR) of acc x mult to rows r0 + ti + 16 i < S
-// of head `hd` of a (B, S, heads, DH) tensor
-template <typename T, int DH, int NR>
-__device__ __forceinline__ void store_rows(T* dst, float (*acc)[DH / 16],
-                                           float mult, int b, int S, int heads,
-                                           int hd, int r0, int ti, int tj) {
-  constexpr int GW = DH % 64 == 0 ? 64 : 32;
-  constexpr int CW = GW / 16;
-  constexpr int NG = DH / GW;
-#pragma unroll
-  for (int i = 0; i < NR; ++i) {
-    const int t = r0 + ti + 16 * i;
-    if (t >= S) continue;
-    T* row = dst + ((size_t(b) * S + t) * heads + hd) * DH;
-#pragma unroll
-    for (int g = 0; g < NG; ++g)
-#pragma unroll
-      for (int e = 0; e < CW; ++e)
-        narrow(&row[GW * g + CW * tj + e], acc[i][CW * g + e] * mult);
-  }
-}
-
-// P and dS of a (BQ x BK) tile from its scores s and dO.V^T products dp
-// (rows ti + 16 r, columns tj + 16 c), masked entries 0
-template <int NC>
-__device__ __forceinline__ void p_and_ds(float s[4][NC], float dp[4][NC],
-                                         const BwdArgs& a, const float* lse_s,
-                                         const float* del_s, int q0, int k0,
-                                         int ti, int tj) {
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = ti + 16 * r, qi = q0 + row;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int kj = k0 + tj + 16 * c;
-      bool ok = qi < a.Sq && kj < a.Sk;
-      if (a.causal) ok = ok && kj <= qi;
-      if (a.window >= 0) ok = ok && kj > qi - a.window;
-      const float p = ok ? expf(s[r][c] * a.scale - lse_s[row]) : 0.f;
-      s[r][c] = p;
-      dp[r][c] = p * (dp[r][c] - del_s[row]);
-    }
-  }
-}
 
 // launch 1: delta = rowsum(dO o O), one warp a (b, q row, head)
 template <typename T>
@@ -340,181 +203,6 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_delta(BwdArgs a, int dh) {
     const int qi = int(bq % a.Sq), b = int(bq / a.Sq);
     a.delta[(size_t(b) * a.H + h) * a.Sq + qi] = sum;
   }
-}
-
-// launch 2: dK and dV of one (kv tile, kv head, batch)
-template <typename T, int DH>
-__global__ void __launch_bounds__(THREADS) flash_bwd_dkdv(BwdArgs a) {
-  constexpr int BK = bwd_bk<DH>(), NC = BK / 16, NR = BK / 16;
-  constexpr int DS = DH + 4, PS = BK + 16;
-  static_assert(DH % 32 == 0 && DH > 0,
-                "flash bwd: every column must belong to a group of 16 "
-                "threads x CW columns");
-  static_assert(bwd_smem_floats<DH>() * 4 <= SMEM_OPTIN_BYTES,
-                "flash bwd: tiles exceed the shared memory of a block");
-  extern __shared__ float4 smem4[];
-  float* ks = reinterpret_cast<float*>(smem4);
-  float* vs = ks + BK * DS;
-  float* qs = vs + BK * DS;
-  float* dos = qs + BQ * DS;
-  float* ps = dos + BQ * DS;
-  float* dss = ps + BQ * PS;
-  float* lse_s = dss + BQ * PS;
-  float* del_s = lse_s + BQ;
-
-  const int tid = threadIdx.x, ti = tid / 16, tj = tid % 16;
-  const int k0 = blockIdx.x * BK, kvh = blockIdx.y, b = blockIdx.z;
-  const int G = a.H / a.KvH;
-  const T* q = static_cast<const T*>(a.q);
-  const T* dout = static_cast<const T*>(a.dout);
-
-  stage<T, DH, BK>(ks, static_cast<const T*>(a.k), b, a.Sk, a.KvH, kvh, k0);
-  stage<T, DH, BK>(vs, static_cast<const T*>(a.v), b, a.Sk, a.KvH, kvh, k0);
-
-  // query tiles whose rows see a key of this tile
-  const int nq = (a.Sq + BQ - 1) / BQ;
-  const int k_last = min(k0 + BK, a.Sk) - 1;
-  const int qt_begin = a.causal ? min(nq, k0 / BQ) : 0;
-  int qt_end = nq;
-  if (a.window >= 0)
-    qt_end = max(0, min(nq, (k_last + a.window - 1) / BQ + 1));
-
-  float dk[NR][DH / 16], dv[NR][DH / 16];
-#pragma unroll
-  for (int i = 0; i < NR; ++i)
-#pragma unroll
-    for (int e = 0; e < DH / 16; ++e) dk[i][e] = dv[i][e] = 0.f;
-
-  for (int g = 0; g < G; ++g) {
-    const int h = kvh * G + g;
-    for (int qt = qt_begin; qt < qt_end; ++qt) {
-      const int q0 = qt * BQ;
-      __syncthreads();             // the previous tile's readers are done
-      stage<T, DH, BQ>(qs, q, b, a.Sq, a.H, h, q0);
-      stage<T, DH, BQ>(dos, dout, b, a.Sq, a.H, h, q0);
-      if (tid < BQ) {
-        const int qi = q0 + tid;
-        const size_t at = (size_t(b) * a.H + h) * a.Sq + qi;
-        lse_s[tid] = qi < a.Sq ? a.lse[at] : 0.f;
-        del_s[tid] = qi < a.Sq ? a.delta[at] : 0.f;
-      }
-      __syncthreads();
-
-      float s[4][NC], dp[4][NC];
-      tile_dots<DH, NC>(s, qs, ks, ti, tj);     // S = Q K^T
-      tile_dots<DH, NC>(dp, dos, vs, ti, tj);   // dP = dO V^T
-      p_and_ds<NC>(s, dp, a, lse_s, del_s, q0, k0, ti, tj);
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          ps[(ti + 16 * r) * PS + tj + 16 * c] = s[r][c];
-          dss[(ti + 16 * r) * PS + tj + 16 * c] = dp[r][c];
-        }
-      __syncthreads();
-
-      tile_accum<DH, NR, BQ, PS, true>(dv, ps, dos, ti, tj);   // dV += P^T dO
-      tile_accum<DH, NR, BQ, PS, true>(dk, dss, qs, ti, tj);   // dK += dS^T Q
-    }
-  }
-  store_rows<T, DH, NR>(static_cast<T*>(a.dk), dk, a.scale, b, a.Sk, a.KvH,
-                        kvh, k0, ti, tj);
-  store_rows<T, DH, NR>(static_cast<T*>(a.dv), dv, 1.f, b, a.Sk, a.KvH, kvh,
-                        k0, ti, tj);
-}
-
-// launch 3: dQ of one (query tile, head, batch)
-template <typename T, int DH>
-__global__ void __launch_bounds__(THREADS) flash_bwd_dq(BwdArgs a) {
-  constexpr int BK = bwd_bk<DH>(), NC = BK / 16;
-  constexpr int DS = DH + 4, PS = BK + 16;
-  extern __shared__ float4 smem4[];
-  float* ks = reinterpret_cast<float*>(smem4);
-  float* vs = ks + BK * DS;
-  float* qs = vs + BK * DS;
-  float* dos = qs + BQ * DS;
-  float* dss = dos + BQ * DS;
-  float* lse_s = dss + BQ * PS;
-  float* del_s = lse_s + BQ;
-
-  const int tid = threadIdx.x, ti = tid / 16, tj = tid % 16;
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (a.H / a.KvH);
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
-
-  stage<T, DH, BQ>(qs, static_cast<const T*>(a.q), b, a.Sq, a.H, h, q0);
-  stage<T, DH, BQ>(dos, static_cast<const T*>(a.dout), b, a.Sq, a.H, h, q0);
-  if (tid < BQ) {
-    const int qi = q0 + tid;
-    const size_t at = (size_t(b) * a.H + h) * a.Sq + qi;
-    lse_s[tid] = qi < a.Sq ? a.lse[at] : 0.f;
-    del_s[tid] = qi < a.Sq ? a.delta[at] : 0.f;
-  }
-
-  // kv tiles this tile's rows see: up to the diagonal, from the window
-  int kt_end = (a.Sk + BK - 1) / BK;
-  if (a.causal) kt_end = min(kt_end, (q0 + BQ - 1) / BK + 1);
-  int kt_begin = 0;
-  if (a.window >= 0) kt_begin = max(0, (q0 - a.window + 1) / BK);
-
-  float dq[4][DH / 16];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int e = 0; e < DH / 16; ++e) dq[r][e] = 0.f;
-
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();               // the previous tile's readers are done
-    stage<T, DH, BK>(ks, k, b, a.Sk, a.KvH, kvh, k0);
-    stage<T, DH, BK>(vs, v, b, a.Sk, a.KvH, kvh, k0);
-    __syncthreads();
-
-    float s[4][NC], dp[4][NC];
-    tile_dots<DH, NC>(s, qs, ks, ti, tj);       // S = Q K^T
-    tile_dots<DH, NC>(dp, dos, vs, ti, tj);     // dP = dO V^T
-    p_and_ds<NC>(s, dp, a, lse_s, del_s, q0, k0, ti, tj);
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < NC; ++c)
-        dss[(ti + 16 * r) * PS + tj + 16 * c] = dp[r][c];
-    __syncthreads();
-
-    tile_accum<DH, 4, BK, PS, false>(dq, dss, ks, ti, tj);    // dQ += dS K
-  }
-  store_rows<T, DH, 4>(static_cast<T*>(a.dq), dq, a.scale, b, a.Sq, a.H, h,
-                       q0, ti, tj);
-}
-
-template <typename T, int DH>
-int launch_bwd(const BwdArgs& a, int dh, cudaStream_t s) {
-  constexpr int BK = bwd_bk<DH>();
-  const size_t rows = size_t(a.B) * a.Sq * a.H;
-  flash_bwd_delta<T><<<unsigned((rows + 7) / 8), THREADS, 0, s>>>(a, dh);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return int(err);
-
-  const int bytes = bwd_smem_floats<DH>() * int(sizeof(float));
-  err = cudaFuncSetAttribute(flash_bwd_dkdv<T, DH>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             bytes);
-  if (err != cudaSuccess) return int(err);
-  const dim3 grid_kv((a.Sk + BK - 1) / BK, a.KvH, a.B);
-  flash_bwd_dkdv<T, DH><<<grid_kv, THREADS, bytes, s>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return int(err);
-
-  // launch 3 has no P tile
-  const int bytes_q = bytes - BQ * (BK + 16) * int(sizeof(float));
-  err = cudaFuncSetAttribute(flash_bwd_dq<T, DH>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             bytes_q);
-  if (err != cudaSuccess) return int(err);
-  const dim3 grid_q((a.Sq + BQ - 1) / BQ, a.H, a.B);
-  flash_bwd_dq<T, DH><<<grid_q, THREADS, bytes_q, s>>>(a);
-  return int(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
@@ -1177,8 +865,10 @@ static_assert(HW_SMEM_BYTES <= SMEM_OPTIN_BYTES,
 
 // how a launch finds S and dP: summed over the cluster's partials (one
 // launch, Dh <= 2048); added into the global totals by one column block
-// (dK / dV blocks alone, no products); read from the totals
-enum HwMode { HW_EXCHANGE = 0, HW_ADD = 1, HW_READ = 2 };
+// (dK / dV blocks alone, no products); read from the totals; float32
+// alone (flash_bwd_hf), a head of one chunk: the block's own (HW_ONE, no
+// cluster, its warpgroups share P or dP through the block's exchange)
+enum HwMode { HW_EXCHANGE = 0, HW_ADD = 1, HW_READ = 2, HW_ONE = 3 };
 
 struct HwArgs {
   int dh, nch, ncb;                // padded Dh, its chunks, column blocks
@@ -1750,24 +1440,114 @@ __device__ __forceinline__ void hf_frags(uint32_t f[HF_PARTS][NK][4],
 // 8 j + 2 (wt % 4) + e % 2) from its totals s (S; S^T in a dK / dV block,
 // `kv`, whose rows are keys) and d (dP), masked entries 0; `rows` holds
 // the query tile's lse, then its delta
-__device__ __forceinline__ void hf_pds(float4& s, float4& d, const BwdArgs& a,
-                                       bool kv, int q0, int k0, bool full,
+// the query row (in the tile) of element e of item pos
+__device__ __forceinline__ int hf_qrow(bool kv, int pos, int e) {
+  const int wt = pos % 128, lane = wt % 32;
+  return kv ? 8 * (pos / 128) + 2 * (lane % 4) + (e & 1)
+            : 16 * (wt / 32) + lane / 4 + 8 * (e >> 1);
+}
+// P of item pos from its S total s (masked entries 0): exp(s scale - lse)
+__device__ __forceinline__ float4 hf_p(float4 s, const BwdArgs& a, bool kv,
+                                       int q0, int k0, bool full,
                                        const float* rows, int pos) {
   const int wt = pos % 128, lane = wt % 32;
   const int row0 = 16 * (wt / 32) + lane / 4, col0 = 8 * (pos / 128)
                                                     + 2 * (lane % 4);
-  float sv[4] = {s.x, s.y, s.z, s.w}, dv[4] = {d.x, d.y, d.z, d.w};
+  float sv[4] = {s.x, s.y, s.z, s.w};
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
-    const int m = row0 + 8 * (e >> 1), n = col0 + (e & 1);
-    const int qr = kv ? n : m, kr = kv ? m : n;
+    const int qr = hf_qrow(kv, pos, e);
+    const int kr = kv ? row0 + 8 * (e >> 1) : col0 + (e & 1);
     const bool ok = full || seen(a, q0 + qr, k0 + kr);
-    const float p = ok ? expf(sv[e] * a.scale - rows[qr]) : 0.f;
-    sv[e] = p;
-    dv[e] = p * (dv[e] - rows[HB_TILE + qr]);
+    sv[e] = ok ? expf(sv[e] * a.scale - rows[qr]) : 0.f;
   }
-  s = make_float4(sv[0], sv[1], sv[2], sv[3]);
-  d = make_float4(dv[0], dv[1], dv[2], dv[3]);
+  return make_float4(sv[0], sv[1], sv[2], sv[3]);
+}
+// dS = P o (dP - delta) of item pos
+__device__ __forceinline__ float4 hf_ds(float4 p, float4 d, bool kv,
+                                        const float* rows, int pos) {
+  const float* del = rows + HB_TILE;
+  return make_float4(p.x * (d.x - del[hf_qrow(kv, pos, 0)]),
+                     p.y * (d.y - del[hf_qrow(kv, pos, 1)]),
+                     p.z * (d.z - del[hf_qrow(kv, pos, 2)]),
+                     p.w * (d.w - del[hf_qrow(kv, pos, 3)]));
+}
+__device__ __forceinline__ void hf_pds(float4& s, float4& d, const BwdArgs& a,
+                                       bool kv, int q0, int k0, bool full,
+                                       const float* rows, int pos) {
+  s = hf_p(s, a, kv, q0, k0, full, rows, pos);
+  d = hf_ds(s, d, kv, rows, pos);
+}
+__device__ __forceinline__ float4 acc4(const float* acc, int j) {
+  return make_float4(acc[4 * j], acc[4 * j + 1], acc[4 * j + 2],
+                     acc[4 * j + 3]);
+}
+__device__ __forceinline__ void put4(float* v, float4 t) {
+  v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+}
+
+// HW_ONE, a dK / dV block: warpgroup 0 turns its S^T into P^T and puts it
+// in the block's exchange, warpgroup 1 reads it there and turns its dP^T
+// into dS^T; v gets P^T (warpgroup 0) or dS^T (1).  One block barrier (the
+// exchange is free again at the next step's first barrier)
+__device__ __forceinline__ void hf_one_kv(float v[32], const float acc[32],
+                                          float4* xch, const BwdArgs& a,
+                                          int q0, int k0, bool full,
+                                          const float* rows) {
+  const int wt = threadIdx.x % 128;
+  if (threadIdx.x < 128) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float4 p = hf_p(acc4(acc, j), a, true, q0, k0, full, rows,
+                            j * 128 + wt);
+      xch[j * 128 + wt] = p;
+      put4(v + 4 * j, p);
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x >= 128) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      put4(v + 4 * j, hf_ds(xch[j * 128 + wt], acc4(acc, j), true, rows,
+                            j * 128 + wt));
+  }
+}
+// HW_ONE, a dQ block: warpgroup 0 (S) hands P of n-tiles 4-7 to warpgroup
+// 1 through its half of the block's exchange and keeps 0-3; warpgroup 1
+// (dP) hands dP of n-tiles 0-3 over through its half and keeps 4-7; after
+// one block barrier each forms dS of its own half, n-tiles 4 wg .. 4 wg +
+// 3, into v
+__device__ __forceinline__ void hf_one_q(float v[16], const float acc[32],
+                                         float4* xch, const BwdArgs& a,
+                                         int q0, int k0, bool full,
+                                         const float* rows) {
+  const int wg = threadIdx.x / 128, wt = threadIdx.x % 128;
+  float4* out = xch + wg * HF_ITEMS;
+  const float4* in = xch + (1 - wg) * HF_ITEMS;
+  float4 mine[4];
+  if (wg == 0) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float4 p = hf_p(acc4(acc, j), a, false, q0, k0, full, rows,
+                            j * 128 + wt);
+      if (j < 4) mine[j] = p;
+      else out[j * 128 + wt] = p;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      out[j * 128 + wt] = acc4(acc, j);
+      mine[j] = acc4(acc, 4 + j);
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int pos = (4 * wg + j) * 128 + wt;
+    const float4 other = in[pos];
+    put4(v + 4 * j, wg == 0 ? hf_ds(mine[j], other, false, rows, pos)
+                            : hf_ds(other, mine[j], false, rows, pos));
+  }
 }
 
 // this warpgroup's partial (S in warpgroup 0, dP in 1) into the exchange
@@ -1930,7 +1710,8 @@ __device__ __forceinline__ void hf_dkdv(const BwdArgs& a, const HwArgs& x,
     if (i + 2 < n_steps) copy(i + 2);
     cp_async_commit();
     if constexpr (MODE != HW_READ) wg_wait<64>(acc, nullptr);
-    float* tot = MODE == HW_EXCHANGE ? nullptr : hw_tile(a, x, b, h, qt, kt);
+    float* tot = MODE == HW_ADD || MODE == HW_READ
+        ? hw_tile(a, x, b, h, qt, kt) : nullptr;
     if constexpr (MODE == HW_ADD) {  // totals += this block's partial
       float* t = tot + wg * HB_TILE * HB_TILE;
 #pragma unroll
@@ -1943,6 +1724,8 @@ __device__ __forceinline__ void hf_dkdv(const BwdArgs& a, const HwArgs& x,
         hf_publish(acc, sm.xch());
         hf_reduce(a, x.ncb, cb, sm.xch(), true, q0, k0, full, sm.rows(st));
         hf_gather<8>(v, sm.xch(), wg, 0);
+      } else if constexpr (MODE == HW_ONE) {
+        hf_one_kv(v, acc, sm.xch(), a, q0, k0, full, sm.rows(st));
       } else {
         hf_read<8>(v, a, tot, wg, 0, true, q0, k0, full, sm.rows(st), at);
       }
@@ -2023,7 +1806,7 @@ __device__ __forceinline__ void hf_dq(const BwdArgs& a, const HwArgs& x,
     const bool full = all_seen(a, q0, k0);
     float v[16], tmp[32];            // dS of this warpgroup's keys
     float acc[32];
-    if constexpr (MODE == HW_EXCHANGE)
+    if constexpr (MODE != HW_READ)
       hf_issue(acc, sm.fixed(wg), HF_PT, sm.stage(st, wg), HF_PT);
     // while the partial runs: step i + 1's tiles split, i + 2's copied
     if (i + 1 < n) split(sm.stage(st ^ 1, 0), sm.stage(st ^ 1, 1));
@@ -2034,6 +1817,9 @@ __device__ __forceinline__ void hf_dq(const BwdArgs& a, const HwArgs& x,
       hf_publish(acc, sm.xch());
       hf_reduce(a, x.ncb, cb, sm.xch(), false, q0, k0, full, rows);
       hf_gather<4>(v, sm.xch(), 1, 4 * wg);
+    } else if constexpr (MODE == HW_ONE) {
+      wg_wait<64>(acc, nullptr);
+      hf_one_q(v, acc, sm.xch(), a, q0, k0, full, rows);
     } else {
       hf_read<4>(v, a, hw_tile(a, x, b, h, qt, kt), 1, 4 * wg, false, q0, k0,
                  full, rows, [&](int j, int e) {
@@ -2126,15 +1912,18 @@ int launch_hw(void (*kernel)(BwdArgs, HwArgs), int smem, const BwdArgs& a,
 // launches adding each column block's partials into the totals (after
 // `delta`'s B H Sq floats in the wrapper's zeroed scratch) and one
 // reading them.  bf16: flash_bwd_hw, column blocks of 2-4 chunks;
-// float32: flash_bwd_hf, one chunk a column block
+// float32: flash_bwd_hf, one chunk a column block, a head of one chunk
+// (Dh 64) in blocks of their own (HW_ONE: no cluster, no exchange between
+// blocks)
 template <typename T>
 int launch_bwd_wide(const BwdArgs& a, int dh, cudaStream_t s) {
   constexpr bool BF16 = std::is_same_v<T, __nv_bfloat16>;
   using Kernel = void (*)(BwdArgs, HwArgs);
-  const Kernel kernels[3] = {
+  const Kernel kernels[4] = {
       BF16 ? flash_bwd_hw : flash_bwd_hf<HW_EXCHANGE>,
       BF16 ? flash_bwd_hw : flash_bwd_hf<HW_ADD>,
-      BF16 ? flash_bwd_hw : flash_bwd_hf<HW_READ>};   // by HwMode
+      BF16 ? flash_bwd_hw : flash_bwd_hf<HW_READ>,
+      BF16 ? flash_bwd_hw : flash_bwd_hf<HW_ONE>};   // by HwMode
   const int smem = BF16 ? HW_SMEM_BYTES : HF_SMEM_BYTES;
   const int chunks = BF16 ? HW_MAX_CHUNKS : 1;    // a column block's, at most
   const size_t rows = size_t(a.B) * a.Sq * a.H;
@@ -2145,8 +1934,9 @@ int launch_bwd_wide(const BwdArgs& a, int dh, cudaStream_t s) {
            HW_EXCHANGE, 0, nullptr};
   const size_t n_kv = size_t((a.Sk + HB_TILE - 1) / HB_TILE) * a.KvH * a.B;
   const size_t n_q = size_t((a.Sq + HB_TILE - 1) / HB_TILE) * a.H * a.B;
+  if (!BF16 && x.ncb == 1) x.mode = HW_ONE;
   if (x.ncb <= HW_CLUSTER)
-    return launch_hw(kernels[HW_EXCHANGE], smem, a, x, x.ncb * (n_kv + n_q),
+    return launch_hw(kernels[x.mode], smem, a, x, x.ncb * (n_kv + n_q),
                      x.ncb, s);
   x.tot = a.delta + rows;
   x.mode = HW_ADD;
@@ -2169,14 +1959,9 @@ int launch_dtype(const BwdArgs& a, int dh, cudaStream_t s) {
     }
     if (dh > 256 && dh % HW_CHUNK == 0) return launch_bwd_wide<T>(a, dh, s);
     return int(cudaErrorInvalidValue);
-  } else {
-    switch (dh) {
-      case 64: return launch_bwd<T, 64>(a, dh, s);
-      case 96: return launch_bwd<T, 96>(a, dh, s);
-      case 128: return launch_bwd<T, 128>(a, dh, s);
-      case 256: return launch_bwd<T, 256>(a, dh, s);
-    }
-    if (dh > 256 && dh % HW_CHUNK == 0) return launch_bwd_wide<T>(a, dh, s);
+  } else {                         // float32: every multiple of 64 (the
+    if (dh > 0 && dh % HW_CHUNK == 0)   // wrapper pads Dh 96 to 128)
+      return launch_bwd_wide<T>(a, dh, s);
     return int(cudaErrorInvalidValue);
   }
 }
@@ -2185,12 +1970,15 @@ int launch_dtype(const BwdArgs& a, int dh, cudaStream_t s) {
 
 // Plain C entry point (bound with ctypes).  dtype: 0 = float32,
 // 1 = bfloat16 (q, k, v, o, dout, dq, dk, dv all of it; lse and delta
-// float32).  `delta` is the scratch: B H Sq floats, and for a bf16 head of
-// more than 8 column blocks (Dh > 2048) then B H nq nk 8192 zeroed floats
-// of S / dP totals (nq, nk: 64-row tiles of Sq, Sk).  dk / dv are written
-// whole (zeros where no query sees a key).  Three launches (float32) or
-// two (bfloat16; Dh > 2048: ncb + 2) on `stream`, no synchronisation, no
-// allocation; returns a CUDA error code (0 = success).
+// float32).  Dh: 64, 96, 128 or 256 in bf16, any multiple of 64 in
+// float32 (the wrapper pads its narrower heads, 96 to 128), and in both any
+// multiple of 64 past 256.  `delta` is the scratch: B H Sq floats, and for
+// a head of more than 8 column blocks (bf16 Dh > 2048, float32 Dh > 512)
+// then B H nq nk 8192 zeroed floats of S / dP totals (nq, nk: 64-row tiles
+// of Sq, Sk).  dk / dv are written whole (zeros where no query sees a
+// key).  Two launches in both dtypes (delta, then one; past 8 column
+// blocks ncb + 2) on `stream`, no synchronisation, no allocation; returns
+// a CUDA error code (0 = success).
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* delta, void* dq, void* dk,

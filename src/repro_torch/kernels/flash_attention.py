@@ -14,30 +14,32 @@ causal, bf16) it is bound by operations (~137 GFLOP of products against
 ~134 MB of traffic).  In bf16 both products run on the tensor cores
 (mma.sync m16n8k16, FlashAttention-2's register layout: 128 query rows a
 block, 64-key tiles double-buffered by cp.async, P kept in registers);
-in float32 they run on the CUDA cores (64 x 64 tiles), since TF32 would
-miss the float32 tolerance.  `TILES` gives each path's (query rows, keys)
-per tile, the tiling on which the plain version keeps the kernel's
-running max.  See the source's header note.
+float32 runs on the tensor cores too (wgmma), every float32 operand split
+into three bf16 parts whose six part products hold every bit of a float32
+product (TF32 would miss the float32 tolerance).  `TILES` gives each
+path's (query rows, keys) per tile, the tiling on which the plain version
+keeps the kernel's running max.  See the source's header note.
 
 Inputs: float32 or bfloat16, all three alike, contiguous; any Dh, as the
-TPU kernel takes.  The kernels are built for the widths `HEAD_DIMS`
-(phi-3-vision's heads are 96 wide, gemma3's 256); a narrower head (the
-smoke configs' 8 and 16, the reference sweep's 32) is zero-padded to the
-next of them (`kernel_width`) and the outputs sliced back.  A wider head
-is zero-padded to a multiple of `WIDE_SLICE` and runs on the wide kernels:
-a cluster of column blocks on the tensor cores, each forming partial
-scores over its own columns, the cluster's partials summed in rank order
-(past `WIDE_BWD_CLUSTER` blocks no cluster: each block forms the scores
-over the whole head).  bf16 deals the head into `wide_bwd_blocks` blocks
-of 2-4 chunks of 64 columns (Dh <= 2048 in a cluster); float32
-(`wide_f32_blocks`) into blocks of 1-2 chunks (Dh <= 1024 in a cluster)
-and splits every float32 operand into three bf16 parts, whose six part
-products hold every bit of a float32 product.  Both run `WIDE_TILES`.  The padded
-columns add exact zeros to every product, so the scores, the row
-log-sum-exp and the kept columns are the true width's; the scale is the
-true width's 1 / sqrt(Dh).  A width the kernels are built for launches as
-it is.  The output has q's dtype.  `LAUNCHES` counts forward kernel launches (the
-plain version never bumps it).
+TPU kernel takes.  The bf16 kernels are built for the widths `HEAD_DIMS`
+(phi-3-vision's heads are 96 wide, gemma3's 256), the float32 ones for
+every multiple of `WIDE_SLICE`; a narrower head (the smoke configs' 8 and
+16, the reference sweep's 32; in float32 phi-3's 96 too) is zero-padded
+to the next width its dtype's kernel takes (`kernel_width`) and the
+outputs sliced back.  A wider head is zero-padded to a multiple of
+`WIDE_SLICE` and runs on the wide kernels: a cluster of column blocks on
+the tensor cores, each forming partial scores over its own columns, the
+cluster's partials summed in rank order (past `WIDE_BWD_CLUSTER` blocks
+no cluster: each block forms the scores over the whole head).  bf16 deals
+the head into `wide_bwd_blocks` blocks of 2-4 chunks of 64 columns (Dh <=
+2048 in a cluster); float32 (`wide_f32_blocks`) into blocks of 1-2 chunks
+(Dh <= 1024 in a cluster), and at its built widths runs the same kernel:
+Dh 64 and 128 one block alone, Dh 256 a cluster of 2.  Both run
+`TILES`.  The padded columns add exact zeros to every product, so the
+scores, the row log-sum-exp and the kept columns are the true width's;
+the scale is the true width's 1 / sqrt(Dh).  A width the kernels are
+built for launches as it is.  The output has q's dtype.  `LAUNCHES`
+counts forward kernel launches (the plain version never bumps it).
 
 The gradient.  The reference differentiates its attention in XLA,
 outside the Pallas kernel; here the forward on the card is the kernel,
@@ -48,21 +50,22 @@ autograd needs a gradient (grad mode on and an input requiring one), the
 dispatch sends CUDA tensors through `FlashAttention`, an autograd
 function whose forward is the kernel with that output and whose backward
 is the backward kernel; otherwise it launches the forward alone, as
-serving does.  `BWD_LAUNCHES` counts backward calls (two kernels each,
-three in float32 at the built widths, more in the passes past a
-cluster).  `flash_attention_lse_plain` and `flash_attention_bwd_plain` are
-their plain versions: the latter runs the same recurrence on the
-backward kernel's tiles (`BWD_TILES`) and is held to autograd of the
-plain forward by the CPU tests.  The backward kernel runs bf16 on the
-tensor cores (every product a wgmma chain, P and dS rounded to bf16
-once): at the built widths in blocks of 64 rows, above 256 in clusters of
+serving does.  `BWD_LAUNCHES` counts backward calls (two kernels each in
+both dtypes, more in the passes past a cluster).
+`flash_attention_lse_plain` and `flash_attention_bwd_plain` are their
+plain versions: the latter runs the same recurrence on the backward
+kernel's tiles (`BWD_TILES`) and is held to autograd of the plain
+forward by the CPU tests.  The backward kernel runs bf16 on the tensor
+cores (every product a wgmma chain, P and dS rounded to bf16 once): at
+the built widths in blocks of 64 rows, above 256 in clusters of
 `wide_bwd_blocks` column blocks that exchange their partial scores (past
 `WIDE_BWD_CLUSTER` blocks, Dh > 2048, in passes through float32 totals in
-the scratch, `bwd_scratch_floats`).  float32 runs on the CUDA cores at the
-built widths and, above 256, on the tensor cores in clusters of
-`wide_f32_blocks` column blocks of one chunk with its operands split into
-three bf16 parts (past a cluster, Dh > 512, in passes through the
-totals).  Every sum runs in a fixed order, so a call repeats bit for bit.
+the scratch, `bwd_scratch_floats`).  float32 runs on the tensor cores at
+every width, in clusters of `wide_f32_blocks` column blocks of one chunk
+with its operands split into three bf16 parts (Dh 64: each block alone,
+Dh 128 and 256 clusters of 2 and 4; past a cluster, Dh > 512, in passes
+through the totals).  Every sum runs in a fixed order, so a call repeats
+bit for bit.
 """
 from __future__ import annotations
 
@@ -75,26 +78,23 @@ import torch
 from ..nn import attention as _attn
 from .build import launch as _call, pad_cols as _pad_cols
 
-HEAD_DIMS = (64, 96, 128, 256)   # head widths the kernels are built for
+HEAD_DIMS = (64, 96, 128, 256)   # head widths the bf16 kernels are built for
 # wider heads run on the wide kernels, padded to a multiple of WIDE_SLICE
 # (their 64-column chunks, a 128-byte line of bf16)
 WIDE_SLICE = 64
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# (query rows, keys) of the kernel's tiles at the built widths, by dtype:
-# F32_BQ / F32_BK and BF_BQ / BF_BK in csrc/flash_attention.cu
-TILES = {torch.float32: (64, 64), torch.bfloat16: (128, 64)}
-# ... and past Dh 256, both dtypes: FW_ROWS / FW_BK (a block's two
-# warpgroups of 64 rows), the query tiles on a grid axis of their own
-WIDE_TILES = {torch.float32: (128, 64), torch.bfloat16: (128, 64)}
+# (query rows, keys) of the forward's tiles by dtype, at every width:
+# BF_BQ / BF_BK in csrc/flash_attention.cu (bf16 up to Dh 256) and FW_ROWS
+# / FW_BK (bf16 past 256, float32 everywhere: a block's two warpgroups of
+# 64 rows), the query tiles on a grid axis of their own
+TILES = {torch.float32: (128, 64), torch.bfloat16: (128, 64)}
 
-# (query rows, keys) of the backward's tiles by dtype and head width: bf16
-# 64 x 64 at every width (HB_TILE in csrc/flash_attention_bwd.cu, the wide
-# kernels' too), float32 BQ x bwd_bk<DH> (64 x 32 at Dh 256) and, on the
-# wide kernel ("wide"), HB_TILE's 64 x 64
-BWD_TILES = {torch.bfloat16: {64: (64, 64), 96: (64, 64), 128: (64, 64),
-                              256: (64, 64), "wide": (64, 64)},
-             torch.float32: {64: (64, 64), 96: (64, 64), 128: (64, 64),
-                             256: (64, 32), "wide": (64, 64)}}
+# (query rows, keys) of the backward's tiles by dtype and head width: 64 x
+# 64 at every width in both dtypes (HB_TILE in csrc/flash_attention_bwd.cu,
+# the wide kernels' too: "wide")
+BWD_TILES = {dtype: {64: (64, 64), 96: (64, 64), 128: (64, 64),
+                     256: (64, 64), "wide": (64, 64)}
+             for dtype in (torch.bfloat16, torch.float32)}
 # the grid dimensions the card launches at most (y and z)
 MAX_GRID_YZ = 65535
 # the kernels past Dh 256: column blocks of up to WIDE_BWD_CHUNKS 64-column
@@ -106,7 +106,8 @@ WIDE_BWD_CHUNKS, WIDE_BWD_CLUSTER = 4, 8
 WIDE_F32_FWD_CHUNKS = 2
 
 LAUNCHES = 0                # forward kernel launches in this process
-BWD_LAUNCHES = 0            # backward kernel calls (two or three launches)
+BWD_LAUNCHES = 0            # backward kernel calls (two launches each,
+                            # ncb + 2 past a cluster)
 
 
 def _check(q, k, v) -> None:
@@ -203,7 +204,7 @@ def flash_attention_bwd_plain(q, k, v, o, do, lse, *, causal=True,
     G = H // KvH
     scale = scale if scale is not None else 1.0 / math.sqrt(Dh)
     # a narrow head runs on the tiles of the width the kernel pads it to
-    width = kernel_width(Dh)
+    width = kernel_width(Dh, q.dtype)
     bq, bk = BWD_TILES.get(q.dtype, BWD_TILES[torch.float32])[
         width if width in HEAD_DIMS else "wide"]
 
@@ -263,14 +264,16 @@ def _bwd_lib():
     return fn
 
 
-def kernel_width(Dh: int) -> int:
-    """The head width the kernels run a Dh-wide head at (the head
-    zero-padded to it): the narrowest of `HEAD_DIMS` that holds it, or
-    above them the next multiple of `WIDE_SLICE` (the wide kernels)."""
-    for width in HEAD_DIMS:
-        if Dh <= width:
-            return width
-    return -(-Dh // WIDE_SLICE) * WIDE_SLICE
+def kernel_width(Dh: int, dtype: torch.dtype) -> int:
+    """The head width the kernels run a Dh-wide head of `dtype` at (the
+    head zero-padded to it): in bf16 the narrowest of `HEAD_DIMS` that
+    holds it, above them, and in float32 at every width, the next multiple
+    of `WIDE_SLICE`."""
+    if dtype == torch.bfloat16:
+        for width in HEAD_DIMS:
+            if Dh <= width:
+                return width
+    return max(1, -(-Dh // WIDE_SLICE)) * WIDE_SLICE
 
 
 def wide_bwd_blocks(width: int) -> int:
@@ -282,8 +285,8 @@ def wide_bwd_blocks(width: int) -> int:
 
 
 def wide_f32_blocks(width: int, forward: bool = False) -> int:
-    """Column blocks of the float32 kernels at a padded head `width` past
-    256: the backward's one 64-column chunk each, the forward's 1-2 (its
+    """Column blocks of the float32 kernels at a padded head `width` (a
+    multiple of `WIDE_SLICE`): the backward's one 64-column chunk each, the forward's 1-2 (its
     chunks dealt into blocks of at most `WIDE_F32_FWD_CHUNKS`); the
     cluster size up to `WIDE_BWD_CLUSTER`."""
     chunks = width // WIDE_SLICE
@@ -315,14 +318,12 @@ def _kernel_args(window, scale, Dh, *ts):
     the kernels' width and 16-byte aligned).  The default scale is the
     true width's, before any padding.  Refuses only what the card cannot
     launch: a grid dimension above `MAX_GRID_YZ`."""
-    width = kernel_width(Dh)
+    width = kernel_width(Dh, ts[0].dtype)
     if window is not None and window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
     B, Sq, H, _ = ts[0].shape
-    # bf16, and float32 past Dh 256, put the forward's query tiles on a
-    # grid axis of their own
-    tiles = -(-Sq // WIDE_TILES[ts[0].dtype][0]) \
-        if ts[0].dtype == torch.bfloat16 or width not in HEAD_DIMS else 1
+    # both dtypes put the forward's query tiles on a grid axis of their own
+    tiles = -(-Sq // TILES[ts[0].dtype][0])
     if max(B, H, tiles) > MAX_GRID_YZ:
         raise ValueError(f"flash_attention on the card: B = {B}, H = {H}, "
                          f"{tiles} query tiles; a grid dimension above "
@@ -365,10 +366,9 @@ def _flash_cuda(q, k, v, *, causal=True, window=None, scale=None,
 
 def _flash_bwd_cuda(q, k, v, o, do, lse, *, causal=True, window=None,
                     scale=None):
-    """Launch csrc/flash_attention_bwd.cu (two kernels; three in float32
-    at the built widths; more past a cluster, Dh > 2048 in bf16 or 512 in
-    float32) on the current stream (no sync); returns
-    (dq, dk, dv) in the inputs' dtype.  A padded head pads o and dO with
+    """Launch csrc/flash_attention_bwd.cu (two kernels; more past a
+    cluster, Dh > 2048 in bf16 or 512 in float32) on the current stream
+    (no sync); returns (dq, dk, dv) in the inputs' dtype.  A padded head pads o and dO with
     zeros too, so the row sums of dO o O are the true width's."""
     global BWD_LAUNCHES
     B, Sq, H, Dh = q.shape

@@ -196,15 +196,17 @@ def test_flash_plain_on_the_bf16_wide_tiles_matches_pallas(B, Sq, Sk, H,
 
 @pytest.mark.parametrize("Dh", [320, 2100])
 def test_wide_bf16_forward_grid_check_at_its_tile(Dh):
-    """The wide forward's query tiles (`WIDE_TILES`' 128 rows, both
+    """The wide forward's query tiles (`TILES`' 128 rows, both
     dtypes) lie on a grid axis of at most `MAX_GRID_YZ` (its column blocks
     ride with the (batch, head) pairs on the other): an Sq of exactly that
     many tiles passes the wrapper's check, one row more raises before any
     launch, at column blocks a cluster holds and past them (Dh 2100 ->
     2112: nine bf16 blocks, 33 float32 ones).  The float32 kernel at a
-    built width keeps its query tiles on the x axis: no such limit there.
-    Meta tensors: nothing is allocated."""
-    width = fa.kernel_width(Dh)
+    built width (the same kernel since it runs on the tensor cores) puts
+    its 128-row query tiles on that axis too: the same limit there.  Meta
+    tensors: nothing is allocated."""
+    width = fa.kernel_width(Dh, torch.bfloat16)
+    assert fa.kernel_width(Dh, torch.float32) == width
     assert fa.wide_bwd_blocks(width) == (2 if Dh == 320 else 9)
     assert fa.wide_f32_blocks(width) == width // 64
     assert fa.wide_f32_blocks(width, forward=True) == (3 if Dh == 320 else 17)
@@ -212,7 +214,7 @@ def test_wide_bf16_forward_grid_check_at_its_tile(Dh):
     def q(rows, dtype, d=Dh):
         return torch.empty((1, rows, 1, d), dtype=dtype, device="meta")
     for dtype in (torch.bfloat16, torch.float32):
-        bq = fa.WIDE_TILES[dtype][0]
+        bq = fa.TILES[dtype][0]
         assert bq == 128
         scale, (padded,) = fa._kernel_args(None, None, Dh,
                                            q(fa.MAX_GRID_YZ * bq, dtype))
@@ -220,7 +222,10 @@ def test_wide_bf16_forward_grid_check_at_its_tile(Dh):
         with pytest.raises(ValueError, match="grid dimension above 65535"):
             fa._kernel_args(None, None, Dh, q(fa.MAX_GRID_YZ * bq + 1, dtype))
     fa._kernel_args(None, None, 256,
-                    q(fa.MAX_GRID_YZ * 128 + 1, torch.float32, 256))
+                    q(fa.MAX_GRID_YZ * 128, torch.float32, 256))
+    with pytest.raises(ValueError, match="grid dimension above 65535"):
+        fa._kernel_args(None, None, 256,
+                        q(fa.MAX_GRID_YZ * 128 + 1, torch.float32, 256))
 
 
 # ---------------------------------------------------------------------------
@@ -412,7 +417,7 @@ def test_wide_bf16_bwd_blocks_and_scratch_on_the_card_route(monkeypatch, Dh,
     assert fa.BWD_LAUNCHES == before + 1
     fn, Dh_k, dtype, scratch = seen[-1]
     assert (fn, Dh_k, dtype) == ("backward", width, 1)
-    assert fa.kernel_width(Dh) == width
+    assert fa.kernel_width(Dh, torch.bfloat16) == width
     assert fa.wide_bwd_blocks(width) == blocks
     totals = B * H * 2 * 2 * 2 * 64 * 64 if blocks > fa.WIDE_BWD_CLUSTER \
         else 0
@@ -579,7 +584,8 @@ def test_wide_ssd_on_the_card_route(monkeypatch, p, n, s):
     ("flash_attention", "FWD_VARIANTS"),
     ("flash_attention", "FWD_F32_VARIANTS"),
     ("flash_attention_bwd", "BWD_VARIANTS"),
-    ("flash_attention_bwd", "BWD_F32_VARIANTS")])
+    ("flash_attention_bwd", "BWD_F32_VARIANTS"),
+    ("flash_attention_bwd", "BWD_F32_BUILT_VARIANTS")])
 def test_kernel_probe_variant_edits_apply(source, table):
     """`flash-wide-variants` / `flash-bwd-variants` (and their float32
     forms) build copies of a CUDA source with one part of a step dropped

@@ -169,7 +169,9 @@ def test_flash_padding_forward_and_backward(monkeypatch, Dh, width, B, Sq,
     """`FlashAttention` (the card's route when autograd needs a gradient)
     at a width the kernels are not built for: the launches see the padded
     width and the true width's scale; o equals the plain version at the
-    true width and dq, dk, dv the plain backward there."""
+    true width and dq, dk, dv the plain backward there.  `width` is the
+    bf16 kernels'; these float32 inputs pad to their dtype's width, the
+    same but for 80, which runs at 128 (float32 builds no 96)."""
     seen = []
     _flash_launches(monkeypatch, seen)
     _, (q, k, v, do) = _qkv(Dh + Sq, B, Sq, Sk, H, KvH, Dh)
@@ -179,8 +181,11 @@ def test_flash_padding_forward_and_backward(monkeypatch, Dh, width, B, Sq,
     o = fa.FlashAttention.apply(*leaves, causal, window, None)
     o.backward(do)
     assert (fa.LAUNCHES - f0, fa.BWD_LAUNCHES - b0) == (1, 1)
-    assert [(fn, d) for fn, d, _ in seen] == [("forward", width),
-                                             ("backward", width)]
+    assert fa.kernel_width(Dh, torch.bfloat16) == width
+    f32_width = fa.kernel_width(Dh, torch.float32)
+    assert f32_width == (128 if width == 96 else width)
+    assert [(fn, d) for fn, d, _ in seen] == [("forward", f32_width),
+                                             ("backward", f32_width)]
     assert all(s == 1.0 / math.sqrt(Dh) for _, _, s in seen)
     mask = dict(causal=causal, window=window)
     want = PLAIN_FLASH(q, k, v, **mask)
@@ -195,16 +200,25 @@ def test_flash_padding_forward_and_backward(monkeypatch, Dh, width, B, Sq,
 
 
 def test_flash_built_widths_launch_unpadded(monkeypatch):
-    """At a width the kernels are built for the launch takes the inputs as
-    they are: no copy, the caller's scale."""
+    """At a width the kernels of a dtype are built for the launch takes
+    the inputs as they are: no copy, the caller's scale (bf16
+    `HEAD_DIMS`, float32 every multiple of `WIDE_SLICE`).  A float32 head
+    96 wide, which float32 does not build, launches zero-padded to 128
+    with the caller's scale and equals the plain version at 96."""
     seen = []
     _flash_launches(monkeypatch, seen)
-    for Dh in fa.HEAD_DIMS:
-        _, (q, k, v, _) = _qkv(Dh, 1, 20, 20, 2, 2, Dh)
-        out = fa._flash_cuda(q, k, v, scale=0.25)
-        assert seen[-1] == ("forward", Dh, 0.25)
-        torch.testing.assert_close(out, fa.flash_attention_plain(
-            q, k, v, scale=0.25), rtol=0, atol=0)
+    for dtype, widths in (("bfloat16", fa.HEAD_DIMS),
+                          ("float32", (64, 128, 192, 256))):
+        for Dh in widths:
+            _, (q, k, v, _) = _qkv(Dh, 1, 20, 20, 2, 2, Dh, dtype)
+            out = fa._flash_cuda(q, k, v, scale=0.25)
+            assert seen[-1] == ("forward", Dh, 0.25)
+            torch.testing.assert_close(out, fa.flash_attention_plain(
+                q, k, v, scale=0.25), rtol=0, atol=0)
+    _, (q, k, v, _) = _qkv(96, 1, 20, 20, 2, 2, 96)
+    out = fa._flash_cuda(q, k, v, scale=0.25)
+    assert seen[-1] == ("forward", 128, 0.25) and out.shape == q.shape
+    _rel_close(out, fa.flash_attention_plain(q, k, v, scale=0.25), "Dh 96")
 
 
 def _ssd_launches(monkeypatch, seen, plain=PLAIN_SSD,
@@ -354,13 +368,18 @@ def test_refusals_name_the_limit_and_the_roadmap_item():
     padded widths (the wide kernels), p 65 / 128 and n 129 / 256 their
     blocks; only what the card cannot launch raises, a grid dimension
     above 65 535, and the message names that limit."""
-    assert (fa.kernel_width(257), fa.kernel_width(512)) == (320, 512)
+    bf, f32 = torch.bfloat16, torch.float32
+    assert (fa.kernel_width(257, bf), fa.kernel_width(512, bf)) == (320, 512)
     assert (ss.kernel_widths(65, 64), ss.kernel_widths(128, 64)) == \
         ((128, 64), (128, 64))
     assert (ss.kernel_widths(64, 129), ss.kernel_widths(64, 256)) == \
         ((64, 192), (64, 256))
-    assert [fa.kernel_width(d) for d in (1, 64, 65, 96, 97, 129, 256)] == \
-        [64, 64, 96, 96, 128, 256, 256]
+    assert [fa.kernel_width(d, bf) for d in (1, 64, 65, 96, 97, 129, 256)] \
+        == [64, 64, 96, 96, 128, 256, 256]
+    # float32's kernels take every multiple of 64
+    assert [fa.kernel_width(d, f32)
+            for d in (1, 64, 65, 96, 97, 129, 192, 193, 257)] == \
+        [64, 64, 128, 128, 128, 192, 192, 256, 320]
     assert [ss.kernel_widths(p, n) for p, n in ((1, 1), (64, 64),
                                                 (64, 65), (8, 128))] == \
         [(64, 64), (64, 64), (64, 128), (64, 128)]

@@ -1,7 +1,8 @@
 """The CUDA kernels (day scan in both output modes, with the full trace's
-initial SoC, up to 64 levels, flash attention at Dh 64 / 96 / 128 / 256,
-at narrower heads zero-padded to them and at wider heads on the wide
-kernels, and transformer prefills through it, SSD scan at p 64 and
+initial SoC, up to 64 levels, flash attention at Dh 64 / 96 / 128 / 256
+(float32 on the split-operand kernels, 96 padded to 128), at narrower
+heads zero-padded to them and at wider heads on the wide kernels, and
+transformer prefills through it, SSD scan at p 64 and
 narrower, and at wider p and n in blocks) against their plain PyTorch
 versions on the card, the day scan's paths: serial, batched (K queries
 folded into the combo axis), the legacy engine, `simulate_users`,
@@ -1337,6 +1338,112 @@ def test_flash_wide_f32_tolerances_see_a_one_part_shortcut(cuda):
     rounded to bf16 (what one bf16 part would multiply) misses both."""
     f32 = torch.float32
     B, Sq, Sk, H, KvH, Dh, causal, window = WIDE_FLASH_CASES[0]
+    q, do = (_randn(i, (B, Sq, H, Dh), f32, cuda) for i in (0, 3))
+    k, v = (_randn(i, (B, Sk, KvH, Dh), f32, cuda) for i in (1, 2))
+    mask = dict(causal=causal, window=window)
+    rounded = [t.bfloat16().float() for t in (q, k, v, do)]
+    atol, rtol = FLASH_TOL[f32]
+    want = fa.flash_attention_plain(q, k, v, **mask)
+    got = fa.flash_attention(q, k, v, **mask)
+    torch.cuda.synchronize()
+    assert torch.allclose(got, want, atol=atol, rtol=rtol)
+    assert not torch.allclose(fa.flash_attention_plain(*rounded[:3], **mask),
+                              want, atol=atol, rtol=rtol)
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    fa.flash_attention(qg, kg, vg, **mask).backward(do)
+    grads = _autograd_plain(q, k, v, do, causal, window)
+    ctl = _autograd_plain(*rounded, causal, window)
+    torch.cuda.synchronize()
+    for a, c, w in zip((qg.grad, kg.grad, vg.grad), ctl, grads):
+        top = float(w.abs().max())
+        assert float((a - w).abs().max()) <= BWD_TOL[f32] * top
+        assert float((c - w).abs().max()) > BWD_TOL[f32] * top
+
+
+# float32 at the built widths, the same split-operand kernels as past Dh
+# 256 (Dh 96 padded to 128, 160 to 192; Dh 64 and 128 one block alone
+# forward, 192 and 256 a cluster of 2; backward Dh 64 one block alone,
+# 128, 192 and 256 clusters of 2, 3 and 4): a window across tiles,
+# bidirectional Sq > Sk, causal Sq < Sk, a window below a tile, gemma3's
+# local window past many tiles
+BUILT_F32_CASES = [
+    (1, 300, 300, 4, 2, 64, True, 96),
+    (2, 200, 130, 4, 4, 64, False, None),
+    (1, 257, 257, 8, 2, 96, True, 5),
+    (1, 130, 330, 4, 2, 96, True, None),
+    (2, 300, 300, 8, 2, 128, True, 96),
+    (1, 200, 130, 4, 1, 128, False, None),
+    (1, 257, 257, 4, 2, 160, True, 96),
+    (1, 600, 600, 8, 4, 256, True, None),
+    (1, 1100, 1100, 8, 4, 256, True, 1024),
+]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KvH,Dh,causal,window", BUILT_F32_CASES)
+def test_flash_f32_built_forward_repeats_and_its_lse(cuda, B, Sq, Sk, H, KvH,
+                                                     Dh, causal, window):
+    """The float32 forward at Dh <= 256 (split operands on wgmma): within
+    the float32 tolerance of the plain version, one launch, a repeat
+    bit-equal, asking for the row lse leaves o as the serving launch
+    writes it, and the lse within 1e-5 of `flash_attention_lse_plain`."""
+    f32 = torch.float32
+    q = _randn(0, (B, Sq, H, Dh), f32, cuda)
+    k, v = (_randn(i, (B, Sk, KvH, Dh), f32, cuda) for i in (1, 2))
+    mask = dict(causal=causal, window=window)
+    before = fa.LAUNCHES
+    runs = [fa._flash_cuda(q, k, v, lse=True, **mask) for _ in range(2)]
+    served = fa._flash_cuda(q, k, v, **mask)
+    assert fa.LAUNCHES == before + 3
+    want = fa.flash_attention_plain(q, k, v, **mask)
+    want_lse = fa.flash_attention_lse_plain(q, k, **mask)
+    torch.cuda.synchronize()
+    (o, lse), (o2, lse2) = runs
+    atol, rtol = FLASH_TOL[f32]
+    assert o.shape == q.shape
+    torch.testing.assert_close(o, want, atol=atol, rtol=rtol)
+    assert torch.equal(o.view(torch.int32), o2.view(torch.int32))
+    assert torch.equal(o.view(torch.int32), served.view(torch.int32))
+    assert torch.equal(lse.view(torch.int32), lse2.view(torch.int32))
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KvH,Dh,causal,window", BUILT_F32_CASES)
+def test_flash_f32_built_bwd_matches_plain_version(cuda, B, Sq, Sk, H, KvH,
+                                                   Dh, causal, window):
+    """The float32 backward at Dh <= 256 (split operands on wgmma) on the
+    forward kernel's own o and lse against `flash_attention_bwd_plain` on
+    its tiles and autograd of the plain forward (1e-5 of each gradient's
+    largest magnitude), one call counted, a repeat bit-equal."""
+    f32 = torch.float32
+    q, do = (_randn(i, (B, Sq, H, Dh), f32, cuda) for i in (0, 3))
+    k, v = (_randn(i, (B, Sk, KvH, Dh), f32, cuda) for i in (1, 2))
+    mask = dict(causal=causal, window=window)
+    o, lse = fa._flash_cuda(q, k, v, lse=True, **mask)
+    before = fa.BWD_LAUNCHES
+    runs = [fa._flash_bwd_cuda(q, k, v, o, do, lse, **mask)
+            for _ in range(2)]
+    assert fa.BWD_LAUNCHES == before + 2
+    want = fa.flash_attention_bwd_plain(q, k, v, o, do, lse, **mask)
+    auto = _autograd_plain(q, k, v, do, causal, window)
+    torch.cuda.synchronize()
+    for a, b, w, u in zip(*runs, want, auto):
+        assert a.dtype == f32 and a.shape == w.shape
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        for ref_ in (w, u):
+            assert float((a - ref_).abs().max()) <= BWD_TOL[f32] * \
+                float(ref_.abs().max())
+
+
+@pytest.mark.parametrize("Dh", [64, 256])
+def test_flash_f32_built_tolerances_see_a_one_part_shortcut(cuda, Dh):
+    """The control of the float32 split at the built widths: at a causal
+    GQA shape the kernels meet the float32 tolerances (forward 2e-5
+    against the plain version, backward 1e-5 of each gradient's largest
+    magnitude against autograd of it), while the plain version on the
+    inputs rounded to bf16 (what one bf16 part would multiply) misses
+    both."""
+    f32 = torch.float32
+    B, Sq, Sk, H, KvH, causal, window = 1, 300, 300, 4, 2, True, None
     q, do = (_randn(i, (B, Sq, H, Dh), f32, cuda) for i in (0, 3))
     k, v = (_randn(i, (B, Sk, KvH, Dh), f32, cuda) for i in (1, 2))
     mask = dict(causal=causal, window=window)
