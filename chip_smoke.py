@@ -133,7 +133,7 @@ Run from the root of a checkout.  Phases (any failure exits non-zero):
      rtol = 2e-5 in float32 (tests/test_kernels.py), atol 8e-3 / rtol
      2^-7 (one bf16 spacing) in bf16; and in bf16 at the prefill shape,
      against the plain version on the kernel's own tiles
-     (`flash_attention.TILES`), a relative RMS error under
+     (`flash_attention.fwd_tile`), a relative RMS error under
      FLASH_ROUNDING_LIMIT, which the same plain version with p left
      unrounded (v in float32) must exceed; in float32 (the split-operand
      kernels on wgmma) at the prefill shape, the plain version
@@ -261,7 +261,11 @@ The training path and whisper-medium:
      teacher-forced forward (DEC_ATOL_REL x the spread, the bf16 forward
      outside it); one 2 + 2-layer train step through the kernels against
      the plain attention (6 + 6 launches);
- 22. timing: the backward kernel's ms at each phase 18 shape (bf16)
+ 22. timing: the bf16 forward kernel's ms at each phase 18 shape and
+     whisper's decoder self-attention (`FWD_SHAPES`) beside
+     scaled_dot_product_attention's forward and the bound (the flash
+     row's "shapes" in the `kernels` line); the backward kernel's ms at
+     each phase 18 shape (bf16)
      beside `flash_attention_bwd_plain`'s, scaled_dot_product_attention's
      backward (a yardstick only) and the bound (2.5 x the forward's
      products over the peak, or the bytes over HBM bandwidth), and in
@@ -450,7 +454,9 @@ launches summed over the serial, batched, legacy, simulate_users,
 simulate, gradient and fleet paths of phase 4, both modes; its
 max_abs_err covers phase 3 and the tables of 4 b, d, e, f, h and i;
 flash's launches summed over phases 7, 12, 15, 16, 19-21, 24, 27 and
-30, its max_abs_err over phases 6 and 11; the backward's launches over
+30, its max_abs_err over phases 6 and 11, its times at zamba2's
+prefill shape and, under "shapes", the bf16 forward's at phase 22's
+(with SDPA's forward and the bound); the backward's launches over
 phases 19-21, 24, 27 and 30, its max_abs_err over phase 18, its times at
 olmo-1b's shape; the SSD scan's launches over phases 7, 24, 25, 28 and
 30, its max_abs_err over phases 6 and 28 a; the SSD backward's calls
@@ -512,8 +518,11 @@ LM_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py
 # plus one bf16 spacing of the value
 FLASH_BF16_ATOL, FLASH_BF16_RTOL = 8e-3, 2.0 ** -7
 # relative RMS error of the bf16 flash kernel against the plain version on
-# its own tiles (float32 sum order only; 2.4e-5 on an H100) vs the
-# p-unrounded control (2.1e-3)
+# its own tiles (128 x 128 at the prefill shape's Dh 64): 1.04e-4 read on
+# an H100 80GB HBM3 at 700 W for flash_fwd_hb (float32 sum order and p by
+# ex2.approx, whose error flips some of p's bf16 roundings; 2.4e-5 for the
+# mma.sync kernel with expf it replaced) vs the p-unrounded control
+# (2.15e-3)
 FLASH_ROUNDING_LIMIT = 5e-4
 # relative RMS error of the bf16 SSD kernel against the plain version:
 # 2.0e-5 to 6.6e-5 read on an H100 (sum order and the bf16 rounding of y
@@ -560,8 +569,9 @@ BWD_HF_MODES = {"0": "cluster exchange", "1": "add totals",
 
 
 def ptxas_kernels(log: str) -> list:
-    """`flash_kernel_<dtype><Dh> N registers, spills` for each flash
-    instantiation in an nvcc -Xptxas -v log (`flash_fwd_hw<bf16>` for the
+    """`<kernel><instance> N registers, spills` for each flash
+    instantiation in an nvcc -Xptxas -v log (`flash_fwd_hb<bf16, Dh>` for
+    bf16 at the built widths, `flash_fwd_hw<bf16>` for the
     wide bf16 heads', `flash_fwd_hf<f32, mode>` for float32 at every
     width: "one block" at Dh 64 and 128, "cluster" at 256 and past it, "no
     cluster" past 8 column blocks), `flash_bwd_<launch><dtype, Dh>` for the
@@ -569,13 +579,12 @@ def ptxas_kernels(log: str) -> list:
     for float32: "one block" at Dh 64, "cluster exchange" at 128-512,
     "add totals" / "read totals" past 8 column blocks),
     `ssd_kernel_<launch><n>` and `ssd_bwd_<launch><dtype, n>` for the SSD
-    kernels', "y f32" / "dx f32" for the float32-output instances)."""
+    kernels', "y f32" / "dx f32" for the float32-output instances), and
+    each warning of ptxas that a wgmma chain was serialized."""
     out, name = [], None
     for line in log.splitlines():
-        m = re.search(r"entry function .*?(flash_kernel_[a-z0-9]+)ILi(\d+)E",
-                      line)
-        if m:
-            name = f"{m.group(1)}<{m.group(2)}>"
+        if "Performance Loss" in line:
+            out.append("ptxas warning: " + line.split(":", 1)[-1].strip())
         m = re.search(r"entry function .*?(ssd_kernel_[a-z0-9_]+?)"
                       r"ILi(\d+)E(Lb1E)?", line)
         if m:                           # the SSD forward's launches
@@ -586,8 +595,9 @@ def ptxas_kernels(log: str) -> list:
         if m:
             dtype = "bf16" if m.group(2) != "f" else "f32"
             name = f"{m.group(1)}<{dtype}{', ' + m.group(3) if m.group(3) else ''}>"
-        m = re.search(r"entry function .*?(flash_bwd_hb)ILi(\d+)E", line)
-        if m:                           # the bf16 tensor-core launch
+        m = re.search(r"entry function .*?(flash_(?:bwd|fwd)_hb)ILi(\d+)E",
+                      line)
+        if m:                           # the bf16 launches, built widths
             name = f"{m.group(1)}<bf16, {m.group(2)}>"
         m = re.search(r"entry function .*?(flash_(bwd|fwd)_h([wf]))"
                       r"(?:ILi(\d)E)?E", line)
@@ -2150,13 +2160,14 @@ def rel_rms(a, b) -> float:
 def check_flash_rounding(got, q, k, v) -> None:
     """The bf16 kernel rounds p to v's dtype before the PV product and sums
     l from the unrounded p (the reference's flash_attention.py:72).  The
-    plain version on the kernel's own tiles (`flash_attention.TILES`) has
-    the same running max, so the same p, and differs from the kernel only
-    by float32 sum order; that plain version with p left unrounded (v in
-    float32) must differ by more than FLASH_ROUNDING_LIMIT."""
+    plain version on the kernel's own tiles (`flash_attention.fwd_tile`)
+    has the same running max, so p within ex2.approx's error of the
+    kernel's, and differs from the kernel by that and the float32 sum
+    order; that plain version with p left unrounded (v in float32) must
+    differ by more than FLASH_ROUNDING_LIMIT."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.nn import attention as attn
-    bq, bk = fa.TILES[q.dtype]
+    bq, bk = fa.fwd_tile(q.shape[3], q.dtype)
     tiles = {"causal": True, "chunk_q": bq, "chunk_k": bk}
     want = attn.chunked_attention(q, k, v, **tiles)
     kernel = rel_rms(got, want)
@@ -2334,7 +2345,7 @@ def frames_sha256(a) -> str:
 
 
 def profile_device(fn, label: str, reps: int = 1,
-                   tags=("flash_kernel", "ssd_kernel"),
+                   tags=("flash_fwd", "ssd_kernel"),
                    host_ops: bool = True) -> str:
     """Device time per call of `fn` by kernel, from torch.profiler: the
     device-busy ms beside the host-clock wall ms, the ms of the kernels
@@ -2928,7 +2939,7 @@ def transformer_phases(dev) -> tuple:
     prefill_profile = profile_device(
         lambda: prefill16(params16, {"tokens": tokens}),
         f"gemma3-4b bf16 prefill, B={B_PREFILL} S={S_PREFILL}",
-        tags=("flash_kernel",))
+        tags=("flash_fwd",))
     del params16, tokens
 
     # 15. phi-3-vision at full width and depth, 576 vision embeddings
@@ -3096,6 +3107,10 @@ BWD_SHAPES = (("olmo-1b", 2, 2048, 2048, 16, 16, 128, True, None),
               ("phi-3-vision", 1, 2048, 2048, 32, 32, 96, True, None),
               ("zamba2-1.2b shared block", 4, 2048, 2048, 32, 32, 64, True,
                None))
+# the bf16 forward's timed shapes (phase 22): BWD_SHAPES and whisper's
+# causal decoder self-attention over its text context
+FWD_SHAPES = BWD_SHAPES + (("whisper decoder", 2, 448, 448, 16, 16, 64, True,
+                            None),)
 # float32 dq / dk / dv against autograd of `flash_attention_plain`: max
 # abs error over the gradient's largest magnitude (3.7e-6 the worst read
 # at these shapes on an H100 80GB HBM3 at 700 W: float32 sums in another
@@ -3254,24 +3269,56 @@ def check_flash_bwd(dev, shapes=BWD_SHAPES, seed: int = 8, note=None,
     return worst
 
 
+def time_flash_fwd(q, k, v, name: str, causal: bool, window) -> dict:
+    """The bf16 forward kernel's serving launch at one shape (CUDA events,
+    10 calls after a warm one) beside scaled_dot_product_attention's
+    forward (10 calls after a warm one; a yardstick, the port never calls
+    it) and the bound; prints the line and returns its row."""
+    from repro_torch.kernels import flash_attention as fa
+    B, Sq, H, Dh = q.shape
+    fwd = lambda: fa._flash_cuda(  # noqa: E731
+        q, k, v, causal=causal, window=window)
+    fwd()
+    ms = cuda_ms(fwd, 10)
+    sdpa, backend = sdpa_call(q, k, v, causal, window)
+    sdpa()
+    sdpa_ms = cuda_ms(sdpa, 10)
+    bound, by = flash_bound(q, k, causal, window)
+    print(f"flash fwd kernel ({name}: B={B} Sq={Sq} Sk={k.shape[1]} H={H} "
+          f"KvH={k.shape[2]} Dh={Dh} causal={causal} window={window} bf16): "
+          f"{ms:.4f} ms; scaled_dot_product_attention {sdpa_ms:.4f} ms by "
+          f"its {backend} backend; bound {bound:.5f} ms by {by} "
+          f"({bound / ms * 100:.1f} % of it reached)")
+    return {"name": name, "ms": ms, "library_ms": sdpa_ms,
+            "library": backend, "bound_ms": bound, "bound_by": by}
+
+
 def time_flash_bwd(dev) -> list:
-    """Phase 22's kernel times: at each BWD_SHAPES entry in bf16, the
+    """Phase 22's kernel times: at each FWD_SHAPES entry in bf16, the
+    forward kernel (`time_flash_fwd`), and at each BWD_SHAPES entry the
     backward kernel alone (CUDA events, 10 calls, on the forward kernel's
     own o and lse), the plain version `flash_attention_bwd_plain` (1 warm
     call), scaled_dot_product_attention's backward (10 calls; a
     yardstick, the port never calls it) and the bound, then float32 beside
     SDPA's float32; returns the rows (name, ms, plain ms, bound, bound_by,
-    sdpa backward ms) and the first shape's (olmo-1b's) float32 (ms, plain
-    ms, bound, bound_by, SDPA ms), the float32 built-width row's."""
+    sdpa backward ms), the first shape's (olmo-1b's) float32 (ms, plain
+    ms, bound, bound_by, SDPA ms), the float32 built-width row's, and the
+    forward's rows."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     gen = torch.Generator(device=dev).manual_seed(9)
-    rows, f32_row = [], None
-    for name, B, Sq, Sk, H, KvH, Dh, causal, window in BWD_SHAPES:
+    rows, f32_row, fwd_rows, fwd_s = [], None, [], 0.0
+    for name, B, Sq, Sk, H, KvH, Dh, causal, window in FWD_SHAPES:
         q, do = (torch.randn((B, Sq, H, Dh), generator=gen, device=dev)
                  .to(torch.bfloat16) for _ in range(2))
         k, v = (torch.randn((B, Sk, KvH, Dh), generator=gen, device=dev)
                 .to(torch.bfloat16) for _ in range(2))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fwd_rows.append(time_flash_fwd(q, k, v, name, causal, window))
+        fwd_s += time.perf_counter() - t0
+        if (name, B, Sq, Sk, H, KvH, Dh, causal, window) not in BWD_SHAPES:
+            continue
         o, lse = fa._flash_cuda(q, k, v, causal=causal, window=window,
                                 lse=True)
         bwd = lambda: fa._flash_bwd_cuda(  # noqa: E731
@@ -3313,7 +3360,9 @@ def time_flash_bwd(dev) -> list:
             f32_row = (f_ms, cuda_ms(plain, 1), f_bound, f_by, f_lib)
             del o, lse
         del q, k, v, do
-    return rows, f32_row
+    print(f"phase 22's bf16 forward times ({len(fwd_rows)} shapes): "
+          f"{fwd_s:.2f} s wall")
+    return rows, f32_row, fwd_rows
 
 
 def train_flops(cfg, B: int, S: int) -> float:
@@ -3499,7 +3548,7 @@ def train_olmo(dev) -> tuple:
     prof = profile_device(lambda: step(params, state, batch),
                           f"{TRAIN_ARCH} make_train_step (remat), "
                           f"B={TRAIN_B} S={TRAIN_S}",
-                          tags=("flash_kernel", "flash_bwd"))
+                          tags=("flash_fwd", "flash_bwd"))
     # the first step, the trained and resumed steps, the compressed step
     n = L * (1 + TRAIN_STEPS + RESUME_STEPS + 1)
     return n, n, line, prof
@@ -3697,7 +3746,7 @@ def training_phases(dev) -> tuple:
     """Phases 18-22; returns (flash forward launches on their main paths,
     the largest flash backward error, the backward kernel's `kernels`
     row, phase 18's largest float32 backward error, phase 22's float32
-    row)."""
+    row, phase 22's bf16 forward rows)."""
     import torch
     # 18. the backward kernel vs autograd of the plain version
     phase(18)
@@ -3721,7 +3770,7 @@ def training_phases(dev) -> tuple:
     torch.cuda.empty_cache()
     # 22. timing
     phase(22)
-    rows, f32_row = time_flash_bwd(dev)
+    rows, f32_row, fwd_rows = time_flash_bwd(dev)
     print(train_line)
     print(train_prof)
     n_bwd = n_b19 + n_b20 + n_b21
@@ -3735,7 +3784,7 @@ def training_phases(dev) -> tuple:
         "replaces": "src/repro/kernels/flash_attention.py:36",
         "launches": n_bwd, "max_abs_err": worst, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-        "library_ms": sdpa_ms}, errors[torch.float32], f32_row
+        "library_ms": sdpa_ms}, errors[torch.float32], f32_row, fwd_rows
 
 
 # ---------------------------------------------------------------------------
@@ -4313,7 +4362,7 @@ def ssm_training_phases(dev) -> tuple:
                           f"{SSM_TRAIN_ARCH} make_train_step (remat), "
                           f"B={SSM_TRAIN_B} S={SSM_TRAIN_S}",
                           tags=("ssd_kernel", "ssd_bwd", *SSD_BWD_LAUNCHES,
-                                "flash_kernel", "flash_bwd"))
+                                "flash_fwd", "flash_bwd"))
     del params, state, batch
     torch.cuda.empty_cache()
     # 25. card vs CPU; mamba2-2.7b
@@ -4448,7 +4497,7 @@ def train_gemma3(dev) -> tuple:
     prof = profile_device(lambda: step(params, state, batch),
                           f"{GEMMA_TRAIN_ARCH} make_train_step (remat), {L} "
                           f"layers, B={TRAIN_B} S={TRAIN_S}",
-                          tags=("flash_kernel", "flash_bwd"))
+                          tags=("flash_fwd", "flash_bwd"))
     n = L * (1 + GEMMA_TRAIN_STEPS)  # the first step and the trained steps
     return n, n, line, prof
 
@@ -6182,8 +6231,10 @@ def main() -> None:
     n_tf, err_tf, f32_err11, f32_fwd = transformer_phases(dev)
     lm_rows[0]["launches"] += n_tf
     lm_rows[0]["max_abs_err"] = max(lm_rows[0]["max_abs_err"], err_tf)
-    n_train, _, bwd_row, f32_err18, f32_bwd = training_phases(dev)
+    n_train, _, bwd_row, f32_err18, f32_bwd, fwd_rows = training_phases(dev)
     lm_rows[0]["launches"] += n_train
+    # the bf16 forward beside SDPA's at the training and whisper shapes
+    lm_rows[0]["shapes"] = fwd_rows
     n_ssd_train, ssd_bwd_row, fa_f, fa_b = ssm_training_phases(dev)
     lm_rows[0]["launches"] += fa_f
     bwd_row["launches"] += fa_b

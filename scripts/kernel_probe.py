@@ -14,7 +14,12 @@ for working on one kernel.
                                                      # ptxas, edges vs its
                                                      # plain version and
                                                      # autograd, times
-    python3 scripts/kernel_probe.py flash-variants   # exp2 fold / 4 warps
+    python3 scripts/kernel_probe.py flash-bf16-variants  # the bf16
+                                                     # forward at the built
+                                                     # widths with one part
+                                                     # of its design
+                                                     # switched off, in
+                                                     # turns
     python3 scripts/kernel_probe.py flash-compare OTHER.cu   # another copy
                                                      # of the flash source
                                                      # vs this one, in turns
@@ -61,10 +66,12 @@ the card named on its first line.  `day` builds csrc/day_scan.cu and the
 one-thread-per-combo baseline csrc/day_scan_thread.cu with their probe
 modes (as is; inputs held in registers; no loads or stores, the chain's
 floor) and times each on the serving grid's tables at N = 1, 64 and 1024
-combos, in ns and SM cycles per step.  `flash-variants` builds four
-variants of csrc/flash_attention.cu (8 or 4 warps a block; `expf` or
-scale·log2e folded into `exp2f`) into build/probe/ and times them in
-turns.
+combos, in ns and SM cycles per step.  `flash-bf16-variants` builds
+copies of csrc/flash_attention.cu with one switch of flash_fwd_hb's
+design flipped (`BF16_VARIANTS`: the consumers' turns, the softmax
+overlap, TMA, ex2.approx, the fma fold, the 128-key tile, the stages)
+or the softmax or the products
+dropped into build/probe/ and times them in turns at the prefill shapes.
 """
 from __future__ import annotations
 
@@ -232,7 +239,7 @@ def probe_flash() -> None:
             q = rn(gen, (B, Sq, H, Dh), dtype)
             k, v = (rn(gen, (B, Sk, KvH, Dh), dtype) for _ in range(2))
             got = fa.flash_attention(q, k, v, causal=causal, window=window)
-            bq, bk = fa.TILES[dtype]
+            bq, bk = fa.fwd_tile(Dh, dtype)
             tiled = attn.chunked_attention(
                 q, k, v, causal=causal, window=window, chunk_q=bq,
                 chunk_k=bk, bidirectional=not causal and window is None)
@@ -618,32 +625,6 @@ def probe_row_stage() -> None:
         print(line, flush=True)
 
 
-def variant_source() -> Path:
-    """csrc/flash_attention.cu with two knobs: FA_WARPS (warps a block)
-    and FA_EXP2 (scale·log2e folded into exp2f)."""
-    s = (build.CSRC / "flash_attention.cu").read_text()
-    s = s.replace("constexpr int BF_WARPS = 8;",
-                  "#ifndef FA_WARPS\n#define FA_WARPS 8\n#endif\n"
-                  "constexpr int BF_WARPS = FA_WARPS;")
-    s = s.replace("  const int r_first = q0 + 16 * warp;",
-                  "  const float sl2 = a.scale * 1.4426950408889634f;\n"
-                  "  const int r_first = q0 + 16 * warp;")
-    s = s.replace("          float x = s[j][e] * a.scale;",
-                  "#ifdef FA_EXP2\n          float x = s[j][e] * sl2;\n"
-                  "#else\n          float x = s[j][e] * a.scale;\n#endif")
-    for old in ("alpha[r] = expf(m[r] - m_new);",
-                "s[j][2 * r] = expf(s[j][2 * r] - m_new);",
-                "s[j][2 * r + 1] = expf(s[j][2 * r + 1] - m_new);"):
-        if old not in s:
-            raise RuntimeError(f"flash source changed: {old!r} not found")
-        s = s.replace(old, "\n#ifdef FA_EXP2\n" + old.replace("expf", "exp2f")
-                      + "\n#else\n" + old + "\n#endif\n")
-    out = build.BUILD_DIR.parent / "probe" / "flash_variant.cu"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    out.write_text(s)
-    return out
-
-
 def bind_forward(lib, with_lse: bool):
     """A library's `flash_attention_launch` as a call of the source's
     first ABI (q, k, v, o, B, ...): a build whose entry takes the row
@@ -657,49 +638,6 @@ def bind_forward(lib, with_lse: bool):
     if not with_lse:
         return fn
     return lambda q, k, v, o, *rest: fn(q, k, v, o, None, *rest)
-
-
-def probe_flash_variants() -> None:
-    """Four builds of the bf16 flash kernel, timed in turns at the prefill
-    shape, each with its relative RMS against the plain version on its
-    own tiles."""
-    src = variant_source()
-    variants = {"8 warps, expf": [], "8 warps, exp2f": ["-DFA_EXP2"],
-                "4 warps, expf": ["-DFA_WARPS=4"],
-                "4 warps, exp2f": ["-DFA_WARPS=4", "-DFA_EXP2"]}
-    procs = {}
-    for i, (name, flags) in enumerate(variants.items()):
-        lib = src.parent / f"flash_variant{i}.so"
-        procs[name] = (lib, subprocess.Popen(
-            [build.nvcc(), *build.NVCC_FLAGS, *flags, "-o", str(lib),
-             str(src)], stderr=subprocess.PIPE, text=True))
-    fns = {}
-    for name, (lib, proc) in procs.items():
-        err = proc.communicate()[1]
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed for {name}:\n{err}")
-        fns[name] = bind_forward(ctypes.CDLL(str(lib)), True)
-    gen = torch.Generator(device=DEV).manual_seed(2)
-    q, k, v = (rn(gen, (2, 4096, 32, 64), torch.bfloat16) for _ in range(3))
-
-    def run(fn):
-        o = torch.empty_like(q)
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), 2,
-                 4096, 4096, 32, 32, 64, 1, -1, 1 / math.sqrt(64), 1,
-                 torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise RuntimeError(f"launch failed: CUDA error {err}")
-        return o
-
-    for turn in range(2):
-        for name, fn in fns.items():
-            line = f"flash variant {name}: {cuda_ms(lambda: run(fn)):.4f} ms"
-            if turn == 0:
-                bq = 64 if name.startswith("4") else 128
-                tiled = attn.chunked_attention(q, k, v, causal=True,
-                                               chunk_q=bq, chunk_k=64)
-                line += f", rel RMS vs tiled {rel_rms(run(fn), tiled):.3g}"
-            print(line, flush=True)
 
 
 def other_width(text: str):
@@ -719,18 +657,19 @@ def probe_flash_compare(other: str) -> None:
     zamba2-1.2b prefill shape, bf16 and float32, both called directly:
     times in turns (other, this, this, other), outputs bit for bit.  Then
     through the checkout's wrapper (padding; `_lib` swapped): at
-    `FLASH_TIMED` in both dtypes (the built widths 64, 96, 256), every
-    `chip_smoke.WIDE_FLASH` shape in both dtypes and
-    `chip_smoke.WIDE_FLASH_TIMED` in both, each with o and its row lse
-    compared bit for bit between the builds; past Dh 256 and in float32
-    also each build's largest error against the plain version (o, and in
-    float32 the lse against `flash_attention_lse_plain`), whether a repeat
-    is bit-equal and, in float32 (whose kernels differ from the parent's),
-    the two builds' largest difference; times in turns at the timed
-    shapes (olmo-1b's prefill, B 2 x S 2048, H 16, Dh 128, among them)
-    and the wide ones, each build at the head width it takes
-    (`other_width`); last, how many SASS instructions of each kernel
-    differ."""
+    `FLASH_TIMED` in both dtypes (the built widths 96 and 256), olmo-1b's
+    prefill (B 2 x S 2048, H 16, Dh 128) in float32, the bf16 forward's
+    `chip_smoke.FWD_SHAPES` (olmo-1b, whisper's encoder, cross and decoder
+    attention, gemma3-4b's global and local layers, phi-3-vision,
+    zamba2-1.2b's shared block), every `chip_smoke.WIDE_FLASH` shape in
+    both dtypes and `chip_smoke.WIDE_FLASH_TIMED` in both, each with o and
+    its row lse compared bit for bit between the builds, each build's
+    largest error against the plain version (o, and in float32 the lse
+    against `flash_attention_lse_plain`) and whether a repeat is
+    bit-equal and, in float32, the two builds' largest difference; times
+    in turns at the timed shapes and the wide ones, each build at the head
+    width it takes (`other_width`); last, how many SASS instructions of
+    each kernel differ."""
     lib = build.BUILD_DIR.parent / "probe" / "flash_other.so"
     lib.parent.mkdir(parents=True, exist_ok=True)
     proc = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(lib),
@@ -774,7 +713,9 @@ def probe_flash_compare(other: str) -> None:
               for h, kvh, d, w in FLASH_TIMED[1:]
               for dtype in (torch.bfloat16, torch.float32)]
     shapes += [(("timed olmo-1b Dh 128", 2, 2048, 2048, 16, 16, 128, True,
-                 None), dtype) for dtype in (torch.bfloat16, torch.float32)]
+                 None), torch.float32)]
+    shapes += [((f"timed {s_[0]}", *s_[1:]), torch.bfloat16)
+               for s_ in chip_smoke.FWD_SHAPES]
     width = other_width(Path(other).read_text())
     shapes += [(s_, dtype) for s_ in chip_smoke.WIDE_FLASH
                for dtype in (torch.bfloat16, torch.float32)]
@@ -805,17 +746,15 @@ def probe_flash_compare(other: str) -> None:
             a, b = f(), f()
             torch.cuda.synchronize()
             firsts.append(a)
-            if wide or f32:
-                err = float((a[0].float() - fa.flash_attention_plain(
-                    q, k, v, **mask).float()).abs().max())
-                same = all(chip_smoke.bits_equal(x, y) for x, y in zip(a, b))
-                lse = ""
-                if f32:
-                    lse_err = (a[1] - fa.flash_attention_lse_plain(q, k, **mask))
-                    lse = f", lse {float(lse_err.abs().max()):.3g}"
-                print(f"{label}, {who}: max abs err vs flash_attention_plain "
-                      f"{err:.3g}{lse}; a repeat bit-equal: {same}",
-                      flush=True)
+            err = float((a[0].float() - fa.flash_attention_plain(
+                q, k, v, **mask).float()).abs().max())
+            same = all(chip_smoke.bits_equal(x, y) for x, y in zip(a, b))
+            lse = ""
+            if f32:
+                lse_err = (a[1] - fa.flash_attention_lse_plain(q, k, **mask))
+                lse = f", lse {float(lse_err.abs().max()):.3g}"
+            print(f"{label}, {who}: max abs err vs flash_attention_plain "
+                  f"{err:.3g}{lse}; a repeat bit-equal: {same}", flush=True)
         line = (f"{label}: other and this bit-equal (o, lse): "
                 f"{all(chip_smoke.bits_equal(x, y) for x, y in zip(*firsts))}")
         if f32:
@@ -924,13 +863,72 @@ FWD_F32_VARIANTS = {
 }
 
 
-def probe_flash_wide_variants(variants=None, dtype=torch.bfloat16) -> None:
-    """Builds of csrc/flash_attention.cu with one part of the wide
-    forward's step dropped or changed (`FWD_VARIANTS` for bf16,
-    `FWD_F32_VARIANTS` for float32), timed in turns (each in order, then
-    in reverse) at `chip_smoke.WIDE_FLASH_TIMED`, each beside its largest
-    error against the plain version: where the step's time goes."""
+# the bf16 forward at the built widths (flash_fwd_hb): each part of the
+# design switched off in turn (the outputs stay right; the kv tile of 64
+# rounds p on other tiles), then two parts of the step dropped
+BF16_VARIANTS = {
+    "as built": [],
+    "no ping-pong (the consumers issue as they come)": [
+        ("constexpr bool HB_PINGPONG = true;",
+         "constexpr bool HB_PINGPONG = false;")],
+    "no softmax overlap (one product at a time)": [
+        ("constexpr bool HB_OVERLAP = true;",
+         "constexpr bool HB_OVERLAP = false;")],
+    "neither overlap nor ping-pong": [
+        ("constexpr bool HB_PINGPONG = true;",
+         "constexpr bool HB_PINGPONG = false;"),
+        ("constexpr bool HB_OVERLAP = true;",
+         "constexpr bool HB_OVERLAP = false;")],
+    "cp.async by the producer warpgroup in place of TMA": [
+        ("constexpr bool HB_TMA = true;", "constexpr bool HB_TMA = false;")],
+    "expf in place of ex2.approx": [
+        ("constexpr bool HB_EXP2 = true;", "constexpr bool HB_EXP2 = false;")],
+    "kv tile 64 at Dh <= 128": [
+        ("return dh <= 128 ? 128 : 64;", "return 64;")],
+    "three stages up to Dh 128": [
+        ("constexpr int hb_stages(int) { return 2; }",
+         "constexpr int hb_stages(int dh) { return dh <= 128 ? 3 : 2; }")],
+    "the scale and the shift in two steps (no fma)": [
+        ("constexpr bool HB_FOLD = true;", "constexpr bool HB_FOLD = false;")],
+    # where the time goes (wrong outputs: they only time what is left)
+    "no softmax (P = S)": [
+        ("  const bool fold = HB_FOLD && !edge && sc > 0.f;",
+         "  alpha[0] = alpha[1] = 1.f;\n  if (sc != 0.f) return;\n"
+         "  const bool fold = HB_FOLD && !edge && sc > 0.f;")],
+    "no products (S and P V not issued)": [
+        ("  for (int kk = 0; kk < DH / 16; ++kk) {   // chunk kk / 4, its "
+         "k-step", "  for (int kk = 0; kk < 0; ++kk) {"),
+        ("  for (int kk = 0; kk < T::BK / 16; ++kk) {\n"
+         "    const unsigned char* rows = v + kk * 16 * 128;",
+         "  for (int kk = 0; kk < 0; ++kk) {\n"
+         "    const unsigned char* rows = v + kk * 16 * 128;")],
+}
+# (label, B, S, H, KvH, Dh, causal, window) the built-width variants are
+# timed at: the prefill shapes of zamba2-1.2b, phi-3-vision and gemma3-4b
+# (FLASH_TIMED) and olmo-1b's training step
+BUILT_BF16_SHAPES = (
+    ("zamba2-1.2b", 2, 4096, 32, 32, 64, True, None),
+    ("phi-3-vision", 2, 4096, 32, 32, 96, True, None),
+    ("olmo-1b", 2, 2048, 16, 16, 128, True, None),
+    ("gemma3-4b global", 2, 4096, 8, 4, 256, True, None),
+    ("gemma3-4b local", 2, 4096, 8, 4, 256, True, 1024))
+
+
+def probe_flash_wide_variants(variants=None, dtype=torch.bfloat16,
+                              shapes=None, kernel=None) -> None:
+    """Builds of csrc/flash_attention.cu with one part of a forward's step
+    dropped or changed (`FWD_VARIANTS` for the bf16 wide forward,
+    `FWD_F32_VARIANTS` for float32, `BF16_VARIANTS` for bf16 at the built
+    widths), timed in turns (each in order, then in reverse) at `shapes`
+    ((label, B, S, H, KvH, Dh, causal, window); by default
+    `chip_smoke.WIDE_FLASH_TIMED`), each beside its largest error against
+    the plain version: where the step's time goes.  `kernel` picks the
+    ptxas lines printed (by default the wide kernel of `dtype`)."""
     variants = FWD_VARIANTS if variants is None else variants
+    if shapes is None:
+        shapes = [("timed", *chip_smoke.WIDE_FLASH_TIMED)]
+    if kernel is None:
+        kernel = "hw<" if dtype == torch.bfloat16 else "hf<"
     src = (build.CSRC / "flash_attention.cu").read_text()
     out = build.BUILD_DIR.parent / "probe"
     out.mkdir(parents=True, exist_ok=True)
@@ -954,33 +952,38 @@ def probe_flash_wide_variants(variants=None, dtype=torch.bfloat16) -> None:
             raise RuntimeError(f"nvcc failed for {name}:\n{err}")
         print(f"ptxas {name}: " + "; ".join(
             k for k in chip_smoke.ptxas_kernels(err)
-            if ("hw<" if dtype == torch.bfloat16 else "hf<") in k))
+            if kernel in k or "warning" in k))
         fn = ctypes.CDLL(str(lib)).flash_attention_launch
         fn.argtypes = fa._lib().argtypes
         fn.restype = ctypes.c_int
         fns[name] = fn
-    B, S, H, KvH, Dh, causal, window = chip_smoke.WIDE_FLASH_TIMED
     gen = torch.Generator(device=DEV).manual_seed(9)
-    q = rn(gen, (B, S, H, Dh), dtype)
-    k, v = (rn(gen, (B, S, KvH, Dh), dtype) for _ in range(2))
+    for label, B, S, H, KvH, Dh, causal, window in shapes:
+        q = rn(gen, (B, S, H, Dh), dtype)
+        k, v = (rn(gen, (B, S, KvH, Dh), dtype) for _ in range(2))
 
-    def run(fn):
-        saved = fa._lib
-        fa._lib = lambda: fn
-        try:
-            return fa._flash_cuda(q, k, v, causal=causal, window=window)
-        finally:
-            fa._lib = saved
-    plain = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
-    for name, fn in fns.items():
-        err = float((run(fn).float() - plain.float()).abs().max())
-        print(f"flash fwd variant {name}: max abs err vs plain {err:.3g}",
-              flush=True)
-    order = list(fns)
-    for name in order + order[::-1]:
-        print(f"flash fwd variant {name} (B={B} S={S} H={H} Dh={Dh} causal "
-              f"{str(dtype)[6:]}): {cuda_ms(lambda: run(fns[name]), 5):.4f} "
-              f"ms", flush=True)
+        def run(fn):
+            saved = fa._lib
+            fa._lib = lambda: fn
+            try:
+                return fa._flash_cuda(q, k, v, causal=causal, window=window)
+            finally:
+                fa._lib = saved
+        plain = fa.flash_attention_plain(q, k, v, causal=causal,
+                                         window=window)
+        for name, fn in fns.items():
+            err = float((run(fn).float() - plain.float()).abs().max())
+            print(f"flash fwd variant {name} ({label}): max abs err vs "
+                  f"plain {err:.3g}", flush=True)
+        order = list(fns)
+        reps = 20 if Dh <= 256 and dtype == torch.bfloat16 else 5
+        for name in order + order[::-1]:
+            print(f"flash fwd variant {name} ({label}: B={B} S={S} H={H} "
+                  f"KvH={KvH} Dh={Dh} causal window={window} "
+                  f"{str(dtype)[6:]}): "
+                  f"{cuda_ms(lambda: run(fns[name]), reps):.4f} ms",
+                  flush=True)
+        del q, k, v, plain
 
 
 def sass(lib: Path) -> dict:
@@ -1484,10 +1487,12 @@ def probe_wide() -> None:
 
 def main() -> None:
     probes = {"day": probe_day, "flash": probe_flash, "ssd": probe_ssd,
-              "flash-variants": probe_flash_variants,
               "flash-bwd": probe_flash_bwd, "ssd-bwd": probe_ssd_bwd,
               "flash-bwd-variants": probe_flash_bwd_variants,
               "flash-wide-variants": probe_flash_wide_variants,
+              "flash-bf16-variants": lambda: probe_flash_wide_variants(
+                  BF16_VARIANTS, torch.bfloat16, BUILT_BF16_SHAPES,
+                  "fwd_hb<"),
               "flash-wide-f32-variants": lambda: probe_flash_wide_variants(
                   FWD_F32_VARIANTS, torch.float32),
               "flash-bwd-f32-variants": lambda: probe_flash_bwd_variants(

@@ -18,35 +18,53 @@
 // q - window (window) are set to -1e30; m_new = max(m, rowmax s),
 // alpha = exp(m - m_new), p = exp(s - m_new), l = l * alpha + rowsum p
 // (p unrounded), acc = acc * alpha + round_to_v_dtype(p) @ v;
-// o = acc / max(l, 1e-30) in q's dtype.  exp is expf (no exp2 folding, no
-// fast math), so p equals the plain version's for the same s and m, in
-// the bf16 kernel at the built widths; the kernels on wgmma (bf16 past Dh
-// 256, float32 at every width) fold the scale into log2 units and take
-// ex2.approx (see flash_fwd_hw's section).
+// o = acc / max(l, 1e-30) in q's dtype.  Every kernel here folds the
+// scale into log2 units and takes p = 2^(s scale log2e - m) by ex2.approx
+// (relative error ~2^-22, before P's rounding to bf16 in bf16), m in log2
+// units and the lse m ln 2 + log l.
 //
 // What bounds it: at the slice's shape (B = 2, S = 4096, H = 32, Dh = 64,
 // causal, bf16) the work is ~137 GFLOP of products against ~134 MB of
 // traffic, so it is bound by operations: ~0.14 ms at the bf16 tensor-core
 // peak.
 //
-// bfloat16 (flash_kernel_bf16): FlashAttention-2's layout on the tensor
-// cores.  A block of 8 warps owns 128 query rows (16 per warp) and walks
-// 64-key tiles; both products are mma.sync m16n8k16 bf16 x bf16 -> f32
-// (exact products, f32 sums: only the order of the f32 sums differs from
-// the reference).  The Q fragments are loaded once (ldmatrix) and stay in
-// registers; K/V tiles are staged in shared memory as bf16 by cp.async,
-// double-buffered so tile t + 1 loads while tile t computes; rows are
-// padded by 16 bytes so ldmatrix is free of bank conflicts.  The scores
-// stay in the accumulator registers: row max and row sum are quad
-// shuffles, and the S accumulator becomes the A fragment of P.V by
-// packing p to bf16 in registers (no shared-memory round trip).  Masks
-// run only on tiles that cross the diagonal, the window's edge or Sk; a
-// warp skips a tile wholly masked for its 16 rows (such a tile leaves m,
-// l and acc unchanged once a row has seen a key, and rows only see keys
-// from the first tile they visit on).  Blocks start with the heaviest
-// causal query tiles.  What holds it back now: mma.sync reaches a part of
-// the wgmma rate, a warp reads its K/V fragments from shared memory for
-// 16 rows only, and the accurate expf costs ~10 instructions per score.
+// bfloat16 at Dh 64, 96, 128 and 256 (flash_fwd_hb): Hopper's usual shape
+// of a fast kernel.  A block owns 128 query rows of one (batch, head) in
+// three warpgroups: warpgroup 0 the producer (setmaxnreg down to 40
+// registers), whose one thread copies Q once and the K and V tiles by TMA
+// (a CUtensorMap per tensor, built on the host each call and passed as a
+// __grid_constant__ parameter; rows past Sq or Sk land as zeros) through
+// rings of two stages with full / empty mbarriers; warpgroups 1 and 2 the
+// consumers (up to 232 registers), 64 query rows each.  kv tiles are 128
+// keys up to Dh 128 and 64 at Dh 256 (registers: S and the accumulator
+// hold 128 floats a thread there; shared memory: Q 64 KB and two stages of
+// K and V 128 KB).  Tiles lie in the 128-byte swizzle that wgmma reads,
+// 64-column chunks; Dh 96 is native, its second chunk's upper 32 columns
+// zero-filled by TMA (out of bounds) and never read: S over 6 k-steps, P V
+// one N 96 product (a 32-column chunk in the 64-byte swizzle, read by N 64
+// + N 32 products, read no faster).  S = Q K^T is a wgmma chain of
+// shared-memory operands (m64nBKk16, both K-major); P V takes P as the
+// register A operand, packed to bf16 from the S accumulators as they lie,
+// V read MN-major.  A consumer's step (tile i):
+// S_i and P_{i-1} V_{i-1} issued in its turn, the turn handed to the other
+// consumer (named barriers), the softmax of S_i while P V runs, then the
+// rescale and P_i's packing; so one consumer's softmax runs while the
+// other's products do.  Inside the masks' edges the scale and the shift by
+// m are one fma, and the row max and sum run in four partial chains; masks
+// run only on tiles that cross the diagonal, the window's edge or Sk, and
+// a tile wholly masked for a consumer's 64 rows is released unread (a row
+// sees keys only from the first tile it visits on); the walk begins at the
+// window's first tile and blocks start with the heaviest causal query
+// tiles.  What each part buys, and where the time goes, is read by
+// scripts/kernel_probe.py flash-bf16-variants (PERF.md): at Dh 64 the
+// softmax (an MUFU ex2 a score, one warp of each consumer a scheduler) is
+// the critical path, the products nearly free beside it.  No atomics: a
+// call repeats bit for bit, and a launch with the lse writes o as one
+// without.
+// ptxas (sm_90a): 168 registers at launch at every width (the consumers'
+// 232 after setmaxnreg), no spill.  It replaces flash_kernel_bf16
+// (mma.sync m16n8k16 with ldmatrix, FlashAttention-2's layout, 64-key
+// tiles by cp.async), which took 2.2-2.7x SDPA's time (H100, PERF.md).
 //
 // float32 runs flash_fwd_hf at every width (the wide section below: every
 // operand split into three bf16 parts on wgmma; TF32 tensor cores would
@@ -57,21 +75,16 @@
 // (64 x 64 tiles) took 1.33x SDPA's float32 time at phi-3's shape and paid
 // every kv tile from 0 under a window (H100, PERF.md).
 //
-// The gradient: when asked (a non-null `lse`), both paths also write each
+// The gradient: when asked (a non-null `lse`), every path also writes each
 // query row's log-sum-exp of its scaled, masked scores, m + log l (l the
 // sum of the unrounded p), which flash_attention_bwd.cu reads to recompute
 // P = exp(s - lse).  Serving passes null: its launches write o alone,
-// bit for bit as before the option existed.
+// bit for bit as with the option.
 //
-// Head widths: bf16 Dh 64, 96, 128 and 256 here (flash_kernel_bf16),
-// float32 any multiple of 64.  A static_assert in the bf16 kernel refuses
-// a width whose columns the thread mapping would not all cover, and one
-// whose tiles would not fit the 227 KB of shared memory a block may opt
-// into (at Dh 256: 202 752 B).  bf16 at Dh 256 would need 128 accumulator
-// + 64 Q-fragment + 32 score registers a thread, over the 255 a thread may
-// have: above Dh 128 each k-step's Q fragment is re-read from the Q tile
-// in shared memory on every kv tile (QREG false) instead of staying in
-// registers.
+// Head widths: bf16 Dh 64, 96, 128 and 256 here (flash_fwd_hb), float32
+// any multiple of 64.  static_asserts refuse a bf16 width the tiles do not
+// hold and tiles that would not fit the 227 KB of shared memory a block may
+// opt into.
 //
 // Wider heads (flash_fwd_hw, flash_fwd_hf): the TPU kernel takes any Dh
 // (its BlockSpec is (1, bq, 1, Dh)).  Here a Dh above 256 no longer fits
@@ -95,8 +108,11 @@
 #include <cstdint>
 
 #ifdef __CUDACC__
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstring>
 
 namespace {
 
@@ -114,21 +130,6 @@ struct FlashArgs {
 };
 
 constexpr int SMEM_OPTIN_BYTES = 232448;   // sm_90: 227 KB a block
-
-// ---------------------------------------------------------------------------
-// bfloat16: tensor cores (mma.sync m16n8k16)
-// ---------------------------------------------------------------------------
-
-constexpr int BF_WARPS = 8;
-constexpr int BF_BQ = 16 * BF_WARPS;   // 128 query rows per block
-constexpr int BF_BK = 64;              // keys per kv tile
-constexpr int BF_THREADS = 32 * BF_WARPS;
-
-template <int DH>
-__host__ __device__ constexpr int bf_smem_bytes() {
-  // Q tile, then two stages of (K tile, V tile); rows padded by 16 bytes
-  return (BF_BQ + 4 * BF_BK) * (DH + 8) * 2;
-}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -148,246 +149,9 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// c (16 x 8 f32) += a (16 x 16 bf16, row) . b (16 x 8 bf16, col)
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// Stage rows [r0, r0 + rows) of a (B, S, heads, DH) bf16 tensor's head
-// `hd` into smem rows of stride DH + 8; rows >= S are zero-filled.
-template <int DH, int ROWS>
-__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst,
-                                           const __nv_bfloat16* src, int b,
-                                           int S, int heads, int hd, int r0) {
-  constexpr int CH = DH / 8;       // 16-byte chunks per row
-  for (int idx = threadIdx.x; idx < ROWS * CH; idx += BF_THREADS) {
-    const int r = idx / CH, c = idx % CH, t = r0 + r;
-    const bool in = t < S;
-    const __nv_bfloat16* g =
-        src + ((size_t(b) * S + (in ? t : 0)) * heads + hd) * DH + 8 * c;
-    cp_async16(dst + r * (DH + 8) + 8 * c, g, in ? 16 : 0);
-  }
-}
-
-template <int DH>
-__global__ void __launch_bounds__(BF_THREADS) flash_kernel_bf16(FlashArgs a) {
-  constexpr int DS = DH + 8;       // smem row stride, bf16 elements
-  constexpr int KQ = DH / 16;      // k-steps of q.k
-  constexpr int NS = BF_BK / 8;    // score n-tiles (8 keys each)
-  constexpr int NO = DH / 8;       // output n-tiles (8 columns each)
-  // Q fragments stay in registers up to Dh 128; above, re-read per k-step
-  constexpr bool QREG = DH <= 128;
-  static_assert(DH % 16 == 0 && DH > 0,
-                "flash bf16: Dh must be whole 16-wide k-steps and pairs of "
-                "8-column output tiles, or columns go unwritten");
-  static_assert(bf_smem_bytes<DH>() <= SMEM_OPTIN_BYTES,
-                "flash bf16: tiles exceed the shared memory of a block");
-  extern __shared__ float4 smem4[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem4);
-  __nv_bfloat16* kvs = qs + BF_BQ * DS;     // stage st: K at 2 st, V at 2 st + 1
-
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int g = lane / 4, t4 = lane % 4;
-  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
-  const int nq = gridDim.y;
-  const int q0 = (nq - 1 - blockIdx.y) * BF_BQ;   // heaviest tiles first
-  const int kvh = h / (a.H / a.KvH);
-  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q);
-  const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(a.k);
-  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(a.v);
-  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(a.o);
-
-  // kv tiles this block visits: above the diagonal and before the window
-  // of its first row are wholly masked for every row
-  int kt_end = (a.Sk + BF_BK - 1) / BF_BK;
-  if (a.causal) kt_end = min(kt_end, (q0 + BF_BQ - 1) / BF_BK + 1);
-  int kt_begin = 0;
-  if (a.window >= 0) kt_begin = max(0, (q0 - a.window + 1) / BF_BK);
-  kt_begin = min(kt_begin, kt_end);
-
-  stage_rows<DH, BF_BQ>(qs, q, b, a.Sq, a.H, h, q0);
-  if (kt_begin < kt_end) {
-    stage_rows<DH, BF_BK>(kvs, k, b, a.Sk, a.KvH, kvh, kt_begin * BF_BK);
-    stage_rows<DH, BF_BK>(kvs + BF_BK * DS, v, b, a.Sk, a.KvH, kvh,
-                          kt_begin * BF_BK);
-  }
-  cp_async_commit();
-
-  const int r_first = q0 + 16 * warp;       // this warp's query rows
-  const int r_last = r_first + 15;
-  const int row0 = r_first + g, row1 = row0 + 8;   // this thread's two rows
-
-  uint32_t qf[QREG ? KQ : 1][4];
-  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
-  float acc[NO][4];
-#pragma unroll
-  for (int j = 0; j < NO; ++j)
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int st = (kt - kt_begin) & 1;
-    if (kt + 1 < kt_end) {         // prefetch the next tile into the other stage
-      __nv_bfloat16* nx = kvs + 2 * (st ^ 1) * BF_BK * DS;
-      stage_rows<DH, BF_BK>(nx, k, b, a.Sk, a.KvH, kvh, (kt + 1) * BF_BK);
-      stage_rows<DH, BF_BK>(nx + BF_BK * DS, v, b, a.Sk, a.KvH, kvh,
-                            (kt + 1) * BF_BK);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (QREG && kt == kt_begin) {  // Q fragments, once
-#pragma unroll
-      for (int kk = 0; kk < (QREG ? KQ : 0); ++kk)
-        ldmatrix_x4(qf[kk], qs + (16 * warp + (lane & 15)) * DS + 16 * kk
-                                + 8 * (lane >> 4));
-    }
-    const __nv_bfloat16* ks = kvs + 2 * st * BF_BK * DS;
-    const __nv_bfloat16* vs = ks + BF_BK * DS;
-    const int k0 = kt * BF_BK;
-
-    // a tile wholly masked for this warp's 16 rows changes nothing
-    bool live = k0 < a.Sk;
-    if (a.causal) live = live && k0 <= r_last;
-    if (a.window >= 0) live = live && k0 + BF_BK - 1 > r_first - a.window;
-    if (live) {
-      // S = Q K^T (16 x 64 per warp), f32 accumulators
-      float s[NS][4];
-#pragma unroll
-      for (int j = 0; j < NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KQ; ++kk) {
-        if (!QREG)                 // this k-step's Q fragment, again
-          ldmatrix_x4(qf[0], qs + (16 * warp + (lane & 15)) * DS + 16 * kk
-                                 + 8 * (lane >> 4));
-#pragma unroll
-        for (int j = 0; j < NS; j += 2) {
-          uint32_t kb[4];
-          ldmatrix_x4(kb, ks + (8 * j + (lane & 7) + ((lane >> 4) << 3)) * DS
-                              + 16 * kk + 8 * ((lane >> 3) & 1));
-          mma_bf16(s[j], qf[QREG ? kk : 0], kb[0], kb[1]);
-          mma_bf16(s[j + 1], qf[QREG ? kk : 0], kb[2], kb[3]);
-        }
-      }
-
-      // scale, and mask only where this tile crosses an edge
-      bool edge = k0 + BF_BK > a.Sk;
-      if (a.causal) edge = edge || k0 + BF_BK - 1 > r_first;
-      if (a.window >= 0) edge = edge || k0 <= r_last - a.window;
-#pragma unroll
-      for (int j = 0; j < NS; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float x = s[j][e] * a.scale;
-          if (edge) {
-            const int kj = k0 + 8 * j + 2 * t4 + (e & 1);
-            const int qi = e < 2 ? row0 : row1;
-            bool ok = kj < a.Sk;
-            if (a.causal) ok = ok && kj <= qi;
-            if (a.window >= 0) ok = ok && kj > qi - a.window;
-            if (!ok) x = NEG_INF;
-          }
-          s[j][e] = x;
-        }
-
-      // online softmax on the two rows, quad shuffles
-      float alpha[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        float mx = NEG_INF;
-#pragma unroll
-        for (int j = 0; j < NS; ++j)
-          mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        const float m_new = fmaxf(m[r], mx);
-        alpha[r] = expf(m[r] - m_new);
-        m[r] = m_new;
-        float sum = 0.f;
-#pragma unroll
-        for (int j = 0; j < NS; ++j) {
-          s[j][2 * r] = expf(s[j][2 * r] - m_new);
-          s[j][2 * r + 1] = expf(s[j][2 * r + 1] - m_new);
-          sum += s[j][2 * r] + s[j][2 * r + 1];
-        }
-        l[r] = l[r] * alpha[r] + sum;       // per-thread part of the row sum
-      }
-#pragma unroll
-      for (int j = 0; j < NO; ++j) {
-        acc[j][0] *= alpha[0];
-        acc[j][1] *= alpha[0];
-        acc[j][2] *= alpha[1];
-        acc[j][3] *= alpha[1];
-      }
-
-      // acc += bf16(P) V: the S accumulators are the A fragments of P
-#pragma unroll
-      for (int kk = 0; kk < BF_BK / 16; ++kk) {
-        uint32_t pa[4];
-        pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-        pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-        pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-        pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-        for (int j = 0; j < NO; j += 2) {
-          uint32_t vb[4];
-          ldmatrix_x4_trans(vb, vs + (16 * kk + (lane & 7)
-                                      + 8 * ((lane >> 3) & 1)) * DS
-                                    + 8 * j + 8 * (lane >> 4));
-          mma_bf16(acc[j], pa, vb[0], vb[1]);
-          mma_bf16(acc[j + 1], pa, vb[2], vb[3]);
-        }
-      }
-    }
-    __syncthreads();               // this stage is refilled two tiles on
-  }
-  cp_async_wait<0>();              // nothing in flight at exit
-
-  // the row sums: quad shuffles of the per-thread parts
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-  }
-  const float den0 = fmaxf(l[0], 1e-30f), den1 = fmaxf(l[1], 1e-30f);
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int qi = r ? row1 : row0;
-    if (qi >= a.Sq) continue;
-    if (a.lse && t4 == 0)          // the quad holds the row's m and l
-      a.lse[(size_t(b) * a.H + h) * a.Sq + qi] = m[r] + logf(l[r]);
-    const float den = r ? den1 : den0;
-    __nv_bfloat16* row = o + ((size_t(b) * a.Sq + qi) * a.H + h) * DH;
-#pragma unroll
-    for (int j = 0; j < NO; ++j) {
-      const uint32_t w = pack_bf16(acc[j][2 * r] / den, acc[j][2 * r + 1] / den);
-      *reinterpret_cast<uint32_t*>(row + 8 * j + 2 * t4) = w;
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -428,7 +192,7 @@ __global__ void __launch_bounds__(BF_THREADS) flash_kernel_bf16(FlashArgs a) {
 // KB: 225 KB of the 227 a block may have, one block an SM.  No atomics: a
 // call repeats bit for bit, and block 0's lse is every block's.
 //
-// The softmax keeps flash_kernel_bf16's masks and tile skipping, per
+// The softmax keeps the built widths' masks and tile skipping, per
 // warpgroup (a tile wholly masked for its 64 rows is skipped; every block
 // of a cluster skips alike), with the scale folded into log2 units: p =
 // 2^(s scale log2e - m) by ex2.approx (relative error ~2^-22 before P's
@@ -1441,6 +1205,679 @@ __global__ void __launch_bounds__(256, 1) flash_fwd_hf(FlashArgs a,
     ff_block<1, MODE>(a, x, sm, cb);
 }
 
+// ---------------------------------------------------------------------------
+// bfloat16 at the built widths (Dh 64, 96, 128, 256): flash_fwd_hb
+// ---------------------------------------------------------------------------
+
+constexpr int HB_ROWS = 128;       // query rows of a block: two warpgroups
+constexpr int HB_THREADS = 384;    // the producer warpgroup and two consumers
+// registers a thread after setmaxnreg: the producer gives up what the
+// consumers take (128 x 40 + 256 x 232 <= 65 536)
+constexpr int HB_PRODUCER_REGS = 40, HB_CONSUMER_REGS = 232;
+// the design's parts, each a switch that scripts/kernel_probe.py's
+// flash-bf16-variants turns off in turn: tiles copied by TMA (else by the
+// producer warpgroup's cp.async), S of kv tile j + 1 and P V of tile j in
+// flight while tile j + 1's softmax runs (else one product at a time), the
+// two consumers issuing their products in turns (else as they come), p by
+// ex2.approx with the scale folded into log2 units (else expf), the scale
+// and the shift by m in one fma inside the masks' edges (else two steps)
+constexpr bool HB_TMA = true;
+constexpr bool HB_OVERLAP = true;
+constexpr bool HB_PINGPONG = true;
+constexpr bool HB_EXP2 = true;
+constexpr bool HB_FOLD = true;
+// keys of a kv tile: 128 up to Dh 128, 64 at Dh 256 (registers and shared
+// memory)
+__host__ __device__ constexpr int hb_bk(int dh) {
+  return dh <= 128 ? 128 : 64;
+}
+// K and V tiles in flight, each (three up to Dh 128 read no faster)
+__host__ __device__ constexpr int hb_stages(int) { return 2; }
+
+// a tile of rows of one head, bf16, as wgmma reads it: the head's
+// 64-column chunks, each rows x 128 bytes in the 128-byte swizzle; at Dh
+// 96 the second chunk's upper 32 columns are zeros (TMA fills columns past
+// the head's with zeros), read by no product
+template <int DH>
+struct HbTile {
+  static constexpr int BK = hb_bk(DH);
+  static constexpr int STAGES = hb_stages(DH);
+  static constexpr int FULL = (DH + 63) / 64;    // 64-column chunks
+  static constexpr int QB = HB_ROWS * 128 * FULL;   // the Q tile's bytes
+  static constexpr int KB = BK * 128 * FULL;     // a K or V tile's
+  // barriers: Q full; K full, V full, K empty, V empty a stage
+  static constexpr int BARS = 1 + 4 * STAGES;
+  // Q, the stages of K and of V, the barriers, 1024 bytes to align
+  static constexpr int SMEM = QB + 2 * STAGES * KB + 8 * BARS + 1024;
+  static_assert(DH % 32 == 0 && DH > 0 && DH <= 256,
+                "flash fwd hb: a width of 32-column steps up to 256");
+  static_assert(SMEM <= SMEM_OPTIN_BYTES,
+                "flash fwd hb: tiles exceed the shared memory of a block");
+};
+
+// an MN-major tile in the 128-byte swizzle whose 64-column chunks lie
+// `lbo` bytes apart (1024 bytes between 8-row groups)
+__device__ __forceinline__ uint64_t mn128_desc(const void* p, int lbo) {
+  return uint64_t((smem_u32(p) & 0x3FFFF) >> 4) | (uint64_t(lbo >> 4) << 16)
+       | (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
+}
+// d (64 x N f32, the warpgroup's) = [d +] a (64 x 16) . b (N x 16)^T, both
+// bf16 K-major in shared memory
+template <int N>
+__device__ void wgmma_ss(float* d, uint64_t da, uint64_t db, int accumulate);
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float* d, uint64_t da,
+                                             uint64_t db, int accumulate) {
+  wgmma_64x64(d, da, db, accumulate);
+}
+template <>
+__device__ __forceinline__ void wgmma_ss<128>(float* d, uint64_t da,
+                                              uint64_t db,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<96>(float* d, const uint32_t a[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// ---- mbarriers and TMA -----------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+// one arrival that also expects `bytes` of copies to land
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+// returns once the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  }
+}
+// TMA: the box at (column, head, row, batch) of `map` into `dst`, its
+// bytes reported to `bar`; rows past the tensor's end land as zeros
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int col, int head,
+                                         int row, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(col), "r"(head), "r"(row), "r"(batch)
+      : "memory");
+}
+
+// the tensors' TMA maps: boxes of 64 columns in the 128-byte swizzle
+struct HbMaps {
+  CUtensorMap q, k, v;
+};
+
+// rows [r0, r0 + ROWS) of head `hd` of batch b into a tile (HbTile's
+// layout), reported to `bar`
+template <int DH, int ROWS>
+__device__ __forceinline__ void hb_tma_tile(unsigned char* dst,
+                                            const CUtensorMap* map,
+                                            uint64_t* bar, int b, int hd,
+                                            int r0) {
+#pragma unroll
+  for (int c = 0; c < HbTile<DH>::FULL; ++c)
+    tma_load(dst + c * ROWS * 128, map, bar, 64 * c, hd, r0, b);
+}
+// the same by cp.async, the producer warpgroup's 128 threads each copying
+// 16-byte pieces into their swizzled places (rows >= S zeros; at Dh 96 the
+// second chunk's upper half is left as it is: no product reads it)
+template <int DH, int ROWS>
+__device__ __forceinline__ void hb_cp_tile(unsigned char* dst,
+                                           const void* src, int b, int S,
+                                           int heads, int hd, int r0) {
+  constexpr int P = DH / 8;                        // pieces a row
+  for (int idx = threadIdx.x; idx < ROWS * P; idx += 128) {
+    const int r = idx / P, c = idx % P, t = r0 + r;
+    const bool in = t < S;
+    const __nv_bfloat16* g = static_cast<const __nv_bfloat16*>(src)
+        + ((size_t(b) * S + (in ? t : 0)) * heads + hd) * DH + 8 * c;
+    cp_async16(dst + (c >> 3) * ROWS * 128 + r * 128
+                   + (((c & 7) ^ (r & 7)) << 4), g, in ? 16 : 0);
+  }
+}
+
+// the block's barriers and tiles in shared memory
+template <int DH>
+struct HbSmem {
+  unsigned char *q, *k, *v;        // Q; stage st of K at k + st KB, of V
+  uint64_t *q_full, *k_full, *v_full, *k_empty, *v_empty;
+  __device__ explicit HbSmem(unsigned char* sm) {
+    using T = HbTile<DH>;
+    q = sm;
+    k = q + T::QB;
+    v = k + T::STAGES * T::KB;
+    q_full = reinterpret_cast<uint64_t*>(v + T::STAGES * T::KB);
+    k_full = q_full + 1;
+    v_full = k_full + T::STAGES;
+    k_empty = v_full + T::STAGES;
+    v_empty = k_empty + T::STAGES;
+  }
+};
+
+// the producer (one thread; every thread of warpgroup 0 without TMA): Q
+// once, then K and V of the block's kv tiles [kt_begin, kt_begin + n),
+// each into its ring's next stage once both consumers have released it
+template <int DH>
+__device__ __forceinline__ void hb_produce(const HbMaps& maps,
+                                           const FlashArgs& a,
+                                           const HbSmem<DH>& sm, int b,
+                                           int h, int kvh, int q0,
+                                           int kt_begin, int n) {
+  using T = HbTile<DH>;
+  if constexpr (HB_TMA) {
+    mbar_expect(sm.q_full, T::QB);
+    hb_tma_tile<DH, HB_ROWS>(sm.q, &maps.q, sm.q_full, b, h, q0);
+    for (int i = 0; i < n; ++i) {
+      const int st = i % T::STAGES, r0 = (kt_begin + i) * T::BK;
+      const uint32_t free = ((i / T::STAGES) & 1) ^ 1;
+      mbar_wait(sm.k_empty + st, free);
+      mbar_expect(sm.k_full + st, T::KB);
+      hb_tma_tile<DH, T::BK>(sm.k + st * T::KB, &maps.k, sm.k_full + st, b,
+                             kvh, r0);
+      mbar_wait(sm.v_empty + st, free);
+      mbar_expect(sm.v_full + st, T::KB);
+      hb_tma_tile<DH, T::BK>(sm.v + st * T::KB, &maps.v, sm.v_full + st, b,
+                             kvh, r0);
+    }
+    mbar_wait(sm.q_full, 0);       // Q has landed before the thread leaves
+  } else {
+    // one copy group in flight: load L's copies are issued, then load L -
+    // 1's waited for, made visible to wgmma and reported
+    uint64_t* last = sm.q_full;
+    hb_cp_tile<DH, HB_ROWS>(sm.q, a.q, b, a.Sq, a.H, h, q0);
+    cp_async_commit();
+    auto step = [&](uint64_t* empty, uint32_t free, unsigned char* dst,
+                    const void* src, int r0, uint64_t* full) {
+      mbar_wait(empty, free);
+      hb_cp_tile<DH, T::BK>(dst, src, b, a.Sk, a.KvH, kvh, r0);
+      cp_async_commit();
+      cp_async_wait<1>();
+      fence_proxy_async();
+      mbar_arrive(last);
+      last = full;
+    };
+    for (int i = 0; i < n; ++i) {
+      const int st = i % T::STAGES, r0 = (kt_begin + i) * T::BK;
+      const uint32_t free = ((i / T::STAGES) & 1) ^ 1;
+      step(sm.k_empty + st, free, sm.k + st * T::KB, a.k, r0,
+           sm.k_full + st);
+      step(sm.v_empty + st, free, sm.v + st * T::KB, a.v, r0,
+           sm.v_full + st);
+    }
+    cp_async_wait<0>();
+    fence_proxy_async();
+    mbar_arrive(last);
+  }
+}
+
+// S = Q K^T for the warpgroup's 64 rows (from row `qr` of the Q tile q)
+// and one K tile k of BK keys: a wgmma chain over Dh / 16 k-steps,
+// committed
+template <int DH>
+__device__ __forceinline__ void hb_scores(float* s, const unsigned char* q,
+                                          int qr, const unsigned char* k) {
+  using T = HbTile<DH>;
+  fence_acc<T::BK / 2>(s);
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk) {   // chunk kk / 4, its k-step
+    const int c = kk >> 2, off = (kk & 3) * 32;
+    wgmma_ss<T::BK>(s, sw128_desc(q + c * HB_ROWS * 128 + qr * 128 + off),
+                    sw128_desc(k + c * T::BK * 128 + off), kk > 0);
+  }
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+// keeps P's fragments in their registers until the product that reads
+// them has been waited for
+template <int KS>
+__device__ __forceinline__ void fence_frags(uint32_t (*pa)[4]) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(pa[kk][r])::"memory");
+}
+
+// acc (the warpgroup's 64 x Dh f32) += P (64 x BK bf16: BK / 16 k-steps of
+// register fragments) . V (one tile, read MN-major): one register-A wgmma
+// chain, committed; up to 128 columns (two chunks) in one product
+template <int DH>
+__device__ __forceinline__ void hb_pv(float* acc, uint32_t (*pa)[4],
+                                      const unsigned char* v) {
+  using T = HbTile<DH>;
+  constexpr int CB = T::BK * 128;  // bytes between the 64-column chunks
+  fence_acc<DH / 2>(acc);
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int kk = 0; kk < T::BK / 16; ++kk) {
+    const unsigned char* rows = v + kk * 16 * 128;
+    if constexpr (DH > 128) {
+      wgmma_rs<128>(acc, pa[kk], mn128_desc(rows, CB));
+      wgmma_rs<DH - 128>(acc + 64, pa[kk], mn128_desc(rows + 2 * CB, CB));
+    } else {
+      wgmma_rs<DH>(acc, pa[kk], mn128_desc(rows, CB));
+    }
+  }
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float hb_exp(float x) {
+  return HB_EXP2 ? fw_exp2(x) : expf(x);
+}
+
+// a consumer thread's rows: the warpgroup's 64 [r_first, r_last], the
+// thread's two (row0, row1) and its column pair t4
+struct HbRows {
+  int r_first, r_last, row0, row1, t4, lane;
+};
+
+// kv tile kt's scores s (the warpgroup's, accumulator order) into P: the
+// online softmax on the thread's two rows, scaled by sc (into log2 units
+// with ex2): m, l (its part of the row sum of the unrounded p) and alpha,
+// the factor the accumulator is to be rescaled by; P left in s, float32.
+// A tile that crosses an edge is scaled, masked, and p = exp(s sc - m); a
+// tile inside them takes the row max of s unscaled (sc > 0, so max(s) sc
+// rounds to the max of the scaled scores) and p = exp(fma(s, sc, -m)), one
+// instruction for the scale and the shift.  The row max and sum run in
+// four partial chains
+template <int BK>
+__device__ __forceinline__ void hb_softmax(float* s, float m[2], float l[2],
+                                           float alpha[2], const FlashArgs& a,
+                                           const HbRows& w, float sc, int kt) {
+  const int k0 = kt * BK;
+  bool edge = k0 + BK > a.Sk;
+  if (a.causal) edge = edge || k0 + BK - 1 > w.r_first;
+  if (a.window >= 0) edge = edge || k0 <= w.r_last - a.window;
+  const bool fold = HB_FOLD && !edge && sc > 0.f;
+  if (!fold) {
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float v = s[4 * j + e] * sc;
+        if (edge) {
+          const int kj = k0 + 8 * j + 2 * w.t4 + (e & 1);
+          const int qi = e < 2 ? w.row0 : w.row1;
+          bool ok = kj < a.Sk;
+          if (a.causal) ok = ok && kj <= qi;
+          if (a.window >= 0) ok = ok && kj > qi - a.window;
+          if (!ok) v = NEG_INF;
+        }
+        s[4 * j + e] = v;
+      }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mp[4] = {NEG_INF, NEG_INF, NEG_INF, NEG_INF};
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+      mp[j % 4] = fmaxf(mp[j % 4],
+                        fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
+    float mx = fmaxf(fmaxf(mp[0], mp[1]), fmaxf(mp[2], mp[3]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m[r], fold ? mx * sc : mx);
+    alpha[r] = hb_exp(m[r] - m_new);
+    m[r] = m_new;
+    float sp[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& x = s[4 * j + 2 * r + e];
+        x = hb_exp(fold ? __fmaf_rn(x, sc, -m_new) : x - m_new);
+        sp[j % 4] += x;
+      }
+    l[r] = l[r] * alpha[r] + ((sp[0] + sp[1]) + (sp[2] + sp[3]));
+  }
+}
+template <int DH>
+__device__ __forceinline__ void hb_rescale(float* acc, const float alpha[2]) {
+#pragma unroll
+  for (int j = 0; j < DH / 8; ++j) {
+    acc[4 * j] *= alpha[0];
+    acc[4 * j + 1] *= alpha[0];
+    acc[4 * j + 2] *= alpha[1];
+    acc[4 * j + 3] *= alpha[1];
+  }
+}
+// P rounded to bf16 as k-step fragments (score n-tiles 2 kk and 2 kk + 1
+// make k-step kk)
+template <int BK>
+__device__ __forceinline__ void hb_pack(uint32_t (*pa)[4], const float* s) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      pa[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+}
+
+// o = acc / max(l, 1e-30) in bf16 and, when asked, the row lse (m ln 2 +
+// log l with ex2)
+template <int DH>
+__device__ __forceinline__ void hb_store(const FlashArgs& a, const HbRows& w,
+                                         int b, int h, const float* acc,
+                                         const float m[2], float l[2]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = r ? w.row1 : w.row0;
+    if (qi >= a.Sq) continue;
+    if (a.lse && w.t4 == 0)        // the quad holds the row's m and l
+      a.lse[(size_t(b) * a.H + h) * a.Sq + qi] =
+          (HB_EXP2 && m[r] != NEG_INF ? m[r] * LN2 : m[r]) + logf(l[r]);
+    const float den = fmaxf(l[r], 1e-30f);
+    __nv_bfloat16* row = static_cast<__nv_bfloat16*>(a.o)
+        + ((size_t(b) * a.Sq + qi) * a.H + h) * DH;
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j)
+      *reinterpret_cast<uint32_t*>(row + 8 * j + 2 * w.t4) =
+          pack_bf16(acc[4 * j + 2 * r] / den, acc[4 * j + 2 * r + 1] / den);
+  }
+}
+
+// a consumer warpgroup (1 or 2: query rows 64 (wg - 1) on of the block's
+// 128) over the block's n kv tiles from kt_begin.  The tiles [lo, hi)
+// reach its rows; the others are wholly masked for them and change
+// nothing (a row sees keys only from the first tile it visits on), so it
+// releases them as they land.  Tile i's step with the overlap:
+//   [its turn] S_i = Q K_i^T issued -> P_{i-1} V_{i-1} issued [the other
+//   consumer's turn] -> wait for S_i, release K_i -> the softmax of S_i ->
+//   wait for the PV product, release V_{i-1} -> acc *= alpha_i -> P_i
+//   packed to bf16 fragments
+// (without it, each product is issued and waited for in turn).  The turns
+// (named barriers 1 and 2, one a consumer) alternate the consumers' issues
+// tile by tile, so that one's softmax runs while the other's products do;
+// each consumer takes one turn a tile of the block, those it skips too,
+// and warpgroup 1 the first.
+template <int DH>
+__device__ __forceinline__ void hb_consume(const FlashArgs& a,
+                                           const HbSmem<DH>& sm, int b,
+                                           int h, int q0, int kt_begin,
+                                           int n) {
+  using T = HbTile<DH>;
+  constexpr int BK = T::BK;
+  const int wt = threadIdx.x % 128, qr = (threadIdx.x / 128 - 1) * 64;
+  HbRows w;
+  w.lane = wt % 32;
+  w.r_first = q0 + qr;
+  w.r_last = w.r_first + 63;
+  w.row0 = w.r_first + 16 * (wt / 32) + w.lane / 4;
+  w.row1 = w.row0 + 8;
+  w.t4 = w.lane % 4;
+  int hi = w.r_first < a.Sq ? n : 0;
+  if (a.causal) hi = min(hi, max(0, w.r_last / BK + 1 - kt_begin));
+  int lo = 0;
+  if (a.window >= 0)
+    while (lo < hi && (kt_begin + lo) * BK + BK - 1 <= w.r_first - a.window)
+      ++lo;
+  auto release = [&](uint64_t* empty) {
+    if (w.lane == 0) mbar_arrive(empty);
+  };
+  // its turn to issue tile i's products, and the other's turn after them
+  const int me = threadIdx.x / 128;
+  auto turn = [&]() {
+    if (HB_PINGPONG) asm volatile("bar.sync %0, 256;\n" :: "r"(me) : "memory");
+  };
+  auto pass = [&](int i) {         // warpgroup 2 keeps its last turn
+    if (HB_PINGPONG && (me == 1 || i + 1 < n))
+      asm volatile("bar.arrive %0, 256;\n" :: "r"(3 - me) : "memory");
+  };
+  if (HB_PINGPONG && me == 2 && n > 0) pass(-1);   // warpgroup 1 first
+  auto skip = [&](int i) {         // a tile it does not read, once landed
+    turn();
+    pass(i);
+    const int st = i % T::STAGES;
+    const uint32_t ph = (i / T::STAGES) & 1;
+    mbar_wait(sm.k_full + st, ph);
+    release(sm.k_empty + st);
+    mbar_wait(sm.v_full + st, ph);
+    release(sm.v_empty + st);
+  };
+  const float sc = HB_EXP2 ? a.scale * LOG2E : a.scale;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, alpha[2];
+  float acc[DH / 2];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
+  float s[BK / 2];
+  uint32_t pa[BK / 16][4];
+
+  for (int i = 0; i < lo; ++i) skip(i);
+  if (lo < hi) {
+    mbar_wait(sm.q_full, 0);
+    const int st = lo % T::STAGES;
+    mbar_wait(sm.k_full + st, (lo / T::STAGES) & 1);
+    turn();
+    hb_scores<DH>(s, sm.q, qr, sm.k + st * T::KB);
+    pass(lo);
+    wgmma_wait<0>();
+    fence_acc<BK / 2>(s);
+    release(sm.k_empty + st);
+    hb_softmax<BK>(s, m, l, alpha, a, w, sc, kt_begin + lo);
+    hb_pack<BK>(pa, s);            // acc is zero: nothing to rescale
+  }
+  for (int i = lo + 1; i < hi; ++i) {
+    const int st = i % T::STAGES, pst = (i - 1) % T::STAGES;
+    const uint32_t ph = (i / T::STAGES) & 1, pph = ((i - 1) / T::STAGES) & 1;
+    if constexpr (HB_OVERLAP) {
+      mbar_wait(sm.k_full + st, ph);
+      mbar_wait(sm.v_full + pst, pph);
+      turn();
+      hb_scores<DH>(s, sm.q, qr, sm.k + st * T::KB);
+      hb_pv<DH>(acc, pa, sm.v + pst * T::KB);
+      pass(i);
+      wgmma_wait<1>();             // S_i has landed; P V may still run
+      fence_acc<BK / 2>(s);
+      release(sm.k_empty + st);
+      hb_softmax<BK>(s, m, l, alpha, a, w, sc, kt_begin + i);
+      wgmma_wait<0>();
+    } else {
+      mbar_wait(sm.v_full + pst, pph);
+      mbar_wait(sm.k_full + st, ph);
+      turn();
+      hb_pv<DH>(acc, pa, sm.v + pst * T::KB);
+      wgmma_wait<0>();
+      hb_scores<DH>(s, sm.q, qr, sm.k + st * T::KB);
+      pass(i);
+      wgmma_wait<0>();
+      fence_acc<BK / 2>(s);
+      release(sm.k_empty + st);
+      hb_softmax<BK>(s, m, l, alpha, a, w, sc, kt_begin + i);
+    }
+    fence_acc<DH / 2>(acc);
+    fence_frags<BK / 16>(pa);
+    release(sm.v_empty + pst);
+    hb_rescale<DH>(acc, alpha);
+    hb_pack<BK>(pa, s);
+  }
+  if (lo < hi) {
+    const int st = (hi - 1) % T::STAGES;
+    mbar_wait(sm.v_full + st, ((hi - 1) / T::STAGES) & 1);
+    hb_pv<DH>(acc, pa, sm.v + st * T::KB);
+    wgmma_wait<0>();
+    fence_acc<DH / 2>(acc);
+    release(sm.v_empty + st);
+  }
+  for (int i = hi; i < n; ++i) skip(i);
+  hb_store<DH>(a, w, b, h, acc, m, l);
+}
+
+// grid (B H, query tiles of 128 rows, heaviest causal tiles first), 384
+// threads: warpgroup 0 the producer, 1 and 2 the consumers
+template <int DH>
+__global__ void __launch_bounds__(HB_THREADS, 1)
+    flash_fwd_hb(const __grid_constant__ HbMaps maps, FlashArgs a) {
+  using T = HbTile<DH>;
+  extern __shared__ float4 smem4[];
+  const HbSmem<DH> sm(reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem4) + 1023) & ~uintptr_t(1023)));
+  const int b = blockIdx.x / a.H, h = blockIdx.x % a.H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * HB_ROWS;
+  // kv tiles the block visits: above the diagonal and before the window
+  // of its first row are wholly masked for every row
+  int kt_end = (a.Sk + T::BK - 1) / T::BK;
+  if (a.causal) kt_end = min(kt_end, (q0 + HB_ROWS - 1) / T::BK + 1);
+  int kt_begin = 0;
+  if (a.window >= 0) kt_begin = max(0, (q0 - a.window + 1) / T::BK);
+  kt_begin = min(kt_begin, kt_end);
+  const int n = kt_end - kt_begin;
+  if (threadIdx.x == 0) {
+    const uint32_t full = HB_TMA ? 1 : 128;   // arrivals that fill a tile
+    mbar_init(sm.q_full, full);
+#pragma unroll
+    for (int st = 0; st < T::STAGES; ++st) {
+      mbar_init(sm.k_full + st, full);
+      mbar_init(sm.v_full + st, full);
+      mbar_init(sm.k_empty + st, 8);          // the consumers' eight warps
+      mbar_init(sm.v_empty + st, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x < 128) {         // the producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(HB_PRODUCER_REGS));
+    if ((!HB_TMA || threadIdx.x == 0) && n > 0)
+      hb_produce<DH>(maps, a, sm, b, h, h / (a.H / a.KvH), q0, kt_begin, n);
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+               :: "n"(HB_CONSUMER_REGS));
+  hb_consume<DH>(a, sm, b, h, q0, kt_begin, n);
+}
+
+// cuTensorMapEncodeTiled, found through the runtime so that the library
+// needs no -lcuda
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// the TMA map of a contiguous (B, S, heads, dh) bf16 tensor whose boxes
+// are 64 columns of `rows` rows of one head in the 128-byte swizzle;
+// dimensions innermost first (column, head, row, batch), so the byte
+// strides grow, and rows past S and columns past dh read as zeros
+bool hb_encode(CUtensorMap* map, const void* base, int dh, int S, int heads,
+               int B, int rows) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[4] = {cuuint64_t(dh), cuuint64_t(heads),
+                              cuuint64_t(S), cuuint64_t(B)};
+  const cuuint64_t strides[3] = {cuuint64_t(dh) * 2,
+                                 cuuint64_t(heads) * dh * 2,
+                                 cuuint64_t(S) * heads * dh * 2};
+  const cuuint32_t box[4] = {64, 1, cuuint32_t(rows), 1};
+  const cuuint32_t steps[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+             const_cast<void*>(base), dims, strides, box, steps,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int DH>
+int launch_hb(const FlashArgs& a, cudaStream_t s) {
+  using T = HbTile<DH>;
+  HbMaps maps;
+  std::memset(&maps, 0, sizeof maps);
+  if (!hb_encode(&maps.q, a.q, DH, a.Sq, a.H, a.B, HB_ROWS) ||
+      !hb_encode(&maps.k, a.k, DH, a.Sk, a.KvH, a.B, T::BK) ||
+      !hb_encode(&maps.v, a.v, DH, a.Sk, a.KvH, a.B, T::BK))
+    return int(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_hb<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+  if (err != cudaSuccess) return int(err);
+  const dim3 grid(a.B * a.H, (a.Sq + HB_ROWS - 1) / HB_ROWS);
+  flash_fwd_hb<DH><<<grid, HB_THREADS, T::SMEM, s>>>(maps, a);
+  return int(cudaGetLastError());
+}
+
 // grid (ncb B H, query tiles), clusters of the ncb column blocks (ncb <=
 // FW_CLUSTER), else none.  bf16: flash_fwd_hw, column blocks of 2-4
 // chunks (Dh > 256); float32: flash_fwd_hf, of 1-2 (every multiple of 64:
@@ -1477,18 +1914,6 @@ int launch_fwd_wide(const FlashArgs& a, int dh, bool bf16, cudaStream_t s) {
   return int(err != cudaSuccess ? err : cudaGetLastError());
 }
 
-template <int DH>
-int launch_bf16(const FlashArgs& a, cudaStream_t s) {
-  const int bytes = bf_smem_bytes<DH>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel_bf16<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
-  if (err != cudaSuccess) return int(err);
-  const dim3 grid(a.B * a.H, (a.Sq + BF_BQ - 1) / BF_BQ);
-  flash_kernel_bf16<DH><<<grid, BF_THREADS, bytes, s>>>(a);
-  return int(cudaGetLastError());
-}
-
 }  // namespace
 
 // Plain C entry point (bound with ctypes).  dtype: 0 = float32,
@@ -1503,7 +1928,7 @@ extern "C" int flash_attention_launch(
     int Sq, int Sk, int H, int KvH, int Dh, int causal, int window,
     float scale, int dtype, void* stream) {
   if (B < 0 || Sq < 0 || Sk < 1 || H < 1 || KvH < 1 || H % KvH != 0 ||
-      B > 65535 || H > 65535 || (dtype == 1 && Sq > 65535 * BF_BQ))
+      B > 65535 || H > 65535 || (dtype == 1 && Sq > 65535 * HB_ROWS))
     return int(cudaErrorInvalidValue);
   if (B == 0 || Sq == 0) return 0;
   const FlashArgs a{q, k, v, o, static_cast<float*>(lse), B, Sq, Sk, H,
@@ -1511,10 +1936,10 @@ extern "C" int flash_attention_launch(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     switch (Dh) {
-      case 64: return launch_bf16<64>(a, s);
-      case 96: return launch_bf16<96>(a, s);
-      case 128: return launch_bf16<128>(a, s);
-      case 256: return launch_bf16<256>(a, s);
+      case 64: return launch_hb<64>(a, s);
+      case 96: return launch_hb<96>(a, s);
+      case 128: return launch_hb<128>(a, s);
+      case 256: return launch_hb<256>(a, s);
     }
   }
   // float32 at every multiple of 64 (the wrapper pads Dh 96 to 128), bf16

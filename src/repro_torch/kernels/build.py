@@ -11,8 +11,8 @@ Flags: no ``--use_fast_math`` and ``-fmad=false`` for every source.  The
 day scan needs both for bit equality with its plain version (a one-ulp
 change near a trip threshold flips a throttle level).  The flash and SSD
 kernels are held to tolerances and spell out their multiply-adds
-(``fmaf``, ``mma.sync``), so the flag only keeps their scalar steps
-(scale, decay, the bf16 split's remainders) rounded as written.
+(``fmaf``, ``mma.sync``, ``wgmma``), so the flag only keeps their scalar
+steps (scale, decay, the bf16 split's remainders) rounded as written.
 ``-Xptxas -v`` leaves each kernel's registers, stack and spills in
 `BUILD_LOG`; ``-D`` macros (`defines`) build a source's variants, such
 as the day scan's probe modes.  `launch` calls a loaded entry point on

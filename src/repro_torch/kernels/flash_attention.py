@@ -11,14 +11,16 @@ there is no fallback from the card to the plain version.
 The kernel replaces `src/repro/kernels/flash_attention.py:_flash_kernel`.
 At the zamba2-1.2b prefill shape (B = 2, S = 4096, H = 32, Dh = 64,
 causal, bf16) it is bound by operations (~137 GFLOP of products against
-~134 MB of traffic).  In bf16 both products run on the tensor cores
-(mma.sync m16n8k16, FlashAttention-2's register layout: 128 query rows a
-block, 64-key tiles double-buffered by cp.async, P kept in registers);
-float32 runs on the tensor cores too (wgmma), every float32 operand split
-into three bf16 parts whose six part products hold every bit of a float32
-product (TF32 would miss the float32 tolerance).  `TILES` gives each
-path's (query rows, keys) per tile, the tiling on which the plain version
-keeps the kernel's running max.  See the source's header note.
+~134 MB of traffic).  In bf16 at the built widths both products are
+wgmma chains (`flash_fwd_hb`: 128 query rows a block, two consumer
+warpgroups of 64 and a producer warpgroup that copies Q once and K / V
+tiles of 128 keys (64 at Dh 256) by TMA through a ring of two stages, P
+kept in registers); float32 runs on the tensor cores too (wgmma), every
+float32 operand split into three bf16 parts whose six part products hold
+every bit of a float32 product (TF32 would miss the float32 tolerance).
+`TILES` (read through `fwd_tile`) gives each path's (query rows, keys)
+per tile, the tiling on which the plain version keeps the kernel's
+running max.  See the source's header note.
 
 Inputs: float32 or bfloat16, all three alike, contiguous; any Dh, as the
 TPU kernel takes.  The bf16 kernels are built for the widths `HEAD_DIMS`
@@ -83,11 +85,16 @@ HEAD_DIMS = (64, 96, 128, 256)   # head widths the bf16 kernels are built for
 # (their 64-column chunks, a 128-byte line of bf16)
 WIDE_SLICE = 64
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# (query rows, keys) of the forward's tiles by dtype, at every width:
-# BF_BQ / BF_BK in csrc/flash_attention.cu (bf16 up to Dh 256) and FW_ROWS
-# / FW_BK (bf16 past 256, float32 everywhere: a block's two warpgroups of
-# 64 rows), the query tiles on a grid axis of their own
-TILES = {torch.float32: (128, 64), torch.bfloat16: (128, 64)}
+# (query rows, keys) of the forward's tiles by dtype and the head width the
+# kernel runs (`fwd_tile`): a block's two warpgroups of 64 rows, the query
+# tiles on a grid axis of their own.  bf16 at the built widths
+# (flash_fwd_hb in csrc/flash_attention.cu): 128 keys up to Dh 128, 64 at
+# Dh 256 (HB_ROWS, hb_bk); past 256 ("wide", flash_fwd_hw) and float32 at
+# every width (flash_fwd_hf): FW_ROWS x FW_BK, 128 x 64
+TILES = {torch.bfloat16: {64: (128, 128), 96: (128, 128), 128: (128, 128),
+                          256: (128, 64), "wide": (128, 64)},
+         torch.float32: {64: (128, 64), 96: (128, 64), 128: (128, 64),
+                         256: (128, 64), "wide": (128, 64)}}
 
 # (query rows, keys) of the backward's tiles by dtype and head width: 64 x
 # 64 at every width in both dtypes (HB_TILE in csrc/flash_attention_bwd.cu,
@@ -276,6 +283,14 @@ def kernel_width(Dh: int, dtype: torch.dtype) -> int:
     return max(1, -(-Dh // WIDE_SLICE)) * WIDE_SLICE
 
 
+def fwd_tile(Dh: int, dtype: torch.dtype) -> tuple:
+    """(query rows, keys) of the forward kernel's tiles for a Dh-wide head
+    of `dtype`: `TILES` at the width it runs the head at (past the built
+    widths, "wide")."""
+    width = kernel_width(Dh, dtype)
+    return TILES[dtype][width if width in HEAD_DIMS else "wide"]
+
+
 def wide_bwd_blocks(width: int) -> int:
     """Column blocks of the bf16 kernels (backward and forward) at a
     padded head `width` past 256 (its 64-column chunks dealt into blocks
@@ -323,14 +338,16 @@ def _kernel_args(window, scale, Dh, *ts):
         raise ValueError(f"window must be >= 0, got {window}")
     B, Sq, H, _ = ts[0].shape
     # both dtypes put the forward's query tiles on a grid axis of their own
-    tiles = -(-Sq // TILES[ts[0].dtype][0])
+    tiles = -(-Sq // fwd_tile(Dh, ts[0].dtype)[0])
     if max(B, H, tiles) > MAX_GRID_YZ:
         raise ValueError(f"flash_attention on the card: B = {B}, H = {H}, "
                          f"{tiles} query tiles; a grid dimension above "
                          f"{MAX_GRID_YZ} does not launch")
     scale = scale if scale is not None else 1.0 / math.sqrt(Dh)
-    # the bf16 kernel copies 16-byte rows with cp.async: a view that starts
-    # off that alignment is copied first
+    # the kernels copy 16-byte pieces (cp.async; the bf16 kernel at the
+    # built widths reads by TMA, whose base address and row strides, H Dh 2
+    # and KvH Dh 2 bytes at a built width, must be multiples of 16): a view
+    # that starts off that alignment is copied first
     ts = [_pad_cols(t, width) for t in ts]
     return scale, [t if t.data_ptr() % 16 == 0 else t.clone() for t in ts]
 

@@ -1,8 +1,8 @@
 """Float32 flash attention at the built widths (Dh up to 256), which the
 card runs on the same split-operand tensor-core kernels as past Dh 256:
-the forward on `TILES[float32]` (128 query rows by 64 keys, a block's
-two warpgroups), the backward on 64 x 64 tiles at every width, a head
-96 wide zero-padded to 128.
+the forward on its float32 tile (`fwd_tile`: 128 query rows by 64
+keys, a block's two warpgroups), the backward on 64 x 64 tiles at every
+width, a head 96 wide zero-padded to 128.
 
 - The plain forward on the float32 tile (`chunked_attention` with the
   kernel's tile) against the Pallas kernel in interpret mode
@@ -49,8 +49,8 @@ def test_f32_forward_on_its_tile_matches_pallas(B, Sq, Sk, H, KvH, causal,
     """The plain forward on the float32 kernel's tile (128 x 64: the
     running max kept per 64-key tile, as the kernel keeps it) against the
     Pallas kernel in interpret mode on that tile, at 2e-5."""
-    bq, bk = fa.TILES[torch.float32]
-    assert (bq, bk) == (128, 64) == fa.TILES[torch.bfloat16]
+    bq, bk = fa.fwd_tile(Dh, torch.float32)
+    assert (bq, bk) == (128, 64) == fa.TILES[torch.bfloat16]["wide"]
     (jq, jk, jv), (tq, tk, tv, _) = _qkv(Sq + Dh + 5, B, Sq, Sk, H, KvH,
                                          Dh)
     bidirectional = not causal and window is None

@@ -180,8 +180,8 @@ def test_flash_plain_on_the_bf16_wide_tiles_matches_pallas(B, Sq, Sk, H,
     before its product, l from the unrounded p, as the kernel) against
     the Pallas kernel in interpret mode on the same bf16 inputs, at the
     reference's bf16 tolerance (2e-2, `tests/test_kernels.py`)."""
-    bq, bk = fa.TILES[torch.bfloat16]
-    assert (bq, bk) == (128, 64)
+    bq, bk = fa.fwd_tile(Dh, torch.bfloat16)
+    assert (bq, bk) == (128, 64) == fa.TILES[torch.bfloat16]["wide"]
     (jq, jk, jv), (tq, tk, tv, _) = _qkv(Sq + Dh + 3, B, Sq, Sk, H, KvH, Dh,
                                          "bfloat16")
     got = attn.chunked_attention(tq, tk, tv, causal=causal, window=window,
@@ -214,7 +214,7 @@ def test_wide_bf16_forward_grid_check_at_its_tile(Dh):
     def q(rows, dtype, d=Dh):
         return torch.empty((1, rows, 1, d), dtype=dtype, device="meta")
     for dtype in (torch.bfloat16, torch.float32):
-        bq = fa.TILES[dtype][0]
+        bq = fa.fwd_tile(Dh, dtype)[0]
         assert bq == 128
         scale, (padded,) = fa._kernel_args(None, None, Dh,
                                            q(fa.MAX_GRID_YZ * bq, dtype))
@@ -585,10 +585,12 @@ def test_wide_ssd_on_the_card_route(monkeypatch, p, n, s):
     ("flash_attention", "FWD_F32_VARIANTS"),
     ("flash_attention_bwd", "BWD_VARIANTS"),
     ("flash_attention_bwd", "BWD_F32_VARIANTS"),
-    ("flash_attention_bwd", "BWD_F32_BUILT_VARIANTS")])
+    ("flash_attention_bwd", "BWD_F32_BUILT_VARIANTS"),
+    ("flash_attention", "BF16_VARIANTS")])
 def test_kernel_probe_variant_edits_apply(source, table):
     """`flash-wide-variants` / `flash-bwd-variants` (and their float32
-    forms) build copies of a CUDA source with one part of a step dropped
+    forms, and `flash-bf16-variants` for the bf16 forward at the built
+    widths) build copies of a CUDA source with one part of a step dropped
     or changed by text edits, and stop on an edit whose text the source no
     longer holds: every edit of every variant applies to the sources as
     they stand.  Runs on the CPU: it only reads the sources."""

@@ -1,6 +1,7 @@
 """The CUDA kernels (day scan in both output modes, with the full trace's
 initial SoC, up to 64 levels, flash attention at Dh 64 / 96 / 128 / 256
-(float32 on the split-operand kernels, 96 padded to 128), at narrower
+(bf16 on flash_fwd_hb at the edges of its kv tile, float32 on the
+split-operand kernels, 96 padded to 128), at narrower
 heads zero-padded to them and at wider heads on the wide kernels, and
 transformer prefills through it, SSD scan at p 64 and
 narrower, and at wider p and n in blocks) against their plain PyTorch
@@ -215,7 +216,7 @@ def test_flash_bf16_rounds_p_like_the_reference(cuda):
     q, k, v = (_randn(i, (2, 1024, 4, 64), torch.bfloat16, cuda)
                for i in range(3))
     got = fa.flash_attention(q, k, v, causal=True)
-    bq, bk = fa.TILES[torch.bfloat16]
+    bq, bk = fa.fwd_tile(64, torch.bfloat16)
     tiles = {"causal": True, "chunk_q": bq, "chunk_k": bk}
     want = attn.chunked_attention(q, k, v, **tiles)
     control = attn.chunked_attention(q, k, v.float(), **tiles)
@@ -263,6 +264,65 @@ def test_flash_kernel_wide_heads_ragged(cuda, dtype, Dh, B, Sq, Sk, causal,
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(),
                                atol=atol, rtol=rtol)
+
+
+# the bf16 forward at the built widths (flash_fwd_hb) at the edges of its
+# kv tile bk (fwd_tile: 128 keys up to Dh 128, 64 at 256): (B, Sq, Sk, H,
+# KvH, causal, window) of a case as a function of bk
+BF16_EDGES = {
+    "Sk = 1 mod bk, GQA 4:1": lambda bk: (1, 2 * bk + 1, 2 * bk + 1, 8, 2,
+                                         True, None),
+    "Sq < 64, GQA 4:1": lambda bk: (2, 37, bk + 1, 4, 1, False, None),
+    "window over three tiles": lambda bk: (1, 5 * bk + 1, 5 * bk + 1, 8, 2,
+                                           True, 2 * bk + 5),
+    "Sq != Sk, causal": lambda bk: (2, 100, 3 * bk + 1, 4, 4, True, None),
+}
+
+
+@pytest.mark.parametrize("Dh", [64, 96, 128, 256])
+@pytest.mark.parametrize("case", list(BF16_EDGES))
+def test_flash_bf16_built_widths_at_the_tile_edges(cuda, Dh, case):
+    """Each built width against the plain version at a key count one past
+    whole kv tiles, a query count below one warpgroup's 64 rows, a window
+    spanning three tiles and Sq != Sk; one launch each."""
+    bk = fa.fwd_tile(Dh, torch.bfloat16)[1]
+    B, Sq, Sk, H, KvH, causal, window = BF16_EDGES[case](bk)
+    q = _randn(Dh, (B, Sq, H, Dh), torch.bfloat16, cuda)
+    k = _randn(Dh + 1, (B, Sk, KvH, Dh), torch.bfloat16, cuda)
+    v = _randn(Dh + 2, (B, Sk, KvH, Dh), torch.bfloat16, cuda)
+    before = fa.LAUNCHES
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    assert fa.LAUNCHES == before + 1
+    want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all())
+    atol, rtol = FLASH_TOL[torch.bfloat16]
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(),
+                               atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("Dh", [64, 96, 128, 256])
+def test_flash_bf16_lse_leaves_o_and_repeats(cuda, Dh):
+    """At each built width, with a window across tiles and GQA: the launch
+    with the row lse writes o bit for bit as the serving launch does, a
+    repeat gives the same bits, and the lse matches its plain version."""
+    bk = fa.fwd_tile(Dh, torch.bfloat16)[1]
+    B, Sq, Sk, H, KvH, causal, window = BF16_EDGES["window over three "
+                                                   "tiles"](bk)
+    q = _randn(3, (B, Sq, H, Dh), torch.bfloat16, cuda)
+    k, v = (_randn(i, (B, Sk, KvH, Dh), torch.bfloat16, cuda)
+            for i in (4, 5))
+    runs = [fa._flash_cuda(q, k, v, causal=causal, window=window, lse=True)
+            for _ in range(2)]
+    served = fa._flash_cuda(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    (o, lse), (o2, lse2) = runs
+    assert torch.equal(o.view(torch.int16), served.view(torch.int16))
+    assert torch.equal(o.view(torch.int16), o2.view(torch.int16))
+    assert torch.equal(lse.view(torch.int32), lse2.view(torch.int32))
+    want = fa.flash_attention_lse_plain(q, k, causal=causal, window=window)
+    torch.testing.assert_close(lse, want, rtol=0, atol=1e-5)
 
 
 def test_transformer_prefill_on_the_card_matches_cpu(cuda):
@@ -1194,7 +1254,7 @@ def test_flash_wide_bf16_rounds_p_like_the_reference(cuda, Dh):
     q = _randn(0, (1, 700, 4, Dh), torch.bfloat16, cuda)
     k, v = (_randn(i, (1, 700, 2, Dh), torch.bfloat16, cuda) for i in (1, 2))
     got = fa.flash_attention(q, k, v, causal=True)
-    bq, bk = fa.TILES[torch.bfloat16]
+    bq, bk = fa.fwd_tile(Dh, torch.bfloat16)
     tiles = {"causal": True, "chunk_q": bq, "chunk_k": bk}
     want = attn.chunked_attention(q, k, v, **tiles)
     control = attn.chunked_attention(q, k, v.float(), **tiles)
