@@ -9,8 +9,8 @@ Run from the root of a checkout.  Phases (any failure exits non-zero):
      csrc/flash_attention_bwd.cu, csrc/ssd_scan.cu and csrc/ssd_scan_bwd.cu
      with nvcc (sm_90a) from the checkout, and csrc/day_scan.cu once more
      with its probe modes (-DDAY_SCAN_PROBE), one nvcc each, all at once;
-     the ptxas lines (registers, spills) of the day scan and the
-     backward kernels;
+     the ptxas lines (registers, spills) of the day scan, the flash
+     kernels, the SSD backward and every SSD forward instance;
   3. kernel vs its plain PyTorch version on the card, on the serving
      grid's day tables (N = 64 combos, T = 4320 steps, L = 3 levels) and
      on ragged N = 63 and N = 200: all nine outputs bit for bit equal;
@@ -168,7 +168,8 @@ Run from the root of a checkout.  Phases (any failure exits non-zero):
      the bf16 forward must miss;
  10. timing: flash and SSD kernel ms (CUDA events), plain ms, bounds,
      `scaled_dot_product_attention` ms at the flash shape (a yardstick
-     only: the port never calls it), the SSD split's scratch traffic,
+     only: the port never calls it), the SSD forward's device us a call
+     by launch (`ssd_launch_split`), the SSD split's scratch traffic,
      prefill ms and tokens/s, Server decode ms per token, peak device
      memory, a profile of one prefill.
 
@@ -335,7 +336,8 @@ launch tools:
         `ssd_scan_plain(chunk=128)` with phase 6's tolerances and bf16
         control, its launches equal to a chunk-64 call's and y bit-equal
         to it (the kernels run their own 64-row tile); its ms at chunk 64
-        and 128 in turns; the backward against
+        and 128 in turns, beside the bound and each launch's device us
+        (`ssd_launch_split`); the backward against
         `ssd_scan_bwd_plain(chunk=128)` with phase 23 c's tolerances;
      b. main path: `mamba2_2p7b.tuned()` at full width and depth (64
         layers), bf16 prefill B = 2 x S = 4096 through
@@ -525,9 +527,11 @@ FLASH_BF16_ATOL, FLASH_BF16_RTOL = 8e-3, 2.0 ** -7
 # (2.15e-3)
 FLASH_ROUNDING_LIMIT = 5e-4
 # relative RMS error of the bf16 SSD kernel against the plain version:
-# 2.0e-5 to 6.6e-5 read on an H100 (sum order and the bf16 rounding of y
-# it flips), against 2.9e-3 to 3.4e-3 for the plain version with x dt and
-# W rounded to bf16 before their product (a tensor-core shortcut)
+# 1.6e-5 to 5.5e-5 read on an H100 80GB HBM3 for ssd_kernel_scan_hb (sum
+# order, ex2.approx, and the bf16 rounding of y they flip; 2.0e-5 to
+# 6.6e-5 for the mma.sync kernel it replaced), against 2.9e-3 to 3.4e-3
+# for the plain version with x dt and W rounded to bf16 before their
+# product (a tensor-core shortcut)
 SSD_BF16_LIMIT = 5e-4
 # decode_step vs the float32 forward's logits, relative to their spread
 # (~40): 2.5e-5 read on an H100, 2.2e-1 for the bf16 forward
@@ -2344,6 +2348,37 @@ def frames_sha256(a) -> str:
         .hexdigest()
 
 
+# the SSD forward's launches by name in a profile: ssd_kernel_state_hb<64>,
+# ssd_kernel_pass<64>, ssd_kernel_scan_hb<64, false>, the f32 ones
+SSD_LAUNCH = re.compile(r"ssd_kernel_\w+<[^>]*>")
+
+
+def ssd_launch_split(fn, calls: int = 20) -> str:
+    """Each SSD forward launch's device us a launch (a call of `fn`
+    launches each once), by the profiler over `calls` calls after a warm
+    one, over the launches it kept.  It records host activity too and
+    synchronizes inside the session, as `profile_device` does: a 5-call
+    device-only session kept one call's kernels, or none after the
+    process's earlier sessions."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    parts = []
+    for e in prof.key_averages():
+        m = SSD_LAUNCH.search(e.key)
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        if m and us > 0 and str(e.device_type).endswith("CUDA"):
+            parts.append(f"{m.group(0)} {us / e.count:.1f} us")
+    return "; ".join(parts) or "not measured (no device time in the profile)"
+
+
 def profile_device(fn, label: str, reps: int = 1,
                    tags=("flash_fwd", "ssd_kernel"),
                    host_ops: bool = True) -> str:
@@ -2628,6 +2663,7 @@ def lm_phases(dev) -> tuple:
     ssd_plain_ms = cuda_ms(lambda: ss.ssd_scan_plain(x, dt, A, Bm, Cm,
                                                      chunk=64), 3)
     s_bound, s_by = ssd_bound(x, Bm, 64)
+    s_split = ssd_launch_split(scan)
     s_states, s_reread = ssd_scratch_bytes(x, Bm)
     del q, k, v, qt, kt, vt, x, dt, Bm, Cm
     torch.cuda.reset_peak_memory_stats()
@@ -2647,8 +2683,9 @@ def lm_phases(dev) -> tuple:
           f"{n_flash} launches per prefill")
     print(f"ssd kernel (b={B_PREFILL} s={S_PREFILL} h=64 p=64 g=1 n=64 "
           f"bf16): {ssd_ms:.4f} ms; plain {ssd_plain_ms:.3f} ms; bound "
-          f"{s_bound:.5f} ms by {s_by}; library call: none; {n_ssd} "
-          f"launches per prefill ({ss.kernel_launches(S_PREFILL)} a call)")
+          f"{s_bound:.5f} ms by {s_by} ({100 * s_bound / ssd_ms:.1f} % of "
+          f"it); library call: none; {n_ssd} launches per prefill "
+          f"({ss.kernel_launches(S_PREFILL)} a call); per launch: {s_split}")
     print(f"ssd split scratch traffic (a cost of the design, not in the "
           f"bound): {s_states / 1e6:.1f} MB of f32 group states, "
           f"{s_reread / 1e6:.1f} MB of x/B/dt re-read by launch 1; the "
@@ -4574,6 +4611,8 @@ def check_ssd_tuned_chunk(dev) -> tuple:
             plain_ms = cuda_ms(plain, 3)
             bound, by = ssd_bound(x, Bm, ss.TILE)
             ms = float(sum(runs[TUNED_CHUNK]) / 2)
+            split = ssd_launch_split(
+                lambda: ss.ssd_scan(*ins, chunk=TUNED_CHUNK))
             timing = (f"ssd kernel ({name} prefill shape b={b} s={s} h={h} "
                       f"p=64 g={g} n={n} bf16), in turns: chunk 64 "
                       + " / ".join(f"{t:.4f}" for t in runs[64])
@@ -4581,7 +4620,8 @@ def check_ssd_tuned_chunk(dev) -> tuple:
                       + " / ".join(f"{t:.4f}" for t in runs[TUNED_CHUNK])
                       + f" ms ({n128} launches a call either way); plain at "
                       f"chunk {TUNED_CHUNK} {plain_ms:.3f} ms; bound "
-                      f"{bound:.5f} ms by {by}")
+                      f"{bound:.5f} ms by {by} ({100 * bound / ms:.1f} % of "
+                      f"it); per launch: {split}")
             row = (ms, plain_ms, bound, by)
         print(f"{label}: {n128} launches, as at chunk 64, y bit-equal to "
               f"the chunk-64 call's")
@@ -6065,6 +6105,8 @@ def main() -> None:
         build.BUILD_LOG.get("flash_attention_bwd", ""))))
     print("ptxas ssd_scan_bwd: " + "; ".join(ptxas_kernels(
         build.BUILD_LOG.get("ssd_scan_bwd", ""))))
+    print("ptxas ssd_scan: " + "; ".join(ptxas_kernels(
+        build.BUILD_LOG.get("ssd_scan", ""))))
 
     # 3. kernel vs plain on the serving grid's tables
     phase(3)

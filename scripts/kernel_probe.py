@@ -97,7 +97,8 @@ from repro_torch.kernels import ssd_scan as ss  # noqa: E402
 from repro_torch.nn import attention as attn  # noqa: E402
 
 DEV = torch.device("cuda")
-SSD_KERNEL = re.compile(r"ssd_kernel_\w+<\d+>")   # launch names in a profile
+# the SSD forward's launch names in a profile (ssd_kernel_scan_hb<64, false>)
+SSD_KERNEL = re.compile(r"ssd_kernel_\w+<[^>]*>")
 
 
 def rn(gen, shape, dtype, scale=1.0):
@@ -367,8 +368,8 @@ FLASH_TIMED = ((32, 32, 64, None), (8, 4, 256, None), (8, 4, 256, 1024),
                (32, 32, 96, None))
 
 
-def ssd_inputs(gen, b, s, h, g, n, dtype, dt_scale):
-    x = rn(gen, (b, s, h, 64), dtype, 0.5)
+def ssd_inputs(gen, b, s, h, g, n, dtype, dt_scale, p=64):
+    x = rn(gen, (b, s, h, p), dtype, 0.5)
     dt = dt_scale * F.softplus(rn(gen, (b, s, h), torch.float32))
     A = -torch.exp(rn(gen, (h,), torch.float32, 0.3))
     return x, dt, A, rn(gen, (b, s, g, n), dtype, 0.3), \
@@ -508,46 +509,182 @@ def probe_ssd_bwd() -> None:
             del ins, dy, st
 
 
-def probe_ssd_compare(other: str) -> None:
-    """The forward kernel built from another copy of csrc/ssd_scan.cu
-    (`other`, e.g. the parent commit's) against this checkout's serving
-    launch (no group states asked for), bf16 and float32 at zamba2's
-    prefill shape and mamba2-2.7b's: y compared bit for bit, timed in
-    turns (other, this, this, other)."""
-    lib = build.BUILD_DIR.parent / "probe" / "ssd_other.so"
+def bind_ssd(path) -> tuple:
+    """Build another copy of csrc/ssd_scan.cu (with this checkout's flags)
+    into build/probe/ and return (its library path, run), run(x, dt, A,
+    B, C) -> y through this checkout's `ssd_blocked` with that build's
+    forward entry point: this design's (x / B / C strides after the ints,
+    views read where they lie) or, from a source without
+    `ssd_scan_heads`, PR 13's (dense inputs, the ints alone)."""
+    name = Path(path).stem
+    lib = build.BUILD_DIR.parent / "probe" / f"ssd_{name}.so"
     lib.parent.mkdir(parents=True, exist_ok=True)
     proc = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(lib),
-                           other], capture_output=True, text=True)
+                           str(path)], capture_output=True, text=True)
     if proc.returncode:
-        raise RuntimeError(f"nvcc failed for {other}:\n{proc.stderr}")
-    fn = ctypes.CDLL(str(lib)).ssd_scan_launch
-    fn.argtypes = ss._lib().argtypes
+        raise RuntimeError(f"nvcc failed for {path}:\n{proc.stderr}")
+    cdll = ctypes.CDLL(str(lib))
+    fn = cdll.ssd_scan_launch
+    strided = hasattr(cdll, "ssd_scan_heads")
+    fn.argtypes = ss._lib().argtypes if strided else \
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+
+    def block(x_, dt_, A_, B_, C_, f32):
+        ins, st, decay = ss._prepare(x_, dt_, A_, B_, C_, views=strided)
+        y = torch.empty_like(ins[0], dtype=torch.float32 if f32 else x_.dtype,
+                             memory_format=torch.contiguous_format)
+        args = ss._fwd_args(ins, f32) if strided else \
+            ss._dims(ins[0], ins[3], f32)
+        err = fn(*[None if t is None else t.data_ptr()
+                   for t in (*ins, y, st, decay)], *args,
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"launch failed: CUDA error {err}")
+        return y, st
+    return lib, proc.stderr, (lambda *ins: ss.ssd_blocked(*ins, block)[0])
+
+
+# the forward's compared and timed shapes (label, b, s, h, g, n, p):
+# zamba2-1.2b's and mamba2-2.7b's prefill, and phase 33 c's p 128 / n 256
+SSD_COMPARED = (("zamba2-1.2b", 2, 4096, 64, 1, 64, 64),
+                ("mamba2-2.7b", 2, 4096, 80, 1, 128, 64),
+                ("p 128 n 256", *chip_smoke.WIDE_SSD_TIMED[:3],
+                 chip_smoke.WIDE_SSD_TIMED[3], chip_smoke.WIDE_SSD_TIMED[4],
+                 chip_smoke.WIDE_SSD_TIMED[6]))
+
+
+def probe_ssd_compare(other: str) -> None:
+    """The forward built from another copy of csrc/ssd_scan.cu (`other`,
+    e.g. the parent commit's) against this checkout's serving launch (no
+    group states asked for) at `SSD_COMPARED`: bf16 at every shape, each
+    build's relative RMS and largest error against `ssd_scan_plain` and
+    the two builds' largest difference (bf16 y is not bit-equal across
+    designs); float32 at zamba2's and mamba2's, bit for bit; each build's
+    repeat bit-equal; times in turns (other, this, this, other); then
+    each kernel's SASS diffed."""
+    other_lib, _, run_other = bind_ssd(other)
     gen = torch.Generator(device=DEV).manual_seed(3)
-    for b, s, h, g, n in ((2, 4096, 64, 1, 64), (2, 4096, 80, 1, 128)):
-        for dtype, reps in ((torch.bfloat16, 50), (torch.float32, 10)):
-            ins = ssd_inputs(gen, b, s, h, g, n, dtype, 1.0)
+    for label, b, s, h, g, n, p in SSD_COMPARED:
+        for dtype, reps in ((torch.bfloat16, 20), (torch.float32, 5)):
+            if dtype == torch.float32 and p != 64:
+                continue
+            ins = ssd_inputs(gen, b, s, h, g, n, dtype, 1.0, p)
+            runs = {"other": lambda: run_other(*ins),
+                    "this": lambda: ss._ssd_cuda(*ins)}
+            tag = (f"ssd {label} {str(dtype)[6:]} b={b} s={s} h={h} p={p} "
+                   f"g={g} n={n}")
+            ys = {who: f() for who, f in runs.items()}
+            repeat = {who: torch.equal(f(), ys[who]) for who, f in runs.items()}
+            if dtype == torch.float32:
+                print(f"{tag}: y bit for bit equal: "
+                      f"{torch.equal(ys['other'], ys['this'])}; repeats "
+                      f"bit-equal {repeat}", flush=True)
+            else:
+                want = ss.ssd_scan_plain(*ins, chunk=64)
+                errs = "; ".join(
+                    f"{who} rel RMS {rel_rms(y, want):.3g}, max abs "
+                    f"{float((y.float() - want.float()).abs().max()):.3g}"
+                    for who, y in ys.items())
+                diff = float((ys["other"].float() - ys["this"].float())
+                             .abs().max())
+                print(f"{tag}: vs ssd_scan_plain {errs} (max |y| "
+                      f"{float(want.float().abs().max()):.3g}); the builds' "
+                      f"largest difference {diff:.3g}; repeats bit-equal "
+                      f"{repeat}", flush=True)
+            for who in ("other", "this", "this", "other"):
+                print(f"{tag}, {who} "
+                      f"({other if who == 'other' else 'checkout'}): "
+                      f"{cuda_ms(runs[who], reps):.4f} ms", flush=True)
+            del ins, ys
+    sass_diff(other_lib, build.library_path("ssd_scan"))
 
-            def run_other():
-                done, st, decay = ss._prepare(*ins)
-                y = torch.empty_like(ins[0])
-                err = fn(*[t.data_ptr() for t in done], y.data_ptr(),
-                         st.data_ptr(), decay.data_ptr(), b, s, h, 64, g, n,
-                         ss.TILE, ss.GROUP_CHUNKS, ss.DTYPES[dtype],
-                         torch.cuda.current_stream().cuda_stream)
-                if err:
-                    raise RuntimeError(f"launch failed: CUDA error {err}")
-                return y
 
-            this = lambda: ss._ssd_cuda(*ins)  # noqa: E731
-            same = torch.equal(run_other(), this())
-            for name in ("other", "this", "this", "other"):
-                f = run_other if name == "other" else this
-                print(f"ssd {str(dtype)[6:]} b={b} s={s} h={h} n={n}, {name} "
-                      f"({other if name == 'other' else 'checkout'}): "
-                      f"{cuda_ms(f, reps):.4f} ms", flush=True)
-            print(f"ssd {str(dtype)[6:]} b={b} s={s} h={h} n={n}: y bit for "
-                  f"bit equal: {same}", flush=True)
+# builds of csrc/ssd_scan.cu with one switch of the bf16 forward's design
+# flipped (levers a-e of its design), then two diagnostics that break the
+# result to weigh a part: (name, [(old, new) text edits])
+SSD_VARIANTS = {
+    "as built": [],
+    "a: each product waited for at once (no overlap)": [
+        ("constexpr bool SSD_OVERLAP = true;",
+         "constexpr bool SSD_OVERLAP = false;")],
+    "b: dt not folded into W (x dt split, six part products)": [
+        ("constexpr bool SSD_FOLD = true;", "constexpr bool SSD_FOLD = false;")],
+    "c: cp.async by the producer warp in place of TMA": [
+        ("constexpr bool SSD_TMA = true;", "constexpr bool SSD_TMA = false;")],
+    "d: one head a block in the scan": [
+        ("constexpr int SSD_HEADS = 2;", "constexpr int SSD_HEADS = 1;")],
+    "d: three heads a block in the scan at n 64": [
+        ("__host__ __device__ constexpr int hb_heads(int) { return SSD_HEADS; }",
+         "__host__ __device__ constexpr int hb_heads(int n) {\n"
+         "  return n == 64 ? 3 : SSD_HEADS;\n}")],
+    "e: two heads a block in launch 1": [
+        ("constexpr int SSD_STATE_HEADS = 1;",
+         "constexpr int SSD_STATE_HEADS = 2;")],
+    "expf in place of ex2.approx": [
+        ("constexpr bool SSD_EXP2 = true;", "constexpr bool SSD_EXP2 = false;")],
+    # where the time goes (wrong outputs: they only time what is left)
+    "no exps (every decay 1)": [
+        ("constexpr bool SSD_NO_EXP = false;",
+         "constexpr bool SSD_NO_EXP = true;")],
+    "no products (no wgmma issued)": [
+        ("constexpr bool SSD_NO_PRODUCTS = false;",
+         "constexpr bool SSD_NO_PRODUCTS = true;")],
+}
+
+
+def ssd_variant_sources(variants=None) -> dict:
+    """{variant name: its source text}, each edit checked to apply."""
+    variants = SSD_VARIANTS if variants is None else variants
+    src = (build.CSRC / "ssd_scan.cu").read_text()
+    out = {}
+    for name, edits in variants.items():
+        text = src
+        for old, new in edits:
+            if old not in text:
+                raise RuntimeError(f"ssd source changed: {old!r}")
+            text = text.replace(old, new)
+        out[name] = text
+    return out
+
+
+def probe_ssd_variants(variants=None, shapes=SSD_COMPARED[:2]) -> None:
+    """Builds of csrc/ssd_scan.cu with one switch of the bf16 forward's
+    design flipped (`SSD_VARIANTS`), each beside its ptxas lines and its
+    relative RMS against `ssd_scan_plain`, timed in turns (each in order,
+    then in reverse) at zamba2's and mamba2-2.7b's prefill shapes: what
+    each lever buys, and where the time goes."""
+    out = build.BUILD_DIR.parent / "probe"
+    out.mkdir(parents=True, exist_ok=True)
+    paths = {}
+    for i, (name, text) in enumerate(ssd_variant_sources(variants).items()):
+        paths[name] = out / f"ssd_variant{i}.cu"
+        paths[name].write_text(text)
+    from concurrent.futures import ThreadPoolExecutor
+    ss._lib()                           # this build once, before the pool
+    with ThreadPoolExecutor(max_workers=len(paths)) as pool:
+        bound = dict(zip(paths, pool.map(bind_ssd, paths.values())))
+    runs = {}
+    for name, (_, log, run) in bound.items():
+        print(f"ptxas {name}: " + "; ".join(
+            k for k in chip_smoke.ptxas_kernels(log)
+            if "_hb<" in k or "warning" in k), flush=True)
+        runs[name] = run
+    gen = torch.Generator(device=DEV).manual_seed(9)
+    for label, b, s, h, g, n, p in shapes:
+        ins = ssd_inputs(gen, b, s, h, g, n, torch.bfloat16, 1.0, p)
+        want = ss.ssd_scan_plain(*ins, chunk=64)
+        for name, run in runs.items():
+            y = run(*ins)
+            print(f"ssd variant {name} ({label}): rel RMS vs plain "
+                  f"{rel_rms(y, want):.3g}, repeat bit-equal "
+                  f"{torch.equal(y, run(*ins))}", flush=True)
+        order = list(runs)
+        for name in order + order[::-1]:
+            print(f"ssd variant {name} ({label}: b={b} s={s} h={h} g={g} "
+                  f"n={n} bf16): {cuda_ms(lambda: runs[name](*ins), 20):.4f}"
+                  f" ms", flush=True)
+        del ins, want
 
 
 def record_ops(fn):
@@ -1499,6 +1636,7 @@ def main() -> None:
                   BWD_F32_VARIANTS, torch.float32),
               "flash-bwd-f32-built-variants": lambda: probe_flash_bwd_variants(
                   BWD_F32_BUILT_VARIANTS, torch.float32, BUILT_F32_SHAPES),
+              "ssd-variants": probe_ssd_variants,
               "row-stage": probe_row_stage, "wide": probe_wide}
     compare = {"flash-compare": probe_flash_compare,
                "flash-bwd-compare": probe_flash_bwd_compare,

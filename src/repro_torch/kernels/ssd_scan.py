@@ -10,13 +10,19 @@ length too (it reads the tail as dt = 0), unlike the Pallas launcher's
 
 The kernel replaces `src/repro/kernels/ssd_scan.py:_ssd_kernel`.  At
 the zamba2-1.2b prefill shape (b = 2, s = 4096, h = 64, p = 64, n = 64)
-its function is bound by bytes (~137 MB); its design is bound by float32
-FMAs.  The chunk axis is split into groups of `GROUP_CHUNKS` chunks over
-three launches: each group's end state from zero, the state passed from
-group to group in order, then each group's scan from its incoming state
-(`ssd_scan_split_plain` mirrors this in plain PyTorch for the tests).
-The wrapper allocates the float32 group states (b, h, G, n, p) and
-decays (b, h, G).  See the source's header note.
+its function is bound by bytes (~138 MB).  The chunk axis is split into
+groups of `GROUP_CHUNKS` chunks over three launches: each group's end
+state from zero, the state passed from group to group in order, then
+each group's scan from its incoming state (`ssd_scan_split_plain`
+mirrors this in plain PyTorch for the tests).  In bf16 every product is
+a wgmma with float32 operands split into three bf16 parts, dt folded
+into W's columns, x / B / C copied by TMA, `HEADS` heads of one B/C
+group a block (`STATE_HEADS` in launch 1; `launch_grids` gives each
+launch's grid); `ssd_scan_fold_plain` mirrors its arithmetic.  The TMA
+maps read bf16 x / B / C where they lie when their strides and base sit
+on 16 bytes (`_tma_ready`): the model's views into the conv output are
+not copied.  The wrapper allocates the float32 group states (b, h, G, n,
+p) and decays (b, h, G).  See the source's header note.
 
 Shapes: x (b, s, h, p), dt (b, s, h) float32, A (h,) float32, B/C
 (b, s, g, n) with x's dtype (float32 or bfloat16); y (b, s, h, p) in x's
@@ -79,6 +85,13 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the prefill shape 64 tiles make 8 groups, whose f32 states (16.8 MB)
 # stay in the 50 MB L2
 GROUP_CHUNKS = 8
+
+# heads of one B/C group a block of the bf16 forward takes
+# (csrc/ssd_scan.cu SSD_HEADS; launch 1, the groups' end states:
+# SSD_STATE_HEADS); a group's last block takes fewer when they do not
+# divide its heads
+HEADS = 2
+STATE_HEADS = 1
 
 # heads of one B/C group a block of the bf16 backward takes
 # (csrc/ssd_scan_bwd.cu HEADS): it sums their dB and dC itself
@@ -176,6 +189,76 @@ def split_parts(t, parts):
         out.append(part)
         rest = rest - part
     return out
+
+
+def trunc_parts(t, parts):
+    """The bf16 parts of the float32 tensor `t` as the bf16 forward kernel
+    splits an operand: the top 8 significant bits of t (its bits cut to a
+    bf16), then of each remainder (exact in float32).  Returned as float32
+    tensors; three sum to t bit for bit."""
+    out, rest = [], t.float()
+    for _ in range(parts):
+        part = (rest.view(torch.int32) & -65536).view(torch.float32)
+        out.append(part)
+        rest = rest - part
+    return out
+
+
+def ssd_scan_fold_plain(x, dt, A, B, C, *, parts=3, group=GROUP_CHUNKS):
+    """The bf16 forward kernel's arithmetic in plain PyTorch (tests only),
+    float32, over `TILE`-row chunks in groups of `group`: each group's end
+    state from zero, the states passed in order, then each group's scan
+    from its incoming state S (n x p a head).  Per chunk, with cA the
+    cumsum of dt A and every float32 operand taken as the sum of its first
+    `parts` truncated bf16 parts (`trunc_parts`; three are the operand):
+      W'_ij = (C_i . B_j) exp(cA_i - cA_j) dt_j (i >= j, else 0)
+      y = (C S) exp(cA) + W' x
+      S <- S exp(cA_last) + (B dt exp(cA_last - cA))^T x
+    A ragged tail reads as dt = 0; y (b, s, h, p) in x's dtype."""
+    b, s, h, p = x.shape
+    L = TILE
+    nc = -(-s // L)
+    G = -(-nc // group)
+    xf, dtf, Bh, Ch, _ = _per_head(*_pad_rows((x, dt, B, C, x), G * group * L))
+    tri = torch.tril(torch.ones((L, L), dtype=torch.bool, device=x.device))
+
+    def op(t):
+        out = trunc_parts(t, parts)
+        return sum(out[1:], out[0])
+
+    def chunk(S, c, want_y):
+        sl = slice(c * L, (c + 1) * L)
+        x_, dt_, B_, C_ = xf[:, sl], dtf[:, sl], Bh[:, sl], Ch[:, sl]
+        cA = torch.cumsum(dt_ * A, dim=1)                     # (b, L, h)
+        last = cA[:, -1]
+        y = None
+        if want_y:
+            E = torch.where(tri[None, :, :, None],
+                            torch.exp(cA[:, :, None] - cA[:, None]),
+                            torch.zeros((), device=x.device))
+            W = torch.einsum("bihn,bjhn->bijh", C_, B_) * E * dt_[:, None]
+            y = torch.einsum("bihn,bhnp->bihp", C_, op(S)) \
+                * torch.exp(cA)[..., None] \
+                + torch.einsum("bijh,bjhp->bihp", op(W), x_)
+        dd = dt_ * torch.exp(last[:, None] - cA)
+        S = S * torch.exp(last)[..., None, None] + torch.einsum(
+            "bjhn,bjhp->bhnp", op(B_ * dd[..., None]), x_)
+        return S, y, torch.exp(last)
+
+    zero = torch.zeros((b, h, B.shape[3], p), dtype=torch.float32,
+                       device=x.device)
+    run, ys = zero, []
+    for gi in range(G):
+        end, decay = zero, torch.ones_like(zero[..., 0, 0])
+        for c in range(gi * group, (gi + 1) * group):
+            end, _, e = chunk(end, c, False)
+            decay = decay * e
+        S = run
+        for c in range(gi * group, (gi + 1) * group):
+            S, y, _ = chunk(S, c, True)
+            ys.append(y)
+        run = run * decay[..., None, None] + end
+    return torch.cat(ys, 1)[:, :s].to(x.dtype)
 
 
 def _operand(t, split):
@@ -476,14 +559,59 @@ def kernel_launches(s: int, n: int = 64) -> int:
     return len(state_blocks(n)) * (1 if n_groups(s) == 1 else 3)
 
 
+def launch_grids(x, B) -> list:
+    """The launches of one call at p 64 and one n-block for x (b, s, h,
+    64) and B (b, s, g, n), as csrc/ssd_scan.cu makes them: (name, grid
+    (x, y, z), threads a block, heads a block).  bf16 blocks take the
+    heads of one B/C group in sets of `STATE_HEADS` (launch 1) or `HEADS`
+    (launch 3), a group's last set short when they do not divide h / g
+    (grid y: g sets of ceil((h / g) / heads)), a warpgroup a head and a
+    producer (launch 1 a warp, the scan a warpgroup); float32 blocks one
+    head.  Shapes and dtype only: meta tensors will do."""
+    b, s, h, _ = x.shape
+    g, n = B.shape[2], B.shape[3]
+    G, hpg = n_groups(s), h // g
+
+    def per(heads, producer):
+        if x.dtype == torch.float32:
+            return h, 256, 1
+        return g * -(-hpg // heads), heads * 128 + producer, heads
+    out = []
+    if G > 1:
+        y1, t1, k1 = per(STATE_HEADS, 32)
+        out += [("state", (G - 1, y1, b), t1, k1),
+                ("pass", (n * 64 // 256, h, b), 256, 1)]
+    y3, t3, k3 = per(HEADS, 128)
+    return out + [("scan", (G, y3, b), t3, k3)]
+
+
+def block_heads(h: int, g: int, heads: int, y: int) -> list:
+    """The heads block y of a bf16 launch takes (`launch_grids`): set y %
+    sets of B/C group y // sets, up to `heads` consecutive heads."""
+    hpg = h // g
+    sets = -(-hpg // heads)
+    first = (y % sets) * heads
+    return [(y // sets) * hpg + first + i
+            for i in range(min(heads, hpg - first))]
+
+
 @functools.lru_cache(maxsize=None)
 def _lib(entry="ssd_scan_launch"):
     from . import build
-    fn = getattr(build.load("ssd_scan"), entry)
+    lib = build.load("ssd_scan")
+    fn = getattr(lib, entry)
     n_ptr = 8 if entry == "ssd_scan_launch" else 7
     fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 9 \
-        + [ctypes.c_void_p]
+        + [ctypes.c_longlong] * 9 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    lib.ssd_scan_heads.argtypes = [ctypes.c_int, ctypes.c_int]
+    for launch, heads in ((1, STATE_HEADS), (3, HEADS)):
+        for n in STATE_DIMS:
+            if lib.ssd_scan_heads(launch, n) != heads:
+                raise RuntimeError(
+                    f"csrc/ssd_scan.cu takes {lib.ssd_scan_heads(launch, n)}"
+                    f" heads a block in launch {launch} at n {n}, "
+                    f"ssd_scan.py {heads}")
     return fn
 
 
@@ -576,20 +704,42 @@ def ssd_blocked_bwd(x, dt, A, B, C, dy, bwd):
     return dx, ddt, dA, dB, dC
 
 
-def _prepare(x, dt, A, B, C):
-    """Checked, dense, 16-byte aligned inputs of one block (x at p 64), B
-    and C padded to the block's built width, and the split's scratch at
-    those widths."""
+def _tma_ready(t) -> bool:
+    """Whether the bf16 kernels' TMA maps read the (b, s, heads, cols)
+    tensor t where it lies: the last axis dense, the other strides (of
+    the axes longer than one) and the base on 16 bytes."""
+    return t.stride(3) == 1 and t.data_ptr() % 16 == 0 and all(
+        t.stride(i) > 0 and t.stride(i) % 8 == 0
+        for i in range(3) if t.shape[i] > 1)
+
+
+def _strides(t) -> tuple:
+    """The element strides (head, row, batch) of a (b, s, heads, cols)
+    tensor as the launchers take them; an axis of one reads as dense."""
+    b, s, k, c = t.shape
+    dense = (c, k * c, s * k * c)
+    return tuple(t.stride(i) if t.shape[i] > 1 else d
+                 for i, d in zip((2, 1, 0), dense))
+
+
+def _prepare(x, dt, A, B, C, views=False):
+    """Checked, 16-byte aligned inputs of one block (x at p 64), B and C
+    padded to the block's built width, and the split's scratch at those
+    widths.  dt and A dense; x, B, C dense too, unless `views` and the
+    bf16 kernels' TMA maps read them where they lie (`_tma_ready`)."""
     b, s, h, p = x.shape
     if max(b, h) > MAX_GRID_YZ:
         raise ValueError(f"ssd_scan on the card: b = {b}, {h} heads (p-blocks "
                          f"of 64 counted as heads); a grid dimension above "
                          f"{MAX_GRID_YZ} does not launch")
     n = next(w for w in STATE_DIMS if B.shape[3] <= w)
-    # the kernel copies dense row-major 16-byte rows with cp.async; the
-    # model's x/B/C are views into the conv output, so this copies them
+    # the float32 kernels (and the backward) copy dense row-major 16-byte
+    # rows with cp.async; the bf16 forward's maps take strided views, such
+    # as the model's x/B/C, views into the conv output
+    keep = views and x.dtype == torch.bfloat16
     ins = [x, dt, A, _pad_cols(B, n), _pad_cols(C, n)]
-    ins = [t.contiguous() for t in ins]
+    ins = [t if keep and i in (0, 3, 4) and _tma_ready(t) else t.contiguous()
+           for i, t in enumerate(ins)]
     ins = [t if t.data_ptr() % 16 == 0 else t.clone() for t in ins]
     G = n_groups(s)
     states = decay = None
@@ -608,6 +758,13 @@ def _dims(x, B, f32=False) -> tuple:
     return (b, s, h, p, B.shape[2], B.shape[3], TILE, GROUP_CHUNKS, code)
 
 
+def _fwd_args(ins, f32=False) -> tuple:
+    """The forward launchers' arguments after the pointers: `_dims`, then
+    the element strides of x, B and C (`_strides`)."""
+    return (*_dims(ins[0], ins[3], f32), *_strides(ins[0]),
+            *_strides(ins[3]), *_strides(ins[4]))
+
+
 def _ssd_cuda(x, dt, A, B, C, *, states=False):
     """Launch csrc/ssd_scan.cu on the current stream (no sync), one call
     (`kernel_launches(s)` kernels) an n-block (`ssd_blocked`).  Returns y,
@@ -618,11 +775,12 @@ def _ssd_cuda(x, dt, A, B, C, *, states=False):
     every tile: its state is zero).  Asking for them changes no launch."""
     def block(x_, dt_, A_, B_, C_, f32):
         global LAUNCHES
-        ins, st, decay = _prepare(x_, dt_, A_, B_, C_)
+        ins, st, decay = _prepare(x_, dt_, A_, B_, C_, views=True)
         y = torch.empty_like(ins[0],
-                             dtype=torch.float32 if f32 else x_.dtype)
+                             dtype=torch.float32 if f32 else x_.dtype,
+                             memory_format=torch.contiguous_format)
         _call(_lib("ssd_scan_launch"), (*ins, y, st, decay),
-              _dims(ins[0], ins[3], f32), "ssd_scan")
+              _fwd_args(ins, f32), "ssd_scan")
         LAUNCHES += kernel_launches(x_.shape[1])
         return y, st
 
@@ -760,9 +918,9 @@ def ssd_group_states_cuda(x, dt, A, B, C):
     out = []
     for n0, n1, _ in state_blocks(B.shape[3]):
         ins, states, decay = _prepare(xv, dtv, Av, B[..., n0:n1],
-                                      C[..., n0:n1])
+                                      C[..., n0:n1], views=True)
         _call(_lib("ssd_scan_states_launch"), (*ins, states, decay),
-              _dims(ins[0], ins[3]), "ssd_scan")
+              _fwd_args(ins), "ssd_scan")
         LAUNCHES += 2
         G = states.shape[2]
         out.append(states.permute(0, 2, 1, 4, 3)

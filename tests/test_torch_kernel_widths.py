@@ -232,7 +232,8 @@ def _ssd_launches(monkeypatch, seen, plain=PLAIN_SSD,
     def call(fn, tensors, d, what):
         ts = [None if t is None else t.as_subclass(torch.Tensor)
               for t in tensors]
-        b, s, h, p, g, n, tile, group, _ = d
+        b, s, h, p, g, n, tile, group, _, *strides = d
+        assert len(strides) == (9 if fn == "ssd_scan_launch" else 0)
         seen.append((fn, p, n))
         if fn == "ssd_scan_launch":
             x, dt, A, B, C, y, st, _ = ts

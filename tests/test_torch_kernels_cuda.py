@@ -1569,3 +1569,147 @@ def test_ssd_kernels_past_the_built_widths(cuda, dtype, b, s, h, p, g, n):
             assert float((a - w).abs().max()) <= 1e-5 * float(w.abs().max())
         else:
             assert _rel_rms(a, w) <= 5e-4
+
+
+# ---------------------------------------------------------------------------
+# the bf16 SSD forward on wgmma (ssd_kernel_state_hb / ssd_kernel_scan_hb)
+# ---------------------------------------------------------------------------
+
+def _ssd_ins(cuda, b, s, h, g, n, dt_scale=0.05, p=64, seed=0):
+    return [_randn(seed, (b, s, h, p), torch.bfloat16, cuda, 0.5),
+            dt_scale * torch.nn.functional.softplus(
+                _randn(seed + 1, (b, s, h), torch.float32, cuda)),
+            -torch.exp(_randn(seed + 2, (h,), torch.float32, cuda, 0.3)),
+            _randn(seed + 3, (b, s, g, n), torch.bfloat16, cuda, 0.3),
+            _randn(seed + 4, (b, s, g, n), torch.bfloat16, cuda, 0.3)]
+
+
+def _hold_ssd_bf16(got, ins):
+    """y within SSD_BF16_LIMIT of the plain version, which the bf16-product
+    control misses."""
+    want = ss.ssd_scan_plain(*ins, chunk=64)
+    control = ss.ssd_scan_rounded_plain(*ins, chunk=64)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert _rel_rms(got, want) <= SSD_BF16_LIMIT < _rel_rms(control, want)
+
+
+@pytest.mark.parametrize("b,s,h,g,n", [(2, 1100, 4, 1, 64),
+                                       (1, 1500, 3, 1, 128)])
+def test_ssd_bf16_forward_repeats_bit_for_bit(cuda, b, s, h, g, n):
+    """No atomics and a fixed order: a repeat of the bf16 forward gives y
+    and the group states bit for bit, and so does the launch that keeps
+    its states (what `SSDScan` runs)."""
+    ins = _ssd_ins(cuda, b, s, h, g, n)
+    y = ss.ssd_scan(*ins)
+    y2, st = ss._ssd_cuda(*ins, states=True)
+    y3, st3 = ss._ssd_cuda(*ins, states=True)
+    assert torch.equal(y, y2) and torch.equal(y2, y3)
+    assert torch.equal(st, st3)
+    assert torch.equal(ss.ssd_group_states_cuda(*ins),
+                       ss.ssd_group_states_cuda(*ins))
+    _hold_ssd_bf16(y, ins)
+
+
+def test_ssd_bf16_forward_at_mamba2_widths(cuda):
+    """mamba2-2.7b's heads and state (h 80, n 128: two heads a block, 40
+    blocks a group of chunks) over three groups: y against the plain
+    version with the bf16 control, the group states within the float32
+    tolerance of `ssd_split_states_plain`, three launches."""
+    ins = _ssd_ins(cuda, 1, 1500, 80, 1, 128, dt_scale=1.0)
+    before = ss.LAUNCHES
+    y = ss.ssd_scan(*ins)
+    assert ss.LAUNCHES == before + ss.kernel_launches(1500, 128) == \
+        before + 3
+    _hold_ssd_bf16(y, ins)
+    states = ss.ssd_group_states_cuda(*ins)
+    want = ss.ssd_split_states_plain(*ins, chunk=64)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(states.cpu().numpy(), want.cpu().numpy(),
+                               atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("b,s,h,g,n", [
+    (1, 700, 5, 1, 64),       # 5 heads: sets of 2, 2, 1
+    (2, 1000, 9, 3, 128),     # 3 a B/C group: sets of 2 and 1, per group
+    (1, 600, 1, 1, 64),       # one head, one short set
+])
+def test_ssd_bf16_heads_not_a_multiple_of_a_block(cuda, b, s, h, g, n):
+    """The heads of a B/C group in sets of `HEADS` a block, the last set
+    short when they do not divide h / g: every head's y against the plain
+    version with the bf16 control, the group states within the float32
+    tolerance; each head's y unchanged when run alone (its own B/C
+    group's rows, no other head's state)."""
+    ins = _ssd_ins(cuda, b, s, h, g, n)
+    y = ss.ssd_scan(*ins)
+    _hold_ssd_bf16(y, ins)
+    states = ss.ssd_group_states_cuda(*ins)
+    want = ss.ssd_split_states_plain(*ins, chunk=64)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(states.cpu().numpy(), want.cpu().numpy(),
+                               atol=1e-4, rtol=1e-4)
+    x, dt, A, B, C = ins
+    hpg = h // g
+    for hd in (0, h - 1):
+        gg = hd // hpg
+        alone = ss.ssd_scan(x[:, :, hd:hd + 1].contiguous(),
+                            dt[:, :, hd:hd + 1].contiguous(), A[hd:hd + 1],
+                            B[:, :, gg:gg + 1].contiguous(),
+                            C[:, :, gg:gg + 1].contiguous())
+        assert torch.equal(alone[:, :, 0], y[:, :, hd])
+
+
+def test_ssd_bf16_float32_y_of_each_n_block_sums_once(cuda):
+    """n 256 runs as two n-blocks of 128 (`state_blocks`), each launch
+    writing a float32 y (dtype code 2, the YF32 instances): the call's y
+    is the two blocks' float32 y summed and rounded to bf16 once, bit for
+    bit; each block's float32 y within the float32 tolerance of its plain
+    version's; y against the plain version with the bf16 control."""
+    b, s, h, g, n = 1, 1000, 4, 1, 256
+    ins = _ssd_ins(cuda, b, s, h, g, n)
+    x, dt, A, B, C = ins
+
+    def block_f32(n0, n1):
+        done, st, decay = ss._prepare(x, dt, A, B[..., n0:n1], C[..., n0:n1],
+                                      views=True)
+        y = torch.empty(x.shape, dtype=torch.float32, device=cuda)
+        ss._call(ss._lib("ssd_scan_launch"), (*done, y, st, decay),
+                 ss._fwd_args(done, True), "ssd_scan")
+        return y
+    parts = [block_f32(0, 128), block_f32(128, 256)]
+    y = ss.ssd_scan(*ins)
+    assert torch.equal(y, (parts[0] + parts[1]).to(torch.bfloat16))
+    for (n0, n1), part in zip(((0, 128), (128, 256)), parts):
+        want = ss.ssd_scan_plain(x.float(), dt, A, B[..., n0:n1].float(),
+                                 C[..., n0:n1].float(), chunk=64)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(part.cpu().numpy(), want.cpu().numpy(),
+                                   atol=1e-4, rtol=5 * TOL[torch.float32])
+    _hold_ssd_bf16(y, ins)
+
+
+@pytest.mark.parametrize("g", [1, 2])
+def test_ssd_bf16_strided_views_read_where_they_lie(cuda, g):
+    """x / B / C as the model has them, views into one (b, s, d_inner +
+    2 g n) conv output: the TMA maps read them uncopied (`_tma_ready`),
+    and y and the group states equal, bit for bit, those of the same
+    values made contiguous; a view whose row stride is off 16 bytes is
+    copied and gives the same y too."""
+    b, s, h, n = 2, 1100, 4, 64
+    wide = _randn(9, (b, s, h * 64 + 2 * g * n), torch.bfloat16, cuda, 0.4)
+    x = wide[..., :h * 64].reshape(b, s, h, 64)
+    B = wide[..., h * 64:h * 64 + g * n].reshape(b, s, g, n)
+    C = wide[..., h * 64 + g * n:].reshape(b, s, g, n)
+    dt = 0.05 * torch.nn.functional.softplus(
+        _randn(10, (b, s, h), torch.float32, cuda))
+    A = -torch.exp(_randn(11, (h,), torch.float32, cuda, 0.3))
+    assert all(ss._tma_ready(t) for t in (x, B, C))
+    dense = [x.contiguous(), dt, A, B.contiguous(), C.contiguous()]
+    y, st = ss._ssd_cuda(x, dt, A, B, C, states=True)
+    y_d, st_d = ss._ssd_cuda(*dense, states=True)
+    assert torch.equal(y, y_d) and torch.equal(st, st_d)
+    odd = _randn(12, (b, s, h * 64 + 4), torch.bfloat16, cuda)
+    x_odd = odd[..., :h * 64].reshape(b, s, h, 64)
+    assert not ss._tma_ready(x_odd)
+    assert torch.equal(ss.ssd_scan(x_odd, dt, A, B, C),
+                       ss.ssd_scan(x_odd.contiguous(), dt, A, B, C))
+    _hold_ssd_bf16(y, dense)

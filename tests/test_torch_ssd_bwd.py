@@ -426,8 +426,13 @@ def test_ssd_card_route_runs_the_tile_at_any_chunk(monkeypatch, chunk):
     y.backward(t[5])
     assert (ss.LAUNCHES - f0, ss.BWD_LAUNCHES - b0) == \
         (ss.kernel_launches(s), 1) == (3, 1)
-    assert dims == [(fn, (b, s, h, p, g, n, 64, ss.GROUP_CHUNKS, 0))
-                    for fn in ("ssd_scan_launch", "ssd_scan_bwd_launch")]
+    assert [(fn, d[:9]) for fn, d in dims] == [
+        (fn, (b, s, h, p, g, n, 64, ss.GROUP_CHUNKS, 0))
+        for fn in ("ssd_scan_launch", "ssd_scan_bwd_launch")]
+    # the forward's element strides of x, B, C (head or group, row,
+    # batch): dense, as float32 launches take them
+    assert [d[9:] for _, d in dims] == [
+        (p, h * p, s * h * p, n, g * n, s * g * n, n, g * n, s * g * n), ()]
     np.testing.assert_allclose(y.detach().numpy(), want_y.numpy(),
                                atol=1e-4, rtol=1e-4)
     _close([x.grad for x in leaves], [x.numpy() for x in want],
