@@ -583,8 +583,9 @@ def ptxas_kernels(log: str) -> list:
     for float32: "one block" at Dh 64, "cluster exchange" at 128-512,
     "add totals" / "read totals" past 8 column blocks),
     `ssd_kernel_<launch><n>` and `ssd_bwd_<launch><dtype, n>` for the SSD
-    kernels', "y f32" / "dx f32" for the float32-output instances), and
-    each warning of ptxas that a wgmma chain was serialized."""
+    kernels' (the bf16 backward's `ssd_bwd_walk_hb` / `ssd_bwd_chunk_hb`
+    as `<bf16, n>`), "y f32" / "dx f32" for the float32-output instances),
+    and each warning of ptxas that a wgmma chain was serialized."""
     out, name = [], None
     for line in log.splitlines():
         if "Performance Loss" in line:
@@ -613,6 +614,8 @@ def ptxas_kernels(log: str) -> list:
                       r"bfloat16|f)?Li(\d+)E(Lb1E)?", line)
         if m:                           # the SSD backward's launches
             dtype = {None: "", "f": "f32, "}.get(m.group(2), "bf16, ")
+            if m.group(1).endswith("_hb"):
+                dtype = "bf16, "
             name = (f"{m.group(1)}<{dtype}{m.group(3)}"
                     f"{', dx f32' if m.group(4) else ''}>")
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -3852,7 +3855,7 @@ SSD_BWD_F32_REL = 1e-5
 SSD_BWD_BF16_RMS = 5e-4
 # the SSD backward's bf16 launches by name in a profile (phase 26 reads
 # each one's device time from the zamba2 step's profile)
-SSD_BWD_LAUNCHES = ("ssd_bwd_walk", "ssd_bwd_pass", "ssd_bwd_chunk")
+SSD_BWD_LAUNCHES = ("ssd_bwd_walk_hb", "ssd_bwd_pass", "ssd_bwd_chunk_hb")
 SSM_TRAIN_ARCH = "zamba2-1.2b"
 SSM_TRAIN_B, SSM_TRAIN_S = 4, 2048
 SSM_TRAIN_STEPS = 6
@@ -4359,17 +4362,26 @@ def time_ssd_bwd(dev) -> list:
 
 def check_ssd_bwd_ptxas() -> None:
     """Phase 26: the backward's ptxas lines (registers, spills) of every
-    entry, and no spills in its bf16 launches."""
+    entry, and no spills in its bf16 launches (`ssd_bwd_walk_hb`,
+    `ssd_bwd_chunk_hb`: each instance must be there)."""
     from repro_torch.kernels import build
     lines = ptxas_kernels(build.BUILD_LOG.get("ssd_scan_bwd", ""))
     if not lines:
         print("ptxas ssd_scan_bwd: not measured (no build log in this "
               "process)")
         return
+    got = set()
     for line in lines:
         print(f"ptxas ssd_scan_bwd {line}")
-        if "bf16" in line.split()[0] and "spills 0 / 0 B" not in line:
-            miss(f"ptxas ssd_scan_bwd: {line}: the bf16 backward spills")
+        if "bf16" in line.split()[0]:
+            got.add(line[:line.index(">") + 1])
+            if "spills 0 / 0 B" not in line:
+                miss(f"ptxas ssd_scan_bwd: {line}: the bf16 backward spills")
+    want = {f"ssd_bwd_walk_hb<bf16, {n}>" for n in (64, 128)} | {
+        f"ssd_bwd_chunk_hb<bf16, {n}{f}>" for n in (64, 128)
+        for f in ("", ", dx f32")}
+    if not want <= got:
+        miss(f"ptxas ssd_scan_bwd: no lines for {sorted(want - got)}")
 
 
 def ssm_training_phases(dev) -> tuple:

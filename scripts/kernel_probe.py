@@ -44,6 +44,10 @@ for working on one kernel.
                                                      # copy of the SSD
                                                      # backward's source
                                                      # vs this one, in turns
+    python3 scripts/kernel_probe.py ssd-bwd-variants # the bf16 backward
+                                                     # with one part of its
+                                                     # design switched, in
+                                                     # turns
     python3 scripts/kernel_probe.py ssd-compare OTHER.cu     # the SSD
                                                      # forward's serving
                                                      # launch, another
@@ -1528,29 +1532,54 @@ def probe_flash_bwd_variants(variants=None, dtype=torch.bfloat16,
         del q, k, v, do, o, lse, plain
 
 
-def bind_ssd_bwd(path: str):
-    """Build another copy of csrc/ssd_scan_bwd.cu (with this checkout's
-    entry point) into build/probe/ and return a call (x, dt, A, B, C, dy,
-    states) -> (dx, ddt, dA, dB, dC) through the checkout's wrapper."""
-    lib = build.BUILD_DIR.parent / "probe" / "ssd_bwd_other.so"
+def bind_ssd_bwd(path, name: str = "ssd_bwd_other", quiet: bool = False):
+    """Build another copy of csrc/ssd_scan_bwd.cu into build/probe/ and
+    return (its library path, its ptxas lines, run), run(x, dt, A, B, C,
+    dy, states) -> (dx, ddt, dA, dB, dC) through the checkout's wrapper
+    with that build's entry point: this design's (the strides of x, B, C
+    and dy after the ints; its HEADS) or, from a source whose entry point
+    takes no strides (the mma.sync design's), the ints alone on dense
+    inputs."""
+    lib = build.BUILD_DIR.parent / "probe" / f"{name}.so"
     lib.parent.mkdir(parents=True, exist_ok=True)
     proc = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(lib),
-                           path], capture_output=True, text=True)
+                           str(path)], capture_output=True, text=True)
     if proc.returncode:
         raise RuntimeError(f"nvcc failed for {path}:\n{proc.stderr}")
-    print("ptxas other: " + "; ".join(chip_smoke.ptxas_kernels(proc.stderr)))
-    fn = ctypes.CDLL(str(lib)).ssd_scan_bwd_launch
+    lines = chip_smoke.ptxas_kernels(proc.stderr)
+    if not quiet:
+        print("ptxas other: " + "; ".join(lines))
+    text = Path(path).read_text()
+    cdll = ctypes.CDLL(str(lib))
+    fn = cdll.ssd_scan_bwd_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = ss._bwd_lib().argtypes
+    strided = "long long yb" in text
+    fn.argtypes = ss._bwd_lib().argtypes if strided else \
+        [ctypes.c_void_p] * 17 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    heads = cdll.ssd_scan_bwd_heads()
+
+    def dense_call(f, tensors, args, what):
+        tensors = [t if t is None or t.is_contiguous() else t.contiguous()
+                   for t in tensors]
+        return build.launch(f, tensors, args[:9], what)
 
     def run(x, dt, A, B, C, dy, states):
-        saved = ss._bwd_lib
-        ss._bwd_lib = lambda: fn
+        saved = ss._bwd_lib, ss.BWD_HEADS, ss._call
+        ss._bwd_lib, ss.BWD_HEADS = (lambda: fn), heads
+        if not strided:
+            ss._call = dense_call
         try:
             return ss._ssd_bwd_cuda(x, dt, A, B, C, dy, states)
         finally:
-            ss._bwd_lib = saved
-    return run
+            ss._bwd_lib, ss.BWD_HEADS, ss._call = saved
+    return lib, lines, run
+
+
+# the backward's timed shapes (label, b, s, h, g, n): zamba2-1.2b's and
+# mamba2-2.7b's prefill, phase 24's zamba2 train step
+SSD_BWD_TIMED = (("zamba2", 2, 4096, 64, 1, 64),
+                 ("mamba2-2.7b", 2, 4096, 80, 1, 128),
+                 ("zamba2 train", 4, 2048, 64, 1, 64))
 
 
 def probe_ssd_bwd_compare(other: str) -> None:
@@ -1560,17 +1589,17 @@ def probe_ssd_bwd_compare(other: str) -> None:
     24's step shape, bf16 and float32, on the forward kernel's own group
     states: each build's largest gradient error against
     `ssd_scan_bwd_plain` (over each gradient's largest magnitude; bf16
-    also the relative RMS), whether a repeat is bit-equal, and times in
-    turns (other, this, this, other)."""
+    also the relative RMS), whether a repeat is bit-equal, whether the two
+    builds' outputs are bit-equal (float32: they must be), and times in
+    turns (other, this, this, other); then each kernel's SASS diffed (the
+    float32 instances and the pass: equal)."""
     build.build_all(("ssd_scan", "ssd_scan_bwd"))
     print("ptxas this: " + "; ".join(chip_smoke.ptxas_kernels(
         build.BUILD_LOG.get("ssd_scan_bwd", ""))))
-    run_other = bind_ssd_bwd(other)
+    other_lib, _, run_other = bind_ssd_bwd(other)
     names = ("dx", "ddt", "dA", "dB", "dC")
     gen = torch.Generator(device=DEV).manual_seed(13)
-    for label, b, s, h, g, n in (("zamba2", 2, 4096, 64, 1, 64),
-                                 ("mamba2-2.7b", 2, 4096, 80, 1, 128),
-                                 ("zamba2 train", 4, 2048, 64, 1, 64)):
+    for label, b, s, h, g, n in SSD_BWD_TIMED:
         for dtype in (torch.bfloat16, torch.float32):
             ins = ssd_inputs(gen, b, s, h, g, n, dtype, 1.0)
             dy = rn(gen, (b, s, h, 64), dtype)
@@ -1601,6 +1630,112 @@ def probe_ssd_bwd_compare(other: str) -> None:
                 print(f"{tag}, {who} ({where}): "
                       f"{cuda_ms(fns[who], 10):.4f} ms", flush=True)
             del ins, dy, st, plain
+    sass_diff(other_lib, build.library_path("ssd_scan_bwd"))
+
+
+# builds of csrc/ssd_scan_bwd.cu with one switch of the bf16 backward's
+# design flipped (levers a-e of its design), then two diagnostics that
+# break the result to weigh a part: (name, [(old, new) text edits])
+SSD_BWD_VARIANTS = {
+    "as built": [],
+    "a: dt_j by a multiply in G o E (not folded into ex2's exponent)": [
+        ("constexpr bool SB_FOLD = true;", "constexpr bool SB_FOLD = false;")],
+    "b: two stages at n 64": [
+        ("__host__ __device__ constexpr int sb_stages(int n) { return n == 64 ? 1 : 2; }",
+         "__host__ __device__ constexpr int sb_stages(int n) { return 2; }")],
+    "b: one stage at n 128": [
+        ("__host__ __device__ constexpr int sb_stages(int n) { return n == 64 ? 1 : 2; }",
+         "__host__ __device__ constexpr int sb_stages(int n) { return 1; }")],
+    "b: the slabs' loads with branches at n 64": [
+        ("__host__ __device__ constexpr bool sb_branchless(int n) { return n == 64; }",
+         "__host__ __device__ constexpr bool sb_branchless(int n) { return false; }")],
+    "b: no L2 prefetch of the float32 slabs": [
+        ("constexpr bool SB_PREFETCH = true;",
+         "constexpr bool SB_PREFETCH = false;")],
+    "c: the walks write every chunk's slabs": [
+        ("constexpr bool SB_SKIP_SLABS = true;",
+         "constexpr bool SB_SKIP_SLABS = false;")],
+    "d: four heads a chunk block (twice the dB / dC rows)": [
+        ("constexpr int HEADS = 8;", "constexpr int HEADS = 4;")],
+    "e: one chunk block an SM at n 64": [
+        ("constexpr int SB_BLOCKS_N64 = 2;", "constexpr int SB_BLOCKS_N64 = 1;")],
+    # where the time goes (wrong outputs: they only time what is left)
+    "no exps (every decay 1)": [
+        ("float hb_exp2(float x) {\n", "float hb_exp2(float x) {\n  return 1.f;\n")],
+    "no products (no wgmma issued)": [
+        ("uint64_t db, int accumulate) {\n  asm volatile(",
+         "uint64_t db, int accumulate) {\n  return;\n  asm volatile(")],
+}
+
+
+def ssd_bwd_variant_sources(variants=None) -> dict:
+    """{variant name: its source text}, each edit checked to apply."""
+    variants = SSD_BWD_VARIANTS if variants is None else variants
+    src = (build.CSRC / "ssd_scan_bwd.cu").read_text()
+    out = {}
+    for name, edits in variants.items():
+        text = src
+        for old, new in edits:
+            if old not in text:
+                raise RuntimeError(f"ssd backward source changed: {old!r}")
+            text = text.replace(old, new)
+        out[name] = text
+    return out
+
+
+def probe_ssd_bwd_variants(variants=None, shapes=None) -> None:
+    """Builds of csrc/ssd_scan_bwd.cu with one switch of the bf16
+    backward's design flipped (`SSD_BWD_VARIANTS`), each beside its ptxas
+    lines and its relative RMS against `ssd_scan_bwd_plain` (the largest
+    over the five gradients), timed in two turns (each in order, then in
+    reverse) at zamba2's and mamba2-2.7b's prefill shapes, with the mean
+    of its two times: what each lever buys, and where the time goes."""
+    shapes = SSD_BWD_TIMED[:2] if shapes is None else shapes
+    out = build.BUILD_DIR.parent / "probe"
+    out.mkdir(parents=True, exist_ok=True)
+    paths = {}
+    for i, (name, text) in enumerate(
+            ssd_bwd_variant_sources(variants).items()):
+        paths[name] = out / f"ssd_bwd_variant{i}.cu"
+        paths[name].write_text(text)
+    from concurrent.futures import ThreadPoolExecutor
+    build.build_all(("ssd_scan", "ssd_scan_bwd"))
+    ss._bwd_lib()                       # this build once, before the pool
+    with ThreadPoolExecutor(max_workers=len(paths)) as pool:
+        bound = dict(zip(paths, pool.map(
+            lambda path: bind_ssd_bwd(path, path.stem, quiet=True),
+            paths.values())))
+    runs = {}
+    for name, (_, lines, run) in bound.items():
+        print(f"ptxas {name}: " + "; ".join(
+            k for k in lines if "_hb<" in k or "warning" in k), flush=True)
+        runs[name] = run
+    gen = torch.Generator(device=DEV).manual_seed(9)
+    for label, b, s, h, g, n in shapes:
+        ins = ssd_inputs(gen, b, s, h, g, n, torch.bfloat16, 1.0)
+        dy = rn(gen, (b, s, h, 64), torch.bfloat16)
+        _, st = ss._ssd_cuda(*ins, states=True)
+        want = ss.ssd_scan_bwd_plain(*ins, dy, chunk=64)
+        for name, run in runs.items():
+            got = run(*ins, dy, st)
+            again = run(*ins, dy, st)
+            print(f"ssd bwd variant {name} ({label}): rel RMS vs plain "
+                  f"{max(rel_rms(a, w) for a, w in zip(got, want)):.3g}, "
+                  f"repeat bit-equal "
+                  f"{all(torch.equal(a, c) for a, c in zip(got, again))}",
+                  flush=True)
+        order, times = list(runs), {}
+        for name in order + order[::-1]:
+            ms = cuda_ms(lambda: runs[name](*ins, dy, st), 10)
+            times.setdefault(name, []).append(ms)
+            print(f"ssd bwd variant {name} ({label}: b={b} s={s} h={h} g={g} "
+                  f"n={n} bf16): {ms:.4f} ms", flush=True)
+        base = sum(times["as built"]) / 2
+        for name, ts in times.items():
+            mean = sum(ts) / 2
+            print(f"ssd bwd variant {name} ({label}): mean of two turns "
+                  f"{mean:.4f} ms, {mean / base:.3f}x as built", flush=True)
+        del ins, dy, st, want
 
 
 def probe_wide() -> None:
@@ -1637,6 +1772,7 @@ def main() -> None:
               "flash-bwd-f32-built-variants": lambda: probe_flash_bwd_variants(
                   BWD_F32_BUILT_VARIANTS, torch.float32, BUILT_F32_SHAPES),
               "ssd-variants": probe_ssd_variants,
+              "ssd-bwd-variants": probe_ssd_bwd_variants,
               "row-stage": probe_row_stage, "wide": probe_wide}
     compare = {"flash-compare": probe_flash_compare,
                "flash-bwd-compare": probe_flash_bwd_compare,

@@ -30,48 +30,73 @@
 // group of GROUP chunks, which its launch 2 writes).  States are kept here
 // as (N, P): S[n][p].
 //
-// bfloat16: three launches (two when one group holds every chunk), every
-// product on the tensor cores (mma.sync m16n8k16, bf16 in, f32 out,
-// operands by ldmatrix):
+// bfloat16 (ssd_bwd_walk_hb, ssd_bwd_chunk_hb): Hopper's shape of a fast
+// kernel, as the forward's bf16 launches.  Three launches (two when one
+// group holds every chunk):
 //
-//   1. ssd_bwd_walk_bf16, grid (2 G, h, b): blocks x < G walk their group's
-//      chunks forward from the saved group state and write every chunk's
-//      incoming state S (b, h, nc, N, P); blocks x >= G walk the group's
-//      chunks in reverse from a zero gradient and write, for each chunk,
-//      the part of dS' that the group's own later rows give (b, h, nc, N,
-//      P) and the product of the decays of the group's chunks after it
-//      (b, h, nc); at the group's first chunk that walk holds the group's
-//      own incoming-state gradient and decay, which it writes for the
-//      pass.  Each step is X <- exp(c_L) X + M^T (v o Y): (M, v, Y) = (B,
-//      exp(c_L - c) dt, x) forward, (C, exp(c), dy) in reverse.  The next
-//      chunk's M and Y rows are copied by cp.async while this one computes.
+//   1. ssd_bwd_walk_hb, grid (2 G, h, b), a head a block: blocks x < G walk
+//      their group's chunks forward from the saved group state and write
+//      each chunk's incoming state S (b, h, nc, N, P); blocks x >= G walk
+//      them in reverse from a zero gradient and write, for each chunk, the
+//      part of dS' that the group's own later rows give (b, h, nc, N, P)
+//      and the product of the decays of the group's chunks after it (b, h,
+//      nc); at the group's first chunk that walk holds the group's own
+//      incoming-state gradient and decay, which it writes for the pass.
+//      Each step is X <- exp(c_L) X + (M v)^T Y: (M, v, Y) = (B, exp(c_L -
+//      c) dt, x) forward, (C, exp(c), dy) in reverse; (M v)^T the
+//      register-A fragments of a wgmma, by ldmatrix.trans from the M tile,
+//      scaled and split, Y exact and MN-major; thread 0 copies the next
+//      chunk's M and Y tiles by TMA into the other of two stages while
+//      this one computes.  SB_SKIP_SLABS: a group's first chunk's state
+//      (the group state itself, or zero) and its last chunk's local
+//      gradient (zero) are not written; launch 3 takes them where they
+//      are.
 //   2. ssd_bwd_pass, grid (N P / 256, h, b): walks the groups from the last
 //      to the first and leaves in each slot the gradient of that group's
 //      outgoing state (no launch when G = 1);
-//   3. ssd_bwd_chunk_bf16, grid (nc, g * nsplit, b): one chunk and up to
-//      HEADS heads of one B/C group.  dS' = local + decay x the group's
-//      outgoing gradient; then, head after head, the chunk's gradient, with
-//      B and C staged once for the block and each head's x and dy copied by
-//      cp.async while the head before finishes.  The block adds its heads'
-//      dB and dC in head order in registers and writes one float32 row
-//      (b, s, g * nsplit, N) for them: the wrapper sums the nsplit =
-//      ceil((h / g) / HEADS) rows of each group.  dA goes out per (batch,
-//      head, chunk).
+//   3. ssd_bwd_chunk_hb, grid (nc, g * nsplit, b): one chunk and up to
+//      HEADS heads of one B/C group, one head after another in one
+//      warpgroup.  Its thread 0 copies the chunk's B and C once and each
+//      head's x and dy by TMA into a ring of sb_stages(N) stages with full
+//      mbarriers (a stage is free again after the barrier that ends the
+//      head that read it: at n 64 one stage, the next head's tiles copied
+//      from that barrier on, timed faster than two), and asks the L2 for the
+//      head's float32 slabs (S, the local dS', the group's outgoing
+//      gradient) ahead of the warpgroup's loads, which are issued at
+//      once, with no branch between them.  No producer warp: a block of
+//      128 threads keeps 255 registers a thread at two blocks an SM (a
+//      fifth warp cut that to 168, and ptxas serialised every wgmma,
+//      C7512).  A head, in three phases:
+//        (A) S split into three bf16 tiles (rows n, the K-major B operand
+//            of dy S^T); dC = exp(c_i) dy S^T with rows i, kept in the
+//            accumulators, and q_i = C_i . dC_i beside it;
+//        (C) dy x^T (rows i): G o E, dt_j folded into the exponent
+//            (SB_FOLD), split, register-A; dC += (G o E) B on top of
+//            (A)'s accumulators; then dS' = local + decay x the group's
+//            outgoing gradient split into the same tiles, <dS', S>;
+//        (B) B C^T and x dy^T (rows j), so that W^T and (G o E)^T are the
+//            accumulators as they lie: W^T dy (W^T split, register-A; dy
+//            MN-major) and B dS' (dS' MN-major) give du, dx and x . du;
+//            (G o E)^T C and x dS'^T give dB; the row and column sums of
+//            W o G.
+//      dB and dC sum over the block's heads in head order in float32 tiles
+//      of shared memory (each element by the thread that owns it, float2
+//      at a time, the columns swizzled by row so a warp's 8 rows fall in
+//      distinct banks) and go out as one float32 row (b, s, g * nsplit,
+//      N) for them: the wrapper sums the nsplit = ceil((h / g) / HEADS)
+//      rows of each group.  dA goes out per (batch, head, chunk).
 //
-// The products (each chunk, each head):
-//   C B^T and dy x^T: both operands exact bf16, one mma each, only on the
-//     10 of the 16 (16 x 16) sub-tiles on or below the diagonal; dt_j and
-//     E are applied in float32 to the accumulators, which hold W and GE
-//     for those sub-tiles.  W and GE are split (below) into shared memory,
-//     10 sub-tiles each, and the products that read them skip the zero
-//     sub-tiles: W^T dy, GE^T C, GE B.
-//   B dS'^T, x dS', dy S: dS' and S are split.
-//   C^T (exp(c) dy) and B^T (dec dt x) in launch 1: the scaled operand is
-//     split.
-// A float32 operand v is split into PARTS bf16 parts (v = hi + mid + lo
-// with three: every bit of v), each part goes through its own mma (bf16
-// products are exact in float32), smallest first; sums are float32.  So
-// the error is float32 rounding, as in the forward's bf16 path.
+// A float32 operand is split into three bf16 parts (v = hi + mid + lo, the
+// top 8 significant bits of v, then of each remainder: their sum is v, bit
+// for bit) whose products are exact and summed in float32, small parts
+// first; the other operand is exact bf16 (x, dy, B, C).  So the error is
+// float32 rounding, as in the forward's bf16 path.  No product is in
+// flight across a branch and no plain instruction writes an accumulator
+// while products run (either serialises every wgmma of the kernel,
+// C7515): each product group is waited for before the code that follows
+// it branches.  Each SB_* switch is a part of the design that
+// scripts/kernel_probe.py ssd-bwd-variants turns off (or changes) in turn,
+// timed in turns.
 //
 // float32: on the CUDA cores: 4 x 4 register tiles per
 // thread over float32 operands in shared memory read as float4 (`mm`),
@@ -85,13 +110,16 @@
 // C = dy = 0, dt = 0, and its rows are not written.
 //
 // Layout: x/dy/dx (b, s, h, p), dt/ddt (b, s, h) float32, A (h,) float32,
-// B/C (b, s, g, n); all contiguous, 16-byte aligned.
+// B/C (b, s, g, n); float32 all contiguous and 16-byte aligned; bf16 x /
+// dy / B / C with the last axis dense and the other strides and the base
+// on 16 bytes (the TMA maps read the model's views where they lie); dx
+// dense.
 //
 // What bounds it: at zamba2's shape (b = 2, s = 4096, h = 64, p = 64,
 // g = 1, n = 64, bf16) the function moves ~209 MB (x, dy, dx, B, C, dB,
 // dC, dt, ddt: ~0.062 ms at 3.35 TB/s) and does ~2.5 x the forward's
 // ~13 GFLOP of products (~0.033 ms on the bf16 tensor cores), so it is
-// bound by bytes.  The bf16 design moves ~0.5 GB of float32 chunk states
+// bound by bytes.  The bf16 design moves ~0.47 GB of float32 chunk states
 // and local gradients through memory beside that (written by launch 1,
 // read by launch 3) and runs ~3x the function's products through the
 // split; what holds it back is in PERF.md.
@@ -99,8 +127,11 @@
 #include <cstdint>
 
 #ifdef __CUDACC__
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstring>
 
 namespace {
 
@@ -110,7 +141,6 @@ constexpr int GROUP = 8;           // chunks per group (the forward's)
 constexpr int THREADS = 256;
 constexpr int PASS_THREADS = 256;
 constexpr int HEADS = 8;           // heads of one B/C group a chunk block takes
-constexpr int PARTS = 3;           // bf16 parts of a split operand
 
 // shared-memory row stride of a tile of W columns: float4 rows that start
 // 16 bytes apart in the bank map
@@ -679,724 +709,1096 @@ __global__ void __launch_bounds__(THREADS, 1) ssd_bwd_scan_f32(BwdArgs a) {
   }
 }
 
+
 // ---------------------------------------------------------------------------
-// bfloat16: the tensor cores
+// bfloat16: wgmma, TMA (ssd_bwd_walk_hb, ssd_bwd_chunk_hb)
 // ---------------------------------------------------------------------------
 
 using bf16 = __nv_bfloat16;
-constexpr int SB = P + 8;          // row stride of a 64-wide bf16 tile
-constexpr int TRI = 10 * 256;      // a part of W or GE: 10 16 x 16 sub-tiles
+constexpr int SMEM_OPTIN_BYTES = 232448;   // sm_90: 227 KB a block
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr int TILE_BYTES = L * 128;        // 64 rows x 64 bf16 columns
+constexpr int HB_THREADS = 128;            // a warpgroup; thread 0 copies
+constexpr int WALK_STAGES = 2;             // launch 1's ring
+// the design's parts, each a switch that scripts/kernel_probe.py's
+// ssd-bwd-variants flips in turn: dt_j folded into the exponent of G o E
+// (else a multiply); launch 3's stages and branch-free loads at n 64 and
+// n 128 (sb_stages, sb_branchless); the float32 slabs asked of the L2
+// ahead of the warpgroup's loads; the slabs launch 3 can take elsewhere
+// not written by the walks; the heads of one B/C group a chunk block
+// takes (HEADS, above); the chunk blocks an SM at n 64 (1: its shared
+// memory padded to take the SM)
+constexpr bool SB_FOLD = true;
+// launch 3 at n 64 and at n 128 (PERF.md, ssd-bwd-variants): the stages
+// of its ring of x / dy tiles; the three float32 slabs' loads issued at
+// once, without a branch between them (at n 128 they spill)
+__host__ __device__ constexpr int sb_stages(int n) { return n == 64 ? 1 : 2; }
+__host__ __device__ constexpr bool sb_branchless(int n) { return n == 64; }
+constexpr bool SB_PREFETCH = true;
+constexpr bool SB_SKIP_SLABS = true;
+constexpr int SB_BLOCKS_N64 = 2;
+
+// a warp's scratch: c, dt, exp(c_L - c), exp(c), log2 dt of the chunk
+constexpr int SCR_FLOATS = 5 * L;
+// the chunk block's shared vectors: the column sums of (W o G)^T by warp
+// (4 L), its row sums (L), q_i (L), x . du (L), r (L), <dS', S> by warp
+// (4)
+constexpr int VEC_FLOATS = 8 * L + 4;
+
+struct HbMaps {
+  CUtensorMap x, b, c, dy;
+};
+
+// x, B, C and dy ((b, s, h, 64) / (b, s, g, N) bf16) reach the kernels
+// only through their TMA maps (HbMaps)
+struct HbArgs {
+  const float* dt;                 // (b, s, h) dense
+  const float* A;
+  const float* states;             // (b, h, G, N, P) forward group states
+  float* cstates;                  // (b, h, nc, N, P) chunk incoming states
+  float* dstates;                  // (b, h, G, N, P) group state gradients
+  float* gdecay;                   // (b, h, G)
+  float* dsloc;                    // (b, h, nc, N, P) local dS'
+  float* facs;                     // (b, h, nc) decay after the chunk
+  void* dx;                        // (b, s, h, 64) dense, bf16 or f32
+  float* ddt;
+  float* dBp;                      // (b, s, g nsplit, N)
+  float* dCp;
+  float* dAp;                      // (b, h, nc)
+  int b, s, h, g, G, nc, nsplit, hpg;
+};
+
+// launch 1's shared memory: WALK_STAGES stages of M's 64-column chunks and
+// Y, each warp's scratch, the barriers
+template <int N>
+struct WalkLayout {
+  static constexpr int NC = N / 64;
+  static constexpr int STAGE = (NC + 1) * TILE_BYTES;
+  static constexpr int SCRATCH = WALK_STAGES * STAGE;
+  static constexpr int BARS = SCRATCH + 4 * SCR_FLOATS * 4;
+  static constexpr int SMEM = BARS + WALK_STAGES * 8 + 1024;   // 1024 to align
+  static_assert(SMEM <= SMEM_OPTIN_BYTES, "ssd bwd walk: shared memory");
+};
+
+// launch 3's: B's and C's chunks, sb_stages(N) stages of (x, dy), the three
+// parts of dS' (N rows of 64 columns each), the float32 dB and dC sums
+// (L, N), the shared vectors, each warp's scratch, the barriers
+template <int N>
+struct ChunkLayout {
+  static constexpr int NC = N / 64;
+  static constexpr int RING = 2 * NC * TILE_BYTES;
+  static constexpr int STAGE = 2 * TILE_BYTES;
+  static constexpr int SPLIT = RING + sb_stages(N) * STAGE;
+  static constexpr int PART = NC * TILE_BYTES;
+  static constexpr int SUMS = SPLIT + 3 * PART;
+  static constexpr int VEC = SUMS + 2 * L * N * 4;
+  static constexpr int SCRATCH = VEC + VEC_FLOATS * 4;
+  static constexpr int BARS = SCRATCH + 4 * SCR_FLOATS * 4;
+  // (SB_BLOCKS_N64 = 1: padded so that one block takes an SM at n 64)
+  static constexpr int SMEM = BARS + (1 + sb_stages(N)) * 8 + 1024
+                              + (N == 64 && SB_BLOCKS_N64 == 1 ? 120 << 10
+                                                               : 0);
+  static_assert(SMEM <= SMEM_OPTIN_BYTES, "ssd bwd chunk: shared memory");
+};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int NPEND>                // wait until at most NPEND groups pend
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(NPEND));
-}
-__device__ __forceinline__ void ldsm(uint32_t r[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_t(uint32_t r[4], const void* p) {
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
+                                                  const void* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_u32(p)));
 }
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_sync() {          // the consumer warpgroup
+  asm volatile("bar.sync 1, 128;\n" ::: "memory");
+}
+
+// ---- mbarriers and TMA (csrc/ssd_scan.cu's, repeated: each source builds
+// alone) ----------------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  }
+}
+// the box at (column, head, row, batch) of `map` into `dst`, its bytes
+// reported to `bar`; rows past the tensor's end land as zeros
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int col, int head,
+                                         int row, int batch) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(col), "r"(head), "r"(row), "r"(batch)
+      : "memory");
 }
-// two n-tiles of one A fragment: c0 += a . b[0..1], c1 += a . b[2..3]
-__device__ __forceinline__ void mma_pair(float c0[4], float c1[4],
-                                         const uint32_t a[4],
-                                         const uint32_t b[4]) {
-  mma_bf16(c0, a, b[0], b[1]);
-  mma_bf16(c1, a, b[2], b[3]);
-}
-
-// The four ldmatrix addressings, as element offsets for this lane in a
-// tile of row stride `ld`.  A operand (16 x 16, rows m0.., k0..) stored
-// [m][k] (a_mk) or [k][m] (a_km, read transposed); B operand (k0.., two
-// n-tiles n0.. and n0 + 8) stored [n][k] (b_nk) or [k][n] (b_kn,
-// transposed).
-__device__ __forceinline__ int a_mk(int ld, int m0, int k0, int lane) {
-  return (m0 + (lane & 15)) * ld + k0 + 8 * (lane >> 4);
-}
-__device__ __forceinline__ int a_km(int ld, int m0, int k0, int lane) {
-  return (k0 + (lane & 7) + 8 * (lane >> 4)) * ld + m0 + 8 * ((lane >> 3) & 1);
-}
-__device__ __forceinline__ int b_nk(int ld, int n0, int k0, int lane) {
-  return (n0 + (lane & 7) + 8 * (lane >> 4)) * ld + k0 + 8 * ((lane >> 3) & 1);
-}
-__device__ __forceinline__ int b_kn(int ld, int k0, int n0, int lane) {
-  return (k0 + (lane & 7) + 8 * ((lane >> 3) & 1)) * ld + n0 + 8 * (lane >> 4);
+// ask the L2 for `bytes` (a multiple of 16) at p
+__device__ __forceinline__ void prefetch_l2(const void* p, uint32_t bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n"
+               :: "l"(__cvta_generic_to_global(p)), "r"(bytes) : "memory");
 }
 
-// W and GE keep only the 10 sub-tiles (it, jt), jt <= it, each 16 x 16
-// row-major with its two 16-byte halves swapped on rows 4-7 and 12-15 (no
-// bank conflicts for ldmatrix or the fragment stores)
-__device__ __forceinline__ int tri_tile(int it, int jt) {
-  return (it * (it + 1) / 2 + jt) * 256;
+// ---- wgmma -------------------------------------------------------------------
+
+// a K-major tile in the 128-byte swizzle: 1024 bytes between 8-row groups
+__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+  return uint64_t((smem_u32(p) & 0x3FFFF) >> 4) | (uint64_t(1) << 16)
+       | (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
 }
-__device__ __forceinline__ int tri_off(int r, int c) {
-  return r * 16 + ((((c >> 3) ^ (r >> 2)) & 1) << 3) + (c & 7);
+// an MN-major tile of one 64-column chunk in the 128-byte swizzle (the B
+// operand of a product that contracts over the tile's rows)
+__device__ __forceinline__ uint64_t mn_desc(const void* p) {
+  return uint64_t((smem_u32(p) & 0x3FFFF) >> 4) | (uint64_t(8192 >> 4) << 16)
+       | (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
+}
+// d (64 x 64 f32, the warpgroup's) = [d +] a (64 x 16) . b, a K-major in
+// shared memory, b a K-major (16 x 64)^T or (TB) an MN-major 16 x 64 tile
+template <int TB>
+__device__ __forceinline__ void wgmma_ss(float d[32], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TB));
+}
+// d (64 x 64 f32) = [d +] a (64 x 16 bf16, each thread's register
+// fragment) . b (16 x 64), b K-major or (TB) MN-major in shared memory
+template <int TB>
+__device__ __forceinline__ void wgmma_rs(float d[32], const uint32_t a[4],
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate), "n"(TB));
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>                    // at most N groups of products in flight
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+// keeps the compiler from moving a use of d across a wgmma's issue or wait
+__device__ __forceinline__ void fence_acc(float* d) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// keeps K fragments in their registers until the products that read them
+// have been waited for
+template <int K>
+__device__ __forceinline__ void fence_frags(uint32_t (*a)[4]) {
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(a[k][r])::"memory");
+}
+// the three parts' fragments of one split operand: [part][k-step][4]
+__device__ __forceinline__ void fence_split(uint32_t (*a)[4][4]) {
+#pragma unroll
+  for (int part = 0; part < 3; ++part) fence_frags<4>(a[part]);
 }
 
-// v = sum of its PARTS bf16 parts, largest first
-__device__ __forceinline__ void split(float v, bf16 part[PARTS]) {
-  float r = v;
-#pragma unroll
-  for (int q = 0; q < PARTS; ++q) {
-    part[q] = __float2bfloat16_rn(r);
-    r = r - __bfloat162float(part[q]);             // exact
-  }
+// 2^x (ex2.approx, relative error ~2^-22; results below 2^-126 flush to 0)
+// and log2 x (lg2.approx, absolute error ~2^-22; log2 0 = -inf)
+__device__ __forceinline__ float hb_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
-__device__ __forceinline__ uint32_t pack2(bf16 lo, bf16 hi) {
-  __nv_bfloat162 v;
-  v.x = lo;
-  v.y = hi;
-  return *reinterpret_cast<const uint32_t*>(&v);
+__device__ __forceinline__ float hb_log2(float x) {
+  float y;
+  asm("lg2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
-// the PARTS bf16x2 words of the split of (u, v)
-__device__ __forceinline__ void split2(float u, float v, uint32_t w[PARTS]) {
-  bf16 a[PARTS], b[PARTS];
-  split(u, a);
-  split(v, b);
-#pragma unroll
-  for (int q = 0; q < PARTS; ++q) w[q] = pack2(a[q], b[q]);
-}
-__device__ __forceinline__ float2 ld_bf2(const bf16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+__device__ __forceinline__ float hb_exp(float x) {
+  return hb_exp2(x * LOG2E);
 }
 
-// Copy rows [t0, t0 + L) of head `hd` of a (b, s, heads, W) bf16 tensor
-// into a tile of stride W + 8; rows >= s are zero-filled.
-template <int W>
-__device__ __forceinline__ void stage(bf16* dst, const void* src_, int bb,
-                                      int s, int heads, int hd, int t0) {
-  const bf16* src = static_cast<const bf16*>(src_);
-  constexpr int CH = W / 8;        // 16-byte pieces a row
-  for (int idx = threadIdx.x; idx < L * CH; idx += THREADS) {
-    const int r = idx / CH, c = idx % CH, t = t0 + r;
-    const bool in = t < s;
-    cp_async16(dst + r * (W + 8) + 8 * c,
-               src + ((size_t(bb) * s + (in ? t : 0)) * heads + hd) * W
-                   + 8 * c,
-               in ? 16 : 0);
-  }
+// the three bf16x2 words (hi, mid, lo) of the split of (u, v): the top 8
+// significant bits of each value, then of each remainder (the remainders
+// are exact), so hi + mid + lo is the value bit for bit
+__device__ __forceinline__ void split_pair(float u, float v, uint32_t& hi,
+                                           uint32_t& mid, uint32_t& lo) {
+  uint32_t ub = __float_as_uint(u), vb = __float_as_uint(v);
+  hi = __byte_perm(ub, vb, 0x7632);
+  u -= __uint_as_float(ub & 0xffff0000u);
+  v -= __uint_as_float(vb & 0xffff0000u);
+  ub = __float_as_uint(u);
+  vb = __float_as_uint(v);
+  mid = __byte_perm(ub, vb, 0x7632);
+  u -= __uint_as_float(ub & 0xffff0000u);
+  v -= __uint_as_float(vb & 0xffff0000u);
+  lo = __byte_perm(__float_as_uint(u), __float_as_uint(v), 0x7632);
 }
 
-// launch 1 (bf16): the walks
-
-template <int N>
-constexpr int walk_smem_bytes() {
-  return 5 * L * 4 + (2 * L * (N + 8) + 2 * L * SB + PARTS * L * SB) * 2;
+// four 8 x 8 bf16 matrices of the mma fragment layout (each thread's
+// word of matrix i in r[i]) to shared memory: lane l gives the address of
+// row l % 8 of matrix l / 8
+__device__ __forceinline__ void stmatrix_x4(void* row, uint32_t r0,
+                                            uint32_t r1, uint32_t r2,
+                                            uint32_t r3) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n"
+      :: "r"(smem_u32(row)), "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+      : "memory");
 }
 
-// X[q][nt] (rows 64 q + 16 rt + .., columns 32 half + 8 nt + .. of the
-// (N, P) state) = X e_last + M^T Y3: A = M^T by ldmatrix.trans from the
-// staged rows of M, B = the parts of v o Y, smallest first
-template <int N>
-__device__ __forceinline__ void walk_update(float X[][4][4], const bf16* Ms,
-                                            const bf16* Y3, float e_last,
-                                            int rt, int half, int lane) {
-  constexpr int SN = N + 8;
+// A warpgroup's 64 x 64 float32 accumulator as each thread holds it: rows
+// 16 w + g + 8 r, columns 8 k + 2 t4 + u at element 4 k + 2 r + u.
+
+// the split register-A fragments [part][k-step] of an accumulator-layout
+// 64 x 64 float32 operand (its rows the product's M, its columns its K)
+__device__ __forceinline__ void acc_frags(const float v[32],
+                                          uint32_t (*fa)[4][4]) {
 #pragma unroll
-  for (int q = 0; q < N / 64; ++q) {
+  for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) X[q][nt][e] *= e_last;
-#pragma unroll
-    for (int kk = 0; kk < L / 16; ++kk) {
-      uint32_t af[4];
-      ldsm_t(af, Ms + a_km(SN, 64 * q + 16 * rt, 16 * kk, lane));
-#pragma unroll
-      for (int np = 0; np < 2; ++np)
-#pragma unroll
-        for (int part = PARTS - 1; part >= 0; --part) {
-          uint32_t yb[4];
-          ldsm_t(yb, Y3 + part * L * SB
-                         + b_kn(SB, 16 * kk, 32 * half + 16 * np, lane));
-          mma_pair(X[q][2 * np], X[q][2 * np + 1], af, yb);
-        }
+    for (int r = 0; r < 4; ++r) {
+      const int k = 2 * kk + (r >> 1), row = r & 1;
+      split_pair(v[4 * k + 2 * row], v[4 * k + 2 * row + 1], fa[0][kk][r],
+                 fa[1][kk][r], fa[2][kk][r]);
     }
+}
+
+// the chunk's dA = dt A and its inclusive cumsum by a warp scan (two rows a
+// lane), into this warp's scratch: c, dt, exp(c_L - c), exp(c), log2 dt;
+// returns c_L
+__device__ __forceinline__ float hb_scan(const float dtr[2], float A,
+                                         float* scr, int lane) {
+  const float d0 = dtr[0] * A, d1 = dtr[1] * A;
+  float run = d0 + d1;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float o = __shfl_up_sync(0xffffffffu, run, off);
+    if (lane >= off) run += o;
+  }
+  const float before = __shfl_up_sync(0xffffffffu, run, 1);
+  const float c0 = (lane ? before : 0.f) + d0, c1 = c0 + d1;
+  const float last = __shfl_sync(0xffffffffu, c1, 31);
+  const float cs[2] = {c0, c1};
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int j = 2 * lane + e;
+    scr[j] = cs[e];
+    scr[L + j] = dtr[e];
+    scr[2 * L + j] = hb_exp(last - cs[e]);
+    scr[3 * L + j] = hb_exp(cs[e]);
+    scr[4 * L + j] = hb_log2(dtr[e]);
+  }
+  __syncwarp();
+  return last;
+}
+
+// dt of rows t0 + 2 lane, + 1 of head hh (0 past s)
+__device__ __forceinline__ void hb_load_dt(float dtr[2], const HbArgs& a,
+                                           int bb, int hh, int t0, int lane) {
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int t = t0 + 2 * lane + e;
+    dtr[e] = t < a.s ? a.dt[(size_t(bb) * a.s + t) * a.h + hh] : 0.f;
   }
 }
 
-template <int N>
-__device__ __forceinline__ void store_frags(float* out, const float X[][4][4],
-                                            int rt, int half, int lane) {
-  const int g = lane / 4, t4 = lane % 4;
+// the split register-A fragments of (M v)^T, rows n of m-block q (64 q +
+// 16 w ..), k-step kk (j = 16 kk ..): M^T by ldmatrix.trans from the
+// swizzled M tile, scaled by v_j and split
+__device__ __forceinline__ void hb_mv(const unsigned char* mt,
+                                      const float* v, int q, int kk, int w,
+                                      int lane, uint32_t (*bd)[4]) {
+  const int j = 16 * kk + (lane & 7) + 8 * (lane >> 4);
+  const int pc = 2 * w + ((lane >> 3) & 1);
+  uint32_t af[4];
+  ldmatrix_x4_trans(af, mt + q * TILE_BYTES + j * 128
+                            + ((pc ^ (j & 7)) << 4));
 #pragma unroll
-  for (int q = 0; q < N / 64; ++q)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int r = 0; r < 2; ++r)
-        *reinterpret_cast<float2*>(
-            out + (64 * q + 16 * rt + g + 8 * r) * P + 32 * half + 8 * nt
-            + 2 * t4) = make_float2(X[q][nt][2 * r], X[q][nt][2 * r + 1]);
+  for (int r = 0; r < 4; ++r) {
+    const int jj = 16 * kk + 2 * (lane & 3) + 8 * (r >> 1);
+    const float u = __uint_as_float(af[r] << 16) * v[jj];
+    const float w2 = __uint_as_float(af[r] & 0xffff0000u) * v[jj + 1];
+    split_pair(u, w2, bd[0][r], bd[1][r], bd[2][r]);
+  }
 }
+
+// X += (M v)^T Y over the chunk, k-step by k-step, each k-step's
+// fragments built while the one before runs, waited for at the end (X
+// scaled and fenced by the caller before)
+template <int NC>
+__device__ __forceinline__ void hb_walk_update(float (*X)[32],
+                                               const unsigned char* mt,
+                                               const unsigned char* yt,
+                                               const float* v, int w,
+                                               int lane) {
+  uint32_t bd[2][3][4];
+#pragma unroll
+  for (int q = 0; q < NC; ++q)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const int cur = (4 * q + kk) & 1;
+      hb_mv(mt, v, q, kk, w, lane, bd[cur]);
+      wgmma_fence();
+#pragma unroll
+      for (int part = 2; part >= 0; --part)
+        wgmma_rs<1>(X[q], bd[cur][part], mn_desc(yt + kk * 16 * 128), 1);
+      wgmma_commit();
+      wgmma_wait<1>();
+      if (4 * q + kk > 0) fence_frags<3>(bd[cur ^ 1]);
+    }
+  wgmma_wait<0>();
+  fence_frags<3>(bd[(4 * NC - 1) & 1]);
+#pragma unroll
+  for (int q = 0; q < NC; ++q) fence_acc(X[q]);
+}
+
+// X rows n (64 q + 16 w + g, + 8), columns p (8 k + 2 t4, + 1) of a (N, P)
+// f32 slab: read (zero from a null slab) or written
+template <int NC, bool WRITE>
+__device__ __forceinline__ void hb_state_io(float* slab, float (*X)[32],
+                                            int w, int g, int t4) {
+#pragma unroll
+  for (int q = 0; q < NC; ++q)
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float2* at = reinterpret_cast<float2*>(
+            slab + (64 * q + 16 * w + g + 8 * r) * P + 8 * k + 2 * t4);
+        if constexpr (WRITE) {
+          *at = make_float2(X[q][4 * k + 2 * r], X[q][4 * k + 2 * r + 1]);
+        } else {
+          const float2 v = slab != nullptr ? *at : make_float2(0.f, 0.f);
+          X[q][4 * k + 2 * r] = v.x;
+          X[q][4 * k + 2 * r + 1] = v.y;
+        }
+      }
+}
+// m-block q of a slab, read (zero from a null slab)
+__device__ __forceinline__ void hb_slab_q(const float* slab, float v[32],
+                                          int q, int w, int g, int t4) {
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float2 x = slab != nullptr
+          ? *reinterpret_cast<const float2*>(
+                slab + (64 * q + 16 * w + g + 8 * r) * P + 8 * k + 2 * t4)
+          : make_float2(0.f, 0.f);
+      v[4 * k + 2 * r] = x.x;
+      v[4 * k + 2 * r + 1] = x.y;
+    }
+}
+
+// m-block q of an (N, P) operand's three parts into the split tiles: (n,
+// p) at row n, 128-byte swizzled, part after part NC tiles apart, by
+// stmatrix: the warp's 16 rows x 8 n-tiles are 16 8 x 8 matrices, four a
+// stmatrix (n-tiles 2 m, 2 m + 1, both row halves)
+template <int NC>
+__device__ __forceinline__ void hb_store_split(unsigned char* ss,
+                                               const float v[32], int q,
+                                               int w, int lane) {
+  constexpr int PART = NC * TILE_BYTES;
+  const int rr = lane & 7, half = (lane >> 3) & 1, odd = lane >> 4;
+  const int n = 64 * q + 16 * w + 8 * half + rr;
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    uint32_t part[4][3];             // matrices (tile 2 m, 2 m + 1) x halves
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {
+      const int e = 4 * (2 * m + (f >> 1)) + 2 * (f & 1);
+      split_pair(v[e], v[e + 1], part[f][0], part[f][1], part[f][2]);
+    }
+    unsigned char* at = ss + n * 128 + (((2 * m + odd) ^ rr) << 4);
+#pragma unroll
+    for (int p = 0; p < 3; ++p)
+      stmatrix_x4(at + p * PART, part[0][p], part[1][p], part[2][p],
+                  part[3][p]);
+  }
+}
+
+// the bf16 at (row, column) of a swizzled 64-column tile, as float
+__device__ __forceinline__ float tile_at(const unsigned char* t, int row,
+                                         int col) {
+  const uint16_t v = *reinterpret_cast<const uint16_t*>(
+      t + row * 128 + ((((col >> 3) ^ (row & 7))) << 4) + (col & 7) * 2);
+  return __uint_as_float(uint32_t(v) << 16);
+}
+// the bf16 pair at (row, column 2 c) of a swizzled 64-column tile
+__device__ __forceinline__ float2 tile_pair(const unsigned char* t, int row,
+                                            int col) {
+  const uint32_t v = *reinterpret_cast<const uint32_t*>(
+      t + row * 128 + ((((col >> 3) ^ (row & 7))) << 4) + (col & 7) * 2);
+  return make_float2(__uint_as_float(v << 16),
+                     __uint_as_float(v & 0xffff0000u));
+}
+
+__device__ __forceinline__ unsigned char* hb_base(float4* smem4) {
+  return reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem4) + 1023) & ~uintptr_t(1023));
+}
+
+// launch 1's copies of walked chunk c (M's chunks, then Y) into the stage
+// at d, reported to `full`, by thread 0 (TMA)
+template <int N>
+__device__ __forceinline__ void walk_issue(const HbMaps& maps,
+                                           unsigned char* d, uint64_t* full,
+                                           bool rev, int hh, int gg, int bb,
+                                           int c) {
+  constexpr int NC = N / 64;
+  if (threadIdx.x != 0) return;
+  mbar_expect(full, (NC + 1) * TILE_BYTES);
+#pragma unroll
+  for (int q = 0; q < NC; ++q)
+    tma_load(d + q * TILE_BYTES, rev ? &maps.c : &maps.b, full, 64 * q, gg,
+             c * L, bb);
+  tma_load(d + NC * TILE_BYTES, rev ? &maps.dy : &maps.x, full, 0, hh, c * L,
+           bb);
+}
+
+// ---------------------------------------------------------------------------
+// launch 1 (bf16): the walks
+// ---------------------------------------------------------------------------
 
 // Blocks x < G: the chunk states (forward from the group state); x >= G:
 // the local dS' of each chunk and the decay after it (reverse from zero),
 // then the group's own state gradient and decay.
 template <int N>
-__global__ void __launch_bounds__(THREADS, 2) ssd_bwd_walk_bf16(BwdArgs a) {
-  constexpr int SN = N + 8;
+__global__ void __launch_bounds__(HB_THREADS, 1)
+    ssd_bwd_walk_hb(const __grid_constant__ HbMaps maps, HbArgs a) {
+  constexpr int NC = N / 64;
+  using Lt = WalkLayout<N>;
   extern __shared__ float4 smem4[];
-  float* dts = reinterpret_cast<float*>(smem4);
-  float* cas = dts + L;
-  float* eca = cas + L;
-  float* dec = eca + L;
-  float* vs = dec + L;                            // the scale of Y's rows
-  bf16* Ms = reinterpret_cast<bf16*>(vs + L);     // 2 x (L, SN)
-  bf16* Ys = Ms + 2 * L * SN;                     // 2 x (L, SB)
-  bf16* Y3 = Ys + 2 * L * SB;                     // PARTS x (L, SB)
-
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int g = lane / 4, t4 = lane % 4;
-  const int rt = warp % 4, half = warp / 4;
+  unsigned char* sm = hb_base(smem4);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + Lt::BARS);
   const bool rev = blockIdx.x >= a.G;
   const int grp = rev ? blockIdx.x - a.G : blockIdx.x;
-  const int hh = blockIdx.y, bb = blockIdx.z;
-  const int gg = hh / (a.h / a.g);
-  const float A = a.A[hh];
+  const int hh = blockIdx.y, bb = blockIdx.z, gg = hh / a.hpg;
   const size_t bh = size_t(bb) * a.h + hh;
   const int c0 = grp * GROUP, c1 = min(a.nc, c0 + GROUP), n = c1 - c0;
-  const void* Mg = rev ? a.C : a.B;
-  const void* Yg = rev ? a.dy : a.x;
   // updates: forward all chunks but the last; reverse all, but the first
   // chunk's only when a group before needs the own gradient
   const int nupd = rev && grp > 0 ? n : n - 1;
-
-  float X[N / 64][4][4];
-  const float* st = a.states + (bh * a.G + grp) * N * P;
+  if (threadIdx.x == 0) {
 #pragma unroll
-  for (int q = 0; q < N / 64; ++q)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        float2 v = make_float2(0.f, 0.f);
-        if (!rev && a.G > 1)
-          v = *reinterpret_cast<const float2*>(
-              st + (64 * q + 16 * rt + g + 8 * r) * P + 32 * half + 8 * nt
-              + 2 * t4);
-        X[q][nt][2 * r] = v.x;
-        X[q][nt][2 * r + 1] = v.y;
-      }
-  float fac = 1.f;                 // product of the decays walked so far
+    for (int st = 0; st < WALK_STAGES; ++st)
+      mbar_init(full + st, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  float* scr = reinterpret_cast<float*>(sm + Lt::SCRATCH) + w * SCR_FLOATS;
+  const float A = a.A[hh];
+  float X[NC][32];
+  hb_state_io<NC, false>(
+      !rev && a.G > 1 ? const_cast<float*>(a.states) + (bh * a.G + grp) * N * P
+                      : nullptr,
+      X, w, g, t4);
+  float fac = 1.f;                 // the product of the decays walked so far
   float dtr[2] = {0.f, 0.f};
   auto chunk = [&](int k) { return rev ? c1 - 1 - k : c0 + k; };
   if (nupd > 0) {
-    stage<N>(Ms, Mg, bb, a.s, a.g, gg, chunk(0) * L);
-    stage<P>(Ys, Yg, bb, a.s, a.h, hh, chunk(0) * L);
-    cp_async_commit();
-    if (warp == 0) load_dt(dtr, a, bb, hh, chunk(0) * L);
+    walk_issue<N>(maps, sm, full, rev, hh, gg, bb, chunk(0));
+    hb_load_dt(dtr, a, bb, hh, chunk(0) * L, lane);
   }
-
   for (int k = 0; k < n; ++k) {
     const int c = chunk(k);
-    store_frags<N>((rev ? a.dsloc : a.cstates) + (bh * a.nc + c) * N * P, X,
-                   rt, half, lane);
-    if (rev && tid == 0) a.facs[bh * a.nc + c] = fac;
+    // the chunk's slabs; SB_SKIP_SLABS: not those launch 3 takes elsewhere
+    // (a group's first state when the forward kept it, the last chunk's
+    // zero gradient)
+    if (!SB_SKIP_SLABS || k > 0 || (!rev && a.G == 1)) {
+      hb_state_io<NC, true>((rev ? a.dsloc : a.cstates)
+                                + (bh * a.nc + c) * N * P, X, w, g, t4);
+      if (rev && threadIdx.x == 0) a.facs[bh * a.nc + c] = fac;
+    }
     if (k >= nupd) break;
-    const bf16* Mk = Ms + (k & 1) * L * SN;
-    const bf16* Yk = Ys + (k & 1) * L * SB;
-    if (warp == 0) {
-      chunk_cumsum(dtr, A, dts, cas, eca, dec);
-      vs[2 * lane] = rev ? eca[2 * lane] : dec[2 * lane] * dts[2 * lane];
-      vs[2 * lane + 1] =
-          rev ? eca[2 * lane + 1] : dec[2 * lane + 1] * dts[2 * lane + 1];
+    const float last = hb_scan(dtr, A, scr, lane);
+    if (k + 1 < nupd) {
+      // the next chunk's tiles into the other stage (its last reader, the
+      // update of chunk k - 1, is done: the barrier below)
+      const int nx = (k + 1) % WALK_STAGES;
+      walk_issue<N>(maps, sm + nx * Lt::STAGE, full + nx, rev, hh, gg, bb,
+                    chunk(k + 1));
+      hb_load_dt(dtr, a, bb, hh, chunk(k + 1) * L, lane);
     }
-    if (k + 1 < nupd) {            // the next chunk loads while this computes
-      stage<N>(Ms + ((k + 1) & 1) * L * SN, Mg, bb, a.s, a.g, gg,
-               chunk(k + 1) * L);
-      stage<P>(Ys + ((k + 1) & 1) * L * SB, Yg, bb, a.s, a.h, hh,
-               chunk(k + 1) * L);
-      cp_async_commit();
-      if (warp == 0) load_dt(dtr, a, bb, hh, chunk(k + 1) * L);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    for (int idx = tid; idx < L * P / 2; idx += THREADS) {
-      const int j = idx / (P / 2), p = 2 * (idx % (P / 2));
-      const float2 y = ld_bf2(Yk + j * SB + p);
-      uint32_t w[PARTS];
-      split2(y.x * vs[j], y.y * vs[j], w);
-#pragma unroll
-      for (int q = 0; q < PARTS; ++q)
-        *reinterpret_cast<uint32_t*>(Y3 + q * L * SB + j * SB + p) = w[q];
-    }
-    __syncthreads();
-    const float e_last = expf(cas[L - 1]);
-    walk_update<N>(X, Mk, Y3, e_last, rt, half, lane);
+    const float e_last = hb_exp(last);
     fac *= e_last;
-    __syncthreads();               // Y3, the vectors and this stage are free
+    const int st = k % WALK_STAGES;
+    mbar_wait(full + st, (k / WALK_STAGES) & 1);
+    const unsigned char* stage = sm + st * Lt::STAGE;
+#pragma unroll
+    for (int q = 0; q < NC; ++q) {
+#pragma unroll
+      for (int j = 0; j < 32; ++j) X[q][j] *= e_last;
+      fence_acc(X[q]);
+    }
+    // forward v = exp(c_L - c) dt, reverse v = exp(c)
+    float* v = scr + (rev ? 3 * L : 2 * L);
+    if (!rev) {
+      v[2 * lane] *= scr[L + 2 * lane];
+      v[2 * lane + 1] *= scr[L + 2 * lane + 1];
+      __syncwarp();
+    }
+    hb_walk_update<NC>(X, stage, stage + NC * TILE_BYTES, v, w, lane);
+    __syncthreads();               // every warp's update has read the stage
   }
   if (rev && grp > 0) {
-    store_frags<N>(a.dstates + (bh * a.G + grp) * N * P, X, rt, half, lane);
-    if (tid == 0) a.gdecay[bh * a.G + grp] = fac;
+    hb_state_io<NC, true>(a.dstates + (bh * a.G + grp) * N * P, X, w, g, t4);
+    if (threadIdx.x == 0) a.gdecay[bh * a.G + grp] = fac;
   }
 }
 
+// ---------------------------------------------------------------------------
 // launch 3 (bf16): one chunk, up to HEADS heads of one B/C group
+// ---------------------------------------------------------------------------
 
-constexpr int CH_VEC = 4 * L + 12 * L + 16;   // f32 vectors of a chunk block
-
-// the slab region: the split slabs of S and dS', then W and GE with du
-// parked beside them
-constexpr int SLAB_BYTES = 2 * PARTS * 64 * SB * 2;
-constexpr int WGE_BYTES = 2 * PARTS * TRI * 2;
-constexpr int UNION_BYTES = SLAB_BYTES > WGE_BYTES + L * SB * 4
-                                ? SLAB_BYTES : WGE_BYTES + L * SB * 4;
-
+// the float32 slabs of head bh at chunk c: S, the local dS' (null past the
+// group's last chunk), the group's outgoing gradient (null for one group)
+struct Slabs {
+  const float *S, *loc, *out;
+};
 template <int N>
-constexpr int chunk_smem_bytes() {
-  return (CH_VEC + L * (N + 8)) * 4 + (2 * L * (N + 8) + 2 * L * SB) * 2
-         + UNION_BYTES;
+__device__ __forceinline__ Slabs hb_slabs(const HbArgs& a, size_t bh, int c,
+                                          int c0, int c1, int grp) {
+  const size_t slot = (bh * a.nc + c) * size_t(N) * P;
+  const size_t gslot = (bh * a.G + grp) * size_t(N) * P;
+  Slabs sl;
+  sl.S = SB_SKIP_SLABS && c == c0 && a.G > 1 ? a.states + gslot
+                                             : a.cstates + slot;
+  sl.loc = SB_SKIP_SLABS && c == c1 - 1 ? nullptr : a.dsloc + slot;
+  sl.out = a.G > 1 ? a.dstates + gslot : nullptr;
+  return sl;
 }
 
-// DXF32: dx in float32, a part of a sum over n-blocks that rounds once
-template <int N, bool DXF32 = false>
-__global__ void __launch_bounds__(THREADS, N == 64 ? 2 : 1)
-ssd_bwd_chunk_bf16(BwdArgs a) {
-  constexpr int SN = N + 8, NQ = N / 64;
+// launch 3's copies, by thread 0 (TMA): B's and C's chunks once (`bc`)
+template <int N>
+__device__ __forceinline__ void chunk_issue_bc(const HbMaps& maps,
+                                               unsigned char* sm,
+                                               uint64_t* bc, int gg, int bb,
+                                               int t0) {
+  constexpr int NC = N / 64;
+  if (threadIdx.x != 0) return;
+  mbar_expect(bc, 2 * NC * TILE_BYTES);
+#pragma unroll
+  for (int q = 0; q < NC; ++q) {
+    tma_load(sm + q * TILE_BYTES, &maps.b, bc, 64 * q, gg, t0, bb);
+    tma_load(sm + (NC + q) * TILE_BYTES, &maps.c, bc, 64 * q, gg, t0, bb);
+  }
+}
+// head hd's x and dy into the stage at d (`full`), and (SB_PREFETCH) its
+// float32 slabs asked of the L2
+template <int N>
+__device__ __forceinline__ void chunk_issue_head(const HbMaps& maps,
+                                                 const HbArgs& a,
+                                                 unsigned char* d,
+                                                 uint64_t* full, int hd,
+                                                 int bb, int c, int c0,
+                                                 int c1, int grp) {
+  const int t0 = c * L;
+  if (threadIdx.x != 0) return;
+  mbar_expect(full, 2 * TILE_BYTES);
+  tma_load(d, &maps.x, full, 0, hd, t0, bb);
+  tma_load(d + TILE_BYTES, &maps.dy, full, 0, hd, t0, bb);
+  if constexpr (SB_PREFETCH) {
+    const Slabs sl = hb_slabs<N>(a, size_t(bb) * a.h + hd, c, c0, c1, grp);
+    constexpr uint32_t BYTES = N * P * 4;
+    prefetch_l2(sl.S, BYTES);
+    if (sl.loc != nullptr) prefetch_l2(sl.loc, BYTES);
+    if (sl.out != nullptr) prefetch_l2(sl.out, BYTES);
+  }
+}
+
+// m-block q of S (sv) and of dS' = local + fac x the group's outgoing
+// gradient (dv): BRANCHLESS, the three slabs' loads issued at once, with
+// no branch between them (a null slab reads S's and counts 0); else slab
+// after slab, a null one skipped
+template <bool BRANCHLESS>
+__device__ __forceinline__ void hb_dsp(const Slabs& sl, float fac,
+                                       float sv[32], float dv[32], int q,
+                                       int w, int g, int t4) {
+  if constexpr (!BRANCHLESS) {
+    hb_slab_q(sl.S, sv, q, w, g, t4);
+    hb_slab_q(sl.loc, dv, q, w, g, t4);
+    if (sl.out != nullptr) {
+      float ov[32];
+      hb_slab_q(sl.out, ov, q, w, g, t4);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dv[i] = dv[i] + fac * ov[i];
+    }
+    return;
+  }
+  const float* lp = sl.loc != nullptr ? sl.loc : sl.S;
+  const float* op = sl.out != nullptr ? sl.out : sl.S;
+  const float lm = sl.loc != nullptr ? 1.f : 0.f;
+  const float om = sl.out != nullptr ? fac : 0.f;
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int off = (64 * q + 16 * w + g + 8 * r) * P + 8 * k + 2 * t4;
+      const float2 s2 = *reinterpret_cast<const float2*>(sl.S + off);
+      const float2 l2 = *reinterpret_cast<const float2*>(lp + off);
+      const float2 o2 = *reinterpret_cast<const float2*>(op + off);
+      sv[4 * k + 2 * r] = s2.x;
+      sv[4 * k + 2 * r + 1] = s2.y;
+      dv[4 * k + 2 * r] = lm * l2.x + om * o2.x;
+      dv[4 * k + 2 * r + 1] = lm * l2.y + om * o2.y;
+    }
+}
+
+// B C^T and x dy^T with rows j (launch 3's (B)), issued
+template <int N>
+__device__ __forceinline__ void hb_bc_gx(float wt[32], float gt[32],
+                                         const unsigned char* bt,
+                                         const unsigned char* ct,
+                                         const unsigned char* xt,
+                                         const unsigned char* yt) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+    const int off = (kk >> 2) * TILE_BYTES + (kk & 3) * 32;
+    wgmma_ss<0>(wt, sw128_desc(bt + off), sw128_desc(ct + off), kk > 0);
+  }
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_ss<0>(gt, sw128_desc(xt + kk * 32), sw128_desc(yt + kk * 32),
+                kk > 0);
+}
+
+// the float32 sums (L, N) of a chunk block: element (row, col) at row N +
+// (col ^ 8 (row % 8)), so the 8 rows of a fragment's column pair fall in
+// distinct banks; 4 columns from a multiple of 4 stay side by side
+template <int N>
+__device__ __forceinline__ int sum_at(int row, int col) {
+  return row * N + (col ^ ((row & 7) << 3));
+}
+
+// DXF32: dx in float32, a part of a sum over n-blocks that rounds once.
+template <int N, bool DXF32>
+__global__ void __launch_bounds__(HB_THREADS, N == 64 ? SB_BLOCKS_N64 : 1)
+    ssd_bwd_chunk_hb(const __grid_constant__ HbMaps maps, HbArgs a) {
+  constexpr int NC = N / 64;
+  using Lt = ChunkLayout<N>;
+  constexpr int STAGES = sb_stages(N);
   extern __shared__ float4 smem4[];
-  float* dts = reinterpret_cast<float*>(smem4);
-  float* cas = dts + L;
-  float* eca = cas + L;
-  float* dec = eca + L;
-  float* rowp = dec + L;           // (2, L) row sums of W o G, by column half
-  float* colp = rowp + 2 * L;      // (4, L) column sums, by row tile
-  float* qp = colp + 4 * L;        // (2, L) exp(c_i) C_i . S^T dy_i
-  float* rp = qp + 2 * L;          // (2, L) r_j
-  float* xp = rp + 2 * L;          // (2, L) x_j . du_j
-  float* red = xp + 2 * L;         // (2, 8) <dS', S> by warp, two heads
-  float* dCs = red + 16;           // (L, SN) dC of the block's heads so far
-  bf16* Bs = reinterpret_cast<bf16*>(dCs + L * SN);  // (L, SN)
-  bf16* Cs = Bs + L * SN;                        // (L, SN)
-  bf16* xs = Cs + L * SN;                        // (L, SB)
-  bf16* dys = xs + L * SB;                       // (L, SB)
-  bf16* S3 = dys + L * SB;         // PARTS x (64, SB): a 64-row slab of S
-  bf16* D3 = S3 + PARTS * 64 * SB; // PARTS x (64, SB): the slab of dS'
-  bf16* W3 = S3;                   // PARTS x TRI, once the slabs are read
-  bf16* GE3 = W3 + PARTS * TRI;
-  float* duS = reinterpret_cast<float*>(GE3 + PARTS * TRI);  // (L, SB) du
-
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int g = lane / 4, t4 = lane % 4;
-  const int t = warp % 4, hf = warp / 4;       // 16-row tile, column half
+  unsigned char* sm = hb_base(smem4);
+  uint64_t* bc = reinterpret_cast<uint64_t*>(sm + Lt::BARS);
+  uint64_t* full = bc + 1;
   const int c = blockIdx.x, bb = blockIdx.z;
-  const int hpg = a.h / a.g;
   const int gg = blockIdx.y / a.nsplit, sp = blockIdx.y % a.nsplit;
-  const int h0 = gg * hpg + sp * HEADS, nh = min(HEADS, hpg - sp * HEADS);
+  const int h0 = gg * a.hpg + sp * HEADS, nh = min(HEADS, a.hpg - sp * HEADS);
   const int grp = c / GROUP, t0 = c * L;
-  bf16* dx = static_cast<bf16*>(a.dx);
+  const int c0 = grp * GROUP, c1 = min(a.nc, c0 + GROUP);
+  if (threadIdx.x == 0) {
+    mbar_init(bc, 1);
+#pragma unroll
+    for (int st = 0; st < STAGES; ++st)
+      mbar_init(full + st, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  chunk_issue_bc<N>(maps, sm, bc, gg, bb, t0);
+  chunk_issue_head<N>(maps, a, sm + Lt::RING, full, h0, bb, c, c0, c1, grp);
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const unsigned char* bt = sm;                       // B's chunks
+  const unsigned char* ct = sm + NC * TILE_BYTES;     // C's chunks
+  unsigned char* d3 = sm + Lt::SPLIT;                 // dS' parts
+  float* dBs = reinterpret_cast<float*>(sm + Lt::SUMS);   // (L, N)
+  float* dCs = dBs + L * N;                                // (L, N)
+  float* vec = reinterpret_cast<float*>(sm + Lt::VEC);
+  float* rMp = vec;                // (4, L) column sums of (W o G)^T by warp
+  float* cM = rMp + 4 * L;         // (L) row sums of (W o G)^T
+  float* qv = cM + L;              // (L) q_i
+  float* xdv = qv + L;             // (L) x . du
+  float* rr = xdv + L;             // (L) r_j
+  float* red = rr + L;             // (4) <dS', S> by warp
+  float* scr = reinterpret_cast<float*>(sm + Lt::SCRATCH) + w * SCR_FLOATS;
+  const float* cs = scr;
+  const float* dts = scr + L;
+  const float* dec = scr + 2 * L;
+  const float* eca = scr + 3 * L;
+  const float* l2dt = scr + 4 * L;
 
-  stage<N>(Bs, a.B, bb, a.s, a.g, gg, t0);
-  stage<N>(Cs, a.C, bb, a.s, a.g, gg, t0);
-  stage<P>(xs, a.x, bb, a.s, a.h, h0, t0);
-  stage<P>(dys, a.dy, bb, a.s, a.h, h0, t0);
-  cp_async_commit();
-
-  float dBa[NQ][4][4];             // this warp's dB over the block's heads
-#pragma unroll
-  for (int q = 0; q < NQ; ++q)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dBa[q][nt][e] = 0.f;
-  for (int idx = tid; idx < L * SN; idx += THREADS) dCs[idx] = 0.f;
+  for (int idx = threadIdx.x; idx < 2 * L * N / 4; idx += 128)
+    reinterpret_cast<float4*>(dBs)[idx] = make_float4(0.f, 0.f, 0.f, 0.f);
+  wg_sync();
+  mbar_wait(bc, 0);
+  float dtr[2];
+  hb_load_dt(dtr, a, bb, h0, t0, lane);
 
   for (int k = 0; k < nh; ++k) {
+    if (STAGES > 1 && k + 1 < nh) {
+      // the next head's tiles into the other stage (its last reader, head
+      // k - 1, is done: the barrier at its end)
+      const int nx = (k + 1) % STAGES;
+      chunk_issue_head<N>(maps, a, sm + Lt::RING + nx * Lt::STAGE, full + nx,
+                          h0 + k + 1, bb, c, c0, c1, grp);
+    }
     const int hh = h0 + k;
     const size_t bh = size_t(bb) * a.h + hh;
     const float A = a.A[hh];
-    if (warp == 0) {
-      float dtr[2];
-      load_dt(dtr, a, bb, hh, t0);
-      chunk_cumsum(dtr, A, dts, cas, eca, dec);
+    const float last = hb_scan(dtr, A, scr, lane);
+    if (k + 1 < nh) hb_load_dt(dtr, a, bb, hh + 1, t0, lane);
+    const int st = k % STAGES;
+    mbar_wait(full + st, (k / STAGES) & 1);
+    const unsigned char* xt = sm + Lt::RING + st * Lt::STAGE;
+    const unsigned char* yt = xt + TILE_BYTES;
+    const Slabs sl = hb_slabs<N>(a, bh, c, c0, c1, grp);
+
+    // (A) S split into the tiles; dC = exp(c_i) dy S^T (rows i, kept in the
+    // accumulators through (C)) and q_i, dy x^T beside it
+    const float fac = sl.loc != nullptr ? a.facs[bh * a.nc + c] : 1.f;
+#pragma unroll
+    for (int q = 0; q < NC; ++q) {
+      float sv[32];
+      hb_slab_q(sl.S, sv, q, w, g, t4);
+      hb_store_split<NC>(d3, sv, q, w, lane);
     }
-    const float fac = a.facs[bh * a.nc + c];
-    float du[4][4];                // rows 16 t .., columns 32 hf + 8 nt ..
+    fence_proxy_async();           // S's tiles, for wgmma
+    wg_sync();
+    float dc[NC][32], ge[32];
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
+    for (int q = 0; q < NC; ++q) fence_acc(dc[q]);
+    fence_acc(ge);
+    wgmma_fence();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) du[nt][e] = 0.f;
-    float dot = 0.f, qa[2] = {0.f, 0.f};
-
-    for (int q = 0; q < NQ; ++q) {
-      // the slab's S and dS' = local + fac x the group's outgoing gradient,
-      // split; <dS', S>
-      const size_t off = (bh * a.nc + c) * N * P + size_t(64 * q) * P;
-      const float* Sg = a.cstates + off;
-      const float* Dl = a.dsloc + off;
-      const float* Do = a.G > 1
-          ? a.dstates + (bh * a.G + grp) * N * P + 64 * q * P : nullptr;
-      // four rounds of loads in flight where the registers allow (n 128,
-      // one block an SM); one at n 64, whose two blocks an SM leave 128
-#pragma unroll(N == 128 ? 4 : 1)
-      for (int idx = tid; idx < 64 * P / 4; idx += THREADS) {
-        const int r = idx / (P / 4), c4 = 4 * (idx % (P / 4));
-        const float4 sv = *reinterpret_cast<const float4*>(Sg + r * P + c4);
-        float4 dv = *reinterpret_cast<const float4*>(Dl + r * P + c4);
-        if (Do != nullptr) {
-          const float4 o = *reinterpret_cast<const float4*>(Do + r * P + c4);
-          dv.x = dv.x + fac * o.x;
-          dv.y = dv.y + fac * o.y;
-          dv.z = dv.z + fac * o.z;
-          dv.w = dv.w + fac * o.w;
-        }
-        dot += dv.x * sv.x + dv.y * sv.y + dv.z * sv.z + dv.w * sv.w;
-        uint32_t w0[PARTS], w1[PARTS], w2[PARTS], w3[PARTS];
-        split2(sv.x, sv.y, w0);
-        split2(sv.z, sv.w, w1);
-        split2(dv.x, dv.y, w2);
-        split2(dv.z, dv.w, w3);
+    for (int q = 0; q < NC; ++q)
 #pragma unroll
-        for (int pt = 0; pt < PARTS; ++pt) {
-          *reinterpret_cast<uint2*>(S3 + pt * 64 * SB + r * SB + c4) =
-              make_uint2(w0[pt], w1[pt]);
-          *reinterpret_cast<uint2*>(D3 + pt * 64 * SB + r * SB + c4) =
-              make_uint2(w2[pt], w3[pt]);
-        }
-      }
-      if (q == 0) cp_async_wait<0>();          // this head's x and dy
-      __syncthreads();
-
-      // dB += dec dt (x dS'), then dC += exp(c) (dy S) and q_i, over
-      // k = p for the slab's columns of this half
-#pragma unroll 1
-      for (int which = 0; which < 2; ++which) {
-        const bf16* At = which ? dys : xs;
-        const bf16* Bt = which ? S3 : D3;
-        float tt[4][4];
+      for (int part = 2; part >= 0; --part)
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss<0>(dc[q], sw128_desc(yt + kk * 32),
+                      sw128_desc(d3 + part * Lt::PART + q * TILE_BYTES
+                                 + kk * 32),
+                      part < 2 || kk > 0);
 #pragma unroll
-          for (int e = 0; e < 4; ++e) tt[nt][e] = 0.f;
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss<0>(ge, sw128_desc(yt + kk * 32), sw128_desc(xt + kk * 32),
+                  kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          uint32_t af[4];
-          ldsm(af, At + a_mk(SB, 16 * t, 16 * kk, lane));
-#pragma unroll
-          for (int np = 0; np < 2; ++np)
-#pragma unroll
-            for (int pt = PARTS - 1; pt >= 0; --pt) {
-              uint32_t bf[4];
-              ldsm(bf, Bt + pt * 64 * SB
-                           + b_nk(SB, 32 * hf + 16 * np, 16 * kk, lane));
-              mma_pair(tt[2 * np], tt[2 * np + 1], af, bf);
-            }
-        }
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int r = 16 * t + g + 8 * (e >> 1);
-            if (which == 0) {
-              dBa[q][nt][e] += dec[r] * dts[r] * tt[nt][e];
-            } else {
-              const int col = 64 * q + 32 * hf + 8 * nt + 2 * t4 + (e & 1);
-              const float ci = eca[r] * tt[nt][e];
-              qa[e >> 1] += __bfloat162float(Cs[r * SN + col]) * ci;
-              dCs[r * SN + col] += ci;      // this thread's own element
-            }
-          }
-      }
-      // du += B dS'^T over the slab (k = n)
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        uint32_t af[4];
-        ldsm(af, Bs + a_mk(SN, 16 * t, 64 * q + 16 * kk, lane));
-#pragma unroll
-        for (int np = 0; np < 2; ++np)
-#pragma unroll
-          for (int pt = PARTS - 1; pt >= 0; --pt) {
-            uint32_t bf[4];
-            ldsm_t(bf, D3 + pt * 64 * SB
-                           + b_kn(SB, 16 * kk, 32 * hf + 16 * np, lane));
-            mma_pair(du[2 * np], du[2 * np + 1], af, bf);
-          }
-      }
-      __syncthreads();             // the slab (and then W, GE) is rewritten
-    }
-
-    // dus = dec (B dS'^T); r_j = dt_j x_j . dus_j; q_i; <dS', S>
+    for (int q = 0; q < NC; ++q) fence_acc(dc[q]);
+    fence_acc(ge);
     {
-      float rr[2] = {0.f, 0.f};
+      // rows i = 16 w + g + 8 r, columns n = 64 q + 8 k + 2 t4 + u
+      float qa[2] = {0.f, 0.f};
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
+      for (int q = 0; q < NC; ++q)
 #pragma unroll
-        for (int hr = 0; hr < 2; ++hr) {
-          const int r = 16 * t + g + 8 * hr;
-          const float2 xv = ld_bf2(xs + r * SB + 32 * hf + 8 * nt + 2 * t4);
-          du[nt][2 * hr] *= dec[r];
-          du[nt][2 * hr + 1] *= dec[r];
-          rr[hr] += xv.x * du[nt][2 * hr] + xv.y * du[nt][2 * hr + 1];
-        }
+        for (int kq = 0; kq < 8; ++kq)
 #pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        float v = rr[hr], u = qa[hr];
+          for (int r = 0; r < 2; ++r) {
+            const int i = 16 * w + g + 8 * r, e = 4 * kq + 2 * r;
+            const float ei = eca[i];
+            dc[q][e] *= ei;
+            dc[q][e + 1] *= ei;
+            const float2 cv = tile_pair(ct + q * TILE_BYTES, i,
+                                        8 * kq + 2 * t4);
+            qa[r] += cv.x * dc[q][e] + cv.y * dc[q][e + 1];
+          }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float v = qa[r];
         v += __shfl_xor_sync(0xffffffffu, v, 1);
         v += __shfl_xor_sync(0xffffffffu, v, 2);
-        u += __shfl_xor_sync(0xffffffffu, u, 1);
-        u += __shfl_xor_sync(0xffffffffu, u, 2);
-        const int r = 16 * t + g + 8 * hr;
-        if (t4 == 0) {
-          rp[hf * L + r] = v * dts[r];
-          qp[hf * L + r] = u;
-        }
+        if (t4 == 0) qv[16 * w + g + 8 * r] = v;
+      }
+    }
+
+    // (C) G o E (rows i; dt_j folded into the exponent), split; dC +=
+    // (G o E) B on top of (A)'s
+    float wt[32], gt[32];
+    {
+#pragma unroll
+      for (int kq = 0; kq < 8; ++kq)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const int e = 4 * kq + 2 * r + u;
+            const int i = 16 * w + g + 8 * r, j = 8 * kq + 2 * t4 + u;
+            float x;
+            if constexpr (SB_FOLD)
+              x = ge[e] * hb_exp2(__fmaf_rn(cs[i] - cs[j], LOG2E, l2dt[j]));
+            else
+              x = ge[e] * hb_exp2((cs[i] - cs[j]) * LOG2E) * dts[j];
+            ge[e] = j <= i ? x : 0.f;
+          }
+      uint32_t ga[3][4][4];
+      acc_frags(ge, ga);
+#pragma unroll
+      for (int q = 0; q < NC; ++q) fence_acc(dc[q]);
+      wgmma_fence();
+#pragma unroll
+      for (int q = 0; q < NC; ++q)
+#pragma unroll
+        for (int part = 2; part >= 0; --part)
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_rs<1>(dc[q], ga[part][kk],
+                        mn_desc(bt + q * TILE_BYTES + kk * 16 * 128), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_split(ga);
+#pragma unroll
+      for (int q = 0; q < NC; ++q) {
+        fence_acc(dc[q]);
+#pragma unroll
+        for (int kq = 0; kq < 8; ++kq)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            float2* at = reinterpret_cast<float2*>(
+                dCs + sum_at<N>(16 * w + g + 8 * r, 64 * q + 8 * kq + 2 * t4));
+            const float2 o = *at;
+            *at = make_float2(o.x + dc[q][4 * kq + 2 * r],
+                              o.y + dc[q][4 * kq + 2 * r + 1]);
+          }
+      }
+    }
+    {
+      // dS' = local + decay x the group's outgoing gradient split into the
+      // tiles (dy S^T has read S's); <dS', S>; B C^T and x dy^T issued
+      wg_sync();
+      float dot = 0.f;
+#pragma unroll
+      for (int q = 0; q < NC; ++q) {
+        float sv[32], dv[32];
+        hb_dsp<sb_branchless(N)>(sl, fac, sv, dv, q, w, g, t4);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) dot += dv[i] * sv[i];
+        hb_store_split<NC>(d3, dv, q, w, lane);
       }
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1)
         dot += __shfl_xor_sync(0xffffffffu, dot, o);
-      if (lane == 0) red[(k & 1) * 8 + warp] = dot;
-      // du waits beside W and GE (this thread's own elements)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int hr = 0; hr < 2; ++hr)
-          *reinterpret_cast<float2*>(
-              duS + (16 * t + g + 8 * hr) * SB + 32 * hf + 8 * nt + 2 * t4) =
-              make_float2(du[nt][2 * hr], du[nt][2 * hr + 1]);
+      if (lane == 0) red[w] = dot;
+      fence_proxy_async();         // the dS' tiles, for wgmma
+      fence_acc(wt);
+      fence_acc(gt);
+      wgmma_fence();
+      hb_bc_gx<N>(wt, gt, bt, ct, xt, yt);
+      wgmma_commit();
     }
+    wgmma_wait<0>();               // B C^T and x dy^T
+    fence_acc(wt);
+    fence_acc(gt);
+    wg_sync();                     // the dS' tiles are complete
 
-    // W and GE on the sub-tiles (t, jt), jt <= t, jt = hf mod 2: the
-    // products, the decay, the row and column sums of W o G, the split
+    // (B) rows j: W^T, (G o E)^T; du, dx, x . du, r; dB += (G o E)^T C +
+    // exp(c_L - c_j) dt_j (x dS'^T)
     {
-      float rs[2] = {0.f, 0.f};
-      for (int jt = hf; jt <= t; jt += 2) {
-        float cb[2][4], gx[2][4];
+      // rows j = 16 w + g + 8 r, columns i = 8 k + 2 t4 + u: W^T_ji =
+      // (C B^T)_ij E_ij, (G o E)^T_ji = (x_j . dy_i) dt_j E_ij, and (W o
+      // G)^T_ji = (C B^T)_ij (G o E)_ij
+      float rowm[2] = {0.f, 0.f}, colm[16];
 #pragma unroll
-        for (int nt = 0; nt < 2; ++nt)
+      for (int i = 0; i < 16; ++i) colm[i] = 0.f;
 #pragma unroll
-          for (int e = 0; e < 4; ++e) cb[nt][e] = gx[nt][e] = 0.f;
+      for (int kq = 0; kq < 8; ++kq)
 #pragma unroll
-        for (int kk = 0; kk < N / 16; ++kk) {
-          uint32_t ca[4], bf[4];
-          ldsm(ca, Cs + a_mk(SN, 16 * t, 16 * kk, lane));
-          ldsm(bf, Bs + b_nk(SN, 16 * jt, 16 * kk, lane));
-          mma_pair(cb[0], cb[1], ca, bf);
-        }
+        for (int r = 0; r < 2; ++r)
 #pragma unroll
-        for (int kk = 0; kk < P / 16; ++kk) {
-          uint32_t ya[4], xf[4];
-          ldsm(ya, dys + a_mk(SB, 16 * t, 16 * kk, lane));
-          ldsm(xf, xs + b_nk(SB, 16 * jt, 16 * kk, lane));
-          mma_pair(gx[0], gx[1], ya, xf);
-        }
-        float cs[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-        const int wt = tri_tile(t, jt);
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-          for (int hr = 0; hr < 2; ++hr) {
-            const int rl = g + 8 * hr, i = 16 * t + rl;
-            float w2[2], ge2[2];
-#pragma unroll
-            for (int e2 = 0; e2 < 2; ++e2) {
-              const int j = 16 * jt + 8 * nt + 2 * t4 + e2;
-              const float ee = i >= j ? expf(cas[i] - cas[j]) : 0.f;
-              const float gv = gx[nt][2 * hr + e2] * dts[j];
-              w2[e2] = cb[nt][2 * hr + e2] * ee;
-              ge2[e2] = gv * ee;
-              const float m = w2[e2] * gv;
-              rs[hr] += m;
-              cs[nt][e2] += m;
-            }
-            uint32_t ww[PARTS], gw[PARTS];
-            split2(w2[0], w2[1], ww);
-            split2(ge2[0], ge2[1], gw);
-            const int o = wt + tri_off(rl, 8 * nt + 2 * t4);
-#pragma unroll
-            for (int pt = 0; pt < PARTS; ++pt) {
-              *reinterpret_cast<uint32_t*>(W3 + pt * TRI + o) = ww[pt];
-              *reinterpret_cast<uint32_t*>(GE3 + pt * TRI + o) = gw[pt];
-            }
+          for (int u = 0; u < 2; ++u) {
+            const int e = 4 * kq + 2 * r + u;
+            const int j = 16 * w + g + 8 * r, i = 8 * kq + 2 * t4 + u;
+            const float ee = hb_exp2((cs[i] - cs[j]) * LOG2E);
+            const float gv = gt[e] * dts[j] * (i >= j ? ee : 0.f);
+            const float m = wt[e] * gv;
+            wt[e] = i >= j ? wt[e] * ee : 0.f;
+            gt[e] = gv;
+            rowm[r] += m;
+            colm[2 * kq + u] += m;
           }
 #pragma unroll
-        for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-          for (int e2 = 0; e2 < 2; ++e2) {
-            float v = cs[nt][e2];
-            v += __shfl_xor_sync(0xffffffffu, v, 4);
-            v += __shfl_xor_sync(0xffffffffu, v, 8);
-            v += __shfl_xor_sync(0xffffffffu, v, 16);
-            if (g == 0) colp[t * L + 16 * jt + 8 * nt + 2 * t4 + e2] = v;
-          }
-      }
-#pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        float v = rs[hr];
+      for (int r = 0; r < 2; ++r) {
+        float v = rowm[r];
         v += __shfl_xor_sync(0xffffffffu, v, 1);
         v += __shfl_xor_sync(0xffffffffu, v, 2);
-        if (t4 == 0) rowp[hf * L + 16 * t + g + 8 * hr] = v;
+        if (t4 == 0) cM[16 * w + g + 8 * r] = v;
       }
-    }
-    __syncthreads();
-
-    // du += W^T dy over the sub-tiles (it, t), it >= t
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        const float2 v = *reinterpret_cast<const float2*>(
-            duS + (16 * t + g + 8 * hr) * SB + 32 * hf + 8 * nt + 2 * t4);
-        du[nt][2 * hr] = v.x;
-        du[nt][2 * hr + 1] = v.y;
+      for (int i = 0; i < 16; ++i) {
+        float v = colm[i];
+        v += __shfl_xor_sync(0xffffffffu, v, 4);
+        v += __shfl_xor_sync(0xffffffffu, v, 8);
+        v += __shfl_xor_sync(0xffffffffu, v, 16);
+        if (g == 0) rMp[w * L + 8 * (i >> 1) + 2 * t4 + (i & 1)] = v;
       }
-    const int o_t =
-        tri_off((lane & 7) + 8 * (lane >> 4), 8 * ((lane >> 3) & 1));
-    for (int it = t; it < 4; ++it) {
-      uint32_t wa[PARTS][4];
+      // du = W^T dy (W^T split, register-A; dy MN-major) and B dS' (B
+      // K-major; dS' MN-major)
+      float du[32], dus[32];
+      {
+        uint32_t wa[3][4][4];
+        acc_frags(wt, wa);
+        fence_acc(du);
+        fence_acc(dus);
+        wgmma_fence();
 #pragma unroll
-      for (int pt = 0; pt < PARTS; ++pt)
-        ldsm_t(wa[pt], W3 + pt * TRI + tri_tile(it, t) + o_t);
+        for (int part = 2; part >= 0; --part)
 #pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        uint32_t bf[4];
-        ldsm_t(bf, dys + b_kn(SB, 16 * it, 32 * hf + 16 * np, lane));
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_rs<1>(du, wa[part][kk], mn_desc(yt + kk * 16 * 128),
+                        part < 2 || kk > 0);
 #pragma unroll
-        for (int pt = PARTS - 1; pt >= 0; --pt)
-          mma_pair(du[2 * np], du[2 * np + 1], wa[pt], bf);
+        for (int part = 2; part >= 0; --part)
+#pragma unroll
+          for (int kk = 0; kk < N / 16; ++kk)
+            wgmma_ss<1>(dus,
+                        sw128_desc(bt + (kk >> 2) * TILE_BYTES
+                                   + (kk & 3) * 32),
+                        mn_desc(d3 + part * Lt::PART + kk * 16 * 128),
+                        part < 2 || kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_split(wa);
+        fence_acc(du);
+        fence_acc(dus);
       }
-    }
-    // dx = dt du; x . du
-    {
-      float xd[2] = {0.f, 0.f};
+      // rows j, columns p = 8 k + 2 t4 + u: dx = dt_j (du + dec_j dus)
+      {
+        float xd[2] = {0.f, 0.f}, xr[2] = {0.f, 0.f};
 #pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        const int r = 16 * t + g + 8 * hr, tt = t0 + r;
-        bf16* row = dx + ((size_t(bb) * a.s + tt) * a.h + hh) * P + 32 * hf
-                    + 2 * t4;
+        for (int r = 0; r < 2; ++r) {
+          const int j = 16 * w + g + 8 * r, t = t0 + j;
+          const float dj = dec[j], tj = dts[j];
+          const size_t row = ((size_t(bb) * a.s + t) * a.h + hh) * P;
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          const float2 xv = ld_bf2(xs + r * SB + 32 * hf + 8 * nt + 2 * t4);
-          xd[hr] += xv.x * du[nt][2 * hr] + xv.y * du[nt][2 * hr + 1];
-          if constexpr (DXF32) {
-            if (tt < a.s)
-              *reinterpret_cast<float2*>(
-                  static_cast<float*>(a.dx)
-                  + ((size_t(bb) * a.s + tt) * a.h + hh) * P + 32 * hf
-                  + 2 * t4 + 8 * nt) = make_float2(
-                      du[nt][2 * hr] * dts[r], du[nt][2 * hr + 1] * dts[r]);
-          } else if (tt < a.s) {
-            *reinterpret_cast<__nv_bfloat162*>(row + 8 * nt) =
-                __floats2bfloat162_rn(du[nt][2 * hr] * dts[r],
-                                      du[nt][2 * hr + 1] * dts[r]);
+          for (int kq = 0; kq < 8; ++kq) {
+            const int e = 4 * kq + 2 * r, p = 8 * kq + 2 * t4;
+            const float2 xv = tile_pair(xt, j, p);
+            const float s0 = dj * dus[e], s1 = dj * dus[e + 1];
+            const float d0 = du[e] + s0, d1 = du[e + 1] + s1;
+            xd[r] += xv.x * d0 + xv.y * d1;
+            xr[r] += xv.x * dus[e] + xv.y * dus[e + 1];
+            if (t < a.s) {
+              if constexpr (DXF32)
+                *reinterpret_cast<float2*>(static_cast<float*>(a.dx) + row
+                                           + p) = make_float2(d0 * tj,
+                                                              d1 * tj);
+              else
+                *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(a.dx)
+                                                   + row + p) =
+                    __floats2bfloat162_rn(d0 * tj, d1 * tj);
+            }
+          }
+          float v = xd[r], u = xr[r];
+          v += __shfl_xor_sync(0xffffffffu, v, 1);
+          v += __shfl_xor_sync(0xffffffffu, v, 2);
+          u += __shfl_xor_sync(0xffffffffu, u, 1);
+          u += __shfl_xor_sync(0xffffffffu, u, 2);
+          if (t4 == 0) {
+            xdv[j] = v;
+            rr[j] = u * dj * tj;
           }
         }
-        float v = xd[hr];
-        v += __shfl_xor_sync(0xffffffffu, v, 1);
-        v += __shfl_xor_sync(0xffffffffu, v, 2);
-        if (t4 == 0) xp[hf * L + r] = v;
+      }
+      // dB, per 64-column chunk q of n: (G o E)^T C (split, register-A; C
+      // MN-major) and x dS'^T (x K-major; dS' K-major)
+      uint32_t ga[3][4][4];
+      acc_frags(gt, ga);
+#pragma unroll
+      for (int q = 0; q < NC; ++q) {
+        float bg[32], bs[32];
+        fence_acc(bg);
+        fence_acc(bs);
+        wgmma_fence();
+#pragma unroll
+        for (int part = 2; part >= 0; --part)
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_rs<1>(bg, ga[part][kk],
+                        mn_desc(ct + q * TILE_BYTES + kk * 16 * 128),
+                        part < 2 || kk > 0);
+#pragma unroll
+        for (int part = 2; part >= 0; --part)
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_ss<0>(bs, sw128_desc(xt + kk * 32),
+                        sw128_desc(d3 + part * Lt::PART + q * TILE_BYTES
+                                   + kk * 32),
+                        part < 2 || kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_split(ga);
+        fence_acc(bg);
+        fence_acc(bs);
+#pragma unroll
+        for (int kq = 0; kq < 8; ++kq)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int j = 16 * w + g + 8 * r, e = 4 * kq + 2 * r;
+            const float f = dec[j] * dts[j];
+            float2* at = reinterpret_cast<float2*>(
+                dBs + sum_at<N>(j, 64 * q + 8 * kq + 2 * t4));
+            const float2 o = *at;
+            *at = make_float2(o.x + (bg[e] + f * bs[e]),
+                              o.y + (bg[e + 1] + f * bs[e + 1]));
+          }
       }
     }
-    // dB += GE^T C over the sub-tiles (it, t), it >= t
-    for (int it = t; it < 4; ++it) {
-      uint32_t ga[PARTS][4];
-#pragma unroll
-      for (int pt = 0; pt < PARTS; ++pt)
-        ldsm_t(ga[pt], GE3 + pt * TRI + tri_tile(it, t) + o_t);
-#pragma unroll
-      for (int q = 0; q < NQ; ++q)
-#pragma unroll
-        for (int np = 0; np < 2; ++np) {
-          uint32_t bf[4];
-          ldsm_t(bf, Cs + b_kn(SN, 16 * it, 64 * q + 32 * hf + 16 * np,
-                                    lane));
-#pragma unroll
-          for (int pt = PARTS - 1; pt >= 0; --pt)
-            mma_pair(dBa[q][2 * np], dBa[q][2 * np + 1], ga[pt], bf);
-        }
-    }
-    // dC += GE B over the sub-tiles (t, jt), jt <= t, on this warp's
-    // elements of dCs
-#pragma unroll
-    for (int q = 0; q < NQ; ++q) {
-      float acc[4][4];
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int hr = 0; hr < 2; ++hr) {
-          const float2 v = *reinterpret_cast<const float2*>(
-              dCs + (16 * t + g + 8 * hr) * SN + 64 * q + 32 * hf + 8 * nt
-              + 2 * t4);
-          acc[nt][2 * hr] = v.x;
-          acc[nt][2 * hr + 1] = v.y;
-        }
-      for (int jt = 0; jt <= t; ++jt) {
-        uint32_t ga[PARTS][4];
-        const int o = tri_tile(t, jt) + tri_off(lane & 15, 8 * (lane >> 4));
-#pragma unroll
-        for (int pt = 0; pt < PARTS; ++pt) ldsm(ga[pt], GE3 + pt * TRI + o);
-#pragma unroll
-        for (int np = 0; np < 2; ++np) {
-          uint32_t bf[4];
-          ldsm_t(bf, Bs + b_kn(SN, 16 * jt, 64 * q + 32 * hf + 16 * np,
-                               lane));
-#pragma unroll
-          for (int pt = PARTS - 1; pt >= 0; --pt)
-            mma_pair(acc[2 * np], acc[2 * np + 1], ga[pt], bf);
-        }
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int hr = 0; hr < 2; ++hr)
-          *reinterpret_cast<float2*>(
-              dCs + (16 * t + g + 8 * hr) * SN + 64 * q + 32 * hf + 8 * nt
-              + 2 * t4) = make_float2(acc[nt][2 * hr], acc[nt][2 * hr + 1]);
-    }
-    __syncthreads();               // x, dy, W, GE are read; the vectors set
-    if (k + 1 < nh) {              // the next head's x and dy
-      stage<P>(xs, a.x, bb, a.s, a.h, hh + 1, t0);
-      stage<P>(dys, a.dy, bb, a.s, a.h, hh + 1, t0);
-      cp_async_commit();
-    }
+    wg_sync();                     // the vectors are complete
 
     // warp 0: dc, da = its reverse cumsum, ddt, this head's dA part
-    if (warp == 0) {
+    if (w == 0) {
       float dA_acc = 0.f;
       const int i0 = 2 * lane, i1 = i0 + 1;
-      float rsum = rp[i0] + rp[L + i0] + rp[i1] + rp[L + i1];
+      float rsum = rr[i0] + rr[i1];
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1)
         rsum += __shfl_xor_sync(0xffffffffu, rsum, o);
-      float dS = 0.f;
-#pragma unroll
-      for (int w = 0; w < 8; ++w) dS += red[(k & 1) * 8 + w];
+      const float dS = red[0] + red[1] + red[2] + red[3];
       float d[2];
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int i = i0 + e;
-        float col = 0.f;
-        for (int tt = i / 16; tt < 4; ++tt) col += colp[tt * L + i];
-        d[e] = rowp[i] + rowp[L + i] - col + qp[i] + qp[L + i]
-               - (rp[i] + rp[L + i]);
+        const float rowM = rMp[i] + rMp[L + i] + rMp[2 * L + i]
+                           + rMp[3 * L + i];
+        d[e] = rowM - cM[i] + qv[i] - rr[i];
       }
-      if (i1 == L - 1) d[1] += expf(cas[L - 1]) * dS + rsum;
+      if (i1 == L - 1) d[1] += hb_exp(last) * dS + rsum;
       float run = d[0] + d[1];     // suffix sums over the lanes
 #pragma unroll
       for (int o = 1; o < 32; o <<= 1) {
@@ -1406,10 +1808,9 @@ ssd_bwd_chunk_bf16(BwdArgs a) {
       const float das[2] = {run, run - d[0]};
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int i = i0 + e, tt = t0 + i;
-        if (tt < a.s)
-          a.ddt[(size_t(bb) * a.s + tt) * a.h + hh] =
-              xp[i] + xp[L + i] + A * das[e];
+        const int i = i0 + e, t = t0 + i;
+        if (t < a.s)
+          a.ddt[(size_t(bb) * a.s + t) * a.h + hh] = xdv[i] + A * das[e];
         dA_acc += dts[i] * das[e];
       }
 #pragma unroll
@@ -1417,28 +1818,23 @@ ssd_bwd_chunk_bf16(BwdArgs a) {
         dA_acc += __shfl_xor_sync(0xffffffffu, dA_acc, o);
       if (lane == 0) a.dAp[bh * a.nc + c] = dA_acc;
     }
+    wg_sync();                     // the vectors and the tiles are free
+    if (STAGES == 1 && k + 1 < nh)
+      chunk_issue_head<N>(maps, a, sm + Lt::RING, full, h0 + k + 1, bb, c, c0,
+                          c1, grp);
   }
 
-  // this block's dB and dC, summed over its heads
+  // this block's dB and dC, summed over its heads: one float32 row each
   const int R = a.g * a.nsplit, row = gg * a.nsplit + sp;
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int tt = t0 + 16 * t + g + 8 * hr;
-    if (tt >= a.s) continue;
-    const size_t base = ((size_t(bb) * a.s + tt) * R + row) * N + 32 * hf
-                        + 2 * t4;
-#pragma unroll
-    for (int q = 0; q < NQ; ++q)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const size_t o = base + 64 * q + 8 * nt;
-        *reinterpret_cast<float2*>(a.dBp + o) =
-            make_float2(dBa[q][nt][2 * hr], dBa[q][nt][2 * hr + 1]);
-        *reinterpret_cast<float2*>(a.dCp + o) =
-            *reinterpret_cast<const float2*>(
-                dCs + (16 * t + g + 8 * hr) * SN + 64 * q + 32 * hf + 8 * nt
-                + 2 * t4);
-      }
+  for (int idx = threadIdx.x; idx < L * N / 4; idx += 128) {
+    const int r = idx / (N / 4), c4 = idx % (N / 4), t = t0 + r;
+    if (t >= a.s) continue;
+    const size_t o = ((size_t(bb) * a.s + t) * R + row) * N + 4 * c4;
+    const int at = sum_at<N>(r, 4 * c4);
+    *reinterpret_cast<float4*>(a.dBp + o) =
+        *reinterpret_cast<const float4*>(dBs + at);
+    *reinterpret_cast<float4*>(a.dCp + o) =
+        *reinterpret_cast<const float4*>(dCs + at);
   }
 }
 
@@ -1472,30 +1868,107 @@ int launch_f32(const BwdArgs& a, cudaStream_t s) {
   return int(cudaGetLastError());
 }
 
-template <int N, bool DXF32 = false>
-int launch_bf16(const BwdArgs& a, cudaStream_t s) {
-  cudaError_t err;
-  err = cudaFuncSetAttribute(ssd_bwd_walk_bf16<N>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             walk_smem_bytes<N>());
-  if (err != cudaSuccess) return int(err);
-  ssd_bwd_walk_bf16<N><<<dim3(2 * a.G, a.h, a.b), THREADS,
-                         walk_smem_bytes<N>(), s>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return int(err);
-  if (a.G > 1) {
-    ssd_bwd_pass<N><<<dim3(N * P / PASS_THREADS, a.h, a.b), PASS_THREADS, 0,
-                      s>>>(a);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return int(err);
+// cuTensorMapEncodeTiled, found through the runtime so that the library
+// needs no -lcuda
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
   }
-  err = cudaFuncSetAttribute(ssd_bwd_chunk_bf16<N, DXF32>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             chunk_smem_bytes<N>());
+  return fn;
+}
+
+// the TMA map of a (b, s, heads, cols) bf16 tensor with element strides
+// st (head, row, batch; the columns dense) whose boxes are 64 columns of
+// 64 rows of one head in the 128-byte swizzle; dimensions innermost first
+// (column, head, row, batch); rows past s read as zeros
+bool hb_encode(CUtensorMap* map, const void* base, int cols, int heads,
+               int s, int b, const long long st[3]) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[4] = {cuuint64_t(cols), cuuint64_t(heads),
+                              cuuint64_t(s), cuuint64_t(b)};
+  const cuuint64_t strides[3] = {cuuint64_t(st[0]) * 2, cuuint64_t(st[1]) * 2,
+                                 cuuint64_t(st[2]) * 2};
+  const cuuint32_t box[4] = {64, 1, cuuint32_t(L), 1};
+  const cuuint32_t steps[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+             const_cast<void*>(base), dims, strides, box, steps,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <typename K>
+int hb_launch(K kernel, int smem, dim3 grid, const HbMaps& maps,
+              const HbArgs& a, cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return int(err);
-  ssd_bwd_chunk_bf16<N, DXF32><<<dim3(a.nc, a.g * a.nsplit, a.b), THREADS,
-                                 chunk_smem_bytes<N>(), s>>>(a);
+  kernel<<<grid, HB_THREADS, smem, s>>>(maps, a);
   return int(cudaGetLastError());
+}
+
+// the walks, the pass (more than one group), the chunk blocks
+template <int N, bool DXF32>
+int launch_hb(const BwdArgs& pa, const long long st[12], cudaStream_t s) {
+  HbMaps maps;
+  std::memset(&maps, 0, sizeof maps);
+  if (!hb_encode(&maps.x, pa.x, P, pa.h, pa.s, pa.b, st) ||
+      !hb_encode(&maps.b, pa.B, N, pa.g, pa.s, pa.b, st + 3) ||
+      !hb_encode(&maps.c, pa.C, N, pa.g, pa.s, pa.b, st + 6) ||
+      !hb_encode(&maps.dy, pa.dy, P, pa.h, pa.s, pa.b, st + 9))
+    return int(cudaErrorInvalidValue);
+  HbArgs a;
+  std::memset(&a, 0, sizeof a);
+  a.dt = pa.dt;
+  a.A = pa.A;
+  a.states = pa.states;
+  a.cstates = pa.cstates;
+  a.dstates = pa.dstates;
+  a.gdecay = pa.gdecay;
+  a.dsloc = pa.dsloc;
+  a.facs = pa.facs;
+  a.dx = pa.dx;
+  a.ddt = pa.ddt;
+  a.dBp = pa.dBp;
+  a.dCp = pa.dCp;
+  a.dAp = pa.dAp;
+  a.b = pa.b;
+  a.s = pa.s;
+  a.h = pa.h;
+  a.g = pa.g;
+  a.G = pa.G;
+  a.nc = pa.nc;
+  a.nsplit = pa.nsplit;
+  a.hpg = pa.h / pa.g;
+  int err = hb_launch(ssd_bwd_walk_hb<N>, WalkLayout<N>::SMEM,
+                      dim3(2 * pa.G, pa.h, pa.b), maps, a, s);
+  if (err) return err;
+  if (pa.G > 1) {
+    ssd_bwd_pass<N><<<dim3(N * P / PASS_THREADS, pa.h, pa.b), PASS_THREADS,
+                      0, s>>>(pa);
+    err = int(cudaGetLastError());
+    if (err) return err;
+  }
+  return hb_launch(ssd_bwd_chunk_hb<N, DXF32>, ChunkLayout<N>::SMEM,
+                   dim3(pa.nc, pa.g * pa.nsplit, pa.b), maps, a, s);
 }
 
 }  // namespace
@@ -1507,24 +1980,31 @@ extern "C" int ssd_scan_bwd_heads() { return HEADS; }
 // Plain C entry point (bound with ctypes).  dtype: 0 = float32,
 // 1 = bfloat16 (x, B, C, dy and dx; dt, A and the rest float32), 2 =
 // bfloat16 with a float32 dx (one n-block's part of a sum).
-// Supported: chunk 64, p 64, n 64 or 128, group 8.  With G = ceil(nc / 8)
-// groups of the nc = ceil(s / 64) chunks: `states` (b, h, G, n, p) are the
-// forward's group states (null when G = 1); `cstates` (b, h, nc, n, p),
-// `dstates` (b, h, G, n, p; null when G = 1) and `gdecay` (b, h, G) are
-// float32 scratch, and so are, for bf16 only, `dsloc` (b, h, nc, n, p) and
-// `facs` (b, h, nc) (null for float32).  Outputs: dx (b, s, h, p), ddt
-// (b, s, h), and float32 dBp / dCp and dAp: for float32 per head, (b, s,
-// h, n) and (b, h, G); for bf16 (b, s, g * nsplit, n), each row the sum
-// over its block's heads, nsplit = ceil((h / g) / ssd_scan_bwd_heads()),
-// and (b, h, nc).  Launches three kernels (two when G = 1) on `stream`,
-// does not synchronise, allocates nothing; returns a CUDA error code
-// (0 = success).
+// Supported: chunk 64, p 64, n 64 or 128, group 8.  `strides` after the
+// ints: the element strides of x (head, row, batch), of B and of C
+// (group, row, batch) and of dy (head, row, batch), the last axis dense;
+// float32 takes dense tensors only, bf16 any strides (and bases) on 16
+// bytes; dt and dx are dense.  With G = ceil(nc / 8) groups of the nc =
+// ceil(s / 64) chunks: `states` (b, h, G, n, p) are the forward's group
+// states (null when G = 1); `cstates` (b, h, nc, n, p), `dstates` (b, h,
+// G, n, p; null when G = 1) and `gdecay` (b, h, G) are float32 scratch,
+// and so are, for bf16 only, `dsloc` (b, h, nc, n, p) and `facs` (b, h,
+// nc) (null for float32).  Outputs: dx (b, s, h, p), ddt (b, s, h), and
+// float32 dBp / dCp and dAp: for float32 per head, (b, s, h, n) and (b, h,
+// G); for bf16 (b, s, g * nsplit, n), each row the sum over its block's
+// heads, nsplit = ceil((h / g) / ssd_scan_bwd_heads()), and (b, h, nc).
+// Launches three kernels (two when G = 1) on `stream`, does not
+// synchronise, allocates nothing; returns a CUDA error code (0 =
+// success).
 extern "C" int ssd_scan_bwd_launch(
     const void* x, const float* dt, const float* A, const void* B,
     const void* C, const void* dy, const float* states, float* cstates,
     float* dstates, float* gdecay, float* dsloc, float* facs, void* dx,
     float* ddt, float* dBp, float* dCp, float* dAp, int b, int s, int h,
-    int p, int g, int n, int chunk, int group, int dtype, void* stream) {
+    int p, int g, int n, int chunk, int group, int dtype, long long xh,
+    long long xs, long long xb, long long bg, long long bs, long long bb,
+    long long cg, long long cs, long long cb, long long yh, long long ys,
+    long long yb, void* stream) {
   if (b < 0 || s < 0 || h < 1 || g < 1 || h % g != 0 || b > 65535 ||
       h > 65535)
     return int(cudaErrorInvalidValue);
@@ -1542,13 +2022,21 @@ extern "C" int ssd_scan_bwd_launch(
   const BwdArgs a{x, dt, A, B, C, dy, G > 1 ? states : nullptr, cstates,
                   dstates, gdecay, dsloc, facs, dx, ddt, dBp, dCp, dAp, b, s,
                   h, g, G, nc, nsplit};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && n == 64) return launch_f32<64>(a, st);
-  if (dtype == 0 && n == 128) return launch_f32<128>(a, st);
-  if (dtype == 1 && n == 64) return launch_bf16<64>(a, st);
-  if (dtype == 1 && n == 128) return launch_bf16<128>(a, st);
-  if (dtype == 2 && n == 64) return launch_bf16<64, true>(a, st);
-  if (dtype == 2 && n == 128) return launch_bf16<128, true>(a, st);
+  const long long st[12] = {xh, xs, xb, bg, bs, bb, cg, cs, cb, yh, ys, yb};
+  const cudaStream_t stream_ = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {                // float32: dense inputs only
+    const long long hp = (long long)h * P, gn = (long long)g * n;
+    const long long dense[12] = {P, hp, s * hp, n, gn, s * gn,
+                                 n, gn, s * gn, P, hp, s * hp};
+    for (int i = 0; i < 12; ++i)
+      if (st[i] != dense[i]) return int(cudaErrorInvalidValue);
+    if (n == 64) return launch_f32<64>(a, stream_);
+    if (n == 128) return launch_f32<128>(a, stream_);
+  }
+  if (dtype == 1 && n == 64) return launch_hb<64, false>(a, st, stream_);
+  if (dtype == 1 && n == 128) return launch_hb<128, false>(a, st, stream_);
+  if (dtype == 2 && n == 64) return launch_hb<64, true>(a, st, stream_);
+  if (dtype == 2 && n == 128) return launch_hb<128, true>(a, st, stream_);
   return int(cudaErrorInvalidValue);
 }
 #endif

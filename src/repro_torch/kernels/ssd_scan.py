@@ -59,12 +59,16 @@ forward alone, as serving does.  `BWD_LAUNCHES` counts backward calls
 `ssd_scan_bwd_plain` is the
 backward's plain version, chunk by chunk from the gradient equations
 (the tests hold it to autograd of `ssd_scan_plain` and to `jax.grad`
-of the reference); `ssd_scan_bwd_split_plain` mirrors the bf16
-kernel's split (walks, pass, chunk blocks that sum the dB / dC of
-`BWD_HEADS` heads of a B/C group), and `split=k` on the plain version
-takes every operand the bf16 kernel splits as the sum of its first k
-bf16 parts (`split_parts`).  The backward returns dx, dB, dC in x's dtype, ddt and
-dA in float32.
+of the reference), and `split=k` on it takes every operand the bf16
+kernel splits as the sum of its first k truncated bf16 parts
+(`trunc_parts`: how many parts the card's limit needs).  The bf16
+backward runs on wgmma with x / dy / B / C copied by TMA
+(`bwd_launch_grids` gives its grids), reading the model's views where
+they lie as the forward does; `ssd_scan_bwd_fold_plain` mirrors its
+arithmetic in plain PyTorch and stands in for it in the CPU tests
+(walks, pass, chunk blocks that sum the dB / dC of `BWD_HEADS` heads of
+a B/C group in head order, the split operands in truncated parts).  The
+backward returns dx, dB, dC in x's dtype, ddt and dA in float32.
 """
 from __future__ import annotations
 
@@ -94,8 +98,10 @@ HEADS = 2
 STATE_HEADS = 1
 
 # heads of one B/C group a block of the bf16 backward takes
-# (csrc/ssd_scan_bwd.cu HEADS): it sums their dB and dC itself
+# (csrc/ssd_scan_bwd.cu HEADS): it sums their dB and dC itself; the
+# threads of its walk and chunk blocks, one warpgroup (HB_THREADS)
 BWD_HEADS = 8
+BWD_THREADS = 128
 
 LAUNCHES = 0                # kernel launches in this process
 BWD_LAUNCHES = 0            # backward kernel calls in this process
@@ -178,19 +184,6 @@ def ssd_scan_rounded_plain(x, dt, A, B, C, *, chunk=64):
     return torch.cat(ys, dim=1)[:, :s]
 
 
-def split_parts(t, parts):
-    """The bf16 parts of the float32 tensor `t` as the backward kernel
-    splits a float32 operand: the first is bf16(t), each next one bf16 of
-    what the parts before leave.  Returned as float32 tensors; with three
-    their sum is t, bit for bit, over float32's normal range."""
-    out, rest = [], t.float()
-    for _ in range(parts):
-        part = rest.to(torch.bfloat16).float()
-        out.append(part)
-        rest = rest - part
-    return out
-
-
 def trunc_parts(t, parts):
     """The bf16 parts of the float32 tensor `t` as the bf16 forward kernel
     splits an operand: the top 8 significant bits of t (its bits cut to a
@@ -263,11 +256,11 @@ def ssd_scan_fold_plain(x, dt, A, B, C, *, parts=3, group=GROUP_CHUNKS):
 
 def _operand(t, split):
     """What an exact tensor-core product sees of the float32 operand t
-    split into `split` bf16 parts (the sum of the parts); t itself when
-    `split` is None."""
+    split into `split` truncated bf16 parts (`trunc_parts`, the sum of the
+    parts; three are t); t itself when `split` is None."""
     if split is None:
         return t
-    parts = split_parts(t, split)
+    parts = trunc_parts(t, split)
     out = parts[0]
     for part in parts[1:]:
         out = out + part
@@ -276,7 +269,8 @@ def _operand(t, split):
 
 def _state_step(S, x_, dt_, A, B_, split=None):
     """One chunk forward: S (b, h, p, n) <- exp(c_L) S + sum_j (x_j dt_j
-    exp(c_L - c_j)) B_j^T, the scaled x split as the kernel splits it."""
+    exp(c_L - c_j)) B_j^T, the scaled x split into `split` parts (the
+    bf16 kernel splits the scaled B: the same product, exact at three)."""
     cA = torch.cumsum(dt_ * A, dim=1)
     v = x_ * (dt_ * torch.exp(cA[:, -1:] - cA))[..., None]
     upd = torch.einsum("bjhp,bjhn->bhpn", _operand(v, split), B_)
@@ -286,7 +280,8 @@ def _state_step(S, x_, dt_, A, B_, split=None):
 def _grad_step(dS, dy_, dt_, A, C_, split=None):
     """One chunk in reverse: the gradient of the chunk's outgoing state
     (b, h, p, n) to that of its incoming state, exp(c_L) dS + sum_i
-    (exp(c_i) dy_i) C_i^T, the scaled dy split as the kernel splits it."""
+    (exp(c_i) dy_i) C_i^T, the scaled dy split into `split` parts (the
+    bf16 kernel splits the scaled C: the same product, exact at three)."""
     cA = torch.cumsum(dt_ * A, dim=1)
     v = dy_ * torch.exp(cA)[..., None]
     return dS * torch.exp(cA[:, -1])[..., None, None] + torch.einsum(
@@ -310,8 +305,8 @@ def _chunk_grads(x_, dt_, A, B_, C_, dy_, S, dS, tri, rounded=False,
     Returns dx, ddt (b, L, h), dA (b, h), dB, dC (b, L, h, n).
     `rounded` rounds W and GE to bf16 before the products that take them
     (a tensor-core shortcut: the control of the card's bf16 check);
-    `split` takes W, GE, S and dS' as the sums of that many bf16 parts
-    there, as the bf16 kernel does."""
+    `split` takes W, GE, S and dS' as the sums of that many truncated
+    bf16 parts there, as the bf16 kernel does."""
     zero = torch.zeros((), dtype=torch.float32, device=x_.device)
     cA = torch.cumsum(dt_ * A, dim=1)                       # (b,L,h)
     E = torch.where(tri[None, :, :, None],
@@ -408,8 +403,8 @@ def ssd_scan_bwd_plain(x, dt, A, B, C, dy, *, chunk=64, rounded=False,
     = C = dy = 0, as in the forward.  `rounded`: W and GE rounded to one
     bf16 before their products (the control of the card's bf16 check);
     `split`: every float32 operand the bf16 kernel splits (W, GE, S, dS',
-    the scaled x and dy of the walks) taken as the sum of that many bf16
-    parts."""
+    the walks' scaled x and dy) taken as the sum of that many truncated
+    bf16 parts (`trunc_parts`)."""
     b, s, h, p = x.shape
     n = B.shape[3]
     rows = -(-s // chunk) * chunk
@@ -422,35 +417,43 @@ def ssd_scan_bwd_plain(x, dt, A, B, C, dy, *, chunk=64, rounded=False,
 
 def head_sets(t, g, heads=None):
     """Per-head rows (b, s, h, n) summed over sets of `heads` consecutive
-    heads of each of the g B/C groups, the last set of a group short when
-    heads does not divide h / g: (b, s, g, nsplit, n), nsplit =
-    ceil((h / g) / heads).  The bf16 backward kernel's blocks sum their
-    heads so."""
+    heads of each of the g B/C groups, in head order, the last set of a
+    group short when heads does not divide h / g: (b, s, g, nsplit, n),
+    nsplit = ceil((h / g) / heads).  The bf16 backward kernel's blocks sum
+    their heads so."""
     heads = BWD_HEADS if heads is None else heads
     b, s, h, n = t.shape
     hpg = h // g
     nsplit = -(-hpg // heads)
     t = torch.nn.functional.pad(t.reshape(b, s, g, hpg, n),
                                 (0, 0, 0, nsplit * heads - hpg))
-    return t.reshape(b, s, g, nsplit, heads, n).sum(4)
+    t = t.reshape(b, s, g, nsplit, heads, n)
+    out = t[:, :, :, :, 0]
+    for k in range(1, heads):
+        out = out + t[:, :, :, :, k]
+    return out
 
 
-def ssd_scan_bwd_split_plain(x, dt, A, B, C, dy, states=None, *, chunk=64,
-                             group=GROUP_CHUNKS, heads=None):
-    """The bf16 backward kernel's split in plain PyTorch: `states` are the
-    forward's group states as the kernel keeps them, (b, h, G, n, p)
-    float32 (None: computed here; zero when G = 1).  Launch 1, two walks
-    per group: forward from the group's state, every chunk's incoming
-    state; in reverse from a zero gradient, each chunk's local dS' (from
-    the group's later rows) and the product of the decays after it, which
-    end in the group's own incoming-state gradient and decay.  Launch 2:
-    the gradient of every group's outgoing state, from the last group to
-    the first.  Launch 3, per chunk: dS' = local + decay x its group's
-    outgoing gradient, the chunk's gradient (`_chunk_grads`), dB and dC
-    summed over sets of `heads` heads of a B/C group (`head_sets`), the
-    sets summed after."""
-    b, s, h, p = x.shape
-    g, n = B.shape[2], B.shape[3]
+def ssd_scan_bwd_fold_plain(x, dt, A, B, C, dy, states=None, *, parts=3,
+                            chunk=TILE, group=GROUP_CHUNKS, heads=None):
+    """The bf16 backward kernels' arithmetic in plain PyTorch, float32: the
+    CPU tests' stand-in for them.  Every float32 operand the kernels split
+    (S, dS', W and G o E; in the walks the scaled x and dy, where the
+    kernels split the scaled B and C) is taken as the sum of its first
+    `parts` truncated bf16 parts (`trunc_parts`; three are the operand).  `states` are the forward's group
+    states as the kernel keeps them, (b, h, G, n, p) float32 (None:
+    computed here).  Launch 1, two walks per group: forward from the
+    group's state, every chunk's incoming state; in reverse from a zero
+    gradient, each chunk's local dS' (from the group's later rows) and the
+    product of the decays after it, which end in the group's own
+    incoming-state gradient and decay.  Launch 2: the gradient of every
+    group's outgoing state, from the last group to the first.  Launch 3,
+    per `chunk`-row chunk (the kernels' `TILE`): dS' = local + decay x its
+    group's outgoing gradient, the chunk's gradient (`_chunk_grads`), dB
+    and dC summed over sets of `heads` heads of a B/C group in head order
+    (`head_sets`), the sets after.  A ragged tail reads as dt = 0.
+    Returns dx, dB, dC in x's dtype, ddt and dA float32."""
+    s, g = x.shape[1], B.shape[2]
     G = n_groups(s, chunk, group)
     nc = -(-s // chunk)
     if states is None:
@@ -468,12 +471,12 @@ def ssd_scan_bwd_split_plain(x, dt, A, B, C, dy, states=None, *, chunk=64,
         for c in span:
             S_in[c] = S
             S = _state_step(S, xf[:, cut[c]], dtf[:, cut[c]], A,
-                            Bh[:, cut[c]])
+                            Bh[:, cut[c]], parts)
         X, f = torch.zeros_like(S), torch.ones_like(S[..., 0, 0])
         for c in reversed(span):
             loc[c], fac[c] = X, f
             X = _grad_step(X, dyf[:, cut[c]], dtf[:, cut[c]], A,
-                           Ch[:, cut[c]])
+                           Ch[:, cut[c]], parts)
             f = f * torch.exp((dtf[:, cut[c]] * A).sum(1))
         own.append(X)
         gdec.append(f)
@@ -488,12 +491,33 @@ def ssd_scan_bwd_split_plain(x, dt, A, B, C, dy, states=None, *, chunk=64,
     outs = [_chunk_grads(xf[:, sl], dtf[:, sl], A, Bh[:, sl], Ch[:, sl],
                          dyf[:, sl], S_in[c],
                          loc[c] + fac[c][..., None, None] * out[c // group],
-                         tri)
+                         tri, split=parts)
             for c, sl in enumerate(cut)]
     dx, ddt, dA, dBh, dCh = zip(*outs)
     dx, ddt, dBh, dCh = (torch.cat(t, 1)[:, :s] for t in (dx, ddt, dBh, dCh))
     dB, dC = (head_sets(t, g, heads).sum(3).to(x.dtype) for t in (dBh, dCh))
     return dx.to(x.dtype), ddt, torch.stack(dA).sum((0, 1)), dB, dC
+
+
+def bwd_launch_grids(x, B) -> list:
+    """The backward's launches of one call at p 64 and one n-block, as
+    csrc/ssd_scan_bwd.cu makes them: (name, grid (x, y, z), threads a
+    block, heads a block).  bf16: the walks over 2 G groups (forward and
+    reverse), a head a block; the pass (G > 1); the chunk blocks over the
+    nc tiles, sets of `BWD_HEADS` heads of one B/C group (grid y: g sets
+    of ceil((h / g) / BWD_HEADS), `block_heads`); each bf16 block is one
+    warpgroup, whose thread 0 also issues the TMA copies.  float32: a
+    head a block over the G groups.  Shapes and dtype only: meta tensors
+    will do."""
+    b, s, h, _ = x.shape
+    g, n = B.shape[2], B.shape[3]
+    G, nc = n_groups(s), -(-s // TILE)
+    pas = [("pass", (n * 64 // 256, h, b), 256, 1)] if G > 1 else []
+    if x.dtype == torch.float32:
+        return [("state", (G, h, b), 256, 1), *pas, ("scan", (G, h, b), 256, 1)]
+    sets = -(-(h // g) // BWD_HEADS)
+    return [("walk", (2 * G, h, b), BWD_THREADS, 1), *pas,
+            ("chunk", (nc, g * sets, b), BWD_THREADS, BWD_HEADS)]
 
 
 def bwd_kernel_launches(s: int) -> int:
@@ -796,7 +820,7 @@ def _bwd_lib():
     lib = build.load("ssd_scan_bwd")
     fn = lib.ssd_scan_bwd_launch
     fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 9 \
-        + [ctypes.c_void_p]
+        + [ctypes.c_longlong] * 12 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     heads = lib.ssd_scan_bwd_heads()
     if heads != BWD_HEADS:
@@ -818,15 +842,18 @@ def _bwd_block(x, dt, A, B, C, dy, states, f32):
     """One backward call (`bwd_kernel_launches(s)` kernels) at p 64 and
     an n-block, from that block's group states.  Returns dx (float32 when
     `f32`, else x's dtype), ddt and dA float32, dB and dC in x's dtype at
-    the block's true width.  The kernel writes float32 dB / dC rows
-    (`bwd_rows`) and dA parts per (batch, head, group) in float32 or per
-    (batch, head, tile) in bf16, summed here."""
+    the block's true width.  bf16 x / B / C / dy are read where they lie
+    when the TMA maps take them (`_tma_ready`, as the forward's), else
+    copied dense.  The kernel writes float32 dB / dC rows (`bwd_rows`)
+    and dA parts per (batch, head, group) in float32 or per (batch, head,
+    tile) in bf16, summed here."""
     global BWD_LAUNCHES
     n0 = B.shape[3]
-    ins, _, _ = _prepare(x, dt, A, B, C)
+    ins, _, _ = _prepare(x, dt, A, B, C, views=True)
     x, B = ins[0], ins[3]
-    dy = dy.contiguous()
-    dy = dy if dy.data_ptr() % 16 == 0 else dy.clone()
+    if not (x.dtype == torch.bfloat16 and _tma_ready(dy)):
+        dy = dy.contiguous()
+        dy = dy if dy.data_ptr() % 16 == 0 else dy.clone()
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     G, nc = n_groups(s), -(-s // TILE)
@@ -842,14 +869,16 @@ def _bwd_block(x, dt, A, B, C, dy, states, f32):
     gdecay = torch.empty((b, h, G), **fl)
     dsloc = torch.empty((b, h, nc, n, p), **fl) if bf else None
     facs = torch.empty((b, h, nc), **fl) if bf else None
-    dx = torch.empty_like(x, dtype=torch.float32 if f32 else x.dtype)
+    dx = torch.empty_like(x, dtype=torch.float32 if f32 else x.dtype,
+                          memory_format=torch.contiguous_format)
     ddt = torch.empty((b, s, h), **fl)
     rows = bwd_rows(h, g, x.dtype)
     dBp, dCp = (torch.empty((b, s, rows, n), **fl) for _ in range(2))
     dAp = torch.empty((b, h, nc if bf else G), **fl)
     _call(_bwd_lib(), (*ins, dy, states if G > 1 else None, chunk_states,
                        dstates, gdecay, dsloc, facs, dx, ddt, dBp, dCp, dAp),
-          _dims(x, B, f32), "ssd_scan backward")
+          (*_dims(x, B, f32), *_strides(x), *_strides(B), *_strides(ins[4]),
+           *_strides(dy)), "ssd_scan backward")
     BWD_LAUNCHES += 1
     dB, dC = (t.view(b, s, g, rows // g, n).sum(3)[..., :n0].to(x.dtype)
               for t in (dBp, dCp))
@@ -882,7 +911,8 @@ class SSDScan(torch.autograd.Function):
     """The forward kernel keeping its group states, and the backward
     kernel as its gradient, both at the kernels' `TILE` (the caller's
     chunk only orders the plain version's sums).  Saves x, dt, A, B, C
-    and the group states; the backward launches on a contiguous dy.
+    (the model's views, uncopied) and the group states; the backward
+    takes dy as it comes (the wrapper copies what its maps cannot read).
     Under activation checkpointing the recompute runs (and counts) the
     forward again."""
 
@@ -895,7 +925,7 @@ class SSDScan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, dt, A, B, C, states = ctx.saved_tensors
-        return _ssd_bwd_cuda(x, dt, A, B, C, dy.contiguous(), states)
+        return _ssd_bwd_cuda(x, dt, A, B, C, dy, states)
 
 
 def ssd_group_states_cuda(x, dt, A, B, C):

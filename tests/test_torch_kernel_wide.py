@@ -549,7 +549,7 @@ def test_wide_ssd_on_the_card_route(monkeypatch, p, n, s):
     b, h, g = 1, 2, 1
     _, t = _ssd_inputs(p + n + s, b, s, h, p, g, n, dt_scale=0.05)
     want = PLAIN_SSD(*t[:5], chunk=ss.TILE)
-    grads = ss.ssd_scan_bwd_split_plain(*t, chunk=ss.TILE)
+    grads = ss.ssd_scan_bwd_fold_plain(*t, chunk=ss.TILE)
 
     def refuse(*a, **kw):
         raise AssertionError("the card route reached the plain version")

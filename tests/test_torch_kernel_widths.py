@@ -223,7 +223,7 @@ def test_flash_built_widths_launch_unpadded(monkeypatch):
 
 def _ssd_launches(monkeypatch, seen, plain=PLAIN_SSD,
                   states_plain=ss.ssd_split_states_plain,
-                  bwd_plain=ss.ssd_scan_bwd_split_plain):
+                  bwd_plain=ss.ssd_scan_bwd_fold_plain):
     """Swap the SSD's ctypes launch for the plain versions at the widths
     and tile the launch is handed (float32), recording (entry, p, n)."""
     monkeypatch.setattr(ss, "_lib", lambda entry="ssd_scan_launch": entry)
@@ -233,7 +233,7 @@ def _ssd_launches(monkeypatch, seen, plain=PLAIN_SSD,
         ts = [None if t is None else t.as_subclass(torch.Tensor)
               for t in tensors]
         b, s, h, p, g, n, tile, group, _, *strides = d
-        assert len(strides) == (9 if fn == "ssd_scan_launch" else 0)
+        assert len(strides) == (9 if fn == "ssd_scan_launch" else 12)
         seen.append((fn, p, n))
         if fn == "ssd_scan_launch":
             x, dt, A, B, C, y, st, _ = ts
@@ -268,7 +268,7 @@ def test_ssd_padding_forward_and_backward(monkeypatch, p, n, width, b, s, h,
     widths the kernels are not built for: the launches see the padded
     widths, the group states are kept padded, y equals the plain version
     at the true widths and every gradient the plain backward there (the
-    kernel's split, `ssd_scan_bwd_split_plain`)."""
+    kernel's mirror, `ssd_scan_bwd_fold_plain`)."""
     seen = []
     _ssd_launches(monkeypatch, seen)
     _, t = _ssd_inputs(s + p + n, b, s, h, p, g, n, dt_scale=0.05)
@@ -281,7 +281,7 @@ def test_ssd_padding_forward_and_backward(monkeypatch, p, n, width, b, s, h,
     assert [(fn, pp, nn) for fn, pp, nn in seen] == [
         ("ssd_scan_launch", *width), ("ssd_scan_bwd_launch", *width)]
     want = PLAIN_SSD(*t[:5], chunk=ss.TILE)
-    grads = ss.ssd_scan_bwd_split_plain(*t, chunk=ss.TILE)
+    grads = ss.ssd_scan_bwd_fold_plain(*t, chunk=ss.TILE)
     assert y.shape == want.shape and y.is_contiguous()
     _rel_close(y.detach(), want, "y")
     for name, a, w in zip(("x", "dt", "A", "B", "C"), leaves, grads):
@@ -302,12 +302,12 @@ def test_ssd_padded_columns_leave_ddt_and_da_unmoved(monkeypatch):
     assert not states[:, :, :, n:].any() and not states[..., p:].any()
     got = ss._ssd_bwd_cuda(*t[:5], t[5], states)
     x, dt, A, B, C, dy = t
-    want = ss.ssd_scan_bwd_split_plain(
+    want = ss.ssd_scan_bwd_fold_plain(
         ss._pad_cols(x, 64), dt, A, ss._pad_cols(B, 64), ss._pad_cols(C, 64),
         ss._pad_cols(dy, 64), states, chunk=ss.TILE)
     torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)   # ddt
     torch.testing.assert_close(got[2], want[2], rtol=0, atol=0)   # dA
-    unpadded = ss.ssd_scan_bwd_split_plain(*t[:5], t[5], chunk=ss.TILE)
+    unpadded = ss.ssd_scan_bwd_fold_plain(*t[:5], t[5], chunk=ss.TILE)
     for k in (1, 2):
         _rel_close(got[k], unpadded[k], ("ddt", "dA")[k - 1])
 

@@ -1024,6 +1024,71 @@ def test_ssd_bwd_matches_plain(cuda, dtype, b, s, h, g, n):
             assert not bool(a.any())
 
 
+def _ssd_bwd_case(b, s, h, g, n, cuda, p=64):
+    """bf16 x, dt (x 0.05), A, B, C and dy on the card, and the forward's
+    group states."""
+    bf = torch.bfloat16
+    ins = [_randn(10, (b, s, h, p), bf, cuda, 0.5),
+           0.05 * torch.nn.functional.softplus(
+               _randn(11, (b, s, h), torch.float32, cuda)),
+           -torch.exp(0.3 * _randn(12, (h,), torch.float32, cuda)),
+           _randn(13, (b, s, g, n), bf, cuda, 0.3),
+           _randn(14, (b, s, g, n), bf, cuda, 0.3)]
+    dy = _randn(15, (b, s, h, p), bf, cuda)
+    _, states = ss._ssd_cuda(*ins, states=True)
+    return ins, dy, states
+
+
+@pytest.mark.parametrize("n", [64, 128])
+def test_ssd_bwd_hb_strided_views_match_dense(cuda, n):
+    """The bf16 backward's TMA maps read the model's views (x / B / C in
+    one conv output, dy in a wider buffer) where they lie: the gradients
+    are the dense inputs' bit for bit, and a repeat is bit-equal."""
+    b, s, h, g = 2, 1100, 6, 2
+    ins, dy, states = _ssd_bwd_case(b, s, h, g, n, cuda)
+    x, dt, A, B, C = ins
+    xbc = torch.cat([x.reshape(b, s, -1), B.reshape(b, s, -1),
+                     C.reshape(b, s, -1)], -1)
+    xv = xbc[..., :h * 64].reshape(b, s, h, 64)
+    Bv = xbc[..., h * 64:h * 64 + g * n].reshape(b, s, g, n)
+    Cv = xbc[..., h * 64 + g * n:].reshape(b, s, g, n)
+    wide = torch.zeros((b, s, h * 64 + 8), dtype=dy.dtype, device=cuda)
+    wide[..., :h * 64] = dy.reshape(b, s, -1)
+    dyv = wide[..., :h * 64].reshape(b, s, h, 64)
+    assert all(ss._tma_ready(t) and not t.is_contiguous()
+               for t in (xv, Bv, Cv, dyv))
+    dense = ss._ssd_bwd_cuda(x, dt, A, B, C, dy, states)
+    views = ss._ssd_bwd_cuda(xv, dt, A, Bv, Cv, dyv, states)
+    again = ss._ssd_bwd_cuda(xv, dt, A, Bv, Cv, dyv, states)
+    torch.cuda.synchronize()
+    for a, c, d in zip(dense, views, again):
+        assert torch.equal(a, c) and torch.equal(c, d)
+
+
+@pytest.mark.parametrize("b,s,h,g,n,p", [
+    (1, 1100, 80, 1, 128, 64),     # mamba2-2.7b's widths: 10 sets of 8
+    (2, 700, 13, 1, 64, 64),       # 13 heads of a group: 8 + 5
+    (1, 600, 4, 1, 256, 64),       # two n-blocks: the DXF32 sum
+    (1, 600, 4, 2, 200, 100),      # p-blocks and n-blocks, padded
+])
+def test_ssd_bwd_hb_widths_and_sets(cuda, b, s, h, g, n, p):
+    """The bf16 backward at mamba2-2.7b's widths, a head count the
+    blocks' 8 do not divide, and past the built widths (n in two blocks
+    whose float32 dx parts sum before one rounding; p in blocks as
+    heads): within 5e-4 relative RMS of `ssd_scan_bwd_plain` on each
+    gradient, a repeat bit-equal."""
+    ins, dy, states = _ssd_bwd_case(b, s, h, g, n, cuda, p)
+    runs = []
+    for _ in range(2):
+        leaves = [t.clone().requires_grad_() for t in ins]
+        y = ss.ssd_scan(*leaves, chunk=64)
+        runs.append(torch.autograd.grad(y, leaves, dy))
+    want = ss.ssd_scan_bwd_plain(*ins, dy, chunk=64)
+    for a, c, w in zip(*runs, want):
+        assert torch.equal(a, c) and a.dtype == w.dtype
+        assert _rel_rms(a.float(), w.float()) <= 5e-4
+
+
 def test_twin_query_syncs_are_covered_by_the_lint(cuda):
     """Every synchronizing operation torch reports (sync debug mode
     "warn") in a warm default-grid twin query sits, when its function is

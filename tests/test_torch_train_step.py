@@ -441,8 +441,8 @@ def _plain_ssd_route(monkeypatch):
 
     def bwd(x, dt, A, B, C, dy, states):
         ss.BWD_LAUNCHES += 1
-        return ss.ssd_scan_bwd_split_plain(x, dt, A, B, C, dy, states,
-                                           chunk=ss.TILE)
+        return ss.ssd_scan_bwd_fold_plain(x, dt, A, B, C, dy, states,
+                                          chunk=ss.TILE)
 
     monkeypatch.setattr(ss, "_ssd_cuda", fwd)
     monkeypatch.setattr(ss, "_ssd_bwd_cuda", bwd)
